@@ -1,35 +1,51 @@
-"""Smoke run of the PyTorch port on one NVIDIA card: build, check, serve.
+"""Smoke run of the PyTorch port on one NVIDIA card: build, check, serve, train.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero before the result line):
 
 1. device   the card's name, count and power limit; no card -> exit 1.
-2. build    csrc/predict_forest.cu with nvcc; build seconds and ptxas's
-            registers / shared memory / spills.
+2. build    the three sources under csrc/ (forest traversal, leaf
+            histogram, split scan), one nvcc each, all started together;
+            build seconds and ptxas's registers / shared memory / spills.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
             the repo targets (binary, 28 features, 500 trees x 255 leaves,
             LightGBM docs/Experiments.rst HIGGS settings), a multiclass-3
             model with categorical splits, and a model with constant and
             stump trees; each written with Booster.save_model.
-4. kernels  each kernel against its plain PyTorch version on the card, on a
-            65,536-row sample (~1% NaN and exact zeros): leaf indices
-            exactly equal, raw scores within the float32 summation bound,
-            two launches bit-equal, launch counter advanced; then the
-            timings at the main path's shapes, the raw kernel bit-equal to
-            the plain version at the streamed chunk's shape.
-5. booster  the main path, part 1: Booster(model_file=...) on the default
+4. kernels  each kernel against its plain PyTorch version on the card:
+            the traversal on a 65,536-row sample (~1% NaN and exact zeros),
+            leaf indices exactly equal, raw scores within the float32
+            summation bound, two launches bit-equal, then its timings at the
+            main path's shapes. The leaf histogram and the split scan on the
+            HIGGS-width training data (1,048,576 rows x 28 features x 255
+            bins, made from --seed): the histogram at the root and on a
+            ~100,000-row leaf, exact on grid-snapped gradients and in the
+            integer mode, within the float32 summation bound otherwise, two
+            launches bit-equal; the split scan's records on those leaves,
+            with and without a feature mask, equal to the plain version run
+            on the CPU (the gain within 4 ULP); then their timings.
+5. exact    training on 65,536 rows with grid-snapped custom gradients, 3
+            rounds, on the card and with device_type=cpu: byte-equal models.
+6. booster  the serving path, part 1: Booster(model_file=...) on the default
             device predicts 1,048,576 rows (auto-streamed in 262,144-row
             chunks); the streamed raw scores equal the CPU Booster's on
             both sides of every chunk boundary; leaf indices on a slice.
-6. serving  the main path, part 2: PredictionService + HTTP front with the
+7. serving  the serving path, part 2: PredictionService + HTTP front with the
             bench's settings, 256 requests of 64 rows from 8 threads, JSON
             and binary wire, every answer bit-equal to Booster.predict.
+8. train    the training path: lightgbm_tpu_torch.train on the 1,048,576 x
+            28 data, binary objective, num_leaves=255, max_bin=255,
+            learning_rate=0.1, feature_fraction_bynode=0.8, 10 rounds, with
+            a 65,536-row validation set; seconds per iteration, leaves per
+            tree, train and valid AUC; the model text reloads and predicts
+            through the traversal kernel equal to the training Booster.
 
-The launch counters are set to 0 just before phase 5 and read just after
-phase 6: every kernel of the path must have launched there. The last
-three lines are the kernels' JSON record, the card's name and power limit
-as nvidia-smi gives them, and {"ok": true, "device": {...}}.
+The launch counters are set to 0 just before phase 6 and read just after
+phase 7 (the serving path), and again just before and after phase 8 (the
+training path): every kernel of each path must have launched there. The
+last three lines are the kernels' JSON record, the card's name and power
+limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -55,6 +71,13 @@ HIGGS = dict(n_features=28, n_iterations=500, num_leaves=255)
 SAMPLE_ROWS = 65_536
 MAIN_ROWS = 1_048_576
 SERVE_REQUESTS, SERVE_ROWS, SERVE_THREADS = 256, 64, 8
+# the training path: HIGGS width (bench.py:7-13) with per-node sampling
+TRAIN_ROWS, VALID_ROWS, LEAF_ROWS = 1_048_576, 65_536, 100_000
+TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 65_536, 3
+TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+                "learning_rate": 0.1, "feature_fraction_bynode": 0.8,
+                "metric": "auc", "verbosity": -1}
+SCAN_PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]  # TRAIN_PARAMS' regularizers
 
 
 class SmokeFailure(RuntimeError):
@@ -107,6 +130,179 @@ def leaf_depths(trees, device) -> torch.Tensor:
     return torch.from_numpy(depth).to(device)
 
 
+def bound(nbytes: float, ops: float):
+    """The least time the card could take: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is larger (ms)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def higgs_rows(seed: int, n: int):
+    """HIGGS-shaped rows from a seed: 28 dense features (momenta-like
+    positive skewed columns, angle-like symmetric and uniform ones, a few
+    tagging columns of four values) and a binary label drawn from a fixed
+    logistic function of them plus noise."""
+    rng = np.random.RandomState(seed)
+    X = np.empty((n, 28), dtype=np.float32)
+    X[:, 0:8] = rng.exponential(1.0, size=(n, 8))
+    X[:, 8:16] = rng.normal(size=(n, 8))
+    X[:, 16:21] = rng.uniform(-np.pi, np.pi, size=(n, 5))
+    X[:, 21:25] = rng.randint(0, 4, size=(n, 4))
+    X[:, 25:28] = rng.gamma(2.0, 0.5, size=(n, 3))
+    f = (0.8 * X[:, 0] - 0.6 * X[:, 1] + 0.5 * X[:, 8] * X[:, 9]
+         + 0.4 * np.sin(X[:, 16]) + 0.3 * X[:, 21] - 0.7 * X[:, 25]
+         + 0.2 * X[:, 10] ** 2 - 0.5)
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-f - rng.normal(0, 0.5, n)))).astype(np.float64)
+    return X, y
+
+
+def snapped_logloss(preds, dataset):
+    """Binary logloss gradients snapped to a 2**-4 grid: with |g| <= 1 and
+    at most 2**16 rows every histogram sum is exact in float32, so the card
+    and the CPU see the same bits whatever order they sum in."""
+    p = 1.0 / (1.0 + np.exp(-preds))
+    grad = np.round((p - dataset.get_label()) * 16) / 16
+    hess = np.round(np.maximum(p * (1.0 - p), 1.0 / 16) * 16) / 16
+    return grad, hess
+
+
+def check_histogram(dev, bins, n_rows, num_bins, seed):
+    """The leaf-histogram kernel against its plain version at the training
+    path's shapes: the root (identity rows) and a padded ~100,000-row leaf.
+    The plain version runs on the CPU, whose sums are sequential (on the
+    card its scatter-add order changes from run to run), and is timed on
+    the card. Returns (max |kernel - plain| on unsnapped gradients,
+    timings, bounds, the gradients and the leaf's rows on the card)."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
+                                                  _build_histogram_rows_plain)
+
+    rng = np.random.RandomState(seed)
+    G = bins.shape[0]
+    raw = np.stack([rng.normal(0, 0.3, n_rows), rng.uniform(0.05, 0.25, n_rows),
+                    np.ones(n_rows)], axis=1)
+    snapped = np.round(np.clip(raw, -0.9, 0.9) * 16) / 16
+    ext = lambda a: torch.from_numpy(np.concatenate(  # noqa: E731
+        [a, np.zeros((1, 3))]).astype(np.float32)).to(dev)
+    gh, gh_snap = ext(raw), ext(snapped)
+    q = torch.from_numpy(np.concatenate([rng.randint(-127, 128, (n_rows, 3)),
+                                         np.zeros((1, 3))]).astype(np.int8)).to(dev)
+    P = 1 << int(np.ceil(np.log2(LEAF_ROWS)))
+    idx_np = np.full(P, n_rows, np.int32)
+    idx_np[:LEAF_ROWS] = np.sort(rng.choice(n_rows, LEAF_ROWS, replace=False))
+    idx = torch.from_numpy(idx_np).to(dev)
+    bins_h = bins.cpu()
+    max_err = 0.0
+    for name, rows, n_pos in (("root", None, n_rows), ("leaf", idx, P)):
+        def kern(values, r=rows):
+            return hist_cuda.histogram(bins, values if r is not None else values[:n_rows],
+                                       r, num_bins).cpu()
+
+        def plain(values, r=rows):
+            values = values.cpu()
+            if r is None:
+                return _build_histogram_plain(bins_h, values[:n_rows], num_bins)
+            return _build_histogram_rows_plain(bins_h, values, r.cpu(), num_bins)
+
+        check(torch.equal(kern(gh_snap), plain(gh_snap)),
+              f"histogram {name}: differs from the plain version on snapped gradients")
+        got, again = kern(gh), kern(gh)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"histogram {name}: two launches differ")
+        ref = plain(gh)
+        err = (got.double() - ref.double()).abs()
+        check(bool((err <= n_pos * 2.0 ** -24 * plain(gh.abs()).double()).all()),
+              f"histogram {name}: outside the float32 summation bound")
+        check(torch.equal(kern(q), plain(q)), f"histogram {name}: integer mode differs")
+        max_err = max(max_err, float(err.max()))
+    valid_rows = LEAF_ROWS
+    timings = {
+        "root": cuda_ms(lambda: hist_cuda.histogram(bins, gh[:n_rows], None, num_bins), 20),
+        "leaf": cuda_ms(lambda: hist_cuda.histogram(bins, gh, idx, num_bins), 20),
+        "plain_root": cuda_ms(lambda: _build_histogram_plain(bins, gh[:n_rows], num_bins), 3),
+        "plain_leaf": cuda_ms(lambda: _build_histogram_rows_plain(bins, gh, idx, num_bins), 3),
+    }
+    out_bytes = G * num_bins * 3 * 4
+    bounds = {  # each input read once, the output written once
+        "root": bound(G * n_rows + 12 * n_rows + out_bytes, 3 * G * n_rows),
+        "leaf": bound(G * valid_rows + 12 * valid_rows + 4 * P + out_bytes,
+                      3 * G * valid_rows),
+    }
+    return max_err, timings, bounds, (gh, idx)
+
+
+def check_split_scan(dev, ds, bins, num_bins, gh, idx):
+    """The split-scan kernel against its plain version run on the CPU on the
+    same real leaf histograms (the root and the leaf), with and without a
+    feature mask: every field equal, the gain within 4 ULP of the un-shifted
+    gain. Returns (max |gain difference|, timings, bound)."""
+    from lightgbm_tpu_torch.ops import hist_cuda, scan_cuda
+    from lightgbm_tpu_torch.ops import split as ts
+
+    meta_d = ts.make_feature_meta(ds, num_bins, dev)
+    meta_h = ts.make_feature_meta(ds, num_bins, "cpu")
+    F = len(meta_h.real_feature)
+    params_d = torch.tensor(SCAN_PARAMS, device=dev)
+    params_h = torch.tensor(SCAN_PARAMS)
+    mask = np.random.RandomState(5).rand(F) < 0.8
+    max_err = 0.0
+    for name, rows in (("root", None), ("leaf", idx)):
+        hist = hist_cuda.histogram(bins, gh if rows is not None else gh[:-1], rows,
+                                   num_bins)
+        tot = hist[0].sum(dim=0)
+        fh = ts.gather_feature_hist(hist, meta_d, tot)
+        for m in (None, mask):
+            rec = scan_cuda.split_scan(
+                fh, tot, meta_d, params_d,
+                None if m is None else torch.from_numpy(m).to(dev)).cpu()
+            ref = ts._per_feature_best_plain(fh.cpu(), tot.cpu(), meta_h, params_h,
+                                             None if m is None else torch.from_numpy(m))
+            what = f"split scan {name}{' masked' if m is not None else ''}"
+            check(torch.equal(rec[:, 1:], ref[:, 1:]), f"{what}: records differ")
+            finite = torch.isfinite(ref[:, 0])
+            check(torch.equal(torch.isfinite(rec[:, 0]), finite), f"{what}: gains differ")
+            shift = ts.leaf_gain(tot[0].cpu(), tot[1].cpu(), *params_h[[0, 1, 5]])
+            ulp = torch.from_numpy(np.spacing(
+                np.abs((ref[:, 0] + shift).numpy()).astype(np.float32)))
+            d = (rec[:, 0] - ref[:, 0]).abs()[finite]
+            check(bool((d <= 4 * ulp[finite]).all()), f"{what}: gain beyond 4 ULP")
+            check(bool((rec[:, 1] >= 0).any()), f"{what}: no feature has a split")
+            max_err = max(max_err, float(d.max()) if d.numel() else 0.0)
+    mask_d = torch.from_numpy(mask).to(dev)
+    timings = {
+        "kernel": cuda_ms(lambda: scan_cuda.split_scan(fh, tot, meta_d, params_d, mask_d), 50),
+        "plain": cuda_ms(lambda: ts._per_feature_best_plain(fh, tot, meta_d, params_d,
+                                                            mask_d), 10),
+    }
+    B = meta_h.max_bins
+    nbytes = F * B * 3 * 4 + F * B + F * 14 + 6 * 4 + 3 * 4 + F * 14 * 4
+    ops = F * B * 2 * 30  # per (feature, bin, lane): two leaf gains and gates
+    return max_err, timings, bound(nbytes, ops), F, B
+
+
+def device_busy_share(fn):
+    """(kernel seconds, wall seconds, top kernels) of fn() under
+    torch.profiler, or None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    per_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us
+    if not per_kernel:
+        return None
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return (sum(per_kernel.values()) * 1e-6, wall,
+            ", ".join(f"{k[:40]} {v / 1e3:.1f} ms" for k, v in top))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -117,9 +313,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
-    from lightgbm_tpu_torch.ops import predict_cuda
+    from lightgbm_tpu_torch.ops import cuda_build, hist_cuda, predict_cuda, scan_cuda
     from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused,
                                                 _traverse_leaves, pack_ensemble)
     from lightgbm_tpu_torch.serving import PredictionService, serve, wire
@@ -133,12 +330,16 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ----------------------------------------------------------------- build
-    info = predict_cuda.build(force=True)
-    print(f"build: {os.path.relpath(str(predict_cuda.SOURCE))} in "
-          f"{info['seconds']:.2f} s")
-    for line in str(info["ptxas"]).splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  " + line.strip())
+    t0 = time.perf_counter()
+    builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB],
+                                  force=True)
+    print(f"build: {len(builds)} sources in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for info in builds:
+        print(f"  {os.path.relpath(str(info['source']))}: {info['seconds']:.2f} s")
+        for line in str(info["ptxas"]).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("    " + line.strip())
 
     # ---------------------------------------------------------------- models
     t0 = time.perf_counter()
@@ -228,10 +429,6 @@ def main() -> int:
     ops_leaf = visits * SAMPLE_ROWS / chunk  # same data profile, a quarter of the rows
     torch.cuda.empty_cache()
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
     bound_raw, by_raw = bound(bytes_raw, ops_raw)
     bound_leaf, by_leaf = bound(bytes_leaf, ops_leaf)
     print(f"{tag} predict_forest_raw {chunk}x{F}, {T} trees: kernel "
@@ -242,6 +439,64 @@ def main() -> int:
     print(f"{tag} predict_forest_leaf {SAMPLE_ROWS}x{F}, {T} trees: kernel "
           f"{ms_leaf:.4f} ms, plain {plain_leaf:.2f} ms, bound {bound_leaf:.4f} ms "
           f"({by_leaf})")
+
+    # ------------------------- kernels of the training path vs plain
+    t0 = time.perf_counter()
+    X_train, y_train = higgs_rows(args.seed + 5, TRAIN_ROWS)
+    X_valid, y_valid = higgs_rows(args.seed + 6, VALID_ROWS)
+    train_set = lt.Dataset(X_train, label=y_train,
+                           params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
+    core = train_set._handle
+    num_bins = int(core.group_bin_counts().max())
+    bins_d = torch.from_numpy(core.bins).to(dev)
+    print(f"train data: {TRAIN_ROWS} x {core.num_total_features} rows binned into "
+          f"{core.num_groups} groups of <= {num_bins} bins ({core.bins.dtype}) in "
+          f"{time.perf_counter() - t0:.1f} s; positives {y_train.mean():.3f}")
+    err_hist, ms_hist, bound_hist, (gh_d, idx_d) = check_histogram(
+        dev, bins_d, TRAIN_ROWS, num_bins, args.seed + 7)
+    print(f"kernels: histogram {core.num_groups}x{TRAIN_ROWS}x{num_bins}: exact on "
+          f"snapped gradients and in the integer mode, max |d| {err_hist:.3g} "
+          f"otherwise (within the float32 summation bound), two launches bit-equal")
+    print(f"{tag} histogram root {TRAIN_ROWS} rows: kernel {ms_hist['root']:.4f} ms, "
+          f"plain {ms_hist['plain_root']:.3f} ms, bound {bound_hist['root'][0]:.4f} ms "
+          f"({bound_hist['root'][1]}); leaf {LEAF_ROWS} rows: kernel "
+          f"{ms_hist['leaf']:.4f} ms, plain {ms_hist['plain_leaf']:.3f} ms, bound "
+          f"{bound_hist['leaf'][0]:.4f} ms ({bound_hist['leaf'][1]})")
+    gb, rows_per_block, chunks = hist_cuda.launch_shape(TRAIN_ROWS, core.num_groups,
+                                                        num_bins, 3)
+    print(f"  histogram launch at the root: {chunks} x {-(-core.num_groups // gb)} "
+          f"blocks of {hist_cuda.WARPS * 32} threads, {gb} groups x {rows_per_block} "
+          f"rows each, {4 * hist_cuda.WARPS * (gb * num_bins + 32) * 3} bytes of "
+          f"dynamic shared memory a block")
+    err_scan, ms_scan, bound_scan, F_scan, B_scan = check_split_scan(
+        dev, core, bins_d, num_bins, gh_d, idx_d)
+    print(f"kernels: split scan {F_scan}x{B_scan} on the root and a leaf, with and "
+          f"without a feature mask: records equal to the CPU plain version, gain "
+          f"max |d| {err_scan:.3g}")
+    threads = max(32, 1 << (B_scan - 1).bit_length())  # csrc/split_scan.cu
+    print(f"  split scan launch: {F_scan} blocks of {threads} threads, "
+          f"{4 * (5 * B_scan + 2 * threads)} bytes of dynamic shared memory a block")
+    print(f"{tag} split scan {F_scan}x{B_scan}: kernel {ms_scan['kernel']:.4f} ms, "
+          f"plain {ms_scan['plain']:.3f} ms, bound {bound_scan[0]:.6f} ms "
+          f"({bound_scan[1]})")
+    del gh_d, idx_d, bins_d
+    torch.cuda.empty_cache()
+
+    # ------------------------------- the card trains as the CPU does
+    exact = {}
+    for where, extra in (("card", {}), ("cpu", {"device_type": "cpu"})):
+        t = time.perf_counter()
+        bst = lt.train({**TRAIN_PARAMS, "objective": snapped_logloss, **extra},
+                       lt.Dataset(X_train[:EXACT_ROWS], label=y_train[:EXACT_ROWS]),
+                       num_boost_round=EXACT_ROUNDS)
+        exact[where] = (bst.model_to_string(), time.perf_counter() - t,
+                        [tr.num_leaves for tr in bst._gbdt.models])
+    check(exact["card"][0] == exact["cpu"][0],
+          "exact: the card's model text differs from the CPU's on snapped gradients")
+    print(f"exact: {EXACT_ROWS} rows, {EXACT_ROUNDS} rounds, snapped gradients: "
+          f"card and CPU model texts byte-equal ({len(exact['card'][0])} bytes; "
+          f"leaves {exact['card'][2]}; card {exact['card'][1]:.1f} s, CPU "
+          f"{exact['cpu'][1]:.1f} s)")
 
     # ------------------------------------------- main path: the booster
     predict_cuda.reset_launches()
@@ -361,27 +616,109 @@ def main() -> int:
     for stage, q in stats["stages"].items():
         print(f"{tag}   stage {stage}: p50 {q['p50_ms']} ms p99 {q['p99_ms']} ms "
               f"(n={q['count']})")
-    main_launches = dict(predict_cuda.launches)
-    for name, n in main_launches.items():
-        check(n > 0, f"main path: kernel {name} never launched")
-    print(f"main path launches: {main_launches}")
+    serve_launches = dict(predict_cuda.launches)
+    for name, n in serve_launches.items():
+        check(n > 0, f"serving path: kernel {name} never launched")
+    print(f"serving path launches: {serve_launches}")
     tmp.cleanup()
+    del X_main, streamed
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- main path: training
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    for lib in (predict_cuda, hist_cuda, scan_cuda):
+        lib.reset_launches()
+    stamps = []
+    evals = {}
+    global_timer.reset()
+    global_timer.enabled = True  # host-clock scopes of the learner's steps
+    t_train = time.perf_counter()
+    trained = lt.train(dict(TRAIN_PARAMS), train_set, num_boost_round=TRAIN_ROUNDS,
+                       valid_sets=[train_set.create_valid(X_valid, label=y_valid)],
+                       valid_names=["valid"],
+                       callbacks=[lambda env: stamps.append(time.perf_counter()),
+                                  lt.record_evaluation(evals)])
+    train_wall = time.perf_counter() - t_train
+    global_timer.enabled = False
+    scopes = {k: (v, global_timer.counts[k]) for k, v in global_timer.totals.items()}
+    leaves = [tr.num_leaves for tr in trained._gbdt.models]
+    check(len(leaves) == TRAIN_ROUNDS, f"train: {len(leaves)} trees for "
+          f"{TRAIN_ROUNDS} rounds")
+    check(all(n == TRAIN_PARAMS["num_leaves"] for n in leaves),
+          f"train: trees stopped short of {TRAIN_PARAMS['num_leaves']} leaves: {leaves}")
+    text = trained.model_to_string()
+    reloaded = lt.Booster(model_str=text)
+    pred_trained = trained.predict(X_valid, raw_score=True)
+    pred_reloaded = reloaded.predict(X_valid, raw_score=True)
+    check(bool(np.isfinite(pred_trained).all()), "train: non-finite predictions")
+    check(bool(np.array_equal(pred_trained, pred_reloaded)),
+          "train: the reloaded model predicts differently from the training Booster")
+    train_auc = dict((name, val) for _, name, val, _ in trained.eval_train())["auc"]
+    valid_auc = evals["valid"]["auc"]
+    check(0.5 < valid_auc[-1] <= 1.0 and valid_auc[-1] >= valid_auc[0],
+          f"train: valid AUC {valid_auc}")
+    train_launches = {**predict_cuda.launches, **hist_cuda.launches,
+                      **scan_cuda.launches}
+    for name in ("histogram", "split_scan", "predict_forest_raw"):
+        check(train_launches[name] > 0, f"training path: kernel {name} never launched")
+    per_iter = np.diff([t_train] + stamps)
+    steady = float(np.mean(per_iter[1:])) if len(per_iter) > 1 else float(per_iter[0])
+    print(f"{tag} train: {TRAIN_ROWS} x {core.num_total_features}, {TRAIN_ROUNDS} rounds "
+          f"in {train_wall:.2f} s; s/iteration first {per_iter[0]:.3f}, mean of "
+          f"the rest {steady:.3f} ({TRAIN_ROWS / steady:,.0f} row-iterations/s); "
+          f"leaves per tree {sorted(set(leaves))}; train AUC {train_auc:.5f}, "
+          f"valid AUC {valid_auc[0]:.5f} -> {valid_auc[-1]:.5f}")
+    print(f"train: model text {len(text)} bytes reloads and predicts "
+          f"{VALID_ROWS} rows equal to the training Booster")
+    print(f"training path launches: {train_launches} "
+          f"({train_launches['histogram'] / TRAIN_ROUNDS:.1f} histograms and "
+          f"{train_launches['split_scan'] / TRAIN_ROUNDS:.1f} split scans per tree)")
+    # host-clock scopes: a step's device work lands in the scope that next
+    # waits on the card (the split search's copy of its record, the
+    # partition's left count), so the split is approximate
+    print(f"{tag} train scopes (host s over {TRAIN_ROUNDS} rounds): " + ", ".join(
+        f"{k} {v:.3f} ({n})" for k, (v, n) in sorted(scopes.items(),
+                                                      key=lambda kv: -kv[1][0])))
+    busy = device_busy_share(lambda: [lt.Booster(dict(TRAIN_PARAMS), train_set).update()
+                                      for _ in range(1)])
+    print(f"{tag} device busy share over one training round (torch.profiler): "
+          + ("not measured (the profiler saw no device time)" if busy is None else
+             f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
+             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}"))
+
+    def launches(name):
+        return serve_launches.get(name, 0) + train_launches[name]
 
     kernels = [
         {"name": "predict_forest_raw", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",
          "replaces": "lightgbm_tpu/ops/predict_pallas.py:80",
-         "launches": main_launches["predict_forest_raw"],
+         "launches": launches("predict_forest_raw"),
          "max_abs_err": err["predict_forest_raw"], "ms": ms_raw,
          "plain_ms": plain_raw, "bound_ms": bound_raw, "bound_by": by_raw,
          "library_ms": None},
         {"name": "predict_forest_leaf", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",
          "replaces": "lightgbm_tpu/ops/predict_pallas.py:41",
-         "launches": main_launches["predict_forest_leaf"],
+         "launches": launches("predict_forest_leaf"),
          "max_abs_err": err["predict_forest_leaf"], "ms": ms_leaf,
          "plain_ms": plain_leaf, "bound_ms": bound_leaf, "bound_by": by_leaf,
          "library_ms": None},
+        {"name": "histogram", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
+         "launches": launches("histogram"),
+         "max_abs_err": err_hist, "ms": ms_hist["root"],
+         "plain_ms": ms_hist["plain_root"], "bound_ms": bound_hist["root"][0],
+         "bound_by": bound_hist["root"][1], "library_ms": None},
+        {"name": "split_scan", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_scan.cu",
+         "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
+         "launches": launches("split_scan"),
+         "max_abs_err": err_scan, "ms": ms_scan["kernel"],
+         "plain_ms": ms_scan["plain"], "bound_ms": bound_scan[0],
+         "bound_by": bound_scan[1], "library_ms": None},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

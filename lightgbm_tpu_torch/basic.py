@@ -1,32 +1,50 @@
-"""Booster: load a model and predict.
+"""lightgbm-compatible Dataset and Booster.
 
-Counterpart of the loading and predicting half of the JAX package's
-``basic.py`` (Booster.__init__ from a file or string, predict,
-model_to_string / save_model, num_trees / num_feature / feature_name,
-_objective_from_string; basic.py:372-420, 491-631, 673-690). The Booster
-runs on the CUDA card unless ``params={"device_type": "cpu"}`` asks for the
-CPU; with no card and no such request it raises.
+Counterpart of the JAX package's ``basic.py`` (python-package/lightgbm/
+basic.py Dataset :1773, Booster :3581): lazy Dataset construction with
+reference alignment for validation data, and the Booster that trains
+(``Booster(params, train_set)``, ``update``, ``add_valid``, ``eval_*``) or
+loads a model from a file or string, predicts and saves.
 
-Not ported yet, and refused loudly: training (``train_set``), SHAP
-contributions (``pred_contrib``), prediction early stopping and
-row-sharded predict.
+The Booster runs on the CUDA card unless ``params={"device_type": "cpu"}``
+asks for the CPU; with no card and no such request it raises. Not ported
+yet, and refused loudly: text-file and binary-cache datasets, SHAP
+contributions (``pred_contrib``), prediction early stopping, row-sharded
+predict, refit and rollback.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import copy
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
 from .config import Config, param_bool, parse_objective_alias, resolve_device
+from .io.dataset import Dataset as _CoreDataset
 from .models.gbdt import GBDT
 from .models.serialize import GBDTModel
 from .objectives import create_objective
 from .utils.log import LightGBMError, Log
 
+_NUMERIC_TYPES = (int, float, bool)
+
+
+def _is_dataframe(data) -> bool:
+    return hasattr(data, "dtypes") and hasattr(data, "columns")
+
+
+def _is_sparse(data) -> bool:
+    return hasattr(data, "tocsc") and hasattr(data, "nnz")
+
 
 def _to_2d_float(data) -> np.ndarray:
     if hasattr(data, "toarray"):  # scipy sparse
         data = data.toarray()
+    elif _is_dataframe(data):
+        if any(str(dt) == "category" for dt in data.dtypes):
+            Log.fatal("pandas categorical columns are not yet ported to the "
+                      "PyTorch package (ROADMAP Queue 1 item 6)")
+        data = data.to_numpy(dtype=np.float64, na_value=np.nan)
     elif hasattr(data, "values") and not isinstance(data, np.ndarray):
         data = data.values
     arr = np.asarray(data, dtype=np.float64)
@@ -35,36 +53,213 @@ def _to_2d_float(data) -> np.ndarray:
     return arr
 
 
+class Dataset:
+    """Lazy-constructed training dataset (basic.py:1773)."""
+
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, group=None, init_score=None,
+                 feature_name: Union[str, List[str]] = "auto",
+                 categorical_feature: Union[str, List] = "auto",
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = True, position=None) -> None:
+        self.data = data
+        self.label = label
+        self.reference = reference
+        self.weight = weight
+        self.group = group
+        self.init_score = init_score
+        self.position = position
+        self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
+        self.params = copy.deepcopy(params) if params else {}
+        self.free_raw_data = free_raw_data
+        self._handle: Optional[_CoreDataset] = None
+        self._raw: Optional[np.ndarray] = None
+
+    # ------------------------------------------------------------ construction
+
+    def construct(self) -> "Dataset":
+        if self._handle is not None:
+            return self
+        params = dict(self.params)
+        config = Config(params)
+        data = self.data
+        feature_names: Optional[List[str]] = None
+        if isinstance(data, str) or hasattr(data, "__fspath__"):
+            Log.fatal("Datasets from text or binary files are not yet ported "
+                      "to the PyTorch package (ROADMAP Queue 1 item 12); pass a "
+                      "numpy or scipy matrix")
+        if _is_dataframe(data) and self.feature_name == "auto":
+            feature_names = [str(c) for c in data.columns]
+        X = data if _is_sparse(data) else _to_2d_float(data)
+        if isinstance(self.feature_name, (list, tuple)):
+            feature_names = list(self.feature_name)
+
+        cats: List[int] = []
+        if isinstance(self.categorical_feature, (list, tuple)):
+            for c in self.categorical_feature:
+                if isinstance(c, str) and feature_names and c in feature_names:
+                    cats.append(feature_names.index(c))
+                elif isinstance(c, _NUMERIC_TYPES):
+                    cats.append(int(c))
+        raw = params.get("categorical_feature", params.get("categorical_column"))
+        if isinstance(raw, str):
+            for tok in raw.split(","):
+                tok = tok.strip()
+                if tok.startswith("name:") and feature_names:
+                    cats += [feature_names.index(nm) for nm in tok[5:].split(",")
+                             if nm in feature_names]
+                elif tok:
+                    cats.append(int(tok))
+
+        ref_handle = None
+        if self.reference is not None:
+            self.reference.construct()
+            ref_handle = self.reference._handle
+        self._handle = _CoreDataset.from_matrix(
+            X, label=self.label, weight=self.weight, group=self.group,
+            init_score=self.init_score, position=self.position, config=config,
+            categorical_feature=cats, feature_names=feature_names,
+            reference=ref_handle)
+        if config.monotone_constraints:
+            self._handle.monotone_constraints = list(config.monotone_constraints)
+        self._raw = None if _is_sparse(X) else np.asarray(X, dtype=np.float32)
+        self._sparse_raw = X if _is_sparse(X) else None
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+    # ---------------------------------------------------------------- helpers
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None, position=None) -> "Dataset":
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params, position=position)
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._handle is not None and label is not None:
+            self._handle.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._handle is not None:
+            self._handle.metadata.set_weights(weight)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._handle is not None:
+            self._handle.metadata.set_init_score(init_score)
+        return self
+
+    def get_label(self):
+        if self._handle is not None and self._handle.metadata.label is not None:
+            return self._handle.metadata.label
+        return self.label
+
+    def get_weight(self):
+        return self.weight
+
+    def get_init_score(self):
+        return self.init_score
+
+    def get_data(self):
+        return self.data if self.data is not None else self._raw
+
+    def get_feature_name(self) -> List[str]:
+        self.construct()
+        return list(self._handle.feature_names)
+
+    def num_data(self) -> int:
+        self.construct()
+        return self._handle.num_data
+
+    def num_feature(self) -> int:
+        self.construct()
+        return self._handle.num_total_features
+
+
 class Booster:
-    """Prediction handle over a loaded model (basic.py:3581)."""
+    """Training and prediction handle (basic.py:3581)."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
-                 train_set: Any = None,
+                 train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None) -> None:
         self.params = dict(params) if params else {}
         self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._train_data_name = "training"
+        self.name_valid_sets: List[str] = []
+        self._model: Optional[GBDTModel] = None
+        self.train_set: Optional[Dataset] = None
+        self.pandas_categorical = None
         if train_set is not None:
-            Log.fatal("Training is not yet ported to the PyTorch package; "
-                      "train with the JAX package and load its model text")
+            if not isinstance(train_set, Dataset):
+                raise TypeError(f"Training data should be Dataset instance, "
+                                f"met {type(train_set).__name__}")
+            self.config = Config(self.params)
+            self.device = resolve_device(self.config.device_type)
+            train_set.params = {**train_set.params, **self.params}
+            train_set.construct()
+            objective = create_objective(self.config.objective, self.config)
+            self._gbdt = GBDT(self.config, train_set._handle, objective, self.device)
+            self.train_set = train_set
+            return
         if model_file is None and model_str is None:
-            raise TypeError("Need a model file or model string to create a "
-                            "Booster instance")
+            raise TypeError("Need at least one training dataset or model file "
+                            "or model string to create Booster instance")
         model = (GBDTModel.from_file(model_file) if model_file
                  else GBDTModel.from_string(model_str))
         self._model = model
         self.config = Config(self.params)
         self.device = resolve_device(self.config.device_type)
-        self._gbdt = GBDT(self.device)
+        self._gbdt = GBDT(self.config, None, None, self.device)
         self._gbdt.models = model.trees
         self._gbdt.num_class = model.num_class
         self._gbdt.num_tree_per_iteration = model.num_tree_per_iteration
+        # GBDT::LoadModelFromString sets iter_ from the loaded tree count
+        self._gbdt.iter_ = len(model.trees) // max(model.num_tree_per_iteration, 1)
         self._gbdt.objective = _objective_from_string(model.objective_str,
                                                       self.config)
         self._gbdt.average_output = model.average_output
         self.pandas_categorical = model.pandas_categorical
 
-    # ------------------------------------------------------------- queries
+    # ------------------------------------------------------------------ train
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        if not isinstance(data, Dataset):
+            raise TypeError(f"Validation data should be Dataset instance, "
+                            f"met {type(data).__name__}")
+        data.construct()
+        raw = data._raw
+        if raw is None:  # a sparse valid set densifies (valid << train)
+            raw = data._sparse_raw.astype(np.float32).toarray()
+        self._gbdt.add_valid(data._handle, raw, name)
+        self.name_valid_sets.append(name)
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """One boosting iteration; returns True if training finished
+        (basic.py:4091 / LGBM_BoosterUpdateOneIter)."""
+        if fobj is not None:
+            if self._gbdt.objective is not None:
+                raise LightGBMError("Cannot use fobj with a built-in objective; "
+                                    "set objective='none'")
+            grad, hess = fobj(self._score_for_callables(), self.train_set)
+            return self._gbdt.train_one_iter(np.asarray(grad, dtype=np.float32),
+                                             np.asarray(hess, dtype=np.float32))
+        return self._gbdt.train_one_iter()
+
+    def _score_for_callables(self) -> np.ndarray:
+        score = self._gbdt.score.cpu().numpy()
+        return score.ravel() if score.shape[0] == 1 else score.T
+
+    def current_iteration(self) -> int:
+        return self._gbdt.iter_
 
     def num_trees(self) -> int:
         return len(self._gbdt.models)
@@ -73,12 +268,29 @@ class Booster:
         return self._gbdt.num_tree_per_iteration
 
     def num_feature(self) -> int:
+        if self.train_set is not None:
+            return self.train_set.num_feature()
         return self._model.max_feature_idx + 1
 
     def feature_name(self) -> List[str]:
+        if self.train_set is not None:
+            return self.train_set.get_feature_name()
         return list(self._model.feature_names)
 
-    # ------------------------------------------------------------- predict
+    # ------------------------------------------------------------------- eval
+
+    def eval_train(self, feval=None) -> List:
+        out = list(self._gbdt.eval_train())
+        for fe in ([] if feval is None else
+                   feval if isinstance(feval, (list, tuple)) else [feval]):
+            name, val, bigger = fe(self._score_for_callables(), self.train_set)
+            out.append((self._train_data_name, name, val, bigger))
+        return out
+
+    def eval_valid(self, feval=None) -> List:
+        return list(self._gbdt.eval_valid())
+
+    # ---------------------------------------------------------------- predict
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,
@@ -125,13 +337,20 @@ class Booster:
 
     # --------------------------------------------------------------- model
 
+    def _get_model(self) -> GBDTModel:
+        if self.train_set is not None:
+            model = self._gbdt.to_model()
+            model.best_iteration = self.best_iteration
+            return model
+        return self._model
+
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
                    importance_type: str = "split") -> "Booster":
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 else -1
-        self._model.save_to_file(str(filename), start_iteration,
-                                 num_iteration or -1, importance_type)
+        self._get_model().save_to_file(str(filename), start_iteration,
+                                       num_iteration or -1, importance_type)
         return self
 
     def model_to_string(self, num_iteration: Optional[int] = None,
@@ -139,8 +358,8 @@ class Booster:
                         importance_type: str = "split") -> str:
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 else -1
-        return self._model.to_string(start_iteration, num_iteration or -1,
-                                     importance_type)
+        return self._get_model().to_string(start_iteration, num_iteration or -1,
+                                           importance_type)
 
 
 def _objective_from_string(objective_str: Optional[str], config: Config):

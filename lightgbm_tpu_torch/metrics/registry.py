@@ -1,0 +1,73 @@
+"""Metric interface + factory.
+
+Counterpart of Metric (include/LightGBM/metric.h:24-60) and its factory
+(src/metric/metric.cpp:21-120). Metrics evaluate score tensors on the
+training device; the objective's ConvertOutput is applied where the
+reference does. The binary and regression metrics are ported; a metric of
+another family is refused as not yet ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Type
+
+import torch
+
+from ..config import Config
+from ..io.metadata import Metadata
+from ..utils.log import Log
+
+METRIC_REGISTRY: Dict[str, Type] = {}
+
+# metrics the JAX package evaluates whose port is a later slice
+NOT_YET_PORTED = ("multi_logloss", "multiclass", "softmax", "multi_error",
+                  "auc_mu", "ndcg", "map", "mean_average_precision",
+                  "cross_entropy", "xentropy", "cross_entropy_lambda",
+                  "xentlambda", "kullback_leibler", "kldiv")
+
+
+def register_metric(*names: str):
+    def deco(cls):
+        for n in names:
+            METRIC_REGISTRY[n] = cls
+        cls.names = names
+        return cls
+
+    return deco
+
+
+class Metric:
+    """Base: Init + Eval(score, objective) -> list of values."""
+
+    greater_is_better = False
+
+    def __init__(self, config: Config) -> None:
+        self.config = config
+        self.metadata: Optional[Metadata] = None
+        self.num_data = 0
+
+    def init(self, metadata: Metadata, num_data: int,
+             device: torch.device) -> None:
+        self.metadata = metadata
+        self.num_data = num_data
+
+    def eval(self, score, objective) -> List[float]:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> List[str]:
+        return [self.names[0]]
+
+
+def create_metric(name: str, config: Config) -> Optional[Metric]:
+    from . import regression, binary  # noqa: F401
+
+    if name in ("custom", "none", "null", "na", ""):
+        return None
+    if name in NOT_YET_PORTED:
+        Log.fatal("metric %s is not yet ported to the PyTorch package "
+                  "(ROADMAP Queue 1 items 2 and 7)", name)
+    cls = METRIC_REGISTRY.get(name)
+    if cls is None:
+        Log.warning("Unknown metric type name: %s", name)
+        return None
+    return cls(config)

@@ -1,34 +1,291 @@
-"""The boosted ensemble as a predictor.
+"""GBDT boosting driver.
 
-Counterpart of the predict half of the JAX package's ``models/gbdt.py``
-(GBDT._packed / predict / predict_leaf_index, gbdt.py:599-669): a model-
-holding GBDT — the tree list, the per-iteration tree grouping, the
-objective that converts raw scores, and a device-resident pack cache.
-Training (train_one_iter, the async per-tree pipeline, refit, rollback)
-comes with the training slice.
+Counterpart of the JAX package's ``models/gbdt.py`` (GBDT,
+src/boosting/gbdt.cpp): the gradient boosting loop with boost-from-average,
+per-class tree training, leaf-value renewal, shrinkage, train and valid
+score maintenance, eval, model export, and prediction. The TrainOneIter
+control flow mirrors gbdt.cpp:352-460 (init-score handling, constant trees,
+should_continue semantics).
+
+Scores live on the training device as float32 [C, N]. The train score is
+updated from the learner's per-leaf row sets (each row once, in float32, as
+the JAX package's scatter-add does); valid scores by traversing the new
+tree over the valid rows (the traversal kernel on the card).
+
+This slice carries the synchronous path of the host-driven serial learner.
+The JAX package's async per-tree pipeline belongs to its wave learner, which
+is not ported yet; refit and rollback are later work (ROADMAP Queue 1
+item 6).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.predict import (PredictorCache, predict_leaf_indices, predict_raw,
-                           predict_raw_streamed, stream_chunk_rows,
+from ..config import Config
+from ..io.dataset import Dataset
+from ..metrics import create_metric
+from ..objectives.registry import ObjectiveFunction
+from ..ops.partition import pad_indices
+from ..ops.predict import (PredictorCache, pack_ensemble, predict_leaf_indices,
+                           predict_raw, predict_raw_streamed, stream_chunk_rows,
                            to_device_rows)
+from ..ops.score import add_tree_to_score
+from ..treelearner.serial import create_tree_learner
+from ..utils.log import Log
+from ..utils.timer import global_timer
+from .sample_strategy import create_sample_strategy
+from .serialize import GBDTModel
 from .tree import Tree
+
+K_EPSILON = 1e-15
+
+
+def _pack_gh(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
+    """[N] grad/hess -> [N+1, 3] with a count channel and a zero sentinel
+    row at N."""
+    gh = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    return torch.cat([gh, torch.zeros((1, 3), dtype=gh.dtype, device=gh.device)])
+
+
+class _ValidData:
+    """One validation set: its raw rows on the device, metrics and score."""
+
+    def __init__(self, raw: torch.Tensor, metrics) -> None:
+        self.raw = raw
+        self.metrics = metrics
+        self.score: Optional[torch.Tensor] = None
 
 
 class GBDT:
-    def __init__(self, device: torch.device) -> None:
+    """The training driver and predictor. One instance per Booster; with no
+    training set it only holds a loaded model."""
+
+    def __init__(self, config: Config, train_set: Optional[Dataset],
+                 objective: Optional[ObjectiveFunction],
+                 device: torch.device) -> None:
+        self.config = config
         self.device = torch.device(device)
+        self.train_set = train_set
+        self.objective = objective
+        self.iter_ = 0
         self.models: List[Tree] = []
-        self.num_class = 1
-        self.num_tree_per_iteration = 1
-        self.objective = None
+        self.best_iteration = 0
         self.average_output = False
+        self.shrinkage_rate = config.learning_rate
+        self.num_class = max(config.num_class, 1)
+        if objective is not None:
+            self.num_tree_per_iteration = objective.num_model_per_iteration
+        else:
+            self.num_tree_per_iteration = self.num_class if self.num_class > 1 else 1
         self._predictor = PredictorCache(self.device)
+        self.valid_sets: List[_ValidData] = []
+        self.valid_names: List[str] = []
+        self.train_metrics = []
+        if train_set is None:
+            return
+
+        n = train_set.num_data
+        self.num_data = n
+        if objective is not None:
+            if not objective.trainable:
+                Log.fatal("objective %s: training is not yet ported to the "
+                          "PyTorch package (ROADMAP Queue 1 items 2 and 7)",
+                          objective.to_string())
+            objective.init(train_set.metadata, n, self.device)
+        if self.num_tree_per_iteration > 1:
+            Log.fatal("training %d trees per iteration (multiclass) is not yet "
+                      "ported to the PyTorch package (ROADMAP Queue 1 item 2)",
+                      self.num_tree_per_iteration)
+        if config.boosting not in ("gbdt", "gbrt", "gbm", "goss"):
+            Log.fatal("boosting=%s is not yet ported to the PyTorch package "
+                      "(ROADMAP Queue 1 item 6)", config.boosting)
+        self.tree_learner = create_tree_learner(config.tree_learner, self.device,
+                                                config, train_set)
+        self.sample_strategy = create_sample_strategy(
+            config, n, train_set.metadata, self.num_tree_per_iteration)
+        self._cur_bag: Optional[np.ndarray] = None
+        self._oob_padded: Optional[torch.Tensor] = None
+        self.train_metrics = self._create_metrics(train_set)
+        # scores [C, N]
+        C = self.num_tree_per_iteration
+        init = train_set.metadata.init_score
+        self._has_init_score = init is not None
+        if self._has_init_score:
+            self.score = torch.as_tensor(
+                np.asarray(init, dtype=np.float32).reshape(C, n), device=self.device)
+        else:
+            self.score = torch.zeros((C, n), dtype=torch.float32, device=self.device)
+
+    def _create_metrics(self, dataset: Dataset) -> list:
+        metrics = [m for m in (create_metric(name, self.config)
+                               for name in self.config.metric) if m is not None]
+        for m in metrics:
+            m.init(dataset.metadata, dataset.num_data, self.device)
+        return metrics
+
+    # ------------------------------------------------------------------ valid
+
+    def add_valid(self, valid: Dataset, raw: np.ndarray, name: str) -> None:
+        vd = _ValidData(to_device_rows(raw, self.device), self._create_metrics(valid))
+        C = self.num_tree_per_iteration
+        if valid.metadata.init_score is not None:
+            vd.score = torch.as_tensor(
+                np.asarray(valid.metadata.init_score, dtype=np.float32)
+                .reshape(C, valid.num_data), device=self.device)
+        else:
+            vd.score = torch.zeros((C, valid.num_data), dtype=torch.float32,
+                                   device=self.device)
+        self.valid_sets.append(vd)
+        self.valid_names.append(name)
+
+    # --------------------------------------------------------------- boosting
+
+    def boost_from_average(self, class_id: int) -> float:
+        """gbdt.cpp:327-350."""
+        if (not self.models and not self._has_init_score
+                and self.objective is not None and self.config.boost_from_average):
+            init = self.objective.boost_from_score(class_id)
+            if abs(init) > K_EPSILON:
+                self._add_to_scores(class_id, init)
+                Log.info("Start training from score %f", init)
+                return init
+        return 0.0
+
+    def _add_to_scores(self, class_id: int, value: float) -> None:
+        """A constant added to the train and valid scores of one class, in
+        float32 as the JAX package's weakly typed add does."""
+        self.score[class_id] += torch.tensor(value, dtype=torch.float32,
+                                             device=self.device)
+        for vd in self.valid_sets:
+            vd.score[class_id] += torch.tensor(value, dtype=torch.float32,
+                                               device=self.device)
+
+    def train_one_iter(self, gradients: Optional[np.ndarray] = None,
+                       hessians: Optional[np.ndarray] = None) -> bool:
+        """Returns True when training should STOP (no more valid splits) —
+        matching LGBM_BoosterUpdateOneIter's is_finished flag."""
+        C = self.num_tree_per_iteration
+        init_scores = [0.0] * C
+        custom = gradients is not None
+        if not custom:
+            if self.objective is None:
+                Log.fatal("No object function provided")
+            for c in range(C):
+                init_scores[c] = self.boost_from_average(c)
+        should_continue = False
+        with global_timer.scope("boosting"):
+            if custom:
+                grads = torch.as_tensor(np.asarray(gradients, dtype=np.float32)
+                                        .reshape(C, self.num_data), device=self.device)
+                hesses = torch.as_tensor(np.asarray(hessians, dtype=np.float32)
+                                         .reshape(C, self.num_data), device=self.device)
+            else:
+                grads, hesses = self.objective.get_gradients(self.score[0])
+                grads, hesses = grads[None], hesses[None]
+        with global_timer.scope("bagging"):
+            bag, grads, hesses = self.sample_strategy.bagging(
+                self.iter_, grads, hesses)
+            self._refresh_bag_cache(bag)
+        for c in range(C):
+            with global_timer.scope("boosting"):
+                gh_ext = _pack_gh(grads[c], hesses[c])
+            new_tree = Tree(2)
+            if self.train_set.num_features > 0:
+                with global_timer.scope("tree_train"):
+                    new_tree = self.tree_learner.train(gh_ext, bag)
+            if new_tree.num_leaves > 1:
+                should_continue = True
+                if self.objective is not None:
+                    self.objective.renew_tree_output(
+                        new_tree, self.score[c], self.tree_learner.partition)
+                new_tree.shrink(self.shrinkage_rate)
+                with global_timer.scope("update_score"):
+                    self._update_train_score(new_tree, c)
+                    self._update_valid_scores(new_tree, c)
+                if abs(init_scores[c]) > K_EPSILON:
+                    new_tree.add_bias(init_scores[c])
+            else:
+                if len(self.models) < C:
+                    if (self.objective is not None and not self.config.boost_from_average
+                            and not self._has_init_score):
+                        init_scores[c] = self.objective.boost_from_score(c)
+                        self._add_to_scores(c, init_scores[c])
+                    new_tree.as_constant_tree(init_scores[c])
+                else:
+                    new_tree.as_constant_tree(0.0)
+            self.models.append(new_tree)
+        self._predictor.invalidate()
+        if not should_continue:
+            Log.warning("Stopped training because there are no more leaves that "
+                        "meet the split requirements")
+            if len(self.models) > C:
+                del self.models[-C:]
+            return True
+        self.iter_ += 1
+        return False
+
+    # ------------------------------------------------------------------ score
+
+    def _refresh_bag_cache(self, bag: Optional[np.ndarray]) -> None:
+        """The bag is reused across bagging_freq iterations, so the padded
+        out-of-bag index array is computed once per bag change."""
+        if bag is self._cur_bag:
+            return
+        self._cur_bag = bag
+        if bag is None or len(bag) >= self.num_data:
+            self._oob_padded = None
+        else:
+            oob = np.setdiff1d(np.arange(self.num_data, dtype=np.int32), bag)
+            self._oob_padded = torch.from_numpy(
+                pad_indices(oob, self.num_data)).to(self.device)
+
+    def _update_train_score(self, tree: Tree, class_id: int) -> None:
+        """score[row] += leaf value for every in-bag row (the learner's leaf
+        row sets), then the out-of-bag rows by bin-space traversal."""
+        part = self.tree_learner.partition
+        counts = [part.count(leaf) for leaf in range(tree.num_leaves)]
+        rows = torch.cat([part.indices(leaf)[:cnt]
+                          for leaf, cnt in enumerate(counts)]).to(torch.int64)
+        lv = torch.as_tensor(tree.leaf_value[: tree.num_leaves], dtype=torch.float32,
+                             device=self.device)
+        vals = torch.repeat_interleave(lv, torch.as_tensor(counts, device=self.device))
+        score = self.score[class_id]
+        score.index_add_(0, rows, vals)  # each row once: no order to fix
+        if self._cur_bag is not None and self._oob_padded is not None:
+            score.copy_(add_tree_to_score(tree, self.train_set,
+                                          self.tree_learner.bins_dev, score,
+                                          self._oob_padded, self.num_data))
+
+    def _update_valid_scores(self, tree: Tree, class_id: int) -> None:
+        if not self.valid_sets:
+            return
+        packed = pack_ensemble([tree], device=self.device)
+        for vd in self.valid_sets:
+            vd.score[class_id] += predict_raw(packed, vd.raw)[:, 0]
+
+    # ------------------------------------------------------------------- eval
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        score = self.score[0] if self.num_tree_per_iteration == 1 else self.score
+        for m in self.train_metrics:
+            for name, val in zip(m.name, m.eval(score, self.objective)):
+                out.append(("training", name, val, m.greater_is_better))
+        return out
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        for vname, vd in zip(self.valid_names, self.valid_sets):
+            score = vd.score[0] if self.num_tree_per_iteration == 1 else vd.score
+            for m in vd.metrics:
+                for name, val in zip(m.name, m.eval(score, self.objective)):
+                    out.append((vname, name, val, m.greater_is_better))
+        return out
+
+    # ---------------------------------------------------------------- predict
 
     def _packed(self, num_iteration: int = 0, start_iteration: int = 0):
         C = self.num_tree_per_iteration
@@ -60,3 +317,21 @@ class GBDT:
         packed = self._packed(num_iteration, start_iteration)
         return predict_leaf_indices(
             packed, to_device_rows(X, self.device)).cpu().numpy()
+
+    # ------------------------------------------------------------------ model
+
+    def to_model(self) -> GBDTModel:
+        ds = self.train_set
+        model = GBDTModel()
+        model.num_class = self.num_class
+        model.num_tree_per_iteration = self.num_tree_per_iteration
+        model.max_feature_idx = ds.num_total_features - 1
+        model.objective_str = self.objective.to_string() if self.objective else None
+        model.feature_names = ds.feature_names
+        model.feature_infos = ds.feature_infos()
+        model.monotone_constraints = list(ds.monotone_constraints)
+        model.trees = self.models
+        model.best_iteration = self.best_iteration
+        model.average_output = self.average_output
+        model.parameters_str = self.config.to_string()
+        return model

@@ -172,6 +172,24 @@ class Tree:
             self.branch_features[leaf] = self.branch_features[leaf] + [real_feature]
         self.num_leaves += 1
 
+    def set_leaf_output(self, leaf: int, value: float) -> None:
+        self.leaf_value[leaf] = 0.0 if math.isnan(value) else value
+
+    def shrink(self, rate: float) -> None:
+        """Tree::Shrinkage (tree.h:188): scale all outputs by `rate`."""
+        self.leaf_value[: self.num_leaves] *= rate
+        self.internal_value[: max(self.num_leaves - 1, 0)] *= rate
+        self.shrinkage *= rate
+
+    def add_bias(self, val: float) -> None:
+        self.leaf_value[: self.num_leaves] += val
+        self.internal_value[: max(self.num_leaves - 1, 0)] += val
+        self.shrinkage = 1.0
+
+    def as_constant_tree(self, val: float) -> None:
+        self.num_leaves = 1
+        self.leaf_value[0] = val
+
     @property
     def max_depth(self) -> int:
         if self.num_leaves <= 1:

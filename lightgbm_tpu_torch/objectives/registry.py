@@ -1,17 +1,21 @@
 """Objective function interface + factory.
 
 Counterpart of ObjectiveFunction (include/LightGBM/objective_function.h:19-90)
-and its factory (src/objective/objective_function.cpp:71-119). This slice
-carries what a loaded model needs to predict: the constructors (parameter
-checks), `to_string` (the model file's ``objective=`` line) and
-`convert_output` on torch tensors. Gradients, hessians and the boost-from-
-average start come with the training slice.
+and its factory (src/objective/objective_function.cpp:71-119). Objectives are
+per-row gradient/hessian producers: elementwise torch functions over the
+score and label tensors on the training device. Every objective converts
+output for a loaded model; the binary and regression families also train
+(`init`, `get_gradients`, `boost_from_score`). The others carry
+``trainable = False`` and training with one is refused.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Type
 
+import torch
+
 from ..config import Config
+from ..io.metadata import Metadata
 from ..utils.log import Log
 
 OBJECTIVE_REGISTRY: Dict[str, Type] = {}
@@ -35,12 +39,45 @@ def register_objective(*names: str):
 class ObjectiveFunction:
     """Base interface (objective_function.h:29-90)."""
 
+    is_constant_hessian = False
+    # whether this objective's gradients are ported (binary, regression)
+    trainable = False
+
     def __init__(self, config: Config) -> None:
         self.config = config
+        self.metadata: Optional[Metadata] = None
+        self.num_data = 0
+
+    def init(self, metadata: Metadata, num_data: int,
+             device: torch.device) -> None:
+        """Bind the training labels; per-row tensors go to `device`."""
+        self.metadata = metadata
+        self.num_data = num_data
+
+    def get_gradients(self, score):
+        """score [N] (or [C, N]) -> (grad, hess) of the same shape."""
+        raise NotImplementedError
+
+    def boost_from_score(self, class_id: int = 0) -> float:
+        """Initial raw score (BoostFromScore, objective_function.h:65)."""
+        return 0.0
 
     def convert_output(self, raw):
         """Raw score tensor [N, C] -> output space (sigmoid/exp/identity)."""
         return raw
+
+    def renew_tree_output(self, tree, score, partition) -> None:
+        """Leaf-value refitting hook (RenewTreeOutput) for percentile-style
+        objectives (L1/quantile/MAPE); default no-op."""
+        return None
+
+    @property
+    def num_model_per_iteration(self) -> int:
+        return 1
+
+    @property
+    def num_class(self) -> int:
+        return 1
 
     def to_string(self) -> str:
         return self.names[0]

@@ -2,9 +2,8 @@
 
 The kernel replaces ``lightgbm_tpu/ops/predict_pallas.py:pallas_predict_raw``
 (see the note at the top of the source for its design and its bound on the
-H100). It is written in CUDA C++ for ``sm_90a``, compiled with ``nvcc`` into
-a shared library with a plain C interface at first use, and called through
-``ctypes`` with pointers from ``data_ptr()`` on PyTorch's current stream.
+H100). It is written in CUDA C++ for ``sm_90a`` and built and loaded by
+``ops/cuda_build.py``.
 
 Dispatch is by the device of the input alone: a tensor on the CPU takes the
 plain PyTorch version in ``ops/predict.py``; a CUDA tensor launches the
@@ -16,94 +15,29 @@ predictions went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
+from .cuda_build import CudaLibrary, require_cuda, stream_of
 from .predict import TABLES, PackedEnsemble, _predict_raw_fused, _traverse_leaves
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "predict_forest.cu"
-# the build lands under the repository's build/ directory, which .gitignore
-# lists: it is made from SOURCE at first use and never committed
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lightgbm_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launches: Dict[str, int] = {"predict_forest_raw": 0, "predict_forest_leaf": 0}
-
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    head = [ptr, i64, i32] + [ptr] * 10 + [i32] * 4
+    lib.lgbt_predict_forest_raw.argtypes = head + [i32, ptr, ptr]
+    lib.lgbt_predict_forest_leaf.argtypes = head + [ptr, ptr]
+    lib.lgbt_predict_forest_raw.restype = i32
+    lib.lgbt_predict_forest_leaf.restype = i32
 
 
-def reset_launches() -> None:
-    with _lock:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count(name: str) -> None:
-    with _lock:
-        launches[name] += 1
-
-
-def nvcc() -> str:
-    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the forest-"
-                           "traversal kernel is built from source at first use")
-    return found
-
-
-def build(force: bool = False) -> Dict[str, object]:
-    """Compile SOURCE into a shared library named by the hash of the source
-    and flags (an edited source never loads a stale build); `force`
-    compiles even when that library exists. Returns the library path, the
-    build seconds (0 when the library was already built) and ptxas's
-    register / shared-memory / spill report."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    lib = BUILD_DIR / f"predict_forest_{tag}.so"
-    info: Dict[str, object] = {"path": str(lib), "seconds": 0.0, "ptxas": ""}
-    if force or not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True, check=False)
-        info["seconds"] = time.perf_counter() - t0
-        info["ptxas"] = proc.stderr + proc.stdout
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                               f"{info['ptxas']}")
-        os.replace(tmp, lib)  # atomic: a process racing this build loads either file
-    return info
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()["path"])
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            head = [ptr, i64, i32] + [ptr] * 10 + [i32] * 4
-            lib.lgbt_predict_forest_raw.argtypes = head + [i32, ptr, ptr]
-            lib.lgbt_predict_forest_leaf.argtypes = head + [ptr, ptr]
-            lib.lgbt_predict_forest_raw.restype = i32
-            lib.lgbt_predict_forest_leaf.restype = i32
-            _lib = lib
-        return _lib
+LIB = CudaLibrary("predict_forest.cu", ("predict_forest_raw", "predict_forest_leaf"),
+                  _declare)
+SOURCE = LIB.source
+launches = LIB.launches
+reset_launches = LIB.reset_launches
+build = LIB.build
 
 
 def _check(packed: PackedEnsemble, X: torch.Tensor) -> None:
@@ -130,18 +64,6 @@ def _args(packed: PackedEnsemble, X: torch.Tensor) -> list:
             + [T, I, L, packed.max_depth])
 
 
-def _launched(name: str, err: int) -> None:
-    _count(name)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-
-
-def _require_cuda(X: torch.Tensor) -> None:
-    if X.device.type != "cuda":
-        raise ValueError(f"the forest traversal runs on cpu or cuda tensors, "
-                         f"got one on {X.device}")
-
-
 def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: int,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Raw scores [N, C] float32 (C = num_tree_per_iteration), each class
@@ -151,7 +73,7 @@ def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: 
     if X.device.type == "cpu":
         res = _predict_raw_fused(packed, X, C)
         return res if out is None else out.copy_(res)
-    _require_cuda(X)
+    require_cuda(X, "the forest traversal")
     _check(packed, X)
     n = X.shape[0]
     if out is None:
@@ -162,12 +84,11 @@ def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: 
                          f"on {X.device}")
     if n == 0:
         return out
-    lib = _load()
+    lib = LIB.load()
     with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.lgbt_predict_forest_raw(*_args(packed, X), C, out.data_ptr(),
-                                          stream)
-    _launched("predict_forest_raw", err)
+                                          stream_of(X))
+    LIB.count("predict_forest_raw", err)
     return out
 
 
@@ -176,15 +97,15 @@ def forest_leaf_indices(packed: PackedEnsemble, X: torch.Tensor) -> torch.Tensor
     CUDA tensor launches the kernel."""
     if X.device.type == "cpu":
         return _traverse_leaves(packed, X)
-    _require_cuda(X)
+    require_cuda(X, "the forest traversal")
     _check(packed, X)
     n, T = X.shape[0], packed.split_feature.shape[0]
     out = torch.empty((n, T), dtype=torch.int32, device=X.device)
     if n == 0:
         return out
-    lib = _load()
+    lib = LIB.load()
     with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = lib.lgbt_predict_forest_leaf(*_args(packed, X), out.data_ptr(), stream)
-    _launched("predict_forest_leaf", err)
+        err = lib.lgbt_predict_forest_leaf(*_args(packed, X), out.data_ptr(),
+                                           stream_of(X))
+    LIB.count("predict_forest_leaf", err)
     return out

@@ -1,0 +1,331 @@
+"""Vectorized best-split search over histograms.
+
+Counterpart of the JAX package's ``ops/split.py`` (FeatureHistogram::
+FindBestThreshold, src/treelearner/feature_histogram.hpp:165,832): the whole
+search is one computation over a dense [F, Bmax, 3] feature-histogram
+tensor,
+
+    prefix over bins -> left/right aggregates for every threshold
+    -> regularized gains for both missing directions -> masked argmax.
+
+Missing-value directionality becomes two gain lanes: the missing bin's mass
+(NaN bin for MissingType::NaN, default/zero bin for MissingType::Zero) is
+pulled out of the ordered scan and added to the left side in the
+"default-left" lane only. Bundled features (EFB) omit their default bin in
+group storage; it is reconstructed from the leaf totals like
+Dataset::FixHistogram (include/LightGBM/dataset.h:770).
+
+This slice carries the numeric lanes: categorical features, monotone
+constraints and quantized histograms are refused before a learner is built.
+The numeric scan of a float32 histogram goes through ``ops/scan_cuda.py``:
+the plain version below for a CPU tensor, the hand-written kernel
+(``csrc/split_scan.cu``) for a CUDA tensor.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..common import MISSING_NAN, MISSING_NONE
+
+K_EPSILON = 1e-15
+
+
+@dataclass
+class FeatureMeta:
+    """Per-feature split metadata on the training device, built once per
+    dataset."""
+
+    gather_index: torch.Tensor  # [F, Bmax] int64 into flattened group-hist rows (+ sentinel)
+    valid_slot: torch.Tensor  # [F, Bmax] bool
+    default_bin: torch.Tensor  # [F] int64 zero/default bin (feature-bin space)
+    efb_omitted: torch.Tensor  # [F] bool: default bin omitted in storage (EFB bundle)
+    missing_type: torch.Tensor  # [F] int32
+    nbins: torch.Tensor  # [F] int32 bins per feature
+    is_categorical: torch.Tensor  # [F] bool
+    # derived from the above for the scan: the missing bin's position
+    # (NaN bin last, else the default bin) and whether there is one
+    missing_pos: torch.Tensor  # [F] int32
+    has_missing: torch.Tensor  # [F] bool
+    # host-side
+    real_feature: List[int]  # dense idx -> original feature index
+    max_bins: int
+    hist_rows: int  # rows in the flattened group-hist (without sentinel)
+
+
+def make_feature_meta(dataset, group_bin_padded: int,
+                      device: torch.device) -> FeatureMeta:
+    """Build FeatureMeta from a constructed io.dataset.Dataset.
+
+    group_bin_padded is the per-group bin-axis padding of the histograms
+    ([G, group_bin_padded, 3]); the flat row index of group g bin b is
+    g * group_bin_padded + b.
+    """
+    feats = dataset.used_features
+    F = len(feats)
+    Bmax = max((dataset.mappers[f].num_bin for f in feats), default=2)
+    gather = np.zeros((F, Bmax), dtype=np.int64)
+    valid = np.zeros((F, Bmax), dtype=bool)
+    default_bin = np.zeros(F, dtype=np.int64)
+    efb_omitted = np.zeros(F, dtype=bool)
+    missing = np.zeros(F, dtype=np.int32)
+    nbins = np.zeros(F, dtype=np.int32)
+    is_cat = np.zeros(F, dtype=bool)
+    G = dataset.num_groups
+    sentinel = G * group_bin_padded  # flat index of the all-zero sentinel row
+    for k, f in enumerate(feats):
+        m = dataset.mappers[f]
+        gi, mi = dataset.feature_to_group[f]
+        fg = dataset.groups[gi]
+        nb = m.num_bin
+        nbins[k] = nb
+        missing[k] = m.missing_type
+        is_cat[k] = m.bin_type == 1
+        lo, hi, dbin = fg.feature_bin_range(mi)
+        gather[k, :] = sentinel
+        default_bin[k] = m.default_bin
+        if not fg.is_multi:
+            for b in range(nb):
+                gather[k, b] = gi * group_bin_padded + b
+                valid[k, b] = True
+        else:
+            # bundle member: natural bin b != default lives at
+            # lo + b - (b > default); default bin is reconstructed
+            for b in range(nb):
+                valid[k, b] = True
+                if b == dbin:
+                    continue
+                slot = lo + b - (1 if b > dbin else 0)
+                gather[k, b] = gi * group_bin_padded + slot
+            efb_omitted[k] = True
+    missing_pos = np.where(missing == MISSING_NAN, nbins - 1,
+                           default_bin).astype(np.int32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return FeatureMeta(
+        gather_index=dev(gather), valid_slot=dev(valid),
+        default_bin=dev(default_bin), efb_omitted=dev(efb_omitted),
+        missing_type=dev(missing), nbins=dev(nbins), is_categorical=dev(is_cat),
+        missing_pos=dev(missing_pos), has_missing=dev(missing != MISSING_NONE),
+        real_feature=list(feats), max_bins=Bmax, hist_rows=G * group_bin_padded)
+
+
+def threshold_l1(s, l1):
+    # The op order is pinned (the JAX package pins it with an optimization
+    # barrier, split.py:208-220): the soft-thresholded gradient is rounded
+    # to float32 before it feeds the output division and the gain products.
+    # PyTorch runs each op on its own, so the order here is the order run;
+    # the CUDA scan kernel repeats it op for op.
+    return torch.sign(s) * torch.clamp(torch.abs(s) - l1, min=0.0)
+
+
+def leaf_output(sum_grad, sum_hess, l1, l2, max_delta_step):
+    """CalculateSplittedLeafOutput (feature_histogram.hpp)."""
+    num = -threshold_l1(sum_grad, l1)
+    out = num / torch.clamp(sum_hess + l2, min=K_EPSILON)
+    return torch.where(max_delta_step > 0,
+                       torch.clamp(out, -max_delta_step, max_delta_step), out)
+
+
+def leaf_gain_given_output(sum_grad, sum_hess, l1, l2, output):
+    g = threshold_l1(sum_grad, l1)
+    return -(2.0 * g * output + (sum_hess + l2) * output * output)
+
+
+def leaf_gain(sum_grad, sum_hess, l1, l2, max_delta_step):
+    out = leaf_output(sum_grad, sum_hess, l1, l2, max_delta_step)
+    return leaf_gain_given_output(sum_grad, sum_hess, l1, l2, out)
+
+
+# Packed best-split record layout (device -> host, one sync per leaf). The
+# last two fields (is_cat, cat_dir) stay zero for the numeric lanes.
+SPLIT_FIELDS = ["gain", "feature", "threshold_bin", "default_left",
+                "left_sum_g", "left_sum_h", "left_count",
+                "right_sum_g", "right_sum_h", "right_count",
+                "left_output", "right_output", "is_cat", "cat_dir"]
+
+
+@dataclass
+class SplitInfo:
+    """Host-side split record (counterpart of split_info.hpp SplitInfo)."""
+
+    gain: float = -np.inf
+    feature: int = -1  # dense (used-feature) index
+    threshold_bin: int = 0
+    default_left: bool = False
+    left_sum_g: float = 0.0
+    left_sum_h: float = 0.0
+    left_count: int = 0
+    right_sum_g: float = 0.0
+    right_sum_h: float = 0.0
+    right_count: int = 0
+    left_output: float = 0.0
+    right_output: float = 0.0
+
+    @property
+    def valid(self) -> bool:
+        return self.feature >= 0 and np.isfinite(self.gain) and self.gain > 0
+
+    @classmethod
+    def from_packed(cls, vec: np.ndarray) -> "SplitInfo":
+        return cls(gain=float(vec[0]), feature=int(vec[1]),
+                   threshold_bin=int(vec[2]), default_left=bool(vec[3] > 0.5),
+                   left_sum_g=float(vec[4]), left_sum_h=float(vec[5]),
+                   left_count=int(round(vec[6])), right_sum_g=float(vec[7]),
+                   right_sum_h=float(vec[8]), right_count=int(round(vec[9])),
+                   left_output=float(vec[10]), right_output=float(vec[11]))
+
+
+def gather_feature_hist_raw(hist: torch.Tensor, gather_index: torch.Tensor,
+                            valid_slot: torch.Tensor) -> torch.Tensor:
+    """[G, Bg, CH] group hist -> [F, Bmax, CH] by pure index gather, no EFB
+    reconstruction."""
+    flat = hist.reshape(-1, hist.shape[-1])
+    flat = torch.cat([flat, torch.zeros((1, hist.shape[-1]), dtype=flat.dtype,
+                                        device=flat.device)])
+    fh = flat[gather_index]  # [F, Bmax, CH]
+    return fh * valid_slot[:, :, None].to(fh.dtype)
+
+
+def fix_feature_hist(fh: torch.Tensor, totals: torch.Tensor,
+                     efb_omitted: torch.Tensor,
+                     default_bin: torch.Tensor) -> torch.Tensor:
+    """EFB default-bin reconstruction: default = leaf totals - sum(other
+    bins), added at the default bin of bundle members only (FixHistogram,
+    include/LightGBM/dataset.h:770). A dtype-preserving multiply, so an
+    integer histogram stays exact."""
+    missing_mass = totals[None, :].to(fh.dtype) - fh.sum(dim=1)  # [F, CH]
+    add = missing_mass * efb_omitted[:, None].to(fh.dtype)
+    rows = torch.arange(fh.shape[0], device=fh.device)
+    return fh.index_put((rows, default_bin), add, accumulate=True)
+
+
+def gather_feature_hist(hist: torch.Tensor, meta: FeatureMeta,
+                        totals: torch.Tensor) -> torch.Tensor:
+    """[G, Bg, 3] group hist -> [F, Bmax, 3] feature hist with EFB default
+    reconstruction (FixHistogram)."""
+    fh = gather_feature_hist_raw(hist, meta.gather_index, meta.valid_slot)
+    return fix_feature_hist(fh, totals, meta.efb_omitted, meta.default_bin)
+
+
+def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
+                            meta: FeatureMeta, params: torch.Tensor,
+                            feature_mask: Optional[torch.Tensor] = None,
+                            penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The numeric lanes of the JAX package's per_feature_best.
+
+    The prefix over bins is a float64 sum in ascending bin order rounded to
+    float32 at every bin (torch.cumsum on a CPU tensor accumulates
+    sequentially; the CUDA kernel does the same). It differs from the JAX
+    package's float32 cumsum in the last bit at most per step, and not at
+    all on grid-snapped histograms, whose sums are exact."""
+    l1, l2, min_data, min_hess, min_gain, max_delta = (
+        params[0], params[1], params[2], params[3], params[4], params[5])
+    F, Bmax, _ = fh.shape
+    dev = fh.device
+    total_g, total_h, total_cnt = totals[0], totals[1], totals[2]
+
+    missing_pos = meta.missing_pos.to(torch.int64)
+    has_missing = meta.has_missing
+    rows = torch.arange(F, device=dev)
+    zero = torch.zeros((), dtype=fh.dtype, device=dev)
+    missing_vals = torch.where(has_missing[:, None], fh[rows, missing_pos], zero)
+    tpos = torch.arange(Bmax, device=dev)[None, :]
+    at_missing = has_missing[:, None] & (tpos == missing_pos[:, None])
+    scan_hist = torch.where(at_missing[:, :, None], zero, fh)
+    cum = torch.cumsum(scan_hist.to(torch.float64), dim=1).to(torch.float32)
+
+    # lane 0: missing goes right (natural); lane 1: missing goes left
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    gate = ~meta.is_categorical
+    if feature_mask is not None:
+        gate = gate & feature_mask
+    results = []
+    for lane, left in enumerate((cum, cum + missing_vals[:, None, :])):
+        lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
+        rg, rh, rc = total_g - lg, total_h - lh, total_cnt - lc
+        ok = (lc >= min_data) & (rc >= min_data) & \
+             (lh >= min_hess) & (rh >= min_hess)
+        # threshold t must leave at least one real bin on the right
+        ok &= tpos < (meta.nbins[:, None] - 1)
+        ok &= meta.valid_slot
+        ok &= gate[:, None]
+        if lane == 1:
+            ok &= has_missing[:, None]
+        gain = (leaf_gain(lg, lh, l1, l2, max_delta)
+                + leaf_gain(rg, rh, l1, l2, max_delta))
+        results.append((torch.where(ok, gain, neg_inf), lg, lh, lc, rg, rh, rc))
+
+    gain_shift = leaf_gain(total_g, total_h, l1, l2, max_delta) + min_gain
+    per_f = torch.stack([results[0][0], results[1][0]], dim=1).reshape(F, 2 * Bmax)
+    best_flat = torch.argmax(per_f, dim=1)  # [F], first maximum
+    lane_b = best_flat // Bmax
+    t_b = best_flat % Bmax
+    best_gain = per_f[rows, best_flat]
+
+    def pick(i):
+        return torch.stack([results[0][i], results[1][i]])[lane_b, rows, t_b]
+
+    lg, lh, lc, rg, rh, rc = (pick(i) for i in range(1, 7))
+    is_valid = torch.isfinite(best_gain) & (best_gain > gain_shift)
+    out_gain = torch.where(is_valid, best_gain - gain_shift, neg_inf)
+    if penalty is not None:
+        out_gain = torch.where(is_valid, out_gain - penalty, neg_inf)
+    lout = leaf_output(lg, lh, l1, l2, max_delta)
+    rout = leaf_output(rg, rh, l1, l2, max_delta)
+    zeros = torch.zeros_like(out_gain)
+    # default_left lane semantics: lane 1 sends the missing bin left
+    return torch.stack([
+        out_gain,
+        torch.where(is_valid, rows.to(torch.float32), -1.0),
+        t_b.to(torch.float32),
+        lane_b.to(torch.float32),
+        lg, lh, lc, rg, rh, rc, lout, rout, zeros, zeros,
+    ], dim=1)
+
+
+def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
+                     params: torch.Tensor,
+                     feature_mask: Optional[torch.Tensor] = None,
+                     penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Best numeric split per feature: [F, len(SPLIT_FIELDS)] float32 records.
+
+    fh:     [F, Bmax, 3] float32 feature histograms (gather_feature_hist)
+    totals: [3] leaf (sum_grad, sum_hess, count)
+    params: [lambda_l1, lambda_l2, min_data_in_leaf, min_sum_hessian_in_leaf,
+             min_gain_to_split, max_delta_step] float32 on fh's device
+    feature_mask: optional [F] bool (feature sampling)
+    penalty: optional [F] float32 gain penalty subtracted per feature
+
+    The `feature` field is the row index into fh (invalid rows get -1). A
+    CPU tensor takes the plain version; a CUDA tensor the scan kernel.
+    """
+    from .scan_cuda import split_scan
+
+    return split_scan(fh, totals, meta, params, feature_mask, penalty)
+
+
+def reduce_best_record(recs: torch.Tensor) -> torch.Tensor:
+    """[K, len(SPLIT_FIELDS)] -> [len(SPLIT_FIELDS)] by max gain (ties: first,
+    matching the reference's SplitInfo operator> sweep order)."""
+    return recs[torch.argmax(recs[:, 0])]
+
+
+def find_best_split(hist: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
+                    params: torch.Tensor,
+                    feature_mask: Optional[torch.Tensor] = None,
+                    penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Best split across all features for one leaf.
+
+    hist:   [G, Bg, 3] group histogram for the leaf
+    totals: [3] leaf (sum_grad, sum_hess, count)
+    Returns the packed split record [len(SPLIT_FIELDS)] float32.
+    """
+    fh = gather_feature_hist(hist, meta, totals)  # [F, Bmax, 3]
+    return reduce_best_record(per_feature_best(fh, totals, meta, params,
+                                               feature_mask, penalty))

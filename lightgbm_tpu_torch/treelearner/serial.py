@@ -1,0 +1,343 @@
+"""Leaf-wise (best-first) tree learner, driven from the host.
+
+Counterpart of the JAX package's ``treelearner/serial.py``
+(SerialTreeLearner, src/treelearner/serial_tree_learner.cpp:182+): the
+leaf-wise loop runs on the host, each step dispatching three device
+computations —
+
+  1. leaf histogram      (ops/histogram.py — the histogram kernel on the card)
+  2. best-split search   (ops/split.py — the split-scan kernel on the card)
+  3. partition update    (ops/partition.py — stable-sort compaction)
+
+with the histogram-subtraction trick (larger child = parent − smaller,
+feature_histogram.hpp:99) and one device→host sync per split search (the
+packed best-split record) plus one per partition (the left count).
+
+Histograms are cached per leaf (the HistogramPool analog), with an LRU cap
+when histogram_pool_size is set.
+
+This slice carries the numeric, unconstrained, unquantized learner.
+Categorical features, monotone and interaction constraints, CEGB, linear
+trees, forced splits and quantized gradients are refused when the learner
+is built (`refuse_unported`).
+"""
+from __future__ import annotations
+
+import os
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.dataset import Dataset
+from ..models.tree import Tree
+from ..ops.histogram import build_histogram_rows, subtract_histogram
+from ..ops.partition import RowPartition
+from ..ops.split import FeatureMeta, SplitInfo, find_best_split, make_feature_meta
+from ..utils.log import Log
+from ..utils.timer import global_timer
+from .col_sampler import ColSampler
+
+
+@dataclass
+class _LeafState:
+    hist: Optional[torch.Tensor]  # [G, B, 3] leaf histogram
+    totals: Tuple[float, float, float]  # (sum_g, sum_h, count)
+    split: Optional[SplitInfo]
+    depth: int
+
+
+def refuse_unported(config: Config, dataset: Dataset) -> None:
+    """Raise for a configuration whose learner features are not ported yet,
+    rather than training a different model than the JAX package would."""
+    checks = (
+        (any(dataset.mappers[f].bin_type == 1 for f in dataset.used_features),
+         "categorical features"),
+        (bool(dataset.monotone_constraints and any(dataset.monotone_constraints)),
+         "monotone constraints"),
+        (bool(config.interaction_constraints), "interaction constraints"),
+        (config.cegb_penalty_split > 0.0 or bool(config.cegb_penalty_feature_coupled)
+         or bool(config.cegb_penalty_feature_lazy),
+         "cost-effective gradient boosting (CEGB)"),
+        (config.linear_tree, "linear trees"),
+        (bool(config.forcedsplits_filename), "forced splits"),
+        (config.use_quantized_grad, "quantized training"),
+    )
+    for refused, what in checks:
+        if refused:
+            Log.fatal("%s: not yet ported to the PyTorch package "
+                      "(ROADMAP Queue 1 item 6)", what)
+
+
+class SerialTreeLearner:
+    def __init__(self, config: Config, dataset: Dataset,
+                 device: torch.device) -> None:
+        refuse_unported(config, dataset)
+        self.config = config
+        self.dataset = dataset
+        self.device = torch.device(device)
+        self.num_data = dataset.num_data
+        # device-resident bin plane at its native width (uint8 when every
+        # group has <= 256 bins): the histogram kernel reads it unwidened
+        with global_timer.scope("learner_init"):
+            self.bins_dev = torch.from_numpy(np.ascontiguousarray(dataset.bins)).to(
+                self.device)
+        self.group_bin_padded = int(max(dataset.group_bin_counts().max(), 2))
+        self.meta: FeatureMeta = make_feature_meta(dataset, self.group_bin_padded,
+                                                   self.device)
+        self.params_dev = torch.tensor([
+            config.lambda_l1, config.lambda_l2,
+            float(config.min_data_in_leaf), config.min_sum_hessian_in_leaf,
+            config.min_gain_to_split, config.max_delta_step,
+        ], dtype=torch.float32, device=self.device)
+        self.partition: Optional[RowPartition] = None
+        self.col_sampler = ColSampler(config, self.meta.real_feature)
+        self._tree_feature_mask: Optional[torch.Tensor] = None
+        # HistogramPool byte cap (feature_histogram.hpp:1367-1597): when
+        # histogram_pool_size (MB) is set, at most `_pool_cap` leaf
+        # histograms stay materialized; LRU-evicted ones recompute on demand
+        self._pool_cap = 0
+        if config.histogram_pool_size > 0:
+            hist_bytes = (len(dataset.groups) * self.group_bin_padded * 3 * 4)
+            self._pool_cap = max(
+                2, int(config.histogram_pool_size * 1024 * 1024 / hist_bytes))
+        self._hist_lru: "OrderedDict[int, bool]" = OrderedDict()
+
+    # ------------------------------------------------------------------ train
+
+    def train(self, gh_ext: torch.Tensor,
+              bag_indices: Optional[np.ndarray] = None) -> Tree:
+        """Grow one tree from extended gradients gh_ext [N+1, 3] (zero
+        sentinel row at N)."""
+        cfg = self.config
+        num_leaves = cfg.num_leaves
+        tree = Tree(num_leaves)
+        self._begin_tree(gh_ext, bag_indices)
+
+        frontier: Dict[int, _LeafState] = {}
+        with global_timer.scope("hist_root"):
+            root_hist = self._leaf_hist(0)
+        root_totals = self._root_totals(root_hist)
+        frontier[0] = _LeafState(root_hist, root_totals, None, depth=0)
+        self._find_split(frontier, 0)
+
+        for _ in range(num_leaves - 1):
+            best_leaf, best = None, None
+            for leaf, state in frontier.items():
+                if state.split is not None and state.split.valid:
+                    if best is None or state.split.gain > best.gain:
+                        best_leaf, best = leaf, state.split
+            if best_leaf is None:
+                Log.debug("No further splits with positive gain, best gain: -inf")
+                break
+            self._apply_split(tree, frontier, best_leaf, best)
+            if tree.num_leaves >= num_leaves:
+                break
+
+        if tree.num_leaves == 1:
+            tree.as_constant_tree(0.0)
+        return tree
+
+    def _begin_tree(self, gh_ext: torch.Tensor,
+                    bag_indices: Optional[np.ndarray]) -> None:
+        self._gh = gh_ext
+        self._hist_lru.clear()
+        partition = RowPartition(self.num_data, self.device)
+        if bag_indices is not None:
+            partition.set_used_indices(bag_indices)
+        self.partition = partition
+        if self.col_sampler.active:
+            self._tree_feature_mask = torch.as_tensor(
+                self.col_sampler.reset_by_tree(), device=self.device)
+        else:
+            self._tree_feature_mask = None
+
+    def _leaf_hist(self, leaf: int) -> torch.Tensor:
+        return build_histogram_rows(self.bins_dev, self._gh,
+                                    self.partition.indices(leaf),
+                                    self.group_bin_padded)
+
+    def _root_totals(self, root_hist: torch.Tensor) -> Tuple[float, float, float]:
+        # any group's bins partition all rows, so group 0's bin-sum = totals
+        return tuple(float(x) for x in root_hist[0].sum(dim=0).cpu().numpy())
+
+    def _node_feature_mask(self) -> Optional[torch.Tensor]:
+        cs = self.col_sampler
+        if not cs.active:
+            return None
+        if cs.fraction_bynode < 1.0 or cs.constraints:
+            return torch.as_tensor(cs.get_by_node(set()), device=self.device)
+        return self._tree_feature_mask
+
+    def _search_split(self, state: _LeafState) -> SplitInfo:
+        rec = find_best_split(
+            state.hist, torch.tensor(state.totals, dtype=torch.float32,
+                                     device=self.device),
+            self.meta, self.params_dev, self._node_feature_mask())
+        return SplitInfo.from_packed(rec.cpu().numpy())
+
+    # --------------------------------------------------------------- internal
+
+    def _max_depth_ok(self, depth: int) -> bool:
+        return self.config.max_depth <= 0 or depth < self.config.max_depth
+
+    def _pool_touch(self, frontier: Dict[int, _LeafState], leaf: int) -> None:
+        """Materialize an evicted leaf histogram and refresh its LRU slot,
+        evicting the coldest leaves past the pool cap."""
+        state = frontier[leaf]
+        if state.hist is None:
+            with global_timer.scope("hist_recompute"):
+                state.hist = self._leaf_hist(leaf)
+        if not self._pool_cap:
+            return
+        lru = self._hist_lru
+        lru.pop(leaf, None)
+        lru[leaf] = True
+        while len(lru) > self._pool_cap:
+            old, _ = lru.popitem(last=False)
+            old_state = frontier.get(old)
+            if old_state is not None and old_state.hist is not None:
+                old_state.hist = None
+
+    def _find_split(self, frontier: Dict[int, _LeafState], leaf: int) -> None:
+        state = frontier[leaf]
+        cnt = state.totals[2]
+        if (not self._max_depth_ok(state.depth)
+                or cnt < 2 * self.config.min_data_in_leaf
+                or state.totals[1] < 2 * self.config.min_sum_hessian_in_leaf):
+            state.split = SplitInfo()
+            return
+        self._pool_touch(frontier, leaf)
+        with global_timer.scope("find_best_split"):
+            state.split = self._search_split(state)
+
+    def _apply_split(self, tree: Tree, frontier: Dict[int, _LeafState],
+                     leaf: int, split: SplitInfo) -> None:
+        ds = self.dataset
+        dense_f = split.feature
+        real_f = self.meta.real_feature[dense_f]
+        mapper = ds.mappers[real_f]
+        gi, mi = ds.feature_to_group[real_f]
+        fg = ds.groups[gi]
+        lo, hi, _ = fg.feature_bin_range(mi)
+
+        state = frontier[leaf]
+        new_leaf = tree.num_leaves
+        self._pool_touch(frontier, leaf)  # parent hist needed for subtraction
+
+        # 1. record the split in the tree (real-value threshold)
+        parent_output = _leaf_output_host(
+            state.totals[0], state.totals[1],
+            self.config.lambda_l1, self.config.lambda_l2,
+            self.config.max_delta_step)
+        tree.split(leaf=leaf, feature_inner=dense_f, real_feature=real_f,
+                   threshold_bin=split.threshold_bin,
+                   threshold_double=mapper.bin_to_value(split.threshold_bin),
+                   default_left=split.default_left,
+                   missing_type=mapper.missing_type,
+                   gain=split.gain,
+                   left_value=split.left_output,
+                   right_value=split.right_output,
+                   left_count=split.left_count,
+                   right_count=split.right_count,
+                   left_weight=split.left_sum_h,
+                   right_weight=split.right_sum_h,
+                   parent_value=parent_output)
+
+        # 2. partition rows (one host sync for the left count)
+        decision = (float(split.threshold_bin), 1.0 if split.default_left else 0.0,
+                    float(mapper.missing_type), float(mapper.default_bin),
+                    float(mapper.num_bin), float(lo), float(hi),
+                    1.0 if fg.is_multi else 0.0)
+        with global_timer.scope("partition"):
+            left_cnt, right_cnt = self.partition.split(
+                leaf, new_leaf, self.bins_dev[gi], decision)
+        if left_cnt != split.left_count or right_cnt != split.right_count:
+            Log.debug("Partition count mismatch at leaf %d: %d/%d vs %d/%d",
+                      leaf, left_cnt, right_cnt, split.left_count, split.right_count)
+
+        # 3. child histograms: construct the smaller, subtract for the larger
+        parent_hist = state.hist
+        left_totals = (split.left_sum_g, split.left_sum_h, float(left_cnt))
+        right_totals = (split.right_sum_g, split.right_sum_h, float(right_cnt))
+        with global_timer.scope("hist_children"):
+            if left_cnt <= right_cnt:
+                small, big = leaf, new_leaf
+            else:
+                small, big = new_leaf, leaf
+            small_hist = self._leaf_hist(small)
+            big_hist = subtract_histogram(parent_hist, small_hist)
+        depth = state.depth + 1
+        frontier[leaf] = _LeafState(
+            small_hist if small == leaf else big_hist, left_totals, None, depth)
+        frontier[new_leaf] = _LeafState(
+            small_hist if small == new_leaf else big_hist, right_totals, None,
+            depth)
+        state.hist = None  # release parent histogram
+        self._hist_lru.pop(leaf, None)
+        self._pool_touch(frontier, leaf)
+        self._pool_touch(frontier, new_leaf)
+        self._find_split(frontier, leaf)
+        self._find_split(frontier, new_leaf)
+
+
+def _leaf_output_host(sum_g: float, sum_h: float, l1: float, l2: float,
+                      max_delta: float) -> float:
+    num = -np.sign(sum_g) * max(abs(sum_g) - l1, 0.0)
+    out = num / max(sum_h + l2, 1e-15)
+    if max_delta > 0:
+        out = float(np.clip(out, -max_delta, max_delta))
+    return float(out)
+
+
+def device_growth_applies(device: torch.device, config: Config,
+                          dataset: Dataset) -> bool:
+    """Whether the JAX package would grow this configuration's trees with
+    its whole-tree wave learner (DeviceTreeLearner).
+
+    The wave learner is selected on accelerators only; device_type=cpu
+    forces the host-driven learner. Per-node feature masks, per-leaf
+    bounds and penalties, linear trees and forced splits need the
+    host-driven loop, as do categorical features.
+    """
+    on_accelerator = torch.device(device).type == "cuda"
+    has_cat = any(dataset.mappers[f].bin_type == 1
+                  for f in dataset.used_features)
+    cegb = (config.cegb_penalty_split > 0.0
+            or bool(config.cegb_penalty_feature_coupled)
+            or bool(config.cegb_penalty_feature_lazy))
+    needs_host = (config.feature_fraction_bynode < 1.0
+                  or bool(config.interaction_constraints)
+                  or bool(dataset.monotone_constraints
+                          and any(dataset.monotone_constraints))
+                  or cegb
+                  or config.linear_tree
+                  or bool(config.forcedsplits_filename))
+    return on_accelerator and not has_cat and not needs_host
+
+
+def create_tree_learner(learner_type: str, device: torch.device, config: Config,
+                        dataset: Dataset) -> SerialTreeLearner:
+    """Factory (tree_learner.cpp:17-57). A configuration the JAX package
+    gives to its streamed, wave or distributed learners is refused: the
+    port trains it with none of them yet, and does not silently swap in the
+    serial learner."""
+    if learner_type in ("serial",):
+        if os.environ.get("LGBM_TPU_HBM_BUDGET"):
+            Log.fatal("LGBM_TPU_HBM_BUDGET asks for the out-of-core streamed "
+                      "learner, which is not yet ported to the PyTorch package "
+                      "(ROADMAP Queue 1 item 9)")
+        if device_growth_applies(device, config, dataset):
+            Log.fatal("the wave learner is not yet ported (ROADMAP Queue 1 "
+                      "item 5): on the card this configuration needs it. Set "
+                      "feature_fraction_bynode < 1 for the serial learner, or "
+                      "train on the CPU with device_type=cpu")
+        return SerialTreeLearner(config, dataset, device)
+    if learner_type in ("feature", "data", "voting"):
+        Log.fatal("tree_learner=%s: the distributed learners are not yet "
+                  "ported to the PyTorch package (ROADMAP Queue 1 item 8)",
+                  learner_type)
+    Log.fatal("Unknown tree learner type: %s", learner_type)

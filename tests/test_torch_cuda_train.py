@@ -1,0 +1,187 @@
+"""The CUDA leaf-histogram and split-scan kernels against their plain
+PyTorch versions, and training on the card against training on the CPU.
+
+Marked `gpu`: these need an NVIDIA card with nvcc, and skip elsewhere.
+Run them on the card with `python -m pytest -m gpu tests/test_torch_cuda_train.py`.
+Whether a card is present is decided inside the fixture, never at import,
+so every test worker collects the same tests.
+
+Contracts: the histogram is exact on grid-snapped gradients and in the
+integer mode, within the float32 summation bound P * 2**-24 * sum|v| per
+bin otherwise, and bit-equal from one launch to the next. The split scan's
+records equal the plain version's run on the CPU on the same histogram,
+field for field; the gain within 4 ULP of the un-shifted gain.
+"""
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.io.dataset import Dataset
+from lightgbm_tpu_torch.ops import hist_cuda, scan_cuda
+from lightgbm_tpu_torch.ops import split as ts
+from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
+                                              _build_histogram_rows_plain)
+
+pytestmark = pytest.mark.gpu
+PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    return torch.device("cuda")
+
+
+def _hist_inputs(seed, G, N, B, P, n_rows):
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, size=(G, N)).astype(np.uint8)
+    bins[:, rng.rand(N) < 0.4] = 0
+    gh = np.stack([rng.normal(size=N), rng.uniform(0, 0.5, size=N), np.ones(N)], 1)
+    snapped = np.round(gh * 16) / 16
+    ext = lambda a: np.concatenate([a, np.zeros((1, 3))]).astype(np.float32)  # noqa: E731
+    idx = np.full(P, N, np.int32)
+    idx[:n_rows] = np.sort(rng.choice(N, n_rows, replace=False))
+    q = rng.randint(-127, 128, size=(N + 1, 3)).astype(np.int8)
+    q[N] = 0
+    return bins, ext(gh), ext(snapped), q, idx
+
+
+# (G, N, B, P, rows): G not a multiple of the group block, one group, a
+# leaf of only sentinels, two bins, an unpadded identity-sized leaf
+HIST_SHAPES = [(7, 20000, 256, 16384, 12000), (1, 5000, 64, 4096, 3000),
+               (28, 3000, 256, 256, 0), (3, 40000, 2, 65536, 40000),
+               (28, 100000, 255, 131072, 99000)]
+
+
+@pytest.mark.parametrize("shape", HIST_SHAPES, ids=[str(s) for s in HIST_SHAPES])
+def test_histogram_kernel_matches_plain(cuda, shape):
+    G, N, B, P, n_rows = shape
+    bins, gh, snapped, q, idx = _hist_inputs(sum(shape), G, N, B, P, n_rows)
+    b_d, i_d = torch.from_numpy(bins).to(cuda), torch.from_numpy(idx).to(cuda)
+    before = hist_cuda.launches["histogram"]
+    for leaf in (None, i_d):
+        for values, exact in ((snapped, True), (gh, False)):
+            v_d = torch.from_numpy(values).to(cuda)
+            got = hist_cuda.histogram(b_d, v_d if leaf is not None else v_d[:N], leaf, B)
+            again = hist_cuda.histogram(b_d, v_d if leaf is not None else v_d[:N], leaf, B)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            if leaf is None:
+                ref = _build_histogram_plain(torch.from_numpy(bins),
+                                             torch.from_numpy(values[:N]), B)
+                absref = _build_histogram_plain(torch.from_numpy(bins),
+                                                torch.from_numpy(np.abs(values[:N])), B)
+                n_pos = N
+            else:
+                ref = _build_histogram_rows_plain(torch.from_numpy(bins),
+                                                  torch.from_numpy(values),
+                                                  torch.from_numpy(idx), B)
+                absref = _build_histogram_rows_plain(
+                    torch.from_numpy(bins), torch.from_numpy(np.abs(values)),
+                    torch.from_numpy(idx), B)
+                n_pos = P
+            if exact:
+                assert torch.equal(got.cpu(), ref)
+            else:
+                bound = n_pos * 2.0 ** -24 * absref.double()
+                assert bool(((got.cpu().double() - ref.double()).abs() <= bound).all())
+    q_d = torch.from_numpy(q).to(cuda)
+    got = hist_cuda.histogram(b_d, q_d, i_d, B)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), _build_histogram_rows_plain(
+        torch.from_numpy(bins), torch.from_numpy(q), torch.from_numpy(idx), B))
+    assert hist_cuda.launches["histogram"] == before + 9
+
+
+def test_histogram_wrapper_rejects_bad_input(cuda):
+    bins = torch.zeros((2, 100), dtype=torch.int32, device=cuda)
+    gh = torch.zeros((101, 3), device=cuda)
+    with pytest.raises(ValueError, match="uint8"):
+        hist_cuda.histogram(bins, gh, None, 16)
+    with pytest.raises(ValueError, match="int32"):
+        hist_cuda.histogram(bins.to(torch.uint8), gh,
+                            torch.zeros(8, dtype=torch.int64, device=cuda), 16)
+
+
+def _leaf_case(seed, nan_feature):
+    """A dataset whose feature 2 has a NaN missing bin (or, with
+    zero_as_missing, every feature a zero missing bin), and one leaf's
+    histogram (from the kernel) and totals on the card."""
+    rng = np.random.RandomState(seed)
+    n = 30000
+    X = rng.normal(size=(n, 9))
+    if nan_feature:
+        X[rng.rand(n) < 0.1, 2] = np.nan
+    X[rng.rand(n) < 0.2, 5] = 0.0
+    ds = Dataset.from_matrix(X, label=np.zeros(n), config=Config(
+        {} if nan_feature else {"zero_as_missing": True}))
+    B = int(max(ds.group_bin_counts().max(), 2))
+    gh = np.stack([rng.normal(size=n), rng.uniform(0.05, 0.5, size=n), np.ones(n)], 1)
+    gh = np.concatenate([gh, np.zeros((1, 3))]).astype(np.float32)
+    idx = np.full(32768, n, np.int32)
+    idx[:20000] = np.sort(rng.choice(n, 20000, replace=False))
+    hist = hist_cuda.histogram(torch.from_numpy(ds.bins).to("cuda"),
+                               torch.from_numpy(gh).to("cuda"),
+                               torch.from_numpy(idx).to("cuda"), B)
+    return ds, B, hist, hist[0].sum(dim=0)
+
+
+@pytest.mark.parametrize("nan_feature", [True, False])
+@pytest.mark.parametrize("mask", ["none", "sampled", "empty", "penalty"])
+def test_split_scan_kernel_matches_plain_on_cpu(cuda, nan_feature, mask):
+    ds, B, hist, tot = _leaf_case(3 + nan_feature, nan_feature)
+    meta_d = ts.make_feature_meta(ds, B, cuda)
+    meta_h = ts.make_feature_meta(ds, B, "cpu")
+    F = len(meta_h.real_feature)
+    rng = np.random.RandomState(7)
+    fmask = {"none": None, "sampled": rng.rand(F) < 0.7,
+             "empty": np.zeros(F, bool), "penalty": rng.rand(F) < 0.9}[mask]
+    pen = rng.uniform(0, 3, size=F).astype(np.float32) if mask == "penalty" else None
+    fh = ts.gather_feature_hist(hist, meta_d, tot)
+    before = scan_cuda.launches["split_scan"]
+    rec = scan_cuda.split_scan(
+        fh, tot, meta_d, torch.tensor(PARAMS, device=cuda),
+        None if fmask is None else torch.from_numpy(fmask).to(cuda),
+        None if pen is None else torch.from_numpy(pen).to(cuda)).cpu()
+    assert scan_cuda.launches["split_scan"] == before + 1
+    ref = ts.per_feature_best(fh.cpu(), tot.cpu(), meta_h, torch.tensor(PARAMS),
+                              None if fmask is None else torch.from_numpy(fmask),
+                              None if pen is None else torch.from_numpy(pen))
+    assert torch.equal(rec[:, 1:], ref[:, 1:])
+    finite = torch.isfinite(ref[:, 0])
+    assert torch.equal(torch.isfinite(rec[:, 0]), finite)
+    shift = ts.leaf_gain(tot[0].cpu(), tot[1].cpu(), *torch.tensor(PARAMS)[[0, 1, 5]])
+    ulp = np.spacing(np.abs((ref[:, 0] + shift).numpy()).astype(np.float32))
+    assert (np.abs((rec[:, 0] - ref[:, 0]).numpy())[finite.numpy()]
+            <= 4 * ulp[finite.numpy()]).all()
+    if mask == "empty":
+        assert (rec[:, 1] == -1).all()
+    else:
+        assert (rec[:, 1] >= 0).any()
+
+
+def _snapped_logloss(preds, dataset):
+    p = 1.0 / (1.0 + np.exp(-preds))
+    grad = np.round((p - dataset.get_label()) * 16) / 16
+    hess = np.round(np.maximum(p * (1.0 - p), 1.0 / 16) * 16) / 16
+    return grad, hess
+
+
+def test_train_on_card_byte_equal_to_cpu(cuda):
+    rng = np.random.RandomState(11)
+    X = rng.normal(size=(20000, 10))
+    X[rng.rand(20000, 10) < 0.03] = np.nan
+    y = (X[:, 0] + np.nan_to_num(X[:, 3]) > 0).astype(np.float64)
+    params = {"objective": _snapped_logloss, "num_leaves": 63,
+              "feature_fraction_bynode": 0.8, "verbosity": -1}
+    hist_before = hist_cuda.launches["histogram"]
+    scan_before = scan_cuda.launches["split_scan"]
+    card = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=3)
+    assert hist_cuda.launches["histogram"] > hist_before
+    assert scan_cuda.launches["split_scan"] > scan_before
+    host = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
+                    num_boost_round=3)
+    assert card.model_to_string() == host.model_to_string()
