@@ -5,9 +5,10 @@
 Phases (any failure exits non-zero before the result line):
 
 1. device   the card's name, count and power limit; no card -> exit 1.
-2. build    the three sources under csrc/ (forest traversal, leaf
-            histogram, split scan), one nvcc each, all started together;
-            build seconds and ptxas's registers / shared memory / spills.
+2. build    the four sources under csrc/ (forest traversal, histograms,
+            split scan, row compaction), one nvcc each, all started
+            together; build seconds and ptxas's registers / shared memory /
+            spills.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
             the repo targets (binary, 28 features, 500 trees x 255 leaves,
             LightGBM docs/Experiments.rst HIGGS settings), a multiclass-3
@@ -17,16 +18,24 @@ Phases (any failure exits non-zero before the result line):
             the traversal on a 65,536-row sample (~1% NaN and exact zeros),
             leaf indices exactly equal, raw scores within the float32
             summation bound, two launches bit-equal, then its timings at the
-            main path's shapes. The leaf histogram and the split scan on the
-            HIGGS-width training data (1,048,576 rows x 28 features x 255
-            bins, made from --seed): the histogram at the root and on a
-            ~100,000-row leaf, exact on grid-snapped gradients and in the
-            integer mode, within the float32 summation bound otherwise, two
-            launches bit-equal; the split scan's records on those leaves,
-            with and without a feature mask, equal to the plain version run
-            on the CPU (the gain within 4 ULP); then their timings.
+            main path's shapes. On the HIGGS-width training data (1,048,576
+            rows x 28 features x 255 bins, made from --seed): the leaf
+            histogram at the root and on a ~100,000-row leaf; the ragged
+            (wave) histogram at the root and on 21 ranges covering about
+            half the rows, and histogram_slots on a sample; each exact on
+            grid-snapped gradients and in the integer mode, within the
+            float32 summation bound otherwise, two launches bit-equal. The
+            split scan on those leaves, with and without a feature mask,
+            equal to the plain version run on the CPU (the gain within 4
+            ULP), and its leaf batch at a wave's 42 children bit-equal. The
+            row compaction of 21 ranges with a random split, bit-equal. Then
+            their timings beside their bounds, plain versions and, for the
+            compaction, index_copy_.
 5. exact    training on 65,536 rows with grid-snapped custom gradients, 3
-            rounds, on the card and with device_type=cpu: byte-equal models.
+            rounds: the serial learner (feature_fraction_bynode=0.8) on the
+            card and with device_type=cpu, and the wave learner on the card
+            against a CPU GBDT whose learner is the wave learner, without and
+            with bagging: byte-equal models.
 6. booster  the serving path, part 1: Booster(model_file=...) on the default
             device predicts 1,048,576 rows (auto-streamed in 262,144-row
             chunks); the streamed raw scores equal the CPU Booster's on
@@ -34,18 +43,24 @@ Phases (any failure exits non-zero before the result line):
 7. serving  the serving path, part 2: PredictionService + HTTP front with the
             bench's settings, 256 requests of 64 rows from 8 threads, JSON
             and binary wire, every answer bit-equal to Booster.predict.
-8. train    the training path: lightgbm_tpu_torch.train on the 1,048,576 x
-            28 data, binary objective, num_leaves=255, max_bin=255,
-            learning_rate=0.1, feature_fraction_bynode=0.8, 10 rounds, with
-            a 65,536-row validation set; seconds per iteration, leaves per
-            tree, train and valid AUC; the model text reloads and predicts
-            through the traversal kernel equal to the training Booster.
+8. train    the training path, the main one: lightgbm_tpu_torch.train on
+            the 1,048,576 x 28 data, binary objective, num_leaves=255,
+            max_bin=255, learning_rate=0.1, 10 rounds, with a 65,536-row
+            validation set, through the wave learner; seconds per iteration,
+            leaves per tree, waves, committed and speculated splits, rows
+            histogrammed per tree (at most N * (1 + waves / 2): a wave
+            histograms only the smaller children of disjoint leaves), train
+            and valid AUC; the
+            model text reloads and predicts equal to the training Booster;
+            the host scopes and the device's busy share over one round.
+9. serial   the same with feature_fraction_bynode=0.8, through the serial
+            learner.
 
 The launch counters are set to 0 just before phase 6 and read just after
-phase 7 (the serving path), and again just before and after phase 8 (the
-training path): every kernel of each path must have launched there. The
-last three lines are the kernels' JSON record, the card's name and power
-limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
+phase 7 (the serving path), and again just before and after phase 8 and
+phase 9 (the training paths): every kernel of each path must have launched
+there. The last three lines are the kernels' JSON record, the card's name
+and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -74,10 +89,15 @@ SERVE_REQUESTS, SERVE_ROWS, SERVE_THREADS = 256, 64, 8
 # the training path: HIGGS width (bench.py:7-13) with per-node sampling
 TRAIN_ROWS, VALID_ROWS, LEAF_ROWS = 1_048_576, 65_536, 100_000
 TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 65_536, 3
+SERIAL_ROUNDS = 10  # the serial learner's path, after the wave learner's
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "feature_fraction_bynode": 0.8,
                 "metric": "auc", "verbosity": -1}
 SCAN_PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]  # TRAIN_PARAMS' regularizers
+# the main path: the HIGGS parameters without per-node sampling, which the
+# wave learner grows
+WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "feature_fraction_bynode"}
+WAVE_K, SLOT_SLOTS = 21, 4  # the wave learner's default width; histogram_slots' slots
 
 
 class SmokeFailure(RuntimeError):
@@ -280,6 +300,185 @@ def check_split_scan(dev, ds, bins, num_bins, gh, idx):
     return max_err, timings, bound(nbytes, ops), F, B
 
 
+def half_ranges(rng, n_rows, k):
+    """k disjoint row ranges covering about half the rows, as a wave's
+    smaller children do: the first half of each of k random segments."""
+    cuts = np.sort(rng.choice(np.arange(1, n_rows), k - 1, replace=False))
+    edges = np.concatenate([[0], cuts, [n_rows]])
+    starts = edges[:-1]
+    return starts.astype(np.int32), (starts + np.diff(edges) // 2).astype(np.int32)
+
+
+def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
+    """The ragged (wave) histogram kernel against its plain version run on
+    the CPU: at the root (one range over every row) and on WAVE_K disjoint
+    ranges covering about half the rows, each row of range k carrying slot
+    k, gh read in place from the wave learner's [N, 5] payload. Exact on
+    snapped gradients and in the integer mode, within the float32 summation
+    bound otherwise, two launches bit-equal; then histogram_slots on a
+    sample. Returns (max |d|, timings, bounds, the wave case's histogram,
+    the root's)."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_plain,
+                                                  histogram_slots)
+
+    rng = np.random.RandomState(seed)
+    G = bins.shape[0]
+    raw = np.stack([rng.normal(0, 0.3, n_rows), rng.uniform(0.05, 0.25, n_rows),
+                    np.ones(n_rows)], axis=1)
+    payload = {"real": raw, "snapped": np.round(np.clip(raw, -0.9, 0.9) * 16) / 16,
+               "quantized": rng.randint(-127, 128, size=(n_rows, 3))}
+    payload = {k: torch.from_numpy(np.concatenate(
+        [v, np.zeros((n_rows, 2))], axis=1).astype(np.float32)) for k, v in payload.items()}
+    pay_d = {k: v.to(dev) for k, v in payload.items()}
+    starts, ends = half_ranges(rng, n_rows, WAVE_K)
+    slot = np.full(n_rows, WAVE_K, np.int32)
+    for k in range(WAVE_K):
+        slot[starts[k]:ends[k]] = k
+    cases = {
+        "root": (np.zeros(n_rows, np.int32), np.array([0], np.int32),
+                 np.array([n_rows], np.int32)),
+        "wave": (slot, starts, ends),
+    }
+    bins_h = bins.cpu()
+    max_err, kept, timings, bounds = 0.0, {}, {}, {}
+    out_bytes = G * num_bins * 3 * 4
+    for name, (sl, st, en) in cases.items():
+        K = len(st)
+        args_h = [torch.from_numpy(a) for a in (sl, st, en)] + [torch.ones(K, dtype=torch.bool)]
+        args_d = [a.to(dev) for a in args_h]
+
+        def kern(mode, a=args_d, K=K):
+            return hist_cuda.histogram_ragged(bins, pay_d[mode][:, :3], *a, num_bins, K,
+                                              mode == "quantized")
+
+        def plain(mode, a=args_h, K=K, values=None):
+            v = payload[mode] if values is None else values
+            return _histogram_slots_ragged_plain(bins_h, v[:, :3], *a, num_bins, K,
+                                                 mode == "quantized")
+
+        check(torch.equal(kern("snapped").cpu(), plain("snapped")),
+              f"ragged histogram {name}: differs from the plain version on snapped gradients")
+        got, again = kern("real"), kern("real")
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"ragged histogram {name}: two launches differ")
+        got = got.cpu()
+        ref = plain("real")
+        err = (got.double() - ref.double()).abs()
+        rows = int((en - st).sum())
+        check(bool((err <= rows * 2.0 ** -24 * plain("real", values=payload["real"].abs())
+                    .double()).all()),
+              f"ragged histogram {name}: outside the float32 summation bound")
+        check(torch.equal(kern("quantized").cpu(), plain("quantized")),
+              f"ragged histogram {name}: integer mode differs")
+        max_err = max(max_err, float(err.max()))
+        kept[name] = kern("real")
+        timings[name] = cuda_ms(lambda: kern("real"), 20)
+        timings["plain_" + name] = cuda_ms(
+            lambda a=args_d, K=K: _histogram_slots_ragged_plain(
+                bins, pay_d["real"][:, :3], *a, num_bins, K), 2)
+        # each input read once over the rows in the ranges, the output written
+        bounds[name] = bound(rows * (G + 12 + 4) + K * out_bytes, 3 * G * rows)
+    # histogram_slots: every row, SLOT_SLOTS slots, on a sample
+    n, S = SAMPLE_ROWS, SLOT_SLOTS
+    sb = bins[:, :n].contiguous()
+    sg = pay_d["snapped"][:n, :3].contiguous()
+    ss = torch.from_numpy(rng.randint(0, S + 2, size=n).astype(np.int32)).to(dev)
+    check(torch.equal(histogram_slots(sb, sg, ss, num_bins, S).cpu(),
+                      histogram_slots(sb.cpu(), sg.cpu(), ss.cpu(), num_bins, S)),
+          "histogram_slots: differs from the plain version on snapped gradients")
+    all_rows = [torch.zeros(S, dtype=torch.int32, device=dev),
+                torch.full((S,), n, dtype=torch.int32, device=dev),
+                torch.ones(S, dtype=torch.bool, device=dev)]
+    timings["slots"] = cuda_ms(lambda: histogram_slots(sb, sg, ss, num_bins, S), 20)
+    timings["plain_slots"] = cuda_ms(lambda: _histogram_slots_ragged_plain(
+        sb, sg, ss, *all_rows, num_bins, S), 2)
+    bounds["slots"] = bound(n * (G + 12 + 4) + S * out_bytes, 3 * G * n)
+    return max_err, timings, bounds, kept["wave"], kept["root"]
+
+
+def check_compaction(dev, bins, n_rows, seed):
+    """The compaction kernel against its plain version run on the CPU, on
+    WAVE_K ranges covering every row with a random go_left (the forward map
+    from range_partition_dst on the card, equal to the CPU's): bit-equal, two
+    launches bit-equal. Returns (timings, bound)."""
+    from lightgbm_tpu_torch.ops import compact_cuda
+    from lightgbm_tpu_torch.ops.compact import (_compact_rows_plain,
+                                                range_partition_dst_by_range)
+
+    rng = np.random.RandomState(seed)
+    G = bins.shape[0]
+    rows = rng.normal(size=(n_rows, 5)).astype(np.float32)
+    rows[:, 3] = np.arange(n_rows)
+    rows[:, 4] = rng.randint(0, 255, n_rows)
+    cuts = np.sort(rng.choice(np.arange(1, n_rows), WAVE_K - 1, replace=False))
+    edges = np.concatenate([[0], cuts, [n_rows]]).astype(np.int32)
+    range_of = np.repeat(np.arange(WAVE_K, dtype=np.int32), np.diff(edges))
+    args_h = [torch.from_numpy(rng.rand(n_rows) < 0.5), torch.from_numpy(range_of),
+              torch.from_numpy(edges[:-1]), torch.from_numpy(np.diff(edges)),
+              torch.ones(WAVE_K, dtype=torch.bool)]
+    dst, n_left = range_partition_dst_by_range(*[a.to(dev) for a in args_h])
+    dst_h, n_left_h = range_partition_dst_by_range(*args_h)
+    check(torch.equal(dst.cpu(), dst_h) and torch.equal(n_left.cpu(), n_left_h),
+          "compaction: range_partition_dst on the card differs from the CPU's")
+    rows_d = torch.from_numpy(rows).to(dev)
+    got, again = compact_cuda.compact(bins, rows_d, dst), compact_cuda.compact(bins, rows_d, dst)
+    torch.cuda.synchronize()
+    ref = _compact_rows_plain(bins.cpu(), torch.from_numpy(rows), dst_h)
+    for g, a, r in zip(got, again, ref):
+        check(torch.equal(g.cpu().view(torch.uint8), r.view(torch.uint8)),
+              "compaction: differs from the plain version")
+        check(torch.equal(a.view(torch.uint8), g.view(torch.uint8)),
+              "compaction: two launches differ")
+    out = (torch.empty_like(bins), torch.empty_like(rows_d))
+    dst64 = dst.long()
+
+    def library():
+        out[0].index_copy_(1, dst64, bins)
+        out[1].index_copy_(0, dst64, rows_d)
+
+    library()
+    check(torch.equal(out[0], got[0]) and torch.equal(out[1].view(torch.int32),
+                                                      got[1].view(torch.int32)),
+          "compaction: index_copy_ differs from the kernel")
+    timings = {"kernel": cuda_ms(lambda: compact_cuda.compact(bins, rows_d, dst, out), 20),
+               "plain": cuda_ms(lambda: _compact_rows_plain(bins, rows_d, dst), 5),
+               "library": cuda_ms(library, 20)}
+    return timings, bound(2 * (G + 5 * 4) * n_rows + 4 * n_rows, 0)
+
+
+def check_batched_scan(dev, ds, num_bins, wave_hist, root_hist):
+    """The split-scan kernel's leaf batch at a wave's shape (2 * WAVE_K
+    children: each range's histogram and the root minus it) against the
+    plain version run on the CPU: every field bit-equal, the gain too.
+    Returns (timings, bound, leaves)."""
+    from lightgbm_tpu_torch.ops import scan_cuda
+    from lightgbm_tpu_torch.ops import split as ts
+
+    G = root_hist.shape[0]
+    left = wave_hist.reshape(G, num_bins, WAVE_K, 3).permute(2, 0, 1, 3)
+    hists = torch.stack([left, root_hist[None] - left], dim=1).reshape(
+        2 * WAVE_K, G, num_bins, 3)
+    totals = hists[:, 0].sum(dim=1)
+    meta_d = ts.make_feature_meta(ds, num_bins, dev)
+    meta_h = ts.make_feature_meta(ds, num_bins, "cpu")
+    params_d = torch.tensor(SCAN_PARAMS, device=dev)
+    fh = ts.gather_feature_hist(hists, meta_d, totals)
+    rec = scan_cuda.split_scan(fh, totals, meta_d, params_d)
+    ref = ts._per_feature_best_plain(fh.cpu(), totals.cpu(), meta_h,
+                                     torch.tensor(SCAN_PARAMS))
+    check(torch.equal(rec.cpu().view(torch.int32), ref.view(torch.int32)),
+          "batched split scan: records differ from the CPU plain version")
+    check(bool((rec[..., 1] >= 0).any()), "batched split scan: no feature has a split")
+    timings = {"kernel": cuda_ms(lambda: scan_cuda.split_scan(fh, totals, meta_d,
+                                                              params_d), 50),
+               "plain": cuda_ms(lambda: ts._per_feature_best_plain(fh, totals, meta_d,
+                                                                   params_d), 10)}
+    L, F, B = fh.shape[0], fh.shape[1], fh.shape[2]
+    nbytes = L * (F * B * 3 * 4 + 3 * 4 + F * 14 * 4) + F * B + F * 14 + 6 * 4
+    return timings, bound(nbytes, L * F * B * 2 * 30), (L, F, B)
+
+
 def device_busy_share(fn):
     """(kernel seconds, wall seconds, top kernels) of fn() under
     torch.profiler, or None when the profiler records no device time."""
@@ -303,6 +502,85 @@ def device_busy_share(fn):
             ", ".join(f"{k[:40]} {v / 1e3:.1f} ms" for k, v in top))
 
 
+def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, label):
+    """One training path through lt.train, with every launch count set to 0
+    just before it and read just after: rounds on the 1,048,576 x 28 data
+    with the validation set; checks full-size trees, the reloaded model's
+    predictions, the valid AUC and that every kernel in `required`
+    launched; prints s/iteration, the host scopes and the device's busy
+    share over one profiled round. Returns what the caller reports."""
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    for lib in libs:
+        lib.reset_launches()
+    stamps, evals, hist_rows, waves = [], {}, [], [0]
+
+    def after(env):
+        stamps.append(time.perf_counter())
+        hist_rows.append(getattr(env.model._gbdt.tree_learner, "last_hist_rows", 0))
+        waves.append(global_timer.counters.get("device_waves", 0))
+
+    global_timer.reset()
+    global_timer.enabled = True  # host-clock scopes of the learner's steps
+    t_train = time.perf_counter()
+    trained = lt.train(dict(params), train_set, num_boost_round=rounds,
+                       valid_sets=[train_set.create_valid(valid[0], label=valid[1])],
+                       valid_names=["valid"],
+                       callbacks=[after, lt.record_evaluation(evals)])
+    train_wall = time.perf_counter() - t_train
+    global_timer.enabled = False
+    launches = {}
+    for lib in libs:
+        launches.update(lib.launches)
+    scopes = {k: (v, global_timer.counts[k]) for k, v in global_timer.totals.items()}
+    counters = dict(global_timer.counters)
+    leaves = [tr.num_leaves for tr in trained._gbdt.models]
+    check(len(leaves) == rounds, f"train ({label}): {len(leaves)} trees for {rounds} rounds")
+    check(all(n == params["num_leaves"] for n in leaves),
+          f"train ({label}): trees stopped short of {params['num_leaves']} leaves: {leaves}")
+    text = trained.model_to_string()
+    reloaded = lt.Booster(model_str=text)
+    pred_trained = trained.predict(valid[0], raw_score=True)
+    check(bool(np.isfinite(pred_trained).all()), f"train ({label}): non-finite predictions")
+    check(bool(np.array_equal(pred_trained, reloaded.predict(valid[0], raw_score=True))),
+          f"train ({label}): the reloaded model predicts differently from the training "
+          "Booster")
+    train_auc = dict((name, val) for _, name, val, _ in trained.eval_train())["auc"]
+    valid_auc = evals["valid"]["auc"]
+    check(0.5 < valid_auc[-1] <= 1.0 and valid_auc[-1] >= valid_auc[0],
+          f"train ({label}): valid AUC {valid_auc}")
+    for name in required:
+        check(launches[name] > 0, f"training path ({label}): kernel {name} never launched")
+    n_rows = train_set.num_data()
+    per_iter = np.diff([t_train] + stamps)
+    steady = float(np.mean(per_iter[1:])) if len(per_iter) > 1 else float(per_iter[0])
+    print(f"{tag} train ({label}): {n_rows} x {train_set.num_feature()}, {rounds} rounds in "
+          f"{train_wall:.2f} s; s/iteration first {per_iter[0]:.3f}, mean of the rest "
+          f"{steady:.3f} ({n_rows / steady:,.0f} row-iterations/s); leaves per tree "
+          f"{sorted(set(leaves))}; train AUC {train_auc:.5f}, valid AUC {valid_auc[0]:.5f} "
+          f"-> {valid_auc[-1]:.5f}")
+    print(f"train ({label}): model text {len(text)} bytes reloads and predicts "
+          f"{len(valid[1])} rows equal to the training Booster")
+    print(f"training path ({label}) launches: {launches} (per tree: " + ", ".join(
+        f"{name} {launches[name] / rounds:.1f}" for name in required) + ")")
+    # host-clock scopes: a step's device work lands in the scope that next
+    # waits on the card, so the split is approximate
+    print(f"{tag} train ({label}) scopes (host s over {rounds} rounds): " + ", ".join(
+        f"{k} {v:.3f} ({n})" for k, (v, n) in sorted(scopes.items(),
+                                                      key=lambda kv: -kv[1][0])))
+    # one steady round: a booster that has already taken one step
+    bst = lt.Booster(dict(params), train_set)
+    bst.update()
+    busy = device_busy_share(bst.update)
+    print(f"{tag} device busy share over one training round ({label}, torch.profiler): "
+          + ("not measured (the profiler saw no device time)" if busy is None else
+             f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
+             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}"))
+    return {"launches": launches, "learner": trained._gbdt.tree_learner,
+            "counters": counters, "hist_rows": hist_rows, "waves": np.diff(waves),
+            "per_iter": per_iter}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -316,7 +594,9 @@ def main() -> int:
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
-    from lightgbm_tpu_torch.ops import cuda_build, hist_cuda, predict_cuda, scan_cuda
+    from lightgbm_tpu_torch.ops import (compact_cuda, cuda_build, hist_cuda, predict_cuda,
+                                        scan_cuda)
+    from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
     from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused,
                                                 _traverse_leaves, pack_ensemble)
     from lightgbm_tpu_torch.serving import PredictionService, serve, wire
@@ -331,8 +611,8 @@ def main() -> int:
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
-    builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB],
-                                  force=True)
+    builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB,
+                                   compact_cuda.LIB], force=True)
     print(f"build: {len(builds)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for info in builds:
@@ -479,7 +759,34 @@ def main() -> int:
     print(f"{tag} split scan {F_scan}x{B_scan}: kernel {ms_scan['kernel']:.4f} ms, "
           f"plain {ms_scan['plain']:.3f} ms, bound {bound_scan[0]:.6f} ms "
           f"({bound_scan[1]})")
-    del gh_d, idx_d, bins_d
+    del gh_d, idx_d
+    err_rag, ms_rag, bound_rag, wave_hist, root_hist = check_wave_histogram(
+        dev, bins_d, TRAIN_ROWS, num_bins, args.seed + 8)
+    print(f"kernels: ragged histogram {core.num_groups}x{TRAIN_ROWS}x{num_bins}, the root "
+          f"and {WAVE_K} ranges over about half the rows: exact on snapped gradients and "
+          f"in the integer mode, max |d| {err_rag:.3g} otherwise (within the float32 "
+          f"summation bound), two launches bit-equal; histogram_slots on {SAMPLE_ROWS} "
+          f"rows x {SLOT_SLOTS} slots exact")
+    for name, what in (("root", f"root {TRAIN_ROWS} rows"),
+                       ("wave", f"{WAVE_K} ranges, about half the rows"),
+                       ("slots", f"histogram_slots {SAMPLE_ROWS} rows x {SLOT_SLOTS} slots")):
+        print(f"{tag} ragged histogram {what}: kernel {ms_rag[name]:.4f} ms, plain "
+              f"{ms_rag['plain_' + name]:.3f} ms, bound {bound_rag[name][0]:.4f} ms "
+              f"({bound_rag[name][1]})")
+    ms_cmp, bound_cmp = check_compaction(dev, bins_d, TRAIN_ROWS, args.seed + 9)
+    print(f"kernels: compaction {core.num_groups}x{TRAIN_ROWS} + [{TRAIN_ROWS}, 5] payload, "
+          f"{WAVE_K} ranges: bit-equal to the CPU plain version, two launches bit-equal")
+    print(f"{tag} compaction: kernel {ms_cmp['kernel']:.4f} ms, plain {ms_cmp['plain']:.3f} "
+          f"ms, index_copy_ {ms_cmp['library']:.4f} ms, bound {bound_cmp[0]:.4f} ms "
+          f"({bound_cmp[1]})")
+    ms_bscan, bound_bscan, shape_bscan = check_batched_scan(dev, core, num_bins, wave_hist,
+                                                            root_hist)
+    print(f"kernels: batched split scan {list(shape_bscan)}: records bit-equal to the CPU "
+          f"plain version, gains included")
+    print(f"{tag} batched split scan {list(shape_bscan)}: kernel {ms_bscan['kernel']:.4f} "
+          f"ms, plain {ms_bscan['plain']:.3f} ms, bound {bound_bscan[0]:.6f} ms "
+          f"({bound_bscan[1]})")
+    del bins_d, wave_hist, root_hist
     torch.cuda.empty_cache()
 
     # ------------------------------- the card trains as the CPU does
@@ -497,6 +804,34 @@ def main() -> int:
           f"card and CPU model texts byte-equal ({len(exact['card'][0])} bytes; "
           f"leaves {exact['card'][2]}; card {exact['card'][1]:.1f} s, CPU "
           f"{exact['cpu'][1]:.1f} s)")
+    # the wave learner: lt.train on the card against a CPU GBDT whose learner
+    # is the port's DeviceTreeLearner (the CPU's factory picks the serial one)
+    X_exact, y_exact = X_train[:EXACT_ROWS], y_train[:EXACT_ROWS]
+    for bagging in ({}, {"bagging_fraction": 0.8, "bagging_freq": 1}):
+        t = time.perf_counter()
+        card_bst = lt.train({**WAVE_PARAMS, "objective": snapped_logloss, **bagging},
+                            lt.Dataset(X_exact, label=y_exact), num_boost_round=EXACT_ROUNDS)
+        t_card = time.perf_counter() - t
+        check(isinstance(card_bst._gbdt.tree_learner, DeviceTreeLearner),
+              "exact (wave): the card did not train through the wave learner")
+        t = time.perf_counter()
+        host_set = lt.Dataset(X_exact, label=y_exact)
+        host = lt.Booster({**WAVE_PARAMS, **bagging, "objective": "none",
+                           "device_type": "cpu", "num_iterations": EXACT_ROUNDS}, host_set)
+        host._gbdt.tree_learner = DeviceTreeLearner(host._gbdt.config, host_set._handle,
+                                                    torch.device("cpu"))
+        for _ in range(EXACT_ROUNDS):
+            host.update(fobj=snapped_logloss)
+        t_host = time.perf_counter() - t
+        text = card_bst.model_to_string()
+        check(text == host.model_to_string(),
+              f"exact (wave{', bagged' if bagging else ''}): the card's model text differs "
+              "from the CPU wave learner's on snapped gradients")
+        print(f"exact (wave{', bagging 0.8' if bagging else ''}): {EXACT_ROWS} rows, "
+              f"{EXACT_ROUNDS} rounds, snapped gradients: card and CPU wave-learner model "
+              f"texts byte-equal ({len(text)} bytes; leaves "
+              f"{[tr.num_leaves for tr in card_bst._gbdt.models]}; card {t_card:.1f} s, "
+              f"CPU {t_host:.1f} s)")
 
     # ------------------------------------------- main path: the booster
     predict_cuda.reset_launches()
@@ -624,68 +959,39 @@ def main() -> int:
     del X_main, streamed
     torch.cuda.empty_cache()
 
-    # ------------------------------------------- main path: training
-    from lightgbm_tpu_torch.utils.timer import global_timer
+    # ------------------------------- main path: training, wave learner
+    libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda)
+    valid = (X_valid, y_valid)
+    wave = drive_training(lt, libs, WAVE_PARAMS, train_set, valid, TRAIN_ROUNDS,
+                          ("histogram_slots_ragged", "compact_rows", "split_scan",
+                           "split_scan_batched", "predict_forest_raw"), tag, "wave")
+    check(isinstance(wave["learner"], DeviceTreeLearner),
+          "train (wave): lt.train did not grow its trees with the wave learner")
+    # the root histograms N rows, and a wave only the smaller children of
+    # disjoint leaves, at most N/2 rows: a tree's bound by design (the
+    # O(N * waves) form of a full-row wave histogram would pass it)
+    rows = np.asarray(wave["hist_rows"], dtype=np.float64)
+    design = TRAIN_ROWS * (1 + wave["waves"] / 2)
+    check(bool((rows <= design).all()),
+          f"train (wave): a tree histogrammed more than N * (1 + waves / 2) rows: "
+          f"{wave['hist_rows']} with {[int(w) for w in wave['waves']]} waves")
+    c = wave["counters"]
+    print(f"{tag} train (wave): per tree {c['device_waves'] / TRAIN_ROUNDS:.1f} waves "
+          f"({[int(w) for w in wave['waves']]}), {c['wave_splits_committed'] / TRAIN_ROUNDS:.1f} "
+          f"splits "
+          f"committed of {c['wave_splits_speculated'] / TRAIN_ROUNDS:.1f} speculated; rows "
+          f"histogrammed per tree (N = {TRAIN_ROWS}) "
+          + ", ".join(f"{r / TRAIN_ROWS:.2f}N" for r in rows)
+          + f" (mean {rows.mean() / TRAIN_ROWS:.2f}N; bound N * (1 + waves / 2) "
+          f"{design.min() / TRAIN_ROWS:.1f}N-{design.max() / TRAIN_ROWS:.1f}N; "
+          f"{int((rows <= 4 * TRAIN_ROWS).sum())} of {TRAIN_ROUNDS} trees at most 4N); "
+          f"wave width at the end {c.get('wave_k')}")
 
-    for lib in (predict_cuda, hist_cuda, scan_cuda):
-        lib.reset_launches()
-    stamps = []
-    evals = {}
-    global_timer.reset()
-    global_timer.enabled = True  # host-clock scopes of the learner's steps
-    t_train = time.perf_counter()
-    trained = lt.train(dict(TRAIN_PARAMS), train_set, num_boost_round=TRAIN_ROUNDS,
-                       valid_sets=[train_set.create_valid(X_valid, label=y_valid)],
-                       valid_names=["valid"],
-                       callbacks=[lambda env: stamps.append(time.perf_counter()),
-                                  lt.record_evaluation(evals)])
-    train_wall = time.perf_counter() - t_train
-    global_timer.enabled = False
-    scopes = {k: (v, global_timer.counts[k]) for k, v in global_timer.totals.items()}
-    leaves = [tr.num_leaves for tr in trained._gbdt.models]
-    check(len(leaves) == TRAIN_ROUNDS, f"train: {len(leaves)} trees for "
-          f"{TRAIN_ROUNDS} rounds")
-    check(all(n == TRAIN_PARAMS["num_leaves"] for n in leaves),
-          f"train: trees stopped short of {TRAIN_PARAMS['num_leaves']} leaves: {leaves}")
-    text = trained.model_to_string()
-    reloaded = lt.Booster(model_str=text)
-    pred_trained = trained.predict(X_valid, raw_score=True)
-    pred_reloaded = reloaded.predict(X_valid, raw_score=True)
-    check(bool(np.isfinite(pred_trained).all()), "train: non-finite predictions")
-    check(bool(np.array_equal(pred_trained, pred_reloaded)),
-          "train: the reloaded model predicts differently from the training Booster")
-    train_auc = dict((name, val) for _, name, val, _ in trained.eval_train())["auc"]
-    valid_auc = evals["valid"]["auc"]
-    check(0.5 < valid_auc[-1] <= 1.0 and valid_auc[-1] >= valid_auc[0],
-          f"train: valid AUC {valid_auc}")
-    train_launches = {**predict_cuda.launches, **hist_cuda.launches,
-                      **scan_cuda.launches}
-    for name in ("histogram", "split_scan", "predict_forest_raw"):
-        check(train_launches[name] > 0, f"training path: kernel {name} never launched")
-    per_iter = np.diff([t_train] + stamps)
-    steady = float(np.mean(per_iter[1:])) if len(per_iter) > 1 else float(per_iter[0])
-    print(f"{tag} train: {TRAIN_ROWS} x {core.num_total_features}, {TRAIN_ROUNDS} rounds "
-          f"in {train_wall:.2f} s; s/iteration first {per_iter[0]:.3f}, mean of "
-          f"the rest {steady:.3f} ({TRAIN_ROWS / steady:,.0f} row-iterations/s); "
-          f"leaves per tree {sorted(set(leaves))}; train AUC {train_auc:.5f}, "
-          f"valid AUC {valid_auc[0]:.5f} -> {valid_auc[-1]:.5f}")
-    print(f"train: model text {len(text)} bytes reloads and predicts "
-          f"{VALID_ROWS} rows equal to the training Booster")
-    print(f"training path launches: {train_launches} "
-          f"({train_launches['histogram'] / TRAIN_ROUNDS:.1f} histograms and "
-          f"{train_launches['split_scan'] / TRAIN_ROUNDS:.1f} split scans per tree)")
-    # host-clock scopes: a step's device work lands in the scope that next
-    # waits on the card (the split search's copy of its record, the
-    # partition's left count), so the split is approximate
-    print(f"{tag} train scopes (host s over {TRAIN_ROUNDS} rounds): " + ", ".join(
-        f"{k} {v:.3f} ({n})" for k, (v, n) in sorted(scopes.items(),
-                                                      key=lambda kv: -kv[1][0])))
-    busy = device_busy_share(lambda: [lt.Booster(dict(TRAIN_PARAMS), train_set).update()
-                                      for _ in range(1)])
-    print(f"{tag} device busy share over one training round (torch.profiler): "
-          + ("not measured (the profiler saw no device time)" if busy is None else
-             f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
-             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}"))
+    # ------------------------------- training, serial learner
+    serial = drive_training(lt, libs, TRAIN_PARAMS, train_set, valid, SERIAL_ROUNDS,
+                            ("histogram", "split_scan", "predict_forest_raw"), tag,
+                            "serial")
+    train_launches = {k: wave["launches"][k] + serial["launches"][k] for k in wave["launches"]}
 
     def launches(name):
         return serve_launches.get(name, 0) + train_launches[name]
@@ -719,6 +1025,35 @@ def main() -> int:
          "max_abs_err": err_scan, "ms": ms_scan["kernel"],
          "plain_ms": ms_scan["plain"], "bound_ms": bound_scan[0],
          "bound_by": bound_scan[1], "library_ms": None},
+        {"name": "split_scan_batched", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_scan.cu",
+         "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
+         "launches": launches("split_scan_batched"),
+         "max_abs_err": 0.0, "ms": ms_bscan["kernel"],
+         "plain_ms": ms_bscan["plain"], "bound_ms": bound_bscan[0],
+         "bound_by": bound_bscan[1], "library_ms": None},
+        {"name": "histogram_slots_ragged", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:350",
+         "launches": launches("histogram_slots_ragged"),
+         "max_abs_err": err_rag, "ms": ms_rag["wave"],
+         "plain_ms": ms_rag["plain_wave"], "bound_ms": bound_rag["wave"][0],
+         "bound_by": bound_rag["wave"][1], "library_ms": None},
+        # the same kernel over every row; nothing in either package's main
+        # paths calls it, so it launches on none of them
+        {"name": "histogram_slots", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:229",
+         "launches": 0, "max_abs_err": 0.0, "ms": ms_rag["slots"],
+         "plain_ms": ms_rag["plain_slots"], "bound_ms": bound_rag["slots"][0],
+         "bound_by": bound_rag["slots"][1], "library_ms": None},
+        {"name": "compact_rows", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/compact.cu",
+         "replaces": "lightgbm_tpu/ops/compact_pallas.py:313",
+         "launches": launches("compact_rows"),
+         "max_abs_err": 0.0, "ms": ms_cmp["kernel"],
+         "plain_ms": ms_cmp["plain"], "bound_ms": bound_cmp[0],
+         "bound_by": bound_cmp[1], "library_ms": ms_cmp["library"]},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,11 +3,13 @@
 // operands built by per_feature_best_fused), reached from
 // ops/split.py:per_feature_best for numeric f32 lanes.
 //
-// What it computes. For one leaf's feature histograms fh [F, B, 3] (grad,
-// hess, count), the leaf totals [3], params [6] = (lambda_l1, lambda_l2,
+// What it computes. For L leaves' feature histograms fh [L, F, B, 3] (grad,
+// hess, count), the leaves' totals [L, 3], params [6] = (lambda_l1, lambda_l2,
 // min_data_in_leaf, min_sum_hessian_in_leaf, min_gain_to_split,
 // max_delta_step) and per-feature metadata, the best numeric split of each
-// feature as the 14-field record of ops/split.py:SPLIT_FIELDS:
+// (leaf, feature) as the 14-field record of ops/split.py:SPLIT_FIELDS — the
+// wave learner's 2K children in one launch, where the JAX package vmaps
+// find_best_split (treelearner/device.py:742-747); L = 1 is one leaf:
 //   - the missing bin (the NaN bin, or the zero bin for MissingType::Zero)
 //     is taken out of the ordered scan, its value read exactly;
 //   - the prefix over bins in ascending order gives the left sums of lane 0
@@ -28,16 +30,19 @@
 // fast math. threshold_l1 keeps its order: sign(s) * max(|s| - l1, 0), with
 // sign(NaN) = 0 as torch.sign gives.
 //
-// Design. One block per feature, one thread per bin (the bin axis is never
-// split: B <= 1024 here, and <= 256 for max_bin <= 255). Three threads run
+// Design. One block per (feature, leaf), one thread per bin (the bin axis is
+// never split: B <= 1024 here, and <= 256 for max_bin <= 255). A leaf's
+// block does exactly what the one-leaf launch does, so each record is
+// bit-equal to the one-leaf call. Three threads run
 // the three channels' sequential prefixes into shared memory; every thread
 // then computes both lanes' gains for its bin; a block reduction finds the
 // first maximum (NaN counting as the largest, as torch.argmax does); thread 0
 // writes the record.
 //
 // What bounds it. At HIGGS width (F = 28, B = 255) it reads 86 KB and
-// writes 1.6 KB, and the sequential prefix is 255 dependent float64 adds:
-// a few microseconds of latency. It is launch-bound.
+// writes 1.6 KB a leaf, and the sequential prefix is 255 dependent float64
+// adds: a few microseconds of latency. One leaf is launch-bound; a wave's
+// 42 leaves fill 1,176 blocks.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,7 +89,7 @@ __device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
   return av > bv;
 }
 
-__global__ void split_scan_kernel(const float* __restrict__ fh, int n_bins,
+__global__ void split_scan_kernel(const float* __restrict__ fh, int n_features, int n_bins,
                                   const float* __restrict__ totals,
                                   const float* __restrict__ params,
                                   const int* __restrict__ missing_pos,
@@ -104,8 +109,10 @@ __global__ void split_scan_kernel(const float* __restrict__ fh, int n_bins,
   __shared__ float miss[3];
 
   const int f = blockIdx.x;
+  const long long leaf = blockIdx.y;
   const int t = threadIdx.x;
-  const float* h = fh + (long long)f * B * 3;
+  const float* h = fh + (leaf * n_features + f) * B * 3;
+  totals += leaf * 3;
   const int mpos = missing_pos[f];
   const bool hm = has_missing[f] != 0;
   const Params p{params[0], params[1], params[2], params[3], params[4], params[5]};
@@ -178,7 +185,7 @@ __global__ void split_scan_kernel(const float* __restrict__ fh, int n_bins,
   const bool is_valid = isfinite(best_gain) && best_gain > gain_shift;
   float out_gain = is_valid ? best_gain - gain_shift : -INFINITY;
   if (penalty != nullptr) out_gain = is_valid ? out_gain - penalty[f] : -INFINITY;
-  float* r = rec + (long long)f * kFields;
+  float* r = rec + (leaf * n_features + f) * kFields;
   r[0] = out_gain;
   r[1] = is_valid ? float(f) : -1.0f;
   r[2] = float(t_b);
@@ -199,22 +206,26 @@ __global__ void split_scan_kernel(const float* __restrict__ fh, int n_bins,
 
 extern "C" {
 
-// fh [F, B, 3] f32, totals [3], params [6], missing_pos/nbins [F] int32,
+// fh [L, F, B, 3] f32, totals [L, 3], params [6], missing_pos/nbins [F] int32,
 // has_missing/is_categorical [F] and valid_slot [F, B] as bytes (torch.bool),
-// feature_mask [F] bytes or NULL, penalty [F] f32 or NULL -> rec [F, 14] f32.
-// Returns cudaGetLastError() after the launch.
-int lgbt_split_scan(const float* fh, int n_features, int n_bins, const float* totals,
+// feature_mask [F] bytes or NULL, penalty [F] f32 or NULL -> rec [L, F, 14]
+// f32. Returns cudaGetLastError() after the launch.
+int lgbt_split_scan(const float* fh, int n_leaves, int n_features, int n_bins,
+                    const float* totals,
                     const float* params, const int* missing_pos,
                     const uint8_t* has_missing, const int* nbins,
                     const uint8_t* valid_slot, const uint8_t* is_categorical,
                     const uint8_t* feature_mask, const float* penalty, float* rec,
                     void* stream) {
-  if (n_features < 1 || n_bins < 1 || n_bins > 1024) return int(cudaErrorInvalidValue);
+  if (n_leaves < 1 || n_leaves > 65535 || n_features < 1 || n_bins < 1 || n_bins > 1024) {
+    return int(cudaErrorInvalidValue);
+  }
   int threads = 32;  // a power of two: the argmax reduction halves it
   while (threads < n_bins) threads *= 2;
   const size_t smem = sizeof(float) * (5 * size_t(n_bins) + threads) + sizeof(int) * threads;
-  split_scan_kernel<<<n_features, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      fh, n_bins, totals, params, missing_pos, has_missing, nbins, valid_slot,
+  const dim3 grid(n_features, n_leaves);
+  split_scan_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      fh, n_features, n_bins, totals, params, missing_pos, has_missing, nbins, valid_slot,
       is_categorical, feature_mask, penalty, rec);
   return int(cudaGetLastError());
 }

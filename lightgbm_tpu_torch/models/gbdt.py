@@ -8,14 +8,17 @@ control flow mirrors gbdt.cpp:352-460 (init-score handling, constant trees,
 should_continue semantics).
 
 Scores live on the training device as float32 [C, N]. The train score is
-updated from the learner's per-leaf row sets (each row once, in float32, as
-the JAX package's scatter-add does); valid scores by traversing the new
+updated from the learner's partition (each row once, in float32, as the JAX
+package's gather or scatter-add does); valid scores by traversing the new
 tree over the valid rows (the traversal kernel on the card).
 
-This slice carries the synchronous path of the host-driven serial learner.
-The JAX package's async per-tree pipeline belongs to its wave learner, which
-is not ported yet; refit and rollback are later work (ROADMAP Queue 1
-item 6).
+This slice carries the synchronous path, with the host-driven serial
+learner and the wave learner (treelearner/device.py). The JAX package's
+async per-tree pipeline and its score update from the split log
+(_apply_split_log_to_score) are not ported yet: its synchronous path is
+the one the main path takes (a learning rate that is not exact in float32,
+such as 0.1, keeps the JAX package on it too). Refit and rollback are later
+work (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -243,17 +246,26 @@ class GBDT:
                 pad_indices(oob, self.num_data)).to(self.device)
 
     def _update_train_score(self, tree: Tree, class_id: int) -> None:
-        """score[row] += leaf value for every in-bag row (the learner's leaf
-        row sets), then the out-of-bag rows by bin-space traversal."""
+        """score[row] += leaf value for every in-bag row, then the out-of-bag
+        rows by bin-space traversal. The wave learner's partition carries a
+        leaf-id vector (bagged-out rows at -1): one gather over it. The
+        serial learner's carries per-leaf row sets: one scatter-add."""
         part = self.tree_learner.partition
-        counts = [part.count(leaf) for leaf in range(tree.num_leaves)]
-        rows = torch.cat([part.indices(leaf)[:cnt]
-                          for leaf, cnt in enumerate(counts)]).to(torch.int64)
-        lv = torch.as_tensor(tree.leaf_value[: tree.num_leaves], dtype=torch.float32,
+        L = tree.num_leaves
+        lv = torch.as_tensor(tree.leaf_value[:L], dtype=torch.float32,
                              device=self.device)
-        vals = torch.repeat_interleave(lv, torch.as_tensor(counts, device=self.device))
         score = self.score[class_id]
-        score.index_add_(0, rows, vals)  # each row once: no order to fix
+        ids_fn = getattr(part, "leaf_ids_dev", None)
+        if ids_fn is not None:
+            ids = ids_fn().to(torch.int64)
+            score += torch.where(ids >= 0, lv[torch.clamp(ids, 0, L - 1)],
+                                 torch.zeros((), dtype=torch.float32, device=self.device))
+        else:
+            counts = [part.count(leaf) for leaf in range(L)]
+            rows = torch.cat([part.indices(leaf)[:cnt]
+                              for leaf, cnt in enumerate(counts)]).to(torch.int64)
+            vals = torch.repeat_interleave(lv, torch.as_tensor(counts, device=self.device))
+            score.index_add_(0, rows, vals)  # each row once: no order to fix
         if self._cur_bag is not None and self._oob_padded is not None:
             score.copy_(add_tree_to_score(tree, self.train_set,
                                           self.tree_learner.bins_dev, score,

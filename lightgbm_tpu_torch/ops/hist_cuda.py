@@ -1,9 +1,10 @@
-"""Wrapper of the CUDA leaf-histogram kernel (csrc/histogram.cu).
+"""Wrappers of the CUDA histogram kernels (csrc/histogram.cu).
 
-The kernel replaces ``lightgbm_tpu/ops/hist_pallas.py:pallas_histogram``
+`histogram` replaces ``lightgbm_tpu/ops/hist_pallas.py:pallas_histogram``
 and the row gather in front of it (``ops/histogram.py:152-153`` of the JAX
-package); the note at the top of the source gives its design and bound. It
-is built and loaded by ``ops/cuda_build.py``.
+package); `histogram_ragged` replaces ``pallas_histogram_slots_ragged`` and
+``pallas_histogram_slots``. The note at the top of the source gives their
+design and bound. The library is built and loaded by ``ops/cuda_build.py``.
 
 Dispatch is by the device of the bin plane alone: a CPU tensor takes the
 plain version (``ops/histogram.py``); a CUDA tensor launches the kernel, or
@@ -22,7 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 from .cuda_build import CudaLibrary, require_cuda, stream_of
-from .histogram import _acc_dtype, _build_histogram_plain, _build_histogram_rows_plain
+from .histogram import (_acc_dtype, _build_histogram_plain, _build_histogram_rows_plain,
+                        _histogram_slots_ragged_plain)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -31,13 +33,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.lgbt_histogram_f32, lib.lgbt_histogram_i32):
         fn.argtypes = args
         fn.restype = i32
+    ragged = [ptr, i64, i32, ptr, i64, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32,
+              ptr, ptr, ptr, ptr]
+    for fn in (lib.lgbt_histogram_ragged_f32, lib.lgbt_histogram_ragged_i32):
+        fn.argtypes = ragged
+        fn.restype = i32
 
 
-LIB = CudaLibrary("histogram.cu", ("histogram",), _declare)
+LIB = CudaLibrary("histogram.cu", ("histogram", "histogram_slots_ragged"), _declare)
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 
 WARPS = 8                      # csrc/histogram.cu kWarps
+MAX_RANGES = 1024              # csrc/histogram.cu kMaxRanges
 SMEM_BUDGET = 110 * 1024       # bytes of per-warp histograms a block may hold
 TARGET_BLOCKS = 4 * 132        # ~4 blocks per SM of the H100
 MIN_CHUNK_ROWS = 4 * WARPS * 32
@@ -106,4 +114,71 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
                  num_bins, group_block, rows, n_chunks, partial.data_ptr(),
                  out.data_ptr(), stream_of(bins))
     LIB.count("histogram", err)
+    return out
+
+
+def ragged_launch_shape(n_rows: int, n_groups: int, num_bins: int, ch: int,
+                        n_ranges: int, max_rows: int) -> Tuple[int, int, int]:
+    """(group_block, tile_rows, max_chunks) of the ragged histogram: the
+    group block and row chunk of `launch_shape` for the whole plane (so a
+    range over every row fills the card), and a grid that holds the chunks
+    of ranges with at most max_rows rows in all (a range touches at most
+    len / tile_rows + 2 tiles)."""
+    group_block, tile_rows, _ = launch_shape(n_rows, n_groups, num_bins, ch)
+    return group_block, tile_rows, -(-max_rows // tile_rows) + 2 * n_ranges
+
+
+def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                     starts: torch.Tensor, ends: torch.Tensor, valid: torch.Tensor,
+                     num_bins: int, n_slots: int, quantized: bool = False,
+                     max_rows: Optional[int] = None) -> torch.Tensor:
+    """[G, num_bins, n_slots*CH] wave histogram (ops/histogram.py:
+    histogram_slots_ragged). max_rows bounds the ranges' rows in all (N,
+    disjoint ranges, when None); the kernel's grid is sized from it. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if bins.device.type == "cpu":
+        return _histogram_slots_ragged_plain(bins, gh, slot, starts, ends, valid,
+                                             num_bins, n_slots, quantized)
+    require_cuda(bins, "the ragged histogram")
+    dev = bins.device
+    if bins.dtype != torch.uint8 or bins.dim() != 2 or not bins.is_contiguous():
+        raise ValueError(f"the ragged histogram takes a contiguous [G, N] uint8 bin "
+                         f"plane, got {bins.dtype} {list(bins.shape)}")
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins must be in [1, 256] for a uint8 plane, got "
+                         f"{num_bins}")
+    G, N = bins.shape
+    if gh.dtype != torch.float32 or gh.dim() != 2 or gh.shape[0] != N \
+            or not 1 <= gh.shape[1] <= 4 or gh.device != dev or gh.stride(1) != 1:
+        raise ValueError(f"gh must be a float32 [N, 1..4] tensor on {dev} with unit "
+                         f"column stride and N = {N}, got {gh.dtype} "
+                         f"{list(gh.shape)} strides {gh.stride()} on {gh.device}")
+    if not 1 <= n_slots <= MAX_RANGES:
+        raise ValueError(f"n_slots must be in [1, {MAX_RANGES}], got {n_slots}")
+    for name, t, dtype, shape in (("slot", slot, torch.int32, (N,)),
+                                  ("starts", starts, torch.int32, (n_slots,)),
+                                  ("ends", ends, torch.int32, (n_slots,)),
+                                  ("valid", valid, torch.bool, (n_slots,))):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} "
+                             f"tensor on {dev}, got {t.dtype} {list(t.shape)} on "
+                             f"{t.device}")
+    CH = gh.shape[1]
+    acc = torch.int32 if quantized else torch.float32
+    out = torch.empty((G, num_bins, n_slots * CH), dtype=acc, device=dev)
+    if N == 0 or G == 0:
+        return out.zero_()
+    group_block, tile_rows, max_chunks = ragged_launch_shape(
+        N, G, num_bins, CH, n_slots, N if max_rows is None else max_rows)
+    plan = torch.empty(n_slots + 2, dtype=torch.int64, device=dev)
+    partial = torch.empty((max_chunks, G, num_bins, CH), dtype=acc, device=dev)
+    lib = LIB.load()
+    fn = lib.lgbt_histogram_ragged_i32 if quantized else lib.lgbt_histogram_ragged_f32
+    with torch.cuda.device(dev):
+        err = fn(bins.data_ptr(), N, G, gh.data_ptr(), gh.stride(0), CH, slot.data_ptr(),
+                 starts.data_ptr(), ends.data_ptr(), valid.data_ptr(), n_slots, num_bins,
+                 group_block, tile_rows, max_chunks, plan.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), stream_of(bins))
+    LIB.count("histogram_slots_ragged", err)
     return out

@@ -16,8 +16,18 @@ The mode follows the gradient dtype: float32 gh gives a float32 histogram,
 int8 gh (quantized gradients) an exact int32 one. A CPU tensor takes the
 plain version below; a CUDA tensor launches the hand-written kernel
 (``ops/hist_cuda.py``, ``csrc/histogram.cu``) or raises.
+
+The wave learner's histogram is `histogram_slots_ragged` (the JAX package's
+``hist_pallas.py:pallas_histogram_slots_ragged``): over K leaf-contiguous
+row ranges, row n of range k adds its gh to channel block k of a
+[G, B, K*CH] histogram when slot[n] == k. `histogram_slots`
+(``pallas_histogram_slots``) is the same function over the whole row set.
+The TPU's row-tile table (``active_tile_table``) is not carried: the card's
+kernel cuts the ranges into row chunks itself.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,13 +42,13 @@ def _acc_dtype(gh: torch.Tensor) -> torch.dtype:
     raise ValueError(f"gradients must be float32 or int8, got {gh.dtype}")
 
 
-def _histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
-                     num_bins: int) -> torch.Tensor:
-    """bins [G, P] (already gathered), gh [P, CH] -> [G, num_bins, CH].
-    Each group scatter-adds its rows' channels into the flattened [B*CH]
-    histogram in row order (CPU index_add_ runs sequentially over the
-    index)."""
-    acc = _acc_dtype(gh)
+def _histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
+                     acc: Optional[torch.dtype] = None) -> torch.Tensor:
+    """bins [G, P] (already gathered), gh [P, CH] -> [G, num_bins, CH],
+    summed in `acc` (by default `_acc_dtype(gh)`). Each group scatter-adds
+    its rows' channels into the flattened [B*CH] histogram in row order
+    (CPU index_add_ runs sequentially over the index)."""
+    acc = _acc_dtype(gh) if acc is None else acc
     G = bins.shape[0]
     CH = gh.shape[1]
     out = torch.zeros((G, num_bins * CH), dtype=acc, device=gh.device)
@@ -93,6 +103,70 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
     from .hist_cuda import histogram
 
     return histogram(bins, gh_ext, row_idx, num_bins)
+
+
+def _histogram_slots_ragged_plain(bins: torch.Tensor, gh: torch.Tensor,
+                                  slot: torch.Tensor, starts: torch.Tensor,
+                                  ends: torch.Tensor, valid: torch.Tensor,
+                                  num_bins: int, n_slots: int,
+                                  quantized: bool = False) -> torch.Tensor:
+    """[G, num_bins, n_slots*CH] histogram of the rows of the valid ranges
+    [starts[k], ends[k]) whose slot is k, each into channel block k. Float
+    mode sums in float32; quantized truncates gh to int32 and sums exactly.
+    It is the plain histogram over (bin, slot) cells of the kept rows, in
+    range order, then row order; a bin past num_bins adds to a dropped
+    cell."""
+    G = bins.shape[0]
+    CH = gh.shape[1]
+    dev = bins.device
+    acc = torch.int32 if quantized else torch.float32
+    kept = []
+    for k, (s, e, ok) in enumerate(zip(starts.tolist(), ends.tolist(), valid.tolist())):
+        if ok and e > s:
+            kept.append(torch.arange(s, e, device=dev)[slot[s:e] == k])
+    rows = torch.cat(kept) if kept else torch.zeros(0, dtype=torch.int64, device=dev)
+    cell = (torch.clamp(bins[:, rows].to(torch.int64), max=num_bins) * n_slots
+            + slot[rows].to(torch.int64))
+    hist = _histogram_plain(cell, gh[rows].to(acc), (num_bins + 1) * n_slots, acc)
+    return hist.reshape(G, num_bins + 1, n_slots * CH)[:, :num_bins].contiguous()
+
+
+def histogram_slots_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                           starts: torch.Tensor, ends: torch.Tensor,
+                           valid: torch.Tensor, num_bins: int, n_slots: int,
+                           quantized: bool = False) -> torch.Tensor:
+    """The wave histogram.
+
+    bins:   [G, N] uint8 bin plane (leaf-contiguous rows)
+    gh:     [N, CH] float32, rows of any stride with unit column stride (the
+            wave learner passes its payload's gh columns in place); with
+            quantized=True small exact integers
+    slot:   [N] int32; a row of range k adds only when slot[n] == k
+    starts, ends: [n_slots] int32 half-open row ranges, disjoint
+    valid:  [n_slots] bool
+    Returns [G, num_bins, n_slots*CH] float32 (int32 when quantized).
+    """
+    from .hist_cuda import histogram_ragged
+
+    return histogram_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots,
+                            quantized)
+
+
+def histogram_slots(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                    num_bins: int, n_slots: int, quantized: bool = False) -> torch.Tensor:
+    """Slot-expanded histogram over all N rows (``pallas_histogram_slots``):
+    row n adds its gh to channel block slot[n], rows with a slot outside
+    [0, n_slots) nowhere. The ragged kernel with n_slots ranges, each the
+    whole row set: it reads the rows n_slots times."""
+    N = bins.shape[1]
+    dev = bins.device
+    starts = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+    ends = torch.full((n_slots,), N, dtype=torch.int32, device=dev)
+    valid = torch.ones(n_slots, dtype=torch.bool, device=dev)
+    from .hist_cuda import histogram_ragged
+
+    return histogram_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots,
+                            quantized, max_rows=n_slots * N)
 
 
 def subtract_histogram(parent: torch.Tensor, sibling: torch.Tensor) -> torch.Tensor:

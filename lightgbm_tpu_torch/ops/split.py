@@ -183,12 +183,13 @@ class SplitInfo:
 
 def gather_feature_hist_raw(hist: torch.Tensor, gather_index: torch.Tensor,
                             valid_slot: torch.Tensor) -> torch.Tensor:
-    """[G, Bg, CH] group hist -> [F, Bmax, CH] by pure index gather, no EFB
-    reconstruction."""
-    flat = hist.reshape(-1, hist.shape[-1])
-    flat = torch.cat([flat, torch.zeros((1, hist.shape[-1]), dtype=flat.dtype,
-                                        device=flat.device)])
-    fh = flat[gather_index]  # [F, Bmax, CH]
+    """[..., G, Bg, CH] group hist -> [..., F, Bmax, CH] by pure index
+    gather, no EFB reconstruction (a leading leaf dimension is batched)."""
+    CH = hist.shape[-1]
+    flat = hist.reshape(*hist.shape[:-3], -1, CH)
+    flat = torch.cat([flat, torch.zeros((*flat.shape[:-2], 1, CH), dtype=flat.dtype,
+                                        device=flat.device)], dim=-2)
+    fh = flat[..., gather_index, :]  # [..., F, Bmax, CH]
     return fh * valid_slot[:, :, None].to(fh.dtype)
 
 
@@ -198,17 +199,19 @@ def fix_feature_hist(fh: torch.Tensor, totals: torch.Tensor,
     """EFB default-bin reconstruction: default = leaf totals - sum(other
     bins), added at the default bin of bundle members only (FixHistogram,
     include/LightGBM/dataset.h:770). A dtype-preserving multiply, so an
-    integer histogram stays exact."""
-    missing_mass = totals[None, :].to(fh.dtype) - fh.sum(dim=1)  # [F, CH]
+    integer histogram stays exact. fh [..., F, Bmax, CH], totals [..., CH]."""
+    missing_mass = totals[..., None, :].to(fh.dtype) - fh.sum(dim=-2)  # [..., F, CH]
     add = missing_mass * efb_omitted[:, None].to(fh.dtype)
-    rows = torch.arange(fh.shape[0], device=fh.device)
-    return fh.index_put((rows, default_bin), add, accumulate=True)
+    rows = torch.arange(fh.shape[-3], device=fh.device)
+    out = fh.clone()
+    out[..., rows, default_bin, :] += add
+    return out
 
 
 def gather_feature_hist(hist: torch.Tensor, meta: FeatureMeta,
                         totals: torch.Tensor) -> torch.Tensor:
-    """[G, Bg, 3] group hist -> [F, Bmax, 3] feature hist with EFB default
-    reconstruction (FixHistogram)."""
+    """[..., G, Bg, 3] group hist -> [..., F, Bmax, 3] feature hist with EFB
+    default reconstruction (FixHistogram)."""
     fh = gather_feature_hist_raw(hist, meta.gather_index, meta.valid_slot)
     return fix_feature_hist(fh, totals, meta.efb_omitted, meta.default_bin)
 
@@ -217,7 +220,10 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
                             meta: FeatureMeta, params: torch.Tensor,
                             feature_mask: Optional[torch.Tensor] = None,
                             penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The numeric lanes of the JAX package's per_feature_best.
+    """The numeric lanes of the JAX package's per_feature_best, over
+    fh [..., F, Bmax, 3] and totals [..., 3] (a leading leaf dimension is
+    batched; every op is elementwise or runs along the bin axis, so each
+    leaf's records are the one-leaf call's bits).
 
     The prefix over bins is a float64 sum in ascending bin order rounded to
     float32 at every bin (torch.cumsum on a CPU tensor accumulates
@@ -226,19 +232,22 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
     all on grid-snapped histograms, whose sums are exact."""
     l1, l2, min_data, min_hess, min_gain, max_delta = (
         params[0], params[1], params[2], params[3], params[4], params[5])
-    F, Bmax, _ = fh.shape
+    F, Bmax = fh.shape[-3], fh.shape[-2]
     dev = fh.device
-    total_g, total_h, total_cnt = totals[0], totals[1], totals[2]
+    # [..., 1, 1]: broadcast against [..., F, Bmax]
+    total_g = totals[..., 0, None, None]
+    total_h = totals[..., 1, None, None]
+    total_cnt = totals[..., 2, None, None]
 
     missing_pos = meta.missing_pos.to(torch.int64)
     has_missing = meta.has_missing
     rows = torch.arange(F, device=dev)
     zero = torch.zeros((), dtype=fh.dtype, device=dev)
-    missing_vals = torch.where(has_missing[:, None], fh[rows, missing_pos], zero)
+    missing_vals = torch.where(has_missing[:, None], fh[..., rows, missing_pos, :], zero)
     tpos = torch.arange(Bmax, device=dev)[None, :]
     at_missing = has_missing[:, None] & (tpos == missing_pos[:, None])
     scan_hist = torch.where(at_missing[:, :, None], zero, fh)
-    cum = torch.cumsum(scan_hist.to(torch.float64), dim=1).to(torch.float32)
+    cum = torch.cumsum(scan_hist.to(torch.float64), dim=-2).to(torch.float32)
 
     # lane 0: missing goes right (natural); lane 1: missing goes left
     neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
@@ -246,7 +255,7 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
     if feature_mask is not None:
         gate = gate & feature_mask
     results = []
-    for lane, left in enumerate((cum, cum + missing_vals[:, None, :])):
+    for lane, left in enumerate((cum, cum + missing_vals[..., None, :])):
         lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
         rg, rh, rc = total_g - lg, total_h - lh, total_cnt - lc
         ok = (lc >= min_data) & (rc >= min_data) & \
@@ -261,15 +270,21 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
                 + leaf_gain(rg, rh, l1, l2, max_delta))
         results.append((torch.where(ok, gain, neg_inf), lg, lh, lc, rg, rh, rc))
 
-    gain_shift = leaf_gain(total_g, total_h, l1, l2, max_delta) + min_gain
-    per_f = torch.stack([results[0][0], results[1][0]], dim=1).reshape(F, 2 * Bmax)
-    best_flat = torch.argmax(per_f, dim=1)  # [F], first maximum
+    gain_shift = leaf_gain(total_g[..., 0], total_h[..., 0], l1, l2, max_delta) + min_gain
+    lead = fh.shape[:-3]
+
+    def lanes(i):  # [..., F, 2*Bmax], lane-major per feature
+        return torch.stack([results[0][i], results[1][i]], dim=-2).reshape(
+            *lead, F, 2 * Bmax)
+
+    per_f = lanes(0)
+    best_flat = torch.argmax(per_f, dim=-1)  # [..., F], first maximum
     lane_b = best_flat // Bmax
     t_b = best_flat % Bmax
-    best_gain = per_f[rows, best_flat]
+    best_gain = per_f.gather(-1, best_flat[..., None])[..., 0]
 
     def pick(i):
-        return torch.stack([results[0][i], results[1][i]])[lane_b, rows, t_b]
+        return lanes(i).gather(-1, best_flat[..., None])[..., 0]
 
     lg, lh, lc, rg, rh, rc = (pick(i) for i in range(1, 7))
     is_valid = torch.isfinite(best_gain) & (best_gain > gain_shift)
@@ -286,7 +301,7 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
         t_b.to(torch.float32),
         lane_b.to(torch.float32),
         lg, lh, lc, rg, rh, rc, lout, rout, zeros, zeros,
-    ], dim=1)
+    ], dim=-1)
 
 
 def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
@@ -295,15 +310,17 @@ def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
                      penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Best numeric split per feature: [F, len(SPLIT_FIELDS)] float32 records.
 
-    fh:     [F, Bmax, 3] float32 feature histograms (gather_feature_hist)
-    totals: [3] leaf (sum_grad, sum_hess, count)
+    fh:     [F, Bmax, 3] float32 feature histograms (gather_feature_hist),
+            or [L, F, Bmax, 3] for L leaves in one launch
+    totals: [3] leaf (sum_grad, sum_hess, count), or [L, 3]
     params: [lambda_l1, lambda_l2, min_data_in_leaf, min_sum_hessian_in_leaf,
              min_gain_to_split, max_delta_step] float32 on fh's device
     feature_mask: optional [F] bool (feature sampling)
     penalty: optional [F] float32 gain penalty subtracted per feature
 
-    The `feature` field is the row index into fh (invalid rows get -1). A
-    CPU tensor takes the plain version; a CUDA tensor the scan kernel.
+    Returns [F, 14] (or [L, F, 14]). The `feature` field is the row index
+    into fh (invalid rows get -1). A CPU tensor takes the plain version; a
+    CUDA tensor the scan kernel.
     """
     from .scan_cuda import split_scan
 
@@ -311,21 +328,27 @@ def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
 
 
 def reduce_best_record(recs: torch.Tensor) -> torch.Tensor:
-    """[K, len(SPLIT_FIELDS)] -> [len(SPLIT_FIELDS)] by max gain (ties: first,
-    matching the reference's SplitInfo operator> sweep order)."""
-    return recs[torch.argmax(recs[:, 0])]
+    """[..., K, len(SPLIT_FIELDS)] -> [..., len(SPLIT_FIELDS)] by max gain
+    (ties: first, matching the reference's SplitInfo operator> sweep
+    order)."""
+    best = torch.argmax(recs[..., 0], dim=-1)
+    return recs.gather(-2, best[..., None, None].expand(
+        *best.shape, 1, recs.shape[-1]))[..., 0, :]
 
 
 def find_best_split(hist: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
                     params: torch.Tensor,
                     feature_mask: Optional[torch.Tensor] = None,
                     penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Best split across all features for one leaf.
+    """Best split across all features for one leaf, or for L leaves at once
+    (the JAX package vmaps it over a wave's 2K children,
+    treelearner/device.py:742-747; each record is the one-leaf call's bits,
+    and on the card it is one scan launch for all L).
 
-    hist:   [G, Bg, 3] group histogram for the leaf
-    totals: [3] leaf (sum_grad, sum_hess, count)
-    Returns the packed split record [len(SPLIT_FIELDS)] float32.
+    hist:   [G, Bg, 3] group histogram for the leaf, or [L, G, Bg, 3]
+    totals: [3] leaf (sum_grad, sum_hess, count), or [L, 3]
+    Returns the packed split record [len(SPLIT_FIELDS)] float32, or [L, ...].
     """
-    fh = gather_feature_hist(hist, meta, totals)  # [F, Bmax, 3]
+    fh = gather_feature_hist(hist, meta, totals)  # [..., F, Bmax, 3]
     return reduce_best_record(per_feature_best(fh, totals, meta, params,
                                                feature_mask, penalty))

@@ -321,20 +321,20 @@ def device_growth_applies(device: torch.device, config: Config,
 
 def create_tree_learner(learner_type: str, device: torch.device, config: Config,
                         dataset: Dataset) -> SerialTreeLearner:
-    """Factory (tree_learner.cpp:17-57). A configuration the JAX package
-    gives to its streamed, wave or distributed learners is refused: the
-    port trains it with none of them yet, and does not silently swap in the
-    serial learner."""
+    """Factory (tree_learner.cpp:17-57): the wave learner (DeviceTreeLearner)
+    where `device_growth_applies`, else the serial learner. A configuration
+    the JAX package gives to its streamed or distributed learners is
+    refused: the port trains it with neither yet, and does not silently
+    swap in the serial learner."""
     if learner_type in ("serial",):
         if os.environ.get("LGBM_TPU_HBM_BUDGET"):
             Log.fatal("LGBM_TPU_HBM_BUDGET asks for the out-of-core streamed "
                       "learner, which is not yet ported to the PyTorch package "
                       "(ROADMAP Queue 1 item 9)")
         if device_growth_applies(device, config, dataset):
-            Log.fatal("the wave learner is not yet ported (ROADMAP Queue 1 "
-                      "item 5): on the card this configuration needs it. Set "
-                      "feature_fraction_bynode < 1 for the serial learner, or "
-                      "train on the CPU with device_type=cpu")
+            from .device import DeviceTreeLearner
+
+            return DeviceTreeLearner(config, dataset, device)
         return SerialTreeLearner(config, dataset, device)
     if learner_type in ("feature", "data", "voting"):
         Log.fatal("tree_learner=%s: the distributed learners are not yet "

@@ -1,5 +1,6 @@
-"""The CUDA leaf-histogram and split-scan kernels against their plain
-PyTorch versions, and training on the card against training on the CPU.
+"""The CUDA histogram (leaf and ragged), compaction and split-scan kernels
+against their plain PyTorch versions, and training on the card (the serial
+and the wave learner) against training on the CPU.
 
 Marked `gpu`: these need an NVIDIA card with nvcc, and skip elsewhere.
 Run them on the card with `python -m pytest -m gpu tests/test_torch_cuda_train.py`.
@@ -10,7 +11,11 @@ Contracts: the histogram is exact on grid-snapped gradients and in the
 integer mode, within the float32 summation bound P * 2**-24 * sum|v| per
 bin otherwise, and bit-equal from one launch to the next. The split scan's
 records equal the plain version's run on the CPU on the same histogram,
-field for field; the gain within 4 ULP of the un-shifted gain.
+field for field; the gain within 4 ULP of the un-shifted gain; the leaf
+batch of the scan gives each leaf the one-leaf launch's bits. The ragged
+histogram is held as the leaf histogram is; the compaction moves bits
+exactly. On snapped gradients the model text trained on the card equals
+the CPU's, through either learner.
 """
 import numpy as np
 import pytest
@@ -19,10 +24,13 @@ import torch
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.io.dataset import Dataset
-from lightgbm_tpu_torch.ops import hist_cuda, scan_cuda
+from lightgbm_tpu_torch.ops import compact_cuda, hist_cuda, scan_cuda
 from lightgbm_tpu_torch.ops import split as ts
+from lightgbm_tpu_torch.ops.compact import _compact_rows_plain
 from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
-                                              _build_histogram_rows_plain)
+                                              _build_histogram_rows_plain,
+                                              _histogram_slots_ragged_plain)
+from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
 
 pytestmark = pytest.mark.gpu
 PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]
@@ -184,4 +192,160 @@ def test_train_on_card_byte_equal_to_cpu(cuda):
     assert scan_cuda.launches["split_scan"] > scan_before
     host = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
                     num_boost_round=3)
+    assert card.model_to_string() == host.model_to_string()
+
+
+# (G, N, B, ranges): one range over every row, spread ranges with an empty
+# and an invalid one (-1 marks it), adjacent tiny ranges, HIGGS width
+RAGGED_SHAPES = [
+    (7, 50000, 256, [(0, 50000)]),
+    (5, 40000, 64, [(0, 7000), (7000, 7000), (9000, -20000), (21000, 39999)]),
+    (3, 9000, 16, [(0, 3), (3, 10), (10, 11), (500, 8999)]),
+    (28, 300000, 255, [(s, s + 6000 + 331 * k) for k, s in
+                       enumerate(range(0, 290000, 14000))]),
+]
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=["root", "spread", "tiny", "higgs"])
+def test_ragged_histogram_kernel_matches_plain(cuda, shape):
+    G, N, B, ranges = shape
+    rng = np.random.RandomState(G + N)
+    bins = rng.randint(0, B, size=(G, N)).astype(np.uint8)
+    bins[:, rng.rand(N) < 0.4] = 0
+    K = len(ranges)
+    starts = np.array([s for s, _ in ranges], np.int32)
+    ends = np.abs(np.array([e for _, e in ranges])).astype(np.int32)
+    valid = np.array([e >= 0 for _, e in ranges])
+    slot = np.full(N, K, np.int32)
+    for k in range(K):
+        slot[starts[k]:ends[k]] = k
+    slot[rng.rand(N) < 0.03] = K  # a few dump rows inside the ranges
+    gh = np.stack([rng.normal(size=N), rng.uniform(0, 0.5, N), np.ones(N)], 1)
+    # the wave learner's payload: gh in the first columns of a [N, 5] row
+    payload = np.zeros((N, 5), np.float32)
+    t = torch.from_numpy
+    args_h = [t(slot), t(starts), t(ends), t(valid)]
+    args_d = [a.to(cuda) for a in args_h]
+    b_d = t(bins).to(cuda)
+    before = hist_cuda.launches["histogram_slots_ragged"]
+    for mode in ("snapped", "real", "quantized"):
+        values = {"snapped": np.round(gh * 16) / 16, "real": gh,
+                  "quantized": np.round(gh * 40)}[mode]
+        payload[:, :3] = values
+        q = mode == "quantized"
+        p_d = t(payload).to(cuda)
+        got = hist_cuda.histogram_ragged(b_d, p_d[:, :3], *args_d, B, K, q)
+        again = hist_cuda.histogram_ragged(b_d, p_d[:, :3], *args_d, B, K, q)
+        torch.cuda.synchronize()
+        assert got.dtype == (torch.int32 if q else torch.float32)
+        assert torch.equal(got, again)
+        ref = _histogram_slots_ragged_plain(t(bins), t(payload)[:, :3], *args_h, B, K, q)
+        if mode == "real":
+            absref = _histogram_slots_ragged_plain(t(bins), t(np.abs(payload))[:, :3],
+                                                   *args_h, B, K)
+            bound = N * 2.0 ** -24 * absref.double()
+            assert bool(((got.cpu().double() - ref.double()).abs() <= bound).all())
+        else:
+            assert torch.equal(got.cpu(), ref)
+    assert hist_cuda.launches["histogram_slots_ragged"] == before + 6
+
+
+def test_histogram_slots_kernel_matches_plain(cuda):
+    from lightgbm_tpu_torch.ops.histogram import histogram_slots
+
+    rng = np.random.RandomState(3)
+    G, N, B, S = 6, 20000, 255, 5
+    bins = torch.from_numpy(rng.randint(0, B, size=(G, N)).astype(np.uint8))
+    gh = torch.from_numpy((np.round(rng.normal(size=(N, 3)) * 16) / 16).astype(np.float32))
+    slot = torch.from_numpy(rng.randint(0, S + 2, size=N).astype(np.int32))
+    got = histogram_slots(bins.to(cuda), gh.to(cuda), slot.to(cuda), B, S)
+    assert torch.equal(got.cpu(), histogram_slots(bins, gh, slot, B, S))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 300001])
+def test_compact_kernel_matches_plain(cuda, n):
+    from lightgbm_tpu_torch.ops.compact import range_partition_dst_by_range
+
+    rng = np.random.RandomState(n)
+    G = 28
+    bins = torch.from_numpy(rng.randint(0, 256, size=(G, n)).astype(np.uint8))
+    rows = torch.from_numpy(rng.normal(size=(n, 5)).astype(np.float32))
+    rows[0, 1] = float("nan")
+    rows[-1, 0] = -0.0
+    K = min(21, n)
+    cuts = np.sort(rng.choice(n + 1, 2 * K, replace=True)).reshape(K, 2)
+    starts, counts = torch.from_numpy(cuts[:, 0].astype(np.int32)), \
+        torch.from_numpy((cuts[:, 1] - cuts[:, 0]).astype(np.int32))
+    rng_of = np.full(n, K, np.int32)
+    for k, (s, e) in enumerate(cuts):
+        rng_of[s:e] = k
+    go_left = torch.from_numpy(rng.rand(n) < 0.5)
+    dst, _ = range_partition_dst_by_range(go_left, torch.from_numpy(rng_of), starts,
+                                          counts, torch.ones(K, dtype=torch.bool))
+    before = compact_cuda.launches["compact_rows"]
+    d = [a.to(cuda) for a in (bins, rows, dst)]
+    got = compact_cuda.compact(*d)
+    again = compact_cuda.compact(*d)
+    torch.cuda.synchronize()
+    assert compact_cuda.launches["compact_rows"] == before + 2
+    ref = _compact_rows_plain(bins, rows, dst)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g.cpu().view(torch.uint8), r.view(torch.uint8))
+        assert torch.equal(a.cpu().view(torch.uint8), r.view(torch.uint8))
+
+
+def test_compact_wrapper_rejects_bad_input(cuda):
+    bins = torch.zeros((2, 100), dtype=torch.uint8, device=cuda)
+    rows = torch.zeros((100, 5), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        compact_cuda.compact(bins, rows, torch.arange(100, device=cuda))
+    dst = torch.arange(100, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="alias"):
+        compact_cuda.compact(bins, rows, dst, out=(bins, torch.empty_like(rows)))
+
+
+def test_batched_split_scan_matches_one_leaf_launches(cuda):
+    ds, B, hist, tot = _leaf_case(5, True)
+    meta_d = ts.make_feature_meta(ds, B, cuda)
+    meta_h = ts.make_feature_meta(ds, B, "cpu")
+    params = torch.tensor(PARAMS, device=cuda)
+    # six leaves: the leaf, halves and thirds of it (a wave's children)
+    hists = torch.stack([hist, hist / 2, hist - hist / 2, hist / 3, hist * 0.25,
+                         hist - hist / 3])
+    totals = hists[:, 0].sum(dim=1)
+    fh = ts.gather_feature_hist(hists, meta_d, totals)
+    before = scan_cuda.launches["split_scan_batched"]
+    recs = scan_cuda.split_scan(fh, totals, meta_d, params)
+    assert scan_cuda.launches["split_scan_batched"] == before + 1
+    assert recs.shape == (6, len(meta_h.real_feature), 14)
+    ref = ts.per_feature_best(fh.cpu(), totals.cpu(), meta_h, torch.tensor(PARAMS))
+    assert torch.equal(recs[..., 1:].cpu(), ref[..., 1:])
+    for i in range(6):
+        one = scan_cuda.split_scan(fh[i].contiguous(), totals[i].contiguous(), meta_d,
+                                   params)
+        assert torch.equal(recs[i].view(torch.int32), one.view(torch.int32))
+
+
+def test_wave_learner_on_card_byte_equal_to_cpu(cuda):
+    rng = np.random.RandomState(12)
+    X = rng.normal(size=(20000, 10))
+    y = (X[:, 0] + X[:, 3] > 0).astype(np.float64)
+    params = {"objective": _snapped_logloss, "num_leaves": 63, "verbosity": -1,
+              "bagging_fraction": 0.8, "bagging_freq": 1}
+    counts = {name: dict(lib.launches) for name, lib in
+              (("hist", hist_cuda), ("compact", compact_cuda), ("scan", scan_cuda))}
+    card = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=3)
+    assert isinstance(card._gbdt.tree_learner, DeviceTreeLearner)
+    assert hist_cuda.launches["histogram_slots_ragged"] > \
+        counts["hist"]["histogram_slots_ragged"]
+    assert compact_cuda.launches["compact_rows"] > counts["compact"]["compact_rows"]
+    assert scan_cuda.launches["split_scan_batched"] > counts["scan"]["split_scan_batched"]
+    host_params = {**params, "objective": "none", "device_type": "cpu",
+                   "num_iterations": 3}
+    train = lt.Dataset(X, label=y)
+    host = lt.Booster(params=host_params, train_set=train)
+    host._gbdt.tree_learner = DeviceTreeLearner(host._gbdt.config, train._handle,
+                                                torch.device("cpu"))
+    for _ in range(3):
+        host.update(fobj=_snapped_logloss)
     assert card.model_to_string() == host.model_to_string()

@@ -158,18 +158,43 @@ def test_trained_model_reloads_and_predicts():
                                bst.predict(X, raw_score=True), rtol=1e-6, atol=1e-6)
 
 
-def test_wave_learner_configuration_is_refused_on_the_card():
-    """On the card the JAX package grows a dense numeric configuration
-    without per-node sampling with its wave learner, which is not ported:
-    the factory refuses it rather than train with another learner."""
+def test_wave_learner_configuration_is_refused_on_the_card(monkeypatch):
+    """No longer refused: on the card the factory grows a dense numeric
+    configuration without per-node sampling with the wave learner
+    (DeviceTreeLearner), as the JAX package does; on the CPU, and with
+    feature_fraction_bynode < 1, it takes the serial learner. The card's
+    learners are stood in for here (the CPU has no card to put their
+    tensors on); tests/test_torch_cuda_train.py builds the real one."""
+    from lightgbm_tpu_torch.treelearner import device, serial
+
     X, y = _data(with_nan=False)
     ds = CoreDataset.from_matrix(X, label=y)
-    card = torch.device("cuda")
+    card, cpu = torch.device("cuda"), torch.device("cpu")
     assert device_growth_applies(card, Config({"feature_fraction_bynode": 1.0}), ds)
     assert not device_growth_applies(card, Config({"feature_fraction_bynode": 0.8}), ds)
-    assert not device_growth_applies(torch.device("cpu"), Config({}), ds)
-    with pytest.raises(LightGBMError, match="wave learner is not yet ported"):
-        create_tree_learner("serial", card, Config({}), ds)
+    assert not device_growth_applies(cpu, Config({}), ds)
+
+    class Stand:
+        def __init__(self, *args):
+            self.args = args
+
+    class WaveStand(Stand):
+        pass
+
+    class SerialStand(Stand):
+        pass
+
+    monkeypatch.setattr(device, "DeviceTreeLearner", WaveStand)
+    monkeypatch.setattr(serial, "SerialTreeLearner", SerialStand)
+    wave = create_tree_learner("serial", card, Config({}), ds)
+    assert type(wave) is WaveStand and wave.args[2] == card
+    bynode = create_tree_learner("serial", card, Config({"feature_fraction_bynode": 0.8}),
+                                 ds)
+    assert type(bynode) is SerialStand
+    monkeypatch.undo()
+    host = create_tree_learner("serial", cpu, Config({}), ds)
+    assert type(host) is serial.SerialTreeLearner
+    assert not isinstance(host, device.DeviceTreeLearner)
 
 
 REFUSED = [
