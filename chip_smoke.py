@@ -15,16 +15,19 @@ Phases (any failure exits non-zero before the result line):
             model with categorical splits, and a model with constant and
             stump trees; each written with Booster.save_model.
 4. kernels  each kernel against its plain PyTorch version on the card:
-            the traversal on a 65,536-row sample (~1% NaN and exact zeros),
-            leaf indices exactly equal, raw scores within the float32
-            summation bound, two launches bit-equal, then its timings at the
-            main path's shapes. On the HIGGS-width training data (1,048,576
-            rows x 28 features x 255 bins, made from --seed): the leaf
-            histogram at the root and on a ~100,000-row leaf; the ragged
-            (wave) histogram at the root and on 21 ranges covering about
-            half the rows, and histogram_slots on a sample; each exact on
-            grid-snapped gradients and in the integer mode, within the
-            float32 summation bound otherwise, two launches bit-equal. The
+            the traversal on a 65,536-row sample (~1% NaN and exact zeros)
+            and on serving batches of 64, 512 and 4096 rows (both of its
+            plans), leaf indices exactly equal, raw scores bit-equal, two
+            launches bit-equal, then its timings at the main path's shapes.
+            On the HIGGS-width training data (1,048,576 rows x 28 features
+            x 255 bins, made from --seed): the leaf histogram at the root
+            and on a ~100,000-row leaf, exact on grid-snapped gradients and
+            in the integer mode, within the float32 summation bound
+            otherwise, two launches bit-equal; the ragged (wave) histogram
+            at the root and on 21 ranges covering about half the rows, each
+            also with every row in bin 0, and histogram_slots on a sample,
+            held as the leaf histogram and, otherwise, bit-equal to the
+            plain emulation of its fixed-point sum. The
             split scan on those leaves, with and without a feature mask,
             equal to the plain version run on the CPU (the gain within 4
             ULP), and its leaf batch at a wave's 42 children bit-equal. The
@@ -50,7 +53,7 @@ Phases (any failure exits non-zero before the result line):
             leaves per tree, waves, committed and speculated splits, rows
             histogrammed per tree (at most N * (1 + waves / 2): a wave
             histograms only the smaller children of disjoint leaves), train
-            and valid AUC; the
+            and valid AUC (at --seed 0 within 0.002 of WAVE_AUC_SEED0); the
             model text reloads and predicts equal to the training Booster;
             the host scopes and the device's busy share over one round.
 9. serial   the same with feature_fraction_bynode=0.8, through the serial
@@ -86,6 +89,7 @@ HIGGS = dict(n_features=28, n_iterations=500, num_leaves=255)
 SAMPLE_ROWS = 65_536
 MAIN_ROWS = 1_048_576
 SERVE_REQUESTS, SERVE_ROWS, SERVE_THREADS = 256, 64, 8
+SERVE_BATCHES = (64, 512, 4096)  # one request, a few coalesced, a full batch
 # the training path: HIGGS width (bench.py:7-13) with per-node sampling
 TRAIN_ROWS, VALID_ROWS, LEAF_ROWS = 1_048_576, 65_536, 100_000
 TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 65_536, 3
@@ -98,6 +102,9 @@ SCAN_PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]  # TRAIN_PARAMS' regularizers
 # wave learner grows
 WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "feature_fraction_bynode"}
 WAVE_K, SLOT_SLOTS = 21, 4  # the wave learner's default width; histogram_slots' slots
+# train / valid AUC of the 10 wave-learner rounds at --seed 0 when the wave
+# histogram sums in float32; summed in fixed point they stay within 0.002
+WAVE_AUC_SEED0 = (0.74877, 0.74533)
 
 
 class SmokeFailure(RuntimeError):
@@ -129,15 +136,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def summation_bound(packed, leaf: torch.Tensor) -> torch.Tensor:
-    """Per-row bound between two float32 summation orders of the row's T
-    leaf values: T * 2**-24 * sum_t |v_t|."""
-    T, L = packed.leaf_value.shape
-    flat = torch.arange(T, device=leaf.device)[None, :] * L + leaf.long()
-    vals = packed.leaf_value.double().reshape(-1)[flat]
-    return T * 2.0 ** -24 * vals.abs().sum(dim=1, keepdim=True)
 
 
 def leaf_depths(trees, device) -> torch.Tensor:
@@ -313,14 +311,18 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
     """The ragged (wave) histogram kernel against its plain version run on
     the CPU: at the root (one range over every row) and on WAVE_K disjoint
     ranges covering about half the rows, each row of range k carrying slot
-    k, gh read in place from the wave learner's [N, 5] payload. Exact on
-    snapped gradients and in the integer mode, within the float32 summation
-    bound otherwise, two launches bit-equal; then histogram_slots on a
-    sample. Returns (max |d|, timings, bounds, the wave case's histogram,
-    the root's)."""
+    k, gh read in place from the wave learner's [N, 5] payload; both again
+    with every row in bin 0 (the dominant-bin case). Exact on snapped
+    gradients and in the integer mode, within the float32 summation bound
+    otherwise and bit-equal there to the plain emulation of the kernel's
+    fixed-point sum, two launches bit-equal; then histogram_slots on a
+    sample. Timed as the wave learner calls it, with the fixed-point
+    exponents computed once beforehand. Returns (max |d|, timings, bounds,
+    the wave case's histogram, the root's)."""
     from lightgbm_tpu_torch.ops import hist_cuda
-    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_plain,
-                                                  histogram_slots)
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_fixed,
+                                                  _histogram_slots_ragged_plain,
+                                                  fixed_point_exponents, histogram_slots)
 
     rng = np.random.RandomState(seed)
     G = bins.shape[0]
@@ -335,26 +337,29 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
     slot = np.full(n_rows, WAVE_K, np.int32)
     for k in range(WAVE_K):
         slot[starts[k]:ends[k]] = k
-    cases = {
-        "root": (np.zeros(n_rows, np.int32), np.array([0], np.int32),
-                 np.array([n_rows], np.int32)),
-        "wave": (slot, starts, ends),
-    }
-    bins_h = bins.cpu()
+    root = (np.zeros(n_rows, np.int32), np.array([0], np.int32), np.array([n_rows], np.int32))
+    zeros = torch.zeros_like(bins)
+    cases = {"root": (bins, *root), "wave": (bins, slot, starts, ends),
+             "dominant_root": (zeros, *root), "dominant_wave": (zeros, slot, starts, ends)}
+    exps = fixed_point_exponents(payload["real"][:, :3], n_rows)
+    exps_d = exps.to(dev)
+    check(torch.equal(fixed_point_exponents(pay_d["real"][:, :3], n_rows).cpu(), exps),
+          "ragged histogram: the card's fixed-point exponents differ from the CPU's")
     max_err, kept, timings, bounds = 0.0, {}, {}, {}
     out_bytes = G * num_bins * 3 * 4
-    for name, (sl, st, en) in cases.items():
+    for name, (bins_d, sl, st, en) in cases.items():
         K = len(st)
+        bins_h = bins_d.cpu()
         args_h = [torch.from_numpy(a) for a in (sl, st, en)] + [torch.ones(K, dtype=torch.bool)]
         args_d = [a.to(dev) for a in args_h]
 
-        def kern(mode, a=args_d, K=K):
-            return hist_cuda.histogram_ragged(bins, pay_d[mode][:, :3], *a, num_bins, K,
-                                              mode == "quantized")
+        def kern(mode, a=args_d, K=K, b=bins_d, e=None):
+            return hist_cuda.histogram_ragged(b, pay_d[mode][:, :3], *a, num_bins, K,
+                                              mode == "quantized", exponents=e)
 
-        def plain(mode, a=args_h, K=K, values=None):
+        def plain(mode, a=args_h, K=K, b=bins_h, values=None):
             v = payload[mode] if values is None else values
-            return _histogram_slots_ragged_plain(bins_h, v[:, :3], *a, num_bins, K,
+            return _histogram_slots_ragged_plain(b, v[:, :3], *a, num_bins, K,
                                                  mode == "quantized")
 
         check(torch.equal(kern("snapped").cpu(), plain("snapped")),
@@ -369,14 +374,19 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
         check(bool((err <= rows * 2.0 ** -24 * plain("real", values=payload["real"].abs())
                     .double()).all()),
               f"ragged histogram {name}: outside the float32 summation bound")
+        check(torch.equal(got, _histogram_slots_ragged_fixed(
+                  bins_h, payload["real"][:, :3], *args_h, num_bins, K, exps)),
+              f"ragged histogram {name}: differs from the plain fixed-point emulation")
         check(torch.equal(kern("quantized").cpu(), plain("quantized")),
               f"ragged histogram {name}: integer mode differs")
         max_err = max(max_err, float(err.max()))
-        kept[name] = kern("real")
-        timings[name] = cuda_ms(lambda: kern("real"), 20)
+        if name in ("root", "wave"):
+            kept[name] = kern("real")
+        timings[name] = cuda_ms(lambda k=kern: k("real", e=exps_d), 20)
+        timings["scaling_" + name] = cuda_ms(lambda k=kern: k("real"), 20)
         timings["plain_" + name] = cuda_ms(
-            lambda a=args_d, K=K: _histogram_slots_ragged_plain(
-                bins, pay_d["real"][:, :3], *a, num_bins, K), 2)
+            lambda a=args_d, K=K, b=bins_d: _histogram_slots_ragged_plain(
+                b, pay_d["real"][:, :3], *a, num_bins, K), 2)
         # each input read once over the rows in the ranges, the output written
         bounds[name] = bound(rows * (G + 12 + 4) + K * out_bytes, 3 * G * rows)
     # histogram_slots: every row, SLOT_SLOTS slots, on a sample
@@ -499,7 +509,7 @@ def device_busy_share(fn):
         return None
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     return (sum(per_kernel.values()) * 1e-6, wall,
-            ", ".join(f"{k[:40]} {v / 1e3:.1f} ms" for k, v in top))
+            ", ".join(f"{k[:40]} {v / 1e3:.3f} ms" for k, v in top))
 
 
 def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, label):
@@ -578,7 +588,7 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
              f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}"))
     return {"launches": launches, "learner": trained._gbdt.tree_learner,
             "counters": counters, "hist_rows": hist_rows, "waves": np.diff(waves),
-            "per_iter": per_iter}
+            "per_iter": per_iter, "auc": (train_auc, valid_auc[-1])}
 
 
 def main() -> int:
@@ -641,38 +651,47 @@ def main() -> int:
           f"mean {np.mean(depth):.2f} max {max(depth)}")
 
     # --------------------------------------------------- kernels vs plain
+    # both plans of the traversal: the sample takes the all-trees plan, the
+    # serving batch sizes the split plan (trees across blocks, then a sum)
     err = {"predict_forest_raw": 0.0, "predict_forest_leaf": 0.0}
     for name, (path, model, cats) in paths.items():
         C = model.num_tree_per_iteration
         packed = pack_ensemble(Booster(model_file=path)._gbdt.models, device=dev)
-        X = torch.from_numpy(make_rows(np.random.RandomState(args.seed + 1),
-                                       SAMPLE_ROWS, model.max_feature_idx + 1,
-                                       cats)).to(dev)
-        before = dict(predict_cuda.launches)
-        leaf = predict_cuda.forest_leaf_indices(packed, X)
-        raw = predict_cuda.forest_raw(packed, X, C)
-        raw2 = predict_cuda.forest_raw(packed, X, C)
-        torch.cuda.synchronize()
-        check(predict_cuda.launches["predict_forest_raw"]
-              == before["predict_forest_raw"] + 2, f"{name}: raw launch count")
-        check(predict_cuda.launches["predict_forest_leaf"]
-              == before["predict_forest_leaf"] + 1, f"{name}: leaf launch count")
-        ref_leaf = _traverse_leaves(packed, X)
-        ref_raw = _predict_raw_fused(packed, X, C)
-        check(torch.equal(leaf, ref_leaf), f"{name}: leaf indices differ")
-        check(torch.equal(raw, raw2), f"{name}: two launches differ")
-        delta = (raw.double() - ref_raw.double()).abs()
-        check(bool((delta <= summation_bound(packed, ref_leaf)).all()),
-              f"{name}: raw scores outside the summation bound")
-        check(bool(torch.isfinite(raw).all()), f"{name}: non-finite scores")
-        err["predict_forest_raw"] = max(err["predict_forest_raw"], float(delta.max()))
-        err["predict_forest_leaf"] = max(
-            err["predict_forest_leaf"],
-            float((leaf.long() - ref_leaf.long()).abs().max()))
-        print(f"kernels: {name}: {SAMPLE_ROWS} rows, {packed.num_trees} trees, "
-              f"C={C}: leaf indices equal, raw max |d| {float(delta.max()):.3g}, "
-              f"bit-equal to plain: {bool(torch.equal(raw, ref_raw))}")
-        del ref_leaf, ref_raw
+        X_all = torch.from_numpy(make_rows(np.random.RandomState(args.seed + 1),
+                                           SAMPLE_ROWS, model.max_feature_idx + 1,
+                                           cats)).to(dev)
+        for rows in (SAMPLE_ROWS,) + SERVE_BATCHES:
+            X = X_all[:rows].contiguous()
+            before = dict(predict_cuda.launches)
+            leaf = predict_cuda.forest_leaf_indices(packed, X)
+            raw = predict_cuda.forest_raw(packed, X, C)
+            raw2 = predict_cuda.forest_raw(packed, X, C)
+            torch.cuda.synchronize()
+            check(predict_cuda.launches["predict_forest_raw"]
+                  == before["predict_forest_raw"] + 2, f"{name}: raw launch count")
+            check(predict_cuda.launches["predict_forest_leaf"]
+                  == before["predict_forest_leaf"] + 1, f"{name}: leaf launch count")
+            ref_leaf = _traverse_leaves(packed, X)
+            ref_raw = _predict_raw_fused(packed, X, C)
+            check(torch.equal(leaf, ref_leaf), f"{name} at {rows} rows: leaf indices differ")
+            check(torch.equal(raw, raw2), f"{name} at {rows} rows: two launches differ")
+            check(torch.equal(raw, ref_raw),
+                  f"{name} at {rows} rows: raw scores not bit-equal to the plain version")
+            check(bool(torch.isfinite(raw).all()), f"{name}: non-finite scores")
+            delta = (raw.double() - ref_raw.double()).abs()
+            err["predict_forest_raw"] = max(err["predict_forest_raw"], float(delta.max()))
+            err["predict_forest_leaf"] = max(
+                err["predict_forest_leaf"],
+                float((leaf.long() - ref_leaf.long()).abs().max()))
+        plans = {rows: predict_cuda.forest_plan(rows, packed.num_trees, X_all.shape[1],
+                                                packed.records.shape[1]).split
+                 for rows in (SAMPLE_ROWS,) + SERVE_BATCHES}
+        print(f"kernels: {name}: {packed.num_trees} trees, C={C}, at "
+              + ", ".join(f"{r} rows ({'split' if sp else 'all-trees'} plan)"
+                          for r, sp in plans.items())
+              + ": leaf indices equal, raw scores bit-equal to the plain version, two "
+              "launches bit-equal")
+        del ref_leaf, ref_raw, X_all
     torch.cuda.empty_cache()
 
     # timings at the main path's shapes: the streamed chunk for the raw
@@ -683,7 +702,8 @@ def main() -> int:
     chunk = 1 << 18
     xs = [torch.from_numpy(make_rows(np.random.RandomState(args.seed + 2 + i),
                                      chunk, F)).to(dev) for i in range(4)]
-    table_bytes = sum(t.numel() * t.element_size() for t in packed.tables())
+    # the kernel reads the packed node records and the categorical bitsets
+    table_bytes = sum(t.numel() * t.element_size() for t in (packed.records, packed.cat_table))
     visits = float(leaf_depths(higgs.trees, dev).reshape(-1)[
         (torch.arange(packed.num_trees, device=dev)[None, :]
          * packed.leaf_value.shape[1]
@@ -696,12 +716,20 @@ def main() -> int:
     check(torch.equal(predict_cuda.forest_raw(packed, xs[0], 1),
                       _predict_raw_fused(packed, xs[0], 1)),
           f"predict_forest_raw at {chunk}x{F}: differs from the plain version")
+    for rows in SERVE_BATCHES:
+        x = xs[2][:rows].contiguous()
+        check(torch.equal(predict_cuda.forest_raw(packed, x, 1), _predict_raw_fused(packed, x, 1)),
+              f"predict_forest_raw at {rows}x{F}: differs from the plain version")
     T = packed.num_trees
     bytes_raw = chunk * F * 4 + chunk * 4 + table_bytes
     ops_raw = visits + chunk * T  # one compare per node visited, one add per tree
     # the serving batcher's shapes: one request, a few coalesced, a full batch
-    ms_batches = {rows: cuda_ms(lambda r=rows: predict_cuda.forest_raw(
-        packed, xs[2][:r].contiguous(), 1), 10) for rows in (64, 512, 4096)}
+    ms_batches = {rows: cuda_ms(lambda x=xs[2][:rows].contiguous(): predict_cuda.forest_raw(
+        packed, x, 1), 20) for rows in SERVE_BATCHES}
+    # device time of a serving batch's kernels (the walk, and the sum of the
+    # split plan) apart from the call's host work
+    dev_batches = {rows: device_busy_share(lambda x=xs[2][:rows].contiguous(): [
+        predict_cuda.forest_raw(packed, x, 1) for _ in range(5)]) for rows in SERVE_BATCHES}
     x_leaf = xs[1][:SAMPLE_ROWS].contiguous()
     ms_leaf = cuda_ms(lambda: predict_cuda.forest_leaf_indices(packed, x_leaf), 20)
     plain_leaf = cuda_ms(lambda: _traverse_leaves(packed, x_leaf), 2)
@@ -716,6 +744,10 @@ def main() -> int:
           f"({by_raw}); mean nodes visited per (row, tree) {visits / chunk / T:.3f}")
     print(f"{tag} predict_forest_raw at serving batch rows: " + ", ".join(
         f"{rows}: {ms:.4f} ms" for rows, ms in ms_batches.items()))
+    for rows, busy in dev_batches.items():
+        print(f"{tag}   {rows} rows, device time a call (torch.profiler, 5 calls): "
+              + ("not measured (the profiler saw no device time)" if busy is None else
+                 f"{busy[0] / 5 * 1e3:.4f} ms; kernels over the 5 calls: {busy[2]}"))
     print(f"{tag} predict_forest_leaf {SAMPLE_ROWS}x{F}, {T} trees: kernel "
           f"{ms_leaf:.4f} ms, plain {plain_leaf:.2f} ms, bound {bound_leaf:.4f} ms "
           f"({by_leaf})")
@@ -763,14 +795,26 @@ def main() -> int:
     err_rag, ms_rag, bound_rag, wave_hist, root_hist = check_wave_histogram(
         dev, bins_d, TRAIN_ROWS, num_bins, args.seed + 8)
     print(f"kernels: ragged histogram {core.num_groups}x{TRAIN_ROWS}x{num_bins}, the root "
-          f"and {WAVE_K} ranges over about half the rows: exact on snapped gradients and "
-          f"in the integer mode, max |d| {err_rag:.3g} otherwise (within the float32 "
-          f"summation bound), two launches bit-equal; histogram_slots on {SAMPLE_ROWS} "
-          f"rows x {SLOT_SLOTS} slots exact")
+          f"and {WAVE_K} ranges over about half the rows, each also with every row in bin "
+          f"0: exact on snapped gradients and in the integer mode, max |d| {err_rag:.3g} "
+          f"otherwise (within the float32 summation bound; bit-equal to the plain "
+          f"fixed-point emulation), two launches bit-equal; histogram_slots on "
+          f"{SAMPLE_ROWS} rows x {SLOT_SLOTS} slots exact")
+    gb_rag, blocks_rag = hist_cuda.ragged_launch_shape(
+        core.num_groups, num_bins, 3, False, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    print(f"  ragged histogram launch: {blocks_rag} x {-(-core.num_groups // gb_rag)} "
+          f"persistent blocks of {hist_cuda.RAGGED_THREADS} threads, {gb_rag} groups each, "
+          f"{hist_cuda.RAGGED_PLAN_BYTES + gb_rag * num_bins * 7 * 4} bytes of dynamic "
+          f"shared memory a block")
     for name, what in (("root", f"root {TRAIN_ROWS} rows"),
                        ("wave", f"{WAVE_K} ranges, about half the rows"),
+                       ("dominant_root", f"root {TRAIN_ROWS} rows, every row in bin 0"),
+                       ("dominant_wave", f"{WAVE_K} ranges, every row in bin 0"),
                        ("slots", f"histogram_slots {SAMPLE_ROWS} rows x {SLOT_SLOTS} slots")):
-        print(f"{tag} ragged histogram {what}: kernel {ms_rag[name]:.4f} ms, plain "
+        scaling = (f" (with the exponents computed in the call: "
+                   f"{ms_rag['scaling_' + name]:.4f} ms)" if "scaling_" + name in ms_rag else "")
+        print(f"{tag} ragged histogram {what}: kernel {ms_rag[name]:.4f} ms{scaling}, plain "
               f"{ms_rag['plain_' + name]:.3f} ms, bound {bound_rag[name][0]:.4f} ms "
               f"({bound_rag[name][1]})")
     ms_cmp, bound_cmp = check_compaction(dev, bins_d, TRAIN_ROWS, args.seed + 9)
@@ -967,6 +1011,10 @@ def main() -> int:
                            "split_scan_batched", "predict_forest_raw"), tag, "wave")
     check(isinstance(wave["learner"], DeviceTreeLearner),
           "train (wave): lt.train did not grow its trees with the wave learner")
+    if args.seed == 0:
+        check(all(abs(a - r) <= 0.002 for a, r in zip(wave["auc"], WAVE_AUC_SEED0)),
+              f"train (wave): train / valid AUC {wave['auc']} not within 0.002 of "
+              f"{WAVE_AUC_SEED0}")
     # the root histograms N rows, and a wave only the smaller children of
     # disjoint leaves, at most N/2 rows: a tree's bound by design (the
     # O(N * waves) form of a full-row wave histogram would pass it)

@@ -11,191 +11,358 @@
 // Single-leaf trees sit at leaf 0. Two outputs:
 //   raw:  out[N, C] float32, class c summing the leaf values of trees
 //         c, c + C, c + 2C, ... in ascending order, one float32 add at a
-//         time from 0 — the order of the plain PyTorch version;
+//         time from 0 — the order of the plain PyTorch version, so the two
+//         agree bit for bit;
 //   leaf: out[N, T] int32 leaf indices (pred_leaf).
 //
-// Design. One thread per row, 128 rows per block. The block first copies its
-// row tile of X into shared memory with coalesced loads (row stride padded to
-// an odd number of words, so the threads of a warp reading the same feature
-// hit distinct banks), then each thread walks the trees in ascending order,
-// leaving a tree's walk as soon as it reaches a leaf. The node tables stay in
-// global memory: for a 500-tree, 255-leaf model they are about 3 MB and sit
-// in the 50 MB L2 after the first blocks touch them. No atomics: every row's
-// result depends on that row alone, so a row predicts the same bits in any
-// batch. The kernel allocates nothing, does not synchronise, and launches on
-// the caller's stream; each entry point returns cudaGetLastError().
+// What bounds it. Bytes: X once (4F bytes a row), the output, the model once
+// (~3 MB for 500 trees x 255 leaves): ~20 us for a 262,144 x 28 chunk at
+// 3.35 TB/s. The work that the bytes do not show is N * T * depth dependent
+// steps, each a node load and a feature load that the next step waits on:
+// the walk is bound by the latency and the bandwidth of the memory that
+// holds the nodes. Nodes read from global memory cost an L2 round trip a
+// step (five, as five separate tables), and a thread a row with all trees
+// in its loop leaves a 64-row serving batch 64 threads on a 132-SM card.
+// In shared memory a warp's 16-byte loads of random nodes of one tree take
+// several wavefronts: that is where the chunk's time goes.
 //
-// What bounds it. Reckoned from shapes for a 500-tree, 255-leaf binary model
-// at N = 1,048,576 and F = 28: it must read X (117.4 MB), write [N, 1]
-// (4.2 MB) and read the tables (~3 MB) — about 37 us at 3.35 TB/s. The real
-// limit is more likely the N * T * (mean depth) dependent loads from L2, each
-// a round trip that the next level waits on; occupancy (64 warps per SM) is
-// what hides them here. Making it fast (node records packed into one 16-byte
-// load, trees grouped per warp, the hot top levels in shared memory) is later
-// work.
+// Design.
+//  * Packed node record (ops/predict.py:forest_records). One aligned 16-byte
+//    load a step: threshold bits (or, for a categorical node, the index of
+//    [n_words, words...] in cat_table), feature, and both children with the
+//    four decision-type bits in their low two bits each. A tree is one blob
+//    of R words: its I records, then its leaf values padded to 16 bytes.
+//  * Tree tiles in shared memory. A block walks a tile of rows (one thread a
+//    row; X's row tile staged feature-major, so a warp's feature loads hit
+//    32 distinct banks whatever features its rows split on) against tiles
+//    of tile_trees trees, copied with cp.async into two buffers: tile i + 1
+//    lands while tile i is walked. Whole trees are staged (leaf-wise growth numbers nodes in split
+//    order, not by level). A tree too large for the budget, or X too wide to
+//    stage, is read from global memory by the same kernel (template flags);
+//    a step then costs an L2 round trip again, as before.
+//  * Two plans, chosen by the wrapper from N and T alone (ops/predict_cuda.py
+//    forest_plan). Large N: every block walks all trees, in class-major order
+//    (class 0's trees ascending, then class 1's ...), carrying each row's
+//    running sum in a register and writing it at the end of its class.
+//    Small N (serving batches): the trees are split across blocks as well
+//    (grid.y), so a 64-row request still fills the card; each (row, tree)
+//    leaf value goes to a [T, N] scratch and a second kernel sums each row's
+//    class in ascending tree order, [128 trees, 32 rows] tiles of the
+//    scratch streaming through shared memory with cp.async, so the sum is
+//    one chain of dependent adds and not of dependent loads. Leaf mode
+//    writes its [N, T] indices in either plan.
+// No atomics: each output element is written by one thread, in an order
+// fixed by the shapes alone, so two launches give the same bits and a row
+// predicts the same bits in any batch. The kernels allocate nothing, do not
+// synchronise, and launch on the caller's stream; the entry point returns
+// cudaGetLastError() after each launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowsPerBlock = 128;
-constexpr int kMaxStagedBytes = 48 * 1024;  // static launch limit, no opt-in
-constexpr float kZeroThreshold = 1e-35f;    // meta.h kZeroThreshold
+constexpr int kMaxThreads = 512;
+constexpr int kSumTrees = 128;  // trees per scratch tile of the sum kernel
+constexpr int kSumWarps = 8;
+constexpr int kSumClasses = 4;  // classes a warp of the sum kernel carries at once
+constexpr float kZeroThreshold = 1e-35f;  // meta.h kZeroThreshold
 constexpr int kMissingZero = 1;
 constexpr int kMissingNan = 2;
 
+enum Mode { kRaw = 0, kRawSplit = 1, kLeaf = 2 };
+
 struct Forest {
-  const int* split_feature;    // [T, I]
-  const float* threshold;      // [T, I]
-  const int* decision_type;    // [T, I]
-  const int* left_child;       // [T, I]
-  const int* right_child;      // [T, I]
-  const float* leaf_value;     // [T, L]
-  const uint32_t* cat_words;   // [W]
-  const int* cat_offset;       // [T, I]
-  const int* cat_n_words;      // [T, I]
-  const int* num_leaves;       // [T]
-  int T, I, L, max_depth;
+  const int4* records;   // [T, R / 4]: a tree's node records, then its leaf values
+  const int* cat_table;  // [n_words, word 0, ...] per categorical node
+  int T, R, I, C, max_depth;
 };
 
-__device__ __forceinline__ int leaf_of(const Forest& f, int t, const float* x) {
-  if (__ldg(f.num_leaves + t) <= 1) return 0;
-  const int base = t * f.I;
+template <bool kGlobal, typename V>
+__device__ __forceinline__ V load(const V* p) {
+  if (kGlobal) return __ldg(p);
+  return *p;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The leaf that row x (feature f at x[f * xs]) reaches in the tree whose
+// records start at `nodes`.
+template <bool kGlobalNodes, bool kGlobalX>
+__device__ __forceinline__ int walk(const int4* nodes, const int* __restrict__ cat_table,
+                                    const float* x, int xs, int max_depth) {
   int node = 0;
-  for (int level = 0; level < f.max_depth && node >= 0; ++level) {
-    const int idx = base + node;
-    const int dt = __ldg(f.decision_type + idx);
-    float v = x[__ldg(f.split_feature + idx)];
+  for (int level = 0; level < max_depth; ++level) {
+    const int4 r = load<kGlobalNodes>(nodes + node);
+    const int dt = (r.z & 3) | ((r.w & 3) << 2);
+    float v = load<kGlobalX>(x + static_cast<long long>(r.y) * xs);
     bool left;
     if (dt & 1) {
       // categorical: truncate toward zero, saturating (NaN handled first)
       const int iv = isnan(v) ? -1 : __float2int_rz(v);
       left = false;
-      if (iv >= 0 && (iv >> 5) < __ldg(f.cat_n_words + idx)) {
-        const uint32_t w =
-            __ldg(f.cat_words + __ldg(f.cat_offset + idx) + (iv >> 5));
-        left = ((w >> (iv & 31)) & 1u) != 0;
+      if (iv >= 0 && (iv >> 5) < __ldg(cat_table + r.x)) {
+        left = ((__ldg(cat_table + r.x + 1 + (iv >> 5)) >> (iv & 31)) & 1) != 0;
       }
     } else {
-      const int missing_type = (dt >> 2) & 3;
+      const int missing_type = dt >> 2;
       const bool nan = isnan(v);
       if (nan && missing_type != kMissingNan) v = 0.0f;
-      const bool missing =
-          (missing_type == kMissingZero && fabsf(v) <= kZeroThreshold) ||
-          (missing_type == kMissingNan && nan);
-      left = missing ? ((dt & 2) != 0) : (v <= __ldg(f.threshold + idx));
+      const bool missing = (missing_type == kMissingZero && fabsf(v) <= kZeroThreshold) ||
+                           (missing_type == kMissingNan && nan);
+      left = missing ? ((dt & 2) != 0) : (v <= __int_as_float(r.x));
     }
-    node = left ? __ldg(f.left_child + idx) : __ldg(f.right_child + idx);
+    node = (left ? r.z : r.w) >> 2;
+    if (node < 0) break;
   }
   return ~node;
 }
 
-// Points x at this thread's row: the staged copy in shared memory, or the
-// row in global memory when a tile of F features would not fit.
-template <bool kStage>
-__device__ __forceinline__ const float* row_pointer(const float* __restrict__ X,
-                                                    long long n, int F,
-                                                    int stride, float* tile) {
+// grid (row tiles, tree splits); blockDim.x rows a block, one a thread. The
+// block walks its trees [p0, p1) of the walk order: class-major for kRaw
+// (q -> tree (q % per_class) * C + q / per_class), ascending otherwise.
+template <int kMode, bool kStageX, bool kStageTrees>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+predict_forest_kernel(const float* __restrict__ X, long long n, int F,
+                      Forest f, int trees_per_block, int tile_trees,
+                      float* __restrict__ out_raw, int* __restrict__ out_leaf,
+                      float* __restrict__ vals) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile_words = kStageTrees ? tile_trees * f.R : 0;
+  int* tree_buf = reinterpret_cast<int*>(smem);          // [2][tile_trees * R]
+  float* xtile = reinterpret_cast<float*>(smem) + 2 * tile_words;  // [F][blockDim.x]
   const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
-  if (!kStage) return X + (row0 + threadIdx.x) * F;
-  const long long left_in_x = n - row0;
-  const long long rows = left_in_x < blockDim.x ? left_in_x : blockDim.x;
-  const long long count = rows * F;
-  const float* src = X + row0 * F;
-  for (long long i = threadIdx.x; i < count; i += blockDim.x) {
-    tile[(i / F) * stride + (i % F)] = src[i];
+  const long long row = row0 + threadIdx.x;
+  const bool live = row < n;
+  const int p0 = blockIdx.y * trees_per_block;
+  const int p1 = min(f.T, p0 + trees_per_block);
+  const int per_class = f.T / f.C;
+  const int units = f.R / 4;  // 16-byte units a tree
+  auto tree_of = [&](int q) {
+    return kMode == kRaw ? (q % per_class) * f.C + q / per_class : q;
+  };
+  auto stage = [&](int tile) {
+    const int q0 = p0 + tile * tile_trees;
+    const int count = (min(p1, q0 + tile_trees) - q0) * units;
+    int4* dst = reinterpret_cast<int4*>(tree_buf + (tile & 1) * tile_words);
+    for (int u = threadIdx.x; u < count; u += blockDim.x) {
+      const int j = u / units;
+      cp_async16(dst + u, f.records + static_cast<long long>(tree_of(q0 + j)) * units +
+                              (u - j * units));
+    }
+    cp_async_commit();
+  };
+  const int n_tiles = kStageTrees ? (p1 - p0 + tile_trees - 1) / tile_trees : 1;
+  if (kStageTrees) stage(0);
+
+  // X's row tile feature-major: a warp's lanes (rows) read one word each
+  // of 32 consecutive words whatever features they split on, so the
+  // feature loads are free of bank conflicts
+  const float* x;
+  int xs;
+  if (kStageX) {
+    const long long left_in_x = n - row0;
+    const int rows = left_in_x < blockDim.x ? static_cast<int>(left_in_x) : blockDim.x;
+    const float* src = X + row0 * F;
+    for (int i = threadIdx.x; i < blockDim.x * F; i += blockDim.x) {
+      const int feat = i / blockDim.x, r = i - feat * blockDim.x;
+      if (r < rows) xtile[i] = __ldg(src + static_cast<long long>(r) * F + feat);
+    }
+    x = xtile + threadIdx.x;
+    xs = blockDim.x;
+  } else {
+    x = X + (live ? row : 0) * F;
+    xs = 1;
   }
   __syncthreads();
-  return tile + threadIdx.x * stride;
-}
 
-template <bool kStage>
-__global__ void __launch_bounds__(kRowsPerBlock)
-predict_forest_raw_kernel(const float* __restrict__ X, long long n, int F,
-                          int stride, Forest f, int C,
-                          float* __restrict__ out) {
-  extern __shared__ float tile[];
-  const float* x = row_pointer<kStage>(X, n, F, stride, tile);
-  const long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  for (int c = 0; c < C; ++c) {
-    float acc = 0.0f;
-    for (int t = c; t < f.T; t += C) {
-      acc += __ldg(f.leaf_value + static_cast<long long>(t) * f.L + leaf_of(f, t, x));
+  float acc = 0.0f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    int q0 = p0, q1 = p1;
+    const int* buf = nullptr;
+    if (kStageTrees) {
+      if (tile + 1 < n_tiles) stage(tile + 1); else cp_async_commit();
+      cp_async_wait_one();  // this thread's copies of tile `tile` have landed
+      __syncthreads();      // ... and everyone's
+      q0 = p0 + tile * tile_trees;
+      q1 = min(p1, q0 + tile_trees);
+      buf = tree_buf + (tile & 1) * tile_words;
     }
-    out[row * C + c] = acc;
+    if (live) {
+      for (int q = q0; q < q1; ++q) {
+        const int t = tree_of(q);
+        const int* blob = kStageTrees
+            ? buf + (q - q0) * f.R
+            : reinterpret_cast<const int*>(f.records) + static_cast<long long>(t) * f.R;
+        const int leaf = walk<!kStageTrees, !kStageX>(reinterpret_cast<const int4*>(blob),
+                                                      f.cat_table, x, xs, f.max_depth);
+        if (kMode == kLeaf) {
+          out_leaf[row * f.T + t] = leaf;
+        } else {
+          const float v = __int_as_float(load<!kStageTrees>(blob + 4 * f.I + leaf));
+          if (kMode == kRawSplit) {
+            vals[static_cast<long long>(t) * n + row] = v;
+          } else {
+            acc += v;
+            if ((q + 1) % per_class == 0) {
+              out_raw[row * f.C + q / per_class] = acc;
+              acc = 0.0f;
+            }
+          }
+        }
+      }
+    }
+    if (kStageTrees) __syncthreads();  // tile's buffer is free for tile + 2
   }
 }
 
-template <bool kStage>
-__global__ void __launch_bounds__(kRowsPerBlock)
-predict_forest_leaf_kernel(const float* __restrict__ X, long long n, int F,
-                           int stride, Forest f, int* __restrict__ out) {
-  extern __shared__ float tile[];
-  const float* x = row_pointer<kStage>(X, n, F, stride, tile);
-  const long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  for (int t = 0; t < f.T; ++t) out[row * f.T + t] = leaf_of(f, t, x);
+// out[row, c] = vals[c, row] + vals[c + C, row] + ... in ascending tree
+// order from 0. 32 rows a block. [kSumTrees, 32] tiles of vals go through
+// two shared-memory buffers with cp.async (tile i + 1 lands while tile i is
+// summed), and warp w sums classes w, w + kSumWarps, ... (kSumClasses at a
+// time; more classes take further passes over vals). A row's sum is one
+// chain of dependent adds; its loads come from shared memory.
+__global__ void __launch_bounds__(kSumWarps * 32)
+predict_forest_sum_kernel(const float* __restrict__ vals, long long n, int T, int C,
+                          float* __restrict__ out) {
+  __shared__ float tile[2][kSumTrees][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row0 = static_cast<long long>(blockIdx.x) * 32;
+  const long long row = row0 + lane;
+  const int n_tiles = (T + kSumTrees - 1) / kSumTrees;
+  auto stage = [&](int i) {
+    const int t0 = i * kSumTrees;
+    for (int e = threadIdx.x; e < kSumTrees * 32; e += blockDim.x) {
+      const int tt = e >> 5, r = e & 31;
+      if (t0 + tt < T && row0 + r < n) {
+        cp_async4(&tile[i & 1][tt][r], vals + static_cast<long long>(t0 + tt) * n + row0 + r);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int cg = 0; cg < C; cg += kSumWarps * kSumClasses) {
+    float acc[kSumClasses];
+#pragma unroll
+    for (int j = 0; j < kSumClasses; ++j) acc[j] = 0.0f;
+    stage(0);
+    for (int i = 0; i < n_tiles; ++i) {
+      if (i + 1 < n_tiles) stage(i + 1); else cp_async_commit();
+      cp_async_wait_one();
+      __syncthreads();
+      const int t0 = i * kSumTrees;
+      const int t1 = min(T, t0 + kSumTrees);
+#pragma unroll
+      for (int j = 0; j < kSumClasses; ++j) {
+        const int c = cg + warp + j * kSumWarps;
+        if (c < C) {
+          // the first tree of class c at or after t0
+          int t = t0 + ((c - t0 % C) + C) % C;
+#pragma unroll 8
+          for (; t < t1; t += C) acc[j] += tile[i & 1][t - t0][lane];
+        }
+      }
+      __syncthreads();  // tile i's buffer is free for tile i + 2
+    }
+    if (row < n) {
+#pragma unroll
+      for (int j = 0; j < kSumClasses; ++j) {
+        const int c = cg + warp + j * kSumWarps;
+        if (c < C) out[row * C + c] = acc[j];
+      }
+    }
+  }
 }
 
-struct Launch {
-  unsigned blocks;
-  int stride;
-  size_t smem;
-  bool stage;
-};
-
-Launch plan(long long n, int F) {
-  Launch l;
-  l.blocks = static_cast<unsigned>((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  l.stride = F | 1;  // odd row stride: conflict-free same-feature reads
-  l.smem = static_cast<size_t>(kRowsPerBlock) * l.stride * sizeof(float);
-  l.stage = l.smem <= static_cast<size_t>(kMaxStagedBytes);
-  if (!l.stage) l.smem = 0;
-  return l;
+template <int kMode, bool kStageX, bool kStageTrees>
+cudaError_t launch_walk(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                        const float* X, long long n, int F, const Forest& f,
+                        int trees_per_block, int tile_trees, float* out_raw, int* out_leaf,
+                        float* vals) {
+  auto kernel = predict_forest_kernel<kMode, kStageX, kStageTrees>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(X, n, F, f, trees_per_block, tile_trees, out_raw,
+                                          out_leaf, vals);
+  return cudaGetLastError();
 }
 
-Forest make_forest(const int* sf, const float* th, const int* dt,
-                   const int* lc, const int* rc, const float* lv,
-                   const uint32_t* cw, const int* co, const int* cn,
-                   const int* nl, int T, int I, int L, int max_depth) {
-  return Forest{sf, th, dt, lc, rc, lv, cw, co, cn, nl, T, I, L, max_depth};
+template <int kMode>
+cudaError_t dispatch(bool stage_x, bool stage_trees, dim3 grid, int threads, size_t smem,
+                     cudaStream_t stream, const float* X, long long n, int F,
+                     const Forest& f, int trees_per_block, int tile_trees, float* out_raw,
+                     int* out_leaf, float* vals) {
+  if (stage_x && stage_trees)
+    return launch_walk<kMode, true, true>(grid, threads, smem, stream, X, n, F, f,
+                                          trees_per_block, tile_trees, out_raw, out_leaf, vals);
+  if (stage_x)
+    return launch_walk<kMode, true, false>(grid, threads, smem, stream, X, n, F, f,
+                                           trees_per_block, tile_trees, out_raw, out_leaf, vals);
+  if (stage_trees)
+    return launch_walk<kMode, false, true>(grid, threads, smem, stream, X, n, F, f,
+                                           trees_per_block, tile_trees, out_raw, out_leaf, vals);
+  return launch_walk<kMode, false, false>(grid, threads, smem, stream, X, n, F, f,
+                                          trees_per_block, tile_trees, out_raw, out_leaf, vals);
 }
 
 }  // namespace
 
-extern "C" int lgbt_predict_forest_raw(
-    const float* X, long long n, int F, const int* sf, const float* th,
-    const int* dt, const int* lc, const int* rc, const float* lv,
-    const uint32_t* cw, const int* co, const int* cn, const int* nl, int T,
-    int I, int L, int max_depth, int C, float* out, cudaStream_t stream) {
-  const Forest f = make_forest(sf, th, dt, lc, rc, lv, cw, co, cn, nl, T, I, L,
-                               max_depth);
-  const Launch l = plan(n, F);
-  if (l.stage) {
-    predict_forest_raw_kernel<true><<<l.blocks, kRowsPerBlock, l.smem, stream>>>(
-        X, n, F, l.stride, f, C, out);
-  } else {
-    predict_forest_raw_kernel<false><<<l.blocks, kRowsPerBlock, 0, stream>>>(
-        X, n, F, l.stride, f, C, out);
+// One traversal. mode 0: raw scores [n, C] into out (every block walks all
+// trees: trees_per_block == T); mode 1: raw scores through the [T, n]
+// scratch `vals` and the sum kernel; mode 2: leaf indices [n, T] into out.
+// records [T, R] int32 (R a multiple of 4, the first 4 * I words node
+// records), cat_table int32. rows_per_block threads a block (at most 512),
+// tile_trees trees a shared-memory tile when stage_trees, X's row tile
+// staged when stage_x. Returns cudaGetLastError() after the launches.
+extern "C" int lgbt_predict_forest(const float* X, long long n, int F, const int* records,
+                                   int R, int I, const int* cat_table, int T, int max_depth,
+                                   int C, int mode, int rows_per_block, int trees_per_block,
+                                   int tile_trees, int stage_x, int stage_trees, void* out,
+                                   float* vals, void* stream_ptr) {
+  if (n < 1 || T < 1 || C < 1 || T % C != 0 || R < 4 || R % 4 != 0 || I < 1 || 4 * I >= R ||
+      rows_per_block < 32 || rows_per_block > kMaxThreads || rows_per_block % 32 != 0 ||
+      trees_per_block < 1 || tile_trees < 1 || mode < 0 || mode > 2 ||
+      (mode == kRaw && trees_per_block < T) || (mode == kRawSplit && vals == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int lgbt_predict_forest_leaf(
-    const float* X, long long n, int F, const int* sf, const float* th,
-    const int* dt, const int* lc, const int* rc, const float* lv,
-    const uint32_t* cw, const int* co, const int* cn, const int* nl, int T,
-    int I, int L, int max_depth, int* out, cudaStream_t stream) {
-  const Forest f = make_forest(sf, th, dt, lc, rc, lv, cw, co, cn, nl, T, I, L,
-                               max_depth);
-  const Launch l = plan(n, F);
-  if (l.stage) {
-    predict_forest_leaf_kernel<true><<<l.blocks, kRowsPerBlock, l.smem, stream>>>(
-        X, n, F, l.stride, f, out);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const Forest f{reinterpret_cast<const int4*>(records), cat_table, T, R, I, C, max_depth};
+  const size_t smem = (stage_trees ? size_t(2) * tile_trees * R * 4 : 0) +
+                      (stage_x ? size_t(rows_per_block) * F * 4 : 0);
+  const dim3 grid(static_cast<unsigned>((n + rows_per_block - 1) / rows_per_block),
+                  static_cast<unsigned>((T + trees_per_block - 1) / trees_per_block));
+  cudaError_t err;
+  if (mode == kLeaf) {
+    err = dispatch<kLeaf>(stage_x, stage_trees, grid, rows_per_block, smem, stream, X, n, F,
+                          f, trees_per_block, tile_trees, nullptr,
+                          static_cast<int*>(out), nullptr);
+  } else if (mode == kRaw) {
+    err = dispatch<kRaw>(stage_x, stage_trees, grid, rows_per_block, smem, stream, X, n, F,
+                         f, trees_per_block, tile_trees, static_cast<float*>(out),
+                         nullptr, nullptr);
   } else {
-    predict_forest_leaf_kernel<false><<<l.blocks, kRowsPerBlock, 0, stream>>>(
-        X, n, F, l.stride, f, out);
+    err = dispatch<kRawSplit>(stage_x, stage_trees, grid, rows_per_block, smem, stream, X, n,
+                              F, f, trees_per_block, tile_trees, nullptr, nullptr,
+                              vals);
+    if (err == cudaSuccess) {
+      predict_forest_sum_kernel<<<static_cast<unsigned>((n + 31) / 32), kSumWarps * 32, 0,
+                                  stream>>>(vals, n, T, C, static_cast<float*>(out));
+      err = cudaGetLastError();
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

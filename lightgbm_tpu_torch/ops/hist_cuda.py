@@ -10,10 +10,13 @@ Dispatch is by the device of the bin plane alone: a CPU tensor takes the
 plain version (``ops/histogram.py``); a CUDA tensor launches the kernel, or
 raises. There is no fallback from one to the other.
 
-The float mode (float32 gh) sums in float32: it computes the TPU kernel's
-``f32=True`` path. The TPU's default bf16 operands are a matrix-unit rate
-trick, not part of the function. The integer mode (int8 gh) sums exactly
-in int32.
+The float mode (float32 gh) computes the TPU kernel's ``f32=True`` path;
+the TPU's default bf16 operands are a matrix-unit rate trick, not part of
+the function. `histogram` sums it in float32 in a fixed order;
+`histogram_ragged` sums its finite values exactly in 64-bit fixed point
+and rounds to float32 once (``ops/histogram.py:fixed_point_exponents``); a
+NaN or inf makes its own cell NaN or inf, as in a float sum. The integer
+modes sum exactly in int32.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from .cuda_build import CudaLibrary, require_cuda, stream_of
 from .histogram import (_acc_dtype, _build_histogram_plain, _build_histogram_rows_plain,
-                        _histogram_slots_ragged_plain)
+                        _histogram_slots_ragged_plain, fixed_point_exponents)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -33,8 +36,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.lgbt_histogram_f32, lib.lgbt_histogram_i32):
         fn.argtypes = args
         fn.restype = i32
-    ragged = [ptr, i64, i32, ptr, i64, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32,
-              ptr, ptr, ptr, ptr]
+    ragged = [ptr, i64, i32, ptr, i64, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+              ptr, ptr, ptr, ptr, ptr]
     for fn in (lib.lgbt_histogram_ragged_f32, lib.lgbt_histogram_ragged_i32):
         fn.argtypes = ragged
         fn.restype = i32
@@ -46,9 +49,15 @@ reset_launches = LIB.reset_launches
 
 WARPS = 8                      # csrc/histogram.cu kWarps
 MAX_RANGES = 1024              # csrc/histogram.cu kMaxRanges
+MAX_ROWS = (1 << 31) - 1       # rows the ragged kernel's int32 ranges address
 SMEM_BUDGET = 110 * 1024       # bytes of per-warp histograms a block may hold
 TARGET_BLOCKS = 4 * 132        # ~4 blocks per SM of the H100
 MIN_CHUNK_ROWS = 4 * WARPS * 32
+SMEM_PER_SM = 233_472          # shared memory of a Hopper SM
+SMEM_RESERVED = 1024           # ... of which the system takes this much a block
+RAGGED_PLAN_BYTES = 8 * (MAX_RANGES + 1 + 32)  # the ragged kernel's range scan
+RAGGED_THREADS = 512           # csrc/histogram.cu kRaggedThreads
+RAGGED_BLOCKS_PER_SM = 2       # ... and hist_ragged_kernel's launch bounds
 
 
 def launch_shape(n_pos: int, n_groups: int, num_bins: int, ch: int
@@ -117,29 +126,26 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
     return out
 
 
-def ragged_launch_shape(n_rows: int, n_groups: int, num_bins: int, ch: int,
-                        n_ranges: int, max_rows: int) -> Tuple[int, int, int]:
-    """(group_block, tile_rows, max_chunks) of the ragged histogram: the
-    group block and row chunk of `launch_shape` for the whole plane (so a
-    range over every row fills the card), and a grid that holds the chunks
-    of ranges with at most max_rows rows in all (a range touches at most
-    len / tile_rows + 2 tiles)."""
-    group_block, tile_rows, _ = launch_shape(n_rows, n_groups, num_bins, ch)
-    return group_block, tile_rows, -(-max_rows // tile_rows) + 2 * n_ranges
+def ragged_launch_shape(n_groups: int, num_bins: int, ch: int, quantized: bool,
+                        n_sms: int) -> Tuple[int, int]:
+    """(group_block, blocks) of the ragged histogram: RAGGED_BLOCKS_PER_SM
+    persistent blocks an SM, the groups split evenly over as few group
+    blocks as let each block's histogram (a bin is CH words in the integer
+    mode, 2 CH in the fixed-point float mode, padded to an odd count:
+    csrc/histogram.cu bin_words) and range scan fit beside the SM's other
+    block; blocks a group block such that all of them are resident at once."""
+    bin_bytes = 4 * ((ch * (1 if quantized else 2)) | 1)
+    budget = SMEM_PER_SM // RAGGED_BLOCKS_PER_SM - SMEM_RESERVED - RAGGED_PLAN_BYTES
+    fit = max(1, min(n_groups, budget // (num_bins * bin_bytes)))
+    n_gblocks = -(-n_groups // fit)
+    group_block = -(-n_groups // n_gblocks)
+    return group_block, max(1, n_sms * RAGGED_BLOCKS_PER_SM // n_gblocks)
 
 
-def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
-                     starts: torch.Tensor, ends: torch.Tensor, valid: torch.Tensor,
-                     num_bins: int, n_slots: int, quantized: bool = False,
-                     max_rows: Optional[int] = None) -> torch.Tensor:
-    """[G, num_bins, n_slots*CH] wave histogram (ops/histogram.py:
-    histogram_slots_ragged). max_rows bounds the ranges' rows in all (N,
-    disjoint ranges, when None); the kernel's grid is sized from it. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
-    if bins.device.type == "cpu":
-        return _histogram_slots_ragged_plain(bins, gh, slot, starts, ends, valid,
-                                             num_bins, n_slots, quantized)
-    require_cuda(bins, "the ragged histogram")
+def _check_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                  starts: torch.Tensor, ends: torch.Tensor, valid: torch.Tensor,
+                  num_bins: int, n_slots: int, exponents: Optional[torch.Tensor]) -> None:
+    """Raise ValueError on what the ragged kernel does not take."""
     dev = bins.device
     if bins.dtype != torch.uint8 or bins.dim() != 2 or not bins.is_contiguous():
         raise ValueError(f"the ragged histogram takes a contiguous [G, N] uint8 bin "
@@ -148,6 +154,9 @@ def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
         raise ValueError(f"num_bins must be in [1, 256] for a uint8 plane, got "
                          f"{num_bins}")
     G, N = bins.shape
+    if N > MAX_ROWS:
+        raise ValueError(f"the ragged histogram addresses rows with int32 ranges: at "
+                         f"most {MAX_ROWS} rows, got {N}")
     if gh.dtype != torch.float32 or gh.dim() != 2 or gh.shape[0] != N \
             or not 1 <= gh.shape[1] <= 4 or gh.device != dev or gh.stride(1) != 1:
         raise ValueError(f"gh must be a float32 [N, 1..4] tensor on {dev} with unit "
@@ -165,20 +174,56 @@ def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
                              f"tensor on {dev}, got {t.dtype} {list(t.shape)} on "
                              f"{t.device}")
     CH = gh.shape[1]
+    if exponents is not None and (exponents.dtype != torch.int32 or exponents.device != dev
+                                  or tuple(exponents.shape) != (CH,)):
+        raise ValueError(f"exponents must be an int32 [{CH}] tensor on {dev}, got "
+                         f"{exponents.dtype} {list(exponents.shape)} on {exponents.device}")
+
+
+def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                     starts: torch.Tensor, ends: torch.Tensor, valid: torch.Tensor,
+                     num_bins: int, n_slots: int, quantized: bool = False,
+                     exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[G, num_bins, n_slots*CH] wave histogram (ops/histogram.py:
+    histogram_slots_ragged). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel.
+
+    The float mode's fixed-point exponents are `fixed_point_exponents(gh, N)`
+    unless the caller passes `exponents`, computed once for several calls.
+    The kernel trusts them: they must come from a g with N rows or more whose
+    largest finite |g| per channel is at least gh's (the gh of every call, or
+    a superset of its rows). Larger values overflow the int64 sums with no
+    error."""
+    if bins.device.type == "cpu":
+        return _histogram_slots_ragged_plain(bins, gh, slot, starts, ends, valid,
+                                             num_bins, n_slots, quantized)
+    require_cuda(bins, "the ragged histogram")
+    _check_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots, exponents)
+    dev = bins.device
+    G, N = bins.shape
+    CH = gh.shape[1]
     acc = torch.int32 if quantized else torch.float32
-    out = torch.empty((G, num_bins, n_slots * CH), dtype=acc, device=dev)
     if N == 0 or G == 0:
-        return out.zero_()
-    group_block, tile_rows, max_chunks = ragged_launch_shape(
-        N, G, num_bins, CH, n_slots, N if max_rows is None else max_rows)
-    plan = torch.empty(n_slots + 2, dtype=torch.int64, device=dev)
-    partial = torch.empty((max_chunks, G, num_bins, CH), dtype=acc, device=dev)
+        return torch.zeros((G, num_bins, n_slots * CH), dtype=acc, device=dev)
+    group_block, blocks = ragged_launch_shape(
+        G, num_bins, CH, quantized, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = LIB.load()
-    fn = lib.lgbt_histogram_ragged_i32 if quantized else lib.lgbt_histogram_ragged_f32
+    count = G * num_bins * n_slots * CH
+    if quantized:
+        out = torch.zeros((G, num_bins, n_slots * CH), dtype=torch.int32, device=dev)
+        image, flags, exps, fn = out, None, None, lib.lgbt_histogram_ragged_i32
+    else:
+        out = torch.empty((G, num_bins, n_slots * CH), dtype=torch.float32, device=dev)
+        # one zeroing for the int64 sums and the int32 flag words behind them
+        image = torch.zeros(count + (count + 1) // 2, dtype=torch.int64, device=dev)
+        flags = image[count:].view(torch.int32)
+        exps = exponents if exponents is not None else fixed_point_exponents(gh, N)
+        fn = lib.lgbt_histogram_ragged_f32
     with torch.cuda.device(dev):
         err = fn(bins.data_ptr(), N, G, gh.data_ptr(), gh.stride(0), CH, slot.data_ptr(),
                  starts.data_ptr(), ends.data_ptr(), valid.data_ptr(), n_slots, num_bins,
-                 group_block, tile_rows, max_chunks, plan.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), stream_of(bins))
+                 group_block, blocks, None if exps is None else exps.data_ptr(),
+                 image.data_ptr(), None if flags is None else flags.data_ptr(),
+                 out.data_ptr(), stream_of(bins))
     LIB.count("histogram_slots_ragged", err)
     return out

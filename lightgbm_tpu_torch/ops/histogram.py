@@ -23,7 +23,10 @@ row ranges, row n of range k adds its gh to channel block k of a
 [G, B, K*CH] histogram when slot[n] == k. `histogram_slots`
 (``pallas_histogram_slots``) is the same function over the whole row set.
 The TPU's row-tile table (``active_tile_table``) is not carried: the card's
-kernel cuts the ranges into row chunks itself.
+kernel splits the ranges' rows among its blocks itself. It sums the float
+mode exactly in 64-bit fixed point (`fixed_point_exponents`), so its bits
+are those of `_histogram_slots_ragged_fixed`, which lies within the float32
+summation bound of the plain version.
 """
 from __future__ import annotations
 
@@ -105,6 +108,22 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
     return histogram(bins, gh_ext, row_idx, num_bins)
 
 
+def _ragged_cells(bins: torch.Tensor, slot: torch.Tensor, starts: torch.Tensor,
+                  ends: torch.Tensor, valid: torch.Tensor, num_bins: int,
+                  n_slots: int):
+    """(rows, cell): the rows of the valid ranges [starts[k], ends[k]) whose
+    slot is k, in range order, then row order, and each one's [G, rows]
+    (bin, slot) cell; a bin past num_bins lands in a dropped cell."""
+    dev = bins.device
+    kept = [torch.arange(s, e, device=dev)[slot[s:e] == k]
+            for k, (s, e, ok) in enumerate(zip(starts.tolist(), ends.tolist(), valid.tolist()))
+            if ok and e > s]
+    rows = torch.cat(kept) if kept else torch.zeros(0, dtype=torch.int64, device=dev)
+    cell = (torch.clamp(bins[:, rows].to(torch.int64), max=num_bins) * n_slots
+            + slot[rows].to(torch.int64))
+    return rows, cell
+
+
 def _histogram_slots_ragged_plain(bins: torch.Tensor, gh: torch.Tensor,
                                   slot: torch.Tensor, starts: torch.Tensor,
                                   ends: torch.Tensor, valid: torch.Tensor,
@@ -118,23 +137,65 @@ def _histogram_slots_ragged_plain(bins: torch.Tensor, gh: torch.Tensor,
     cell."""
     G = bins.shape[0]
     CH = gh.shape[1]
-    dev = bins.device
     acc = torch.int32 if quantized else torch.float32
-    kept = []
-    for k, (s, e, ok) in enumerate(zip(starts.tolist(), ends.tolist(), valid.tolist())):
-        if ok and e > s:
-            kept.append(torch.arange(s, e, device=dev)[slot[s:e] == k])
-    rows = torch.cat(kept) if kept else torch.zeros(0, dtype=torch.int64, device=dev)
-    cell = (torch.clamp(bins[:, rows].to(torch.int64), max=num_bins) * n_slots
-            + slot[rows].to(torch.int64))
+    rows, cell = _ragged_cells(bins, slot, starts, ends, valid, num_bins, n_slots)
     hist = _histogram_plain(cell, gh[rows].to(acc), (num_bins + 1) * n_slots, acc)
     return hist.reshape(G, num_bins + 1, n_slots * CH)[:, :num_bins].contiguous()
+
+
+FIXED_POINT_BITS = 62         # a fixed-point bin sum stays within 2**62 in magnitude
+
+
+def fixed_point_exponents(gh: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """[CH] int32 exponents e_c of the CUDA ragged histogram's float mode,
+    computed on gh's device with no copy to the host: channel c's finite
+    values are rounded to multiples of 2**-e_c and summed exactly in int64
+    (NaN and inf stay out of the sum and make their own cells NaN or inf).
+
+    With m_c = the largest finite |gh[:, c]| = f * 2**x_c (f in [0.5, 1), so
+    m_c <= 2**x_c) and n_rows <= 2**q, e_c = 62 - q - x_c: a bin sums at
+    most n_rows values, so its sum is at most 2**62 in magnitude, plus
+    n_rows / 2 of rounding — below 2**63 for any n_rows < 2**62. At
+    n_rows = 2**20 and m_c <= 1 the resolution is 2**-42."""
+    m = gh.abs().nan_to_num_(nan=0.0, posinf=0.0).amax(dim=0)
+    _, x = torch.frexp(m)  # x = 0 for m == 0: any exponent sums zeros exactly
+    q = max(int(n_rows) - 1, 0).bit_length()
+    return (FIXED_POINT_BITS - q - x.to(torch.int64)).to(torch.int32)
+
+
+def _histogram_slots_ragged_fixed(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                                  starts: torch.Tensor, ends: torch.Tensor,
+                                  valid: torch.Tensor, num_bins: int, n_slots: int,
+                                  exponents: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's float-mode arithmetic, written plainly: each kept
+    row's finite gh rounded (to nearest even) to a multiple of 2**-e_c as
+    int64, summed exactly per (bin, slot) cell, then int64 -> float64 ->
+    times 2**-e_c -> float32, each conversion rounding to nearest even; the
+    cell's NaN and inf values, summed apart in float32 (NaN, +inf, -inf or
+    0), are added last, so a cell holding one comes out as a float sum
+    would. The kernel gives these bits in any summation order; the tests and
+    chip_smoke.py hold it to them, and this to
+    `_histogram_slots_ragged_plain`'s float32 summation bound."""
+    G = bins.shape[0]
+    CH = gh.shape[1]
+    rows, cell = _ragged_cells(bins, slot, starts, ends, valid, num_bins, n_slots)
+    g = gh[rows]
+    finite = torch.isfinite(g)
+    e = exponents.to(device=bins.device, dtype=torch.float64)
+    fixed = torch.round(torch.where(finite, g, 0.0).to(torch.float64)
+                        * torch.pow(2.0, e)).to(torch.int64)
+    n_cells = (num_bins + 1) * n_slots
+    hist = _histogram_plain(cell, fixed, n_cells, torch.int64)
+    out = (hist.to(torch.float64) * torch.pow(2.0, -e)).to(torch.float32)
+    out = out + _histogram_plain(cell, torch.where(finite, 0.0, g), n_cells, torch.float32)
+    return out.reshape(G, num_bins + 1, n_slots * CH)[:, :num_bins].contiguous()
 
 
 def histogram_slots_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
                            starts: torch.Tensor, ends: torch.Tensor,
                            valid: torch.Tensor, num_bins: int, n_slots: int,
-                           quantized: bool = False) -> torch.Tensor:
+                           quantized: bool = False,
+                           exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The wave histogram.
 
     bins:   [G, N] uint8 bin plane (leaf-contiguous rows)
@@ -144,12 +205,17 @@ def histogram_slots_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Ten
     slot:   [N] int32; a row of range k adds only when slot[n] == k
     starts, ends: [n_slots] int32 half-open row ranges, disjoint
     valid:  [n_slots] bool
+    exponents: the CUDA kernel's fixed-point exponents of gh
+            (`fixed_point_exponents(gh, N)`), when the caller computes them
+            once for several calls over the same gh, or over row subsets of
+            one gh; the kernel trusts them (`hist_cuda.histogram_ragged`);
+            ignored on the CPU
     Returns [G, num_bins, n_slots*CH] float32 (int32 when quantized).
     """
     from .hist_cuda import histogram_ragged
 
     return histogram_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots,
-                            quantized)
+                            quantized, exponents=exponents)
 
 
 def histogram_slots(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
@@ -166,7 +232,7 @@ def histogram_slots(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     from .hist_cuda import histogram_ragged
 
     return histogram_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots,
-                            quantized, max_rows=n_slots * N)
+                            quantized)
 
 
 def subtract_histogram(parent: torch.Tensor, sibling: torch.Tensor) -> torch.Tensor:

@@ -36,10 +36,12 @@ from ..models.tree import Tree
 from ..utils.log import Log
 from ..utils.timer import global_timer
 
-# the ten tables, in the order the kernel takes them
+# the ten tables of the struct-of-arrays pack (the JAX package's field order)
 TABLES = ("split_feature", "threshold", "decision_type", "left_child",
           "right_child", "leaf_value", "cat_words", "cat_offset",
           "cat_n_words", "num_leaves")
+RECORD_WORDS = 4            # int32 words of one packed node record (16 bytes)
+MAX_CHILD = 1 << 29         # a child id (or ~leaf) fits the record's 30 bits
 
 
 @dataclass
@@ -49,7 +51,9 @@ class PackedEnsemble:
     Shapes: T = number of trees, I = max internal nodes, L = max leaves,
     W = total categorical bitset words (>= 1). `cat_words` holds the
     uint32 bitset words as int32 bit patterns (bit b of a word is the same
-    bit either way).
+    bit either way). `records` and `cat_table` are the same forest in the
+    CUDA kernel's packed node records (`forest_records`); the ten tables
+    serve the plain version.
     """
 
     split_feature: torch.Tensor  # [T, I] int32
@@ -62,6 +66,8 @@ class PackedEnsemble:
     cat_offset: torch.Tensor  # [T, I] int32 word offset for categorical nodes
     cat_n_words: torch.Tensor  # [T, I] int32
     num_leaves: torch.Tensor  # [T] int32
+    records: torch.Tensor  # [T, R] int32: the CUDA kernel's tree blobs (forest_records)
+    cat_table: torch.Tensor  # [W2] int32: bitsets behind the records' categorical nodes
     max_depth: int
     num_trees: int
     num_features: int  # columns an input needs: one past the largest split feature
@@ -72,6 +78,60 @@ class PackedEnsemble:
 
     def tables(self) -> tuple:
         return tuple(getattr(self, name) for name in TABLES)
+
+
+def forest_records(arrays: Mapping[str, np.ndarray]):
+    """The CUDA kernel's form of the ten tables: (records [T, R] int32,
+    cat_table [W2] int32), built once with the pack.
+
+    Each tree is one 16-byte aligned blob of R = 4 * I + L4 words: I node
+    records of four words, then its L leaf values (float32 bits) padded to
+    L4, a multiple of four. A node record holds, in one aligned 16-byte
+    load, what the SoA tables spread over five:
+
+      word 0  the float32 threshold's bits; for a categorical node the
+              index in cat_table of [n_words, word 0, word 1, ...]
+      word 1  the split feature
+      word 2  left child  << 2 | decision_type bits 0-1 (categorical, default left)
+      word 3  right child << 2 | decision_type bits 2-3 (missing type)
+
+    A child is a node id, or ~leaf for a leaf, in 30 signed bits (an
+    arithmetic shift by 2 recovers it). A single-leaf tree's root sends
+    both ways to leaf 0."""
+    sf = np.asarray(arrays["split_feature"]).astype(np.int32)
+    T, I = sf.shape
+    dt = np.asarray(arrays["decision_type"]).astype(np.int32)
+    lc = np.asarray(arrays["left_child"]).astype(np.int32)
+    rc = np.asarray(arrays["right_child"]).astype(np.int32)
+    nl = np.asarray(arrays["num_leaves"]).astype(np.int32)
+    for child in (lc, rc):
+        if child.size and (child.min() < -MAX_CHILD or child.max() >= MAX_CHILD):
+            Log.fatal("A tree has more than %d nodes: too many for the packed "
+                      "node record", MAX_CHILD)
+    nodes = np.empty((T, I, RECORD_WORDS), dtype=np.int32)
+    nodes[..., 0] = np.ascontiguousarray(arrays["threshold"], dtype=np.float32).view(np.int32)
+    nodes[..., 1] = sf
+    nodes[..., 2] = (lc << 2) | (dt & 3)
+    nodes[..., 3] = (rc << 2) | ((dt >> 2) & 3)
+    words = np.ascontiguousarray(arrays["cat_words"], dtype=np.uint32).view(np.int32)
+    co = np.asarray(arrays["cat_offset"]).astype(np.int64)
+    cn = np.asarray(arrays["cat_n_words"]).astype(np.int64)
+    cat_t, cat_j = np.nonzero((dt & 1) != 0)
+    table = [np.zeros(1, dtype=np.int32)]  # entry 0: no words (never referenced)
+    at = 1
+    for t, j in zip(cat_t, cat_j):
+        n = int(cn[t, j])
+        table.append(np.concatenate([[n], words[co[t, j]:co[t, j] + n]]).astype(np.int32))
+        nodes[t, j, 0] = at
+        at += 1 + n
+    nodes[nl <= 1, 0] = (0, 0, ~0 << 2, ~0 << 2)
+    lv = np.ascontiguousarray(arrays["leaf_value"], dtype=np.float32)
+    L4 = -(-lv.shape[1] // 4) * 4
+    leaves = np.zeros((T, L4), dtype=np.float32)
+    leaves[:, :lv.shape[1]] = lv
+    records = np.concatenate([nodes.reshape(T, RECORD_WORDS * I), leaves.view(np.int32)],
+                             axis=1)
+    return records, np.concatenate(table)
 
 
 def pack_ensemble(trees: Sequence[Tree], device: Union[str, torch.device] = "cpu",
@@ -146,18 +206,22 @@ def packed_from_numpy(arrays: Union[Mapping[str, np.ndarray], Sequence[np.ndarra
     float tables float32, and the uint32 bitset words keep their bits."""
     if not isinstance(arrays, Mapping):
         arrays = dict(zip(TABLES, arrays))
+    for name in ("threshold", "leaf_value"):
+        if np.asarray(arrays[name]).dtype != np.float32:
+            Log.fatal("table %s must be float32 (got %s); pack_ensemble "
+                      "rounds float64 thresholds toward -inf", name,
+                      np.asarray(arrays[name]).dtype)
     out = {}
     for name in TABLES:
         a = np.asarray(arrays[name])
         if name == "cat_words":
             a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
-        elif name in ("threshold", "leaf_value"):
-            if a.dtype != np.float32:
-                Log.fatal("table %s must be float32 (got %s); pack_ensemble "
-                          "rounds float64 thresholds toward -inf", name, a.dtype)
-        else:
+        elif name not in ("threshold", "leaf_value"):
             a = a.astype(np.int32)
         out[name] = torch.from_numpy(np.array(a, order="C")).to(device)  # a copy
+    records, cat_table = forest_records(arrays)
+    out["records"] = torch.from_numpy(records).to(device)
+    out["cat_table"] = torch.from_numpy(cat_table).to(device)
     sf = np.asarray(arrays["split_feature"])
     return PackedEnsemble(**out, max_depth=int(max_depth), num_trees=int(num_trees),
                           num_features=int(sf.max()) + 1 if num_trees else 0)
@@ -246,6 +310,44 @@ def _traverse_leaves(packed: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
     # single-leaf (constant) trees sit at leaf 0
     return torch.where(packed.num_leaves[None, :] <= 1,
                        torch.zeros_like(node), ~node)
+
+
+def _traverse_records(packed: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
+    """[N, T] int32 leaf indices from the packed node records, the walk of
+    the CUDA kernel written level-synchronously: one record gather a level
+    in place of five table gathers. The tests hold it equal to
+    `_traverse_leaves`."""
+    n = X.shape[0]
+    T, I = packed.split_feature.shape
+    nodes = packed.records[:, :RECORD_WORDS * I].reshape(T * I, RECORD_WORDS)
+    table = packed.cat_table
+    tree_base = torch.arange(T, dtype=torch.int64, device=X.device)[None, :] * I
+    node = torch.zeros((n, T), dtype=torch.int32, device=X.device)
+    zero = _ZERO_THRESHOLD.to(X.device)
+    for _ in range(packed.max_depth):
+        rec = nodes[tree_base + node.clamp(min=0).to(torch.int64)]  # [N, T, 4]
+        word0, feat, left, right = rec.unbind(-1)
+        dt = (left & 3) | ((right & 3) << 2)
+        fval = torch.gather(X, 1, feat.to(torch.int64))
+        is_nan = torch.isnan(fval)
+        missing_type = (dt >> 2) & 3
+        fnum = torch.where(is_nan & (missing_type != MISSING_NAN), torch.zeros_like(fval),
+                           fval)
+        missing = ((missing_type == MISSING_ZERO) & (fnum.abs() <= zero)) | (
+            (missing_type == MISSING_NAN) & torch.isnan(fnum))
+        go_num = torch.where(missing, (dt & 2) > 0, fnum <= word0.view(torch.float32))
+        iv = torch.where(is_nan, torch.full_like(feat, -1),
+                         fval.clamp(-2147483648.0, _INT32_MAX_F32).to(torch.int32))
+        is_cat = (dt & 1) > 0
+        base = torch.where(is_cat, word0, 0).to(torch.int64)
+        widx = iv.clamp(min=0).to(torch.int64) >> 5
+        in_range = is_cat & (iv >= 0) & (widx < table[base])
+        word = table[torch.where(in_range, base + 1 + widx, 0)]
+        go_cat = in_range & (((word >> (iv.clamp(min=0) & 31)) & 1) > 0)
+        go_left = torch.where(is_cat, go_cat, go_num)
+        nxt = torch.where(go_left, left >> 2, right >> 2)
+        node = torch.where(node >= 0, nxt, node)
+    return ~node
 
 
 def _leaf_scores(packed: PackedEnsemble, leaf: torch.Tensor) -> torch.Tensor:

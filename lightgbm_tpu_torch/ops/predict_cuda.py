@@ -9,27 +9,29 @@ Dispatch is by the device of the input alone: a tensor on the CPU takes the
 plain PyTorch version in ``ops/predict.py``; a CUDA tensor launches the
 kernel, or raises. There is no fallback from one to the other.
 
-Each wrapper counts its launches in `launches`, so a run can show that its
-predictions went through the kernel.
+`forest_plan` picks a launch from N and T: every block walking all trees
+for large batches, or the trees split across blocks (and a second, summing
+kernel for raw scores) for serving batches. Each wrapper counts its
+launches in `launches`, so a run can show that its predictions went
+through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from .cuda_build import CudaLibrary, require_cuda, stream_of
-from .predict import TABLES, PackedEnsemble, _predict_raw_fused, _traverse_leaves
+from .predict import PackedEnsemble, _predict_raw_fused, _traverse_leaves
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    head = [ptr, i64, i32] + [ptr] * 10 + [i32] * 4
-    lib.lgbt_predict_forest_raw.argtypes = head + [i32, ptr, ptr]
-    lib.lgbt_predict_forest_leaf.argtypes = head + [ptr, ptr]
-    lib.lgbt_predict_forest_raw.restype = i32
-    lib.lgbt_predict_forest_leaf.restype = i32
+    lib.lgbt_predict_forest.argtypes = ([ptr, i64, i32, ptr, i32, i32, ptr]
+                                        + [i32] * 9 + [ptr, ptr, ptr])
+    lib.lgbt_predict_forest.restype = i32
 
 
 LIB = CudaLibrary("predict_forest.cu", ("predict_forest_raw", "predict_forest_leaf"),
@@ -39,6 +41,48 @@ launches = LIB.launches
 reset_launches = LIB.reset_launches
 build = LIB.build
 
+MAX_THREADS = 512              # csrc/predict_forest.cu kMaxThreads
+TARGET_BLOCKS = 4 * 132        # ~4 blocks per SM of the H100
+SPLIT_MAX_ROWS = 32_768        # below: the small-batch plan (trees split across blocks)
+SPLIT_MAX_PAIRS = 1 << 24      # ... while its [T, N] float32 scratch stays <= 64 MB
+TREE_BUDGET = 48 * 1024        # shared bytes for the two tree-tile buffers
+X_BUDGET = 64 * 1024           # shared bytes for the row tile of X
+MAX_TILE_TREES = 16
+MODES = {"raw": 0, "raw_split": 1, "leaf": 2}
+
+
+@dataclass(frozen=True)
+class ForestPlan:
+    """One launch's shape (csrc/predict_forest.cu lgbt_predict_forest)."""
+
+    split: bool            # trees split across blocks (grid.y > 1 possible)
+    rows_per_block: int    # threads a block, one row each
+    trees_per_block: int
+    tile_trees: int        # trees a shared-memory tile
+    stage_x: bool          # X's row tile in shared memory
+    stage_trees: bool      # tree tiles in shared memory (else read from global)
+
+
+def forest_plan(n: int, T: int, n_features: int, record_words: int) -> ForestPlan:
+    """The launch of a traversal of n rows through T trees. Which plan (trees
+    split across blocks for small n, or every block walking all trees)
+    depends on n and T alone; F and the tree size decide only what is
+    staged in shared memory."""
+    split = n < SPLIT_MAX_ROWS and n * T <= SPLIT_MAX_PAIRS
+    if split:
+        rows = min(256, -(-n // 32) * 32)
+        row_blocks = -(-n // rows)
+        splits = max(1, min(T, -(-TARGET_BLOCKS // row_blocks)))
+        trees_per_block = -(-T // splits)
+    else:
+        rows = next((r for r in (MAX_THREADS, 256) if -(-n // r) >= TARGET_BLOCKS // 2), 128)
+        trees_per_block = T
+    tree_bytes = record_words * 4
+    stage_trees = 2 * tree_bytes <= TREE_BUDGET
+    tile = max(1, min(MAX_TILE_TREES, trees_per_block, TREE_BUDGET // (2 * tree_bytes)))
+    stage_x = rows * n_features * 4 <= X_BUDGET
+    return ForestPlan(split, rows, trees_per_block, tile, stage_x, stage_trees)
+
 
 def _check(packed: PackedEnsemble, X: torch.Tensor) -> None:
     if X.dim() != 2 or X.dtype != torch.float32 or not X.is_contiguous():
@@ -47,21 +91,40 @@ def _check(packed: PackedEnsemble, X: torch.Tensor) -> None:
     if X.shape[1] < packed.num_features:
         raise ValueError(f"X has {X.shape[1]} columns; the model splits on "
                          f"feature {packed.num_features - 1}")
-    want = {"threshold": torch.float32, "leaf_value": torch.float32}
-    for name, t in zip(TABLES, packed.tables()):
-        if t.device != X.device or t.dtype != want.get(name, torch.int32) \
-                or not t.is_contiguous():
-            raise ValueError(f"packed table {name} must be a contiguous "
-                             f"{want.get(name, torch.int32)} tensor on "
-                             f"{X.device}, got {t.dtype} on {t.device}")
-
-
-def _args(packed: PackedEnsemble, X: torch.Tensor) -> list:
+    if X.shape[1] == 0:
+        raise ValueError("X has no columns: a packed node record reads a feature "
+                         "even where the tree is a single leaf")
+    for name in ("records", "cat_table", "leaf_value"):
+        t = getattr(packed, name)
+        want = torch.float32 if name == "leaf_value" else torch.int32
+        if t.device != X.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"packed table {name} must be a contiguous {want} tensor "
+                             f"on {X.device}, got {t.dtype} on {t.device}")
     T, I = packed.split_feature.shape
-    L = packed.leaf_value.shape[1]
-    return ([X.data_ptr(), X.shape[0], X.shape[1]]
-            + [t.data_ptr() for t in packed.tables()]
-            + [T, I, L, packed.max_depth])
+    if packed.records.dim() != 2 or packed.records.shape[0] != T \
+            or packed.records.shape[1] % 4 or packed.records.shape[1] <= 4 * I:
+        raise ValueError(f"packed records must be [T={T}, R] with R a multiple of 4 "
+                         f"past the {4 * I} node words, got "
+                         f"{list(packed.records.shape)}")
+
+
+def _launch(packed: PackedEnsemble, X: torch.Tensor, C: int, mode: str,
+            out: torch.Tensor) -> int:
+    n, F = X.shape
+    T, I = packed.split_feature.shape
+    R = packed.records.shape[1]
+    plan = forest_plan(n, T, F, R)
+    if mode == "raw" and plan.split:
+        mode = "raw_split"
+    vals = (torch.empty((T, n), dtype=torch.float32, device=X.device)
+            if mode == "raw_split" else None)
+    lib = LIB.load()
+    with torch.cuda.device(X.device):
+        return lib.lgbt_predict_forest(
+            X.data_ptr(), n, F, packed.records.data_ptr(), R, I, packed.cat_table.data_ptr(),
+            T, packed.max_depth, C, MODES[mode], plan.rows_per_block, plan.trees_per_block,
+            plan.tile_trees, int(plan.stage_x), int(plan.stage_trees), out.data_ptr(),
+            None if vals is None else vals.data_ptr(), stream_of(X))
 
 
 def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: int,
@@ -75,7 +138,9 @@ def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: 
         return res if out is None else out.copy_(res)
     require_cuda(X, "the forest traversal")
     _check(packed, X)
-    n = X.shape[0]
+    n, T = X.shape[0], packed.split_feature.shape[0]
+    if C < 1 or T % C:
+        raise ValueError(f"{T} packed trees do not group into {C} classes")
     if out is None:
         out = torch.empty((n, C), dtype=torch.float32, device=X.device)
     elif out.shape != (n, C) or out.dtype != torch.float32 \
@@ -84,10 +149,7 @@ def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: 
                          f"on {X.device}")
     if n == 0:
         return out
-    lib = LIB.load()
-    with torch.cuda.device(X.device):
-        err = lib.lgbt_predict_forest_raw(*_args(packed, X), C, out.data_ptr(),
-                                          stream_of(X))
+    err = _launch(packed, X, C, "raw", out)
     LIB.count("predict_forest_raw", err)
     return out
 
@@ -103,9 +165,6 @@ def forest_leaf_indices(packed: PackedEnsemble, X: torch.Tensor) -> torch.Tensor
     out = torch.empty((n, T), dtype=torch.int32, device=X.device)
     if n == 0:
         return out
-    lib = LIB.load()
-    with torch.cuda.device(X.device):
-        err = lib.lgbt_predict_forest_leaf(*_args(packed, X), out.data_ptr(),
-                                           stream_of(X))
+    err = _launch(packed, X, 1, "leaf", out)
     LIB.count("predict_forest_leaf", err)
     return out

@@ -71,7 +71,7 @@ import torch
 from ..common import MISSING_NAN, MISSING_ZERO
 from ..models.tree import Tree
 from ..ops.compact import compact_rows, range_partition_dst_by_range
-from ..ops.histogram import histogram_slots_ragged
+from ..ops.histogram import fixed_point_exponents, histogram_slots_ragged
 from ..ops.partition import bucket_size
 from ..ops.split import SPLIT_FIELDS, FeatureMeta, SplitInfo, find_best_split
 from ..utils.timer import global_timer
@@ -282,12 +282,16 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
     count = np.zeros(L + 1, dtype=np.int64)
     count[0] = n_in
 
-    # --- root: the ragged histogram over [0, n_in)
+    # --- root: the ragged histogram over [0, n_in); gh is fixed for the
+    # tree, so the kernel's fixed-point exponents are computed once, here,
+    # from the whole of gh: every call below reads a permutation of its rows
+    # (row_p's gh columns), as the kernel, which trusts them, requires
     with global_timer.scope("wave_histogram"):
+        exps = fixed_point_exponents(gh, N)
         root_hist = histogram_slots_ragged(
             bins_p, row_p[:, :CH], torch.where(pos < n_in, 0, 1).to(torch.int32),
             on_dev([0], torch.int32), on_dev([n_in], torch.int32),
-            on_dev([True], torch.bool), num_bins, 1)
+            on_dev([True], torch.bool), num_bins, 1, exponents=exps)
     hist_rows = n_in
     root_tot = root_hist[0].sum(dim=0)
     with global_timer.scope("wave_scan"):
@@ -351,7 +355,7 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
                     & (pos < torch.cat([se, none])[rng64]))
             slot = torch.where(in_s, rng, K).to(torch.int32)
             hist_s = histogram_slots_ragged(bins_p, row_p[:, :CH], slot, ss, se,
-                                            ok_d & (sc > 0), num_bins, K)
+                                            ok_d & (sc > 0), num_bins, K, exponents=exps)
             hist_s = hist_s.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3)
             pool_sel = pool[sel_d.to(torch.int64)]
             hist_l = torch.where(left_small[:, None, None, None], hist_s,

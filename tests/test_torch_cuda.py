@@ -1,10 +1,14 @@
-"""The CUDA forest-traversal kernel against its plain PyTorch version.
+"""The CUDA forest-traversal kernel against its plain PyTorch version, in
+both of its plans: every block walking all trees (large batches) and the
+trees split across blocks with a second summing pass (serving batches).
 
 Marked `gpu`: these need an NVIDIA card with nvcc, and skip elsewhere.
 Run them on the card with `python -m pytest -m gpu tests/test_torch_cuda.py`.
 Whether a card is present is decided inside the fixture, never at import,
 so every test worker collects the same tests.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +18,7 @@ from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
 from lightgbm_tpu_torch.ops import predict_cuda
 from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused, _traverse_leaves,
                                             pack_ensemble)
+from lightgbm_tpu_torch.ops.predict_cuda import forest_plan
 
 pytestmark = pytest.mark.gpu
 
@@ -89,3 +94,48 @@ def test_wrapper_rejects_bad_input(cuda):
     host_pack = pack_ensemble(model.trees)
     with pytest.raises(ValueError, match="packed table"):
         predict_cuda.forest_raw(host_pack, torch.zeros((8, 4), device=cuda), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_models():
+    """A 255-leaf binary model of 37 trees (not a multiple of any tree
+    tile), a multiclass-3 categorical one, and one whose 2047-leaf trees are
+    too large to stage in shared memory (read from global memory)."""
+    return [
+        ("higgs_like", random_model(np.random.RandomState(7), 28, 37, 255), (), 28),
+        ("multiclass_cat", random_model(
+            np.random.RandomState(8), 12, 9, 31, num_class=3, cat_features=(3, 7),
+            objective="multiclass num_class:3"), (3, 7), 12),
+        ("big_trees", random_model(np.random.RandomState(9), 10, 3, 2047,
+                                   sample_rows=16384), (), 10),
+    ]
+
+
+@pytest.mark.parametrize("n", [1, 64, 4096, 40000])
+@pytest.mark.parametrize("case", range(3))
+def test_kernel_bit_equal_at_batch_sizes(cuda, case, n):
+    """Serving sizes take the split plan, 40,000 rows the all-trees plan:
+    leaf indices equal and raw scores bit-equal to the plain version, and
+    two launches bit-equal."""
+    name, model, cats, F = _serving_models()[case]
+    C = model.num_tree_per_iteration
+    packed = pack_ensemble(model.trees, device=cuda)
+    plan = forest_plan(n, packed.num_trees, F, packed.records.shape[1])
+    assert plan.split == (n < 40000)
+    assert plan.stage_trees == (name != "big_trees")
+    X = torch.from_numpy(make_rows(np.random.RandomState(n + case), n, F, cats)).to(cuda)
+    raw = predict_cuda.forest_raw(packed, X, C)
+    again = predict_cuda.forest_raw(packed, X, C)
+    leaf = predict_cuda.forest_leaf_indices(packed, X)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, again), name
+    assert torch.equal(leaf, _traverse_leaves(packed, X)), name
+    assert torch.equal(raw, _predict_raw_fused(packed, X, C)), name
+
+
+def test_kernel_empty_batch(cuda):
+    model = random_model(np.random.RandomState(11), 6, 4, 7)
+    packed = pack_ensemble(model.trees, device=cuda)
+    X = torch.zeros((0, 6), dtype=torch.float32, device=cuda)
+    assert predict_cuda.forest_raw(packed, X, 1).shape == (0, 1)
+    assert predict_cuda.forest_leaf_indices(packed, X).shape == (0, 4)

@@ -250,6 +250,144 @@ def test_ragged_histogram_kernel_matches_plain(cuda, shape):
     assert hist_cuda.launches["histogram_slots_ragged"] == before + 6
 
 
+# (name, G, N, B, ranges, bins): every row in bin 0 (all adds on one cell a
+# group), empty and invalid ranges only (-1 marks invalid), and 1024 ranges
+RAGGED_EDGES = [
+    ("dominant_bin", 28, 200000, 255, [(0, 200000)], "zeros"),
+    ("dominant_wave", 6, 60000, 64, [(s, s + 1500) for s in range(0, 58000, 2800)], "zeros"),
+    ("empty_ranges", 4, 5000, 32, [(0, 0), (10, 10), (100, -3000), (4000, 4000)], "random"),
+    ("k1024", 3, 1024 * 70, 16, [(70 * k, 70 * k + (k % 7) * 9) for k in range(1024)],
+     "random"),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_EDGES, ids=[c[0] for c in RAGGED_EDGES])
+def test_ragged_histogram_edge_cases(cuda, case):
+    """Exact on snapped gradients and in the integer mode, bit-equal to the
+    plain fixed-point emulation on real gradients (and so within the
+    float32 summation bound), two launches bit-equal, and each range's
+    columns equal to those of a launch over that range alone."""
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_fixed,
+                                                  fixed_point_exponents)
+
+    name, G, N, B, ranges, kind = case
+    rng = np.random.RandomState(G * 7 + N)
+    bins = (np.zeros((G, N), np.uint8) if kind == "zeros"
+            else rng.randint(0, B, size=(G, N)).astype(np.uint8))
+    K = len(ranges)
+    starts = np.array([s for s, _ in ranges], np.int32)
+    ends = np.abs(np.array([e for _, e in ranges])).astype(np.int32)
+    valid = np.array([e >= 0 for _, e in ranges])
+    slot = np.full(N, K, np.int32)
+    for k in range(K):
+        slot[starts[k]:ends[k]] = k
+    gh = np.stack([rng.normal(size=N), rng.uniform(0, 0.5, N), np.ones(N)], 1)
+    t = torch.from_numpy
+    args_h = [t(slot), t(starts), t(ends), t(valid)]
+    args_d = [a.to(cuda) for a in args_h]
+    b_d = t(bins).to(cuda)
+    for mode in ("snapped", "real", "quantized"):
+        values = {"snapped": np.round(gh * 16) / 16, "real": gh,
+                  "quantized": np.round(gh * 40)}[mode]
+        g_h = t(values.astype(np.float32))
+        g_d = g_h.to(cuda)
+        q = mode == "quantized"
+        got = hist_cuda.histogram_ragged(b_d, g_d, *args_d, B, K, q)
+        again = hist_cuda.histogram_ragged(b_d, g_d, *args_d, B, K, q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), mode
+        ref = _histogram_slots_ragged_plain(t(bins), g_h, *args_h, B, K, q)
+        if mode == "real":
+            exps = fixed_point_exponents(g_h, N)
+            assert torch.equal(fixed_point_exponents(g_d, N).cpu(), exps)
+            assert torch.equal(got.cpu(), _histogram_slots_ragged_fixed(
+                t(bins), g_h, *args_h, B, K, exps))
+            absref = _histogram_slots_ragged_plain(t(bins), g_h.abs(), *args_h, B, K)
+            bound = N * 2.0 ** -24 * absref.double()
+            assert bool(((got.cpu().double() - ref.double()).abs() <= bound).all())
+        else:
+            assert torch.equal(got.cpu(), ref), mode
+        # a range's columns do not depend on the other ranges of the launch
+        k = int(np.argmax(ends - starts))
+        one = [a[k:k + 1].contiguous() for a in args_d[1:]]
+        slot_k = torch.where(args_d[0] == k, 0, 1).to(torch.int32)
+        alone = hist_cuda.histogram_ragged(b_d, g_d, slot_k, *one, B, 1, q)
+        assert torch.equal(alone, got[:, :, 3 * k:3 * k + 3]), mode
+
+
+def nonfinite_case(seed, n, G, B, ranges, snapped):
+    """(bins, gh, args): gh with NaN, +inf and -inf in a few rows of
+    range 0 only, one bin of group 0 holding both an +inf and a -inf of one
+    channel; args = [slot, starts, ends, valid] as CPU tensors."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, size=(G, n)).astype(np.uint8)
+    gh = np.stack([rng.normal(size=n), rng.uniform(0, 0.5, n), np.ones(n)], 1)
+    if snapped:
+        gh = np.round(gh * 16) / 16
+    gh = gh.astype(np.float32)
+    s0 = ranges[0][0]
+    bad = [(s0 + 1, 0, np.nan), (s0 + 2, 0, np.inf), (s0 + 3, 1, -np.inf),
+           (s0 + 4, 2, np.inf), (s0 + 5, 2, -np.inf), (s0 + 6, 1, np.nan)]
+    for r, c, v in bad:
+        gh[r, c] = v
+    bins[0, s0 + 5] = bins[0, s0 + 4]
+    K = len(ranges)
+    slot = np.full(n, K, np.int32)
+    for k, (s, e) in enumerate(ranges):
+        slot[s:e] = k
+    t = torch.from_numpy
+    args = [t(slot), t(np.array([s for s, _ in ranges], np.int32)),
+            t(np.array([e for _, e in ranges], np.int32)), torch.ones(K, dtype=torch.bool)]
+    return bins, gh, args
+
+
+def same_or_both_nan(a, b):
+    """Bit-equal, NaN matching NaN whatever its sign and payload."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.masked_fill(a.isnan(), 0), b.masked_fill(b.isnan(), 0)))
+
+
+@pytest.mark.parametrize("snapped", [True, False], ids=["snapped", "real"])
+def test_ragged_histogram_nonfinite_stays_in_its_bins(cuda, snapped):
+    """NaN, +inf and -inf in a few rows of one range: the kernel gives the
+    plain fixed-point emulation's bits (NaN for NaN), so each such value makes
+    only its own cells NaN or inf, as the plain version's float32 sum does
+    (equal to it on snapped gradients, within the summation bound elsewhere
+    otherwise); two launches bit-equal; the other range's columns equal a
+    launch over that range alone."""
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_fixed,
+                                                  fixed_point_exponents)
+
+    N, G, B = 60000, 5, 64
+    bins, gh, args_h = nonfinite_case(3, N, G, B, [(1000, 21000), (30000, 59000)], snapped)
+    t = torch.from_numpy
+    b_d, g_d = t(bins).to(cuda), t(gh).to(cuda)
+    args_d = [a.to(cuda) for a in args_h]
+    got = hist_cuda.histogram_ragged(b_d, g_d, *args_d, B, 2)
+    again = hist_cuda.histogram_ragged(b_d, g_d, *args_d, B, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    exps = fixed_point_exponents(t(gh), N)
+    assert torch.equal(fixed_point_exponents(g_d, N).cpu(), exps)
+    got = got.cpu()
+    assert same_or_both_nan(got, _histogram_slots_ragged_fixed(t(bins), t(gh), *args_h, B, 2,
+                                                               exps))
+    plain = _histogram_slots_ragged_plain(t(bins), t(gh), *args_h, B, 2)
+    assert bool((~torch.isfinite(plain)).any())
+    if snapped:
+        assert same_or_both_nan(got, plain)
+    else:
+        fin = torch.isfinite(plain)
+        assert same_or_both_nan(got[~fin], plain[~fin])
+        clean = t(np.where(np.isfinite(gh), np.abs(gh), 0).astype(np.float32))
+        bound = N * 2.0 ** -24 * _histogram_slots_ragged_plain(t(bins), clean, *args_h, B, 2)
+        assert bool(((got - plain).abs()[fin].double() <= bound[fin].double()).all())
+    one = [a[1:2].contiguous() for a in args_d[1:]]
+    slot_1 = torch.where(args_d[0] == 1, 0, 1).to(torch.int32)
+    alone = hist_cuda.histogram_ragged(b_d, g_d, slot_1, *one, B, 1)
+    assert torch.equal(alone.cpu(), got[:, :, 3:6])
+
+
 def test_histogram_slots_kernel_matches_plain(cuda):
     from lightgbm_tpu_torch.ops.histogram import histogram_slots
 

@@ -162,3 +162,151 @@ def test_bins_past_num_bins_add_nowhere():
     out = _port(bins, gh, slot, [(0, 4)], [True], 4)
     assert out.shape == (1, 4, 3)
     np.testing.assert_array_equal(out[0, :, 2], [1, 1, 1, 0])
+
+
+# ------------------------------------------------- the CUDA kernel's float mode
+
+@pytest.mark.parametrize("n_rows", [1, 2, 4097, 1 << 20, hist_cuda.MAX_ROWS])
+def test_fixed_point_exponents_never_overflow(n_rows):
+    """At any N the wrapper takes and any finite gh, the largest fixed-point
+    value times N, plus N/2 of rounding, stays below 2**63; and the scale is
+    fine enough that multiples of 2**-10 are exact while N * max|gh| <= 2**52."""
+    import math
+
+    from lightgbm_tpu_torch.ops.histogram import fixed_point_exponents
+
+    mags = [0.0, 2.0 ** -149, 1e-30, 1e-3, 0.75, 1.0, 1.5, 1e6, 3.4e38]
+    gh = torch.tensor([[m, -m, 1.0] for m in mags], dtype=torch.float32)
+    for m in mags:
+        e = int(fixed_point_exponents(gh[[mags.index(m)]], n_rows)[0])
+        top = abs(round(math.ldexp(float(np.float32(m)), e)))
+        assert n_rows * top + n_rows // 2 < 2 ** 63, (m, e)
+        if m > 0 and n_rows * m <= 2.0 ** 52:
+            assert e >= 10, (m, e)
+    both = fixed_point_exponents(gh, n_rows)
+    assert both.dtype == torch.int32 and both.shape == (3,)
+
+
+def test_fixed_point_exponents_skip_nonfinite():
+    """NaN and inf stay out of the fixed point: the exponents are those of
+    the finite values."""
+    from lightgbm_tpu_torch.ops.histogram import fixed_point_exponents
+
+    nan, inf = float("nan"), float("inf")
+    gh = torch.tensor([[1.0, nan, 0.5], [2.0, 0.25, inf], [-4.0, -inf, -0.75]])
+    clean = torch.where(torch.isfinite(gh), gh, 0.0)
+    assert torch.equal(fixed_point_exponents(gh, 3), fixed_point_exponents(clean, 3))
+
+
+def _fixed_and_plain(case, mode, grid=16):
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_fixed,
+                                                  _histogram_slots_ragged_plain,
+                                                  fixed_point_exponents)
+
+    name, n, G, B, ranges = case
+    K = len(ranges)
+    bins, gh, slot = _setup(7 * n + G, n, G, B, ranges, mode)
+    if mode == "snapped":
+        gh = (np.round(gh.astype(np.float64) * grid) / grid).astype(np.float32)
+    t = torch.from_numpy
+    args = [t(slot), t(np.asarray([s for s, _ in ranges], np.int32)),
+            t(np.asarray([e for _, e in ranges], np.int32)), torch.ones(K, dtype=torch.bool)]
+    exps = fixed_point_exponents(t(gh), n)
+    fixed = _histogram_slots_ragged_fixed(t(bins), t(gh), *args, B, K, exps)
+    plain = _histogram_slots_ragged_plain(t(bins), t(gh), *args, B, K)
+    absplain = _histogram_slots_ragged_plain(t(bins), t(np.abs(gh)), *args, B, K)
+    return fixed, plain, absplain
+
+
+@pytest.mark.parametrize("grid", [16, 1024], ids=["2^-4", "2^-10"])
+@pytest.mark.parametrize("case", RAGGED, ids=[c[0] for c in RAGGED])
+def test_fixed_point_exact_on_grids(case, grid):
+    """On gh snapped to the 2**-4 or 2**-10 grid (every float32 partial sum
+    exact), the kernel's fixed-point arithmetic gives the plain version's
+    bits."""
+    fixed, plain, _ = _fixed_and_plain(case, "snapped", grid)
+    assert fixed.dtype == torch.float32
+    assert torch.equal(fixed, plain)
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=[c[0] for c in RAGGED])
+def test_fixed_point_within_summation_bound(case):
+    """On real gh the fixed-point sum lies within the float32 summation
+    bound n * 2**-24 * sum|v| of the plain version, bin by bin."""
+    fixed, plain, absplain = _fixed_and_plain(case, "real")
+    n = case[1]
+    bound = n * 2.0 ** -24 * absplain.double()
+    assert ((fixed.double() - plain.double()).abs() <= bound).all()
+
+
+def test_fixed_point_nonfinite_stays_in_its_bins():
+    """A NaN or inf makes only the cells that hold its row NaN or inf, as the
+    plain version's float32 sum does (+inf with -inf is NaN); on snapped gh
+    the emulation of the kernel equals the plain version cell for cell, and
+    every other cell, and every cell of the other range, is as without it."""
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_fixed,
+                                                  _histogram_slots_ragged_plain,
+                                                  fixed_point_exponents)
+    from tests.test_torch_cuda_train import nonfinite_case, same_or_both_nan
+
+    n, G, B, ranges = 600, 3, 8, [(0, 250), (300, 580)]
+    bins, gh, args = nonfinite_case(11, n, G, B, ranges, snapped=True)
+    t = torch.from_numpy
+    exps = fixed_point_exponents(t(gh), n)
+    fixed = _histogram_slots_ragged_fixed(t(bins), t(gh), *args, B, 2, exps)
+    plain = _histogram_slots_ragged_plain(t(bins), t(gh), *args, B, 2)
+    assert same_or_both_nan(fixed, plain)
+    assert bool(fixed.isnan().any()) and bool(fixed.isposinf().any()) \
+        and bool(fixed.isneginf().any())
+    assert bool(fixed[0, bins[0, 5], 2].isnan())  # +inf and -inf in one cell
+    clean = np.where(np.isfinite(gh), gh, 0).astype(np.float32)
+    ref = _histogram_slots_ragged_fixed(t(bins), t(clean), *args, B, 2, exps)
+    kept = torch.isfinite(fixed)
+    assert torch.equal(fixed[kept], ref[kept])
+    assert bool(kept[:, :, 3:].all())  # range 1 holds no bad row
+
+
+def test_ragged_wrapper_checks():
+    """What the kernel does not take is refused before any launch."""
+    n, K = 64, 2
+    bins = torch.zeros((3, n), dtype=torch.uint8)
+    gh = torch.zeros((n, 5))[:, :3]
+    slot = torch.zeros(n, dtype=torch.int32)
+    se = [torch.zeros(K, dtype=torch.int32), torch.full((K,), n, dtype=torch.int32),
+          torch.ones(K, dtype=torch.bool)]
+    hist_cuda._check_ragged(bins, gh, slot, *se, 16, K, None)  # a payload view is taken
+    bad = [
+        ("uint8", dict(bins=bins.to(torch.int32))),
+        ("num_bins", dict(num_bins=0)),
+        ("unit column stride", dict(gh=torch.zeros((3, n)).t())),
+        ("float32", dict(gh=gh.double())),
+        ("n_slots", dict(n_slots=hist_cuda.MAX_RANGES + 1)),
+        ("slot", dict(slot=slot.long())),
+        ("starts", dict(starts=se[0][:1])),
+        ("valid", dict(valid=se[2].int())),
+        ("exponents", dict(exponents=torch.zeros(2, dtype=torch.int32))),
+    ]
+    for match, kw in bad:
+        call = dict(bins=bins, gh=gh, slot=slot, starts=se[0], ends=se[1], valid=se[2],
+                    num_bins=16, n_slots=K, exponents=None)
+        call.update(kw)
+        with pytest.raises(ValueError, match=match):
+            hist_cuda._check_ragged(**call)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        hist_cuda.histogram_ragged(bins.to("meta"), gh.to("meta"), slot.to("meta"),
+                                   *[a.to("meta") for a in se], 16, K)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fixed", "int32"])
+@pytest.mark.parametrize("ch", [1, 2, 3, 4])
+def test_ragged_launch_fits_shared_memory(ch, quantized):
+    for G, B in ((28, 255), (1, 256), (200, 64)):
+        gb, blocks = hist_cuda.ragged_launch_shape(G, B, ch, quantized, 132)
+        bin_bytes = 4 * ((ch * (1 if quantized else 2)) | 1)
+        assert 1 <= gb <= G and blocks >= 1
+        per_block = hist_cuda.RAGGED_PLAN_BYTES + gb * B * bin_bytes
+        assert hist_cuda.RAGGED_BLOCKS_PER_SM * (per_block + hist_cuda.SMEM_RESERVED) \
+            <= hist_cuda.SMEM_PER_SM
+        assert blocks * -(-G // gb) <= 132 * hist_cuda.RAGGED_BLOCKS_PER_SM
+    gb, blocks = hist_cuda.ragged_launch_shape(28, 255, 3, False, 132)
+    assert (gb, blocks) == (14, 132)  # the HIGGS groups in two halves, two blocks an SM

@@ -177,3 +177,114 @@ def test_linear_trees_not_yet_ported():
     tree = Tree(max_leaves=2, is_linear=True)
     with pytest.raises(LightGBMError, match="not yet ported"):
         pack_ensemble([tree])
+
+
+def _record_cases():
+    """(name, model, cat_features, n_features, rows): the HIGGS profile at
+    small size (13 trees: not a multiple of any tree tile), multiclass with
+    categorical splits, and constant and stump trees."""
+    return [
+        ("higgs_profile", random_model(np.random.RandomState(20), 28, 13, 63), (), 28, 600),
+        ("multiclass_cat", random_model(np.random.RandomState(21), 10, 5, 15, num_class=3,
+                                        cat_features=(2, 6),
+                                        objective="multiclass num_class:3"), (2, 6), 10, 500),
+        ("stumps", random_model(np.random.RandomState(22), 6, 11, 7, stump_every=3,
+                                objective="regression"), (), 6, 300),
+    ]
+
+
+@pytest.mark.parametrize("case", range(3), ids=["higgs_profile", "multiclass_cat", "stumps"])
+def test_record_walk_matches_tables_and_jax(jax_ref, case):
+    """The CUDA kernel's packed node records, walked plainly, reach the leaves
+    of the table walk and of the JAX package's traversal."""
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.predict import predict_leaf_indices as jax_leaves
+
+    from lightgbm_tpu_torch.ops.predict import _traverse_leaves, _traverse_records
+
+    name, model, cats, F, n = _record_cases()[case]
+    text = model.to_string()
+    X = make_rows(np.random.RandomState(30 + case), n, F, cats, nan_frac=0.05,
+                  zero_frac=0.05)
+    X = _thresholds_in_rows(X, model.trees, np.random.RandomState(40 + case))
+    packed = pack_ensemble(GBDTModel.from_string(text).trees)
+    T, I = packed.split_feature.shape
+    assert packed.records.shape[0] == T and packed.records.shape[1] % 4 == 0
+    assert packed.records.shape[1] >= 4 * I + packed.leaf_value.shape[1]
+    xt = torch.from_numpy(X)
+    got = _traverse_records(packed, xt)
+    assert torch.equal(got, _traverse_leaves(packed, xt)), name
+    want = np.asarray(jax_leaves(_jax_pack(text), jnp.asarray(X)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_record_walk_on_edge_trees(name):
+    """The records of the hand-built edge trees (NaN/zero missing, bitsets,
+    thresholds float32 cannot hold) and of a pack carried across from tables
+    walk to the table walk's leaves; leaf values follow the node records."""
+    from lightgbm_tpu_torch.ops.predict import (RECORD_WORDS, _traverse_leaves,
+                                                _traverse_records)
+
+    text, _, X = _case(name)
+    packed = pack_ensemble(GBDTModel.from_string(text).trees)
+    xt = torch.from_numpy(X)
+    assert torch.equal(_traverse_records(packed, xt), _traverse_leaves(packed, xt))
+    carried = packed_from_numpy([getattr(packed, t).numpy() for t in TABLES],
+                                max_depth=packed.max_depth, num_trees=packed.num_trees)
+    assert torch.equal(carried.records, packed.records)
+    assert torch.equal(carried.cat_table, packed.cat_table)
+    T, I = packed.split_feature.shape
+    L = packed.leaf_value.shape[1]
+    leaves = packed.records[:, RECORD_WORDS * I:RECORD_WORDS * I + L].contiguous()
+    assert torch.equal(leaves.view(torch.float32), packed.leaf_value)
+
+
+def test_forest_plan():
+    """Serving batches split the trees across blocks, large batches walk all
+    trees in every block; which plan depends on N and T alone, and what is
+    staged fits the shared-memory budgets."""
+    from lightgbm_tpu_torch.ops.predict_cuda import (MAX_THREADS, TREE_BUDGET, X_BUDGET,
+                                                     forest_plan)
+
+    R = 4 * 254 + 256  # a 255-leaf tree's blob
+    for n, split in ((1, True), (64, True), (4096, True), (16384, True),
+                     (65536, False), (1 << 18, False)):
+        plans = {forest_plan(n, 500, F, rec).split
+                 for F in (4, 28, 2000) for rec in (8, R, 1 << 14)}
+        assert plans == {split}, n
+        plan = forest_plan(n, 500, 28, R)
+        assert plan.stage_x and plan.stage_trees
+        assert plan.tile_trees == min(4, plan.trees_per_block)
+        assert 32 <= plan.rows_per_block <= MAX_THREADS and plan.rows_per_block % 32 == 0
+        # csrc/predict_forest.cu: two tree-tile buffers and X's row tile
+        assert 2 * plan.tile_trees * R * 4 <= TREE_BUDGET
+        assert plan.rows_per_block * 28 * 4 <= X_BUDGET
+        blocks = -(-n // plan.rows_per_block) * -(-500 // plan.trees_per_block)
+        if split:
+            assert blocks >= 264, n  # a 64-row request still fills the card
+        else:
+            assert plan.trees_per_block == 500
+    assert not forest_plan(4096, 500, 2000, R).stage_x           # X too wide: global
+    assert not forest_plan(4096, 10, 28, 4 * 2046 + 2048).stage_trees  # 2047 leaves
+    assert forest_plan(10, 7, 28, R).trees_per_block * 7 >= 7
+
+
+def test_forest_wrapper_checks():
+    from lightgbm_tpu_torch.ops import predict_cuda
+
+    model = random_model(np.random.RandomState(6), 4, 3, 7)
+    packed = pack_ensemble(model.trees)
+    predict_cuda._check(packed, torch.zeros((8, 4)))
+    with pytest.raises(ValueError, match="float32"):
+        predict_cuda._check(packed, torch.zeros((8, 4), dtype=torch.float64))
+    with pytest.raises(ValueError, match="columns"):
+        predict_cuda._check(packed, torch.zeros((8, 2)))
+    with pytest.raises(ValueError, match="packed table"):
+        predict_cuda._check(packed, torch.zeros((8, 4), device="meta"))
+    bad = pack_ensemble(model.trees)
+    bad.records = bad.records[:, :8].contiguous()
+    with pytest.raises(ValueError, match="records"):
+        predict_cuda._check(bad, torch.zeros((8, 4)))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        predict_cuda.forest_raw(packed, torch.zeros((8, 4), device="meta"), 1)
