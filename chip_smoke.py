@@ -5,10 +5,10 @@
 Phases (any failure exits non-zero before the result line):
 
 1. device   the card's name, count and power limit; no card -> exit 1.
-2. build    the four sources under csrc/ (forest traversal, histograms,
-            split scan, row compaction), one nvcc each, all started
-            together; build seconds and ptxas's registers / shared memory /
-            spills.
+2. build    the five sources under csrc/ (forest traversal, histograms,
+            split search, row compaction, wave partition), one nvcc each,
+            all started together; build seconds and ptxas's registers /
+            shared memory / spills.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
             the repo targets (binary, 28 features, 500 trees x 255 leaves,
             LightGBM docs/Experiments.rst HIGGS settings), a multiclass-3
@@ -28,12 +28,23 @@ Phases (any failure exits non-zero before the result line):
             also with every row in bin 0, and histogram_slots on a sample,
             held as the leaf histogram and, otherwise, bit-equal to the
             plain emulation of its fixed-point sum. The
-            split scan on those leaves, with and without a feature mask,
-            equal to the plain version run on the CPU (the gain within 4
-            ULP), and its leaf batch at a wave's 42 children bit-equal. The
-            row compaction of 21 ranges with a random split, bit-equal. Then
-            their timings beside their bounds, plain versions and, for the
-            compaction, index_copy_.
+            split kernel's per-feature form on those leaves, with and without
+            a feature mask, equal to the plain version run on the CPU (the
+            gain within 4 ULP), and its leaf batch at a wave's 42 children
+            bit-equal; its find form (group histogram -> record) on one leaf
+            and on 42, with and without a feature mask, and on a small
+            dataset whose features EFB bundles, likewise. The row compaction
+            of 21 ranges with a random split, bit-equal. The wave partition
+            (decide, scan, scatter) on the inputs of a real wave (21 ranges,
+            recorded from a round of training), on the same with random
+            sides and on a real bagged initial partition, every output
+            exactly equal to the plain version run on the CPU, and the
+            relabel on a real commit. Then their timings beside their
+            bounds, plain versions and, for the compaction and the
+            partition's scatter, index_copy_; the whole wave partition and
+            the whole find_best_split as the learner calls them, beside the
+            parent's sequence of PyTorch glue and kernels for the same work
+            (device time and host time a call).
 5. exact    training on 65,536 rows with grid-snapped custom gradients, 3
             rounds: the serial learner (feature_fraction_bynode=0.8) on the
             card and with device_type=cpu, and the wave learner on the card
@@ -55,7 +66,8 @@ Phases (any failure exits non-zero before the result line):
             histograms only the smaller children of disjoint leaves), train
             and valid AUC (at --seed 0 within 0.002 of WAVE_AUC_SEED0); the
             model text reloads and predicts equal to the training Booster;
-            the host scopes and the device's busy share over one round.
+            the host scopes, the device's busy share over one round and the
+            device operations (kernels and copies) a wave launches there.
 9. serial   the same with feature_fraction_bynode=0.8, through the serial
             learner.
 
@@ -64,6 +76,13 @@ phase 7 (the serving path), and again just before and after phase 8 and
 phase 9 (the training paths): every kernel of each path must have launched
 there. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile-wave-round-of DIR
+
+profiles one wave-learner round of the package in checkout DIR (an older
+commit unpacked with git archive) on the same data and prints its device
+operations a wave, busy share and host scopes, for a comparison in one
+call; it prints no result line.
 """
 from __future__ import annotations
 
@@ -102,6 +121,7 @@ SCAN_PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]  # TRAIN_PARAMS' regularizers
 # wave learner grows
 WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "feature_fraction_bynode"}
 WAVE_K, SLOT_SLOTS = 21, 4  # the wave learner's default width; histogram_slots' slots
+GROUP_BINS = 256  # every value a uint8 group bin takes
 # train / valid AUC of the 10 wave-learner rounds at --seed 0 when the wave
 # histogram sums in float32; summed in fixed point they stay within 0.002
 WAVE_AUC_SEED0 = (0.74877, 0.74533)
@@ -146,6 +166,10 @@ def leaf_depths(trees, device) -> torch.Tensor:
         if t.num_leaves > 1:
             depth[k, :t.num_leaves] = t.leaf_depth[:t.num_leaves]
     return torch.from_numpy(depth).to(device)
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes: float, ops: float):
@@ -289,6 +313,8 @@ def check_split_scan(dev, ds, bins, num_bins, gh, idx):
     mask_d = torch.from_numpy(mask).to(dev)
     timings = {
         "kernel": cuda_ms(lambda: scan_cuda.split_scan(fh, tot, meta_d, params_d, mask_d), 50),
+        "kernel_device": kernel_device_ms(
+            lambda: scan_cuda.split_scan(fh, tot, meta_d, params_d, mask_d), 20, "split_kernel"),
         "plain": cuda_ms(lambda: ts._per_feature_best_plain(fh, tot, meta_d, params_d,
                                                             mask_d), 10),
     }
@@ -482,6 +508,9 @@ def check_batched_scan(dev, ds, num_bins, wave_hist, root_hist):
     check(bool((rec[..., 1] >= 0).any()), "batched split scan: no feature has a split")
     timings = {"kernel": cuda_ms(lambda: scan_cuda.split_scan(fh, totals, meta_d,
                                                               params_d), 50),
+               "kernel_device": kernel_device_ms(
+                   lambda: scan_cuda.split_scan(fh, totals, meta_d, params_d), 20,
+                   "split_kernel"),
                "plain": cuda_ms(lambda: ts._per_feature_best_plain(fh, totals, meta_d,
                                                                    params_d), 10)}
     L, F, B = fh.shape[0], fh.shape[1], fh.shape[2]
@@ -489,9 +518,356 @@ def check_batched_scan(dev, ds, num_bins, wave_hist, root_hist):
     return timings, bound(nbytes, L * F * B * 2 * 30), (L, F, B)
 
 
+def record_wave_inputs(lt, train_set, params):
+    """Copies of the inputs of a real wave's partition (the third wave of
+    the first tree, WAVE_K ranges), of a bagged initial partition and of a
+    commit's relabel, kept from one round of lt.train through the wave
+    learner and one with bagging, with the learner's partition_wave and
+    relabel_rows wrapped. Returns {"wave": args, "bagged": args, "relabel":
+    (rows before, leaf column, table, max_len)}."""
+    from lightgbm_tpu_torch.treelearner import device as dmod
+
+    kept, waves = {}, [0]
+    partition_wave, relabel_rows = dmod.partition_wave, dmod.relabel_rows
+
+    def clone(args):
+        return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+    def part(*args, **kwargs):
+        if kwargs.get("bagged"):
+            kept.setdefault("bagged", clone(args))
+        else:
+            waves[0] += 1
+            if waves[0] == 3:
+                kept["wave"] = clone(args)
+        return partition_wave(*args, **kwargs)
+
+    def relabel(row_p, leaf_col, table, max_len):
+        kept.setdefault("relabel", (row_p.clone(), leaf_col, table.clone(), max_len))
+        return relabel_rows(row_p, leaf_col, table, max_len)
+
+    dmod.partition_wave, dmod.relabel_rows = part, relabel
+    try:
+        lt.train(dict(params), train_set, num_boost_round=1)
+        lt.train({**params, "bagging_fraction": 0.8, "bagging_freq": 1}, train_set,
+                 num_boost_round=1)
+    finally:
+        dmod.partition_wave, dmod.relabel_rows = partition_wave, relabel_rows
+    check(set(kept) == {"wave", "bagged", "relabel"}, f"recorded only {sorted(kept)}")
+    check(kept["wave"][6].shape[0] == WAVE_K, "the recorded wave has "
+          f"{kept['wave'][6].shape[0]} ranges, not {WAVE_K}")
+    return kept
+
+
+def device_kernel_ms(fn, reps, names):
+    """Device milliseconds a call of fn() of each kernel whose name holds one
+    of `names`, from torch.profiler over reps calls (None when the profiler
+    records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        for name in names:
+            if name in e.key and us > 0:
+                out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out or None
+
+
+def kernel_device_ms(fn, reps, name):
+    """Device milliseconds a call of the kernel `name` launched by fn(), from
+    torch.profiler, or None when the profiler records no device time. Where
+    a kernel is shorter than its wrapper's host work, CUDA events around
+    back-to-back calls time the host, not the kernel."""
+    return (device_kernel_ms(fn, reps, (name,)) or {}).get(name)
+
+
+def device_or_events(t, key):
+    """The profiler's device time of timings[key + "_device"], else the CUDA
+    events' time of timings[key]."""
+    d = t.get(key + "_device")
+    return t[key] if d is None else d
+
+
+def host_ms(fn, reps):
+    """Host milliseconds a call of fn(), the device synchronized before and
+    after the reps calls: what a host-bound caller pays a call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def check_partition(dev, kept, seed):
+    """The wave partition's kernels against their plain version run on the
+    CPU: on a real wave's inputs, on the same with random sides, on a real
+    bagged initial partition; every output exactly equal, two launches
+    equal; the relabel on a real commit. Returns (timings, bounds, counts)."""
+    from lightgbm_tpu_torch.ops import compact_cuda
+    from lightgbm_tpu_torch.ops.compact import (_partition_wave_plain,
+                                                _relabel_rows_plain, partition_wave,
+                                                range_partition_dst_by_range,
+                                                relabel_rows)
+
+    bins, rows, leaf_col, leaf2k, rgroup, lut, starts, counts, valid = kept["wave"]
+    G, N = bins.shape
+    rc = rows.shape[1]
+    K = starts.shape[0]
+    rnd = torch.from_numpy((np.random.RandomState(seed).rand(K, GROUP_BINS) < 0.5)
+                           .astype(np.int32)).to(dev)
+    cases = {"wave": (kept["wave"], False),
+             "random_sides": ([bins, rows, leaf_col, leaf2k, rgroup, rnd, starts, counts,
+                               valid], False),
+             "bagged": (kept["bagged"], True)}
+
+    def run(args, bagged, device):
+        args = [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
+        k = args[6].shape[0]
+        slot = torch.full((N,), -7, dtype=torch.int32, device=device)
+        n_left = torch.zeros(k, dtype=torch.float32, device=device)
+        got = partition_wave(*args, bagged=bagged, slot_out=slot, n_left_out=n_left)
+        return [t.cpu() for t in got] + [slot.cpu(), n_left.cpu()]
+
+    moved = {}
+    for name, (args, bagged) in cases.items():
+        got, again = run(args, bagged, dev), run(args, bagged, dev)
+        torch.cuda.synchronize()
+        ref = run(args, bagged, "cpu")
+        for what, g, a, r in zip(("bins", "rows", "ranges", "flags", "slot", "n_left"),
+                                 got, again, ref):
+            check(g.dtype == r.dtype and g.shape == r.shape
+                  and torch.equal(g.view(torch.uint8), r.view(torch.uint8)),
+                  f"wave partition ({name}): {what} differs from the plain version")
+            check(torch.equal(a.view(torch.uint8), g.view(torch.uint8)),
+                  f"wave partition ({name}): two launches differ in {what}")
+        moved[name] = int(ref[2][0].sum())
+    before, leaf_c, table, max_len = kept["relabel"]
+    got = before.clone()
+    relabel_rows(got, leaf_c, table, max_len)
+    ref = before.cpu()
+    relabel_rows(ref, leaf_c, table.cpu(), max_len)
+    check(torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32)),
+          "relabel: differs from the plain version")
+    relabeled = int((table[1] - table[0]).sum())
+
+    # timings at the real wave, into preallocated buffers as the learner calls
+    args = kept["wave"]
+    out = (torch.empty_like(bins), torch.empty_like(rows))
+    slot = torch.empty(N, dtype=torch.int32, device=dev)
+    n_left = torch.empty(K, dtype=torch.float32, device=dev)
+
+    def kernel():
+        return partition_wave(*args, out=out, slot_out=slot, n_left_out=n_left)
+
+    # the parent's sequence for the same work: the per-row glue
+    # (treelearner/device.py:338-341 of the parent), the forward map
+    # (ops/compact.py:range_partition_dst_by_range), the compaction kernel,
+    # the slot vector (:348-356) and the relabel of every range (:401-404)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    rgroup_x, lut_x = torch.cat([rgroup, zero]), torch.cat([lut.reshape(-1),
+                                                             zero.repeat(GROUP_BINS)])
+    ok_b = valid != 0
+    pos = torch.arange(N, dtype=torch.int32, device=dev)
+    commit = torch.cat([ok_b, torch.zeros(1, dtype=torch.bool, device=dev)])
+    new_ids = torch.arange(K + 1, dtype=torch.int64, device=dev) + 1000
+    ok_k = ok_b.nonzero()[:, 0]
+    table_all = torch.stack([starts + counts // 2, starts + counts, new_ids[:K].int()]
+                            ).to(torch.int64)[:, ok_k].contiguous()
+
+    def parent():
+        go_left, rng = _decide_for(bins, rows, leaf_col, leaf2k, rgroup_x, lut_x)
+        rng64 = rng.to(torch.int64)
+        dst, nl = range_partition_dst_by_range(go_left, rng, starts, counts, ok_b)
+        compact_cuda.compact(bins, rows, dst, out)
+        nr = counts - nl
+        left_small = nl <= nr
+        sc = torch.minimum(nl, nr)
+        ss = torch.where(left_small, starts, starts + nl)
+        se = ss + sc
+        in_s = ((pos >= torch.cat([ss, zero])[rng64]) & (pos < torch.cat([se, zero])[rng64]))
+        torch.where(in_s, rng, K).to(torch.int32)
+        mid = torch.cat([starts + nl, zero])
+        is_right = commit[rng64] & (pos >= mid[rng64])
+        out[1][:, leaf_col] = torch.where(is_right, new_ids[rng64].to(torch.float32),
+                                          out[1][:, leaf_col])
+
+    def this_tree():
+        kernel()
+        relabel_rows(out[1], leaf_col, table_all, int((table_all[1] - table_all[0]).max()))
+
+    dst, _ = range_partition_dst_by_range(
+        *_decide_for(bins, rows, leaf_col, leaf2k, rgroup_x, lut_x), starts, counts, ok_b)
+    dst64 = dst.to(torch.int64)
+    lib_out = (torch.empty_like(bins), torch.empty_like(rows))
+
+    def library():
+        lib_out[0].index_copy_(1, dst64, bins)
+        lib_out[1].index_copy_(0, dst64, rows)
+
+    timings = {
+        "partition": cuda_ms(kernel, 20),
+        "passes": device_kernel_ms(kernel, 10, ("decide_kernel", "scan_kernel",
+                                               "scatter_kernel")) or {},
+        "plain": cuda_ms(lambda: _partition_wave_plain(*args, False, out, slot, n_left), 3),
+        "library": cuda_ms(library, 20),
+        "relabel": cuda_ms(lambda: relabel_rows(before, leaf_c, table, max_len), 20),
+        "relabel_plain": cuda_ms(lambda: _relabel_rows_plain(before, leaf_c, table), 3),
+        "this_tree": cuda_ms(this_tree, 20), "parent": cuda_ms(parent, 20),
+        "this_tree_host": host_ms(this_tree, 20), "parent_host": host_ms(parent, 20),
+    }
+    tiles = -(-N // compact_cuda.TILE_ROWS)
+    nbytes = {  # each input read once, each output written once
+        # the leaf id (its payload row's sectors) and a bin byte in, a bit
+        # and the tile's counts out
+        "decide": N * (4 * rc + 1) + N / 8 + tiles * K * 4,
+        # the counts in and the offsets out; the tables; the children out
+        "scan": 2 * tiles * K * 4 + 3 * K * 4 + K * (3 * 4 + 2 + 4),
+        # the plane and the payload in and out, the slot out, the bits in
+        "scatter": 2 * N * (G + 4 * rc) + 4 * N + N / 8 + tiles * K * 4,
+        "relabel": 4 * relabeled,
+    }
+    nbytes["partition"] = nbytes["decide"] + nbytes["scan"] + nbytes["scatter"]
+    bounds = {k: bound(v, 0) for k, v in nbytes.items()}
+    return timings, bounds, (N, G, K, moved, relabeled)
+
+
+def _decide_for(bins, rows, leaf_col, leaf2k, rgroup_x, lut_x):
+    """(go_left, range) of every row of a wave, as the parent learner built
+    them (its treelearner/device.py:338-341), from tables with a zero entry
+    for the range K of no range."""
+    rng = leaf2k[rows[:, leaf_col].to(torch.int64) + 1]
+    rng64 = rng.to(torch.int64)
+    gb = bins.gather(0, rgroup_x[rng64].to(torch.int64)[None, :])[0]
+    return lut_x[rng64 * GROUP_BINS + gb.to(torch.int64)] != 0, rng
+
+
+def check_find_split(dev, ds, bins, num_bins, gh, idx, wave_hist, root_hist, seed):
+    """The split kernel's find form (group histogram -> each leaf's record)
+    against its plain version run on the CPU: one leaf (the root and a
+    ~100,000-row leaf) with and without a feature mask, the 2 * WAVE_K
+    children of a wave likewise, and one and six leaves of a small dataset
+    whose features EFB bundles; every field equal but the gain, which is
+    within 4 ULP of the un-shifted gain. Returns (max |gain d|, records
+    bit-equal / compared, timings, bounds, shapes)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_cuda, scan_cuda
+    from lightgbm_tpu_torch.ops import split as ts
+
+    meta_d = ts.make_feature_meta(ds, num_bins, dev)
+    meta_h = ts.make_feature_meta(ds, num_bins, "cpu")
+    F = len(meta_h.real_feature)
+    params_d = torch.tensor(SCAN_PARAMS, device=dev)
+    params_h = torch.tensor(SCAN_PARAMS)
+    mask = np.random.RandomState(seed).rand(F) < 0.8
+    G = root_hist.shape[0]
+    left = wave_hist.reshape(G, num_bins, WAVE_K, 3).permute(2, 0, 1, 3)
+    wave = torch.stack([left, root_hist[None] - left], dim=1).reshape(
+        2 * WAVE_K, G, num_bins, 3).contiguous()
+    leaf = hist_cuda.histogram(bins, gh, idx, num_bins)
+    cases = {"root": (root_hist, meta_d, meta_h), "leaf": (leaf, meta_d, meta_h),
+             "wave": (wave, meta_d, meta_h)}
+    # a small dataset whose sparse features EFB bundles
+    rng = np.random.RandomState(seed)
+    n = 20000
+    X = np.where(rng.rand(n, 12) < 0.01, rng.normal(size=(n, 12)), 0.0)
+    efb = lt.Dataset(X, label=np.zeros(n), params={"min_data_in_leaf": 5,
+                                                   "verbosity": -1}).construct()._handle
+    check(any(g.is_multi for g in efb.groups), "the EFB dataset has no bundle")
+    B_e = int(max(efb.group_bin_counts().max(), 2))
+    gh_e = torch.from_numpy(np.concatenate([np.stack(
+        [rng.normal(size=n), rng.uniform(0.05, 0.5, n), np.ones(n)], 1),
+        np.zeros((1, 3))]).astype(np.float32)).to(dev)
+    h_e = hist_cuda.histogram(torch.from_numpy(efb.bins).to(dev), gh_e[:n], None, B_e)
+    h6 = torch.stack([h_e, h_e / 2, h_e - h_e / 2, h_e / 3, h_e * 0.25, h_e - h_e / 3])
+    me_d, me_h = ts.make_feature_meta(efb, B_e, dev), ts.make_feature_meta(efb, B_e, "cpu")
+    cases["efb"] = (h_e, me_d, me_h)
+    cases["efb_batch"] = (h6, me_d, me_h)
+    max_err, same, total = 0.0, 0, 0
+    for name, (hist, md, mh) in cases.items():
+        tot = hist[..., 0, :, :].sum(dim=-2)
+        for m in ((None, mask) if mh is meta_h else (None,)):
+            rec = ts.find_best_split(hist, tot, md, params_d,
+                                     None if m is None else torch.from_numpy(m).to(dev)).cpu()
+            ref = ts.find_best_split(hist.cpu(), tot.cpu(), mh, params_h,
+                                     None if m is None else torch.from_numpy(m))
+            what = f"find_best_split {name}{' masked' if m is not None else ''}"
+            check(torch.equal(rec[..., 1:], ref[..., 1:]), f"{what}: records differ")
+            finite = torch.isfinite(ref[..., 0])
+            check(torch.equal(torch.isfinite(rec[..., 0]), finite), f"{what}: gains differ")
+            shift = ts.leaf_gain(tot[..., 0].cpu(), tot[..., 1].cpu(), *params_h[[0, 1, 5]])
+            ulp = torch.from_numpy(np.asarray(np.spacing(
+                np.abs((ref[..., 0] + shift).numpy()).astype(np.float32))))
+            d = (rec[..., 0] - ref[..., 0]).abs()[finite]
+            check(bool((d <= 4 * ulp[finite]).all()), f"{what}: gain beyond 4 ULP")
+            check(bool((rec[..., 1] >= 0).any()), f"{what}: no split found")
+            recs = rec.reshape(-1, rec.shape[-1])
+            same += int((recs.view(torch.int32) == ref.reshape(recs.shape).view(torch.int32))
+                        .all(dim=1).sum())
+            total += recs.shape[0]
+            max_err = max(max_err, float(d.max()) if d.numel() else 0.0)
+    # timings as the learners call it: one leaf with host totals (serial),
+    # 42 children with device totals into a preallocated record (wave)
+    mask_d = torch.from_numpy(mask).to(dev)
+    tot_leaf = leaf[0].sum(dim=0)
+    host_tot = tuple(float(v) for v in tot_leaf.cpu())
+    tot_wave = wave[:, 0].sum(dim=1)
+    out = torch.empty(2 * WAVE_K, 14, dtype=torch.float32, device=dev)
+
+    def one():
+        return ts.find_best_split(leaf, host_tot, meta_d, params_d, mask_d)
+
+    def batch():
+        return ts.find_best_split(wave, tot_wave, meta_d, params_d, None, out=out)
+
+    # the parent's sequences: the gather, the EFB fix, the per-feature
+    # launch and the argmax (plus, for the serial learner, the totals'
+    # upload)
+    def parent_one():
+        t = torch.tensor(host_tot, dtype=torch.float32, device=dev)
+        fh = ts.gather_feature_hist(leaf, meta_d, t)
+        return ts.reduce_best_record(scan_cuda.split_scan(fh, t, meta_d, params_d, mask_d))
+
+    def parent_batch():
+        fh = ts.gather_feature_hist(wave, meta_d, tot_wave)
+        return ts.reduce_best_record(scan_cuda.split_scan(fh, tot_wave, meta_d, params_d))
+
+    timings = {
+        "one": cuda_ms(one, 50), "batch": cuda_ms(batch, 50),
+        "one_device": kernel_device_ms(one, 20, "split_kernel"),
+        "batch_device": kernel_device_ms(batch, 20, "split_kernel"),
+        "plain_one": cuda_ms(lambda: ts._find_best_split_plain(
+            leaf, tot_leaf, meta_d, params_d, mask_d), 5),
+        "plain_batch": cuda_ms(lambda: ts._find_best_split_plain(
+            wave, tot_wave, meta_d, params_d), 5),
+        "one_host": host_ms(lambda: one().cpu(), 50),
+        "parent_one_host": host_ms(lambda: parent_one().cpu(), 50),
+        "batch_host": host_ms(batch, 50), "parent_batch_host": host_ms(parent_batch, 50),
+        "parent_one": cuda_ms(parent_one, 50), "parent_batch": cuda_ms(parent_batch, 50),
+    }
+    B = meta_h.max_bins
+    per_leaf = F * B * 12 + 3 * 4 + 14 * 4  # the features' bins, totals, the record
+    tables = F * B * 9 + F * 4 * 4 + F + 6 * 4  # gather index, valid slots, metadata
+    bounds = {"one": bound(per_leaf + tables, F * B * 2 * 30),
+              "batch": bound(2 * WAVE_K * per_leaf + tables, 2 * WAVE_K * F * B * 2 * 30)}
+    return max_err, (same, total), timings, bounds, (F, B)
+
+
 def device_busy_share(fn):
-    """(kernel seconds, wall seconds, top kernels) of fn() under
-    torch.profiler, or None when the profiler records no device time."""
+    """(kernel seconds, wall seconds, top kernels, device operations) of
+    fn() under torch.profiler, or None when the profiler records no device
+    time. Only the device's own events count (kernels, copies, fills): a
+    host-side ATen op reports its kernels' device time too, and summing both
+    would count that time twice. Device operations count those events."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -500,16 +876,37 @@ def device_busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    per_kernel = {}
+    per_kernel, ops = {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
+        if us > 0 and e.device_type != DeviceType.CPU:
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us
+            ops += e.count
     if not per_kernel:
         return None
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     return (sum(per_kernel.values()) * 1e-6, wall,
-            ", ".join(f"{k[:40]} {v / 1e3:.3f} ms" for k, v in top))
+            ", ".join(f"{k[:40]} {v / 1e3:.3f} ms" for k, v in top), ops)
+
+
+def profile_round(lt, params, train_set, tag, label):
+    """The device's busy share and the device operations a wave (kernels
+    and copies; a wave-learner round) over one steady round: a booster that
+    has already taken one step, profiled through its second."""
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    bst = lt.Booster(dict(params), train_set)
+    bst.update()
+    waves = global_timer.counters.get("device_waves", 0)
+    busy = device_busy_share(bst.update)
+    waves = global_timer.counters.get("device_waves", 0) - waves
+    per_wave = (f"; {busy[3]} device operations (kernels and copies) in the round, "
+                f"{waves} waves: {busy[3] / waves:.1f} a wave"
+                if busy is not None and waves else "")
+    print(f"{tag} device busy share over one training round ({label}, torch.profiler): "
+          + ("not measured (the profiler saw no device time)" if busy is None else
+             f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
+             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}{per_wave}"))
 
 
 def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, label):
@@ -579,21 +976,41 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
         f"{k} {v:.3f} ({n})" for k, (v, n) in sorted(scopes.items(),
                                                       key=lambda kv: -kv[1][0])))
     # one steady round: a booster that has already taken one step
-    bst = lt.Booster(dict(params), train_set)
-    bst.update()
-    busy = device_busy_share(bst.update)
-    print(f"{tag} device busy share over one training round ({label}, torch.profiler): "
-          + ("not measured (the profiler saw no device time)" if busy is None else
-             f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
-             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}"))
+    profile_round(lt, params, train_set, tag, label)
     return {"launches": launches, "learner": trained._gbdt.tree_learner,
             "counters": counters, "hist_rows": hist_rows, "waves": np.diff(waves),
             "per_iter": per_iter, "auc": (train_auc, valid_auc[-1])}
 
 
+def profile_other(checkout: str, seed: int) -> int:
+    """One profiled wave-learner round (and the host scopes of a 2-round
+    run) of the package in another checkout, on the training path's data."""
+    sys.path.insert(0, os.path.abspath(checkout))
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    check(os.path.dirname(os.path.abspath(lt.__file__)).startswith(os.path.abspath(checkout)),
+          f"imported {lt.__file__}, not the package in {checkout}")
+    card = card_line()
+    X, y = higgs_rows(seed + 5, TRAIN_ROWS)
+    train_set = lt.Dataset(X, label=y, params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
+    global_timer.reset()
+    global_timer.enabled = True
+    lt.train(dict(WAVE_PARAMS), train_set, num_boost_round=2)
+    global_timer.enabled = False
+    scopes = sorted(global_timer.totals.items(), key=lambda kv: -kv[1])
+    print(f"[{card}] {checkout}: wave train, 2 rounds, scopes (host s): " + ", ".join(
+        f"{k} {v:.3f} ({global_timer.counts[k]})" for k, v in scopes))
+    profile_round(lt, WAVE_PARAMS, train_set, f"[{card}] {checkout}:", "wave")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile-wave-round-of", metavar="DIR",
+                    help="profile one wave-learner round of the package in checkout DIR "
+                         "and exit")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -601,6 +1018,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.profile_wave_round_of:
+        return profile_other(args.profile_wave_round_of, args.seed)
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
@@ -622,7 +1041,7 @@ def main() -> int:
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
     builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB,
-                                   compact_cuda.LIB], force=True)
+                                   compact_cuda.LIB, compact_cuda.WAVE_LIB], force=True)
     print(f"build: {len(builds)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for info in builds:
@@ -785,13 +1204,13 @@ def main() -> int:
     print(f"kernels: split scan {F_scan}x{B_scan} on the root and a leaf, with and "
           f"without a feature mask: records equal to the CPU plain version, gain "
           f"max |d| {err_scan:.3g}")
-    threads = max(32, 1 << (B_scan - 1).bit_length())  # csrc/split_scan.cu
-    print(f"  split scan launch: {F_scan} blocks of {threads} threads, "
-          f"{4 * (5 * B_scan + 2 * threads)} bytes of dynamic shared memory a block")
-    print(f"{tag} split scan {F_scan}x{B_scan}: kernel {ms_scan['kernel']:.4f} ms, "
+    warps, smem = scan_cuda.launch_shape(F_scan, B_scan)
+    print(f"  split kernel launch: a block of {warps} warps a leaf (a warp a feature), "
+          f"{smem} bytes of dynamic shared memory a block")
+    print(f"{tag} split scan {F_scan}x{B_scan}: kernel {fmt_ms(ms_scan.get('kernel_device'))} "
+          f"device (torch.profiler), {ms_scan['kernel']:.4f} ms a call back to back, "
           f"plain {ms_scan['plain']:.3f} ms, bound {bound_scan[0]:.6f} ms "
           f"({bound_scan[1]})")
-    del gh_d, idx_d
     err_rag, ms_rag, bound_rag, wave_hist, root_hist = check_wave_histogram(
         dev, bins_d, TRAIN_ROWS, num_bins, args.seed + 8)
     print(f"kernels: ragged histogram {core.num_groups}x{TRAIN_ROWS}x{num_bins}, the root "
@@ -827,11 +1246,55 @@ def main() -> int:
                                                             root_hist)
     print(f"kernels: batched split scan {list(shape_bscan)}: records bit-equal to the CPU "
           f"plain version, gains included")
-    print(f"{tag} batched split scan {list(shape_bscan)}: kernel {ms_bscan['kernel']:.4f} "
-          f"ms, plain {ms_bscan['plain']:.3f} ms, bound {bound_bscan[0]:.6f} ms "
-          f"({bound_bscan[1]})")
-    del bins_d, wave_hist, root_hist
+    print(f"{tag} batched split scan {list(shape_bscan)}: kernel "
+          f"{fmt_ms(ms_bscan.get('kernel_device'))} device (torch.profiler), "
+          f"{ms_bscan['kernel']:.4f} ms a call back to back, plain {ms_bscan['plain']:.3f} ms, "
+          f"bound {bound_bscan[0]:.6f} ms ({bound_bscan[1]})")
+    err_find, same_find, ms_find, bound_find, (F_find, B_find) = check_find_split(
+        dev, core, bins_d, num_bins, gh_d, idx_d, wave_hist, root_hist, args.seed + 10)
+    print(f"kernels: find_best_split {F_find}x{B_find} on the root, a leaf and a wave's "
+          f"{2 * WAVE_K} children, with and without a feature mask, and on one and six "
+          f"leaves of an EFB-bundled dataset: records equal to the CPU plain version, gain "
+          f"max |d| {err_find:.3g} ({same_find[0]} of {same_find[1]} records bit-equal)")
+    print(f"{tag} find_best_split one leaf: kernel {fmt_ms(ms_find['one_device'])} device "
+          f"(torch.profiler), {ms_find['one']:.4f} ms a call back to back, plain "
+          f"{ms_find['plain_one']:.3f} ms, bound {bound_find['one'][0]:.6f} ms "
+          f"({bound_find['one'][1]}); {2 * WAVE_K} leaves: kernel "
+          f"{fmt_ms(ms_find['batch_device'])} device, {ms_find['batch']:.4f} ms back to back, "
+          f"plain {ms_find['plain_batch']:.3f} ms, bound {bound_find['batch'][0]:.6f} ms "
+          f"({bound_find['batch'][1]})")
+    print(f"{tag} find_best_split as the learners call it, against the parent's sequence "
+          f"(gather, EFB fix, per-feature launch, argmax; the serial one also uploads its "
+          f"totals): one leaf device {ms_find['one']:.4f} vs {ms_find['parent_one']:.4f} ms, "
+          f"host {ms_find['one_host']:.4f} vs {ms_find['parent_one_host']:.4f} ms a call; "
+          f"{2 * WAVE_K} leaves device {ms_find['batch']:.4f} vs {ms_find['parent_batch']:.4f} "
+          f"ms, host {ms_find['batch_host']:.4f} vs {ms_find['parent_batch_host']:.4f} ms")
+    del bins_d, wave_hist, root_hist, gh_d, idx_d
     torch.cuda.empty_cache()
+    kept = record_wave_inputs(lt, train_set, WAVE_PARAMS)
+    ms_part, bound_part, (n_part, g_part, k_part, moved, relabeled) = check_partition(
+        dev, kept, args.seed + 11)
+    del kept
+    torch.cuda.empty_cache()
+    print(f"kernels: wave partition {g_part}x{n_part} + [{n_part}, 5] payload, a real wave's "
+          f"{k_part} ranges ({moved['wave']} rows left), the same with random sides "
+          f"({moved['random_sides']} left), a bagged initial partition ({moved['bagged']} "
+          f"rows in the bag): every output equal to the CPU plain version, two launches "
+          f"equal; relabel of a real commit ({relabeled} rows) equal")
+    passes = ms_part["passes"]
+    print(f"{tag} wave partition: {ms_part['partition']:.4f} ms a call (decide "
+          + ", ".join(f"{k.split('_')[0]} {passes.get(k, float('nan')):.4f}"
+                      for k in ("decide_kernel", "scan_kernel", "scatter_kernel")).replace(
+                          "decide ", "", 1)
+          + f" ms, torch.profiler), plain {ms_part['plain']:.3f} ms, index_copy_ "
+          f"{ms_part['library']:.4f} ms, bound {bound_part['partition'][0]:.4f} ms "
+          f"(bytes; decide {bound_part['decide'][0]:.4f}, scatter "
+          f"{bound_part['scatter'][0]:.4f}); relabel {ms_part['relabel']:.4f} ms, plain "
+          f"{ms_part['relabel_plain']:.3f} ms, bound {bound_part['relabel'][0]:.6f} ms")
+    print(f"{tag} wave partition and relabel as the learner calls them, against the "
+          f"parent's sequence (per-row glue, forward map, compaction kernel, slot vector, "
+          f"relabel): device {ms_part['this_tree']:.4f} vs {ms_part['parent']:.4f} ms, host "
+          f"{ms_part['this_tree_host']:.4f} vs {ms_part['parent_host']:.4f} ms a call")
 
     # ------------------------------- the card trains as the CPU does
     exact = {}
@@ -1004,11 +1467,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------- main path: training, wave learner
-    libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda)
+    libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB)
     valid = (X_valid, y_valid)
     wave = drive_training(lt, libs, WAVE_PARAMS, train_set, valid, TRAIN_ROUNDS,
-                          ("histogram_slots_ragged", "compact_rows", "split_scan",
-                           "split_scan_batched", "predict_forest_raw"), tag, "wave")
+                          ("histogram_slots_ragged", "partition_decide", "partition_scan",
+                           "partition_scatter", "relabel_rows", "find_best_split",
+                           "find_best_split_batched", "predict_forest_raw"), tag, "wave")
     check(isinstance(wave["learner"], DeviceTreeLearner),
           "train (wave): lt.train did not grow its trees with the wave learner")
     if args.seed == 0:
@@ -1037,9 +1501,11 @@ def main() -> int:
 
     # ------------------------------- training, serial learner
     serial = drive_training(lt, libs, TRAIN_PARAMS, train_set, valid, SERIAL_ROUNDS,
-                            ("histogram", "split_scan", "predict_forest_raw"), tag,
+                            ("histogram", "find_best_split", "predict_forest_raw"), tag,
                             "serial")
     train_launches = {k: wave["launches"][k] + serial["launches"][k] for k in wave["launches"]}
+    print(f"training path launches per learner: wave {wave['launches']}; serial "
+          f"{serial['launches']}")
 
     def launches(name):
         return serve_launches.get(name, 0) + train_launches[name]
@@ -1067,17 +1533,17 @@ def main() -> int:
          "plain_ms": ms_hist["plain_root"], "bound_ms": bound_hist["root"][0],
          "bound_by": bound_hist["root"][1], "library_ms": None},
         {"name": "split_scan", "route": "cuda",
-         "source": "lightgbm_tpu_torch/csrc/split_scan.cu",
+         "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
          "launches": launches("split_scan"),
-         "max_abs_err": err_scan, "ms": ms_scan["kernel"],
+         "max_abs_err": err_scan, "ms": device_or_events(ms_scan, "kernel"),
          "plain_ms": ms_scan["plain"], "bound_ms": bound_scan[0],
          "bound_by": bound_scan[1], "library_ms": None},
         {"name": "split_scan_batched", "route": "cuda",
-         "source": "lightgbm_tpu_torch/csrc/split_scan.cu",
+         "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
          "launches": launches("split_scan_batched"),
-         "max_abs_err": 0.0, "ms": ms_bscan["kernel"],
+         "max_abs_err": 0.0, "ms": device_or_events(ms_bscan, "kernel"),
          "plain_ms": ms_bscan["plain"], "bound_ms": bound_bscan[0],
          "bound_by": bound_bscan[1], "library_ms": None},
         {"name": "histogram_slots_ragged", "route": "cuda",
@@ -1102,7 +1568,43 @@ def main() -> int:
          "max_abs_err": 0.0, "ms": ms_cmp["kernel"],
          "plain_ms": ms_cmp["plain"], "bound_ms": bound_cmp[0],
          "bound_by": bound_cmp[1], "library_ms": ms_cmp["library"]},
+        # the split kernel's find form: group histogram -> each leaf's record
+        {"name": "find_best_split", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_find.cu",
+         "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
+         "launches": launches("find_best_split"),
+         "max_abs_err": err_find, "ms": device_or_events(ms_find, "one"),
+         "plain_ms": ms_find["plain_one"], "bound_ms": bound_find["one"][0],
+         "bound_by": bound_find["one"][1], "library_ms": None},
+        {"name": "find_best_split_batched", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_find.cu",
+         "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
+         "launches": launches("find_best_split_batched"),
+         "max_abs_err": err_find, "ms": device_or_events(ms_find, "batch"),
+         "plain_ms": ms_find["plain_batch"], "bound_ms": bound_find["batch"][0],
+         "bound_by": bound_find["batch"][1], "library_ms": None},
     ]
+    # the wave partition's three passes (the plain time is the whole
+    # partition's, one function) and the commit's relabel
+    for name, key, library in (("partition_decide", "decide", None),
+                               ("partition_scan", "scan", None),
+                               ("partition_scatter", "scatter", ms_part["library"])):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/wave_partition.cu",
+             "replaces": "lightgbm_tpu/ops/compact_pallas.py:313",
+             "launches": launches(name), "max_abs_err": 0.0,
+             "ms": ms_part["passes"].get(key + "_kernel", ms_part["partition"]),
+             "plain_ms": ms_part["plain"], "bound_ms": bound_part[key][0],
+             "bound_by": bound_part[key][1], "library_ms": library})
+    kernels.append(
+        {"name": "relabel_rows", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/wave_partition.cu",
+         "replaces": "lightgbm_tpu/ops/compact_pallas.py:313",
+         "launches": launches("relabel_rows"), "max_abs_err": 0.0,
+         "ms": ms_part["relabel"], "plain_ms": ms_part["relabel_plain"],
+         "bound_ms": bound_part["relabel"][0], "bound_by": bound_part["relabel"][1],
+         "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

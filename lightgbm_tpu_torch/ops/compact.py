@@ -13,6 +13,13 @@ JAX package's XLA path, ``compact_pallas.py:330-334``); a CUDA tensor
 launches the hand-written kernel (``ops/compact_cuda.py``,
 ``csrc/compact.cu``) or raises.
 
+The wave learner calls `partition_wave` instead: the whole of a wave's row
+partition from its K-entry tables (each row's range from its leaf id, its
+side from a decision table over group bins, the forward map, the move, the
+smaller child's slot vector and the children's ranges), and `relabel_rows`
+for a wave's commit. Their plain versions compose the steps above; a CUDA
+tensor launches ``csrc/wave_partition.cu``.
+
 Not carried over: ``build_pair_tables``, ``max_pairs_bound``, ``_limbs`` and
 the ``LGBM_TPU_COMPACT_ALIAS`` switch. They phrase the scatter as one-hot
 bf16 matmuls over (input tile, output tile) pairs, for a TPU that has no
@@ -110,3 +117,108 @@ def compact_rows(bins: torch.Tensor, row_p: torch.Tensor, dst: torch.Tensor,
     from .compact_cuda import compact
 
     return compact(bins, row_p, dst, out)
+
+
+GROUP_BINS = 256  # every value a uint8 group bin can take
+
+
+def _partition_wave_plain(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
+                          leaf2k: Optional[torch.Tensor], rgroup: Optional[torch.Tensor],
+                          lut: Optional[torch.Tensor], starts: torch.Tensor,
+                          counts: torch.Tensor, valid: torch.Tensor, bagged: bool,
+                          out: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                          slot_out: Optional[torch.Tensor],
+                          n_left_out: Optional[torch.Tensor]):
+    """`partition_wave` composed of the steps of this module: each row's
+    range and side, `range_partition_dst_by_range`, `compact_rows`, then the
+    children's ranges and the slot vector."""
+    N = bins.shape[1]
+    K = starts.shape[0]
+    dev = bins.device
+    leaf = row_p[:, leaf_col].to(torch.int64)
+    if bagged:
+        rng = torch.zeros(N, dtype=torch.int32, device=dev)
+        go_left = leaf == 0
+    else:
+        idx = leaf + 1
+        inside = (idx >= 0) & (idx < leaf2k.shape[0])
+        k = torch.where(inside, leaf2k[idx.clamp(0, leaf2k.shape[0] - 1)].to(torch.int64), K)
+        rng = torch.where((k >= 0) & (k < K), k, K).to(torch.int32)
+        r = rng.clamp(max=K - 1).to(torch.int64)
+        gb = bins.gather(0, rgroup[r].to(torch.int64)[None, :])[0].to(torch.int64)
+        go_left = (lut.reshape(-1)[r * GROUP_BINS + gb] != 0) & (rng < K)
+    ok = valid != 0
+    dst, n_left = range_partition_dst_by_range(go_left, rng, starts, counts, ok)
+    bins_o, rows_o = _compact_rows_plain(bins, row_p, dst, out)
+    n_right = counts - n_left
+    left_small = n_left <= n_right
+    small = torch.minimum(n_left, n_right)
+    s_start = torch.where(left_small, starts, starts + n_left)
+    s_end = s_start + small
+    ranges = torch.stack([n_left, s_start, s_end]).to(torch.int32)
+    flags = torch.stack([ok & (small > 0), left_small])
+    if slot_out is not None:
+        # a position keeps its range: the slot of the row that lands there
+        pos = torch.arange(N, dtype=torch.int32, device=dev)
+        none = torch.zeros(1, dtype=torch.int32, device=dev)
+        r64 = rng.to(torch.int64)
+        in_small = ((pos >= torch.cat([s_start, none])[r64])
+                    & (pos < torch.cat([s_end, none])[r64]))
+        slot_out.copy_(torch.where(in_small, rng, K))
+    if n_left_out is not None:
+        n_left_out.copy_(n_left)
+    return bins_o, rows_o, ranges, flags
+
+
+def partition_wave(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
+                   leaf2k: Optional[torch.Tensor], rgroup: Optional[torch.Tensor],
+                   lut: Optional[torch.Tensor], starts: torch.Tensor, counts: torch.Tensor,
+                   valid: torch.Tensor, bagged: bool = False,
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   slot_out: Optional[torch.Tensor] = None,
+                   n_left_out: Optional[torch.Tensor] = None):
+    """One wave's stable 2-way partition of K disjoint row ranges, from the
+    wave's K-entry tables (the JAX wave's ``_decide_go_left`` +
+    ``range_partition_dst`` + ``compact_rows``,
+    treelearner/device.py:603-646, and its slot vector, :662-666).
+
+    bins [G, N] uint8 and row_p [N, rc] float32, whose column leaf_col is
+    the row's leaf id, leaf-contiguous: range k is the positions
+    [starts[k], starts[k] + counts[k]) and holds exactly the rows whose
+    leaf2k[leaf + 1] is k; leaf2k maps only valid ranges (valid [K] != 0),
+    every other row to K or past it. A row of range k goes left when
+    lut[k, bins[rgroup[k], n]] != 0 (rgroup [>= K] int32, lut [>= K, 256]).
+    `bagged`: one range [0, N) holding every row, left when the leaf id is
+    0; leaf2k, rgroup and lut are not read.
+
+    Writes `out` (bins, rows), the learner's second buffers (allocated when
+    None; they must not alias the inputs), `slot_out` [N] int32 when given
+    (k where the row lands in range k's smaller child, tie to the left, else
+    K) and `n_left_out` [K] (any dtype) when given. Returns (bins, rows,
+    ranges [3, K] int32: n_left, the smaller child's start and end; flags
+    [2, K] bool: the smaller child is valid and not empty, it is the left
+    one). A CPU tensor takes the plain version; a CUDA tensor launches the
+    three passes of the partition kernel."""
+    from .compact_cuda import partition
+
+    return partition(bins, row_p, leaf_col, leaf2k, rgroup, lut, starts, counts, valid,
+                     bagged, out, slot_out, n_left_out)
+
+
+def _relabel_rows_plain(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor) -> None:
+    mids, ends, new_ids = table.tolist()
+    for mid, end, new_id in zip(mids, ends, new_ids):
+        row_p[mid:end, leaf_col] = float(new_id)
+
+
+def relabel_rows(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor,
+                 max_len: int) -> None:
+    """A wave's commit on the leaf-id column, in place: the rows at
+    positions [mid[j], end[j]) (a committed range's right child) take leaf
+    id new_id[j] (the JAX wave's relabel, treelearner/device.py:818-826).
+    table [3, m] int64 (mid, end, new_id) on row_p's device; max_len is at
+    least every end - mid. A CPU tensor takes the plain version; a CUDA
+    tensor launches the relabel kernel."""
+    from .compact_cuda import relabel
+
+    relabel(row_p, leaf_col, table, max_len)

@@ -17,9 +17,19 @@ Dataset::FixHistogram (include/LightGBM/dataset.h:770).
 
 This slice carries the numeric lanes: categorical features, monotone
 constraints and quantized histograms are refused before a learner is built.
-The numeric scan of a float32 histogram goes through ``ops/scan_cuda.py``:
-the plain version below for a CPU tensor, the hand-written kernel
-(``csrc/split_scan.cu``) for a CUDA tensor.
+The search goes through ``ops/scan_cuda.py``: the plain version below for a
+CPU tensor, the hand-written kernel (``csrc/split_find.cu``) for a CUDA
+tensor. `find_best_split` is one launch there, from the group histogram to
+each leaf's record; `per_feature_best` keeps a launch that returns every
+feature's record.
+
+The two float sums over a feature's bins, the EFB default bin's missing
+mass and the prefix of the scan, are float64 in the kernel's order, which
+`bin_sum` and `bin_prefix` emulate exactly: the bins cut into SCAN_LANES
+chunks of consecutive bins, each chunk summed in order, a Kogge-Stone scan
+over the chunk sums, then each chunk's prefix from its left neighbours'
+sum. On grid-snapped histograms every such sum is exact, so the order
+changes nothing there.
 """
 from __future__ import annotations
 
@@ -120,7 +130,7 @@ def threshold_l1(s, l1):
     # barrier, split.py:208-220): the soft-thresholded gradient is rounded
     # to float32 before it feeds the output division and the gain products.
     # PyTorch runs each op on its own, so the order here is the order run;
-    # the CUDA scan kernel repeats it op for op.
+    # the CUDA split kernel repeats it op for op.
     return torch.sign(s) * torch.clamp(torch.abs(s) - l1, min=0.0)
 
 
@@ -181,6 +191,55 @@ class SplitInfo:
                    left_output=float(vec[10]), right_output=float(vec[11]))
 
 
+SCAN_LANES = 32  # csrc/split_find.cu: a warp's lanes share a feature's bins
+
+
+def _lane_chunks(x: torch.Tensor):
+    """[..., B, CH] -> ([..., SCAN_LANES, P, CH] float64, zero past B; P):
+    lane j's bins are [jP, jP + P)."""
+    B, CH = x.shape[-2], x.shape[-1]
+    P = max(1, -(-B // SCAN_LANES))
+    xp = torch.nn.functional.pad(x.to(torch.float64), (0, 0, 0, SCAN_LANES * P - B))
+    return xp.reshape(*x.shape[:-2], SCAN_LANES, P, CH), P
+
+
+def _lane_scan(xp: torch.Tensor, P: int) -> torch.Tensor:
+    """Each lane's chunk summed in order from +0.0, then the inclusive
+    Kogge-Stone scan of the lane sums (offsets 1, 2, 4, 8, 16):
+    [..., SCAN_LANES, CH] float64."""
+    s = torch.zeros_like(xp[..., 0, :])
+    for i in range(P):
+        s = s + xp[..., i, :]
+    d = 1
+    while d < SCAN_LANES:
+        s = torch.cat([s[..., :d, :], s[..., :-d, :] + s[..., d:, :]], dim=-2)
+        d *= 2
+    return s
+
+
+def bin_sum(x: torch.Tensor) -> torch.Tensor:
+    """[..., B, CH] float32 -> [..., CH] float64: the sum over bins in the
+    split kernel's order."""
+    xp, P = _lane_chunks(x)
+    return _lane_scan(xp, P)[..., -1, :]
+
+
+def bin_prefix(x: torch.Tensor) -> torch.Tensor:
+    """[..., B, CH] float32 -> [..., B, CH] float32: the inclusive prefix over
+    bins, summed in float64 in the split kernel's order and rounded to
+    float32 at every bin."""
+    B = x.shape[-2]
+    xp, P = _lane_chunks(x)
+    s = _lane_scan(xp, P)
+    acc = torch.cat([torch.zeros_like(s[..., :1, :]), s[..., :-1, :]], dim=-2)
+    prefix = []
+    for i in range(P):
+        acc = acc + xp[..., i, :]
+        prefix.append(acc)
+    out = torch.stack(prefix, dim=-2).reshape(*x.shape[:-2], SCAN_LANES * P, x.shape[-1])
+    return out[..., :B, :].to(torch.float32)
+
+
 def gather_feature_hist_raw(hist: torch.Tensor, gather_index: torch.Tensor,
                             valid_slot: torch.Tensor) -> torch.Tensor:
     """[..., G, Bg, CH] group hist -> [..., F, Bmax, CH] by pure index
@@ -199,8 +258,13 @@ def fix_feature_hist(fh: torch.Tensor, totals: torch.Tensor,
     """EFB default-bin reconstruction: default = leaf totals - sum(other
     bins), added at the default bin of bundle members only (FixHistogram,
     include/LightGBM/dataset.h:770). A dtype-preserving multiply, so an
-    integer histogram stays exact. fh [..., F, Bmax, CH], totals [..., CH]."""
-    missing_mass = totals[..., None, :].to(fh.dtype) - fh.sum(dim=-2)  # [..., F, CH]
+    integer histogram stays exact; a float one sums its bins in the split
+    kernel's order (`bin_sum`). fh [..., F, Bmax, CH], totals [..., CH]."""
+    if fh.dtype.is_floating_point:
+        stored = bin_sum(fh).to(fh.dtype)
+    else:
+        stored = fh.sum(dim=-2)
+    missing_mass = totals[..., None, :].to(fh.dtype) - stored  # [..., F, CH]
     add = missing_mass * efb_omitted[:, None].to(fh.dtype)
     rows = torch.arange(fh.shape[-3], device=fh.device)
     out = fh.clone()
@@ -225,11 +289,10 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
     batched; every op is elementwise or runs along the bin axis, so each
     leaf's records are the one-leaf call's bits).
 
-    The prefix over bins is a float64 sum in ascending bin order rounded to
-    float32 at every bin (torch.cumsum on a CPU tensor accumulates
-    sequentially; the CUDA kernel does the same). It differs from the JAX
-    package's float32 cumsum in the last bit at most per step, and not at
-    all on grid-snapped histograms, whose sums are exact."""
+    The prefix over bins is a float64 sum in the kernel's order rounded to
+    float32 at every bin (`bin_prefix`). It differs from the JAX package's
+    float32 cumsum in the last bit at most per step, and not at all on
+    grid-snapped histograms, whose sums are exact."""
     l1, l2, min_data, min_hess, min_gain, max_delta = (
         params[0], params[1], params[2], params[3], params[4], params[5])
     F, Bmax = fh.shape[-3], fh.shape[-2]
@@ -247,7 +310,7 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
     tpos = torch.arange(Bmax, device=dev)[None, :]
     at_missing = has_missing[:, None] & (tpos == missing_pos[:, None])
     scan_hist = torch.where(at_missing[:, :, None], zero, fh)
-    cum = torch.cumsum(scan_hist.to(torch.float64), dim=-2).to(torch.float32)
+    cum = bin_prefix(scan_hist)
 
     # lane 0: missing goes right (natural); lane 1: missing goes left
     neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
@@ -320,7 +383,7 @@ def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
 
     Returns [F, 14] (or [L, F, 14]). The `feature` field is the row index
     into fh (invalid rows get -1). A CPU tensor takes the plain version; a
-    CUDA tensor the scan kernel.
+    CUDA tensor the split kernel's per-feature form.
     """
     from .scan_cuda import split_scan
 
@@ -336,19 +399,34 @@ def reduce_best_record(recs: torch.Tensor) -> torch.Tensor:
         *best.shape, 1, recs.shape[-1]))[..., 0, :]
 
 
-def find_best_split(hist: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
+def _find_best_split_plain(hist: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
+                           params: torch.Tensor,
+                           feature_mask: Optional[torch.Tensor] = None,
+                           penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of the split kernel's find form: the feature
+    gather with the EFB fix, the per-feature records, the argmax."""
+    fh = gather_feature_hist(hist, meta, totals)  # [..., F, Bmax, 3]
+    return reduce_best_record(_per_feature_best_plain(fh, totals, meta, params,
+                                                      feature_mask, penalty))
+
+
+def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
                     params: torch.Tensor,
                     feature_mask: Optional[torch.Tensor] = None,
-                    penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    penalty: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Best split across all features for one leaf, or for L leaves at once
     (the JAX package vmaps it over a wave's 2K children,
-    treelearner/device.py:742-747; each record is the one-leaf call's bits,
-    and on the card it is one scan launch for all L).
+    treelearner/device.py:742-747; each record is the one-leaf call's bits).
 
     hist:   [G, Bg, 3] group histogram for the leaf, or [L, G, Bg, 3]
-    totals: [3] leaf (sum_grad, sum_hess, count), or [L, 3]
+    totals: [3] leaf (sum_grad, sum_hess, count), or [L, 3]; for one leaf
+            also three floats on the host, which a launch takes by value
+    out:    optional [len(SPLIT_FIELDS)] (or [L, ...]) float32 written
     Returns the packed split record [len(SPLIT_FIELDS)] float32, or [L, ...].
+    A CPU tensor takes the plain version; a CUDA tensor is one launch of the
+    split kernel.
     """
-    fh = gather_feature_hist(hist, meta, totals)  # [..., F, Bmax, 3]
-    return reduce_best_record(per_feature_best(fh, totals, meta, params,
-                                               feature_mask, penalty))
+    from .scan_cuda import split_find
+
+    return split_find(hist, totals, meta, params, feature_mask, penalty, out)

@@ -14,12 +14,16 @@ the same carry:
     rec_store  [L, REC+4]   the split log replayed into a Tree
 
 Per wave: the top-K frontier leaves by gain -> a stable 2-way partition of
-every selected leaf's range (ops/compact.py, the compaction kernel) -> a
-ragged histogram of only the smaller children (ops/histogram.py, the
-ragged histogram kernel, K*CH channels) -> the larger children by
-subtraction from the pool -> 2K split scans in one launch (the split-scan
-kernel's leaf batch) -> the exact best-first replay, which commits splits
-until the argmax needs a leaf whose children were not precomputed. Split
+every selected leaf's range (ops/compact.py:partition_wave, the partition
+kernel's three passes: each row's range and side from K-entry tables, the
+move, the smaller children's slot vector and ranges) -> a ragged histogram
+of only the smaller children (ops/histogram.py, the ragged histogram
+kernel, K*CH channels) -> the larger children by subtraction from the pool
+-> 2K split searches in one launch (ops/split.py:find_best_split, the split
+kernel's find form, from the group histograms to each child's record) ->
+the exact best-first replay, which commits splits until the argmax needs a
+leaf whose children were not precomputed -> the committed ranges' right
+rows relabeled (ops/compact.py:relabel_rows, one launch). Split
 decisions are those of the reference's leaf-wise growth
 (serial_tree_learner.cpp:182); only histogram and partition work is
 speculative. Histogrammed rows per tree: N at the root plus, each wave, the
@@ -36,18 +40,18 @@ Where the card differs from the TPU, with the same results:
   and sends back which splits it committed: one copy each way. The replay
   is K dependent steps of tiny work, which a kernel would run on one
   thread.
-* Per-row ownership, split fields and the commit relabel come from K-entry
-  tables gathered by each row's range (its leaf-id column names it), and a
-  row's group bin from one gather of the plane; the TPU phrased all three
-  as [N, K] match matrices and masked matmuls because its gathers
-  serialize. The split decision becomes a [K, 256] table of
-  `_decide_go_left` over every possible group bin.
+* Per-row ownership and split fields come from K-entry tables read by
+  each row's range (its leaf-id column names it) inside the partition
+  kernel, and the commit relabel writes the committed ranges' right rows;
+  the TPU phrased all three as [N, K] match matrices and masked matmuls
+  because its gathers serialize. The split decision becomes a [K, 256]
+  table of `_decide_go_left` over every possible group bin.
 * The frontier choice is a stable descending sort, which breaks ties toward
   the lower leaf index as ``jax.lax.top_k`` does.
 * The unpermute is one scatter by the position column (the TPU sorted).
 * No row or group padding: the TPU padded rows to its tiles and groups to
   its (32, 128) layout. Padded rows were invisible in every output.
-* The original bin plane is kept; the permuted copy, the compaction's
+* The original bin plane is kept; the permuted copy, the partition's
   second buffer and the pool are allocated once per learner and reused.
 
 Not carried, each still to port (ROADMAP): the sharded grower and its
@@ -70,7 +74,7 @@ import torch
 
 from ..common import MISSING_NAN, MISSING_ZERO
 from ..models.tree import Tree
-from ..ops.compact import compact_rows, range_partition_dst_by_range
+from ..ops.compact import partition_wave, relabel_rows
 from ..ops.histogram import fixed_point_exponents, histogram_slots_ragged
 from ..ops.partition import bucket_size
 from ..ops.split import SPLIT_FIELDS, FeatureMeta, SplitInfo, find_best_split
@@ -151,8 +155,9 @@ def _decision_table(tables: FeatureTables, feature: np.ndarray, thresh: np.ndarr
 
 class WaveBuffers:
     """The wave carry's device arrays, allocated once per learner and reused
-    by every tree: the permuted bin plane and row payload, the compaction's
-    second copy of each, and the histogram pool."""
+    by every tree: the permuted bin plane and row payload, the partition's
+    second copy of each, the histogram's slot vector and the histogram
+    pool."""
 
     def __init__(self, n_groups: int, n_rows: int, payload: int, num_leaves: int,
                  num_bins: int, channels: int, device: torch.device) -> None:
@@ -160,6 +165,7 @@ class WaveBuffers:
                      for _ in range(2)]
         self.rows = [torch.empty((n_rows, payload), dtype=torch.float32, device=device)
                      for _ in range(2)]
+        self.slot = torch.empty(n_rows, dtype=torch.int32, device=device)
         self.pool = torch.zeros((num_leaves + 1, n_groups, num_bins, channels),
                                 dtype=torch.float32, device=device)
 
@@ -228,7 +234,7 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
 
     bins [G, N] uint8 (not modified), gh [N, CH] float32 (bagged-out rows
     must have zero gh), leaf_id0 [N] int32 (0 for in-bag rows, -1 otherwise;
-    pass bagged=True when any row is bagged out, so the initial compaction
+    pass bagged=True when any row is bagged out, so the initial partition
     runs), params the learner's [6] float32 regularizers, feature_mask [F]
     bool or None for all. `buffers` holds the device carry for these shapes
     (allocated here when None).
@@ -257,25 +263,25 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
     row_p[:, POS] = pos.to(torch.float32)
     row_p[:, LEAF] = leaf_id0.to(torch.float32)
 
-    def compact(dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def partition(*args, **kwargs):
+        """One partition out of the current buffers into the other pair."""
         nonlocal cur
         out = 1 - cur
-        compact_rows(buffers.bins[cur], buffers.rows[cur], dst,
-                     out=(buffers.bins[out], buffers.rows[out]))
+        _, _, ranges, flags = partition_wave(
+            buffers.bins[cur], buffers.rows[cur], LEAF, *args,
+            out=(buffers.bins[out], buffers.rows[out]), **kwargs)
         cur = out
-        return buffers.bins[cur], buffers.rows[cur]
+        return buffers.bins[cur], buffers.rows[cur], ranges, flags
 
     def on_dev(values, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), dtype=dtype).to(dev)
 
-    # --- initial compaction: in-bag rows to the front, root = [0, n_in)
+    # --- initial partition: in-bag rows (leaf id 0) to the front, root = [0, n_in)
     if bagged:
-        in_bag = leaf_id0 == 0
-        n_in = int(in_bag.sum())
-        dst0, _ = range_partition_dst_by_range(
-            in_bag, torch.zeros(N, dtype=torch.int32, device=dev),
-            on_dev([0], torch.int32), on_dev([N], torch.int32), on_dev([True], torch.bool))
-        bins_p, row_p = compact(dst0)
+        whole = on_dev([0, N, 1], torch.int32)
+        bins_p, row_p, ranges, _ = partition(None, None, None, whole[:1], whole[1:2],
+                                             whole[2:], bagged=True)
+        n_in = int(ranges[0, 0])
     else:
         n_in = N
     start = np.zeros(L + 1, dtype=np.int64)
@@ -293,10 +299,13 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
             on_dev([0], torch.int32), on_dev([n_in], torch.int32),
             on_dev([True], torch.bool), num_bins, 1, exponents=exps)
     hist_rows = n_in
-    root_tot = root_hist[0].sum(dim=0)
+    # what the host reads of the root: its record and totals, one copy
+    root_pull = torch.empty(REC + CH, dtype=torch.float32, device=dev)
+    root_tot = torch.sum(root_hist[0], dim=0, out=root_pull[REC:])
     with global_timer.scope("wave_scan"):
-        root_rec = find_best_split(root_hist, root_tot, meta, params, feature_mask)
-        pulled = torch.cat([root_rec, root_tot]).cpu().numpy()
+        find_best_split(root_hist, root_tot, meta, params, feature_mask,
+                        out=root_pull[:REC])
+        pulled = root_pull.cpu().numpy()
     pool[0] = root_hist
     depth = np.zeros(L + 1, dtype=np.int32)
     leaf_best = np.full((L + 1, REC), -np.inf, dtype=np.float32)
@@ -306,6 +315,12 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
                                   min_data, min_hess, max_depth)[0]
     # one extra dump row at the end, as the device replay's store has
     rec_store = np.zeros((max(L - 1, 1) + 1, STORE), dtype=np.float32)
+    # what the host reads of a wave, one copy: the 2K children's records and
+    # totals, and the K left counts
+    pull = torch.empty(2 * K * (REC + CH) + K, dtype=torch.float32, device=dev)
+    pull_recs = pull[:2 * K * REC].view(2 * K, REC)
+    pull_totals = pull[2 * K * REC:2 * K * (REC + CH)].view(2 * K, CH)
+    pull_nl = pull[2 * K * (REC + CH):]
 
     n_cur, t, n_waves = 1, 0, 0
     while L > 1 and t < L - 1 and leaf_best[:L, 0].max() > 0:
@@ -317,57 +332,43 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
             recs_sel = leaf_best[sel]
             feat = np.where(sel_ok, recs_sel[:, 1], 0.0).astype(np.int64)
             thresh = np.where(sel_ok, recs_sel[:, 2], 0.0).astype(np.int32)
-            lut = np.zeros((K + 1, GROUP_BINS), dtype=np.int32)
-            lut[:K] = _decision_table(tables, feat, thresh, recs_sel[:, 3] > 0.5)
-            lut[:K][~sel_ok] = 0
+            lut = _decision_table(tables, feat, thresh, recs_sel[:, 3] > 0.5)
+            lut[~sel_ok] = 0
             leaf2k = np.full(L + 2, K, dtype=np.int32)  # by leaf id + 1 (-1 -> none)
             leaf2k[sel[sel_ok] + 1] = np.nonzero(sel_ok)[0]
-            rgroup = np.zeros(K + 1, dtype=np.int32)
-            rgroup[:K] = np.where(sel_ok, tables.group[feat], 0)
+            rgroup = np.where(sel_ok, tables.group[feat], 0)
             s_k, c_k = start[sel], count[sel]
             table = on_dev(np.concatenate([
                 leaf2k, rgroup, s_k, c_k, sel_ok, sel, lut.reshape(-1)]).astype(np.int32),
                 torch.int32)
-            parts = torch.split(table, [L + 2, K + 1, K, K, K, K, (K + 1) * GROUP_BINS])
-            leaf2k_d, rgroup_d, s_d, c_d, ok_d, sel_d, lut_d = parts
-            ok_d = ok_d != 0
+            leaf2k_d, rgroup_d, s_d, c_d, ok_d, sel_d, lut_d = torch.split(
+                table, [L + 2, K, K, K, K, K, K * GROUP_BINS])
 
         with global_timer.scope("wave_partition"):
-            # each row's range (K: none) from its leaf id, then its group bin
-            # and its side of the split from K-entry tables
-            rng = leaf2k_d[row_p[:, LEAF].to(torch.int64) + 1]
-            rng64 = rng.to(torch.int64)
-            gb = bins_p.gather(0, rgroup_d[rng64].to(torch.int64)[None, :])[0]
-            go_left = lut_d[rng64 * GROUP_BINS + gb.to(torch.int64)] != 0
-            dst, nl = range_partition_dst_by_range(go_left, rng, s_d, c_d, ok_d)
-            bins_p, row_p = compact(dst)
+            # each row's range (K: none) from its leaf id, its side from its
+            # range's decision table, the stable move, the smaller children
+            bins_p, row_p, ranges, flags = partition(
+                leaf2k_d, rgroup_d, lut_d, s_d, c_d, ok_d, slot_out=buffers.slot,
+                n_left_out=pull_nl)
+            ss, se = ranges[1], ranges[2]
+            h_ok, left_small = flags[0], flags[1]
 
         with global_timer.scope("wave_histogram"):
             # the smaller child of each selected leaf (tie -> left), whose rows
-            # the partition made contiguous; positions keep their range
-            nr = c_d - nl
-            left_small = nl <= nr
-            sc = torch.minimum(nl, nr)
-            ss = torch.where(left_small, s_d, s_d + nl)
-            se = ss + sc
-            none = torch.zeros(1, dtype=torch.int32, device=dev)
-            in_s = ((pos >= torch.cat([ss, none])[rng64])
-                    & (pos < torch.cat([se, none])[rng64]))
-            slot = torch.where(in_s, rng, K).to(torch.int32)
-            hist_s = histogram_slots_ragged(bins_p, row_p[:, :CH], slot, ss, se,
-                                            ok_d & (sc > 0), num_bins, K, exponents=exps)
+            # the partition made contiguous and labeled with their slot
+            hist_s = histogram_slots_ragged(bins_p, row_p[:, :CH], buffers.slot, ss, se,
+                                            h_ok, num_bins, K, exponents=exps)
             hist_s = hist_s.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3)
             pool_sel = pool[sel_d.to(torch.int64)]
             hist_l = torch.where(left_small[:, None, None, None], hist_s,
                                  pool_sel - hist_s)
             hist_r = pool_sel - hist_l  # subtract_histogram, batched
             hists = torch.stack([hist_l, hist_r], dim=1).reshape(2 * K, G, num_bins, CH)
-            totals = hists[:, 0].sum(dim=1)  # [2K, CH]
+            torch.sum(hists[:, 0], dim=1, out=pull_totals)  # [2K, CH]
 
         with global_timer.scope("wave_scan"):
-            recs2 = find_best_split(hists, totals, meta, params, feature_mask)
-            pulled = torch.cat([recs2.reshape(-1), totals.reshape(-1),
-                                nl.to(torch.float32)]).cpu().numpy()
+            find_best_split(hists, pull_totals, meta, params, feature_mask, out=pull_recs)
+            pulled = pull.cpu().numpy()
 
         with global_timer.scope("wave_replay"):
             recs2 = pulled[:2 * K * REC].reshape(2 * K, REC).copy()
@@ -388,20 +389,16 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
 
         with global_timer.scope("wave_commit"):
             # the committed children's histograms into the pool, and each
-            # committed range's right rows (at or past the midpoint) relabeled
-            upd = on_dev(np.concatenate([ck, sel[ck], newids[ck], committed,
-                                         [0], newids, [0]]).astype(np.int64),
-                         torch.int64)
+            # committed range's right rows, [start + n_left, end), relabeled
             n = len(ck)
-            ck_d, wb_d, wn_d = upd[:n], upd[n:2 * n], upd[2 * n:3 * n]
-            com_d = upd[3 * n:3 * n + K + 1] != 0
-            newid_d = upd[3 * n + K + 1:]
-            pool.index_copy_(0, wb_d, hist_l[ck_d])
-            pool.index_copy_(0, wn_d, hist_r[ck_d])
-            mid = torch.cat([s_d + nl, none])
-            is_right = com_d[rng64] & (pos >= mid[rng64])
-            row_p[:, LEAF] = torch.where(is_right, newid_d[rng64].to(torch.float32),
-                                         row_p[:, LEAF])
+            if n:
+                mids = s_k[ck] + nl_k[ck]
+                upd = on_dev(np.concatenate([ck, sel[ck], newids[ck], mids,
+                                             s_k[ck] + c_k[ck], newids[ck]]), torch.int64)
+                ck_d, wb_d, wn_d = upd[:n], upd[n:2 * n], upd[2 * n:3 * n]
+                pool.index_copy_(0, wb_d, hist_l[ck_d])
+                pool.index_copy_(0, wn_d, hist_r[ck_d])
+                relabel_rows(row_p, LEAF, upd[3 * n:].view(3, n), int(nr_k[ck].max()))
 
     # undo the permutation: one scatter by the position column
     leaf_id = torch.empty(N, dtype=torch.int32, device=dev)

@@ -6,7 +6,7 @@ leaf-wise loop runs on the host, each step dispatching three device
 computations —
 
   1. leaf histogram      (ops/histogram.py — the histogram kernel on the card)
-  2. best-split search   (ops/split.py — the split-scan kernel on the card)
+  2. best-split search   (ops/split.py — one split-kernel launch on the card)
   3. partition update    (ops/partition.py — stable-sort compaction)
 
 with the histogram-subtraction trick (larger child = parent − smaller,
@@ -173,10 +173,9 @@ class SerialTreeLearner:
         return self._tree_feature_mask
 
     def _search_split(self, state: _LeafState) -> SplitInfo:
-        rec = find_best_split(
-            state.hist, torch.tensor(state.totals, dtype=torch.float32,
-                                     device=self.device),
-            self.meta, self.params_dev, self._node_feature_mask())
+        # the totals go by value: no upload a call
+        rec = find_best_split(state.hist, state.totals, self.meta, self.params_dev,
+                              self._node_feature_mask())
         return SplitInfo.from_packed(rec.cpu().numpy())
 
     # --------------------------------------------------------------- internal

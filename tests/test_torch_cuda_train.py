@@ -9,13 +9,16 @@ so every test worker collects the same tests.
 
 Contracts: the histogram is exact on grid-snapped gradients and in the
 integer mode, within the float32 summation bound P * 2**-24 * sum|v| per
-bin otherwise, and bit-equal from one launch to the next. The split scan's
-records equal the plain version's run on the CPU on the same histogram,
-field for field; the gain within 4 ULP of the un-shifted gain; the leaf
-batch of the scan gives each leaf the one-leaf launch's bits. The ragged
-histogram is held as the leaf histogram is; the compaction moves bits
-exactly. On snapped gradients the model text trained on the card equals
-the CPU's, through either learner.
+bin otherwise, and bit-equal from one launch to the next. The split
+kernel's records (per feature, and the find form's one record a leaf from
+the group histogram) equal the plain version's run on the CPU on the same
+histogram, field for field; the gain within 4 ULP of the un-shifted gain;
+the leaf batch gives each leaf the one-leaf launch's bits. The ragged
+histogram is held as the leaf histogram is; the compaction and the wave
+partition move bits exactly, and the partition's slot vector, left counts
+and children's ranges equal the plain version's. On snapped gradients the
+model text trained on the card equals the CPU's, through either learner,
+with and without bagging.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
                                               _build_histogram_rows_plain,
                                               _histogram_slots_ragged_plain)
 from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
+from test_torch_wave_cases import WAVE_CASES, partition_inputs, wave_case
 
 pytestmark = pytest.mark.gpu
 PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]
@@ -186,10 +190,10 @@ def test_train_on_card_byte_equal_to_cpu(cuda):
     params = {"objective": _snapped_logloss, "num_leaves": 63,
               "feature_fraction_bynode": 0.8, "verbosity": -1}
     hist_before = hist_cuda.launches["histogram"]
-    scan_before = scan_cuda.launches["split_scan"]
+    scan_before = scan_cuda.launches["find_best_split"]
     card = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=3)
     assert hist_cuda.launches["histogram"] > hist_before
-    assert scan_cuda.launches["split_scan"] > scan_before
+    assert scan_cuda.launches["find_best_split"] > scan_before
     host = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
                     num_boost_round=3)
     assert card.model_to_string() == host.model_to_string()
@@ -464,20 +468,22 @@ def test_batched_split_scan_matches_one_leaf_launches(cuda):
         assert torch.equal(recs[i].view(torch.int32), one.view(torch.int32))
 
 
-def test_wave_learner_on_card_byte_equal_to_cpu(cuda):
+def _wave_card_vs_cpu(params):
     rng = np.random.RandomState(12)
     X = rng.normal(size=(20000, 10))
     y = (X[:, 0] + X[:, 3] > 0).astype(np.float64)
-    params = {"objective": _snapped_logloss, "num_leaves": 63, "verbosity": -1,
-              "bagging_fraction": 0.8, "bagging_freq": 1}
-    counts = {name: dict(lib.launches) for name, lib in
-              (("hist", hist_cuda), ("compact", compact_cuda), ("scan", scan_cuda))}
+    params = {"objective": _snapped_logloss, "num_leaves": 63, "verbosity": -1, **params}
+    counts = {name: dict(launches) for name, launches in
+              (("hist", hist_cuda.launches), ("part", compact_cuda.wave_launches),
+               ("scan", scan_cuda.launches))}
     card = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=3)
     assert isinstance(card._gbdt.tree_learner, DeviceTreeLearner)
     assert hist_cuda.launches["histogram_slots_ragged"] > \
         counts["hist"]["histogram_slots_ragged"]
-    assert compact_cuda.launches["compact_rows"] > counts["compact"]["compact_rows"]
-    assert scan_cuda.launches["split_scan_batched"] > counts["scan"]["split_scan_batched"]
+    for name in ("partition_decide", "partition_scan", "partition_scatter", "relabel_rows"):
+        assert compact_cuda.wave_launches[name] > counts["part"][name]
+    assert scan_cuda.launches["find_best_split_batched"] > \
+        counts["scan"]["find_best_split_batched"]
     host_params = {**params, "objective": "none", "device_type": "cpu",
                    "num_iterations": 3}
     train = lt.Dataset(X, label=y)
@@ -487,3 +493,132 @@ def test_wave_learner_on_card_byte_equal_to_cpu(cuda):
     for _ in range(3):
         host.update(fobj=_snapped_logloss)
     assert card.model_to_string() == host.model_to_string()
+
+
+def test_wave_learner_on_card_byte_equal_to_cpu(cuda):
+    _wave_card_vs_cpu({"bagging_fraction": 0.8, "bagging_freq": 1})
+
+
+def test_wave_learner_on_card_byte_equal_to_cpu_without_bagging(cuda):
+    _wave_card_vs_cpu({})
+
+
+@pytest.mark.parametrize("n", [3000, 300001])
+@pytest.mark.parametrize("case_args", WAVE_CASES, ids=[c[0] for c in WAVE_CASES])
+def test_partition_kernel_matches_plain(cuda, case_args, n):
+    from lightgbm_tpu_torch.ops.compact import partition_wave, relabel_rows
+
+    name, n_leaves, K, n_invalid, order, form = case_args
+    case = wave_case(n + K, n_leaves, K, n_invalid, order, form, N=n, G=28)
+    bins, row = torch.from_numpy(case["bins"]), torch.from_numpy(case["row"])
+    args = partition_inputs(case)
+    row_d = row.to(cuda)
+    if "relabel" in case:
+        table = torch.from_numpy(case["relabel"])
+        longest = int((table[1] - table[0]).max())
+        before = compact_cuda.wave_launches["relabel_rows"]
+        relabel_rows(row, 4, table, longest)
+        relabel_rows(row_d, 4, table.to(cuda), longest)
+        assert compact_cuda.wave_launches["relabel_rows"] == before + 1
+        assert torch.equal(row_d.cpu().view(torch.int32), row.view(torch.int32))
+
+    def run(device):
+        slot = torch.full((n,), -7, dtype=torch.int32, device=device)
+        n_left = torch.zeros(K, dtype=torch.float32, device=device)
+        got = partition_wave(bins.to(device), row if device == "cpu" else row_d, 4,
+                             *[None if a is None else a.to(device) for a in args],
+                             bagged=form == "bagged", slot_out=slot, n_left_out=n_left)
+        return [t.cpu() for t in got] + [slot.cpu(), n_left.cpu()]
+
+    before = dict(compact_cuda.wave_launches)
+    got, again = run(cuda), run(cuda)
+    for kernel in ("partition_decide", "partition_scan", "partition_scatter"):
+        assert compact_cuda.wave_launches[kernel] == before[kernel] + 2
+    ref = run("cpu")
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g.view(torch.uint8), r.view(torch.uint8))
+        assert torch.equal(a.view(torch.uint8), r.view(torch.uint8))
+
+
+def test_partition_wrapper_rejects_bad_input(cuda):
+    from lightgbm_tpu_torch.ops.compact import partition_wave
+
+    bins = torch.zeros((2, 100), dtype=torch.uint8, device=cuda)
+    rows = torch.zeros((100, 5), device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="alias"):
+        partition_wave(bins, rows, 4, None, None, None, 0 * one, 100 * one, one,
+                       bagged=True, out=(bins, torch.empty_like(rows)))
+    with pytest.raises(ValueError, match="one range"):
+        partition_wave(bins, rows, 4, None, None, None, one.repeat(2), one.repeat(2),
+                       one.repeat(2), bagged=True)
+    with pytest.raises(ValueError, match="int32"):
+        partition_wave(bins, rows, 4, None, None, None, 0 * one, 100 * one, one.bool(),
+                       bagged=True)
+
+
+def _bundled_case(seed):
+    """A dataset whose sparse features EFB bundles, one leaf's histogram
+    (from the kernel) and its totals on the card."""
+    rng = np.random.RandomState(seed)
+    n = 20000
+    X = np.where(rng.rand(n, 12) < 0.01, rng.normal(size=(n, 12)), 0.0)
+    ds = Dataset.from_matrix(X, label=np.zeros(n), config=Config({"min_data_in_leaf": 5}))
+    assert any(g.is_multi for g in ds.groups)
+    B = int(max(ds.group_bin_counts().max(), 2))
+    gh = np.stack([rng.normal(size=n), rng.uniform(0.05, 0.5, size=n), np.ones(n)], 1)
+    gh = np.concatenate([gh, np.zeros((1, 3))]).astype(np.float32)
+    idx = np.full(16384, n, np.int32)
+    idx[:12000] = np.sort(rng.choice(n, 12000, replace=False))
+    hist = hist_cuda.histogram(torch.from_numpy(ds.bins).to("cuda"),
+                               torch.from_numpy(gh).to("cuda"),
+                               torch.from_numpy(idx).to("cuda"), B)
+    return ds, B, hist, hist[0].sum(dim=0)
+
+
+@pytest.mark.parametrize("leaves", [1, 6])
+@pytest.mark.parametrize("mask", ["none", "sampled", "penalty"])
+@pytest.mark.parametrize("data", ["nan", "zero", "bundled"])
+def test_find_best_split_kernel_matches_plain_on_cpu(cuda, leaves, mask, data):
+    if data == "bundled":
+        ds, B, hist, tot = _bundled_case(9)
+    else:
+        ds, B, hist, tot = _leaf_case(3, data == "nan")
+    meta_d = ts.make_feature_meta(ds, B, cuda)
+    meta_h = ts.make_feature_meta(ds, B, "cpu")
+    F = len(meta_h.real_feature)
+    rng = np.random.RandomState(7)
+    fmask = None if mask == "none" else rng.rand(F) < 0.7
+    pen = rng.uniform(0, 3, size=F).astype(np.float32) if mask == "penalty" else None
+    if leaves > 1:  # a wave's children: the leaf, parts of it, their rests
+        hist = torch.stack([hist, hist / 2, hist - hist / 2, hist / 3, hist * 0.25,
+                            hist - hist / 3])
+        tot = hist[:, 0].sum(dim=1)
+    params = torch.tensor(PARAMS)
+    name = "find_best_split_batched" if leaves > 1 else "find_best_split"
+    before = scan_cuda.launches[name]
+    dev_args = (None if fmask is None else torch.from_numpy(fmask).to(cuda),
+                None if pen is None else torch.from_numpy(pen).to(cuda))
+    rec = ts.find_best_split(hist, tot, meta_d, params.to(cuda), *dev_args).cpu()
+    assert scan_cuda.launches[name] == before + 1
+    host_args = (None if fmask is None else torch.from_numpy(fmask),
+                 None if pen is None else torch.from_numpy(pen))
+    ref = ts.find_best_split(hist.cpu(), tot.cpu(), meta_h, params, *host_args)
+    assert torch.equal(rec[..., 1:], ref[..., 1:])
+    finite = torch.isfinite(ref[..., 0])
+    assert torch.equal(torch.isfinite(rec[..., 0]), finite)
+    shift = ts.leaf_gain(tot[..., 0].cpu(), tot[..., 1].cpu(), *params[[0, 1, 5]])
+    ulp = np.spacing(np.abs((ref[..., 0] + shift).numpy()).astype(np.float32))
+    assert (np.abs((rec[..., 0] - ref[..., 0]).numpy())[finite.numpy()]
+            <= 4 * ulp[finite.numpy()]).all()
+    assert (rec[..., 1] >= 0).any()  # some leaf has a split to compare
+    # the per-feature launch and the argmax give the same bits
+    fh = ts.gather_feature_hist(hist, meta_d, tot)
+    per = ts.reduce_best_record(scan_cuda.split_scan(fh, tot, meta_d, params.to(cuda),
+                                                     *dev_args))
+    assert torch.equal(per.cpu().view(torch.int32), rec.view(torch.int32))
+    if leaves == 1:  # host totals go by value, with the same bits
+        by_value = ts.find_best_split(hist, tot.cpu().tolist(), meta_d, params.to(cuda),
+                                      *dev_args)
+        assert torch.equal(by_value.cpu().view(torch.int32), rec.view(torch.int32))
