@@ -5,10 +5,10 @@
 Phases (any failure exits non-zero before the result line):
 
 1. device   the card's name, count and power limit; no card -> exit 1.
-2. build    the five sources under csrc/ (forest traversal, histograms,
-            split search, row compaction, wave partition), one nvcc each,
-            all started together; build seconds and ptxas's registers /
-            shared memory / spills.
+2. build    the six sources under csrc/ (forest traversal, histograms,
+            split search, row compaction, wave partition, row partition),
+            one nvcc each, all started together; build seconds and ptxas's
+            registers / shared memory / spills.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
             the repo targets (binary, 28 features, 500 trees x 255 leaves,
             LightGBM docs/Experiments.rst HIGGS settings), a multiclass-3
@@ -20,10 +20,13 @@ Phases (any failure exits non-zero before the result line):
             plans), leaf indices exactly equal, raw scores bit-equal, two
             launches bit-equal, then its timings at the main path's shapes.
             On the HIGGS-width training data (1,048,576 rows x 28 features
-            x 255 bins, made from --seed): the leaf histogram at the root
-            and on a ~100,000-row leaf, exact on grid-snapped gradients and
-            in the integer mode, within the float32 summation bound
-            otherwise, two launches bit-equal; the ragged (wave) histogram
+            x 255 bins, made from --seed): the leaf histogram at the root,
+            on a ~100,000-row and a ~4,000-row leaf (and the 100,000 rows
+            consecutive, the gather's cost apart), read to their counts,
+            bit-equal to the plain emulation of its fixed-point sum, exact
+            on grid-snapped gradients and in the integer mode, within the
+            float32 summation bound otherwise, two launches bit-equal; the
+            ragged (wave) histogram
             at the root and on 21 ranges covering about half the rows, each
             also with every row in bin 0, and histogram_slots on a sample,
             held as the leaf histogram and, otherwise, bit-equal to the
@@ -39,12 +42,16 @@ Phases (any failure exits non-zero before the result line):
             recorded from a round of training), on the same with random
             sides and on a real bagged initial partition, every output
             exactly equal to the plain version run on the CPU, and the
-            relabel on a real commit. Then their timings beside their
-            bounds, plain versions and, for the compaction and the
-            partition's scatter, index_copy_; the whole wave partition and
-            the whole find_best_split as the learner calls them, beside the
-            parent's sequence of PyTorch glue and kernels for the same work
-            (device time and host time a call).
+            relabel on a real commit. The serial learner's row partition
+            (decide, scatter) on three real splits recorded from a serial
+            round (the root's, ~100,000 and ~4,000 rows), both children
+            exactly equal to the plain version run on the CPU. Then their
+            timings beside their bounds, plain versions and, for the
+            compaction and the partition's scatter, index_copy_; the whole
+            wave partition, the whole find_best_split and RowPartition.split
+            as the learners call them, beside the parent's sequence of
+            PyTorch glue and kernels for the same work (device time and
+            host time a call).
 5. exact    training on 65,536 rows with grid-snapped custom gradients, 3
             rounds: the serial learner (feature_fraction_bynode=0.8) on the
             card and with device_type=cpu, and the wave learner on the card
@@ -69,7 +76,8 @@ Phases (any failure exits non-zero before the result line):
             the host scopes, the device's busy share over one round and the
             device operations (kernels and copies) a wave launches there.
 9. serial   the same with feature_fraction_bynode=0.8, through the serial
-            learner.
+            learner (at --seed 0 its AUC within 0.002 of SERIAL_AUC_SEED0),
+            with the device operations a split of the profiled round.
 
 The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving path), and again just before and after phase 8 and
@@ -77,12 +85,13 @@ phase 9 (the training paths): every kernel of each path must have launched
 there. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile-wave-round-of DIR
+    python3 chip_smoke.py --profile-of DIR
 
-profiles one wave-learner round of the package in checkout DIR (an older
-commit unpacked with git archive) on the same data and prints its device
-operations a wave, busy share and host scopes, for a comparison in one
-call; it prints no result line.
+times the leaf histogram of the package in checkout DIR (an older commit
+unpacked with git archive) at the root and the two leaves of phase 4, and
+profiles one round of each learner on the same data: busy share, device
+operations a wave or a split, host scopes; for a comparison in one call.
+It prints no result line.
 """
 from __future__ import annotations
 
@@ -111,6 +120,7 @@ SERVE_REQUESTS, SERVE_ROWS, SERVE_THREADS = 256, 64, 8
 SERVE_BATCHES = (64, 512, 4096)  # one request, a few coalesced, a full batch
 # the training path: HIGGS width (bench.py:7-13) with per-node sampling
 TRAIN_ROWS, VALID_ROWS, LEAF_ROWS = 1_048_576, 65_536, 100_000
+SMALL_LEAF_ROWS = 4_000  # a typical serial leaf: 1,048,576 rows over 255 leaves
 TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 65_536, 3
 SERIAL_ROUNDS = 10  # the serial learner's path, after the wave learner's
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
@@ -125,6 +135,10 @@ GROUP_BINS = 256  # every value a uint8 group bin takes
 # train / valid AUC of the 10 wave-learner rounds at --seed 0 when the wave
 # histogram sums in float32; summed in fixed point they stay within 0.002
 WAVE_AUC_SEED0 = (0.74877, 0.74533)
+# train / valid AUC of the 10 serial-learner rounds at --seed 0 when the
+# dense histogram sums in float32 (the parent's kernel); summed in fixed
+# point they stay within 0.002
+SERIAL_AUC_SEED0 = (0.74867, 0.74533)
 
 
 class SmokeFailure(RuntimeError):
@@ -208,69 +222,230 @@ def snapped_logloss(preds, dataset):
     return grad, hess
 
 
-def check_histogram(dev, bins, n_rows, num_bins, seed):
-    """The leaf-histogram kernel against its plain version at the training
-    path's shapes: the root (identity rows) and a padded ~100,000-row leaf.
-    The plain version runs on the CPU, whose sums are sequential (on the
-    card its scatter-add order changes from run to run), and is timed on
-    the card. Returns (max |kernel - plain| on unsnapped gradients,
-    timings, bounds, the gradients and the leaf's rows on the card)."""
-    from lightgbm_tpu_torch.ops import hist_cuda
-    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
-                                                  _build_histogram_rows_plain)
-
-    rng = np.random.RandomState(seed)
-    G = bins.shape[0]
+def leaf_gradients(rng, n_rows, dev):
+    """gh_ext [N+1, 3] float32 (real and grid-snapped) and int8 on the card,
+    each with its zero sentinel row."""
     raw = np.stack([rng.normal(0, 0.3, n_rows), rng.uniform(0.05, 0.25, n_rows),
                     np.ones(n_rows)], axis=1)
     snapped = np.round(np.clip(raw, -0.9, 0.9) * 16) / 16
     ext = lambda a: torch.from_numpy(np.concatenate(  # noqa: E731
         [a, np.zeros((1, 3))]).astype(np.float32)).to(dev)
-    gh, gh_snap = ext(raw), ext(snapped)
     q = torch.from_numpy(np.concatenate([rng.randint(-127, 128, (n_rows, 3)),
                                          np.zeros((1, 3))]).astype(np.int8)).to(dev)
-    P = 1 << int(np.ceil(np.log2(LEAF_ROWS)))
-    idx_np = np.full(P, n_rows, np.int32)
-    idx_np[:LEAF_ROWS] = np.sort(rng.choice(n_rows, LEAF_ROWS, replace=False))
-    idx = torch.from_numpy(idx_np).to(dev)
-    bins_h = bins.cpu()
-    max_err = 0.0
-    for name, rows, n_pos in (("root", None, n_rows), ("leaf", idx, P)):
-        def kern(values, r=rows):
-            return hist_cuda.histogram(bins, values if r is not None else values[:n_rows],
-                                       r, num_bins).cpu()
+    return ext(raw), ext(snapped), q
 
-        def plain(values, r=rows):
-            values = values.cpu()
-            if r is None:
-                return _build_histogram_plain(bins_h, values[:n_rows], num_bins)
-            return _build_histogram_rows_plain(bins_h, values, r.cpu(), num_bins)
 
-        check(torch.equal(kern(gh_snap), plain(gh_snap)),
+def leaf_sets(rng, n_rows, dev):
+    """The serial learner's row sets at three sizes, as RowPartition holds
+    them: {name: (row_idx [P] on the card, count)}, sorted rows padded with
+    the sentinel to their bucket: the root (every row), a LEAF_ROWS leaf, a
+    SMALL_LEAF_ROWS leaf, and the LEAF_ROWS leaf's count of consecutive rows
+    (the gather's cost apart)."""
+    from lightgbm_tpu_torch.ops.partition import bucket_size
+
+    def padded(rows):
+        idx = np.full(bucket_size(len(rows)), n_rows, np.int32)
+        idx[:len(rows)] = rows
+        return torch.from_numpy(idx).to(dev), len(rows)
+
+    sets = {"root": padded(np.arange(n_rows))}
+    for name, k in (("leaf", LEAF_ROWS), ("small", SMALL_LEAF_ROWS)):
+        sets[name] = padded(np.sort(rng.choice(n_rows, k, replace=False)))
+    sets["leaf_contiguous"] = padded(np.arange(LEAF_ROWS) + n_rows // 3)
+    return sets
+
+
+def check_histogram(dev, bins, n_rows, num_bins, seed):
+    """The leaf-histogram kernel against its plain versions at the serial
+    learner's shapes: the root, a ~100,000-row and a ~4,000-row leaf (leaf
+    _sets), each read to its count with the fixed-point exponents computed
+    once beforehand, as the learner calls it. Bit-equal to the plain
+    emulation of its fixed-point sum run on the CPU, equal to the plain
+    version on snapped gradients and in the integer mode and within its
+    float32 summation bound otherwise, two launches bit-equal; the identity
+    row set (no index) equal to the root's. The plain version runs on the
+    CPU, whose sums are sequential, and is timed on the card. Returns (max
+    |kernel - plain| on unsnapped gradients, timings, bounds, the gradients
+    and the LEAF_ROWS leaf's rows on the card)."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
+                                                  _build_histogram_rows_fixed,
+                                                  _build_histogram_rows_plain,
+                                                  fixed_point_exponents)
+
+    rng = np.random.RandomState(seed)
+    G = bins.shape[0]
+    gh, gh_snap, q = leaf_gradients(rng, n_rows, dev)
+    sets = leaf_sets(rng, n_rows, dev)
+    exps = fixed_point_exponents(gh, n_rows)
+    check(torch.equal(exps.cpu(), fixed_point_exponents(gh.cpu(), n_rows)),
+          "histogram: the card's fixed-point exponents differ from the CPU's")
+    bins_h, gh_h = bins.cpu(), gh.cpu()
+    max_err, timings, bounds = 0.0, {}, {}
+    out_bytes = G * num_bins * 3 * 4
+    for name, (idx, count) in sets.items():
+        idx_h = idx.cpu()
+
+        def kern(values, e=None, i=idx, c=count):
+            return hist_cuda.histogram(bins, values, i, num_bins, c, e)
+
+        def plain(values, i=idx_h, c=count):
+            return _build_histogram_rows_plain(bins_h, values.cpu(), i, num_bins, c)
+
+        check(torch.equal(kern(gh_snap).cpu(), plain(gh_snap)),
               f"histogram {name}: differs from the plain version on snapped gradients")
-        got, again = kern(gh), kern(gh)
+        got, again = kern(gh, exps), kern(gh)
         torch.cuda.synchronize()
-        check(torch.equal(got, again), f"histogram {name}: two launches differ")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"histogram {name}: two launches differ (exponents passed / computed)")
+        got = got.cpu()
+        fixed = _build_histogram_rows_fixed(bins_h, gh_h, idx_h, num_bins, exps.cpu(), count)
+        check(torch.equal(got.view(torch.int32), fixed.view(torch.int32)),
+              f"histogram {name}: differs from the plain fixed-point emulation")
         ref = plain(gh)
         err = (got.double() - ref.double()).abs()
-        check(bool((err <= n_pos * 2.0 ** -24 * plain(gh.abs()).double()).all()),
+        check(bool((err <= count * 2.0 ** -24 * plain(gh.abs()).double()).all()),
               f"histogram {name}: outside the float32 summation bound")
-        check(torch.equal(kern(q), plain(q)), f"histogram {name}: integer mode differs")
+        check(torch.equal(kern(q).cpu(), plain(q)), f"histogram {name}: integer mode differs")
         max_err = max(max_err, float(err.max()))
-    valid_rows = LEAF_ROWS
-    timings = {
-        "root": cuda_ms(lambda: hist_cuda.histogram(bins, gh[:n_rows], None, num_bins), 20),
-        "leaf": cuda_ms(lambda: hist_cuda.histogram(bins, gh, idx, num_bins), 20),
-        "plain_root": cuda_ms(lambda: _build_histogram_plain(bins, gh[:n_rows], num_bins), 3),
-        "plain_leaf": cuda_ms(lambda: _build_histogram_rows_plain(bins, gh, idx, num_bins), 3),
-    }
-    out_bytes = G * num_bins * 3 * 4
-    bounds = {  # each input read once, the output written once
-        "root": bound(G * n_rows + 12 * n_rows + out_bytes, 3 * G * n_rows),
-        "leaf": bound(G * valid_rows + 12 * valid_rows + 4 * P + out_bytes,
-                      3 * G * valid_rows),
-    }
-    return max_err, timings, bounds, (gh, idx)
+        timings[name] = cuda_ms(lambda k=kern: k(gh, exps), 20)
+        # the kernel's own device time, and the call's device events
+        # (zeroing, kernel, conversion): back to back, a small leaf's calls
+        # are host-bound and CUDA events time the wrapper
+        timings[name + "_device"] = kernel_device_ms(lambda k=kern: k(gh, exps), 20,
+                                                     "hist_rows_kernel")
+        timings[name + "_events"] = call_device_ms(lambda k=kern: k(gh, exps), 20)
+        timings["plain_" + name] = cuda_ms(
+            lambda i=idx, c=count: _build_histogram_rows_plain(bins, gh, i, num_bins, c), 3)
+        # each input read once over the leaf's rows (bins, gh, the index),
+        # the output written once
+        bounds[name] = bound(count * (G + 12 + 4) + out_bytes, 3 * G * count)
+    root_idx, root_count = sets["root"]
+    check(torch.equal(hist_cuda.histogram(bins, gh[:n_rows], None, num_bins).cpu(),
+                      hist_cuda.histogram(bins, gh, root_idx, num_bins, root_count,
+                                          exps).cpu()),
+          "histogram: the identity row set differs from the root's index set")
+    timings["plain_root_identity"] = cuda_ms(
+        lambda: _build_histogram_plain(bins, gh[:n_rows], num_bins), 3)
+    return max_err, timings, bounds, (gh, sets["leaf"][0])
+
+
+def record_serial_splits(lt, train_set, params):
+    """Copies of the inputs of three real splits of one serial round (the
+    root's, and those whose leaves come nearest LEAF_ROWS and
+    SMALL_LEAF_ROWS rows), kept from lt.train with RowPartition.split
+    wrapped: {name: (bins_row, row_idx, count, decision, n_data)}."""
+    from lightgbm_tpu_torch.ops import partition as pmod
+
+    kept = {}
+    split = pmod.RowPartition.split
+
+    def record(self, leaf, new_leaf, bins_row, decision):
+        cnt = self.leaf_count[leaf]
+        item = (bins_row.clone(), self.leaf_idx[leaf].clone(), cnt, tuple(decision),
+                self.num_data)
+        kept.setdefault("root", item)
+        for name, target in (("leaf", LEAF_ROWS), ("small", SMALL_LEAF_ROWS)):
+            if name not in kept or abs(cnt - target) < abs(kept[name][2] - target):
+                kept[name] = item
+        return split(self, leaf, new_leaf, bins_row, decision)
+
+    pmod.RowPartition.split = record
+    try:
+        lt.train(dict(params), train_set, num_boost_round=1)
+    finally:
+        pmod.RowPartition.split = split
+    check(set(kept) == {"root", "leaf", "small"}, f"recorded only {sorted(kept)}")
+    return kept
+
+
+def _parent_split(bins_row, idx, cnt, decision, n_data, min_bucket=256):
+    """The parent's RowPartition.split (its ops/partition.py:81-149): the
+    decision on each row of the padded set, a stable argsort on a 3-way key,
+    the sync, then each child's padded buffer. Returns (left, right, left
+    count)."""
+    from lightgbm_tpu_torch.ops.partition import bucket_size, split_decision_bins
+
+    P = idx.shape[0]
+    dev = idx.device
+    valid = torch.arange(P, dtype=torch.int32, device=dev) < cnt
+    gb = bins_row[torch.clamp(idx, max=n_data - 1).to(torch.int64)]
+    go_left = split_decision_bins(gb, decision) & valid
+    key = torch.where(go_left, 0, torch.where(valid, 1, 2)).to(torch.int32)
+    order = torch.argsort(key, stable=True)
+    sorted_idx = torch.where(valid, idx[order], n_data)
+    left_cnt = int(go_left.sum())
+    right_cnt = cnt - left_cnt
+    lp, rp = bucket_size(left_cnt, min_bucket), bucket_size(right_cnt, min_bucket)
+    left = torch.where(torch.arange(lp, device=dev) < left_cnt, sorted_idx[:lp], n_data)
+    padded = torch.cat([sorted_idx, torch.full((rp,), n_data, dtype=sorted_idx.dtype,
+                                               device=dev)])
+    right = torch.where(torch.arange(rp, device=dev) < right_cnt,
+                        padded[left_cnt:left_cnt + rp], n_data)
+    return left.to(torch.int32), right.to(torch.int32), left_cnt
+
+
+def check_row_partition(dev, kept):
+    """The serial learner's partition kernels (decide, scatter) against
+    their plain version run on the CPU on three real splits: both children's
+    buffers and the left count exactly equal, two launches equal, and
+    RowPartition.split's children equal to the parent's op sequence's. Timed
+    as the learner calls it (RowPartition.split: the table, the launches,
+    the one sync, the children) beside the parent's sequence: device ms a
+    call (torch.profiler, the device's own events) and host ms a call.
+    Returns (timings, bounds, {name: (count, P, left count)})."""
+    from lightgbm_tpu_torch.ops import partition_cuda
+    from lightgbm_tpu_torch.ops.partition import (RowPartition, _split_rows_plain,
+                                                  go_left_table)
+
+    timings, bounds, shapes = {}, {}, {}
+    for name, (bins_row, idx, cnt, decision, n) in kept.items():
+        table = go_left_table(decision)
+        got = partition_cuda.split_rows(bins_row, idx, cnt, table, n)
+        again = partition_cuda.split_rows(bins_row, idx, cnt, table, n)
+        torch.cuda.synchronize()
+        ref = _split_rows_plain(bins_row.cpu(), idx.cpu(), cnt, table, n)
+        for what, g, a, r in zip(("left", "right", "n_left"), got, again, ref):
+            check(g.dtype == r.dtype and g.shape == r.shape and torch.equal(g.cpu(), r),
+                  f"row partition ({name}): {what} differs from the plain version")
+            check(torch.equal(a, g), f"row partition ({name}): two launches differ in {what}")
+        part = RowPartition(1, dev)
+
+        def this(p=part, b=bins_row, i=idx, c=cnt, d=decision, n=n):
+            p.num_data, p.leaf_idx, p.leaf_count = n, {0: i}, {0: c}
+            p.split(0, 1, b, d)
+            return p.leaf_idx[0], p.leaf_idx[1], p.leaf_count[0]
+
+        def parent(b=bins_row, i=idx, c=cnt, d=decision, n=n):
+            return _parent_split(b, i, c, d, n)
+
+        mine, theirs = this(), parent()
+        check(mine[2] == theirs[2] and torch.equal(mine[0], theirs[0])
+              and torch.equal(mine[1], theirs[1]),
+              f"row partition ({name}): RowPartition.split differs from the parent's")
+        reps = 20
+        busy = {k: device_busy_share(lambda f=f: [f() for _ in range(reps)])
+                for k, f in (("this", this), ("parent", parent))}
+        timings[name] = {
+            "passes": device_kernel_ms(this, 10, ("row_decide_kernel",
+                                                  "row_scatter_kernel")) or {},
+            "device": call_device_ms(this, reps),
+            "parent_device": call_device_ms(parent, reps),
+            "ops": None if busy["this"] is None else busy["this"][3] / reps,
+            "parent_ops": None if busy["parent"] is None else busy["parent"][3] / reps,
+            "host": host_ms(this, reps), "parent_host": host_ms(parent, reps),
+            "plain": cuda_ms(lambda: _split_rows_plain(bins_row, idx, cnt, table, n), 5),
+        }
+        P = idx.shape[0]
+        tiles = -(-cnt // partition_cuda.TILE)
+        bounds[name] = {  # each input read once, each output written once
+            # the index and a bin byte in, a bit and the tile's count out
+            "decide": bound(cnt * (4 + 1) + cnt / 8 + tiles * 4, 0),
+            # the index, the bits and the counts in, both children out
+            "scatter": bound(cnt * 4 + cnt / 8 + tiles * 4 + 2 * 4 * P + 4, 0),
+        }
+        shapes[name] = (cnt, P, int(ref[2]))
+    return timings, bounds, shapes
 
 
 def check_split_scan(dev, ds, bins, num_bins, gh, idx):
@@ -588,6 +763,13 @@ def kernel_device_ms(fn, reps, name):
     return (device_kernel_ms(fn, reps, (name,)) or {}).get(name)
 
 
+def call_device_ms(fn, reps):
+    """Device milliseconds of the device's own events (kernels, copies,
+    fills) a call of fn(), from torch.profiler, or None."""
+    busy = device_busy_share(lambda: [fn() for _ in range(reps)])
+    return None if busy is None else busy[0] * 1e3 / reps
+
+
 def device_or_events(t, key):
     """The profiler's device time of timings[key + "_device"], else the CUDA
     events' time of timings[key]."""
@@ -890,9 +1072,9 @@ def device_busy_share(fn):
 
 
 def profile_round(lt, params, train_set, tag, label):
-    """The device's busy share and the device operations a wave (kernels
-    and copies; a wave-learner round) over one steady round: a booster that
-    has already taken one step, profiled through its second."""
+    """The device's busy share and the device operations (kernels and
+    copies) a wave or a split over one steady round: a booster that has
+    already taken one step, profiled through its second."""
     from lightgbm_tpu_torch.utils.timer import global_timer
 
     bst = lt.Booster(dict(params), train_set)
@@ -900,13 +1082,16 @@ def profile_round(lt, params, train_set, tag, label):
     waves = global_timer.counters.get("device_waves", 0)
     busy = device_busy_share(bst.update)
     waves = global_timer.counters.get("device_waves", 0) - waves
-    per_wave = (f"; {busy[3]} device operations (kernels and copies) in the round, "
-                f"{waves} waves: {busy[3] / waves:.1f} a wave"
-                if busy is not None and waves else "")
+    splits = bst._gbdt.models[-1].num_leaves - 1
+    per = ""
+    if busy is not None:
+        per = (f"; {busy[3]} device operations (kernels and copies) in the round, "
+               + (f"{waves} waves: {busy[3] / waves:.1f} a wave" if waves else
+                  f"{splits} splits: {busy[3] / max(splits, 1):.1f} a split"))
     print(f"{tag} device busy share over one training round ({label}, torch.profiler): "
           + ("not measured (the profiler saw no device time)" if busy is None else
              f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
-             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}{per_wave}"))
+             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}{per}"))
 
 
 def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, label):
@@ -983,34 +1168,54 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
 
 
 def profile_other(checkout: str, seed: int) -> int:
-    """One profiled wave-learner round (and the host scopes of a 2-round
-    run) of the package in another checkout, on the training path's data."""
+    """The package in another checkout on the training path's data: its
+    leaf histogram's time at the root, a LEAF_ROWS and a SMALL_LEAF_ROWS
+    leaf (the row sets and gradients of check_histogram; the whole padded
+    set read, as its learner reads it where it takes no count), and for each
+    learner the host scopes of a 2-round run and one profiled round."""
     sys.path.insert(0, os.path.abspath(checkout))
     import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_cuda
     from lightgbm_tpu_torch.utils.timer import global_timer
 
     check(os.path.dirname(os.path.abspath(lt.__file__)).startswith(os.path.abspath(checkout)),
           f"imported {lt.__file__}, not the package in {checkout}")
     card = card_line()
+    dev = torch.device(DEVICE)
     X, y = higgs_rows(seed + 5, TRAIN_ROWS)
     train_set = lt.Dataset(X, label=y, params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
-    global_timer.reset()
-    global_timer.enabled = True
-    lt.train(dict(WAVE_PARAMS), train_set, num_boost_round=2)
-    global_timer.enabled = False
-    scopes = sorted(global_timer.totals.items(), key=lambda kv: -kv[1])
-    print(f"[{card}] {checkout}: wave train, 2 rounds, scopes (host s): " + ", ".join(
-        f"{k} {v:.3f} ({global_timer.counts[k]})" for k, v in scopes))
-    profile_round(lt, WAVE_PARAMS, train_set, f"[{card}] {checkout}:", "wave")
+    core = train_set._handle
+    num_bins = int(core.group_bin_counts().max())
+    bins = torch.from_numpy(core.bins).to(dev)
+    rng = np.random.RandomState(seed + 7)  # as check_histogram's
+    gh, _, _ = leaf_gradients(rng, TRAIN_ROWS, dev)
+    sets = leaf_sets(rng, TRAIN_ROWS, dev)
+    calls = {name: (lambda i=idx: hist_cuda.histogram(bins, gh, i, num_bins), count,
+                    idx.shape[0]) for name, (idx, count) in sets.items()}
+    print(f"[{card}] {checkout}: histogram (device events a call, torch.profiler; a call "
+          f"back to back, CUDA events) " + ", ".join(
+              f"{name} ({count} rows of {P}) {fmt_ms(call_device_ms(fn, 20))}; "
+              f"{cuda_ms(fn, 20):.4f} ms" for name, (fn, count, P) in calls.items()))
+    del bins, gh, sets
+    torch.cuda.empty_cache()
+    for params, label in ((WAVE_PARAMS, "wave"), (TRAIN_PARAMS, "serial")):
+        global_timer.reset()
+        global_timer.enabled = True
+        lt.train(dict(params), train_set, num_boost_round=2)
+        global_timer.enabled = False
+        scopes = sorted(global_timer.totals.items(), key=lambda kv: -kv[1])
+        print(f"[{card}] {checkout}: {label} train, 2 rounds, scopes (host s): " + ", ".join(
+            f"{k} {v:.3f} ({global_timer.counts[k]})" for k, v in scopes))
+        profile_round(lt, params, train_set, f"[{card}] {checkout}:", label)
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile-wave-round-of", metavar="DIR",
-                    help="profile one wave-learner round of the package in checkout DIR "
-                         "and exit")
+    ap.add_argument("--profile-of", metavar="DIR",
+                    help="time the leaf histogram and profile one round of each learner "
+                         "of the package in checkout DIR, and exit")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1018,13 +1223,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.profile_wave_round_of:
-        return profile_other(args.profile_wave_round_of, args.seed)
+    if args.profile_of:
+        return profile_other(args.profile_of, args.seed)
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
-    from lightgbm_tpu_torch.ops import (compact_cuda, cuda_build, hist_cuda, predict_cuda,
-                                        scan_cuda)
+    from lightgbm_tpu_torch.ops import (compact_cuda, cuda_build, hist_cuda, partition_cuda,
+                                        predict_cuda, scan_cuda)
     from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
     from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused,
                                                 _traverse_leaves, pack_ensemble)
@@ -1041,7 +1246,8 @@ def main() -> int:
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
     builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB,
-                                   compact_cuda.LIB, compact_cuda.WAVE_LIB], force=True)
+                                   compact_cuda.LIB, compact_cuda.WAVE_LIB,
+                                   partition_cuda.LIB], force=True)
     print(f"build: {len(builds)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for info in builds:
@@ -1185,20 +1391,29 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; positives {y_train.mean():.3f}")
     err_hist, ms_hist, bound_hist, (gh_d, idx_d) = check_histogram(
         dev, bins_d, TRAIN_ROWS, num_bins, args.seed + 7)
-    print(f"kernels: histogram {core.num_groups}x{TRAIN_ROWS}x{num_bins}: exact on "
-          f"snapped gradients and in the integer mode, max |d| {err_hist:.3g} "
-          f"otherwise (within the float32 summation bound), two launches bit-equal")
-    print(f"{tag} histogram root {TRAIN_ROWS} rows: kernel {ms_hist['root']:.4f} ms, "
-          f"plain {ms_hist['plain_root']:.3f} ms, bound {bound_hist['root'][0]:.4f} ms "
-          f"({bound_hist['root'][1]}); leaf {LEAF_ROWS} rows: kernel "
-          f"{ms_hist['leaf']:.4f} ms, plain {ms_hist['plain_leaf']:.3f} ms, bound "
-          f"{bound_hist['leaf'][0]:.4f} ms ({bound_hist['leaf'][1]})")
-    gb, rows_per_block, chunks = hist_cuda.launch_shape(TRAIN_ROWS, core.num_groups,
-                                                        num_bins, 3)
-    print(f"  histogram launch at the root: {chunks} x {-(-core.num_groups // gb)} "
-          f"blocks of {hist_cuda.WARPS * 32} threads, {gb} groups x {rows_per_block} "
-          f"rows each, {4 * hist_cuda.WARPS * (gb * num_bins + 32) * 3} bytes of "
-          f"dynamic shared memory a block")
+    print(f"kernels: histogram {core.num_groups}x{TRAIN_ROWS}x{num_bins} at the root, a "
+          f"{LEAF_ROWS}-row and a {SMALL_LEAF_ROWS}-row leaf: bit-equal to the plain "
+          f"fixed-point emulation, exact on snapped gradients and in the integer mode, max "
+          f"|d| {err_hist:.3g} otherwise (within the float32 summation bound), two launches "
+          f"bit-equal")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, rows in (("root", TRAIN_ROWS), ("leaf", LEAF_ROWS), ("small", SMALL_LEAF_ROWS),
+                       ("leaf_contiguous", LEAF_ROWS)):
+        gb, blocks = hist_cuda.rows_launch_shape(rows, core.num_groups, num_bins, 3, False,
+                                                 n_sms)
+        what = {"root": "root", "leaf": "leaf", "small": "small leaf",
+                "leaf_contiguous": "leaf of consecutive rows"}[name]
+        print(f"{tag} histogram {what}, {rows} rows: kernel "
+              f"{fmt_ms(ms_hist[name + '_device'])} device (torch.profiler), "
+              f"{fmt_ms(ms_hist[name + '_events'])} of device events a call (zeroing, "
+              f"kernel, conversion), {ms_hist[name]:.4f} ms a call back to back; plain "
+              f"{ms_hist['plain_' + name]:.3f} ms, bound {bound_hist[name][0]:.4f} ms "
+              f"({bound_hist[name][1]}); launch {blocks} x {-(-core.num_groups // gb)} "
+              f"blocks of {hist_cuda.THREADS} threads, {gb} groups each, "
+              f"{hist_cuda.rows_smem_bytes(gb, num_bins, 3, False)} bytes of dynamic shared "
+              f"memory a block")
+    print(f"{tag} histogram root through the identity row set: plain "
+          f"{ms_hist['plain_root_identity']:.3f} ms")
     err_scan, ms_scan, bound_scan, F_scan, B_scan = check_split_scan(
         dev, core, bins_d, num_bins, gh_d, idx_d)
     print(f"kernels: split scan {F_scan}x{B_scan} on the root and a leaf, with and "
@@ -1223,7 +1438,7 @@ def main() -> int:
         core.num_groups, num_bins, 3, False, torch.cuda.get_device_properties(dev)
         .multi_processor_count)
     print(f"  ragged histogram launch: {blocks_rag} x {-(-core.num_groups // gb_rag)} "
-          f"persistent blocks of {hist_cuda.RAGGED_THREADS} threads, {gb_rag} groups each, "
+          f"persistent blocks of {hist_cuda.THREADS} threads, {gb_rag} groups each, "
           f"{hist_cuda.RAGGED_PLAN_BYTES + gb_rag * num_bins * 7 * 4} bytes of dynamic "
           f"shared memory a block")
     for name, what in (("root", f"root {TRAIN_ROWS} rows"),
@@ -1295,6 +1510,28 @@ def main() -> int:
           f"parent's sequence (per-row glue, forward map, compaction kernel, slot vector, "
           f"relabel): device {ms_part['this_tree']:.4f} vs {ms_part['parent']:.4f} ms, host "
           f"{ms_part['this_tree_host']:.4f} vs {ms_part['parent_host']:.4f} ms a call")
+
+    kept = record_serial_splits(lt, train_set, TRAIN_PARAMS)
+    ms_rp, bound_rp, shapes_rp = check_row_partition(dev, kept)
+    del kept
+    torch.cuda.empty_cache()
+    print("kernels: row partition (decide, scatter) on three real splits of a serial round ("
+          + ", ".join(f"{name}: {c} rows of {P} positions, {nl} left"
+                      for name, (c, P, nl) in shapes_rp.items())
+          + "): both children and the left count equal to the CPU plain version, two "
+          "launches equal, RowPartition.split's children equal to the parent's sequence's")
+    for name, t in ms_rp.items():
+        passes = t["passes"]
+        print(f"{tag} row partition {name} ({shapes_rp[name][0]} rows): decide "
+              f"{fmt_ms(passes.get('row_decide_kernel'))}, scatter "
+              f"{fmt_ms(passes.get('row_scatter_kernel'))} (torch.profiler), plain "
+              f"{t['plain']:.3f} ms, bound decide {bound_rp[name]['decide'][0]:.5f}, scatter "
+              f"{bound_rp[name]['scatter'][0]:.5f} ms (bytes)")
+        print(f"{tag} row partition {name} as the learner calls it (RowPartition.split), "
+              f"against the parent's sequence (decision ops, stable argsort, sync, children's "
+              f"buffers): device {fmt_ms(t['device'])} vs {fmt_ms(t['parent_device'])} a "
+              f"call, {t['ops']} vs {t['parent_ops']} device operations a call; host "
+              f"{t['host']:.4f} vs {t['parent_host']:.4f} ms a call")
 
     # ------------------------------- the card trains as the CPU does
     exact = {}
@@ -1467,7 +1704,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------- main path: training, wave learner
-    libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB)
+    libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB,
+            partition_cuda.LIB)
     valid = (X_valid, y_valid)
     wave = drive_training(lt, libs, WAVE_PARAMS, train_set, valid, TRAIN_ROUNDS,
                           ("histogram_slots_ragged", "partition_decide", "partition_scan",
@@ -1501,8 +1739,12 @@ def main() -> int:
 
     # ------------------------------- training, serial learner
     serial = drive_training(lt, libs, TRAIN_PARAMS, train_set, valid, SERIAL_ROUNDS,
-                            ("histogram", "find_best_split", "predict_forest_raw"), tag,
-                            "serial")
+                            ("histogram", "find_best_split", "row_partition_decide",
+                             "row_partition_scatter", "predict_forest_raw"), tag, "serial")
+    if args.seed == 0:
+        check(all(abs(a - r) <= 0.002 for a, r in zip(serial["auc"], SERIAL_AUC_SEED0)),
+              f"train (serial): train / valid AUC {serial['auc']} not within 0.002 of "
+              f"{SERIAL_AUC_SEED0}")
     train_launches = {k: wave["launches"][k] + serial["launches"][k] for k in wave["launches"]}
     print(f"training path launches per learner: wave {wave['launches']}; serial "
           f"{serial['launches']}")
@@ -1529,7 +1771,7 @@ def main() -> int:
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
          "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
          "launches": launches("histogram"),
-         "max_abs_err": err_hist, "ms": ms_hist["root"],
+         "max_abs_err": err_hist, "ms": device_or_events(ms_hist, "root"),
          "plain_ms": ms_hist["plain_root"], "bound_ms": bound_hist["root"][0],
          "bound_by": bound_hist["root"][1], "library_ms": None},
         {"name": "split_scan", "route": "cuda",
@@ -1597,6 +1839,20 @@ def main() -> int:
              "ms": ms_part["passes"].get(key + "_kernel", ms_part["partition"]),
              "plain_ms": ms_part["plain"], "bound_ms": bound_part[key][0],
              "bound_by": bound_part[key][1], "library_ms": library})
+    # the serial learner's row partition: glue on the leaf histogram's path
+    # (row 5 of PERF.md's table), timed at the root split; the plain time is
+    # the whole partition's, one function
+    for name, key in (("row_partition_decide", "row_decide_kernel"),
+                      ("row_partition_scatter", "row_scatter_kernel")):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/row_partition.cu",
+             "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
+             "launches": launches(name), "max_abs_err": 0.0,
+             "ms": ms_rp["root"]["passes"].get(key, ms_rp["root"]["device"]),
+             "plain_ms": ms_rp["root"]["plain"],
+             "bound_ms": bound_rp["root"][name.split("_")[-1]][0],
+             "bound_by": bound_rp["root"][name.split("_")[-1]][1], "library_ms": None})
     kernels.append(
         {"name": "relabel_rows", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/wave_partition.cu",

@@ -12,15 +12,16 @@ raises. There is no fallback from one to the other.
 
 The float mode (float32 gh) computes the TPU kernel's ``f32=True`` path;
 the TPU's default bf16 operands are a matrix-unit rate trick, not part of
-the function. `histogram` sums it in float32 in a fixed order;
-`histogram_ragged` sums its finite values exactly in 64-bit fixed point
-and rounds to float32 once (``ops/histogram.py:fixed_point_exponents``); a
-NaN or inf makes its own cell NaN or inf, as in a float sum. The integer
-modes sum exactly in int32.
+the function. Both kernels sum its finite values exactly in 64-bit fixed
+point and round to float32 once (``ops/histogram.py:fixed_point_exponents``),
+so their bits are those of ``_build_histogram_rows_fixed`` and
+``_histogram_slots_ragged_fixed``; a NaN or inf makes its own cell NaN or
+inf, as in a float sum. The integer modes sum exactly in int32.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -32,12 +33,12 @@ from .histogram import (_acc_dtype, _build_histogram_plain, _build_histogram_row
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    args = [ptr, i64, i32, ptr, i32, ptr, i64, i32, i32, i64, i32, ptr, ptr, ptr]
+    rows = [ptr, i64, i32, ptr, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr]
     for fn in (lib.lgbt_histogram_f32, lib.lgbt_histogram_i32):
-        fn.argtypes = args
+        fn.argtypes = rows
         fn.restype = i32
     ragged = [ptr, i64, i32, ptr, i64, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-              ptr, ptr, ptr, ptr, ptr]
+              ptr, ptr, ptr, ptr]
     for fn in (lib.lgbt_histogram_ragged_f32, lib.lgbt_histogram_ragged_i32):
         fn.argtypes = ragged
         fn.restype = i32
@@ -47,44 +48,92 @@ LIB = CudaLibrary("histogram.cu", ("histogram", "histogram_slots_ragged"), _decl
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 
-WARPS = 8                      # csrc/histogram.cu kWarps
 MAX_RANGES = 1024              # csrc/histogram.cu kMaxRanges
-MAX_ROWS = (1 << 31) - 1       # rows the ragged kernel's int32 ranges address
-SMEM_BUDGET = 110 * 1024       # bytes of per-warp histograms a block may hold
-TARGET_BLOCKS = 4 * 132        # ~4 blocks per SM of the H100
-MIN_CHUNK_ROWS = 4 * WARPS * 32
+MAX_ROWS = (1 << 31) - 1       # rows the kernels' int32 indices and ranges address
 SMEM_PER_SM = 233_472          # shared memory of a Hopper SM
 SMEM_RESERVED = 1024           # ... of which the system takes this much a block
+SMEM_OPT_IN = 232_448          # the most dynamic shared memory a block may opt into
 RAGGED_PLAN_BYTES = 8 * (MAX_RANGES + 1 + 32)  # the ragged kernel's range scan
-RAGGED_THREADS = 512           # csrc/histogram.cu kRaggedThreads
-RAGGED_BLOCKS_PER_SM = 2       # ... and hist_ragged_kernel's launch bounds
+THREADS = 512                  # csrc/histogram.cu kThreads
+BLOCKS_PER_SM = 2              # ... and both kernels' launch bounds
+ROWS_PER_BLOCK = 4096          # positions a leaf histogram's block takes at least
 
 
-def launch_shape(n_pos: int, n_groups: int, num_bins: int, ch: int
-                 ) -> Tuple[int, int, int]:
-    """(group_block, rows_per_chunk, n_chunks): as many groups per block as
-    the per-warp histograms fit in SMEM_BUDGET, and row chunks enough for
-    TARGET_BLOCKS blocks (each chunk a whole number of warp steps)."""
-    per_group = WARPS * num_bins * ch * 4
-    group_block = max(1, min(n_groups, (SMEM_BUDGET - WARPS * 32 * ch * 4) // per_group))
+def _bin_bytes(ch: int, quantized: bool) -> int:
+    """Bytes a bin of a block's shared histogram takes (csrc/histogram.cu
+    bin_words): CH words in the integer mode, 2 CH in the fixed-point float
+    mode, padded to an odd count."""
+    return 4 * ((ch * (1 if quantized else 2)) | 1)
+
+
+def _groups_fit(n_groups: int, num_bins: int, ch: int, quantized: bool,
+                reserved: int = 0) -> int:
+    """The most groups whose block-wide histogram (and `reserved` bytes)
+    fits beside the SM's other block."""
+    budget = SMEM_PER_SM // BLOCKS_PER_SM - SMEM_RESERVED - reserved
+    return max(1, min(n_groups, budget // (num_bins * _bin_bytes(ch, quantized))))
+
+
+def rows_launch_shape(count: int, n_groups: int, num_bins: int, ch: int, quantized: bool,
+                      n_sms: int) -> Tuple[int, int]:
+    """(group_block, blocks) of the leaf histogram over `count` positions:
+    row chunks of ROWS_PER_BLOCK positions, as many as the card holds at
+    BLOCKS_PER_SM blocks an SM beside the group blocks; while the chunks are
+    few the groups are split finer, up to one a block, so a small leaf still
+    spreads over the SMs. A block's zeroing and flush cost its groups' cells
+    whatever its rows: the grid grows with the leaf, not with the card."""
+    fit = _groups_fit(n_groups, num_bins, ch, quantized)
+    slots = n_sms * BLOCKS_PER_SM
+    chunks = max(1, -(-count // ROWS_PER_BLOCK))
+    n_gblocks = max(-(-n_groups // fit), min(n_groups, slots // chunks))
+    group_block = -(-n_groups // n_gblocks)
     n_gblocks = -(-n_groups // group_block)
-    want_chunks = max(1, TARGET_BLOCKS // n_gblocks)
-    step = WARPS * 32
-    rows = max(MIN_CHUNK_ROWS, -(-n_pos // want_chunks))
-    rows = -(-rows // step) * step
-    return group_block, rows, max(1, -(-n_pos // rows))
+    return group_block, max(1, min(chunks, slots // n_gblocks))
+
+
+def rows_smem_bytes(group_block: int, num_bins: int, ch: int, quantized: bool) -> int:
+    """Dynamic shared memory of a leaf-histogram block."""
+    return group_block * num_bins * _bin_bytes(ch, quantized)
+
+
+def _fixed_scratch(cells: int, dev: torch.device) -> torch.Tensor:
+    """The float mode's scratch: `cells` int64 sums and `cells` int32 flag
+    words behind them (the library lays them out and zeroes them with one
+    memset)."""
+    return torch.empty(cells + (cells + 1) // 2, dtype=torch.int64, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check_exponents(exponents: torch.Tensor, ch: int, dev: torch.device) -> None:
+    if exponents.dtype != torch.int32 or exponents.device != dev \
+            or tuple(exponents.shape) != (ch,):
+        raise ValueError(f"exponents must be an int32 [{ch}] tensor on {dev}, got "
+                         f"{exponents.dtype} {list(exponents.shape)} on {exponents.device}")
 
 
 def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tensor],
-              num_bins: int) -> torch.Tensor:
+              num_bins: int, count: Optional[int] = None,
+              exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[G, num_bins, CH] histogram of bins [G, N] over the rows of gh (all
     N rows when row_idx is None, else the padded positions row_idx [P], the
-    sentinel N hitting gh's zero row N). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
+    sentinel N hitting gh's zero row N; with `count`, only the first count
+    positions, the rest being sentinel padding). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel.
+
+    The float mode's fixed-point exponents are `fixed_point_exponents(gh, N)`
+    unless the caller passes `exponents`, computed once for several calls.
+    The kernel trusts them: they must come from a g with N rows or more whose
+    largest finite |g| per channel is at least gh's (the gh of every call, or
+    a superset of its rows). Larger values overflow the int64 sums with no
+    error."""
     if bins.device.type == "cpu":
         if row_idx is None:
             return _build_histogram_plain(bins, gh, num_bins)
-        return _build_histogram_rows_plain(bins, gh, row_idx, num_bins)
+        return _build_histogram_rows_plain(bins, gh, row_idx, num_bins, count)
     require_cuda(bins, "the histogram")
     dev = bins.device
     acc = _acc_dtype(gh)
@@ -95,6 +144,9 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
         raise ValueError(f"num_bins must be in [1, 256] for a uint8 plane, got "
                          f"{num_bins}")
     G, N = bins.shape
+    if N > MAX_ROWS:
+        raise ValueError(f"the histogram addresses rows with int32 indices: at most "
+                         f"{MAX_ROWS} rows, got {N}")
     if gh.dim() != 2 or not 1 <= gh.shape[1] <= 4 or gh.device != dev \
             or not gh.is_contiguous() or gh.shape[0] < N:
         raise ValueError(f"gh must be a contiguous [N(+1), 1..4] tensor on {dev} "
@@ -109,19 +161,33 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
                              f"got {row_idx.dtype} {list(row_idx.shape)} on "
                              f"{row_idx.device}")
         n_pos = row_idx.shape[0]
-    out = torch.empty((G, num_bins, CH), dtype=acc, device=dev)
+    if count is not None:
+        if row_idx is None or not 0 <= count <= n_pos:
+            raise ValueError(f"count reads the first positions of row_idx: it must be in "
+                             f"[0, {n_pos}] with a row_idx, got {count}")
+        n_pos = count
+    quantized = acc == torch.int32
+    if exponents is not None and not quantized:
+        _check_exponents(exponents, CH, dev)
     if n_pos == 0 or G == 0:
-        return out.zero_()
-    group_block, rows, n_chunks = launch_shape(n_pos, G, num_bins, CH)
-    partial = (torch.empty((n_chunks, G, num_bins, CH), dtype=acc, device=dev)
-               if n_chunks > 1 else out)
+        return torch.zeros((G, num_bins, CH), dtype=acc, device=dev)
+    group_block, blocks = rows_launch_shape(n_pos, G, num_bins, CH, quantized,
+                                            _sm_count(dev.index))
     lib = LIB.load()
-    fn = lib.lgbt_histogram_f32 if acc == torch.float32 else lib.lgbt_histogram_i32
+    cells = G * num_bins * CH
+    if quantized:
+        out = torch.empty((G, num_bins, CH), dtype=torch.int32, device=dev)
+        image, exps, fn = out, None, lib.lgbt_histogram_i32
+    else:
+        out = torch.empty((G, num_bins, CH), dtype=torch.float32, device=dev)
+        image = _fixed_scratch(cells, dev)
+        exps = exponents if exponents is not None else fixed_point_exponents(gh, N)
+        fn = lib.lgbt_histogram_f32
     with torch.cuda.device(dev):
         err = fn(bins.data_ptr(), N, G, gh.data_ptr(), CH,
-                 None if row_idx is None else row_idx.data_ptr(), n_pos,
-                 num_bins, group_block, rows, n_chunks, partial.data_ptr(),
-                 out.data_ptr(), stream_of(bins))
+                 None if row_idx is None else row_idx.data_ptr(), n_pos, num_bins,
+                 group_block, blocks, None if exps is None else exps.data_ptr(),
+                 image.data_ptr(), out.data_ptr(), stream_of(bins))
     LIB.count("histogram", err)
     return out
 
@@ -134,12 +200,10 @@ def ragged_launch_shape(n_groups: int, num_bins: int, ch: int, quantized: bool,
     mode, 2 CH in the fixed-point float mode, padded to an odd count:
     csrc/histogram.cu bin_words) and range scan fit beside the SM's other
     block; blocks a group block such that all of them are resident at once."""
-    bin_bytes = 4 * ((ch * (1 if quantized else 2)) | 1)
-    budget = SMEM_PER_SM // RAGGED_BLOCKS_PER_SM - SMEM_RESERVED - RAGGED_PLAN_BYTES
-    fit = max(1, min(n_groups, budget // (num_bins * bin_bytes)))
+    fit = _groups_fit(n_groups, num_bins, ch, quantized, RAGGED_PLAN_BYTES)
     n_gblocks = -(-n_groups // fit)
     group_block = -(-n_groups // n_gblocks)
-    return group_block, max(1, n_sms * RAGGED_BLOCKS_PER_SM // n_gblocks)
+    return group_block, max(1, n_sms * BLOCKS_PER_SM // n_gblocks)
 
 
 def _check_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
@@ -173,11 +237,8 @@ def _check_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} "
                              f"tensor on {dev}, got {t.dtype} {list(t.shape)} on "
                              f"{t.device}")
-    CH = gh.shape[1]
-    if exponents is not None and (exponents.dtype != torch.int32 or exponents.device != dev
-                                  or tuple(exponents.shape) != (CH,)):
-        raise ValueError(f"exponents must be an int32 [{CH}] tensor on {dev}, got "
-                         f"{exponents.dtype} {list(exponents.shape)} on {exponents.device}")
+    if exponents is not None:
+        _check_exponents(exponents, gh.shape[1], dev)
 
 
 def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
@@ -205,25 +266,22 @@ def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     acc = torch.int32 if quantized else torch.float32
     if N == 0 or G == 0:
         return torch.zeros((G, num_bins, n_slots * CH), dtype=acc, device=dev)
-    group_block, blocks = ragged_launch_shape(
-        G, num_bins, CH, quantized, torch.cuda.get_device_properties(dev).multi_processor_count)
+    group_block, blocks = ragged_launch_shape(G, num_bins, CH, quantized,
+                                              _sm_count(dev.index))
     lib = LIB.load()
     count = G * num_bins * n_slots * CH
     if quantized:
-        out = torch.zeros((G, num_bins, n_slots * CH), dtype=torch.int32, device=dev)
-        image, flags, exps, fn = out, None, None, lib.lgbt_histogram_ragged_i32
+        out = torch.empty((G, num_bins, n_slots * CH), dtype=torch.int32, device=dev)
+        image, exps, fn = out, None, lib.lgbt_histogram_ragged_i32
     else:
         out = torch.empty((G, num_bins, n_slots * CH), dtype=torch.float32, device=dev)
-        # one zeroing for the int64 sums and the int32 flag words behind them
-        image = torch.zeros(count + (count + 1) // 2, dtype=torch.int64, device=dev)
-        flags = image[count:].view(torch.int32)
+        image = _fixed_scratch(count, dev)
         exps = exponents if exponents is not None else fixed_point_exponents(gh, N)
         fn = lib.lgbt_histogram_ragged_f32
     with torch.cuda.device(dev):
         err = fn(bins.data_ptr(), N, G, gh.data_ptr(), gh.stride(0), CH, slot.data_ptr(),
                  starts.data_ptr(), ends.data_ptr(), valid.data_ptr(), n_slots, num_bins,
                  group_block, blocks, None if exps is None else exps.data_ptr(),
-                 image.data_ptr(), None if flags is None else flags.data_ptr(),
-                 out.data_ptr(), stream_of(bins))
+                 image.data_ptr(), out.data_ptr(), stream_of(bins))
     LIB.count("histogram_slots_ragged", err)
     return out

@@ -15,7 +15,11 @@ padding contributes nothing; its bin gather is clamped to row N-1.
 The mode follows the gradient dtype: float32 gh gives a float32 histogram,
 int8 gh (quantized gradients) an exact int32 one. A CPU tensor takes the
 plain version below; a CUDA tensor launches the hand-written kernel
-(``ops/hist_cuda.py``, ``csrc/histogram.cu``) or raises.
+(``ops/hist_cuda.py``, ``csrc/histogram.cu``) or raises. The kernel sums
+the float mode exactly in 64-bit fixed point (`fixed_point_exponents`), so
+its bits are those of `_build_histogram_rows_fixed`, which lies within the
+float32 summation bound of the plain version and equals it on grid-snapped
+gradients.
 
 The wave learner's histogram is `histogram_slots_ragged` (the JAX package's
 ``hist_pallas.py:pallas_histogram_slots_ragged``): over K leaf-contiguous
@@ -70,13 +74,15 @@ def _build_histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
 
 
 def _build_histogram_rows_plain(bins: torch.Tensor, gh_ext: torch.Tensor,
-                                row_idx: torch.Tensor,
-                                num_bins: int) -> torch.Tensor:
+                                row_idx: torch.Tensor, num_bins: int,
+                                count: Optional[int] = None) -> torch.Tensor:
     """Leaf histogram: the row gather of `_build_histogram_rows_xla`
     (bins clamped to row N-1, gh read at the index so the sentinel N hits
-    the zero row), then the plain histogram."""
+    the zero row), then the plain histogram. With `count`, only the first
+    count positions are read: the rest is sentinel padding, whose zero rows
+    change no sum."""
     N = bins.shape[1]
-    idx = row_idx.to(torch.int64)
+    idx = row_idx[:count].to(torch.int64)
     bins_leaf = bins[:, torch.clamp(idx, max=N - 1)]
     return _histogram_plain(bins_leaf, gh_ext[idx], num_bins)
 
@@ -95,17 +101,25 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor,
 
 
 def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
-                         row_idx: torch.Tensor, num_bins: int) -> torch.Tensor:
+                         row_idx: torch.Tensor, num_bins: int,
+                         count: Optional[int] = None,
+                         exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Leaf histogram over a padded row-index set.
 
     bins:    [G, N] full bin plane
     gh_ext:  [N+1, CH] gradients with a ZERO sentinel row at index N
     row_idx: [P] int32 row indices, padded with N (the sentinel)
+    count:   the leaf's row count, when the caller knows it: only the first
+             count positions are read (the rest must be sentinel padding)
+    exponents: the CUDA kernel's fixed-point exponents of gh_ext
+             (`fixed_point_exponents(gh_ext, N)`), when the caller computes
+             them once for the leaves of a tree; the kernel trusts them
+             (`hist_cuda.histogram`); ignored on the CPU
     Returns [G, num_bins, CH] float32 (int32 for int8 gh).
     """
     from .hist_cuda import histogram
 
-    return histogram(bins, gh_ext, row_idx, num_bins)
+    return histogram(bins, gh_ext, row_idx, num_bins, count, exponents)
 
 
 def _ragged_cells(bins: torch.Tensor, slot: torch.Tensor, starts: torch.Tensor,
@@ -147,7 +161,7 @@ FIXED_POINT_BITS = 62         # a fixed-point bin sum stays within 2**62 in magn
 
 
 def fixed_point_exponents(gh: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """[CH] int32 exponents e_c of the CUDA ragged histogram's float mode,
+    """[CH] int32 exponents e_c of the CUDA histograms' float modes,
     computed on gh's device with no copy to the host: channel c's finite
     values are rounded to multiples of 2**-e_c and summed exactly in int64
     (NaN and inf stay out of the sum and make their own cells NaN or inf).
@@ -167,28 +181,57 @@ def _histogram_slots_ragged_fixed(bins: torch.Tensor, gh: torch.Tensor, slot: to
                                   starts: torch.Tensor, ends: torch.Tensor,
                                   valid: torch.Tensor, num_bins: int, n_slots: int,
                                   exponents: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel's float-mode arithmetic, written plainly: each kept
-    row's finite gh rounded (to nearest even) to a multiple of 2**-e_c as
-    int64, summed exactly per (bin, slot) cell, then int64 -> float64 ->
-    times 2**-e_c -> float32, each conversion rounding to nearest even; the
-    cell's NaN and inf values, summed apart in float32 (NaN, +inf, -inf or
-    0), are added last, so a cell holding one comes out as a float sum
-    would. The kernel gives these bits in any summation order; the tests and
-    chip_smoke.py hold it to them, and this to
+    """The CUDA ragged kernel's float-mode arithmetic, written plainly: the
+    kept rows of `_histogram_slots_ragged_plain` summed per (bin, slot) cell
+    as `_fixed_point_sum` does. The kernel gives these bits in any summation
+    order; the tests and chip_smoke.py hold it to them, and this to
     `_histogram_slots_ragged_plain`'s float32 summation bound."""
     G = bins.shape[0]
     CH = gh.shape[1]
     rows, cell = _ragged_cells(bins, slot, starts, ends, valid, num_bins, n_slots)
-    g = gh[rows]
+    out = _fixed_point_sum(cell, gh[rows], (num_bins + 1) * n_slots, exponents)
+    return out.reshape(G, num_bins + 1, n_slots * CH)[:, :num_bins].contiguous()
+
+
+def _fixed_point_sum(cell: torch.Tensor, g: torch.Tensor, n_cells: int,
+                     exponents: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernels' float-mode sum of rows g [R, CH] into cells cell
+    [G, R] < n_cells, written plainly: each finite value rounded (to
+    nearest even) to a multiple of 2**-e_c as int64, summed exactly per
+    cell, then int64 -> float64 -> times 2**-e_c -> float32, each conversion
+    rounding to nearest even; the cell's NaN and inf values, summed apart in
+    float32 (NaN, +inf, -inf or 0), are added last, so a cell holding one
+    comes out as a float sum would. Returns [G, n_cells, CH] float32."""
     finite = torch.isfinite(g)
-    e = exponents.to(device=bins.device, dtype=torch.float64)
+    e = exponents.to(device=g.device, dtype=torch.float64)
     fixed = torch.round(torch.where(finite, g, 0.0).to(torch.float64)
                         * torch.pow(2.0, e)).to(torch.int64)
-    n_cells = (num_bins + 1) * n_slots
     hist = _histogram_plain(cell, fixed, n_cells, torch.int64)
     out = (hist.to(torch.float64) * torch.pow(2.0, -e)).to(torch.float32)
-    out = out + _histogram_plain(cell, torch.where(finite, 0.0, g), n_cells, torch.float32)
-    return out.reshape(G, num_bins + 1, n_slots * CH)[:, :num_bins].contiguous()
+    return out + _histogram_plain(cell, torch.where(finite, 0.0, g), n_cells, torch.float32)
+
+
+def _build_histogram_rows_fixed(bins: torch.Tensor, gh_ext: torch.Tensor,
+                                row_idx: Optional[torch.Tensor], num_bins: int,
+                                exponents: torch.Tensor,
+                                count: Optional[int] = None) -> torch.Tensor:
+    """The CUDA leaf histogram's arithmetic, written plainly: the rows of
+    `_build_histogram_rows_plain` (every row when row_idx is None) summed
+    as `_fixed_point_sum` does, a bin past num_bins adding nowhere. The
+    kernel gives these bits in any summation order; the tests and
+    chip_smoke.py hold it to them, and this to the plain version's float32
+    summation bound (exact on grid-snapped gradients). Integer (int8) gh
+    sums exactly either way: that is the plain version."""
+    if _acc_dtype(gh_ext) == torch.int32:
+        if row_idx is None:
+            return _build_histogram_plain(bins, gh_ext, num_bins)
+        return _build_histogram_rows_plain(bins, gh_ext, row_idx, num_bins, count)
+    N = bins.shape[1]
+    idx = (torch.arange(N, device=bins.device) if row_idx is None
+           else row_idx[:count].to(torch.int64))
+    cell = torch.clamp(bins[:, torch.clamp(idx, max=N - 1)].to(torch.int64), max=num_bins)
+    out = _fixed_point_sum(cell, gh_ext[idx], num_bins + 1, exponents)
+    return out[:, :num_bins].contiguous()
 
 
 def histogram_slots_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,

@@ -8,12 +8,18 @@ padded device index array. Padding uses the sentinel index N, which
   * is dropped by the score update.
 
 A split evaluates the bin-level decision (NumericalDecisionInner semantics,
-include/LightGBM/tree.h:357-371) over the parent's indices, then performs a
-stable partition via a stable argsort on a 3-way key (left < right <
-padding). Children take power-of-two padded buffers (`bucket_size`), which
-the predict streamer and the serving micro-batcher also use for their row
-counts. The partition is plain PyTorch on either device: it is XLA in the
-JAX package, not a Pallas kernel.
+include/LightGBM/tree.h:357-371) as a 256-entry go-left table over the
+split group's bin values (`go_left_table`), then partitions the parent's
+rows stably into the children's index sets (`split_rows`): left rows in
+order, then right rows, each padded with N. Children take power-of-two
+padded buffers (`bucket_size`), which the predict streamer and the serving
+micro-batcher also use for their row counts.
+
+The JAX package partitions in XLA (a stable argsort on a 3-way key). A CPU
+tensor takes the plain version below (`_split_rows_plain`); a CUDA tensor
+launches the hand-written kernels (``ops/partition_cuda.py``,
+``csrc/row_partition.cu``: decide and scatter) or raises. Both give the
+same integers as the JAX ``RowPartition.split``.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..common import MISSING_NAN, MISSING_ZERO
+from .compact import GROUP_BINS
 
 
 def bucket_size(n: int, minimum: int = 256) -> int:
@@ -78,26 +85,49 @@ def split_decision_bins(group_bins: torch.Tensor,
                        fbin <= thresh)
 
 
-def partition_rows(bins_row: torch.Tensor, row_idx: torch.Tensor, count: int,
-                   decision: Sequence[float], n_data: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable-partition a leaf's padded indices by the split decision.
+def go_left_table(decision: Sequence[float]) -> np.ndarray:
+    """[256] bool: `split_decision_bins` of every value a uint8 group bin
+    takes, the table the row partition looks each row's bin up in."""
+    return split_decision_bins(torch.arange(GROUP_BINS, dtype=torch.int32),
+                               decision).numpy()
 
-    bins_row: [N] group-bin column of the split group
-    row_idx:  [P] padded leaf indices (sentinel = n_data)
-    count:    actual row count
-    Returns (sorted_idx [P] — left rows first, then right, then sentinel
-    padding — and left_count as a 0-d device tensor).
-    """
+
+def _split_rows_plain(bins_row: torch.Tensor, row_idx: torch.Tensor, count: int,
+                      table: np.ndarray, n_data: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of `split_rows`: the rows of the first `count`
+    positions whose bin's table entry is set, in order, then N up to P; the
+    other rows likewise; and the left count (a boolean mask keeps order, as
+    the stable argsort of the JAX package's partition_rows does)."""
     P = row_idx.shape[0]
-    pos = torch.arange(P, dtype=torch.int32, device=row_idx.device)
-    valid = pos < count
-    gb = bins_row[torch.clamp(row_idx, max=n_data - 1).to(torch.int64)]
-    go_left = split_decision_bins(gb, decision) & valid
-    key = torch.where(go_left, 0, torch.where(valid, 1, 2)).to(torch.int32)
-    order = torch.argsort(key, stable=True)
-    sorted_idx = torch.where(valid, row_idx[order], n_data)
-    return sorted_idx, go_left.sum()
+    rows = row_idx[:count]
+    gb = bins_row[torch.clamp(rows, max=n_data - 1).to(torch.int64)]
+    go_left = torch.as_tensor(np.asarray(table, dtype=bool), device=rows.device)[
+        gb.to(torch.int64)]
+    left = torch.full((P,), n_data, dtype=torch.int32, device=rows.device)
+    right = torch.full((P,), n_data, dtype=torch.int32, device=rows.device)
+    lrows, rrows = rows[go_left], rows[~go_left]
+    left[:lrows.shape[0]] = lrows
+    right[:rrows.shape[0]] = rrows
+    return left, right, torch.tensor(lrows.shape[0], dtype=torch.int32)
+
+
+def split_rows(bins_row: torch.Tensor, row_idx: torch.Tensor, count: int,
+               table: np.ndarray, n_data: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stable-partition a leaf's padded indices by a split's go-left table.
+
+    bins_row: [N] uint8 group-bin row of the split group
+    row_idx:  [P] padded leaf indices (sentinel = n_data)
+    count:    actual row count (the first count positions)
+    table:    [256] bool, `go_left_table(decision)`
+    Returns (left [P], right [P], n_left []): the left rows in order then
+    the sentinel, the right rows likewise, and the left count as a 0-d int32
+    tensor on the card (the caller's one host sync reads it).
+    """
+    from .partition_cuda import split_rows as split
+
+    return split(bins_row, row_idx, count, table, n_data)
 
 
 class RowPartition:
@@ -105,8 +135,22 @@ class RowPartition:
 
     leaf -> (device int32 index array padded to a power-of-two bucket, host
     count). The root leaf starts with all rows. One device->host sync per
-    split (the left count).
+    split (the left count), as the JAX package and LightGBM's CUDA learner
+    (cuda_single_gpu_tree_learner.cpp:291-330).
+
+    A split's children are the first bucket_size(n) positions of the two
+    [P]-sized buffers `split_rows` returns (P the parent's bucket; on the
+    card, halves of one allocation): views, so nothing runs on the card
+    after the sync. A child whose bucket is at most P / TRIM is copied out
+    instead, so an allocation (2P and a little) stays alive only for
+    children whose buckets exceed P / TRIM: the allocations alive hold at
+    most 2 * TRIM times the leaves' buckets, whose sum is at most
+    2N + min_bucket * leaves. With TRIM = 4 and int32 indices that is
+    32 * (2N + 256 * leaves) bytes at most, ~69 MB for a 255-leaf tree over
+    N = 2**20 rows.
     """
+
+    TRIM = 4
 
     def __init__(self, num_data: int, device: torch.device,
                  min_bucket: int = 256) -> None:
@@ -127,26 +171,20 @@ class RowPartition:
         `new_leaf`. Returns (left_count, right_count)."""
         idx = self.leaf_idx[leaf]
         cnt = self.leaf_count[leaf]
-        sorted_idx, left_cnt_dev = partition_rows(bins_row, idx, cnt, decision,
-                                                  self.num_data)
-        left_cnt = int(left_cnt_dev)  # the one host sync per split
+        left, right, n_left = split_rows(bins_row, idx, cnt, go_left_table(decision),
+                                         self.num_data)
+        left_cnt = int(n_left)  # the one host sync per split
         right_cnt = cnt - left_cnt
-        lp = bucket_size(left_cnt, self.min_bucket)
-        rp = bucket_size(right_cnt, self.min_bucket)
-        dev = sorted_idx.device
-        left_idx = torch.where(torch.arange(lp, device=dev) < left_cnt,
-                               sorted_idx[:lp], self.num_data)
-        # pad before slicing, so the right child's window never runs past
-        # the parent's buffer
-        padded = torch.cat([sorted_idx, torch.full((rp,), self.num_data,
-                                                   dtype=sorted_idx.dtype, device=dev)])
-        right_idx = torch.where(torch.arange(rp, device=dev) < right_cnt,
-                                padded[left_cnt:left_cnt + rp], self.num_data)
-        self.leaf_idx[leaf] = left_idx.to(torch.int32)
+        self.leaf_idx[leaf] = self._child(left, left_cnt)
         self.leaf_count[leaf] = left_cnt
-        self.leaf_idx[new_leaf] = right_idx.to(torch.int32)
+        self.leaf_idx[new_leaf] = self._child(right, right_cnt)
         self.leaf_count[new_leaf] = right_cnt
         return left_cnt, right_cnt
+
+    def _child(self, buf: torch.Tensor, count: int) -> torch.Tensor:
+        p = bucket_size(count, self.min_bucket)
+        view = buf[:p]
+        return view.clone() if self.TRIM * p <= buf.shape[0] else view
 
     def set_used_indices(self, indices: np.ndarray) -> None:
         """Restrict the root to a bagging subset (SetUsedDataIndices)."""

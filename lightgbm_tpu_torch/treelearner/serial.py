@@ -5,9 +5,12 @@ Counterpart of the JAX package's ``treelearner/serial.py``
 leaf-wise loop runs on the host, each step dispatching three device
 computations —
 
-  1. leaf histogram      (ops/histogram.py — the histogram kernel on the card)
+  1. leaf histogram      (ops/histogram.py — the histogram kernel on the card,
+                          over the leaf's count of rows, with the fixed-point
+                          exponents computed once a tree)
   2. best-split search   (ops/split.py — one split-kernel launch on the card)
-  3. partition update    (ops/partition.py — stable-sort compaction)
+  3. partition update    (ops/partition.py — the decide and scatter kernels
+                          on the card)
 
 with the histogram-subtraction trick (larger child = parent − smaller,
 feature_histogram.hpp:99) and one device→host sync per split search (the
@@ -34,7 +37,7 @@ import torch
 from ..config import Config
 from ..io.dataset import Dataset
 from ..models.tree import Tree
-from ..ops.histogram import build_histogram_rows, subtract_histogram
+from ..ops.histogram import build_histogram_rows, fixed_point_exponents, subtract_histogram
 from ..ops.partition import RowPartition
 from ..ops.split import FeatureMeta, SplitInfo, find_best_split, make_feature_meta
 from ..utils.log import Log
@@ -144,6 +147,9 @@ class SerialTreeLearner:
     def _begin_tree(self, gh_ext: torch.Tensor,
                     bag_indices: Optional[np.ndarray]) -> None:
         self._gh = gh_ext
+        # every leaf's rows are rows of gh_ext: the card's histograms of the
+        # tree share its fixed-point exponents
+        self._exps = fixed_point_exponents(gh_ext, self.num_data)
         self._hist_lru.clear()
         partition = RowPartition(self.num_data, self.device)
         if bag_indices is not None:
@@ -158,7 +164,9 @@ class SerialTreeLearner:
     def _leaf_hist(self, leaf: int) -> torch.Tensor:
         return build_histogram_rows(self.bins_dev, self._gh,
                                     self.partition.indices(leaf),
-                                    self.group_bin_padded)
+                                    self.group_bin_padded,
+                                    count=self.partition.count(leaf),
+                                    exponents=self._exps)
 
     def _root_totals(self, root_hist: torch.Tensor) -> Tuple[float, float, float]:
         # any group's bins partition all rows, so group 0's bin-sum = totals

@@ -27,12 +27,16 @@ import torch
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.io.dataset import Dataset
-from lightgbm_tpu_torch.ops import compact_cuda, hist_cuda, scan_cuda
+from lightgbm_tpu_torch.ops import compact_cuda, hist_cuda, partition_cuda, scan_cuda
 from lightgbm_tpu_torch.ops import split as ts
 from lightgbm_tpu_torch.ops.compact import _compact_rows_plain
 from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
+                                              _build_histogram_rows_fixed,
                                               _build_histogram_rows_plain,
-                                              _histogram_slots_ragged_plain)
+                                              _histogram_slots_ragged_plain,
+                                              fixed_point_exponents)
+from lightgbm_tpu_torch.ops.partition import (RowPartition, _split_rows_plain,
+                                              go_left_table)
 from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
 from test_torch_wave_cases import WAVE_CASES, partition_inputs, wave_case
 
@@ -106,6 +110,48 @@ def test_histogram_kernel_matches_plain(cuda, shape):
     assert torch.equal(got.cpu(), _build_histogram_rows_plain(
         torch.from_numpy(bins), torch.from_numpy(q), torch.from_numpy(idx), B))
     assert hist_cuda.launches["histogram"] == before + 9
+
+
+# (G, N, B, P, rows, count given): a leaf read to its count, the same read
+# through its padding, every row (consecutive positions), a one-row leaf,
+# HIGGS width
+FIXED_SHAPES = [(7, 20000, 256, 16384, 12000, True), (7, 20000, 256, 16384, 12000, False),
+                (3, 40000, 64, 65536, 40000, True), (5, 9000, 255, 256, 1, True),
+                (28, 300000, 255, 131072, 99000, True)]
+
+
+@pytest.mark.parametrize("shape", FIXED_SHAPES, ids=[str(s) for s in FIXED_SHAPES])
+def test_histogram_kernel_bit_equal_to_fixed_point_emulation(cuda, shape):
+    """The leaf histogram's float mode bit-equal to
+    `_build_histogram_rows_fixed` with the exponents passed (as the serial
+    learner passes them) and computed by the wrapper, two launches bit-equal,
+    the integer mode exact, and a row of NaN / inf gh only in its own
+    cells."""
+    G, N, B, P, n_rows, with_count = shape
+    bins, gh, _, q, idx = _hist_inputs(sum(shape), G, N, B, P, n_rows)
+    gh[int(idx[0])] = [float("nan"), float("inf"), float("-inf")]
+    b_d, i_d = torch.from_numpy(bins).to(cuda), torch.from_numpy(idx).to(cuda)
+    g_d, q_d = torch.from_numpy(gh).to(cuda), torch.from_numpy(q).to(cuda)
+    count = n_rows if with_count else None
+    exps = fixed_point_exponents(torch.from_numpy(gh), N)
+    assert torch.equal(fixed_point_exponents(g_d, N).cpu(), exps)
+    ref = _build_histogram_rows_fixed(torch.from_numpy(bins), torch.from_numpy(gh),
+                                      torch.from_numpy(idx), B, exps, count)
+    before = hist_cuda.launches["histogram"]
+    got = hist_cuda.histogram(b_d, g_d, i_d, B, count, exps.to(cuda))
+    again = hist_cuda.histogram(b_d, g_d, i_d, B, count)
+    torch.cuda.synchronize()
+    assert hist_cuda.launches["histogram"] == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    plain = _build_histogram_rows_plain(torch.from_numpy(bins), torch.from_numpy(gh),
+                                        torch.from_numpy(idx), B)
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(plain))
+    assert torch.equal(torch.isinf(got.cpu()), torch.isinf(plain))
+    got_q = hist_cuda.histogram(b_d, q_d, i_d, B, count)
+    assert got_q.dtype == torch.int32
+    assert torch.equal(got_q.cpu(), _build_histogram_rows_plain(
+        torch.from_numpy(bins), torch.from_numpy(q), torch.from_numpy(idx), B))
 
 
 def test_histogram_wrapper_rejects_bad_input(cuda):
@@ -191,9 +237,13 @@ def test_train_on_card_byte_equal_to_cpu(cuda):
               "feature_fraction_bynode": 0.8, "verbosity": -1}
     hist_before = hist_cuda.launches["histogram"]
     scan_before = scan_cuda.launches["find_best_split"]
+    part_before = dict(partition_cuda.launches)
     card = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=3)
     assert hist_cuda.launches["histogram"] > hist_before
     assert scan_cuda.launches["find_best_split"] > scan_before
+    splits = sum(tr.num_leaves - 1 for tr in card._gbdt.models)
+    for kernel in ("row_partition_decide", "row_partition_scatter"):
+        assert partition_cuda.launches[kernel] == part_before[kernel] + splits
     host = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
                     num_boost_round=3)
     assert card.model_to_string() == host.model_to_string()
@@ -622,3 +672,76 @@ def test_find_best_split_kernel_matches_plain_on_cpu(cuda, leaves, mask, data):
         by_value = ts.find_best_split(hist, tot.cpu().tolist(), meta_d, params.to(cuda),
                                       *dev_args)
         assert torch.equal(by_value.cpu().view(torch.int32), rec.view(torch.int32))
+
+
+# (N, P, count, table): the root of a few tiles with a random table, a leaf
+# read to its count through half a bucket of padding, a row set of one
+# partial tile, every row left, every row right, no rows
+ROW_SPLITS = [(300001, 524288, 300001, "random"), (300001, 262144, 140001, "random"),
+              (5000, 1024, 700, "random"), (5000, 4096, 3000, "left"),
+              (5000, 4096, 3000, "right"), (5000, 256, 0, "random")]
+
+
+@pytest.mark.parametrize("case", ROW_SPLITS, ids=[f"{c[2]}of{c[1]}-{c[3]}" for c in ROW_SPLITS])
+def test_row_partition_kernels_match_plain(cuda, case):
+    """The decide and scatter kernels against `_split_rows_plain` run on the
+    CPU: both children's buffers and the left count exactly equal, two
+    launches equal, one launch of each pass a call (none of decide for no
+    rows)."""
+    N, P, count, kind = case
+    rng = np.random.RandomState(N + P + count)
+    bins_row = rng.randint(0, 256, size=N).astype(np.uint8)
+    idx = np.full(P, N, np.int32)
+    idx[:count] = np.sort(rng.choice(N, count, replace=False))
+    table = {"random": rng.rand(256) < 0.5, "left": np.ones(256, bool),
+             "right": np.zeros(256, bool)}[kind]
+    ref = _split_rows_plain(torch.from_numpy(bins_row), torch.from_numpy(idx), count, table, N)
+    b_d, i_d = torch.from_numpy(bins_row).to(cuda), torch.from_numpy(idx).to(cuda)
+    before = dict(partition_cuda.launches)
+    got = partition_cuda.split_rows(b_d, i_d, count, table, N)
+    again = partition_cuda.split_rows(b_d, i_d, count, table, N)
+    torch.cuda.synchronize()
+    assert partition_cuda.launches["row_partition_decide"] == (
+        before["row_partition_decide"] + (2 if count else 0))
+    assert partition_cuda.launches["row_partition_scatter"] == before["row_partition_scatter"] + 2
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == r.dtype == torch.int32 and g.shape == r.shape
+        assert torch.equal(g.cpu(), r) and torch.equal(a.cpu(), r)
+
+
+@pytest.mark.parametrize("bagged", [False, True], ids=["all_rows", "bagged"])
+def test_row_partition_on_card_matches_cpu(cuda, bagged):
+    """A tree's worth of splits through RowPartition on the card and on the
+    CPU: the same counts and index sets after every split."""
+    rng = np.random.RandomState(17 + bagged)
+    n = 200000
+    plane = rng.randint(0, 64, size=(5, n)).astype(np.uint8)
+    card, host = RowPartition(n, cuda), RowPartition(n, "cpu")
+    if bagged:
+        bag = np.sort(rng.choice(n, 150000, replace=False)).astype(np.int32)
+        card.set_used_indices(bag)
+        host.set_used_indices(bag)
+    plane_d = torch.from_numpy(plane).to(cuda)
+    for leaf_new in range(1, 40):
+        counts = {leaf: host.count(leaf) for leaf in range(leaf_new)}
+        leaf = max(counts, key=counts.get) if leaf_new % 3 else int(rng.randint(0, leaf_new))
+        g = int(rng.randint(0, 5))
+        decision = (float(rng.randint(0, 63)), float(rng.rand() < 0.5),
+                    float(rng.randint(0, 3)), float(rng.randint(0, 64)), 64.0, 0.0, 0.0, 0.0)
+        assert go_left_table(decision).shape == (256,)
+        got = card.split(leaf, leaf_new, plane_d[g], decision)
+        assert got == host.split(leaf, leaf_new, torch.from_numpy(plane[g]), decision)
+        for child in (leaf, leaf_new):
+            assert torch.equal(card.indices(child).cpu(), host.indices(child))
+
+
+def test_row_partition_wrapper_rejects_bad_input(cuda):
+    row = torch.zeros(100, dtype=torch.uint8, device=cuda)
+    idx = torch.zeros(256, dtype=torch.int32, device=cuda)
+    table = np.ones(256, bool)
+    with pytest.raises(ValueError, match="uint8"):
+        partition_cuda.split_rows(row.int(), idx, 10, table, 100)
+    with pytest.raises(ValueError, match="int32"):
+        partition_cuda.split_rows(row, idx.long(), 10, table, 100)
+    with pytest.raises(ValueError, match="count"):
+        partition_cuda.split_rows(row, idx, 300, table, 100)

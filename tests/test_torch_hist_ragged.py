@@ -305,8 +305,8 @@ def test_ragged_launch_fits_shared_memory(ch, quantized):
         bin_bytes = 4 * ((ch * (1 if quantized else 2)) | 1)
         assert 1 <= gb <= G and blocks >= 1
         per_block = hist_cuda.RAGGED_PLAN_BYTES + gb * B * bin_bytes
-        assert hist_cuda.RAGGED_BLOCKS_PER_SM * (per_block + hist_cuda.SMEM_RESERVED) \
+        assert hist_cuda.BLOCKS_PER_SM * (per_block + hist_cuda.SMEM_RESERVED) \
             <= hist_cuda.SMEM_PER_SM
-        assert blocks * -(-G // gb) <= 132 * hist_cuda.RAGGED_BLOCKS_PER_SM
+        assert blocks * -(-G // gb) <= 132 * hist_cuda.BLOCKS_PER_SM
     gb, blocks = hist_cuda.ragged_launch_shape(28, 255, 3, False, 132)
     assert (gb, blocks) == (14, 132)  # the HIGGS groups in two halves, two blocks an SM

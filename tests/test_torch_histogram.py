@@ -1,10 +1,12 @@
-"""The port's leaf histogram (its plain version, which the CUDA kernel is
-held against on the card) against the JAX package's XLA histogram and its
-Pallas kernel run in interpret mode.
+"""The port's leaf histogram (its plain version, and the plain emulation of
+the CUDA kernel's fixed-point sum, which the kernel is held against bit for
+bit on the card) against the JAX package's XLA histogram and its Pallas
+kernel run in interpret mode, and the kernel's launch arithmetic.
 
 Contract: exact on grid-snapped gradients (multiples of 2**-4 small enough
 that every partial sum is exact in float32, so no summation order can
-change a bit), and exact in the integer (quantized) mode.
+change a bit), and exact in the integer (quantized) mode; otherwise the
+emulation lies within the float32 summation bound of the plain version.
 """
 import numpy as np
 import pytest
@@ -109,17 +111,158 @@ def test_all_sentinel_rows_and_subtraction():
     assert torch.equal(subtract_histogram(full, lh), rh)  # snapped: exact
 
 
-@pytest.mark.parametrize("n_pos,groups,bins", [(1_048_576, 28, 256), (100_000, 28, 256),
-                                               (256, 3, 16), (5000, 1, 2)])
-def test_kernel_launch_shape(n_pos, groups, bins):
-    """The kernel's grid arithmetic (computed in Python, checked here): the
-    per-warp histograms fit the shared-memory budget, and the row chunks
-    cover every position in whole warp steps."""
-    gb, rows, chunks = hist_cuda.launch_shape(n_pos, groups, bins, 3)
-    smem = 4 * (hist_cuda.WARPS * gb * bins * 3 + hist_cuda.WARPS * 32 * 3)
-    assert 1 <= gb <= groups and smem <= hist_cuda.SMEM_BUDGET
-    assert rows % (hist_cuda.WARPS * 32) == 0
-    assert chunks * rows >= n_pos > (chunks - 1) * rows
+# (count, G, B, CH, quantized): the HIGGS root, a ~100,000-row leaf, a
+# small plane, a narrow one, a ~4,000-row leaf, one row, the integer mode,
+# four channels
+LAUNCHES = [(1_048_576, 28, 256, 3, False), (100_000, 28, 256, 3, False),
+            (256, 3, 16, 3, False), (5000, 1, 2, 3, False), (4_000, 28, 255, 3, False),
+            (1, 28, 255, 3, False), (300_000, 28, 256, 3, True), (70_000, 200, 64, 4, False)]
+
+
+@pytest.mark.parametrize("count,groups,bins,ch,quantized", LAUNCHES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" + ("-int8" if c[4] else "")
+                              + ("" if c[3] == 3 else f"-ch{c[3]}") for c in LAUNCHES])
+def test_kernel_launch_shape(count, groups, bins, ch, quantized):
+    """The leaf histogram's grid arithmetic (computed in Python, checked
+    here): each block's histogram within the opt-in shared memory and two
+    blocks an SM, no more blocks than the card holds at once, the blocks
+    growing with the rows, and the row chunks covering every position once."""
+    sms = 132
+    gb, blocks = hist_cuda.rows_launch_shape(count, groups, bins, ch, quantized, sms)
+    smem = hist_cuda.rows_smem_bytes(gb, bins, ch, quantized)
+    assert 1 <= gb <= groups and blocks >= 1
+    assert smem <= hist_cuda.SMEM_OPT_IN
+    assert hist_cuda.BLOCKS_PER_SM * (smem + hist_cuda.SMEM_RESERVED) <= hist_cuda.SMEM_PER_SM
+    n_gblocks = -(-groups // gb)
+    assert blocks * n_gblocks <= max(sms * hist_cuda.BLOCKS_PER_SM, n_gblocks)
+    # more rows: no fewer row chunks, and no narrower group blocks
+    gb2, blocks2 = hist_cuda.rows_launch_shape(2 * count, groups, bins, ch, quantized, sms)
+    assert blocks2 >= blocks and gb2 >= gb
+    # the blocks' shares (hist_rows_kernel: [count * b / blocks,
+    # count * (b + 1) / blocks)) tile [0, count) in order
+    edges = [(count * b // blocks, count * (b + 1) // blocks) for b in range(blocks)]
+    assert edges[0][0] == 0 and edges[-1][1] == count
+    assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+    assert all(z - a <= -(-count // blocks) for a, z in edges)
+
+
+def test_kernel_launch_shape_follows_the_leaf():
+    """A small leaf takes few row chunks and one-group blocks; the root
+    fills the card with two group blocks of 14 HIGGS groups."""
+    assert hist_cuda.rows_launch_shape(4_000, 28, 255, 3, False, 132) == (1, 1)
+    gb, blocks = hist_cuda.rows_launch_shape(1_048_576, 28, 255, 3, False, 132)
+    assert (gb, blocks) == (14, 132)
+    gb, blocks = hist_cuda.rows_launch_shape(100_000, 28, 255, 3, False, 132)
+    assert blocks == 25 and blocks * -(-28 // gb) <= 264
+
+
+def _leaf_cases(seed, G, N, B):
+    """Row sets a serial learner histograms, as (name, idx [P] or None,
+    count or None): the root, a sorted random leaf, the same read only to
+    its count, one row, all sentinels."""
+    rng = np.random.RandomState(seed)
+    leaf = np.sort(rng.choice(N, N // 3, replace=False)).astype(np.int32)
+    P = 1 << int(np.ceil(np.log2(len(leaf))))
+    pad = lambda r, p: np.concatenate([r, np.full(p - len(r), N, np.int32)])  # noqa: E731
+    return [("root", None, None), ("leaf", pad(leaf, P), None),
+            ("leaf_count", pad(leaf, P), len(leaf)),
+            ("one_row", pad(leaf[7:8], 256), 1), ("all_sentinel", pad(leaf[:0], 256), None)]
+
+
+FIXED_CASES = [(name, mode) for name in ("root", "leaf", "leaf_count", "one_row",
+                                         "all_sentinel")
+               for mode in ("snapped", "int8", "real")]
+
+
+@pytest.mark.parametrize("case,mode", FIXED_CASES, ids=[f"{c}-{m}" for c, m in FIXED_CASES])
+def test_fixed_point_emulation_matches_plain(case, mode):
+    """`_build_histogram_rows_fixed` (the card's bits) against the plain
+    version: exactly equal on snapped gradients and in the integer mode,
+    within the float32 summation bound count * 2**-24 * sum|v| otherwise."""
+    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
+                                                  _build_histogram_rows_fixed,
+                                                  _build_histogram_rows_plain,
+                                                  fixed_point_exponents)
+
+    G, N, B = 5, 3000, 255
+    bins, gh_ext, q_ext, _ = _inputs(41, G, N, B, 256)
+    if mode == "real":
+        rng = np.random.RandomState(3)
+        gh_ext[:N, :2] = np.stack([rng.normal(size=N), rng.uniform(0, 0.5, N)], 1)
+    values = torch.from_numpy(q_ext if mode == "int8" else gh_ext)
+    b = torch.from_numpy(bins)
+    exps = fixed_point_exponents(values, N) if mode != "int8" else None
+    _, idx, count = next(c for c in _leaf_cases(5, G, N, B) if c[0] == case)
+    if idx is None:
+        got = _build_histogram_rows_fixed(b, values[:N], None, B, exps)
+        ref = _build_histogram_plain(b, values[:N], B)
+        ref_abs = _build_histogram_plain(b, values[:N].abs(), B)
+        rows = N
+    else:
+        i = torch.from_numpy(idx)
+        got = _build_histogram_rows_fixed(b, values, i, B, exps, count)
+        ref = _build_histogram_rows_plain(b, values, i, B)
+        ref_abs = _build_histogram_rows_plain(b, values.abs(), i, B)
+        assert torch.equal(_build_histogram_rows_plain(b, values, i, B, count), ref)
+        rows = int((idx < N).sum())
+    assert got.dtype == ref.dtype and got.shape == (G, B, 3)
+    if mode == "real":
+        bound = rows * 2.0 ** -24 * ref_abs.double()
+        assert bool(((got.double() - ref.double()).abs() <= bound).all())
+    else:
+        assert torch.equal(got, ref)
+
+
+def test_fixed_point_emulation_keeps_nonfinite_in_its_cell():
+    """A row with NaN, +inf and -inf gh makes only its own cells NaN or
+    inf, as the plain float32 sum does; every other cell is as without it."""
+    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_rows_fixed,
+                                                  _build_histogram_rows_plain,
+                                                  fixed_point_exponents)
+
+    G, N, B = 3, 2000, 16
+    bins, gh_ext, _, idx = _inputs(43, G, N, B, 2048)
+    b, i = torch.from_numpy(bins), torch.from_numpy(idx)
+    clean = torch.from_numpy(gh_ext)
+    dirty = clean.clone()
+    r = int(idx[10])
+    dirty[r] = torch.tensor([float("nan"), float("inf"), float("-inf")])
+    exps = fixed_point_exponents(clean, N)
+    got = _build_histogram_rows_fixed(b, dirty, i, B, exps)
+    ref = _build_histogram_rows_plain(b, dirty, i, B)
+    cells = torch.zeros((G, B, 3), dtype=torch.bool)
+    cells[torch.arange(G), torch.from_numpy(bins[:, r]).long()] = True
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.isinf(got), torch.isinf(ref)) and bool(torch.isinf(got).any())
+    assert bool((~torch.isfinite(got) == cells).all())
+    base = _build_histogram_rows_fixed(b, clean, i, B, exps)
+    assert torch.equal(got[~cells], base[~cells])  # snapped: exact, as the plain sum
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+def test_fixed_point_emulation_matches_xla_and_pallas(jax_ref, shape):
+    """The card's arithmetic against the JAX package's leaf histogram (XLA,
+    and the Pallas kernel in interpret mode on the gathered rows) on snapped
+    gradients: exactly equal."""
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.hist_pallas import pallas_histogram
+    from lightgbm_tpu.ops.histogram import _build_histogram_rows_xla
+    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_rows_fixed,
+                                                  fixed_point_exponents)
+
+    G, N, B, P = shape
+    bins, gh_ext, _, idx = _inputs(sum(shape) + 2, G, N, B, P)
+    ext = torch.from_numpy(gh_ext)
+    count = int((idx < N).sum())
+    port = _build_histogram_rows_fixed(torch.from_numpy(bins), ext, torch.from_numpy(idx),
+                                       B, fixed_point_exponents(ext, N), count).numpy()
+    xla = np.asarray(_build_histogram_rows_xla(
+        jnp.asarray(bins), jnp.asarray(gh_ext), jnp.asarray(idx), B))
+    np.testing.assert_array_equal(port, xla)
+    bins_leaf = bins[:, np.minimum(idx, N - 1)]
+    pallas = np.asarray(pallas_histogram(jnp.asarray(bins_leaf), jnp.asarray(gh_ext[idx]), B,
+                                         f32=True, interpret=True))
+    np.testing.assert_array_equal(port, pallas)
 
 
 def test_wrapper_takes_plain_version_for_cpu_only():
