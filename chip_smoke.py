@@ -5,10 +5,11 @@
 Phases (any failure exits non-zero before the result line):
 
 1. device   the card's name, count and power limit; no card -> exit 1.
-2. build    the six sources under csrc/ (forest traversal, histograms,
-            split search, row compaction, wave partition, row partition),
-            one nvcc each, all started together; build seconds and ptxas's
-            registers / shared memory / spills.
+2. build    the seven sources under csrc/ (forest traversal, histograms,
+            split search, row compaction, wave partition, row partition,
+            the wave's selection and replay), one nvcc each, all started
+            together; build seconds and ptxas's registers / shared memory /
+            spills.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
             the repo targets (binary, 28 features, 500 trees x 255 leaves,
             LightGBM docs/Experiments.rst HIGGS settings), a multiclass-3
@@ -42,7 +43,13 @@ Phases (any failure exits non-zero before the result line):
             recorded from a round of training), on the same with random
             sides and on a real bagged initial partition, every output
             exactly equal to the plain version run on the CPU, and the
-            relabel on a real commit. The serial learner's row partition
+            relabel on a real commit. The wave's selection and replay
+            kernels on the first, a middle and the last live wave of a real
+            tree (each wave's carry kept from the graph replays of a round,
+            the wave run again from it): the selection's table, the
+            replay's state after it (records, depths, ranges, the split
+            log's bits, the scalars and the done word) and its commit table
+            exactly equal to the plain versions run on the CPU. The serial learner's row partition
             (decide, scatter) on three real splits recorded from a serial
             round (the root's, ~100,000 and ~4,000 rows), both children
             exactly equal to the plain version run on the CPU. Then their
@@ -73,8 +80,14 @@ Phases (any failure exits non-zero before the result line):
             histograms only the smaller children of disjoint leaves), train
             and valid AUC (at --seed 0 within 0.002 of WAVE_AUC_SEED0); the
             model text reloads and predicts equal to the training Booster;
-            the host scopes, the device's busy share over one round and the
-            device operations (kernels and copies) a wave launches there.
+            graph replays and no-op waves a tree, host time a wave, the
+            first iteration in its parts (buffer allocation, build and
+            load, graph capture, the first tree); the device-to-host copies,
+            their bytes and the host synchronizations of one tree, read
+            from a torch.profiler trace (at most 8 bytes a wave and the
+            results' one copy); the host scopes, the device's busy share
+            over one round and the device operations (kernels and copies) a
+            wave launches there.
 9. serial   the same with feature_fraction_bynode=0.8, through the serial
             learner (at --seed 0 its AUC within 0.002 of SERIAL_AUC_SEED0),
             with the device operations a split of the profiled round.
@@ -96,6 +109,7 @@ It prints no result line.
 from __future__ import annotations
 
 import argparse
+import inspect
 import itertools
 import json
 import os
@@ -693,45 +707,217 @@ def check_batched_scan(dev, ds, num_bins, wave_hist, root_hist):
     return timings, bound(nbytes, L * F * B * 2 * 30), (L, F, B)
 
 
+_STATE = ("leaf_best", "depth", "start", "count", "rec_store", "scalars", "pool",
+          "exponents", "feature_mask")
+
+
 def record_wave_inputs(lt, train_set, params):
-    """Copies of the inputs of a real wave's partition (the third wave of
-    the first tree, WAVE_K ranges), of a bagged initial partition and of a
-    commit's relabel, kept from one round of lt.train through the wave
-    learner and one with bagging, with the learner's partition_wave and
-    relabel_rows wrapped. Returns {"wave": args, "bagged": args, "relabel":
-    (rows before, leaf column, table, max_len)}."""
+    """The inputs of real waves of the first tree of a round of lt.train
+    through the wave learner: the carry before its first live wave, its
+    third (the partition's check, WAVE_K ranges), a middle one and its last
+    (where the leaf budget binds), kept by wrapping the graph replays (the
+    first round counts the tree's live waves, a second, equal, one keeps
+    the four); then each kept wave run once more, eagerly, from its carry,
+    with the wave's steps wrapped to keep copies of their inputs. Also a
+    bagged initial partition, from a round with bagging. Returns {"waves":
+    {name: {"select": args, "replay": (state before, args), "partition":
+    args, "relabel": (rows, leaf column, table)}}, "wave": the third
+    wave's partition args, "bagged": args, "relabel": the third wave's
+    relabel}."""
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.wave import DONE
     from lightgbm_tpu_torch.treelearner import device as dmod
 
-    kept, waves = {}, [0]
-    partition_wave, relabel_rows = dmod.partition_wave, dmod.relabel_rows
+    kept, seen = {}, {}
+    real = {name: getattr(dmod, name) for name in
+            ("_grow", "partition_wave", "select_wave", "replay_wave", "relabel_rows")}
+    replay = cuda_build.CountedGraph.replay
+    live = {"n": 0, "want": {}, "trees": 0}
 
     def clone(args):
         return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
 
+    def grow(*args, **kwargs):
+        live["trees"] += 1
+        if live["trees"] == 1:
+            seen["args"] = inspect.signature(real["_grow"]).bind(*args, **kwargs).arguments
+        return real["_grow"](*args, **kwargs)
+
+    def replaying(graph):
+        buf = seen["args"]["buffers"]
+        if live["trees"] == 1:
+            torch.cuda.synchronize()
+            if int(buf.scalars[DONE]) == 0:  # a live wave
+                live["n"] += 1
+                names = live["want"].get(live["n"], ())
+                if names:
+                    key = next(k for k, g in buf.graphs.items() if g is graph)
+                    snap = (key, buf.bins[key[1]].clone(), buf.rows[key[1]].clone(),
+                            {k: getattr(buf, k).clone() for k in _STATE})
+                    seen.update((name, snap) for name in names)
+        return replay(graph)
+
     def part(*args, **kwargs):
         if kwargs.get("bagged"):
             kept.setdefault("bagged", clone(args))
-        else:
-            waves[0] += 1
-            if waves[0] == 3:
-                kept["wave"] = clone(args)
-        return partition_wave(*args, **kwargs)
+        return real["partition_wave"](*args, **kwargs)
 
-    def relabel(row_p, leaf_col, table, max_len):
-        kept.setdefault("relabel", (row_p.clone(), leaf_col, table.clone(), max_len))
-        return relabel_rows(row_p, leaf_col, table, max_len)
-
-    dmod.partition_wave, dmod.relabel_rows = part, relabel
+    dmod._grow, dmod.partition_wave = grow, part
+    cuda_build.CountedGraph.replay = replaying
     try:
         lt.train(dict(params), train_set, num_boost_round=1)
+        n = live["n"]
+        check(n >= 4, f"the first tree has {n} live waves")
+        want = {}
+        for i, name in ((1, "first"), (3, "third"), ((n + 1) // 2, "middle"), (n, "last")):
+            want.setdefault(i, []).append(name)
+        live.update(n=0, trees=0, want=want)
+        lt.train(dict(params), train_set, num_boost_round=1)
+        check(live["n"] == n, f"two equal rounds grew {n} and {live['n']} live waves")
         lt.train({**params, "bagging_fraction": 0.8, "bagging_freq": 1}, train_set,
                  num_boost_round=1)
     finally:
-        dmod.partition_wave, dmod.relabel_rows = partition_wave, relabel_rows
-    check(set(kept) == {"wave", "bagged", "relabel"}, f"recorded only {sorted(kept)}")
+        cuda_build.CountedGraph.replay = replay
+        dmod._grow, dmod.partition_wave = real["_grow"], real["partition_wave"]
+    a = seen["args"]
+    bins, meta, tables, params_d = a["bins"], a["meta"], a["tables"], a["params"]
+    L, num_bins, max_depth, buf = a["num_leaves"], a["num_bins"], a["max_depth"], a["buffers"]
+    G, N = bins.shape
+    scratch = dmod.WaveBuffers(G, N, buf.rows[0].shape[1], L, num_bins, buf.pool.shape[-1],
+                               buf.feature_mask.shape[0], bins.device)
+    waves = {}
+    for name in ("first", "third", "middle", "last"):
+        (K, cur, masked), bins_c, rows_c, state = seen[name]
+        got = {}
+
+        def select(*args):
+            got["select"] = clone(args)
+            return real["select_wave"](*args)
+
+        def partition(*args, **kwargs):
+            got["partition"] = clone(args)
+            return real["partition_wave"](*args, **kwargs)
+
+        def replay_step(*args):
+            got["replay"] = clone(args)
+            return real["replay_wave"](*args)
+
+        def relabel(row_p, leaf_col, table):
+            got["relabel"] = (row_p.clone(), leaf_col, table.clone())
+            return real["relabel_rows"](row_p, leaf_col, table)
+
+        scratch.bins[cur].copy_(bins_c)
+        scratch.rows[cur].copy_(rows_c)
+        for k in _STATE:
+            getattr(scratch, k).copy_(state[k])
+        dmod.select_wave, dmod.partition_wave = select, partition
+        dmod.replay_wave, dmod.relabel_rows = replay_step, relabel
+        try:
+            dmod._wave(scratch, cur, K, meta, tables, params_d, masked, num_bins, max_depth)
+        finally:
+            for k in ("partition_wave", "select_wave", "replay_wave", "relabel_rows"):
+                setattr(dmod, k, real[k])
+        check(not torch.equal(scratch.scalars, state["scalars"]),
+              f"the {name} wave changed no scalar")
+        waves[name] = got
+    del scratch
+    kept["waves"] = waves
+    kept["wave"] = waves["third"]["partition"]
+    kept["relabel"] = waves["third"]["relabel"]
     check(kept["wave"][6].shape[0] == WAVE_K, "the recorded wave has "
           f"{kept['wave'][6].shape[0]} ranges, not {WAVE_K}")
+    check("bagged" in kept, "recorded no bagged partition")
     return kept
+
+
+def check_wave_step(dev, kept):
+    """The wave's selection and replay kernels against their plain versions
+    run on the CPU, on the first, a middle and the last live wave of a real
+    tree: the selection's table, and the replay's state after it (records,
+    depths, ranges, the split log's bits, the scalars with the done word)
+    and commit table exactly equal, two launches equal. Returns (timings,
+    bounds, shapes)."""
+    from lightgbm_tpu_torch.ops import wave_cuda
+    from lightgbm_tpu_torch.ops.wave import (DONE, REC, SCALARS, STORE, T,
+                                             _replay_wave_plain, _select_wave_plain,
+                                             select_size)
+
+    def cpu(args):
+        return [a.cpu() if isinstance(a, torch.Tensor) else
+                type(a)(*(t.cpu() for t in a)) if isinstance(a, tuple) else a for a in args]
+
+    committed = {}
+    for name in ("first", "middle", "last"):
+        sel_args = kept["waves"][name]["select"]
+        leaf_best, start, count, scalars, tables, K = sel_args
+        L = leaf_best.shape[0] - 1
+        outs = [wave_cuda.select(*sel_args) for _ in range(2)]
+        ref = _select_wave_plain(*cpu(sel_args))
+        for got in outs:
+            check(torch.equal(got.cpu(), ref), f"wave_select ({name} wave): the table "
+                  "differs from the plain version")
+        rp = kept["waves"][name]["replay"]
+        results = []
+        for device in (dev, dev, "cpu"):
+            args = [a.clone().to(device) if isinstance(a, torch.Tensor) else a for a in rp]
+            commit = (wave_cuda.replay(*args) if device != "cpu" else
+                      _replay_wave_plain(*args))
+            results.append([commit.cpu()] + [a.cpu() for a in args[:6]])
+        for got in results[:2]:
+            for what, g, r in zip(("commit", "leaf_best", "depth", "rec_store", "start",
+                                   "count", "scalars"), got, results[2]):
+                check(g.dtype == r.dtype and torch.equal(g.view(torch.uint8),
+                                                         r.view(torch.uint8)),
+                      f"wave_replay ({name} wave): {what} differs from the plain version")
+        committed[name] = int(results[2][6][T] - rp[5][T].cpu())
+    check(int(results[2][6][DONE]) == 1, "the last wave did not set the done word")
+
+    # timings at the middle wave: the replay from a fresh copy of its state
+    # each call (the copies are not the kernel's time)
+    sel_args = kept["waves"]["middle"]["select"]
+    rp = kept["waves"]["middle"]["replay"]
+    L, K = sel_args[0].shape[0] - 1, sel_args[5]
+    fresh = [a.clone() if isinstance(a, torch.Tensor) else a for a in rp]
+
+    def replay_call():
+        for a, b in zip(fresh[:6], rp[:6]):
+            a.copy_(b)
+        wave_cuda.replay(*fresh)
+
+    def replay_plain():
+        for a, b in zip(fresh[:6], rp[:6]):
+            a.copy_(b)
+        _replay_wave_plain(*fresh)
+
+    timings = {
+        "select": kernel_device_ms(lambda: wave_cuda.select(*sel_args), 20,
+                                   "wave_select_kernel"),
+        "select_events": cuda_ms(lambda: wave_cuda.select(*sel_args), 20),
+        "select_plain": cuda_ms(lambda: _select_wave_plain(*sel_args), 3),
+        "replay": kernel_device_ms(replay_call, 20, "wave_replay_kernel"),
+        "replay_events": cuda_ms(replay_call, 20),
+        "replay_plain": cuda_ms(replay_plain, 3),
+    }
+    n = committed["middle"]
+    nbytes = {  # each input read once, each output written once
+        # the L gains; of each selected leaf its record's feature, threshold
+        # and default_left, its start and count, and its feature's six int32
+        # fields and is_efb byte; the done word; the table out
+        "select": L * 4 + K * (3 * 4 + 2 * 4 + 6 * 4 + 1) + 8 + select_size(L, K) * 4,
+        # in: the L gains, the K parents' depths, the table's starts,
+        # counts, valid flags and leaf ids, the left counts, the 2K
+        # children's gains, hessians and counts, five regularizers, the
+        # scalars; for each of the n commits, the rest of both children's
+        # records, their gradients and the parent's record. Out: the
+        # committed records, depths, split-log rows, starts and counts, the
+        # commit table and the scalars
+        "replay": (L * 4 + K * 4 + 4 * K * 4 + K * 4 + 2 * K * 3 * 4 + 5 * 4 + SCALARS * 8
+                   + n * (2 * (REC - 1) * 4 + 2 * 4 + REC * 4)
+                   + n * (2 * REC * 4 + 2 * 4 + STORE * 4 + 3 * 4) + 5 * K * 8
+                   + SCALARS * 8),
+    }
+    bounds = {k: bound(v, 0) for k, v in nbytes.items()}
+    return timings, bounds, (L, K, committed)
 
 
 def device_kernel_ms(fn, reps, names):
@@ -815,16 +1001,15 @@ def check_partition(dev, kept, seed):
         args = [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
         k = args[6].shape[0]
         slot = torch.full((N,), -7, dtype=torch.int32, device=device)
-        n_left = torch.zeros(k, dtype=torch.float32, device=device)
-        got = partition_wave(*args, bagged=bagged, slot_out=slot, n_left_out=n_left)
-        return [t.cpu() for t in got] + [slot.cpu(), n_left.cpu()]
+        got = partition_wave(*args, bagged=bagged, slot_out=slot)
+        return [t.cpu() for t in got] + [slot.cpu()]
 
     moved = {}
     for name, (args, bagged) in cases.items():
         got, again = run(args, bagged, dev), run(args, bagged, dev)
         torch.cuda.synchronize()
         ref = run(args, bagged, "cpu")
-        for what, g, a, r in zip(("bins", "rows", "ranges", "flags", "slot", "n_left"),
+        for what, g, a, r in zip(("bins", "rows", "ranges", "flags", "slot"),
                                  got, again, ref):
             check(g.dtype == r.dtype and g.shape == r.shape
                   and torch.equal(g.view(torch.uint8), r.view(torch.uint8)),
@@ -832,11 +1017,11 @@ def check_partition(dev, kept, seed):
             check(torch.equal(a.view(torch.uint8), g.view(torch.uint8)),
                   f"wave partition ({name}): two launches differ in {what}")
         moved[name] = int(ref[2][0].sum())
-    before, leaf_c, table, max_len = kept["relabel"]
+    before, leaf_c, table = kept["relabel"]
     got = before.clone()
-    relabel_rows(got, leaf_c, table, max_len)
+    relabel_rows(got, leaf_c, table)
     ref = before.cpu()
-    relabel_rows(ref, leaf_c, table.cpu(), max_len)
+    relabel_rows(ref, leaf_c, table.cpu())
     check(torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32)),
           "relabel: differs from the plain version")
     relabeled = int((table[1] - table[0]).sum())
@@ -845,10 +1030,9 @@ def check_partition(dev, kept, seed):
     args = kept["wave"]
     out = (torch.empty_like(bins), torch.empty_like(rows))
     slot = torch.empty(N, dtype=torch.int32, device=dev)
-    n_left = torch.empty(K, dtype=torch.float32, device=dev)
 
     def kernel():
-        return partition_wave(*args, out=out, slot_out=slot, n_left_out=n_left)
+        return partition_wave(*args, out=out, slot_out=slot)
 
     # the parent's sequence for the same work: the per-row glue
     # (treelearner/device.py:338-341 of the parent), the forward map
@@ -884,7 +1068,7 @@ def check_partition(dev, kept, seed):
 
     def this_tree():
         kernel()
-        relabel_rows(out[1], leaf_col, table_all, int((table_all[1] - table_all[0]).max()))
+        relabel_rows(out[1], leaf_col, table_all)
 
     dst, _ = range_partition_dst_by_range(
         *_decide_for(bins, rows, leaf_col, leaf2k, rgroup_x, lut_x), starts, counts, ok_b)
@@ -899,9 +1083,9 @@ def check_partition(dev, kept, seed):
         "partition": cuda_ms(kernel, 20),
         "passes": device_kernel_ms(kernel, 10, ("decide_kernel", "scan_kernel",
                                                "scatter_kernel")) or {},
-        "plain": cuda_ms(lambda: _partition_wave_plain(*args, False, out, slot, n_left), 3),
+        "plain": cuda_ms(lambda: _partition_wave_plain(*args, False, out, slot), 3),
         "library": cuda_ms(library, 20),
-        "relabel": cuda_ms(lambda: relabel_rows(before, leaf_c, table, max_len), 20),
+        "relabel": cuda_ms(lambda: relabel_rows(before, leaf_c, table), 20),
         "relabel_plain": cuda_ms(lambda: _relabel_rows_plain(before, leaf_c, table), 3),
         "this_tree": cuda_ms(this_tree, 20), "parent": cuda_ms(parent, 20),
         "this_tree_host": host_ms(this_tree, 20), "parent_host": host_ms(parent, 20),
@@ -997,18 +1181,17 @@ def check_find_split(dev, ds, bins, num_bins, gh, idx, wave_hist, root_hist, see
             total += recs.shape[0]
             max_err = max(max_err, float(d.max()) if d.numel() else 0.0)
     # timings as the learners call it: one leaf with host totals (serial),
-    # 42 children with device totals into a preallocated record (wave)
+    # 42 children with device totals (wave)
     mask_d = torch.from_numpy(mask).to(dev)
     tot_leaf = leaf[0].sum(dim=0)
     host_tot = tuple(float(v) for v in tot_leaf.cpu())
     tot_wave = wave[:, 0].sum(dim=1)
-    out = torch.empty(2 * WAVE_K, 14, dtype=torch.float32, device=dev)
 
     def one():
         return ts.find_best_split(leaf, host_tot, meta_d, params_d, mask_d)
 
     def batch():
-        return ts.find_best_split(wave, tot_wave, meta_d, params_d, None, out=out)
+        return ts.find_best_split(wave, tot_wave, meta_d, params_d, None)
 
     # the parent's sequences: the gather, the EFB fix, the per-feature
     # launch and the argmax (plus, for the serial learner, the totals'
@@ -1079,19 +1262,108 @@ def profile_round(lt, params, train_set, tag, label):
 
     bst = lt.Booster(dict(params), train_set)
     bst.update()
-    waves = global_timer.counters.get("device_waves", 0)
+    counters = ("device_waves", "wave_graph_replays", "wave_noops")
+    before = {k: global_timer.counters.get(k, 0) for k in counters}
     busy = device_busy_share(bst.update)
-    waves = global_timer.counters.get("device_waves", 0) - waves
+    waves, replays, noops = (global_timer.counters.get(k, 0) - before[k] for k in counters)
     splits = bst._gbdt.models[-1].num_leaves - 1
     per = ""
     if busy is not None:
         per = (f"; {busy[3]} device operations (kernels and copies) in the round, "
                + (f"{waves} waves: {busy[3] / waves:.1f} a wave" if waves else
                   f"{splits} splits: {busy[3] / max(splits, 1):.1f} a split"))
+        if replays:
+            per += (f" ({replays} graph replays, {noops} of them no-op waves: "
+                    f"{busy[3] / replays:.1f} a replay)")
     print(f"{tag} device busy share over one training round ({label}, torch.profiler): "
           + ("not measured (the profiler saw no device time)" if busy is None else
              f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
              f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}{per}"))
+
+
+def tree_transfers(booster, tag, label):
+    """One more tree of the booster's wave learner, on its current
+    gradients, under torch.profiler: its device-to-host copies (count and
+    bytes) and host synchronizations (runtime calls), read from the trace.
+    Checks that they are the done words, at most 8 bytes a launched wave,
+    and the results' one copy."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from lightgbm_tpu_torch.models.gbdt import _pack_gh
+    from lightgbm_tpu_torch.ops.wave import DONE
+
+    gbdt = booster._gbdt
+    learner = gbdt.tree_learner
+    g, h = gbdt.objective.get_gradients(gbdt.score[0])
+    gh_ext = _pack_gh(g, h)
+    adaptive, learner._adaptive_wave = learner._adaptive_wave, False  # one width
+    learner.train(gh_ext)  # its width's graphs captured
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_tree"):
+            tree = learner.train(gh_ext)  # ends in the results' copy, which waits
+    learner._adaptive_wave = adaptive
+    launched = learner.last_waves_launched
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    # the tree's span on the host clock (the profiler's own calls lie outside)
+    span = next(e for e in events if e.get("name") == "chip_smoke_tree"
+                and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation")
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    inside = [e for e in events if e.get("ph") == "X" and t0 <= float(e.get("ts", -1)) <= t1]
+    d2h = [e for e in inside if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    nbytes = [int(e.get("args", {}).get("bytes", 0)) for e in d2h]
+    syncs = [e["name"] for e in inside if e.get("cat") == "cuda_runtime"
+             and "Synchronize" in e.get("name", "")]
+    graphs = sum(1 for e in inside if e.get("cat") == "cuda_runtime"
+                 and e.get("name", "").startswith("cudaGraphLaunch"))
+    # the PyTorch op each stream synchronization happens in (innermost)
+    ops = [e for e in inside if e.get("cat") == "cpu_op"]
+    waits = []
+    for e in inside:
+        if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaStreamSynchronize":
+            ts = float(e["ts"])
+            around = [o for o in ops if o.get("tid") == e.get("tid")
+                      and float(o["ts"]) <= ts <= float(o["ts"]) + float(o["dur"])]
+            waits.append(min(around, key=lambda o: float(o["dur"]))["name"] if around
+                         else "(no op)")
+    results = learner._buffers.results.numel()
+    print(f"{tag} train ({label}): one tree of {tree.num_leaves} leaves, {launched} waves "
+          f"launched ({graphs} graph launches in the trace): {len(d2h)} device-to-host "
+          f"copies, {sum(nbytes)} bytes ({sorted(set(nbytes))} apiece; bound "
+          f"8 x {launched} + {results} for the results), {len(syncs)} host synchronizations "
+          f"({', '.join(f'{n} {syncs.count(n)}' for n in sorted(set(syncs)))}; the stream "
+          f"synchronizations in {waits}) (torch.profiler trace, the tree's span)")
+    # a wave launched after the tree is done: it selects nothing, and its
+    # partition copies the carry unchanged to the other buffer (so the
+    # host's parity stays right); keeping the parity on the card instead
+    # would skip that copy (the scatter) and read both buffers at the end
+    buf, K = learner._buffers, learner.wave_k
+    buf.scalars[DONE:DONE + 1].fill_(1)
+    graphs = (buf.graphs[(K, 0, False)], buf.graphs[(K, 1, False)])
+
+    def noop():
+        for graph in graphs:
+            graph.replay()
+
+    noop_ms = cuda_ms(noop, 20) / 2
+    scatter = (device_kernel_ms(noop, 10, ("scatter_kernel",)) or {}).get("scatter_kernel")
+    print(f"{tag} train ({label}): a no-op wave (graph replay after the tree is done, K = "
+          f"{K}): {noop_ms:.4f} ms of device time a replay (CUDA events), of which the "
+          f"partition's copy of the carry (scatter_kernel, torch.profiler) "
+          f"{fmt_ms(None if scatter is None else scatter / 2)}")
+    check(len(d2h) > 0, f"train ({label}): the trace shows no device-to-host copy")
+    check(sum(nbytes) <= 8 * launched + results and len(d2h) <= launched + 1,
+          f"train ({label}): {len(d2h)} copies of {sum(nbytes)} bytes for {launched} waves")
+    # the lagged reads of the done word (one a launched wave but the first)
+    # and the results' copy, nothing else
+    check(set(syncs) <= {"cudaEventSynchronize", "cudaStreamSynchronize"}
+          and syncs.count("cudaEventSynchronize") <= launched - 1
+          and syncs.count("cudaStreamSynchronize") <= 1,
+          f"train ({label}): host synchronizations {syncs} for {launched} waves")
 
 
 def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, label):
@@ -1107,10 +1379,14 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
         lib.reset_launches()
     stamps, evals, hist_rows, waves = [], {}, [], [0]
 
+    first = {}
+
     def after(env):
         stamps.append(time.perf_counter())
         hist_rows.append(getattr(env.model._gbdt.tree_learner, "last_hist_rows", 0))
         waves.append(global_timer.counters.get("device_waves", 0))
+        if len(stamps) == 1:
+            first.update(global_timer.totals)
 
     global_timer.reset()
     global_timer.enabled = True  # host-clock scopes of the learner's steps
@@ -1160,6 +1436,31 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
     print(f"{tag} train ({label}) scopes (host s over {rounds} rounds): " + ", ".join(
         f"{k} {v:.3f} ({n})" for k, (v, n) in sorted(scopes.items(),
                                                       key=lambda kv: -kv[1][0])))
+    learner = trained._gbdt.tree_learner
+    if hasattr(learner, "last_waves_launched"):
+        replays = counters.get("wave_graph_replays", 0)
+        noops = counters.get("wave_noops", 0)
+        check(replays == counters["device_waves"] + noops,
+              f"train ({label}): {replays} graph replays for {counters['device_waves']} "
+              f"live and {noops} no-op waves")
+        tree_s = scopes["tree_device"][0]
+        print(f"{tag} train ({label}): per tree {replays / rounds:.1f} graph replays, "
+              f"{noops / rounds:.1f} no-op waves (launched after the tree was done); host time "
+              f"a wave {tree_s / replays * 1e3:.4f} ms (tree_device {tree_s:.3f} s over "
+              f"{replays} replays; wave_launch {scopes['wave_launch'][0] / replays * 1e3:.4f}, "
+              f"wave_wait {scopes['wave_wait'][0] / replays * 1e3:.4f} ms a wave)")
+        part = {k: first.get(k, 0.0) for k in ("wave_buffers", "wave_warmup", "wave_capture",
+                                                 "tree_device", "tree_results")}
+        tree1 = part["tree_device"] - part["wave_warmup"] - part["wave_capture"]
+        rest = per_iter[0] - part["wave_buffers"] - part["tree_device"] - part["tree_results"]
+        captures = scopes.get("wave_capture", (0.0, 0))
+        print(f"{tag} train ({label}): first iteration {per_iter[0]:.3f} s: buffer allocation "
+              f"{part['wave_buffers']:.3f} s, build and load (the warm-up wave) "
+              f"{part['wave_warmup']:.3f} s, graph capture {part['wave_capture']:.3f} s, the "
+              f"first tree {tree1:.3f} s (+ its results {part['tree_results']:.3f} s), the "
+              f"rest (data to the card, gradients, scores, metrics) {rest:.3f} s; graph "
+              f"captures in the run {captures[1]} ({captures[0]:.3f} s)")
+        tree_transfers(trained, tag, label)
     # one steady round: a booster that has already taken one step
     profile_round(lt, params, train_set, tag, label)
     return {"launches": launches, "learner": trained._gbdt.tree_learner,
@@ -1229,7 +1530,7 @@ def main() -> int:
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
     from lightgbm_tpu_torch.ops import (compact_cuda, cuda_build, hist_cuda, partition_cuda,
-                                        predict_cuda, scan_cuda)
+                                        predict_cuda, scan_cuda, wave_cuda)
     from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
     from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused,
                                                 _traverse_leaves, pack_ensemble)
@@ -1247,7 +1548,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB,
                                    compact_cuda.LIB, compact_cuda.WAVE_LIB,
-                                   partition_cuda.LIB], force=True)
+                                   partition_cuda.LIB, wave_cuda.LIB], force=True)
     print(f"build: {len(builds)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for info in builds:
@@ -1489,6 +1790,7 @@ def main() -> int:
     kept = record_wave_inputs(lt, train_set, WAVE_PARAMS)
     ms_part, bound_part, (n_part, g_part, k_part, moved, relabeled) = check_partition(
         dev, kept, args.seed + 11)
+    ms_step, bound_step, (L_step, K_step, committed) = check_wave_step(dev, kept)
     del kept
     torch.cuda.empty_cache()
     print(f"kernels: wave partition {g_part}x{n_part} + [{n_part}, 5] payload, a real wave's "
@@ -1510,6 +1812,20 @@ def main() -> int:
           f"parent's sequence (per-row glue, forward map, compaction kernel, slot vector, "
           f"relabel): device {ms_part['this_tree']:.4f} vs {ms_part['parent']:.4f} ms, host "
           f"{ms_part['this_tree_host']:.4f} vs {ms_part['parent_host']:.4f} ms a call")
+
+    print(f"kernels: wave selection and replay on the first, a middle and the last live "
+          f"wave of a real tree (L = {L_step}, K = {K_step}; "
+          + ", ".join(f"{k} {v} committed" for k, v in committed.items())
+          + "): the table, the state after the replay (records, depths, ranges, split-log "
+          "bits, scalars, done word) and the commit table equal to the CPU plain version, "
+          "two launches equal")
+    print(f"{tag} wave_select: kernel {fmt_ms(ms_step['select'])} device (torch.profiler), "
+          f"{ms_step['select_events']:.4f} ms a call back to back, plain "
+          f"{ms_step['select_plain']:.3f} ms, bound {bound_step['select'][0]:.6f} ms "
+          f"({bound_step['select'][1]}); wave_replay (middle wave, {committed['middle']} "
+          f"commits): kernel {fmt_ms(ms_step['replay'])} device, plain "
+          f"{ms_step['replay_plain']:.3f} ms, bound {bound_step['replay'][0]:.6f} ms "
+          f"({bound_step['replay'][1]})")
 
     kept = record_serial_splits(lt, train_set, TRAIN_PARAMS)
     ms_rp, bound_rp, shapes_rp = check_row_partition(dev, kept)
@@ -1705,12 +2021,13 @@ def main() -> int:
 
     # ------------------------------- main path: training, wave learner
     libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB,
-            partition_cuda.LIB)
+            partition_cuda.LIB, wave_cuda.LIB)
     valid = (X_valid, y_valid)
     wave = drive_training(lt, libs, WAVE_PARAMS, train_set, valid, TRAIN_ROUNDS,
                           ("histogram_slots_ragged", "partition_decide", "partition_scan",
                            "partition_scatter", "relabel_rows", "find_best_split",
-                           "find_best_split_batched", "predict_forest_raw"), tag, "wave")
+                           "find_best_split_batched", "wave_select", "wave_replay",
+                           "predict_forest_raw"), tag, "wave")
     check(isinstance(wave["learner"], DeviceTreeLearner),
           "train (wave): lt.train did not grow its trees with the wave learner")
     if args.seed == 0:
@@ -1861,6 +2178,17 @@ def main() -> int:
          "ms": ms_part["relabel"], "plain_ms": ms_part["relabel_plain"],
          "bound_ms": bound_part["relabel"][0], "bound_by": bound_part["relabel"][1],
          "library_ms": None})
+    # the wave's selection and replay: glue of the wave learner folded into
+    # kernels (the JAX grower computes it in XLA, no TPU kernel), on the
+    # path of rows 2-4's kernels
+    for name, key in (("wave_select", "select"), ("wave_replay", "replay")):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "lightgbm_tpu_torch/csrc/wave_step.cu",
+             "replaces": "lightgbm_tpu/treelearner/device.py:575",
+             "launches": launches(name), "max_abs_err": 0.0,
+             "ms": ms_step[key] if ms_step[key] is not None else ms_step.get(key + "_events"),
+             "plain_ms": ms_step[key + "_plain"], "bound_ms": bound_step[key][0],
+             "bound_by": bound_step[key][1], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

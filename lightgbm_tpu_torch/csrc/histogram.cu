@@ -479,6 +479,22 @@ unsigned* flag_words(void* image, long long cells) {
   return reinterpret_cast<unsigned*>(static_cast<long long*>(image) + cells);
 }
 
+// Opt the kernel into `smem` bytes of dynamic shared memory on the current
+// device, once for each size it grows to (`opted`, the caller's, one for
+// each kernel instantiation, by device): the first launches set it, so a
+// launch captured into a CUDA graph after them makes no call but the launch.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, size_t (&opted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < kMaxDevices && smem <= opted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) opted[dev] = smem;
+  return err;
+}
+
 // The float modes' last step, on `count` cells.
 cudaError_t fixed_to_float(const void* image, const unsigned* flags, long long count, int ch,
                            const int* exps, float* out, cudaStream_t stream) {
@@ -494,8 +510,8 @@ cudaError_t launch_rows(dim3 grid, size_t smem, cudaStream_t stream, const uint8
                         long long count, int num_bins, int group_block, const int* exps,
                         void* image, unsigned* flags) {
   auto kernel = hist_rows_kernel<GH, CH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
+  static size_t opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(kernel, smem, opted);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(bins, n_rows, n_groups, gh, idx, count, num_bins,
                                            group_block, exps, image, flags);
@@ -543,8 +559,8 @@ cudaError_t launch_ragged(dim3 grid, size_t smem, cudaStream_t stream, const uin
                           const uint8_t* valid, int n_ranges, int num_bins, int group_block,
                           const int* exps, void* image, unsigned* flags) {
   auto kernel = hist_ragged_kernel<kFixed, CH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
+  static size_t opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(kernel, smem, opted);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(bins, n_rows, n_groups, gh, gh_stride, slot,
                                            starts, ends, valid, n_ranges, num_bins,

@@ -45,7 +45,10 @@
 //      (tiles of 1,024 rows: 1,024 blocks at N = 2^20, all resident at once,
 //      so enough loads are in flight to cover the latency).
 // The relabel kernel writes new leaf ids over committed ranges' right rows,
-// [start + n_left, end), a block row per range.
+// [start + n_left, end), from a K-entry table that stays on the card (the
+// wave's replay writes it; an uncommitted range is empty): every block
+// takes the exclusive prefix of the ranges' lengths and a grid-stride loop
+// over their sum finds each position's range by binary search.
 //
 // What bounds it. Bytes: the decide pass reads the leaf id (its 4 bytes
 // touch the whole 4 * rc-byte payload row's sectors) and one bin byte, and
@@ -65,15 +68,20 @@ constexpr int kMaxRanges = 1024;
 constexpr int kGroupBins = 256;       // every value a uint8 group bin takes
 constexpr unsigned kFull = 0xffffffffu;
 
-// the range of a row with leaf id `leaf` (K: none)
+// the range of a row with leaf id `leaf` (K: none). The float is
+// range-checked before it becomes an index (int(leaf) + 1 in [0, n_leaf2k),
+// as the plain version's int64 cast gives it; a NaN or a value past int32
+// names no range), so no payload value can address outside leaf2k.
 __device__ __forceinline__ int range_of(float leaf, const int* leaf2k, int n_leaf2k, int K,
                                         int bagged) {
   if (bagged) return 0;
-  const int idx = int(leaf) + 1;
-  if (idx < 0 || idx >= n_leaf2k) return K;
-  const int k = leaf2k[idx];
+  if (!(leaf > -2.f && leaf < float(n_leaf2k - 1))) return K;
+  const int k = leaf2k[int(leaf) + 1];
   return (k >= 0 && k < K) ? k : K;
 }
+
+// the bagged partition's side: the row is in the bag (leaf id 0)
+__device__ __forceinline__ bool in_bag(float leaf) { return leaf > -1.f && leaf < 1.f; }
 
 __global__ void __launch_bounds__(kThreads)
 decide_kernel(const uint8_t* __restrict__ bins, const float* __restrict__ rows, long long n,
@@ -95,7 +103,7 @@ decide_kernel(const uint8_t* __restrict__ bins, const float* __restrict__ rows, 
       k = range_of(leaf, leaf2k, n_leaf2k, K, bagged);
       if (k < K) {
         if (bagged) {
-          left = int(leaf) == 0;
+          left = in_bag(leaf);
         } else {
           const int gb = bins[(long long)rgroup[k] * n + i];
           left = lut[k * kGroupBins + gb] != 0;
@@ -119,7 +127,7 @@ decide_kernel(const uint8_t* __restrict__ bins, const float* __restrict__ rows, 
 __global__ void __launch_bounds__(kScanThreads)
 scan_kernel(int* __restrict__ tile_cnt, int K, const int* __restrict__ starts,
             const int* __restrict__ counts, const int* __restrict__ valid,
-            int* __restrict__ ranges, uint8_t* __restrict__ flags, float* __restrict__ nl_float) {
+            int* __restrict__ ranges, uint8_t* __restrict__ flags) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
   for (int k = warp; k < K; k += n_warps) {
     const int s = starts[k], c = counts[k];
@@ -150,7 +158,6 @@ scan_kernel(int* __restrict__ tile_cnt, int K, const int* __restrict__ starts,
       ranges[2 * K + k] = ss + sc;
       flags[k] = ok && sc > 0;
       flags[K + k] = left_small;
-      if (nl_float != nullptr) nl_float[k] = float(nl);
     }
   }
 }
@@ -244,14 +251,40 @@ scatter_kernel(const uint8_t* __restrict__ bins, const uint32_t* __restrict__ ro
   }
 }
 
-__global__ void relabel_kernel(uint32_t* __restrict__ rows, int rc, int leaf_col,
-                               const long long* __restrict__ table, int m) {
-  const int j = blockIdx.y;
-  const long long mid = table[j], end = table[m + j];
-  const uint32_t v = __float_as_uint(float(table[2 * m + j]));
-  for (long long p = mid + (long long)blockIdx.x * blockDim.x + threadIdx.x; p < end;
-       p += (long long)gridDim.x * blockDim.x) {
-    rows[p * rc + leaf_col] = v;
+__global__ void __launch_bounds__(kThreads)
+relabel_kernel(uint32_t* __restrict__ rows, int rc, int leaf_col,
+               const long long* __restrict__ table, int m) {
+  __shared__ long long pre[kMaxRanges + 1];  // exclusive prefix of the ranges' lengths
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    long long carry = 0;
+    for (int base = 0; base < m; base += 32) {
+      const int j = base + lane;
+      long long v = 0;
+      if (j < m) {
+        const long long len = table[m + j] - table[j];
+        v = len > 0 ? len : 0;
+      }
+      long long x = v;
+      for (int d = 1; d < 32; d <<= 1) {
+        const long long y = __shfl_up_sync(kFull, x, d);
+        if (lane >= d) x += y;
+      }
+      if (j < m) pre[j] = carry + x - v;
+      carry += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) pre[m] = carry;
+  }
+  __syncthreads();
+  const long long total = pre[m];
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < total;
+       q += (long long)gridDim.x * blockDim.x) {
+    int lo = 0, hi = m;  // pre[lo] <= q < pre[hi]: range lo holds q
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (pre[mid] <= q) lo = mid; else hi = mid;
+    }
+    rows[(table[lo] + (q - pre[lo])) * rc + leaf_col] = __float_as_uint(float(table[2 * m + lo]));
   }
 }
 
@@ -279,14 +312,12 @@ int lgbt_partition_decide(const uint8_t* bins, const float* rows, long long n, i
 
 // Pass 2. tile_cnt in place -> per-tile offsets; starts/counts/valid [K]
 // int32 -> ranges [3, K] int32 (n_left, smaller child's start, end), flags
-// [2, K] bytes (child histogrammed, left is smaller), nl_float [K] f32 or
-// NULL (n_left again).
+// [2, K] bytes (child histogrammed, left is smaller).
 int lgbt_partition_scan(int* tile_cnt, int k, const int* starts, const int* counts,
-                        const int* valid, int* ranges, uint8_t* flags, float* nl_float,
-                        void* stream) {
+                        const int* valid, int* ranges, uint8_t* flags, void* stream) {
   if (k < 1 || k > kMaxRanges) return int(cudaErrorInvalidValue);
   scan_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tile_cnt, k, starts, counts, valid, ranges, flags, nl_float);
+      tile_cnt, k, starts, counts, valid, ranges, flags);
   return int(cudaGetLastError());
 }
 
@@ -307,18 +338,23 @@ int lgbt_partition_scatter(const uint8_t* bins, const uint32_t* rows, long long 
   return int(cudaGetLastError());
 }
 
-// rows [N, rc] f32: rows[p, leaf_col] = newid[j] for p in [mid[j], end[j]),
-// table [3, m] int64 (mid, end, newid); max_len bounds end - mid.
-int lgbt_relabel_rows(uint32_t* rows, int rc, int leaf_col, const long long* table, int m,
-                      long long max_len, void* stream) {
-  if (m < 1 || m > 65535 || rc < 1 || leaf_col < 0 || leaf_col >= rc || max_len < 0) {
+// rows [n_rows, rc] f32: rows[p, leaf_col] = newid[j] for p in [mid[j],
+// end[j]), table [3, m] int64 (mid, end, newid; an empty range relabels
+// nothing). The grid follows n_rows, never the table, which stays on the
+// card: every block scans the m lengths and takes its share of their sum.
+int lgbt_relabel_rows(uint32_t* rows, long long n_rows, int rc, int leaf_col,
+                      const long long* table, int m, void* stream) {
+  if (m < 1 || m > kMaxRanges || rc < 1 || leaf_col < 0 || leaf_col >= rc || n_rows < 0) {
     return int(cudaErrorInvalidValue);
   }
-  long long blocks = (max_len + kThreads - 1) / kThreads;
+  // a fixed share of n_rows (half of them, four a thread, at most 1024
+  // blocks), since the ranges' total is on the card: the grid-stride loop
+  // covers any total up to n_rows
+  long long blocks = (n_rows / 2 + 4 * kThreads - 1) / (4 * kThreads);
   if (blocks < 1) blocks = 1;
   if (blocks > 1024) blocks = 1024;
-  relabel_kernel<<<dim3(unsigned(blocks), unsigned(m)), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(rows, rc, leaf_col, table, m);
+  relabel_kernel<<<unsigned(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, rc, leaf_col, table, m);
   return int(cudaGetLastError());
 }
 

@@ -127,8 +127,7 @@ def _partition_wave_plain(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int
                           lut: Optional[torch.Tensor], starts: torch.Tensor,
                           counts: torch.Tensor, valid: torch.Tensor, bagged: bool,
                           out: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                          slot_out: Optional[torch.Tensor],
-                          n_left_out: Optional[torch.Tensor]):
+                          slot_out: Optional[torch.Tensor]):
     """`partition_wave` composed of the steps of this module: each row's
     range and side, `range_partition_dst_by_range`, `compact_rows`, then the
     children's ranges and the slot vector."""
@@ -165,8 +164,6 @@ def _partition_wave_plain(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int
         in_small = ((pos >= torch.cat([s_start, none])[r64])
                     & (pos < torch.cat([s_end, none])[r64]))
         slot_out.copy_(torch.where(in_small, rng, K))
-    if n_left_out is not None:
-        n_left_out.copy_(n_left)
     return bins_o, rows_o, ranges, flags
 
 
@@ -175,8 +172,7 @@ def partition_wave(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
                    lut: Optional[torch.Tensor], starts: torch.Tensor, counts: torch.Tensor,
                    valid: torch.Tensor, bagged: bool = False,
                    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                   slot_out: Optional[torch.Tensor] = None,
-                   n_left_out: Optional[torch.Tensor] = None):
+                   slot_out: Optional[torch.Tensor] = None):
     """One wave's stable 2-way partition of K disjoint row ranges, from the
     wave's K-entry tables (the JAX wave's ``_decide_go_left`` +
     ``range_partition_dst`` + ``compact_rows``,
@@ -194,7 +190,7 @@ def partition_wave(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
     Writes `out` (bins, rows), the learner's second buffers (allocated when
     None; they must not alias the inputs), `slot_out` [N] int32 when given
     (k where the row lands in range k's smaller child, tie to the left, else
-    K) and `n_left_out` [K] (any dtype) when given. Returns (bins, rows,
+    K) when given. Returns (bins, rows,
     ranges [3, K] int32: n_left, the smaller child's start and end; flags
     [2, K] bool: the smaller child is valid and not empty, it is the left
     one). A CPU tensor takes the plain version; a CUDA tensor launches the
@@ -202,7 +198,7 @@ def partition_wave(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
     from .compact_cuda import partition
 
     return partition(bins, row_p, leaf_col, leaf2k, rgroup, lut, starts, counts, valid,
-                     bagged, out, slot_out, n_left_out)
+                     bagged, out, slot_out)
 
 
 def _relabel_rows_plain(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor) -> None:
@@ -211,14 +207,14 @@ def _relabel_rows_plain(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor)
         row_p[mid:end, leaf_col] = float(new_id)
 
 
-def relabel_rows(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor,
-                 max_len: int) -> None:
+def relabel_rows(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor) -> None:
     """A wave's commit on the leaf-id column, in place: the rows at
     positions [mid[j], end[j]) (a committed range's right child) take leaf
     id new_id[j] (the JAX wave's relabel, treelearner/device.py:818-826).
-    table [3, m] int64 (mid, end, new_id) on row_p's device; max_len is at
-    least every end - mid. A CPU tensor takes the plain version; a CUDA
-    tensor launches the relabel kernel."""
+    table [3, m] int64 (mid, end, new_id) on row_p's device, disjoint
+    ranges; an empty range (end <= mid: a range the wave did not commit)
+    relabels nothing. A CPU tensor takes the plain version; a CUDA tensor
+    launches the relabel kernel, sized by row_p's rows alone."""
     from .compact_cuda import relabel
 
-    relabel(row_p, leaf_col, table, max_len)
+    relabel(row_p, leaf_col, table)

@@ -36,10 +36,10 @@ def _declare_wave(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lgbt_partition_decide.argtypes = [ptr, ptr, i64, i32, i32, ptr, i32, ptr, ptr, i32,
                                           i32, ptr, ptr, ptr]
-    lib.lgbt_partition_scan.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.lgbt_partition_scan.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.lgbt_partition_scatter.argtypes = [ptr, ptr, i64, i32, i32, i32, ptr, i32, i32, i32,
                                            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.lgbt_relabel_rows.argtypes = [ptr, i32, i32, ptr, i32, i64, ptr]
+    lib.lgbt_relabel_rows.argtypes = [ptr, i64, i32, i32, ptr, i32, ptr]
     for fn in (lib.lgbt_partition_decide, lib.lgbt_partition_scan,
                lib.lgbt_partition_scatter, lib.lgbt_relabel_rows):
         fn.restype = i32
@@ -117,14 +117,13 @@ def partition(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
               lut: Optional[torch.Tensor], starts: torch.Tensor, counts: torch.Tensor,
               valid: torch.Tensor, bagged: bool = False,
               out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              slot_out: Optional[torch.Tensor] = None,
-              n_left_out: Optional[torch.Tensor] = None):
+              slot_out: Optional[torch.Tensor] = None):
     """The wave partition (ops/compact.py:partition_wave). A CPU tensor
     takes the plain version; a CUDA tensor launches the decide, scan and
     scatter passes."""
     if bins.device.type == "cpu":
         return _partition_wave_plain(bins, row_p, leaf_col, leaf2k, rgroup, lut, starts,
-                                     counts, valid, bagged, out, slot_out, n_left_out)
+                                     counts, valid, bagged, out, slot_out)
     require_cuda(bins, "the wave partition")
     dev = bins.device
     if bins.dtype != torch.uint8 or bins.dim() != 2 or not bins.is_contiguous():
@@ -167,8 +166,6 @@ def partition(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
                              "rows out of place")
     if slot_out is not None:
         _check_vec("slot_out", slot_out, N, dev)
-    if n_left_out is not None:
-        _check_vec("n_left_out", n_left_out, K, dev, torch.float32)
     tiles = -(-N // TILE_ROWS)
     bits = torch.empty(-(-N // 32), dtype=torch.int32, device=dev)
     tile_cnt = torch.empty(tiles * K, dtype=torch.int32, device=dev)
@@ -189,7 +186,7 @@ def partition(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
         WAVE_LIB.count("partition_decide", err)
         err = lib.lgbt_partition_scan(tile_cnt.data_ptr(), K, starts.data_ptr(),
                                       counts.data_ptr(), valid.data_ptr(), ranges.data_ptr(),
-                                      flags.data_ptr(), ptr(n_left_out), stream)
+                                      flags.data_ptr(), stream)
         WAVE_LIB.count("partition_scan", err)
         err = lib.lgbt_partition_scatter(bins.data_ptr(), row_p.data_ptr(), N, G, rc,
                                          leaf_col, ptr(leaf2k), n_leaf2k, K, int(bagged),
@@ -201,9 +198,10 @@ def partition(bins: torch.Tensor, row_p: torch.Tensor, leaf_col: int,
     return bins_o, row_o, ranges, flags
 
 
-def relabel(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor, max_len: int) -> None:
+def relabel(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor) -> None:
     """The commit relabel (ops/compact.py:relabel_rows), in place. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    tensor takes the plain version; a CUDA tensor launches the kernel, whose
+    grid follows row_p's rows: nothing of the table is read on the host."""
     if row_p.device.type == "cpu":
         _relabel_rows_plain(row_p, leaf_col, table)
         return
@@ -221,8 +219,10 @@ def relabel(row_p: torch.Tensor, leaf_col: int, table: torch.Tensor, max_len: in
     m = table.shape[1]
     if m == 0:
         return
+    if m > MAX_RANGES:
+        raise ValueError(f"the relabel takes at most {MAX_RANGES} ranges, got {m}")
     lib = WAVE_LIB.load()
     with torch.cuda.device(dev):
-        err = lib.lgbt_relabel_rows(row_p.data_ptr(), row_p.shape[1], leaf_col,
-                                    table.data_ptr(), m, int(max_len), stream_of(row_p))
+        err = lib.lgbt_relabel_rows(row_p.data_ptr(), row_p.shape[0], row_p.shape[1],
+                                    leaf_col, table.data_ptr(), m, stream_of(row_p))
     WAVE_LIB.count("relabel_rows", err)

@@ -10,6 +10,12 @@ kernel's launches, so a run can show that its work went through the kernel.
 
 `build_all` starts one ``nvcc`` per source, all together, and waits for
 them: the sources compile in parallel.
+
+`CountedGraph` records a function's launches as one CUDA graph and
+replays it. The counters tick in the wrappers, on the host, so a capture
+(which launches nothing) takes back what its wrappers counted, and each
+replay adds the kernels the capture recorded: the counts stay counts of
+kernels run on the card.
 """
 from __future__ import annotations
 
@@ -57,6 +63,7 @@ class CudaLibrary:
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        _LIBRARIES.append(self)
 
     @property
     def path(self) -> Path:
@@ -113,10 +120,61 @@ class CudaLibrary:
         if err != 0:
             raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
+    def add(self, name: str, n: int) -> None:
+        """Add n launches of `name` (a graph's replays, or a capture's
+        launches taken back)."""
+        with self._lock:
+            self.launches[name] += n
+
     def reset_launches(self) -> None:
         with self._lock:
             for name in self.launches:
                 self.launches[name] = 0
+
+
+_LIBRARIES: List[CudaLibrary] = []  # every library, for CountedGraph
+
+
+def _launch_counts() -> Dict[tuple, int]:
+    return {(i, name): n for i, lib in enumerate(_LIBRARIES)
+            for name, n in list(lib.launches.items())}
+
+
+class CountedGraph:
+    """`fn`'s launches on the current CUDA device, captured once as a CUDA
+    graph (on a capture stream of its own, with the graph's private memory
+    pool) and run on the current stream by `replay`. The capture neither
+    runs nor waits for anything on the card. fn must not read the card or
+    synchronize, and whatever it reads or writes beyond its own temporaries
+    must stay allocated as long as the graph: a replay runs on the same
+    addresses. Kernels that set up lazily (loading a library, opting into
+    shared memory) must have run once before the capture. A capture that
+    fails raises; nothing falls back to launching eagerly."""
+
+    def __init__(self, fn: Callable[[], None]) -> None:
+        import torch
+
+        self.graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.stream(torch.cuda.Stream()):
+            self.graph.capture_begin()
+            try:
+                fn()
+            finally:
+                self.graph.capture_end()
+        after = _launch_counts()
+        self.kernels = [(_LIBRARIES[i], name, n - before.get((i, name), 0))
+                        for (i, name), n in after.items()
+                        if n != before.get((i, name), 0)]
+        self._count(-1)  # the capture ran nothing on the card
+
+    def _count(self, sign: int) -> None:
+        for lib, name, n in self.kernels:
+            lib.add(name, sign * n)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self._count(1)
 
 
 def build_all(libraries: Iterable[CudaLibrary],

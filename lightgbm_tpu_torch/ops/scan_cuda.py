@@ -136,8 +136,7 @@ def split_scan(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
 
 def split_find(hist: torch.Tensor, totals, meta: FeatureMeta, params: torch.Tensor,
                feature_mask: Optional[torch.Tensor] = None,
-               penalty: Optional[torch.Tensor] = None,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Group histograms [G, Bg, 3] (or [L, G, Bg, 3]) float32 -> the best
     split record [14] (or [L, 14]) (ops/split.py:find_best_split). `totals`
     is [3] (or [L, 3]) float32, or, for one leaf, three host floats passed
@@ -147,11 +146,7 @@ def split_find(hist: torch.Tensor, totals, meta: FeatureMeta, params: torch.Tens
     if hist.device.type == "cpu":
         if not isinstance(totals, torch.Tensor):
             totals = torch.tensor([float(v) for v in totals], dtype=torch.float32)
-        rec = _find_best_split_plain(hist, totals, meta, params, feature_mask, penalty)
-        if out is not None:
-            out.copy_(rec)
-            return out
-        return rec
+        return _find_best_split_plain(hist, totals, meta, params, feature_mask, penalty)
     require_cuda(hist, "the split search")
     if hist.dim() not in (3, 4):
         raise ValueError(f"hist must be [G, Bg, 3] or [L, G, Bg, 3], got "
@@ -174,11 +169,7 @@ def split_find(hist: torch.Tensor, totals, meta: FeatureMeta, params: torch.Tens
     _check("meta.default_bin", meta.default_bin, torch.int64, (F,), dev)
     _check("meta.efb_omitted", meta.efb_omitted, torch.bool, (F,), dev)
     _check_common(meta, params, F, B, feature_mask, penalty, dev)
-    shape = lead + (len(SPLIT_FIELDS),)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=dev)
-    else:
-        _check("out", out, torch.float32, shape, dev)
+    out = torch.empty(lead + (len(SPLIT_FIELDS),), dtype=torch.float32, device=dev)
     err = _launch(hist, G * Bg, L, F, B, totals, meta, params, True, feature_mask,
                   penalty, out)
     # one leaf (the serial learner, the root) and a leaf batch (a wave's 2K

@@ -413,8 +413,7 @@ def _find_best_split_plain(hist: torch.Tensor, totals: torch.Tensor, meta: Featu
 def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
                     params: torch.Tensor,
                     feature_mask: Optional[torch.Tensor] = None,
-                    penalty: Optional[torch.Tensor] = None,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Best split across all features for one leaf, or for L leaves at once
     (the JAX package vmaps it over a wave's 2K children,
     treelearner/device.py:742-747; each record is the one-leaf call's bits).
@@ -422,11 +421,10 @@ def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
     hist:   [G, Bg, 3] group histogram for the leaf, or [L, G, Bg, 3]
     totals: [3] leaf (sum_grad, sum_hess, count), or [L, 3]; for one leaf
             also three floats on the host, which a launch takes by value
-    out:    optional [len(SPLIT_FIELDS)] (or [L, ...]) float32 written
     Returns the packed split record [len(SPLIT_FIELDS)] float32, or [L, ...].
     A CPU tensor takes the plain version; a CUDA tensor is one launch of the
     split kernel.
     """
     from .scan_cuda import split_find
 
-    return split_find(hist, totals, meta, params, feature_mask, penalty, out)
+    return split_find(hist, totals, meta, params, feature_mask, penalty)

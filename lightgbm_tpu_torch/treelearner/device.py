@@ -12,54 +12,64 @@ the same carry:
     leaf_best  [L+1, REC]   per-leaf best-split records
     depth      [L+1]        per-leaf depth
     rec_store  [L, REC+4]   the split log replayed into a Tree
+    scalars    [5]          n_cur, t, rows histogrammed, live waves, done
 
-Per wave: the top-K frontier leaves by gain -> a stable 2-way partition of
-every selected leaf's range (ops/compact.py:partition_wave, the partition
-kernel's three passes: each row's range and side from K-entry tables, the
-move, the smaller children's slot vector and ranges) -> a ragged histogram
+Per wave (`_wave`): the top-K frontier leaves by gain and the partition's
+K-entry tables (ops/wave.py:select_wave, the selection kernel) -> a stable
+2-way partition of every selected leaf's range (ops/compact.py:
+partition_wave, the partition kernel's three passes) -> a ragged histogram
 of only the smaller children (ops/histogram.py, the ragged histogram
 kernel, K*CH channels) -> the larger children by subtraction from the pool
--> 2K split searches in one launch (ops/split.py:find_best_split, the split
-kernel's find form, from the group histograms to each child's record) ->
-the exact best-first replay, which commits splits until the argmax needs a
-leaf whose children were not precomputed -> the committed ranges' right
-rows relabeled (ops/compact.py:relabel_rows, one launch). Split
-decisions are those of the reference's leaf-wise growth
-(serial_tree_learner.cpp:182); only histogram and partition work is
-speculative. Histogrammed rows per tree: N at the root plus, each wave, the
-selected leaves' smaller children, at most N/2 (a few N in all: within 4N
-at 31 leaves, 4-6N at 255 on HIGGS-shaped data).
+-> 2K split searches in one launch (ops/split.py:find_best_split) -> the
+guard and the exact best-first replay, which commits splits until the
+argmax needs a leaf whose children were not precomputed, and the commit's
+tables (ops/wave.py:replay_wave, the replay kernel) -> the committed
+children's histograms into the pool and their right rows relabeled
+(ops/compact.py:relabel_rows). Split decisions are those of the
+reference's leaf-wise growth (serial_tree_learner.cpp:182); only histogram
+and partition work is speculative. Histogrammed rows per tree: N at the
+root plus, each wave, the selected leaves' smaller children, at most N/2
+(a few N in all: within 4N at 31 leaves, 4-6N at 255 on HIGGS-shaped
+data).
 
 Where the card differs from the TPU, with the same results:
 
-* The JAX package runs the whole tree in one XLA while_loop. Here the row
-  arrays, the pool and every kernel stay on the card, and the host keeps
-  the [L+1]-sized state (leaf_best, depth, start/count, rec_store). Once a
-  wave the host reads the 2K child records, their totals and the K left
-  counts (a few KB), replays in float32 with the device replay's op order,
-  and sends back which splits it committed: one copy each way. The replay
-  is K dependent steps of tiny work, which a kernel would run on one
-  thread.
+* The JAX package runs the whole tree in one XLA while_loop. Here the
+  whole carry stays on the card too, and a wave is a fixed sequence of
+  launches over static shapes, each reading the wave's inputs from the
+  carry: on a CUDA device it is captured once as a CUDA graph for each
+  (K, buffer parity, feature mask present) and replayed, one graph launch
+  a wave (`WaveBuffers.graphs`). The loop's condition is the carry's `done`
+  word, which only the card knows: the host keeps one wave enqueued ahead
+  of the one whose word it reads (copied to pinned memory behind an
+  event), so the card never waits on the host, and a wave launched after
+  the tree is done selects nothing and changes no output (one such wave a
+  tree, two when the root cannot split). The tree's split log, leaf count,
+  rows histogrammed and wave count reach the host in one copy, when the
+  tree is finalized. No wave reads the card or synchronizes.
 * Per-row ownership and split fields come from K-entry tables read by
   each row's range (its leaf-id column names it) inside the partition
   kernel, and the commit relabel writes the committed ranges' right rows;
   the TPU phrased all three as [N, K] match matrices and masked matmuls
   because its gathers serialize. The split decision becomes a [K, 256]
-  table of `_decide_go_left` over every possible group bin.
-* The frontier choice is a stable descending sort, which breaks ties toward
-  the lower leaf index as ``jax.lax.top_k`` does.
+  table of `decide_go_left` over every possible group bin.
 * The unpermute is one scatter by the position column (the TPU sorted).
 * No row or group padding: the TPU padded rows to its tiles and groups to
   its (32, 128) layout. Padded rows were invisible in every output.
-* The original bin plane is kept; the permuted copy, the partition's
-  second buffer and the pool are allocated once per learner and reused.
+* The original bin plane is kept; the carry, the partition's second
+  buffers, the pool and the per-tree inputs the graphs read (the
+  fixed-point exponents of the tree's gh, the feature mask) are allocated
+  once per learner and reused.
+
+On the CPU the same wave runs eagerly on the plain versions, with the same
+loop.
 
 Not carried, each still to port (ROADMAP): the sharded grower and its
 data, voting and feature modes (``make_sharded_grow_fn``, Queue 1 item 8);
 quantized training, its leaf renewal and the bf16 gh payload (item 6);
 ``snapshot_state`` (item 6, checkpoint writers); ``_record_carry_bytes``
-(item 11, perfmodel); the GBDT async pipeline (item 5's remainder). The
-JAX package's environment switches (LGBM_TPU_WAVE, LGBM_TPU_ADAPTIVE_WAVE,
+(item 11, perfmodel); the GBDT async pipeline (item 5b). The JAX package's
+environment switches (LGBM_TPU_WAVE, LGBM_TPU_ADAPTIVE_WAVE,
 LGBM_TPU_GH_BF16, LGBM_TPU_HIST_SLOTS, LGBM_TPU_PALLAS_INTERPRET,
 LGBM_TPU_COMPACT_ALIAS) are not read: the wave width ceiling is a
 constructor argument, the adaptive controller is always on
@@ -72,40 +82,27 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..common import MISSING_NAN, MISSING_ZERO
 from ..models.tree import Tree
 from ..ops.compact import partition_wave, relabel_rows
 from ..ops.histogram import fixed_point_exponents, histogram_slots_ragged
 from ..ops.partition import bucket_size
-from ..ops.split import SPLIT_FIELDS, FeatureMeta, SplitInfo, find_best_split
+from ..ops.split import FeatureMeta, SplitInfo, find_best_split
+from ..ops.wave import (DONE, HIST_ROWS, N_CUR, N_WAVES, REC, SCALARS, STORE,
+                        FeatureTables, init_tree_state, replay_wave, select_wave,
+                        split_select)
 from ..utils.timer import global_timer
 from .serial import SerialTreeLearner
-
-REC = len(SPLIT_FIELDS)
-# rec_store row: [leaf, parent_output, depth, valid] + SPLIT_FIELDS
-STORE = REC + 4
-GROUP_BINS = 256  # every value a uint8 group bin can take
 
 # gain-adaptive wave-width thresholds: commit rate (committed splits /
 # speculated splits) below which K steps one rung down, above which it
 # steps back up toward the ceiling
 _WAVE_SHRINK_RATE = 0.5
 _WAVE_GROW_RATE = 0.9
+# waves enqueued past the one whose done word the host reads
+_DONE_LAG = 1
 
 
-class FeatureTables(NamedTuple):
-    """Per-dense-feature decision fields for the row partition (host)."""
-
-    group: np.ndarray  # [F] int32 group row in the bin matrix
-    lo: np.ndarray  # [F] int32 EFB group-bin range
-    hi: np.ndarray  # [F] int32
-    default_bin: np.ndarray  # [F] int32
-    nbins: np.ndarray  # [F] int32
-    missing_type: np.ndarray  # [F] int32
-    is_efb: np.ndarray  # [F] bool
-
-
-def _feature_tables(dataset, used_features) -> FeatureTables:
+def _feature_tables(dataset, used_features, device) -> FeatureTables:
     F = len(used_features)
     group = np.zeros(F, dtype=np.int32)
     lo = np.zeros(F, dtype=np.int32)
@@ -122,106 +119,245 @@ def _feature_tables(dataset, used_features) -> FeatureTables:
         group[k], lo[k], hi[k] = gi, lo_k, hi_k
         db[k], nb[k], mt[k] = m.default_bin, m.num_bin, m.missing_type
         ie[k] = fg.is_multi
-    return FeatureTables(group, lo, hi, db, nb, mt, ie)
-
-
-def _decide_go_left(gb, thresh, default_left, missing_type, default_bin, nbins,
-                    efb_lo, efb_hi, is_efb) -> torch.Tensor:
-    """NumericalDecisionInner on raw group bins (the per-node twin of
-    ops.partition.split_decision_bins); all arguments broadcast."""
-    gb = gb.to(torch.int32)
-    in_range = (gb >= efb_lo) & (gb < efb_hi)
-    shifted = gb - efb_lo
-    natural = shifted + (shifted >= default_bin).to(torch.int32)
-    fbin = torch.where(is_efb, torch.where(in_range, natural, default_bin), gb)
-    is_missing = torch.where(missing_type == MISSING_NAN, fbin == nbins - 1,
-                             (missing_type == MISSING_ZERO) & (fbin == default_bin))
-    return torch.where(is_missing, default_left, fbin <= thresh)
-
-
-def _decision_table(tables: FeatureTables, feature: np.ndarray, thresh: np.ndarray,
-                    default_left: np.ndarray) -> np.ndarray:
-    """[K, 256] go_left of each range's split for every group bin value."""
-    def col(a):
-        return torch.as_tensor(np.asarray(a))[:, None]
-
-    gb = torch.arange(GROUP_BINS, dtype=torch.int32)[None, :]
-    return _decide_go_left(
-        gb, col(thresh), col(default_left), col(tables.missing_type[feature]),
-        col(tables.default_bin[feature]), col(tables.nbins[feature]),
-        col(tables.lo[feature]), col(tables.hi[feature]),
-        col(tables.is_efb[feature])).numpy()
+    return FeatureTables(*(torch.from_numpy(a).to(device)
+                           for a in (group, lo, hi, db, nb, mt, ie)))
 
 
 class WaveBuffers:
     """The wave carry's device arrays, allocated once per learner and reused
     by every tree: the permuted bin plane and row payload, the partition's
-    second copy of each, the histogram's slot vector and the histogram
-    pool."""
+    second copy of each, the histogram's slot vector, the histogram pool,
+    the tree's [L+1]-sized state (ops/wave.py), the per-tree inputs of a
+    wave (the fixed-point exponents, the feature mask) and, on a CUDA
+    device, the captured wave graphs and the pinned words the host reads
+    `done` through. The split log and the scalars share one buffer, so a
+    tree's results leave the card in one copy.
+
+    A graph keeps the addresses of the feature metadata, tables and params
+    it was captured with, and num_bins and max_depth as launch arguments,
+    so buffers serve the inputs of their first tree only (`inputs`): a
+    tree grown into them with others raises, on every device."""
 
     def __init__(self, n_groups: int, n_rows: int, payload: int, num_leaves: int,
-                 num_bins: int, channels: int, device: torch.device) -> None:
-        self.bins = [torch.empty((n_groups, n_rows), dtype=torch.uint8, device=device)
+                 num_bins: int, channels: int, n_features: int,
+                 device: torch.device) -> None:
+        dev = torch.device(device)
+        L = num_leaves
+        # zeroed once: the warm-up wave reads them before the first tree
+        self.bins = [torch.zeros((n_groups, n_rows), dtype=torch.uint8, device=dev)
                      for _ in range(2)]
-        self.rows = [torch.empty((n_rows, payload), dtype=torch.float32, device=device)
+        self.rows = [torch.zeros((n_rows, payload), dtype=torch.float32, device=dev)
                      for _ in range(2)]
-        self.slot = torch.empty(n_rows, dtype=torch.int32, device=device)
-        self.pool = torch.zeros((num_leaves + 1, n_groups, num_bins, channels),
-                                dtype=torch.float32, device=device)
+        self.slot = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+        self.pool = torch.zeros((L + 1, n_groups, num_bins, channels),
+                                dtype=torch.float32, device=dev)
+        self.leaf_best = torch.full((L + 1, REC), float("-inf"), dtype=torch.float32,
+                                    device=dev)
+        self.depth = torch.zeros(L + 1, dtype=torch.int32, device=dev)
+        self.start = torch.zeros(L + 1, dtype=torch.int32, device=dev)
+        self.count = torch.zeros(L + 1, dtype=torch.int32, device=dev)
+        # one extra dump row at the end, as the JAX replay's store has
+        store_bytes = (max(L - 1, 1) + 1) * STORE * 4
+        self.results = torch.zeros(store_bytes + SCALARS * 8, dtype=torch.uint8, device=dev)
+        self.rec_store = self.results[:store_bytes].view(torch.float32).view(-1, STORE)
+        self.scalars = self.results[store_bytes:].view(torch.int64)
+        self.exponents = torch.zeros(channels, dtype=torch.int32, device=dev)
+        self.feature_mask = torch.ones(n_features, dtype=torch.bool, device=dev)
+        # the root's range [0, n) over every row; the bagged partition's range
+        self.whole = torch.tensor([0, n_rows, 1], dtype=torch.int32, device=dev)
+        self.root_valid = torch.ones(1, dtype=torch.bool, device=dev)
+        self.graphs: Dict[Tuple[int, int, bool], object] = {}
+        self.inputs: Optional[tuple] = None  # (meta, tables, params, num_bins, max_depth)
+        self.warm = False
+        cuda = dev.type == "cuda"
+        self.done_words = torch.zeros(_DONE_LAG + 1, dtype=torch.int64, pin_memory=cuda)
+        self.done_events = [torch.cuda.Event() if cuda else None
+                            for _ in range(_DONE_LAG + 1)]
 
 
-def _guard_gain(gain: np.ndarray, cnt: np.ndarray, sum_h: np.ndarray,
-                depth: np.ndarray, min_data: np.float32, min_hess: np.float32,
-                max_depth: int) -> np.ndarray:
-    """BeforeFindBestSplit gates (serial_tree_learner.cpp:343) on float32
-    totals: the gain of a leaf that may not split becomes -inf."""
-    ok = (cnt >= 2 * min_data) & (sum_h >= 2 * min_hess)
-    if max_depth > 0:
-        ok &= depth < max_depth
-    return np.where(ok, gain, np.float32(-np.inf)).astype(np.float32)
+def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: FeatureTables,
+          params: torch.Tensor, masked: bool, num_bins: int, max_depth: int) -> None:
+    """One wave, from the carry in buffers[cur] into buffers[1 - cur]: a
+    fixed sequence of launches over static shapes that reads nothing on the
+    host, so a CUDA graph replays it."""
+    L = buf.leaf_best.shape[0] - 1
+    G = buf.bins[0].shape[0]
+    CH = buf.pool.shape[-1]
+    LEAF = CH + 1
+    rows_out = buf.rows[1 - cur]
+    # the top K leaves and each range's tables: leaf2k, rgroup, start, count,
+    # valid, the leaf ids and the [K, 256] decision table
+    table = select_wave(buf.leaf_best, buf.start, buf.count, buf.scalars, tables, K)
+    leaf2k, rgroup, s_k, c_k, ok_k, sel_k, lut = split_select(table, L, K)
+    # each row's range and side, the stable move, the smaller children
+    _, _, ranges, flags = partition_wave(
+        buf.bins[cur], buf.rows[cur], LEAF, leaf2k, rgroup, lut, s_k, c_k, ok_k,
+        out=(buf.bins[1 - cur], rows_out), slot_out=buf.slot)
+    # the smaller child of each selected leaf (tie -> left), whose rows the
+    # partition made contiguous and labeled with their slot
+    hist_s = histogram_slots_ragged(buf.bins[1 - cur], rows_out[:, :CH], buf.slot,
+                                    ranges[1], ranges[2], flags[0], num_bins, K,
+                                    exponents=buf.exponents)
+    hist_s = hist_s.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3)
+    pool_sel = buf.pool[sel_k.to(torch.int64)]
+    hist_l = torch.where(flags[1][:, None, None, None], hist_s, pool_sel - hist_s)
+    hist_r = pool_sel - hist_l  # subtract_histogram, batched
+    hists = torch.stack([hist_l, hist_r], dim=1).reshape(2 * K, G, num_bins, CH)
+    totals2 = hists[:, 0].sum(dim=1)  # [2K, CH]
+    recs2 = find_best_split(hists, totals2, meta, params,
+                            buf.feature_mask if masked else None)
+    commit = replay_wave(buf.leaf_best, buf.depth, buf.rec_store, buf.start, buf.count,
+                         buf.scalars, table, ranges[0], recs2, totals2, params, max_depth)
+    # the committed children's histograms into the pool (an uncommitted
+    # range writes the dump row L) and each committed range's right rows,
+    # [start + n_left, end), relabeled
+    buf.pool.index_copy_(0, commit[0], hist_l)
+    buf.pool.index_copy_(0, commit[1], hist_r)
+    relabel_rows(rows_out, LEAF, commit[2:])
 
 
-def _replay(leaf_best: np.ndarray, depth: np.ndarray, rec_store: np.ndarray,
-            sel: np.ndarray, sel_ok: np.ndarray, recs2: np.ndarray,
-            totals2: np.ndarray, n_cur: int, t: int, num_leaves: int,
-            l1: np.float32, l2: np.float32, max_delta: np.float32
-            ) -> Tuple[np.ndarray, np.ndarray, int, int]:
-    """The exact best-first replay of one wave (device.py:750-799), in
-    float32 with the device replay's op order: commit the global argmax
-    while it is a selected leaf not yet split this wave and the leaf budget
-    allows. Updates leaf_best, depth and rec_store in place; returns
-    (committed [K], new leaf ids [K], n_cur, t)."""
+def _prepare_graphs(buf: WaveBuffers, K: int, masked: bool, wave) -> None:
+    """Capture the wave for both buffer parities at width K, before the
+    tree starts (a capture costs host time only). The first capture of a
+    learner follows one eager wave that starts done: it loads the kernels'
+    libraries and sets their attributes, and changes no state a tree reads
+    (each tree sets its state anew)."""
+    from ..ops.cuda_build import CountedGraph
+
+    if not buf.warm:
+        with global_timer.scope("wave_warmup"):
+            buf.scalars[DONE:DONE + 1].fill_(1)
+            wave(0)
+            buf.warm = True
+    for cur in (0, 1):
+        key = (K, cur, masked)
+        if key not in buf.graphs:
+            with global_timer.scope("wave_capture"):
+                buf.graphs[key] = CountedGraph(lambda c=cur: wave(c))
+
+
+class _Grown(NamedTuple):
+    """A tree whose waves are enqueued: its results still on the card."""
+
+    buffers: WaveBuffers
+    leaf_id: torch.Tensor
+    waves_launched: int
+    graphed: bool
+
+    def result(self) -> Tuple[np.ndarray, int, int, int]:
+        """(rec_store [max(L-1, 1), STORE] float32, the final leaf count,
+        rows histogrammed, live waves), in one copy to the host."""
+        blob = self.buffers.results.cpu()
+        store_bytes = self.buffers.rec_store.numel() * 4
+        rec = blob[:store_bytes].view(torch.float32).view(-1, STORE).numpy()[:-1].copy()
+        scalars = blob[store_bytes:].view(torch.int64).numpy()
+        return rec, int(scalars[N_CUR]), int(scalars[HIST_ROWS]), int(scalars[N_WAVES])
+
+
+def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
+          meta: FeatureMeta, tables: FeatureTables, params: torch.Tensor,
+          feature_mask: Optional[torch.Tensor], num_leaves: int, num_bins: int,
+          max_depth: int, batch: int, bagged: bool,
+          buffers: Optional[WaveBuffers]) -> _Grown:
+    """Enqueue one tree's growth; see `grow_tree_on_device`."""
     L = num_leaves
-    K = sel.shape[0]
-    committed = np.zeros(K, dtype=bool)
-    newids = np.zeros(K, dtype=np.int32)
-    zero, eps = np.float32(0.0), np.float32(1e-15)
-    while True:
-        b = int(np.argmax(leaf_best[:L, 0]))
-        brec = leaf_best[b].copy()
-        eq = (sel == b) & sel_ok
-        pos = int(np.argmax(eq))
-        # ~committed[pos]: a left child keeps its parent's leaf id, and its
-        # slot holds the PARENT's children, so it is never committed twice
-        if not (brec[0] > 0 and eq.any() and not committed[pos] and t < L - 1):
-            break
-        lrec, rrec = recs2[2 * pos], recs2[2 * pos + 1]
-        ptot = totals2[2 * pos] + totals2[2 * pos + 1]
-        pnum = -np.sign(ptot[0]) * np.maximum(np.abs(ptot[0]) - l1, zero)
-        pout = pnum / np.maximum(ptot[1] + l2, eps)
-        if max_delta > 0:
-            pout = np.clip(pout, -max_delta, max_delta)
-        nd = depth[b] + 1
-        depth[b] = depth[n_cur] = nd
-        leaf_best[b] = lrec
-        leaf_best[n_cur] = rrec
-        rec_store[t, :4] = (b, pout, nd, 1.0)
-        rec_store[t, 4:] = brec
-        committed[pos] = True
-        newids[pos] = n_cur
-        n_cur += 1
-        t += 1
-    return committed, newids, n_cur, t
+    G, N = bins.shape
+    CH = gh.shape[1]
+    K = max(1, min(batch, L))
+    dev = bins.device
+    POS, LEAF = CH, CH + 1
+    if N >= 1 << 24:
+        raise ValueError("the wave learner carries row positions as float32: at "
+                         f"most 2**24 rows, got {N}")
+    buf = buffers
+    if buf is None:
+        buf = WaveBuffers(G, N, CH + 2, L, num_bins, CH, meta.gather_index.shape[0], dev)
+    inputs = (meta, tables, params, int(num_bins), int(max_depth))
+    if buf.inputs is None:
+        buf.inputs = inputs
+    elif any(a is not b for a, b in zip(buf.inputs[:3], inputs[:3])) \
+            or buf.inputs[3:] != inputs[3:]:
+        raise ValueError("these WaveBuffers serve the feature metadata, tables, params, "
+                         "num_bins and max_depth of their first tree, which the wave "
+                         "graphs read; grow a tree with other inputs into new buffers")
+    masked = feature_mask is not None
+    graphed = dev.type == "cuda"
+
+    def wave(cur: int) -> None:
+        _wave(buf, cur, K, meta, tables, params, masked, num_bins, max_depth)
+
+    if graphed and L > 1:
+        _prepare_graphs(buf, K, masked, wave)
+
+    # --- the tree's inputs: the carry's rows, and what the wave graphs read
+    bins_p, row_p = buf.bins[0], buf.rows[0]
+    bins_p.copy_(bins)
+    row_p[:, :CH] = gh
+    row_p[:, POS] = torch.arange(N, dtype=torch.float32, device=dev)
+    row_p[:, LEAF] = leaf_id0.to(torch.float32)
+    # gh is fixed for the tree, so the histograms' fixed-point exponents are
+    # computed once, here, from the whole of gh: every call reads a
+    # permutation of its rows (row_p's gh columns), as the kernel, which
+    # trusts them, requires
+    buf.exponents.copy_(fixed_point_exponents(gh, N))
+    if masked:
+        buf.feature_mask.copy_(feature_mask)
+    fmask = buf.feature_mask if masked else None
+    cur = 0
+    # --- initial partition: in-bag rows (leaf id 0) to the front, root = [0, n_in)
+    if bagged:
+        _, _, ranges, _ = partition_wave(bins_p, row_p, LEAF, None, None, None,
+                                         buf.whole[:1], buf.whole[1:2], buf.whole[2:],
+                                         bagged=True, out=(buf.bins[1], buf.rows[1]))
+        cur = 1
+        n_in = ranges[0, :1]
+    else:
+        n_in = buf.whole[1:2]
+
+    # --- root: the ragged histogram over [0, n_in), its record, the state
+    buf.slot.zero_()
+    root_hist = histogram_slots_ragged(buf.bins[cur], buf.rows[cur][:, :CH], buf.slot,
+                                       buf.whole[:1], n_in, buf.root_valid, num_bins, 1,
+                                       exponents=buf.exponents)
+    root_tot = root_hist[0].sum(dim=0)
+    root_rec = find_best_split(root_hist, root_tot, meta, params, fmask)
+    buf.pool[0] = root_hist
+    init_tree_state(buf.leaf_best, buf.depth, buf.rec_store, buf.start, buf.count,
+                    buf.scalars, root_rec, root_tot, n_in, params, max_depth)
+
+    # --- the waves: the host reads each wave's done word one wave behind
+    launched = 0
+    if L > 1:
+        words, events = buf.done_words, buf.done_events
+        while True:
+            with global_timer.scope("wave_launch"):
+                if graphed:
+                    buf.graphs[(K, cur, masked)].replay()
+                else:
+                    wave(cur)
+                cur = 1 - cur
+                slot = launched % len(words)
+                words[slot:slot + 1].copy_(buf.scalars[DONE:DONE + 1], non_blocking=graphed)
+                if graphed:
+                    events[slot].record()
+                launched += 1
+            if launched <= _DONE_LAG:
+                continue
+            with global_timer.scope("wave_wait"):
+                slot = (launched - 1 - _DONE_LAG) % len(words)
+                if graphed:
+                    events[slot].synchronize()
+                if int(words[slot]) != 0:
+                    break
+            if launched > L + _DONE_LAG:
+                raise RuntimeError(f"the wave loop ran {launched} waves for {L} leaves "
+                                   "without its done word")
+
+    # undo the permutation: one scatter by the position column
+    row_p = buf.rows[cur]
+    leaf_id = torch.empty(N, dtype=torch.int32, device=dev)
+    leaf_id[row_p[:, POS].to(torch.int64)] = row_p[:, LEAF].to(torch.int32)
+    return _Grown(buf, leaf_id, launched, graphed)
 
 
 def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
@@ -237,173 +373,18 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
     pass bagged=True when any row is bagged out, so the initial partition
     runs), params the learner's [6] float32 regularizers, feature_mask [F]
     bool or None for all. `buffers` holds the device carry for these shapes
-    (allocated here when None).
+    (allocated here when None); buffers reused from an earlier tree must
+    be given the same meta, tables and params objects, num_bins and
+    max_depth (`WaveBuffers`), or this raises ValueError.
 
     Returns (rec_store [max(L-1, 1), STORE] float32 numpy, leaf_id [N] int32
     in the original row order, the final leaf count, hist_rows — rows
-    histogrammed — and n_waves), the JAX grower's five outputs."""
-    L = num_leaves
-    G, N = bins.shape
-    CH = gh.shape[1]
-    K = max(1, min(batch, L))
-    dev = bins.device
-    POS, LEAF = CH, CH + 1
-    if N >= 1 << 24:
-        raise ValueError("the wave learner carries row positions as float32: at "
-                         f"most 2**24 rows, got {N}")
-    if buffers is None:
-        buffers = WaveBuffers(G, N, CH + 2, L, num_bins, CH, dev)
-    p = params.detach().cpu().numpy().astype(np.float32)
-    l1, l2, min_data, min_hess, max_delta = p[0], p[1], p[2], p[3], p[5]
-    cur = 0
-    bins_p, row_p, pool = buffers.bins[0], buffers.rows[0], buffers.pool
-    bins_p.copy_(bins)
-    pos = torch.arange(N, dtype=torch.int32, device=dev)
-    row_p[:, :CH] = gh
-    row_p[:, POS] = pos.to(torch.float32)
-    row_p[:, LEAF] = leaf_id0.to(torch.float32)
-
-    def partition(*args, **kwargs):
-        """One partition out of the current buffers into the other pair."""
-        nonlocal cur
-        out = 1 - cur
-        _, _, ranges, flags = partition_wave(
-            buffers.bins[cur], buffers.rows[cur], LEAF, *args,
-            out=(buffers.bins[out], buffers.rows[out]), **kwargs)
-        cur = out
-        return buffers.bins[cur], buffers.rows[cur], ranges, flags
-
-    def on_dev(values, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(values), dtype=dtype).to(dev)
-
-    # --- initial partition: in-bag rows (leaf id 0) to the front, root = [0, n_in)
-    if bagged:
-        whole = on_dev([0, N, 1], torch.int32)
-        bins_p, row_p, ranges, _ = partition(None, None, None, whole[:1], whole[1:2],
-                                             whole[2:], bagged=True)
-        n_in = int(ranges[0, 0])
-    else:
-        n_in = N
-    start = np.zeros(L + 1, dtype=np.int64)
-    count = np.zeros(L + 1, dtype=np.int64)
-    count[0] = n_in
-
-    # --- root: the ragged histogram over [0, n_in); gh is fixed for the
-    # tree, so the kernel's fixed-point exponents are computed once, here,
-    # from the whole of gh: every call below reads a permutation of its rows
-    # (row_p's gh columns), as the kernel, which trusts them, requires
-    with global_timer.scope("wave_histogram"):
-        exps = fixed_point_exponents(gh, N)
-        root_hist = histogram_slots_ragged(
-            bins_p, row_p[:, :CH], torch.where(pos < n_in, 0, 1).to(torch.int32),
-            on_dev([0], torch.int32), on_dev([n_in], torch.int32),
-            on_dev([True], torch.bool), num_bins, 1, exponents=exps)
-    hist_rows = n_in
-    # what the host reads of the root: its record and totals, one copy
-    root_pull = torch.empty(REC + CH, dtype=torch.float32, device=dev)
-    root_tot = torch.sum(root_hist[0], dim=0, out=root_pull[REC:])
-    with global_timer.scope("wave_scan"):
-        find_best_split(root_hist, root_tot, meta, params, feature_mask,
-                        out=root_pull[:REC])
-        pulled = root_pull.cpu().numpy()
-    pool[0] = root_hist
-    depth = np.zeros(L + 1, dtype=np.int32)
-    leaf_best = np.full((L + 1, REC), -np.inf, dtype=np.float32)
-    leaf_best[0] = pulled[:REC]
-    tot0 = pulled[REC:]
-    leaf_best[0, 0] = _guard_gain(leaf_best[0, :1], tot0[2:3], tot0[1:2], depth[:1],
-                                  min_data, min_hess, max_depth)[0]
-    # one extra dump row at the end, as the device replay's store has
-    rec_store = np.zeros((max(L - 1, 1) + 1, STORE), dtype=np.float32)
-    # what the host reads of a wave, one copy: the 2K children's records and
-    # totals, and the K left counts
-    pull = torch.empty(2 * K * (REC + CH) + K, dtype=torch.float32, device=dev)
-    pull_recs = pull[:2 * K * REC].view(2 * K, REC)
-    pull_totals = pull[2 * K * REC:2 * K * (REC + CH)].view(2 * K, CH)
-    pull_nl = pull[2 * K * (REC + CH):]
-
-    n_cur, t, n_waves = 1, 0, 0
-    while L > 1 and t < L - 1 and leaf_best[:L, 0].max() > 0:
-        n_waves += 1
-        with global_timer.scope("wave_select"):
-            gains = leaf_best[:L, 0]
-            sel = np.argsort(-gains, kind="stable")[:K]  # ties: lower leaf first
-            sel_ok = gains[sel] > 0
-            recs_sel = leaf_best[sel]
-            feat = np.where(sel_ok, recs_sel[:, 1], 0.0).astype(np.int64)
-            thresh = np.where(sel_ok, recs_sel[:, 2], 0.0).astype(np.int32)
-            lut = _decision_table(tables, feat, thresh, recs_sel[:, 3] > 0.5)
-            lut[~sel_ok] = 0
-            leaf2k = np.full(L + 2, K, dtype=np.int32)  # by leaf id + 1 (-1 -> none)
-            leaf2k[sel[sel_ok] + 1] = np.nonzero(sel_ok)[0]
-            rgroup = np.where(sel_ok, tables.group[feat], 0)
-            s_k, c_k = start[sel], count[sel]
-            table = on_dev(np.concatenate([
-                leaf2k, rgroup, s_k, c_k, sel_ok, sel, lut.reshape(-1)]).astype(np.int32),
-                torch.int32)
-            leaf2k_d, rgroup_d, s_d, c_d, ok_d, sel_d, lut_d = torch.split(
-                table, [L + 2, K, K, K, K, K, K * GROUP_BINS])
-
-        with global_timer.scope("wave_partition"):
-            # each row's range (K: none) from its leaf id, its side from its
-            # range's decision table, the stable move, the smaller children
-            bins_p, row_p, ranges, flags = partition(
-                leaf2k_d, rgroup_d, lut_d, s_d, c_d, ok_d, slot_out=buffers.slot,
-                n_left_out=pull_nl)
-            ss, se = ranges[1], ranges[2]
-            h_ok, left_small = flags[0], flags[1]
-
-        with global_timer.scope("wave_histogram"):
-            # the smaller child of each selected leaf (tie -> left), whose rows
-            # the partition made contiguous and labeled with their slot
-            hist_s = histogram_slots_ragged(bins_p, row_p[:, :CH], buffers.slot, ss, se,
-                                            h_ok, num_bins, K, exponents=exps)
-            hist_s = hist_s.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3)
-            pool_sel = pool[sel_d.to(torch.int64)]
-            hist_l = torch.where(left_small[:, None, None, None], hist_s,
-                                 pool_sel - hist_s)
-            hist_r = pool_sel - hist_l  # subtract_histogram, batched
-            hists = torch.stack([hist_l, hist_r], dim=1).reshape(2 * K, G, num_bins, CH)
-            torch.sum(hists[:, 0], dim=1, out=pull_totals)  # [2K, CH]
-
-        with global_timer.scope("wave_scan"):
-            find_best_split(hists, pull_totals, meta, params, feature_mask, out=pull_recs)
-            pulled = pull.cpu().numpy()
-
-        with global_timer.scope("wave_replay"):
-            recs2 = pulled[:2 * K * REC].reshape(2 * K, REC).copy()
-            totals2 = pulled[2 * K * REC:2 * K * (REC + CH)].reshape(2 * K, CH)
-            nl_k = pulled[2 * K * (REC + CH):].astype(np.int64)
-            recs2[:, 0] = _guard_gain(recs2[:, 0], totals2[:, 2], totals2[:, 1],
-                                      np.repeat(depth[sel] + 1, 2), min_data,
-                                      min_hess, max_depth)
-            committed, newids, n_cur, t = _replay(
-                leaf_best, depth, rec_store, sel, sel_ok, recs2, totals2, n_cur, t,
-                L, l1, l2, max_delta)
-            nr_k = c_k - nl_k
-            hist_rows += int(np.minimum(nl_k, nr_k)[sel_ok].sum())
-            ck = np.nonzero(committed)[0]
-            start[newids[ck]] = s_k[ck] + nl_k[ck]
-            count[newids[ck]] = nr_k[ck]
-            count[sel[ck]] = nl_k[ck]
-
-        with global_timer.scope("wave_commit"):
-            # the committed children's histograms into the pool, and each
-            # committed range's right rows, [start + n_left, end), relabeled
-            n = len(ck)
-            if n:
-                mids = s_k[ck] + nl_k[ck]
-                upd = on_dev(np.concatenate([ck, sel[ck], newids[ck], mids,
-                                             s_k[ck] + c_k[ck], newids[ck]]), torch.int64)
-                ck_d, wb_d, wn_d = upd[:n], upd[n:2 * n], upd[2 * n:3 * n]
-                pool.index_copy_(0, wb_d, hist_l[ck_d])
-                pool.index_copy_(0, wn_d, hist_r[ck_d])
-                relabel_rows(row_p, LEAF, upd[3 * n:].view(3, n), int(nr_k[ck].max()))
-
-    # undo the permutation: one scatter by the position column
-    leaf_id = torch.empty(N, dtype=torch.int32, device=dev)
-    leaf_id[row_p[:, POS].to(torch.int64)] = row_p[:, LEAF].to(torch.int32)
-    return rec_store[:-1], leaf_id, n_cur, hist_rows, n_waves
+    histogrammed — and n_waves), the JAX grower's five outputs. The host
+    values arrive in one copy after the last wave."""
+    grown = _grow(bins, gh, leaf_id0, meta, tables, params, feature_mask, num_leaves,
+                  num_bins, max_depth, batch, bagged, buffers)
+    rec_store, n_cur, hist_rows, n_waves = grown.result()
+    return rec_store, grown.leaf_id, n_cur, hist_rows, n_waves
 
 
 class DevicePartition:
@@ -444,13 +425,11 @@ class DevicePartition:
 
 
 class _PendingTree(NamedTuple):
-    """A grown tree whose split log is not yet replayed into `tree`."""
+    """A tree whose waves are enqueued: its split log still on the card, to
+    be replayed into `tree`."""
 
     tree: Tree
-    rec_store: np.ndarray
-    leaf_id: torch.Tensor
-    hist_rows: int
-    n_waves: int
+    grown: _Grown
     n_bag: int
     wave_k: int = 0  # wave width this tree was grown with
 
@@ -459,25 +438,29 @@ class DeviceTreeLearner(SerialTreeLearner):
     """The wave learner: the serial learner's setup, each tree grown by
     `grow_tree_on_device`.
 
-    train() is train_async() (grow the tree, the split log on the host)
-    then finalize() (replay the log into the Tree, install the partition).
+    train() is train_async() (enqueue the tree's waves; it returns without
+    waiting for the card) then finalize() (the tree's results to the host in
+    one copy, the log replayed into the Tree, the partition installed).
     `wave` is the ceiling of the wave width; the gain-adaptive controller
     (`_next_wave_k`) moves the width used, `wave_k`, one rung per tree, and
-    is switched off by setting `_adaptive_wave` to False."""
+    is switched off by setting `_adaptive_wave` to False. One tree is in
+    flight at a time: the learner's buffers hold it."""
 
     def __init__(self, config, dataset, device: torch.device, wave: int = 21) -> None:
         super().__init__(config, dataset, device)
-        self.tables = _feature_tables(dataset, dataset.used_features)
+        self.tables = _feature_tables(dataset, dataset.used_features, self.device)
         # speculative-wave width: 2*K*3 histogram channels per pass
         self.wave = int(wave)
         self._wave_cap = max(1, min(self.wave, int(config.num_leaves)))
         self._adaptive_wave = True
         self.wave_k = self._wave_cap
         self.last_hist_rows = 0
+        self.last_waves_launched = 0
         # the gh payload is (grad, hess, count): 3 channels + position + leaf id
-        self._buffers = WaveBuffers(self.bins_dev.shape[0], self.num_data, 5,
-                                    int(config.num_leaves), self.group_bin_padded, 3,
-                                    self.device)
+        with global_timer.scope("wave_buffers"):
+            self._buffers = WaveBuffers(self.bins_dev.shape[0], self.num_data, 5,
+                                        int(config.num_leaves), self.group_bin_padded, 3,
+                                        len(self.meta.real_feature), self.device)
 
     def train(self, gh_ext: torch.Tensor, bag_indices: Optional[np.ndarray] = None) -> Tree:
         return self.finalize(self.train_async(gh_ext, bag_indices))
@@ -500,21 +483,19 @@ class DeviceTreeLearner(SerialTreeLearner):
             n_bag = self.num_data
         fmask = None
         if self.col_sampler.active:
-            fmask = torch.as_tensor(self.col_sampler.reset_by_tree(), dtype=torch.bool,
-                                    device=self.device)
+            fmask = torch.from_numpy(self.col_sampler.reset_by_tree()).to(self.device)
         with global_timer.scope("tree_device"):
-            rec_store, leaf_id, _, hist_rows, n_waves = grow_tree_on_device(
-                self.bins_dev, gh, leaf_id0, self.meta, self.tables, self.params_dev,
-                fmask, num_leaves, self.group_bin_padded, cfg.max_depth,
-                batch=self.wave_k, bagged=bag_indices is not None,
-                buffers=self._buffers)
-        return _PendingTree(Tree(num_leaves), rec_store, leaf_id, hist_rows, n_waves,
-                            n_bag, wave_k=self.wave_k)
+            grown = _grow(self.bins_dev, gh, leaf_id0, self.meta, self.tables,
+                          self.params_dev, fmask, num_leaves, self.group_bin_padded,
+                          cfg.max_depth, self.wave_k, bag_indices is not None,
+                          self._buffers)
+        return _PendingTree(Tree(num_leaves), grown, n_bag, wave_k=self.wave_k)
 
     def finalize(self, pending: _PendingTree) -> Tree:
         tree = pending.tree
-        rec_np = pending.rec_store
-        self.last_hist_rows = int(pending.hist_rows)
+        with global_timer.scope("tree_results"):
+            rec_np, _, hist_rows, n_waves = pending.grown.result()
+        self.last_hist_rows = int(hist_rows)
         global_timer.add_count("device_hist_rows", self.last_hist_rows)
 
         counts: Dict[int, int] = {0: int(pending.n_bag)}
@@ -541,27 +522,34 @@ class DeviceTreeLearner(SerialTreeLearner):
                 counts[leaf] = split.left_count
                 counts[tree.num_leaves - 1] = split.right_count
 
-        self._record_wave_efficiency(pending, tree)
-        self.partition = DevicePartition(pending.leaf_id, counts)
+        self._record_wave_efficiency(pending, n_waves, tree)
+        self.partition = DevicePartition(pending.grown.leaf_id, counts)
         if tree.num_leaves == 1:
             tree.as_constant_tree(0.0)
         return tree
 
-    def _record_wave_efficiency(self, pending: _PendingTree, tree: Tree) -> None:
+    def _record_wave_efficiency(self, pending: _PendingTree, n_waves: int,
+                                tree: Tree) -> None:
         """Committed-vs-speculated wave accounting and the gain-adaptive
         wave-width controller: each wave partitions and histograms K
         candidate splits, but the replay commits only as many as stay
         globally best-first; the measured ratio drives the next tree's K
         (split decisions do not depend on K, so only the amount of
-        speculative work changes, never the model)."""
+        speculative work changes, never the model). Waves launched after
+        the tree was done (no-ops) are counted apart, and graph replays
+        where the waves ran as CUDA graphs."""
         from .. import tracing
 
-        n_waves = int(pending.n_waves)
         wave_k = pending.wave_k or self.wave_k
         committed = tree.num_leaves - 1
         speculated = n_waves * wave_k
         commit_rate = committed / speculated if speculated else 1.0
+        launched = pending.grown.waves_launched
+        self.last_waves_launched = launched
         global_timer.add_count("device_waves", n_waves)
+        global_timer.add_count("wave_noops", launched - n_waves)
+        if pending.grown.graphed:
+            global_timer.add_count("wave_graph_replays", launched)
         global_timer.add_count("wave_splits_committed", committed)
         global_timer.add_count("wave_splits_speculated", speculated)
         tracing.note("tree_wave", waves=n_waves, committed=committed,

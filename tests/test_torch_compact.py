@@ -204,22 +204,19 @@ def test_partition_wave_matches_jax(jax_ref, case_args):
     row = case["row"].copy()
     if "relabel" in case:
         ported = torch.from_numpy(row.copy())
-        relabel_rows(ported, 4, torch.from_numpy(case["relabel"]),
-                     int((case["relabel"][1] - case["relabel"][0]).max()))
+        relabel_rows(ported, 4, torch.from_numpy(case["relabel"]))
         row = _jax_relabel(row, case["relabel"]).copy()
         np.testing.assert_array_equal(ported.numpy().view(np.uint32), row.view(np.uint32))
     slot = torch.full((WAVE_N,), -7, dtype=torch.int32)
-    n_left = torch.zeros(K, dtype=torch.float32)
     before = dict(compact_cuda.wave_launches)
     b, r, ranges, flags = partition_wave(
         torch.from_numpy(case["bins"]), torch.from_numpy(row), 4, *partition_inputs(case),
-        bagged=form == "bagged", slot_out=slot, n_left_out=n_left)
+        bagged=form == "bagged", slot_out=slot)
     assert compact_cuda.wave_launches == before  # a CPU tensor launches nothing
     ref_b, ref_r, ref_nl, ref_slot = _jax_wave_partition(case, row)
     np.testing.assert_array_equal(b.numpy(), ref_b)
     np.testing.assert_array_equal(r.numpy().view(np.uint32), ref_r.view(np.uint32))
     np.testing.assert_array_equal(ranges[0].numpy(), ref_nl)
-    np.testing.assert_array_equal(n_left.numpy(), ref_nl.astype(np.float32))
     if ref_slot is not None:
         np.testing.assert_array_equal(slot.numpy(), ref_slot)
     # the children: the smaller one's range, and which it is

@@ -18,7 +18,11 @@ histogram is held as the leaf histogram is; the compaction and the wave
 partition move bits exactly, and the partition's slot vector, left counts
 and children's ranges equal the plain version's. On snapped gradients the
 model text trained on the card equals the CPU's, through either learner,
-with and without bagging.
+with and without bagging. The wave's selection and replay kernels equal
+their plain versions run on the CPU exactly (tables, state, split log bits,
+commit tables, done word), and the wave learner's tree grown on the card,
+one CUDA graph replay a wave, is byte-equal to the one grown on the CPU,
+with every replay's kernels counted.
 """
 import numpy as np
 import pytest
@@ -37,8 +41,12 @@ from lightgbm_tpu_torch.ops.histogram import (_build_histogram_plain,
                                               fixed_point_exponents)
 from lightgbm_tpu_torch.ops.partition import (RowPartition, _split_rows_plain,
                                               go_left_table)
-from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
-from test_torch_wave_cases import WAVE_CASES, partition_inputs, wave_case
+from lightgbm_tpu_torch.ops import wave_cuda
+from lightgbm_tpu_torch.ops.wave import (DONE, FeatureTables, replay_wave, select_wave,
+                                         split_select)
+from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner, _grow
+from test_torch_wave_cases import (WAVE_CASES, partition_inputs, wave_case, wave_children,
+                                   wave_state, wave_tables_random)
 
 pytestmark = pytest.mark.gpu
 PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]
@@ -565,20 +573,18 @@ def test_partition_kernel_matches_plain(cuda, case_args, n):
     row_d = row.to(cuda)
     if "relabel" in case:
         table = torch.from_numpy(case["relabel"])
-        longest = int((table[1] - table[0]).max())
         before = compact_cuda.wave_launches["relabel_rows"]
-        relabel_rows(row, 4, table, longest)
-        relabel_rows(row_d, 4, table.to(cuda), longest)
+        relabel_rows(row, 4, table)
+        relabel_rows(row_d, 4, table.to(cuda))
         assert compact_cuda.wave_launches["relabel_rows"] == before + 1
         assert torch.equal(row_d.cpu().view(torch.int32), row.view(torch.int32))
 
     def run(device):
         slot = torch.full((n,), -7, dtype=torch.int32, device=device)
-        n_left = torch.zeros(K, dtype=torch.float32, device=device)
         got = partition_wave(bins.to(device), row if device == "cpu" else row_d, 4,
                              *[None if a is None else a.to(device) for a in args],
-                             bagged=form == "bagged", slot_out=slot, n_left_out=n_left)
-        return [t.cpu() for t in got] + [slot.cpu(), n_left.cpu()]
+                             bagged=form == "bagged", slot_out=slot)
+        return [t.cpu() for t in got] + [slot.cpu()]
 
     before = dict(compact_cuda.wave_launches)
     got, again = run(cuda), run(cuda)
@@ -589,6 +595,32 @@ def test_partition_kernel_matches_plain(cuda, case_args, n):
         assert g.dtype == r.dtype and g.shape == r.shape
         assert torch.equal(g.view(torch.uint8), r.view(torch.uint8))
         assert torch.equal(a.view(torch.uint8), r.view(torch.uint8))
+
+
+def test_partition_rows_of_no_leaf_stay_put(cuda):
+    """Rows whose leaf-id column holds no leaf id (NaN, +-3e38, values just
+    outside the table) belong to no range: the kernel moves them nowhere and
+    reads nothing through them, as the plain version does."""
+    from lightgbm_tpu_torch.ops.compact import partition_wave
+
+    case = wave_case(5, 12, 4, 0, "shuffled", "wave", N=300001, G=28)
+    row = case["row"].copy()
+    tail = np.nonzero(row[:, 4] == -1)[0]
+    n2 = case["leaf2k"].shape[0]
+    junk = np.array([np.nan, 3.4e38, -1.7e38, -2.0, n2 - 1.0, 2.0 ** 31, -(2.0 ** 31), np.inf,
+                     -np.inf], np.float32)
+    row[tail[:len(junk) * 50], 4] = np.tile(junk, 50)
+    args = partition_inputs(case)
+    out = {}
+    for device in ("cpu", cuda):
+        got = partition_wave(torch.from_numpy(case["bins"]).to(device),
+                             torch.from_numpy(row).to(device), 4,
+                             *[a.to(device) for a in args])
+        out[str(device)] = [t.cpu() for t in got]
+    for g, r in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(g.view(torch.uint8), r.view(torch.uint8))
+    assert torch.equal(out["cpu"][1][tail].view(torch.int32),
+                       torch.from_numpy(row[tail]).view(torch.int32))
 
 
 def test_partition_wrapper_rejects_bad_input(cuda):
@@ -745,3 +777,112 @@ def test_row_partition_wrapper_rejects_bad_input(cuda):
         partition_cuda.split_rows(row, idx.long(), 10, table, 100)
     with pytest.raises(ValueError, match="count"):
         partition_cuda.split_rows(row, idx, 300, table, 100)
+
+
+@pytest.mark.parametrize("done", [False, True], ids=["live", "done"])
+@pytest.mark.parametrize("K", [1, 4, 21])
+def test_wave_step_kernels_match_plain(cuda, K, done):
+    """select_wave and replay_wave: the kernels on the card against the
+    plain versions on the CPU, on a random state: every output exactly
+    equal, one launch each."""
+    rng = np.random.RandomState(K * 3 + done)
+    L = 63
+    st = wave_state(rng, L, int(rng.randint(max(2, K), L // 2)))
+    st["scalars"][DONE] = int(done)
+    tables = [torch.from_numpy(a) for a in wave_tables_random(rng, 6)]
+    plain_table = select_wave(*(torch.from_numpy(st[k].copy()) for k in
+                                ("leaf_best", "start", "count", "scalars")),
+                              FeatureTables(*tables), K)
+    sel, ok = split_select(plain_table, L, K)[5].numpy(), split_select(plain_table, L, K)[4]
+    recs2, totals2, nl = wave_children(rng, st, sel, ok.numpy() != 0)
+    totals2[:2, 0] = (2.25, -2.25)  # a zero parent gradient: the output's sign bit
+    totals2[-2:, 0] = (-0.0, -0.0) if K > 1 else totals2[-2:, 0]
+    params = torch.tensor([0.0, 0.5, 5.0, 1e-3, 0.0, 0.4])
+    out = {}
+    for device in ("cpu", cuda):
+        s = {k: torch.from_numpy(v.copy()).to(device) for k, v in st.items()}
+        before = dict(wave_cuda.launches)
+        table = select_wave(s["leaf_best"], s["start"], s["count"], s["scalars"],
+                            FeatureTables(*(t.to(device) for t in tables)), K)
+        table_in = table.clone()
+        commit = replay_wave(s["leaf_best"], s["depth"], s["rec_store"], s["start"],
+                             s["count"], s["scalars"], table,
+                             torch.from_numpy(nl).to(device), torch.from_numpy(recs2).to(device),
+                             torch.from_numpy(totals2).to(device), params.to(device), 4)
+        grew = {k: wave_cuda.launches[k] - before[k] for k in before}
+        assert grew == ({"wave_select": 1, "wave_replay": 1} if device == cuda
+                        else {"wave_select": 0, "wave_replay": 0})
+        out[str(device)] = ([table_in.cpu(), commit.cpu()]
+                            + [s[k].cpu() for k in sorted(s)])
+    for g, r in zip(out[str(cuda)], out["cpu"]):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g.view(torch.uint8), r.view(torch.uint8))
+
+
+def _grow_case(device, K, bagged, masked, n=20000, L=63):
+    rng = np.random.RandomState(19)
+    X = rng.normal(size=(n, 10))
+    X[rng.rand(n, 10) < 0.05] = np.nan
+    y = (X[:, 0] + X[:, 3] > 0).astype(np.float64)
+    cfg = Config({"objective": "binary", "num_leaves": L, "min_data_in_leaf": 5,
+                  "verbosity": -1})
+    learner = DeviceTreeLearner(cfg, Dataset.from_matrix(X, label=y, config=cfg),
+                                torch.device(device))
+    g = np.round(rng.normal(0, 0.4, n) * 16) / 16
+    h = np.round(rng.uniform(0.0625, 0.25, n) * 16) / 16
+    out = rng.rand(n) < 0.3
+    leaf0 = np.where(out & bagged, -1, 0).astype(np.int32)
+    gh = np.stack([g, h, np.ones(n)], 1).astype(np.float32)
+    gh[leaf0 < 0] = 0.0
+    fmask = torch.from_numpy(rng.rand(len(learner.meta.real_feature)) < 0.7) if masked \
+        else None
+
+    def grow():
+        return _grow(learner.bins_dev, torch.from_numpy(gh).to(device),
+                     torch.from_numpy(leaf0).to(device), learner.meta, learner.tables,
+                     learner.params_dev, None if fmask is None else fmask.to(device), L,
+                     learner.group_bin_padded, learner.config.max_depth, K, bagged,
+                     learner._buffers)
+
+    return grow
+
+
+@pytest.mark.parametrize("case", [(1, False, False), (4, True, False), (21, False, True),
+                                  (21, True, True)],
+                         ids=["k1", "k4-bagged", "k21-masked", "k21-bagged-masked"])
+def test_graphed_grower_byte_equal_to_cpu(cuda, case):
+    """The wave learner's tree on the card (the tree's state on the card,
+    one CUDA graph replay a wave, the done word read one wave behind, one
+    copy of the results) against the same tree grown on the CPU: the split
+    log's bytes, leaf ids, leaf count, rows histogrammed and waves equal;
+    each replay counts its kernels, and a second tree reuses the graphs."""
+    K, bagged, masked = case
+    host_tree = _grow_case("cpu", K, bagged, masked)()
+    host = host_tree.result()
+    grow = _grow_case(cuda, K, bagged, masked)
+    first = grow()  # warm-up, captures
+    graphs = len(first.buffers.graphs)
+    assert graphs == 2 and first.graphed
+    for grown in (first, None):
+        before = ({k: dict(lib.launches) for k, lib in
+                   (("wave", wave_cuda.LIB), ("part", compact_cuda.WAVE_LIB),
+                    ("hist", hist_cuda.LIB), ("scan", scan_cuda.LIB))})
+        if grown is None:
+            grown = grow()
+            n = grown.waves_launched
+            assert len(grown.buffers.graphs) == graphs
+            for name in ("wave_select", "wave_replay"):
+                assert wave_cuda.launches[name] - before["wave"][name] == n
+            for name in ("partition_decide", "partition_scan", "partition_scatter",
+                         "relabel_rows"):
+                assert compact_cuda.wave_launches[name] - before["part"][name] == \
+                    n + (1 if bagged and name != "relabel_rows" else 0)
+            assert hist_cuda.launches["histogram_slots_ragged"] - \
+                before["hist"]["histogram_slots_ragged"] == n + 1
+            assert scan_cuda.launches["find_best_split_batched"] - \
+                before["scan"]["find_best_split_batched"] == n
+        rec, n_cur, hist_rows, n_waves = grown.result()
+        np.testing.assert_array_equal(rec.view(np.int32), host[0].view(np.int32))
+        assert (n_cur, hist_rows, n_waves) == host[1:]
+        assert grown.waves_launched - n_waves in (1, 2)  # waves after the end
+        assert torch.equal(grown.leaf_id.cpu(), host_tree.leaf_id)

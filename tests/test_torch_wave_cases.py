@@ -1,9 +1,11 @@
-"""The wave partition's cases, shared by the CPU parity tests
-(tests/test_torch_compact.py, against the JAX wave) and the card's
-(tests/test_torch_cuda_train.py, the kernels against the plain version):
+"""The wave's cases, shared by the CPU parity tests
+(tests/test_torch_compact.py and tests/test_torch_wave_step.py, against the
+JAX wave and the former host code) and the card's
+(tests/test_torch_cuda_train.py, the kernels against the plain versions):
 a leaf-contiguous row layout with K selected ranges and real decision
-tables, as the wave learner builds them. Imported by module name (pytest
-puts this directory on the path); it imports no JAX.
+tables, as the wave learner builds them, and a tree's device state with a
+wave's children, as the selection and the replay read them. Imported by
+module name (pytest puts this directory on the path); it imports no JAX.
 """
 import numpy as np
 import torch
@@ -91,15 +93,16 @@ def wave_case(seed, n_leaves, K, n_invalid, order, form, N=WAVE_N, G=WAVE_G):
 
 def wave_tables(case):
     """The port's K-entry tables of a case: rgroup [K] and the [K, 256]
-    decision table (treelearner/device.py:_decision_table)."""
-    from lightgbm_tpu_torch.treelearner.device import FeatureTables, _decision_table
+    decision table (ops/wave.py:decision_table)."""
+    from lightgbm_tpu_torch.ops.wave import FeatureTables, decision_table
 
     f = case["fields"]
     K = case["K"]
-    tables = FeatureTables(f["group"], f["lo"], f["hi"], f["default_bin"], f["nbins"],
-                           f["missing_type"], f["is_efb"])
-    lut = _decision_table(tables, np.arange(K), f["thresh"], f["default_left"])
-    lut = lut.astype(np.int32)
+    t = torch.from_numpy
+    tables = FeatureTables(t(f["group"]), t(f["lo"]), t(f["hi"]), t(f["default_bin"]),
+                           t(f["nbins"]), t(f["missing_type"]), t(f["is_efb"]))
+    lut = decision_table(tables, torch.arange(K), t(f["thresh"]),
+                         t(f["default_left"])).numpy().astype(np.int32)
     lut[~case["sel_ok"]] = 0
     return f["group"], lut
 
@@ -114,6 +117,74 @@ def partition_inputs(case):
             t(case["valid"])]
 
 
+
+
+def wave_tables_random(rng, n_features):
+    """Random decision fields of n_features dense features over 4 groups,
+    in FeatureTables' order: group, lo, hi, default_bin, nbins,
+    missing_type (int32) and is_efb (bool), numpy."""
+    F = n_features
+    nbins = rng.randint(2, 256, F).astype(np.int32)
+    is_efb = rng.rand(F) < 0.4
+    lo = np.where(is_efb, rng.randint(1, 100, F), 0).astype(np.int32)
+    return (rng.randint(0, 4, F).astype(np.int32), lo,
+            (lo + np.where(is_efb, nbins - 1, nbins)).astype(np.int32),
+            (rng.randint(0, 2, F) * (nbins - 1) // 2).astype(np.int32), nbins,
+            rng.randint(0, 3, F).astype(np.int32), is_efb)
+
+
+def wave_state(rng, L, n_cur, gains=None, n_features=6):
+    """A tree's state (ops/wave.py) after n_cur - 1 splits, numpy: n_cur
+    leaves with records on n_features features, disjoint row ranges over
+    10,000 rows, a split log of n_cur - 1 rows, live."""
+    from lightgbm_tpu_torch.ops.wave import REC, STORE
+
+    F = n_features
+    leaf_best = np.full((L + 1, REC), -np.inf, np.float32)
+    recs = rng.normal(size=(n_cur, REC)).astype(np.float32)
+    recs[:, 0] = (np.round(rng.normal(1.0, 2.0, n_cur) * 4) / 4 if gains is None
+                  else np.asarray(gains, np.float32))
+    recs[:, 1] = rng.randint(0, F, n_cur)
+    recs[:, 2] = rng.randint(0, 40, n_cur)
+    recs[:, 3] = rng.rand(n_cur) < 0.5
+    leaf_best[:n_cur] = recs
+    cuts = np.sort(rng.choice(np.arange(1, 10000), n_cur - 1, replace=False))
+    edges = np.concatenate([[0], cuts, [10000]])
+    order = rng.permutation(n_cur)
+    start = np.zeros(L + 1, np.int32)
+    count = np.zeros(L + 1, np.int32)
+    start[order] = edges[:-1]
+    count[order] = np.diff(edges)
+    depth = np.zeros(L + 1, np.int32)
+    depth[:n_cur] = rng.randint(0, 5, n_cur)
+    rec_store = np.zeros((max(L - 1, 1) + 1, STORE), np.float32)
+    rec_store[:n_cur - 1] = rng.normal(size=(n_cur - 1, STORE))
+    scalars = np.array([n_cur, n_cur - 1, 12345, 3, 0], np.int64)
+    return dict(leaf_best=leaf_best, depth=depth, start=start, count=count,
+                rec_store=rec_store, scalars=scalars)
+
+
+def wave_children(rng, st, sel, sel_ok, gains=None, g_sum=None, n_features=6):
+    """The 2K children's records and totals and the K left counts of a wave
+    over `st`'s leaves sel: counts from the ranges' sizes, hessians and
+    gradients snapped to 1/16."""
+    from lightgbm_tpu_torch.ops.wave import REC
+
+    F = n_features
+    K = sel.shape[0]
+    c_k = st["count"][sel].astype(np.int64)
+    nl = np.array([rng.randint(0, c + 1) for c in c_k], np.int64)
+    recs2 = rng.normal(size=(2 * K, REC)).astype(np.float32)
+    recs2[:, 0] = (np.round(rng.normal(1.0, 2.0, 2 * K) * 4) / 4 if gains is None
+                   else np.asarray(gains, np.float32))
+    recs2[:, 1] = rng.randint(0, F, 2 * K)
+    recs2[:, 2] = rng.randint(0, 40, 2 * K)
+    totals2 = np.zeros((2 * K, 3), np.float32)
+    totals2[:, 2] = np.stack([nl, c_k - nl], 1).reshape(-1)
+    totals2[:, 1] = np.round(totals2[:, 2] * rng.uniform(0.01, 0.3, 2 * K) * 16) / 16
+    totals2[:, 0] = (np.round(rng.normal(0, 30, 2 * K) * 16) / 16 if g_sum is None
+                     else np.asarray(g_sum, np.float32))
+    return recs2, totals2, nl.astype(np.int32)
 
 
 def test_wave_case_is_leaf_contiguous():
