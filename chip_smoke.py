@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the result line):
 1. device   the card's name, count and power limit; no card -> exit 1.
 2. build    the seven sources under csrc/ (forest traversal, histograms,
             split search, row compaction, wave partition, row partition,
-            the wave's selection and replay), one nvcc each, all started
+            the wave's selection, replay and tree loop), one nvcc each, all started
             together; build seconds and ptxas's registers / shared memory /
             spills.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
@@ -45,7 +45,8 @@ Phases (any failure exits non-zero before the result line):
             exactly equal to the plain version run on the CPU, and the
             relabel on a real commit. The wave's selection and replay
             kernels on the first, a middle and the last live wave of a real
-            tree (each wave's carry kept from the graph replays of a round,
+            tree (each wave's carry kept from a round whose trees run the
+            loop from the host, the CPU's loop, in place of the tree graph,
             the wave run again from it): the selection's table, the
             replay's state after it (records, depths, ranges, the split
             log's bits, the scalars and the done word) and its commit table
@@ -80,22 +81,48 @@ Phases (any failure exits non-zero before the result line):
             histograms only the smaller children of disjoint leaves), train
             and valid AUC (at --seed 0 within 0.002 of WAVE_AUC_SEED0); the
             model text reloads and predicts equal to the training Booster;
-            graph replays and no-op waves a tree, host time a wave, the
-            first iteration in its parts (buffer allocation, build and
-            load, graph capture, the first tree); the device-to-host copies,
-            their bytes and the host synchronizations of one tree, read
-            from a torch.profiler trace (at most 8 bytes a wave and the
-            results' one copy); the host scopes, the device's busy share
-            over one round and the device operations (kernels and copies) a
-            wave launches there.
+            a tree is one CUDA graph launch (the root, then a WHILE node of
+            two waves a pass): tree graph launches, waves run and no-op
+            waves a tree, host time a tree, the first iteration in its parts
+            (buffer allocation, captures, the first tree); the device-to-
+            host copies, their bytes and the host synchronizations of one
+            tree, read from a torch.profiler trace (exactly the results' one
+            copy and the one wait on its event); the host scopes, the
+            device's busy share over one round and the device operations
+            (kernels and copies) a wave launches there.
 9. serial   the same with feature_fraction_bynode=0.8, through the serial
             learner (at --seed 0 its AUC within 0.002 of SERIAL_AUC_SEED0),
-            with the device operations a split of the profiled round.
+            with the device operations a split of the profiled round. Then
+            the tree graph's loop-condition kernel: the main path's last
+            tree grown again by its tree graph and by the host's loop on the
+            card from the same inputs, split log, scalars and passes equal.
+10. multiclass  Covertype's shapes from --seed (581,012 x 54: ten integer
+            columns in Covertype's ranges, 4 + 40 one-hot columns that EFB
+            bundles, 7 classes at Covertype's shares), multiclass, 255
+            leaves, learning_rate 0.1: at 16,384 rows the card's model text
+            byte-equal to the CPU's on snapped softmax gradients through both
+            learners; then 10 rounds (70 trees) through the wave learner and
+            3 with feature_fraction_bynode=0.8 through the serial one, with
+            a 65,536-row validation set: train multi_logloss falls every
+            round, valid multi_error ends below the majority class's
+            (0.512), predicted rows sum to 1 within 1e-6, the model reloads
+            and predicts bit-equal and answers 64-row binary-wire requests
+            through PredictionService bit-equal to Booster.predict;
+            seconds per iteration and per tree.
+11. async   the async per-tree pipeline: phase 8's data at learning_rate
+            0.125, no metric, no validation set, 10 Booster.update()
+            rounds and 10 more (the wave width settled), with the pipeline
+            on and off in one process: model text byte-equal and final
+            train score bit-equal; each path's seconds per iteration and the
+            card's share of the wall in tree graphs (CUDA events) in each
+            window, and device-to-host copies and host synchronizations a
+            tree over three profiled rounds (the pipeline's: one results
+            copy and one wait a tree).
 
 The launch counters are set to 0 just before phase 6 and read just after
-phase 7 (the serving path), and again just before and after phase 8 and
-phase 9 (the training paths): every kernel of each path must have launched
-there. The last three lines are the kernels' JSON record, the card's name
+phase 7 (the serving path), and again just before and after each of phases
+8, 9, 10 and 11 (the training paths): every kernel of each path must have
+launched there. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile-of DIR
@@ -234,6 +261,73 @@ def snapped_logloss(preds, dataset):
     grad = np.round((p - dataset.get_label()) * 16) / 16
     hess = np.round(np.maximum(p * (1.0 - p), 1.0 / 16) * 16) / 16
     return grad, hess
+
+
+# UCI Covertype (Blackard 1998; covtype.info): 581,012 rows, 10 integer
+# columns in these ranges, 4 wilderness and 40 soil indicator columns, and
+# the rows of each of the 7 cover types
+COVTYPE_ROWS = 581_012
+COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117),
+                  (0, 255), (0, 255), (0, 255), (0, 7173))
+COVTYPE_CLASS_ROWS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COVTYPE_MAJORITY_ERROR = 1.0 - max(COVTYPE_CLASS_ROWS) / COVTYPE_ROWS  # 0.5124
+MC_VALID_ROWS, MC_ROUNDS, MC_SERIAL_ROUNDS = 65_536, 10, 3
+MC_EXACT_ROWS, MC_EXACT_ROUNDS, MC_EXACT_LEAVES = 16_384, 2, 63
+MC_PARAMS = {"objective": "multiclass", "num_class": 7, "num_leaves": 255, "max_bin": 255,
+             "learning_rate": 0.1, "metric": "multi_logloss,multi_error",
+             "is_provide_training_metric": True, "verbosity": -1}
+# the async pipeline's phase: the main path's settings at a learning rate
+# exact in float32, no metric and no validation set; ASYNC_ROUNDS rounds,
+# then as many more, timed apart, once the wave width has settled
+ASYNC_ROUNDS = 10
+ASYNC_PARAMS = {**{k: v for k, v in TRAIN_PARAMS.items() if k != "feature_fraction_bynode"},
+                "learning_rate": 0.125, "metric": "None"}
+
+
+def covertype_rows(seed: int, n: int):
+    """Covertype-shaped rows from a seed: the 10 continuous columns as
+    integers in Covertype's ranges (elevation, aspect, slope, four
+    distances, three hillshades), one-hot wilderness (4) and soil (40)
+    columns, which EFB bundles, and 7 classes at Covertype's shares, drawn
+    from a fixed function of the features plus noise (per-class linear
+    logits of the standardized continuous columns and of the area and soil
+    types, Gumbel noise, the classes' offsets set so their shares match)."""
+    rng = np.random.RandomState(seed)
+    cols = [rng.normal(2959, 280, n), rng.uniform(0, 360, n), rng.normal(14, 7.5, n),
+            rng.exponential(270, n), rng.normal(46, 58, n), rng.exponential(2350, n),
+            rng.normal(212, 27, n), rng.normal(223, 20, n), rng.normal(143, 38, n),
+            rng.exponential(1980, n)]
+    cont = np.stack([np.clip(np.round(c), lo, hi) for c, (lo, hi) in zip(cols, COVTYPE_RANGES)],
+                    axis=1)
+    area = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = rng.choice(40, n, p=rng.dirichlet(np.full(40, 0.6)))
+    X = np.zeros((n, 54), dtype=np.float32)
+    X[:, :10] = cont
+    X[np.arange(n), 10 + area] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    f = np.random.RandomState(12345)  # the label function, fixed across seeds
+    z = (cont - cont.mean(axis=0)) / cont.std(axis=0)
+    logits = (z @ f.normal(0, 1.0, (10, 7)) + f.normal(0, 1.0, (4, 7))[area]
+              + f.normal(0, 1.0, (40, 7))[soil] + rng.gumbel(0, 0.5, (n, 7)))
+    want = np.asarray(COVTYPE_CLASS_ROWS, dtype=np.float64) / COVTYPE_ROWS
+    offset = np.zeros(7)
+    for _ in range(40):
+        share = np.bincount(np.argmax(logits + offset, axis=1), minlength=7) / n
+        offset += np.log(want / np.maximum(share, 1e-6))
+    return X, np.argmax(logits + offset, axis=1).astype(np.float64)
+
+
+def snapped_softmax(preds, dataset):
+    """Softmax gradients snapped to a 2**-4 grid, class-major as the fobj
+    path reshapes them: every histogram sum is exact, so the card and the
+    CPU see the same bits."""
+    p = np.exp(preds - preds.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    onehot = np.eye(preds.shape[1])[dataset.get_label().astype(int)]
+    grad = np.round((p - onehot) * 16) / 16
+    factor = preds.shape[1] / (preds.shape[1] - 1.0)
+    hess = np.round(np.maximum(factor * p * (1.0 - p), 1.0 / 16) * 16) / 16
+    return grad.T.ravel(), hess.T.ravel()
 
 
 def leaf_gradients(rng, n_rows, dev):
@@ -715,23 +809,26 @@ def record_wave_inputs(lt, train_set, params):
     """The inputs of real waves of the first tree of a round of lt.train
     through the wave learner: the carry before its first live wave, its
     third (the partition's check, WAVE_K ranges), a middle one and its last
-    (where the leaf budget binds), kept by wrapping the graph replays (the
-    first round counts the tree's live waves, a second, equal, one keeps
-    the four); then each kept wave run once more, eagerly, from its carry,
+    (where the leaf budget binds). On the card a tree is one graph launch
+    whose waves the host never sees, so these rounds grow their trees with
+    the loop driven from the host (the CPU's loop, `_waves_eager`) in place
+    of the tree graph, the same waves on the same buffers: the first round
+    counts the tree's live waves, a second, equal, one keeps the four
+    carries; then each kept wave runs once more, eagerly, from its carry,
     with the wave's steps wrapped to keep copies of their inputs. Also a
     bagged initial partition, from a round with bagging. Returns {"waves":
     {name: {"select": args, "replay": (state before, args), "partition":
     args, "relabel": (rows, leaf column, table)}}, "wave": the third
     wave's partition args, "bagged": args, "relabel": the third wave's
     relabel}."""
-    from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.wave import DONE
     from lightgbm_tpu_torch.treelearner import device as dmod
 
     kept, seen = {}, {}
     real = {name: getattr(dmod, name) for name in
-            ("_grow", "partition_wave", "select_wave", "replay_wave", "relabel_rows")}
-    replay = cuda_build.CountedGraph.replay
+            ("_grow", "_wave", "_tree_graph", "partition_wave", "select_wave",
+             "replay_wave", "relabel_rows")}
+    count = dmod._Grown._count
     live = {"n": 0, "want": {}, "trees": 0}
 
     def clone(args):
@@ -743,27 +840,35 @@ def record_wave_inputs(lt, train_set, params):
             seen["args"] = inspect.signature(real["_grow"]).bind(*args, **kwargs).arguments
         return real["_grow"](*args, **kwargs)
 
-    def replaying(graph):
-        buf = seen["args"]["buffers"]
-        if live["trees"] == 1:
-            torch.cuda.synchronize()
-            if int(buf.scalars[DONE]) == 0:  # a live wave
-                live["n"] += 1
-                names = live["want"].get(live["n"], ())
-                if names:
-                    key = next(k for k, g in buf.graphs.items() if g is graph)
-                    snap = (key, buf.bins[key[1]].clone(), buf.rows[key[1]].clone(),
-                            {k: getattr(buf, k).clone() for k in _STATE})
-                    seen.update((name, snap) for name in names)
-        return replay(graph)
+    class HostLoop:
+        """Stands in for the tree graph: the root, then the host's loop."""
+
+        def __init__(self, buf, K, masked, bagged, num_leaves, root, wave):
+            self.args = (buf, 1 if bagged else 0, wave, num_leaves)
+            self.root = root
+
+        def launch(self):
+            self.root()
+            dmod._waves_eager(*self.args)
+
+    def wave_step(buf, cur, K, *rest):
+        if live["trees"] == 1 and int(buf.scalars[DONE]) == 0:  # a live wave
+            live["n"] += 1
+            names = live["want"].get(live["n"], ())
+            if names:
+                snap = ((K, cur, rest[3]), buf.bins[cur].clone(), buf.rows[cur].clone(),
+                        {k: getattr(buf, k).clone() for k in _STATE})
+                seen.update((name, snap) for name in names)
+        return real["_wave"](buf, cur, K, *rest)
 
     def part(*args, **kwargs):
         if kwargs.get("bagged"):
             kept.setdefault("bagged", clone(args))
         return real["partition_wave"](*args, **kwargs)
 
-    dmod._grow, dmod.partition_wave = grow, part
-    cuda_build.CountedGraph.replay = replaying
+    dmod._grow, dmod._wave, dmod.partition_wave = grow, wave_step, part
+    dmod._tree_graph = HostLoop
+    dmod._Grown._count = lambda self, passes: None  # no tree graph ran
     try:
         lt.train(dict(params), train_set, num_boost_round=1)
         n = live["n"]
@@ -777,8 +882,9 @@ def record_wave_inputs(lt, train_set, params):
         lt.train({**params, "bagging_fraction": 0.8, "bagging_freq": 1}, train_set,
                  num_boost_round=1)
     finally:
-        cuda_build.CountedGraph.replay = replay
-        dmod._grow, dmod.partition_wave = real["_grow"], real["partition_wave"]
+        dmod._Grown._count = count
+        for name in ("_grow", "_wave", "_tree_graph", "partition_wave"):
+            setattr(dmod, name, real[name])
     a = seen["args"]
     bins, meta, tables, params_d = a["bins"], a["meta"], a["tables"], a["params"]
     L, num_bins, max_depth, buf = a["num_leaves"], a["num_bins"], a["max_depth"], a["buffers"]
@@ -1262,10 +1368,14 @@ def profile_round(lt, params, train_set, tag, label):
 
     bst = lt.Booster(dict(params), train_set)
     bst.update()
-    counters = ("device_waves", "wave_graph_replays", "wave_noops")
+    # waves run as graphs: inside a tree graph, or (an older checkout's
+    # counter) one graph replay each
+    counters = ("device_waves", "wave_graph_runs", "wave_graph_replays", "wave_noops")
     before = {k: global_timer.counters.get(k, 0) for k in counters}
     busy = device_busy_share(bst.update)
-    waves, replays, noops = (global_timer.counters.get(k, 0) - before[k] for k in counters)
+    waves, runs, replays, noops = (global_timer.counters.get(k, 0) - before[k]
+                                   for k in counters)
+    replays += runs
     splits = bst._gbdt.models[-1].num_leaves - 1
     per = ""
     if busy is not None:
@@ -1273,8 +1383,8 @@ def profile_round(lt, params, train_set, tag, label):
                + (f"{waves} waves: {busy[3] / waves:.1f} a wave" if waves else
                   f"{splits} splits: {busy[3] / max(splits, 1):.1f} a split"))
         if replays:
-            per += (f" ({replays} graph replays, {noops} of them no-op waves: "
-                    f"{busy[3] / replays:.1f} a replay)")
+            per += (f" ({replays} waves run as graphs, {noops} of them no-op waves: "
+                    f"{busy[3] / replays:.1f} a run)")
     print(f"{tag} device busy share over one training round ({label}, torch.profiler): "
           + ("not measured (the profiler saw no device time)" if busy is None else
              f"{busy[0] * 1e3:.1f} ms of kernels in {busy[1] * 1e3:.1f} ms wall, "
@@ -1283,10 +1393,12 @@ def profile_round(lt, params, train_set, tag, label):
 
 def tree_transfers(booster, tag, label):
     """One more tree of the booster's wave learner, on its current
-    gradients, under torch.profiler: its device-to-host copies (count and
-    bytes) and host synchronizations (runtime calls), read from the trace.
-    Checks that they are the done words, at most 8 bytes a launched wave,
-    and the results' one copy."""
+    gradients, under torch.profiler: its graph launches, device-to-host
+    copies (count and bytes) and host synchronizations (runtime calls),
+    read from the trace. Checks that the tree is one graph launch, that the
+    results' one copy is its only device-to-host copy and that the host
+    waits once, on that copy's event. Then the device time of a no-op wave
+    (one run after the tree is done)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from lightgbm_tpu_torch.models.gbdt import _pack_gh
@@ -1320,50 +1432,33 @@ def tree_transfers(booster, tag, label):
              and "Synchronize" in e.get("name", "")]
     graphs = sum(1 for e in inside if e.get("cat") == "cuda_runtime"
                  and e.get("name", "").startswith("cudaGraphLaunch"))
-    # the PyTorch op each stream synchronization happens in (innermost)
-    ops = [e for e in inside if e.get("cat") == "cpu_op"]
-    waits = []
-    for e in inside:
-        if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaStreamSynchronize":
-            ts = float(e["ts"])
-            around = [o for o in ops if o.get("tid") == e.get("tid")
-                      and float(o["ts"]) <= ts <= float(o["ts"]) + float(o["dur"])]
-            waits.append(min(around, key=lambda o: float(o["dur"]))["name"] if around
-                         else "(no op)")
     results = learner._buffers.results.numel()
     print(f"{tag} train ({label}): one tree of {tree.num_leaves} leaves, {launched} waves "
-          f"launched ({graphs} graph launches in the trace): {len(d2h)} device-to-host "
-          f"copies, {sum(nbytes)} bytes ({sorted(set(nbytes))} apiece; bound "
-          f"8 x {launched} + {results} for the results), {len(syncs)} host synchronizations "
-          f"({', '.join(f'{n} {syncs.count(n)}' for n in sorted(set(syncs)))}; the stream "
-          f"synchronizations in {waits}) (torch.profiler trace, the tree's span)")
-    # a wave launched after the tree is done: it selects nothing, and its
-    # partition copies the carry unchanged to the other buffer (so the
-    # host's parity stays right); keeping the parity on the card instead
-    # would skip that copy (the scatter) and read both buffers at the end
+          f"run in its graph ({graphs} graph launches in the trace): {len(d2h)} "
+          f"device-to-host copies, {sum(nbytes)} bytes ({sorted(set(nbytes))} apiece; the "
+          f"results {results}), {len(syncs)} host synchronizations "
+          f"({', '.join(f'{n} {syncs.count(n)}' for n in sorted(set(syncs)))}) "
+          "(torch.profiler trace, the tree's span)")
     buf, K = learner._buffers, learner.wave_k
     buf.scalars[DONE:DONE + 1].fill_(1)
-    graphs = (buf.graphs[(K, 0, False)], buf.graphs[(K, 1, False)])
+    wave_graphs = (buf.graphs[(K, 0, False)], buf.graphs[(K, 1, False)])
 
     def noop():
-        for graph in graphs:
+        for graph in wave_graphs:
             graph.replay()
 
     noop_ms = cuda_ms(noop, 20) / 2
     scatter = (device_kernel_ms(noop, 10, ("scatter_kernel",)) or {}).get("scatter_kernel")
-    print(f"{tag} train ({label}): a no-op wave (graph replay after the tree is done, K = "
-          f"{K}): {noop_ms:.4f} ms of device time a replay (CUDA events), of which the "
+    print(f"{tag} train ({label}): a no-op wave (a wave graph run after the tree is done, "
+          f"K = {K}): {noop_ms:.4f} ms of device time a run (CUDA events), of which the "
           f"partition's copy of the carry (scatter_kernel, torch.profiler) "
           f"{fmt_ms(None if scatter is None else scatter / 2)}")
-    check(len(d2h) > 0, f"train ({label}): the trace shows no device-to-host copy")
-    check(sum(nbytes) <= 8 * launched + results and len(d2h) <= launched + 1,
-          f"train ({label}): {len(d2h)} copies of {sum(nbytes)} bytes for {launched} waves")
-    # the lagged reads of the done word (one a launched wave but the first)
-    # and the results' copy, nothing else
-    check(set(syncs) <= {"cudaEventSynchronize", "cudaStreamSynchronize"}
-          and syncs.count("cudaEventSynchronize") <= launched - 1
-          and syncs.count("cudaStreamSynchronize") <= 1,
-          f"train ({label}): host synchronizations {syncs} for {launched} waves")
+    check(len(d2h) == 1 and nbytes == [results],
+          f"train ({label}): {len(d2h)} device-to-host copies of {nbytes} bytes for one "
+          f"tree, not the results' one copy of {results}")
+    check(syncs == ["cudaEventSynchronize"],
+          f"train ({label}): host synchronizations {syncs} for one tree, not the wait on "
+          "its results' event")
 
 
 def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, label):
@@ -1438,34 +1533,372 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
                                                       key=lambda kv: -kv[1][0])))
     learner = trained._gbdt.tree_learner
     if hasattr(learner, "last_waves_launched"):
-        replays = counters.get("wave_graph_replays", 0)
+        runs = counters.get("wave_graph_runs", 0)
         noops = counters.get("wave_noops", 0)
-        check(replays == counters["device_waves"] + noops,
-              f"train ({label}): {replays} graph replays for {counters['device_waves']} "
-              f"live and {noops} no-op waves")
-        tree_s = scopes["tree_device"][0]
-        print(f"{tag} train ({label}): per tree {replays / rounds:.1f} graph replays, "
-              f"{noops / rounds:.1f} no-op waves (launched after the tree was done); host time "
-              f"a wave {tree_s / replays * 1e3:.4f} ms (tree_device {tree_s:.3f} s over "
-              f"{replays} replays; wave_launch {scopes['wave_launch'][0] / replays * 1e3:.4f}, "
-              f"wave_wait {scopes['wave_wait'][0] / replays * 1e3:.4f} ms a wave)")
-        part = {k: first.get(k, 0.0) for k in ("wave_buffers", "wave_warmup", "wave_capture",
-                                                 "tree_device", "tree_results")}
-        tree1 = part["tree_device"] - part["wave_warmup"] - part["wave_capture"]
+        trees = counters.get("tree_graph_launches", 0)
+        check(trees == len(trained._gbdt.models) and runs == counters["device_waves"] + noops,
+              f"train ({label}): {trees} tree graph launches for "
+              f"{len(trained._gbdt.models)} trees, {runs} wave runs for "
+              f"{counters['device_waves']} live and {noops} no-op waves")
+        # host time enqueueing a tree, its graphs' captures (first use) apart
+        tree_s = scopes["tree_device"][0] - scopes.get("tree_capture", (0.0, 0))[0]
+        print(f"{tag} train ({label}): per tree one graph launch, {runs / trees:.1f} waves "
+              f"run in it, {noops / trees:.1f} of them no-op waves (after the tree was "
+              f"done); host time a tree {tree_s / trees * 1e3:.4f} ms (tree_device less "
+              f"tree_capture, {tree_s:.3f} s over {trees} trees; tree_stage "
+              f"{scopes['tree_stage'][0] / trees * 1e3:.4f}, tree_launch "
+              f"{scopes['tree_launch'][0] / trees * 1e3:.4f} ms a tree), the wait for a "
+              f"tree's results {scopes['tree_results'][0] / trees * 1e3:.4f} ms a tree")
+        part = {k: first.get(k, 0.0) for k in ("wave_buffers", "tree_capture", "tree_device",
+                                                 "tree_results")}
+        tree1 = part["tree_device"] - part["tree_capture"]
         rest = per_iter[0] - part["wave_buffers"] - part["tree_device"] - part["tree_results"]
-        captures = scopes.get("wave_capture", (0.0, 0))
+        captures = scopes.get("tree_capture", (0.0, 0))
         print(f"{tag} train ({label}): first iteration {per_iter[0]:.3f} s: buffer allocation "
-              f"{part['wave_buffers']:.3f} s, build and load (the warm-up wave) "
-              f"{part['wave_warmup']:.3f} s, graph capture {part['wave_capture']:.3f} s, the "
-              f"first tree {tree1:.3f} s (+ its results {part['tree_results']:.3f} s), the "
-              f"rest (data to the card, gradients, scores, metrics) {rest:.3f} s; graph "
-              f"captures in the run {captures[1]} ({captures[0]:.3f} s)")
+              f"{part['wave_buffers']:.3f} s, the tree graph's captures (with the eager "
+              f"root and warm-up wave that load the kernels) {part['tree_capture']:.3f} s, "
+              f"the first tree {tree1:.3f} s (+ its results {part['tree_results']:.3f} s), the "
+              f"rest (data to the card, gradients, scores, metrics) {rest:.3f} s; tree graphs "
+              f"captured in the run {captures[1]} ({captures[0]:.3f} s)")
         tree_transfers(trained, tag, label)
     # one steady round: a booster that has already taken one step
     profile_round(lt, params, train_set, tag, label)
     return {"launches": launches, "learner": trained._gbdt.tree_learner,
             "counters": counters, "hist_rows": hist_rows, "waves": np.diff(waves),
             "per_iter": per_iter, "auc": (train_auc, valid_auc[-1])}
+
+
+def check_tree_loop(learner):
+    """The tree graph's loop-condition kernel (tree_loop_cond_kernel) at the
+    main path's shapes: the last tree of the wave learner grown again from
+    its staged inputs by its tree graph (the WHILE node run by the kernel)
+    and by the host's loop (`_waves_eager`, the condition read on the
+    host), on the card: the split log's bits, the scalars and the passes
+    equal. Returns (timings, bound, passes): the kernel's device time a
+    launch (torch.profiler over whole tree launches, divided by the launches
+    a tree makes) and the plain condition's host time (one read of the done
+    word)."""
+    from lightgbm_tpu_torch.ops.wave import DONE
+    from lightgbm_tpu_torch.treelearner import device as dmod
+
+    buf = learner._buffers
+    (K, masked, bagged), tree_graph = next(iter(buf.trees.items()))
+    cfg = learner.config
+    args = (learner.meta, learner.tables, learner.params_dev)
+
+    def root():
+        dmod._root(buf, learner.bins_dev, args[0], args[2], masked, bagged,
+                   learner.group_bin_padded, cfg.max_depth)
+
+    def wave(cur):
+        dmod._wave(buf, cur, K, *args, masked, learner.group_bin_padded, cfg.max_depth)
+
+    tree_graph.launch()
+    torch.cuda.synchronize()
+    graphed = buf.results.clone()
+    root()
+    passes = dmod._waves_eager(buf, 1 if bagged else 0, wave, cfg.num_leaves)
+    torch.cuda.synchronize()
+    check(torch.equal(graphed, buf.results),
+          "tree_loop_cond: the tree graph's split log, scalars or passes differ from the "
+          "host loop's on the same inputs")
+    check(passes >= 1, "tree_loop_cond: the re-grown tree ran no pass")
+    per_tree = (device_kernel_ms(tree_graph.launch, 5, ("tree_loop_cond",)) or {}).get(
+        "tree_loop_cond")
+    timings = {"kernel": None if per_tree is None else per_tree / (1 + passes),
+               "plain": host_ms(lambda: int(buf.scalars[DONE]), 50)}
+    # the done word and the pass count read, the pass count written
+    return timings, bound(3 * 8, 0), passes
+
+
+def drive_multiclass(lt, libs, seed, tag):
+    """Phase 10: multiclass at Covertype's width. Returns what the caller
+    reports and the launches of the phase's main path."""
+    from lightgbm_tpu_torch.serving import PredictionService, serve, wire
+    from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    t0 = time.perf_counter()
+    X, y = covertype_rows(seed + 11, COVTYPE_ROWS + MC_VALID_ROWS)
+    X_valid, y_valid = X[COVTYPE_ROWS:], y[COVTYPE_ROWS:]
+    X, y = X[:COVTYPE_ROWS], y[:COVTYPE_ROWS]
+    shares = np.bincount(y.astype(int), minlength=7) / len(y)
+    train_set = lt.Dataset(X, label=y, params={"max_bin": MC_PARAMS["max_bin"]}).construct()
+    core = train_set._handle
+    bundled = sum(1 for g in core.groups if g.is_multi)
+    print(f"multiclass data: {len(y)} x {X.shape[1]} Covertype-shaped rows binned into "
+          f"{core.num_groups} groups ({bundled} EFB bundles) in "
+          f"{time.perf_counter() - t0:.1f} s; class shares "
+          + " ".join(f"{v:.4f}" for v in shares))
+    check(bundled >= 1, "multiclass: EFB bundled none of the one-hot columns")
+
+    # at a reduced size, the card trains as the CPU does (snapped gradients)
+    Xe, ye = X[:MC_EXACT_ROWS], y[:MC_EXACT_ROWS]
+    exact = {**MC_PARAMS, "objective": snapped_softmax, "num_leaves": MC_EXACT_LEAVES,
+             "metric": "None", "is_provide_training_metric": False}
+    for label, extra in (("wave", {}), ("serial", {"feature_fraction_bynode": 0.8})):
+        t = time.perf_counter()
+        card = lt.train({**exact, **extra}, lt.Dataset(Xe, label=ye),
+                        num_boost_round=MC_EXACT_ROUNDS)
+        t_card = time.perf_counter() - t
+        check(isinstance(card._gbdt.tree_learner, DeviceTreeLearner) == (label == "wave"),
+              f"multiclass exact ({label}): the card trained with the wrong learner")
+        t = time.perf_counter()
+        if label == "wave":
+            host_set = lt.Dataset(Xe, label=ye)
+            host = lt.Booster({**exact, **extra, "objective": "none", "device_type": "cpu",
+                               "num_iterations": MC_EXACT_ROUNDS}, host_set)
+            host._gbdt.tree_learner = DeviceTreeLearner(host._gbdt.config, host_set._handle,
+                                                        torch.device("cpu"))
+            for _ in range(MC_EXACT_ROUNDS):
+                host.update(fobj=snapped_softmax)
+        else:
+            host = lt.train({**exact, **extra, "device_type": "cpu"}, lt.Dataset(Xe, label=ye),
+                            num_boost_round=MC_EXACT_ROUNDS)
+        t_host = time.perf_counter() - t
+        text = card.model_to_string()
+        check(text == host.model_to_string(),
+              f"multiclass exact ({label}): the card's model text differs from the CPU's on "
+              "snapped gradients")
+        print(f"multiclass exact ({label}): {MC_EXACT_ROWS} rows, {MC_EXACT_ROUNDS} rounds x 7 "
+              f"trees, snapped softmax gradients: card and CPU model texts byte-equal "
+              f"({len(text)} bytes; card {t_card:.1f} s, CPU {t_host:.1f} s)")
+
+    for lib in libs:
+        lib.reset_launches()
+    global_timer.reset()
+    global_timer.enabled = True
+    runs = {}
+    for label, extra, rounds in (("wave", {}, MC_ROUNDS),
+                                 ("serial", {"feature_fraction_bynode": 0.8},
+                                  MC_SERIAL_ROUNDS)):
+        stamps, evals = [], {}
+        t = time.perf_counter()
+        bst = lt.train({**MC_PARAMS, **extra}, train_set, num_boost_round=rounds,
+                       valid_sets=[train_set, train_set.create_valid(X_valid, label=y_valid)],
+                       valid_names=["training", "valid"],
+                       callbacks=[lambda env: stamps.append(time.perf_counter()),
+                                  lt.record_evaluation(evals)])
+        per_iter = np.diff([t] + stamps)
+        check(isinstance(bst._gbdt.tree_learner, DeviceTreeLearner) == (label == "wave"),
+              f"multiclass ({label}): trained with the wrong learner")
+        check(bst.num_trees() == 7 * rounds, f"multiclass ({label}): {bst.num_trees()} trees")
+        loss = evals["training"]["multi_logloss"]
+        check(all(b < a for a, b in zip(loss, loss[1:])),
+              f"multiclass ({label}): train multi_logloss did not fall every round: {loss}")
+        verr = evals["valid"]["multi_error"]
+        check(verr[-1] < COVTYPE_MAJORITY_ERROR,
+              f"multiclass ({label}): valid multi_error {verr[-1]} not below the majority "
+              f"class's {COVTYPE_MAJORITY_ERROR:.4f}")
+        steady = float(np.mean(per_iter[1:])) if len(per_iter) > 1 else float(per_iter[0])
+        runs[label] = bst
+        print(f"{tag} multiclass ({label}): {len(y)} x 54, 7 classes, {rounds} rounds "
+              f"({7 * rounds} trees); s/iteration first {per_iter[0]:.3f}, mean of the rest "
+              f"{steady:.3f} ({steady / 7:.4f} s a tree); leaves per tree "
+              f"{sorted(set(tr.num_leaves for tr in bst._gbdt.models))}; train multi_logloss "
+              + " ".join(f"{v:.5f}" for v in loss) + f"; valid multi_logloss "
+              f"{evals['valid']['multi_logloss'][-1]:.5f}, multi_error {verr[0]:.5f} -> "
+              f"{verr[-1]:.5f} (the majority class's {COVTYPE_MAJORITY_ERROR:.5f})")
+    bst = runs["wave"]
+    prob = bst.predict(X_valid)
+    check(prob.shape == (MC_VALID_ROWS, 7) and bool(np.isfinite(prob).all()),
+          f"multiclass: predictions of shape {prob.shape}")
+    row_sum = float(np.abs(prob.astype(np.float64).sum(axis=1) - 1.0).max())
+    check(row_sum <= 1e-6, f"multiclass: predicted rows sum to 1 within {row_sum}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
+        path = os.path.join(tmp, "covertype.txt")
+        bst.save_model(path)
+        reloaded = lt.Booster(model_file=path)
+        check(bool(np.array_equal(reloaded.predict(X_valid), prob))
+              and bool(np.array_equal(reloaded.predict(X_valid, raw_score=True),
+                                      bst.predict(X_valid, raw_score=True))),
+              "multiclass: the reloaded model predicts differently")
+        svc = PredictionService(max_batch_rows=4096, min_bucket=64, batch_window_s=0.001)
+        server, server_thread = serve(svc, port=0)
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            req = urllib.request.Request(
+                base + "/models", data=json.dumps({"name": "covertype", "path": path}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                check(resp.status == 200, "multiclass serving: model upload refused")
+            for i in range(8):
+                rows = X_valid[i * 64:(i + 1) * 64]
+                r = urllib.request.Request(base + "/predict",
+                                           data=wire.encode_request("covertype", rows),
+                                           headers={"Content-Type": wire.CONTENT_TYPE},
+                                           method="POST")
+                with urllib.request.urlopen(r, timeout=120) as resp:
+                    got = wire.decode_response(resp.read())[0]
+                check(bool(np.array_equal(got, bst.predict(rows))),
+                      f"multiclass serving: request {i} differs from Booster.predict")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+            server_thread.join(timeout=10)
+    global_timer.enabled = False
+    launches = {}
+    for lib in libs:
+        launches.update(lib.launches)
+    print(f"multiclass: {MC_VALID_ROWS} valid rows predicted as [N, 7], rows sum to 1 within "
+          f"{row_sum:.2e}; the model reloads and predicts bit-equal; 8 requests of 64 rows "
+          "served over the binary wire bit-equal to Booster.predict")
+    print(f"multiclass path launches: {launches}")
+    return launches
+
+
+def async_pass(lt, train_set, asyn):
+    """2 x ASYNC_ROUNDS Booster.update() rounds on the main path's data at a
+    float32-exact learning rate, with the pipeline on or off. Each tree
+    graph's time on the card comes from CUDA events around its launch (the
+    profiler records no kernel of a tree graph that runs beside the host's
+    launches, as the pipeline's do). Returns per round the host seconds,
+    whether it captured a graph (a new wave width) and the card's
+    milliseconds in tree graphs; the model text; the final train score;
+    whether a tree was pending at the end; the host scopes."""
+    from lightgbm_tpu_torch.ops import wave_cuda
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    bst = lt.Booster(dict(ASYNC_PARAMS), train_set)
+    bst._gbdt._async_pipeline = asyn
+    launch, events = wave_cuda.TreeGraph.launch, []
+
+    def timed(graph):
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        launch(graph)
+        pair[1].record()
+        events.append(pair)
+
+    stamps, captured = [], []
+    global_timer.reset()
+    global_timer.enabled = True
+    wave_cuda.TreeGraph.launch = timed
+    try:
+        t = time.perf_counter()
+        for _ in range(2 * ASYNC_ROUNDS):
+            captures = global_timer.counts.get("tree_capture", 0)
+            bst.update()
+            stamps.append(time.perf_counter())
+            captured.append(global_timer.counts.get("tree_capture", 0) > captures)
+        torch.cuda.synchronize()
+        stamps[-1] = time.perf_counter()  # the last tree's work on the card included
+    finally:
+        wave_cuda.TreeGraph.launch = launch
+        global_timer.enabled = False
+    per_iter = np.diff([t] + stamps)
+    graph_ms = [a.elapsed_time(b) for a, b in events]
+    pending = bst._gbdt._pending is not None
+    scopes = {k: (v, global_timer.counts[k]) for k, v in global_timer.totals.items()}
+    text = bst.model_to_string()  # flushes the pending tree
+    return (per_iter, np.asarray(captured), graph_ms, text, bst._gbdt.score.clone(), pending,
+            scopes)
+
+
+def profile_async(lt, train_set, asyn, rounds=3):
+    """Device-to-host copies and host synchronizations a tree over `rounds`
+    steady updates of a booster that has taken two (its pipeline full when
+    on), from a torch.profiler trace of the runtime calls."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    bst = lt.Booster(dict(ASYNC_PARAMS), train_set)
+    bst._gbdt._async_pipeline = asyn
+    bst.update()
+    bst.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_rounds"):
+            for _ in range(rounds):
+                bst.update()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    # the rounds' span on the host clock (the profiler's own calls lie outside)
+    span = next(e for e in events if e.get("name") == "chip_smoke_rounds"
+                and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation")
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    calls = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+             and t0 <= float(e.get("ts", -1)) <= t1]
+    # a copy's device event may land after the span: count the copies the
+    # rounds enqueued (their runtime calls) by the bytes of their device events
+    d2h = [int(e.get("args", {}).get("bytes", 0)) for e in events if e.get("ph") == "X"
+           and e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")
+           and float(e.get("ts", -1)) >= t0]
+    syncs = [e["name"] for e in calls if "Synchronize" in e.get("name", "")]
+    bst.model_to_string()
+    return d2h, syncs, bst._gbdt.tree_learner._buffers.results.numel()
+
+
+def drive_async(lt, libs, train_set, tag):
+    """Phase 11: the async pipeline against the synchronous path on the main
+    path's data. Returns the launches of the phase and the report."""
+    for lib in libs:
+        lib.reset_launches()
+    out = {}
+    for label, asyn in (("async", True), ("sync", False)):
+        out[label] = async_pass(lt, train_set, asyn)
+    launches = {}
+    for lib in libs:
+        launches.update(lib.launches)
+    text_a, score_a, pend_a = out["async"][3:6]
+    text_s, score_s, pend_s = out["sync"][3:6]
+    check(pend_a and not pend_s, f"async: a tree pending after the last update: async "
+          f"{pend_a}, sync {pend_s}")
+    check(text_a == text_s, "async: the model text differs from the synchronous path's")
+    check(torch.equal(score_a, score_s), "async: the train score differs from the "
+          "synchronous path's")
+    report = {}
+    for label, asyn in (("async", True), ("sync", False)):
+        per_iter, captured, graph_ms, _, _, _, scopes = out[label]
+        check(len(graph_ms) == len(per_iter), f"async ({label}): {len(graph_ms)} tree graph "
+              f"launches in {len(per_iter)} rounds")
+        graph_ms = np.asarray(graph_ms if graph_ms else [np.nan] * len(per_iter))
+        window = {}
+        rounds = np.arange(len(per_iter))
+        for name, lo, hi in (("first", 1, ASYNC_ROUNDS), ("then", ASYNC_ROUNDS,
+                                                          2 * ASYNC_ROUNDS)):
+            # s/iteration over the window's rounds that captured no graph (a
+            # capture is a new width's one-time cost); the card's share over
+            # all of them (a pipelined tree's card time lands in the next
+            # round, so the share of a single round can pass 100%)
+            inside = (rounds >= lo) & (rounds < hi)
+            keep = inside & ~captured
+            window[name] = (float(per_iter[keep].mean()), float(graph_ms[inside].sum()) / 1e3
+                            / float(per_iter[inside].sum()), float(graph_ms[inside].mean()),
+                            int(keep.sum()))
+        d2h, syncs, results = profile_async(lt, train_set, asyn)
+        report[label] = window
+        f, th = window["first"], window["then"]
+        print(f"{tag} async phase ({label}): {train_set.num_data()} x "
+              f"{train_set.num_feature()}, Booster.update() at learning rate 0.125; rounds "
+              f"1-{ASYNC_ROUNDS}: s/iteration first {per_iter[0]:.4f}, mean of the rest "
+              f"{per_iter[1:ASYNC_ROUNDS].mean():.4f}, mean of the {f[3]} of them that captured "
+              f"no graph {f[0]:.4f}, the card in tree graphs {f[2]:.2f} ms a tree (CUDA "
+              f"events), {f[1]:.1%} of rounds 2-{ASYNC_ROUNDS}' wall; rounds "
+              f"{ASYNC_ROUNDS + 1}-{2 * ASYNC_ROUNDS}: {th[0]:.4f} s/iteration over the {th[3]} "
+              f"that captured no graph, {th[2]:.2f} ms a tree in tree graphs, {th[1]:.1%} of "
+              f"the wall; a tree (3 "
+              f"profiled rounds) {len(d2h) / 3:.1f} device-to-host copies "
+              f"({sorted(set(d2h))} bytes apiece), {len(syncs) / 3:.1f} host synchronizations ("
+              + ", ".join(f"{n} {syncs.count(n)}" for n in sorted(set(syncs)))
+              + ") (torch.profiler trace)")
+        print(f"{tag} async phase ({label}) scopes (host s over {2 * ASYNC_ROUNDS} rounds): "
+              + ", ".join(f"{k} {v:.4f} ({n})" for k, (v, n) in
+                          sorted(scopes.items(), key=lambda kv: -kv[1][0])))
+        if asyn:
+            # the pipeline's steady round: the results' one copy a tree and
+            # the one wait on its event, nothing else
+            check(d2h == [results] * 3 and syncs == ["cudaEventSynchronize"] * 3,
+                  f"async: {d2h} device-to-host copies and {syncs} host synchronizations in "
+                  "three rounds, not one results copy and one wait a tree")
+    print(f"async: {2 * ASYNC_ROUNDS} rounds, model text ({len(text_a)} bytes) byte-equal and "
+          "the final train score bit-equal to the synchronous path's")
+    print(f"async path launches: {launches}")
+    return launches, report
 
 
 def profile_other(checkout: str, seed: int) -> int:
@@ -2027,7 +2460,7 @@ def main() -> int:
                           ("histogram_slots_ragged", "partition_decide", "partition_scan",
                            "partition_scatter", "relabel_rows", "find_best_split",
                            "find_best_split_batched", "wave_select", "wave_replay",
-                           "predict_forest_raw"), tag, "wave")
+                           "tree_loop_cond", "predict_forest_raw"), tag, "wave")
     check(isinstance(wave["learner"], DeviceTreeLearner),
           "train (wave): lt.train did not grow its trees with the wave learner")
     if args.seed == 0:
@@ -2062,12 +2495,38 @@ def main() -> int:
         check(all(abs(a - r) <= 0.002 for a, r in zip(serial["auc"], SERIAL_AUC_SEED0)),
               f"train (serial): train / valid AUC {serial['auc']} not within 0.002 of "
               f"{SERIAL_AUC_SEED0}")
-    train_launches = {k: wave["launches"][k] + serial["launches"][k] for k in wave["launches"]}
     print(f"training path launches per learner: wave {wave['launches']}; serial "
           f"{serial['launches']}")
+    # the tree graph's loop condition, against the host's loop on the card
+    ms_loop, bound_loop, loop_passes = check_tree_loop(wave["learner"])
+    print(f"{tag} kernels: tree_loop_cond: the last tree grown again by its tree graph "
+          f"({loop_passes} passes) and by the host's loop on the same inputs: split log, "
+          f"scalars and passes equal; the kernel {fmt_ms(ms_loop['kernel'])} of device time "
+          f"a launch (torch.profiler), the plain condition (one read of the done word on "
+          f"the host) {ms_loop['plain']:.4f} ms, bound {bound_loop[0]:.7f} ms "
+          f"({bound_loop[1]})")
+    torch.cuda.empty_cache()
+
+    # ------------------------------- multiclass, both learners
+    mc_launches = drive_multiclass(lt, libs, args.seed, tag)
+    for name in ("histogram_slots_ragged", "partition_decide", "partition_scan",
+                 "partition_scatter", "relabel_rows", "find_best_split",
+                 "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
+                 "histogram", "row_partition_decide", "row_partition_scatter",
+                 "predict_forest_raw"):
+        check(mc_launches[name] > 0, f"multiclass path: kernel {name} never launched")
+    torch.cuda.empty_cache()
+
+    # ------------------------------- the async pipeline
+    async_launches, _ = drive_async(lt, libs, train_set, tag)
+    for name in ("histogram_slots_ragged", "partition_decide", "partition_scan",
+                 "partition_scatter", "relabel_rows", "find_best_split",
+                 "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond"):
+        check(async_launches[name] > 0, f"async path: kernel {name} never launched")
+    paths = (wave["launches"], serial["launches"], mc_launches, async_launches)
 
     def launches(name):
-        return serve_launches.get(name, 0) + train_launches[name]
+        return serve_launches.get(name, 0) + sum(p[name] for p in paths)
 
     kernels = [
         {"name": "predict_forest_raw", "route": "cuda",
@@ -2189,6 +2648,13 @@ def main() -> int:
              "ms": ms_step[key] if ms_step[key] is not None else ms_step.get(key + "_events"),
              "plain_ms": ms_step[key + "_plain"], "bound_ms": bound_step[key][0],
              "bound_by": bound_step[key][1], "library_ms": None})
+    kernels.append(
+        {"name": "tree_loop_cond", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/wave_step.cu",
+         "replaces": "lightgbm_tpu/treelearner/device.py:838",
+         "launches": launches("tree_loop_cond"), "max_abs_err": 0.0,
+         "ms": ms_loop["kernel"], "plain_ms": ms_loop["plain"], "bound_ms": bound_loop[0],
+         "bound_by": bound_loop[1], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

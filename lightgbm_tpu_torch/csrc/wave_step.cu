@@ -37,6 +37,15 @@
 // range's smaller child, n_waves + 1 when the wave started live, and done
 // unless t < L - 1 and the largest gain is positive.
 //
+// tree_loop_cond_kernel (one thread) and lgbt_tree_graph: a whole tree as
+// one CUDA graph, built with the runtime's graph API. The root's work (a
+// captured child graph), then this kernel, which sets the condition of a
+// WHILE node from the done word, then the WHILE node, whose body is two waves
+// (captured child graphs of both buffer parities, so a pass ends on the
+// parity it began with) and this kernel again, which also counts the body's
+// passes. A pass past max_passes clears the condition and leaves the count
+// above the bound, which the host reads as a loop that never finished.
+//
 // What bounds them. Bytes: the selection reads L gains and K records and
 // writes (L + 2 + 5K + 256K) int32; the replay reads 2K records and totals
 // and L gains and writes a few [L+1] rows: a few KB, well under a
@@ -318,9 +327,84 @@ wave_replay_kernel(float* __restrict__ leaf_best, int* __restrict__ depth,
   }
 }
 
+__global__ void tree_loop_cond_kernel(cudaGraphConditionalHandle handle,
+                                      const long long* __restrict__ scalars,
+                                      long long* __restrict__ passes, long long max_passes,
+                                      int in_body) {
+  long long n = *passes;
+  if (in_body) *passes = ++n;
+  cudaGraphSetConditional(handle, (scalars[kDone] == 0 && n <= max_passes) ? 1u : 0u);
+}
+
+cudaError_t add_cond_node(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep,
+                          cudaGraphConditionalHandle handle, const long long* scalars,
+                          long long* passes, long long max_passes, int in_body) {
+  void* args[] = {&handle, &scalars, &passes, &max_passes, &in_body};
+  cudaKernelNodeParams p = {};
+  p.func = reinterpret_cast<void*>(tree_loop_cond_kernel);
+  p.gridDim = dim3(1);
+  p.blockDim = dim3(1);
+  p.kernelParams = args;
+  return cudaGraphAddKernelNode(node, graph, dep, dep ? 1 : 0, &p);
+}
+
 }  // namespace
 
 extern "C" {
+
+// One tree as one executable graph: root (cudaGraph_t), then while the done
+// word scalars[4] is 0 and the passes are at most max_passes, wave0 then
+// wave1 (cudaGraph_t each; cloned, so the caller keeps and frees them).
+// passes [1] int64 counts the body's passes; the root must zero it. Returns
+// the cudaGraphExec_t through exec_out and a cudaError_t.
+int lgbt_tree_graph(void* root, void* wave0, void* wave1, const long long* scalars,
+                    long long* passes, long long max_passes, void** exec_out) {
+  cudaGraph_t graph = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  cudaGraphNode_t n_root, n_cond, n_while, n_w0, n_w1, n_again;
+  cudaGraphConditionalHandle handle;
+  cudaGraphNodeParams wp = {};
+  cudaGraph_t body = nullptr;
+  cudaError_t err = cudaGraphCreate(&graph, 0);
+  if (err != cudaSuccess) return int(err);
+#define TRY(call)                       \
+  do {                                  \
+    err = (call);                       \
+    if (err != cudaSuccess) goto done;  \
+  } while (0)
+  TRY(cudaGraphAddChildGraphNode(&n_root, graph, nullptr, 0, static_cast<cudaGraph_t>(root)));
+  TRY(cudaGraphConditionalHandleCreate(&handle, graph, 0, cudaGraphCondAssignDefault));
+  TRY(add_cond_node(&n_cond, graph, &n_root, handle, scalars, passes, max_passes, 0));
+  wp.type = cudaGraphNodeTypeConditional;
+  wp.conditional.handle = handle;
+  wp.conditional.type = cudaGraphCondTypeWhile;
+  wp.conditional.size = 1;
+#if CUDART_VERSION >= 13000
+  TRY(cudaGraphAddNode(&n_while, graph, &n_cond, nullptr, 1, &wp));
+#else
+  TRY(cudaGraphAddNode(&n_while, graph, &n_cond, 1, &wp));
+#endif
+  body = wp.conditional.phGraph_out[0];
+  TRY(cudaGraphAddChildGraphNode(&n_w0, body, nullptr, 0, static_cast<cudaGraph_t>(wave0)));
+  TRY(cudaGraphAddChildGraphNode(&n_w1, body, &n_w0, 1, static_cast<cudaGraph_t>(wave1)));
+  TRY(add_cond_node(&n_again, body, &n_w1, handle, scalars, passes, max_passes, 1));
+  TRY(cudaGraphInstantiate(&exec, graph, 0));
+  *exec_out = exec;
+#undef TRY
+done:
+  cudaGraphDestroy(graph);
+  return int(err);
+}
+
+int lgbt_tree_graph_launch(void* exec, void* stream) {
+  return int(cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec),
+                             static_cast<cudaStream_t>(stream)));
+}
+
+int lgbt_tree_graph_destroy(void* exec) {
+  return int(cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec)));
+}
+
 
 // leaf_best [L+1, 14] f32, start / count [L+1] int32, scalars [5] int64;
 // the feature tables [F] (int32, is_efb bytes) -> table [L + 2 + 5K + 256K]

@@ -7,18 +7,22 @@ score maintenance, eval, model export, and prediction. The TrainOneIter
 control flow mirrors gbdt.cpp:352-460 (init-score handling, constant trees,
 should_continue semantics).
 
-Scores live on the training device as float32 [C, N]. The train score is
+Scores live on the training device as float32 [C, N], one row a class (C
+trees an iteration for the multiclass objectives). The train score is
 updated from the learner's partition (each row once, in float32, as the JAX
 package's gather or scatter-add does); valid scores by traversing the new
 tree over the valid rows (the traversal kernel on the card).
 
-This slice carries the synchronous path, with the host-driven serial
-learner and the wave learner (treelearner/device.py). The JAX package's
-async per-tree pipeline and its score update from the split log
-(_apply_split_log_to_score) are not ported yet: its synchronous path is
-the one the main path takes (a learning rate that is not exact in float32,
-such as 0.1, keeps the JAX package on it too). Refit and rollback are later
-work (ROADMAP Queue 1 item 6).
+Both learners train synchronously: each tree is grown, replayed into a Tree
+on the host and applied to the scores before the next. With the wave
+learner, one tree an iteration and a learning rate exact in float32, the
+async per-tree pipeline runs instead (`_async_enabled`,
+`_train_one_iter_async`): tree t is enqueued on the card, the train score
+takes its update straight from the device split log
+(ops/score.py:apply_split_log_to_score), and tree t-1 is replayed into its
+Tree on the host while the card grows tree t. Every reader of the model or
+the scores flushes the pending tree first (`_flush_pending`). Refit and
+rollback are later work (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from ..ops.partition import pad_indices
 from ..ops.predict import (PredictorCache, pack_ensemble, predict_leaf_indices,
                            predict_raw, predict_raw_streamed, stream_chunk_rows,
                            to_device_rows)
-from ..ops.score import add_tree_to_score
+from ..ops.score import add_tree_to_score, apply_split_log_to_score
 from ..treelearner.serial import create_tree_learner
 from ..utils.log import Log
 from ..utils.timer import global_timer
@@ -83,10 +87,17 @@ class GBDT:
             self.num_tree_per_iteration = objective.num_model_per_iteration
         else:
             self.num_tree_per_iteration = self.num_class if self.num_class > 1 else 1
+        self.class_need_train = [True] * self.num_tree_per_iteration
         self._predictor = PredictorCache(self.device)
         self.valid_sets: List[_ValidData] = []
         self.valid_names: List[str] = []
         self.train_metrics = []
+        # the async per-tree pipeline (wave learner only): the pending tree,
+        # finalized one iteration later; _async_pipeline = False keeps every
+        # iteration synchronous (the pipeline's tests compare the two)
+        self._pending = None
+        self._async_stub_stop = False
+        self._async_pipeline = True
         if train_set is None:
             return
 
@@ -95,13 +106,12 @@ class GBDT:
         if objective is not None:
             if not objective.trainable:
                 Log.fatal("objective %s: training is not yet ported to the "
-                          "PyTorch package (ROADMAP Queue 1 items 2 and 7)",
+                          "PyTorch package (ROADMAP Queue 1 item 7)",
                           objective.to_string())
             objective.init(train_set.metadata, n, self.device)
-        if self.num_tree_per_iteration > 1:
-            Log.fatal("training %d trees per iteration (multiclass) is not yet "
-                      "ported to the PyTorch package (ROADMAP Queue 1 item 2)",
-                      self.num_tree_per_iteration)
+            if hasattr(objective, "class_need_train"):
+                self.class_need_train = [objective.class_need_train(c)
+                                         for c in range(self.num_tree_per_iteration)]
         if config.boosting not in ("gbdt", "gbrt", "gbm", "goss"):
             Log.fatal("boosting=%s is not yet ported to the PyTorch package "
                       "(ROADMAP Queue 1 item 6)", config.boosting)
@@ -166,10 +176,81 @@ class GBDT:
             vd.score[class_id] += torch.tensor(value, dtype=torch.float32,
                                                device=self.device)
 
+    # --------------------------------------------------- async tree pipeline
+
+    def _async_enabled(self) -> bool:
+        """Whether the async per-tree pipeline runs (the JAX package's
+        `_async_enabled`, without its environment switch): the wave learner
+        enqueues tree t and the host replays tree t-1 while the card grows
+        it. Every condition protects bit-identical results with the
+        synchronous path:
+
+        * plain GBDT, one tree an iteration that trains;
+        * the wave learner (DeviceTreeLearner), unquantized;
+        * an objective with the base renew_tree_output (L1-style objectives
+          refit leaf values on the host before the score update);
+        * a learning rate exact in float32, so the device's float32 leaf x
+          rate equals the host's float64 shrink cast to float32 bit for bit.
+
+        The caller also requires built-in gradients, no bag and a model
+        that already holds the first iteration's trees."""
+        from ..treelearner.device import DeviceTreeLearner
+
+        if not self._async_pipeline or type(self) is not GBDT:
+            return False
+        learner = getattr(self, "tree_learner", None)
+        if not isinstance(learner, DeviceTreeLearner) or self.config.use_quantized_grad:
+            return False
+        if self.num_tree_per_iteration != 1 or self.config.linear_tree:
+            return False
+        if not self.class_need_train[0] or self.train_set.num_features <= 0:
+            return False
+        obj = self.objective
+        if obj is None or (type(obj).renew_tree_output
+                           is not ObjectiveFunction.renew_tree_output):
+            return False
+        rate = float(self.shrinkage_rate)
+        return float(np.float32(rate)) == rate
+
+    def _flush_pending(self) -> None:
+        """Finalize the pending tree, if any: replay its split log into the
+        placeholder Tree already in self.models, shrink it, and apply the
+        deferred valid-score update. A stub (no split found) unwinds its
+        iteration, removing the placeholder and taking back iter_, and sets
+        _async_stub_stop so the next train_one_iter reports the stop one
+        iteration late. Called by every reader of the model or the scores
+        (eval, predict, export) and by the synchronous training path."""
+        pending = self._pending
+        if pending is None:
+            return
+        self._pending = None
+        with global_timer.scope("tree_train"):
+            tree = self.tree_learner.finalize(pending)
+        if tree.num_leaves <= 1:
+            for i in range(len(self.models) - 1, -1, -1):
+                if self.models[i] is tree:
+                    del self.models[i]
+                    break
+            self.iter_ -= 1
+            self._predictor.invalidate()
+            self._async_stub_stop = True
+            return
+        tree.shrink(self.shrinkage_rate)
+        with global_timer.scope("update_score"):
+            self._update_valid_scores(tree, 0)
+
+    def _stop_for_no_split(self) -> bool:
+        self._async_stub_stop = False
+        Log.warning("Stopped training because there are no more leaves that "
+                    "meet the split requirements")
+        return True
+
     def train_one_iter(self, gradients: Optional[np.ndarray] = None,
                        hessians: Optional[np.ndarray] = None) -> bool:
         """Returns True when training should STOP (no more valid splits) —
         matching LGBM_BoosterUpdateOneIter's is_finished flag."""
+        if self._async_stub_stop:
+            return self._stop_for_no_split()
         C = self.num_tree_per_iteration
         init_scores = [0.0] * C
         custom = gradients is not None
@@ -185,6 +266,8 @@ class GBDT:
                                         .reshape(C, self.num_data), device=self.device)
                 hesses = torch.as_tensor(np.asarray(hessians, dtype=np.float32)
                                          .reshape(C, self.num_data), device=self.device)
+            elif C > 1:
+                grads, hesses = self.objective.get_gradients(self.score)
             else:
                 grads, hesses = self.objective.get_gradients(self.score[0])
                 grads, hesses = grads[None], hesses[None]
@@ -192,11 +275,20 @@ class GBDT:
             bag, grads, hesses = self.sample_strategy.bagging(
                 self.iter_, grads, hesses)
             self._refresh_bag_cache(bag)
+        # the async pipeline: not on the first iteration (its stub path
+        # seeds the init scores) and not under bagging (the out-of-bag
+        # update needs the host tree before the next gradients)
+        if (not custom and bag is None and len(self.models) >= C
+                and self._async_enabled()):
+            return self._train_one_iter_async(grads[0], hesses[0])
+        self._flush_pending()
+        if self._async_stub_stop:
+            return self._stop_for_no_split()
         for c in range(C):
             with global_timer.scope("boosting"):
                 gh_ext = _pack_gh(grads[c], hesses[c])
             new_tree = Tree(2)
-            if self.train_set.num_features > 0:
+            if self.class_need_train[c] and self.train_set.num_features > 0:
                 with global_timer.scope("tree_train"):
                     new_tree = self.tree_learner.train(gh_ext, bag)
             if new_tree.num_leaves > 1:
@@ -227,6 +319,33 @@ class GBDT:
             if len(self.models) > C:
                 del self.models[-C:]
             return True
+        self.iter_ += 1
+        return False
+
+    def _train_one_iter_async(self, grad: torch.Tensor, hess: torch.Tensor) -> bool:
+        """One pipelined iteration (eligibility checked by the caller):
+        enqueue tree t, update the train score from its device split log,
+        then, while the card grows tree t, replay tree t-1 on the host. The
+        host waits only for t-1's results copy, which left the card when
+        t-1 ended. Results are bit-identical to the synchronous path; only
+        the stop on a tree with no split lands one iteration late (the
+        extra tree is the same stub, with a zero score update, and is
+        dropped)."""
+        with global_timer.scope("boosting"):
+            gh_ext = _pack_gh(grad, hess)
+        with global_timer.scope("tree_train"):
+            pending = self.tree_learner.train_async(gh_ext, None)
+        with global_timer.scope("update_score"):
+            apply_split_log_to_score(self.score[0], pending.grown.rec_store_dev,
+                                     pending.grown.leaf_id, self.shrinkage_rate,
+                                     self.config.num_leaves)
+        self.models.append(pending.tree)
+        self._predictor.invalidate()
+        self._flush_pending()  # tree t-1's replay, beside tree t on the card
+        if self._async_stub_stop:
+            self.models.pop()  # tree t: the same gradients, so the same stub
+            return self._stop_for_no_split()
+        self._pending = pending
         self.iter_ += 1
         return False
 
@@ -281,6 +400,7 @@ class GBDT:
     # ------------------------------------------------------------------- eval
 
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        self._flush_pending()
         out = []
         score = self.score[0] if self.num_tree_per_iteration == 1 else self.score
         for m in self.train_metrics:
@@ -289,6 +409,7 @@ class GBDT:
         return out
 
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        self._flush_pending()
         out = []
         for vname, vd in zip(self.valid_names, self.valid_sets):
             score = vd.score[0] if self.num_tree_per_iteration == 1 else vd.score
@@ -300,6 +421,7 @@ class GBDT:
     # ---------------------------------------------------------------- predict
 
     def _packed(self, num_iteration: int = 0, start_iteration: int = 0):
+        self._flush_pending()
         C = self.num_tree_per_iteration
         start = max(start_iteration, 0) * C
         n_trees = len(self.models)
@@ -333,6 +455,7 @@ class GBDT:
     # ------------------------------------------------------------------ model
 
     def to_model(self) -> GBDTModel:
+        self._flush_pending()
         ds = self.train_set
         model = GBDTModel()
         model.num_class = self.num_class

@@ -4,8 +4,8 @@ Counterpart of ObjectiveFunction (include/LightGBM/objective_function.h:19-90)
 and its factory (src/objective/objective_function.cpp:71-119). Objectives are
 per-row gradient/hessian producers: elementwise torch functions over the
 score and label tensors on the training device. Every objective converts
-output for a loaded model; the binary and regression families also train
-(`init`, `get_gradients`, `boost_from_score`). The others carry
+output for a loaded model; the binary, regression and multiclass families
+also train (`init`, `get_gradients`, `boost_from_score`). The others carry
 ``trainable = False`` and training with one is refused.
 """
 from __future__ import annotations
@@ -40,7 +40,8 @@ class ObjectiveFunction:
     """Base interface (objective_function.h:29-90)."""
 
     is_constant_hessian = False
-    # whether this objective's gradients are ported (binary, regression)
+    # whether this objective's gradients are ported (binary, regression,
+    # multiclass)
     trainable = False
 
     def __init__(self, config: Config) -> None:

@@ -15,7 +15,9 @@ them: the sources compile in parallel.
 replays it. The counters tick in the wrappers, on the host, so a capture
 (which launches nothing) takes back what its wrappers counted, and each
 replay adds the kernels the capture recorded: the counts stay counts of
-kernels run on the card.
+kernels run on the card. A capture kept as a graph for a larger one (a
+tree graph's root and waves, ops/wave_cuda.py:TreeGraph) is counted by
+whoever knows how many times it ran (`count`).
 """
 from __future__ import annotations
 
@@ -154,7 +156,9 @@ class CountedGraph:
     def __init__(self, fn: Callable[[], None]) -> None:
         import torch
 
-        self.graph = torch.cuda.CUDAGraph()
+        # the captured cudaGraph_t stays (`graph.raw_cuda_graph()`) for a
+        # larger graph to embed; it is instantiated only if replayed
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _launch_counts()
         with torch.cuda.stream(torch.cuda.Stream()):
             self.graph.capture_begin()
@@ -166,15 +170,16 @@ class CountedGraph:
         self.kernels = [(_LIBRARIES[i], name, n - before.get((i, name), 0))
                         for (i, name), n in after.items()
                         if n != before.get((i, name), 0)]
-        self._count(-1)  # the capture ran nothing on the card
+        self.count(-1)  # the capture ran nothing on the card
 
-    def _count(self, sign: int) -> None:
+    def count(self, runs: int) -> None:
+        """Add the captured kernels' launches of `runs` runs of the graph."""
         for lib, name, n in self.kernels:
-            lib.add(name, sign * n)
+            lib.add(name, runs * n)
 
     def replay(self) -> None:
         self.graph.replay()
-        self._count(1)
+        self.count(1)
 
 
 def build_all(libraries: Iterable[CudaLibrary],

@@ -1,4 +1,5 @@
-"""Train-time score updates via bin-space tree traversal.
+"""Train-time score updates: by bin-space tree traversal, and from a wave
+tree's device split log.
 
 Counterpart of the JAX package's ``ops/score.py`` (Tree::
 AddPredictionToScore over the training dataset, include/LightGBM/
@@ -7,6 +8,11 @@ never enter the leaf partition, so their new-tree contribution is computed
 by traversing the tree directly over the bin plane (exactly the decisions
 the partition made for in-bag rows — threshold_in_bin comparisons, EFB
 group-bin translation, missing direction).
+
+`apply_split_log_to_score` is the counterpart of the JAX package's
+``models/gbdt.py:_apply_split_log_to_score``: the async pipeline's train
+score update, read from the wave learner's split log on the device before
+the log reaches the host.
 """
 from __future__ import annotations
 
@@ -16,6 +22,11 @@ import numpy as np
 import torch
 
 from ..common import MISSING_NAN, MISSING_ZERO
+
+# split-log columns (ops/wave.py STORE rows: [leaf, parent_output, depth,
+# valid] + SPLIT_FIELDS, whose left_output and right_output are fields 10
+# and 11)
+_LOG_LEAF, _LOG_VALID, _LOG_LEFT_OUT, _LOG_RIGHT_OUT = 0, 3, 14, 15
 
 
 class BinnedTreeArrays(NamedTuple):
@@ -118,3 +129,42 @@ def add_tree_to_score(tree, dataset, bins_dev: torch.Tensor, score: torch.Tensor
     bound = max_depth if max_depth > 0 else int(tree.max_depth)
     leaf = binned_leaf_index(ta, bins_dev, row_idx, num_data, bound)[keep]
     return score.index_add(0, rows, ta.leaf_value[leaf])
+
+
+def apply_split_log_to_score(score: torch.Tensor, rec_store: torch.Tensor,
+                             leaf_ids: torch.Tensor, rate: float,
+                             num_leaves: int) -> None:
+    """score [N] float32 += rate * the leaf value of each row's leaf, in
+    place, with the leaf values read from a wave tree's split log on the
+    device and no copy to the host.
+
+    rec_store [T, STORE] float32: valid row t re-splits leaf rec[t, 0]; the
+    left child keeps the leaf id and takes left_output, the right child
+    becomes leaf t + 1 and takes right_output, and a later row's write to a
+    leaf wins (the JAX package's fori_loop of `.at[].set`). Rows from the
+    first invalid one on write to a dump slot. The last write to each leaf
+    is found without an order-dependent scatter: the write index (2t left,
+    2t + 1 right) reduced by max per leaf, then a gather. leaf_ids [N] int32
+    (-1 for a row in no leaf: no update). The float32 multiply by `rate`
+    equals the host's float64 shrink cast to float32 bit for bit when rate
+    is exact in float32, as the pipeline requires. A tree with no valid row
+    adds zero to every row."""
+    L = num_leaves
+    dev = score.device
+    T = rec_store.shape[0]
+    valid = rec_store[:, _LOG_VALID] > 0.5
+    t = torch.arange(T, dtype=torch.int64, device=dev)
+    dump = torch.full((), L, dtype=torch.int64, device=dev)
+    left = torch.where(valid, rec_store[:, _LOG_LEAF].to(torch.int64), dump)
+    right = torch.where(valid, t + 1, dump)
+    leaf_w = torch.stack([left, right], dim=1).reshape(-1)  # write 2t, then 2t + 1
+    # a slice, not a list index: a list becomes a host tensor copied to the
+    # device, which synchronizes
+    value_w = rec_store[:, _LOG_LEFT_OUT:_LOG_RIGHT_OUT + 1].reshape(-1)
+    last = torch.full((L + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, leaf_w, torch.arange(2 * T, dtype=torch.int64, device=dev), "amax")
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    lv = torch.where(last >= 0, value_w[last.clamp(min=0)], zero)[:L]
+    lv = lv * float(rate)  # a float32 multiply, the scalar passed with the launch
+    ids = leaf_ids.to(torch.int64)
+    score += torch.where(ids >= 0, lv[ids.clamp(0, L - 1)], zero)

@@ -28,11 +28,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lgbt_wave_select.argtypes = [ptr, i32, ptr, ptr, ptr] + [ptr] * 7 + [i32, ptr, ptr]
     lib.lgbt_wave_replay.argtypes = ([ptr] * 10 + [i32, ptr, i32, i32, i32, ptr, ptr])
-    for fn in (lib.lgbt_wave_select, lib.lgbt_wave_replay):
+    lib.lgbt_tree_graph.argtypes = [ptr] * 5 + [ctypes.c_longlong, ctypes.POINTER(ptr)]
+    lib.lgbt_tree_graph_launch.argtypes = [ptr, ptr]
+    lib.lgbt_tree_graph_destroy.argtypes = [ptr]
+    for fn in (lib.lgbt_wave_select, lib.lgbt_wave_replay, lib.lgbt_tree_graph,
+               lib.lgbt_tree_graph_launch, lib.lgbt_tree_graph_destroy):
         fn.restype = i32
 
 
-LIB = CudaLibrary("wave_step.cu", ("wave_select", "wave_replay"), _declare,
+LIB = CudaLibrary("wave_step.cu", ("wave_select", "wave_replay", "tree_loop_cond"), _declare,
                   extra_flags=("--fmad=false",))
 launches = LIB.launches
 reset_launches = LIB.reset_launches
@@ -125,3 +129,55 @@ def replay(leaf_best: torch.Tensor, depth: torch.Tensor, rec_store: torch.Tensor
             int(max_depth), L, K, out.data_ptr(), stream_of(leaf_best))
     LIB.count("wave_replay", err)
     return out
+
+
+class TreeGraph:
+    """One tree's launches as one executable CUDA graph (csrc/wave_step.cu
+    lgbt_tree_graph): `root`, then a WHILE node that runs `wave0` then
+    `wave1` while the done word scalars[DONE] is 0, for at most
+    `max_passes` passes. root, wave0 and wave1 are captures kept with
+    ``torch.cuda.CUDAGraph(keep_graph=True)``; the executable graph holds
+    clones of them, so they may be dropped once it is built, but the memory
+    their captures allocated (their pools) must stay while it lives: the
+    caller keeps the three CUDAGraphs. The condition kernel adds one to
+    passes [1] int64 after each pass (root must zero it); it is the loop's
+    only reader of the card, and the host reads no word while the tree
+    runs. A pass past max_passes ends the loop with passes above the bound.
+
+    The condition kernel launches once before the loop and once a pass: the
+    caller counts them (`count_condition`) once it knows the passes."""
+
+    def __init__(self, root, wave0, wave1, scalars: torch.Tensor, passes: torch.Tensor,
+                 max_passes: int) -> None:
+        require_cuda(scalars, "the tree graph")
+        _check("scalars", scalars, torch.int64, (SCALARS,), scalars.device)
+        _check("passes", passes, torch.int64, (1,), scalars.device)
+        lib = LIB.load()
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(scalars.device):
+            err = lib.lgbt_tree_graph(root.raw_cuda_graph(), wave0.raw_cuda_graph(),
+                                      wave1.raw_cuda_graph(), scalars.data_ptr(),
+                                      passes.data_ptr(), int(max_passes), ctypes.byref(handle))
+        if err != 0:
+            raise RuntimeError(f"building the tree graph failed with CUDA error {err}")
+        self._lib, self._exec = lib, handle
+        self.device = scalars.device
+        self.max_passes = int(max_passes)
+
+    def launch(self) -> None:
+        """Enqueue the tree on the current stream; reads nothing back."""
+        with torch.cuda.device(self.device):
+            err = self._lib.lgbt_tree_graph_launch(
+                self._exec, torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the tree graph's launch failed with CUDA error {err}")
+
+    @staticmethod
+    def count_condition(passes: int) -> None:
+        """Count the condition kernel's launches of a tree that ran `passes`."""
+        LIB.add("tree_loop_cond", 1 + int(passes))
+
+    def __del__(self) -> None:
+        if getattr(self, "_exec", None) is not None:
+            self._lib.lgbt_tree_graph_destroy(self._exec)
+            self._exec = None

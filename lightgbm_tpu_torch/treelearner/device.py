@@ -35,18 +35,23 @@ data).
 Where the card differs from the TPU, with the same results:
 
 * The JAX package runs the whole tree in one XLA while_loop. Here the
-  whole carry stays on the card too, and a wave is a fixed sequence of
-  launches over static shapes, each reading the wave's inputs from the
-  carry: on a CUDA device it is captured once as a CUDA graph for each
-  (K, buffer parity, feature mask present) and replayed, one graph launch
-  a wave (`WaveBuffers.graphs`). The loop's condition is the carry's `done`
-  word, which only the card knows: the host keeps one wave enqueued ahead
-  of the one whose word it reads (copied to pinned memory behind an
-  event), so the card never waits on the host, and a wave launched after
-  the tree is done selects nothing and changes no output (one such wave a
-  tree, two when the root cannot split). The tree's split log, leaf count,
-  rows histogrammed and wave count reach the host in one copy, when the
-  tree is finalized. No wave reads the card or synchronizes.
+  whole carry stays on the card too, and so does the loop: on a CUDA
+  device a tree is one CUDA graph launch (`_tree_graph`). The root's work
+  (`_root`: the carry's rows from the staged gh and leaf ids, the
+  fixed-point exponents, the bagged initial partition, the root's
+  histogram, record and state) is a captured child graph; then a
+  conditional WHILE node runs a body of two waves, each a fixed sequence
+  of launches over static shapes captured once for each (K, buffer parity,
+  feature mask present), while the carry's `done` word is 0
+  (ops/wave_cuda.py:TreeGraph, csrc/wave_step.cu). Two waves a pass keep
+  the buffer parity fixed: a wave launched after the tree is done selects
+  nothing and changes no output (at most one such wave a tree). The host
+  reads no word while the tree grows: `train_async` returns once the tree
+  is enqueued, and the tree's split log, leaf count, rows histogrammed,
+  wave count and passes reach the host in one copy into a pinned slot of
+  their own (two slots: one tree being finalized while the next is in
+  flight), which `finalize` waits for. Each capture's kernels are counted
+  as many times as the tree ran them, from the passes in that copy.
 * Per-row ownership and split fields come from K-entry tables read by
   each row's range (its leaf-id column names it) inside the partition
   kernel, and the commit relabel writes the committed ranges' right rows;
@@ -61,14 +66,14 @@ Where the card differs from the TPU, with the same results:
   fixed-point exponents of the tree's gh, the feature mask) are allocated
   once per learner and reused.
 
-On the CPU the same wave runs eagerly on the plain versions, with the same
-loop.
+On the CPU the same root and waves run eagerly on the plain versions, the
+loop driven from the host in the same passes of two waves.
 
 Not carried, each still to port (ROADMAP): the sharded grower and its
 data, voting and feature modes (``make_sharded_grow_fn``, Queue 1 item 8);
 quantized training, its leaf renewal and the bf16 gh payload (item 6);
 ``snapshot_state`` (item 6, checkpoint writers); ``_record_carry_bytes``
-(item 11, perfmodel); the GBDT async pipeline (item 5b). The JAX package's
+(item 11, perfmodel). The JAX package's
 environment switches (LGBM_TPU_WAVE, LGBM_TPU_ADAPTIVE_WAVE,
 LGBM_TPU_GH_BF16, LGBM_TPU_HIST_SLOTS, LGBM_TPU_PALLAS_INTERPRET,
 LGBM_TPU_COMPACT_ALIAS) are not read: the wave width ceiling is a
@@ -98,8 +103,9 @@ from .serial import SerialTreeLearner
 # steps back up toward the ceiling
 _WAVE_SHRINK_RATE = 0.5
 _WAVE_GROW_RATE = 0.9
-# waves enqueued past the one whose done word the host reads
-_DONE_LAG = 1
+# pinned slots a tree's results are copied into: one tree being finalized
+# on the host while the next one grows
+_RESULT_SLOTS = 2
 
 
 def _feature_tables(dataset, used_features, device) -> FeatureTables:
@@ -127,16 +133,18 @@ class WaveBuffers:
     """The wave carry's device arrays, allocated once per learner and reused
     by every tree: the permuted bin plane and row payload, the partition's
     second copy of each, the histogram's slot vector, the histogram pool,
-    the tree's [L+1]-sized state (ops/wave.py), the per-tree inputs of a
-    wave (the fixed-point exponents, the feature mask) and, on a CUDA
-    device, the captured wave graphs and the pinned words the host reads
-    `done` through. The split log and the scalars share one buffer, so a
-    tree's results leave the card in one copy.
+    the tree's [L+1]-sized state (ops/wave.py), the tree's staged inputs
+    (gh, leaf ids, feature mask) and the per-tree values the waves read
+    (the fixed-point exponents), on a CUDA device the captured graphs, and
+    the pinned slots a tree's results are copied into. The split log, the
+    scalars and the loop's pass count share one buffer, so a tree's results
+    leave the card in one copy.
 
-    A graph keeps the addresses of the feature metadata, tables and params
-    it was captured with, and num_bins and max_depth as launch arguments,
-    so buffers serve the inputs of their first tree only (`inputs`): a
-    tree grown into them with others raises, on every device."""
+    A graph keeps the addresses of the bin plane, feature metadata, tables
+    and params it was captured with, and num_bins and max_depth as launch
+    arguments, so buffers serve the inputs of their first tree only
+    (`inputs`): a tree grown into them with others raises, on every
+    device."""
 
     def __init__(self, n_groups: int, n_rows: int, payload: int, num_leaves: int,
                  num_bins: int, channels: int, n_features: int,
@@ -156,23 +164,88 @@ class WaveBuffers:
         self.depth = torch.zeros(L + 1, dtype=torch.int32, device=dev)
         self.start = torch.zeros(L + 1, dtype=torch.int32, device=dev)
         self.count = torch.zeros(L + 1, dtype=torch.int32, device=dev)
-        # one extra dump row at the end, as the JAX replay's store has
+        # one extra dump row at the end, as the JAX replay's store has; after
+        # the scalars, the tree loop's pass count
         store_bytes = (max(L - 1, 1) + 1) * STORE * 4
-        self.results = torch.zeros(store_bytes + SCALARS * 8, dtype=torch.uint8, device=dev)
+        self.results = torch.zeros(store_bytes + (SCALARS + 1) * 8, dtype=torch.uint8,
+                                   device=dev)
         self.rec_store = self.results[:store_bytes].view(torch.float32).view(-1, STORE)
-        self.scalars = self.results[store_bytes:].view(torch.int64)
+        self.scalars = self.results[store_bytes:store_bytes + SCALARS * 8].view(torch.int64)
+        self.passes = self.results[store_bytes + SCALARS * 8:].view(torch.int64)
+        # the tree's inputs, staged where the captured root reads them
+        self.gh = torch.zeros((n_rows, channels), dtype=torch.float32, device=dev)
+        self.leaf0 = torch.zeros(n_rows, dtype=torch.int32, device=dev)
         self.exponents = torch.zeros(channels, dtype=torch.int32, device=dev)
         self.feature_mask = torch.ones(n_features, dtype=torch.bool, device=dev)
         # the root's range [0, n) over every row; the bagged partition's range
         self.whole = torch.tensor([0, n_rows, 1], dtype=torch.int32, device=dev)
         self.root_valid = torch.ones(1, dtype=torch.bool, device=dev)
+        # captures (CUDA only): waves by (K, parity, masked), roots by
+        # (masked, bagged), trees by (K, masked, bagged)
         self.graphs: Dict[Tuple[int, int, bool], object] = {}
-        self.inputs: Optional[tuple] = None  # (meta, tables, params, num_bins, max_depth)
+        self.roots: Dict[Tuple[bool, bool], object] = {}
+        self.trees: Dict[Tuple[int, bool, bool], object] = {}
+        # (bins, meta, tables, params, num_bins, max_depth)
+        self.inputs: Optional[tuple] = None
         self.warm = False
         cuda = dev.type == "cuda"
-        self.done_words = torch.zeros(_DONE_LAG + 1, dtype=torch.int64, pin_memory=cuda)
-        self.done_events = [torch.cuda.Event() if cuda else None
-                            for _ in range(_DONE_LAG + 1)]
+        self.result_slots = [torch.zeros(self.results.numel(), dtype=torch.uint8,
+                                         pin_memory=cuda) for _ in range(_RESULT_SLOTS)]
+        self.result_events = [torch.cuda.Event() if cuda else None
+                              for _ in range(_RESULT_SLOTS)]
+        self.result_busy = [False] * _RESULT_SLOTS
+
+    def take_result_slot(self) -> int:
+        """A free results slot, marked busy until its tree is finalized."""
+        for i, busy in enumerate(self.result_busy):
+            if not busy:
+                self.result_busy[i] = True
+                return i
+        raise RuntimeError(f"{len(self.result_busy)} trees grown into these buffers are not "
+                           "finalized yet: finalize one before growing another")
+
+
+def _root(buf: WaveBuffers, bins: torch.Tensor, meta: FeatureMeta, params: torch.Tensor,
+          masked: bool, bagged: bool, num_bins: int, max_depth: int) -> None:
+    """The tree's start from its staged inputs (buf.gh, buf.leaf0, the
+    feature mask): the carry's rows, the fixed-point exponents, the bagged
+    initial partition (in-bag rows, leaf id 0, to the front of buffer 1;
+    the root is then [0, n_in)), the root's ragged histogram and record and
+    the tree's state. Reads nothing on the host, so a CUDA graph replays
+    it."""
+    G, N = bins.shape
+    CH = buf.gh.shape[1]
+    POS, LEAF = CH, CH + 1
+    bins_p, row_p = buf.bins[0], buf.rows[0]
+    bins_p.copy_(bins)
+    row_p[:, :CH] = buf.gh
+    row_p[:, POS] = torch.arange(N, dtype=torch.float32, device=bins.device)
+    row_p[:, LEAF] = buf.leaf0.to(torch.float32)
+    # gh is fixed for the tree, so the histograms' fixed-point exponents are
+    # computed once, here, from the whole of gh: every call reads a
+    # permutation of its rows (row_p's gh columns), as the kernel, which
+    # trusts them, requires
+    buf.exponents.copy_(fixed_point_exponents(buf.gh, N))
+    buf.passes.zero_()
+    fmask = buf.feature_mask if masked else None
+    cur = 0
+    if bagged:
+        _, _, ranges, _ = partition_wave(bins_p, row_p, LEAF, None, None, None,
+                                         buf.whole[:1], buf.whole[1:2], buf.whole[2:],
+                                         bagged=True, out=(buf.bins[1], buf.rows[1]))
+        cur = 1
+        n_in = ranges[0, :1]
+    else:
+        n_in = buf.whole[1:2]
+    buf.slot.zero_()
+    root_hist = histogram_slots_ragged(buf.bins[cur], buf.rows[cur][:, :CH], buf.slot,
+                                       buf.whole[:1], n_in, buf.root_valid, num_bins, 1,
+                                       exponents=buf.exponents)
+    root_tot = root_hist[0].sum(dim=0)
+    root_rec = find_best_split(root_hist, root_tot, meta, params, fmask)
+    buf.pool[0] = root_hist
+    init_tree_state(buf.leaf_best, buf.depth, buf.rec_store, buf.start, buf.count,
+                    buf.scalars, root_rec, root_tot, n_in, params, max_depth)
 
 
 def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: FeatureTables,
@@ -216,42 +289,117 @@ def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: Feature
     relabel_rows(rows_out, LEAF, commit[2:])
 
 
-def _prepare_graphs(buf: WaveBuffers, K: int, masked: bool, wave) -> None:
-    """Capture the wave for both buffer parities at width K, before the
-    tree starts (a capture costs host time only). The first capture of a
-    learner follows one eager wave that starts done: it loads the kernels'
-    libraries and sets their attributes, and changes no state a tree reads
-    (each tree sets its state anew)."""
-    from ..ops.cuda_build import CountedGraph
+def _waves_eager(buf: WaveBuffers, cur: int, wave, num_leaves: int) -> int:
+    """The tree loop driven from the host, in the tree graph's passes: while
+    the done word is 0, wave(cur) then wave(1 - cur). Returns the passes,
+    also written to buf.passes. Each pass reads the done word, so on a CUDA
+    device it waits for the card; the CPU runs this loop."""
+    passes = 0
+    while int(buf.scalars[DONE]) == 0:
+        if passes >= num_leaves:
+            raise RuntimeError(f"the wave loop ran {passes} passes for {num_leaves} leaves "
+                               "without its done word")
+        wave(cur)
+        wave(1 - cur)
+        passes += 1
+    buf.passes.fill_(passes)
+    return passes
 
-    if not buf.warm:
-        with global_timer.scope("wave_warmup"):
+
+def _tree_graph(buf: WaveBuffers, K: int, masked: bool, bagged: bool, num_leaves: int,
+                root, wave):
+    """The tree graph for (K, masked, bagged), captured at first use (a
+    capture costs host time only): the root's graph and both parities'
+    wave graphs, each kept once and shared by the tree graphs that use
+    them. A new root or the buffers' first wave first runs once eagerly:
+    it loads the kernels' libraries and sets their attributes, so a
+    captured launch makes no other call. The eager root sets the state the
+    graph's root sets again; the warm-up wave starts done and changes
+    nothing a tree reads."""
+    from ..ops.cuda_build import CountedGraph
+    from ..ops.wave_cuda import TreeGraph
+
+    key = (K, masked, bagged)
+    tree = buf.trees.get(key)
+    if tree is not None:
+        return tree
+    with global_timer.scope("tree_capture"):
+        if (masked, bagged) not in buf.roots:
+            root()
+            buf.roots[(masked, bagged)] = CountedGraph(root)
+        if not buf.warm:
             buf.scalars[DONE:DONE + 1].fill_(1)
             wave(0)
             buf.warm = True
-    for cur in (0, 1):
-        key = (K, cur, masked)
-        if key not in buf.graphs:
-            with global_timer.scope("wave_capture"):
-                buf.graphs[key] = CountedGraph(lambda c=cur: wave(c))
+        for cur in (0, 1):
+            if (K, cur, masked) not in buf.graphs:
+                buf.graphs[(K, cur, masked)] = CountedGraph(lambda c=cur: wave(c))
+        cur0 = 1 if bagged else 0
+        tree = TreeGraph(buf.roots[(masked, bagged)].graph,
+                         buf.graphs[(K, cur0, masked)].graph,
+                         buf.graphs[(K, 1 - cur0, masked)].graph,
+                         buf.scalars, buf.passes, max_passes=num_leaves)
+    buf.trees[key] = tree
+    return tree
 
 
-class _Grown(NamedTuple):
-    """A tree whose waves are enqueued: its results still on the card."""
+class _Grown:
+    """A tree whose growth is enqueued: its results on their way to a pinned
+    slot of their own, its leaf ids in a tensor of their own."""
 
-    buffers: WaveBuffers
-    leaf_id: torch.Tensor
-    waves_launched: int
-    graphed: bool
+    def __init__(self, buffers: WaveBuffers, leaf_id: torch.Tensor, slot: int,
+                 key: Tuple[int, bool, bool], graphed: bool, num_leaves: int) -> None:
+        self.buffers = buffers
+        self.leaf_id = leaf_id
+        # the split log on the device: this tree's until the next tree grown
+        # into the same buffers is enqueued, so read it (in stream order)
+        # before then, as the async pipeline's score update does
+        self.rec_store_dev = buffers.rec_store
+        self.slot = slot
+        self.key = key  # (K, masked, bagged)
+        self.graphed = graphed
+        self.num_leaves = num_leaves
+        self._result: Optional[Tuple[np.ndarray, int, int, int, int]] = None
 
     def result(self) -> Tuple[np.ndarray, int, int, int]:
         """(rec_store [max(L-1, 1), STORE] float32, the final leaf count,
-        rows histogrammed, live waves), in one copy to the host."""
-        blob = self.buffers.results.cpu()
-        store_bytes = self.buffers.rec_store.numel() * 4
-        rec = blob[:store_bytes].view(torch.float32).view(-1, STORE).numpy()[:-1].copy()
-        scalars = blob[store_bytes:].view(torch.int64).numpy()
-        return rec, int(scalars[N_CUR]), int(scalars[HIST_ROWS]), int(scalars[N_WAVES])
+        rows histogrammed, live waves), from the tree's slot; waits for that
+        tree's copy and nothing else, then frees the slot. On a CUDA device
+        the first call also counts the kernels the tree graph ran."""
+        if self._result is None:
+            buf = self.buffers
+            if self.graphed:
+                buf.result_events[self.slot].synchronize()
+            blob = buf.result_slots[self.slot]
+            store_bytes = buf.rec_store.numel() * 4
+            rec = blob[:store_bytes].view(torch.float32).view(-1, STORE).numpy()[:-1].copy()
+            words = blob[store_bytes:].view(torch.int64).numpy().copy()
+            buf.result_busy[self.slot] = False
+            passes = int(words[SCALARS])
+            if passes > self.num_leaves:
+                raise RuntimeError(f"the tree loop ran {passes} passes for "
+                                   f"{self.num_leaves} leaves without its done word")
+            if self.graphed:
+                self._count(passes)
+            self._result = (rec, int(words[N_CUR]), int(words[HIST_ROWS]),
+                            int(words[N_WAVES]), passes)
+        return self._result[:4]
+
+    def _count(self, passes: int) -> None:
+        from ..ops.wave_cuda import TreeGraph
+
+        K, masked, bagged = self.key
+        self.buffers.roots[(masked, bagged)].count(1)
+        for cur in (0, 1):
+            self.buffers.graphs[(K, cur, masked)].count(passes)
+        TreeGraph.count_condition(passes)
+
+    @property
+    def waves_launched(self) -> int:
+        """Waves run, live and after the end (two a pass); known once the
+        results are read."""
+        self.result()
+        return 2 * self._result[4]
 
 
 def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
@@ -259,7 +407,9 @@ def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
           feature_mask: Optional[torch.Tensor], num_leaves: int, num_bins: int,
           max_depth: int, batch: int, bagged: bool,
           buffers: Optional[WaveBuffers]) -> _Grown:
-    """Enqueue one tree's growth; see `grow_tree_on_device`."""
+    """Enqueue one tree's growth; see `grow_tree_on_device`. On a CUDA
+    device it returns as soon as the tree is enqueued, without waiting for
+    the card."""
     L = num_leaves
     G, N = bins.shape
     CH = gh.shape[1]
@@ -272,92 +422,51 @@ def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
     buf = buffers
     if buf is None:
         buf = WaveBuffers(G, N, CH + 2, L, num_bins, CH, meta.gather_index.shape[0], dev)
-    inputs = (meta, tables, params, int(num_bins), int(max_depth))
+    inputs = (bins, meta, tables, params, int(num_bins), int(max_depth))
     if buf.inputs is None:
         buf.inputs = inputs
-    elif any(a is not b for a, b in zip(buf.inputs[:3], inputs[:3])) \
-            or buf.inputs[3:] != inputs[3:]:
-        raise ValueError("these WaveBuffers serve the feature metadata, tables, params, "
-                         "num_bins and max_depth of their first tree, which the wave "
-                         "graphs read; grow a tree with other inputs into new buffers")
+    elif any(a is not b for a, b in zip(buf.inputs[:4], inputs[:4])) \
+            or buf.inputs[4:] != inputs[4:]:
+        raise ValueError("these WaveBuffers serve the bin plane, feature metadata, tables, "
+                         "params, num_bins and max_depth of their first tree, which the "
+                         "captured graphs read; grow a tree with other inputs into new "
+                         "buffers")
     masked = feature_mask is not None
-    graphed = dev.type == "cuda"
+    graphed = dev.type == "cuda" and L > 1
+    slot = buf.take_result_slot()
+    # --- the tree's inputs, staged where the root reads them
+    with global_timer.scope("tree_stage"):
+        buf.gh.copy_(gh)
+        buf.leaf0.copy_(leaf_id0)
+        if masked:
+            buf.feature_mask.copy_(feature_mask)
+
+    def root() -> None:
+        _root(buf, bins, meta, params, masked, bagged, num_bins, max_depth)
 
     def wave(cur: int) -> None:
         _wave(buf, cur, K, meta, tables, params, masked, num_bins, max_depth)
 
-    if graphed and L > 1:
-        _prepare_graphs(buf, K, masked, wave)
-
-    # --- the tree's inputs: the carry's rows, and what the wave graphs read
-    bins_p, row_p = buf.bins[0], buf.rows[0]
-    bins_p.copy_(bins)
-    row_p[:, :CH] = gh
-    row_p[:, POS] = torch.arange(N, dtype=torch.float32, device=dev)
-    row_p[:, LEAF] = leaf_id0.to(torch.float32)
-    # gh is fixed for the tree, so the histograms' fixed-point exponents are
-    # computed once, here, from the whole of gh: every call reads a
-    # permutation of its rows (row_p's gh columns), as the kernel, which
-    # trusts them, requires
-    buf.exponents.copy_(fixed_point_exponents(gh, N))
-    if masked:
-        buf.feature_mask.copy_(feature_mask)
-    fmask = buf.feature_mask if masked else None
-    cur = 0
-    # --- initial partition: in-bag rows (leaf id 0) to the front, root = [0, n_in)
-    if bagged:
-        _, _, ranges, _ = partition_wave(bins_p, row_p, LEAF, None, None, None,
-                                         buf.whole[:1], buf.whole[1:2], buf.whole[2:],
-                                         bagged=True, out=(buf.bins[1], buf.rows[1]))
-        cur = 1
-        n_in = ranges[0, :1]
+    cur0 = 1 if bagged else 0  # a pass is two waves: the tree ends on this parity
+    if graphed:
+        tree = _tree_graph(buf, K, masked, bagged, L, root, wave)
+        with global_timer.scope("tree_launch"):
+            tree.launch()
     else:
-        n_in = buf.whole[1:2]
-
-    # --- root: the ragged histogram over [0, n_in), its record, the state
-    buf.slot.zero_()
-    root_hist = histogram_slots_ragged(buf.bins[cur], buf.rows[cur][:, :CH], buf.slot,
-                                       buf.whole[:1], n_in, buf.root_valid, num_bins, 1,
-                                       exponents=buf.exponents)
-    root_tot = root_hist[0].sum(dim=0)
-    root_rec = find_best_split(root_hist, root_tot, meta, params, fmask)
-    buf.pool[0] = root_hist
-    init_tree_state(buf.leaf_best, buf.depth, buf.rec_store, buf.start, buf.count,
-                    buf.scalars, root_rec, root_tot, n_in, params, max_depth)
-
-    # --- the waves: the host reads each wave's done word one wave behind
-    launched = 0
-    if L > 1:
-        words, events = buf.done_words, buf.done_events
-        while True:
-            with global_timer.scope("wave_launch"):
-                if graphed:
-                    buf.graphs[(K, cur, masked)].replay()
-                else:
-                    wave(cur)
-                cur = 1 - cur
-                slot = launched % len(words)
-                words[slot:slot + 1].copy_(buf.scalars[DONE:DONE + 1], non_blocking=graphed)
-                if graphed:
-                    events[slot].record()
-                launched += 1
-            if launched <= _DONE_LAG:
-                continue
-            with global_timer.scope("wave_wait"):
-                slot = (launched - 1 - _DONE_LAG) % len(words)
-                if graphed:
-                    events[slot].synchronize()
-                if int(words[slot]) != 0:
-                    break
-            if launched > L + _DONE_LAG:
-                raise RuntimeError(f"the wave loop ran {launched} waves for {L} leaves "
-                                   "without its done word")
-
-    # undo the permutation: one scatter by the position column
-    row_p = buf.rows[cur]
+        root()
+        if L > 1:
+            _waves_eager(buf, cur0, wave, L)
+        else:
+            buf.passes.zero_()
+    # undo the permutation: one scatter by the position column, into a
+    # tensor of this tree's own (the next tree reuses the buffers)
+    row_p = buf.rows[cur0]
     leaf_id = torch.empty(N, dtype=torch.int32, device=dev)
     leaf_id[row_p[:, POS].to(torch.int64)] = row_p[:, LEAF].to(torch.int32)
-    return _Grown(buf, leaf_id, launched, graphed)
+    buf.result_slots[slot].copy_(buf.results, non_blocking=dev.type == "cuda")
+    if dev.type == "cuda":
+        buf.result_events[slot].record()
+    return _Grown(buf, leaf_id, slot, (K, masked, bagged), graphed, L)
 
 
 def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
@@ -374,13 +483,13 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
     runs), params the learner's [6] float32 regularizers, feature_mask [F]
     bool or None for all. `buffers` holds the device carry for these shapes
     (allocated here when None); buffers reused from an earlier tree must
-    be given the same meta, tables and params objects, num_bins and
+    be given the same bins, meta, tables and params objects, num_bins and
     max_depth (`WaveBuffers`), or this raises ValueError.
 
     Returns (rec_store [max(L-1, 1), STORE] float32 numpy, leaf_id [N] int32
     in the original row order, the final leaf count, hist_rows — rows
     histogrammed — and n_waves), the JAX grower's five outputs. The host
-    values arrive in one copy after the last wave."""
+    values arrive in one copy after the tree's last wave."""
     grown = _grow(bins, gh, leaf_id0, meta, tables, params, feature_mask, num_leaves,
                   num_bins, max_depth, batch, bagged, buffers)
     rec_store, n_cur, hist_rows, n_waves = grown.result()
@@ -425,8 +534,8 @@ class DevicePartition:
 
 
 class _PendingTree(NamedTuple):
-    """A tree whose waves are enqueued: its split log still on the card, to
-    be replayed into `tree`."""
+    """A tree whose growth is enqueued: its split log on its way to its
+    results slot, to be replayed into `tree`."""
 
     tree: Tree
     grown: _Grown
@@ -438,13 +547,15 @@ class DeviceTreeLearner(SerialTreeLearner):
     """The wave learner: the serial learner's setup, each tree grown by
     `grow_tree_on_device`.
 
-    train() is train_async() (enqueue the tree's waves; it returns without
-    waiting for the card) then finalize() (the tree's results to the host in
-    one copy, the log replayed into the Tree, the partition installed).
-    `wave` is the ceiling of the wave width; the gain-adaptive controller
-    (`_next_wave_k`) moves the width used, `wave_k`, one rung per tree, and
-    is switched off by setting `_adaptive_wave` to False. One tree is in
-    flight at a time: the learner's buffers hold it."""
+    train() is train_async() (enqueue the tree: on a CUDA device one graph
+    launch, and it returns without waiting for the card) then finalize()
+    (wait for that tree's results copy, replay the log into the Tree,
+    install the partition). Two trees may be pending at once, each with
+    its own results slot and leaf-id vector: the GBDT's async pipeline
+    enqueues tree t before it finalizes tree t-1. `wave` is the ceiling of
+    the wave width; the gain-adaptive controller (`_next_wave_k`) moves the
+    width used, `wave_k`, one rung per finalized tree, and is switched off
+    by setting `_adaptive_wave` to False."""
 
     def __init__(self, config, dataset, device: torch.device, wave: int = 21) -> None:
         super().__init__(config, dataset, device)
@@ -535,9 +646,9 @@ class DeviceTreeLearner(SerialTreeLearner):
         candidate splits, but the replay commits only as many as stay
         globally best-first; the measured ratio drives the next tree's K
         (split decisions do not depend on K, so only the amount of
-        speculative work changes, never the model). Waves launched after
-        the tree was done (no-ops) are counted apart, and graph replays
-        where the waves ran as CUDA graphs."""
+        speculative work changes, never the model). Waves run after the
+        tree was done (no-ops) are counted apart, and, where the tree ran
+        as a CUDA graph, its launch and the waves it ran."""
         from .. import tracing
 
         wave_k = pending.wave_k or self.wave_k
@@ -549,22 +660,27 @@ class DeviceTreeLearner(SerialTreeLearner):
         global_timer.add_count("device_waves", n_waves)
         global_timer.add_count("wave_noops", launched - n_waves)
         if pending.grown.graphed:
-            global_timer.add_count("wave_graph_replays", launched)
+            global_timer.add_count("tree_graph_launches", 1)
+            global_timer.add_count("wave_graph_runs", launched)
         global_timer.add_count("wave_splits_committed", committed)
         global_timer.add_count("wave_splits_speculated", speculated)
         tracing.note("tree_wave", waves=n_waves, committed=committed,
                      speculated=speculated)
-        self.wave_k = self._next_wave_k(commit_rate)
+        self.wave_k = self._next_wave_k(commit_rate, wave_k)
         global_timer.set_count("wave_k", self.wave_k)
 
-    def _next_wave_k(self, commit_rate: float) -> int:
-        """One power-of-two rung per tree: a commit rate under 50% means the
-        replay declined half the partition and histogram work a wave paid
-        for, so K halves; above 90% speculation is nearly free, so K grows
-        back toward the ceiling."""
+    def _next_wave_k(self, commit_rate: float, wave_k: int) -> int:
+        """One power-of-two rung from the width the measured tree was grown
+        with: a commit rate under 50% means the replay declined half the
+        partition and histogram work a wave paid for, so K halves; above 90%
+        speculation is nearly free, so K grows back toward the ceiling. A
+        tree grown while the one before it was pending (the async pipeline)
+        took its width before that tree's rate was known; stepping from its
+        own width, not from the width the pending tree's rate already moved,
+        keeps two rates from stepping the width twice."""
         if not self._adaptive_wave:
             return self.wave_k
-        k = self.wave_k
+        k = wave_k
         if commit_rate < _WAVE_SHRINK_RATE and k > 1:
             return min(bucket_size(max(1, k // 2), minimum=1), self._wave_cap)
         if commit_rate > _WAVE_GROW_RATE and k < self._wave_cap:

@@ -21,8 +21,13 @@ model text trained on the card equals the CPU's, through either learner,
 with and without bagging. The wave's selection and replay kernels equal
 their plain versions run on the CPU exactly (tables, state, split log bits,
 commit tables, done word), and the wave learner's tree grown on the card,
-one CUDA graph replay a wave, is byte-equal to the one grown on the CPU,
-with every replay's kernels counted.
+one CUDA graph launch a tree (the root's graph and a WHILE node of two wave
+graphs), is byte-equal to the one grown on the CPU and to the loop driven
+from the host on the card, with every kernel it ran counted; buffers reused
+at a new width or with a mask capture a new tree graph. train_async
+returns before the card has finished the tree. Multiclass on snapped
+gradients trains on the card as on the CPU through both learners, and the
+async pipeline on the card is bit-identical to the synchronous path.
 """
 import numpy as np
 import pytest
@@ -801,7 +806,7 @@ def test_wave_step_kernels_match_plain(cuda, K, done):
     out = {}
     for device in ("cpu", cuda):
         s = {k: torch.from_numpy(v.copy()).to(device) for k, v in st.items()}
-        before = dict(wave_cuda.launches)
+        before = {k: wave_cuda.launches[k] for k in ("wave_select", "wave_replay")}
         table = select_wave(s["leaf_best"], s["start"], s["count"], s["scalars"],
                             FeatureTables(*(t.to(device) for t in tables)), K)
         table_in = table.clone()
@@ -852,27 +857,33 @@ def _grow_case(device, K, bagged, masked, n=20000, L=63):
                          ids=["k1", "k4-bagged", "k21-masked", "k21-bagged-masked"])
 def test_graphed_grower_byte_equal_to_cpu(cuda, case):
     """The wave learner's tree on the card (the tree's state on the card,
-    one CUDA graph replay a wave, the done word read one wave behind, one
-    copy of the results) against the same tree grown on the CPU: the split
-    log's bytes, leaf ids, leaf count, rows histogrammed and waves equal;
-    each replay counts its kernels, and a second tree reuses the graphs."""
+    the whole tree one CUDA graph launch: the root's graph, then a WHILE
+    node whose body is two wave graphs; one copy of the results) against
+    the same tree grown on the CPU: the split log's bytes, leaf ids, leaf
+    count, rows histogrammed and waves equal; the results count every
+    kernel the tree graph ran, and a second tree reuses the graphs."""
     K, bagged, masked = case
     host_tree = _grow_case("cpu", K, bagged, masked)()
     host = host_tree.result()
     grow = _grow_case(cuda, K, bagged, masked)
     first = grow()  # warm-up, captures
-    graphs = len(first.buffers.graphs)
-    assert graphs == 2 and first.graphed
+    buf = first.buffers
+    assert (len(buf.graphs), len(buf.roots), len(buf.trees)) == (2, 1, 1) and first.graphed
     for grown in (first, None):
         before = ({k: dict(lib.launches) for k, lib in
                    (("wave", wave_cuda.LIB), ("part", compact_cuda.WAVE_LIB),
                     ("hist", hist_cuda.LIB), ("scan", scan_cuda.LIB))})
-        if grown is None:
+        second = grown is None
+        if second:
             grown = grow()
-            n = grown.waves_launched
-            assert len(grown.buffers.graphs) == graphs
+            assert (len(buf.graphs), len(buf.roots), len(buf.trees)) == (2, 1, 1)
+        rec, n_cur, hist_rows, n_waves = grown.result()
+        n = grown.waves_launched
+        if second:
             for name in ("wave_select", "wave_replay"):
                 assert wave_cuda.launches[name] - before["wave"][name] == n
+            assert wave_cuda.launches["tree_loop_cond"] - \
+                before["wave"]["tree_loop_cond"] == 1 + n // 2
             for name in ("partition_decide", "partition_scan", "partition_scatter",
                          "relabel_rows"):
                 assert compact_cuda.wave_launches[name] - before["part"][name] == \
@@ -881,8 +892,179 @@ def test_graphed_grower_byte_equal_to_cpu(cuda, case):
                 before["hist"]["histogram_slots_ragged"] == n + 1
             assert scan_cuda.launches["find_best_split_batched"] - \
                 before["scan"]["find_best_split_batched"] == n
-        rec, n_cur, hist_rows, n_waves = grown.result()
+            assert scan_cuda.launches["find_best_split"] - \
+                before["scan"]["find_best_split"] == 1
         np.testing.assert_array_equal(rec.view(np.int32), host[0].view(np.int32))
         assert (n_cur, hist_rows, n_waves) == host[1:]
-        assert grown.waves_launched - n_waves in (1, 2)  # waves after the end
+        assert n % 2 == 0 and n - n_waves in (0, 1)  # a pass is two waves
+        assert n == host_tree.waves_launched
         assert torch.equal(grown.leaf_id.cpu(), host_tree.leaf_id)
+
+
+def _eager_on_card(monkeypatch):
+    """Grow on the card with the tree loop driven from the host (the CPU's
+    loop, each pass reading the done word) in place of the tree graph."""
+    from lightgbm_tpu_torch.treelearner import device as dmod
+
+    class Eager:
+        def __init__(self, buf, bagged, num_leaves, root, wave):
+            self.args = (buf, 1 if bagged else 0, wave, num_leaves)
+            self.root = root
+
+        def launch(self):
+            self.root()
+            dmod._waves_eager(*self.args)
+
+    monkeypatch.setattr(dmod, "_tree_graph", lambda buf, K, masked, bagged, L, root, wave:
+                        Eager(buf, bagged, L, root, wave))
+    monkeypatch.setattr(dmod._Grown, "_count", lambda self, passes: None)
+
+
+@pytest.mark.parametrize("case", [(21, False, False), (4, True, True)],
+                         ids=["k21", "k4-bagged-masked"])
+def test_tree_graph_equals_the_eager_loop_on_card(cuda, case, monkeypatch):
+    """The tree graph's WHILE loop and the host-driven loop on the same
+    inputs on the card: the split log's bytes, leaf ids, leaf count, rows
+    histogrammed, live waves and passes equal."""
+    K, bagged, masked = case
+    graphed = _grow_case(cuda, K, bagged, masked)()
+    graphed.result()
+    _eager_on_card(monkeypatch)
+    eager = _grow_case(cuda, K, bagged, masked)()
+    assert not eager.buffers.trees
+    for a, b in zip(graphed.result(), eager.result()):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+        else:
+            assert a == b
+    assert graphed.waves_launched == eager.waves_launched
+    assert torch.equal(graphed.leaf_id, eager.leaf_id)
+
+
+def test_reused_buffers_capture_a_new_tree_graph(cuda):
+    """Buffers reused at a new width, then with a feature mask: each new
+    (K, mask, bag) captures its own tree graph (never replays a stale one)
+    and grows the CPU's tree."""
+    from lightgbm_tpu_torch.treelearner.device import _grow
+
+    rng = np.random.RandomState(23)
+    n, L = 20000, 63
+    X = rng.normal(size=(n, 10))
+    y = (X[:, 0] + X[:, 3] > 0).astype(np.float64)
+    cfg = Config({"objective": "binary", "num_leaves": L, "min_data_in_leaf": 5,
+                  "verbosity": -1})
+    learners = {dev: DeviceTreeLearner(cfg, Dataset.from_matrix(X, label=y, config=cfg),
+                                       torch.device(dev)) for dev in ("cpu", "cuda")}
+    g = np.round(rng.normal(0, 0.4, n) * 16) / 16
+    gh = np.stack([g, np.full(n, 0.25), np.ones(n)], 1).astype(np.float32)
+    fmask = rng.rand(len(learners["cpu"].meta.real_feature)) < 0.6
+    seen = []
+    for K, masked in ((21, False), (4, False), (4, True), (21, False)):
+        out = {}
+        for dev, lr in learners.items():
+            grown = _grow(lr.bins_dev, torch.from_numpy(gh).to(dev),
+                          torch.zeros(n, dtype=torch.int32, device=dev), lr.meta, lr.tables,
+                          lr.params_dev,
+                          torch.from_numpy(fmask).to(dev) if masked else None, L,
+                          lr.group_bin_padded, -1, K, False, lr._buffers)
+            out[dev] = (grown.result(), grown.leaf_id.cpu())
+        rec, rest = out["cuda"][0][0], out["cuda"][0][1:]
+        np.testing.assert_array_equal(rec.view(np.int32), out["cpu"][0][0].view(np.int32))
+        assert rest == out["cpu"][0][1:]
+        assert torch.equal(out["cuda"][1], out["cpu"][1])
+        seen.append(sorted(learners["cuda"]._buffers.trees))
+    assert seen == [[(21, False, False)], [(4, False, False), (21, False, False)],
+                    [(4, False, False), (4, True, False), (21, False, False)],
+                    [(4, False, False), (4, True, False), (21, False, False)]]
+    assert out["cuda"][0][0][:, 3].sum() > 1  # the masked trees split too
+
+
+def test_train_async_returns_before_the_tree_is_done(cuda):
+    """train_async enqueues the tree and returns: its results copy has not
+    landed when it returns (a 255-leaf tree on 400,000 rows takes the card
+    milliseconds); the second tree enqueued before the first is finalized
+    leaves the first its own log."""
+    rng = np.random.RandomState(29)
+    n = 400_000
+    X = rng.normal(size=(n, 28))
+    y = (X[:, 0] + X[:, 3] - X[:, 5] > 0).astype(np.float64)
+    cfg = Config({"objective": "binary", "num_leaves": 255, "verbosity": -1})
+    ds = Dataset.from_matrix(X, label=y, config=cfg)
+    learner = DeviceTreeLearner(cfg, ds, cuda)
+    ghs = []
+    for seed in (1, 2):
+        r = np.random.RandomState(seed)
+        gh = np.stack([r.normal(size=n), r.uniform(0.1, 0.3, n), np.ones(n)], 1)
+        ghs.append(torch.from_numpy(np.concatenate([gh, np.zeros((1, 3))])
+                                    .astype(np.float32)).to(cuda))
+    alone = [learner.train(gh).to_string() for gh in ghs]  # captures; the trees alone
+    torch.cuda.synchronize()
+    first = learner.train_async(ghs[0])
+    buf = first.grown.buffers
+    assert not buf.result_events[first.grown.slot].query()
+    second = learner.train_async(ghs[1])
+    assert learner.finalize(first).to_string() == alone[0]
+    assert learner.finalize(second).to_string() == alone[1]
+    assert alone[0] != alone[1]
+
+
+def _snapped_softmax(preds, dataset):
+    p = np.exp(preds - preds.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    onehot = np.eye(preds.shape[1])[dataset.get_label().astype(int)]
+    grad = np.round((p - onehot) * 16) / 16
+    hess = np.round(np.maximum(1.5 * p * (1.0 - p), 1.0 / 16) * 16) / 16
+    return grad.T.ravel(), hess.T.ravel()
+
+
+@pytest.mark.parametrize("learner", ["wave", "serial"])
+def test_multiclass_on_card_byte_equal_to_cpu(cuda, learner):
+    """Three trees an iteration on snapped softmax gradients: the card's
+    model text equals the CPU's, through the wave learner (against a CPU
+    GBDT whose learner is the wave learner) and the serial learner
+    (feature_fraction_bynode 0.8)."""
+    rng = np.random.RandomState(31)
+    X = rng.normal(size=(20000, 10))
+    y = np.digitize(X[:, 0] + X[:, 3], [-0.5, 0.5]).astype(np.float64)
+    params = {"objective": _snapped_softmax, "num_class": 3, "num_leaves": 31,
+              "verbosity": -1}
+    if learner == "serial":
+        params["feature_fraction_bynode"] = 0.8
+    card = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=3)
+    assert isinstance(card._gbdt.tree_learner, DeviceTreeLearner) == (learner == "wave")
+    if learner == "serial":
+        host = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
+                        num_boost_round=3)
+    else:
+        train = lt.Dataset(X, label=y)
+        host = lt.Booster(params={**params, "objective": "none", "device_type": "cpu",
+                                  "num_iterations": 3}, train_set=train)
+        host._gbdt.tree_learner = DeviceTreeLearner(host._gbdt.config, train._handle,
+                                                    torch.device("cpu"))
+        for _ in range(3):
+            host.update(fobj=_snapped_softmax)
+    assert card.num_trees() == 9
+    assert card.model_to_string() == host.model_to_string()
+
+
+def test_async_on_card_bit_identical_to_sync(cuda):
+    """The pipeline on the card (learning rate 0.125, no metric, no valid
+    set): trees pending across iterations, the train score from the split
+    log; scores and model text bit-equal to the synchronous path's."""
+    rng = np.random.RandomState(37)
+    X = rng.normal(size=(50000, 12))
+    y = (X[:, 0] - 0.7 * X[:, 1] + 0.3 * rng.normal(size=50000) > 0).astype(np.float64)
+    params = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.125,
+              "metric": "None", "verbosity": -1}
+    out = []
+    for asyn in (True, False):
+        bst = lt.Booster(dict(params), lt.Dataset(X, label=y))
+        bst._gbdt._async_pipeline = asyn
+        pending = []
+        for _ in range(6):
+            bst.update()
+            pending.append(bst._gbdt._pending is not None)
+        assert pending == [False] + [asyn] * 5
+        out.append((bst._gbdt.score.cpu(), bst.model_to_string()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert out[0][1] == out[1][1]
