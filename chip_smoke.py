@@ -5,11 +5,11 @@
 Phases (any failure exits non-zero before the result line):
 
 1. device   the card's name, count and power limit; no card -> exit 1.
-2. build    the seven sources under csrc/ (forest traversal, histograms,
+2. build    the eight sources under csrc/ (forest traversal, histograms,
             split search, row compaction, wave partition, row partition,
-            the wave's selection, replay and tree loop), one nvcc each, all started
-            together; build seconds and ptxas's registers / shared memory /
-            spills.
+            the wave's selection, replay and tree loop, the gradient
+            discretizer), one nvcc each, all started together; build seconds
+            and ptxas's registers / shared memory / spills.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
             the repo targets (binary, 28 features, 500 trees x 255 leaves,
             LightGBM docs/Experiments.rst HIGGS settings), a multiclass-3
@@ -118,11 +118,39 @@ Phases (any failure exits non-zero before the result line):
             window, and device-to-host copies and host synchronizations a
             tree over three profiled rounds (the pipeline's: one results
             copy and one wait a tree).
+12. quantized  quantized-gradient training (use_quantized_grad,
+            num_grad_quant_bins=4, quant_train_renew_leaf): the gradient
+            discretizer (csrc/quantize.cu, two launches) against its plain
+            version on the card on phase 8's first gradients (1,048,576
+            rows; their hessian is constant on the card) and on its
+            gradients at its final scores, stochastic and nearest rounding,
+            4 and 16 bins and a hessian of ones: int8 rows, sentinel and
+            scales bit-equal; the
+            split kernel's int32 input on a quantized tree's root and first
+            wave's 42 children (run eagerly on the card): records bit-equal
+            to the plain version run on the CPU; the leaf and ragged
+            histograms' integer modes over every row exactly equal to their
+            plain versions; each timed (torch.profiler). Exact: with
+            stochastic rounding and bagging 0.8, card and CPU model texts
+            byte-equal through the wave and the serial learner, renewal off
+            on the binary logloss gradients computed on the host (the card's
+            torch.exp is not the CPU's, so the built-in objective's
+            gradients differ in the last bit) and renewal on on snapped
+            ones, at 65,536 rows (3 rounds), and the same at 16,384 rows of
+            Covertype's shapes (7 classes, 63 leaves, 2 rounds). Then phase
+            8's data through the wave learner (10 rounds) and the serial one
+            (3 rounds, feature_fraction_bynode=0.8), each as phases 8 and 9
+            report them, beside their float runs: s/iteration, waves a tree,
+            and the valid AUC at most 0.003 below the float run's after as
+            many rounds (the JAX package's margin, tests/test_quantized.py);
+            the model text's hash, to compare two runs.
 
 The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving path), and again just before and after each of phases
-8, 9, 10 and 11 (the training paths): every kernel of each path must have
-launched there. The last three lines are the kernels' JSON record, the card's name
+8, 9, 10 and 11 and of phase 12's two full-width runs (the training paths):
+every kernel of each path must have launched there; across phase 12 the
+discretizer and the integer modes of the ragged and leaf histograms and of
+the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile-of DIR
@@ -136,6 +164,7 @@ It prints no result line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import itertools
 import json
@@ -1565,7 +1594,8 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
     profile_round(lt, params, train_set, tag, label)
     return {"launches": launches, "learner": trained._gbdt.tree_learner,
             "counters": counters, "hist_rows": hist_rows, "waves": np.diff(waves),
-            "per_iter": per_iter, "auc": (train_auc, valid_auc[-1])}
+            "per_iter": per_iter, "auc": (train_auc, valid_auc[-1]), "valid_auc": valid_auc,
+            "booster": trained}
 
 
 def check_tree_loop(learner):
@@ -1901,6 +1931,358 @@ def drive_async(lt, libs, train_set, tag):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 12: quantized-gradient training
+
+QUANT_PARAMS = {"use_quantized_grad": True, "num_grad_quant_bins": 4,
+                "quant_train_renew_leaf": True}
+QUANT_SERIAL_ROUNDS = 3
+# the JAX package's own margin for quantized against float training
+# (tests/test_quantized.py:32-38)
+QUANT_AUC_MARGIN = 0.003
+
+
+def host_logloss(preds, dataset):
+    """The binary logloss gradients computed on the host, unsnapped. The
+    card's torch.exp differs from the CPU's in the last bit on a share of
+    float32 inputs, so the built-in objective's gradients differ between
+    the two too; these are the same bits on both."""
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return p - dataset.get_label(), p * (1.0 - p)
+
+
+def host_softmax(preds, dataset):
+    """The softmax gradients computed on the host, unsnapped, class-major."""
+    p = np.exp(preds - preds.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    onehot = np.eye(preds.shape[1])[dataset.get_label().astype(int)]
+    factor = preds.shape[1] / (preds.shape[1] - 1.0)
+    return (p - onehot).T.ravel(), (factor * p * (1.0 - p)).T.ravel()
+
+
+def check_quantize(sets):
+    """The discretizer (csrc/quantize.cu, two launches) against its plain
+    version on the card on the same gradients: sets {name: (grad, hess,
+    cases)}, each case (num_grad_quant_bins, stochastic rounding, hessian
+    replaced by ones); the int8 rows, the sentinel and both scales
+    bit-equal (and, in each set's first case, equal to the plain version run
+    on the CPU). Timed on the "final" set. Returns (timings, bounds)."""
+    from lightgbm_tpu_torch.ops import quantize_cuda
+    from lightgbm_tpu_torch.ops.quantize import _quantize_gh_plain, prng_key, split_key
+
+    _, key = split_key(prng_key(1))  # the first tree's key at data_random_seed=1
+    for label, (grad, hess, cases) in sets.items():
+        n = grad.shape[0]
+        for i, (bins, stochastic, ones) in enumerate(cases):
+            h = torch.ones_like(hess) if ones else hess
+            got, scale = quantize_cuda.quantize(grad, h, key, bins, stochastic)
+            again, _ = quantize_cuda.quantize(grad, h, key, bins, stochastic)
+            ref, ref_scale = _quantize_gh_plain(grad, h, key, bins, stochastic)
+            const = bool(float(scale[1]) == float(h.abs().max()))
+            what = (f"quantize ({label} gradients, {bins} bins, "
+                    f"{'stochastic' if stochastic else 'nearest'}"
+                    f"{', hessian of ones' if ones else ''})")
+            check(torch.equal(got, again), f"{what}: two launches differ")
+            check(torch.equal(got, ref), f"{what}: int8 rows differ from the plain version")
+            check(torch.equal(scale.view(torch.int32), ref_scale.view(torch.int32)),
+                  f"{what}: scales differ from the plain version")
+            check(bool((got[-1] == 0).all()) and bool((got[:-1, 2] == 1).all()),
+                  f"{what}: the sentinel or the count channel is wrong")
+            check(not const or bool((got[:-1, 1] == 1).all()), f"{what}: h_int is not 1")
+            if i == 0:
+                host, host_scale = _quantize_gh_plain(grad.cpu(), h.cpu(), key, bins,
+                                                      stochastic)
+                check(torch.equal(got.cpu(), host) and torch.equal(
+                    scale.cpu().view(torch.int32), host_scale.view(torch.int32)),
+                      f"{what}: differs from the plain version run on the CPU")
+            values, cnt = torch.unique(got[:-1, 0].to(torch.int64), return_counts=True)
+            print(f"kernels: {what}: {n} rows bit-equal to the plain version (scales "
+                  f"{float(scale[0]):.9g}, {float(scale[1]):.9g}, "
+                  f"{'a constant' if const else 'a varying'} hessian; h_int "
+                  f"{int(got[:-1, 1].min())}..{int(got[:-1, 1].max())}; g_int counts "
+                  f"{dict(zip(values.tolist(), cnt.tolist()))})")
+    grad, hess, _ = sets["final"]
+    n = grad.shape[0]
+
+    def kern():
+        return quantize_cuda.quantize(grad, hess, key, 4, True)
+
+    timings = {"kernel": cuda_ms(kern, 50),
+               "plain": cuda_ms(lambda: _quantize_gh_plain(grad, hess, key, 4, True), 5)}
+    timings.update(device_kernel_ms(kern, 20, ("quantize_reduce_kernel", "quantize_kernel"))
+                   or {})
+    # each pass reads g and h once; the quantize pass writes the int8 rows
+    bounds = {"quantize_reduce": bound(8 * n + 4 * 3 * 256, 3 * n),
+              "quantize": bound(8 * n + 3 * (n + 1) + 12 + 4 * 3 * 256, 6 * n)}
+    return timings, bounds
+
+
+def quantized_search_inputs(lt, dev, train_set, gh_q, scale):
+    """A real quantized tree's root and first wave, run eagerly on the card
+    (`_root`, then `_wave`) into a quantized wave learner's buffers: the
+    int32 histograms and totals its split search was given at the root and
+    at the wave's 2 * WAVE_K children."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.treelearner import device as dmod
+
+    core = train_set._handle
+    learner = dmod.DeviceTreeLearner(Config({**WAVE_PARAMS, **QUANT_PARAMS}), core, dev)
+    buf = learner._buffers
+    buf.gh.copy_(gh_q[:-1])
+    buf.leaf0.zero_()
+    buf.scale.copy_(scale)
+    B, depth = learner.group_bin_padded, learner.config.max_depth
+    real, got = dmod.find_best_split, {}
+
+    def record(hist, totals, *args, **kwargs):
+        got.setdefault("wave" if hist.dim() == 4 else "root", (hist.clone(), totals.clone()))
+        return real(hist, totals, *args, **kwargs)
+
+    dmod.find_best_split = record
+    try:
+        dmod._root(buf, learner.bins_dev, learner.meta, learner.params_dev, False, False, B,
+                   depth)
+        dmod._wave(buf, 0, WAVE_K, learner.meta, learner.tables, learner.params_dev, False,
+                   B, depth)
+    finally:
+        dmod.find_best_split = real
+    torch.cuda.synchronize()
+    check(set(got) == {"root", "wave"}, f"the quantized tree searched {sorted(got)}")
+    check(got["root"][0].dtype == torch.int32 and got["wave"][0].shape[0] == 2 * WAVE_K,
+          "the quantized search was not given int32 histograms of the wave's children")
+    return got, learner
+
+
+def check_quantized_modes(dev, core, learner, got, gh_q, scale):
+    """The integer modes on the quantized path: the split kernel's int32
+    input at the root and the wave's children (records bit-equal to the
+    plain version run on the CPU), the leaf histogram's and the ragged
+    histogram's integer modes over every row (exactly equal to their plain
+    versions on the card), each timed. Returns (timings, bounds)."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops import split as ts
+    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_rows_plain,
+                                                  _histogram_slots_ragged_plain)
+
+    meta_d = learner.meta
+    B = learner.group_bin_padded
+    meta_h = ts.make_feature_meta(core, B, "cpu")
+    params_d, params_h = learner.params_dev, learner.params_dev.cpu()
+    scale_h = scale.cpu()
+    for name, (hist, tot) in got.items():
+        rec = ts.find_best_split(hist, tot, meta_d, params_d, scale=scale)
+        ref = ts.find_best_split(hist.cpu(), tot.cpu(), meta_h, params_h, scale=scale_h)
+        check(torch.equal(rec.cpu().view(torch.int32), ref.view(torch.int32)),
+              f"find_best_split (int32, {name}): records differ from the plain version")
+        check(bool((rec[..., 1] >= 0).any()), f"find_best_split (int32, {name}): no split")
+    (h1, t1), (hw, tw) = got["root"], got["wave"]
+    host_tot = tuple(float(v) for v in t1.cpu())
+
+    def one():  # as the serial learner calls it: host totals
+        return ts.find_best_split(h1, host_tot, meta_d, params_d, scale=scale)
+
+    def batch():  # as the wave calls it
+        return ts.find_best_split(hw, tw, meta_d, params_d, scale=scale)
+
+    bins = learner.bins_dev
+    G, N = bins.shape
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    payload = gh_q[:-1].to(torch.float32)  # the wave learner's payload columns
+    slot = torch.zeros(N, dtype=torch.int32, device=dev)
+    starts = torch.zeros(1, dtype=torch.int32, device=dev)
+    ends = torch.full((1,), N, dtype=torch.int32, device=dev)
+    valid = torch.ones(1, dtype=torch.bool, device=dev)
+
+    def rows_int():
+        return hist_cuda.histogram(bins, gh_q, idx, B, N)
+
+    def ragged_int():
+        return hist_cuda.histogram_ragged(bins, payload, slot, starts, ends, valid, B, 1, True)
+
+    check(torch.equal(rows_int(), _build_histogram_rows_plain(bins, gh_q, idx, B, N)),
+          "histogram (integer mode, every row): differs from the plain version")
+    check(torch.equal(ragged_int(), _histogram_slots_ragged_plain(
+        bins, payload, slot, starts, ends, valid, B, 1, True)),
+          "ragged histogram (integer mode, every row): differs from the plain version")
+    check(torch.equal(rows_int(), ragged_int()),
+          "the two integer histograms of every row differ")
+    check(torch.equal(rows_int(), h1), "the quantized root histogram differs from every "
+          "row's integer histogram")
+    timings = {
+        "one": kernel_device_ms(one, 20, "split_kernel"), "one_events": cuda_ms(one, 50),
+        "batch": kernel_device_ms(batch, 20, "split_kernel"),
+        "batch_events": cuda_ms(batch, 50),
+        "plain_one": cuda_ms(lambda: ts._find_best_split_plain(
+            h1.to(torch.float32) * scale, t1, meta_d, params_d), 5),
+        "plain_batch": cuda_ms(lambda: ts._find_best_split_plain(
+            hw.to(torch.float32) * scale, tw, meta_d, params_d), 5),
+        "rows": kernel_device_ms(rows_int, 20, "hist_rows_kernel"),
+        "rows_events": cuda_ms(rows_int, 20),
+        "ragged": kernel_device_ms(ragged_int, 20, "hist_ragged_kernel"),
+        "ragged_events": cuda_ms(ragged_int, 20),
+        "plain_rows": cuda_ms(lambda: _build_histogram_rows_plain(bins, gh_q, idx, B, N), 3),
+        "plain_ragged": cuda_ms(lambda: _histogram_slots_ragged_plain(
+            bins, payload, slot, starts, ends, valid, B, 1, True), 3),
+    }
+    F, Bf = meta_h.gather_index.shape
+    per_leaf = F * Bf * 12 + 3 * 4 + 14 * 4 + 3 * 4  # the int32 bins, totals, record, scale
+    tables = F * Bf * 9 + F * 4 * 4 + F + 6 * 4
+    out = G * B * 3 * 4
+    bounds = {"one": bound(per_leaf + tables, F * Bf * 2 * 31),
+              "batch": bound(2 * WAVE_K * per_leaf + tables, 2 * WAVE_K * F * Bf * 2 * 31),
+              # bins, the int8 gh row and the index read once, the histogram written
+              "rows": bound(N * (G + 3 + 4) + out, 3 * G * N),
+              # bins, the payload's three float columns and the slot read once
+              "ragged": bound(N * (G + 12 + 4) + out, 3 * G * N)}
+    for key in ("one", "batch", "rows", "ragged"):
+        print(f"kernels: integer mode {key}: {fmt_ms(timings[key])} of device time a call "
+              f"(torch.profiler; CUDA events {timings[key + '_events']:.4f} ms), plain "
+              f"{timings['plain_' + key]:.3f} ms, bound {bounds[key][0]:.5f} ms "
+              f"({bounds[key][1]})")
+    return timings, bounds
+
+
+def _exact_quantized(lt, X, y, params, fobj, rounds, learner):
+    """The card's and the CPU's model texts of one quantized run, through
+    `learner` ("wave": lt on the card against a CPU GBDT whose learner is
+    the wave learner; "serial": feature_fraction_bynode 0.8 on both), and
+    the two runs' seconds."""
+    from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
+
+    extra = {"feature_fraction_bynode": 0.8} if learner == "serial" else {}
+    out = {}
+    for where in ("card", "cpu"):
+        t = time.perf_counter()
+        ds = lt.Dataset(X, label=y)
+        bst = lt.Booster({**params, **extra, "objective": "none",
+                          **({"device_type": "cpu"} if where == "cpu" else {})}, ds)
+        if where == "cpu" and learner == "wave":
+            bst._gbdt.tree_learner = DeviceTreeLearner(bst._gbdt.config, ds._handle,
+                                                       torch.device("cpu"))
+        check(isinstance(bst._gbdt.tree_learner, DeviceTreeLearner) == (learner == "wave"),
+              f"exact quantized ({learner}, {where}): trained with the wrong learner")
+        for _ in range(rounds):
+            bst.update(fobj=fobj)
+        out[where] = (bst.model_to_string(), time.perf_counter() - t,
+                      [tr.num_leaves for tr in bst._gbdt.models])
+    return out
+
+
+def drive_quantized(lt, libs, train_set, valid, X_train, y_train, float_runs, seed, tag):
+    """Phase 12: quantized-gradient training. The discretizer and the
+    integer modes against their plain versions, card and CPU model texts
+    byte-equal in the exact runs, then the full-width runs through both
+    learners beside phase 8's and 9's float runs. Returns (the launches of
+    the phase's main path, timings and bounds for the kernels' record)."""
+    from lightgbm_tpu_torch.ops.quantize import prng_key, quantize_gh, split_key
+
+    dev = torch.device(DEVICE)
+    # ---- kernels, on phase 8's first gradients (the binary objective at the
+    # boost-from-average score: a constant hessian, on the card) and on its
+    # gradients at its final scores (a varying one)
+    objective = float_runs["wave"]["booster"]._gbdt.objective
+    init = objective.boost_from_score(0)
+    grad, hess = objective.get_gradients(
+        torch.full((TRAIN_ROWS,), init, dtype=torch.float32, device=dev))
+    grad_f, hess_f = objective.get_gradients(float_runs["wave"]["booster"]._gbdt.score[0])
+    t_quant, b_quant = check_quantize({
+        "first": (grad, hess, ((4, True, False), (16, False, False), (4, True, True))),
+        "final": (grad_f, hess_f, ((4, True, False), (16, True, False), (4, False, False),
+                                   (16, False, False)))})
+    del grad_f, hess_f
+    print(f"{tag} kernels: quantize ({TRAIN_ROWS} rows, phase 8's final gradients, 4 bins, "
+          f"stochastic): reduce {fmt_ms(t_quant.get('quantize_reduce_kernel'))} + quantize "
+          f"{fmt_ms(t_quant.get('quantize_kernel'))} of device time (torch.profiler), "
+          f"{t_quant['kernel']:.4f} ms a call (CUDA events), plain {t_quant['plain']:.3f} ms; "
+          f"bounds {b_quant['quantize_reduce'][0]:.5f} + {b_quant['quantize'][0]:.5f} ms "
+          f"(bytes)")
+    _, key = split_key(prng_key(1))
+    gh_ext = torch.cat([torch.stack([grad, hess, torch.ones_like(grad)], 1),
+                        torch.zeros((1, 3), device=dev)])
+    gh_q, scale = quantize_gh(gh_ext[:-1, 0], gh_ext[:-1, 1], key, 4, True)
+    got, learner = quantized_search_inputs(lt, dev, train_set, gh_q, scale)
+    t_modes, b_modes = check_quantized_modes(dev, train_set._handle, learner, got, gh_q,
+                                             scale)
+    del learner, got, gh_ext, grad, hess
+    torch.cuda.empty_cache()
+
+    # ---- exact: the card trains as the CPU does
+    Xe, ye = X_train[:EXACT_ROWS], y_train[:EXACT_ROWS]
+    base = {**WAVE_PARAMS, **QUANT_PARAMS, "bagging_fraction": 0.8, "bagging_freq": 1,
+            "metric": "None"}
+    Xm, ym = covertype_rows(seed + 13, MC_EXACT_ROWS)
+    mc = {**MC_PARAMS, **QUANT_PARAMS, "num_leaves": MC_EXACT_LEAVES, "bagging_fraction": 0.8,
+          "bagging_freq": 1, "metric": "None"}
+    for data, (X, y), params, rounds, fobjs in (
+            ("binary", (Xe, ye), base, EXACT_ROUNDS, (host_logloss, snapped_logloss)),
+            ("multiclass", (Xm, ym), mc, MC_EXACT_ROUNDS, (host_softmax, snapped_softmax))):
+        for learner in ("wave", "serial"):
+            for renew, fobj in zip((False, True), fobjs):
+                out = _exact_quantized(lt, X, y, {**params, "quant_train_renew_leaf": renew},
+                                       fobj, rounds, learner)
+                what = (f"exact quantized ({data}, {learner}, renewal "
+                        f"{'on, snapped' if renew else 'off, unsnapped'} gradients)")
+                check(out["card"][0] == out["cpu"][0],
+                      f"{what}: the card's model text differs from the CPU's")
+                print(f"{what}: {len(y)} rows, {rounds} rounds, stochastic rounding, bagging "
+                      f"0.8: card and CPU model texts byte-equal ({len(out['card'][0])} bytes; "
+                      f"leaves {out['card'][2]}; card {out['card'][1]:.1f} s, CPU "
+                      f"{out['cpu'][1]:.1f} s)")
+
+    # ---- why the exact runs take host gradients: the binary objective's
+    # response on the card and on the CPU, from phase 8's final train scores
+    score = float_runs["wave"]["booster"]._gbdt.score[0]
+    sign = torch.from_numpy(np.where(y_train > 0, 1.0, -1.0).astype(np.float32)).to(dev)
+    on_card = -sign / (1.0 + torch.exp(sign * score))
+    on_cpu = -sign.cpu() / (1.0 + torch.exp(sign.cpu() * score.cpu()))
+    exp_differ = int((torch.exp(score).cpu().view(torch.int32)
+                      != torch.exp(score.cpu()).view(torch.int32)).sum())
+    resp_differ = int((on_card.cpu().view(torch.int32) != on_cpu.view(torch.int32)).sum())
+    print(f"exact: of phase 8's {score.numel()} final train scores, torch.exp differs "
+          f"between the card and the CPU on {exp_differ} ({exp_differ / score.numel():.1%}), "
+          f"the binary objective's response on {resp_differ} "
+          f"({resp_differ / score.numel():.1%}): the exact runs take their gradients from "
+          "the host")
+
+    # ---- full width: both learners, beside phase 8's and 9's float runs
+    launches = {}
+    runs = {}
+    for label, params, rounds, required in (
+            ("wave", {**WAVE_PARAMS, **QUANT_PARAMS}, TRAIN_ROUNDS,
+             ("quantize_reduce", "quantize", "histogram_slots_ragged_i32",
+              "find_best_split_int", "find_best_split_batched_int", "partition_decide",
+              "partition_scan", "partition_scatter", "relabel_rows", "wave_select",
+              "wave_replay", "tree_loop_cond", "predict_forest_raw")),
+            ("serial", {**TRAIN_PARAMS, **QUANT_PARAMS}, QUANT_SERIAL_ROUNDS,
+             ("quantize_reduce", "quantize", "histogram_i32", "find_best_split_int",
+              "row_partition_decide", "row_partition_scatter", "predict_forest_raw"))):
+        run = drive_training(lt, libs, params, train_set, valid, rounds, required, tag,
+                             f"{label}, quantized")
+        runs[label] = run
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        flt = float_runs[label]
+        q_auc = run["valid_auc"][-1]
+        f_auc = flt["valid_auc"][rounds - 1]
+        steady = lambda r: float(np.mean(r["per_iter"][1:rounds]))  # noqa: E731
+        waves = ("" if label == "serial" else
+                 f"waves a tree {run['counters'].get('device_waves', 0) / rounds:.1f} against "
+                 f"{flt['counters'].get('device_waves', 0) / len(flt['per_iter']):.1f}; ")
+        text_hash = hashlib.sha256(
+            run["booster"].model_to_string().encode()).hexdigest()[:16]
+        print(f"{tag} quantized ({label}): {rounds} rounds, 4 bins, stochastic rounding, "
+              f"renewal on: s/iteration {steady(run):.4f} against {steady(flt):.4f} float "
+              f"(rounds 2-{rounds}, the same data in this process); {waves}valid AUC "
+              f"{q_auc:.5f} against "
+              f"{f_auc:.5f} float after {rounds} rounds (margin {QUANT_AUC_MARGIN}); model "
+              f"text sha256 {text_hash}")
+        check(q_auc >= f_auc - QUANT_AUC_MARGIN,
+              f"quantized ({label}): valid AUC {q_auc:.5f} more than {QUANT_AUC_MARGIN} below "
+              f"the float run's {f_auc:.5f}")
+    print(f"quantized path launches: {launches}")
+    return launches, {"quantize": (t_quant, b_quant), "modes": (t_modes, b_modes)}
+
+
 def profile_other(checkout: str, seed: int) -> int:
     """The package in another checkout on the training path's data: its
     leaf histogram's time at the root, a LEAF_ROWS and a SMALL_LEAF_ROWS
@@ -1963,7 +2345,7 @@ def main() -> int:
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
     from lightgbm_tpu_torch.ops import (compact_cuda, cuda_build, hist_cuda, partition_cuda,
-                                        predict_cuda, scan_cuda, wave_cuda)
+                                        predict_cuda, quantize_cuda, scan_cuda, wave_cuda)
     from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
     from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused,
                                                 _traverse_leaves, pack_ensemble)
@@ -1981,7 +2363,8 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB,
                                    compact_cuda.LIB, compact_cuda.WAVE_LIB,
-                                   partition_cuda.LIB, wave_cuda.LIB], force=True)
+                                   partition_cuda.LIB, wave_cuda.LIB, quantize_cuda.LIB],
+                                  force=True)
     print(f"build: {len(builds)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for info in builds:
@@ -2454,7 +2837,7 @@ def main() -> int:
 
     # ------------------------------- main path: training, wave learner
     libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB,
-            partition_cuda.LIB, wave_cuda.LIB)
+            partition_cuda.LIB, wave_cuda.LIB, quantize_cuda)
     valid = (X_valid, y_valid)
     wave = drive_training(lt, libs, WAVE_PARAMS, train_set, valid, TRAIN_ROUNDS,
                           ("histogram_slots_ragged", "partition_decide", "partition_scan",
@@ -2523,7 +2906,15 @@ def main() -> int:
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond"):
         check(async_launches[name] > 0, f"async path: kernel {name} never launched")
-    paths = (wave["launches"], serial["launches"], mc_launches, async_launches)
+    torch.cuda.empty_cache()
+
+    # ------------------------------- quantized-gradient training
+    q_launches, q_times = drive_quantized(lt, libs, train_set, valid, X_train, y_train,
+                                          {"wave": wave, "serial": serial}, args.seed, tag)
+    for name in ("quantize_reduce", "quantize", "histogram_slots_ragged_i32",
+                 "histogram_i32", "find_best_split_int", "find_best_split_batched_int"):
+        check(q_launches[name] > 0, f"quantized path: kernel {name} never launched")
+    paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)
@@ -2655,6 +3046,32 @@ def main() -> int:
          "launches": launches("tree_loop_cond"), "max_abs_err": 0.0,
          "ms": ms_loop["kernel"], "plain_ms": ms_loop["plain"], "bound_ms": bound_loop[0],
          "bound_by": bound_loop[1], "library_ms": None})
+    # quantized training: the discretizer (glue the JAX package computes in
+    # XLA) and the integer modes of rows 2, 4 and 5's kernels
+    (t_quant, b_quant), (t_modes, b_modes) = q_times["quantize"], q_times["modes"]
+    for name in ("quantize_reduce", "quantize"):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "lightgbm_tpu_torch/csrc/quantize.cu",
+             "replaces": "lightgbm_tpu/ops/quantize.py:45",
+             "launches": launches(name), "max_abs_err": 0.0,
+             "ms": t_quant.get(name + "_kernel", t_quant["kernel"]),
+             "plain_ms": t_quant["plain"], "bound_ms": b_quant[name][0],
+             "bound_by": b_quant[name][1], "library_ms": None})
+    for name, key, source, replaces in (
+            ("histogram_i32", "rows", "histogram.cu", "lightgbm_tpu/ops/hist_pallas.py:132"),
+            ("histogram_slots_ragged_i32", "ragged", "histogram.cu",
+             "lightgbm_tpu/ops/hist_pallas.py:350"),
+            ("find_best_split_int", "one", "split_find.cu",
+             "lightgbm_tpu/ops/scan_pallas.py:235"),
+            ("find_best_split_batched_int", "batch", "split_find.cu",
+             "lightgbm_tpu/ops/scan_pallas.py:235")):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "lightgbm_tpu_torch/csrc/" + source,
+             "replaces": replaces, "launches": launches(name), "max_abs_err": 0.0,
+             "ms": device_or_events({"k": t_modes[key + "_events"],
+                                     "k_device": t_modes[key]}, "k"),
+             "plain_ms": t_modes["plain_" + key], "bound_ms": b_modes[key][0],
+             "bound_by": b_modes[key][1], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,7 +14,12 @@
 //     add the leaf's missing mass at the default bin of an EFB bundle member
 //     (totals - sum of the feature's bins, times efb_omitted, as
 //     FixHistogram does), scan, and keep the first maximum across features:
-//     rec [L, 14];
+//     rec [L, 14]. The histogram is float32, or int32 (quantized-gradient
+//     training) with a per-channel scale [3] read from device memory, so a
+//     captured graph reads each tree's scale: each int32 value is converted
+//     to float32 and multiplied by its scale as it is loaded, before the
+//     sums (the JAX package's hist.astype(f32) * scale ahead of the scan,
+//     treelearner/device.py:301-304);
 //   - per feature (!kGather): from feature histograms fh [L, F, B, 3], the
 //     record of every (leaf, feature): rec [L, F, 14]
 //     (ops/split.py:per_feature_best).
@@ -134,11 +139,14 @@ __device__ __forceinline__ double lane_scan(const float* x, int lane, int chunk)
   return s;
 }
 
-template <bool kGather>
+// kInt (find form only): src is an int32 histogram, each value converted to
+// float32 and multiplied by its channel's scale as it is loaded, before any
+// sum: the plain version's hist.float() * scale
+template <bool kGather, bool kInt>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-split_kernel(const float* __restrict__ src, long long src_rows, int n_features, int n_bins,
+split_kernel(const void* __restrict__ src, long long src_rows, int n_features, int n_bins,
              int chunk, const float* __restrict__ totals, float t0, float t1, float t2,
-             const float* __restrict__ params, Meta m,
+             const float* __restrict__ params, const float* __restrict__ scale, Meta m,
              const uint8_t* __restrict__ feature_mask, const float* __restrict__ penalty,
              float* __restrict__ rec) {
   extern __shared__ float smem[];
@@ -157,6 +165,10 @@ split_kernel(const float* __restrict__ src, long long src_rows, int n_features, 
     for (int c = 0; c < 3; ++c) tot[c] = totals[leaf * 3 + c];
   }
   const Params p{params[0], params[1], params[2], params[3], params[4], params[5]};
+  float sc[3] = {1.0f, 1.0f, 1.0f};
+  if (kInt) {
+    for (int c = 0; c < 3; ++c) sc[c] = scale[c];
+  }
   const float gain_shift = leaf_gain(tot[0], tot[1], p) + p.min_gain;
 
   float wgain = -INFINITY;  // the warp's best record so far (find form)
@@ -193,8 +205,16 @@ split_kernel(const float* __restrict__ src, long long src_rows, int n_features, 
 #pragma unroll
       for (int i = 0; i < kLoadBatch; ++i) {
         const bool in = r[i] >= 0 && (!kGather || r[i] < src_rows);
-        const float* row = src + ((kGather ? leaf * src_rows : 0) + (in ? r[i] : 0)) * 3;
-        for (int c = 0; c < 3; ++c) h[i][c] = in ? row[c] : 0.0f;
+        const long long at = ((kGather ? leaf * src_rows : 0) + (in ? r[i] : 0)) * 3;
+        if (kInt) {
+          const int* row = static_cast<const int*>(src) + at;
+          for (int c = 0; c < 3; ++c) {
+            h[i][c] = in ? __fmul_rn(__int2float_rn(row[c]), sc[c]) : 0.0f;
+          }
+        } else {
+          const float* row = static_cast<const float*>(src) + at;
+          for (int c = 0; c < 3; ++c) h[i][c] = in ? row[c] : 0.0f;
+        }
       }
 #pragma unroll
       for (int i = 0; i < kLoadBatch; ++i) {
@@ -356,22 +376,24 @@ int launch_shape(int n_features, int n_bins, int* chunk, size_t* smem) {
 
 extern "C" {
 
-// The find form: hist [L, rows, 3] f32 (rows = G * Bg), totals [L, 3] f32 or
-// NULL for (t0, t1, t2) (L = 1), params [6]; gather_index [F, B] and
-// default_bin [F] int64, valid_slot [F, B], efb_omitted / has_missing /
-// is_categorical [F] as bytes (torch.bool), missing_pos / nbins [F] int32,
-// feature_mask [F] bytes or NULL, penalty [F] f32 or NULL -> rec [L, 14].
-// The per-feature form (gather_index NULL): fh [L, F, B, 3] -> rec [L, F, 14].
+// The find form: hist [L, rows, 3] f32 (rows = G * Bg), or int32 with scale
+// [3] f32 (NULL for a float histogram), totals [L, 3] f32 or NULL for (t0,
+// t1, t2) (L = 1), params [6]; gather_index [F, B] and default_bin [F] int64,
+// valid_slot [F, B], efb_omitted / has_missing / is_categorical [F] as bytes
+// (torch.bool), missing_pos / nbins [F] int32, feature_mask [F] bytes or
+// NULL, penalty [F] f32 or NULL -> rec [L, 14]. The per-feature form
+// (gather_index NULL, scale NULL): fh [L, F, B, 3] f32 -> rec [L, F, 14].
 // Returns cudaGetLastError() after the launch.
-int lgbt_split_find(const float* src, long long src_rows, int n_leaves, int n_features,
+int lgbt_split_find(const void* src, long long src_rows, int n_leaves, int n_features,
                     int n_bins, const float* totals, float t0, float t1, float t2,
-                    const float* params, const long long* gather_index,
+                    const float* params, const float* scale, const long long* gather_index,
                     const uint8_t* valid_slot, const long long* default_bin,
                     const uint8_t* efb_omitted, const int* missing_pos,
                     const uint8_t* has_missing, const int* nbins,
                     const uint8_t* is_categorical, const uint8_t* feature_mask,
                     const float* penalty, float* rec, void* stream) {
-  if (n_leaves < 1 || n_features < 1 || n_bins < 1 || n_bins > 1024) {
+  if (n_leaves < 1 || n_features < 1 || n_bins < 1 || n_bins > 1024
+      || (scale != nullptr && gather_index == nullptr)) {
     return int(cudaErrorInvalidValue);
   }
   int chunk;
@@ -382,19 +404,25 @@ int lgbt_split_find(const float* src, long long src_rows, int n_leaves, int n_fe
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool opted_in = false;  // above 48 KB a block asks for its shared memory
   if (!opted_in) {
-    cudaFuncSetAttribute(split_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBudget);
-    cudaFuncSetAttribute(split_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBudget);
+    cudaFuncSetAttribute(split_kernel<true, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    cudaFuncSetAttribute(split_kernel<true, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    cudaFuncSetAttribute(split_kernel<false, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
     opted_in = true;
   }
-  if (gather_index != nullptr) {
-    split_kernel<true><<<n_leaves, warps * 32, smem, s>>>(
-        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, m,
+  if (scale != nullptr) {
+    split_kernel<true, true><<<n_leaves, warps * 32, smem, s>>>(
+        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, scale, m,
+        feature_mask, penalty, rec);
+  } else if (gather_index != nullptr) {
+    split_kernel<true, false><<<n_leaves, warps * 32, smem, s>>>(
+        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, nullptr, m,
         feature_mask, penalty, rec);
   } else {
-    split_kernel<false><<<n_leaves, warps * 32, smem, s>>>(
-        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, m,
+    split_kernel<false, false><<<n_leaves, warps * 32, smem, s>>>(
+        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, nullptr, m,
         feature_mask, penalty, rec);
   }
   return int(cudaGetLastError());

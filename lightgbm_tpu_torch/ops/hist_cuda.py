@@ -44,7 +44,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
 
 
-LIB = CudaLibrary("histogram.cu", ("histogram", "histogram_slots_ragged"), _declare)
+# the integer modes (quantized-gradient training) count apart
+LIB = CudaLibrary("histogram.cu", ("histogram", "histogram_slots_ragged", "histogram_i32",
+                                   "histogram_slots_ragged_i32"), _declare)
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 
@@ -188,7 +190,7 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
                  None if row_idx is None else row_idx.data_ptr(), n_pos, num_bins,
                  group_block, blocks, None if exps is None else exps.data_ptr(),
                  image.data_ptr(), out.data_ptr(), stream_of(bins))
-    LIB.count("histogram", err)
+    LIB.count("histogram_i32" if quantized else "histogram", err)
     return out
 
 
@@ -283,5 +285,5 @@ def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
                  starts.data_ptr(), ends.data_ptr(), valid.data_ptr(), n_slots, num_bins,
                  group_block, blocks, None if exps is None else exps.data_ptr(),
                  image.data_ptr(), out.data_ptr(), stream_of(bins))
-    LIB.count("histogram_slots_ragged", err)
+    LIB.count("histogram_slots_ragged_i32" if quantized else "histogram_slots_ragged", err)
     return out

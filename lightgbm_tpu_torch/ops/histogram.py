@@ -211,6 +211,22 @@ def _fixed_point_sum(cell: torch.Tensor, g: torch.Tensor, n_cells: int,
     return out + _histogram_plain(cell, torch.where(finite, 0.0, g), n_cells, torch.float32)
 
 
+def leaf_sums_fixed(gh: torch.Tensor, rows: Optional[torch.Tensor], leaf: torch.Tensor,
+                    n_leaves: int) -> torch.Tensor:
+    """[n_leaves, 2] float32 (sum g, sum h) by leaf: row rows[i] (every row
+    of gh when rows is None) adds gh[row, :2] to leaf[i] (a leaf past
+    n_leaves - 1 adds nowhere). The one-group histogram whose bin is the
+    leaf, summed as `_fixed_point_sum` does with the exponents of all of
+    gh: exact to 2**-e_c and the same bits in any order, on any device (the
+    int64 scatter-add of the card is exact too). Quantized training's leaf
+    renewal reads it; the JAX package scatter-adds in float32, which gives
+    the same sums where every sum is exact (grid-snapped gradients)."""
+    g = gh[:, :2] if rows is None else gh[rows, :2]
+    exps = fixed_point_exponents(gh[:, :2], gh.shape[0])
+    cell = torch.clamp(leaf.to(torch.int64), max=n_leaves)[None]
+    return _fixed_point_sum(cell, g, n_leaves + 1, exps)[0, :n_leaves]
+
+
 def _build_histogram_rows_fixed(bins: torch.Tensor, gh_ext: torch.Tensor,
                                 row_idx: Optional[torch.Tensor], num_bins: int,
                                 exponents: torch.Tensor,

@@ -24,14 +24,15 @@ from .split import (SPLIT_FIELDS, FeatureMeta, _find_best_split_plain,
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.lgbt_split_find.argtypes = ([ptr, i64, i32, i32, i32, ptr, f32, f32, f32]
-                                    + [ptr] * 13)
+                                    + [ptr] * 14)
     lib.lgbt_split_find.restype = i32
 
 
 # --fmad=false: no multiply-add contracted into an FMA, so the gains round
 # as the plain version's separate float32 ops do
 LIB = CudaLibrary("split_find.cu", ("split_scan", "split_scan_batched", "find_best_split",
-                                    "find_best_split_batched"), _declare,
+                                    "find_best_split_batched", "find_best_split_int",
+                                    "find_best_split_batched_int"), _declare,
                   extra_flags=("--fmad=false",))
 launches = LIB.launches
 reset_launches = LIB.reset_launches
@@ -85,7 +86,7 @@ def _check_common(meta: FeatureMeta, params: torch.Tensor, F: int, B: int,
 def _launch(src: torch.Tensor, src_rows: int, L: int, F: int, B: int, totals,
             meta: FeatureMeta, params: torch.Tensor, gather: bool,
             feature_mask: Optional[torch.Tensor], penalty: Optional[torch.Tensor],
-            rec: torch.Tensor) -> int:
+            rec: torch.Tensor, scale: Optional[torch.Tensor] = None) -> int:
     if isinstance(totals, torch.Tensor):
         tot_ptr, t = totals.data_ptr(), (0.0, 0.0, 0.0)
     else:
@@ -94,6 +95,7 @@ def _launch(src: torch.Tensor, src_rows: int, L: int, F: int, B: int, totals,
     with torch.cuda.device(src.device):
         return lib.lgbt_split_find(
             src.data_ptr(), src_rows, L, F, B, tot_ptr, *t, params.data_ptr(),
+            None if scale is None else scale.data_ptr(),
             meta.gather_index.data_ptr() if gather else None,
             meta.valid_slot.data_ptr(),
             meta.default_bin.data_ptr() if gather else None,
@@ -136,16 +138,23 @@ def split_scan(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
 
 def split_find(hist: torch.Tensor, totals, meta: FeatureMeta, params: torch.Tensor,
                feature_mask: Optional[torch.Tensor] = None,
-               penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Group histograms [G, Bg, 3] (or [L, G, Bg, 3]) float32 -> the best
-    split record [14] (or [L, 14]) (ops/split.py:find_best_split). `totals`
-    is [3] (or [L, 3]) float32, or, for one leaf, three host floats passed
-    by value. A CPU tensor takes the plain version; a CUDA tensor is one
-    launch of the kernel's find form."""
+               penalty: Optional[torch.Tensor] = None,
+               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Group histograms [G, Bg, 3] (or [L, G, Bg, 3]) float32, or int32 with
+    `scale` [3] float32 (quantized-gradient training), -> the best split
+    record [14] (or [L, 14]) (ops/split.py:find_best_split). `totals` is [3]
+    (or [L, 3]) float32, or, for one leaf, three host floats passed by
+    value. A CPU tensor takes the plain version; a CUDA tensor is one launch
+    of the kernel's find form, which reads the scale from the card."""
     lead = tuple(hist.shape[:-3])
+    if (scale is None) != (hist.dtype != torch.int32):
+        raise ValueError(f"a {hist.dtype} histogram takes "
+                         f"{'a' if hist.dtype == torch.int32 else 'no'} scale")
     if hist.device.type == "cpu":
         if not isinstance(totals, torch.Tensor):
             totals = torch.tensor([float(v) for v in totals], dtype=torch.float32)
+        if scale is not None:
+            hist = hist.to(torch.float32) * scale
         return _find_best_split_plain(hist, totals, meta, params, feature_mask, penalty)
     require_cuda(hist, "the split search")
     if hist.dim() not in (3, 4):
@@ -160,7 +169,10 @@ def split_find(hist: torch.Tensor, totals, meta: FeatureMeta, params: torch.Tens
     if G * Bg != meta.hist_rows:
         raise ValueError(f"hist has {G} x {Bg} rows, the feature metadata indexes "
                          f"{meta.hist_rows}")
-    _check("hist", hist, torch.float32, lead + (G, Bg, 3), dev)
+    _check("hist", hist, torch.float32 if scale is None else torch.int32, lead + (G, Bg, 3),
+           dev)
+    if scale is not None:
+        _check("scale", scale, torch.float32, (3,), dev)
     if isinstance(totals, torch.Tensor):
         _check("totals", totals, torch.float32, lead + (3,), dev)
     elif lead or len(totals) != 3:
@@ -171,8 +183,9 @@ def split_find(hist: torch.Tensor, totals, meta: FeatureMeta, params: torch.Tens
     _check_common(meta, params, F, B, feature_mask, penalty, dev)
     out = torch.empty(lead + (len(SPLIT_FIELDS),), dtype=torch.float32, device=dev)
     err = _launch(hist, G * Bg, L, F, B, totals, meta, params, True, feature_mask,
-                  penalty, out)
+                  penalty, out, scale)
     # one leaf (the serial learner, the root) and a leaf batch (a wave's 2K
-    # children) count apart
-    LIB.count("find_best_split_batched" if lead else "find_best_split", err)
+    # children) count apart, and so does the integer mode
+    name = "find_best_split_batched" if lead else "find_best_split"
+    LIB.count(name + ("_int" if scale is not None else ""), err)
     return out

@@ -15,8 +15,10 @@ pulled out of the ordered scan and added to the left side in the
 group storage; it is reconstructed from the leaf totals like
 Dataset::FixHistogram (include/LightGBM/dataset.h:770).
 
-This slice carries the numeric lanes: categorical features, monotone
-constraints and quantized histograms are refused before a learner is built.
+This slice carries the numeric lanes: categorical features and monotone
+constraints are refused before a learner is built. A quantized (int32)
+histogram is searched as the float histogram hist.float() * scale
+(`find_best_split`'s `scale`).
 The search goes through ``ops/scan_cuda.py``: the plain version below for a
 CPU tensor, the hand-written kernel (``csrc/split_find.cu``) for a CUDA
 tensor. `find_best_split` is one launch there, from the group histogram to
@@ -413,18 +415,25 @@ def _find_best_split_plain(hist: torch.Tensor, totals: torch.Tensor, meta: Featu
 def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
                     params: torch.Tensor,
                     feature_mask: Optional[torch.Tensor] = None,
-                    penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    penalty: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Best split across all features for one leaf, or for L leaves at once
     (the JAX package vmaps it over a wave's 2K children,
     treelearner/device.py:742-747; each record is the one-leaf call's bits).
 
-    hist:   [G, Bg, 3] group histogram for the leaf, or [L, G, Bg, 3]
+    hist:   [G, Bg, 3] group histogram for the leaf, or [L, G, Bg, 3];
+            float32, or int32 with `scale`
     totals: [3] leaf (sum_grad, sum_hess, count), or [L, 3]; for one leaf
             also three floats on the host, which a launch takes by value
+    scale:  [3] float32 per-channel scale of an int32 histogram (quantized
+            gradients): the search runs on hist.float() * scale, each bin
+            scaled before any sum, as the JAX package scales the histogram
+            ahead of its scan; on the card the kernel reads it from device
+            memory
     Returns the packed split record [len(SPLIT_FIELDS)] float32, or [L, ...].
     A CPU tensor takes the plain version; a CUDA tensor is one launch of the
     split kernel.
     """
     from .scan_cuda import split_find
 
-    return split_find(hist, totals, meta, params, feature_mask, penalty)
+    return split_find(hist, totals, meta, params, feature_mask, penalty, scale)

@@ -69,10 +69,23 @@ Where the card differs from the TPU, with the same results:
 On the CPU the same root and waves run eagerly on the plain versions, the
 loop driven from the host in the same passes of two waves.
 
+Quantized training (use_quantized_grad) runs the same waves in the integer
+modes, as the JAX grower's `quantized` does: the tree's int8 (g, h, 1) rows
+(the learner's `_prepare_gh`, quantized over all rows before the bag masks
+them) ride in the payload's float columns, exact; the histograms are the
+ragged kernel's exact int32, the pool is int32 and the subtraction integer;
+a leaf's totals are its int32 bin sum times the tree's scale, and the split
+search scales each int32 bin as it loads it. The scale is staged into a
+buffer the graphs read (`WaveBuffers.scale`), as the exponents are. With
+quant_train_renew_leaf, `finalize` renews the leaf outputs from the float
+gradients, summed by leaf exactly in fixed point (ops/histogram.py:
+leaf_sums_fixed, an order-free int64 scatter-add where the JAX package
+scatter-adds in float32) and read back with the tree's results.
+
 Not carried, each still to port (ROADMAP): the sharded grower and its
 data, voting and feature modes (``make_sharded_grow_fn``, Queue 1 item 8);
-quantized training, its leaf renewal and the bf16 gh payload (item 6);
-``snapshot_state`` (item 6, checkpoint writers); ``_record_carry_bytes``
+the bf16 gh payload (item 6); ``snapshot_state`` (item 6, checkpoint
+writers); ``_record_carry_bytes``
 (item 11, perfmodel). The JAX package's
 environment switches (LGBM_TPU_WAVE, LGBM_TPU_ADAPTIVE_WAVE,
 LGBM_TPU_GH_BF16, LGBM_TPU_HIST_SLOTS, LGBM_TPU_PALLAS_INTERPRET,
@@ -89,14 +102,14 @@ import torch
 
 from ..models.tree import Tree
 from ..ops.compact import partition_wave, relabel_rows
-from ..ops.histogram import fixed_point_exponents, histogram_slots_ragged
+from ..ops.histogram import fixed_point_exponents, histogram_slots_ragged, leaf_sums_fixed
 from ..ops.partition import bucket_size
 from ..ops.split import FeatureMeta, SplitInfo, find_best_split
 from ..ops.wave import (DONE, HIST_ROWS, N_CUR, N_WAVES, REC, SCALARS, STORE,
                         FeatureTables, init_tree_state, replay_wave, select_wave,
                         split_select)
 from ..utils.timer import global_timer
-from .serial import SerialTreeLearner
+from .serial import SerialTreeLearner, _leaf_output_host
 
 # gain-adaptive wave-width thresholds: commit rate (committed splits /
 # speculated splits) below which K steps one rung down, above which it
@@ -134,8 +147,9 @@ class WaveBuffers:
     by every tree: the permuted bin plane and row payload, the partition's
     second copy of each, the histogram's slot vector, the histogram pool,
     the tree's [L+1]-sized state (ops/wave.py), the tree's staged inputs
-    (gh, leaf ids, feature mask) and the per-tree values the waves read
-    (the fixed-point exponents), on a CUDA device the captured graphs, and
+    (gh, leaf ids, feature mask, and when quantized the scale) and the
+    per-tree values the waves read (the fixed-point exponents), on a CUDA
+    device the captured graphs, and
     the pinned slots a tree's results are copied into. The split log, the
     scalars and the loop's pass count share one buffer, so a tree's results
     leave the card in one copy.
@@ -148,9 +162,12 @@ class WaveBuffers:
 
     def __init__(self, n_groups: int, n_rows: int, payload: int, num_leaves: int,
                  num_bins: int, channels: int, n_features: int,
-                 device: torch.device) -> None:
+                 device: torch.device, quantized: bool = False, renew: bool = False) -> None:
         dev = torch.device(device)
         L = num_leaves
+        # quantized training: an int32 pool, the integer histograms, scaled
+        # totals and split search
+        self.quantized = bool(quantized)
         # zeroed once: the warm-up wave reads them before the first tree
         self.bins = [torch.zeros((n_groups, n_rows), dtype=torch.uint8, device=dev)
                      for _ in range(2)]
@@ -158,7 +175,7 @@ class WaveBuffers:
                      for _ in range(2)]
         self.slot = torch.zeros(n_rows, dtype=torch.int32, device=dev)
         self.pool = torch.zeros((L + 1, n_groups, num_bins, channels),
-                                dtype=torch.float32, device=dev)
+                                dtype=torch.int32 if quantized else torch.float32, device=dev)
         self.leaf_best = torch.full((L + 1, REC), float("-inf"), dtype=torch.float32,
                                     device=dev)
         self.depth = torch.zeros(L + 1, dtype=torch.int32, device=dev)
@@ -166,16 +183,22 @@ class WaveBuffers:
         self.count = torch.zeros(L + 1, dtype=torch.int32, device=dev)
         # one extra dump row at the end, as the JAX replay's store has; after
         # the scalars, the tree loop's pass count
+        # and with quantized leaf renewal, the [L, 2] float32 leaf sums of the
+        # float gradients
         store_bytes = (max(L - 1, 1) + 1) * STORE * 4
-        self.results = torch.zeros(store_bytes + (SCALARS + 1) * 8, dtype=torch.uint8,
-                                   device=dev)
+        words_end = store_bytes + (SCALARS + 1) * 8
+        self.results = torch.zeros(words_end + (L * 2 * 4 if renew else 0),
+                                   dtype=torch.uint8, device=dev)
         self.rec_store = self.results[:store_bytes].view(torch.float32).view(-1, STORE)
         self.scalars = self.results[store_bytes:store_bytes + SCALARS * 8].view(torch.int64)
-        self.passes = self.results[store_bytes + SCALARS * 8:].view(torch.int64)
+        self.passes = self.results[store_bytes + SCALARS * 8:words_end].view(torch.int64)
+        self.leaf_sums = (self.results[words_end:].view(torch.float32).view(L, 2)
+                          if renew else None)
         # the tree's inputs, staged where the captured root reads them
         self.gh = torch.zeros((n_rows, channels), dtype=torch.float32, device=dev)
         self.leaf0 = torch.zeros(n_rows, dtype=torch.int32, device=dev)
         self.exponents = torch.zeros(channels, dtype=torch.int32, device=dev)
+        self.scale = torch.ones(channels, dtype=torch.float32, device=dev)
         self.feature_mask = torch.ones(n_features, dtype=torch.bool, device=dev)
         # the root's range [0, n) over every row; the bagged partition's range
         self.whole = torch.tensor([0, n_rows, 1], dtype=torch.int32, device=dev)
@@ -208,7 +231,8 @@ class WaveBuffers:
 def _root(buf: WaveBuffers, bins: torch.Tensor, meta: FeatureMeta, params: torch.Tensor,
           masked: bool, bagged: bool, num_bins: int, max_depth: int) -> None:
     """The tree's start from its staged inputs (buf.gh, buf.leaf0, the
-    feature mask): the carry's rows, the fixed-point exponents, the bagged
+    feature mask, the scale): the carry's rows, the fixed-point exponents
+    (none when quantized), the bagged
     initial partition (in-bag rows, leaf id 0, to the front of buffer 1;
     the root is then [0, n_in)), the root's ragged histogram and record and
     the tree's state. Reads nothing on the host, so a CUDA graph replays
@@ -225,7 +249,8 @@ def _root(buf: WaveBuffers, bins: torch.Tensor, meta: FeatureMeta, params: torch
     # computed once, here, from the whole of gh: every call reads a
     # permutation of its rows (row_p's gh columns), as the kernel, which
     # trusts them, requires
-    buf.exponents.copy_(fixed_point_exponents(buf.gh, N))
+    if not buf.quantized:
+        buf.exponents.copy_(fixed_point_exponents(buf.gh, N))
     buf.passes.zero_()
     fmask = buf.feature_mask if masked else None
     cur = 0
@@ -238,14 +263,25 @@ def _root(buf: WaveBuffers, bins: torch.Tensor, meta: FeatureMeta, params: torch
     else:
         n_in = buf.whole[1:2]
     buf.slot.zero_()
+    q = buf.quantized
     root_hist = histogram_slots_ragged(buf.bins[cur], buf.rows[cur][:, :CH], buf.slot,
                                        buf.whole[:1], n_in, buf.root_valid, num_bins, 1,
-                                       exponents=buf.exponents)
-    root_tot = root_hist[0].sum(dim=0)
-    root_rec = find_best_split(root_hist, root_tot, meta, params, fmask)
+                                       quantized=q, exponents=None if q else buf.exponents)
+    root_tot = _totals(buf, root_hist[0].sum(dim=0))
+    root_rec = find_best_split(root_hist, root_tot, meta, params, fmask,
+                               scale=buf.scale if q else None)
     buf.pool[0] = root_hist
     init_tree_state(buf.leaf_best, buf.depth, buf.rec_store, buf.start, buf.count,
                     buf.scalars, root_rec, root_tot, n_in, params, max_depth)
+
+
+def _totals(buf: WaveBuffers, sums: torch.Tensor) -> torch.Tensor:
+    """Leaf totals [..., CH] float32 from bin sums: when quantized, the
+    int32 sums converted and scaled (the JAX grower's hist_totals: summed
+    in int32, then scaled; the serial learner scales, then sums)."""
+    if not buf.quantized:
+        return sums
+    return sums.to(torch.float32) * buf.scale
 
 
 def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: FeatureTables,
@@ -268,17 +304,19 @@ def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: Feature
         out=(buf.bins[1 - cur], rows_out), slot_out=buf.slot)
     # the smaller child of each selected leaf (tie -> left), whose rows the
     # partition made contiguous and labeled with their slot
+    q = buf.quantized
     hist_s = histogram_slots_ragged(buf.bins[1 - cur], rows_out[:, :CH], buf.slot,
                                     ranges[1], ranges[2], flags[0], num_bins, K,
-                                    exponents=buf.exponents)
+                                    quantized=q, exponents=None if q else buf.exponents)
     hist_s = hist_s.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3)
     pool_sel = buf.pool[sel_k.to(torch.int64)]
     hist_l = torch.where(flags[1][:, None, None, None], hist_s, pool_sel - hist_s)
     hist_r = pool_sel - hist_l  # subtract_histogram, batched
     hists = torch.stack([hist_l, hist_r], dim=1).reshape(2 * K, G, num_bins, CH)
-    totals2 = hists[:, 0].sum(dim=1)  # [2K, CH]
+    totals2 = _totals(buf, hists[:, 0].sum(dim=1))  # [2K, CH]
     recs2 = find_best_split(hists, totals2, meta, params,
-                            buf.feature_mask if masked else None)
+                            buf.feature_mask if masked else None,
+                            scale=buf.scale if q else None)
     commit = replay_wave(buf.leaf_best, buf.depth, buf.rec_store, buf.start, buf.count,
                          buf.scalars, table, ranges[0], recs2, totals2, params, max_depth)
     # the committed children's histograms into the pool (an uncommitted
@@ -360,6 +398,8 @@ class _Grown:
         self.graphed = graphed
         self.num_leaves = num_leaves
         self._result: Optional[Tuple[np.ndarray, int, int, int, int]] = None
+        # quantized leaf renewal: [L, 2] (sum g, sum h) by leaf, with the results
+        self.leaf_sums: Optional[np.ndarray] = None
 
     def result(self) -> Tuple[np.ndarray, int, int, int]:
         """(rec_store [max(L-1, 1), STORE] float32, the final leaf count,
@@ -373,7 +413,10 @@ class _Grown:
             blob = buf.result_slots[self.slot]
             store_bytes = buf.rec_store.numel() * 4
             rec = blob[:store_bytes].view(torch.float32).view(-1, STORE).numpy()[:-1].copy()
-            words = blob[store_bytes:].view(torch.int64).numpy().copy()
+            words_end = store_bytes + (SCALARS + 1) * 8
+            words = blob[store_bytes:words_end].view(torch.int64).numpy().copy()
+            if buf.leaf_sums is not None:
+                self.leaf_sums = blob[words_end:].view(torch.float32).view(-1, 2).numpy().copy()
             buf.result_busy[self.slot] = False
             passes = int(words[SCALARS])
             if passes > self.num_leaves:
@@ -406,10 +449,13 @@ def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
           meta: FeatureMeta, tables: FeatureTables, params: torch.Tensor,
           feature_mask: Optional[torch.Tensor], num_leaves: int, num_bins: int,
           max_depth: int, batch: int, bagged: bool,
-          buffers: Optional[WaveBuffers]) -> _Grown:
+          buffers: Optional[WaveBuffers], scale: Optional[torch.Tensor] = None,
+          renew_gh: Optional[torch.Tensor] = None) -> _Grown:
     """Enqueue one tree's growth; see `grow_tree_on_device`. On a CUDA
     device it returns as soon as the tree is enqueued, without waiting for
-    the card."""
+    the card. With `renew_gh` [>= N, >= 2] (the float gradients; buffers
+    made with renew=True), the tree's (sum g, sum h) by leaf go to the host
+    with its results (`_Grown.leaf_sums`)."""
     L = num_leaves
     G, N = bins.shape
     CH = gh.shape[1]
@@ -421,7 +467,12 @@ def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
                          f"most 2**24 rows, got {N}")
     buf = buffers
     if buf is None:
-        buf = WaveBuffers(G, N, CH + 2, L, num_bins, CH, meta.gather_index.shape[0], dev)
+        buf = WaveBuffers(G, N, CH + 2, L, num_bins, CH, meta.gather_index.shape[0], dev,
+                          quantized=scale is not None, renew=renew_gh is not None)
+    if (scale is not None) != buf.quantized \
+            or (renew_gh is not None) != (buf.leaf_sums is not None):
+        raise ValueError("quantized gradients take a scale, leaf renewal the float "
+                         "gradients, and buffers made for them")
     inputs = (bins, meta, tables, params, int(num_bins), int(max_depth))
     if buf.inputs is None:
         buf.inputs = inputs
@@ -438,6 +489,8 @@ def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
     with global_timer.scope("tree_stage"):
         buf.gh.copy_(gh)
         buf.leaf0.copy_(leaf_id0)
+        if scale is not None:
+            buf.scale.copy_(scale)
         if masked:
             buf.feature_mask.copy_(feature_mask)
 
@@ -463,6 +516,9 @@ def _grow(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Tensor,
     row_p = buf.rows[cur0]
     leaf_id = torch.empty(N, dtype=torch.int32, device=dev)
     leaf_id[row_p[:, POS].to(torch.int64)] = row_p[:, LEAF].to(torch.int32)
+    if renew_gh is not None:  # bagged-out rows (leaf id -1) add nowhere
+        buf.leaf_sums.copy_(leaf_sums_fixed(renew_gh[:N], None,
+                                            torch.where(leaf_id >= 0, leaf_id, L), L))
     buf.result_slots[slot].copy_(buf.results, non_blocking=dev.type == "cuda")
     if dev.type == "cuda":
         buf.result_events[slot].record()
@@ -473,12 +529,15 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
                         meta: FeatureMeta, tables: FeatureTables, params: torch.Tensor,
                         feature_mask: Optional[torch.Tensor], num_leaves: int,
                         num_bins: int, max_depth: int, batch: int = 16,
-                        bagged: bool = False, buffers: Optional[WaveBuffers] = None
+                        bagged: bool = False, buffers: Optional[WaveBuffers] = None,
+                        scale: Optional[torch.Tensor] = None
                         ) -> Tuple[np.ndarray, torch.Tensor, int, int, int]:
     """Grow one leaf-wise tree, K = min(batch, num_leaves) splits per wave.
 
     bins [G, N] uint8 (not modified), gh [N, CH] float32 (bagged-out rows
-    must have zero gh), leaf_id0 [N] int32 (0 for in-bag rows, -1 otherwise;
+    must have zero gh), or, with `scale` [CH] float32 (quantized gradients,
+    the JAX grower's quantized=True and scale_vec), int8 or float32 small
+    integers; leaf_id0 [N] int32 (0 for in-bag rows, -1 otherwise;
     pass bagged=True when any row is bagged out, so the initial partition
     runs), params the learner's [6] float32 regularizers, feature_mask [F]
     bool or None for all. `buffers` holds the device carry for these shapes
@@ -491,7 +550,7 @@ def grow_tree_on_device(bins: torch.Tensor, gh: torch.Tensor, leaf_id0: torch.Te
     histogrammed — and n_waves), the JAX grower's five outputs. The host
     values arrive in one copy after the tree's last wave."""
     grown = _grow(bins, gh, leaf_id0, meta, tables, params, feature_mask, num_leaves,
-                  num_bins, max_depth, batch, bagged, buffers)
+                  num_bins, max_depth, batch, bagged, buffers, scale)
     rec_store, n_cur, hist_rows, n_waves = grown.result()
     return rec_store, grown.leaf_id, n_cur, hist_rows, n_waves
 
@@ -567,11 +626,13 @@ class DeviceTreeLearner(SerialTreeLearner):
         self.wave_k = self._wave_cap
         self.last_hist_rows = 0
         self.last_waves_launched = 0
+        self._renew = self.quantized and bool(config.quant_train_renew_leaf)
         # the gh payload is (grad, hess, count): 3 channels + position + leaf id
         with global_timer.scope("wave_buffers"):
             self._buffers = WaveBuffers(self.bins_dev.shape[0], self.num_data, 5,
                                         int(config.num_leaves), self.group_bin_padded, 3,
-                                        len(self.meta.real_feature), self.device)
+                                        len(self.meta.real_feature), self.device,
+                                        quantized=self.quantized, renew=self._renew)
 
     def train(self, gh_ext: torch.Tensor, bag_indices: Optional[np.ndarray] = None) -> Tree:
         return self.finalize(self.train_async(gh_ext, bag_indices))
@@ -580,7 +641,9 @@ class DeviceTreeLearner(SerialTreeLearner):
                     bag_indices: Optional[np.ndarray] = None) -> _PendingTree:
         cfg = self.config
         num_leaves = cfg.num_leaves
-        gh = gh_ext[:-1]
+        gh_float = gh_ext
+        # quantized over every row, then masked by the bag (device.py:1184-1199)
+        gh = self._prepare_gh(gh_ext)[:-1]
         if bag_indices is not None:
             in_bag = np.zeros(self.num_data, dtype=bool)
             in_bag[np.asarray(bag_indices, dtype=np.int64)] = True
@@ -599,7 +662,8 @@ class DeviceTreeLearner(SerialTreeLearner):
             grown = _grow(self.bins_dev, gh, leaf_id0, self.meta, self.tables,
                           self.params_dev, fmask, num_leaves, self.group_bin_padded,
                           cfg.max_depth, self.wave_k, bag_indices is not None,
-                          self._buffers)
+                          self._buffers, self._scale if self.quantized else None,
+                          gh_float if self._renew else None)
         return _PendingTree(Tree(num_leaves), grown, n_bag, wave_k=self.wave_k)
 
     def finalize(self, pending: _PendingTree) -> Tree:
@@ -637,7 +701,19 @@ class DeviceTreeLearner(SerialTreeLearner):
         self.partition = DevicePartition(pending.grown.leaf_id, counts)
         if tree.num_leaves == 1:
             tree.as_constant_tree(0.0)
+        elif self._renew:
+            self._renew_leaves(tree, pending.grown.leaf_sums)
         return tree
+
+    def _renew_leaves(self, tree: Tree, sums: np.ndarray) -> None:
+        """Quantized leaf renewal from the float gradients' leaf sums, which
+        came with the tree's results (the JAX package's
+        _renew_quantized_leaves_device)."""
+        cfg = self.config
+        for leaf in range(tree.num_leaves):
+            tree.set_leaf_output(leaf, _leaf_output_host(
+                float(sums[leaf, 0]), float(sums[leaf, 1]), cfg.lambda_l1, cfg.lambda_l2,
+                cfg.max_delta_step))
 
     def _record_wave_efficiency(self, pending: _PendingTree, n_waves: int,
                                 tree: Tree) -> None:

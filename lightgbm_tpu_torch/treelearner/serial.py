@@ -19,10 +19,17 @@ packed best-split record) plus one per partition (the left count).
 Histograms are cached per leaf (the HistogramPool analog), with an LRU cap
 when histogram_pool_size is set.
 
-This slice carries the numeric, unconstrained, unquantized learner.
-Categorical features, monotone and interaction constraints, CEGB, linear
-trees, forced splits and quantized gradients are refused when the learner
-is built (`refuse_unported`).
+This slice carries the numeric, unconstrained learner, with quantized
+gradients (use_quantized_grad: `_prepare_gh`, the JAX package's
+serial.py:197-295): each tree's gradients become int8 (g, h, 1) rows
+(ops/quantize.py, the discretizer kernel on the card) from the learner's
+threefry key, split once a tree; the leaf histograms are exact int32 (the
+histogram kernel's integer mode), subtracted in int32, and the split search
+scales them by the tree's per-channel scale (ops/split.py:find_best_split's
+`scale`); quant_train_renew_leaf renews the leaf outputs from the float
+gradients. Categorical features, monotone and interaction constraints,
+CEGB, linear trees and forced splits are refused when the learner is built
+(`refuse_unported`).
 """
 from __future__ import annotations
 
@@ -37,8 +44,10 @@ import torch
 from ..config import Config
 from ..io.dataset import Dataset
 from ..models.tree import Tree
-from ..ops.histogram import build_histogram_rows, fixed_point_exponents, subtract_histogram
+from ..ops.histogram import (build_histogram_rows, fixed_point_exponents, leaf_sums_fixed,
+                             subtract_histogram)
 from ..ops.partition import RowPartition
+from ..ops.quantize import prng_key, quantize_gh, split_key
 from ..ops.split import FeatureMeta, SplitInfo, find_best_split, make_feature_meta
 from ..utils.log import Log
 from ..utils.timer import global_timer
@@ -47,7 +56,7 @@ from .col_sampler import ColSampler
 
 @dataclass
 class _LeafState:
-    hist: Optional[torch.Tensor]  # [G, B, 3] leaf histogram
+    hist: Optional[torch.Tensor]  # [G, B, 3] leaf histogram (int32 when quantized)
     totals: Tuple[float, float, float]  # (sum_g, sum_h, count)
     split: Optional[SplitInfo]
     depth: int
@@ -67,7 +76,6 @@ def refuse_unported(config: Config, dataset: Dataset) -> None:
          "cost-effective gradient boosting (CEGB)"),
         (config.linear_tree, "linear trees"),
         (bool(config.forcedsplits_filename), "forced splits"),
-        (config.use_quantized_grad, "quantized training"),
     )
     for refused, what in checks:
         if refused:
@@ -108,6 +116,14 @@ class SerialTreeLearner:
             self._pool_cap = max(
                 2, int(config.histogram_pool_size * 1024 * 1024 / hist_bytes))
         self._hist_lru: "OrderedDict[int, bool]" = OrderedDict()
+        # quantized-gradient training (the GradientDiscretizer): the key
+        # stream is jax.random's from PRNGKey(data_random_seed), split once a
+        # tree on the host (ops/quantize.py)
+        self.quantized = bool(config.use_quantized_grad)
+        self._scale: Optional[torch.Tensor] = None  # [3] the tree's scales
+        self._gh_float: Optional[torch.Tensor] = None  # kept for leaf renewal
+        if self.quantized:
+            self._quant_key = prng_key(config.data_random_seed)
 
     # ------------------------------------------------------------------ train
 
@@ -142,14 +158,50 @@ class SerialTreeLearner:
 
         if tree.num_leaves == 1:
             tree.as_constant_tree(0.0)
+        elif self.quantized and cfg.quant_train_renew_leaf:
+            self._renew_quantized_leaves(tree)
         return tree
+
+    def _renew_quantized_leaves(self, tree: Tree) -> None:
+        """Recompute the leaf outputs from the float gradients, removing the
+        quantization error (GradientDiscretizer::RenewIntGradTreeOutput,
+        gradient_discretizer.cpp:166-233). Each leaf's (sum g, sum h) is
+        summed exactly in fixed point (ops/histogram.py:leaf_sums_fixed), so
+        the sums do not depend on the order of the rows or the device; they
+        reach the host in one copy."""
+        cfg = self.config
+        part = self.partition
+        L = tree.num_leaves
+        counts = [part.count(leaf) for leaf in range(L)]
+        rows = torch.cat([part.indices(leaf)[:cnt] for leaf, cnt in enumerate(counts)])
+        leaf = torch.repeat_interleave(torch.arange(L, device=self.device),
+                                       torch.as_tensor(counts, device=self.device))
+        sums = leaf_sums_fixed(self._gh_float, rows.to(torch.int64), leaf, L).cpu().numpy()
+        for i in range(L):
+            tree.set_leaf_output(i, _leaf_output_host(
+                float(sums[i, 0]), float(sums[i, 1]), cfg.lambda_l1, cfg.lambda_l2,
+                cfg.max_delta_step))
+
+    def _prepare_gh(self, gh_ext: torch.Tensor) -> torch.Tensor:
+        """With use_quantized_grad, the tree's int8 (g, h, 1) rows and zero
+        sentinel (ops/quantize.py:quantize_gh) from the next key of the
+        learner's stream; the scales are kept for the split search and the
+        float gradients for leaf renewal. Otherwise gh_ext as it is."""
+        if not self.quantized:
+            return gh_ext
+        self._gh_float = gh_ext
+        self._quant_key, sub = split_key(self._quant_key)
+        gh, self._scale = quantize_gh(gh_ext[:-1, 0], gh_ext[:-1, 1], sub,
+                                      self.config.num_grad_quant_bins,
+                                      self.config.stochastic_rounding)
+        return gh
 
     def _begin_tree(self, gh_ext: torch.Tensor,
                     bag_indices: Optional[np.ndarray]) -> None:
-        self._gh = gh_ext
+        self._gh = self._prepare_gh(gh_ext)
         # every leaf's rows are rows of gh_ext: the card's histograms of the
-        # tree share its fixed-point exponents
-        self._exps = fixed_point_exponents(gh_ext, self.num_data)
+        # tree share its fixed-point exponents (the integer mode has none)
+        self._exps = None if self.quantized else fixed_point_exponents(gh_ext, self.num_data)
         self._hist_lru.clear()
         partition = RowPartition(self.num_data, self.device)
         if bag_indices is not None:
@@ -170,7 +222,16 @@ class SerialTreeLearner:
 
     def _root_totals(self, root_hist: torch.Tensor) -> Tuple[float, float, float]:
         # any group's bins partition all rows, so group 0's bin-sum = totals
-        return tuple(float(x) for x in root_hist[0].sum(dim=0).cpu().numpy())
+        if not self.quantized:
+            return tuple(float(x) for x in root_hist[0].sum(dim=0).cpu().numpy())
+        # the JAX serial learner sums the scaled bins (serial.py:292-295).
+        # Each nonzero scaled bin is a float32 multiple of the last bit of
+        # the scale (its int32 count is at least 1), so while the bins hold
+        # fewer than 2**29 of the scale in all, their float64 sum is exact in
+        # any order; rounded to float32 once, the card and the CPU agree
+        scaled = root_hist[0].to(torch.float32) * self._scale
+        return tuple(float(x) for x in scaled.to(torch.float64).sum(dim=0)
+                     .to(torch.float32).cpu().numpy())
 
     def _node_feature_mask(self) -> Optional[torch.Tensor]:
         cs = self.col_sampler
@@ -183,7 +244,7 @@ class SerialTreeLearner:
     def _search_split(self, state: _LeafState) -> SplitInfo:
         # the totals go by value: no upload a call
         rec = find_best_split(state.hist, state.totals, self.meta, self.params_dev,
-                              self._node_feature_mask())
+                              self._node_feature_mask(), scale=self._scale)
         return SplitInfo.from_packed(rec.cpu().numpy())
 
     # --------------------------------------------------------------- internal

@@ -90,7 +90,7 @@ def test_histogram_kernel_matches_plain(cuda, shape):
     G, N, B, P, n_rows = shape
     bins, gh, snapped, q, idx = _hist_inputs(sum(shape), G, N, B, P, n_rows)
     b_d, i_d = torch.from_numpy(bins).to(cuda), torch.from_numpy(idx).to(cuda)
-    before = hist_cuda.launches["histogram"]
+    before = dict(hist_cuda.launches)
     for leaf in (None, i_d):
         for values, exact in ((snapped, True), (gh, False)):
             v_d = torch.from_numpy(values).to(cuda)
@@ -122,7 +122,9 @@ def test_histogram_kernel_matches_plain(cuda, shape):
     assert got.dtype == torch.int32
     assert torch.equal(got.cpu(), _build_histogram_rows_plain(
         torch.from_numpy(bins), torch.from_numpy(q), torch.from_numpy(idx), B))
-    assert hist_cuda.launches["histogram"] == before + 9
+    # the integer mode counts apart
+    assert hist_cuda.launches["histogram"] == before["histogram"] + 8
+    assert hist_cuda.launches["histogram_i32"] == before["histogram_i32"] + 1
 
 
 # (G, N, B, P, rows, count given): a leaf read to its count, the same read
@@ -294,7 +296,7 @@ def test_ragged_histogram_kernel_matches_plain(cuda, shape):
     args_h = [t(slot), t(starts), t(ends), t(valid)]
     args_d = [a.to(cuda) for a in args_h]
     b_d = t(bins).to(cuda)
-    before = hist_cuda.launches["histogram_slots_ragged"]
+    before = dict(hist_cuda.launches)
     for mode in ("snapped", "real", "quantized"):
         values = {"snapped": np.round(gh * 16) / 16, "real": gh,
                   "quantized": np.round(gh * 40)}[mode]
@@ -314,7 +316,10 @@ def test_ragged_histogram_kernel_matches_plain(cuda, shape):
             assert bool(((got.cpu().double() - ref.double()).abs() <= bound).all())
         else:
             assert torch.equal(got.cpu(), ref)
-    assert hist_cuda.launches["histogram_slots_ragged"] == before + 6
+    # the integer mode counts apart
+    assert hist_cuda.launches["histogram_slots_ragged"] == before["histogram_slots_ragged"] + 4
+    assert hist_cuda.launches["histogram_slots_ragged_i32"] == \
+        before["histogram_slots_ragged_i32"] + 2
 
 
 # (name, G, N, B, ranges, bins): every row in bin 0 (all adds on one cell a
@@ -1068,3 +1073,144 @@ def test_async_on_card_bit_identical_to_sync(cuda):
         out.append((bst._gbdt.score.cpu(), bst.model_to_string()))
     assert torch.equal(out[0][0], out[1][0])
     assert out[0][1] == out[1][1]
+
+
+QUANT_CASES = ["random", "const_hess", "zero", "boundary"]
+
+
+def _quant_inputs(case, n, rng):
+    g = (rng.normal(size=n) * 0.37).astype(np.float32)
+    h = rng.uniform(0.01, 0.25, size=n).astype(np.float32)
+    if case == "const_hess":
+        h[:] = 0.25
+    elif case == "zero":
+        g[:] = 0.0
+        h[:] = 0.0
+    elif case == "boundary":  # values a few ULP from g * inv_g + 0.5 meeting an integer
+        scale = np.float32(np.abs(g).max() / np.float32(2))
+        k = rng.randint(-2, 2, size=n)
+        g = (np.float32(k + 0.5) * scale).astype(np.float32)
+        steps = rng.randint(-3, 4, size=n)
+        g = np.where(steps < 0, np.nextafter(g, np.float32(-9)),
+                     np.where(steps > 0, np.nextafter(g, np.float32(9)), g)).astype(np.float32)
+        g = np.clip(g, -np.abs(g).max(), np.abs(g).max()).astype(np.float32)
+    return g, h
+
+
+@pytest.mark.parametrize("stochastic", [True, False], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("bins", [4, 16])
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_quantize_kernel_matches_plain(cuda, case, bins, stochastic):
+    """The discretizer's two launches against the plain version on the CPU,
+    bit for bit: the int8 rows, the sentinel, both scales; from the strided
+    gradient columns of an extended gradient array, as the learners pass
+    them."""
+    from lightgbm_tpu_torch.ops import quantize_cuda
+    from lightgbm_tpu_torch.ops.quantize import _quantize_gh_plain, prng_key
+
+    rng = np.random.RandomState(bins + 10 * stochastic)
+    n = 300_001
+    g, h = _quant_inputs(case, n, rng)
+    ext = np.zeros((n + 1, 3), np.float32)
+    ext[:n, 0], ext[:n, 1], ext[:n, 2] = g, h, 1.0
+    e_d = torch.from_numpy(ext).to(cuda)
+    for seed in (0, 77):
+        key = prng_key(seed)
+        before = dict(quantize_cuda.launches)
+        gh, scale = quantize_cuda.quantize(e_d[:-1, 0], e_d[:-1, 1], key, bins, stochastic)
+        again, _ = quantize_cuda.quantize(e_d[:-1, 0], e_d[:-1, 1], key, bins, stochastic)
+        torch.cuda.synchronize()
+        assert quantize_cuda.launches["quantize"] == before["quantize"] + 2
+        assert quantize_cuda.launches["quantize_reduce"] == before["quantize_reduce"] + 2
+        ref_gh, ref_scale = _quantize_gh_plain(torch.from_numpy(ext[:-1, 0]),
+                                               torch.from_numpy(ext[:-1, 1]), key, bins,
+                                               stochastic)
+        assert torch.equal(gh, again)
+        assert torch.equal(gh.cpu(), ref_gh)
+        assert torch.equal(scale.cpu().view(torch.int32), ref_scale.view(torch.int32))
+
+
+@pytest.mark.parametrize("leaves", [1, 6])
+def test_find_best_split_int_kernel_matches_plain(cuda, leaves):
+    """The split kernel's int32 mode: each value converted and scaled as it
+    is loaded. Records bit-equal to the plain version (hist.float() *
+    scale, then the float search) on the CPU, one leaf and a batch."""
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_rows
+    from lightgbm_tpu_torch.ops.quantize import prng_key, quantize_gh
+
+    rng = np.random.RandomState(41 + leaves)
+    n = 30000
+    X = rng.normal(size=(n, 9))
+    X[rng.rand(n, 9) < 0.05] = np.nan
+    ds = Dataset.from_matrix(X, label=np.zeros(n), config=Config({}))
+    B = int(max(ds.group_bin_counts().max(), 2))
+    meta_h = ts.make_feature_meta(ds, B, "cpu")
+    meta_d = ts.make_feature_meta(ds, B, cuda)
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.05, 0.3, size=n).astype(np.float32))
+    gh, scale = quantize_gh(g, h, prng_key(3), 4, True)
+    hists = []
+    for _ in range(leaves):
+        rows = np.sort(rng.choice(n, int(rng.randint(500, n)), replace=False)).astype(np.int32)
+        idx = np.concatenate([rows, np.full(64, n, np.int32)])
+        hists.append(build_histogram_rows(torch.from_numpy(ds.bins), gh, torch.from_numpy(idx),
+                                          B))
+    hist = torch.stack(hists) if leaves > 1 else hists[0]
+    tot = (hist[..., 0, :, :].sum(dim=-2).to(torch.float32) * scale)
+    params = torch.tensor(PARAMS)
+    ref = ts.find_best_split(hist, tot, meta_h, params, scale=scale)
+    name = "find_best_split_batched_int" if leaves > 1 else "find_best_split_int"
+    before = scan_cuda.launches[name]
+    got = ts.find_best_split(hist.to(cuda), tot.to(cuda), meta_d, params.to(cuda),
+                             scale=scale.to(cuda))
+    torch.cuda.synchronize()
+    assert scan_cuda.launches[name] == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def _host_logloss(preds, dataset):
+    """The binary logloss gradients, unsnapped, computed on the host: the
+    card's torch.exp differs from the CPU's in the last bit on a share of
+    float32 inputs, so the built-in objective's gradients do too."""
+    p = 1.0 / (1.0 + np.exp(-preds))
+    label = dataset.get_label()
+    return p - label, p * (1.0 - p)
+
+
+def _quant_snapped_logloss(preds, dataset):
+    p = 1.0 / (1.0 + np.exp(-preds))
+    label = dataset.get_label()
+    return (np.round((p - label) * 16) / 16,
+            np.round(np.maximum(p * (1.0 - p), 1.0 / 16) * 16) / 16)
+
+
+@pytest.mark.parametrize("renew", [False, True], ids=["renew_off", "renew_on"])
+@pytest.mark.parametrize("learner", ["wave", "serial"])
+def test_quantized_training_on_card_byte_equal_to_cpu(cuda, learner, renew):
+    """Quantized training (stochastic rounding, 4 bins, a bag) on the card
+    against the CPU: renewal off on the binary logloss gradients computed on
+    the host, unsnapped, renewal on with snapped ones; model text
+    byte-equal, through the
+    wave learner (a CPU GBDT whose learner is the wave learner) and the
+    serial learner (feature_fraction_bynode 0.8)."""
+    rng = np.random.RandomState(43)
+    X = rng.normal(size=(20000, 10))
+    y = (X[:, 0] - 0.5 * X[:, 2] + 0.3 * rng.normal(size=20000) > 0).astype(np.float64)
+    fobj = _quant_snapped_logloss if renew else _host_logloss
+    params = {"objective": "none", "num_leaves": 31, "verbosity": -1,
+              "use_quantized_grad": True, "quant_train_renew_leaf": renew,
+              "bagging_fraction": 0.8, "bagging_freq": 1}
+    if learner == "serial":
+        params["feature_fraction_bynode"] = 0.8
+    texts = []
+    for dev in ("cuda", "cpu"):
+        train = lt.Dataset(X, label=y)
+        bst = lt.Booster(params={**params, "device_type": dev}, train_set=train)
+        if learner == "wave" and dev == "cpu":
+            bst._gbdt.tree_learner = DeviceTreeLearner(bst._gbdt.config, train._handle,
+                                                       torch.device("cpu"))
+        assert isinstance(bst._gbdt.tree_learner, DeviceTreeLearner) == (learner == "wave")
+        for _ in range(4):
+            bst.update(fobj=fobj)
+        texts.append(bst.model_to_string())
+    assert texts[0] == texts[1]

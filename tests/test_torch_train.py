@@ -204,7 +204,6 @@ REFUSED = [
     ({"cegb_penalty_split": 0.5}, "CEGB"),
     ({"linear_tree": True}, "linear trees"),
     ({"forcedsplits_filename": "forced.json"}, "forced splits"),
-    ({"use_quantized_grad": True}, "quantized"),
     ({"data_sample_strategy": "goss"}, "GOSS"),
     ({"boosting": "dart"}, "dart"),
     ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1}, "rf"),
