@@ -145,12 +145,55 @@ Phases (any failure exits non-zero before the result line):
             many rounds (the JAX package's margin, tests/test_quantized.py);
             the model text's hash, to compare two runs.
 
+13. goss    GOSS (data_sample_strategy=goss, top_rate 0.2, other_rate 0.1)
+            on phase 8's data at learning rate 0.1, so rounds 1-10 are its
+            warm-up and rounds 11-15 sample: exact first (65,536 rows, 63
+            leaves, 8 rounds at learning rate 0.5 on snapped gradients, which the
+            multiplier 8 keeps snapped; card and CPU model texts byte-equal
+            through both learners), then 15 rounds through the wave learner
+            and 13 through the serial one (feature_fraction_bynode=0.8), as
+            phases 8 and 9 report them, and for rounds 2-10 and the sampling
+            rounds apart: s/iteration, rows in the bag, rows histogrammed and
+            waves a tree, the bagging scope's host time in its parts (the
+            MT19937 position draw, the selection's enqueue and its card time
+            by CUDA events, the out-of-bag set) and the valid AUC. A profiled
+            sampling round of the wave learner copies neither the bag's mask
+            nor the out-of-bag set to the host (no device-to-host copy of N
+            bytes or more; the bag's host indices never made); the selection
+            at full width on the card bit-equal to the CPU's and to the host
+            path's.
+14. categorical  the airline data's shapes from --seed (szilard/benchm-ml,
+            ASA Data Expo 2009 dep_delayed_15min: Month 12, DayofMonth 31,
+            DayOfWeek 7, UniqueCarrier 22, Origin and Dest 250 Zipf-skewed
+            categories, DepTime and Distance numeric; 1,048,576 rows cut
+            from 10 M) as a pandas DataFrame with category columns: exact
+            first (16,384 rows, 63 leaves, 3 rounds, gradients computed on the host,
+            snapped for the float run, whose histograms agree where their sums
+            are exact, unsnapped for the quantized one: card and CPU model
+            texts byte-equal), then 10 rounds
+            through the serial learner (255 leaves, learning rate 0.1,
+            max_cat_to_onehot 8, bagging 0.8) with a 65,536-row validation
+            set, as phase 9 reports it: one-hot and sorted-subset splits a
+            tree (both must occur), valid AUC rising, the train score equal
+            to predict(raw_score=True) within 1e-6 on the training rows, the
+            model reloaded from its file predicting bit-equal, 64-row
+            binary-wire requests bit-equal to Booster.predict, and the
+            categorical scan's host and card time a leaf (its record on the
+            card bit-equal to the CPU's).
+
+The Booster surface: after phase 8, dump_model parses and its leaf values
+and thresholds equal the model text's, feature_importance ("split" and
+"gain") equals the CPU Booster's loaded from the text, lower_bound and
+upper_bound are printed; in phase 11 a third pair of runs with
+callback.reset_parameter halving the rate after 10 rounds, pipeline on and
+off, has a byte-equal model text and a bit-equal final train score.
+
 The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving path), and again just before and after each of phases
-8, 9, 10 and 11 and of phase 12's two full-width runs (the training paths):
-every kernel of each path must have launched there; across phase 12 the
-discretizer and the integer modes of the ragged and leaf histograms and of
-the split kernel. The last three lines are the kernels' JSON record, the card's name
+8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
+of phases 13 and 14 (the training paths): every kernel of each path must
+have launched there; across phase 12 the discretizer and the integer modes
+of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile-of DIR
@@ -477,7 +520,7 @@ def record_serial_splits(lt, train_set, params):
     kept = {}
     split = pmod.RowPartition.split
 
-    def record(self, leaf, new_leaf, bins_row, decision):
+    def record(self, leaf, new_leaf, bins_row, decision, cat_mask=None):
         cnt = self.leaf_count[leaf]
         item = (bins_row.clone(), self.leaf_idx[leaf].clone(), cnt, tuple(decision),
                 self.num_data)
@@ -485,7 +528,7 @@ def record_serial_splits(lt, train_set, params):
         for name, target in (("leaf", LEAF_ROWS), ("small", SMALL_LEAF_ROWS)):
             if name not in kept or abs(cnt - target) < abs(kept[name][2] - target):
                 kept[name] = item
-        return split(self, leaf, new_leaf, bins_row, decision)
+        return split(self, leaf, new_leaf, bins_row, decision, cat_mask)
 
     pmod.RowPartition.split = record
     try:
@@ -1871,6 +1914,7 @@ def drive_async(lt, libs, train_set, tag):
     out = {}
     for label, asyn in (("async", True), ("sync", False)):
         out[label] = async_pass(lt, train_set, asyn)
+    sched = async_schedule_pair(lt, train_set)
     launches = {}
     for lib in libs:
         launches.update(lib.launches)
@@ -1927,6 +1971,14 @@ def drive_async(lt, libs, train_set, tag):
                   "three rounds, not one results copy and one wait a tree")
     print(f"async: {2 * ASYNC_ROUNDS} rounds, model text ({len(text_a)} bytes) byte-equal and "
           "the final train score bit-equal to the synchronous path's")
+    (text_a, score_a, pend_a), (text_s, score_s, _) = sched[True], sched[False]
+    check(pend_a, "async (rate schedule): no tree pending after the last update")
+    check(text_a == text_s and torch.equal(score_a, score_s),
+          "async (rate schedule): the model text or the final train score differs from the "
+          "synchronous path's")
+    print(f"async, callback.reset_parameter(learning_rate=[0.125] * {ASYNC_ROUNDS} + [0.0625] "
+          f"* {ASYNC_ROUNDS}): {2 * ASYNC_ROUNDS} rounds, model text ({len(text_a)} bytes) "
+          "byte-equal and the final train score bit-equal to the synchronous path's")
     print(f"async path launches: {launches}")
     return launches, report
 
@@ -2281,6 +2333,536 @@ def drive_quantized(lt, libs, train_set, valid, X_train, y_train, float_runs, se
               f"the float run's {f_auc:.5f}")
     print(f"quantized path launches: {launches}")
     return launches, {"quantize": (t_quant, b_quant), "modes": (t_modes, b_modes)}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: GOSS
+
+GOSS_PARAMS = {"data_sample_strategy": "goss", "top_rate": 0.2, "other_rate": 0.1}
+GOSS_ROUNDS, GOSS_SERIAL_ROUNDS, GOSS_EXACT_ROUNDS = 15, 13, 8
+EXACT_LEAVES = 63  # the exact runs of phases 13 and 14: the CPU's share of the time
+
+
+class GossClock:
+    """While entered, records by iteration the host seconds of the GOSS
+    strategy's `bagging` call, of its MT19937 position draw and of the
+    enqueue of its selection, the card's milliseconds in the selection
+    (CUDA events around it), and the host seconds of the GBDT's out-of-bag
+    set (`_refresh_bag_cache`): the `bagging` scope in its parts."""
+
+    def __init__(self):
+        self.records = {}
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.models import gbdt, sample_strategy as ss
+
+        self._saved = ((ss.GOSSStrategy, "bagging", ss.GOSSStrategy.bagging),
+                       (ss.GOSSStrategy, "draw_positions", ss.GOSSStrategy.draw_positions),
+                       (ss, "goss_select", ss.goss_select),
+                       (gbdt.GBDT, "_refresh_bag_cache", gbdt.GBDT._refresh_bag_cache))
+        (_, _, bagging), (_, _, draw), (_, _, select), (_, _, refresh) = self._saved
+        records, current = self.records, [None]
+
+        def timed(fn, key):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                records.setdefault(current[0], {})[key] = time.perf_counter() - t
+                return out
+            return run
+
+        def timed_bagging(strategy, iteration, grad, hess):
+            current[0] = iteration
+            return timed(bagging, "bagging")(strategy, iteration, grad, hess)
+
+        def timed_select(*args, **kwargs):
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = timed(select, "select_host")(*args, **kwargs)
+            pair[1].record()
+            records[current[0]]["events"] = pair
+            return out
+
+        ss.GOSSStrategy.bagging = timed_bagging
+        ss.GOSSStrategy.draw_positions = timed(draw, "draw")
+        ss.goss_select = timed_select
+        gbdt.GBDT._refresh_bag_cache = timed(refresh, "oob")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        torch.cuda.synchronize()
+        for rec in self.records.values():
+            pair = rec.pop("events", None)
+            if pair is not None:
+                rec["select_card"] = pair[0].elapsed_time(pair[1]) * 1e-3
+        return False
+
+
+def goss_windows(run, clock, rounds, warmup, n_rows, n_bag):
+    """Rounds 2..warmup (no sampling) and warmup+1..rounds apart: s/iteration,
+    rows in the bag, rows histogrammed a tree, waves a tree, the bagging
+    scope's host time in its parts and the selection's card time (ms a
+    round), and the valid AUC at the window's end."""
+    out = {}
+    waves = np.asarray(run["waves"], np.float64)
+    for name, lo, hi in (("warm-up", 1, warmup), ("sampling", warmup, rounds)):
+        it = np.arange(lo, hi)
+        recs = [clock.records.get(int(i), {}) for i in it]
+
+        def ms(key):
+            return float(np.mean([r.get(key, 0.0) for r in recs]) * 1e3)
+
+        out[name] = {
+            "rounds": f"{lo + 1}-{hi}", "s_iter": float(np.mean(run["per_iter"][it])),
+            "bag": n_bag if name == "sampling" else n_rows,
+            "hist_rows": float(np.mean(np.asarray(run["hist_rows"], np.float64)[it])),
+            "waves": float(np.mean(waves[it])) if len(waves) >= hi else 0.0,
+            "bagging_ms": ms("bagging") + ms("oob"), "draw_ms": ms("draw"),
+            "select_host_ms": ms("select_host"), "select_card_ms": ms("select_card"),
+            "oob_ms": ms("oob"), "auc": run["valid_auc"][hi - 1]}
+    return out
+
+
+def sampling_round_transfers(lt, params, train_set, warmup):
+    """One GOSS sampling round (Booster.update, no metric) of a booster
+    past its warm-up, under torch.profiler: its device-to-host copies (each
+    one's bytes) and host synchronizations, from the trace; and whether
+    the bag's host indices were ever made."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    bst = lt.Booster({**params, "metric": "None"}, train_set)
+    for _ in range(warmup + 1):
+        bst.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_round"):
+            bst.update()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    span = next(e for e in events if e.get("name") == "chip_smoke_round"
+                and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation")
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    d2h = [int(e.get("args", {}).get("bytes", 0)) for e in events if e.get("ph") == "X"
+           and e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")
+           and t0 <= float(e.get("ts", -1))]
+    syncs = [e["name"] for e in events if e.get("ph") == "X"
+             and e.get("cat") == "cuda_runtime" and "Synchronize" in e.get("name", "")
+             and t0 <= float(e.get("ts", -1)) <= t1]
+    bag = bst._gbdt._cur_bag
+    return d2h, syncs, bag, bst._gbdt.tree_learner._buffers.results.numel()
+
+
+def check_goss_selection(lt, booster, iteration):
+    """GOSS's selection at full width on the booster's final gradients: the
+    card's mask and rescaled g, h bit-equal to the same code on the CPU and
+    to the JAX package's host path as the port keeps it (`bagging_host`).
+    Returns the CPU selection's milliseconds."""
+    gbdt = booster._gbdt
+    strategy = gbdt.sample_strategy
+    g, h = gbdt.objective.get_gradients(gbdt.score[0])
+    g, h = g[None], h[None]
+    bag, gc, hc = strategy.bagging(iteration, g, h)
+    t = time.perf_counter()
+    bag_cpu, g_cpu, h_cpu = strategy.bagging(iteration, g.cpu(), h.cpu())
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    host, g_host, h_host = strategy.bagging_host(iteration, g.cpu(), h.cpu())
+    check(torch.equal(bag.mask.cpu(), bag_cpu.mask),
+          "goss: the card's bag mask differs from the CPU selection's")
+    for what, a, b in (("g", gc, g_cpu), ("h", hc, h_cpu), ("g (host path)", gc, g_host),
+                       ("h (host path)", hc, h_host)):
+        check(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
+              f"goss: the card's rescaled {what} differs from the CPU's")
+    check(bool(np.array_equal(bag.indices, host)),
+          "goss: the card's bag differs from the host path's")
+    return cpu_ms, bag.n_bag
+
+
+def first_difference(a: str, b: str) -> str:
+    """The first line where two model texts differ, both sides, shortened."""
+    for i, (la, lb) in enumerate(zip(a.splitlines(), b.splitlines())):
+        if la != lb and not la.startswith("tree_sizes="):
+            return f"line {i}: {la[:160]!r} against {lb[:160]!r}"
+    return f"lengths {len(a)} and {len(b)}"
+
+
+def drive_goss(lt, libs, train_set, valid, X_train, y_train, tag):
+    """Phase 13: GOSS through both learners on the main path's data.
+    Returns the launches of the phase's two runs and the report."""
+    warmup = int(1.0 / WAVE_PARAMS["learning_rate"])
+    # ---- exact: the card trains as the CPU does, through both learners
+    Xe, ye = X_train[:EXACT_ROWS], y_train[:EXACT_ROWS]
+    exact = {**WAVE_PARAMS, **GOSS_PARAMS, "learning_rate": 0.5, "metric": "None",
+             "num_leaves": EXACT_LEAVES}
+    for learner in ("wave", "serial"):
+        out = _exact_quantized(lt, Xe, ye, exact, snapped_logloss, GOSS_EXACT_ROUNDS, learner)
+        check(out["card"][0] == out["cpu"][0],
+              f"exact goss ({learner}): the card's model text differs from the CPU's, "
+              + first_difference(out["card"][0], out["cpu"][0]))
+        print(f"exact goss ({learner}): {EXACT_ROWS} rows, {EXACT_LEAVES} leaves, "
+              f"{GOSS_EXACT_ROUNDS} rounds at "
+              f"learning rate 0.5 (sampling from round 3), snapped gradients: card and CPU "
+              f"model texts byte-equal ({len(out['card'][0])} bytes; leaves "
+              f"{out['card'][2]}; card {out['card'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s)")
+    # ---- full width through both learners
+    launches, report = {}, {}
+    for label, params, rounds, required in (
+            ("wave", {**WAVE_PARAMS, **GOSS_PARAMS}, GOSS_ROUNDS,
+             ("histogram_slots_ragged", "partition_decide", "partition_scan",
+              "partition_scatter", "relabel_rows", "find_best_split",
+              "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
+              "predict_forest_raw")),
+            ("serial", {**TRAIN_PARAMS, **GOSS_PARAMS}, GOSS_SERIAL_ROUNDS,
+             ("histogram", "find_best_split", "row_partition_decide",
+              "row_partition_scatter", "predict_forest_raw"))):
+        with GossClock() as clock:
+            run = drive_training(lt, libs, params, train_set, valid, rounds, required, tag,
+                                 f"{label}, goss")
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        booster = run["booster"]
+        bag = booster._gbdt._cur_bag
+        check(type(bag).__name__ == "DeviceBag" and (label == "serial" or bag._host is None),
+              f"goss ({label}): the last round's bag is a {type(bag).__name__}"
+              + ("" if bag is None or bag._host is None else " read to the host"))
+        windows = goss_windows(run, clock, rounds, warmup, train_set.num_data(), len(bag))
+        report[label] = windows
+        for name, w in windows.items():
+            waves = "" if label == "serial" else (
+                f"rows histogrammed a tree {w['hist_rows'] / TRAIN_ROWS:.2f}N; waves a tree "
+                f"{w['waves']:.1f}; ")
+            print(f"{tag} goss ({label}) rounds {w['rounds']} ({name}): s/iteration "
+                  f"{w['s_iter']:.4f}; rows in the bag {w['bag']}; {waves}bagging scope "
+                  f"{w['bagging_ms']:.3f} ms a round (host): the MT19937 position draw "
+                  f"{w['draw_ms']:.3f} ms, the selection's enqueue {w['select_host_ms']:.3f} "
+                  f"ms and {w['select_card_ms']:.3f} ms on the card (CUDA events), the "
+                  f"out-of-bag set {w['oob_ms']:.3f} ms; valid AUC {w['auc']:.5f}")
+        if label == "wave":
+            d2h, syncs, last_bag, results = sampling_round_transfers(lt, params, train_set,
+                                                                     warmup)
+            big = [b for b in d2h if b >= train_set.num_data()]
+            print(f"{tag} goss (wave): one profiled sampling round (Booster.update, round "
+                  f"{warmup + 2}): {len(d2h)} device-to-host copies, {sorted(d2h)} bytes (the "
+                  f"tree's results {results}), {len(syncs)} host synchronizations ("
+                  + ", ".join(f"{n} {syncs.count(n)}" for n in sorted(set(syncs)))
+                  + "); the bag's host indices "
+                  + ("made" if last_bag._host is not None else "never made")
+                  + " (torch.profiler trace)")
+            check(not big and last_bag._host is None,
+                  f"goss (wave): a sampling round copied {big} bytes to the host (the "
+                  "mask or the out-of-bag set)")
+            cpu_ms, n_bag = check_goss_selection(lt, booster, rounds)
+            print(f"{tag} goss: the selection at full width ({TRAIN_ROWS} rows, the wave "
+                  f"run's final gradients, {n_bag} rows in the bag): the card's mask and "
+                  f"rescaled g, h bit-equal to the CPU's and to the host path's; the CPU "
+                  f"selection {cpu_ms:.1f} ms")
+    print(f"goss path launches: {launches}")
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
+# phase 14: categorical features
+
+# the airline on-time data of szilard/benchm-ml (ASA Data Expo 2009,
+# dep_delayed_15min): 6 categorical columns and 2 numeric ones; rows cut from
+# 10 M, airports from ~300 to 250 (with bin 0, 251 bins: one byte a group)
+AIRLINE_ROWS, AIRLINE_VALID_ROWS, AIRLINE_EXACT_ROWS = 1_048_576, 65_536, 16_384
+AIRLINE_CARRIERS, AIRLINE_AIRPORTS = 22, 250
+CAT_ROUNDS, CAT_EXACT_ROUNDS = 10, 3
+# max_cat_to_onehot 8: DayOfWeek's 7 categories (8 bins with bin 0) take the
+# one-hot lane, the wider columns the sorted subset
+CAT_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
+              "max_cat_to_onehot": 8, "bagging_fraction": 0.8, "bagging_freq": 1,
+              "metric": "auc", "verbosity": -1}
+AIRLINE_COLUMNS = ("Month", "DayofMonth", "DayOfWeek", "UniqueCarrier", "Origin", "Dest",
+                   "DepTime", "Distance")
+
+
+def airline_frame(seed: int, n: int):
+    """Rows in the shapes of the airline data from a seed, as a pandas
+    DataFrame with `category` columns (benchm-ml's "c-8"-style months and
+    days, carrier and airport codes): Month 12, DayofMonth 31, DayOfWeek 7
+    and UniqueCarrier 22 categories, Origin and Dest 250 each Zipf-skewed,
+    DepTime in 0-2400 (hhmm), Distance in miles; the label,
+    dep_delayed_15min, drawn from a fixed logistic function of them (about
+    a fifth of the rows delayed)."""
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    zipf = 1.0 / np.arange(1, AIRLINE_AIRPORTS + 1)
+    zipf /= zipf.sum()
+    # carriers' market shares falling with rank (the smallest ~1.3%)
+    share = 1.0 / np.arange(1, AIRLINE_CARRIERS + 1) ** 0.8
+    share /= share.sum()
+    month = rng.randint(0, 12, n)
+    dom = rng.randint(0, 31, n)
+    dow = rng.randint(0, 7, n)
+    carrier = rng.choice(AIRLINE_CARRIERS, n, p=share)
+    origin = rng.choice(AIRLINE_AIRPORTS, n, p=zipf)
+    dest = rng.choice(AIRLINE_AIRPORTS, n, p=zipf)
+    hour = np.clip(rng.normal(13.5, 4.5, n), 0, 23.99)
+    dep = (hour.astype(np.int64) * 100 + rng.randint(0, 60, n)).astype(np.float64)
+    dist = np.clip(rng.lognormal(6.4, 0.6, n), 30, 4983).round()
+    fx = {name: rng.normal(0, scale, k) for name, scale, k in (
+        ("month", 0.25, 12), ("dow", 0.15, 7), ("carrier", 0.35, AIRLINE_CARRIERS),
+        ("origin", 0.4, AIRLINE_AIRPORTS), ("dest", 0.3, AIRLINE_AIRPORTS),
+        ("dom", 0.1, 31))}
+    f = (-1.45 + fx["month"][month] + fx["dow"][dow] + fx["carrier"][carrier]
+         + fx["origin"][origin] + fx["dest"][dest] + fx["dom"][dom]
+         + 0.09 * (hour - 13.5) + 0.00008 * (dist - 700))
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-f))).astype(np.float64)
+
+    def cat(codes, labels):
+        return pd.Categorical.from_codes(codes, categories=labels)
+
+    airports = [f"A{i:03d}" for i in range(AIRLINE_AIRPORTS)]
+    frame = pd.DataFrame({
+        "Month": cat(month, [f"c-{i}" for i in range(1, 13)]),
+        "DayofMonth": cat(dom, [f"c-{i}" for i in range(1, 32)]),
+        "DayOfWeek": cat(dow, [f"c-{i}" for i in range(1, 8)]),
+        "UniqueCarrier": cat(carrier, [f"C{i:02d}" for i in range(AIRLINE_CARRIERS)]),
+        "Origin": cat(origin, airports), "Dest": cat(dest, airports),
+        "DepTime": dep, "Distance": dist})
+    return frame, y
+
+
+def check_categorical_scan(gbdt, dev):
+    """The categorical scan (ops/split.py:best_categorical_record, PyTorch
+    ops on the card) on the root histogram of the trained booster's
+    gradients: host milliseconds to enqueue a call, card milliseconds a call
+    (CUDA events), the split kernel's numeric search beside it; and its
+    record bit-equal to the same code on the CPU."""
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_rows, fixed_point_exponents
+    from lightgbm_tpu_torch.models.gbdt import _pack_gh
+    from lightgbm_tpu_torch.ops.scan_cuda import split_find
+    from lightgbm_tpu_torch.ops.split import best_categorical_record, make_feature_meta
+
+    g, h = gbdt.objective.get_gradients(gbdt.score[0])
+    tl = gbdt.tree_learner
+    gh = _pack_gh(g, h)
+    n = gbdt.num_data
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    hist = build_histogram_rows(tl.bins_dev, gh, rows, tl.group_bin_padded, count=n,
+                                exponents=fixed_point_exponents(gh, n))
+    totals = hist[0].sum(dim=0)
+    args = (hist, totals, tl.meta, tl.params_dev)
+    card = best_categorical_record(*args)
+    cpu = best_categorical_record(hist.cpu(), totals.cpu(),
+                                  make_feature_meta(gbdt.train_set, tl.group_bin_padded, "cpu"),
+                                  tl.params_dev.cpu())
+    check(torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32)),
+          "categorical: the scan's record on the card differs from the CPU's")
+    host = host_ms(lambda: best_categorical_record(*args), 20)
+    ms = cuda_ms(lambda: best_categorical_record(*args), 20)
+    numeric = cuda_ms(lambda: split_find(*args), 20)
+    return {"host": host, "card": ms, "numeric": numeric}
+
+
+def split_kinds(booster, max_onehot):
+    """Per tree: (one-hot splits, sorted-subset splits), a categorical node
+    being one-hot when its feature has at most max_cat_to_onehot bins."""
+    mappers = booster.train_set._handle.mappers
+    out = []
+    for tree in booster._gbdt.models:
+        onehot = subset = 0
+        for node in range(tree.num_leaves - 1):
+            if int(tree.decision_type[node]) & 1:
+                if mappers[int(tree.split_feature[node])].num_bin <= max_onehot:
+                    onehot += 1
+                else:
+                    subset += 1
+        out.append((onehot, subset))
+    return out
+
+
+def drive_categorical(lt, libs, seed, tag):
+    """Phase 14: categorical features through the serial learner at the
+    airline data's shapes. Returns the launches of the phase's main run and
+    the report."""
+    from lightgbm_tpu_torch.basic import _pandas_to_matrix
+    from lightgbm_tpu_torch.serving import PredictionService, serve, wire
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    frame, y = airline_frame(seed + 40, AIRLINE_ROWS + AIRLINE_VALID_ROWS)
+    train_df, valid_df = frame.iloc[:AIRLINE_ROWS], frame.iloc[AIRLINE_ROWS:]
+    y_train, y_valid = y[:AIRLINE_ROWS], y[AIRLINE_ROWS:]
+    train_set = lt.Dataset(train_df, label=y_train,
+                           params={"max_bin": CAT_PARAMS["max_bin"]}).construct()
+    core = train_set._handle
+    cats = [f for f in core.used_features if core.mappers[f].bin_type == 1]
+    check(len(cats) == 6, f"categorical: {len(cats)} categorical features, not 6")
+    bins = {AIRLINE_COLUMNS[f]: core.mappers[f].num_bin for f in core.used_features}
+    check(int(core.group_bin_counts().max()) <= 256 and core.bins.dtype == np.uint8,
+          f"categorical: the groups take more than one byte ({bins})")
+    # the dummy bin 0 holds what the binner cut (at most min(categories,
+    # max_bin) bins: the rarest airport), which no split sends left
+    dummy = {AIRLINE_COLUMNS[f]: int((core.bins[core.feature_to_group[f][0]] == 0).sum())
+             for f in cats}
+    print(f"categorical data: {AIRLINE_ROWS} rows (airline shapes, categorical_feature auto "
+          f"from the DataFrame's category columns), delayed {y_train.mean():.3f}; bins a "
+          f"feature {bins}; rows in the dummy bin 0 {dummy}; binned in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- exact: the card trains as the CPU does, float and quantized
+    ex_df, ex_y = train_df.iloc[:AIRLINE_EXACT_ROWS], y_train[:AIRLINE_EXACT_ROWS]
+    base = {**CAT_PARAMS, "bagging_fraction": 1.0, "bagging_freq": 0, "metric": "None",
+            "num_leaves": EXACT_LEAVES}
+    # the float histograms agree where their sums are exact (the card sums in
+    # fixed point, the CPU in float32), so the float run takes snapped
+    # gradients; the quantized run's int32 sums are exact on any gradients
+    for what, extra, fobj in (("float, snapped", {}, snapped_logloss),
+                              ("quantized, unsnapped", QUANT_PARAMS, host_logloss)):
+        out = _exact_quantized(lt, ex_df, ex_y, {**base, **extra}, fobj, CAT_EXACT_ROUNDS,
+                               "serial")
+        check(out["card"][0] == out["cpu"][0],
+              f"exact categorical ({what}): the card's model text differs from the CPU's, "
+              + first_difference(out["card"][0], out["cpu"][0]))
+        n_cat = out["card"][0].count("num_cat=") - out["card"][0].count("num_cat=0")
+        print(f"exact categorical ({what}): {AIRLINE_EXACT_ROWS} rows, {EXACT_LEAVES} leaves, "
+              f"{CAT_EXACT_ROUNDS} "
+              f"rounds, gradients computed on the host: card and CPU model texts byte-equal "
+              f"({len(out['card'][0])} bytes; {n_cat} trees with categorical splits; leaves "
+              f"{out['card'][2]}; card {out['card'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s)")
+
+    # ---- full width through the serial learner
+    run = drive_training(lt, libs, CAT_PARAMS, train_set, (valid_df, y_valid), CAT_ROUNDS,
+                         ("histogram", "find_best_split", "row_partition_decide",
+                          "row_partition_scatter", "predict_forest_raw"), tag, "categorical")
+    bst = run["booster"]
+    kinds = split_kinds(bst, CAT_PARAMS["max_cat_to_onehot"])
+    onehot, subset = (sum(k[i] for k in kinds) for i in (0, 1))
+    check(onehot > 0 and subset > 0,
+          f"categorical: one-hot splits {onehot}, sorted-subset splits {subset}: both must "
+          "occur")
+    auc = run["valid_auc"]
+    check(auc[-1] > auc[0], f"categorical: valid AUC did not rise: {auc}")
+    gap = float(np.abs(bst._gbdt.score[0].cpu().numpy()
+                       - bst.predict(train_df, raw_score=True)).max())
+    check(gap <= 1e-6, f"categorical: with bagging the train score differs from "
+          f"predict(raw_score=True) by {gap}")
+    scan = check_categorical_scan(bst._gbdt, dev)
+    steady = float(np.mean(run["per_iter"][1:]))
+    print(f"{tag} categorical: {CAT_ROUNDS} rounds, bagging 0.8: s/iteration {steady:.3f} "
+          f"(rounds 2-{CAT_ROUNDS}); per tree one-hot splits {onehot / CAT_ROUNDS:.1f}, "
+          f"sorted-subset splits {subset / CAT_ROUNDS:.1f} (of "
+          f"{CAT_PARAMS['num_leaves'] - 1} splits); valid AUC "
+          + " ".join(f"{a:.5f}" for a in auc)
+          + f"; train score against predict(raw_score=True) on the {AIRLINE_ROWS} training "
+          f"rows max |d| {gap:.3g}")
+    print(f"{tag} categorical scan a leaf (the root, {len(cats)} categorical of "
+          f"{len(core.used_features)} features, PyTorch ops replayed as one CUDA graph): host "
+          f"{scan['host']:.4f} ms to enqueue, {scan['card']:.4f} ms of CUDA events a call; "
+          f"the split kernel's numeric search {scan['numeric']:.4f} ms; its record bit-equal "
+          f"to the CPU's")
+    # ---- serving: 64-row binary-wire requests, the categories as their codes
+    X_valid = _pandas_to_matrix(valid_df, bst.pandas_categorical)[0].astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cat_") as tmp:
+        path = os.path.join(tmp, "airline.txt")
+        bst.save_model(path)
+        check(bool(np.array_equal(lt.Booster(model_file=path).predict(valid_df),
+                                  bst.predict(valid_df))),
+              "categorical: the model loaded from its file predicts differently")
+        svc = PredictionService(max_batch_rows=4096, min_bucket=64, batch_window_s=0.001)
+        server, server_thread = serve(svc, port=0)
+        base_url = f"http://127.0.0.1:{server.port}"
+        try:
+            req = urllib.request.Request(
+                base_url + "/models", data=json.dumps({"name": "airline", "path": path}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                check(resp.status == 200, "categorical serving: model upload refused")
+            for i in range(8):
+                rows = X_valid[i * 64:(i + 1) * 64]
+                r = urllib.request.Request(base_url + "/predict",
+                                           data=wire.encode_request("airline", rows),
+                                           headers={"Content-Type": wire.CONTENT_TYPE},
+                                           method="POST")
+                with urllib.request.urlopen(r, timeout=120) as resp:
+                    got = wire.decode_response(resp.read())[0]
+                check(bool(np.array_equal(got, bst.predict(valid_df.iloc[i * 64:(i + 1) * 64]))),
+                      f"categorical serving: request {i} differs from Booster.predict")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+            server_thread.join(timeout=10)
+    print("categorical: the model reloads from its file and predicts bit-equal; 8 requests "
+          "of 64 rows served over the binary wire bit-equal to Booster.predict of the "
+          "DataFrame")
+    return run["launches"], {"scan": scan, "s_iter": steady, "onehot": onehot,
+                             "subset": subset, "auc": auc, "gap": gap}
+
+
+# ---------------------------------------------------------------------------
+# the Booster surface
+
+def check_booster_surface(lt, booster, tag):
+    """After phase 8: dump_model parses, its leaf values and thresholds equal
+    the model text's; feature_importance equals the CPU Booster's loaded
+    from the same text; the score bounds printed."""
+    text = booster.model_to_string()
+    dump = json.loads(json.dumps(booster.dump_model()))
+    trees = [dict(line.split("=", 1) for line in sec.splitlines() if "=" in line)
+             for sec in text.split("Tree=")[1:]]
+    check(len(dump["tree_info"]) == len(trees) == booster.num_trees(),
+          f"booster surface: {len(dump['tree_info'])} trees dumped for {len(trees)}")
+    for info, kv in zip(dump["tree_info"], trees):
+        leaves, thresholds = {}, {}
+        stack = [info["tree_structure"]]
+        while stack:
+            node = stack.pop()
+            if "leaf_index" in node:
+                leaves[node["leaf_index"]] = node["leaf_value"]
+            elif "split_index" in node:
+                thresholds[node["split_index"]] = node["threshold"]
+                stack += [node["left_child"], node["right_child"]]
+        want_leaves = [float(v) for v in kv["leaf_value"].split()]
+        want_thr = [float(v) for v in kv["threshold"].split()]
+        check([leaves[i] for i in range(len(want_leaves))] == want_leaves
+              and [thresholds[i] for i in range(len(want_thr))] == want_thr,
+              f"booster surface: tree {info['tree_index']}'s dumped leaf values or "
+              "thresholds differ from the model text's")
+    host = lt.Booster(model_str=text, params={"device_type": "cpu"})
+    for kind in ("split", "gain"):
+        check(bool(np.array_equal(booster.feature_importance(kind),
+                                  host.feature_importance(kind))),
+              f"booster surface: feature_importance({kind!r}) differs from the CPU Booster's")
+    imp = booster.feature_importance("gain")
+    print(f"{tag} booster surface: dump_model of {len(trees)} trees parses, leaf values and "
+          f"thresholds equal to the model text's; feature_importance split "
+          f"{booster.feature_importance('split').tolist()}, gain (top 3 features "
+          f"{np.argsort(-imp)[:3].tolist()}) equal to the CPU Booster's; lower_bound "
+          f"{booster.lower_bound():.6f}, upper_bound {booster.upper_bound():.6f}")
+
+
+def async_schedule_pair(lt, train_set):
+    """Phase 11's third pair: 2 x ASYNC_ROUNDS Booster.update() rounds with
+    callback.reset_parameter halving the learning rate after ASYNC_ROUNDS,
+    the pipeline on and off. Returns (model text, final train score, whether
+    a tree was pending at the end) of each."""
+    from lightgbm_tpu_torch.callback import CallbackEnv
+
+    rounds = 2 * ASYNC_ROUNDS
+    schedule = lt.reset_parameter(learning_rate=[0.125] * ASYNC_ROUNDS
+                                  + [0.0625] * ASYNC_ROUNDS)
+    out = {}
+    for asyn in (True, False):
+        params = dict(ASYNC_PARAMS)
+        bst = lt.Booster(dict(params), train_set)
+        bst._gbdt._async_pipeline = asyn
+        for it in range(rounds):
+            schedule(CallbackEnv(model=bst, params=params, iteration=it, begin_iteration=0,
+                                 end_iteration=rounds, evaluation_result_list=None))
+            bst.update()
+        pending = bst._gbdt._pending is not None
+        out[asyn] = (bst.model_to_string(), bst._gbdt.score.clone(), pending)
+    return out
 
 
 def profile_other(checkout: str, seed: int) -> int:
@@ -2870,6 +3452,8 @@ def main() -> int:
           f"{int((rows <= 4 * TRAIN_ROWS).sum())} of {TRAIN_ROUNDS} trees at most 4N); "
           f"wave width at the end {c.get('wave_k')}")
 
+    check_booster_surface(lt, wave["booster"], tag)
+
     # ------------------------------- training, serial learner
     serial = drive_training(lt, libs, TRAIN_PARAMS, train_set, valid, SERIAL_ROUNDS,
                             ("histogram", "find_best_split", "row_partition_decide",
@@ -2914,7 +3498,17 @@ def main() -> int:
     for name in ("quantize_reduce", "quantize", "histogram_slots_ragged_i32",
                  "histogram_i32", "find_best_split_int", "find_best_split_batched_int"):
         check(q_launches[name] > 0, f"quantized path: kernel {name} never launched")
-    paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches)
+    torch.cuda.empty_cache()
+
+    # ------------------------------- GOSS, both learners
+    goss_launches, _ = drive_goss(lt, libs, train_set, valid, X_train, y_train, tag)
+    torch.cuda.empty_cache()
+
+    # ------------------------------- categorical features, serial learner
+    cat_launches, _ = drive_categorical(lt, libs, args.seed, tag)
+    torch.cuda.empty_cache()
+    paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
+             goss_launches, cat_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)

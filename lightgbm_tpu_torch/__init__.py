@@ -7,14 +7,17 @@ Hopper (``csrc/``). Entry points run on the CUDA card unless the caller
 asks for the CPU (``device_type=cpu``, ``PredictionService(device="cpu")``);
 with no card they raise instead of falling back.
 
-Ported so far: training through the host-driven serial learner
-(``train``, ``Dataset``, ``Booster(params, train_set)``) on dense numeric
-binary and regression data; load a model text, ``Booster.predict`` (raw,
-converted or leaf indices); and the prediction service with its HTTP front
-(``lightgbm_tpu_torch.serving``).
+Ported so far: training (``train``, ``Dataset``, ``Booster(params,
+train_set)``) through the wave learner on the card and the serial learner
+elsewhere: binary, regression and multiclass objectives, bagging and GOSS,
+quantized gradients, categorical features (pandas ``category`` columns
+included); the Booster's predict (raw, converted or leaf indices), model
+text and JSON dump, feature importances, score bounds and
+``reset_parameter`` (with ``callback.reset_parameter``); and the prediction
+service with its HTTP front (``lightgbm_tpu_torch.serving``).
 """
 from .basic import Booster, Dataset
-from .callback import early_stopping, log_evaluation, record_evaluation
+from .callback import early_stopping, log_evaluation, record_evaluation, reset_parameter
 from .config import Config, resolve_device
 from .engine import train
 from .models.serialize import GBDTModel
@@ -34,6 +37,7 @@ __all__ = [
     "log_evaluation",
     "record_evaluation",
     "register_log_callback",
+    "reset_parameter",
     "resolve_device",
     "train",
     "__version__",

@@ -4,7 +4,11 @@ Counterpart of the JAX package's ``basic.py`` (python-package/lightgbm/
 basic.py Dataset :1773, Booster :3581): lazy Dataset construction with
 reference alignment for validation data, and the Booster that trains
 (``Booster(params, train_set)``, ``update``, ``add_valid``, ``eval_*``) or
-loads a model from a file or string, predicts and saves.
+loads a model from a file or string, predicts and saves, dumps the model as
+JSON, reports feature importances and the score bounds, and takes new
+parameters between iterations (``reset_parameter``). A pandas DataFrame's
+``category`` columns train as categorical features and map through the
+training categories at predict time (``pandas_categorical``).
 
 The Booster runs on the CUDA card unless ``params={"device_type": "cpu"}``
 asks for the CPU; with no card and no such request it raises. Not ported
@@ -15,6 +19,7 @@ predict, refit and rollback.
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -37,14 +42,47 @@ def _is_sparse(data) -> bool:
     return hasattr(data, "tocsc") and hasattr(data, "nnz")
 
 
+def _pandas_to_matrix(df, pandas_categorical=None):
+    """DataFrame -> (float64 matrix, categorical column indices, per-column
+    category lists), the JAX package's and the python-package's
+    _data_from_pandas: `category` columns become their integer codes (NaN
+    for a missing or unseen category); with `pandas_categorical` (predict
+    time, or a validation set) the values map through the training
+    categories."""
+    import pandas as pd
+
+    cat_cols = [i for i, dt in enumerate(df.dtypes) if str(dt) == "category"]
+    bad = [str(df.columns[i]) for i, dt in enumerate(df.dtypes)
+           if i not in cat_cols and not (pd.api.types.is_numeric_dtype(dt)
+                                         or pd.api.types.is_bool_dtype(dt))]
+    if bad:
+        raise ValueError("DataFrame.dtypes for data must be int, float or bool. Did not "
+                         "expect the data types in the following fields: " + ", ".join(bad))
+    if pandas_categorical is not None and len(cat_cols) != len(pandas_categorical):
+        raise ValueError("train and valid dataset categorical_feature do not match")
+    if not cat_cols:
+        return df.to_numpy(dtype=np.float64, na_value=np.nan), [], None
+    df = df.copy(deep=False)
+    cats_out = []
+    for k, i in enumerate(cat_cols):
+        col = df.iloc[:, i]
+        if pandas_categorical is not None:
+            cats = list(pandas_categorical[k])
+            col = col.cat.set_categories(cats)
+        else:
+            cats = list(col.cat.categories)
+        cats_out.append(cats)
+        codes = col.cat.codes.to_numpy(dtype=np.float64, copy=True)
+        codes[codes < 0] = np.nan  # missing or unseen categories
+        df.isetitem(i, codes)
+    return df.to_numpy(dtype=np.float64, na_value=np.nan), cat_cols, cats_out
+
+
 def _to_2d_float(data) -> np.ndarray:
     if hasattr(data, "toarray"):  # scipy sparse
         data = data.toarray()
     elif _is_dataframe(data):
-        if any(str(dt) == "category" for dt in data.dtypes):
-            Log.fatal("pandas categorical columns are not yet ported to the "
-                      "PyTorch package (ROADMAP Queue 1 item 6)")
-        data = data.to_numpy(dtype=np.float64, na_value=np.nan)
+        data = _pandas_to_matrix(data)[0]
     elif hasattr(data, "values") and not isinstance(data, np.ndarray):
         data = data.values
     arr = np.asarray(data, dtype=np.float64)
@@ -75,6 +113,7 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self._handle: Optional[_CoreDataset] = None
         self._raw: Optional[np.ndarray] = None
+        self.pandas_categorical = None
 
     # ------------------------------------------------------------ construction
 
@@ -89,9 +128,21 @@ class Dataset:
             Log.fatal("Datasets from text or binary files are not yet ported "
                       "to the PyTorch package (ROADMAP Queue 1 item 12); pass a "
                       "numpy or scipy matrix")
-        if _is_dataframe(data) and self.feature_name == "auto":
-            feature_names = [str(c) for c in data.columns]
-        X = data if _is_sparse(data) else _to_2d_float(data)
+        if _is_dataframe(data):
+            # a validation frame encodes through the training set's
+            # category lists, not its own
+            ref_pc = None
+            if self.reference is not None:
+                self.reference.construct()
+                ref_pc = self.reference.pandas_categorical
+            X, pd_cat_cols, pd_cats = _pandas_to_matrix(data, ref_pc)
+            self.pandas_categorical = ref_pc if ref_pc is not None else pd_cats
+            if self.feature_name == "auto":
+                feature_names = [str(c) for c in data.columns]
+            if pd_cat_cols and self.categorical_feature == "auto":
+                self.categorical_feature = pd_cat_cols
+        else:
+            X = data if _is_sparse(data) else _to_2d_float(data)
         if isinstance(self.feature_name, (list, tuple)):
             feature_names = list(self.feature_name)
 
@@ -208,6 +259,7 @@ class Booster:
             objective = create_objective(self.config.objective, self.config)
             self._gbdt = GBDT(self.config, train_set._handle, objective, self.device)
             self.train_set = train_set
+            self.pandas_categorical = train_set.pandas_categorical
             return
         if model_file is None and model_str is None:
             raise TypeError("Need at least one training dataset or model file "
@@ -307,6 +359,8 @@ class Booster:
                       self.params.get("pred_shard_rows")) is not None:
             Log.fatal("row-sharded predict (pred_shard_rows) is not yet "
                       "ported to the PyTorch package")
+        if _is_dataframe(data) and self.pandas_categorical:
+            data = _pandas_to_matrix(data, self.pandas_categorical)[0]
         if isinstance(data, np.ndarray) and data.dtype == np.float32 \
                 and data.ndim == 2:
             X = data
@@ -341,6 +395,7 @@ class Booster:
         if self.train_set is not None:
             model = self._gbdt.to_model()
             model.best_iteration = self.best_iteration
+            model.pandas_categorical = self.pandas_categorical
             return model
         return self._model
 
@@ -360,6 +415,44 @@ class Booster:
             num_iteration = self.best_iteration if self.best_iteration > 0 else -1
         return self._get_model().to_string(start_iteration, num_iteration or -1,
                                            importance_type)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict:
+        """The model as a JSON-ready dict (basic.py dump_model)."""
+        if num_iteration is None:
+            num_iteration = self.best_iteration if self.best_iteration > 0 else -1
+        return json.loads(self._get_model().dump_json(start_iteration, num_iteration or -1,
+                                                      importance_type))
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Per feature: the count of splits (int64) or their total gain
+        (float64), over positive-gain splits."""
+        imp = self._get_model().feature_importance(importance_type, iteration or 0)
+        return imp if importance_type == "gain" else imp.astype(np.int64)
+
+    def lower_bound(self) -> float:
+        """The sum over trees of each tree's least leaf value."""
+        self._gbdt._flush_pending()
+        vals = [t.leaf_value[: t.num_leaves].min() for t in self._gbdt.models]
+        return float(np.sum(vals)) if vals else 0.0
+
+    def upper_bound(self) -> float:
+        """The sum over trees of each tree's largest leaf value."""
+        self._gbdt._flush_pending()
+        vals = [t.leaf_value[: t.num_leaves].max() for t in self._gbdt.models]
+        return float(np.sum(vals)) if vals else 0.0
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Take new parameters for the iterations to come (basic.py
+        reset_parameter): the shrinkage rate, and the learner's regularizers
+        and tree size (GBDT.reset_config)."""
+        self.params.update(params)
+        self.config.set(params)
+        if self.train_set is not None:
+            self._gbdt.reset_config(self.config)
+        return self
 
 
 def _objective_from_string(objective_str: Optional[str], config: Config):

@@ -1,9 +1,9 @@
 """Training callbacks.
 
 Counterpart of the JAX package's ``callback.py`` (python-package/lightgbm/
-callback.py): early_stopping (:278,456), log_evaluation (:109) and
-record_evaluation (:183), with the same CallbackEnv protocol and
-before/after-iteration ordering.
+callback.py): early_stopping (:278,456), log_evaluation (:109),
+record_evaluation (:183) and reset_parameter (:241), with the same
+CallbackEnv protocol and before/after-iteration ordering.
 """
 from __future__ import annotations
 
@@ -33,6 +33,35 @@ def _format_eval_result(value, show_stdv: bool = True) -> str:
             return f"{value[0]}'s {value[1]}: {value[2]:g} + {value[4]:g}"
         return f"{value[0]}'s {value[1]}: {value[2]:g}"
     raise ValueError("Wrong metric value")
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Before each iteration, set parameters from a per-round list (as long
+    as the number of rounds) or a function of the round; only values that
+    differ from the current ones reach Booster.reset_parameter."""
+    def _callback(env: CallbackEnv) -> None:
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(f"Length of list {key!r} has to equal to "
+                                     f"'num_boost_round'.")
+                new_param = value[env.iteration - env.begin_iteration]
+            elif callable(value):
+                new_param = value(env.iteration - env.begin_iteration)
+            else:
+                raise ValueError("Only list and callable values are supported as a mapping "
+                                 "from boosting round index to new parameter value.")
+            if new_param != env.params.get(key, None):
+                new_parameters[key] = new_param
+        if new_parameters:
+            if env.model is not None:
+                env.model.reset_parameter(new_parameters)
+            env.params.update(new_parameters)
+
+    _callback.before_iteration = True
+    _callback.order = 10
+    return _callback
 
 
 def log_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:

@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``engine.py`` (python-package/lightgbm/
 engine.py train :109): parameter normalization, validation wiring, the
 before/after-iteration callback loop and early stopping. ``cv`` and
 continued training from ``init_model`` are later work (ROADMAP Queue 1
-item 6).
+item 6.7).
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     params = key_alias_transform(params or {})
     if init_model is not None:
         Log.fatal("continued training (init_model) is not yet ported to the "
-                  "PyTorch package (ROADMAP Queue 1 item 6)")
+                  "PyTorch package (ROADMAP Queue 1 item 6.7)")
     # num_boost_round param aliases override the argument (engine.py:158-170)
     if "num_iterations" in params:
         num_boost_round = int(params.pop("num_iterations"))

@@ -439,10 +439,16 @@ class BinMapper:
             if self.missing_type == MISSING_NAN:
                 bins[nan_mask] = self.num_bin - 1
             return bins
-        out = np.zeros(len(values), dtype=np.int32)
-        for i, v in enumerate(values):
-            out[i] = 0 if math.isnan(v) else self.categorical_2_bin.get(int(v), 0)
-        return out
+        # categorical: the bin of int(value), bin 0 for NaN and for a
+        # category the mapper does not know
+        if not self.categorical_2_bin:
+            return np.zeros(len(values), dtype=np.int32)
+        keys = np.array(sorted(self.categorical_2_bin), dtype=np.float64)
+        bins_of = np.array([self.categorical_2_bin[int(k)] for k in keys], dtype=np.int32)
+        iv = np.trunc(values)
+        at = np.minimum(np.searchsorted(keys, iv), len(keys) - 1)
+        known = ~np.isnan(iv) & (keys[at] == iv)
+        return np.where(known, bins_of[at], 0).astype(np.int32)
 
     def bin_to_value(self, bin_idx: int) -> float:
         """Real threshold for a bin (BinMapper::BinToValue)."""

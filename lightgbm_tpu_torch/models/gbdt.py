@@ -22,7 +22,7 @@ takes its update straight from the device split log
 (ops/score.py:apply_split_log_to_score), and tree t-1 is replayed into its
 Tree on the host while the card grows tree t. Every reader of the model or
 the scores flushes the pending tree first (`_flush_pending`). Refit and
-rollback are later work (ROADMAP Queue 1 item 6).
+rollback are later work (ROADMAP Queue 1 item 6.7).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from ..config import Config
 from ..io.dataset import Dataset
 from ..metrics import create_metric
 from ..objectives.registry import ObjectiveFunction
-from ..ops.partition import pad_indices
+from ..ops.partition import bucket_size, pad_indices
 from ..ops.predict import (PredictorCache, pack_ensemble, predict_leaf_indices,
                            predict_raw, predict_raw_streamed, stream_chunk_rows,
                            to_device_rows)
@@ -43,7 +43,7 @@ from ..ops.score import add_tree_to_score, apply_split_log_to_score
 from ..treelearner.serial import create_tree_learner
 from ..utils.log import Log
 from ..utils.timer import global_timer
-from .sample_strategy import create_sample_strategy
+from .sample_strategy import DeviceBag, create_sample_strategy
 from .serialize import GBDTModel
 from .tree import Tree
 
@@ -114,12 +114,12 @@ class GBDT:
                                          for c in range(self.num_tree_per_iteration)]
         if config.boosting not in ("gbdt", "gbrt", "gbm", "goss"):
             Log.fatal("boosting=%s is not yet ported to the PyTorch package "
-                      "(ROADMAP Queue 1 item 6)", config.boosting)
+                      "(ROADMAP Queue 1 item 6.6)", config.boosting)
         self.tree_learner = create_tree_learner(config.tree_learner, self.device,
                                                 config, train_set)
         self.sample_strategy = create_sample_strategy(
             config, n, train_set.metadata, self.num_tree_per_iteration)
-        self._cur_bag: Optional[np.ndarray] = None
+        self._cur_bag = None  # host indices or a DeviceBag
         self._oob_padded: Optional[torch.Tensor] = None
         self.train_metrics = self._create_metrics(train_set)
         # scores [C, N]
@@ -175,6 +175,17 @@ class GBDT:
         for vd in self.valid_sets:
             vd.score[class_id] += torch.tensor(value, dtype=torch.float32,
                                                device=self.device)
+
+    def reset_config(self, config: Config) -> None:
+        """Take changed parameters between iterations
+        (Booster.reset_parameter): the pending tree is finalized first with
+        the rate it was grown under, then the shrinkage rate and the
+        learner follow the new configuration (`_async_enabled` reads the
+        rate each iteration)."""
+        self._flush_pending()
+        self.config = config
+        self.shrinkage_rate = config.learning_rate
+        self.tree_learner.reset_config(config)
 
     # --------------------------------------------------- async tree pipeline
 
@@ -351,18 +362,32 @@ class GBDT:
 
     # ------------------------------------------------------------------ score
 
-    def _refresh_bag_cache(self, bag: Optional[np.ndarray]) -> None:
+    def _refresh_bag_cache(self, bag) -> None:
         """The bag is reused across bagging_freq iterations, so the padded
-        out-of-bag index array is computed once per bag change."""
+        out-of-bag index array is computed once per bag change (GOSS gives
+        a new bag, a new object, every sampling iteration). A DeviceBag's
+        set is built on its device from the mask, with no host copy (the
+        JAX package's gbdt.py:459-470): in-bag rows take the sentinel N,
+        which sorts past every row index, as pad_indices pads."""
         if bag is self._cur_bag:
             return
         self._cur_bag = bag
-        if bag is None or len(bag) >= self.num_data:
+        n = self.num_data
+        if bag is None or len(bag) >= n:
             self._oob_padded = None
+        elif isinstance(bag, DeviceBag):
+            p = bucket_size(n - bag.n_bag)
+            base = torch.where(bag.mask, n, torch.arange(n, dtype=torch.int32,
+                                                         device=bag.mask.device))
+            if p > n:
+                base = torch.cat([base, torch.full((p - n,), n, dtype=torch.int32,
+                                                   device=base.device)])
+            self._oob_padded = torch.sort(base).values[:p]
         else:
-            oob = np.setdiff1d(np.arange(self.num_data, dtype=np.int32), bag)
-            self._oob_padded = torch.from_numpy(
-                pad_indices(oob, self.num_data)).to(self.device)
+            out = np.ones(n, dtype=bool)
+            out[bag] = False
+            oob = np.flatnonzero(out).astype(np.int32)  # setdiff1d of the distinct bag
+            self._oob_padded = torch.from_numpy(pad_indices(oob, n)).to(self.device)
 
     def _update_train_score(self, tree: Tree, class_id: int) -> None:
         """score[row] += leaf value for every in-bag row, then the out-of-bag

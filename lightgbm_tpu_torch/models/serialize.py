@@ -230,3 +230,52 @@ class GBDTModel:
         except OSError as exc:
             Log.fatal("Cannot read model file %s: %s", filename, exc)
         return cls.from_string(text, source=filename)
+
+    # ------------------------------------------------------------------- JSON
+
+    def dump_json(self, start_iteration: int = 0, num_iteration: int = -1,
+                  importance_type: str = "split") -> str:
+        """GBDT::DumpModel (gbdt_model_text.cpp:26-123): the header, each
+        tree's JSON and the feature importances, as one JSON string."""
+        num_used_model = len(self.trees)
+        if num_iteration > 0:
+            num_used_model = min((start_iteration + num_iteration) * self.num_tree_per_iteration,
+                                 num_used_model)
+        start_model = start_iteration * self.num_tree_per_iteration
+        tree_infos = ['{"tree_index":%d,%s}' % (idx - start_model,
+                                               self.trees[idx].to_json()[1:-1])
+                      for idx in range(start_model, num_used_model)]
+        imp = self.feature_importance(importance_type,
+                                      num_iteration if num_iteration > 0 else 0)
+        pairs = [(int(imp[i]), self.feature_names[i]) for i in range(len(imp))
+                 if int(imp[i]) > 0]
+        pairs.sort(key=lambda p: -p[0])
+        feat_imp = ",".join(f'"{n}":{c}' for c, n in pairs)
+        feature_infos_json = []
+        for info in self.feature_infos:
+            if info.startswith("["):
+                lo, hi = info[1:-1].split(":")
+                feature_infos_json.append({"min_value": float(lo), "max_value": float(hi),
+                                           "values": []})
+            elif info == "none":
+                feature_infos_json.append({"min_value": 0, "max_value": 0, "values": []})
+            else:
+                vals = [int(float(x)) for x in info.split(":")]
+                feature_infos_json.append({"min_value": min(vals), "max_value": max(vals),
+                                           "values": vals})
+        head = {
+            "name": self.name,
+            "version": MODEL_VERSION,
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": self.label_index,
+            "max_feature_idx": self.max_feature_idx,
+        }
+        if self.objective_str:
+            head["objective"] = self.objective_str
+        head["average_output"] = self.average_output
+        head["feature_names"] = self.feature_names
+        head["monotone_constraints"] = self.monotone_constraints
+        head["feature_infos"] = {n: fi for n, fi in zip(self.feature_names, feature_infos_json)}
+        out = json.dumps(head)[:-1] + ',"tree_info":[' + ",".join(tree_infos) + '],'
+        return out + '"feature_importances":{' + feat_imp + "}}"

@@ -307,3 +307,51 @@ class Tree:
                     else:
                         stack.append((child, depth + 1))
         return tree
+
+    # ------------------------------------------------------------------ JSON
+
+    def to_json(self) -> str:
+        """The tree as DumpModel's JSON object (tree.cpp ToJSON): nested
+        split and leaf nodes; a categorical node's threshold is its
+        categories joined by "||" with decision "=="."""
+        import json
+
+        def node_json(node: int):
+            if node < 0:
+                leaf = ~node
+                return {"leaf_index": leaf, "leaf_value": self.leaf_value[leaf],
+                        "leaf_weight": self.leaf_weight[leaf],
+                        "leaf_count": int(self.leaf_count[leaf])}
+            dt = int(self.decision_type[node])
+            missing = ["None", "Zero", "NaN"][(dt >> 2) & 3]
+            if dt & _CATEGORICAL_MASK:
+                cat_idx = int(self.threshold[node])
+                lo, hi = self.cat_boundaries[cat_idx], self.cat_boundaries[cat_idx + 1]
+                cats = [(w - lo) * 32 + b for w in range(lo, hi) for b in range(32)
+                        if (self.cat_threshold[w] >> b) & 1]
+                threshold, decision = "||".join(str(c) for c in cats), "=="
+            else:
+                threshold, decision = self.threshold[node], "<="
+            return {
+                "split_index": node,
+                "split_feature": int(self.split_feature[node]),
+                "split_gain": float(self.split_gain[node]),
+                "threshold": threshold,
+                "decision_type": decision,
+                "default_left": bool(dt & _DEFAULT_LEFT_MASK),
+                "missing_type": missing,
+                "internal_value": self.internal_value[node],
+                "internal_weight": self.internal_weight[node],
+                "internal_count": int(self.internal_count[node]),
+                "left_child": node_json(int(self.left_child[node])),
+                "right_child": node_json(int(self.right_child[node])),
+            }
+
+        body = {"num_leaves": self.num_leaves, "num_cat": self.num_cat,
+                "shrinkage": self.shrinkage}
+        if self.num_leaves == 1:
+            body["tree_structure"] = {"leaf_value": self.leaf_value[0],
+                                      "leaf_count": int(self.leaf_count[0])}
+        else:
+            body["tree_structure"] = node_json(0)
+        return json.dumps(body)

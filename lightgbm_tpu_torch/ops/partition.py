@@ -8,8 +8,10 @@ padded device index array. Padding uses the sentinel index N, which
   * is dropped by the score update.
 
 A split evaluates the bin-level decision (NumericalDecisionInner semantics,
-include/LightGBM/tree.h:357-371) as a 256-entry go-left table over the
-split group's bin values (`go_left_table`), then partitions the parent's
+include/LightGBM/tree.h:357-371; for a categorical split, membership of the
+bin in the split's bin set, CategoricalDecisionInner, tree.h:375-388) as a
+256-entry go-left table over the split group's bin values
+(`go_left_table`), then partitions the parent's
 rows stably into the children's index sets (`split_rows`): left rows in
 order, then right rows, each padded with N. Children take power-of-two
 padded buffers (`bucket_size`), which the predict streamer and the serving
@@ -23,7 +25,7 @@ same integers as the JAX ``RowPartition.split``.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +50,19 @@ def pad_indices(idx: np.ndarray, n_data: int, minimum: int = 256) -> np.ndarray:
     return out
 
 
+def _feature_bins(gb: torch.Tensor, decision: Sequence[float]) -> torch.Tensor:
+    """Group bins -> the split feature's natural bins: for an EFB bundle,
+    a group bin in [lo, hi) undoes the default-bin removal shift, anything
+    else is the default bin."""
+    default_bin = int(decision[3])
+    lo, hi = int(decision[5]), int(decision[6])
+    if decision[7] <= 0.5:
+        return gb
+    shifted = gb - lo
+    natural = shifted + (shifted >= default_bin).to(torch.int32)
+    return torch.where((gb >= lo) & (gb < hi), natural, torch.full_like(gb, default_bin))
+
+
 def split_decision_bins(group_bins: torch.Tensor,
                         decision: Sequence[float]) -> torch.Tensor:
     """go_left for raw GROUP bins of the split group.
@@ -64,17 +79,7 @@ def split_decision_bins(group_bins: torch.Tensor,
     missing_type = int(decision[2])
     default_bin = int(decision[3])
     nbins = int(decision[4])
-    lo, hi = int(decision[5]), int(decision[6])
-    gb = group_bins.to(torch.int32)
-    if decision[7] > 0.5:
-        # EFB translation: group bin in [lo, hi) -> natural feature bin (undo
-        # the default-bin removal shift); anything else -> default bin
-        shifted = gb - lo
-        natural = shifted + (shifted >= default_bin).to(torch.int32)
-        fbin = torch.where((gb >= lo) & (gb < hi), natural,
-                           torch.full_like(gb, default_bin))
-    else:
-        fbin = gb
+    fbin = _feature_bins(group_bins.to(torch.int32), decision)
     if missing_type == MISSING_NAN:
         is_missing = fbin == nbins - 1
     elif missing_type == MISSING_ZERO:
@@ -85,11 +90,27 @@ def split_decision_bins(group_bins: torch.Tensor,
                        fbin <= thresh)
 
 
-def go_left_table(decision: Sequence[float]) -> np.ndarray:
-    """[256] bool: `split_decision_bins` of every value a uint8 group bin
-    takes, the table the row partition looks each row's bin up in."""
-    return split_decision_bins(torch.arange(GROUP_BINS, dtype=torch.int32),
-                               decision).numpy()
+def split_decision_bins_cat(group_bins: torch.Tensor, decision: Sequence[float],
+                            cat_mask: np.ndarray) -> torch.Tensor:
+    """go_left for a categorical split: membership of the (EFB-translated)
+    feature bin in the split's bin set `cat_mask` ([B] bool over feature
+    bins; a bin past it goes right), the JAX package's
+    split_decision_bins_cat."""
+    fbin = _feature_bins(group_bins.to(torch.int32), decision)
+    mask = torch.as_tensor(np.asarray(cat_mask, dtype=bool), device=fbin.device)
+    B = mask.shape[0]
+    return mask[torch.clamp(fbin, 0, B - 1).to(torch.int64)] & (fbin < B)
+
+
+def go_left_table(decision: Sequence[float],
+                  cat_mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """[256] bool: `split_decision_bins` (or, with a categorical split's bin
+    set `cat_mask`, `split_decision_bins_cat`) of every value a uint8 group
+    bin takes, the table the row partition looks each row's bin up in."""
+    bins = torch.arange(GROUP_BINS, dtype=torch.int32)
+    if cat_mask is not None:
+        return split_decision_bins_cat(bins, decision, cat_mask).numpy()
+    return split_decision_bins(bins, decision).numpy()
 
 
 def _split_rows_plain(bins_row: torch.Tensor, row_idx: torch.Tensor, count: int,
@@ -166,13 +187,15 @@ class RowPartition:
         return self.leaf_count[leaf]
 
     def split(self, leaf: int, new_leaf: int, bins_row: torch.Tensor,
-              decision: Sequence[float]) -> Tuple[int, int]:
+              decision: Sequence[float],
+              cat_mask: Optional[np.ndarray] = None) -> Tuple[int, int]:
         """Split `leaf` in place; left stays as `leaf`, right becomes
-        `new_leaf`. Returns (left_count, right_count)."""
+        `new_leaf`. A categorical split passes its bin set `cat_mask`.
+        Returns (left_count, right_count)."""
         idx = self.leaf_idx[leaf]
         cnt = self.leaf_count[leaf]
-        left, right, n_left = split_rows(bins_row, idx, cnt, go_left_table(decision),
-                                         self.num_data)
+        left, right, n_left = split_rows(bins_row, idx, cnt,
+                                         go_left_table(decision, cat_mask), self.num_data)
         left_cnt = int(n_left)  # the one host sync per split
         right_cnt = cnt - left_cnt
         self.leaf_idx[leaf] = self._child(left, left_cnt)

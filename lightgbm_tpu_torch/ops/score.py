@@ -7,7 +7,15 @@ tree.h:104-132). Bagged training needs it for out-of-bag rows: those rows
 never enter the leaf partition, so their new-tree contribution is computed
 by traversing the tree directly over the bin plane (exactly the decisions
 the partition made for in-bag rows — threshold_in_bin comparisons, EFB
-group-bin translation, missing direction).
+group-bin translation, missing direction, and for a categorical node the
+bin's membership in the node's bin bitset, LightGBM's
+CategoricalDecisionInner, include/LightGBM/tree.h).
+
+Here the port departs from the JAX package on purpose: its traversal
+compares the bin with threshold_in_bin at every node, which at a
+categorical node is the node's index into cat_boundaries, not a bin, so its
+out-of-bag train scores go wrong from the first categorical split on under
+bagging or GOSS (ROADMAP Queue 3). Numeric nodes decide as there.
 
 `apply_split_log_to_score` is the counterpart of the JAX package's
 ``models/gbdt.py:_apply_split_log_to_score``: the async pipeline's train
@@ -44,6 +52,9 @@ class BinnedTreeArrays(NamedTuple):
     left_child: torch.Tensor  # [I] int64
     right_child: torch.Tensor  # [I] int64
     leaf_value: torch.Tensor  # [L] float32
+    is_cat: torch.Tensor  # [I] bool: a categorical node
+    cat_words: torch.Tensor  # [I] int32 words in the node's bin bitset
+    cat_bits: torch.Tensor  # [I, W] int64 the bin bitset's 32-bit words, zero-padded
 
 
 def binned_tree_arrays(tree, dataset, device: torch.device) -> BinnedTreeArrays:
@@ -58,6 +69,8 @@ def binned_tree_arrays(tree, dataset, device: torch.device) -> BinnedTreeArrays:
     lo = np.zeros(ni, dtype=np.int32)
     hi = np.zeros(ni, dtype=np.int32)
     ie = np.zeros(ni, dtype=bool)
+    ic = np.zeros(ni, dtype=bool)
+    words = []
     for n in range(tree.num_leaves - 1):
         f = int(tree.split_feature[n])
         mapper = dataset.mappers[f]
@@ -72,6 +85,18 @@ def binned_tree_arrays(tree, dataset, device: torch.device) -> BinnedTreeArrays:
         db[n] = mapper.default_bin
         nb[n] = mapper.num_bin
         lo[n], hi[n], ie[n] = lo_n, hi_n, fg.is_multi
+        if dt & 1:  # categorical: threshold_in_bin indexes cat_boundaries_inner
+            k = int(tree.threshold_in_bin[n])
+            b0, b1 = tree.cat_boundaries_inner[k], tree.cat_boundaries_inner[k + 1]
+            ic[n] = True
+            words.append(tree.cat_threshold_inner[b0:b1])
+        else:
+            words.append([])
+    W = max([1] + [len(w) for w in words])
+    cw = np.array([len(w) for w in words] + [0] * (ni - len(words)), dtype=np.int32)
+    cb = np.zeros((ni, W), dtype=np.int64)
+    for n, w in enumerate(words):
+        cb[n, :len(w)] = w
 
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)
@@ -82,7 +107,8 @@ def binned_tree_arrays(tree, dataset, device: torch.device) -> BinnedTreeArrays:
         efb_lo=dev(lo), efb_hi=dev(hi), is_efb=dev(ie),
         left_child=dev(tree.left_child[:ni], torch.int64),
         right_child=dev(tree.right_child[:ni], torch.int64),
-        leaf_value=dev(tree.leaf_value[: tree.num_leaves], torch.float32))
+        leaf_value=dev(tree.leaf_value[: tree.num_leaves], torch.float32),
+        is_cat=dev(ic), cat_words=dev(cw), cat_bits=dev(cb))
 
 
 def binned_leaf_index(ta: BinnedTreeArrays, bins: torch.Tensor,
@@ -108,6 +134,13 @@ def binned_leaf_index(ta: BinnedTreeArrays, bins: torch.Tensor,
             (mt == MISSING_ZERO) & (fbin == ta.default_bin[nd]))
         go_left = torch.where(is_missing, ta.default_left[nd],
                               fbin <= ta.threshold[nd])
+        # a categorical node: the bin's bit in the node's bin bitset (a bin
+        # past its words goes right)
+        word = torch.div(fbin, 32, rounding_mode="floor")
+        bits = ta.cat_bits[nd, torch.clamp(word, 0, ta.cat_bits.shape[1] - 1).to(torch.int64)]
+        in_set = ((word < ta.cat_words[nd])
+                  & (((bits >> (fbin % 32).to(torch.int64)) & 1) == 1))
+        go_left = torch.where(ta.is_cat[nd], in_set, go_left)
         nxt = torch.where(go_left, ta.left_child[nd], ta.right_child[nd])
         node = torch.where(active, nxt, node)
     return ~node
@@ -117,18 +150,20 @@ def add_tree_to_score(tree, dataset, bins_dev: torch.Tensor, score: torch.Tensor
                       row_idx: torch.Tensor, num_data: int,
                       max_depth: int = 0) -> torch.Tensor:
     """score[row] += tree.leaf_value[leaf(row)] for the given padded rows
-    (sentinel rows dropped). max_depth is a config-derived bound; walks
-    freeze at their leaf, so over-bounding is free."""
-    keep = row_idx < num_data
-    rows = row_idx[keep].to(torch.int64)
+    (distinct rows; the sentinel rows add into a dump slot past the end, so
+    nothing waits for the host to count them). max_depth is a
+    config-derived bound; walks freeze at their leaf, so over-bounding is
+    free."""
+    ext = torch.cat([score, torch.zeros(1, dtype=score.dtype, device=score.device)])
+    rows = torch.clamp(row_idx.to(torch.int64), max=num_data)
     if tree.num_leaves <= 1:
-        return score.index_add(0, rows, torch.full(
-            (rows.shape[0],), float(tree.leaf_value[0]), dtype=score.dtype,
-            device=score.device))
-    ta = binned_tree_arrays(tree, dataset, bins_dev.device)
-    bound = max_depth if max_depth > 0 else int(tree.max_depth)
-    leaf = binned_leaf_index(ta, bins_dev, row_idx, num_data, bound)[keep]
-    return score.index_add(0, rows, ta.leaf_value[leaf])
+        vals = torch.full((rows.shape[0],), float(tree.leaf_value[0]), dtype=score.dtype,
+                          device=score.device)
+    else:
+        ta = binned_tree_arrays(tree, dataset, bins_dev.device)
+        bound = max_depth if max_depth > 0 else int(tree.max_depth)
+        vals = ta.leaf_value[binned_leaf_index(ta, bins_dev, row_idx, num_data, bound)]
+    return ext.index_add_(0, rows, vals)[:num_data]
 
 
 def apply_split_log_to_score(score: torch.Tensor, rec_store: torch.Tensor,

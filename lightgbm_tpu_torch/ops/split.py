@@ -15,11 +15,16 @@ pulled out of the ordered scan and added to the left side in the
 group storage; it is reconstructed from the leaf totals like
 Dataset::FixHistogram (include/LightGBM/dataset.h:770).
 
-This slice carries the numeric lanes: categorical features and monotone
-constraints are refused before a learner is built. A quantized (int32)
-histogram is searched as the float histogram hist.float() * scale
-(`find_best_split`'s `scale`).
-The search goes through ``ops/scan_cuda.py``: the plain version below for a
+Categorical features take the JAX package's categorical lanes
+(`per_feature_best_categorical`, FindBestThresholdCategoricalInner): the
+one-hot lane and the sorted-subset lane in both directions. They run in
+PyTorch ops on the histogram's device, after the split kernel has found the
+best numeric record, and replace it only where their gain is strictly
+larger (the JAX package concatenates the numeric records first, so a tie
+goes to the numeric record). Monotone constraints are refused before a
+learner is built. A quantized (int32) histogram is searched as the float
+histogram hist.float() * scale (`find_best_split`'s `scale`).
+The numeric search goes through ``ops/scan_cuda.py``: the plain version below for a
 CPU tensor, the hand-written kernel (``csrc/split_find.cu``) for a CUDA
 tensor. `find_best_split` is one launch there, from the group histogram to
 each leaf's record; `per_feature_best` keeps a launch that returns every
@@ -66,6 +71,7 @@ class FeatureMeta:
     real_feature: List[int]  # dense idx -> original feature index
     max_bins: int
     hist_rows: int  # rows in the flattened group-hist (without sentinel)
+    has_categorical: bool = False  # whether find_best_split runs the categorical lanes
 
 
 def make_feature_meta(dataset, group_bin_padded: int,
@@ -124,7 +130,8 @@ def make_feature_meta(dataset, group_bin_padded: int,
         default_bin=dev(default_bin), efb_omitted=dev(efb_omitted),
         missing_type=dev(missing), nbins=dev(nbins), is_categorical=dev(is_cat),
         missing_pos=dev(missing_pos), has_missing=dev(missing != MISSING_NONE),
-        real_feature=list(feats), max_bins=Bmax, hist_rows=G * group_bin_padded)
+        real_feature=list(feats), max_bins=Bmax, hist_rows=G * group_bin_padded,
+        has_categorical=bool(is_cat.any()))
 
 
 def threshold_l1(s, l1):
@@ -155,7 +162,11 @@ def leaf_gain(sum_grad, sum_hess, l1, l2, max_delta_step):
 
 
 # Packed best-split record layout (device -> host, one sync per leaf). The
-# last two fields (is_cat, cat_dir) stay zero for the numeric lanes.
+# last two fields (is_cat, cat_dir) stay zero for the numeric lanes. For a
+# categorical split threshold_bin holds the one-hot bin (cat_dir 0) or the
+# sorted subset's LENGTH (cat_dir +1 or -1, the scan's direction); the host
+# derives the bin set from the feature's histogram row
+# (`derive_cat_left_bins`).
 SPLIT_FIELDS = ["gain", "feature", "threshold_bin", "default_left",
                 "left_sum_g", "left_sum_h", "left_count",
                 "right_sum_g", "right_sum_h", "right_count",
@@ -178,6 +189,9 @@ class SplitInfo:
     right_count: int = 0
     left_output: float = 0.0
     right_output: float = 0.0
+    is_categorical: bool = False
+    cat_dir: int = 0  # 0 = one-hot; +1 / -1 = the sorted subset's direction
+    cat_bitset_bins: Optional[List[int]] = None  # the left bin set, once derived
 
     @property
     def valid(self) -> bool:
@@ -190,7 +204,8 @@ class SplitInfo:
                    left_sum_g=float(vec[4]), left_sum_h=float(vec[5]),
                    left_count=int(round(vec[6])), right_sum_g=float(vec[7]),
                    right_sum_h=float(vec[8]), right_count=int(round(vec[9])),
-                   left_output=float(vec[10]), right_output=float(vec[11]))
+                   left_output=float(vec[10]), right_output=float(vec[11]),
+                   is_categorical=bool(vec[12] > 0.5), cat_dir=int(round(vec[13])))
 
 
 SCAN_LANES = 32  # csrc/split_find.cu: a warp's lanes share a feature's bins
@@ -392,6 +407,194 @@ def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
     return split_scan(fh, totals, meta, params, feature_mask, penalty)
 
 
+def _sort_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in the order of the values, for a sort no
+    device's float sort decides: -0.0 keys as +0.0 and every NaN as the
+    largest value (the JAX package's sort standardizes both so; numpy's
+    stable argsort orders them alike)."""
+    x = torch.where(x == 0, torch.zeros((), dtype=x.dtype, device=x.device), x)
+    bits = x.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.where(torch.isnan(x), torch.full_like(key, 0x7FFFFFFF), key)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx[...]] along the last axis (idx one dimension shorter)."""
+    return x.gather(-1, idx[..., None])[..., 0]
+
+
+def per_feature_best_categorical(fh: torch.Tensor, totals: torch.Tensor,
+                                 meta: FeatureMeta, params: torch.Tensor,
+                                 feature_mask: Optional[torch.Tensor] = None,
+                                 penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Best categorical split per feature: [..., F, len(SPLIT_FIELDS)]
+    records, the JAX package's per_feature_best_categorical
+    (FindBestThresholdCategoricalInner, feature_histogram.cpp:147-241):
+
+      * one-hot when num_bin <= max_cat_to_onehot: each bin alone goes left
+        (plain lambda_l2);
+      * sorted subset otherwise: bins with count >= cat_smooth, ordered by
+        grad / (hess + cat_smooth), scanned as prefixes from both ends up to
+        min(max_cat_threshold, (used + 1) // 2) categories, with
+        lambda_l2 + cat_l2 and min_data_per_group.
+
+    Bin 0, the dummy bin, is no candidate in either lane (LightGBM's
+    used_bin); the JAX package's lanes take it, so the two agree where it
+    is empty (every category kept, no NaN), and otherwise as the JAX lanes
+    on the histogram with the categorical features' bin 0 zeroed.
+
+    fh [..., F, Bmax, 3] float32 feature histograms, totals [..., 3],
+    params the learner's [11] float32 vector. Every op runs on fh's device
+    and gives the same bits on any device: the prefixes are float64 sums in
+    the split kernel's order rounded to float32 (`bin_prefix`, exact on
+    grid-snapped histograms, where the JAX package's float32 cumsum is
+    too), and the sort is on integer keys (`_sort_key`). Only the prefix
+    length and direction are recorded; the host derives the bin set
+    (`derive_cat_left_bins`)."""
+    l1, l2, min_data, min_hess, min_gain, max_delta = (
+        params[0], params[1], params[2], params[3], params[4], params[5])
+    max_onehot, max_cat_thresh = params[6], params[7]
+    cat_l2, cat_smooth, min_group = params[8], params[9], params[10]
+    F, Bmax = fh.shape[-3], fh.shape[-2]
+    dev = fh.device
+    total_g = totals[..., 0, None]  # [..., 1]: against [..., F]
+    total_h = totals[..., 1, None]
+    total_cnt = totals[..., 2, None]
+    gain_shift = leaf_gain(total_g, total_h, l1, l2, max_delta) + min_gain
+    # constants filled on the device: a copy from the host cannot be captured
+    neg_inf = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
+    eps = torch.full((), K_EPSILON, dtype=torch.float32, device=dev)
+    tb = total_g[..., None], total_h[..., None], total_cnt[..., None]  # against [..., F, B]
+
+    g, h, c = fh[..., 0], fh[..., 1], fh[..., 2]
+    bin_pos = torch.arange(Bmax, device=dev)
+    # bin 0 is the dummy bin (NaN, negative, unseen and cut categories),
+    # which no split's left set holds: the model's value bitset has no bit
+    # for it, so its rows go right at predict time, and LightGBM's scan
+    # leaves it out (the JAX package's does not, ROADMAP Queue 3)
+    bin_valid = meta.valid_slot & (bin_pos[None, :] < meta.nbins[:, None]) & \
+        (bin_pos[None, :] > 0)
+
+    # ---- one-hot lane (each bin alone goes left)
+    other_h = tb[1] - h - eps
+    other_c = tb[2] - c
+    ok1 = bin_valid & (c >= min_data) & (h >= min_hess) & \
+        (other_c >= min_data) & (other_h >= min_hess)
+    gain1 = (leaf_gain(tb[0] - g, other_h, l1, l2, max_delta)
+             + leaf_gain(g, h + eps, l1, l2, max_delta))
+    gain1 = torch.where(ok1, gain1, neg_inf)
+    onehot_t = torch.argmax(gain1, dim=-1)
+    onehot_gain = _take(gain1, onehot_t)
+    onehot_lg, onehot_lh, onehot_lc = _take(g, onehot_t), _take(h, onehot_t) + eps, \
+        _take(c, onehot_t)
+
+    # ---- sorted-subset lane
+    l2c = l2 + cat_l2
+    eligible = bin_valid & (c >= cat_smooth)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    ctr = torch.where(eligible, g / (h + cat_smooth), inf)
+    order = torch.sort(_sort_key(ctr), dim=-1, stable=True).indices  # eligible first
+    used = eligible.sum(dim=-1)  # [..., F]
+    sorted_stats = fh.gather(-2, order[..., None].expand(*order.shape, 3))
+    max_num_cat = torch.minimum(max_cat_thresh, ((used + 1) // 2).to(torch.float32))
+    pos = bin_pos.to(torch.float32)
+    # the backward lane reverses the order, where the ineligible (inf-keyed)
+    # bins come first, so each row is rolled back by (Bmax - used) to start
+    # at the last eligible bin; both directions share one prefix pass
+    idx = (bin_pos + (Bmax - used)[..., None]) % Bmax
+    rev = torch.flip(sorted_stats, dims=[-2])
+    both = torch.stack([sorted_stats, rev.gather(-2, idx[..., None].expand(*idx.shape, 3))])
+    cum = bin_prefix(both)  # [2, ..., F, Bmax, 3]
+    clg, clh, clc = cum[..., 0], cum[..., 1] + eps, cum[..., 2]
+    in_range = (pos < used[..., None]) & (pos < max_num_cat[..., None])
+    rh = tb[1] - clh
+    rc = tb[2] - clc
+    ok = in_range & (clc >= min_data) & (clh >= min_hess) & \
+        (rc >= min_data) & (rc >= min_group) & (rh >= min_hess)
+    # min_data_per_group as the JAX package has it: the cumulative count at
+    # least min_group (the reference counts the rows since the last
+    # evaluated prefix)
+    ok &= clc >= min_group
+    gains = (leaf_gain(clg, clh, l1, l2c, max_delta)
+             + leaf_gain(tb[0] - clg, rh, l1, l2c, max_delta))
+    gains = torch.where(ok, gains, neg_inf)
+    best_i = torch.argmax(gains, dim=-1)
+    # per direction: (best gain, best length, best left g, h, count)
+    fwd, bwd = ((_take(gains[d], best_i[d]), best_i[d] + 1, _take(clg[d], best_i[d]),
+                 _take(clh[d], best_i[d]), _take(clc[d], best_i[d])) for d in (0, 1))
+
+    use_onehot = meta.nbins.to(torch.float32) <= max_onehot
+    lanes_gain = torch.stack([
+        torch.where(use_onehot, onehot_gain, neg_inf),
+        torch.where(use_onehot, neg_inf, fwd[0]),
+        torch.where(use_onehot, neg_inf, bwd[0]),
+    ], dim=-1)  # [..., F, 3]
+    lane = torch.argmax(lanes_gain, dim=-1)
+    best_gain = _take(lanes_gain, lane)
+
+    def pick(a_one, a_fwd, a_bwd):
+        return _take(torch.stack([a_one, a_fwd, a_bwd], dim=-1), lane)
+
+    thresh = pick(onehot_t.to(torch.float32), fwd[1].to(torch.float32),
+                  bwd[1].to(torch.float32))
+    lg = pick(onehot_lg, fwd[2], bwd[2])
+    lh = pick(onehot_lh, fwd[3], bwd[3])
+    lc = pick(onehot_lc, fwd[4], bwd[4])
+    ones = torch.ones_like(best_gain)
+    cat_dir = pick(torch.zeros_like(best_gain), ones, -ones)
+    l2_eff = torch.where(lane == 0, l2, l2c)
+
+    rg, rh, rc = total_g - lg, total_h - lh, total_cnt - lc
+    is_valid = meta.is_categorical & torch.isfinite(best_gain) & (best_gain > gain_shift)
+    if feature_mask is not None:
+        is_valid &= feature_mask
+    out_gain = torch.where(is_valid, best_gain - gain_shift, neg_inf)
+    if penalty is not None:
+        out_gain = torch.where(is_valid, out_gain - penalty, neg_inf)
+    lout = leaf_output(lg, lh, l1, l2_eff, max_delta)
+    rout = leaf_output(rg, rh, l1, l2_eff, max_delta)
+    rows = torch.arange(F, device=dev).to(torch.float32).expand_as(best_gain)
+    return torch.stack([
+        out_gain, torch.where(is_valid, rows, -ones), thresh,
+        torch.zeros_like(best_gain),  # default_left = false (CategoricalDecision)
+        lg, lh, lc, rg, rh, rc, lout, rout, ones, cat_dir,
+    ], dim=-1)
+
+
+def derive_cat_left_bins(bin_stats: np.ndarray, nbins: int, split: SplitInfo,
+                         cat_smooth: float) -> List[int]:
+    """The winning categorical split's left bin set, derived on the host
+    from the feature's histogram row [>= nbins, 3] float32: the search's
+    float32 ctr and its stable order replayed on the same values (numpy's
+    stable argsort orders -0.0, +0.0 and NaN as the search's integer keys
+    do), so only the prefix length and direction travel in the record."""
+    if split.cat_dir == 0:
+        return [int(split.threshold_bin)]
+    g = np.asarray(bin_stats[:nbins, 0], dtype=np.float32)
+    h = np.asarray(bin_stats[:nbins, 1], dtype=np.float32)
+    c = np.asarray(bin_stats[:nbins, 2], dtype=np.float32)
+    smooth = np.float32(cat_smooth)
+    eligible = c >= smooth
+    eligible[:1] = False  # the dummy bin 0 (per_feature_best_categorical)
+    ctr = np.where(eligible, g / (h + smooth), np.float32(np.inf))
+    order = np.argsort(ctr, kind="stable")
+    used = int(eligible.sum())
+    k = min(int(split.threshold_bin), used)
+    chosen = order[:k] if split.cat_dir > 0 else order[used - k: used]
+    return [int(b) for b in chosen]
+
+
+def bins_to_bitset(values: List[int]) -> List[int]:
+    """Pack non-negative ints into 32-bit bitset words (Common::ConstructBitset)."""
+    vals = [v for v in values if v >= 0]
+    if not vals:
+        return [0]
+    words = [0] * (max(vals) // 32 + 1)
+    for v in vals:
+        words[v // 32] |= 1 << (v % 32)
+    return words
+
+
 def reduce_best_record(recs: torch.Tensor) -> torch.Tensor:
     """[..., K, len(SPLIT_FIELDS)] -> [..., len(SPLIT_FIELDS)] by max gain
     (ties: first, matching the reference's SplitInfo operator> sweep
@@ -406,10 +609,75 @@ def _find_best_split_plain(hist: torch.Tensor, totals: torch.Tensor, meta: Featu
                            feature_mask: Optional[torch.Tensor] = None,
                            penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of the split kernel's find form: the feature
-    gather with the EFB fix, the per-feature records, the argmax."""
+    gather with the EFB fix, the per-feature numeric records, the argmax."""
     fh = gather_feature_hist(hist, meta, totals)  # [..., F, Bmax, 3]
     return reduce_best_record(_per_feature_best_plain(fh, totals, meta, params,
                                                       feature_mask, penalty))
+
+
+def _best_categorical_plain(hist: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
+                            params: torch.Tensor, feature_mask: Optional[torch.Tensor],
+                            penalty: Optional[torch.Tensor],
+                            scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """`best_categorical_record` in PyTorch ops on hist's device."""
+    if scale is not None:
+        hist = hist.to(torch.float32) * scale
+    fh = gather_feature_hist(hist, meta, totals)
+    return reduce_best_record(per_feature_best_categorical(fh, totals, meta, params,
+                                                           feature_mask, penalty))
+
+
+class _CategoricalGraph:
+    """`_best_categorical_plain` captured once as a CUDA graph over static
+    input buffers, for one histogram shape and dtype, one FeatureMeta and
+    params buffer, and whether a feature mask, penalty and scale come: a
+    call copies its inputs in and replays ~400 launches as one."""
+
+    def __init__(self, hist, totals, meta, params, feature_mask, penalty, scale) -> None:
+        self.inputs = [t.clone() if t is not None else None
+                       for t in (hist, totals, feature_mask, penalty, scale)]
+        args = (self.inputs[0], self.inputs[1], meta, params, *self.inputs[2:])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up: the allocator's blocks, cub's plans
+            _best_categorical_plain(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _best_categorical_plain(*args)
+
+    def __call__(self, *tensors) -> torch.Tensor:
+        for buf, t in zip(self.inputs, tensors):
+            if buf is not None:
+                buf.copy_(t)
+        self.graph.replay()
+        return self.out.clone()
+
+
+def best_categorical_record(hist: torch.Tensor, totals, meta: FeatureMeta,
+                            params: torch.Tensor,
+                            feature_mask: Optional[torch.Tensor] = None,
+                            penalty: Optional[torch.Tensor] = None,
+                            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The best categorical record of a leaf (or of L leaves), from the
+    group histogram as `find_best_split` takes it: scaled when int32, the
+    feature gather with the EFB fix, the categorical lanes, the argmax. On
+    the CPU the ops run one by one; on the card as a CUDA graph captured
+    at the first call of a shape (`_CategoricalGraph`, kept on the
+    FeatureMeta), the same ops and bits."""
+    if not isinstance(totals, torch.Tensor):
+        totals = torch.tensor([float(v) for v in totals], dtype=torch.float32,
+                              device=hist.device)
+    if hist.device.type != "cuda":
+        return _best_categorical_plain(hist, totals, meta, params, feature_mask, penalty,
+                                       scale)
+    key = (tuple(hist.shape), hist.dtype, params.data_ptr(), feature_mask is not None,
+           penalty is not None, scale is not None)
+    graphs = meta.__dict__.setdefault("_categorical_graphs", {})
+    if key not in graphs:
+        graphs[key] = _CategoricalGraph(hist, totals, meta, params, feature_mask, penalty,
+                                        scale)
+    return graphs[key](hist, totals, feature_mask, penalty, scale)
 
 
 def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
@@ -431,9 +699,15 @@ def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
             ahead of its scan; on the card the kernel reads it from device
             memory
     Returns the packed split record [len(SPLIT_FIELDS)] float32, or [L, ...].
-    A CPU tensor takes the plain version; a CUDA tensor is one launch of the
-    split kernel.
+    The numeric lanes: a CPU tensor takes the plain version; a CUDA tensor
+    is one launch of the split kernel. With categorical features, their
+    best record (`best_categorical_record`, PyTorch ops on the histogram's
+    device) replaces the numeric one where its gain is strictly larger.
     """
     from .scan_cuda import split_find
 
-    return split_find(hist, totals, meta, params, feature_mask, penalty, scale)
+    rec = split_find(hist, totals, meta, params, feature_mask, penalty, scale)
+    if not meta.has_categorical:
+        return rec
+    cat = best_categorical_record(hist, totals, meta, params, feature_mask, penalty, scale)
+    return torch.where(cat[..., :1] > rec[..., :1], cat, rec)

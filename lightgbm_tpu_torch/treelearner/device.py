@@ -69,6 +69,14 @@ Where the card differs from the TPU, with the same results:
 On the CPU the same root and waves run eagerly on the plain versions, the
 loop driven from the host in the same passes of two waves.
 
+A bag reaches `train_async` as host indices (bagging: a host mask a tree,
+uploaded) or as a DeviceBag (GOSS, models/sample_strategy.py): its mask,
+already on the card, seeds the leaf ids (-1 out of the bag) and zeroes the
+bagged-out rows' gh with the same ops, and never reaches the host (the JAX
+package's device.py:1186-1192). `reset_config` takes changed parameters
+between trees: the regularizers in place in the params buffer the graphs
+read, and new buffers for a changed num_leaves or max_depth.
+
 Quantized training (use_quantized_grad) runs the same waves in the integer
 modes, as the JAX grower's `quantized` does: the tree's int8 (g, h, 1) rows
 (the learner's `_prepare_gh`, quantized over all rows before the bag masks
@@ -84,7 +92,7 @@ scatter-adds in float32) and read back with the tree's results.
 
 Not carried, each still to port (ROADMAP): the sharded grower and its
 data, voting and feature modes (``make_sharded_grow_fn``, Queue 1 item 8);
-the bf16 gh payload (item 6); ``snapshot_state`` (item 6, checkpoint
+the bf16 gh payload (item 6); ``snapshot_state`` (item 6.8, checkpoint
 writers); ``_record_carry_bytes``
 (item 11, perfmodel). The JAX package's
 environment switches (LGBM_TPU_WAVE, LGBM_TPU_ADAPTIVE_WAVE,
@@ -100,6 +108,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.sample_strategy import DeviceBag
 from ..models.tree import Tree
 from ..ops.compact import partition_wave, relabel_rows
 from ..ops.histogram import fixed_point_exponents, histogram_slots_ragged, leaf_sums_fixed
@@ -627,12 +636,26 @@ class DeviceTreeLearner(SerialTreeLearner):
         self.last_hist_rows = 0
         self.last_waves_launched = 0
         self._renew = self.quantized and bool(config.quant_train_renew_leaf)
-        # the gh payload is (grad, hess, count): 3 channels + position + leaf id
+        self._buffers = self._new_buffers()
+
+    def _new_buffers(self) -> WaveBuffers:
+        """The wave carry for the configuration's num_leaves; the payload is
+        (grad, hess, count): 3 channels + position + leaf id."""
+        self._shape = (int(self.config.num_leaves), int(self.config.max_depth))
         with global_timer.scope("wave_buffers"):
-            self._buffers = WaveBuffers(self.bins_dev.shape[0], self.num_data, 5,
-                                        int(config.num_leaves), self.group_bin_padded, 3,
-                                        len(self.meta.real_feature), self.device,
-                                        quantized=self.quantized, renew=self._renew)
+            return WaveBuffers(self.bins_dev.shape[0], self.num_data, 5, self._shape[0],
+                               self.group_bin_padded, 3, len(self.meta.real_feature),
+                               self.device, quantized=self.quantized, renew=self._renew)
+
+    def reset_config(self, config) -> None:
+        """As the serial learner's; a changed num_leaves or max_depth, which
+        the captured graphs bake in, takes new buffers, so the next tree
+        captures its graphs anew (a pending tree keeps its own buffers)."""
+        super().reset_config(config)
+        if (int(config.num_leaves), int(config.max_depth)) != self._shape:
+            self._wave_cap = max(1, min(self.wave, int(config.num_leaves)))
+            self.wave_k = min(self.wave_k, self._wave_cap)
+            self._buffers = self._new_buffers()
 
     def train(self, gh_ext: torch.Tensor, bag_indices: Optional[np.ndarray] = None) -> Tree:
         return self.finalize(self.train_async(gh_ext, bag_indices))
@@ -644,7 +667,15 @@ class DeviceTreeLearner(SerialTreeLearner):
         gh_float = gh_ext
         # quantized over every row, then masked by the bag (device.py:1184-1199)
         gh = self._prepare_gh(gh_ext)[:-1]
-        if bag_indices is not None:
+        if isinstance(bag_indices, DeviceBag):
+            # a bag on the card (GOSS): the same where() ops as the host
+            # bag below, on the bag's own mask, which never reaches the host
+            mask = bag_indices.mask
+            leaf_id0 = torch.where(mask, 0, -1).to(torch.int32)
+            gh = torch.where(mask[:, None], gh, torch.zeros((), dtype=gh.dtype,
+                                                            device=gh.device))
+            n_bag = bag_indices.n_bag
+        elif bag_indices is not None:
             in_bag = np.zeros(self.num_data, dtype=bool)
             in_bag[np.asarray(bag_indices, dtype=np.int64)] = True
             mask = torch.from_numpy(in_bag).to(self.device)

@@ -19,16 +19,27 @@ packed best-split record) plus one per partition (the left count).
 Histograms are cached per leaf (the HistogramPool analog), with an LRU cap
 when histogram_pool_size is set.
 
-This slice carries the numeric, unconstrained learner, with quantized
-gradients (use_quantized_grad: `_prepare_gh`, the JAX package's
+The learner is unconstrained; it carries quantized gradients (use_quantized_grad: `_prepare_gh`, the JAX package's
 serial.py:197-295): each tree's gradients become int8 (g, h, 1) rows
 (ops/quantize.py, the discretizer kernel on the card) from the learner's
 threefry key, split once a tree; the leaf histograms are exact int32 (the
 histogram kernel's integer mode), subtracted in int32, and the split search
 scales them by the tree's per-channel scale (ops/split.py:find_best_split's
 `scale`); quant_train_renew_leaf renews the leaf outputs from the float
-gradients. Categorical features, monotone and interaction constraints,
-CEGB, linear trees and forced splits are refused when the learner is built
+gradients.
+
+Categorical features (the JAX package's serial.py:496-513) split on a bin
+set: the split search's categorical lanes (ops/split.py:
+per_feature_best_categorical) record the one-hot bin or the sorted subset's
+length and direction; `_apply_split` derives the set on the host from the
+same float32 histogram row the search saw, stores the bin and the value
+bitsets in the tree, and partitions the rows through a go-left table of
+the set. The dummy bin 0 (NaN, unseen and cut categories) joins no left
+set, so its rows go right in training as at predict (LightGBM's scan; the
+JAX package's takes it, ROADMAP Queue 3). A GOSS bag (a DeviceBag) reaches
+the partition as host indices,
+one pull a bag. Monotone and interaction constraints, CEGB, linear trees
+and forced splits are refused when the learner is built
 (`refuse_unported`).
 """
 from __future__ import annotations
@@ -48,7 +59,9 @@ from ..ops.histogram import (build_histogram_rows, fixed_point_exponents, leaf_s
                              subtract_histogram)
 from ..ops.partition import RowPartition
 from ..ops.quantize import prng_key, quantize_gh, split_key
-from ..ops.split import FeatureMeta, SplitInfo, find_best_split, make_feature_meta
+from ..models.sample_strategy import host_bag_indices
+from ..ops.split import (FeatureMeta, SplitInfo, bins_to_bitset, derive_cat_left_bins,
+                         find_best_split, make_feature_meta)
 from ..utils.log import Log
 from ..utils.timer import global_timer
 from .col_sampler import ColSampler
@@ -66,8 +79,6 @@ def refuse_unported(config: Config, dataset: Dataset) -> None:
     """Raise for a configuration whose learner features are not ported yet,
     rather than training a different model than the JAX package would."""
     checks = (
-        (any(dataset.mappers[f].bin_type == 1 for f in dataset.used_features),
-         "categorical features"),
         (bool(dataset.monotone_constraints and any(dataset.monotone_constraints)),
          "monotone constraints"),
         (bool(config.interaction_constraints), "interaction constraints"),
@@ -80,7 +91,20 @@ def refuse_unported(config: Config, dataset: Dataset) -> None:
     for refused, what in checks:
         if refused:
             Log.fatal("%s: not yet ported to the PyTorch package "
-                      "(ROADMAP Queue 1 item 6)", what)
+                      "(ROADMAP Queue 1 item 6.3, 6.4)", what)
+
+
+def learner_params(config: Config, device: torch.device) -> torch.Tensor:
+    """The split search's [11] float32 regularizers: the six the numeric
+    lanes read, then the five of the categorical lanes (the JAX serial
+    learner's params_dev, serial.py:69-75)."""
+    return torch.tensor([
+        config.lambda_l1, config.lambda_l2,
+        float(config.min_data_in_leaf), config.min_sum_hessian_in_leaf,
+        config.min_gain_to_split, config.max_delta_step,
+        float(config.max_cat_to_onehot), float(config.max_cat_threshold),
+        config.cat_l2, config.cat_smooth, float(config.min_data_per_group),
+    ], dtype=torch.float32, device=device)
 
 
 class SerialTreeLearner:
@@ -99,11 +123,7 @@ class SerialTreeLearner:
         self.group_bin_padded = int(max(dataset.group_bin_counts().max(), 2))
         self.meta: FeatureMeta = make_feature_meta(dataset, self.group_bin_padded,
                                                    self.device)
-        self.params_dev = torch.tensor([
-            config.lambda_l1, config.lambda_l2,
-            float(config.min_data_in_leaf), config.min_sum_hessian_in_leaf,
-            config.min_gain_to_split, config.max_delta_step,
-        ], dtype=torch.float32, device=self.device)
+        self.params_dev = learner_params(config, self.device)
         self.partition: Optional[RowPartition] = None
         self.col_sampler = ColSampler(config, self.meta.real_feature)
         self._tree_feature_mask: Optional[torch.Tensor] = None
@@ -124,6 +144,13 @@ class SerialTreeLearner:
         self._gh_float: Optional[torch.Tensor] = None  # kept for leaf renewal
         if self.quantized:
             self._quant_key = prng_key(config.data_random_seed)
+
+    def reset_config(self, config: Config) -> None:
+        """Take a changed configuration (Booster.reset_parameter): the
+        regularizers are written into params_dev in place, since the wave
+        learner's captured graphs read that buffer."""
+        self.config = config
+        self.params_dev.copy_(learner_params(config, self.device))
 
     # ------------------------------------------------------------------ train
 
@@ -205,7 +232,7 @@ class SerialTreeLearner:
         self._hist_lru.clear()
         partition = RowPartition(self.num_data, self.device)
         if bag_indices is not None:
-            partition.set_used_indices(bag_indices)
+            partition.set_used_indices(host_bag_indices(bag_indices))
         self.partition = partition
         if self.col_sampler.active:
             self._tree_feature_mask = torch.as_tensor(
@@ -246,6 +273,16 @@ class SerialTreeLearner:
         rec = find_best_split(state.hist, state.totals, self.meta, self.params_dev,
                               self._node_feature_mask(), scale=self._scale)
         return SplitInfo.from_packed(rec.cpu().numpy())
+
+    def _cat_bin_stats(self, state: _LeafState, gi: int) -> np.ndarray:
+        """The winning categorical feature's histogram row, [Bg, 3] float32
+        on the host, scaled as the search scaled it (categorical features
+        are never bundled, so the feature's row is its group's): the host's
+        bin-set derivation replays the search's float32 values."""
+        hist = state.hist[gi]
+        if self.quantized:
+            hist = hist.to(torch.float32) * self._scale
+        return hist.cpu().numpy()
 
     # --------------------------------------------------------------- internal
 
@@ -296,24 +333,44 @@ class SerialTreeLearner:
         new_leaf = tree.num_leaves
         self._pool_touch(frontier, leaf)  # parent hist needed for subtraction
 
-        # 1. record the split in the tree (real-value threshold)
+        # 1. record the split in the tree (real-value threshold, or the bin
+        # and value bitsets of a categorical split)
         parent_output = _leaf_output_host(
             state.totals[0], state.totals[1],
             self.config.lambda_l1, self.config.lambda_l2,
             self.config.max_delta_step)
-        tree.split(leaf=leaf, feature_inner=dense_f, real_feature=real_f,
-                   threshold_bin=split.threshold_bin,
-                   threshold_double=mapper.bin_to_value(split.threshold_bin),
-                   default_left=split.default_left,
-                   missing_type=mapper.missing_type,
-                   gain=split.gain,
-                   left_value=split.left_output,
-                   right_value=split.right_output,
-                   left_count=split.left_count,
-                   right_count=split.right_count,
-                   left_weight=split.left_sum_h,
-                   right_weight=split.right_sum_h,
-                   parent_value=parent_output)
+        cat_mask = None
+        if split.is_categorical:
+            left_bins = derive_cat_left_bins(self._cat_bin_stats(state, gi), mapper.num_bin,
+                                             split, self.config.cat_smooth)
+            split.cat_bitset_bins = left_bins
+            cat_values = [mapper.bin_2_categorical[b] for b in left_bins
+                          if 0 <= b < len(mapper.bin_2_categorical)]
+            tree.split_categorical(
+                leaf=leaf, feature_inner=dense_f, real_feature=real_f,
+                bin_bitset=bins_to_bitset(left_bins),
+                value_bitset=bins_to_bitset(cat_values),
+                missing_type=mapper.missing_type, gain=split.gain,
+                left_value=split.left_output, right_value=split.right_output,
+                left_count=split.left_count, right_count=split.right_count,
+                left_weight=split.left_sum_h, right_weight=split.right_sum_h,
+                parent_value=parent_output)
+            cat_mask = np.zeros(self.group_bin_padded, dtype=bool)
+            cat_mask[np.asarray(left_bins, dtype=np.int64)] = True
+        else:
+            tree.split(leaf=leaf, feature_inner=dense_f, real_feature=real_f,
+                       threshold_bin=split.threshold_bin,
+                       threshold_double=mapper.bin_to_value(split.threshold_bin),
+                       default_left=split.default_left,
+                       missing_type=mapper.missing_type,
+                       gain=split.gain,
+                       left_value=split.left_output,
+                       right_value=split.right_output,
+                       left_count=split.left_count,
+                       right_count=split.right_count,
+                       left_weight=split.left_sum_h,
+                       right_weight=split.right_sum_h,
+                       parent_value=parent_output)
 
         # 2. partition rows (one host sync for the left count)
         decision = (float(split.threshold_bin), 1.0 if split.default_left else 0.0,
@@ -322,7 +379,7 @@ class SerialTreeLearner:
                     1.0 if fg.is_multi else 0.0)
         with global_timer.scope("partition"):
             left_cnt, right_cnt = self.partition.split(
-                leaf, new_leaf, self.bins_dev[gi], decision)
+                leaf, new_leaf, self.bins_dev[gi], decision, cat_mask)
         if left_cnt != split.left_count or right_cnt != split.right_count:
             Log.debug("Partition count mismatch at leaf %d: %d/%d vs %d/%d",
                       leaf, left_cnt, right_cnt, split.left_count, split.right_count)

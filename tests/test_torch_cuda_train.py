@@ -27,7 +27,10 @@ from the host on the card, with every kernel it ran counted; buffers reused
 at a new width or with a mask capture a new tree graph. train_async
 returns before the card has finished the tree. Multiclass on snapped
 gradients trains on the card as on the CPU through both learners, and the
-async pipeline on the card is bit-identical to the synchronous path.
+async pipeline on the card is bit-identical to the synchronous path. GOSS's
+selection on the card is bit-equal to the CPU's, and GOSS and categorical
+training (the categorical scan a CUDA graph a shape) on the card are
+byte-equal to the CPU's.
 """
 import numpy as np
 import pytest
@@ -1213,4 +1216,85 @@ def test_quantized_training_on_card_byte_equal_to_cpu(cuda, learner, renew):
         for _ in range(4):
             bst.update(fobj=fobj)
         texts.append(bst.model_to_string())
+    assert texts[0] == texts[1]
+
+
+@pytest.mark.parametrize("C", [1, 3], ids=["binary", "3-class"])
+def test_goss_selection_on_card_bit_equal_to_cpu(cuda, C):
+    """GOSS's selection on the card: the bag mask and the rescaled g, h
+    bit-equal to the same ops on the CPU, NaN and -0.0 included."""
+    from lightgbm_tpu_torch.models.sample_strategy import goss_select
+
+    rng = np.random.RandomState(7)
+    n = 50000
+    g = rng.choice(np.array([-0.5, -0.0, 0.0, 0.3, 1.5], np.float32), (C, n))
+    g[rng.rand(C, n) < 0.01] = np.nan
+    h = rng.uniform(0.1, 1.0, (C, n)).astype(np.float32)
+    pos = torch.from_numpy(rng.permutation(n - 10000)[:5000].astype(np.int64))
+    outs = [goss_select(torch.from_numpy(g).to(d), torch.from_numpy(h).to(d), pos.to(d),
+                        8.0, 10000) for d in (cuda, torch.device("cpu"))]
+    def bits(t):  # every NaN one pattern: the card's NaN * 8 is its own canonical NaN
+        t = t.cpu()
+        if not t.is_floating_point():
+            return t
+        return torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t).view(torch.int32)
+
+    for a, b in zip(*outs):
+        assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("learner", ["wave", "serial"])
+def test_goss_training_on_card_byte_equal_to_cpu(cuda, learner):
+    """GOSS on snapped gradients (the multiplier 8 keeps them snapped),
+    learning rate 0.5 so rounds 3-6 sample: card and CPU model texts
+    byte-equal, the wave learner's bag a mask on the card."""
+    rng = np.random.RandomState(44)
+    X = rng.normal(size=(20000, 10))
+    y = (X[:, 0] - 0.5 * X[:, 2] + 0.3 * rng.normal(size=20000) > 0).astype(np.float64)
+    params = {"objective": "none", "num_leaves": 31, "verbosity": -1, "learning_rate": 0.5,
+              "data_sample_strategy": "goss"}
+    if learner == "serial":
+        params["feature_fraction_bynode"] = 0.8
+    texts = []
+    for dev in ("cuda", "cpu"):
+        train = lt.Dataset(X, label=y)
+        bst = lt.Booster(params={**params, "device_type": dev}, train_set=train)
+        if learner == "wave" and dev == "cpu":
+            bst._gbdt.tree_learner = DeviceTreeLearner(bst._gbdt.config, train._handle,
+                                                       torch.device("cpu"))
+        for _ in range(6):
+            bst.update(fobj=_quant_snapped_logloss)
+        texts.append(bst.model_to_string())
+        assert bst._gbdt._cur_bag.mask.device.type == ("cuda" if dev == "cuda" else "cpu")
+    assert texts[0] == texts[1]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "quantized"])
+def test_categorical_training_on_card_byte_equal_to_cpu(cuda, quantized):
+    """Categorical features through the serial learner on the card (the
+    categorical scan a CUDA graph a shape): model text byte-equal to the
+    CPU's, snapped gradients for the float mode and unsnapped ones for the
+    quantized, with bagging; the train score equal to predict(raw_score)."""
+    rng = np.random.RandomState(45)
+    n = 20000
+    cats = rng.randint(0, 40, n).astype(np.float64)
+    cats[rng.rand(n) < 0.05] = np.nan
+    X = np.column_stack([cats, rng.randint(0, 3, n), rng.normal(size=(n, 3))])
+    effect = rng.normal(0, 1, 41)[np.nan_to_num(cats, nan=40).astype(int)]
+    y = (effect + X[:, 2] + 0.3 * rng.normal(size=n) > 0).astype(np.float64)
+    params = {"objective": "none", "num_leaves": 31, "verbosity": -1,
+              "bagging_fraction": 0.8, "bagging_freq": 1}
+    if quantized:
+        params.update(use_quantized_grad=True, num_grad_quant_bins=4)
+    fobj = _host_logloss if quantized else _quant_snapped_logloss
+    texts = []
+    for dev in ("cuda", "cpu"):
+        bst = lt.Booster(params={**params, "device_type": dev},
+                         train_set=lt.Dataset(X, label=y, categorical_feature=[0, 1]))
+        for _ in range(4):
+            bst.update(fobj=fobj)
+        texts.append(bst.model_to_string())
+        assert sum(t.num_cat for t in bst._gbdt.models) > 0
+        gap = np.abs(bst._gbdt.score[0].cpu().numpy() - bst.predict(X, raw_score=True)).max()
+        assert gap <= 1e-6, gap
     assert texts[0] == texts[1]

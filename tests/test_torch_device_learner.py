@@ -47,7 +47,7 @@ def _gain_within_4_ulp(got, ref, sum_g, sum_h, params):
     """|got - ref| <= 4 ULP of the un-shifted gain (gain + the parent's
     leaf gain), float32."""
     l1, l2, _, _, min_gain, max_delta = (torch.tensor(v, dtype=torch.float32)
-                                         for v in params)
+                                         for v in params[:6])
     shift = ts.leaf_gain(torch.from_numpy(sum_g), torch.from_numpy(sum_h), l1, l2,
                          max_delta).numpy() + min_gain.numpy()
     ulp = np.spacing(np.abs(ref + shift).astype(np.float32))
