@@ -180,6 +180,29 @@ Phases (any failure exits non-zero before the result line):
             binary-wire requests bit-equal to Booster.predict, and the
             categorical scan's host and card time a leaf (its record on the
             card bit-equal to the CPU's).
+15. lanes   the serial learner's constrained lanes on phase 8's data and
+            settings, 5 rounds each: (1) monotone constraints (+1 on feature
+            0, -1 on 1, +1 on 21, -1 on 25, the label model's directions),
+            interaction constraints [0-7], [8-15], [16-27] and a forced-splits
+            JSON (the root on feature 0, its left child on 25): every root on
+            feature 0, every path below the forced splits inside one group, a
+            monotone sweep of 4,096 sampled rows over 32 grid points a
+            constrained feature never stepping against its direction, valid
+            AUC rising; (2) CEGB (split, coupled and lazy penalties on all 28
+            features): fewer distinct features a tree than phase 8's first 5
+            trees; (3) linear trees (linear_lambda 0.01): the train score
+            equal to predict(raw_score=True) within 1e-5 on the 1,048,576
+            rows, valid AUC rising, every linear score through the
+            traversal's leaf mode. Exact first: each run, and run 1
+            quantized, at 65,536 rows, 63 leaves, 3 rounds on host gradients,
+            card and CPU model texts byte-equal. The split kernel's
+            constrained mode bit-equal to its plain version on the root and
+            two leaves whose bounds bind, its device time beside the
+            unconstrained search's, and the linear score's time at 1,048,576
+            rows. Each run prints s/iteration, the scopes find_best_split,
+            partition, hist_root, hist_children, forced_splits, cegb_penalty
+            and linear_fit, and the busy share and device-to-host copies of
+            one more profiled round.
 
 The Booster surface: after phase 8, dump_model parses and its leaf values
 and thresholds equal the model text's, feature_importance ("split" and
@@ -191,7 +214,7 @@ off, has a byte-equal model text and a bit-equal final train score.
 The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving path), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
-of phases 13 and 14 (the training paths): every kernel of each path must
+of phases 13, 14 and 15 (the training paths): every kernel of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -2800,6 +2823,433 @@ def drive_categorical(lt, libs, seed, tag):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: monotone and interaction constraints, forced splits, CEGB and
+# linear trees, through the serial learner
+
+LANE_ROUNDS, LANE_EXACT_ROUNDS = 5, 3
+# the directions of higgs_rows' label model: +0.8 x0, -0.6 x1, +0.3 x21,
+# -0.7 x25 (LightGBM docs, Parameters: monotone_constraints)
+LANE_MONOTONE = {0: 1, 1: -1, 21: 1, 25: -1}
+# the three families of HIGGS-shaped columns as interaction groups
+# (LightGBM docs, Parameters: interaction_constraints)
+LANE_INTERACTION = "[0,1,2,3,4,5,6,7],[8,9,10,11,12,13,14,15],[16,17,18,19,20,21,22,23,24," \
+    "25,26,27]"
+# the root on feature 0, its left child on feature 25 (the label model's two
+# strongest monotone inputs); 25 lies outside feature 0's group, so no split
+# follows the forced one there
+LANE_FORCED = {"feature": 0, "threshold": 1.0, "left": {"feature": 25, "threshold": 1.0}}
+# CEGB (Peter et al., NeurIPS 2017): a split penalty per row of the leaf, a
+# coupled cost the first time a feature is used in the model (here per row
+# of the training set, so it weighs as much at every size) and a lazy cost
+# per row a feature is first computed for. The best split's gain is ~0.1 a
+# row at the root on this data and the informative features' totals 0.02-0.2
+# a row, so these bind (at 131,072 rows on a CPU: 2 distinct features a tree
+# against 24-27 without, every tree at 255 leaves) without stopping the trees
+LANE_CEGB_SPLIT, LANE_CEGB_COUPLED_PER_ROW, LANE_CEGB_LAZY = 1e-3, 5e-3, 1e-2
+# linear trees (GBDT-PL, Shi et al., arXiv:1802.05640, measured on HIGGS)
+LANE_LINEAR = {"linear_tree": True, "linear_lambda": 0.01}
+LANE_SCOPES = ("find_best_split", "partition", "hist_root", "hist_children", "forced_splits",
+               "cegb_penalty", "linear_fit")
+SWEEP_ROWS, SWEEP_POINTS = 4096, 32
+
+
+def with_monotone(train_set, constraints):
+    """A view of a constructed Dataset whose core dataset carries monotone
+    constraints, sharing its bins (a constructed Dataset takes them only at
+    construction)."""
+    import copy
+
+    view = copy.copy(train_set)
+    view._handle = copy.copy(train_set._handle)
+    view._handle.monotone_constraints = list(constraints)
+    return view
+
+
+def monotone_list(n_features):
+    return [LANE_MONOTONE.get(f, 0) for f in range(n_features)]
+
+
+def lane_params(which, forced_path, n_rows):
+    """Phase 8's settings with one lane's parameters, for n_rows rows."""
+    if which == "constraints":
+        return {**WAVE_PARAMS, "monotone_constraints": monotone_list(28),
+                "interaction_constraints": LANE_INTERACTION,
+                "forcedsplits_filename": forced_path}
+    if which == "cegb":
+        return {**WAVE_PARAMS, "cegb_penalty_split": LANE_CEGB_SPLIT,
+                "cegb_penalty_feature_coupled": [LANE_CEGB_COUPLED_PER_ROW * n_rows] * 28,
+                "cegb_penalty_feature_lazy": [LANE_CEGB_LAZY] * 28}
+    return {**WAVE_PARAMS, **LANE_LINEAR}
+
+
+def node_paths(tree):
+    """[(node, features on the path from the root through the node)]."""
+    out, stack = [], [(0, frozenset())]
+    while stack and tree.num_leaves > 1:
+        node, path = stack.pop()
+        path = path | {int(tree.split_feature[node])}
+        out.append((node, path))
+        for child in (int(tree.left_child[node]), int(tree.right_child[node])):
+            if child >= 0:
+                stack.append((child, path))
+    return out
+
+
+def monotone_sweep(booster, X, seed):
+    """Each constrained feature swept over SWEEP_POINTS grid points between
+    its 0.5% and 99.5% quantiles on SWEEP_ROWS sampled rows: the raw scores
+    never step against the constraint (float32 sums of monotone trees stay
+    monotone). Returns the number of (row, step) pairs checked."""
+    rows = X[np.random.RandomState(seed).choice(len(X), SWEEP_ROWS, replace=False)]
+    checked = 0
+    for f, direction in LANE_MONOTONE.items():
+        lo, hi = np.quantile(X[:, f], [0.005, 0.995])
+        grid = np.linspace(lo, hi, SWEEP_POINTS).astype(np.float32)
+        Xs = np.repeat(rows, SWEEP_POINTS, axis=0)
+        Xs[:, f] = np.tile(grid, SWEEP_ROWS)
+        raw = booster.predict(Xs, raw_score=True).reshape(SWEEP_ROWS, SWEEP_POINTS)
+        steps = np.diff(raw.astype(np.float64), axis=1) * direction
+        check(bool((steps >= 0).all()),
+              f"constraints: feature {f} steps against its monotone constraint "
+              f"{direction} ({int((steps < 0).sum())} of {steps.size} steps, worst "
+              f"{float(steps.min()):.3g})")
+        checked += steps.size
+    return checked
+
+
+def lane_round(booster):
+    """One more Booster.update() under torch.profiler: (busy share tuple of
+    device_busy_share, device-to-host copies, their bytes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        booster.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lane_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernel_us = sum(float(e.get("dur", 0)) for e in events
+                    if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                               "gpu_memset"))
+    d2h = [int(e.get("args", {}).get("bytes", 0)) for e in events
+           if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
+           and "DtoH" in e.get("name", "")]
+    return kernel_us * 1e-6, wall, len(d2h), sum(d2h)
+
+
+def drive_lane(lt, libs, label, params, train_set, valid, required, tag):
+    """One full-width run of a lane with every launch count set to 0 just
+    before it and read just after: LANE_ROUNDS rounds with the validation
+    set; prints s/iteration, the lanes' host scopes, the valid AUC, then the
+    busy share and the device-to-host copies of one more profiled round.
+    Returns (booster, launches, report)."""
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    for lib in libs:
+        lib.reset_launches()
+    stamps, evals = [], {}
+    global_timer.reset()
+    global_timer.enabled = True
+    t_train = time.perf_counter()
+    bst = lt.train(dict(params), train_set, num_boost_round=LANE_ROUNDS,
+                   valid_sets=[train_set.create_valid(valid[0], label=valid[1])],
+                   valid_names=["valid"],
+                   callbacks=[lambda env: stamps.append(time.perf_counter()),
+                              lt.record_evaluation(evals)])
+    wall = time.perf_counter() - t_train
+    global_timer.enabled = False
+    launches = {}
+    for lib in libs:
+        launches.update(lib.launches)
+    scopes = {k: (global_timer.totals[k], global_timer.counts[k]) for k in LANE_SCOPES
+              if k in global_timer.totals}
+    for name in required:
+        check(launches[name] > 0, f"{label} path: kernel {name} never launched")
+    check(type(bst._gbdt.tree_learner).__name__ == "SerialTreeLearner",
+          f"{label}: trained with {type(bst._gbdt.tree_learner).__name__}")
+    auc = evals["valid"]["auc"]
+    check(len(bst._gbdt.models) == LANE_ROUNDS, f"{label}: {len(bst._gbdt.models)} trees")
+    check(auc[-1] > auc[0], f"{label}: valid AUC did not rise: {auc}")
+    per_iter = np.diff([t_train] + stamps)
+    steady = float(np.mean(per_iter[1:]))
+    leaves = [t.num_leaves for t in bst._gbdt.models]
+    print(f"{tag} {label}: {train_set.num_data()} x {train_set.num_feature()}, "
+          f"{LANE_ROUNDS} rounds in {wall:.2f} s; s/iteration first {per_iter[0]:.3f}, mean of "
+          f"the rest {steady:.3f}; leaves per tree {leaves}; valid AUC "
+          + " ".join(f"{a:.5f}" for a in auc))
+    print(f"{tag} {label} scopes (host s over {LANE_ROUNDS} rounds, calls): " + ", ".join(
+        f"{k} {v:.3f} ({n})" for k, (v, n) in scopes.items()))
+    print(f"{label} path launches: {launches} (per tree: " + ", ".join(
+        f"{name} {launches[name] / LANE_ROUNDS:.1f}" for name in required) + ")")
+    busy, round_wall, n_d2h, d2h_bytes = lane_round(bst)
+    splits = bst._gbdt.models[-1].num_leaves - 1
+    print(f"{tag} {label}: one more round (torch.profiler trace): {busy * 1e3:.1f} ms of "
+          f"device operations in {round_wall * 1e3:.1f} ms wall, {busy / round_wall:.1%} busy; "
+          f"{n_d2h} device-to-host copies a tree ({n_d2h / max(splits, 1):.2f} a split), "
+          f"{d2h_bytes} bytes")
+    return bst, launches, {"s_iter": steady, "first": float(per_iter[0]), "auc": auc,
+                           "scopes": scopes, "busy": busy / round_wall, "d2h": n_d2h,
+                           "leaves": leaves}
+
+
+def _exact_lane(lt, X, y, params, fobj, rounds):
+    """The card's and the CPU's model texts of one serial-learner run on
+    host gradients, and the two runs' seconds."""
+    out = {}
+    for where in ("card", "cpu"):
+        t = time.perf_counter()
+        bst = lt.Booster({**params, "objective": "none",
+                          **({"device_type": "cpu"} if where == "cpu" else {})},
+                         lt.Dataset(X, label=y))
+        check(type(bst._gbdt.tree_learner).__name__ == "SerialTreeLearner",
+              f"exact lane ({where}): trained with {type(bst._gbdt.tree_learner).__name__}")
+        for _ in range(rounds):
+            bst.update(fobj=fobj)
+        out[where] = (bst.model_to_string(), time.perf_counter() - t)
+    return out
+
+
+def check_constrained_scan(booster, dev, tag):
+    """The split kernel's constrained mode against its plain version run on
+    the CPU, on the trained booster's gradients: the root histogram with
+    infinite bounds and two leaves of its last tree with bounds that bind
+    (three quarters of the way from the midpoint of the unconstrained
+    record's outputs, which changes the record): records bit-equal. Then
+    the device time of the
+    constrained find form beside the unconstrained one at the root, the
+    plain version's, and the bound."""
+    from lightgbm_tpu_torch.models.gbdt import _pack_gh
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_rows, fixed_point_exponents
+    from lightgbm_tpu_torch.ops import split as ts
+
+    gbdt = booster._gbdt
+    tl = gbdt.tree_learner
+    g, h = gbdt.objective.get_gradients(gbdt.score[0])
+    gh = _pack_gh(g, h)
+    n = gbdt.num_data
+    exps = fixed_point_exponents(gh, n)
+    meta_h = ts.make_feature_meta(gbdt.train_set, tl.group_bin_padded, "cpu")
+    params_h = tl.params_dev.cpu()
+    part = tl.partition
+    counts = [part.count(leaf) for leaf in range(gbdt.models[-1].num_leaves)]
+    order = np.argsort(counts)[::-1]
+    cases = [("root", torch.arange(n, dtype=torch.int32, device=dev), n, None)]
+    for leaf in order[:2]:
+        cases.append((f"leaf {int(leaf)}", part.indices(int(leaf)), counts[leaf], "bind"))
+    hist_root, found = None, 0
+    for name, rows, cnt, bounds in cases:
+        hist = build_histogram_rows(tl.bins_dev, gh, rows, tl.group_bin_padded, count=cnt,
+                                    exponents=exps)
+        tot = tuple(float(v) for v in hist[0].sum(dim=0).cpu())
+        if bounds is None:
+            c = (-float("inf"), float("inf"))
+            hist_root = (hist, tot)
+        else:
+            free = ts.find_best_split(hist.cpu(), tot, meta_h, params_h)
+            mid = (float(free[10]) + float(free[11])) / 2
+            half = abs(float(free[10]) - float(free[11])) / 2
+            c = (mid - 0.75 * half, mid + 0.75 * half)
+        rec = ts.find_best_split(hist, tot, tl.meta, tl.params_dev, constraint=c).cpu()
+        ref = ts.find_best_split(hist.cpu(), tot, meta_h, params_h, constraint=c)
+        check(torch.equal(rec.view(torch.int32), ref.view(torch.int32)),
+              f"constrained split_kernel ({name}): the record differs from the plain version's")
+        found += int(rec[1] >= 0)
+        if bounds is None:
+            check(bool(rec[1] >= 0), f"constrained split_kernel ({name}): no split found")
+        else:
+            check(not torch.equal(rec, free), f"constrained split_kernel ({name}): the "
+                  "bounds do not bind")
+            lo, hi = (float(np.float32(v)) for v in c)  # as the search rounds them
+            check(rec[1] < 0 or (lo <= float(rec[10]) <= hi and lo <= float(rec[11]) <= hi),
+                  f"constrained split_kernel ({name}): outputs outside the bounds")
+    hist, tot = hist_root
+    inf = (-float("inf"), float("inf"))
+
+    def constrained():
+        return ts.find_best_split(hist, tot, tl.meta, tl.params_dev, constraint=inf)
+
+    def unconstrained():
+        return ts.find_best_split(hist, tot, tl.meta, tl.params_dev)
+
+    tot_d = torch.tensor(tot, dtype=torch.float32, device=dev)
+    # the profiler's first trace in a process may see no device time:
+    # each is asked twice at most
+    t = {"constrained": cuda_ms(constrained, 50), "free": cuda_ms(unconstrained, 50),
+         "free_device": (kernel_device_ms(unconstrained, 20, "split_kernel")
+                         or kernel_device_ms(unconstrained, 20, "split_kernel")),
+         "constrained_device": (kernel_device_ms(constrained, 20, "split_kernel")
+                                or kernel_device_ms(constrained, 20, "split_kernel")),
+         "plain": cuda_ms(lambda: ts._find_best_split_plain(hist, tot_d, tl.meta,
+                                                            tl.params_dev, constraint=inf), 5)}
+    F, B = tl.meta.gather_index.shape
+    per_leaf = F * B * 12 + 3 * 4 + 14 * 4
+    tables = F * B * 9 + F * 4 * 4 + 2 * F + 6 * 4
+    # a candidate: the two sides' sums (6), two outputs (8 each), two clamps
+    # (4), the direction test (3), two gains from the outputs (9 each), a sum
+    b = bound(per_leaf + tables, F * B * 2 * 48)
+    print(f"{tag} kernels: find_best_split_constrained ({F} x {B}, the root of the constraints "
+          f"run's gradients, and two leaves of its last tree with binding bounds): records "
+          f"bit-equal to the plain version run on the CPU ({found} of the 3 with a split); device "
+          f"time a call {fmt_ms(t['constrained_device'])} constrained against "
+          f"{fmt_ms(t['free_device'])} unconstrained (torch.profiler; CUDA events "
+          f"{t['constrained']:.4f} / {t['free']:.4f} ms), plain {t['plain']:.3f} ms, bound "
+          f"{b[0]:.5f} ms ({b[1]})")
+    return t, b
+
+
+def linear_score_timing(booster, dev, tag):
+    """The linear score of one tree over every training row, as the GBDT
+    computes it: the traversal's leaf mode and the linear epilogue; its
+    device time (CUDA events), the plain version's on the card, the bound;
+    and the kernel's result bit-equal to the plain traversal's."""
+    from lightgbm_tpu_torch.ops import predict_cuda
+    from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused, _traverse_leaves,
+                                                pack_ensemble, predict_raw, to_device_rows)
+
+    gbdt = booster._gbdt
+    X = gbdt._train_raw_dev
+    if X is None:
+        X = to_device_rows(gbdt.train_raw, dev)
+    packed = pack_ensemble([gbdt.models[-1]], device=dev)
+    got = predict_raw(packed, X)
+    check(torch.equal(predict_cuda.forest_leaf_indices(packed, X), _traverse_leaves(packed, X)),
+          "linear score: the leaf mode's indices differ from the plain traversal's")
+    check(torch.equal(got, _predict_raw_fused(packed, X, 1)),
+          "linear score: differs from the plain version's")
+    ms = cuda_ms(lambda: predict_raw(packed, X), 20)
+    leaf_ms = cuda_ms(lambda: predict_cuda.forest_leaf_indices(packed, X), 20)
+    plain = cuda_ms(lambda: _predict_raw_fused(packed, X, 1), 3)
+    n, F = X.shape
+    K = packed.lin_feat.shape[2]
+    depth = float(torch.from_numpy(gbdt.models[-1].leaf_depth[:gbdt.models[-1].num_leaves])
+                  .to(torch.float64).mean())
+    tables = sum(t.numel() * t.element_size() for t in (
+        packed.records, packed.lin_const, packed.lin_feat, packed.lin_coeff))
+    # the rows read once, a score written; a compare a level, two operations
+    # a linear term, the constant's add
+    b = bound(n * F * 4 + n * 4 + tables, n * (depth + 2 * K + 1))
+    print(f"{tag} linear score of one tree over {n} rows (K = {K} slots a leaf): "
+          f"{ms:.4f} ms a call (CUDA events; the leaf mode alone {leaf_ms:.4f} ms, the "
+          f"epilogue the rest), plain {plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}); the "
+          f"kernel's leaf indices and the score bit-equal to the plain version's")
+    return {"ms": ms, "leaf_ms": leaf_ms, "plain": plain}, b
+
+
+def distinct_features(trees):
+    return [len({int(t.split_feature[i]) for i in range(t.num_leaves - 1)}) for t in trees]
+
+
+def drive_constraints(lt, libs, train_set, valid, X_train, y_train, baseline, tag):
+    """Phase 15: monotone and interaction constraints with forced splits,
+    CEGB and linear trees through the serial learner at HIGGS width, each
+    exact on the card against the CPU at EXACT_ROWS rows. `baseline` is
+    phase 8's booster (the same data and settings without a lane). Returns
+    (the launches of the phase's full-width runs, the report)."""
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lanes_")
+    forced = os.path.join(tmp.name, "forced.json")
+    with open(forced, "w") as fh:
+        json.dump(LANE_FORCED, fh)
+    # ---- exact: the card trains as the CPU does, lane by lane
+    Xe, ye = X_train[:EXACT_ROWS], y_train[:EXACT_ROWS]
+    exact = {"num_leaves": EXACT_LEAVES, "metric": "None"}
+    for name, params, fobj in (
+            ("constraints", lane_params("constraints", forced, len(Xe)), snapped_logloss),
+            ("constraints, quantized",
+             {**lane_params("constraints", forced, len(Xe)), **QUANT_PARAMS}, host_logloss),
+            ("cegb", lane_params("cegb", forced, len(Xe)), snapped_logloss),
+            ("linear", lane_params("linear", forced, len(Xe)), snapped_logloss)):
+        out = _exact_lane(lt, Xe, ye, {**params, **exact}, fobj, LANE_EXACT_ROUNDS)
+        check(out["card"][0] == out["cpu"][0],
+              f"exact {name}: the card's model text differs from the CPU's, "
+              + first_difference(out["card"][0], out["cpu"][0]))
+        print(f"exact {name}: {EXACT_ROWS} rows, {EXACT_LEAVES} leaves, {LANE_EXACT_ROUNDS} "
+              f"rounds, gradients computed on the host: card and CPU model texts byte-equal "
+              f"({len(out['card'][0])} bytes; card {out['card'][1]:.1f} s, CPU "
+              f"{out['cpu'][1]:.1f} s)")
+    t_exact = time.perf_counter() - t_phase
+
+    # ---- full width
+    serial_kernels = ("histogram", "row_partition_decide", "row_partition_scatter",
+                      "predict_forest_raw")
+    launches, report = {}, {}
+    mono_set = with_monotone(train_set, monotone_list(train_set.num_feature()))
+    n = train_set.num_data()
+    bst, got, rep = drive_lane(lt, libs, "constraints", lane_params("constraints", forced, n),
+                               mono_set, valid, serial_kernels + ("find_best_split_constrained",),
+                               tag)
+    report["constraints"] = rep
+    for name, n in got.items():
+        launches[name] = launches.get(name, 0) + n
+    trees = bst._gbdt.models[:LANE_ROUNDS]
+    check(all(int(t.split_feature[0]) == 0 for t in trees),
+          "constraints: a tree's root is not the forced split on feature 0")
+    groups = [set(range(0, 8)), set(range(8, 16)), set(range(16, 28))]
+    forced_nodes = {0, 1}  # the root and its left child, split first
+    for k, t in enumerate(trees):
+        for node, path in node_paths(t):
+            if node in forced_nodes:
+                continue
+            check(any(path <= grp for grp in groups),
+                  f"constraints: tree {k} node {node}'s path {sorted(path)} crosses the "
+                  "interaction groups")
+    checked = monotone_sweep(bst, X_train, 15)
+    ms_scan, b_scan = check_constrained_scan(bst, dev, tag)
+    print(f"{tag} constraints: every root on feature 0 (forced, its left child on 25); every "
+          f"path below the forced splits inside one interaction group; the monotone sweep "
+          f"({SWEEP_ROWS} rows x {SWEEP_POINTS} points x {len(LANE_MONOTONE)} features, "
+          f"{checked} steps) never against a constraint")
+    del bst
+    torch.cuda.empty_cache()
+
+    bst, got, rep = drive_lane(lt, libs, "cegb", lane_params("cegb", forced, n), train_set,
+                               valid, serial_kernels + ("find_best_split",), tag)
+    report["cegb"] = rep
+    for name, n in got.items():
+        launches[name] = launches.get(name, 0) + n
+    pen, base = (distinct_features(bst._gbdt.models[:LANE_ROUNDS]),
+                 distinct_features(baseline._gbdt.models[:LANE_ROUNDS]))
+    check(np.mean(pen) < np.mean(base),
+          f"cegb: distinct features per tree {pen}, not fewer than without CEGB {base}")
+    print(f"{tag} cegb: distinct features per tree {pen} (mean {np.mean(pen):.1f}) against "
+          f"{base} (mean {np.mean(base):.1f}) in phase 8's run without CEGB")
+    del bst
+    torch.cuda.empty_cache()
+
+    bst, got, rep = drive_lane(lt, libs, "linear", lane_params("linear", forced, n), train_set,
+                               valid, serial_kernels[:3] + ("find_best_split",
+                                                            "predict_forest_leaf"), tag)
+    report["linear"] = rep
+    check(got["predict_forest_raw"] == 0,
+          "linear: a linear tree was scored through the raw mode")
+    for name, n in got.items():
+        launches[name] = launches.get(name, 0) + n
+    report["linear_leaf_launches"] = got["predict_forest_leaf"]
+    # every tree, the profiled round's too (predict stops at best_iteration)
+    gap = float(np.abs(bst._gbdt.score[0].cpu().numpy().astype(np.float64)
+                       - bst.predict(X_train, raw_score=True,
+                                     num_iteration=bst.current_iteration())).max())
+    check(gap <= 1e-5, f"linear: the train score differs from predict(raw_score=True) by {gap}")
+    n_coef = sum(len(c) for t in bst._gbdt.models for c in t.leaf_coeff[:t.num_leaves])
+    print(f"{tag} linear: train score against predict(raw_score=True) on the {len(X_train)} "
+          f"training rows max |d| {gap:.3g}; {n_coef} coefficients in {LANE_ROUNDS} trees")
+    ms_lin, b_lin = linear_score_timing(bst, dev, tag)
+    del bst
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    print(f"{tag} phase 15: {time.perf_counter() - t_phase:.1f} s (exact runs {t_exact:.1f} s)")
+    print(f"lanes path launches: {launches}")
+    report.update({"scan": (ms_scan, b_scan), "linear_score": (ms_lin, b_lin)})
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
 # the Booster surface
 
 def check_booster_surface(lt, booster, tag):
@@ -3507,8 +3957,13 @@ def main() -> int:
     # ------------------------------- categorical features, serial learner
     cat_launches, _ = drive_categorical(lt, libs, args.seed, tag)
     torch.cuda.empty_cache()
+
+    # ------------------------------- constraints, CEGB, linear trees
+    lane_launches, lanes = drive_constraints(lt, libs, train_set, valid, X_train, y_train,
+                                             wave["booster"], tag)
+    torch.cuda.empty_cache()
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
-             goss_launches, cat_launches)
+             goss_launches, cat_launches, lane_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)
@@ -3666,6 +4121,25 @@ def main() -> int:
                                      "k_device": t_modes[key]}, "k"),
              "plain_ms": t_modes["plain_" + key], "bound_ms": b_modes[key][0],
              "bound_by": b_modes[key][1], "library_ms": None})
+    # phase 15: the split kernel's constrained mode, and the linear score
+    # (the traversal's leaf mode and the linear epilogue) on rows 4 and 1
+    (t_con, b_con), (t_lin, b_lin) = lanes["scan"], lanes["linear_score"]
+    kernels.append(
+        {"name": "find_best_split_constrained", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_find.cu",
+         "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
+         "launches": launches("find_best_split_constrained"), "max_abs_err": 0.0,
+         "ms": device_or_events({"k": t_con["constrained"],
+                                 "k_device": t_con["constrained_device"]}, "k"),
+         "plain_ms": t_con["plain"], "bound_ms": b_con[0], "bound_by": b_con[1],
+         "library_ms": None})
+    kernels.append(
+        {"name": "predict_forest_leaf_linear", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",
+         "replaces": "lightgbm_tpu/ops/predict_pallas.py:41",
+         "launches": lanes["linear_leaf_launches"], "max_abs_err": 0.0,
+         "ms": t_lin["ms"], "plain_ms": t_lin["plain"], "bound_ms": b_lin[0],
+         "bound_by": b_lin[1], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

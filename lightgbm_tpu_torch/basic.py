@@ -141,8 +141,14 @@ class Dataset:
                 feature_names = [str(c) for c in data.columns]
             if pd_cat_cols and self.categorical_feature == "auto":
                 self.categorical_feature = pd_cat_cols
+        elif _is_sparse(data):
+            # scipy sparse: binned column by column, never densified whole
+            X = data
+            if config.linear_tree:
+                Log.fatal("linear_tree requires dense input "
+                          "(raw feature values per leaf)")
         else:
-            X = data if _is_sparse(data) else _to_2d_float(data)
+            X = _to_2d_float(data)
         if isinstance(self.feature_name, (list, tuple)):
             feature_names = list(self.feature_name)
 
@@ -257,7 +263,8 @@ class Booster:
             train_set.params = {**train_set.params, **self.params}
             train_set.construct()
             objective = create_objective(self.config.objective, self.config)
-            self._gbdt = GBDT(self.config, train_set._handle, objective, self.device)
+            self._gbdt = GBDT(self.config, train_set._handle, objective, self.device,
+                              train_raw=train_set._raw)
             self.train_set = train_set
             self.pandas_categorical = train_set.pandas_categorical
             return

@@ -31,6 +31,16 @@
 // both children; the first maximum over lane 0's thresholds then lane 1's;
 // the record is valid when its gain beats the parent's gain + min_gain.
 //
+// The constrained mode (kMono; the monotone lane that the JAX package runs in
+// XLA beside its Pallas scan, lightgbm_tpu/ops/split.py:359-364, 402-411,
+// 442-444): the leaf's basic-mode output bounds (lo, hi) come by value, as
+// the host totals do. Each candidate's two outputs are clamped into them
+// (max with lo, then min with hi, as jnp.clip), a split on a feature whose
+// monotone direction (+1 / -1, the monotone vector [F] int8) its clamped
+// outputs go against is no candidate, the gain is computed from the clamped
+// outputs, and the record's outputs are clamped. The gain shift stays the
+// unconstrained parent's. One leaf a launch (the serial learner's).
+//
 // Bit-identity with the plain version (ops/split.py, run on the CPU). The two
 // sums over a feature's bins are float64 in a fixed order that the plain
 // version emulates (ops/split.py:bin_sum, bin_prefix): lane j of the warp
@@ -89,6 +99,7 @@ struct Meta {
   const uint8_t* has_missing;     // [F]
   const int* nbins;               // [F]
   const uint8_t* is_categorical;  // [F]
+  const int8_t* monotone;         // [F] (constrained mode)
 };
 
 __device__ __forceinline__ float threshold_l1(float s, float l1) {
@@ -110,10 +121,21 @@ __device__ __forceinline__ float leaf_output(float sg, float sh, const Params& p
   return out;
 }
 
-__device__ __forceinline__ float leaf_gain(float sg, float sh, const Params& p) {
-  const float out = leaf_output(sg, sh, p);
+__device__ __forceinline__ float gain_given_output(float sg, float sh, float out,
+                                                   const Params& p) {
   const float g = threshold_l1(sg, p.l1);
   return -(2.0f * g * out + (sh + p.l2) * out * out);
+}
+
+__device__ __forceinline__ float leaf_gain(float sg, float sh, const Params& p) {
+  return gain_given_output(sg, sh, leaf_output(sg, sh, p), p);
+}
+
+// jnp.clip(x, lo, hi): the larger of x and lo, then the smaller of that and
+// hi; a NaN stays NaN
+__device__ __forceinline__ float clip_output(float x, float lo, float hi) {
+  const float y = x < lo ? lo : x;
+  return y > hi ? hi : y;
 }
 
 // a beats b: larger, NaN largest, ties to the smaller index
@@ -141,14 +163,15 @@ __device__ __forceinline__ double lane_scan(const float* x, int lane, int chunk)
 
 // kInt (find form only): src is an int32 histogram, each value converted to
 // float32 and multiplied by its channel's scale as it is loaded, before any
-// sum: the plain version's hist.float() * scale
-template <bool kGather, bool kInt>
+// sum: the plain version's hist.float() * scale. kMono: the constrained mode,
+// with the output bounds (c_lo, c_hi).
+template <bool kGather, bool kInt, bool kMono>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 split_kernel(const void* __restrict__ src, long long src_rows, int n_features, int n_bins,
              int chunk, const float* __restrict__ totals, float t0, float t1, float t2,
              const float* __restrict__ params, const float* __restrict__ scale, Meta m,
              const uint8_t* __restrict__ feature_mask, const float* __restrict__ penalty,
-             float* __restrict__ rec) {
+             float c_lo, float c_hi, float* __restrict__ rec) {
   extern __shared__ float smem[];
   __shared__ float best_rec[kMaxWarps][kFields];
   __shared__ float best_gain[kMaxWarps];
@@ -185,6 +208,7 @@ split_kernel(const void* __restrict__ src, long long src_rows, int n_features, i
     const float pen = penalty != nullptr ? penalty[f] : 0.0f;
     const float efb = kGather && m.efb_omitted[f] ? 1.0f : 0.0f;
     const int db = kGather ? int(m.default_bin[f]) : 0;
+    const int mono = kMono ? int(m.monotone[f]) : 0;
 
     // ---- the feature's bins into shared memory (zero past B): lane j takes
     // bins j, j + 32, ...; kLoadBatch of them at a time, every index
@@ -282,9 +306,17 @@ split_kernel(const void* __restrict__ src, long long src_rows, int n_features, i
           lc = lc + miss[2];
         }
         const float rg = tot[0] - lg, rh = tot[1] - lh, rc = tot[2] - lc;
-        const bool ok = base_ok && (side == 0 || hm) && lc >= p.min_data && rc >= p.min_data
-                        && lh >= p.min_hess && rh >= p.min_hess;
-        const float g = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p);
+        bool ok = base_ok && (side == 0 || hm) && lc >= p.min_data && rc >= p.min_data
+                  && lh >= p.min_hess && rh >= p.min_hess;
+        float g;
+        if (kMono) {
+          const float lo_ = clip_output(leaf_output(lg, lh, p), c_lo, c_hi);
+          const float ro_ = clip_output(leaf_output(rg, rh, p), c_lo, c_hi);
+          ok = ok && !((mono > 0 && lo_ > ro_) || (mono < 0 && lo_ < ro_));
+          g = gain_given_output(lg, lh, lo_, p) + gain_given_output(rg, rh, ro_, p);
+        } else {
+          g = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p);
+        }
         const float gv = ok ? g : -INFINITY;
         const int k = side * B + b;
         if (beats(gv, k, bv, bi)) {
@@ -328,6 +360,10 @@ split_kernel(const void* __restrict__ src, long long src_rows, int n_features, i
     r[9] = rc;
     r[10] = leaf_output(lg, lh, p);
     r[11] = leaf_output(rg, rh, p);
+    if (kMono) {
+      r[10] = clip_output(r[10], c_lo, c_hi);
+      r[11] = clip_output(r[11], c_lo, c_hi);
+    }
     r[12] = 0.0f;
     r[13] = 0.0f;
     if (kGather) {
@@ -383,6 +419,8 @@ extern "C" {
 // (torch.bool), missing_pos / nbins [F] int32, feature_mask [F] bytes or
 // NULL, penalty [F] f32 or NULL -> rec [L, 14]. The per-feature form
 // (gather_index NULL, scale NULL): fh [L, F, B, 3] f32 -> rec [L, F, 14].
+// monotone [F] int8 selects the constrained mode with the bounds (c_lo,
+// c_hi), one leaf only (NULL: unconstrained).
 // Returns cudaGetLastError() after the launch.
 int lgbt_split_find(const void* src, long long src_rows, int n_leaves, int n_features,
                     int n_bins, const float* totals, float t0, float t1, float t2,
@@ -391,40 +429,44 @@ int lgbt_split_find(const void* src, long long src_rows, int n_leaves, int n_fea
                     const uint8_t* efb_omitted, const int* missing_pos,
                     const uint8_t* has_missing, const int* nbins,
                     const uint8_t* is_categorical, const uint8_t* feature_mask,
-                    const float* penalty, float* rec, void* stream) {
+                    const float* penalty, const int8_t* monotone, float c_lo, float c_hi,
+                    float* rec, void* stream) {
   if (n_leaves < 1 || n_features < 1 || n_bins < 1 || n_bins > 1024
-      || (scale != nullptr && gather_index == nullptr)) {
+      || (scale != nullptr && gather_index == nullptr)
+      || (monotone != nullptr && n_leaves != 1)) {
     return int(cudaErrorInvalidValue);
   }
   int chunk;
   size_t smem;
   const int warps = launch_shape(n_features, n_bins, &chunk, &smem);
-  const Meta m{gather_index, valid_slot, default_bin, efb_omitted,
-               missing_pos, has_missing, nbins, is_categorical};
+  const Meta m{gather_index, valid_slot, default_bin, efb_omitted, missing_pos,
+               has_missing, nbins, is_categorical, monotone};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool opted_in = false;  // above 48 KB a block asks for its shared memory
   if (!opted_in) {
-    cudaFuncSetAttribute(split_kernel<true, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
-    cudaFuncSetAttribute(split_kernel<true, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
-    cudaFuncSetAttribute(split_kernel<false, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    const void* kernels[] = {
+        (const void*)split_kernel<true, false, false>, (const void*)split_kernel<true, true, false>,
+        (const void*)split_kernel<false, false, false>, (const void*)split_kernel<true, false, true>,
+        (const void*)split_kernel<true, true, true>, (const void*)split_kernel<false, false, true>};
+    for (const void* k : kernels) {
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    }
     opted_in = true;
   }
+  const dim3 grid(n_leaves), block(warps * 32);
+#define LGBT_SPLIT_LAUNCH(G, I, M)                                                         \
+  split_kernel<G, I, M><<<grid, block, smem, s>>>(src, src_rows, n_features, n_bins, chunk, \
+                                                  totals, t0, t1, t2, params, scale, m,     \
+                                                  feature_mask, penalty, c_lo, c_hi, rec)
+  const bool mono = monotone != nullptr;
   if (scale != nullptr) {
-    split_kernel<true, true><<<n_leaves, warps * 32, smem, s>>>(
-        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, scale, m,
-        feature_mask, penalty, rec);
+    if (mono) LGBT_SPLIT_LAUNCH(true, true, true); else LGBT_SPLIT_LAUNCH(true, true, false);
   } else if (gather_index != nullptr) {
-    split_kernel<true, false><<<n_leaves, warps * 32, smem, s>>>(
-        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, nullptr, m,
-        feature_mask, penalty, rec);
+    if (mono) LGBT_SPLIT_LAUNCH(true, false, true); else LGBT_SPLIT_LAUNCH(true, false, false);
   } else {
-    split_kernel<false, false><<<n_leaves, warps * 32, smem, s>>>(
-        src, src_rows, n_features, n_bins, chunk, totals, t0, t1, t2, params, nullptr, m,
-        feature_mask, penalty, rec);
+    if (mono) LGBT_SPLIT_LAUNCH(false, false, true); else LGBT_SPLIT_LAUNCH(false, false, false);
   }
+#undef LGBT_SPLIT_LAUNCH
   return int(cudaGetLastError());
 }
 

@@ -11,7 +11,11 @@ Scores live on the training device as float32 [C, N], one row a class (C
 trees an iteration for the multiclass objectives). The train score is
 updated from the learner's partition (each row once, in float32, as the JAX
 package's gather or scatter-add does); valid scores by traversing the new
-tree over the valid rows (the traversal kernel on the card).
+tree over the valid rows (the traversal kernel on the card). With
+linear_tree each tree's leaves get their linear models on the host after
+the tree is grown (`treelearner/linear.py`), and the train and valid scores
+take the tree through the linear predictor (the traversal's leaf mode, then
+the linear epilogue) over the raw rows, kept on the device.
 
 Both learners train synchronously: each tree is grown, replayed into a Tree
 on the host and applied to the scores before the next. With the wave
@@ -72,7 +76,7 @@ class GBDT:
 
     def __init__(self, config: Config, train_set: Optional[Dataset],
                  objective: Optional[ObjectiveFunction],
-                 device: torch.device) -> None:
+                 device: torch.device, train_raw: Optional[np.ndarray] = None) -> None:
         self.config = config
         self.device = torch.device(device)
         self.train_set = train_set
@@ -103,6 +107,12 @@ class GBDT:
 
         n = train_set.num_data
         self.num_data = n
+        # the raw rows, for linear trees' fits and scores (the JAX
+        # package's train_raw); on the device once, at the first score
+        self.train_raw = train_raw
+        self._train_raw_dev: Optional[torch.Tensor] = None
+        if config.linear_tree and train_raw is None:
+            Log.fatal("linear_tree requires dense input (raw feature values per leaf)")
         if objective is not None:
             if not objective.trainable:
                 Log.fatal("objective %s: training is not yet ported to the "
@@ -304,6 +314,8 @@ class GBDT:
                     new_tree = self.tree_learner.train(gh_ext, bag)
             if new_tree.num_leaves > 1:
                 should_continue = True
+                if self.config.linear_tree:
+                    self._fit_linear(new_tree, grads[c], hesses[c], len(self.models) < C)
                 if self.objective is not None:
                     self.objective.renew_tree_output(
                         new_tree, self.score[c], self.tree_learner.partition)
@@ -389,11 +401,41 @@ class GBDT:
             oob = np.flatnonzero(out).astype(np.int32)  # setdiff1d of the distinct bag
             self._oob_padded = torch.from_numpy(pad_indices(oob, n)).to(self.device)
 
+    def _fit_linear(self, tree: Tree, grad: torch.Tensor, hess: torch.Tensor,
+                    is_first_tree: bool) -> None:
+        """The leaves' linear models of a grown tree, on the host (the JAX
+        package's gbdt.py:367-378): the leaves' rows and the tree's
+        gradients and hessians reach the host in one copy each."""
+        from ..treelearner.linear import fit_leaf_linear_models, leaf_rows_host
+
+        with global_timer.scope("linear_fit"):
+            if is_first_tree:  # constant leaves: nothing to copy
+                fit_leaf_linear_models(tree, self.train_set, self.train_raw, None, None, None,
+                                       self.config.linear_lambda, True)
+                return
+            rows = leaf_rows_host(self.tree_learner.partition, tree.num_leaves)
+            gh = torch.stack([grad, hess]).cpu().numpy()
+            fit_leaf_linear_models(tree, self.train_set, self.train_raw, rows, gh[0], gh[1],
+                                   self.config.linear_lambda, False)
+
+    def _add_linear_tree_score(self, tree: Tree, class_id: int) -> None:
+        """A linear tree's outputs over every training row: its leaves need
+        the raw values, not only the leaf constants (AddPredictionToScore
+        with is_linear, gbdt.cpp; the JAX package's gbdt.py:523-530)."""
+        if self._train_raw_dev is None:
+            self._train_raw_dev = to_device_rows(self.train_raw, self.device)
+        packed = pack_ensemble([tree], device=self.device)
+        self.score[class_id] += predict_raw(packed, self._train_raw_dev)[:, 0]
+
     def _update_train_score(self, tree: Tree, class_id: int) -> None:
         """score[row] += leaf value for every in-bag row, then the out-of-bag
         rows by bin-space traversal. The wave learner's partition carries a
         leaf-id vector (bagged-out rows at -1): one gather over it. The
-        serial learner's carries per-leaf row sets: one scatter-add."""
+        serial learner's carries per-leaf row sets: one scatter-add. A
+        linear tree scores every row through the linear predictor."""
+        if tree.is_linear:
+            self._add_linear_tree_score(tree, class_id)
+            return
         part = self.tree_learner.partition
         L = tree.num_leaves
         lv = torch.as_tensor(tree.leaf_value[:L], dtype=torch.float32,

@@ -179,11 +179,17 @@ class Tree:
         """Tree::Shrinkage (tree.h:188): scale all outputs by `rate`."""
         self.leaf_value[: self.num_leaves] *= rate
         self.internal_value[: max(self.num_leaves - 1, 0)] *= rate
+        if self.is_linear and self.leaf_const is not None:
+            self.leaf_const[: self.num_leaves] *= rate
+            for i in range(self.num_leaves):
+                self.leaf_coeff[i] = [c * rate for c in self.leaf_coeff[i]]
         self.shrinkage *= rate
 
     def add_bias(self, val: float) -> None:
         self.leaf_value[: self.num_leaves] += val
         self.internal_value[: max(self.num_leaves - 1, 0)] += val
+        if self.is_linear and self.leaf_const is not None:
+            self.leaf_const[: self.num_leaves] += val
         self.shrinkage = 1.0
 
     def as_constant_tree(self, val: float) -> None:

@@ -11,6 +11,13 @@ loop of the JAX package (`forest_level_step` / `_traverse_leaves` /
 plain version only for tensors that lie on the CPU; the tests hold it
 against the JAX functions and the kernel against it.
 
+Linear-tree ensembles (`PackedEnsemble.linear`) score a leaf as its
+constant plus its coefficients times the row's raw values, falling back to
+the constant leaf value where one of them is NaN or infinite
+(`_linear_leaf_scores`, the JAX package's predict.py:274-296). Their
+traversal is the kernel's leaf mode on the card (`forest_leaf_indices`),
+then that epilogue in PyTorch ops.
+
 Serving-path machinery on top of the traversal:
 
   * `PredictorCache` — packs the ensemble once per (model version, tree
@@ -18,8 +25,7 @@ Serving-path machinery on top of the traversal:
   * `predict_raw_streamed` — row chunks for large N, so only one chunk of
     the input is on the device at a time.
 
-Not ported yet: linear-tree ensembles (the per-leaf coefficient path),
-prediction early stopping and row-sharded predict.
+Not ported yet: prediction early stopping and row-sharded predict.
 """
 from __future__ import annotations
 
@@ -70,7 +76,13 @@ class PackedEnsemble:
     cat_table: torch.Tensor  # [W2] int32: bitsets behind the records' categorical nodes
     max_depth: int
     num_trees: int
-    num_features: int  # columns an input needs: one past the largest split feature
+    num_features: int  # columns an input needs: one past the largest feature read
+    # linear trees: each leaf's constant, features and coefficients (K the
+    # most features of a leaf; an unused slot has feature -1, coefficient 0)
+    linear: bool = False
+    lin_const: Optional[torch.Tensor] = None  # [T, L] float32
+    lin_feat: Optional[torch.Tensor] = None  # [T, L, K] int32
+    lin_coeff: Optional[torch.Tensor] = None  # [T, L, K] float32
 
     @property
     def device(self) -> torch.device:
@@ -143,9 +155,6 @@ def pack_ensemble(trees: Sequence[Tree], device: Union[str, torch.device] = "cpu
     float32 x, (x <= t64) == (x <= rounddown32(t64)), so decisions over
     float32 inputs match the float64 thresholds of the model text exactly.
     """
-    if any(t.is_linear for t in trees):
-        Log.fatal("Linear-tree ensembles are not yet ported to the PyTorch "
-                  "package; predict them with the JAX package")
     with global_timer.scope("predict_pack"):
         T = max(len(trees), 1)
         I = max(max((t.num_leaves - 1 for t in trees), default=1), 1,
@@ -192,8 +201,38 @@ def pack_ensemble(trees: Sequence[Tree], device: Union[str, torch.device] = "cpu
             "cat_words": np.array(cat_words, dtype=np.uint32),
             "cat_offset": co, "cat_n_words": cw_n, "num_leaves": nl,
         }
-        return packed_from_numpy(arrays, max_depth=max(int(max_depth), fixed_depth),
-                                 num_trees=len(trees), device=device)
+        packed = packed_from_numpy(arrays, max_depth=max(int(max_depth), fixed_depth),
+                                   num_trees=len(trees), device=device)
+        if any(t.is_linear for t in trees):
+            _pack_linear(packed, trees, lv, device)
+        return packed
+
+
+def _pack_linear(packed: PackedEnsemble, trees: Sequence[Tree], lv: np.ndarray,
+                 device) -> None:
+    """The linear leaves' tables (the JAX package's predict.py:148-163):
+    a tree that is not linear keeps its leaf values as constants."""
+    T, L = lv.shape
+    K = max((len(t.leaf_features[i]) for t in trees if t.is_linear
+             for i in range(t.num_leaves)), default=0)
+    lin_const = lv.copy()
+    lin_feat = np.full((T, L, K), -1, dtype=np.int32)
+    lin_coeff = np.zeros((T, L, K), dtype=np.float64)
+    for k, tree in enumerate(trees):
+        if not tree.is_linear or tree.leaf_const is None:
+            continue
+        lin_const[k, : tree.num_leaves] = tree.leaf_const[: tree.num_leaves]
+        for i in range(tree.num_leaves):
+            nf = len(tree.leaf_features[i])
+            if nf:
+                lin_feat[k, i, :nf] = tree.leaf_features[i]
+                lin_coeff[k, i, :nf] = tree.leaf_coeff[i]
+    packed.linear = True
+    packed.lin_const = torch.from_numpy(lin_const.astype(np.float32)).to(device)
+    packed.lin_feat = torch.from_numpy(lin_feat).to(device)
+    packed.lin_coeff = torch.from_numpy(lin_coeff.astype(np.float32)).to(device)
+    if K and lin_feat.max() >= packed.num_features:
+        packed.num_features = int(lin_feat.max()) + 1
 
 
 def packed_from_numpy(arrays: Union[Mapping[str, np.ndarray], Sequence[np.ndarray]],
@@ -358,18 +397,56 @@ def _leaf_scores(packed: PackedEnsemble, leaf: torch.Tensor) -> torch.Tensor:
     return packed.leaf_value.reshape(-1)[flat]
 
 
+def _linear_leaf_scores(packed: PackedEnsemble, X: torch.Tensor,
+                        leaf: torch.Tensor) -> torch.Tensor:
+    """Per-(row, tree) scores [N, T] of a linear-tree ensemble from leaf
+    assignments: the leaf's constant plus the sum over its K slots of
+    coefficient x raw value, or the constant leaf value where one of its
+    features is NaN or infinite (Tree::PredictByMap's linear path). The K
+    terms are summed in one fixed order, a float32 add at a time from
+    zero, each op on its own, so a CPU tensor and a CUDA tensor give the
+    same bits (the JAX package keeps this math eager, unfused, for the
+    same reason: predict.py:358-364)."""
+    T, L = packed.leaf_value.shape
+    flat = torch.arange(T, dtype=torch.int64, device=leaf.device)[None, :] * L \
+        + leaf.to(torch.int64)
+    base = packed.leaf_value.reshape(-1)[flat]
+    K = packed.lin_feat.shape[2]
+    n_cols = X.shape[1]
+    total = torch.zeros_like(base)
+    bad = torch.zeros(base.shape, dtype=torch.bool, device=base.device)
+    for k in range(K):
+        feat = packed.lin_feat[:, :, k].reshape(-1)[flat]  # [N, T]
+        used = feat >= 0
+        fv = torch.gather(X, 1, feat.clamp(0, n_cols - 1).to(torch.int64))
+        bad |= used & ~torch.isfinite(fv)
+        fv = torch.where(used, fv, torch.zeros_like(fv))
+        term = packed.lin_coeff[:, :, k].reshape(-1)[flat] * fv
+        total = total + torch.where(used, term, torch.zeros_like(term))
+    lin = packed.lin_const.reshape(-1)[flat] + total
+    return torch.where(bad, base, lin)
+
+
+def _class_sums(vals: torch.Tensor, num_tree_per_iteration: int) -> torch.Tensor:
+    """[N, T] per-tree scores -> [N, C]: each class sums its trees in
+    ascending iteration order, one float32 add at a time, from 0."""
+    C = num_tree_per_iteration
+    out = torch.zeros((vals.shape[0], C), dtype=torch.float32, device=vals.device)
+    for it in range(vals.shape[1] // C):
+        out += vals[:, it * C:(it + 1) * C]
+    return out
+
+
 def _predict_raw_fused(packed: PackedEnsemble, X: torch.Tensor,
                        num_tree_per_iteration: int) -> torch.Tensor:
     """Traverse + score + per-class accumulate: [N, C] float32. Each class
     sums its trees in ascending iteration order, one float32 add at a
     time, starting from 0 — the kernel's order, so the two agree bit for
     bit; the JAX package's XLA reduction may sum in another order."""
-    vals = _leaf_scores(packed, _traverse_leaves(packed, X))
-    C = num_tree_per_iteration
-    out = torch.zeros((X.shape[0], C), dtype=torch.float32, device=X.device)
-    for it in range(vals.shape[1] // C):
-        out += vals[:, it * C:(it + 1) * C]
-    return out
+    leaf = _traverse_leaves(packed, X)
+    vals = (_linear_leaf_scores(packed, X, leaf) if packed.linear
+            else _leaf_scores(packed, leaf))
+    return _class_sums(vals, num_tree_per_iteration)
 
 
 # ------------------------------------------------------------ entry points
@@ -402,14 +479,22 @@ def predict_raw(packed: PackedEnsemble, X: torch.Tensor,
                 num_tree_per_iteration: int = 1,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Raw scores [N, num_tree_per_iteration] summed over iterations,
-    written into `out` when one is given."""
-    from .predict_cuda import forest_raw
+    written into `out` when one is given. A linear-tree ensemble takes the
+    traversal's leaf indices (the kernel's leaf mode on the card) and the
+    linear epilogue."""
+    from .predict_cuda import forest_leaf_indices, forest_raw
 
     if packed.num_trees == 0:
         zeros = torch.zeros((X.shape[0], num_tree_per_iteration),
                             dtype=torch.float32, device=X.device)
         return zeros if out is None else out.copy_(zeros)
     validate_tree_count(packed, num_tree_per_iteration)
+    if packed.linear:
+        with global_timer.scope("predict_traverse"):
+            leaf = forest_leaf_indices(packed, X)
+        with global_timer.scope("predict_linear"):
+            res = _class_sums(_linear_leaf_scores(packed, X, leaf), num_tree_per_iteration)
+        return res if out is None else out.copy_(res)
     with global_timer.scope("predict_traverse"):
         return forest_raw(packed, X, num_tree_per_iteration, out=out)
 

@@ -133,6 +133,9 @@ def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: 
     summing its trees in ascending iteration order. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel."""
     C = num_tree_per_iteration
+    if packed.linear and X.device.type != "cpu":
+        raise ValueError("a linear-tree ensemble is scored from the leaf mode "
+                         "(ops/predict.py:predict_raw), not the raw mode")
     if X.device.type == "cpu":
         res = _predict_raw_fused(packed, X, C)
         return res if out is None else out.copy_(res)

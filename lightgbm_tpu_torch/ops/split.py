@@ -21,9 +21,14 @@ one-hot lane and the sorted-subset lane in both directions. They run in
 PyTorch ops on the histogram's device, after the split kernel has found the
 best numeric record, and replace it only where their gain is strictly
 larger (the JAX package concatenates the numeric records first, so a tie
-goes to the numeric record). Monotone constraints are refused before a
-learner is built. A quantized (int32) histogram is searched as the float
-histogram hist.float() * scale (`find_best_split`'s `scale`).
+goes to the numeric record). A monotone-constrained search (`constraint`,
+the leaf's basic-mode output bounds) clamps each candidate's outputs into
+the bounds, discards a split on a monotone feature whose clamped outputs go
+against its direction and scores the rest from the clamped outputs (the
+JAX package's per_feature_best, split.py:402-411, 442-444); the
+categorical lanes clamp only their record's outputs. A quantized (int32)
+histogram is searched as the float histogram hist.float() * scale
+(`find_best_split`'s `scale`).
 The numeric search goes through ``ops/scan_cuda.py``: the plain version below for a
 CPU tensor, the hand-written kernel (``csrc/split_find.cu``) for a CUDA
 tensor. `find_best_split` is one launch there, from the group histogram to
@@ -63,6 +68,7 @@ class FeatureMeta:
     missing_type: torch.Tensor  # [F] int32
     nbins: torch.Tensor  # [F] int32 bins per feature
     is_categorical: torch.Tensor  # [F] bool
+    monotone: torch.Tensor  # [F] int8 (-1 / 0 / +1)
     # derived from the above for the scan: the missing bin's position
     # (NaN bin last, else the default bin) and whether there is one
     missing_pos: torch.Tensor  # [F] int32
@@ -92,6 +98,7 @@ def make_feature_meta(dataset, group_bin_padded: int,
     missing = np.zeros(F, dtype=np.int32)
     nbins = np.zeros(F, dtype=np.int32)
     is_cat = np.zeros(F, dtype=bool)
+    mono = np.zeros(F, dtype=np.int8)
     G = dataset.num_groups
     sentinel = G * group_bin_padded  # flat index of the all-zero sentinel row
     for k, f in enumerate(feats):
@@ -102,6 +109,8 @@ def make_feature_meta(dataset, group_bin_padded: int,
         nbins[k] = nb
         missing[k] = m.missing_type
         is_cat[k] = m.bin_type == 1
+        if dataset.monotone_constraints:
+            mono[k] = dataset.monotone_constraints[f]
         lo, hi, dbin = fg.feature_bin_range(mi)
         gather[k, :] = sentinel
         default_bin[k] = m.default_bin
@@ -129,7 +138,8 @@ def make_feature_meta(dataset, group_bin_padded: int,
         gather_index=dev(gather), valid_slot=dev(valid),
         default_bin=dev(default_bin), efb_omitted=dev(efb_omitted),
         missing_type=dev(missing), nbins=dev(nbins), is_categorical=dev(is_cat),
-        missing_pos=dev(missing_pos), has_missing=dev(missing != MISSING_NONE),
+        monotone=dev(mono), missing_pos=dev(missing_pos),
+        has_missing=dev(missing != MISSING_NONE),
         real_feature=list(feats), max_bins=Bmax, hist_rows=G * group_bin_padded,
         has_categorical=bool(is_cat.any()))
 
@@ -159,6 +169,21 @@ def leaf_gain_given_output(sum_grad, sum_hess, l1, l2, output):
 def leaf_gain(sum_grad, sum_hess, l1, l2, max_delta_step):
     out = leaf_output(sum_grad, sum_hess, l1, l2, max_delta_step)
     return leaf_gain_given_output(sum_grad, sum_hess, l1, l2, out)
+
+
+def constraint_bounds(constraint, device: torch.device):
+    """A leaf's (min, max) output bounds, given as two host floats, as
+    float32 scalars on `device`: each rounded to float32 once, as the JAX
+    learner's jnp.asarray(bounds, float32) rounds them."""
+    lo, hi = (float(v) for v in constraint)
+    return (torch.tensor(lo, dtype=torch.float32, device=device),
+            torch.tensor(hi, dtype=torch.float32, device=device))
+
+
+def clip_output(out, lo, hi):
+    """jnp.clip(out, lo, hi): max with lo, then min with hi (NaN stays
+    NaN; crossed bounds give hi)."""
+    return torch.minimum(torch.maximum(out, lo), hi)
 
 
 # Packed best-split record layout (device -> host, one sync per leaf). The
@@ -300,11 +325,19 @@ def gather_feature_hist(hist: torch.Tensor, meta: FeatureMeta,
 def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
                             meta: FeatureMeta, params: torch.Tensor,
                             feature_mask: Optional[torch.Tensor] = None,
-                            penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            penalty: Optional[torch.Tensor] = None,
+                            constraint=None) -> torch.Tensor:
     """The numeric lanes of the JAX package's per_feature_best, over
     fh [..., F, Bmax, 3] and totals [..., 3] (a leading leaf dimension is
     batched; every op is elementwise or runs along the bin axis, so each
     leaf's records are the one-leaf call's bits).
+
+    `constraint`, a leaf's (min, max) output bounds as two host floats,
+    selects the constrained lane, step by step the JAX package's
+    (split.py:402-411, 442-444): each candidate's two outputs clamped into
+    the bounds, a split on a monotone feature whose clamped outputs go
+    against its direction discarded, the gain from the clamped outputs,
+    and the record's outputs clamped.
 
     The prefix over bins is a float64 sum in the kernel's order rounded to
     float32 at every bin (`bin_prefix`). It differs from the JAX package's
@@ -334,6 +367,9 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
     gate = ~meta.is_categorical
     if feature_mask is not None:
         gate = gate & feature_mask
+    if constraint is not None:
+        c_lo, c_hi = constraint_bounds(constraint, dev)
+        mono = meta.monotone[:, None]
     results = []
     for lane, left in enumerate((cum, cum + missing_vals[..., None, :])):
         lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
@@ -346,8 +382,15 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
         ok &= gate[:, None]
         if lane == 1:
             ok &= has_missing[:, None]
-        gain = (leaf_gain(lg, lh, l1, l2, max_delta)
-                + leaf_gain(rg, rh, l1, l2, max_delta))
+        if constraint is not None:
+            lo_ = clip_output(leaf_output(lg, lh, l1, l2, max_delta), c_lo, c_hi)
+            ro_ = clip_output(leaf_output(rg, rh, l1, l2, max_delta), c_lo, c_hi)
+            ok &= ~(((mono > 0) & (lo_ > ro_)) | ((mono < 0) & (lo_ < ro_)))
+            gain = (leaf_gain_given_output(lg, lh, l1, l2, lo_)
+                    + leaf_gain_given_output(rg, rh, l1, l2, ro_))
+        else:
+            gain = (leaf_gain(lg, lh, l1, l2, max_delta)
+                    + leaf_gain(rg, rh, l1, l2, max_delta))
         results.append((torch.where(ok, gain, neg_inf), lg, lh, lc, rg, rh, rc))
 
     gain_shift = leaf_gain(total_g[..., 0], total_h[..., 0], l1, l2, max_delta) + min_gain
@@ -373,6 +416,8 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
         out_gain = torch.where(is_valid, out_gain - penalty, neg_inf)
     lout = leaf_output(lg, lh, l1, l2, max_delta)
     rout = leaf_output(rg, rh, l1, l2, max_delta)
+    if constraint is not None:
+        lout, rout = clip_output(lout, c_lo, c_hi), clip_output(rout, c_lo, c_hi)
     zeros = torch.zeros_like(out_gain)
     # default_left lane semantics: lane 1 sends the missing bin left
     return torch.stack([
@@ -387,7 +432,8 @@ def _per_feature_best_plain(fh: torch.Tensor, totals: torch.Tensor,
 def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
                      params: torch.Tensor,
                      feature_mask: Optional[torch.Tensor] = None,
-                     penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     penalty: Optional[torch.Tensor] = None,
+                     constraint=None) -> torch.Tensor:
     """Best numeric split per feature: [F, len(SPLIT_FIELDS)] float32 records.
 
     fh:     [F, Bmax, 3] float32 feature histograms (gather_feature_hist),
@@ -397,6 +443,8 @@ def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
              min_gain_to_split, max_delta_step] float32 on fh's device
     feature_mask: optional [F] bool (feature sampling)
     penalty: optional [F] float32 gain penalty subtracted per feature
+    constraint: optional (min, max) output bounds of one leaf, two host
+            floats (basic-mode monotone constraints; one leaf only)
 
     Returns [F, 14] (or [L, F, 14]). The `feature` field is the row index
     into fh (invalid rows get -1). A CPU tensor takes the plain version; a
@@ -404,7 +452,7 @@ def per_feature_best(fh: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
     """
     from .scan_cuda import split_scan
 
-    return split_scan(fh, totals, meta, params, feature_mask, penalty)
+    return split_scan(fh, totals, meta, params, feature_mask, penalty, constraint)
 
 
 def _sort_key(x: torch.Tensor) -> torch.Tensor:
@@ -426,7 +474,8 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def per_feature_best_categorical(fh: torch.Tensor, totals: torch.Tensor,
                                  meta: FeatureMeta, params: torch.Tensor,
                                  feature_mask: Optional[torch.Tensor] = None,
-                                 penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                 penalty: Optional[torch.Tensor] = None,
+                                 constraint: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Best categorical split per feature: [..., F, len(SPLIT_FIELDS)]
     records, the JAX package's per_feature_best_categorical
     (FindBestThresholdCategoricalInner, feature_histogram.cpp:147-241):
@@ -450,7 +499,9 @@ def per_feature_best_categorical(fh: torch.Tensor, totals: torch.Tensor,
     grid-snapped histograms, where the JAX package's float32 cumsum is
     too), and the sort is on integer keys (`_sort_key`). Only the prefix
     length and direction are recorded; the host derives the bin set
-    (`derive_cat_left_bins`)."""
+    (`derive_cat_left_bins`). `constraint`, a [2] float32 (min, max) of
+    output bounds on fh's device, clamps the record's outputs only, not
+    the gains (the JAX package's split.py:586-589)."""
     l1, l2, min_data, min_hess, min_gain, max_delta = (
         params[0], params[1], params[2], params[3], params[4], params[5])
     max_onehot, max_cat_thresh = params[6], params[7]
@@ -553,6 +604,9 @@ def per_feature_best_categorical(fh: torch.Tensor, totals: torch.Tensor,
         out_gain = torch.where(is_valid, out_gain - penalty, neg_inf)
     lout = leaf_output(lg, lh, l1, l2_eff, max_delta)
     rout = leaf_output(rg, rh, l1, l2_eff, max_delta)
+    if constraint is not None:
+        lout = clip_output(lout, constraint[0], constraint[1])
+        rout = clip_output(rout, constraint[0], constraint[1])
     rows = torch.arange(F, device=dev).to(torch.float32).expand_as(best_gain)
     return torch.stack([
         out_gain, torch.where(is_valid, rows, -ones), thresh,
@@ -607,35 +661,41 @@ def reduce_best_record(recs: torch.Tensor) -> torch.Tensor:
 def _find_best_split_plain(hist: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
                            params: torch.Tensor,
                            feature_mask: Optional[torch.Tensor] = None,
-                           penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           penalty: Optional[torch.Tensor] = None,
+                           constraint=None) -> torch.Tensor:
     """The plain version of the split kernel's find form: the feature
-    gather with the EFB fix, the per-feature numeric records, the argmax."""
+    gather with the EFB fix, the per-feature numeric records (constrained
+    with `constraint`, two host floats), the argmax."""
     fh = gather_feature_hist(hist, meta, totals)  # [..., F, Bmax, 3]
     return reduce_best_record(_per_feature_best_plain(fh, totals, meta, params,
-                                                      feature_mask, penalty))
+                                                      feature_mask, penalty, constraint))
 
 
 def _best_categorical_plain(hist: torch.Tensor, totals: torch.Tensor, meta: FeatureMeta,
                             params: torch.Tensor, feature_mask: Optional[torch.Tensor],
                             penalty: Optional[torch.Tensor],
-                            scale: Optional[torch.Tensor]) -> torch.Tensor:
+                            scale: Optional[torch.Tensor],
+                            constraint: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`best_categorical_record` in PyTorch ops on hist's device."""
     if scale is not None:
         hist = hist.to(torch.float32) * scale
     fh = gather_feature_hist(hist, meta, totals)
     return reduce_best_record(per_feature_best_categorical(fh, totals, meta, params,
-                                                           feature_mask, penalty))
+                                                           feature_mask, penalty,
+                                                           constraint))
 
 
 class _CategoricalGraph:
     """`_best_categorical_plain` captured once as a CUDA graph over static
     input buffers, for one histogram shape and dtype, one FeatureMeta and
-    params buffer, and whether a feature mask, penalty and scale come: a
-    call copies its inputs in and replays ~400 launches as one."""
+    params buffer, and whether a feature mask, penalty, scale and output
+    bounds come: a call copies its inputs in and replays ~400 launches as
+    one."""
 
-    def __init__(self, hist, totals, meta, params, feature_mask, penalty, scale) -> None:
+    def __init__(self, hist, totals, meta, params, feature_mask, penalty, scale,
+                 constraint) -> None:
         self.inputs = [t.clone() if t is not None else None
-                       for t in (hist, totals, feature_mask, penalty, scale)]
+                       for t in (hist, totals, feature_mask, penalty, scale, constraint)]
         args = (self.inputs[0], self.inputs[1], meta, params, *self.inputs[2:])
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -658,33 +718,39 @@ def best_categorical_record(hist: torch.Tensor, totals, meta: FeatureMeta,
                             params: torch.Tensor,
                             feature_mask: Optional[torch.Tensor] = None,
                             penalty: Optional[torch.Tensor] = None,
-                            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            scale: Optional[torch.Tensor] = None,
+                            constraint=None) -> torch.Tensor:
     """The best categorical record of a leaf (or of L leaves), from the
     group histogram as `find_best_split` takes it: scaled when int32, the
-    feature gather with the EFB fix, the categorical lanes, the argmax. On
+    feature gather with the EFB fix, the categorical lanes, the argmax,
+    the outputs clamped into `constraint` (two host floats) when given. On
     the CPU the ops run one by one; on the card as a CUDA graph captured
     at the first call of a shape (`_CategoricalGraph`, kept on the
-    FeatureMeta), the same ops and bits."""
+    FeatureMeta), the same ops and bits; a constrained search is its own
+    graph, whose bounds are copied in with the histogram."""
     if not isinstance(totals, torch.Tensor):
         totals = torch.tensor([float(v) for v in totals], dtype=torch.float32,
                               device=hist.device)
+    if constraint is not None:
+        constraint = torch.stack(constraint_bounds(constraint, hist.device))
     if hist.device.type != "cuda":
         return _best_categorical_plain(hist, totals, meta, params, feature_mask, penalty,
-                                       scale)
+                                       scale, constraint)
     key = (tuple(hist.shape), hist.dtype, params.data_ptr(), feature_mask is not None,
-           penalty is not None, scale is not None)
+           penalty is not None, scale is not None, constraint is not None)
     graphs = meta.__dict__.setdefault("_categorical_graphs", {})
     if key not in graphs:
         graphs[key] = _CategoricalGraph(hist, totals, meta, params, feature_mask, penalty,
-                                        scale)
-    return graphs[key](hist, totals, feature_mask, penalty, scale)
+                                        scale, constraint)
+    return graphs[key](hist, totals, feature_mask, penalty, scale, constraint)
 
 
 def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
                     params: torch.Tensor,
                     feature_mask: Optional[torch.Tensor] = None,
                     penalty: Optional[torch.Tensor] = None,
-                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    scale: Optional[torch.Tensor] = None,
+                    constraint=None) -> torch.Tensor:
     """Best split across all features for one leaf, or for L leaves at once
     (the JAX package vmaps it over a wave's 2K children,
     treelearner/device.py:742-747; each record is the one-leaf call's bits).
@@ -698,6 +764,10 @@ def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
             scaled before any sum, as the JAX package scales the histogram
             ahead of its scan; on the card the kernel reads it from device
             memory
+    constraint: optional (min, max) output bounds of one leaf, two host
+            floats (basic-mode monotone constraints), which a launch takes by
+            value: the constrained mode of the kernel, or of the plain
+            version on a CPU tensor
     Returns the packed split record [len(SPLIT_FIELDS)] float32, or [L, ...].
     The numeric lanes: a CPU tensor takes the plain version; a CUDA tensor
     is one launch of the split kernel. With categorical features, their
@@ -706,8 +776,9 @@ def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
     """
     from .scan_cuda import split_find
 
-    rec = split_find(hist, totals, meta, params, feature_mask, penalty, scale)
+    rec = split_find(hist, totals, meta, params, feature_mask, penalty, scale, constraint)
     if not meta.has_categorical:
         return rec
-    cat = best_categorical_record(hist, totals, meta, params, feature_mask, penalty, scale)
+    cat = best_categorical_record(hist, totals, meta, params, feature_mask, penalty, scale,
+                                  constraint)
     return torch.where(cat[..., :1] > rec[..., :1], cat, rec)

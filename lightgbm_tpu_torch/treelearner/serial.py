@@ -38,12 +38,24 @@ the set. The dummy bin 0 (NaN, unseen and cut categories) joins no left
 set, so its rows go right in training as at predict (LightGBM's scan; the
 JAX package's takes it, ROADMAP Queue 3). A GOSS bag (a DeviceBag) reaches
 the partition as host indices,
-one pull a bag. Monotone and interaction constraints, CEGB, linear trees
-and forced splits are refused when the learner is built
-(`refuse_unported`).
+one pull a bag.
+
+The learner's per-leaf lanes (the JAX package's serial.py:168-179, 297-441,
+556-599): interaction constraints and per-node sampling mask each search by
+the leaf's path (`features_in_path`); basic-mode monotone constraints carry
+each leaf's output bounds (`bounds`, pinned at the output midpoint of a
+split on a monotone feature) into the split kernel's constrained mode and
+into the quantized leaf renewal; forced splits (`forcedsplits_filename`)
+are applied at the top of every tree from the leaf histograms; CEGB
+subtracts a per-leaf penalty vector (`treelearner/cegb.py`) and searches the
+frontier again when a coupled penalty is lifted. With linear_tree the tree
+tracks its leaves' branch features for the GBDT's linear fit
+(`treelearner/linear.py`). Monotone methods other than `basic` are refused
+(`refuse_unported`), as the JAX package refuses them.
 """
 from __future__ import annotations
 
+import json
 import os
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -52,6 +64,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import MISSING_NAN
 from ..config import Config
 from ..io.dataset import Dataset
 from ..models.tree import Tree
@@ -61,9 +74,10 @@ from ..ops.partition import RowPartition
 from ..ops.quantize import prng_key, quantize_gh, split_key
 from ..models.sample_strategy import host_bag_indices
 from ..ops.split import (FeatureMeta, SplitInfo, bins_to_bitset, derive_cat_left_bins,
-                         find_best_split, make_feature_meta)
+                         find_best_split, gather_feature_hist, make_feature_meta)
 from ..utils.log import Log
 from ..utils.timer import global_timer
+from .cegb import CEGB
 from .col_sampler import ColSampler
 
 
@@ -73,25 +87,22 @@ class _LeafState:
     totals: Tuple[float, float, float]  # (sum_g, sum_h, count)
     split: Optional[SplitInfo]
     depth: int
+    features_in_path: frozenset = frozenset()  # real indices (interaction constraints)
+    # basic-mode monotone output bounds inherited from the ancestors
+    # (monotone_constraints.hpp BasicLeafConstraints)
+    bounds: Tuple[float, float] = (-np.inf, np.inf)
+
+
+def has_monotone(dataset: Dataset) -> bool:
+    return bool(dataset.monotone_constraints and any(dataset.monotone_constraints))
 
 
 def refuse_unported(config: Config, dataset: Dataset) -> None:
-    """Raise for a configuration whose learner features are not ported yet,
-    rather than training a different model than the JAX package would."""
-    checks = (
-        (bool(dataset.monotone_constraints and any(dataset.monotone_constraints)),
-         "monotone constraints"),
-        (bool(config.interaction_constraints), "interaction constraints"),
-        (config.cegb_penalty_split > 0.0 or bool(config.cegb_penalty_feature_coupled)
-         or bool(config.cegb_penalty_feature_lazy),
-         "cost-effective gradient boosting (CEGB)"),
-        (config.linear_tree, "linear trees"),
-        (bool(config.forcedsplits_filename), "forced splits"),
-    )
-    for refused, what in checks:
-        if refused:
-            Log.fatal("%s: not yet ported to the PyTorch package "
-                      "(ROADMAP Queue 1 item 6.3, 6.4)", what)
+    """Raise for a monotone method other than `basic`, which the JAX
+    package refuses too (its serial.py:91-94)."""
+    if has_monotone(dataset) and config.monotone_constraints_method not in ("basic",):
+        Log.fatal("monotone_constraints_method=%s is not supported (only 'basic')",
+                  config.monotone_constraints_method)
 
 
 def learner_params(config: Config, device: torch.device) -> torch.Tensor:
@@ -144,6 +155,20 @@ class SerialTreeLearner:
         self._gh_float: Optional[torch.Tensor] = None  # kept for leaf renewal
         if self.quantized:
             self._quant_key = prng_key(config.data_random_seed)
+        self._has_mc = has_monotone(dataset)
+        self.cegb: Optional[CEGB] = (CEGB(config, dataset, self.device)
+                                     if CEGB.enabled(config) else None)
+        # forcedsplits_filename (SerialTreeLearner::ForceSplits,
+        # serial_tree_learner.cpp:627+): nested {"feature", "threshold",
+        # "left", "right"} JSON applied at the top of every tree
+        self._forced_json = None
+        if config.forcedsplits_filename:
+            try:
+                with open(config.forcedsplits_filename) as fh:
+                    self._forced_json = json.load(fh)
+            except OSError:
+                Log.warning("Could not open forced splits file %s",
+                            config.forcedsplits_filename)
 
     def reset_config(self, config: Config) -> None:
         """Take a changed configuration (Booster.reset_parameter): the
@@ -160,7 +185,8 @@ class SerialTreeLearner:
         sentinel row at N)."""
         cfg = self.config
         num_leaves = cfg.num_leaves
-        tree = Tree(num_leaves)
+        tree = Tree(num_leaves, track_branch_features=cfg.linear_tree,
+                    is_linear=cfg.linear_tree)
         self._begin_tree(gh_ext, bag_indices)
 
         frontier: Dict[int, _LeafState] = {}
@@ -168,7 +194,8 @@ class SerialTreeLearner:
             root_hist = self._leaf_hist(0)
         root_totals = self._root_totals(root_hist)
         frontier[0] = _LeafState(root_hist, root_totals, None, depth=0)
-        self._find_split(frontier, 0)
+        if not self._force_splits(tree, frontier):
+            self._find_split(frontier, 0)
 
         for _ in range(num_leaves - 1):
             best_leaf, best = None, None
@@ -186,16 +213,18 @@ class SerialTreeLearner:
         if tree.num_leaves == 1:
             tree.as_constant_tree(0.0)
         elif self.quantized and cfg.quant_train_renew_leaf:
-            self._renew_quantized_leaves(tree)
+            self._renew_quantized_leaves(tree, frontier)
         return tree
 
-    def _renew_quantized_leaves(self, tree: Tree) -> None:
+    def _renew_quantized_leaves(self, tree: Tree, frontier: Dict[int, _LeafState]) -> None:
         """Recompute the leaf outputs from the float gradients, removing the
         quantization error (GradientDiscretizer::RenewIntGradTreeOutput,
         gradient_discretizer.cpp:166-233). Each leaf's (sum g, sum h) is
         summed exactly in fixed point (ops/histogram.py:leaf_sums_fixed), so
         the sums do not depend on the order of the rows or the device; they
-        reach the host in one copy."""
+        reach the host in one copy. Under monotone constraints a renewed
+        output is clamped into its leaf's bounds, as the JAX package does
+        (the reference renews unclamped), so the model stays monotone."""
         cfg = self.config
         part = self.partition
         L = tree.num_leaves
@@ -205,9 +234,12 @@ class SerialTreeLearner:
                                        torch.as_tensor(counts, device=self.device))
         sums = leaf_sums_fixed(self._gh_float, rows.to(torch.int64), leaf, L).cpu().numpy()
         for i in range(L):
-            tree.set_leaf_output(i, _leaf_output_host(
-                float(sums[i, 0]), float(sums[i, 1]), cfg.lambda_l1, cfg.lambda_l2,
-                cfg.max_delta_step))
+            out = _leaf_output_host(float(sums[i, 0]), float(sums[i, 1]), cfg.lambda_l1,
+                                    cfg.lambda_l2, cfg.max_delta_step)
+            if self._has_mc and i in frontier:
+                lo, hi = frontier[i].bounds
+                out = float(np.clip(out, lo, hi))
+            tree.set_leaf_output(i, out)
 
     def _prepare_gh(self, gh_ext: torch.Tensor) -> torch.Tensor:
         """With use_quantized_grad, the tree's int8 (g, h, 1) rows and zero
@@ -260,19 +292,36 @@ class SerialTreeLearner:
         return tuple(float(x) for x in scaled.to(torch.float64).sum(dim=0)
                      .to(torch.float32).cpu().numpy())
 
-    def _node_feature_mask(self) -> Optional[torch.Tensor]:
+    def _node_feature_mask(self, state: _LeafState) -> Optional[torch.Tensor]:
         cs = self.col_sampler
         if not cs.active:
             return None
         if cs.fraction_bynode < 1.0 or cs.constraints:
-            return torch.as_tensor(cs.get_by_node(set()), device=self.device)
+            return torch.as_tensor(cs.get_by_node(set(state.features_in_path)),
+                                   device=self.device)
         return self._tree_feature_mask
 
-    def _search_split(self, state: _LeafState) -> SplitInfo:
-        # the totals go by value: no upload a call
+    def _search_split(self, state: _LeafState, leaf: int) -> SplitInfo:
+        # the totals and the bounds go by value: no upload for either
         rec = find_best_split(state.hist, state.totals, self.meta, self.params_dev,
-                              self._node_feature_mask(), scale=self._scale)
+                              self._node_feature_mask(state), self._penalty_of(state, leaf),
+                              scale=self._scale, constraint=self._constraint_of(state))
         return SplitInfo.from_packed(rec.cpu().numpy())
+
+    def _constraint_of(self, state: _LeafState) -> Optional[Tuple[float, float]]:
+        return state.bounds if self._has_mc else None
+
+    def _penalty_of(self, state: _LeafState, leaf: int) -> Optional[torch.Tensor]:
+        if self.cegb is None:
+            return None
+        with global_timer.scope("cegb_penalty"):
+            rows = self._leaf_rows(leaf) if self.cegb.needs_rows else None
+            return torch.from_numpy(self.cegb.penalty_vector(state.totals[2], rows)).to(
+                self.device)
+
+    def _leaf_rows(self, leaf: int) -> torch.Tensor:
+        """A leaf's row indices on the device, to its count."""
+        return self.partition.indices(leaf)[:self.partition.count(leaf)]
 
     def _cat_bin_stats(self, state: _LeafState, gi: int) -> np.ndarray:
         """The winning categorical feature's histogram row, [Bg, 3] float32
@@ -284,10 +333,94 @@ class SerialTreeLearner:
             hist = hist.to(torch.float32) * self._scale
         return hist.cpu().numpy()
 
+    def _feature_hist_row(self, state: _LeafState, dense_f: int) -> np.ndarray:
+        """One feature's [Bmax, 3] float32 histogram (forced splits), with
+        the EFB default bin rebuilt and scaled as the search sees it."""
+        hist = state.hist
+        if self.quantized:
+            hist = hist.to(torch.float32) * self._scale
+        totals = torch.tensor(state.totals, dtype=torch.float32, device=self.device)
+        return gather_feature_hist(hist, self.meta, totals)[dense_f].cpu().numpy()
+
     # --------------------------------------------------------------- internal
 
     def _max_depth_ok(self, depth: int) -> bool:
         return self.config.max_depth <= 0 or depth < self.config.max_depth
+
+    def _force_splits(self, tree: Tree, frontier: Dict[int, _LeafState]) -> int:
+        """Apply the forced-splits JSON at the top of the tree
+        (SerialTreeLearner::ForceSplits, serial_tree_learner.cpp:627+), breadth
+        first. Returns the number of splits applied."""
+        if self._forced_json is None:
+            return 0
+        count = 0
+        queue = [(self._forced_json, 0)]
+        with global_timer.scope("forced_splits"):
+            while queue and tree.num_leaves < self.config.num_leaves:
+                jnode, leaf = queue.pop(0)
+                split = self._forced_split_info(frontier[leaf], jnode)
+                if split is None:
+                    continue
+                new_leaf = tree.num_leaves
+                self._apply_split(tree, frontier, leaf, split)
+                count += 1
+                if isinstance(jnode.get("left"), dict):
+                    queue.append((jnode["left"], leaf))
+                if isinstance(jnode.get("right"), dict):
+                    queue.append((jnode["right"], new_leaf))
+        return count
+
+    def _forced_split_info(self, state: _LeafState, jnode) -> Optional[SplitInfo]:
+        """The split record of a forced (feature, threshold) pair, from the
+        leaf histogram at the forced bin in place of the search (the JAX
+        package's serial.py:391-441, step by step)."""
+        try:
+            real_f = int(jnode["feature"])
+            thr = float(jnode["threshold"])
+        except (KeyError, TypeError, ValueError):
+            return None
+        if real_f not in self.meta.real_feature:
+            return None
+        dense_f = self.meta.real_feature.index(real_f)
+        mapper = self.dataset.mappers[real_f]
+        if mapper.bin_type == 1:  # categorical forced splits are not supported
+            Log.warning("Forced split on categorical feature %d ignored", real_f)
+            return None
+        fh = self._feature_hist_row(state, dense_f)
+        tbin = int(mapper.value_to_bin(thr))
+        nb = mapper.num_bin
+        has_nan = mapper.missing_type == MISSING_NAN
+        # keep at least one real bin right of the threshold; with NaN missing
+        # the last bin is the NaN bin, which clamping also keeps on the right
+        # (default_left=False)
+        if tbin >= nb - (2 if has_nan else 1):
+            tbin = nb - (3 if has_nan else 2)
+        if tbin < 0:
+            return None
+        left = fh[: tbin + 1].sum(axis=0)
+        tg, th_, tc = state.totals
+        lg, lh, lc = float(left[0]), float(left[1]), float(left[2])
+        rg, rh, rc = tg - lg, th_ - lh, tc - lc
+        cfg = self.config
+        if (lc < cfg.min_data_in_leaf or rc < cfg.min_data_in_leaf
+                or lh < cfg.min_sum_hessian_in_leaf
+                or rh < cfg.min_sum_hessian_in_leaf):
+            return None
+        lout = _leaf_output_host(lg, lh, cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step)
+        rout = _leaf_output_host(rg, rh, cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step)
+
+        def g(sg, sh, out):
+            sgl = np.sign(sg) * max(abs(sg) - cfg.lambda_l1, 0.0)
+            return -(2.0 * sgl * out + (sh + cfg.lambda_l2) * out * out)
+
+        parent_out = _leaf_output_host(tg, th_, cfg.lambda_l1, cfg.lambda_l2,
+                                       cfg.max_delta_step)
+        gain = g(lg, lh, lout) + g(rg, rh, rout) - g(tg, th_, parent_out)
+        return SplitInfo(gain=float(gain), feature=dense_f, threshold_bin=tbin,
+                         default_left=False, left_sum_g=lg, left_sum_h=lh,
+                         left_count=int(round(lc)), right_sum_g=rg,
+                         right_sum_h=rh, right_count=int(round(rc)),
+                         left_output=lout, right_output=rout)
 
     def _pool_touch(self, frontier: Dict[int, _LeafState], leaf: int) -> None:
         """Materialize an evicted leaf histogram and refresh its LRU slot,
@@ -317,7 +450,7 @@ class SerialTreeLearner:
             return
         self._pool_touch(frontier, leaf)
         with global_timer.scope("find_best_split"):
-            state.split = self._search_split(state)
+            state.split = self._search_split(state, leaf)
 
     def _apply_split(self, tree: Tree, frontier: Dict[int, _LeafState],
                      leaf: int, split: SplitInfo) -> None:
@@ -396,17 +529,47 @@ class SerialTreeLearner:
             small_hist = self._leaf_hist(small)
             big_hist = subtract_histogram(parent_hist, small_hist)
         depth = state.depth + 1
+        child_path = state.features_in_path | {int(real_f)}
+        # monotone bound propagation (BasicLeafConstraints::Update,
+        # monotone_constraints.hpp:487-503): a numerical split on a monotone
+        # feature pins the children's shared boundary at the output midpoint
+        lbounds = rbounds = state.bounds
+        if self._has_mc and not split.is_categorical:
+            mono = (ds.monotone_constraints[real_f]
+                    if real_f < len(ds.monotone_constraints) else 0)
+            if mono != 0:
+                b_lo, b_hi = state.bounds
+                mid = (split.left_output + split.right_output) / 2.0
+                if mono > 0:
+                    lbounds, rbounds = (b_lo, min(b_hi, mid)), (max(b_lo, mid), b_hi)
+                else:
+                    lbounds, rbounds = (max(b_lo, mid), b_hi), (b_lo, min(b_hi, mid))
         frontier[leaf] = _LeafState(
-            small_hist if small == leaf else big_hist, left_totals, None, depth)
+            small_hist if small == leaf else big_hist, left_totals, None, depth,
+            child_path, lbounds)
         frontier[new_leaf] = _LeafState(
             small_hist if small == new_leaf else big_hist, right_totals, None,
-            depth)
+            depth, child_path, rbounds)
         state.hist = None  # release parent histogram
         self._hist_lru.pop(leaf, None)
         self._pool_touch(frontier, leaf)
         self._pool_touch(frontier, new_leaf)
+        refresh_frontier = False
+        if self.cegb is not None:
+            with global_timer.scope("cegb_penalty"):
+                rows = None
+                if self.cegb.needs_rows:
+                    rows = torch.cat([self._leaf_rows(leaf), self._leaf_rows(new_leaf)])
+                refresh_frontier = self.cegb.on_split_applied(dense_f, rows)
         self._find_split(frontier, leaf)
         self._find_split(frontier, new_leaf)
+        if refresh_frontier:
+            # a coupled feature penalty was just lifted: search the other
+            # pending leaves again so their gains drop it
+            # (UpdateLeafBestSplits, cost_effective_gradient_boosting.hpp:100)
+            for lf in frontier:
+                if lf not in (leaf, new_leaf):
+                    self._find_split(frontier, lf)
 
 
 def _leaf_output_host(sum_g: float, sum_h: float, l1: float, l2: float,
@@ -431,14 +594,10 @@ def device_growth_applies(device: torch.device, config: Config,
     on_accelerator = torch.device(device).type == "cuda"
     has_cat = any(dataset.mappers[f].bin_type == 1
                   for f in dataset.used_features)
-    cegb = (config.cegb_penalty_split > 0.0
-            or bool(config.cegb_penalty_feature_coupled)
-            or bool(config.cegb_penalty_feature_lazy))
     needs_host = (config.feature_fraction_bynode < 1.0
                   or bool(config.interaction_constraints)
-                  or bool(dataset.monotone_constraints
-                          and any(dataset.monotone_constraints))
-                  or cegb
+                  or has_monotone(dataset)
+                  or CEGB.enabled(config)
                   or config.linear_tree
                   or bool(config.forcedsplits_filename))
     return on_accelerator and not has_cat and not needs_host

@@ -1298,3 +1298,134 @@ def test_categorical_training_on_card_byte_equal_to_cpu(cuda, quantized):
         gap = np.abs(bst._gbdt.score[0].cpu().numpy() - bst.predict(X, raw_score=True)).max()
         assert gap <= 1e-6, gap
     assert texts[0] == texts[1]
+
+
+def _constraint_case(cuda, kind):
+    """A leaf of `kind` ("nan", "zero" or "bundled") with mixed monotone
+    constraints, its FeatureMeta on the card and on the host, and output
+    bounds that bind its unconstrained record on both sides."""
+    ds, B, hist, tot = _bundled_case(9) if kind == "bundled" else _leaf_case(3, kind == "nan")
+    F = len(ds.used_features)
+    ds.monotone_constraints = [(1, -1, 0)[f % 3] for f in range(ds.num_total_features)]
+    meta_d, meta_h = ts.make_feature_meta(ds, B, cuda), ts.make_feature_meta(ds, B, "cpu")
+    free = ts.find_best_split(hist.cpu(), tot.cpu(), meta_h, torch.tensor(PARAMS))
+    mid = (float(free[10]) + float(free[11])) / 2
+    half = abs(float(free[10]) - float(free[11])) / 2
+    assert F > 0 and free[1] >= 0
+    return ds, B, hist, tot, meta_d, meta_h, (mid - 0.75 * half, mid + 0.75 * half)
+
+
+@pytest.mark.parametrize("bounds", ["binding", "infinite"])
+@pytest.mark.parametrize("data", ["nan", "zero", "bundled"])
+def test_constrained_find_best_split_kernel_matches_plain_on_cpu(cuda, data, bounds):
+    """The split kernel's constrained mode (find form, float and integer
+    input, and the per-feature form) against its plain version on the CPU:
+    records bit-equal."""
+    ds, B, hist, tot, meta_d, meta_h, bind = _constraint_case(cuda, data)
+    c = bind if bounds == "binding" else (-float("inf"), float("inf"))
+    params = torch.tensor(PARAMS)
+    host_tot = tot.cpu().tolist()
+    before = dict(scan_cuda.launches)
+    rec = ts.find_best_split(hist, host_tot, meta_d, params.to(cuda), constraint=c).cpu()
+    ref = ts.find_best_split(hist.cpu(), tot.cpu(), meta_h, params, constraint=c)
+    assert torch.equal(rec.view(torch.int32), ref.view(torch.int32))
+    if bounds == "infinite":
+        assert rec[1] >= 0
+    fh = ts.gather_feature_hist(hist, meta_d, tot)
+    per = scan_cuda.split_scan(fh, tot, meta_d, params.to(cuda), constraint=c).cpu()
+    per_ref = ts.per_feature_best(fh.cpu(), tot.cpu(), meta_h, params, constraint=c)
+    assert torch.equal(per.view(torch.int32), per_ref.view(torch.int32))
+    q = torch.round(hist / hist.abs().amax() * 1000).to(torch.int32)
+    scale = torch.tensor([1e-3, 2e-3, 1.0], device=cuda)
+    qtot = (q[0].sum(dim=0).to(torch.float32) * scale).cpu().tolist()
+    rec_q = ts.find_best_split(q, qtot, meta_d, params.to(cuda), scale=scale, constraint=c).cpu()
+    ref_q = ts.find_best_split(q.cpu(), qtot, meta_h, params, scale=scale.cpu(), constraint=c)
+    assert torch.equal(rec_q.view(torch.int32), ref_q.view(torch.int32))
+    for name in ("find_best_split_constrained", "find_best_split_constrained_int",
+                 "split_scan_constrained"):
+        assert scan_cuda.launches[name] == before[name] + 1, name
+    with pytest.raises(ValueError, match="one leaf"):
+        ts.find_best_split(torch.stack([hist, hist]), torch.stack([tot, tot]), meta_d,
+                           params.to(cuda), constraint=c)
+
+
+def _linear_data(seed, n):
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(-2, 2, size=(n, 4))
+    y = np.where(X[:, 0] > 0, 2.0 * X[:, 1] + 1.0, -1.5 * X[:, 1]) + 0.5 * X[:, 2] \
+        + 0.05 * rng.normal(size=n)
+    X[::37, 1] = np.nan
+    return X, y
+
+
+def test_linear_predict_on_card_bit_equal_to_cpu(cuda):
+    """A linear model's predict on the card: the traversal's leaf mode
+    (counted) and the epilogue, bit-equal to the CPU's plain path."""
+    from lightgbm_tpu_torch.ops import predict_cuda
+
+    X, y = _linear_data(46, 20000)
+    params = {"objective": "regression", "num_leaves": 31, "linear_tree": True,
+              "linear_lambda": 0.01, "verbosity": -1}
+    bst = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
+                   num_boost_round=6)
+    text = bst.model_to_string()
+    card = lt.Booster(model_str=text)
+    host = lt.Booster(model_str=text, params={"device_type": "cpu"})
+    leaf_before = predict_cuda.launches["predict_forest_leaf"]
+    raw_before = predict_cuda.launches["predict_forest_raw"]
+    Xt, _ = _linear_data(47, 70000)
+    Xt[::53, 2] = np.inf
+    got = card.predict(Xt, raw_score=True)
+    assert predict_cuda.launches["predict_forest_leaf"] > leaf_before
+    assert predict_cuda.launches["predict_forest_raw"] == raw_before
+    assert np.array_equal(got, host.predict(Xt, raw_score=True))
+
+
+LANES = [
+    ({"monotone_constraints": [1, -1, 0, 0, 0, 1, 0, 0, 0, -1]}, "monotone"),
+    ({"monotone_constraints": [1, -1, 0, 0, 0, 1, 0, 0, 0, -1], "use_quantized_grad": True,
+      "num_grad_quant_bins": 4}, "monotone-quantized"),
+    ({"interaction_constraints": "[0,1,2],[3,4,5,6],[7,8,9]",
+      "feature_fraction_bynode": 0.8}, "interaction"),
+    ({"cegb_penalty_split": 1e-4, "cegb_penalty_feature_coupled": [2.0] * 10,
+      "cegb_penalty_feature_lazy": [0.002] * 10}, "cegb"),
+    ({"linear_tree": True, "linear_lambda": 0.01}, "linear"),
+    ({"forcedsplits_filename": "FORCED"}, "forced"),
+]
+
+
+@pytest.mark.parametrize("extra,what", LANES, ids=[w for _, w in LANES])
+def test_constraint_lanes_on_card_byte_equal_to_cpu(cuda, tmp_path, extra, what):
+    """Each lane of the serial learner on snapped gradients: card and CPU
+    model texts byte-equal; a monotone search launches the constrained
+    mode."""
+    import json
+
+    rng = np.random.RandomState(48)
+    n = 20000
+    X = rng.normal(size=(n, 10))
+    X[rng.rand(n, 10) < 0.02] = np.nan
+    y = (X[:, 0] - np.nan_to_num(X[:, 1]) + 0.5 * X[:, 5] * np.nan_to_num(X[:, 9])
+         + 0.3 * rng.normal(size=n) > 0).astype(np.float64)
+    if extra.get("forcedsplits_filename") == "FORCED":
+        path = str(tmp_path / "forced.json")
+        with open(path, "w") as fh:
+            json.dump({"feature": 0, "threshold": 0.0, "left": {"feature": 5,
+                                                                "threshold": 0.5}}, fh)
+        extra = {"forcedsplits_filename": path}
+    if what == "linear":
+        X = np.nan_to_num(X, nan=0.5)
+    params = {"objective": "none", "num_leaves": 31, "verbosity": -1, **extra}
+    fobj = _host_logloss if what == "monotone-quantized" else _quant_snapped_logloss
+    before = dict(scan_cuda.launches)
+    texts = []
+    for dev in ("cuda", "cpu"):
+        bst = lt.Booster(params={**params, "device_type": dev}, train_set=lt.Dataset(X, label=y))
+        for _ in range(3):
+            bst.update(fobj=fobj)
+        texts.append(bst.model_to_string())
+        assert bst.num_trees() == 3
+    assert texts[0] == texts[1]
+    if what.startswith("monotone"):
+        name = "find_best_split_constrained" + ("_int" if "quantized" in what else "")
+        assert scan_cuda.launches[name] > before[name]

@@ -173,12 +173,6 @@ def test_ragged_tree_count_is_fatal():
         predict_raw(packed, torch.zeros((3, 3)), num_tree_per_iteration=2)
 
 
-def test_linear_trees_not_yet_ported():
-    tree = Tree(max_leaves=2, is_linear=True)
-    with pytest.raises(LightGBMError, match="not yet ported"):
-        pack_ensemble([tree])
-
-
 def _record_cases():
     """(name, model, cat_features, n_features, rows): the HIGGS profile at
     small size (13 trees: not a multiple of any tree tile), multiclass with

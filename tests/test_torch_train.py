@@ -198,11 +198,6 @@ def test_wave_learner_configuration_is_refused_on_the_card(monkeypatch):
 
 
 REFUSED = [
-    ({"monotone_constraints": [1] + [0] * (F - 1)}, "monotone"),
-    ({"interaction_constraints": "[0,1],[2,3]"}, "interaction"),
-    ({"cegb_penalty_split": 0.5}, "CEGB"),
-    ({"linear_tree": True}, "linear trees"),
-    ({"forcedsplits_filename": "forced.json"}, "forced splits"),
     ({"boosting": "dart"}, "dart"),
     ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1}, "rf"),
     ({"tree_learner": "data"}, "distributed learners"),
