@@ -203,6 +203,29 @@ Phases (any failure exits non-zero before the result line):
             partition, hist_root, hist_children, forced_splits, cegb_penalty
             and linear_fit, and the busy share and device-to-host copies of
             one more profiled round.
+16. life cycle  DART, random forests and the model's life cycle on phase
+            8's data through the wave learner. Exact first (65,536 rows, 63
+            leaves, 4 rounds; card and CPU model texts byte-equal): DART on
+            snapped gradients (drop_rate 0.5, skip_drop 0.2), RF on labels on
+            a 1/64 grid whose mean is 1, and a run resumed from a checkpoint
+            after round 2 on the card through the serial learner
+            (feature_fraction_bynode 0.8). Then at full width: DART with
+            LightGBM's defaults (drop_rate 0.1, skip_drop 0.5, max_drop 50),
+            10 rounds: valid AUC rising, the train score within 1e-3 of
+            predict(raw_score=True), the trees dropped a round, the busy
+            share of one more profiled round; RF (bagging 0.5 every round,
+            feature_fraction 0.8), 10 rounds: the train score within 1e-5 of
+            the mean of the trees' outputs, valid AUC above 0.5; a
+            checkpoint after round 5 of 10 at phase 11's settings (the async
+            pipeline running), resumed with init_model: model text byte-equal
+            and train score bit-equal to the uninterrupted run, the write,
+            the load and the resumed rounds timed; refit of phase 8's
+            booster on a fresh 1,048,576-row draw (valid AUC within 0.01 of
+            the original's) and a rollback of one iteration (the train score
+            within 1e-6 of predict); the health guardrail's rollback policy
+            (check every 2 rounds, NaN in 5% of the rows' gradients at round
+            5, 8 updates): predictions finite. Each run prints its
+            s/iteration; the phase its launches per kernel and its seconds.
 
 The Booster surface: after phase 8, dump_model parses and its leaf values
 and thresholds equal the model text's, feature_importance ("split" and
@@ -214,7 +237,7 @@ off, has a byte-equal model text and a bit-equal final train score.
 The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving path), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
-of phases 13, 14 and 15 (the training paths): every kernel of each path must
+of phases 13, 14, 15 and 16 (the training paths): every kernel of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -2217,25 +2240,28 @@ def check_quantized_modes(dev, core, learner, got, gh_q, scale):
     return timings, bounds
 
 
-def _exact_quantized(lt, X, y, params, fobj, rounds, learner):
-    """The card's and the CPU's model texts of one quantized run, through
-    `learner` ("wave": lt on the card against a CPU GBDT whose learner is
-    the wave learner; "serial": feature_fraction_bynode 0.8 on both), and
-    the two runs' seconds."""
+def _exact_card_cpu(lt, X, y, params, rounds, learner, fobj=None):
+    """The card's and the CPU's model texts of one run, through `learner`
+    ("wave": lt on the card against a CPU GBDT whose learner is the wave
+    learner; "serial": feature_fraction_bynode 0.8 on both), on the custom
+    objective `fobj` or, without one, on params' own, and the two runs'
+    seconds and trees' leaf counts."""
     from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
 
     extra = {"feature_fraction_bynode": 0.8} if learner == "serial" else {}
+    if fobj is not None:
+        extra["objective"] = "none"
     out = {}
     for where in ("card", "cpu"):
         t = time.perf_counter()
         ds = lt.Dataset(X, label=y)
-        bst = lt.Booster({**params, **extra, "objective": "none",
+        bst = lt.Booster({**params, **extra,
                           **({"device_type": "cpu"} if where == "cpu" else {})}, ds)
         if where == "cpu" and learner == "wave":
             bst._gbdt.tree_learner = DeviceTreeLearner(bst._gbdt.config, ds._handle,
                                                        torch.device("cpu"))
         check(isinstance(bst._gbdt.tree_learner, DeviceTreeLearner) == (learner == "wave"),
-              f"exact quantized ({learner}, {where}): trained with the wrong learner")
+              f"exact ({learner}, {where}): trained with the wrong learner")
         for _ in range(rounds):
             bst.update(fobj=fobj)
         out[where] = (bst.model_to_string(), time.perf_counter() - t,
@@ -2293,8 +2319,8 @@ def drive_quantized(lt, libs, train_set, valid, X_train, y_train, float_runs, se
             ("multiclass", (Xm, ym), mc, MC_EXACT_ROUNDS, (host_softmax, snapped_softmax))):
         for learner in ("wave", "serial"):
             for renew, fobj in zip((False, True), fobjs):
-                out = _exact_quantized(lt, X, y, {**params, "quant_train_renew_leaf": renew},
-                                       fobj, rounds, learner)
+                out = _exact_card_cpu(lt, X, y, {**params, "quant_train_renew_leaf": renew},
+                                      rounds, learner, fobj)
                 what = (f"exact quantized ({data}, {learner}, renewal "
                         f"{'on, snapped' if renew else 'off, unsnapped'} gradients)")
                 check(out["card"][0] == out["cpu"][0],
@@ -2523,7 +2549,7 @@ def drive_goss(lt, libs, train_set, valid, X_train, y_train, tag):
     exact = {**WAVE_PARAMS, **GOSS_PARAMS, "learning_rate": 0.5, "metric": "None",
              "num_leaves": EXACT_LEAVES}
     for learner in ("wave", "serial"):
-        out = _exact_quantized(lt, Xe, ye, exact, snapped_logloss, GOSS_EXACT_ROUNDS, learner)
+        out = _exact_card_cpu(lt, Xe, ye, exact, GOSS_EXACT_ROUNDS, learner, snapped_logloss)
         check(out["card"][0] == out["cpu"][0],
               f"exact goss ({learner}): the card's model text differs from the CPU's, "
               + first_difference(out["card"][0], out["cpu"][0]))
@@ -2741,8 +2767,8 @@ def drive_categorical(lt, libs, seed, tag):
     # gradients; the quantized run's int32 sums are exact on any gradients
     for what, extra, fobj in (("float, snapped", {}, snapped_logloss),
                               ("quantized, unsnapped", QUANT_PARAMS, host_logloss)):
-        out = _exact_quantized(lt, ex_df, ex_y, {**base, **extra}, fobj, CAT_EXACT_ROUNDS,
-                               "serial")
+        out = _exact_card_cpu(lt, ex_df, ex_y, {**base, **extra}, CAT_EXACT_ROUNDS, "serial",
+                              fobj)
         check(out["card"][0] == out["cpu"][0],
               f"exact categorical ({what}): the card's model text differs from the CPU's, "
               + first_difference(out["card"][0], out["cpu"][0]))
@@ -3251,6 +3277,276 @@ def drive_constraints(lt, libs, train_set, valid, X_train, y_train, baseline, ta
 
 # ---------------------------------------------------------------------------
 # the Booster surface
+
+# ---------------------------------------------------------------------------
+# phase 16: DART, random forests and the model's life cycle
+
+# LightGBM's DART defaults (docs/Parameters.rst: drop_rate, skip_drop, max_drop)
+DART_PARAMS = {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.5, "max_drop": 50}
+RF_PARAMS = {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
+             "feature_fraction": 0.8}
+LIFE_ROUNDS, LIFE_CUT, HEALTH_ROUNDS, LIFE_EXACT_ROUNDS = 10, 5, 8, 4
+HEALTH_NAN_AT, HEALTH_EVERY = 5, 2  # NaN in every 20th row's gradient at round 5
+DART_GAP, RF_GAP, ROLLBACK_GAP, REFIT_AUC_MARGIN = 1e-3, 1e-5, 1e-6, 0.01
+LIFE_REQUIRED = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+                 "partition_scatter", "relabel_rows", "find_best_split",
+                 "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
+                 "predict_forest_raw", "predict_forest_leaf")
+
+
+def host_auc(y, score) -> float:
+    """Area under the ROC curve from the ranks of the scores (ties share
+    their mean rank)."""
+    from scipy.stats import rankdata
+
+    pos = np.asarray(y) > 0.5
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    ranks = rankdata(score)
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def grid_rows(X, n):
+    """n rows in +/- pairs from X and labels 1 + s, s on a 1/64 grid and
+    odd in the rows: the labels' mean, boost-from-average's init score, is
+    exactly 1, so every L2 gradient init - label is on the grid and every
+    sum of them is exact."""
+    half = np.asarray(X[:n // 2], dtype=np.float64)
+    Xg = np.concatenate([half, -half])
+    y = 1.0 + np.round((Xg[:, 0] - 0.5 * Xg[:, 8] + 0.25 * Xg[:, 16]) * 64) / 64
+    check(float(np.mean(y)) == 1.0, "grid rows: the labels' mean is not 1")
+    return Xg, y
+
+
+def _checkpoint_at(path, cut):
+    """A checkpoint callback writing `path` after round `cut` only."""
+    from lightgbm_tpu_torch.checkpoint import checkpoint_callback
+
+    return checkpoint_callback(lambda it: path if it == cut else path + f".{it}", period=cut)
+
+
+def _life_exact(lt, X_train, y_train, tmp):
+    """Phase 16's exact runs at EXACT_ROWS rows and EXACT_LEAVES leaves:
+    DART on snapped gradients and RF on grid labels through the wave
+    learner, and a run resumed from a checkpoint on the card (the serial
+    learner, feature_fraction_bynode 0.8: its column sampler's stream is in
+    the checkpoint), each byte-equal to the CPU's."""
+    t = time.perf_counter()
+    Xe, ye = X_train[:EXACT_ROWS], y_train[:EXACT_ROWS]
+    dart = {**WAVE_PARAMS, **DART_PARAMS, "num_leaves": EXACT_LEAVES, "metric": "None",
+            "drop_rate": 0.5, "skip_drop": 0.2}
+    out = _exact_card_cpu(lt, Xe, ye, dart, LIFE_EXACT_ROUNDS, "wave", snapped_logloss)
+    check(out["card"][0] == out["cpu"][0],
+          "exact dart: the card's model text differs from the CPU's, "
+          + first_difference(out["card"][0], out["cpu"][0]))
+    Xg, yg = grid_rows(X_train, EXACT_ROWS)
+    rf = {**WAVE_PARAMS, **RF_PARAMS, "objective": "regression", "metric": "None",
+          "num_leaves": EXACT_LEAVES}
+    out = _exact_card_cpu(lt, Xg, yg, rf, LIFE_EXACT_ROUNDS, "wave")
+    check(out["card"][0] == out["cpu"][0],
+          "exact rf: the card's model text differs from the CPU's, "
+          + first_difference(out["card"][0], out["cpu"][0]))
+    resume = {**TRAIN_PARAMS, "objective": snapped_logloss, "metric": "None",
+              "num_leaves": EXACT_LEAVES}
+    path = os.path.join(tmp, "exact_ckpt.txt")
+    cut = LIFE_EXACT_ROUNDS // 2
+    card = lt.train(dict(resume), lt.Dataset(Xe, label=ye), num_boost_round=LIFE_EXACT_ROUNDS,
+                    callbacks=[_checkpoint_at(path, cut)])
+    resumed = lt.train(dict(resume), lt.Dataset(Xe, label=ye),
+                       num_boost_round=LIFE_EXACT_ROUNDS, init_model=path)
+    cpu = lt.train({**resume, "device_type": "cpu"}, lt.Dataset(Xe, label=ye),
+                   num_boost_round=LIFE_EXACT_ROUNDS)
+    check(type(resumed._gbdt.tree_learner).__name__ == "SerialTreeLearner",
+          "exact resume: not the serial learner")
+    texts = [b.model_to_string() for b in (card, resumed, cpu)]
+    check(texts[1] == texts[0] == texts[2],
+          "exact resume: the resumed card run differs from the straight card run or the "
+          "CPU's, " + first_difference(texts[1], texts[2]))
+    print(f"exact dart / rf / resume: {EXACT_ROWS} rows, {EXACT_LEAVES} leaves, "
+          f"{LIFE_EXACT_ROUNDS} rounds: DART on snapped gradients (drop_rate 0.5, skip_drop "
+          f"0.2) and RF on grid labels through the wave learner, and a run resumed from "
+          f"round {cut} on the card through the serial learner (feature_fraction_bynode "
+          f"0.8): card and CPU model texts byte-equal ({time.perf_counter() - t:.1f} s)")
+
+
+def _timed_run(lt, params, train_set, valid, rounds, callbacks=(), init_model=None):
+    """lt.train with a stamp after each round: (booster, s/iteration of the
+    rounds after the first, first-round s, wall s, valid AUC by round)."""
+    stamps, evals = [], {}
+    cbs = [lambda env: stamps.append(time.perf_counter()), *callbacks]
+    kwargs = {}
+    if valid is not None:
+        cbs.append(lt.record_evaluation(evals))
+        kwargs = {"valid_sets": [train_set.create_valid(valid[0], label=valid[1])],
+                  "valid_names": ["valid"]}
+    t = time.perf_counter()
+    bst = lt.train(dict(params), train_set, num_boost_round=rounds, callbacks=cbs,
+                   init_model=init_model, **kwargs)
+    wall = time.perf_counter() - t
+    per_iter = np.diff([t] + stamps)
+    steady = float(np.mean(per_iter[1:])) if len(per_iter) > 1 else float(per_iter[0])
+    return bst, steady, float(per_iter[0]), wall, evals.get("valid", {}).get("auc", [])
+
+
+def drive_lifecycle(lt, libs, train_set, valid, X_train, y_train, baseline, seed, tag):
+    """Phase 16: DART and RF through the wave learner at HIGGS width, a
+    checkpoint resume through the async pipeline, refit and rollback of
+    phase 8's booster (`baseline`) and the health guardrail's rollback,
+    after their exact card = CPU runs. Returns (the launches of the phase's
+    full-width runs, the report)."""
+    from lightgbm_tpu_torch.checkpoint import SIDECAR_SUFFIX, load_checkpoint
+    from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_life_")
+    _life_exact(lt, X_train, y_train, tmp.name)
+    report = {}
+    for lib in libs:
+        lib.reset_launches()
+    n_rows = train_set.num_data()
+
+    # ---- DART, LightGBM's defaults
+    drops = []
+    dart, s_dart, first, wall, auc = _timed_run(
+        lt, {**WAVE_PARAMS, **DART_PARAMS}, train_set, valid, LIFE_ROUNDS,
+        callbacks=[lambda env: drops.append(len(env.model._gbdt.drop_index))])
+    check(isinstance(dart._gbdt.tree_learner, DeviceTreeLearner), "dart: not the wave learner")
+    check(len(dart._gbdt.models) == LIFE_ROUNDS, f"dart: {len(dart._gbdt.models)} trees")
+    check(0.5 < auc[-1] and auc[-1] >= auc[0], f"dart: valid AUC {auc}")
+    gap = float(np.abs(dart._gbdt.score[0].cpu().numpy()
+                       - dart.predict(X_train, raw_score=True)).max())
+    check(gap <= DART_GAP, f"dart: train score {gap} from predict(raw_score=True)")
+    busy = device_busy_share(dart.update)
+    print(f"{tag} dart: {n_rows} x 28, {LIFE_ROUNDS} rounds (drop_rate 0.1, skip_drop 0.5, "
+          f"max_drop 50) in {wall:.2f} s; s/iteration first {first:.3f}, mean of the rest "
+          f"{s_dart:.4f}; trees dropped a round {drops} (mean {np.mean(drops):.1f}); valid AUC "
+          f"{auc[0]:.5f} -> {auc[-1]:.5f}; train score against predict(raw_score=True): max "
+          f"gap {gap:.3g}; one more round (torch.profiler): "
+          + ("busy share not measured (the profiler saw no device time)" if busy is None else
+             f"{busy[0] * 1e3:.1f} ms of device operations in {busy[1] * 1e3:.1f} ms wall, "
+             f"{busy[0] / busy[1]:.1%} busy, {len(dart._gbdt.drop_index)} trees dropped; "
+             f"top kernels: {busy[2]}"))
+    report["dart"] = {"s_iter": s_dart, "drops": drops, "gap": gap, "auc": auc,
+                      "busy": None if busy is None else busy[0] / busy[1]}
+
+    # ---- random forest
+    rf, s_rf, first, wall, auc = _timed_run(lt, {**WAVE_PARAMS, **RF_PARAMS}, train_set,
+                                            valid, LIFE_ROUNDS)
+    check(isinstance(rf._gbdt.tree_learner, DeviceTreeLearner), "rf: not the wave learner")
+    check(0.5 < auc[-1], f"rf: valid AUC {auc}")
+    trees = np.stack([rf.predict(X_train, raw_score=True, start_iteration=i, num_iteration=1)
+                      for i in range(LIFE_ROUNDS)]).astype(np.float64)
+    gap_rf = float(np.abs(rf._gbdt.score[0].cpu().numpy() - trees.mean(axis=0)).max())
+    check(gap_rf <= RF_GAP, f"rf: train score {gap_rf} from the trees' mean output")
+    print(f"{tag} rf: {LIFE_ROUNDS} rounds (bagging 0.5 every round, feature_fraction 0.8) "
+          f"in {wall:.2f} s; s/iteration first {first:.3f}, mean of the rest {s_rf:.4f}; "
+          f"valid AUC {auc[0]:.5f} -> {auc[-1]:.5f}; train score against the mean of the "
+          f"trees' outputs: max gap {gap_rf:.3g}")
+    report["rf"] = {"s_iter": s_rf, "gap": gap_rf, "auc": auc}
+    del trees
+
+    # ---- checkpoint resume through the async pipeline
+    path = os.path.join(tmp.name, "ckpt.txt")
+    ckpt = _checkpoint_at(path, LIFE_CUT)
+    write = []
+
+    def timed_ckpt(env):
+        t = time.perf_counter()
+        ckpt(env)
+        if env.iteration + 1 == LIFE_CUT:
+            write.append(time.perf_counter() - t)
+
+    straight, s_straight, _, wall_straight, _ = _timed_run(
+        lt, ASYNC_PARAMS, train_set, None, LIFE_ROUNDS, callbacks=[timed_ckpt])
+    check(straight._gbdt._async_enabled(), "resume: the async pipeline is off")
+    t = time.perf_counter()
+    state = load_checkpoint(path)
+    load_s = time.perf_counter() - t
+    check(state is not None and state.iteration == LIFE_CUT, "resume: no valid checkpoint")
+    resumed, s_resumed, first_resumed, wall_resumed, _ = _timed_run(
+        lt, ASYNC_PARAMS, train_set, None, LIFE_ROUNDS, init_model=path)
+    text = straight.model_to_string()
+    check(resumed.model_to_string() == text,
+          "resume: the resumed model text differs from the uninterrupted run's, "
+          + first_difference(resumed.model_to_string(), text))
+    check(torch.equal(resumed._gbdt.score, straight._gbdt.score),
+          "resume: the final train scores differ")
+    sidecar = os.path.getsize(path + SIDECAR_SUFFIX)
+    print(f"{tag} resume: learning rate 0.125 through the async pipeline, checkpoint after "
+          f"round {LIFE_CUT} of {LIFE_ROUNDS} ({write[0] * 1e3:.1f} ms to write, the pending "
+          f"tree flushed; sidecar {sidecar} bytes; {load_s * 1e3:.1f} ms to load), resumed "
+          f"with init_model: model text byte-equal ({len(text)} bytes) and the train score "
+          f"bit-equal; s/iteration straight {s_straight:.4f} ({wall_straight:.2f} s), resumed "
+          f"first {first_resumed:.3f} (with the restore) then {s_resumed:.4f} "
+          f"({wall_resumed:.2f} s)")
+    report["resume"] = {"write_s": write[0], "load_s": load_s, "first": first_resumed,
+                        "s_iter": s_resumed, "sidecar": sidecar}
+
+    # ---- refit of phase 8's booster on a fresh draw, then rollback
+    X_new, y_new = higgs_rows(seed + 16, TRAIN_ROWS)
+    t = time.perf_counter()
+    refit = baseline.refit(X_new, y_new)
+    refit_s = time.perf_counter() - t
+    auc_old = host_auc(valid[1], baseline.predict(valid[0], raw_score=True))
+    auc_new = host_auc(valid[1], refit.predict(valid[0], raw_score=True))
+    check(abs(auc_new - auc_old) <= REFIT_AUC_MARGIN,
+          f"refit: valid AUC {auc_new} against the original's {auc_old}")
+    del X_new, y_new
+    t = time.perf_counter()
+    baseline.rollback_one_iter()
+    rollback_s = time.perf_counter() - t
+    gap_rb = float(np.abs(baseline._gbdt.score[0].cpu().numpy()
+                          - baseline.predict(X_train, raw_score=True)).max())
+    check(baseline.num_trees() == TRAIN_ROUNDS - 1 and gap_rb <= ROLLBACK_GAP,
+          f"rollback: {baseline.num_trees()} trees, train score {gap_rb} from predict")
+    print(f"{tag} refit: phase 8's {TRAIN_ROUNDS} trees on a fresh {TRAIN_ROWS}-row draw "
+          f"(decay 0.9) in {refit_s:.2f} s (the new Dataset's binning included): valid AUC "
+          f"{auc_new:.5f} against {auc_old:.5f}; rollback of one iteration in "
+          f"{rollback_s * 1e3:.1f} ms: train score against predict(raw_score=True) max gap "
+          f"{gap_rb:.3g}")
+    report["refit"] = {"s": refit_s, "auc": (auc_old, auc_new), "rollback_s": rollback_s,
+                       "gap": gap_rb}
+
+    # ---- the health guardrail's rollback policy
+    calls = [0]
+
+    def poisoned(preds, dataset):
+        grad, hess = snapped_logloss(preds, dataset)
+        if calls[0] == HEALTH_NAN_AT:
+            grad = grad.copy()
+            grad[::20] = np.nan
+        calls[0] += 1
+        return grad, hess
+
+    bst = lt.Booster({**WAVE_PARAMS, "objective": "none", "health_check_policy": "rollback",
+                      "health_check_every": HEALTH_EVERY}, train_set)
+    t = time.perf_counter()
+    for _ in range(HEALTH_ROUNDS):
+        bst.update(fobj=poisoned)
+    health_s = time.perf_counter() - t
+    pred = bst.predict(valid[0])
+    check(bst._gbdt._health.clip_on, "health: no rollback happened")
+    check(bool(np.isfinite(pred).all()), "health: non-finite predictions after the rollback")
+    print(f"{tag} health: policy rollback, check every {HEALTH_EVERY} rounds, NaN in 5% of "
+          f"the rows' gradients at round {HEALTH_NAN_AT}: {HEALTH_ROUNDS} updates in "
+          f"{health_s:.2f} s, {bst.current_iteration()} iterations kept (rolled back to the "
+          f"check before the NaN), predictions finite, valid AUC "
+          f"{host_auc(valid[1], pred):.5f}")
+
+    launches = {}
+    for lib in libs:
+        launches.update(lib.launches)
+    for name in LIFE_REQUIRED:
+        check(launches[name] > 0, f"life-cycle path: kernel {name} never launched")
+    # DART's 10 + 1 profiled, RF's 10, the straight and the resumed runs', the health run's
+    updates = (LIFE_ROUNDS + 1) + 2 * LIFE_ROUNDS + (LIFE_ROUNDS - LIFE_CUT) + HEALTH_ROUNDS
+    print(f"life-cycle path launches: {launches} (per update, {updates} updates: "
+          + ", ".join(f"{name} {launches[name] / updates:.1f}"
+                      for name in LIFE_REQUIRED) + ")")
+    tmp.cleanup()
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} phase 16: {report['seconds']:.1f} s")
+    return launches, report
+
 
 def check_booster_surface(lt, booster, tag):
     """After phase 8: dump_model parses, its leaf values and thresholds equal
@@ -3962,8 +4258,13 @@ def main() -> int:
     lane_launches, lanes = drive_constraints(lt, libs, train_set, valid, X_train, y_train,
                                              wave["booster"], tag)
     torch.cuda.empty_cache()
+
+    # ------------------------------- DART, random forests, the life cycle
+    life_launches, _ = drive_lifecycle(lt, libs, train_set, valid, X_train, y_train,
+                                       wave["booster"], args.seed, tag)
+    torch.cuda.empty_cache()
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
-             goss_launches, cat_launches, lane_launches)
+             goss_launches, cat_launches, lane_launches, life_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)

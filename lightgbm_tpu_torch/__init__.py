@@ -11,7 +11,11 @@ Ported so far: training (``train``, ``Dataset``, ``Booster(params,
 train_set)``) through the wave learner on the card and the serial learner
 elsewhere: binary, regression and multiclass objectives, bagging and GOSS,
 quantized gradients, categorical features (pandas ``category`` columns
-included); the Booster's predict (raw, converted or leaf indices), model
+included), DART and random forests; the model's life cycle: continued
+training and bit-identical checkpoint resume (``init_model``,
+``checkpoint.checkpoint_callback``), ``cv``, ``Booster.refit``,
+``Booster.rollback_one_iter`` and the numerical-health guardrails
+(``health_check_policy``); the Booster's predict (raw, converted or leaf indices), model
 text and JSON dump, feature importances, score bounds and
 ``reset_parameter`` (with ``callback.reset_parameter``); and the prediction
 service with its HTTP front (``lightgbm_tpu_torch.serving``).
@@ -19,7 +23,7 @@ service with its HTTP front (``lightgbm_tpu_torch.serving``).
 from .basic import Booster, Dataset
 from .callback import early_stopping, log_evaluation, record_evaluation, reset_parameter
 from .config import Config, resolve_device
-from .engine import train
+from .engine import CVBooster, cv, train
 from .models.serialize import GBDTModel
 from .models.tree import Tree
 from .utils.log import LightGBMError, register_log_callback
@@ -28,11 +32,13 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Booster",
+    "CVBooster",
     "Config",
     "Dataset",
     "GBDTModel",
     "LightGBMError",
     "Tree",
+    "cv",
     "early_stopping",
     "log_evaluation",
     "record_evaluation",

@@ -5,28 +5,31 @@ basic.py Dataset :1773, Booster :3581): lazy Dataset construction with
 reference alignment for validation data, and the Booster that trains
 (``Booster(params, train_set)``, ``update``, ``add_valid``, ``eval_*``) or
 loads a model from a file or string, predicts and saves, dumps the model as
-JSON, reports feature importances and the score bounds, and takes new
-parameters between iterations (``reset_parameter``). A pandas DataFrame's
+JSON, reports feature importances and the score bounds, takes new
+parameters between iterations (``reset_parameter``), fits its leaf values
+again on new data (``refit``) and takes its last iteration back
+(``rollback_one_iter``). A Dataset gives row subsets (``subset``, as
+``cv``'s folds take them). A pandas DataFrame's
 ``category`` columns train as categorical features and map through the
 training categories at predict time (``pandas_categorical``).
 
 The Booster runs on the CUDA card unless ``params={"device_type": "cpu"}``
 asks for the CPU; with no card and no such request it raises. Not ported
 yet, and refused loudly: text-file and binary-cache datasets, SHAP
-contributions (``pred_contrib``), prediction early stopping, row-sharded
-predict, refit and rollback.
+contributions (``pred_contrib``), prediction early stopping and row-sharded
+predict.
 """
 from __future__ import annotations
 
 import copy
 import json
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from .config import Config, param_bool, parse_objective_alias, resolve_device
 from .io.dataset import Dataset as _CoreDataset
-from .models.gbdt import GBDT
+from .models.gbdt import GBDT, create_boosting
 from .models.serialize import GBDTModel
 from .objectives import create_objective
 from .utils.log import LightGBMError, Log
@@ -113,6 +116,7 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self._handle: Optional[_CoreDataset] = None
         self._raw: Optional[np.ndarray] = None
+        self._sparse_raw = None
         self.pandas_categorical = None
 
     # ------------------------------------------------------------ construction
@@ -194,6 +198,22 @@ class Dataset:
                        group=group, init_score=init_score,
                        params=params or self.params, position=position)
 
+    def subset(self, used_indices: Sequence[int], params=None) -> "Dataset":
+        """The rows `used_indices` as a constructed Dataset that shares this
+        one's bin mappers and feature groups (the JAX package's basic.py:
+        257-268): the binned rows, the metadata and the raw rows, dense or
+        CSR."""
+        self.construct()
+        idx = np.asarray(used_indices)
+        sub = Dataset(None, params=params or self.params, free_raw_data=self.free_raw_data)
+        sub._handle = self._handle.subset(idx)
+        sub._raw = self._raw[idx] if self._raw is not None else None
+        if self._raw is None and self._sparse_raw is not None:
+            sub._sparse_raw = self._sparse_raw.tocsr()[idx]
+        sub.pandas_categorical = self.pandas_categorical
+        sub.reference = self
+        return sub
+
     def set_label(self, label) -> "Dataset":
         self.label = label
         if self._handle is not None and label is not None:
@@ -219,6 +239,9 @@ class Dataset:
 
     def get_weight(self):
         return self.weight
+
+    def get_group(self):
+        return self.group
 
     def get_init_score(self):
         return self.init_score
@@ -263,8 +286,8 @@ class Booster:
             train_set.params = {**train_set.params, **self.params}
             train_set.construct()
             objective = create_objective(self.config.objective, self.config)
-            self._gbdt = GBDT(self.config, train_set._handle, objective, self.device,
-                              train_raw=train_set._raw)
+            self._gbdt = create_boosting(self.config, train_set._handle, objective,
+                                         self.device, train_raw=train_set._raw)
             self.train_set = train_set
             self.pandas_categorical = train_set.pandas_categorical
             return
@@ -308,10 +331,37 @@ class Booster:
             if self._gbdt.objective is not None:
                 raise LightGBMError("Cannot use fobj with a built-in objective; "
                                     "set objective='none'")
+            # DART drops its trees before custom gradients read the score
+            # (GetTrainingScore triggers DroppingTrees, dart.hpp:78-88)
+            self._gbdt.prepare_training_score()
             grad, hess = fobj(self._score_for_callables(), self.train_set)
             return self._gbdt.train_one_iter(np.asarray(grad, dtype=np.float32),
                                              np.asarray(hess, dtype=np.float32))
         return self._gbdt.train_one_iter()
+
+    def refit(self, data, label, decay_rate: float = 0.9, **kwargs: Any) -> "Booster":
+        """A new Booster with this one's trees, their leaf values fitted
+        again on `data` (python-package Booster.refit / LGBM_BoosterRefit):
+        each row's leaf in every tree from the traversal's leaf mode, then
+        GBDT.refit."""
+        if hasattr(data, "toarray"):  # scipy sparse: refit needs raw values
+            data = data.toarray()
+        data = np.asarray(data, dtype=np.float64)
+        pred_leaf = self.predict(data, pred_leaf=True)
+        new_params = {**self.params, "refit_decay_rate": decay_rate}
+        new_booster = Booster(new_params, Dataset(data, label=label, **kwargs))
+        gbdt = new_booster._gbdt
+        gbdt.models = GBDTModel.from_string(self.model_to_string()).trees
+        gbdt._predictor.invalidate()
+        gbdt.iter_ = len(gbdt.models) // gbdt.num_tree_per_iteration
+        gbdt.refit(np.asarray(pred_leaf, dtype=np.int32).reshape(data.shape[0], -1))
+        return new_booster
+
+    def rollback_one_iter(self) -> "Booster":
+        """Take the last iteration's trees back out of the model and the
+        scores (LGBM_BoosterRollbackOneIter)."""
+        self._gbdt.rollback_one_iter()
+        return self
 
     def _score_for_callables(self) -> np.ndarray:
         score = self._gbdt.score.cpu().numpy()

@@ -3,7 +3,10 @@
 Counterpart of the JAX package's ``callback.py`` (python-package/lightgbm/
 callback.py): early_stopping (:278,456), log_evaluation (:109),
 record_evaluation (:183) and reset_parameter (:241), with the same
-CallbackEnv protocol and before/after-iteration ordering.
+CallbackEnv protocol and before/after-iteration ordering. Early stopping
+publishes its state on the booster each iteration (`_early_stop_state`,
+which a checkpoint saves) and takes a resumed run's state back
+(`_pending_restore`, handed over by checkpoint.restore_trainer_state).
 """
 from __future__ import annotations
 
@@ -100,6 +103,10 @@ def record_evaluation(eval_result: Dict) -> Callable:
 class _EarlyStoppingCallback:
     """callback.py:278-455."""
 
+    # checkpoint.restore_trainer_state hands a resumed run's early-stop
+    # state to a callback that sets this flag (applied after _init)
+    _accepts_state_restore = True
+
     def __init__(self, stopping_rounds: int, first_metric_only: bool = False,
                  verbose: bool = True, min_delta: Union[float, List[float]] = 0.0) -> None:
         if not isinstance(stopping_rounds, int) or stopping_rounds <= 0:
@@ -112,6 +119,7 @@ class _EarlyStoppingCallback:
         self.verbose = verbose
         self.min_delta = min_delta
         self.enabled = True
+        self._pending_restore = None
         self._reset_storages()
 
     def _reset_storages(self) -> None:
@@ -145,6 +153,33 @@ class _EarlyStoppingCallback:
                 self.cmp_op.append(lambda cur, best, d=delta: cur < best - d)
             self.best_score_list.append(None)
 
+    def snapshot(self) -> Dict:
+        """The early-stop state as JSON for a checkpoint. cmp_op is not
+        kept: _init builds the comparators again from min_delta and the
+        eval list, which a resume reproduces."""
+        return {
+            "enabled": self.enabled,
+            "best_score": list(self.best_score),
+            "best_iter": list(self.best_iter),
+            "best_score_list": [None if bsl is None else [list(item) for item in bsl]
+                                for bsl in self.best_score_list],
+            "first_metric": self.first_metric,
+        }
+
+    def _apply_restore(self, state: Dict) -> None:
+        if len(state.get("best_score", [])) != len(self.best_score):
+            Log.warning("Checkpointed early-stop state tracks %d metrics but "
+                        "the resume run evaluates %d; starting early-stop "
+                        "bookkeeping fresh",
+                        len(state.get("best_score", [])), len(self.best_score))
+            return
+        self.enabled = bool(state["enabled"])
+        self.best_score = [float(v) for v in state["best_score"]]
+        self.best_iter = [int(it) for it in state["best_iter"]]
+        self.best_score_list = [None if bsl is None else [tuple(item) for item in bsl]
+                                for bsl in state["best_score_list"]]
+        self.first_metric = state["first_metric"]
+
     def _final_iteration_check(self, env: CallbackEnv, i: int) -> None:
         if env.iteration == env.end_iteration - 1:
             if self.verbose:
@@ -156,6 +191,9 @@ class _EarlyStoppingCallback:
     def __call__(self, env: CallbackEnv) -> None:
         if env.iteration == env.begin_iteration:
             self._init(env)
+            if self._pending_restore is not None:
+                self._apply_restore(self._pending_restore)
+                self._pending_restore = None
         if not self.enabled:
             return
         for i, eval_ret in enumerate(env.evaluation_result_list):
@@ -175,6 +213,9 @@ class _EarlyStoppingCallback:
                              "\t".join(_format_eval_result(x) for x in self.best_score_list[i]))
                 raise EarlyStopException(self.best_iter[i], self.best_score_list[i])
             self._final_iteration_check(env, i)
+        if env.model is not None:
+            # for the checkpoint callback (order 40, which runs next)
+            env.model._early_stop_state = self.snapshot()
 
 
 def early_stopping(stopping_rounds: int, first_metric_only: bool = False,

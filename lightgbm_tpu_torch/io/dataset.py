@@ -360,3 +360,19 @@ class Dataset:
     def real_threshold(self, feature: int, bin_threshold: int) -> float:
         """Bin-space threshold -> raw-value threshold for the model tree."""
         return self.mappers[feature].bin_to_value(bin_threshold)
+
+    def subset(self, indices: np.ndarray) -> "Dataset":
+        """The rows `indices` (cv's folds): the same bin mappers and feature
+        groups, the binned rows and the metadata of those rows."""
+        out = Dataset(self.config)
+        out.num_data = len(indices)
+        out.num_total_features = self.num_total_features
+        out.mappers = self.mappers
+        out.groups = self.groups
+        out.feature_to_group = self.feature_to_group
+        out.used_features = self.used_features
+        out.bins = np.ascontiguousarray(self.bins[:, indices])
+        out.metadata = self.metadata.subset(indices)
+        out.feature_names = self.feature_names
+        out.monotone_constraints = self.monotone_constraints
+        return out

@@ -25,8 +25,15 @@ async per-tree pipeline runs instead (`_async_enabled`,
 takes its update straight from the device split log
 (ops/score.py:apply_split_log_to_score), and tree t-1 is replayed into its
 Tree on the host while the card grows tree t. Every reader of the model or
-the scores flushes the pending tree first (`_flush_pending`). Refit and
-rollback are later work (ROADMAP Queue 1 item 6.7).
+the scores flushes the pending tree first (`_flush_pending`).
+
+`create_boosting` picks the boosting class: this GBDT, or its DART (`dart.py`) and
+random-forest (`rf.py`) subclasses, which score earlier trees again over
+every training row (`_add_tree_to_train_score`, the bin-space traversal)
+and scale the scores in place (`_multiply_score`). `refit` fits the leaf
+values of the trees again on new data, `rollback_one_iter` takes the last
+iteration back, and with ``health_check_policy`` set every iteration passes
+the numerical-health monitor (`health.py`).
 """
 from __future__ import annotations
 
@@ -36,15 +43,17 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..health import create_monitor
 from ..io.dataset import Dataset
 from ..metrics import create_metric
 from ..objectives.registry import ObjectiveFunction
+from ..ops.histogram import leaf_sums_fixed
 from ..ops.partition import bucket_size, pad_indices
 from ..ops.predict import (PredictorCache, pack_ensemble, predict_leaf_indices,
                            predict_raw, predict_raw_streamed, stream_chunk_rows,
                            to_device_rows)
 from ..ops.score import add_tree_to_score, apply_split_log_to_score
-from ..treelearner.serial import create_tree_learner
+from ..treelearner.serial import _leaf_output_host, create_tree_learner
 from ..utils.log import Log
 from ..utils.timer import global_timer
 from .sample_strategy import DeviceBag, create_sample_strategy
@@ -102,6 +111,8 @@ class GBDT:
         self._pending = None
         self._async_stub_stop = False
         self._async_pipeline = True
+        # the numerical-health guardrails (None unless health_check_policy)
+        self._health = create_monitor(config)
         if train_set is None:
             return
 
@@ -122,9 +133,6 @@ class GBDT:
             if hasattr(objective, "class_need_train"):
                 self.class_need_train = [objective.class_need_train(c)
                                          for c in range(self.num_tree_per_iteration)]
-        if config.boosting not in ("gbdt", "gbrt", "gbm", "goss"):
-            Log.fatal("boosting=%s is not yet ported to the PyTorch package "
-                      "(ROADMAP Queue 1 item 6.6)", config.boosting)
         self.tree_learner = create_tree_learner(config.tree_learner, self.device,
                                                 config, train_set)
         self.sample_strategy = create_sample_strategy(
@@ -132,6 +140,7 @@ class GBDT:
         self._cur_bag = None  # host indices or a DeviceBag
         self._oob_padded: Optional[torch.Tensor] = None
         self.train_metrics = self._create_metrics(train_set)
+        self._all_rows: Optional[torch.Tensor] = None
         # scores [C, N]
         C = self.num_tree_per_iteration
         init = train_set.metadata.init_score
@@ -165,6 +174,18 @@ class GBDT:
         self.valid_names.append(name)
 
     # --------------------------------------------------------------- boosting
+
+    def prepare_training_score(self) -> None:
+        """Hook run before custom gradients read the training score
+        (GetTrainingScore, boosting.h); DART drops its trees here."""
+
+    def _compute_gh(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The objective's gradients and hessians [C, N] at the train
+        score."""
+        if self.num_tree_per_iteration > 1:
+            return self.objective.get_gradients(self.score)
+        grads, hesses = self.objective.get_gradients(self.score[0])
+        return grads[None], hesses[None]
 
     def boost_from_average(self, class_id: int) -> float:
         """gbdt.cpp:327-350."""
@@ -287,11 +308,10 @@ class GBDT:
                                         .reshape(C, self.num_data), device=self.device)
                 hesses = torch.as_tensor(np.asarray(hessians, dtype=np.float32)
                                          .reshape(C, self.num_data), device=self.device)
-            elif C > 1:
-                grads, hesses = self.objective.get_gradients(self.score)
             else:
-                grads, hesses = self.objective.get_gradients(self.score[0])
-                grads, hesses = grads[None], hesses[None]
+                grads, hesses = self._compute_gh()
+        if self._health is not None:
+            grads, hesses = self._health.admit(self, grads, hesses)
         with global_timer.scope("bagging"):
             bag, grads, hesses = self.sample_strategy.bagging(
                 self.iter_, grads, hesses)
@@ -314,6 +334,8 @@ class GBDT:
                     new_tree = self.tree_learner.train(gh_ext, bag)
             if new_tree.num_leaves > 1:
                 should_continue = True
+                if self._health is not None:
+                    self._health.observe_tree(new_tree)
                 if self.config.linear_tree:
                     self._fit_linear(new_tree, grads[c], hesses[c], len(self.models) < C)
                 if self.objective is not None:
@@ -400,6 +422,34 @@ class GBDT:
             out[bag] = False
             oob = np.flatnonzero(out).astype(np.int32)  # setdiff1d of the distinct bag
             self._oob_padded = torch.from_numpy(pad_indices(oob, n)).to(self.device)
+
+    def _all_rows_padded(self) -> torch.Tensor:
+        """Every training row as a padded index set, on the device once."""
+        if self._all_rows is None:
+            self._all_rows = torch.from_numpy(pad_indices(
+                np.arange(self.num_data, dtype=np.int32), self.num_data)).to(self.device)
+        return self._all_rows
+
+    def _add_tree_to_train_score(self, tree: Tree, class_id: int) -> None:
+        """Add any tree's outputs (an earlier one, as DART and RF need) to
+        the train score of every row: the bin-space traversal, each row once
+        (ScoreUpdater::AddScore(tree)), or the linear predictor for a linear
+        tree."""
+        if tree.is_linear:
+            self._add_linear_tree_score(tree, class_id)
+            return
+        score = self.score[class_id]
+        score.copy_(add_tree_to_score(tree, self.train_set, self.tree_learner.bins_dev,
+                                      score, self._all_rows_padded(), self.num_data))
+
+    def _multiply_score(self, class_id: int, val: float) -> None:
+        """ScoreUpdater::MultiplyScore on the train and valid scores of one
+        class, in place, by val rounded to float32 (the JAX package's weakly
+        typed multiply)."""
+        factor = torch.tensor(val, dtype=torch.float32, device=self.device)
+        self.score[class_id] *= factor
+        for vd in self.valid_sets:
+            vd.score[class_id] *= factor
 
     def _fit_linear(self, tree: Tree, grad: torch.Tensor, hess: torch.Tensor,
                     is_first_tree: bool) -> None:
@@ -521,6 +571,72 @@ class GBDT:
 
     # ------------------------------------------------------------------ model
 
+    def refit(self, pred_leaf: np.ndarray) -> None:
+        """GBDT::RefitTree (gbdt.cpp:266-305): keep every tree's structure
+        and fit its leaf values again on the training data. pred_leaf [N, T]
+        holds each row's leaf in each tree of the old model; the gradients
+        are recomputed an iteration at a time from the growing refit score,
+        and each leaf's value becomes
+
+            refit_decay_rate * old + (1 - refit_decay_rate) * fit * shrinkage
+
+        (SerialTreeLearner::FitByExistingTree). A leaf's (sum g, sum h) is
+        summed exactly in fixed point (ops/histogram.py:leaf_sums_fixed): the
+        same bits in any order and on any device, where a float scatter-add
+        on the card would depend on the order of its atomics. The JAX
+        package sums in float32, which gives the same sums where every sum
+        is exact."""
+        self._flush_pending()
+        C = self.num_tree_per_iteration
+        T = len(self.models)
+        if pred_leaf.shape != (self.num_data, T):
+            Log.fatal("Refit leaf predictions shape %s != (%d, %d)",
+                      pred_leaf.shape, self.num_data, T)
+        if self.objective is None:
+            Log.fatal("Refit needs a built-in objective to compute gradients")
+        cfg = self.config
+        decay = cfg.refit_decay_rate
+        leaf_dev = torch.from_numpy(np.asarray(pred_leaf, dtype=np.int64)).to(self.device)
+        for it in range(T // C):
+            grads, hesses = self._compute_gh()
+            for c in range(C):
+                m = it * C + c
+                tree = self.models[m]
+                L = tree.num_leaves
+                leaf = leaf_dev[:, m]
+                sums = leaf_sums_fixed(torch.stack([grads[c], hesses[c]], dim=1), None,
+                                       leaf, L).cpu().numpy()
+                for i in range(L):
+                    out = _leaf_output_host(float(sums[i, 0]), float(sums[i, 1]) + K_EPSILON,
+                                            cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step)
+                    tree.set_leaf_output(i, decay * float(tree.leaf_value[i])
+                                         + (1.0 - decay) * out * tree.shrinkage)
+                lv = torch.as_tensor(tree.leaf_value[:L], dtype=torch.float32,
+                                     device=self.device)
+                self.score[c] += lv[leaf]
+        self._predictor.invalidate()
+
+    def rollback_one_iter(self) -> None:
+        """RollbackOneIter (gbdt.cpp:462): drop the last iteration's trees
+        and take their outputs back out of the scores. The train score takes
+        each negated tree through the bin-space traversal of every row, which
+        holds for any class and after a refit or a resume; the JAX package
+        reads the learner's last partition, which is the last tree's only
+        (ROADMAP Queue 3)."""
+        self._flush_pending()
+        if self.iter_ <= 0:
+            return
+        C = self.num_tree_per_iteration
+        for c in range(C):
+            tree = self.models[-C + c]
+            tree.shrink(-1.0)
+            self._add_tree_to_train_score(tree, c)
+            self._update_valid_scores(tree, c)
+            tree.shrink(-1.0)
+        del self.models[-C:]
+        self.iter_ -= 1
+        self._predictor.invalidate()
+
     def to_model(self) -> GBDTModel:
         self._flush_pending()
         ds = self.train_set
@@ -537,3 +653,22 @@ class GBDT:
         model.average_output = self.average_output
         model.parameters_str = self.config.to_string()
         return model
+
+
+def create_boosting(config: Config, train_set: Optional[Dataset],
+                    objective: Optional[ObjectiveFunction], device: torch.device,
+                    train_raw: Optional[np.ndarray] = None) -> GBDT:
+    """Boosting factory (boosting.cpp:41-101): gbdt, dart or rf; the legacy
+    boosting=goss spelling trains a GBDT with the GOSS sample strategy."""
+    b = config.boosting
+    if b == "dart":
+        from .dart import DART
+
+        return DART(config, train_set, objective, device, train_raw)
+    if b in ("rf", "random_forest"):
+        from .rf import RF
+
+        return RF(config, train_set, objective, device, train_raw)
+    if b in ("gbdt", "gbrt", "gbm", "goss"):
+        return GBDT(config, train_set, objective, device, train_raw)
+    Log.fatal("Unknown boosting type %s", b)

@@ -92,9 +92,9 @@ scatter-adds in float32) and read back with the tree's results.
 
 Not carried, each still to port (ROADMAP): the sharded grower and its
 data, voting and feature modes (``make_sharded_grow_fn``, Queue 1 item 8);
-the bf16 gh payload (item 6); ``snapshot_state`` (item 6.8, checkpoint
-writers); ``_record_carry_bytes``
-(item 11, perfmodel). The JAX package's
+the bf16 gh payload (item 6); ``_record_carry_bytes`` (item 11,
+perfmodel). ``snapshot_state`` adds the bin plane's dtype to the serial
+learner's checkpoint state. The JAX package's
 environment switches (LGBM_TPU_WAVE, LGBM_TPU_ADAPTIVE_WAVE,
 LGBM_TPU_GH_BF16, LGBM_TPU_HIST_SLOTS, LGBM_TPU_PALLAS_INTERPRET,
 LGBM_TPU_COMPACT_ALIAS) are not read: the wave width ceiling is a
@@ -117,6 +117,7 @@ from ..ops.split import FeatureMeta, SplitInfo, find_best_split
 from ..ops.wave import (DONE, HIST_ROWS, N_CUR, N_WAVES, REC, SCALARS, STORE,
                         FeatureTables, init_tree_state, replay_wave, select_wave,
                         split_select)
+from ..utils.log import Log
 from ..utils.timer import global_timer
 from .serial import SerialTreeLearner, _leaf_output_host
 
@@ -656,6 +657,23 @@ class DeviceTreeLearner(SerialTreeLearner):
             self._wave_cap = max(1, min(self.wave, int(config.num_leaves)))
             self.wave_k = min(self.wave_k, self._wave_cap)
             self._buffers = self._new_buffers()
+
+    def snapshot_state(self) -> dict:
+        """As the serial learner's, with the bin plane's dtype. The wave
+        width `wave_k` is not saved: it moves how much speculative work a
+        wave does, never a split (ROADMAP Queue 3), so a resumed run that
+        starts at the ceiling grows the same trees."""
+        st = super().snapshot_state()
+        st["bins_dtype"] = str(self.bins_dev.dtype)
+        return st
+
+    def restore_snapshot_state(self, st: dict) -> None:
+        want = st.get("bins_dtype")
+        if want is not None and want != str(self.bins_dev.dtype):
+            Log.fatal("Checkpoint was captured with a %s bin plane but the "
+                      "resume run built %s — refusing to resume", want,
+                      self.bins_dev.dtype)
+        super().restore_snapshot_state(st)
 
     def train(self, gh_ext: torch.Tensor, bag_indices: Optional[np.ndarray] = None) -> Tree:
         return self.finalize(self.train_async(gh_ext, bag_indices))

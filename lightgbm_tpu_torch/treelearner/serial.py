@@ -170,6 +170,46 @@ class SerialTreeLearner:
                 Log.warning("Could not open forced splits file %s",
                             config.forcedsplits_filename)
 
+    # ------------------------------------------------------------ checkpoint
+
+    def snapshot_state(self) -> dict:
+        """The learner's state that a bit-identical resume needs, as arrays
+        (the checkpoint sidecar's npz) and scalars (its JSON manifest): the
+        column sampler's MT19937 stream, the quantized gradients' key, and
+        the dataset's shape (num_data, group_bin_padded), which restore
+        refuses to cross."""
+        kind, keys, pos, has_gauss, cached = self.col_sampler.rng.get_state()
+        st = {
+            "rng_kind": kind,
+            "colsampler_keys": np.asarray(keys, dtype=np.uint32),
+            "colsampler_pos": int(pos),
+            "colsampler_has_gauss": int(has_gauss),
+            "colsampler_cached_gaussian": float(cached),
+            "num_data": int(self.num_data),
+            "group_bin_padded": int(self.group_bin_padded),
+        }
+        if self.quantized:
+            st["quant_key"] = np.asarray(self._quant_key, dtype=np.uint32)
+        return st
+
+    def restore_snapshot_state(self, st: dict) -> None:
+        if int(st.get("num_data", self.num_data)) != int(self.num_data) \
+                or int(st.get("group_bin_padded", self.group_bin_padded)) \
+                != int(self.group_bin_padded):
+            Log.fatal("Checkpoint learner state was captured on a different "
+                      "dataset shape (num_data=%s, group_bin_padded=%s vs "
+                      "%d, %d) — refusing to resume",
+                      st.get("num_data"), st.get("group_bin_padded"),
+                      self.num_data, self.group_bin_padded)
+        self.col_sampler.rng.set_state((
+            str(st["rng_kind"]),
+            np.asarray(st["colsampler_keys"], dtype=np.uint32),
+            int(st["colsampler_pos"]),
+            int(st["colsampler_has_gauss"]),
+            float(st["colsampler_cached_gaussian"])))
+        if self.quantized and "quant_key" in st:
+            self._quant_key = np.asarray(st["quant_key"], dtype=np.uint32).copy()
+
     def reset_config(self, config: Config) -> None:
         """Take a changed configuration (Booster.reset_parameter): the
         regularizers are written into params_dev in place, since the wave

@@ -30,7 +30,10 @@ gradients trains on the card as on the CPU through both learners, and the
 async pipeline on the card is bit-identical to the synchronous path. GOSS's
 selection on the card is bit-equal to the CPU's, and GOSS and categorical
 training (the categorical scan a CUDA graph a shape) on the card are
-byte-equal to the CPU's.
+byte-equal to the CPU's. DART (snapped gradients) and RF (labels on a 1/64
+grid) through the wave learner on the card are byte-equal to the CPU's; a
+checkpoint taken with the async pipeline running resumes on the card
+bit-identically; refit's leaf sums on the card equal the CPU's.
 """
 import numpy as np
 import pytest
@@ -55,6 +58,7 @@ from lightgbm_tpu_torch.ops.wave import (DONE, FeatureTables, replay_wave, selec
 from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner, _grow
 from test_torch_wave_cases import (WAVE_CASES, partition_inputs, wave_case, wave_children,
                                    wave_state, wave_tables_random)
+from torch_grid_data import grid_regression
 
 pytestmark = pytest.mark.gpu
 PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]
@@ -1429,3 +1433,108 @@ def test_constraint_lanes_on_card_byte_equal_to_cpu(cuda, tmp_path, extra, what)
     if what.startswith("monotone"):
         name = "find_best_split_constrained" + ("_int" if "quantized" in what else "")
         assert scan_cuda.launches[name] > before[name]
+
+
+def _card_and_cpu_boosters(params, X, y, wave=True):
+    """A Booster on the card and one on the CPU; with `wave` the CPU's
+    learner is the wave learner, as the card's is."""
+    out = []
+    for dev in ("cuda", "cpu"):
+        train = lt.Dataset(X, label=y)
+        bst = lt.Booster(params={**params, "device_type": dev}, train_set=train)
+        if wave and dev == "cpu":
+            bst._gbdt.tree_learner = DeviceTreeLearner(bst._gbdt.config, train._handle,
+                                                       torch.device("cpu"))
+        assert isinstance(bst._gbdt.tree_learner, DeviceTreeLearner) == wave
+        out.append(bst)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["standard", "xgboost"])
+def test_dart_on_card_byte_equal_to_cpu(cuda, mode):
+    """DART on snapped custom gradients through the wave learner: the drops
+    add earlier trees over every row by the bin-space traversal on the card;
+    drop sets and model text equal to the CPU's."""
+    rng = np.random.RandomState(45)
+    X = rng.normal(size=(20000, 10))
+    y = (X[:, 0] - 0.5 * X[:, 2] + 0.3 * rng.normal(size=20000) > 0).astype(np.float64)
+    params = {"boosting": "dart", "objective": "none", "num_leaves": 31, "verbosity": -1,
+              "drop_rate": 0.5, "skip_drop": 0.2, "learning_rate": 0.3,
+              "xgboost_dart_mode": mode == "xgboost"}
+    texts, drops = [], []
+    for bst in _card_and_cpu_boosters(params, X, y):
+        seen = []
+        for _ in range(6):
+            bst.update(fobj=_snapped_logloss)
+            seen.append(list(bst._gbdt.drop_index))
+        texts.append(bst.model_to_string())
+        drops.append(seen)
+    assert drops[0] == drops[1] and sum(len(d) for d in drops[0]) > 0
+    assert texts[0] == texts[1]
+
+
+def test_rf_on_card_byte_equal_to_cpu(cuda):
+    """RF on L2 with labels on a 1/64 grid through the wave learner, bagging
+    0.5: the constant gradients stay on the card, and the model text and the
+    running-average train score equal the CPU's."""
+    X, y = grid_regression(46, n=20000, f=10)
+    params = {"boosting": "rf", "objective": "regression", "num_leaves": 31, "verbosity": -1,
+              "bagging_fraction": 0.5, "bagging_freq": 1}
+    card, cpu = _card_and_cpu_boosters(params, X, y)
+    for bst in (card, cpu):
+        for _ in range(5):
+            bst.update()
+    assert card._gbdt._fixed_grads.device.type == "cuda"
+    assert card.model_to_string() == cpu.model_to_string()
+    assert torch.equal(card._gbdt.score.cpu(), cpu._gbdt.score)
+
+
+def test_checkpoint_resume_on_card_bit_identical(cuda, tmp_path):
+    """A checkpoint taken while the async pipeline has a tree pending
+    (learning rate 0.125) flushes it; the run resumed from it on the card
+    is byte-equal to the uninterrupted run, its train score bit-equal."""
+    from lightgbm_tpu_torch.checkpoint import checkpoint_callback, load_checkpoint
+
+    rng = np.random.RandomState(47)
+    X = rng.normal(size=(50000, 12))
+    y = (X[:, 0] - 0.7 * X[:, 1] + 0.3 * rng.normal(size=50000) > 0).astype(np.float64)
+    params = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.125,
+              "metric": "None", "verbosity": -1}
+    path = str(tmp_path / "ckpt.txt")
+    cb = checkpoint_callback(lambda it: path if it == 5 else str(tmp_path / f"c{it}.txt"),
+                             period=5)
+    straight = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=10,
+                        callbacks=[cb])
+    state = load_checkpoint(path)
+    assert state is not None and state.iteration == 5
+    assert state.manifest["world"]["device_kinds"] == [torch.cuda.get_device_name(0)]
+    resumed = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=10,
+                       init_model=path)
+    assert resumed._gbdt._async_enabled()
+    assert resumed.model_to_string() == straight.model_to_string()
+    assert torch.equal(resumed._gbdt.score, straight._gbdt.score)
+
+
+def test_refit_leaf_sums_on_card_equal_plain(cuda):
+    """Refit's leaf sums (ops/histogram.py:leaf_sums_fixed, exact in fixed
+    point: an int64 scatter-add, whose order cannot change a bit) on the
+    card equal the CPU's on random gradients, and a refit of an L2 model on
+    the card (no transcendental in the gradients) equals the CPU's refit."""
+    from lightgbm_tpu_torch.ops.histogram import leaf_sums_fixed
+
+    rng = np.random.RandomState(48)
+    n, L = 300000, 255
+    gh = torch.from_numpy(np.stack([rng.normal(size=n), rng.uniform(0, 1, size=n)], 1)
+                          .astype(np.float32))
+    leaf = torch.from_numpy(rng.randint(0, L, size=n))
+    want = leaf_sums_fixed(gh, None, leaf, L)
+    got = leaf_sums_fixed(gh.to(cuda), None, leaf.to(cuda), L)
+    assert torch.equal(got.cpu(), want)
+    X, y = grid_regression(49, n=20000, f=10)
+    params = {"objective": "regression", "num_leaves": 31, "verbosity": -1}
+    text = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
+                    num_boost_round=5).model_to_string()
+    X2, y2 = grid_regression(50, n=20000, f=10)
+    refits = [lt.Booster(params={**params, "device_type": dev}, model_str=text)
+              .refit(X2, y2, decay_rate=0.5).model_to_string() for dev in ("cuda", "cpu")]
+    assert refits[0] == refits[1] != text

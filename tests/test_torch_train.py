@@ -198,8 +198,6 @@ def test_wave_learner_configuration_is_refused_on_the_card(monkeypatch):
 
 
 REFUSED = [
-    ({"boosting": "dart"}, "dart"),
-    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1}, "rf"),
     ({"tree_learner": "data"}, "distributed learners"),
 ]
 
@@ -218,10 +216,3 @@ def test_streamed_learner_is_refused(monkeypatch):
     with pytest.raises(LightGBMError, match="streamed learner"):
         lt.train(_params("binary", 0.8), lt.Dataset(X, label=y), num_boost_round=1)
 
-
-def test_continued_training_is_refused():
-    X, y = _data(with_nan=False)
-    bst = lt.train(_params("binary", 0.8), lt.Dataset(X, label=y), num_boost_round=1)
-    with pytest.raises(LightGBMError, match="init_model"):
-        lt.train(_params("binary", 0.8), lt.Dataset(X, label=y), num_boost_round=1,
-                 init_model=bst)
