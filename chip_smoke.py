@@ -19,7 +19,10 @@ Phases (any failure exits non-zero before the result line):
             the traversal on a 65,536-row sample (~1% NaN and exact zeros)
             and on serving batches of 64, 512 and 4096 rows (both of its
             plans), leaf indices exactly equal, raw scores bit-equal, two
-            launches bit-equal, then its timings at the main path's shapes.
+            launches bit-equal, then its timings at the main path's shapes;
+            its accumulate mode (a block of 10 trees added onto running
+            sums, prediction early stopping's step) bit-equal to the plain
+            version on a 262,144-row chunk and the serving batch sizes.
             On the HIGGS-width training data (1,048,576 rows x 28 features
             x 255 bins, made from --seed): the leaf histogram at the root,
             on a ~100,000-row and a ~4,000-row leaf (and the 100,000 rows
@@ -60,7 +63,7 @@ Phases (any failure exits non-zero before the result line):
             as the learners call them, beside the parent's sequence of
             PyTorch glue and kernels for the same work (device time and
             host time a call).
-5. exact    training on 65,536 rows with grid-snapped custom gradients, 3
+5. exact    training on 32,768 rows with grid-snapped custom gradients, 2
             rounds: the serial learner (feature_fraction_bynode=0.8) on the
             card and with device_type=cpu, and the wave learner on the card
             against a CPU GBDT whose learner is the wave learner, without and
@@ -68,7 +71,12 @@ Phases (any failure exits non-zero before the result line):
 6. booster  the serving path, part 1: Booster(model_file=...) on the default
             device predicts 1,048,576 rows (auto-streamed in 262,144-row
             chunks); the streamed raw scores equal the CPU Booster's on
-            both sides of every chunk boundary; leaf indices on a slice.
+            both sides of every chunk boundary; leaf indices on a slice;
+            the same rows with prediction early stopping (binary margin,
+            pred_early_stop_freq 10, margin 4): the share of rows stopped,
+            the trees walked a row and the rows/s beside the full predict's,
+            the first rows bit-equal to the CPU Booster's early stop, an
+            infinite margin bit-equal to the full prediction.
 7. serving  the serving path, part 2: PredictionService + HTTP front with the
             bench's settings, 256 requests of 64 rows from 8 threads, JSON
             and binary wire, every answer bit-equal to Booster.predict.
@@ -99,7 +107,7 @@ Phases (any failure exits non-zero before the result line):
 10. multiclass  Covertype's shapes from --seed (581,012 x 54: ten integer
             columns in Covertype's ranges, 4 + 40 one-hot columns that EFB
             bundles, 7 classes at Covertype's shares), multiclass, 255
-            leaves, learning_rate 0.1: at 16,384 rows the card's model text
+            leaves, learning_rate 0.1: at 8,192 rows the card's model text
             byte-equal to the CPU's on snapped softmax gradients through both
             learners; then 10 rounds (70 trees) through the wave learner and
             3 with feature_fraction_bynode=0.8 through the serial one, with
@@ -136,7 +144,7 @@ Phases (any failure exits non-zero before the result line):
             on the binary logloss gradients computed on the host (the card's
             torch.exp is not the CPU's, so the built-in objective's
             gradients differ in the last bit) and renewal on on snapped
-            ones, at 65,536 rows (3 rounds), and the same at 16,384 rows of
+            ones, at 32,768 rows (2 rounds), and the same at 8,192 rows of
             Covertype's shapes (7 classes, 63 leaves, 2 rounds). Then phase
             8's data through the wave learner (10 rounds) and the serial one
             (3 rounds, feature_fraction_bynode=0.8), each as phases 8 and 9
@@ -147,7 +155,7 @@ Phases (any failure exits non-zero before the result line):
 
 13. goss    GOSS (data_sample_strategy=goss, top_rate 0.2, other_rate 0.1)
             on phase 8's data at learning rate 0.1, so rounds 1-10 are its
-            warm-up and rounds 11-15 sample: exact first (65,536 rows, 63
+            warm-up and rounds 11-15 sample: exact first (32,768 rows, 63
             leaves, 8 rounds at learning rate 0.5 on snapped gradients, which the
             multiplier 8 keeps snapped; card and CPU model texts byte-equal
             through both learners), then 15 rounds through the wave learner
@@ -194,7 +202,7 @@ Phases (any failure exits non-zero before the result line):
             equal to predict(raw_score=True) within 1e-5 on the 1,048,576
             rows, valid AUC rising, every linear score through the
             traversal's leaf mode. Exact first: each run, and run 1
-            quantized, at 65,536 rows, 63 leaves, 3 rounds on host gradients,
+            quantized, at 32,768 rows, 63 leaves, 2 rounds on host gradients,
             card and CPU model texts byte-equal. The split kernel's
             constrained mode bit-equal to its plain version on the root and
             two leaves whose bounds bind, its device time beside the
@@ -204,7 +212,7 @@ Phases (any failure exits non-zero before the result line):
             and linear_fit, and the busy share and device-to-host copies of
             one more profiled round.
 16. life cycle  DART, random forests and the model's life cycle on phase
-            8's data through the wave learner. Exact first (65,536 rows, 63
+            8's data through the wave learner. Exact first (32,768 rows, 63
             leaves, 4 rounds; card and CPU model texts byte-equal): DART on
             snapped gradients (drop_rate 0.5, skip_drop 0.2), RF on labels on
             a 1/64 grid whose mean is 1, and a run resumed from a checkpoint
@@ -226,6 +234,28 @@ Phases (any failure exits non-zero before the result line):
             (check every 2 rounds, NaN in 5% of the rows' gradients at round
             5, 8 updates): predictions finite. Each run prints its
             s/iteration; the phase its launches per kernel and its seconds.
+17. ranking learning to rank at MSLR-WEB30K's shapes from --seed (136
+            dense features, labels 0-4 at the release's shares, queries of
+            ~120 documents on average and one of 1,251; 1,048,576 rows cut
+            from 3.77 M, and a 65,536-row validation set of its own queries)
+            with LightGBM's ranking settings (255 leaves, learning rate 0.1,
+            NDCG at 1, 3, 5, 10). Exact first, on 65,536 rows of whole
+            queries: the card's lambdarank (plain and position-debiased) and
+            rank_xendcg gradients within 1e-5 of the same objectives on the
+            CPU (xendcg rtol 1e-5 / atol 1e-7), 2 iterations; on snapped
+            lambdarank gradients computed on the host, card and CPU model
+            texts byte-equal through both learners (8,192 rows of whole
+            queries, 63 leaves, 2 rounds).
+            Each objective's gradient step at full width: card time and peak
+            memory. Then lambdarank, 10 rounds through the wave learner
+            (valid NDCG@10 rising from round 1 to 10) and 3 through the
+            serial one; position-debiased lambdarank (10 position ids, a
+            document's shown rank), 3 rounds; rank_xendcg, 5 rounds;
+            cross_entropy on phase 8's rows with labels in [0, 1], 5 rounds
+            (the valid cross entropy falling); LGBMRanker.fit and predict on
+            the 65,536-row cut. Each run prints s/iteration (the first
+            apart), the valid NDCG@10 by round and the busy share of one
+            more profiled round.
 
 The Booster surface: after phase 8, dump_model parses and its leaf values
 and thresholds equal the model text's, feature_importance ("split" and
@@ -235,9 +265,10 @@ callback.reset_parameter halving the rate after 10 rounds, pipeline on and
 off, has a byte-equal model text and a bit-equal final train score.
 
 The launch counters are set to 0 just before phase 6 and read just after
-phase 7 (the serving path), and again just before and after each of phases
+phase 7 (the serving and predict paths, prediction early stopping's
+accumulate mode included), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
-of phases 13, 14, 15 and 16 (the training paths): every kernel of each path must
+of phases 13, 14, 15, 16 and 17 (the training paths): every kernel of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -280,7 +311,9 @@ SERVE_BATCHES = (64, 512, 4096)  # one request, a few coalesced, a full batch
 # the training path: HIGGS width (bench.py:7-13) with per-node sampling
 TRAIN_ROWS, VALID_ROWS, LEAF_ROWS = 1_048_576, 65_536, 100_000
 SMALL_LEAF_ROWS = 4_000  # a typical serial leaf: 1,048,576 rows over 255 leaves
-TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 65_536, 3
+# the exact card = CPU runs of phases 5, 12, 13, 15 and 16 (32,768 rows and
+# 2 rounds since phase 17 came: their CPU halves are most of the smoke's time)
+TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 32_768, 2
 SERIAL_ROUNDS = 10  # the serial learner's path, after the wave learner's
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "feature_fraction_bynode": 0.8,
@@ -390,7 +423,7 @@ COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7
 COVTYPE_CLASS_ROWS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
 COVTYPE_MAJORITY_ERROR = 1.0 - max(COVTYPE_CLASS_ROWS) / COVTYPE_ROWS  # 0.5124
 MC_VALID_ROWS, MC_ROUNDS, MC_SERIAL_ROUNDS = 65_536, 10, 3
-MC_EXACT_ROWS, MC_EXACT_ROUNDS, MC_EXACT_LEAVES = 16_384, 2, 63
+MC_EXACT_ROWS, MC_EXACT_ROUNDS, MC_EXACT_LEAVES = 8_192, 2, 63
 MC_PARAMS = {"objective": "multiclass", "num_class": 7, "num_leaves": 255, "max_bin": 255,
              "learning_rate": 0.1, "metric": "multi_logloss,multi_error",
              "is_provide_training_metric": True, "verbosity": -1}
@@ -2240,12 +2273,12 @@ def check_quantized_modes(dev, core, learner, got, gh_q, scale):
     return timings, bounds
 
 
-def _exact_card_cpu(lt, X, y, params, rounds, learner, fobj=None):
+def _exact_card_cpu(lt, X, y, params, rounds, learner, fobj=None, group=None):
     """The card's and the CPU's model texts of one run, through `learner`
     ("wave": lt on the card against a CPU GBDT whose learner is the wave
     learner; "serial": feature_fraction_bynode 0.8 on both), on the custom
-    objective `fobj` or, without one, on params' own, and the two runs'
-    seconds and trees' leaf counts."""
+    objective `fobj` or, without one, on params' own (query sizes `group`
+    for a ranking run), and the two runs' seconds and trees' leaf counts."""
     from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
 
     extra = {"feature_fraction_bynode": 0.8} if learner == "serial" else {}
@@ -2254,7 +2287,7 @@ def _exact_card_cpu(lt, X, y, params, rounds, learner, fobj=None):
     out = {}
     for where in ("card", "cpu"):
         t = time.perf_counter()
-        ds = lt.Dataset(X, label=y)
+        ds = lt.Dataset(X, label=y, group=group)
         bst = lt.Booster({**params, **extra,
                           **({"device_type": "cpu"} if where == "cpu" else {})}, ds)
         if where == "cpu" and learner == "wave":
@@ -2852,7 +2885,7 @@ def drive_categorical(lt, libs, seed, tag):
 # phase 15: monotone and interaction constraints, forced splits, CEGB and
 # linear trees, through the serial learner
 
-LANE_ROUNDS, LANE_EXACT_ROUNDS = 5, 3
+LANE_ROUNDS, LANE_EXACT_ROUNDS = 5, 2
 # the directions of higgs_rows' label model: +0.8 x0, -0.6 x1, +0.3 x21,
 # -0.7 x25 (LightGBM docs, Parameters: monotone_constraints)
 LANE_MONOTONE = {0: 1, 1: -1, 21: 1, 25: -1}
@@ -3548,6 +3581,361 @@ def drive_lifecycle(lt, libs, train_set, valid, X_train, y_train, baseline, seed
     return launches, report
 
 
+# MSLR-WEB30K's shapes (Qin & Liu, "Introducing LETOR 4.0 Datasets",
+# arXiv:1306.2597, and the MSLR-WEB30K release): 136 dense features, labels
+# 0-4 at about the release's shares, queries of ~120 documents on average,
+# the longest 1,251; 1,048,576 rows cut from its 3.77 M. LightGBM's ranking
+# settings (docs/Experiments.rst): 255 leaves, learning rate 0.1, NDCG at
+# 1, 3, 5 and 10.
+MSLR_FEATURES, MSLR_MAX_QUERY = 136, 1251
+MSLR_ROWS, MSLR_VALID_ROWS = 1_048_576, 65_536
+MSLR_LABEL_SHARES = (0.514, 0.325, 0.134, 0.019, 0.008)
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "metric": "ndcg", "eval_at": [1, 3, 5, 10],
+               "verbosity": -1}
+RANK_ROUNDS, RANK_SERIAL_ROUNDS, RANK_POS_ROUNDS, RANK_XE_ROUNDS, XENT_ROUNDS = 10, 3, 3, 5, 5
+RANK_POSITIONS = 10  # position ids of the debiased run: a document's shown rank, capped
+# the card's gradients against the CPU's on RANK_GRAD_ROWS rows of whole
+# queries; model texts card = CPU on RANK_EXACT_ROWS (136 features make the
+# CPU's runs ~5x phase 5's a row); the estimator on RANK_GRAD_ROWS
+RANK_GRAD_ROWS, RANK_EXACT_ROWS, RANK_EXACT_ROUNDS, RANK_RANKER_ROUNDS = 65_536, 8_192, 2, 10
+# the card's gradients against the plain objective's on the CPU: the card's
+# exp, log and log2 are not the CPU's, and its sums run in another order
+RANK_GRAD_ATOL, XENDCG_RTOL, XENDCG_ATOL = 1e-5, 1e-5, 1e-7
+RANK_REQUIRED = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+                 "partition_scatter", "relabel_rows", "find_best_split",
+                 "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
+                 "histogram", "row_partition_decide", "row_partition_scatter",
+                 "predict_forest_raw")
+# prediction early stopping in phase 6: the HIGGS-profile model, binary
+# margin 2 |score|, checked every ES_FREQ iterations
+ES_FREQ, ES_MARGIN, ES_CPU_ROWS = 10, 4.0, 1024
+
+
+def mslr_rows(seed: int, n: int, longest: bool = True):
+    """MSLR-WEB30K-shaped rows from a seed: (X [n, 136] float32, labels
+    0-4, query sizes). Query sizes are log-normal around a mean of ~120
+    documents, capped at MSLR_MAX_QUERY (the first query that long when
+    `longest`); each document has a latent relevance (a query effect plus
+    its own), labels cut from it at MSLR_LABEL_SHARES, and the features mix
+    noisy views of it (BM25- and TF-IDF-like columns), skewed counts
+    (exp of a normal) and small integer columns."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.round(rng.lognormal(4.5, 0.75, size=n // 40 + 2)), 1,
+                    MSLR_MAX_QUERY).astype(np.int64)
+    if longest:
+        sizes[0] = MSLR_MAX_QUERY
+    cum = np.cumsum(sizes)
+    k = int(np.searchsorted(cum, n))
+    sizes = sizes[:k + 1]
+    sizes[-1] -= int(cum[k] - n)
+    query = np.repeat(np.arange(len(sizes)), sizes)
+    rel = (rng.normal(0.0, 0.6, size=len(sizes))[query]
+           + rng.standard_normal(n, dtype=np.float32))
+    X = rng.standard_normal((n, MSLR_FEATURES), dtype=np.float32)
+    weight = rng.uniform(0.2, 1.0, size=48).astype(np.float32)
+    X[:, :48] += rel[:, None] * weight
+    np.exp(X[:, 48:96], out=X[:, 48:96])
+    X[:, 96:] = np.floor(np.abs(X[:, 96:]) * 3)
+    noisy = rel + rng.normal(0.0, 0.5, size=n)
+    cuts = np.quantile(noisy, np.cumsum(MSLR_LABEL_SHARES)[:-1])
+    y = np.searchsorted(cuts, noisy).astype(np.float64)
+    return X, y, sizes
+
+
+def shown_positions(sizes):
+    """Each document's rank in its query's list, capped at RANK_POSITIONS - 1."""
+    return np.concatenate([np.minimum(np.arange(s), RANK_POSITIONS - 1) for s in sizes])
+
+
+def query_cut(sizes, n):
+    """The whole queries that fit in the first n rows: (rows, their sizes)."""
+    cum = np.cumsum(sizes)
+    k = int(np.searchsorted(cum, n, side="right"))
+    return int(cum[k - 1]), sizes[:k]
+
+
+class SnappedLambdarank:
+    """lambdarank gradients of the port's objective on the host's CPU,
+    snapped to a 2**-8 grid (hessians at least 2**-8): every histogram sum
+    of them is exact in float32, so the card and the CPU grow the same
+    trees whatever order they sum in."""
+
+    def __init__(self):
+        self.obj = None
+
+    def __call__(self, preds, dataset):
+        from lightgbm_tpu_torch.config import Config
+        from lightgbm_tpu_torch.io.metadata import Metadata
+        from lightgbm_tpu_torch.objectives import create_objective
+
+        if self.obj is None:
+            md = Metadata(len(preds))
+            md.set_label(dataset.get_label())
+            md.set_query(dataset.get_group())
+            self.obj = create_objective("lambdarank", Config({"objective": "lambdarank"}))
+            self.obj.init(md, len(preds), torch.device("cpu"))
+        g, h = self.obj.get_gradients(torch.from_numpy(np.array(preds, dtype=np.float32)))
+        return (np.round(g.numpy().astype(np.float64) * 256) / 256,
+                np.round(np.maximum(h.numpy().astype(np.float64), 1 / 256) * 256) / 256)
+
+
+def _objective_pair(name, params, y, sizes, positions=None, card_only=False):
+    """The port's objective `name` bound to the same labels and queries on
+    the card and on the CPU (the card alone with `card_only`)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+
+    md = Metadata(len(y))
+    md.set_label(y)
+    md.set_query(sizes)
+    if positions is not None:
+        md.set_positions(positions)
+    out = []
+    for dev in (DEVICE,) if card_only else (DEVICE, "cpu"):
+        obj = create_objective(name, Config({"objective": name, **params}))
+        obj.init(md, len(y), torch.device(dev))
+        out.append(obj)
+    return out
+
+
+def check_rank_gradients(y, sizes, seed):
+    """The card's lambdarank (plain and position-debiased, 2 iterations)
+    and rank_xendcg (2 iterations) gradients on RANK_GRAD_ROWS rows of
+    whole queries against the same objectives run on the CPU. Returns the
+    largest gaps."""
+    rows, cut = query_cut(sizes, RANK_GRAD_ROWS)
+    y = y[:rows]
+    rng = np.random.RandomState(seed)
+    score = (rng.normal(size=rows) * 2).astype(np.float32)
+    gaps = {}
+    cases = (("lambdarank", {}, None, RANK_GRAD_ATOL, 0.0),
+             ("lambdarank", {"lambdarank_position_bias_regularization": 0.1},
+              shown_positions(cut), RANK_GRAD_ATOL, 0.0),
+             ("rank_xendcg", {}, None, XENDCG_ATOL, XENDCG_RTOL))
+    for name, params, positions, atol, rtol in cases:
+        card, cpu = _objective_pair(name, params, y, cut, positions)
+        s = score.copy()
+        worst = 0.0
+        for _ in range(2):
+            g, h = card.get_gradients(torch.from_numpy(s).to(DEVICE))
+            rg, rh = cpu.get_gradients(torch.from_numpy(s))
+            check(g.device.type == torch.device(DEVICE).type,
+                  f"{name}: the gradients left the card")
+            for a, b in ((g.cpu(), rg), (h.cpu(), rh)):
+                d = (a.double() - b.double()).abs()
+                check(bool((d <= atol + rtol * b.double().abs()).all()),
+                      f"{name} ({'debiased' if positions is not None else 'plain'}): card "
+                      f"gradients {float(d.max()):.3g} from the CPU's")
+                worst = max(worst, float(d.max()))
+            s = s - rg.numpy()
+        key = name + ("_debiased" if positions is not None else "")
+        gaps[key] = worst
+    print(f"exact (ranking gradients): {rows} rows in {len(cut)} queries, 2 iterations: the "
+          f"card's lambdarank, position-debiased lambdarank and rank_xendcg gradients and "
+          f"hessians within {RANK_GRAD_ATOL:g} (xendcg rtol {XENDCG_RTOL:g} / atol "
+          f"{XENDCG_ATOL:g}) of the CPU's; largest gaps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+    return gaps
+
+
+def gradient_step(y, sizes, positions, tag):
+    """The full-width gradient step of each ranking objective on the card:
+    its device time (CUDA events, 3 calls after a warm-up) and the peak
+    memory it allocates above what it holds."""
+    out = {}
+    rng = np.random.RandomState(17)
+    score = torch.from_numpy((rng.normal(size=len(y)) * 2).astype(np.float32)).to(DEVICE)
+    for label, name, params, pos in (
+            ("lambdarank", "lambdarank", {}, None),
+            ("lambdarank, position-debiased", "lambdarank",
+             {"lambdarank_position_bias_regularization": 0.1}, positions),
+            ("rank_xendcg", "rank_xendcg", {}, None)):
+        obj = _objective_pair(name, params, y, sizes, pos, card_only=True)[0]
+        obj.get_gradients(score)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: obj.get_gradients(score), 3)
+        peak = torch.cuda.max_memory_allocated() - base
+        buckets = ", ".join(f"{b['L']}:{len(b['qids'])}" for b in obj.layout.buckets)
+        print(f"{tag} gradient step ({label}): {len(y)} rows in {len(sizes)} queries "
+              f"(bucket length: queries {buckets}): {ms:.2f} ms of card time a call (CUDA "
+              f"events), peak memory {peak / 2**20:.1f} MiB above the objective's own")
+        out[label] = (ms, peak)
+        del obj
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_run(lt, params, train_set, valid_set, rounds, metric_key="ndcg@10"):
+    """lt.train with a stamp after each round and the validation set:
+    (booster, s/iteration of the rounds after the first, first-round s,
+    wall s, the valid metric by round)."""
+    stamps, evals = [], {}
+    t = time.perf_counter()
+    bst = lt.train(dict(params), train_set, num_boost_round=rounds, valid_sets=[valid_set],
+                   valid_names=["valid"],
+                   callbacks=[lambda env: stamps.append(time.perf_counter()),
+                              lt.record_evaluation(evals)])
+    wall = time.perf_counter() - t
+    per_iter = np.diff([t] + stamps)
+    steady = float(np.mean(per_iter[1:])) if len(per_iter) > 1 else float(per_iter[0])
+    return bst, steady, float(per_iter[0]), wall, evals["valid"][metric_key]
+
+
+def _busy(bst, tag, label):
+    busy = device_busy_share(bst.update)
+    print(f"{tag} {label}: one more round (torch.profiler): "
+          + ("busy share not measured (the profiler saw no device time)" if busy is None else
+             f"{busy[0] * 1e3:.1f} ms of device operations in {busy[1] * 1e3:.1f} ms wall, "
+             f"{busy[0] / busy[1]:.1%} busy; top kernels: {busy[2]}"))
+    return None if busy is None else busy[0] / busy[1]
+
+
+def drive_ranking(lt, libs, higgs_set, higgs_valid, seed, tag):
+    """Phase 17: learning to rank at MSLR-WEB30K's shapes and cross entropy
+    at HIGGS width (phase 8's binned data `higgs_set` and its validation
+    rows, on soft labels for the run). Returns (the launches of the phase's
+    full-width runs, the report)."""
+    from lightgbm_tpu_torch.sklearn import LGBMRanker
+    from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
+
+    t_phase = time.perf_counter()
+    report = {}
+    t = time.perf_counter()
+    X, y, sizes = mslr_rows(seed + 17, MSLR_ROWS)
+    Xv, yv, sv = mslr_rows(seed + 18, MSLR_VALID_ROWS, longest=False)
+    t_make = time.perf_counter() - t
+    t = time.perf_counter()
+    train_set = lt.Dataset(X, label=y, group=sizes,
+                           params={"max_bin": RANK_PARAMS["max_bin"]}).construct()
+    valid_set = train_set.create_valid(Xv, label=yv, group=sv)
+    t_bin = time.perf_counter() - t
+    shares = np.bincount(y.astype(np.int64), minlength=5) / len(y)
+    print(f"ranking data (MSLR-WEB30K shapes): {len(y)} x {X.shape[1]} rows in {len(sizes)} "
+          f"queries (mean {sizes.mean():.1f}, longest {sizes.max()}), labels 0-4 at "
+          + "/".join(f"{s:.3f}" for s in shares)
+          + f"; validation {len(yv)} rows in {len(sv)} queries; made in {t_make:.1f} s, "
+          f"binned in {t_bin:.1f} s")
+
+    # ---- exact: the card's gradients and trees against the CPU's
+    report["gradient_gaps"] = check_rank_gradients(y, sizes, seed + 19)
+    t = time.perf_counter()
+    rows, cut = query_cut(sizes, RANK_EXACT_ROWS)
+    snapped = {**RANK_PARAMS, "num_leaves": EXACT_LEAVES, "metric": "None"}
+    for learner in ("wave", "serial"):
+        out = _exact_card_cpu(lt, X[:rows], y[:rows], snapped, RANK_EXACT_ROUNDS, learner,
+                              SnappedLambdarank(), group=cut)
+        check(out["card"][0] == out["cpu"][0],
+              f"exact lambdarank ({learner}): the card's model text differs from the CPU's, "
+              + first_difference(out["card"][0], out["cpu"][0]))
+    print(f"exact (lambdarank): {rows} rows in {len(cut)} queries, {EXACT_LEAVES} leaves, "
+          f"{RANK_EXACT_ROUNDS} rounds on snapped lambdarank gradients computed on the host: "
+          f"card and CPU model texts byte-equal through the wave and the serial learner "
+          f"({time.perf_counter() - t:.1f} s)")
+    report["gradient_step"] = gradient_step(y, sizes, shown_positions(sizes), tag)
+
+    # ---- the full-width runs, their launches counted
+    for lib in libs:
+        lib.reset_launches()
+    runs = {}
+    for label, params, rounds in (
+            ("lambdarank (wave)", RANK_PARAMS, RANK_ROUNDS),
+            ("lambdarank (serial, feature_fraction_bynode 0.8)",
+             {**RANK_PARAMS, "feature_fraction_bynode": 0.8}, RANK_SERIAL_ROUNDS),
+            ("rank_xendcg (wave)", {**RANK_PARAMS, "objective": "rank_xendcg"},
+             RANK_XE_ROUNDS)):
+        bst, steady, first, wall, ndcg = _rank_run(lt, params, train_set, valid_set, rounds)
+        wave = isinstance(bst._gbdt.tree_learner, DeviceTreeLearner)
+        check(wave == ("serial" not in label), f"{label}: trained with the wrong learner")
+        check(all(np.isfinite(ndcg)) and 0.0 < ndcg[-1] <= 1.0, f"{label}: NDCG@10 {ndcg}")
+        print(f"{tag} {label}: {rounds} rounds in {wall:.2f} s; s/iteration first "
+              f"{first:.3f}, mean of the rest {steady:.4f}; valid NDCG@10 by round "
+              + " ".join(f"{v:.5f}" for v in ndcg))
+        busy = _busy(bst, tag, label)
+        runs[label] = {"s_iter": steady, "first": first, "ndcg10": ndcg, "busy": busy}
+        if label.startswith("lambdarank (wave)"):
+            check(ndcg[-1] > ndcg[0], f"lambdarank: valid NDCG@10 did not rise from round 1 "
+                                      f"to round {rounds}: {ndcg}")
+            wave_bst = bst
+    # position-debiased lambdarank: the binned data takes the positions
+    train_set.set_position(shown_positions(sizes))
+    bst, steady, first, wall, ndcg = _rank_run(
+        lt, {**RANK_PARAMS, "lambdarank_position_bias_regularization": 0.1}, train_set,
+        valid_set, RANK_POS_ROUNDS)
+    biases = bst._gbdt.objective._pos_biases
+    check(biases.device.type == torch.device(DEVICE).type
+          and bool(torch.isfinite(biases).all()),
+          "position debias: biases not finite on the card")
+    print(f"{tag} lambdarank, position-debiased ({RANK_POSITIONS} position ids): "
+          f"{RANK_POS_ROUNDS} rounds in {wall:.2f} s; s/iteration first {first:.3f}, mean of "
+          f"the rest {steady:.4f}; valid NDCG@10 by round " + " ".join(f"{v:.5f}" for v in ndcg)
+          + "; position biases " + " ".join(f"{v:.4f}" for v in biases.cpu().numpy()))
+    busy = _busy(bst, tag, "lambdarank, position-debiased")
+    runs["lambdarank, position-debiased"] = {"s_iter": steady, "first": first,
+                                             "ndcg10": ndcg, "busy": busy}
+    del bst
+    # cross entropy at HIGGS width on soft labels (phase 8's binned rows,
+    # their labels swapped for the run): the binary label pulled toward 1/2
+    # by an amount that varies with the first feature
+    def soft(X_, y_):
+        return 1.0 / (1.0 + np.exp(-(np.asarray(y_, dtype=np.float64) * 2.0 - 1.0)
+                                   * np.abs(np.asarray(X_[:, 0], dtype=np.float64))))
+
+    X_higgs, y_higgs = higgs_set.get_data(), higgs_set.get_label()
+    p = soft(X_higgs, y_higgs)
+    higgs_set.set_label(p)
+    xent_params = {**WAVE_PARAMS, "objective": "cross_entropy", "metric": "cross_entropy"}
+    bst, steady, first, wall, xent = _rank_run(
+        lt, xent_params, higgs_set,
+        higgs_set.create_valid(higgs_valid[0], label=soft(*higgs_valid)), XENT_ROUNDS,
+        metric_key="cross_entropy")
+    check(isinstance(bst._gbdt.tree_learner, DeviceTreeLearner), "cross_entropy: not the "
+          "wave learner")
+    check(xent[-1] < xent[0], f"cross_entropy: valid cross entropy did not fall: {xent}")
+    print(f"{tag} cross_entropy (wave, HIGGS rows with labels in [0, 1]): "
+          f"{len(p)} rows, {XENT_ROUNDS} rounds in {wall:.2f} s; s/iteration first "
+          f"{first:.3f}, mean of the rest {steady:.4f}; valid cross entropy by round "
+          + " ".join(f"{v:.5f}" for v in xent))
+    busy = _busy(bst, tag, "cross_entropy")
+    higgs_set.set_label(y_higgs)
+    runs["cross_entropy"] = {"s_iter": steady, "first": first, "xent": xent, "busy": busy}
+    del bst
+    # the ranker estimator on a cut of whole queries
+    rows, cut = query_cut(sizes, RANK_GRAD_ROWS)
+    t = time.perf_counter()
+    ranker = LGBMRanker(n_estimators=RANK_RANKER_ROUNDS, num_leaves=63, learning_rate=0.1)
+    ranker.fit(X[:rows], y[:rows], group=cut, eval_set=[(Xv, yv)], eval_group=[sv],
+               eval_at=[10])
+    fit_s = time.perf_counter() - t
+    pred = ranker.predict(Xv)
+    check(isinstance(ranker.booster_._gbdt.tree_learner, DeviceTreeLearner),
+          "LGBMRanker: not the wave learner on the card")
+    check(pred.shape == (len(yv),) and bool(np.isfinite(pred).all()),
+          "LGBMRanker: predictions not finite of the valid set's shape")
+    check(bool(np.array_equal(pred, ranker.booster_.predict(Xv))),
+          "LGBMRanker: predict differs from its booster's")
+    ndcg = ranker.evals_result_["valid_0"]["ndcg@10"]
+    print(f"{tag} LGBMRanker: fit {RANK_RANKER_ROUNDS} rounds on {rows} rows in {len(cut)} "
+          f"queries (63 leaves) in {fit_s:.2f} s, predict {len(yv)} rows; valid NDCG@10 "
+          f"{ndcg[0]:.5f} -> {ndcg[-1]:.5f}")
+    report["ranker"] = {"fit_s": fit_s, "ndcg10": ndcg}
+
+    launches = {}
+    for lib in libs:
+        launches.update(lib.launches)
+    for name in RANK_REQUIRED:
+        check(launches[name] > 0, f"ranking path: kernel {name} never launched")
+    print(f"ranking path launches: {launches}")
+    report["runs"] = runs
+    report["wave_booster"] = wave_bst
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} phase 17: {report['seconds']:.1f} s")
+    return launches, report
+
+
 def check_booster_surface(lt, booster, tag):
     """After phase 8: dump_model parses, its leaf values and thresholds equal
     the model text's; feature_importance equals the CPU Booster's loaded
@@ -3806,6 +4194,36 @@ def main() -> int:
     bytes_leaf = SAMPLE_ROWS * F * 4 + SAMPLE_ROWS * T * 4 + table_bytes
     ops_leaf = visits * SAMPLE_ROWS / chunk  # same data profile, a quarter of the rows
     torch.cuda.empty_cache()
+
+    # the accumulate mode (prediction early stopping's block): ES_FREQ trees
+    # added onto running sums, on the streamed chunk and at serving sizes
+    es_slice = packed.tree_slice(0, ES_FREQ)
+    acc_init = torch.from_numpy(np.random.RandomState(args.seed + 20).normal(
+        size=(chunk, 1)).astype(np.float32)).to(dev)
+    err_acc = 0.0
+    for rows in (chunk,) + SERVE_BATCHES:
+        x, init = xs[3][:rows].contiguous(), acc_init[:rows].contiguous()
+        got = predict_cuda.forest_raw(es_slice, x, 1, out=init.clone(), accumulate=True)
+        want = _predict_raw_fused(es_slice, x, 1, init)
+        check(torch.equal(got, want), f"predict_forest_raw_acc at {rows}x{F}: differs from "
+                                      "the plain version")
+        err_acc = max(err_acc, float((got.double() - want.double()).abs().max()))
+    acc_buf = acc_init.clone()
+    ms_acc = cuda_ms(lambda: predict_cuda.forest_raw(es_slice, next(rotation), 1, out=acc_buf,
+                                                     accumulate=True), 20)
+    plain_acc = cuda_ms(lambda: _predict_raw_fused(es_slice, xs[0], 1, acc_init), 2)
+    depth_acc = leaf_depths(higgs.trees[:ES_FREQ], dev)
+    visits_acc = float(depth_acc.reshape(-1)[
+        (torch.arange(ES_FREQ, device=dev)[None, :] * depth_acc.shape[1]
+         + predict_cuda.forest_leaf_indices(es_slice, xs[0]).long())].sum())
+    es_table_bytes = sum(t.numel() * t.element_size() for t in (es_slice.records,))
+    bound_acc, by_acc = bound(chunk * F * 4 + 2 * chunk * 4 + es_table_bytes,
+                              visits_acc + chunk * ES_FREQ)
+    print(f"{tag} predict_forest_raw_acc {chunk}x{F}, {ES_FREQ} trees added onto running "
+          f"sums: kernel {ms_acc:.4f} ms, plain {plain_acc:.2f} ms, bound {bound_acc:.4f} ms "
+          f"({by_acc}); bit-equal to the plain version there and at "
+          + ", ".join(str(r) for r in SERVE_BATCHES) + " rows")
+    del acc_buf, acc_init
 
     bound_raw, by_raw = bound(bytes_raw, ops_raw)
     bound_leaf, by_leaf = bound(bytes_leaf, ops_leaf)
@@ -4068,6 +4486,36 @@ def main() -> int:
     print(f"{tag} booster: predict {MAIN_ROWS} rows in {wall * 1e3:.1f} ms "
           f"(best of 3; {MAIN_ROWS / wall:,.0f} rows/s), streamed in "
           f"{MAIN_ROWS // chunk} chunks; raw kernel alone {ms_raw * (MAIN_ROWS // chunk):.1f} ms")
+    # prediction early stopping (binary margin 2 |score|, every ES_FREQ
+    # iterations): the active rows of each block through the accumulate mode
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    es_kw = {"pred_early_stop": True, "pred_early_stop_freq": ES_FREQ}
+    es_walls = []
+    for _ in range(3):
+        before = global_timer.counters.get("predict_early_stop_row_trees", 0)
+        t = time.perf_counter()
+        pred_es = booster.predict(X_main, raw_score=True, pred_early_stop_margin=ES_MARGIN,
+                                  **es_kw)
+        es_walls.append(time.perf_counter() - t)
+        walked = global_timer.counters["predict_early_stop_row_trees"] - before
+    stopped = float(np.mean(pred_es != streamed))
+    check(bool(np.array_equal(pred_es[:ES_CPU_ROWS], host.predict(
+        X_main[:ES_CPU_ROWS], raw_score=True, pred_early_stop_margin=ES_MARGIN, **es_kw))),
+        "early stop: the card's early-stopped scores differ from the CPU's")
+    check(bool(np.array_equal(booster.predict(X_main, raw_score=True,
+                                              pred_early_stop_margin=float("inf"), **es_kw),
+                              streamed)),
+          "early stop: an infinite margin does not give the full prediction bit for bit")
+    check(0.0 < stopped < 1.0, f"early stop: {stopped:.3f} of the rows stopped")
+    es_wall = min(es_walls)
+    print(f"{tag} booster: predict {MAIN_ROWS} rows with early stopping (margin {ES_MARGIN:g} "
+          f"on 2 |score|, every {ES_FREQ} iterations) in {es_wall * 1e3:.1f} ms (best of 3; "
+          f"{MAIN_ROWS / es_wall:,.0f} rows/s, {wall / es_wall:.2f}x the full predict's "
+          f"rows/s); {stopped:.1%} of the rows stopped before the last tree, "
+          f"{walked / MAIN_ROWS:.1f} of {packed.num_trees} trees walked a row on average; "
+          f"the first {ES_CPU_ROWS} rows bit-equal to the CPU Booster's early stop, an "
+          f"infinite margin bit-equal to the full prediction")
     del host
 
     # ------------------------------------------- main path: serving
@@ -4263,8 +4711,12 @@ def main() -> int:
     life_launches, _ = drive_lifecycle(lt, libs, train_set, valid, X_train, y_train,
                                        wave["booster"], args.seed, tag)
     torch.cuda.empty_cache()
+
+    # ------------------------------- learning to rank, cross entropy
+    rank_launches, _ = drive_ranking(lt, libs, train_set, valid, args.seed, tag)
+    torch.cuda.empty_cache()
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
-             goss_launches, cat_launches, lane_launches, life_launches)
+             goss_launches, cat_launches, lane_launches, life_launches, rank_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)
@@ -4277,6 +4729,14 @@ def main() -> int:
          "max_abs_err": err["predict_forest_raw"], "ms": ms_raw,
          "plain_ms": plain_raw, "bound_ms": bound_raw, "bound_by": by_raw,
          "library_ms": None},
+        # the raw mode adding onto running sums: prediction early stopping's
+        # block of ES_FREQ trees over the active rows
+        {"name": "predict_forest_raw_acc", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",
+         "replaces": "lightgbm_tpu/ops/predict_pallas.py:80",
+         "launches": launches("predict_forest_raw_acc"),
+         "max_abs_err": err_acc, "ms": ms_acc, "plain_ms": plain_acc, "bound_ms": bound_acc,
+         "bound_by": by_acc, "library_ms": None},
         {"name": "predict_forest_leaf", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",
          "replaces": "lightgbm_tpu/ops/predict_pallas.py:41",

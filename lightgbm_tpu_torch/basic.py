@@ -13,11 +13,15 @@ again on new data (``refit``) and takes its last iteration back
 ``category`` columns train as categorical features and map through the
 training categories at predict time (``pandas_categorical``).
 
+A ranking Dataset carries its query groups (``group``, ``set_group``) and,
+for position-debiased lambdarank, each row's position (``position``,
+``set_position``). ``predict`` takes prediction early stopping
+(``pred_early_stop``, ``pred_early_stop_freq``, ``pred_early_stop_margin``).
+
 The Booster runs on the CUDA card unless ``params={"device_type": "cpu"}``
 asks for the CPU; with no card and no such request it raises. Not ported
 yet, and refused loudly: text-file and binary-cache datasets, SHAP
-contributions (``pred_contrib``), prediction early stopping and row-sharded
-predict.
+contributions (``pred_contrib``) and row-sharded predict.
 """
 from __future__ import annotations
 
@@ -226,10 +230,24 @@ class Dataset:
             self._handle.metadata.set_weights(weight)
         return self
 
+    def set_group(self, group) -> "Dataset":
+        """Query sizes, in row order (the sum is the row count)."""
+        self.group = group
+        if self._handle is not None and group is not None:
+            self._handle.metadata.set_query(group)
+        return self
+
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._handle is not None:
             self._handle.metadata.set_init_score(init_score)
+        return self
+
+    def set_position(self, position) -> "Dataset":
+        """Each row's position id, for position-debiased lambdarank."""
+        self.position = position
+        if self._handle is not None:
+            self._handle.metadata.set_positions(position)
         return self
 
     def get_label(self):
@@ -242,6 +260,9 @@ class Dataset:
 
     def get_group(self):
         return self.group
+
+    def get_position(self):
+        return self.position
 
     def get_init_score(self):
         return self.init_score
@@ -408,10 +429,6 @@ class Booster:
         if pred_contrib:
             Log.fatal("pred_contrib (SHAP) is not yet ported to the PyTorch "
                       "package")
-        if param_bool(kwargs.get("pred_early_stop",
-                                 self.params.get("pred_early_stop"))):
-            Log.fatal("pred_early_stop is not yet ported to the PyTorch "
-                      "package")
         if kwargs.get("pred_shard_rows",
                       self.params.get("pred_shard_rows")) is not None:
             Log.fatal("row-sharded predict (pred_shard_rows) is not yet "
@@ -438,6 +455,13 @@ class Booster:
         if pred_leaf:
             return self._gbdt.predict_leaf_index(X, num_iteration,
                                                  start_iteration)
+        if param_bool(kwargs.get("pred_early_stop", self.params.get("pred_early_stop"))):
+            freq = kwargs.get("pred_early_stop_freq", self.params.get("pred_early_stop_freq", 10))
+            margin = kwargs.get("pred_early_stop_margin",
+                                self.params.get("pred_early_stop_margin", 10.0))
+            return self._gbdt.predict(X, raw_score=raw_score, num_iteration=num_iteration,
+                                      start_iteration=start_iteration,
+                                      early_stop=(int(freq), float(margin)))
         chunk_kw = kwargs.get("pred_chunk_rows",
                               self.params.get("pred_chunk_rows"))
         chunk_rows = int(chunk_kw) if chunk_kw is not None else None

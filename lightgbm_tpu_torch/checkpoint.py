@@ -10,7 +10,8 @@ files:
                     the world it was written in, the sha256 of the model
                     text) and the state arrays (train and valid scores, the
                     bag, the column sampler's MT19937 keys, the quantized
-                    gradients' key).
+                    gradients' key, the objective's state: the xendcg
+                    draw's iteration count, lambdarank's position biases).
 
 Both are written atomically (temp file in the target directory, flush +
 fsync, ``os.replace``, directory fsync, inside a bounded retry-with-backoff
@@ -159,6 +160,7 @@ class TrainerState:
     valid_scores: List[np.ndarray]
     bag: Optional[np.ndarray]
     learner: Dict[str, Any]
+    objective: Dict[str, Any]
     es: Optional[Dict[str, Any]]
     health: Optional[Dict[str, Any]]
     manifest: Dict[str, Any]
@@ -203,6 +205,13 @@ def save_checkpoint(booster, path: str) -> None:
                     arrays[f"learner_{k}"] = v
                 else:
                     learner_scalars[k] = v
+        objective_scalars: Dict[str, Any] = {}
+        if gbdt.objective is not None:
+            for k, v in gbdt.objective.snapshot_state().items():
+                if isinstance(v, np.ndarray):
+                    arrays[f"objective_{k}"] = v
+                else:
+                    objective_scalars[k] = v
         health = getattr(gbdt, "_health", None)
         manifest = {
             "version": CKPT_VERSION,
@@ -215,6 +224,7 @@ def save_checkpoint(booster, path: str) -> None:
             "valid_names": list(gbdt.valid_names),
             "async_stub_stop": bool(gbdt._async_stub_stop),
             "learner": learner_scalars,
+            "objective": objective_scalars,
             "es": getattr(booster, "_early_stop_state", None),
             "health": health.snapshot() if health is not None else None,
             "world": world_fingerprint(gbdt.device),
@@ -281,14 +291,18 @@ def load_checkpoint(path: str) -> Optional[TrainerState]:
         valid_scores = [np.asarray(z[f"valid_score_{i}"])
                         for i in range(len(manifest.get("valid_names", [])))]
         learner: Dict[str, Any] = dict(manifest.get("learner", {}))
+        objective: Dict[str, Any] = dict(manifest.get("objective", {}))
         for k in z.files:
             if k.startswith("learner_"):
                 learner[k[len("learner_"):]] = np.asarray(z[k])
+            elif k.startswith("objective_"):
+                objective[k[len("objective_"):]] = np.asarray(z[k])
         return TrainerState(
             iteration=int(manifest["iteration"]), model_text=model_text,
             score=np.asarray(z["score"]), valid_scores=valid_scores,
             bag=np.asarray(z["bag"]) if "bag" in z.files else None,
-            learner=learner, es=manifest.get("es"), health=manifest.get("health"),
+            learner=learner, objective=objective, es=manifest.get("es"),
+            health=manifest.get("health"),
             manifest=manifest)
     except Exception as exc:  # noqa: BLE001 - any damage means "no sidecar"
         Log.warning("Checkpoint sidecar %s is unusable (%s); falling back "
@@ -299,8 +313,9 @@ def load_checkpoint(path: str) -> Optional[TrainerState]:
 def restore_trainer_state(booster, state: TrainerState, callbacks=()) -> int:
     """Put `state` onto a freshly built booster: the trees and the
     iteration, the float32 train and valid scores (on the booster's
-    device), the bag, the learner's random streams, the async pipeline's
-    stop flag, the health monitor's clip and the early-stop state. Returns
+    device), the bag, the learner's random streams, the objective's state,
+    the async pipeline's stop flag, the health monitor's clip and the
+    early-stop state. Returns
     the iteration to resume from. A checkpoint of another boosting type,
     row count, trees an iteration or valid-set list is refused with the
     invariant named: a resume that silently diverges is worse than none."""
@@ -347,6 +362,8 @@ def restore_trainer_state(booster, state: TrainerState, callbacks=()) -> int:
     learner = getattr(gbdt, "tree_learner", None)
     if learner is not None and hasattr(learner, "restore_snapshot_state"):
         learner.restore_snapshot_state(state.learner)
+    if gbdt.objective is not None:
+        gbdt.objective.restore_snapshot_state(state.objective)
     health = getattr(gbdt, "_health", None)
     if health is not None and state.health is not None:
         health.restore(state.health)

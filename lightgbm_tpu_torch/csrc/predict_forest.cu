@@ -12,7 +12,10 @@
 //   raw:  out[N, C] float32, class c summing the leaf values of trees
 //         c, c + C, c + 2C, ... in ascending order, one float32 add at a
 //         time from 0 — the order of the plain PyTorch version, so the two
-//         agree bit for bit;
+//         agree bit for bit. With `accumulate` the chain starts from the
+//         value out holds: prediction early stopping adds a block of trees
+//         onto the running sums of its active rows this way, and a row's
+//         sum is then the whole traversal's chain of adds;
 //   leaf: out[N, T] int32 leaf indices (pred_leaf).
 //
 // What bounds it. Bytes: X once (4F bytes a row), the output, the model once
@@ -137,7 +140,7 @@ __device__ __forceinline__ int walk(const int4* nodes, const int* __restrict__ c
 template <int kMode, bool kStageX, bool kStageTrees>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 predict_forest_kernel(const float* __restrict__ X, long long n, int F,
-                      Forest f, int trees_per_block, int tile_trees,
+                      Forest f, int trees_per_block, int tile_trees, bool accumulate,
                       float* __restrict__ out_raw, int* __restrict__ out_leaf,
                       float* __restrict__ vals) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -189,7 +192,8 @@ predict_forest_kernel(const float* __restrict__ X, long long n, int F,
   }
   __syncthreads();
 
-  float acc = 0.0f;
+  // kRaw walks every tree (trees_per_block == T): class 0's chain first
+  float acc = (kMode == kRaw && accumulate && live) ? out_raw[row * f.C] : 0.0f;
   for (int tile = 0; tile < n_tiles; ++tile) {
     int q0 = p0, q1 = p1;
     const int* buf = nullptr;
@@ -218,8 +222,9 @@ predict_forest_kernel(const float* __restrict__ X, long long n, int F,
           } else {
             acc += v;
             if ((q + 1) % per_class == 0) {
-              out_raw[row * f.C + q / per_class] = acc;
-              acc = 0.0f;
+              const int c = q / per_class;
+              out_raw[row * f.C + c] = acc;
+              acc = (accumulate && c + 1 < f.C) ? out_raw[row * f.C + c + 1] : 0.0f;
             }
           }
         }
@@ -237,7 +242,7 @@ predict_forest_kernel(const float* __restrict__ X, long long n, int F,
 // chain of dependent adds; its loads come from shared memory.
 __global__ void __launch_bounds__(kSumWarps * 32)
 predict_forest_sum_kernel(const float* __restrict__ vals, long long n, int T, int C,
-                          float* __restrict__ out) {
+                          bool accumulate, float* __restrict__ out) {
   __shared__ float tile[2][kSumTrees][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -257,7 +262,10 @@ predict_forest_sum_kernel(const float* __restrict__ vals, long long n, int T, in
   for (int cg = 0; cg < C; cg += kSumWarps * kSumClasses) {
     float acc[kSumClasses];
 #pragma unroll
-    for (int j = 0; j < kSumClasses; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < kSumClasses; ++j) {
+      const int c = cg + warp + j * kSumWarps;
+      acc[j] = (accumulate && row < n && c < C) ? out[row * C + c] : 0.0f;
+    }
     stage(0);
     for (int i = 0; i < n_tiles; ++i) {
       if (i + 1 < n_tiles) stage(i + 1); else cp_async_commit();
@@ -290,33 +298,37 @@ predict_forest_sum_kernel(const float* __restrict__ vals, long long n, int T, in
 template <int kMode, bool kStageX, bool kStageTrees>
 cudaError_t launch_walk(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                         const float* X, long long n, int F, const Forest& f,
-                        int trees_per_block, int tile_trees, float* out_raw, int* out_leaf,
-                        float* vals) {
+                        int trees_per_block, int tile_trees, bool accumulate, float* out_raw,
+                        int* out_leaf, float* vals) {
   auto kernel = predict_forest_kernel<kMode, kStageX, kStageTrees>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(X, n, F, f, trees_per_block, tile_trees, out_raw,
-                                          out_leaf, vals);
+  kernel<<<grid, threads, smem, stream>>>(X, n, F, f, trees_per_block, tile_trees,
+                                          accumulate, out_raw, out_leaf, vals);
   return cudaGetLastError();
 }
 
 template <int kMode>
 cudaError_t dispatch(bool stage_x, bool stage_trees, dim3 grid, int threads, size_t smem,
                      cudaStream_t stream, const float* X, long long n, int F,
-                     const Forest& f, int trees_per_block, int tile_trees, float* out_raw,
-                     int* out_leaf, float* vals) {
+                     const Forest& f, int trees_per_block, int tile_trees, bool accumulate,
+                     float* out_raw, int* out_leaf, float* vals) {
   if (stage_x && stage_trees)
     return launch_walk<kMode, true, true>(grid, threads, smem, stream, X, n, F, f,
-                                          trees_per_block, tile_trees, out_raw, out_leaf, vals);
+                                          trees_per_block, tile_trees, accumulate, out_raw,
+                                          out_leaf, vals);
   if (stage_x)
     return launch_walk<kMode, true, false>(grid, threads, smem, stream, X, n, F, f,
-                                           trees_per_block, tile_trees, out_raw, out_leaf, vals);
+                                           trees_per_block, tile_trees, accumulate, out_raw,
+                                           out_leaf, vals);
   if (stage_trees)
     return launch_walk<kMode, false, true>(grid, threads, smem, stream, X, n, F, f,
-                                           trees_per_block, tile_trees, out_raw, out_leaf, vals);
+                                           trees_per_block, tile_trees, accumulate, out_raw,
+                                           out_leaf, vals);
   return launch_walk<kMode, false, false>(grid, threads, smem, stream, X, n, F, f,
-                                          trees_per_block, tile_trees, out_raw, out_leaf, vals);
+                                          trees_per_block, tile_trees, accumulate, out_raw,
+                                          out_leaf, vals);
 }
 
 }  // namespace
@@ -324,6 +336,7 @@ cudaError_t dispatch(bool stage_x, bool stage_trees, dim3 grid, int threads, siz
 // One traversal. mode 0: raw scores [n, C] into out (every block walks all
 // trees: trees_per_block == T); mode 1: raw scores through the [T, n]
 // scratch `vals` and the sum kernel; mode 2: leaf indices [n, T] into out.
+// accumulate (modes 0 and 1): each class's sum starts from out's value.
 // records [T, R] int32 (R a multiple of 4, the first 4 * I words node
 // records), cat_table int32. rows_per_block threads a block (at most 512),
 // tile_trees trees a shared-memory tile when stage_trees, X's row tile
@@ -331,12 +344,13 @@ cudaError_t dispatch(bool stage_x, bool stage_trees, dim3 grid, int threads, siz
 extern "C" int lgbt_predict_forest(const float* X, long long n, int F, const int* records,
                                    int R, int I, const int* cat_table, int T, int max_depth,
                                    int C, int mode, int rows_per_block, int trees_per_block,
-                                   int tile_trees, int stage_x, int stage_trees, void* out,
-                                   float* vals, void* stream_ptr) {
+                                   int tile_trees, int stage_x, int stage_trees,
+                                   int accumulate, void* out, float* vals, void* stream_ptr) {
   if (n < 1 || T < 1 || C < 1 || T % C != 0 || R < 4 || R % 4 != 0 || I < 1 || 4 * I >= R ||
       rows_per_block < 32 || rows_per_block > kMaxThreads || rows_per_block % 32 != 0 ||
       trees_per_block < 1 || tile_trees < 1 || mode < 0 || mode > 2 ||
-      (mode == kRaw && trees_per_block < T) || (mode == kRawSplit && vals == nullptr)) {
+      (mode == kRaw && trees_per_block < T) || (mode == kRawSplit && vals == nullptr) ||
+      (mode == kLeaf && accumulate)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -348,19 +362,20 @@ extern "C" int lgbt_predict_forest(const float* X, long long n, int F, const int
   cudaError_t err;
   if (mode == kLeaf) {
     err = dispatch<kLeaf>(stage_x, stage_trees, grid, rows_per_block, smem, stream, X, n, F,
-                          f, trees_per_block, tile_trees, nullptr,
+                          f, trees_per_block, tile_trees, false, nullptr,
                           static_cast<int*>(out), nullptr);
   } else if (mode == kRaw) {
     err = dispatch<kRaw>(stage_x, stage_trees, grid, rows_per_block, smem, stream, X, n, F,
-                         f, trees_per_block, tile_trees, static_cast<float*>(out),
-                         nullptr, nullptr);
+                         f, trees_per_block, tile_trees, accumulate != 0,
+                         static_cast<float*>(out), nullptr, nullptr);
   } else {
     err = dispatch<kRawSplit>(stage_x, stage_trees, grid, rows_per_block, smem, stream, X, n,
-                              F, f, trees_per_block, tile_trees, nullptr, nullptr,
+                              F, f, trees_per_block, tile_trees, false, nullptr, nullptr,
                               vals);
     if (err == cudaSuccess) {
       predict_forest_sum_kernel<<<static_cast<unsigned>((n + 31) / 32), kSumWarps * 32, 0,
-                                  stream>>>(vals, n, T, C, static_cast<float*>(out));
+                                  stream>>>(vals, n, T, C, accumulate != 0,
+                                            static_cast<float*>(out));
       err = cudaGetLastError();
     }
   }

@@ -3,8 +3,7 @@
 Counterpart of Metric (include/LightGBM/metric.h:24-60) and its factory
 (src/metric/metric.cpp:21-120). Metrics evaluate score tensors on the
 training device; the objective's ConvertOutput is applied where the
-reference does. The binary, regression and multiclass metrics are ported;
-a metric of another family is refused as not yet ported.
+reference does.
 """
 from __future__ import annotations
 
@@ -17,11 +16,6 @@ from ..io.metadata import Metadata
 from ..utils.log import Log
 
 METRIC_REGISTRY: Dict[str, Type] = {}
-
-# metrics the JAX package evaluates whose port is a later slice
-NOT_YET_PORTED = ("ndcg", "map", "mean_average_precision",
-                  "cross_entropy", "xentropy", "cross_entropy_lambda",
-                  "xentlambda", "kullback_leibler", "kldiv")
 
 
 def register_metric(*names: str):
@@ -58,13 +52,10 @@ class Metric:
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
-    from . import regression, binary, multiclass  # noqa: F401
+    from . import regression, binary, multiclass, rank, xentropy  # noqa: F401
 
     if name in ("custom", "none", "null", "na", ""):
         return None
-    if name in NOT_YET_PORTED:
-        Log.fatal("metric %s is not yet ported to the PyTorch package "
-                  "(ROADMAP Queue 1 item 7)", name)
     cls = METRIC_REGISTRY.get(name)
     if cls is None:
         Log.warning("Unknown metric type name: %s", name)

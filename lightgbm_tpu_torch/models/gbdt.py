@@ -50,8 +50,8 @@ from ..objectives.registry import ObjectiveFunction
 from ..ops.histogram import leaf_sums_fixed
 from ..ops.partition import bucket_size, pad_indices
 from ..ops.predict import (PredictorCache, pack_ensemble, predict_leaf_indices,
-                           predict_raw, predict_raw_streamed, stream_chunk_rows,
-                           to_device_rows)
+                           predict_raw, predict_raw_early_stop, predict_raw_streamed,
+                           stream_chunk_rows, to_device_rows)
 from ..ops.score import add_tree_to_score, apply_split_log_to_score
 from ..treelearner.serial import _leaf_output_host, create_tree_learner
 from ..utils.log import Log
@@ -125,10 +125,6 @@ class GBDT:
         if config.linear_tree and train_raw is None:
             Log.fatal("linear_tree requires dense input (raw feature values per leaf)")
         if objective is not None:
-            if not objective.trainable:
-                Log.fatal("objective %s: training is not yet ported to the "
-                          "PyTorch package (ROADMAP Queue 1 item 7)",
-                          objective.to_string())
             objective.init(train_set.metadata, n, self.device)
             if hasattr(objective, "class_need_train"):
                 self.class_need_train = [objective.class_need_train(c)
@@ -548,11 +544,18 @@ class GBDT:
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 num_iteration: int = 0, start_iteration: int = 0,
-                chunk_rows: Optional[int] = None) -> np.ndarray:
+                chunk_rows: Optional[int] = None,
+                early_stop: Optional[Tuple[int, float]] = None) -> np.ndarray:
+        """Predictions [N] or [N, C]; `early_stop` = (round period, margin)
+        runs prediction early stopping (ops/predict.py:
+        predict_raw_early_stop) in place of the whole traversal."""
         packed = self._packed(num_iteration, start_iteration)
         C = self.num_tree_per_iteration
         chunk = stream_chunk_rows(X.shape[0], chunk_rows)
-        if chunk > 0 and packed.num_trees > 0:
+        if early_stop is not None and packed.num_trees > 0:
+            out = predict_raw_early_stop(packed, to_device_rows(X, self.device), C,
+                                         early_stop[0], early_stop[1])
+        elif chunk > 0 and packed.num_trees > 0:
             out = predict_raw_streamed(packed, X, C, chunk)
         else:
             out = predict_raw(packed, to_device_rows(X, self.device), C)

@@ -19,8 +19,6 @@ K_EPS = 1e-15
 
 @register_objective("binary")
 class BinaryLogloss(ObjectiveFunction):
-    trainable = True
-
     def __init__(self, config):
         super().__init__(config)
         self.sigmoid = config.sigmoid

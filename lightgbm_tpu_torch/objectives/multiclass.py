@@ -23,8 +23,6 @@ K_EPS = 1e-15
 
 @register_objective("multiclass", "softmax")
 class MulticlassSoftmax(ObjectiveFunction):
-    trainable = True
-
     def __init__(self, config):
         super().__init__(config)
         self.num_class_ = config.num_class
@@ -84,8 +82,6 @@ class MulticlassSoftmax(ObjectiveFunction):
 
 @register_objective("multiclassova", "multiclass_ova", "ova", "ovr")
 class MulticlassOVA(ObjectiveFunction):
-    trainable = True
-
     def __init__(self, config):
         super().__init__(config)
         self.num_class_ = config.num_class

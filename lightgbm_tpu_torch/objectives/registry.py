@@ -2,15 +2,16 @@
 
 Counterpart of ObjectiveFunction (include/LightGBM/objective_function.h:19-90)
 and its factory (src/objective/objective_function.cpp:71-119). Objectives are
-per-row gradient/hessian producers: elementwise torch functions over the
-score and label tensors on the training device. Every objective converts
-output for a loaded model; the binary, regression and multiclass families
-also train (`init`, `get_gradients`, `boost_from_score`). The others carry
-``trainable = False`` and training with one is refused.
+per-row gradient/hessian producers: torch functions over the score and
+label tensors on the training device (binary, regression, multiclass,
+cross entropy, and the ranking objectives over padded query blocks).
+Objectives whose state changes with every `get_gradients` call (the ranking
+ones) expose it through `snapshot_state` / `restore_snapshot_state`, which
+a checkpoint carries.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Type
+from typing import Any, Dict, Optional, Type
 
 import torch
 
@@ -19,11 +20,6 @@ from ..io.metadata import Metadata
 from ..utils.log import Log
 
 OBJECTIVE_REGISTRY: Dict[str, Type] = {}
-
-# objectives the JAX package trains whose port is not written yet: a model
-# naming one loads (raw scores need no objective) but converted output fails
-NOT_YET_PORTED = ("lambdarank", "rank_xendcg", "cross_entropy", "xentropy",
-                  "cross_entropy_lambda", "xentlambda")
 
 
 def register_objective(*names: str):
@@ -40,9 +36,6 @@ class ObjectiveFunction:
     """Base interface (objective_function.h:29-90)."""
 
     is_constant_hessian = False
-    # whether this objective's gradients are ported (binary, regression,
-    # multiclass)
-    trainable = False
 
     def __init__(self, config: Config) -> None:
         self.config = config
@@ -72,6 +65,14 @@ class ObjectiveFunction:
         objectives (L1/quantile/MAPE); default no-op."""
         return None
 
+    def snapshot_state(self) -> Dict[str, Any]:
+        """The state that earlier `get_gradients` calls left (none for an
+        elementwise objective), for a checkpoint's sidecar."""
+        return {}
+
+    def restore_snapshot_state(self, state: Dict[str, Any]) -> None:
+        """Put back what `snapshot_state` returned."""
+
     @property
     def num_model_per_iteration(self) -> int:
         return 1
@@ -84,30 +85,11 @@ class ObjectiveFunction:
         return self.names[0]
 
 
-class NotYetPorted(ObjectiveFunction):
-    """Stand-in for an objective whose port is a later slice: raw scores
-    predict as usual, converted output raises instead of returning raw
-    scores under the converted name."""
-
-    def __init__(self, config: Config, name: str) -> None:
-        super().__init__(config)
-        self.name = name
-
-    def convert_output(self, raw):
-        Log.fatal("objective %s is not yet ported: its output conversion is "
-                  "missing; predict with raw_score=True", self.name)
-
-    def to_string(self) -> str:
-        return self.name
-
-
 def create_objective(name: str, config: Config) -> Optional[ObjectiveFunction]:
-    from . import regression, binary, multiclass  # noqa: F401
+    from . import regression, binary, multiclass, rank, xentropy  # noqa: F401
 
     if name in ("custom", "none", "null", "na") or not name:
         return None
-    if name in NOT_YET_PORTED:
-        return NotYetPorted(config, name)
     cls = OBJECTIVE_REGISTRY.get(name)
     if cls is None:
         Log.fatal("Unknown objective type name: %s", name)

@@ -63,7 +63,6 @@ def _weighted_percentile(values: np.ndarray, weights, alpha: float) -> float:
 @register_objective("regression", "regression_l2", "l2", "mean_squared_error", "mse")
 class RegressionL2(ObjectiveFunction):
     is_constant_hessian = True
-    trainable = True
 
     def __init__(self, config):
         super().__init__(config)

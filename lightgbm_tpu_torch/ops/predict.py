@@ -24,8 +24,11 @@ Serving-path machinery on top of the traversal:
     slice) and keeps it on the device across Booster.predict calls.
   * `predict_raw_streamed` — row chunks for large N, so only one chunk of
     the input is on the device at a time.
+  * `predict_raw_early_stop` — prediction early stopping: blocks of trees
+    (`PackedEnsemble.tree_slice`, views of the pack), each traversed by the
+    still-active rows only, the kernel adding onto their running sums.
 
-Not ported yet: prediction early stopping and row-sharded predict.
+Not ported yet: row-sharded predict.
 """
 from __future__ import annotations
 
@@ -90,6 +93,26 @@ class PackedEnsemble:
 
     def tables(self) -> tuple:
         return tuple(getattr(self, name) for name in TABLES)
+
+    def tree_slice(self, start: int, end: int) -> "PackedEnsemble":
+        """Trees [start, end) as views of this pack's tables (no repack, no
+        copy): the kernel's records are rows of `records`, and the
+        categorical bitsets stay whole, which their absolute offsets
+        index."""
+        def rows(t):
+            return None if t is None else t[start:end]
+
+        return PackedEnsemble(
+            split_feature=rows(self.split_feature), threshold=rows(self.threshold),
+            decision_type=rows(self.decision_type), left_child=rows(self.left_child),
+            right_child=rows(self.right_child), leaf_value=rows(self.leaf_value),
+            cat_words=self.cat_words, cat_offset=rows(self.cat_offset),
+            cat_n_words=rows(self.cat_n_words), num_leaves=rows(self.num_leaves),
+            records=rows(self.records), cat_table=self.cat_table,
+            max_depth=self.max_depth, num_trees=end - start,
+            num_features=self.num_features, linear=self.linear,
+            lin_const=rows(self.lin_const), lin_feat=rows(self.lin_feat),
+            lin_coeff=rows(self.lin_coeff))
 
 
 def forest_records(arrays: Mapping[str, np.ndarray]):
@@ -427,26 +450,31 @@ def _linear_leaf_scores(packed: PackedEnsemble, X: torch.Tensor,
     return torch.where(bad, base, lin)
 
 
-def _class_sums(vals: torch.Tensor, num_tree_per_iteration: int) -> torch.Tensor:
+def _class_sums(vals: torch.Tensor, num_tree_per_iteration: int,
+                init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, T] per-tree scores -> [N, C]: each class sums its trees in
-    ascending iteration order, one float32 add at a time, from 0."""
+    ascending iteration order, one float32 add at a time, from 0 or from
+    `init` [N, C]."""
     C = num_tree_per_iteration
-    out = torch.zeros((vals.shape[0], C), dtype=torch.float32, device=vals.device)
+    out = (torch.zeros((vals.shape[0], C), dtype=torch.float32, device=vals.device)
+           if init is None else init.clone())
     for it in range(vals.shape[1] // C):
         out += vals[:, it * C:(it + 1) * C]
     return out
 
 
 def _predict_raw_fused(packed: PackedEnsemble, X: torch.Tensor,
-                       num_tree_per_iteration: int) -> torch.Tensor:
+                       num_tree_per_iteration: int,
+                       init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Traverse + score + per-class accumulate: [N, C] float32. Each class
     sums its trees in ascending iteration order, one float32 add at a
-    time, starting from 0 — the kernel's order, so the two agree bit for
-    bit; the JAX package's XLA reduction may sum in another order."""
+    time, starting from 0 (or from `init`) — the kernel's order, so the
+    two agree bit for bit; the JAX package's XLA reduction may sum in
+    another order."""
     leaf = _traverse_leaves(packed, X)
     vals = (_linear_leaf_scores(packed, X, leaf) if packed.linear
             else _leaf_scores(packed, leaf))
-    return _class_sums(vals, num_tree_per_iteration)
+    return _class_sums(vals, num_tree_per_iteration, init)
 
 
 # ------------------------------------------------------------ entry points
@@ -477,14 +505,18 @@ def validate_tree_count(packed: PackedEnsemble,
 
 def predict_raw(packed: PackedEnsemble, X: torch.Tensor,
                 num_tree_per_iteration: int = 1,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                accumulate: bool = False) -> torch.Tensor:
     """Raw scores [N, num_tree_per_iteration] summed over iterations,
-    written into `out` when one is given. A linear-tree ensemble takes the
-    traversal's leaf indices (the kernel's leaf mode on the card) and the
-    linear epilogue."""
+    written into `out` when one is given, or added onto it with
+    `accumulate` (each class's chain of adds continuing from out's value).
+    A linear-tree ensemble takes the traversal's leaf indices (the kernel's
+    leaf mode on the card) and the linear epilogue."""
     from .predict_cuda import forest_leaf_indices, forest_raw
 
     if packed.num_trees == 0:
+        if accumulate:
+            return out
         zeros = torch.zeros((X.shape[0], num_tree_per_iteration),
                             dtype=torch.float32, device=X.device)
         return zeros if out is None else out.copy_(zeros)
@@ -493,10 +525,60 @@ def predict_raw(packed: PackedEnsemble, X: torch.Tensor,
         with global_timer.scope("predict_traverse"):
             leaf = forest_leaf_indices(packed, X)
         with global_timer.scope("predict_linear"):
-            res = _class_sums(_linear_leaf_scores(packed, X, leaf), num_tree_per_iteration)
+            res = _class_sums(_linear_leaf_scores(packed, X, leaf), num_tree_per_iteration,
+                              out if accumulate else None)
         return res if out is None else out.copy_(res)
     with global_timer.scope("predict_traverse"):
-        return forest_raw(packed, X, num_tree_per_iteration, out=out)
+        return forest_raw(packed, X, num_tree_per_iteration, out=out, accumulate=accumulate)
+
+
+def predict_raw_early_stop(packed: PackedEnsemble, X: torch.Tensor,
+                           num_tree_per_iteration: int, round_period: int,
+                           margin_threshold: float) -> torch.Tensor:
+    """Raw scores [N, C] with prediction early stopping (the JAX package's
+    predict.py:716-756, src/boosting/prediction_early_stop.cpp): after each
+    block of `round_period` iterations, a row whose margin exceeds
+    `margin_threshold` (2 |score| for one class, the gap between the top
+    two classes otherwise) takes no further trees.
+
+    The scores and the active mask stay on X's device. A block gathers the
+    still-active rows in ascending order (the mask's nonzero positions) and
+    their running sums, adds the block's trees onto those sums (the
+    traversal kernel's accumulate mode on a `tree_slice` of the pack), and
+    writes them back. The one host sync a block is the active count, which
+    sizes the nonzero positions. A
+    row's sum is the same chain of float32 adds as the whole traversal's,
+    so with an infinite margin the result is the plain predict's bit for
+    bit; the JAX package adds each block's XLA sum onto the running score
+    instead."""
+    C = num_tree_per_iteration
+    T = packed.num_trees
+    validate_tree_count(packed, C)
+    n = X.shape[0]
+    dev = X.device
+    scores = torch.zeros((n, C), dtype=torch.float32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    margin = torch.tensor(margin_threshold, dtype=torch.float32, device=dev)
+    block = max(round_period, 1) * C
+    with global_timer.scope("predict_early_stop"):
+        for start in range(0, T, block):
+            idx = torch.nonzero(active).reshape(-1)
+            cnt = idx.shape[0]
+            if cnt == 0:
+                break
+            sums = scores[idx]
+            predict_raw(packed.tree_slice(start, min(start + block, T)), X[idx], C,
+                        out=sums, accumulate=True)
+            scores[idx] = sums
+            if C == 1:
+                margin_val = 2.0 * torch.abs(sums[:, 0])
+            else:
+                top2 = torch.topk(sums, 2, dim=1).values
+                margin_val = top2[:, 0] - top2[:, 1]
+            active[idx] = ~(margin_val > margin)
+            global_timer.add_count("predict_early_stop_row_trees",
+                                   cnt * (min(start + block, T) - start))
+    return scores
 
 
 # ------------------------------------------------------------------- cache

@@ -30,12 +30,12 @@ from .predict import PackedEnsemble, _predict_raw_fused, _traverse_leaves
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lgbt_predict_forest.argtypes = ([ptr, i64, i32, ptr, i32, i32, ptr]
-                                        + [i32] * 9 + [ptr, ptr, ptr])
+                                        + [i32] * 10 + [ptr, ptr, ptr])
     lib.lgbt_predict_forest.restype = i32
 
 
-LIB = CudaLibrary("predict_forest.cu", ("predict_forest_raw", "predict_forest_leaf"),
-                  _declare)
+LIB = CudaLibrary("predict_forest.cu", ("predict_forest_raw", "predict_forest_leaf",
+                                        "predict_forest_raw_acc"), _declare)
 SOURCE = LIB.source
 launches = LIB.launches
 reset_launches = LIB.reset_launches
@@ -109,7 +109,7 @@ def _check(packed: PackedEnsemble, X: torch.Tensor) -> None:
 
 
 def _launch(packed: PackedEnsemble, X: torch.Tensor, C: int, mode: str,
-            out: torch.Tensor) -> int:
+            out: torch.Tensor, accumulate: bool = False) -> int:
     n, F = X.shape
     T, I = packed.split_feature.shape
     R = packed.records.shape[1]
@@ -123,21 +123,26 @@ def _launch(packed: PackedEnsemble, X: torch.Tensor, C: int, mode: str,
         return lib.lgbt_predict_forest(
             X.data_ptr(), n, F, packed.records.data_ptr(), R, I, packed.cat_table.data_ptr(),
             T, packed.max_depth, C, MODES[mode], plan.rows_per_block, plan.trees_per_block,
-            plan.tile_trees, int(plan.stage_x), int(plan.stage_trees), out.data_ptr(),
-            None if vals is None else vals.data_ptr(), stream_of(X))
+            plan.tile_trees, int(plan.stage_x), int(plan.stage_trees), int(accumulate),
+            out.data_ptr(), None if vals is None else vals.data_ptr(), stream_of(X))
 
 
 def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: int,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None, accumulate: bool = False) -> torch.Tensor:
     """Raw scores [N, C] float32 (C = num_tree_per_iteration), each class
-    summing its trees in ascending iteration order. A CPU tensor takes the
+    summing its trees in ascending iteration order, from 0 or, with
+    `accumulate`, from the value `out` holds (the kernel's accumulate mode,
+    counted as predict_forest_raw_acc: prediction early stopping adds a
+    block of trees onto running sums this way). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel."""
     C = num_tree_per_iteration
     if packed.linear and X.device.type != "cpu":
         raise ValueError("a linear-tree ensemble is scored from the leaf mode "
                          "(ops/predict.py:predict_raw), not the raw mode")
+    if accumulate and out is None:
+        raise ValueError("accumulate adds onto out: pass the running sums")
     if X.device.type == "cpu":
-        res = _predict_raw_fused(packed, X, C)
+        res = _predict_raw_fused(packed, X, C, out if accumulate else None)
         return res if out is None else out.copy_(res)
     require_cuda(X, "the forest traversal")
     _check(packed, X)
@@ -152,8 +157,8 @@ def forest_raw(packed: PackedEnsemble, X: torch.Tensor, num_tree_per_iteration: 
                          f"on {X.device}")
     if n == 0:
         return out
-    err = _launch(packed, X, C, "raw", out)
-    LIB.count("predict_forest_raw", err)
+    err = _launch(packed, X, C, "raw", out, accumulate)
+    LIB.count("predict_forest_raw_acc" if accumulate else "predict_forest_raw", err)
     return out
 
 

@@ -33,7 +33,14 @@ training (the categorical scan a CUDA graph a shape) on the card are
 byte-equal to the CPU's. DART (snapped gradients) and RF (labels on a 1/64
 grid) through the wave learner on the card are byte-equal to the CPU's; a
 checkpoint taken with the async pipeline running resumes on the card
-bit-identically; refit's leaf sums on the card equal the CPU's.
+bit-identically; refit's leaf sums on the card equal the CPU's. The
+traversal kernel's accumulate mode equals the plain version in both plans,
+and prediction early stopping on the card equals the CPU's bit for bit. The
+ranking objectives' gradients on the card are within 1e-5 of the CPU's
+(xendcg rtol 1e-5 / atol 1e-7; its uniforms bit-equal), NDCG and MAP within
+1e-6; lambdarank on snapped gradients trains on the card as on the CPU
+through both learners, and a rank_xendcg run resumed from a checkpoint on
+the card is byte-equal to the uninterrupted one.
 """
 import numpy as np
 import pytest
@@ -59,6 +66,7 @@ from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner, _grow
 from test_torch_wave_cases import (WAVE_CASES, partition_inputs, wave_case, wave_children,
                                    wave_state, wave_tables_random)
 from torch_grid_data import grid_regression
+from torch_rank_data import SnappedLambdarank, rank_data, shown_positions
 
 pytestmark = pytest.mark.gpu
 PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]
@@ -1538,3 +1546,159 @@ def test_refit_leaf_sums_on_card_equal_plain(cuda):
     refits = [lt.Booster(params={**params, "device_type": dev}, model_str=text)
               .refit(X2, y2, decay_rate=0.5).model_to_string() for dev in ("cuda", "cpu")]
     assert refits[0] == refits[1] != text
+
+
+def _forest(rng, C):
+    from lightgbm_tpu_torch.models.synthetic import random_model
+
+    return random_model(rng, 10, 30, 31, num_class=C, cat_features=(4,),
+                        objective="binary sigmoid:1" if C == 1 else f"multiclass num_class:{C}")
+
+
+@pytest.mark.parametrize("rows", [64, 4096, 50000])
+def test_predict_accumulate_kernel_matches_plain(cuda, rows):
+    """A slice of the forest added onto running sums: both plans (trees
+    split across blocks below 32,768 rows, every block walking all trees
+    above), 3 classes, bit-equal to the plain version's chain of adds."""
+    from lightgbm_tpu_torch.models.synthetic import make_rows
+    from lightgbm_tpu_torch.ops import predict_cuda
+    from lightgbm_tpu_torch.ops.predict import _predict_raw_fused, pack_ensemble
+
+    rng = np.random.RandomState(49)
+    model = _forest(rng, 3)
+    X = torch.from_numpy(make_rows(rng, rows, 10, (4,)))
+    init = torch.from_numpy(rng.normal(size=(rows, 3)).astype(np.float32))
+    part = pack_ensemble(model.trees).tree_slice(9, 45)
+    part_d = pack_ensemble(model.trees, device=cuda).tree_slice(9, 45)
+    before = predict_cuda.launches["predict_forest_raw_acc"]
+    got = predict_cuda.forest_raw(part_d, X.to(cuda), 3, out=init.to(cuda), accumulate=True)
+    assert predict_cuda.launches["predict_forest_raw_acc"] == before + 1
+    assert torch.equal(got.cpu(), _predict_raw_fused(part, X, 3, init))
+
+
+@pytest.mark.parametrize("C", [1, 3], ids=["binary", "3-class"])
+def test_early_stop_on_card_bit_equal_to_cpu(cuda, C):
+    from lightgbm_tpu_torch.models.synthetic import make_rows
+    from lightgbm_tpu_torch.ops.predict import pack_ensemble, predict_raw, predict_raw_early_stop
+
+    rng = np.random.RandomState(50)
+    model = _forest(rng, C)
+    X = torch.from_numpy(make_rows(rng, 20000, 10, (4,)))
+    packed, packed_d = pack_ensemble(model.trees), pack_ensemble(model.trees, device=cuda)
+    for margin in (0.8, float("inf")):
+        got = predict_raw_early_stop(packed_d, X.to(cuda), C, 5, margin)
+        assert torch.equal(got.cpu(), predict_raw_early_stop(packed, X, C, 5, margin))
+    assert torch.equal(got, predict_raw(packed_d, X.to(cuda), C))
+
+
+def _rank_objectives(cuda, name, params, y, sizes, positions=None):
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+
+    md = Metadata(len(y))
+    md.set_label(y)
+    md.set_query(sizes)
+    if positions is not None:
+        md.set_positions(positions)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        obj = create_objective(name, Config({"objective": name, **params}))
+        obj.init(md, len(y), dev)
+        out.append(obj)
+    return out
+
+
+RANK_CASES = [("lambdarank", {}, False), ("lambdarank", {"lambdarank_norm": False}, False),
+              ("lambdarank", {"lambdarank_position_bias_regularization": 0.1}, True),
+              ("rank_xendcg", {}, False)]
+
+
+@pytest.mark.parametrize("name,params,position", RANK_CASES,
+                         ids=["norm", "no_norm", "debiased", "xendcg"])
+def test_ranking_gradients_on_card_match_cpu(cuda, name, params, position):
+    """Three iterations on the card and on the CPU from the same scores
+    (the card's exp, log and log2 are not the CPU's, and its sums run in
+    another order)."""
+    from lightgbm_tpu_torch.objectives.rank import xendcg_uniforms
+
+    _, y, sizes = rank_data(51, n_queries=400)
+    card, cpu = _rank_objectives(cuda, name, params, y, sizes,
+                                 shown_positions(sizes) if position else None)
+    rtol, atol = (1e-5, 1e-7) if name == "rank_xendcg" else (0.0, 1e-5)
+    score = (np.random.RandomState(51).normal(size=len(y)) * 2).astype(np.float32)
+    for _ in range(3):
+        g, h = card.get_gradients(torch.from_numpy(score).to(cuda))
+        rg, rh = cpu.get_gradients(torch.from_numpy(score))
+        assert g.is_cuda and h.is_cuda
+        np.testing.assert_allclose(g.cpu().numpy(), rg.numpy(), rtol=rtol, atol=atol)
+        np.testing.assert_allclose(h.cpu().numpy(), rh.numpy(), rtol=rtol, atol=atol)
+        score = score - rg.numpy()
+    if name == "rank_xendcg":
+        seeds = cpu.seeds(np.arange(300))
+        assert torch.equal(xendcg_uniforms(seeds, 256, cuda).cpu(),
+                           xendcg_uniforms(seeds, 256, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("name", ["ndcg", "map"])
+def test_ranking_metrics_on_card_match_cpu(cuda, name):
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.metrics import create_metric
+
+    _, y, sizes = rank_data(52, n_queries=400)
+    md = Metadata(len(y))
+    md.set_label(y)
+    md.set_query(sizes)
+    md.set_weights(np.random.RandomState(52).uniform(0.5, 2.0, size=len(y)))
+    score = np.random.RandomState(53).randint(-3, 4, size=len(y)).astype(np.float32)
+    vals = []
+    for dev in (cuda, torch.device("cpu")):
+        metric = create_metric(name, Config({"eval_at": [1, 3, 5, 10]}))
+        metric.init(md, len(y), dev)
+        vals.append(metric.eval(torch.from_numpy(score).to(dev), None))
+    np.testing.assert_allclose(vals[0], vals[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("learner", ["wave", "serial"])
+def test_lambdarank_on_card_byte_equal_to_cpu(cuda, learner):
+    """Snapped lambdarank gradients computed on the host, 63 leaves, 3
+    rounds: the card's model text equals the CPU's (the wave learner on the
+    CPU swapped into the CPU booster's GBDT)."""
+    X, y, sizes = rank_data(54, n_queries=400, n_features=10)
+    params = {"objective": "none", "num_leaves": 63, "min_data_in_leaf": 10,
+              "metric": "None", "verbosity": -1}
+    if learner == "serial":
+        params["feature_fraction_bynode"] = 0.8
+    texts = []
+    for where in ("card", "cpu"):
+        ds = lt.Dataset(X, label=y, group=sizes)
+        bst = lt.Booster({**params, **({"device_type": "cpu"} if where == "cpu" else {})}, ds)
+        if where == "cpu" and learner == "wave":
+            bst._gbdt.tree_learner = DeviceTreeLearner(bst._gbdt.config, ds._handle,
+                                                       torch.device("cpu"))
+        assert isinstance(bst._gbdt.tree_learner, DeviceTreeLearner) == (learner == "wave")
+        fobj = SnappedLambdarank()
+        for _ in range(3):
+            bst.update(fobj=fobj)
+        texts.append(bst.model_to_string())
+    assert texts[0] == texts[1]
+
+
+def test_xendcg_checkpoint_resume_on_card(cuda, tmp_path):
+    """rank_xendcg through the wave learner on the card, a checkpoint after
+    round 3 of 6: the resumed run continues the draws from iteration 4 and
+    is byte-equal to the uninterrupted run."""
+    from lightgbm_tpu_torch.checkpoint import checkpoint_callback, load_checkpoint
+
+    X, y, sizes = rank_data(55, n_queries=400, n_features=10)
+    params = {"objective": "rank_xendcg", "num_leaves": 31, "metric": "None",
+              "verbosity": -1}
+    cb = checkpoint_callback(lambda it: str(tmp_path / f"ckpt_{it}.txt"), period=3)
+    straight = lt.train(dict(params), lt.Dataset(X, label=y, group=sizes), num_boost_round=6,
+                        callbacks=[cb])
+    assert isinstance(straight._gbdt.tree_learner, DeviceTreeLearner)
+    path = str(tmp_path / "ckpt_3.txt")
+    assert load_checkpoint(path).objective == {"iter": 3}
+    resumed = lt.train(dict(params), lt.Dataset(X, label=y, group=sizes), num_boost_round=6,
+                       init_model=path)
+    assert resumed.model_to_string() == straight.model_to_string()
+    assert torch.equal(resumed._gbdt.score, straight._gbdt.score)

@@ -99,7 +99,7 @@ def test_gradients_init_and_boost_match_jax(jax_ref, case, weighted):
     ref = jax_objective(name, JaxConfig(params))
     obj.init(md, n, CPU)
     ref.init(jmd, n)
-    assert obj.trainable and obj.num_model_per_iteration == num_class
+    assert obj.num_model_per_iteration == num_class
     score = (rng.normal(size=(num_class, n)) * 2).astype(np.float32)
     grad, hess = obj.get_gradients(torch.from_numpy(score))
     rgrad, rhess = jax.jit(ref.get_gradients)(jnp.asarray(score))

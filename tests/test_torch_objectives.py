@@ -72,7 +72,6 @@ def test_gradients_match_jax(jax_ref, case, weighted):
     ref = jax_objective(name, JaxConfig({"objective": name, **params}))
     obj.init(md, N, torch.device("cpu"))
     ref.init(jmd, N)
-    assert obj.trainable
     grad, hess = obj.get_gradients(torch.from_numpy(score))
     rgrad, rhess = jax.jit(ref.get_gradients)(jnp.asarray(score))
     assert grad.dtype == hess.dtype == torch.float32
@@ -128,12 +127,16 @@ def test_metrics_match_jax(jax_ref, case, weighted):
 
 @pytest.mark.parametrize("name", ["lambdarank", "rank_xendcg", "xentropy"])
 def test_untrainable_objective_is_refused(name):
-    """The ranking and cross-entropy objectives are refused (multiclass
-    trains since its slice: tests/test_torch_multiclass.py)."""
+    """Data these objectives cannot train on is refused: ranking without
+    query groups, cross entropy with a negative label (each trains since
+    its slice: tests/test_torch_rank.py, tests/test_torch_xentropy.py)."""
     from lightgbm_tpu_torch import Dataset, train
     from lightgbm_tpu_torch.utils.log import LightGBMError
 
     X = np.random.RandomState(0).normal(size=(200, 3))
-    with pytest.raises(LightGBMError, match="not yet ported"):
+    label = np.zeros(200)
+    label[0] = -1.0
+    what = "non-negative" if name == "xentropy" else "query information"
+    with pytest.raises(LightGBMError, match=what):
         train({"objective": name, "device_type": "cpu", "verbosity": -1},
-              Dataset(X, label=np.zeros(200)), num_boost_round=1)
+              Dataset(X, label=label), num_boost_round=1)

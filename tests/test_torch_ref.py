@@ -16,11 +16,23 @@ their worker.
 
 Other test files use the fixture with ``from tests.test_torch_ref import
 jax_ref  # noqa: F401``.
+
+Importing this file also pins PyTorch's intra-op threads to this process's
+share of the machine's cores: every pytest-xdist worker collects every
+test file, so each worker imports it, and six workers each running
+PyTorch's default of one thread a core would put six threads on every core
+(a case that takes 3 s alone took 500-780 s). One process without xdist
+keeps a thread a core.
 """
+import os
 import sys
 
 import numpy as np
 import pytest
+import torch
+
+torch.set_num_threads(max(1, os.cpu_count()
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _is_reference(name: str) -> bool:
