@@ -256,6 +256,37 @@ Phases (any failure exits non-zero before the result line):
             the 65,536-row cut. Each run prints s/iteration (the first
             apart), the valid NDCG@10 by round and the busy share of one
             more profiled round.
+18. observe and serve  on phase 8's binned data: 3 wave rounds in a
+            telemetry session (telemetry_dir) between two runs without one:
+            events.jsonl, trace.json and metrics.prom written and parsed, an
+            iteration and a tree_wave event a tree, hbm_high_water_bytes
+            equal to torch.cuda.max_memory_allocated, the model text
+            byte-equal, s/iteration on and off; perfmodel.attribution of the
+            session (fractions sum to 1 within 1e-9, roofline fractions at
+            most 1.05); the sync sanitizer over 3 rounds at phase 11's async
+            settings and over GOSS's first sampling round at phase 13's (no
+            host read and no sync, torch.cuda.set_sync_debug_mode("error")
+            armed, in the sync-free scopes tree_device and goss_select; the
+            host reads by scope; model texts byte-equal); one round under
+            LGBM_TPU_PROFILE, whose trace names the wave's kernels. Then
+            PredictionService(replicas=2) with phase 3's HIGGS-profile and
+            multiclass models, one a replica: 256 binary-wire requests of 64
+            rows from 8 threads over HTTP, each bit-equal to Booster.predict,
+            /metrics' request counter 256, /debug/flight answering; a canary
+            at fraction 0.25 of a second HIGGS-profile version gets every 4th
+            request, is promoted after 4 and answers bit-equal to its
+            Booster; predict_fail@1:3 fails 3 requests (HTTP 500, no
+            launch) and opens the breaker, which sheds the 4th (HTTP 503
+            breaker_open, no launch, answered nowhere else) and after the
+            cooldown two half-open probes on the card close it,
+            serve_breaker_state on /metrics following each step. No
+            dispatch fails and no request is shed outside that window
+            (checked after phases 7, 10 and 17 and at the end of 18).
+
+Bounds: each kernel's bytes and operations come from
+lightgbm_tpu_torch/perfmodel.py's formula for its row of PERF.md's table,
+over the card's peak rates in the same module. The library call of the
+leaf and ragged histograms is index_add_ over the flat bin index.
 
 The Booster surface: after phase 8, dump_model parses and its leaf values
 and thresholds equal the model text's, feature_importance ("split" and
@@ -268,7 +299,8 @@ The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving and predict paths, prediction early stopping's
 accumulate mode included), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
-of phases 13, 14, 15, 16 and 17 (the training paths): every kernel of each path must
+of phases 13, 14, 15, 16 and 17 (the training paths) and of phase 18: every kernel
+of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -289,20 +321,22 @@ import inspect
 import itertools
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+from lightgbm_tpu_torch import perfmodel
 
 DEVICE = "cuda"
+# the card the bounds are for (torch.cuda.get_device_name, set in main):
+# its peak rates come from lightgbm_tpu_torch/perfmodel.py's table
+CARD_KIND = "NVIDIA H100 80GB HBM3"
 HIGGS = dict(n_features=28, n_iterations=500, num_leaves=255)
 SAMPLE_ROWS = 65_536
 MAIN_ROWS = 1_048_576
@@ -343,10 +377,12 @@ def check(ok: bool, what: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi prints them."""
+    from lightgbm_tpu_torch.fingerprint import card_identity
+
+    line = card_identity()
+    check(line is not None, "nvidia-smi did not report the card's name and power limit")
+    return line
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -378,11 +414,16 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def bound(nbytes: float, ops: float):
-    """The least time the card could take: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is larger (ms)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(cost):
+    """The least time the card could take for a kernel's (bytes,
+    operations), a perfmodel.py formula's: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is larger (ms, and
+    which)."""
+    from lightgbm_tpu_torch import perfmodel
+
+    b = perfmodel.bound_ms(*cost, CARD_KIND)
+    check(b is not None, f"perfmodel.py has no peak rates for {CARD_KIND!r}")
+    return b
 
 
 def higgs_rows(seed: int, n: int):
@@ -514,6 +555,37 @@ def leaf_sets(rng, n_rows, dev):
     return sets
 
 
+def index_add_ms(bins, gh, rows, slots, n_slots, num_bins, want, reps=10):
+    """The one PyTorch call that computes a histogram's sums: index_add_ of
+    each (row, group)'s gh into its flat (group, bin[, slot]) cell, in no
+    fixed order, over the index and the gh rows expanded beforehand; held to
+    the kernel's result `want` within the float32 summation bound. Returns
+    its ms a call (CUDA events)."""
+    G = bins.shape[0]
+    rows = rows.to(torch.int64)
+    cell = (bins[:, rows].to(torch.int64)
+            + torch.arange(G, device=bins.device)[:, None] * num_bins)
+    if slots is not None:
+        cell = cell * n_slots + slots[rows].to(torch.int64)[None]
+    idx = cell.reshape(-1)
+    src = gh[rows][None].expand(G, -1, -1).reshape(-1, gh.shape[1])
+    size = G * num_bins * n_slots
+
+    def call(values=src):
+        return torch.zeros((size, gh.shape[1]), dtype=torch.float32,
+                           device=bins.device).index_add_(0, idx, values)
+
+    got = call().view_as(want)
+    err = (got.double() - want.double()).abs()
+    check(bool((err <= rows.numel() * 2.0 ** -24 * call(src.abs()).view_as(want).double()
+                + 1e-30).all()),
+          "index_add_: outside the float32 summation bound of the kernel's histogram")
+    ms = cuda_ms(call, reps)
+    del idx, src, cell
+    torch.cuda.empty_cache()
+    return ms
+
+
 def check_histogram(dev, bins, n_rows, num_bins, seed):
     """The leaf-histogram kernel against its plain versions at the serial
     learner's shapes: the root, a ~100,000-row and a ~4,000-row leaf (leaf
@@ -578,7 +650,10 @@ def check_histogram(dev, bins, n_rows, num_bins, seed):
             lambda i=idx, c=count: _build_histogram_rows_plain(bins, gh, i, num_bins, c), 3)
         # each input read once over the leaf's rows (bins, gh, the index),
         # the output written once
-        bounds[name] = bound(count * (G + 12 + 4) + out_bytes, 3 * G * count)
+        bounds[name] = bound(perfmodel.hist_rows(count, G, out_bytes))
+        if name == "root":
+            timings["library_root"] = index_add_ms(bins, gh, idx[:count], None, 1,
+                                                   num_bins, kern(gh, exps))
     root_idx, root_count = sets["root"]
     check(torch.equal(hist_cuda.histogram(bins, gh[:n_rows], None, num_bins).cpu(),
                       hist_cuda.histogram(bins, gh, root_idx, num_bins, root_count,
@@ -699,9 +774,9 @@ def check_row_partition(dev, kept):
         tiles = -(-cnt // partition_cuda.TILE)
         bounds[name] = {  # each input read once, each output written once
             # the index and a bin byte in, a bit and the tile's count out
-            "decide": bound(cnt * (4 + 1) + cnt / 8 + tiles * 4, 0),
+            "decide": bound(perfmodel.row_partition_decide(cnt, tiles)),
             # the index, the bits and the counts in, both children out
-            "scatter": bound(cnt * 4 + cnt / 8 + tiles * 4 + 2 * 4 * P + 4, 0),
+            "scatter": bound(perfmodel.row_partition_scatter(cnt, tiles, P)),
         }
         shapes[name] = (cnt, P, int(ref[2]))
     return timings, bounds, shapes
@@ -753,9 +828,7 @@ def check_split_scan(dev, ds, bins, num_bins, gh, idx):
                                                             mask_d), 10),
     }
     B = meta_h.max_bins
-    nbytes = F * B * 3 * 4 + F * B + F * 14 + 6 * 4 + 3 * 4 + F * 14 * 4
-    ops = F * B * 2 * 30  # per (feature, bin, lane): two leaf gains and gates
-    return max_err, timings, bound(nbytes, ops), F, B
+    return max_err, timings, bound(perfmodel.split_scan(F, B)), F, B
 
 
 def half_ranges(rng, n_rows, k):
@@ -848,7 +921,13 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
             lambda a=args_d, K=K, b=bins_d: _histogram_slots_ragged_plain(
                 b, pay_d["real"][:, :3], *a, num_bins, K), 2)
         # each input read once over the rows in the ranges, the output written
-        bounds[name] = bound(rows * (G + 12 + 4) + K * out_bytes, 3 * G * rows)
+        bounds[name] = bound(perfmodel.hist_ragged(rows, G, K, out_bytes))
+        if name == "wave":
+            in_ranges = torch.cat([torch.arange(int(a), int(b), device=dev)
+                                   for a, b in zip(st, en)])
+            timings["library_wave"] = index_add_ms(
+                bins_d, pay_d["real"][:, :3], in_ranges, args_d[0], K, num_bins,
+                kern("real", e=exps_d))
     # histogram_slots: every row, SLOT_SLOTS slots, on a sample
     n, S = SAMPLE_ROWS, SLOT_SLOTS
     sb = bins[:, :n].contiguous()
@@ -863,7 +942,7 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
     timings["slots"] = cuda_ms(lambda: histogram_slots(sb, sg, ss, num_bins, S), 20)
     timings["plain_slots"] = cuda_ms(lambda: _histogram_slots_ragged_plain(
         sb, sg, ss, *all_rows, num_bins, S), 2)
-    bounds["slots"] = bound(n * (G + 12 + 4) + S * out_bytes, 3 * G * n)
+    bounds["slots"] = bound(perfmodel.hist_ragged(n, G, S, out_bytes))
     return max_err, timings, bounds, kept["wave"], kept["root"]
 
 
@@ -914,7 +993,7 @@ def check_compaction(dev, bins, n_rows, seed):
     timings = {"kernel": cuda_ms(lambda: compact_cuda.compact(bins, rows_d, dst, out), 20),
                "plain": cuda_ms(lambda: _compact_rows_plain(bins, rows_d, dst), 5),
                "library": cuda_ms(library, 20)}
-    return timings, bound(2 * (G + 5 * 4) * n_rows + 4 * n_rows, 0)
+    return timings, bound(perfmodel.compact_rows(n_rows, G))
 
 
 def check_batched_scan(dev, ds, num_bins, wave_hist, root_hist):
@@ -948,8 +1027,7 @@ def check_batched_scan(dev, ds, num_bins, wave_hist, root_hist):
                "plain": cuda_ms(lambda: ts._per_feature_best_plain(fh, totals, meta_d,
                                                                    params_d), 10)}
     L, F, B = fh.shape[0], fh.shape[1], fh.shape[2]
-    nbytes = L * (F * B * 3 * 4 + 3 * 4 + F * 14 * 4) + F * B + F * 14 + 6 * 4
-    return timings, bound(nbytes, L * F * B * 2 * 30), (L, F, B)
+    return timings, bound(perfmodel.split_scan_batched(L, F, B)), (L, F, B)
 
 
 _STATE = ("leaf_best", "depth", "start", "count", "rec_store", "scalars", "pool",
@@ -1156,24 +1234,8 @@ def check_wave_step(dev, kept):
         "replay_plain": cuda_ms(replay_plain, 3),
     }
     n = committed["middle"]
-    nbytes = {  # each input read once, each output written once
-        # the L gains; of each selected leaf its record's feature, threshold
-        # and default_left, its start and count, and its feature's six int32
-        # fields and is_efb byte; the done word; the table out
-        "select": L * 4 + K * (3 * 4 + 2 * 4 + 6 * 4 + 1) + 8 + select_size(L, K) * 4,
-        # in: the L gains, the K parents' depths, the table's starts,
-        # counts, valid flags and leaf ids, the left counts, the 2K
-        # children's gains, hessians and counts, five regularizers, the
-        # scalars; for each of the n commits, the rest of both children's
-        # records, their gradients and the parent's record. Out: the
-        # committed records, depths, split-log rows, starts and counts, the
-        # commit table and the scalars
-        "replay": (L * 4 + K * 4 + 4 * K * 4 + K * 4 + 2 * K * 3 * 4 + 5 * 4 + SCALARS * 8
-                   + n * (2 * (REC - 1) * 4 + 2 * 4 + REC * 4)
-                   + n * (2 * REC * 4 + 2 * 4 + STORE * 4 + 3 * 4) + 5 * K * 8
-                   + SCALARS * 8),
-    }
-    bounds = {k: bound(v, 0) for k, v in nbytes.items()}
+    bounds = {"select": bound(perfmodel.wave_select(L, K, select_size(L, K))),
+              "replay": bound(perfmodel.wave_replay(L, K, n))}
     return timings, bounds, (L, K, committed)
 
 
@@ -1348,18 +1410,12 @@ def check_partition(dev, kept, seed):
         "this_tree_host": host_ms(this_tree, 20), "parent_host": host_ms(parent, 20),
     }
     tiles = -(-N // compact_cuda.TILE_ROWS)
-    nbytes = {  # each input read once, each output written once
-        # the leaf id (its payload row's sectors) and a bin byte in, a bit
-        # and the tile's counts out
-        "decide": N * (4 * rc + 1) + N / 8 + tiles * K * 4,
-        # the counts in and the offsets out; the tables; the children out
-        "scan": 2 * tiles * K * 4 + 3 * K * 4 + K * (3 * 4 + 2 + 4),
-        # the plane and the payload in and out, the slot out, the bits in
-        "scatter": 2 * N * (G + 4 * rc) + 4 * N + N / 8 + tiles * K * 4,
-        "relabel": 4 * relabeled,
-    }
-    nbytes["partition"] = nbytes["decide"] + nbytes["scan"] + nbytes["scatter"]
-    bounds = {k: bound(v, 0) for k, v in nbytes.items()}
+    costs = {"decide": perfmodel.partition_decide(N, rc, tiles, K),
+             "scan": perfmodel.partition_scan(tiles, K),
+             "scatter": perfmodel.partition_scatter(N, G, rc, tiles, K),
+             "relabel": perfmodel.relabel(relabeled)}
+    costs["partition"] = (sum(costs[k][0] for k in ("decide", "scan", "scatter")), 0)
+    bounds = {k: bound(v) for k, v in costs.items()}
     return timings, bounds, (N, G, K, moved, relabeled)
 
 
@@ -1476,10 +1532,8 @@ def check_find_split(dev, ds, bins, num_bins, gh, idx, wave_hist, root_hist, see
         "parent_one": cuda_ms(parent_one, 50), "parent_batch": cuda_ms(parent_batch, 50),
     }
     B = meta_h.max_bins
-    per_leaf = F * B * 12 + 3 * 4 + 14 * 4  # the features' bins, totals, the record
-    tables = F * B * 9 + F * 4 * 4 + F + 6 * 4  # gather index, valid slots, metadata
-    bounds = {"one": bound(per_leaf + tables, F * B * 2 * 30),
-              "batch": bound(2 * WAVE_K * per_leaf + tables, 2 * WAVE_K * F * B * 2 * 30)}
+    bounds = {"one": bound(perfmodel.find_best_split(F, B)),
+              "batch": bound(perfmodel.find_best_split(F, B, 2 * WAVE_K))}
     return max_err, (same, total), timings, bounds, (F, B)
 
 
@@ -1759,8 +1813,7 @@ def check_tree_loop(learner):
         "tree_loop_cond")
     timings = {"kernel": None if per_tree is None else per_tree / (1 + passes),
                "plain": host_ms(lambda: int(buf.scalars[DONE]), 50)}
-    # the done word and the pass count read, the pass count written
-    return timings, bound(3 * 8, 0), passes
+    return timings, bound(perfmodel.tree_loop_cond()), passes
 
 
 def drive_multiclass(lt, libs, seed, tag):
@@ -2142,9 +2195,8 @@ def check_quantize(sets):
                "plain": cuda_ms(lambda: _quantize_gh_plain(grad, hess, key, 4, True), 5)}
     timings.update(device_kernel_ms(kern, 20, ("quantize_reduce_kernel", "quantize_kernel"))
                    or {})
-    # each pass reads g and h once; the quantize pass writes the int8 rows
-    bounds = {"quantize_reduce": bound(8 * n + 4 * 3 * 256, 3 * n),
-              "quantize": bound(8 * n + 3 * (n + 1) + 12 + 4 * 3 * 256, 6 * n)}
+    bounds = {"quantize_reduce": bound(perfmodel.quantize_reduce(n)),
+              "quantize": bound(perfmodel.quantize(n))}
     return timings, bounds
 
 
@@ -2256,15 +2308,11 @@ def check_quantized_modes(dev, core, learner, got, gh_q, scale):
             bins, payload, slot, starts, ends, valid, B, 1, True), 3),
     }
     F, Bf = meta_h.gather_index.shape
-    per_leaf = F * Bf * 12 + 3 * 4 + 14 * 4 + 3 * 4  # the int32 bins, totals, record, scale
-    tables = F * Bf * 9 + F * 4 * 4 + F + 6 * 4
     out = G * B * 3 * 4
-    bounds = {"one": bound(per_leaf + tables, F * Bf * 2 * 31),
-              "batch": bound(2 * WAVE_K * per_leaf + tables, 2 * WAVE_K * F * Bf * 2 * 31),
-              # bins, the int8 gh row and the index read once, the histogram written
-              "rows": bound(N * (G + 3 + 4) + out, 3 * G * N),
-              # bins, the payload's three float columns and the slot read once
-              "ragged": bound(N * (G + 12 + 4) + out, 3 * G * N)}
+    bounds = {"one": bound(perfmodel.find_best_split(F, Bf, quantized=True)),
+              "batch": bound(perfmodel.find_best_split(F, Bf, 2 * WAVE_K, quantized=True)),
+              "rows": bound(perfmodel.hist_rows(N, G, out, gh_bytes=3)),
+              "ragged": bound(perfmodel.hist_ragged(N, G, 1, out))}
     for key in ("one", "batch", "rows", "ragged"):
         print(f"kernels: integer mode {key}: {fmt_ms(timings[key])} of device time a call "
               f"(torch.profiler; CUDA events {timings[key + '_events']:.4f} ms), plain "
@@ -3146,11 +3194,7 @@ def check_constrained_scan(booster, dev, tag):
          "plain": cuda_ms(lambda: ts._find_best_split_plain(hist, tot_d, tl.meta,
                                                             tl.params_dev, constraint=inf), 5)}
     F, B = tl.meta.gather_index.shape
-    per_leaf = F * B * 12 + 3 * 4 + 14 * 4
-    tables = F * B * 9 + F * 4 * 4 + 2 * F + 6 * 4
-    # a candidate: the two sides' sums (6), two outputs (8 each), two clamps
-    # (4), the direction test (3), two gains from the outputs (9 each), a sum
-    b = bound(per_leaf + tables, F * B * 2 * 48)
+    b = bound(perfmodel.find_best_split(F, B, constrained=True))
     print(f"{tag} kernels: find_best_split_constrained ({F} x {B}, the root of the constraints "
           f"run's gradients, and two leaves of its last tree with binding bounds): records "
           f"bit-equal to the plain version run on the CPU ({found} of the 3 with a split); device "
@@ -3189,9 +3233,7 @@ def linear_score_timing(booster, dev, tag):
                   .to(torch.float64).mean())
     tables = sum(t.numel() * t.element_size() for t in (
         packed.records, packed.lin_const, packed.lin_feat, packed.lin_coeff))
-    # the rows read once, a score written; a compare a level, two operations
-    # a linear term, the constant's add
-    b = bound(n * F * 4 + n * 4 + tables, n * (depth + 2 * K + 1))
+    b = bound(perfmodel.linear_score(n, F, K, depth, tables))
     print(f"{tag} linear score of one tree over {n} rows (K = {K} slots a leaf): "
           f"{ms:.4f} ms a call (CUDA events; the leaf mode alone {leaf_ms:.4f} ms, the "
           f"epilogue the rest), plain {plain:.3f} ms, bound {b[0]:.5f} ms ({b[1]}); the "
@@ -3936,6 +3978,351 @@ def drive_ranking(lt, libs, higgs_set, higgs_valid, seed, tag):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 18: observe and serve
+OBSERVE_ROUNDS = 3  # wave rounds in the telemetry session and under the sanitizer
+OBSERVE_REQUIRED = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+                    "partition_scatter", "relabel_rows", "find_best_split_batched",
+                    "wave_select", "wave_replay", "tree_loop_cond", "predict_forest_raw")
+# the profiled round's trace must name these kernels
+OBSERVE_TRACE_KERNELS = ("hist_ragged_kernel", "split_kernel", "wave_select_kernel",
+                         "wave_replay_kernel", "decide_kernel", "scan_kernel",
+                         "scatter_kernel")
+CANARY_FRACTION, CANARY_PROMOTE, CANARY_REQUESTS = 0.25, 4, 24
+BREAKER_ROWS = 1024  # rows a request of the breaker's open window
+PROBE_ROWS = 200  # a half-open probe's request: one chunk under degraded_rows
+
+
+def _http(base, path, body=None, ctype="application/json"):
+    req = urllib.request.Request(base + path, data=body, method="POST" if body else "GET",
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, resp.read()
+
+
+def _http_code(base, path, body, ctype):
+    """(status, error code) of a request answered with an error; (200,
+    None) for an answer."""
+    try:
+        status, _ = _http(base, path, body, ctype)
+        return status, None
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())["error"]
+
+
+def _metric(base, name):
+    from lightgbm_tpu_torch import exposition
+
+    status, text = _http(base, "/metrics")
+    check(status == 200, "observe: /metrics refused")
+    return exposition.parse_exposition(text.decode()).get((name, ()))
+
+
+def observe_training(lt, train_set, tag, report):
+    """Telemetry, attribution, sanitizer and profiler on phase 8's binned
+    data."""
+    from lightgbm_tpu_torch import exposition, perfmodel, telemetry
+    from lightgbm_tpu_torch.utils import sanitize
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    # ---- a telemetry session over OBSERVE_ROUNDS wave rounds, against off
+    # off, on, off: the first run also loads what a process loads once
+    off = lt.train(dict(WAVE_PARAMS), train_set, num_boost_round=OBSERVE_ROUNDS)
+    tel_dir = os.path.join(tmp, "telemetry")
+    t = time.perf_counter()
+    on = lt.train({**WAVE_PARAMS, "telemetry_dir": tel_dir}, train_set,
+                  num_boost_round=OBSERVE_ROUNDS)
+    wall_on = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    again = lt.train(dict(WAVE_PARAMS), train_set, num_boost_round=OBSERVE_ROUNDS)
+    wall_off = time.perf_counter() - t
+    check(again.model_to_string() == off.model_to_string(),
+          "observe: two runs with telemetry off differ")
+    check(on.model_to_string() == off.model_to_string(),
+          "observe: the model text with telemetry on differs from telemetry off")
+    check(sorted(os.listdir(tel_dir)) == ["events.jsonl", "metrics.prom", "trace.json"],
+          f"observe: the telemetry dir holds {os.listdir(tel_dir)}")
+    with open(os.path.join(tel_dir, "events.jsonl")) as fh:
+        events = [json.loads(line) for line in fh]
+    with open(os.path.join(tel_dir, "trace.json")) as fh:
+        trace = json.load(fh)
+    with open(os.path.join(tel_dir, "metrics.prom")) as fh:
+        prom = exposition.parse_exposition(fh.read())
+    kinds = [e["ev"] for e in events]
+    waves = [e for e in events if e["ev"] == "tree_wave"]
+    check(kinds.count("iteration") == OBSERVE_ROUNDS and len(waves) == OBSERVE_ROUNDS
+          and all(e["graphed"] and e["waves"] > 0 for e in waves),
+          f"observe: {kinds.count('iteration')} iteration and {len(waves)} tree_wave events "
+          f"for {OBSERVE_ROUNDS} trees")
+    summary = events[-1]
+    check(summary["ev"] == "session_end", "observe: the stream does not end with session_end")
+    check(summary["hbm_high_water_bytes"] == peak > 0,
+          f"observe: hbm_high_water_bytes {summary['hbm_high_water_bytes']} is not the "
+          f"memory stats' peak {peak}")
+    check(prom[("lgbm_tpu_hbm_high_water_bytes", ())] == peak,
+          "observe: metrics.prom's high-water is not the session's")
+    spans = {e["name"] for e in trace["traceEvents"] if e["ph"] == "B"}
+    check({"tree_device", "tree_results", "train_iteration.boost"} <= spans,
+          f"observe: the trace lacks the learner's spans ({sorted(spans)[:12]})")
+    report["s_per_iter"] = (wall_on / OBSERVE_ROUNDS, wall_off / OBSERVE_ROUNDS)
+    print(f"{tag} observe: {OBSERVE_ROUNDS} wave rounds at {train_set.num_data()} x "
+          f"{train_set.num_feature()}: {wall_on / OBSERVE_ROUNDS:.4f} s/iteration with a "
+          f"telemetry session, {wall_off / OBSERVE_ROUNDS:.4f} without; model texts "
+          f"byte-equal; {len(events)} events, {len(spans)} span labels, "
+          f"{summary['compile_count']} compiles ({summary['kernel_compile_count']} kernel "
+          f"builds), hbm_high_water_bytes {peak} = torch.cuda.max_memory_allocated")
+    # ---- attribution of the session's stages
+    att = perfmodel.attribution(summary["timer_totals"], summary["counters"],
+                                total_s=wall_on, device_kind=CARD_KIND)
+    check(abs(att["fractions_sum"] - 1.0) <= 1e-9,
+          f"observe: attribution fractions sum to {att['fractions_sum']}")
+    roofs = {k: v["roofline_frac"] for k, v in att["stages"].items() if "roofline_frac" in v}
+    check(roofs and all(r <= 1.05 for r in roofs.values()),
+          f"observe: roofline fractions {roofs}")
+    report["attribution"] = att
+    print(f"{tag} observe: attribution over {att['total_s']:.3f} s: " + ", ".join(
+        f"{k} {v['fraction']:.3f}" for k, v in att["stages"].items())
+        + "; grow_fused model " + ", ".join(
+            f"{k} {v / 1e6:.1f} MB" for k, v in
+            att["stages"]["grow_fused"]["model_components_bytes"].items())
+        + f", {att['stages']['grow_fused']['model_s'] * 1e3:.3f} ms at the peak rate, "
+        f"roofline fraction {roofs['grow_fused']:.4f}")
+    # ---- the sanitizer: phase 11's async settings, then one GOSS sampling round
+    async_params = dict(ASYNC_PARAMS)
+    plain_async = lt.train(async_params, train_set, num_boost_round=OBSERVE_ROUNDS)
+    sanitize.reset()
+    sanitize.enable("cuda", sync_debug=True)
+    try:
+        checked_async = lt.train(async_params, train_set, num_boost_round=OBSERVE_ROUNDS)
+    finally:
+        sanitize.disable()
+    counts_async = sanitize.sync_counts()
+    check(checked_async.model_to_string() == plain_async.model_to_string(),
+          "observe: the async run under the sanitizer differs from the run without it")
+    goss = {**WAVE_PARAMS, **GOSS_PARAMS}
+    warmup = int(1.0 / goss["learning_rate"])
+    boosters = []
+    for sanitized in (False, True):
+        bst = lt.Booster(dict(goss), train_set)
+        for _ in range(warmup):
+            bst.update()
+        sanitize.reset()
+        if sanitized:
+            sanitize.enable("cuda", sync_debug=True)
+        try:
+            bst.update()  # the first sampling round
+        finally:
+            sanitize.disable()
+        boosters.append(bst)
+    counts_goss = sanitize.sync_counts()
+    check(boosters[0].model_to_string() == boosters[1].model_to_string(),
+          "observe: the GOSS round under the sanitizer differs from the round without it")
+    for what, counts in (("async", counts_async), ("GOSS", counts_goss)):
+        for scope in sorted(sanitize.SYNC_FREE):
+            check(not counts.get(scope), f"observe: {counts.get(scope)} syncs in the "
+                                         f"sync-free scope {scope} ({what} run)")
+    report["sanitizer"] = {"async": counts_async, "goss": counts_goss}
+    print(f"observe: sanitizer ({OBSERVE_ROUNDS} async rounds; one GOSS sampling round): "
+          f"0 syncs in {sorted(sanitize.SYNC_FREE)}, sync-debug mode armed there; model "
+          f"texts byte-equal; host reads by scope: async {counts_async}, GOSS {counts_goss}")
+    # ---- the profiler: one round under LGBM_TPU_PROFILE
+    prof_dir = os.path.join(tmp, "profile")
+    os.environ["LGBM_TPU_PROFILE"] = prof_dir
+    try:
+        lt.train(dict(WAVE_PARAMS), train_set, num_boost_round=1)
+    finally:
+        del os.environ["LGBM_TPU_PROFILE"]
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    check(len(traces) == 1, f"observe: the profile dir holds {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as fh:
+        names = {str(e.get("name", "")) for e in json.load(fh)["traceEvents"]}
+    missing = [k for k in OBSERVE_TRACE_KERNELS if not any(k in n for n in names)]
+    check(not missing, f"observe: the profiler's trace names none of {missing}")
+    cond = any("tree_loop_cond" in n for n in names)
+    print(f"observe: LGBM_TPU_PROFILE wrote {traces[0]} ({len(names)} event names) naming "
+          + ", ".join(OBSERVE_TRACE_KERNELS) + f"; the tree graph's tree_loop_cond "
+          f"{'named' if cond else 'not named'} (it runs only inside the graph)")
+
+
+def observe_serving(lt, higgs, multi, seed, tag, report):
+    """Replicas, /metrics, /debug/flight, the canary and the breaker."""
+    from lightgbm_tpu_torch import Booster
+    from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
+    from lightgbm_tpu_torch.ops import predict_cuda
+    from lightgbm_tpu_torch.serving import CircuitBreaker, PredictionService, serve, wire
+    from lightgbm_tpu_torch.serving.breaker import CLOSED, HALF_OPEN, OPEN
+    from lightgbm_tpu_torch.utils import faults
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    texts = {"higgs": higgs.to_string(), "multi": multi.to_string()}
+    boosters = {k: Booster(model_str=v) for k, v in texts.items()}
+    width = {"higgs": HIGGS["n_features"], "multi": multi.max_feature_idx + 1}
+    cats = {"higgs": (), "multi": (3, 7)}
+    breaker = CircuitBreaker(cooldown_s=0.5, probe_successes=2)
+    svc = PredictionService(max_batch_rows=4096, min_bucket=64, batch_window_s=0.001,
+                            replicas=2, breaker=breaker)
+    server, server_thread = serve(svc, port=0)
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        for name, text in texts.items():
+            status, _ = _http(base, "/models", json.dumps(
+                {"name": name, "model_str": text}).encode())
+            check(status == 200, f"observe serving: upload of {name} refused")
+        check(svc.placement() == {"higgs": 0, "multi": 1},
+              f"observe serving: placement {svc.placement()}")
+        rows = {k: make_rows(np.random.RandomState(seed + 40 + i),
+                             SERVE_REQUESTS * SERVE_ROWS, width[k], cats[k])
+                for i, k in enumerate(texts)}
+        answers, failures = [None] * SERVE_REQUESTS, []
+
+        def client(worker):
+            for i in range(worker, SERVE_REQUESTS, SERVE_THREADS):
+                name = "higgs" if i % 2 == 0 else "multi"
+                x = rows[name][i * SERVE_ROWS:(i + 1) * SERVE_ROWS]
+                raw = i % 4 < 2
+                try:
+                    _, body = _http(base, "/predict", wire.encode_request(name, x, raw),
+                                    wire.CONTENT_TYPE)
+                    answers[i] = (name, x, raw, wire.decode_response(body)[0])
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    failures.append(f"request {i}: {exc!r}")
+
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(SERVE_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t
+        check(not failures, "observe serving: " + "; ".join(failures[:5]))
+        for i, (name, x, raw, got) in enumerate(answers):
+            check(bool(np.array_equal(got, boosters[name].predict(x, raw_score=raw))),
+                  f"observe serving: request {i} ({name}) differs from Booster.predict")
+        check(_metric(base, "lgbm_tpu_serve_batcher_requests") == SERVE_REQUESTS,
+              "observe serving: /metrics' request counter is not the requests sent")
+        per_replica = [b["requests"] for b in svc.stats()["replicas"]["batchers"]]
+        check(per_replica == [SERVE_REQUESTS // 2] * 2,
+              f"observe serving: requests by replica {per_replica}")
+        status, body = _http(base, "/debug/flight")
+        dump = json.loads(body)
+        check(status == 200 and dump["format"] == "lgbm-flight" and dump["events"],
+              "observe serving: /debug/flight did not answer a dump")
+        print(f"{tag} observe serving: PredictionService(replicas=2), higgs on replica 0 and "
+              f"multi on replica 1 (each its own CUDA stream); {SERVE_REQUESTS} requests x "
+              f"{SERVE_ROWS} rows from {SERVE_THREADS} threads in {wall:.3f} s "
+              f"({SERVE_REQUESTS * SERVE_ROWS / wall:,.0f} rows/s), {per_replica} a replica, "
+              f"every answer bit-equal to Booster.predict; /metrics parses "
+              f"(serve_batcher_requests {SERVE_REQUESTS}); /debug/flight "
+              f"{len(dump['events'])} records")
+
+        # ---- the canary: every round(1/fraction)-th request of higgs
+        v2 = random_model(np.random.RandomState(seed + 50), **{**HIGGS, "n_iterations": 100})
+        bst_v2 = Booster(model_str=v2.to_string())
+        svc.start_canary("higgs", fraction=CANARY_FRACTION, promote_after=CANARY_PROMOTE,
+                         model_str=v2.to_string())
+        every = int(round(1 / CANARY_FRACTION))
+        routed = []
+        for i in range(CANARY_REQUESTS):
+            x = rows["higgs"][i * SERVE_ROWS:(i + 1) * SERVE_ROWS]
+            got = svc.predict("higgs", x, raw_score=True)
+            want_v2 = bst_v2.predict(x, raw_score=True)
+            want_v1 = boosters["higgs"].predict(x, raw_score=True)
+            check(bool(np.array_equal(got, want_v2)) or bool(np.array_equal(got, want_v1)),
+                  f"observe canary: request {i} is neither version's answer")
+            routed.append(bool(np.array_equal(got, want_v2)))
+        rule = [(i + 1) % every == 0 or i >= every * CANARY_PROMOTE
+                for i in range(CANARY_REQUESTS)]
+        check(routed == rule, f"observe canary: routed {routed}, the rule {rule}")
+        info = svc.canary_info()
+        check(info["promoted"] == 1 and not info["active"],
+              f"observe canary: {info}")
+        print(f"observe canary: fraction {CANARY_FRACTION}, promote after {CANARY_PROMOTE}: "
+              f"requests {[i for i, r in enumerate(routed) if r and i < every * CANARY_PROMOTE]}"
+              f" went to the candidate as the rule picks, then it was promoted; its answers "
+              f"bit-equal to its Booster's")
+
+        # ---- the breaker: predict_fail on 3 dispatches, shedding, recovery
+        check(_metric(base, "lgbm_tpu_serve_breaker_state") == 0,
+              "observe breaker: not closed before the faults")
+        xb = make_rows(np.random.RandomState(seed + 60), 6 * BREAKER_ROWS, HIGGS["n_features"])
+        failures0 = global_timer.counters.get("serve_dispatch_failures", 0)
+        shed0 = global_timer.counters.get("serve_breaker_shed", 0)
+        launches0 = predict_cuda.launches["predict_forest_raw"]
+        faults.install("predict_fail@1:3")
+        states, codes = [], []
+        try:
+            for i, raw in enumerate((False, True, False, True)):
+                x = xb[i * BREAKER_ROWS:(i + 1) * BREAKER_ROWS]
+                codes.append(_http_code(base, "/predict", wire.encode_request("higgs", x, raw),
+                                        wire.CONTENT_TYPE))
+                states.append(_metric(base, "lgbm_tpu_serve_breaker_state"))
+        finally:
+            faults.clear()
+        check(codes == [(500, "internal_error")] * 3 + [(503, "breaker_open")],
+              f"observe breaker: answers {codes}, not three failures and one shed request")
+        check(breaker.state == OPEN and states == [0, 0, 2, 2],
+              f"observe breaker: states {states} after 3 failures and one shed request")
+        check(predict_cuda.launches["predict_forest_raw"] == launches0,
+              "observe breaker: a failed or shed request launched the traversal")
+        time.sleep(breaker.cooldown_s + 0.1)
+        for i in (4, 5):
+            x = xb[i * BREAKER_ROWS:i * BREAKER_ROWS + PROBE_ROWS]
+            check(bool(np.array_equal(svc.predict("higgs", x), bst_v2.predict(x))),
+                  f"observe breaker: probe request {i} differs from Booster.predict")
+            states.append(_metric(base, "lgbm_tpu_serve_breaker_state"))
+        check(predict_cuda.launches["predict_forest_raw"] > launches0,
+              "observe breaker: the half-open probes did not run on the card")
+        check(breaker.state == CLOSED and states[4:] == [3, 0],
+              f"observe breaker: states {states}, not half-open then closed")
+        stats = svc.stats()["batcher"]
+        failures = global_timer.counters.get("serve_dispatch_failures", 0) - failures0
+        shed = global_timer.counters.get("serve_breaker_shed", 0) - shed0
+        check(failures == 3 and shed == 1 and stats["device_failures"] == 3
+              and stats["breaker_shed"] == 1,
+              f"observe breaker: {failures} device failures and {shed} shed requests, not 3 "
+              f"and 1 (the injected window only)")
+        check(_metric(base, "lgbm_tpu_serve_batcher_device_failures") == 3
+              and _metric(base, "lgbm_tpu_serve_batcher_breaker_shed") == 1,
+              "observe breaker: /metrics' failures and shed requests are not the window's")
+        report["breaker"] = {"states": states, "codes": codes}
+        print(f"{tag} observe breaker: predict_fail@1:3 -> 3 requests failed (HTTP 500) with "
+              f"no launch, the breaker OPEN, a 4th request shed (HTTP 503 breaker_open) with "
+              f"no launch; after the {breaker.cooldown_s} s cooldown 2 half-open probes on "
+              f"the card closed it; serve_breaker_state on /metrics {states}; 3 failures and "
+              f"1 shed request, all in the injected window")
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        server_thread.join(timeout=10)
+
+
+def drive_observe(lt, libs, train_set, higgs, multi, seed, tag):
+    """Phase 18: telemetry, attribution, the sanitizer and the profiler on
+    phase 8's binned data, then replicas, /metrics, /debug/flight, the
+    canary and the breaker. Returns (the launches of the phase, the
+    report)."""
+    from lightgbm_tpu_torch import telemetry
+
+    for lib in libs:
+        lib.reset_launches()
+    report = {}
+    t_phase = time.perf_counter()
+    check(not telemetry.enabled(), "observe: a telemetry session is already active")
+    observe_training(lt, train_set, tag, report)
+    observe_serving(lt, higgs, multi, seed, tag, report)
+    launches = {}
+    for lib in libs:
+        launches.update(lib.launches)
+    for name in OBSERVE_REQUIRED:
+        check(launches[name] > 0, f"observe path: kernel {name} never launched")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"observe path launches: {launches}")
+    print(f"{tag} phase 18: {report['seconds']:.1f} s")
+    return launches, report
+
+
 def check_booster_surface(lt, booster, tag):
     """After phase 8: dump_model parses, its leaf values and thresholds equal
     the model text's; feature_importance equals the CPU Booster's loaded
@@ -4067,8 +4454,10 @@ def main() -> int:
                                                 _traverse_leaves, pack_ensemble)
     from lightgbm_tpu_torch.serving import PredictionService, serve, wire
 
+    global CARD_KIND
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
+    CARD_KIND = kind  # the bounds use this card's rates, or fail for a card not in the table
     count = torch.cuda.device_count()
     card = card_line()
     tag = f"[{card}]"
@@ -4082,7 +4471,8 @@ def main() -> int:
                                    partition_cuda.LIB, wave_cuda.LIB, quantize_cuda.LIB],
                                   force=True)
     print(f"build: {len(builds)} sources in parallel in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s; the card's opt-in shared memory a block "
+          f"{perfmodel.shared_memory_per_block(dev)} bytes")
     for info in builds:
         print(f"  {os.path.relpath(str(info['source']))}: {info['seconds']:.2f} s")
         for line in str(info["ptxas"]).splitlines():
@@ -4179,8 +4569,7 @@ def main() -> int:
         check(torch.equal(predict_cuda.forest_raw(packed, x, 1), _predict_raw_fused(packed, x, 1)),
               f"predict_forest_raw at {rows}x{F}: differs from the plain version")
     T = packed.num_trees
-    bytes_raw = chunk * F * 4 + chunk * 4 + table_bytes
-    ops_raw = visits + chunk * T  # one compare per node visited, one add per tree
+    cost_raw = perfmodel.traversal_raw(chunk, F, T, table_bytes, visits)
     # the serving batcher's shapes: one request, a few coalesced, a full batch
     ms_batches = {rows: cuda_ms(lambda x=xs[2][:rows].contiguous(): predict_cuda.forest_raw(
         packed, x, 1), 20) for rows in SERVE_BATCHES}
@@ -4191,8 +4580,9 @@ def main() -> int:
     x_leaf = xs[1][:SAMPLE_ROWS].contiguous()
     ms_leaf = cuda_ms(lambda: predict_cuda.forest_leaf_indices(packed, x_leaf), 20)
     plain_leaf = cuda_ms(lambda: _traverse_leaves(packed, x_leaf), 2)
-    bytes_leaf = SAMPLE_ROWS * F * 4 + SAMPLE_ROWS * T * 4 + table_bytes
-    ops_leaf = visits * SAMPLE_ROWS / chunk  # same data profile, a quarter of the rows
+    # the same data profile over a quarter of the rows: a quarter of the visits
+    cost_leaf = perfmodel.traversal_leaf(SAMPLE_ROWS, F, T, table_bytes,
+                                         visits * SAMPLE_ROWS / chunk)
     torch.cuda.empty_cache()
 
     # the accumulate mode (prediction early stopping's block): ES_FREQ trees
@@ -4217,16 +4607,16 @@ def main() -> int:
         (torch.arange(ES_FREQ, device=dev)[None, :] * depth_acc.shape[1]
          + predict_cuda.forest_leaf_indices(es_slice, xs[0]).long())].sum())
     es_table_bytes = sum(t.numel() * t.element_size() for t in (es_slice.records,))
-    bound_acc, by_acc = bound(chunk * F * 4 + 2 * chunk * 4 + es_table_bytes,
-                              visits_acc + chunk * ES_FREQ)
+    bound_acc, by_acc = bound(perfmodel.traversal_accumulate(chunk, F, ES_FREQ,
+                                                             es_table_bytes, visits_acc))
     print(f"{tag} predict_forest_raw_acc {chunk}x{F}, {ES_FREQ} trees added onto running "
           f"sums: kernel {ms_acc:.4f} ms, plain {plain_acc:.2f} ms, bound {bound_acc:.4f} ms "
           f"({by_acc}); bit-equal to the plain version there and at "
           + ", ".join(str(r) for r in SERVE_BATCHES) + " rows")
     del acc_buf, acc_init
 
-    bound_raw, by_raw = bound(bytes_raw, ops_raw)
-    bound_leaf, by_leaf = bound(bytes_leaf, ops_leaf)
+    bound_raw, by_raw = bound(cost_raw)
+    bound_leaf, by_leaf = bound(cost_leaf)
     print(f"{tag} predict_forest_raw {chunk}x{F}, {T} trees: kernel "
           f"{ms_raw:.4f} ms, plain {plain_raw:.2f} ms, bound {bound_raw:.4f} ms "
           f"({by_raw}); mean nodes visited per (row, tree) {visits / chunk / T:.3f}")
@@ -4277,6 +4667,8 @@ def main() -> int:
               f"memory a block")
     print(f"{tag} histogram root through the identity row set: plain "
           f"{ms_hist['plain_root_identity']:.3f} ms")
+    print(f"{tag} histogram root, the library call (index_add_ over the flat bin index, "
+          f"in no fixed order): {ms_hist['library_root']:.4f} ms a call")
     err_scan, ms_scan, bound_scan, F_scan, B_scan = check_split_scan(
         dev, core, bins_d, num_bins, gh_d, idx_d)
     print(f"kernels: split scan {F_scan}x{B_scan} on the root and a leaf, with and "
@@ -4314,6 +4706,8 @@ def main() -> int:
         print(f"{tag} ragged histogram {what}: kernel {ms_rag[name]:.4f} ms{scaling}, plain "
               f"{ms_rag['plain_' + name]:.3f} ms, bound {bound_rag[name][0]:.4f} ms "
               f"({bound_rag[name][1]})")
+    print(f"{tag} ragged histogram {WAVE_K} ranges, the library call (index_add_ over the "
+          f"flat (bin, slot) index, in no fixed order): {ms_rag['library_wave']:.4f} ms a call")
     ms_cmp, bound_cmp = check_compaction(dev, bins_d, TRAIN_ROWS, args.seed + 9)
     print(f"kernels: compaction {core.num_groups}x{TRAIN_ROWS} + [{TRAIN_ROWS}, 5] payload, "
           f"{WAVE_K} ranges: bit-equal to the CPU plain version, two launches bit-equal")
@@ -4606,6 +5000,11 @@ def main() -> int:
     serve_launches = dict(predict_cuda.launches)
     for name, n in serve_launches.items():
         check(n > 0, f"serving path: kernel {name} never launched")
+    check(global_timer.counters.get("serve_dispatch_failures", 0) == 0
+          and global_timer.counters.get("serve_breaker_shed", 0) == 0
+          and stats["batcher"]["device_failures"] == 0
+          and stats["batcher"]["breaker_shed"] == 0,
+          "serving: a dispatch failed or a request was shed")
     print(f"serving path launches: {serve_launches}")
     tmp.cleanup()
     del X_main, streamed
@@ -4670,6 +5069,9 @@ def main() -> int:
 
     # ------------------------------- multiclass, both learners
     mc_launches = drive_multiclass(lt, libs, args.seed, tag)
+    check(global_timer.counters.get("serve_dispatch_failures", 0) == 0
+          and global_timer.counters.get("serve_breaker_shed", 0) == 0,
+          "multiclass serving: a dispatch failed or a request was shed")
     for name in ("histogram_slots_ragged", "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
@@ -4715,8 +5117,16 @@ def main() -> int:
     # ------------------------------- learning to rank, cross entropy
     rank_launches, _ = drive_ranking(lt, libs, train_set, valid, args.seed, tag)
     torch.cuda.empty_cache()
+
+    # ------------------------------- observe and serve
+    check(global_timer.counters.get("serve_dispatch_failures", 0) == 0
+          and global_timer.counters.get("serve_breaker_shed", 0) == 0,
+          "a dispatch failed or a request was shed before phase 18")
+    obs_launches, _ = drive_observe(lt, libs, train_set, higgs, multi, args.seed, tag)
+    torch.cuda.empty_cache()
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
-             goss_launches, cat_launches, lane_launches, life_launches, rank_launches)
+             goss_launches, cat_launches, lane_launches, life_launches, rank_launches,
+             obs_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)
@@ -4750,7 +5160,7 @@ def main() -> int:
          "launches": launches("histogram"),
          "max_abs_err": err_hist, "ms": device_or_events(ms_hist, "root"),
          "plain_ms": ms_hist["plain_root"], "bound_ms": bound_hist["root"][0],
-         "bound_by": bound_hist["root"][1], "library_ms": None},
+         "bound_by": bound_hist["root"][1], "library_ms": ms_hist["library_root"]},
         {"name": "split_scan", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
@@ -4771,7 +5181,7 @@ def main() -> int:
          "launches": launches("histogram_slots_ragged"),
          "max_abs_err": err_rag, "ms": ms_rag["wave"],
          "plain_ms": ms_rag["plain_wave"], "bound_ms": bound_rag["wave"][0],
-         "bound_by": bound_rag["wave"][1], "library_ms": None},
+         "bound_by": bound_rag["wave"][1], "library_ms": ms_rag["library_wave"]},
         # the same kernel over every row; nothing in either package's main
         # paths calls it, so it launches on none of them
         {"name": "histogram_slots", "route": "cuda",

@@ -22,7 +22,11 @@ text and JSON dump, feature importances, score bounds and
 ``reset_parameter`` (with ``callback.reset_parameter``); prediction early
 stopping (``pred_early_stop``); the scikit-learn estimators
 (``LGBMRegressor``, ``LGBMClassifier``, ``LGBMRanker``); and the prediction
-service with its HTTP front (``lightgbm_tpu_torch.serving``).
+service with its HTTP front, circuit breaker, replicas and canary
+(``lightgbm_tpu_torch.serving``); and the observability layer: telemetry
+sessions (``telemetry_dir``), the Prometheus exposition, the flight
+recorder, the profiler (``LGBM_TPU_PROFILE``), the cost model
+(``perfmodel``), fault injection and the sync sanitizer.
 """
 from .basic import Booster, Dataset
 from .callback import early_stopping, log_evaluation, record_evaluation, reset_parameter

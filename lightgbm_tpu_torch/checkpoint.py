@@ -16,6 +16,10 @@ files:
 Both are written atomically (temp file in the target directory, flush +
 fsync, ``os.replace``, directory fsync, inside a bounded retry-with-backoff
 loop), so a crash at any instant leaves the old file or the new one. The
+fault-injection points (utils/faults.py: a transient write failure before
+the temp file exists, a corrupted sidecar or truncated model text after the
+write lands) sit inside that loop. A write, a resume and a resume on
+another world are telemetry events. The
 sidecar names the model text by its content hash: if either half is
 missing, damaged or from another write, ``load_checkpoint`` drops the pair
 with a warning and training falls back to continued training from the
@@ -42,6 +46,9 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
+from . import telemetry
+from .fingerprint import world_fingerprint
+from .utils import faults
 from .utils.log import Log
 from .utils.timer import global_timer
 
@@ -100,8 +107,10 @@ def _atomic_write(path: str, data, mode: str, retries: int) -> None:
         if attempt:
             time.sleep(_BACKOFF_S * (2 ** (attempt - 1)))
         try:
+            faults.maybe_fail_write(path)
             with atomic_open(path, mode) as fh:
                 fh.write(data)
+            faults.maybe_corrupt_artifact(path)
             return
         except OSError as exc:
             last = exc
@@ -116,36 +125,6 @@ def atomic_write_text(path: str, text: str, retries: int = 3) -> None:
 
 def atomic_write_bytes(path: str, data: bytes, retries: int = 3) -> None:
     _atomic_write(path, data, "wb", retries)
-
-
-def world_fingerprint(device=None) -> Dict[str, Any]:
-    """The world a checkpoint was written in (the JAX package's
-    fingerprint.py:91 world_fingerprint): the process count, the mesh shape
-    (one device: the port shards nothing), the device kinds (the card's
-    name for a CUDA `device`, else the device type, cpu) and the torch and
-    CUDA versions. Pure observation: it never raises, and what it cannot
-    read stays "unknown"."""
-    fp: Dict[str, Any] = {
-        "process_count": 1,
-        "mesh_shape": [1],
-        "device_kinds": ["unknown"],
-        "torch_version": "unknown",
-        "cuda_version": "unknown",
-    }
-    try:
-        import torch
-
-        fp["torch_version"] = str(torch.__version__)
-        fp["cuda_version"] = str(torch.version.cuda)
-        if torch.distributed.is_available() and torch.distributed.is_initialized():
-            fp["process_count"] = int(torch.distributed.get_world_size())
-        if device is not None:
-            dev = torch.device(device)
-            fp["device_kinds"] = ([torch.cuda.get_device_name(dev)] if dev.type == "cuda"
-                                  else [dev.type])
-    except Exception:  # noqa: BLE001 - an observation never fails the caller
-        pass
-    return fp
 
 
 # ------------------------------------------------------------- state model
@@ -188,6 +167,8 @@ def save_checkpoint(booster, path: str) -> None:
                 Log.warning("Checkpoint for boosting type %s saves model "
                             "text only; resume will not be bit-identical",
                             type(gbdt).__name__)
+            telemetry.emit("checkpoint", path=path, model_only=True,
+                           iteration=int(gbdt.iter_))
             return
         arrays: Dict[str, np.ndarray] = {"score": gbdt.score.cpu().numpy()}
         for i, vd in enumerate(gbdt.valid_sets):
@@ -235,8 +216,10 @@ def save_checkpoint(booster, path: str) -> None:
                                         dtype=np.uint8),
             **arrays)
         payload = buf.getvalue()
-        atomic_write_bytes(path + SIDECAR_SUFFIX,
-                           CKPT_MAGIC + hashlib.sha256(payload).digest() + payload)
+        blob = CKPT_MAGIC + hashlib.sha256(payload).digest() + payload
+        atomic_write_bytes(path + SIDECAR_SUFFIX, blob)
+    telemetry.emit("checkpoint", path=path, model_only=False,
+                   iteration=int(gbdt.iter_), sidecar_bytes=len(blob))
 
 
 # ------------------------------------------------------------ sidecar read
@@ -351,6 +334,8 @@ def restore_trainer_state(booster, state: TrainerState, callbacks=()) -> int:
                         "device may not resume bit-identically",
                         {k: saved_world.get(k) for k in keys},
                         {k: here.get(k) for k in keys})
+            telemetry.emit("checkpoint_world_mismatch", saved=saved_world,
+                           current=here, iteration=int(state.iteration))
     gbdt.models = GBDTModel.from_string(state.model_text).trees
     gbdt.iter_ = int(state.iteration)
     gbdt._async_stub_stop = bool(man.get("async_stub_stop", False))
@@ -373,6 +358,8 @@ def restore_trainer_state(booster, state: TrainerState, callbacks=()) -> int:
     gbdt._predictor.invalidate()
     Log.info("Resumed trainer state from checkpoint: iteration %d, %d trees",
              gbdt.iter_, len(gbdt.models))
+    telemetry.emit("checkpoint_resume", iteration=int(state.iteration),
+                   num_trees=len(gbdt.models))
     return int(state.iteration)
 
 

@@ -17,12 +17,15 @@ init model's trees in): predict with both models and add the raw scores.
 from __future__ import annotations
 
 import collections
+import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
 from . import callback as callback_mod
 from . import checkpoint as checkpoint_mod
+from . import telemetry, tracing
+from .utils import sanitize  # noqa: F401 - arms LGBM_TPU_SANITIZE at import
 from .basic import Booster, Dataset
 from .callback import CallbackEnv, EarlyStopException
 from .config import key_alias_transform
@@ -63,8 +66,35 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
     With ``init_model`` a Booster or a model file without a checkpoint
     sidecar, the booster returned holds only the ``num_boost_round`` new
-    trees: its raw scores add to the init model's."""
+    trees: its raw scores add to the init model's.
+
+    ``telemetry_dir`` (or $LGBM_TPU_TELEMETRY) records the run in a
+    telemetry session (``events.jsonl``, ``trace.json``, ``metrics.prom``;
+    a session already active is reused), and $LGBM_TPU_PROFILE=<dir> wraps
+    the boosting loop in a torch.profiler trace (utils/profile.py)."""
     params = key_alias_transform(params or {})
+    # a fresh wall-clock window per run (work counters survive)
+    global_timer.new_epoch()
+    own_tel = None
+    tel_dir = telemetry.resolve_dir(params)
+    if tel_dir and telemetry.session() is None:
+        own_tel = telemetry.start(tel_dir, label="train")
+    try:
+        return _train_impl(params, train_set, num_boost_round, valid_sets, valid_names,
+                           feval, init_model, callbacks)
+    except Exception as exc:
+        # the black box for the postmortem: what the ring saw up to the
+        # unhandled failure (the recorder works with telemetry off too)
+        tracing.note("train_exception", error=repr(exc)[:400])
+        tracing.dump_flight("train_exception")
+        raise
+    finally:
+        if own_tel is not None:
+            telemetry.stop()
+
+
+def _train_impl(params, train_set, num_boost_round, valid_sets, valid_names, feval,
+                init_model, callbacks) -> Booster:
     # num_boost_round param aliases override the argument (engine.py:158-170)
     if "num_iterations" in params:
         num_boost_round = int(params.pop("num_iterations"))
@@ -147,17 +177,37 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
 def _train_loop(booster, params, feval, fobj, init_iteration, num_boost_round,
                 callbacks_before, callbacks_after) -> bool:
+    from .utils.profile import maybe_trace
+
+    with maybe_trace():  # a torch.profiler trace when LGBM_TPU_PROFILE=<dir>
+        return _train_loop_inner(booster, params, feval, fobj, init_iteration,
+                                 num_boost_round, callbacks_before, callbacks_after)
+
+
+def _train_loop_inner(booster, params, feval, fobj, init_iteration, num_boost_round,
+                      callbacks_before, callbacks_after) -> bool:
     is_finished = False
     evaluation_result_list = None
     end = init_iteration + num_boost_round
+    if telemetry.enabled():
+        telemetry.emit("train_begin", begin_iteration=init_iteration, end_iteration=end,
+                       objective=str(params.get("objective", "")))
     for i in range(init_iteration, end):
         if is_finished:
             break
+        it_t0 = time.perf_counter()
+        # the iteration's span: the serving requests' API, so the Chrome
+        # trace and the flight recorder speak one format
+        it_span = tracing.start_span("train_iteration")
+        it_span.attrs["iteration"] = int(i)
+        counters_before = dict(global_timer.counters) if telemetry.enabled() else None
         env = dict(model=booster, params=params, iteration=i,
                    begin_iteration=init_iteration, end_iteration=end)
         for cb in callbacks_before:
             cb(CallbackEnv(evaluation_result_list=None, **env))
         is_finished = booster.update(fobj=fobj)
+        t_boost_end = time.perf_counter()
+        it_span.add_stage("boost", t_boost_end - it_t0)
 
         evaluation_result_list = []
         if booster._gbdt.valid_sets or booster._gbdt.train_metrics:
@@ -171,10 +221,36 @@ def _train_loop(booster, params, feval, fobj, init_iteration, num_boost_round,
             booster.best_iteration = early_stop.best_iteration + 1
             evaluation_result_list = early_stop.best_score
             is_finished = True
+        it_span.add_stage("eval", time.perf_counter() - t_boost_end)
+        it_span.finish()
+        if counters_before is not None:
+            _emit_iteration_record(booster, i, evaluation_result_list,
+                                   time.perf_counter() - it_t0, counters_before)
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for item in evaluation_result_list or []:
         booster.best_score[item[0]][item[1]] = item[2]
     return is_finished
+
+
+def _emit_iteration_record(booster, iteration, evals, wall_s, counters_before) -> None:
+    """One structured record a boosting iteration: eval results, the last
+    finalized tree's leaves, work-counter deltas, wall time; then a sample
+    of the card's memory high-water. A tree the async pipeline still has
+    pending is not read (reading it would finalize it early)."""
+    gbdt = booster._gbdt
+    models = gbdt.models
+    done = len(models) - (gbdt._pending is not None)
+    last = models[done - 1] if done > 0 else None
+    deltas = {}
+    for k, v in global_timer.counters.items():
+        d = int(v) - int(counters_before.get(k, 0))
+        if d:
+            deltas[k] = d
+    telemetry.emit(
+        "iteration", iteration=int(iteration), wall_s=round(wall_s, 6),
+        num_trees=len(models), tree_leaves=int(getattr(last, "num_leaves", 0) or 0),
+        evals=[[e[0], e[1], float(e[2])] for e in (evals or [])], counters=deltas)
+    telemetry.sample_hbm()
 
 
 def _wants_train_metric(params) -> bool:

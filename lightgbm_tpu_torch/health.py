@@ -22,8 +22,10 @@ through a `HealthMonitor`:
                    restored scores and go on with NaN-scrubbed gradients
                    clipped to ``GRAD_CLIP`` from then on.
 
-The elastic heartbeat and the telemetry events that ride the JAX monitor's
-check belong to the distributed and telemetry slices and are not here.
+Each check is a ``health_check`` telemetry event and a rollback a
+``health_rollback`` event, a flight-recorder note and a flight dump. The
+elastic heartbeat that rides the JAX monitor's check waits for the
+distributed learners (ROADMAP Queue 1 item 8).
 
 `first_nonfinite_column` is the serving boundary's use of the same check.
 """
@@ -34,7 +36,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from . import tracing
+from . import telemetry, tracing
 from .utils.log import Log
 
 _POLICIES = ("fatal", "warn", "rollback")
@@ -114,6 +116,8 @@ class HealthMonitor:
             self._acc = None
             self._host_ok = True
             self._since_check = 0
+            telemetry.emit("health_check", healthy=healthy, policy=self.policy,
+                           iteration=int(gbdt.iter_))
             if not healthy:
                 grads, hesses = self._handle(gbdt, grads, hesses)
             elif self.policy == "rollback":
@@ -140,8 +144,11 @@ class HealthMonitor:
         Log.warning("Numerical health check failed at iteration %d; rolled "
                     "back %d iteration(s) to %d and re-boosting with "
                     "clipped gradients", it, rolled, int(gbdt.iter_))
+        telemetry.emit("health_rollback", iteration=it, rolled_back=int(rolled),
+                       resumed_at=int(gbdt.iter_))
         tracing.note("health_rollback", iteration=it, rolled_back=int(rolled),
                      resumed_at=int(gbdt.iter_))
+        tracing.dump_flight("health_rollback")
         self.clip_on = True
         if gbdt.objective is not None:
             grads, hesses = gbdt._compute_gh()

@@ -42,6 +42,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import Config
 from ..health import create_monitor
 from ..io.dataset import Dataset
@@ -54,6 +55,7 @@ from ..ops.predict import (PredictorCache, pack_ensemble, predict_leaf_indices,
                            stream_chunk_rows, to_device_rows)
 from ..ops.score import add_tree_to_score, apply_split_log_to_score
 from ..treelearner.serial import _leaf_output_host, create_tree_learner
+from ..utils import faults
 from ..utils.log import Log
 from ..utils.timer import global_timer
 from .sample_strategy import DeviceBag, create_sample_strategy
@@ -287,6 +289,7 @@ class GBDT:
                        hessians: Optional[np.ndarray] = None) -> bool:
         """Returns True when training should STOP (no more valid splits) —
         matching LGBM_BoosterUpdateOneIter's is_finished flag."""
+        faults.check_kill(self.iter_)
         if self._async_stub_stop:
             return self._stop_for_no_split()
         C = self.num_tree_per_iteration
@@ -306,6 +309,7 @@ class GBDT:
                                          .reshape(C, self.num_data), device=self.device)
             else:
                 grads, hesses = self._compute_gh()
+        grads, hesses = faults.maybe_poison_gh(grads, hesses, self.iter_)
         if self._health is not None:
             grads, hesses = self._health.admit(self, grads, hesses)
         with global_timer.scope("bagging"):
@@ -361,6 +365,8 @@ class GBDT:
                 del self.models[-C:]
             return True
         self.iter_ += 1
+        if telemetry.enabled():
+            telemetry.sample_hbm()  # the card's memory high-water, a tree
         return False
 
     def _train_one_iter_async(self, grad: torch.Tensor, hess: torch.Tensor) -> bool:
@@ -388,6 +394,8 @@ class GBDT:
             return self._stop_for_no_split()
         self._pending = pending
         self.iter_ += 1
+        if telemetry.enabled():
+            telemetry.sample_hbm()
         return False
 
     # ------------------------------------------------------------------ score

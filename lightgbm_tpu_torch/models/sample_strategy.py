@@ -149,14 +149,17 @@ def goss_select(grad: torch.Tensor, hess: torch.Tensor, sampled_pos: torch.Tenso
     reaches the host."""
     N = grad.shape[1]
     order = goss_order(goss_score(grad, hess))
+    # index_fill_ and full() take their values as kernel arguments: an
+    # assignment of a host scalar (mask[i] = True) or a tensor made from one
+    # is a synchronizing copy on the card (the sanitizer's goss_select scope)
     mask = torch.zeros(N, dtype=torch.bool, device=grad.device)
-    mask[order[:top_k]] = True
+    mask.index_fill_(0, order[:top_k], True)
     if sampled_pos.shape[0] > 0:
         sampled = order[top_k:][sampled_pos]
-        mask[sampled] = True
+        mask.index_fill_(0, sampled, True)
         scaled = torch.zeros(N, dtype=torch.bool, device=grad.device)
-        scaled[sampled] = True
-        mult = torch.tensor(multiplier, dtype=torch.float32, device=grad.device)
+        scaled.index_fill_(0, sampled, True)
+        mult = torch.full((), multiplier, dtype=torch.float32, device=grad.device)
         grad = torch.where(scaled[None, :], grad * mult, grad)
         hess = torch.where(scaled[None, :], hess * mult, hess)
     return mask, grad, hess

@@ -9,7 +9,9 @@ from ``data_ptr()`` on PyTorch's current stream, and each counts its
 kernel's launches, so a run can show that its work went through the kernel.
 
 `build_all` starts one ``nvcc`` per source, all together, and waits for
-them: the sources compile in parallel.
+them: the sources compile in parallel. Each build keeps ptxas's report
+(`CudaLibrary.ptxas`, read by perfmodel.static_costs) and, like each graph
+capture, is counted by the telemetry compile watcher.
 
 `CountedGraph` records a function's launches as one CUDA graph and
 replays it. The counters tick in the wrappers, on the host, so a capture
@@ -30,6 +32,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
+
+from .. import telemetry
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lightgbm_tpu_torch"
@@ -64,6 +68,7 @@ class CudaLibrary:
         self.launches: Dict[str, int] = {k: 0 for k in kernels}
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
+        self.ptxas = ""  # ptxas -v's report of this process's last build
         self._lock = threading.Lock()
         _LIBRARIES.append(self)
 
@@ -98,6 +103,8 @@ class CudaLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {self.source.name}:\n{out}")
         os.replace(tmp, self.path)  # atomic: a racing process loads either file
+        self.ptxas = out
+        telemetry.note_compile(self.source.name, kernel=True)
         return info
 
     def build(self, force: bool = False) -> Dict[str, object]:
@@ -166,6 +173,7 @@ class CountedGraph:
                 fn()
             finally:
                 self.graph.capture_end()
+        telemetry.note_compile(getattr(fn, "__qualname__", "graph"), kernel=False)
         after = _launch_counts()
         self.kernels = [(_LIBRARIES[i], name, n - before.get((i, name), 0))
                         for (i, name), n in after.items()

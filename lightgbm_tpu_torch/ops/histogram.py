@@ -38,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from .. import perfmodel, telemetry
+
 
 def _acc_dtype(gh: torch.Tensor) -> torch.dtype:
     """int32 for integer (quantized-gradient) histograms — exact — and
@@ -119,6 +121,9 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
     """
     from .hist_cuda import histogram
 
+    if telemetry.enabled():
+        perfmodel.note_dispatch("histogram", histogram, bins, gh_ext, row_idx,
+                                num_bins=num_bins, count=count)
     return histogram(bins, gh_ext, row_idx, num_bins, count, exponents)
 
 

@@ -40,6 +40,7 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..common import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
 from ..models.tree import Tree
 from ..utils.log import Log
@@ -662,9 +663,11 @@ def predict_raw_streamed(packed: PackedEnsemble, X: np.ndarray,
                       device=packed.device)
     n_chunks = -(-n // chunk)
     with global_timer.scope("predict_stream"):
-        for start in range(0, n, chunk):
+        for i, start in enumerate(range(0, n, chunk)):
             stop = min(start + chunk, n)
             predict_raw(packed, to_device_rows(X[start:stop], packed.device),
                         num_tree_per_iteration, out=out[start:stop])
+            if telemetry.enabled():
+                telemetry.emit("predict_chunk", index=i, rows=stop - start, pad=0)
         global_timer.add_count("predict_stream_chunks", n_chunks)
     return out

@@ -51,6 +51,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..common import MISSING_NAN, MISSING_NONE
 
 K_EPSILON = 1e-15
@@ -705,6 +706,7 @@ class _CategoricalGraph:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.out = _best_categorical_plain(*args)
+        telemetry.note_compile("categorical_scan", kernel=False)
 
     def __call__(self, *tensors) -> torch.Tensor:
         for buf, t in zip(self.inputs, tensors):

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from .cuda_build import CudaLibrary, require_cuda, stream_of
 from .wave import (REC, SCALARS, STORE, FeatureTables, _replay_wave_plain,
                    _select_wave_plain, select_size)
@@ -160,6 +161,7 @@ class TreeGraph:
                                       passes.data_ptr(), int(max_passes), ctypes.byref(handle))
         if err != 0:
             raise RuntimeError(f"building the tree graph failed with CUDA error {err}")
+        telemetry.note_compile("tree_graph", kernel=False)
         self._lib, self._exec = lib, handle
         self.device = scalars.device
         self.max_passes = int(max_passes)

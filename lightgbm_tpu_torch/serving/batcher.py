@@ -12,14 +12,24 @@ batch-assembly time — before any device dispatch — and a caller whose wait
 runs out raises DeadlineExceeded immediately without blocking the batch
 its rows ride in.
 
-A dispatch that raises (a device error) fails every request of its batch
-with that error (HTTP 500). It is not retried on the CPU: the circuit
-breaker and its host path are not ported yet.
+The breaker (serving/breaker.py) is consulted per batch: DEGRADED caps the
+chunk rows, and OPEN sheds the batch before any dispatch, failing each of
+its requests with BreakerOpen (HTTP 503 + Retry-After), counted
+(`n_breaker_shed`, the `serve_breaker_shed` counter, on /statz, /metrics and
+/healthz). A device dispatch that raises is counted
+(`serve_dispatch_failures`), emitted, fed to the breaker, and fails every
+request of its batch (HTTP 500); it is retried nowhere, and no chunk is ever
+answered on the CPU of a service that runs on the card.
 
 Batches are not padded: the JAX package pads to power-of-two buckets so
 its jit cache holds one executable per bucket, and the CUDA kernel has no
 compiled shapes to bound. Rows are independent, so a request's answer is
 bit-identical whichever batch it rides in.
+
+On the card each batcher's worker dispatches on a CUDA stream of its own
+(`stream`), so the replicas of a service (service.py) overlap their
+uploads, kernels and copies back; the traversal allocates its scratch per
+call, so two streams share nothing but the read-only packed ensembles.
 """
 from __future__ import annotations
 
@@ -29,13 +39,16 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from .. import tracing
+from .. import telemetry, tracing
 from ..ops.partition import bucket_size
+from ..utils import faults
 from ..utils.log import Log
 from ..utils.timer import global_timer
-from .errors import (DeadlineExceeded, Overloaded, ServiceClosed,
-                     ServingError)
+from .breaker import CircuitBreaker
+from .errors import (BreakerOpen, DeadlineExceeded, Overloaded,
+                     ServiceClosed, ServingError)
 from .registry import ModelEntry
 
 
@@ -66,9 +79,15 @@ class _Request:
 
 
 class MicroBatcher:
-    def __init__(self, max_batch_rows: int = 4096, max_queue_rows: int = 32768,
-                 min_bucket: int = 256,
-                 batch_window_s: float = 0.001) -> None:
+    def __init__(self, breaker: CircuitBreaker,
+                 max_batch_rows: int = 4096, max_queue_rows: int = 32768,
+                 min_bucket: int = 256, batch_window_s: float = 0.001,
+                 device=None, name: str = "lgbm-serve-batcher") -> None:
+        self.breaker = breaker
+        # the worker's own CUDA stream on the card (None elsewhere)
+        self.stream = None
+        if device is not None and torch.device(device).type == "cuda":
+            self.stream = torch.cuda.Stream(device=torch.device(device))
         self.max_batch_rows = bucket_size(max(1, max_batch_rows), 1)
         self.max_queue_rows = max_queue_rows
         self.min_bucket = bucket_size(max(1, min_bucket), 1)
@@ -88,8 +107,8 @@ class MicroBatcher:
         self.n_deadline_shed = 0
         self.n_deadline_wait_expired = 0
         self.n_device_failures = 0
-        self._worker = threading.Thread(
-            target=self._run, name="lgbm-serve-batcher", daemon=True)
+        self.n_breaker_shed = 0
+        self._worker = threading.Thread(target=self._run, name=name, daemon=True)
         self._worker.start()
 
     # -------------------------------------------------------------- submit
@@ -215,10 +234,12 @@ class MicroBatcher:
             if not batch:
                 continue
             try:
-                self._dispatch(batch)
+                if self.stream is not None:
+                    with torch.cuda.stream(self.stream):
+                        self._dispatch(batch)
+                else:
+                    self._dispatch(batch)
             except Exception as exc:  # worker must outlive any batch
-                self.n_device_failures += 1
-                global_timer.add_count("serve_dispatch_failures", 1)
                 for req in batch:
                     req.error = ServingError(f"prediction failed: {exc}")
                     req.event.set()
@@ -235,14 +256,41 @@ class MicroBatcher:
             else np.ascontiguousarray(chunk, dtype=np.float32)
         t_dev = time.perf_counter()
         stages["assembly"] += t_dev - t
-        # `device` covers upload, kernel and the copy of the answer back:
-        # Booster.predict returns host arrays, so `d2h` reads near zero
-        out = entry.predict(X, raw_score)
+        try:
+            faults.on_serve_dispatch()
+            # `device` covers upload, kernel and the copy of the answer back:
+            # Booster.predict returns host arrays, so `d2h` reads near zero
+            out = entry.predict(X, raw_score)
+        except Exception as exc:
+            # counted and fed to the breaker here; _run fails the batch
+            self.breaker.on_failure(exc, entry=entry.name)
+            self.n_device_failures += 1
+            global_timer.add_count("serve_dispatch_failures", 1)
+            tracing.note("serve_dispatch_failed", error=repr(exc)[:400],
+                         model=entry.name, rows=int(X.shape[0]))
+            if telemetry.enabled():
+                telemetry.emit("serve_dispatch_failed", error=str(exc),
+                               model=entry.name, rows=int(X.shape[0]))
+            raise
+        self.breaker.on_success(entry=entry.name)
         t_d2h = time.perf_counter()
         stages["device"] += t_d2h - t_dev
         res = np.asarray(out)
         stages["d2h"] += time.perf_counter() - t_d2h
         return res
+
+    def _shed_open(self, batch: List[_Request], entry: ModelEntry) -> None:
+        """OPEN: fail the batch before any dispatch (HTTP 503)."""
+        self.n_breaker_shed += len(batch)
+        global_timer.add_count("serve_breaker_shed", len(batch))
+        err = BreakerOpen(
+            f"model '{entry.name}': circuit breaker open after repeated device "
+            f"dispatch failures; retry after its {self.breaker.cooldown_s:g} s cooldown")
+        for req in batch:
+            if req.span is not None:
+                req.span.finish(terminal="rejected")
+            req.error = err
+            req.event.set()
 
     def _dispatch(self, batch: List[_Request]) -> None:
         entry = batch[0].entry
@@ -254,12 +302,21 @@ class MicroBatcher:
                 # queue_wait: submit to the moment its batch starts work
                 req.span.add_stage("queue_wait", t_asm - req.t_submit_pc)
                 batch_span.link(req.span.span_id)
+        # the entry's breaker shard: one tenant's faulting model sheds its
+        # own load without opening the breaker for the rest
+        decision = self.breaker.decide(entry.name)
+        if decision.shed:
+            batch_span.finish(terminal="rejected")
+            self._shed_open(batch, entry)
+            return
         stages = {"assembly": 0.0, "device": 0.0, "d2h": 0.0}
         X = (batch[0].rows if len(batch) == 1
              else np.concatenate([r.rows for r in batch], axis=0))
         stages["assembly"] += time.perf_counter() - t_asm
         n = int(X.shape[0])
         cap = self.max_batch_rows
+        if decision.max_rows is not None:
+            cap = min(cap, bucket_size(max(1, decision.max_rows), 1))
         outs = []
         with global_timer.scope("serve_batch"):
             for start in range(0, n, cap):
@@ -270,6 +327,9 @@ class MicroBatcher:
         stages["d2h"] += time.perf_counter() - t
         self.n_batches += 1
         global_timer.add_count("serve_batches", 1)
+        if telemetry.enabled():
+            telemetry.emit("serve_batch", model=entry.name, version=entry.version, rows=n,
+                           requests=len(batch))
         pos = 0
         for req in batch:
             k = int(req.rows.shape[0])
@@ -301,6 +361,7 @@ class MicroBatcher:
                 "deadline_shed": self.n_deadline_shed,
                 "deadline_wait_expired": self.n_deadline_wait_expired,
                 "device_failures": self.n_device_failures,
+                "breaker_shed": self.n_breaker_shed,
             }
         if lats:
             stats["p50_ms"] = lats[len(lats) // 2]

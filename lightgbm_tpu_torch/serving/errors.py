@@ -52,6 +52,16 @@ class Overloaded(ServingError):
     code = "overloaded"
 
 
+class BreakerOpen(Overloaded):
+    """The model's circuit breaker is OPEN after repeated device dispatch
+    failures: its traffic is shed, not answered anywhere else, until the
+    cooldown lets a half-open probe try the card again. HTTP surface: 503
+    + Retry-After."""
+
+    status = 503
+    code = "breaker_open"
+
+
 class DeadlineExceeded(ServingError):
     """The request's deadline budget expired — either shed from the queue
     before device dispatch, or still in flight when the caller's wait ran

@@ -15,12 +15,15 @@ through the batcher's single worker. No framework, no new dependency.
     POST   /models           {"name", "path"|"model_str", "expected_sha256"?,
                               "reject_nonfinite"?}  -> staged verified swap
     DELETE /models/<name>    unload
-    GET    /healthz          liveness + queue detail (always 200)
+    GET    /healthz          liveness + breaker/queue detail (always 200)
     GET    /readyz           200 once a model is loaded, else 503
-    GET    /statz            batcher/registry counters + the per-stage
-                             request-path quantiles
-
-Not ported yet: /metrics (Prometheus exposition) and /debug/flight.
+    GET    /statz            batcher/breaker/registry/replica counters + the
+                             per-stage request-path quantiles
+    GET    /metrics          Prometheus text exposition (exposition.py):
+                             telemetry signals + global_timer counters +
+                             the numeric /statz figures as serve_* gauges
+    GET    /debug/flight     on-demand flight-recorder dump (JSON; also
+                             written to the flight dir when one resolves)
 
 Every error is JSON `{"error": <code>, "detail": <msg>}` with the typed
 status from serving/errors.py; Overloaded responses carry Retry-After.
@@ -104,6 +107,14 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(500, {"error": "internal_error",
                                   "detail": str(exc)})
 
+    def _send_text(self, status: int, body: str, content_type: str) -> None:
+        raw = body.encode("utf-8")
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(raw)))
+        self.end_headers()
+        self.wfile.write(raw)
+
     def _send_wire(self, status: int, body: bytes,
                    headers: Optional[Dict[str, str]] = None) -> None:
         self.send_response(status)
@@ -146,6 +157,11 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(200, self.service.stats())
             elif self.path == "/models":
                 self._send_json(200, {"models": self.service.models()})
+            elif self.path == "/metrics":
+                self._metrics()
+            elif self.path == "/debug/flight":
+                self._send_json(200, tracing.build_dump("debug_endpoint"))
+                tracing.dump_flight("debug_endpoint", force=True)
             else:
                 self._send_json(404, {"error": "not_found",
                                       "detail": self.path})
@@ -253,6 +269,26 @@ class _Handler(BaseHTTPRequestHandler):
             # `shed`) inside the batcher — this records everyone else
             span.finish()
 
+    def _metrics(self) -> None:
+        from ..exposition import CONTENT_TYPE, render_metrics
+
+        # the numeric /statz figures flattened into serve_* gauges, so one
+        # scrape carries the batcher, breaker and replica state beside the
+        # telemetry counter namespace
+        extra: Dict[str, Any] = {}
+
+        def flatten(prefix: str, obj: Any) -> None:
+            if isinstance(obj, dict):
+                for k, v in obj.items():
+                    flatten(f"{prefix}_{k}", v)
+            elif isinstance(obj, bool):
+                extra[prefix] = int(obj)
+            elif isinstance(obj, (int, float)):
+                extra[prefix] = obj
+
+        flatten("serve", self.service.stats())
+        self._send_text(200, render_metrics(extra), CONTENT_TYPE)
+
     def _load_model(self) -> None:
         payload = self._read_json()
         name = payload.get("name")
@@ -262,7 +298,8 @@ class _Handler(BaseHTTPRequestHandler):
             name, path=payload.get("path"),
             model_str=payload.get("model_str"),
             expected_sha256=payload.get("expected_sha256"),
-            reject_nonfinite=bool(payload.get("reject_nonfinite", False)))
+            reject_nonfinite=bool(payload.get("reject_nonfinite", False)),
+            shard_rows=payload.get("shard_rows"))
         self._send_json(200, info)
 
 

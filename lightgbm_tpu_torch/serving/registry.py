@@ -10,8 +10,15 @@ version keeps answering traffic. Loads are idempotent (same bytes already
 serving -> the live entry is returned unchanged), so a client retrying a
 timed-out upload cannot double-bump the version.
 
-Not ported yet: the circuit breaker's host-pinned predict path (an entry
-predicts on the service's device only) and load-time telemetry.
+Before it is published, a version predicts one row on the service's
+device: on the card that builds and launches the traversal kernel, so a
+kernel that fails to build or to launch fails the load (ModelLoadError)
+and never reaches live traffic or the circuit breaker.
+
+There is no host path: an entry predicts on the service's device only.
+A dispatch that fails on the card fails its batch and feeds the circuit
+breaker (batcher.py). Loads, swaps and rejected uploads are telemetry
+events.
 """
 from __future__ import annotations
 
@@ -23,8 +30,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import checkpoint, tracing
+from .. import checkpoint, telemetry, tracing
 from ..basic import Booster
+from ..utils import faults
 from ..utils.log import Log
 from ..utils.timer import global_timer
 from .errors import ModelLoadError, ModelNotFound
@@ -96,6 +104,9 @@ class ModelRegistry:
             text = booster.model_to_string()
         else:
             text = model_str or ""
+        # the transit-corruption fault point sits BEFORE verification, so an
+        # armed model_corrupt_upload exercises the reject path for real
+        text = faults.maybe_corrupt_upload(text)
         sha = hashlib.sha256(text.encode()).hexdigest()
 
         verified = False
@@ -133,6 +144,19 @@ class ModelRegistry:
         except Exception as exc:  # noqa: BLE001 - any parse failure rejects
             self._reject(name, f"unparseable model text: {exc}")
         entry = ModelEntry(name, staged, sha, verified, reject_nonfinite)
+        # one row through the traversal before publishing: on the card that
+        # builds and launches the kernel, so a kernel that cannot run fails
+        # the load here, never a live request
+        try:
+            entry.predict(np.zeros((1, max(entry.n_features, 1)), dtype=np.float32), True)
+        except Exception as exc:  # noqa: BLE001 - any launch failure fails the load
+            Log.warning("serving: model '%s' failed its load-time launch on %s: %s",
+                        name, self.device, exc)
+            tracing.note("model_load_launch_failed", model=name, error=repr(exc)[:400])
+            if telemetry.enabled():
+                telemetry.emit("model_load_launch_failed", model=name, error=str(exc))
+            raise ModelLoadError(f"model '{name}': the traversal failed to launch on "
+                                 f"{self.device}: {exc}") from exc
 
         with self._lock:
             cur = self._models.get(name)
@@ -146,6 +170,10 @@ class ModelRegistry:
                  ", verified" if verified else "")
         tracing.note("model_swap", model=name, version=entry.version,
                      sha256=sha[:12], verified=verified)
+        if telemetry.enabled():
+            telemetry.emit("model_swap", model=name, version=entry.version,
+                           sha256=sha[:12], verified=verified,
+                           num_trees=entry.booster.num_trees())
         return entry
 
     def _reject(self, name: str, why: str) -> None:
@@ -154,6 +182,8 @@ class ModelRegistry:
         global_timer.add_count("serve_rejected_uploads", 1)
         Log.warning("serving: REJECTED upload for model '%s': %s", name, why)
         tracing.note("model_upload_rejected", model=name, reason=why)
+        if telemetry.enabled():
+            telemetry.emit("model_upload_rejected", model=name, reason=why)
         raise ModelLoadError(f"model '{name}': {why}")
 
     # -------------------------------------------------------------- lookup

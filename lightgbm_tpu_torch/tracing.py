@@ -1,18 +1,29 @@
 """Request-path tracing + always-on flight recorder.
 
-Every serving request carries a `Span` with monotonic stage marks
-(`parse`, `queue_wait`, `assembly`, `device`, `d2h`, `serialize`; shed
-requests end in a terminal `shed` stage), trace context rides the W3C
-``traceparent`` header end to end, and per-stage log-bucketed streaming
-histograms aggregate into p50/p99 figures surfaced on ``/statz``.
+Counterpart of the JAX package's ``tracing.py``.
 
-The `FlightRecorder` is an always-on bounded ring buffer — O(1) locked
-append, a fixed capacity of 2048 records, no I/O — holding the most recent
-events and finished spans. A dispatch error in the batcher worker dumps it
-to memory (``last_dump()``).
+* Every serving request carries a `Span` with monotonic stage marks
+  (`parse`, `queue_wait`, `assembly`, `device`, `d2h`, `serialize`; shed
+  requests end in a terminal `shed` stage), trace context rides the W3C
+  ``traceparent`` header end to end, and per-stage log-bucketed streaming
+  histograms aggregate into p50/p99 figures surfaced on ``/statz`` and
+  ``/metrics`` (`quantile_gauges`). Training iterations are spans too.
 
-Everything is stdlib: ids from ``os.urandom``, time from
-``time.perf_counter``.
+* The `FlightRecorder` is an always-on bounded ring buffer — O(1) locked
+  append, fixed memory cap, no I/O on the hot path, works with
+  ``telemetry_dir`` unset — holding the most recent events, finished spans
+  and counter snapshots. It is dumped (checkpoint.py's atomic writer) on
+  breaker->OPEN, health rollback, a fault injection firing, unhandled
+  exceptions in ``engine.train`` or the batcher worker, a canary rollback,
+  and on demand through ``GET /debug/flight``.
+
+``note()`` stays O(1) and allocation-bounded. Everything is stdlib: ids
+from ``os.urandom``, time from ``time.perf_counter`` (the telemetry
+sessions' basis, so finished spans feed the Chrome-trace export).
+``LGBM_TPU_FLIGHT=0`` turns the recorder off (every entry point returns
+early); results are bit-identical either way. ``LGBM_TPU_FLIGHT_DIR`` pins
+the dump directory; otherwise dumps land in the active telemetry session's
+dir, or stay in memory (``last_dump()``) when neither exists.
 """
 from __future__ import annotations
 
@@ -187,10 +198,27 @@ def start_span(name: str, traceparent: Optional[str] = None,
 # flight recorder (always-on bounded ring buffer)
 # --------------------------------------------------------------------------
 
-CAPACITY = 2048
+DEFAULT_CAPACITY = 2048
+# one write per reason per interval: postmortems want the FIRST dump after
+# an incident, not a dump per firing while a fault storm is in progress
+DUMP_MIN_INTERVAL_S = 1.0
 
 DUMP_FORMAT = "lgbm-flight"
 DUMP_VERSION = 1
+
+_enabled = os.environ.get("LGBM_TPU_FLIGHT", "1").lower() not in (
+    "0", "off", "false", "no")
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def set_enabled(on: bool) -> None:
+    """Test hook: flips the compile-out switch at runtime (the env var
+    ``LGBM_TPU_FLIGHT=0`` sets the process-wide default)."""
+    global _enabled
+    _enabled = bool(on)
 
 
 class FlightRecorder:
@@ -201,8 +229,8 @@ class FlightRecorder:
     the ring in sequence order; `dropped` counts evicted records so a
     dump states exactly how much history it lost."""
 
-    def __init__(self, capacity: int = CAPACITY) -> None:
-        self.capacity = capacity
+    def __init__(self, capacity: int = DEFAULT_CAPACITY) -> None:
+        self.capacity = max(16, int(capacity))
         self._slots: List[Optional[Tuple[int, float, str, Dict[str, Any]]]] \
             = [None] * self.capacity
         self._seq = 0
@@ -236,11 +264,19 @@ class FlightRecorder:
         with self._lock:
             return max(0, self._seq - self.capacity)
 
+    def reset(self) -> None:
+        with self._lock:
+            self._slots = [None] * self.capacity
+            self._seq = 0
 
-_recorder = FlightRecorder()
+
+_recorder = FlightRecorder(
+    int(os.environ.get("LGBM_TPU_FLIGHT_CAP", DEFAULT_CAPACITY)))
 _stats_lock = threading.Lock()
 _stage_stats: Dict[Tuple[str, str], StageHistogram] = {}
 _last_dump: Optional[Dict[str, Any]] = None
+_last_dump_path: Optional[str] = None
+_last_dump_ts: Dict[str, float] = {}
 
 
 def recorder() -> FlightRecorder:
@@ -248,12 +284,16 @@ def recorder() -> FlightRecorder:
 
 
 def note(kind: str, **fields: Any) -> None:
-    """The always-on recorder append: O(1), allocation-bounded, no
-    I/O. Callers pass cheap already-computed scalars only."""
+    """The always-on recorder append: O(1), allocation-bounded, no I/O.
+    Callers pass cheap already-computed scalars only."""
+    if not _enabled:
+        return
     _recorder.note(kind, fields)
 
 
 def _finish_span(span: Span) -> None:
+    if not _enabled:
+        return
     if span.record_stats and span.stages:
         with _stats_lock:
             for stage, dur in span.stages.items():
@@ -279,6 +319,16 @@ def _finish_span(span: Span) -> None:
     if span.attrs:
         rec["attrs"] = dict(span.attrs)
     _recorder.note("span", rec)
+    # unified trace: finished spans land in the active telemetry session
+    # so build_chrome_trace exports serving + training in one timeline
+    from . import telemetry
+    if telemetry.enabled():
+        sess = telemetry.session()
+        if sess is not None:
+            t = span.t0
+            for stage, dur in span.stages.items():
+                sess.add_span(f"{span.name}.{stage}", t, t + dur)
+                t += dur
 
 
 # --------------------------------------------------------------------------
@@ -301,16 +351,51 @@ def stage_summary(span_name: str) -> Dict[str, Dict[str, float]]:
     return out
 
 
+def quantile_gauges() -> Dict[str, float]:
+    """Flat gauge map for the exposition renderer:
+    ``<span>_stage_<stage>_p50_ms`` / ``..._p99_ms``."""
+    out: Dict[str, float] = {}
+    with _stats_lock:
+        items = sorted(_stage_stats.items())
+    for (name, stage), hist in items:
+        if hist.n == 0:
+            continue
+        out[f"{name}_stage_{stage}_p50_ms"] = round(
+            hist.quantile_s(0.50) * 1000.0, 4)
+        out[f"{name}_stage_{stage}_p99_ms"] = round(
+            hist.quantile_s(0.99) * 1000.0, 4)
+    return out
+
+
+def reset_stats() -> None:
+    with _stats_lock:
+        _stage_stats.clear()
+
+
 # --------------------------------------------------------------------------
-# flight dumps (in memory)
+# flight dumps
 # --------------------------------------------------------------------------
 
-def dump_flight(reason: str,
-                extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+def resolve_flight_dir() -> Optional[str]:
+    """Dump directory: ``LGBM_TPU_FLIGHT_DIR`` env, else the active
+    telemetry session's out_dir, else None (in-memory dump only)."""
+    env = os.environ.get("LGBM_TPU_FLIGHT_DIR")
+    if env:
+        return env
+    from . import telemetry
+    sess = telemetry.session()
+    if sess is not None and sess.out_dir:
+        return sess.out_dir
+    return None
+
+
+def build_dump(reason: str,
+               extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The postmortem document: recent ring contents + counter snapshot +
-    stage quantiles, kept in memory for ``last_dump()``. Never written to
-    disk: nothing here does I/O, so a dump cannot stall serving."""
-    global _last_dump
+    stage quantiles. Pure in-memory assembly — writing is dump_flight's
+    job."""
+    from . import telemetry
+
     with _stats_lock:
         span_names = sorted({k[0] for k in _stage_stats})
     dump: Dict[str, Any] = {
@@ -322,6 +407,7 @@ def dump_flight(reason: str,
         "capacity": _recorder.capacity,
         "total_records": _recorder.total,
         "dropped": _recorder.dropped,
+        "telemetry_enabled": telemetry.enabled(),
         "events": _recorder.snapshot(),
         "counters": {k: int(v) for k, v in
                      sorted(global_timer.counters.items())},
@@ -331,10 +417,66 @@ def dump_flight(reason: str,
     }
     if extra:
         dump["extra"] = extra
+    return dump
+
+
+def dump_flight(reason: str, extra: Optional[Dict[str, Any]] = None,
+                force: bool = False) -> Optional[str]:
+    """Dump the recorder for a postmortem. Returns the written path (or
+    None when rate-limited, disabled, or no directory resolves — the
+    in-memory copy is still retrievable via ``last_dump()``). Never
+    raises: a failing postmortem write must not take down serving."""
+    global _last_dump, _last_dump_path
+    if not _enabled:
+        return None
+    now = time.monotonic()
+    if not force:
+        last = _last_dump_ts.get(reason)
+        if last is not None and now - last < DUMP_MIN_INTERVAL_S:
+            return None
+    _last_dump_ts[reason] = now
+    try:
+        dump = build_dump(reason, extra)
+    except Exception:  # pragma: no cover - assembly must never propagate
+        return None
     _last_dump = dump
     global_timer.add_count("flight_dumps", 1)
-    return dump
+    out_dir = resolve_flight_dir()
+    if not out_dir:
+        _last_dump_path = None
+        return None
+    try:
+        import json
+
+        from .checkpoint import atomic_write_text
+
+        os.makedirs(out_dir, exist_ok=True)
+        # latest-per-reason filename keeps the on-disk footprint bounded
+        # under a fault storm; the ring inside each dump carries the
+        # history of the preceding firings anyway
+        safe = re.sub(r"[^a-zA-Z0-9_.-]", "_", reason)
+        path = os.path.join(out_dir, f"flight-{safe}.json")
+        atomic_write_text(path, json.dumps(dump, indent=1, sort_keys=True))
+        _last_dump_path = path
+        return path
+    except Exception:  # pragma: no cover - best-effort postmortem I/O
+        _last_dump_path = None
+        return None
 
 
 def last_dump() -> Optional[Dict[str, Any]]:
     return _last_dump
+
+
+def last_dump_path() -> Optional[str]:
+    return _last_dump_path
+
+
+def reset() -> None:
+    """Test hook: fresh recorder ring + stage stats + dump rate-limits."""
+    global _last_dump, _last_dump_path
+    _recorder.reset()
+    reset_stats()
+    _last_dump = None
+    _last_dump_path = None
+    _last_dump_ts.clear()

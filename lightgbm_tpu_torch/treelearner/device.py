@@ -92,8 +92,10 @@ scatter-adds in float32) and read back with the tree's results.
 
 Not carried, each still to port (ROADMAP): the sharded grower and its
 data, voting and feature modes (``make_sharded_grow_fn``, Queue 1 item 8);
-the bf16 gh payload (item 6); ``_record_carry_bytes`` (item 11,
-perfmodel). ``snapshot_state`` adds the bin plane's dtype to the serial
+the bf16 gh payload (item 6). With telemetry on, ``_record_carry_bytes``
+publishes the perfmodel gauges of the learner's buffers each tree, and `finalize` emits
+the ``tree_wave`` and ``wave_ctl`` telemetry events on the host, after the
+tree's results came back. ``snapshot_state`` adds the bin plane's dtype to the serial
 learner's checkpoint state. The JAX package's
 environment switches (LGBM_TPU_WAVE, LGBM_TPU_ADAPTIVE_WAVE,
 LGBM_TPU_GH_BF16, LGBM_TPU_HIST_SLOTS, LGBM_TPU_PALLAS_INTERPRET,
@@ -108,6 +110,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import perfmodel, telemetry, tracing
 from ..models.sample_strategy import DeviceBag
 from ..models.tree import Tree
 from ..ops.compact import partition_wave, relabel_rows
@@ -707,6 +710,11 @@ class DeviceTreeLearner(SerialTreeLearner):
         fmask = None
         if self.col_sampler.active:
             fmask = torch.from_numpy(self.col_sampler.reset_by_tree()).to(self.device)
+        if telemetry.enabled():
+            self._record_carry_bytes()
+            perfmodel.note_dispatch("grow_fused", _grow, self.bins_dev, gh, leaf_id0,
+                                    num_leaves=num_leaves, batch=self.wave_k,
+                                    bagged=bag_indices is not None)
         with global_timer.scope("tree_device"):
             grown = _grow(self.bins_dev, gh, leaf_id0, self.meta, self.tables,
                           self.params_dev, fmask, num_leaves, self.group_bin_padded,
@@ -714,6 +722,21 @@ class DeviceTreeLearner(SerialTreeLearner):
                           self._buffers, self._scale if self.quantized else None,
                           gh_float if self._renew else None)
         return _PendingTree(Tree(num_leaves), grown, n_bag, wave_k=self.wave_k)
+
+    def _record_carry_bytes(self) -> None:
+        """Publish the perfmodel gauges of this learner's buffers: the wave
+        carry's bytes, the ragged histogram's bytes a row and the split
+        kernel's bytes a wave at the width the next tree uses."""
+        G, N = self.bins_dev.shape
+        plane = self.bins_dev.element_size()
+        F, B = self.meta.gather_index.shape
+        global_timer.set_count("device_carry_bytes_per_wave",
+                               perfmodel.carry_bytes_per_wave(N, G, plane))
+        global_timer.set_count("device_hist_bytes_per_row",
+                               perfmodel.hist_bytes_per_row(G, plane))
+        global_timer.set_count("device_scan_bytes_per_wave",
+                               perfmodel.scan_bytes_per_wave(self.wave_k, F, B,
+                                                             self.quantized))
 
     def finalize(self, pending: _PendingTree) -> Tree:
         tree = pending.tree
@@ -774,8 +797,6 @@ class DeviceTreeLearner(SerialTreeLearner):
         speculative work changes, never the model). Waves run after the
         tree was done (no-ops) are counted apart, and, where the tree ran
         as a CUDA graph, its launch and the waves it ran."""
-        from .. import tracing
-
         wave_k = pending.wave_k or self.wave_k
         committed = tree.num_leaves - 1
         speculated = n_waves * wave_k
@@ -791,7 +812,22 @@ class DeviceTreeLearner(SerialTreeLearner):
         global_timer.add_count("wave_splits_speculated", speculated)
         tracing.note("tree_wave", waves=n_waves, committed=committed,
                      speculated=speculated)
-        self.wave_k = self._next_wave_k(commit_rate, wave_k)
+        if telemetry.enabled():
+            # on the host, after the tree's results came back: nothing
+            # emits from inside the tree graph
+            telemetry.emit(
+                "tree_wave", waves=n_waves, wave_width=wave_k, committed=committed,
+                speculated=speculated,
+                efficiency=round(commit_rate, 4) if speculated else 1.0,
+                hist_rows=self.last_hist_rows, waves_launched=launched,
+                graphed=bool(pending.grown.graphed),
+                carry_bytes_per_wave=int(global_timer.counters.get(
+                    "device_carry_bytes_per_wave", 0)))
+        new_k = self._next_wave_k(commit_rate, wave_k)
+        if telemetry.enabled() and new_k != self.wave_k:
+            telemetry.emit("wave_ctl", wave_k=new_k, prev_k=self.wave_k,
+                           wave_commit_rate=round(commit_rate, 4))
+        self.wave_k = new_k
         global_timer.set_count("wave_k", self.wave_k)
 
     def _next_wave_k(self, commit_rate: float, wave_k: int) -> int:

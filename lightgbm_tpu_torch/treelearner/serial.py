@@ -64,6 +64,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import perfmodel, telemetry
 from ..common import MISSING_NAN
 from ..config import Config
 from ..io.dataset import Dataset
@@ -343,9 +344,11 @@ class SerialTreeLearner:
 
     def _search_split(self, state: _LeafState, leaf: int) -> SplitInfo:
         # the totals and the bounds go by value: no upload for either
-        rec = find_best_split(state.hist, state.totals, self.meta, self.params_dev,
-                              self._node_feature_mask(state), self._penalty_of(state, leaf),
-                              scale=self._scale, constraint=self._constraint_of(state))
+        args = (state.hist, state.totals, self.meta, self.params_dev,
+                self._node_feature_mask(state), self._penalty_of(state, leaf))
+        if telemetry.enabled():
+            perfmodel.note_dispatch("scan", find_best_split, *args)
+        rec = find_best_split(*args, scale=self._scale, constraint=self._constraint_of(state))
         return SplitInfo.from_packed(rec.cpu().numpy())
 
     def _constraint_of(self, state: _LeafState) -> Optional[Tuple[float, float]]:
