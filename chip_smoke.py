@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the result line):
             split search, row compaction, wave partition, row partition,
             the wave's selection, replay and tree loop, the gradient
             discretizer), one nvcc each, all started together; build seconds
-            and ptxas's registers / shared memory / spills.
+            and ptxas's registers / shared memory / spills; beside them, g++
+            builds the text parser (native/parser.cpp) and the C API
+            (capi/lgbm_capi.c) into build/lightgbm_tpu_torch/.
 3. models   from --seed, with the port's Tree API: the HIGGS-profile model
             the repo targets (binary, 28 features, 500 trees x 255 leaves,
             LightGBM docs/Experiments.rst HIGGS settings), a multiclass-3
@@ -282,6 +284,27 @@ Phases (any failure exits non-zero before the result line):
             serve_breaker_state on /metrics following each step. No
             dispatch fails and no request is shed outside that window
             (checked after phases 7, 10 and 17 and at the end of 18).
+19. façades  phase 8's 1,048,576 rows written as a TSV with a .weight side
+            file, and its valid rows as another: (1) the native parse, timed,
+            its first 32,768 rows exactly equal to np.genfromtxt's; (2) cli
+            task=train from the text (no device_type: the card; 10 rounds at
+            phase 8's settings, save_binary=true), the wave kernels and the
+            traversal launched, s/iteration; (3) task=train from the .bin
+            cache: the model text byte-equal to (2)'s (its data= line
+            apart), and (2)'s byte-equal to engine.train on the parsed
+            arrays on the card; (4) task=predict's file equal to
+            Booster.predict's values as %.9g; (5) task=convert_model
+            compiled with g++, 4,096 rows within rtol 1e-5, atol 1e-7 of
+            Booster.predict; (6) task=refit on the valid file byte-equal to
+            Booster.refit, the traversal's leaf mode launched; (7) SHAP of
+            128 rows on the host, timed, each row's sum within rtol 1e-5,
+            atol 1e-6 of the card's raw score; (8) the C API in this process
+            through ctypes: DatasetCreateFromFile on the cache,
+            BoosterCreate, 3 UpdateOneIter on the card (the wave kernels
+            launched), PredictForMat and PredictForCSR bit-equal to
+            Booster.predict of the same model, SaveModel and
+            CreateFromModelfile round-tripping; (9) a feval on a validation
+            set recorded by record_evaluation.
 
 Bounds: each kernel's bytes and operations come from
 lightgbm_tpu_torch/perfmodel.py's formula for its row of PERF.md's table,
@@ -299,8 +322,8 @@ The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving and predict paths, prediction early stopping's
 accumulate mode included), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
-of phases 13, 14, 15, 16 and 17 (the training paths) and of phase 18: every kernel
-of each path must
+of phases 13, 14, 15, 16 and 17 (the training paths) and of phases 18 and 19: every
+kernel of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -4323,6 +4346,291 @@ def drive_observe(lt, libs, train_set, higgs, multi, seed, tag):
     return launches, report
 
 
+FACADE_ROWS = 1_048_576  # phase 19's text file: phase 8's rows (TRAIN_ROWS)
+FACADE_ROUNDS, CAPI_ROUNDS = 10, 3
+FACADE_CHECK_ROWS = 32_768  # rows held against the plain parse
+CONVERT_ROWS, SHAP_ROWS = 4_096, 128
+FACADE_WAVE = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+               "partition_scatter", "relabel_rows", "find_best_split", "find_best_split_batched",
+               "wave_select", "wave_replay", "tree_loop_cond")
+
+
+def _counts(libs):
+    out = {}
+    for lib in libs:
+        out.update(lib.launches)
+    return out
+
+
+def _moved(libs, before, names, what):
+    after = _counts(libs)
+    for name in names:
+        check(after[name] > before[name], f"façades: {what}: kernel {name} never launched")
+    return after
+
+
+def _cli_args(task, **kw):
+    return [f"task={task}"] + [f"{k}={v}" for k, v in kw.items()]
+
+
+def _timed_cli(cli, args):
+    """cli.run(args) with an after-iteration clock on its engine.train call
+    (the first iteration apart); returns (seconds a round after the first,
+    the first round's seconds, the whole run's seconds)."""
+    real, stamps = cli.train_fn, []
+
+    def timed(*a, **k):
+        k["callbacks"] = list(k.get("callbacks") or []) + [
+            lambda env: stamps.append(time.perf_counter())]
+        stamps.append(time.perf_counter())
+        return real(*a, **k)
+
+    cli.train_fn = timed
+    t0 = time.perf_counter()
+    try:
+        check(cli.run(args) == 0, f"façades: cli {args[0]} did not return 0")
+    finally:
+        cli.train_fn = real
+    per = np.diff(stamps)
+    return float(np.mean(per[1:])), float(per[0]), time.perf_counter() - t0
+
+
+def _write_rows(path, X, y):
+    np.savetxt(path, np.column_stack([y, X.astype(np.float64)]), fmt="%.9g", delimiter="\t")
+
+
+def drive_facades(lt, libs, X_train, y_train, X_valid, y_valid, seed, tag):
+    """Phase 19: the façades on phase 8's rows written to a TSV (with a
+    .weight side file) and a valid TSV. Returns (the launches of the
+    phase, the report)."""
+    import ctypes
+    import subprocess
+
+    from lightgbm_tpu_torch import capi, cli
+    from lightgbm_tpu_torch.capi import impl
+    from lightgbm_tpu_torch.config import key_alias_transform, kv2map
+    from lightgbm_tpu_torch.io.parser import parse_file, plain_parse_dense
+
+    for lib in libs:
+        lib.reset_launches()
+    report = {}
+    t_phase = time.perf_counter()
+    X_train, y_train = X_train[:FACADE_ROWS], y_train[:FACADE_ROWS]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_facades_") as tmp:
+        train, valid = os.path.join(tmp, "higgs.train"), os.path.join(tmp, "higgs.test")
+        weight = np.random.RandomState(seed + 19).uniform(0.5, 1.5, len(y_train))
+        t0 = time.perf_counter()
+        _write_rows(train, X_train, y_train)
+        np.savetxt(train + ".weight", weight, fmt="%.9g")
+        _write_rows(valid, X_valid, y_valid)
+        report["write_s"] = time.perf_counter() - t0
+        size = os.path.getsize(train)
+
+        # 1. parse natively; the first rows against the plain parse
+        t0 = time.perf_counter()
+        X, y, _ = parse_file(train)
+        report["parse_s"] = time.perf_counter() - t0
+        n_check = min(FACADE_CHECK_ROWS, len(y))
+        plain = plain_parse_dense(train, "\t", 0, max_rows=n_check)
+        check(bool(np.array_equal(np.column_stack([y, X])[:n_check], plain)),
+              "façades: the native parse differs from the plain parse")
+        check(X.shape == (len(y_train), 28), f"façades: parsed {X.shape}")
+        Xv, yv, _ = parse_file(valid)
+        w = np.loadtxt(train + ".weight")
+        print(f"{tag} façades: wrote {len(y)} x 28 rows ({size / 1e6:.1f} MB of TSV, "
+              f"%.9g) in {report['write_s']:.1f} s; native parse {report['parse_s']:.3f} s "
+              f"({size / 1e6 / report['parse_s']:.0f} MB/s); the first {n_check} rows "
+              f"exactly equal to np.genfromtxt's")
+
+        # 2. train from text through the CLI, on the card (no device_type)
+        model1, model2 = os.path.join(tmp, "m1.txt"), os.path.join(tmp, "m2.txt")
+        train_kw = dict(objective="binary", num_leaves=255, max_bin=255, learning_rate=0.1,
+                        num_iterations=FACADE_ROUNDS, metric="auc", verbosity=-1)
+        args = _cli_args("train", data=train, valid=valid, output_model=model1,
+                         save_binary="true", **train_kw)
+        before = _counts(libs)
+        per, first, wall = _timed_cli(cli, args)
+        _moved(libs, before, FACADE_WAVE + ("predict_forest_raw",), "cli train")
+        report["cli_s_iter"], report["cli_first_s"], report["cli_wall_s"] = per, first, wall
+        text = open(model1).read()
+        print(f"{tag} façades: cli train from text ({FACADE_ROUNDS} rounds, save_binary): "
+              f"{wall:.2f} s (parse, binning, cache, training); s/iteration first "
+              f"{first:.3f}, mean of the rest {per:.4f}")
+
+        # 3. train from the cache: the same model (the data= line apart)
+        args2 = _cli_args("train", data=train + ".bin", valid=valid, output_model=model2,
+                          **train_kw)
+        per2, first2, wall2 = _timed_cli(cli, args2)
+        report["bin_s_iter"], report["bin_wall_s"] = per2, wall2
+        check(open(model2).read() == text.replace(f"[data: {train}]", f"[data: {train}.bin]"),
+              "façades: the model trained from the .bin cache differs from the text's")
+        params = key_alias_transform(kv2map(args))
+        params.pop("task")
+        ds = lt.Dataset(X, label=y, weight=w)
+        engine = lt.train(params, ds, num_boost_round=FACADE_ROUNDS,
+                          valid_sets=[lt.Dataset(Xv, label=yv, reference=ds)],
+                          valid_names=["valid_1"])
+        check(engine.model_to_string() == text,
+              "façades: the cli model differs from engine.train's on the parsed arrays")
+        print(f"{tag} façades: cli train from {os.path.basename(train)}.bin: {wall2:.2f} s; "
+              f"s/iteration first {first2:.3f}, mean of the rest {per2:.4f}; model text "
+              f"byte-equal to the text run's and to engine.train on the parsed arrays")
+
+        # 4. predict: the output file as Booster.predict formats it
+        bst = lt.Booster(model_file=model1)
+        out = os.path.join(tmp, "pred.txt")
+        before = _counts(libs)
+        check(cli.run(_cli_args("predict", data=valid, input_model=model1,
+                                output_result=out, verbosity=-1)) == 0,
+              "façades: cli predict failed")
+        _moved(libs, before, ("predict_forest_raw",), "cli predict")
+        want = os.path.join(tmp, "want.txt")
+        prob = bst.predict(Xv)
+        np.savetxt(want, prob, fmt="%.9g", delimiter="\n")
+        check(open(out).read() == open(want).read(),
+              "façades: cli predict's file differs from Booster.predict's values")
+        valid_auc = host_auc(yv, prob)
+
+        # 5. convert: the generated C++ compiled with g++, 4,096 rows
+        cpp, so = os.path.join(tmp, "model.cpp"), os.path.join(tmp, "model.so")
+        check(cli.run(_cli_args("convert_model", input_model=model1, convert_model=cpp,
+                                verbosity=-1)) == 0, "façades: cli convert_model failed")
+        t0 = time.perf_counter()
+        subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", so, cpp], check=True,
+                       capture_output=True)
+        report["convert_compile_s"] = time.perf_counter() - t0
+        native = ctypes.CDLL(so)
+        rows = np.ascontiguousarray(Xv[:CONVERT_ROWS])
+        got, buf = np.empty(CONVERT_ROWS), np.empty(1)
+        ptr = ctypes.POINTER(ctypes.c_double)
+        for i in range(CONVERT_ROWS):
+            native.Predict(rows[i].ctypes.data_as(ptr), buf.ctypes.data_as(ptr))
+            got[i] = buf[0]
+        err = float(np.max(np.abs(got - prob[:CONVERT_ROWS])))
+        check(bool(np.allclose(got, prob[:CONVERT_ROWS], rtol=1e-5, atol=1e-7)),
+              f"façades: convert_model's C++ predicts {err:g} from Booster.predict")
+
+        # 6. refit on the valid file: Booster.refit byte for byte, leaf mode
+        refit_out = os.path.join(tmp, "refit.txt")
+        refit_args = _cli_args("refit", data=valid, input_model=model1,
+                               output_model=refit_out, verbosity=-1)
+        before = _counts(libs)
+        t0 = time.perf_counter()
+        check(cli.run(refit_args) == 0, "façades: cli refit failed")
+        report["refit_s"] = time.perf_counter() - t0
+        _moved(libs, before, ("predict_forest_leaf",), "cli refit")
+        rparams = key_alias_transform(kv2map(refit_args))
+        rparams.pop("task")
+        refit = lt.Booster(model_file=model1, params=rparams).refit(Xv, yv, params=rparams)
+        check(open(refit_out).read() == refit.model_to_string(),
+              "façades: cli refit differs from Booster.refit")
+
+        # 7. SHAP on the host against the card's raw score
+        t0 = time.perf_counter()
+        contrib = bst.predict(Xv[:SHAP_ROWS], pred_contrib=True)
+        report["shap_s"] = time.perf_counter() - t0
+        raw = bst.predict(Xv[:SHAP_ROWS], raw_score=True)
+        gap = float(np.max(np.abs(contrib.sum(axis=1) - raw)))
+        check(contrib.shape == (SHAP_ROWS, 29)
+              and bool(np.allclose(contrib.sum(axis=1), raw, rtol=1e-5, atol=1e-6)),
+              f"façades: SHAP rows sum {gap:g} away from the raw score")
+        print(f"{tag} façades: predict file bit-equal to Booster.predict (valid AUC "
+              f"{valid_auc:.5f}); convert_model compiled in {report['convert_compile_s']:.1f} "
+              f"s, {CONVERT_ROWS} rows within {err:.2e} of Booster.predict; refit of "
+              f"{len(yv)} rows {report['refit_s']:.2f} s, byte-equal to Booster.refit; "
+              f"SHAP of {SHAP_ROWS} rows x {len(bst._gbdt.models)} trees "
+              f"{report['shap_s']:.2f} s on the host, sums within {gap:.2e} of the card's "
+              f"raw score")
+
+        # 8. the C API in this process through ctypes
+        lib = capi.load()
+        dsh, bsh, fin = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int()
+
+        def ok(rc, what):
+            check(rc == 0, f"façades: C API {what}: {lib.LGBM_GetLastError().decode()}")
+
+        before = _counts(libs)
+        t0 = time.perf_counter()
+        ok(lib.LGBM_DatasetCreateFromFile((train + ".bin").encode(), b"", None,
+                                          ctypes.byref(dsh)), "DatasetCreateFromFile")
+        booster_params = " ".join(f"{k}={v}" for k, v in train_kw.items()).encode()
+        ok(lib.LGBM_BoosterCreate(dsh, booster_params, ctypes.byref(bsh)), "BoosterCreate")
+        t1 = time.perf_counter()
+        for _ in range(CAPI_ROUNDS):
+            ok(lib.LGBM_BoosterUpdateOneIter(bsh, ctypes.byref(fin)), "UpdateOneIter")
+        report["capi_train_s"] = time.perf_counter() - t1
+        report["capi_create_s"] = t1 - t0
+        _moved(libs, before, FACADE_WAVE, "C API UpdateOneIter")
+        n_out = ctypes.c_int64()
+        size = ctypes.c_int64()
+        ok(lib.LGBM_BoosterSaveModelToString(bsh, 0, -1, 0, 0, ctypes.byref(size), None),
+           "SaveModelToString")
+        sbuf = ctypes.create_string_buffer(size.value)
+        ok(lib.LGBM_BoosterSaveModelToString(bsh, 0, -1, 0, size.value, ctypes.byref(size),
+                                             sbuf), "SaveModelToString")
+        capi_model = lt.Booster(model_str=sbuf.value.decode())
+        Xc = np.ascontiguousarray(Xv)
+        mat = np.empty(len(yv))
+        ok(lib.LGBM_BoosterPredictForMat(bsh, Xc.ctypes.data, 1, Xc.shape[0], 28, 1, 0, 0,
+                                         -1, b"", ctypes.byref(n_out),
+                                         mat.ctypes.data_as(ptr)), "PredictForMat")
+        want_c = capi_model.predict(Xv)
+        check(bool(np.array_equal(mat, want_c)),
+              "façades: C API PredictForMat differs from Booster.predict")
+        rows_i, cols_i = np.nonzero(Xc)
+        values = np.ascontiguousarray(Xc[rows_i, cols_i])
+        indices = np.ascontiguousarray(cols_i, dtype=np.int32)
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(rows_i, minlength=len(yv)))])
+        csr = np.empty(len(yv))
+        ok(lib.LGBM_BoosterPredictForCSR(bsh, indptr.ctypes.data, 3, indices.ctypes.data,
+                                         values.ctypes.data, 1, indptr.size, values.size, 28,
+                                         0, 0, -1, b"", ctypes.byref(n_out),
+                                         csr.ctypes.data_as(ptr)), "PredictForCSR")
+        check(bool(np.array_equal(csr, want_c)),
+              "façades: C API PredictForCSR differs from Booster.predict")
+        saved = os.path.join(tmp, "capi_model.txt")
+        ok(lib.LGBM_BoosterSaveModel(bsh, 0, -1, 0, saved.encode()), "SaveModel")
+        nit, bsh2 = ctypes.c_int(), ctypes.c_void_p()
+        ok(lib.LGBM_BoosterCreateFromModelfile(saved.encode(), ctypes.byref(nit),
+                                               ctypes.byref(bsh2)), "CreateFromModelfile")
+        again = np.empty(len(yv))
+        ok(lib.LGBM_BoosterPredictForMat(bsh2, Xc.ctypes.data, 1, Xc.shape[0], 28, 1, 0, 0,
+                                         -1, b"", ctypes.byref(n_out),
+                                         again.ctypes.data_as(ptr)), "PredictForMat")
+        check(nit.value == CAPI_ROUNDS and bool(np.array_equal(again, mat)),
+              "façades: the C API's model file does not round-trip")
+        for h in (bsh, bsh2):
+            ok(lib.LGBM_BoosterFree(h), "BoosterFree")
+        ok(lib.LGBM_DatasetFree(dsh), "DatasetFree")
+        check(not impl._handles, "façades: the C API kept a freed handle")
+        print(f"{tag} façades: C API DatasetCreateFromFile(.bin) + BoosterCreate "
+              f"{report['capi_create_s']:.2f} s, {CAPI_ROUNDS} UpdateOneIter "
+              f"{report['capi_train_s']:.3f} s on the card; PredictForMat and PredictForCSR "
+              f"of {len(yv)} rows bit-equal to Booster.predict; the model file round-trips")
+
+    # 9. fault 9: a feval on the valid set reaches record_evaluation
+    def mean_score(preds, data):
+        return "mean_score", float(np.mean(preds)), True
+
+    evals = {}
+    small = lt.Dataset(Xv, label=yv)
+    fb = lt.train({"objective": "binary", "num_leaves": 255, "verbosity": -1}, small,
+                  num_boost_round=3, valid_sets=[small.create_valid(X[:16_384], label=y[:16_384])],
+                  valid_names=["v"], feval=mean_score,
+                  callbacks=[lt.record_evaluation(evals)])
+    got_mean = evals.get("v", {}).get("mean_score", [])
+    want_mean = float(np.mean(fb.predict(X[:16_384], raw_score=True)))
+    check(len(got_mean) == 3 and abs(got_mean[-1] - want_mean) <= 1e-6 * max(1, abs(want_mean)),
+          f"façades: the feval on the valid set recorded {got_mean}, want {want_mean}")
+    launches = _counts(libs)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} façades: feval on the valid set recorded {len(got_mean)} rounds "
+          f"(last {got_mean[-1]:.6f})")
+    print(f"façades path launches: {launches}")
+    print(f"{tag} phase 19: {report['seconds']:.1f} s")
+    return launches, report
+
+
 def check_booster_surface(lt, booster, tag):
     """After phase 8: dump_model parses, its leaf values and thresholds equal
     the model text's; feature_importance equals the CPU Booster's loaded
@@ -4466,13 +4774,30 @@ def main() -> int:
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
+    # the host sources (the text parser, the C API) build with g++ beside nvcc
+    host_built = {}
+
+    def build_host():
+        from lightgbm_tpu_torch import capi, native
+
+        t = time.perf_counter()
+        host_built["parser"] = native.get_parser().__file__
+        host_built["capi"] = str(capi.library_path())
+        host_built["seconds"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB,
                                    compact_cuda.LIB, compact_cuda.WAVE_LIB,
                                    partition_cuda.LIB, wave_cuda.LIB, quantize_cuda.LIB],
                                   force=True)
+    host_thread.join()
+    check("capi" in host_built, "build: g++ did not build the parser and the C API")
     print(f"build: {len(builds)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s; the card's opt-in shared memory a block "
-          f"{perfmodel.shared_memory_per_block(dev)} bytes")
+          f"{perfmodel.shared_memory_per_block(dev)} bytes; g++ built "
+          f"{os.path.relpath(host_built['parser'])} and "
+          f"{os.path.relpath(host_built['capi'])} in {host_built['seconds']:.2f} s")
     for info in builds:
         print(f"  {os.path.relpath(str(info['source']))}: {info['seconds']:.2f} s")
         for line in str(info["ptxas"]).splitlines():
@@ -5124,9 +5449,14 @@ def main() -> int:
           "a dispatch failed or a request was shed before phase 18")
     obs_launches, _ = drive_observe(lt, libs, train_set, higgs, multi, args.seed, tag)
     torch.cuda.empty_cache()
+
+    # ------------------------------- the façades
+    facade_launches, _ = drive_facades(lt, libs, X_train, y_train, X_valid, y_valid,
+                                       args.seed, tag)
+    torch.cuda.empty_cache()
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
              goss_launches, cat_launches, lane_launches, life_launches, rank_launches,
-             obs_launches)
+             obs_launches, facade_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)

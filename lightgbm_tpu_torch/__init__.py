@@ -23,10 +23,16 @@ text and JSON dump, feature importances, score bounds and
 stopping (``pred_early_stop``); the scikit-learn estimators
 (``LGBMRegressor``, ``LGBMClassifier``, ``LGBMRanker``); and the prediction
 service with its HTTP front, circuit breaker, replicas and canary
-(``lightgbm_tpu_torch.serving``); and the observability layer: telemetry
+(``lightgbm_tpu_torch.serving``); the observability layer: telemetry
 sessions (``telemetry_dir``), the Prometheus exposition, the flight
 recorder, the profiler (``LGBM_TPU_PROFILE``), the cost model
-(``perfmodel``), fault injection and the sync sanitizer.
+(``perfmodel``), fault injection and the sync sanitizer; and the façades:
+datasets from text files and binary caches (``io/parser.py``, the native
+parser, ``Dataset.save_binary``), the command line (``python -m
+lightgbm_tpu_torch.cli``, with ``convert_model`` through
+``models/codegen.py``), SHAP contributions (``predict(pred_contrib=True)``,
+``shap.py``), the plots (``plot_importance`` and the others, with
+matplotlib) and the C API (``capi``).
 """
 from .basic import Booster, Dataset
 from .callback import early_stopping, log_evaluation, record_evaluation, reset_parameter
@@ -39,14 +45,20 @@ from .utils.log import LightGBMError, register_log_callback
 __version__ = "0.1.0"
 
 _SKLEARN_NAMES = ("LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker")
+_PLOTTING_NAMES = ("plot_importance", "plot_metric", "plot_split_value_histogram", "plot_tree")
 
 
 def __getattr__(name):
-    # the estimators import scikit-learn, so only when asked for
+    # the estimators import scikit-learn and the plots matplotlib, so only
+    # when asked for
     if name in _SKLEARN_NAMES:
         from . import sklearn
 
         return getattr(sklearn, name)
+    if name in _PLOTTING_NAMES:
+        from . import plotting
+
+        return getattr(plotting, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

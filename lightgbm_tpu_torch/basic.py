@@ -18,21 +18,29 @@ for position-debiased lambdarank, each row's position (``position``,
 ``set_position``). ``predict`` takes prediction early stopping
 (``pred_early_stop``, ``pred_early_stop_freq``, ``pred_early_stop_margin``).
 
+A Dataset reads a text file (CSV, TSV or LibSVM, with its ``.weight``,
+``.query`` and ``.position`` side files) or a ``save_binary`` cache from a
+path. ``predict(pred_contrib=True)`` gives SHAP contributions (host
+TreeSHAP, ``shap.py``). A feval is evaluated on the training set and on
+every validation set (``eval_train``, ``eval_valid``).
+
 The Booster runs on the CUDA card unless ``params={"device_type": "cpu"}``
 asks for the CPU; with no card and no such request it raises. Not ported
-yet, and refused loudly: text-file and binary-cache datasets, SHAP
-contributions (``pred_contrib``) and row-sharded predict.
+yet, and refused loudly: row-sharded predict.
 """
 from __future__ import annotations
 
 import copy
 import json
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from .config import Config, param_bool, parse_objective_alias, resolve_device
+from .checkpoint import atomic_open
 from .io.dataset import Dataset as _CoreDataset
+from .io.parser import load_positions, load_query_boundaries, load_weights, parse_file
 from .models.gbdt import GBDT, create_boosting
 from .models.serialize import GBDTModel
 from .objectives import create_objective
@@ -131,12 +139,37 @@ class Dataset:
         params = dict(self.params)
         config = Config(params)
         data = self.data
+        label = self.label
         feature_names: Optional[List[str]] = None
-        if isinstance(data, str) or hasattr(data, "__fspath__"):
-            Log.fatal("Datasets from text or binary files are not yet ported "
-                      "to the PyTorch package (ROADMAP Queue 1 item 12); pass a "
-                      "numpy or scipy matrix")
-        if _is_dataframe(data):
+        if isinstance(data, (str, Path)) and _is_binary_cache(str(data)):
+            self._handle = _CoreDataset.load_binary(str(data), config)
+            self._raw = self._handle.loaded_raw
+            # constructor arguments override the cached metadata, as the
+            # python package's set_* after a binary load
+            md = self._handle.metadata
+            if self.label is not None:
+                md.set_label(np.asarray(self.label))
+            if self.weight is not None:
+                md.set_weights(self.weight)
+            if self.group is not None:
+                md.set_query(self.group)
+            if self.init_score is not None:
+                md.set_init_score(self.init_score)
+            if self.position is not None:
+                md.set_positions(self.position)
+            return self
+        if isinstance(data, (str, Path)):
+            X, y, feature_names = parse_file(str(data), header=config.header,
+                                             label_column=config.label_column or "0")
+            if label is None:
+                label = y
+            # the side files fill what the caller did not give
+            for attr, load in (("weight", load_weights), ("group", load_query_boundaries),
+                               ("position", load_positions)):
+                side = load(str(data))
+                if side is not None and getattr(self, attr) is None:
+                    setattr(self, attr, side)
+        elif _is_dataframe(data):
             # a validation frame encodes through the training set's
             # category lists, not its own
             ref_pc = None
@@ -182,7 +215,7 @@ class Dataset:
             self.reference.construct()
             ref_handle = self.reference._handle
         self._handle = _CoreDataset.from_matrix(
-            X, label=self.label, weight=self.weight, group=self.group,
+            X, label=label, weight=self.weight, group=self.group,
             init_score=self.init_score, position=self.position, config=config,
             categorical_feature=cats, feature_names=feature_names,
             reference=ref_handle)
@@ -282,6 +315,66 @@ class Dataset:
         self.construct()
         return self._handle.num_total_features
 
+    def save_binary(self, filename: str) -> "Dataset":
+        """The binary dataset cache (the JAX package's basic.py:328-365,
+        Dataset::SaveBinaryFile): an npz of the bins, the bin mappers, the
+        feature groups, the metadata and the raw rows; `Dataset(filename)`
+        loads it back with no parse and no bin finding. Either package
+        reads the other's."""
+        self.construct()
+        h = self._handle
+        md = h.metadata
+
+        def kept(a):
+            return a if a is not None else []
+
+        with atomic_open(filename, "wb") as fh:  # a file object: numpy must
+            np.savez_compressed(  # not append .npz to the name
+                fh, bins=h.bins, label=kept(md.label), weight=kept(md.weights),
+                init_score=kept(md.init_score), query_boundaries=kept(md.query_boundaries),
+                positions=kept(md.positions), position_ids=kept(md.position_ids),
+                mappers=json.dumps([m.to_dict() for m in h.mappers]),
+                feature_names=json.dumps(h.feature_names),
+                group_lists=json.dumps([g.feature_indices for g in h.groups]),
+                group_is_multi=json.dumps([g.is_multi for g in h.groups]),
+                used_features=json.dumps(h.used_features),
+                num_total_features=h.num_total_features,
+                monotone=json.dumps(h.monotone_constraints), raw=kept(self._raw))
+        if self._raw is None and self._sparse_raw is not None:
+            Log.warning("save_binary: raw feature values of a sparse-built "
+                        "Dataset are not cached; the reloaded Dataset can "
+                        "train but cannot serve as a validation set")
+        return self
+
+
+def _is_binary_cache(path: str) -> bool:
+    """A save_binary cache is an npz (zip) file: check the PK magic."""
+    try:
+        with open(path, "rb") as fh:
+            return fh.read(2) == b"PK"
+    except OSError:
+        return False
+
+
+def _fevals(feval) -> list:
+    if feval is None:
+        return []
+    return list(feval) if isinstance(feval, (list, tuple)) else [feval]
+
+
+def _feval_results(fe, preds, data, data_name: str) -> list:
+    """A feval's answer, `(name, value, is_higher_better)` or a list of
+    them, as (data_name, name, value, is_higher_better) tuples."""
+    res = fe(preds, data)
+    items = res if isinstance(res, list) else [res]
+    return [(data_name, name, val, bigger) for name, val, bigger in items]
+
+
+def _score_for_callables(score) -> np.ndarray:
+    """A [C, N] score as a feval or fobj sees it: [N], or [N, C]."""
+    score = score.cpu().numpy()
+    return score.ravel() if score.shape[0] == 1 else score.T
+
 
 class Booster:
     """Training and prediction handle (basic.py:3581)."""
@@ -295,6 +388,7 @@ class Booster:
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._train_data_name = "training"
         self.name_valid_sets: List[str] = []
+        self.valid_sets: List[Dataset] = []
         self._model: Optional[GBDTModel] = None
         self.train_set: Optional[Dataset] = None
         self.pandas_categorical = None
@@ -343,6 +437,7 @@ class Booster:
             raw = data._sparse_raw.astype(np.float32).toarray()
         self._gbdt.add_valid(data._handle, raw, name)
         self.name_valid_sets.append(name)
+        self.valid_sets.append(data)
         return self
 
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
@@ -385,8 +480,7 @@ class Booster:
         return self
 
     def _score_for_callables(self) -> np.ndarray:
-        score = self._gbdt.score.cpu().numpy()
-        return score.ravel() if score.shape[0] == 1 else score.T
+        return _score_for_callables(self._gbdt.score)
 
     def current_iteration(self) -> int:
         return self._gbdt.iter_
@@ -410,15 +504,29 @@ class Booster:
     # ------------------------------------------------------------------- eval
 
     def eval_train(self, feval=None) -> List:
+        """The training metrics, then each feval on the training scores."""
         out = list(self._gbdt.eval_train())
-        for fe in ([] if feval is None else
-                   feval if isinstance(feval, (list, tuple)) else [feval]):
-            name, val, bigger = fe(self._score_for_callables(), self.train_set)
-            out.append((self._train_data_name, name, val, bigger))
+        for fe in _fevals(feval):
+            out += _feval_results(fe, self._score_for_callables(), self.train_set,
+                                  self._train_data_name)
         return out
 
     def eval_valid(self, feval=None) -> List:
-        return list(self._gbdt.eval_valid())
+        """Each validation set's metrics followed by each feval on its
+        scores (python-package Booster.eval_valid). A feval sees the raw
+        scores, [N] or [N, C], as in eval_train, and the set's Dataset."""
+        builtin = self._gbdt.eval_valid()
+        fevals = _fevals(feval)
+        if not fevals:
+            return list(builtin)
+        out = []
+        for name, data, vd in zip(self.name_valid_sets, self.valid_sets,
+                                  self._gbdt.valid_sets):
+            out += [r for r in builtin if r[0] == name]
+            preds = _score_for_callables(vd.score)
+            for fe in fevals:
+                out += _feval_results(fe, preds, data, name)
+        return out
 
     # ---------------------------------------------------------------- predict
 
@@ -426,9 +534,6 @@ class Booster:
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
                 validate_features: bool = False, **kwargs) -> np.ndarray:
-        if pred_contrib:
-            Log.fatal("pred_contrib (SHAP) is not yet ported to the PyTorch "
-                      "package")
         if kwargs.get("pred_shard_rows",
                       self.params.get("pred_shard_rows")) is not None:
             Log.fatal("row-sharded predict (pred_shard_rows) is not yet "
@@ -455,6 +560,13 @@ class Booster:
         if pred_leaf:
             return self._gbdt.predict_leaf_index(X, num_iteration,
                                                  start_iteration)
+        if pred_contrib:
+            from .shap import predict_contrib
+
+            self._gbdt._flush_pending()
+            C = self._gbdt.num_tree_per_iteration
+            trees = self._gbdt.models[max(start_iteration, 0) * C:]
+            return predict_contrib(trees, X, C, num_iteration)
         if param_bool(kwargs.get("pred_early_stop", self.params.get("pred_early_stop"))):
             freq = kwargs.get("pred_early_stop_freq", self.params.get("pred_early_stop_freq", 10))
             margin = kwargs.get("pred_early_stop_margin",

@@ -18,7 +18,8 @@ src/io/dataset_loader.cpp), with the JAX package's layout
     is binned column by column.
 
 Construction is from a numpy matrix or a scipy sparse matrix (kept CSC and
-densified one column at a time).
+densified one column at a time), or from a ``save_binary`` cache
+(``load_binary``).
 """
 from __future__ import annotations
 
@@ -174,6 +175,7 @@ class Dataset:
         self.feature_names: List[str] = []
         self.monotone_constraints: List[int] = []
         self._reference: Optional["Dataset"] = None
+        self.loaded_raw: Optional[np.ndarray] = None  # a binary cache's raw rows
 
     # ------------------------------------------------------------ construction
 
@@ -332,6 +334,48 @@ class Dataset:
                     acc = np.where(gb != 0, gb, acc)
                 bins[gi] = acc.astype(dtype)
         return bins
+
+    @classmethod
+    def load_binary(cls, path: str, config: Optional[Config] = None) -> "Dataset":
+        """Rebuild a constructed Dataset from a save_binary npz cache (the
+        JAX package's io/dataset.py:398, DatasetLoader::LoadFromBinFile):
+        bins, mappers, groups and metadata restore directly, with no parse
+        and no bin finding. The cached raw rows, if any, are `loaded_raw`.
+        The query weights are derived from the weights and boundaries, as
+        Metadata.set_query derives them."""
+        import json
+
+        z = np.load(path, allow_pickle=False)
+        self = cls(config)
+        self.bins = z["bins"]
+        self.num_data = int(self.bins.shape[1])
+        self.num_total_features = int(z["num_total_features"])
+        self.mappers = [BinMapper.from_dict(d) for d in json.loads(str(z["mappers"]))]
+        self.feature_names = json.loads(str(z["feature_names"]))
+        self.used_features = json.loads(str(z["used_features"]))
+        self.monotone_constraints = json.loads(str(z["monotone"]))
+        group_lists = json.loads(str(z["group_lists"]))
+        group_multi = json.loads(str(z["group_is_multi"]))
+        for gi, (feats, multi) in enumerate(zip(group_lists, group_multi)):
+            self.groups.append(FeatureGroup(feats, [self.mappers[f] for f in feats], multi))
+            for mi, f in enumerate(feats):
+                self.feature_to_group[f] = (gi, mi)
+        md = self.metadata = Metadata(self.num_data)
+        if z["label"].size:
+            md.set_label(z["label"])
+        if z["weight"].size:
+            md.set_weights(z["weight"])
+        if z["init_score"].size:
+            md.set_init_score(z["init_score"])
+        if z["query_boundaries"].size:
+            md.query_boundaries = np.asarray(z["query_boundaries"], dtype=np.int32)
+            md._update_query_weights()
+        if z["positions"].size:
+            md.positions = np.asarray(z["positions"], np.int32)
+            md.position_ids = z["position_ids"]
+        raw = z["raw"]
+        self.loaded_raw = raw if raw.size else None
+        return self
 
     def _align_with(self, reference: "Dataset", data) -> None:
         self._reference = reference

@@ -9,7 +9,8 @@ bits2-3: missing_type] (tree.h:20-21,274-281).
 
 Construction happens on host (numpy); inference packs tree arrays into padded
 device tensors that the forest-traversal kernel walks (ops/predict.py,
-ops/predict_cuda.py).
+ops/predict_cuda.py). One row's walk on the host (`predict_leaf_index`, the
+decisions it takes and `expected_value`) serves host TreeSHAP (shap.py).
 
 Text format matches the reference Tree::ToString (src/io/tree.cpp:349-410)
 field-for-field so models interchange with the reference's model files.
@@ -21,6 +22,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..common import K_ZERO_THRESHOLD
 from ..common import MISSING_NONE, MISSING_ZERO, MISSING_NAN  # noqa: F401 - re-exported
 
 _CATEGORICAL_MASK = 1  # tree.h:20
@@ -201,6 +203,59 @@ class Tree:
         if self.num_leaves <= 1:
             return 0
         return int(self.leaf_depth[: self.num_leaves].max())
+
+    def expected_value(self) -> float:
+        """The mean output over the training rows, weighted by leaf counts
+        (TreeSHAP's base value)."""
+        if self.num_leaves == 1:
+            return float(self.leaf_value[0])
+        total = float(self.internal_count[0])
+        if total <= 0:
+            return float(self.leaf_value[0])
+        return float(np.dot(self.leaf_value[: self.num_leaves],
+                            self.leaf_count[: self.num_leaves]) / total)
+
+    # --------------------------------------------------------- one row's walk
+
+    def _decide_numerical(self, fval: float, node: int) -> int:
+        missing_type = (int(self.decision_type[node]) >> 2) & 3
+        if math.isnan(fval) and missing_type != MISSING_NAN:
+            fval = 0.0
+        if ((missing_type == MISSING_ZERO and abs(fval) <= K_ZERO_THRESHOLD)
+                or (missing_type == MISSING_NAN and math.isnan(fval))):
+            if int(self.decision_type[node]) & _DEFAULT_LEFT_MASK:
+                return int(self.left_child[node])
+            return int(self.right_child[node])
+        if fval <= self.threshold[node]:
+            return int(self.left_child[node])
+        return int(self.right_child[node])
+
+    def _decide_categorical(self, fval: float, node: int) -> int:
+        if math.isnan(fval):
+            return int(self.right_child[node])
+        int_fval = int(fval)
+        if int_fval < 0:
+            return int(self.right_child[node])
+        cat_idx = int(self.threshold[node])
+        lo, hi = self.cat_boundaries[cat_idx], self.cat_boundaries[cat_idx + 1]
+        word, bit = int_fval // 32, int_fval % 32
+        if word < hi - lo and (self.cat_threshold[lo + word] >> bit) & 1:
+            return int(self.left_child[node])
+        return int(self.right_child[node])
+
+    def decide(self, fval: float, node: int) -> int:
+        """The child `node` sends a row whose split feature is `fval` to."""
+        if int(self.decision_type[node]) & _CATEGORICAL_MASK:
+            return self._decide_categorical(fval, node)
+        return self._decide_numerical(fval, node)
+
+    def predict_leaf_index(self, row: np.ndarray) -> int:
+        if self.num_leaves <= 1:
+            return 0
+        node = 0
+        while node >= 0:
+            node = self.decide(float(row[self.split_feature[node]]), node)
+        return ~node
 
     # ---------------------------------------------------------- serialization
 

@@ -40,6 +40,30 @@ except ImportError:  # pragma: no cover
         pass
 
 
+class _EvalFunctionWrapper:
+    """A scikit-learn style metric, `func(y_true, y_pred)` (with `weight`
+    and `group` after them if it takes them), as a feval `(preds, dataset)`
+    (python-package sklearn.py _EvalFunctionWrapper). It sees the scores
+    the Booster's fevals see."""
+
+    def __init__(self, func: Callable) -> None:
+        self.func = func
+
+    def __call__(self, preds, dataset):
+        import inspect
+
+        labels = dataset.get_label()
+        argc = len(inspect.signature(self.func).parameters)
+        if argc == 2:
+            return self.func(labels, preds)
+        if argc == 3:
+            return self.func(labels, preds, dataset.get_weight())
+        if argc == 4:
+            return self.func(labels, preds, dataset.get_weight(), dataset.get_group())
+        raise TypeError(f"Self-defined eval function should have 2, 3 or 4 arguments, "
+                        f"got {argc}")
+
+
 class LGBMModel(BaseEstimator):
     """Base estimator (sklearn.py LGBMModel)."""
 
@@ -139,8 +163,18 @@ class LGBMModel(BaseEstimator):
         y = np.asarray(y, dtype=np.float64).ravel()
         self._n_features = X.shape[1]
         params = self._lgb_params()
+        feval = None
         if eval_metric is not None:
-            params["metric"] = eval_metric
+            # a callable becomes a feval, and only the metric names go to
+            # params["metric"] (python-package sklearn.py's contract)
+            metrics = list(eval_metric) if isinstance(eval_metric, (list, tuple)) \
+                else [eval_metric]
+            names = [m for m in metrics if not callable(m)]
+            feval = [_EvalFunctionWrapper(m) for m in metrics if callable(m)] or None
+            if feval is None:
+                params["metric"] = eval_metric
+            elif names:
+                params["metric"] = names
         train_set = Dataset(X, label=y, weight=sample_weight,
                             group=group, init_score=init_score)
         valid_sets: List[Dataset] = []
@@ -176,7 +210,7 @@ class LGBMModel(BaseEstimator):
         self._Booster = train_fn(
             params, train_set, num_boost_round=self.n_estimators,
             valid_sets=valid_sets or None,
-            valid_names=valid_names or None, callbacks=callbacks)
+            valid_names=valid_names or None, feval=feval, callbacks=callbacks)
         self._best_iteration = self._Booster.best_iteration
         self._best_score = copy.deepcopy(self._evals_result)
         return self
