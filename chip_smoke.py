@@ -305,6 +305,42 @@ Phases (any failure exits non-zero before the result line):
             Booster.predict of the same model, SaveModel and
             CreateFromModelfile round-tripping; (9) a feval on a validation
             set recorded by record_evaluation.
+20. stream  single-card streaming on phase 8's rows: (1) ingest: 16
+            pushes of 65,536 rows into a RowBlockStore (one through
+            push_csr), the finalized plane byte-equal to the whole matrix
+            binned under the store's layout, timed; (2) the out-of-core
+            learner: LGBM_TPU_HBM_BUDGET of 4 blocks (a quarter of the plane),
+            phase 9's settings, 10 rounds: the model text byte-equal to
+            phase 9's resident serial model, then 3 quantized rounds
+            byte-equal to the resident serial learner's; s/iteration beside
+            phase 9's, the blocks uploaded (cold, prefetched, cache hits),
+            the upload bytes equal to stream_block_bytes x blocks + the
+            group rows, the copy stream's seconds against the host link's
+            bound, the cache's peak at most its 4 blocks, the busy share of
+            one more round, the carried mode's launches; (3) the leaf
+            histogram's carried mode over the 16 blocks at the root, a
+            ~100,000-row and a ~4,000-row leaf, bit-equal to one resident
+            call and to the plain fixed-point emulation (the integer mode at
+            the root likewise), its time a leaf and a block beside its bound,
+            the plain version's and index_add_'s (int32 sums for the integer
+            mode, held equal); (4) the flywheel: a
+            PredictionService over HTTP serving phase 9's model, 4 client
+            threads sending 64-row binary-wire requests throughout, a
+            ContinuousTrainer (wave learner, 10 rounds, a 16,384-row holdout
+            gate, LGBM_TPU_DRIFT=1 and drift_shift on feature 8 from row
+            393,216) over 3 generations of 262,144 rows: no failed request,
+            every answer bit-equal to a published generation's
+            Booster.predict, the requests' p50 and p99 latency with the
+            service alone (a second before and after) and while it trains; the drift alarm latches and generation 1's
+            boundary refreshes the bins (layout_generation and the sidecar's
+            bin_mapper_generation 1); kill@5 in generation 1, resumed to
+            the text of an uninterrupted run; bad_generation@2 rejected by
+            the gate and never answering, its retry published; /statz
+            carrying drift; (5) the C API through ctypes:
+            DatasetCreateStreaming, 4 PushRows and 1 PushRowsByCSR,
+            BoosterCreate, 3 UpdateOneIter on the card, SaveModel
+            byte-equal to engine.train on a RowBlockStore fed the same
+            blocks.
 
 Bounds: each kernel's bytes and operations come from
 lightgbm_tpu_torch/perfmodel.py's formula for its row of PERF.md's table,
@@ -322,7 +358,8 @@ The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving and predict paths, prediction early stopping's
 accumulate mode included), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
-of phases 13, 14, 15, 16 and 17 (the training paths) and of phases 18 and 19: every
+of phases 13, 14, 15, 16 and 17 (the training paths), of phases 18 and 19 and
+of phase 20's streamed runs (float and quantized), flywheel and C API: every
 kernel of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
@@ -582,8 +619,9 @@ def index_add_ms(bins, gh, rows, slots, n_slots, num_bins, want, reps=10):
     """The one PyTorch call that computes a histogram's sums: index_add_ of
     each (row, group)'s gh into its flat (group, bin[, slot]) cell, in no
     fixed order, over the index and the gh rows expanded beforehand; held to
-    the kernel's result `want` within the float32 summation bound. Returns
-    its ms a call (CUDA events)."""
+    the kernel's result `want` within the float32 summation bound, or, for
+    integer gh (the quantized mode), summed in int32 and held equal to it.
+    Returns its ms a call (CUDA events)."""
     G = bins.shape[0]
     rows = rows.to(torch.int64)
     cell = (bins[:, rows].to(torch.int64)
@@ -591,18 +629,23 @@ def index_add_ms(bins, gh, rows, slots, n_slots, num_bins, want, reps=10):
     if slots is not None:
         cell = cell * n_slots + slots[rows].to(torch.int64)[None]
     idx = cell.reshape(-1)
-    src = gh[rows][None].expand(G, -1, -1).reshape(-1, gh.shape[1])
+    exact = not gh.is_floating_point()
+    dtype = torch.int32 if exact else torch.float32
+    src = gh[rows][None].expand(G, -1, -1).reshape(-1, gh.shape[1]).to(dtype)
     size = G * num_bins * n_slots
 
     def call(values=src):
-        return torch.zeros((size, gh.shape[1]), dtype=torch.float32,
+        return torch.zeros((size, gh.shape[1]), dtype=dtype,
                            device=bins.device).index_add_(0, idx, values)
 
     got = call().view_as(want)
-    err = (got.double() - want.double()).abs()
-    check(bool((err <= rows.numel() * 2.0 ** -24 * call(src.abs()).view_as(want).double()
-                + 1e-30).all()),
-          "index_add_: outside the float32 summation bound of the kernel's histogram")
+    if exact:
+        check(torch.equal(got, want), "index_add_: differs from the kernel's integer histogram")
+    else:
+        err = (got.double() - want.double()).abs()
+        check(bool((err <= rows.numel() * 2.0 ** -24 * call(src.abs()).view_as(want).double()
+                    + 1e-30).all()),
+              "index_add_: outside the float32 summation bound of the kernel's histogram")
     ms = cuda_ms(call, reps)
     del idx, src, cell
     torch.cuda.empty_cache()
@@ -4631,6 +4674,497 @@ def drive_facades(lt, libs, X_train, y_train, X_valid, y_valid, seed, tag):
     return launches, report
 
 
+STREAM_BLOCK_ROWS = 65_536  # phase 20: 16 blocks of phase 8's 1,048,576 rows
+STREAM_BUDGET_BLOCKS = 4  # a quarter of the plane on the card
+STREAM_CSR_BLOCK = 5  # the block pushed through push_csr
+STREAM_QUANT_ROUNDS = 3
+STREAM_SERIAL = ("histogram_carry", "find_best_split", "row_partition_decide",
+                 "row_partition_scatter")
+STREAM_QUANT = ("histogram_carry_i32", "find_best_split_int", "quantize_reduce", "quantize",
+                "row_partition_decide", "row_partition_scatter")
+FLY_ROWS, FLY_PUSH_ROWS = 262_144, 65_536  # a generation's fresh rows, a push
+FLY_ROUNDS, FLY_HOLDOUT, FLY_CLIENTS = 10, 16_384, 4
+FLY_SHIFT_FEATURE = 8  # a normal column, shifted out of its bins during generation 1's rows
+FLY_KILL_AT = 5
+FLY_STEADY_S = 1.0  # seconds the service answers alone before and after
+CAPI_STREAM_PUSHES = 4  # dense pushes of FLY_PUSH_ROWS, then one CSR push
+
+
+def _csr_of(M):
+    """CSR arrays (int64 indptr, int32 indices, float64 values) of M's
+    nonzero entries."""
+    mask = M != 0
+    indptr = np.concatenate([[0], np.cumsum(mask.sum(axis=1))]).astype(np.int64)
+    return indptr, np.nonzero(mask)[1].astype(np.int32), M[mask].astype(np.float64)
+
+
+def _stream_env(budget=None, block_rows=None):
+    """Set (or, with None, clear) the streamed learner's two variables."""
+    from lightgbm_tpu_torch.streaming.learner import BLOCK_ROWS_ENV, BUDGET_ENV
+
+    for name, value in ((BUDGET_ENV, budget), (BLOCK_ROWS_ENV, block_rows)):
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = str(value)
+
+
+def check_carried_histogram(dev, bins_h, n_rows, num_bins, seed, tag):
+    """The leaf histogram's carried mode over the 16 blocks of phase 8's
+    plane, at the root, a ~100,000-row and a ~4,000-row leaf: bit-equal to
+    one resident call over all the leaf's rows and to the plain fixed-point
+    emulation run on the CPU; the integer mode at the root likewise. Its
+    time a leaf (every block's launch, CUDA events) and a block, beside its
+    bound, the plain version's time on the card and index_add_'s. Returns
+    the two JSON entries."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import (_build_histogram_rows_fixed,
+                                                  _build_histogram_rows_plain,
+                                                  fixed_point_exponents)
+    from lightgbm_tpu_torch.streaming.learner import block_runs
+
+    rng = np.random.RandomState(seed)
+    G = bins_h.shape[0]
+    bins_cpu = torch.from_numpy(bins_h)
+    bins = bins_cpu.to(dev)
+    blocks = [bins[:, lo:lo + STREAM_BLOCK_ROWS].contiguous()
+              for lo in range(0, n_rows, STREAM_BLOCK_ROWS)]
+    gh, _, q = leaf_gradients(rng, n_rows, dev)
+    exps = fixed_point_exponents(gh, n_rows)
+    sets = leaf_sets(rng, n_rows, dev)
+    out_bytes = G * num_bins * 3 * 4
+
+    def carried(values, idx, count, e):
+        rows = idx[:count]
+        runs = block_runs(rows, STREAM_BLOCK_ROWS)
+        carry = hist_cuda.HistogramCarry()
+        out = None
+        for i, (b, s, t) in enumerate(runs):
+            lo = b * STREAM_BLOCK_ROWS
+            out = hist_cuda.histogram(blocks[b], values[lo:lo + STREAM_BLOCK_ROWS],
+                                      (rows[s:t] - lo).to(torch.int32), num_bins, count=t - s,
+                                      exponents=e, carry=carry, last=i + 1 == len(runs))
+        return out, len(runs)
+
+    entries, err = {}, 0.0
+    for name in ("root", "leaf", "small"):
+        idx, count = sets[name]
+        got, n_runs = carried(gh, idx, count, exps)
+        one = hist_cuda.histogram(bins, gh, idx, num_bins, count, exps)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), one.view(torch.int32)),
+              f"carried histogram {name}: differs from one resident call")
+        fixed = _build_histogram_rows_fixed(bins_cpu, gh.cpu(), idx.cpu(), num_bins,
+                                            exps.cpu(), count)
+        check(torch.equal(got.cpu().view(torch.int32), fixed.view(torch.int32)),
+              f"carried histogram {name}: differs from the plain fixed-point emulation")
+        err = max(err, float((got.cpu().double() - fixed.double()).abs().max()))
+        ms = cuda_ms(lambda i=idx, c=count: carried(gh, i, c, exps), 10)
+        # the kernel's own device time a leaf (all its blocks' launches)
+        dev_ms = kernel_device_ms(lambda i=idx, c=count: carried(gh, i, c, exps), 10,
+                                  "hist_rows_kernel")
+        plain = cuda_ms(lambda i=idx, c=count: _build_histogram_rows_fixed(
+            bins, gh, i, num_bins, exps, c), 3)
+        b, by = bound(perfmodel.hist_rows(count, G, out_bytes))
+        resident = cuda_ms(lambda i=idx, c=count: hist_cuda.histogram(bins, gh, i, num_bins, c,
+                                                                      exps), 10)
+        print(f"{tag} histogram_carry {name} ({count} rows over {n_runs} blocks): kernel "
+              f"{fmt_ms(dev_ms)} of device time a leaf (torch.profiler), "
+              + ("" if dev_ms is None else f"{dev_ms / n_runs:.4f} ms a block; ")
+              + f"{ms:.4f} ms a leaf of CUDA events with the host's run table, one resident "
+              f"call {resident:.4f} ms; plain {plain:.3f} ms, bound {b:.4f} ms ({by})")
+        if name == "root":
+            library = index_add_ms(bins, gh, idx[:count], None, 1, num_bins, got)
+            entries["histogram_carry"] = {
+                "name": "histogram_carry", "route": "cuda",
+                "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+                "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
+                "max_abs_err": err, "ms": ms if dev_ms is None else dev_ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": library}
+    idx, count = sets["root"]
+    got, n_runs = carried(q, idx, count, None)
+    plain_q = _build_histogram_rows_plain(bins_cpu, q.cpu(), idx.cpu(), num_bins, count)
+    check(torch.equal(got.cpu(), plain_q),
+          "carried histogram, integer mode: differs from the plain version")
+    check(torch.equal(got, hist_cuda.histogram(bins, q, idx, num_bins, count)),
+          "carried histogram, integer mode: differs from one resident call")
+    ms_q = cuda_ms(lambda: carried(q, idx, count, None), 10)
+    dev_q = kernel_device_ms(lambda: carried(q, idx, count, None), 10, "hist_rows_kernel")
+    plain_q_ms = cuda_ms(lambda: _build_histogram_rows_plain(bins, q, idx, num_bins, count), 3)
+    b_q, by_q = bound(perfmodel.hist_rows(count, G, out_bytes))
+    library_q = index_add_ms(bins, q, idx[:count], None, 1, num_bins, got)
+    print(f"{tag} histogram_carry_i32 root ({count} rows over {n_runs} blocks): kernel "
+          f"{fmt_ms(dev_q)} of device time a leaf (torch.profiler), {ms_q:.4f} ms a leaf of "
+          f"CUDA events with the host's run table; plain {plain_q_ms:.3f} ms, int32 "
+          f"index_add_ {library_q:.4f} ms (equal), bound {b_q:.4f} ms ({by_q})")
+    entries["histogram_carry_i32"] = {
+        "name": "histogram_carry_i32", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+        "replaces": "lightgbm_tpu/ops/hist_pallas.py:132", "max_abs_err": 0.0,
+        "ms": ms_q if dev_q is None else dev_q,
+        "plain_ms": plain_q_ms, "bound_ms": b_q, "bound_by": by_q, "library_ms": library_q}
+    print(f"kernels: histogram_carry over {len(blocks)} blocks of {STREAM_BLOCK_ROWS} rows at "
+          f"the root, a {LEAF_ROWS}- and a {SMALL_LEAF_ROWS}-row leaf: bit-equal to one "
+          f"resident call and to the plain fixed-point emulation (max |d| {err}); the "
+          f"integer mode at the root exactly equal")
+    del bins, blocks, gh, q
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _stream_run(lt, libs, params, train_set, rounds, required, label, tag):
+    """lt.train under the streamed learner's budget, its launch counts set to
+    0 just before and read just after; returns (booster, launches,
+    s/iteration after the first, first, wall, stream counters)."""
+    from lightgbm_tpu_torch.streaming import StreamedTreeLearner
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    for lib in libs:
+        lib.reset_launches()
+    before = dict(global_timer.counters)
+    bst, steady, first, wall, _ = _timed_run(lt, params, train_set, None, rounds)
+    torch.cuda.synchronize()
+    launches = _counts(libs)
+    learner = bst._gbdt.tree_learner
+    check(isinstance(learner, StreamedTreeLearner) and learner.bins_dev is None,
+          f"stream ({label}): LGBM_TPU_HBM_BUDGET did not route to the streamed learner")
+    for name in required:
+        check(launches[name] > 0, f"stream path ({label}): kernel {name} never launched")
+    moved = {k: v - before.get(k, 0) for k, v in global_timer.counters.items()
+             if k.startswith("stream_")}
+    return bst, launches, steady, first, wall, moved
+
+
+def drive_stream(lt, libs, X_train, y_train, train_set, serial, seed, tag):
+    """Phase 20: single-card streaming on phase 8's rows. Returns (the launch
+    counts of its main paths, the carried mode's JSON entries)."""
+    import ctypes
+
+    from lightgbm_tpu_torch import capi, perfmodel as pm
+    from lightgbm_tpu_torch.checkpoint import read_sidecar_manifest
+    from lightgbm_tpu_torch.serving import PredictionService, serve, wire
+    from lightgbm_tpu_torch.streaming import ContinuousTrainer, RowBlockStore
+    from lightgbm_tpu_torch.utils import faults
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n = X_train.shape[0]
+    n_blocks = n // STREAM_BLOCK_ROWS
+    paths = {}
+
+    # ---- 1. ingest: 16 pushes, one of them CSR
+    t = time.perf_counter()
+    store = RowBlockStore(params={"max_bin": TRAIN_PARAMS["max_bin"], "verbosity": -1})
+    for b in range(n_blocks):
+        lo, hi = b * STREAM_BLOCK_ROWS, (b + 1) * STREAM_BLOCK_ROWS
+        if b == STREAM_CSR_BLOCK:
+            store.push_csr(*_csr_of(X_train[lo:hi]), X_train.shape[1], label=y_train[lo:hi])
+        else:
+            store.push_rows(X_train[lo:hi], label=y_train[lo:hi])
+    pushed = store.finalize()
+    ingest_s = time.perf_counter() - t
+    t = time.perf_counter()
+    whole = store._layout._bin_rows(X_train)
+    check(np.array_equal(pushed.bins, whole),
+          "stream: the pushed plane differs from the whole matrix binned under its layout")
+    check(np.array_equal(pushed.metadata.label, y_train), "stream: the pushed labels differ")
+    print(f"{tag} stream ingest: {n} x {X_train.shape[1]} rows in {n_blocks} pushes of "
+          f"{STREAM_BLOCK_ROWS} (block {STREAM_CSR_BLOCK} through push_csr), layout fitted on "
+          f"the first {min(store.bin_sample_rows, n)} rows: {ingest_s:.2f} s ({n / ingest_s:,.0f} "
+          f"rows/s) with finalize; the plane ({pushed.bins.shape[0]} groups) byte-equal to "
+          f"the matrix binned whole under the same layout ({time.perf_counter() - t:.2f} s)")
+    del store, pushed, whole
+
+    # ---- 2. the streamed learner at phase 9's settings, a quarter of the plane cached
+    core = train_set._handle
+    G = core.bins.shape[0]
+    block_bytes = pm.stream_block_bytes(STREAM_BLOCK_ROWS, G, core.bins.dtype.itemsize)
+    budget = STREAM_BUDGET_BLOCKS * block_bytes
+    _stream_env(budget, STREAM_BLOCK_ROWS)
+    try:
+        bst, launches, steady, first, wall, moved = _stream_run(
+            lt, libs, TRAIN_PARAMS, train_set, SERIAL_ROUNDS, STREAM_SERIAL, "float", tag)
+        paths["stream"] = launches
+        learner = bst._gbdt.tree_learner
+        cache = learner._cache
+        check(bst.model_to_string() == serial["booster"].model_to_string(),
+              "stream: the streamed model text differs from phase 9's resident serial model")
+        check(cache.capacity == STREAM_BUDGET_BLOCKS and cache.peak <= cache.capacity,
+              f"stream: the cache held {cache.peak} blocks under a budget of {cache.capacity}")
+        h2d_s = learner.h2d_seconds()
+        h2d_bytes = moved.get("stream_h2d_bytes", 0)
+        uploads, rows_up = moved.get("stream_h2d_blocks", 0), moved.get("stream_h2d_rows", 0)
+        check(h2d_bytes == uploads * block_bytes + rows_up * n,
+              f"stream: {h2d_bytes} bytes uploaded for {uploads} blocks and {rows_up} group "
+              f"rows")
+        h2d_bound = pm.h2d_bound_ms(h2d_bytes, CARD_KIND)
+        s9 = serial["per_iter"]
+        print(f"{tag} stream train (serial lane, budget {budget} B = {STREAM_BUDGET_BLOCKS} "
+              f"blocks of {block_bytes} B, plane {core.bins.nbytes} B in {cache.n_blocks} "
+              f"blocks): {SERIAL_ROUNDS} rounds in {wall:.2f} s; s/iteration first {first:.3f}, "
+              f"mean of the rest {steady:.3f} (phase 9 resident: first {s9[0]:.3f}, rest "
+              f"{float(np.mean(s9[1:])):.3f}); model text byte-equal to phase 9's; the plane "
+              f"pinned in {cache.pin_s:.3f} s")
+        print(f"{tag} stream uploads: {uploads} blocks ({moved.get('stream_h2d_cold', 0)} cold, "
+              f"{moved.get('stream_h2d_prefetched', 0)} prefetched, "
+              f"{moved.get('stream_cache_hits', 0)} cache hits) and {rows_up} group rows, "
+              f"{h2d_bytes} B = {uploads} x stream_block_bytes + {rows_up} x {n}; copy-stream "
+              f"time {h2d_s:.3f} s against the host link's bound {h2d_bound / 1e3:.3f} s "
+              f"({h2d_bytes / max(h2d_s, 1e-9) / 1e9:.2f} GB/s); cache peak {cache.peak} of "
+              f"{cache.capacity} blocks; leaf histograms "
+              f"{moved.get('stream_leaf_histograms', 0)}, carried-mode launches "
+              f"{launches['histogram_carry']} ({launches['histogram_carry'] / SERIAL_ROUNDS:.1f} "
+              f"a tree)")
+        _busy(bst, tag, "stream (serial lane)")
+        del bst, learner, cache
+        # quantized: the resident serial learner, then the streamed one
+        qparams = {**TRAIN_PARAMS, **QUANT_PARAMS}
+        _stream_env(None)
+        resident_q, _, _, _, _ = _timed_run(lt, qparams, train_set, None, STREAM_QUANT_ROUNDS)
+        _stream_env(budget, STREAM_BLOCK_ROWS)
+        bst_q, launches_q, steady_q, first_q, _, _ = _stream_run(
+            lt, libs, qparams, train_set, STREAM_QUANT_ROUNDS, STREAM_QUANT, "quantized", tag)
+        paths["stream_quantized"] = launches_q
+        check(bst_q.model_to_string() == resident_q.model_to_string(),
+              "stream (quantized): the model text differs from the resident serial learner's")
+        print(f"{tag} stream train (quantized, serial lane): {STREAM_QUANT_ROUNDS} rounds, "
+              f"s/iteration first {first_q:.3f}, rest {steady_q:.3f}; model text byte-equal to "
+              f"the resident serial learner's; carried integer-mode launches "
+              f"{launches_q['histogram_carry_i32']}")
+        del bst_q, resident_q
+    finally:
+        _stream_env(None)
+    torch.cuda.empty_cache()
+
+    # ---- 3. the carried mode against its plain version
+    entries = check_carried_histogram(dev, core.bins, n, int(core.group_bin_counts().max()),
+                                      seed + 40, tag)
+    entries["histogram_carry"]["launches"] = paths["stream"]["histogram_carry"]
+    entries["histogram_carry_i32"]["launches"] = paths["stream_quantized"]["histogram_carry_i32"]
+
+    # ---- 4. the flywheel: three generations under live traffic
+    X_fly, y_fly = higgs_rows(seed + 41, 3 * FLY_ROWS)
+    X_req = make_rows_like(X_fly, seed + 42)
+    shift_at = FLY_ROWS + FLY_ROWS // 2
+    drift_plan = f"drift_shift@{shift_at}:{FLY_SHIFT_FEATURE}"
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_stream_")
+    os.environ["LGBM_TPU_DRIFT"] = "1"
+    faults.install(drift_plan)
+    svc = PredictionService(max_batch_rows=4096, min_bucket=64, batch_window_s=0.001)
+    server, server_thread = serve(svc, port=0)
+    base = f"http://127.0.0.1:{server.port}"
+    for lib in libs:
+        lib.reset_launches()
+    answers, failures, done = [], [], threading.Event()
+    # each request's latency, by whether a model trained in this process
+    # when it was sent (training set) or not
+    training, latency = threading.Event(), {"steady": [], "training": []}
+    try:
+        svc.load_model("live", booster=serial["booster"])
+        published = [serial["booster"]]
+        fly = RowBlockStore(params={"max_bin": TRAIN_PARAMS["max_bin"], "verbosity": -1})
+        params = dict(WAVE_PARAMS)
+        trainer = ContinuousTrainer(params, fly, num_boost_round=FLY_ROUNDS, service=svc,
+                                    model_name="live", holdout_rows=FLY_HOLDOUT,
+                                    checkpoint_dir=os.path.join(tmp.name, "live"))
+        clean = ContinuousTrainer(params, fly, num_boost_round=FLY_ROUNDS,
+                                  holdout_rows=FLY_HOLDOUT,
+                                  checkpoint_dir=os.path.join(tmp.name, "clean"))
+
+        def client(worker):
+            i = worker
+            while not done.is_set():
+                k = i % (len(X_req) // SERVE_ROWS)
+                raw = i % 3 == 0
+                body = wire.encode_request("live", X_req[k * SERVE_ROWS:(k + 1) * SERVE_ROWS],
+                                           raw)
+                during = training.is_set()
+                t_req = time.perf_counter()
+                try:
+                    _, payload = _http(base, "/predict", body, wire.CONTENT_TYPE)
+                    answers.append((k, raw, wire.decode_response(payload)[0]))
+                    latency["training" if during or training.is_set() else "steady"].append(
+                        time.perf_counter() - t_req)
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    failures.append(f"request {i}: {exc!r}")
+                i += FLY_CLIENTS
+
+        clients = [threading.Thread(target=client, args=(w,)) for w in range(FLY_CLIENTS)]
+        for th in clients:
+            th.start()
+        walls = {}
+        time.sleep(FLY_STEADY_S)  # the service alone: its steady latency
+
+        def push(gen):
+            for lo in range(gen * FLY_ROWS, (gen + 1) * FLY_ROWS, FLY_PUSH_ROWS):
+                fly.push_rows(X_fly[lo:lo + FLY_PUSH_ROWS], label=y_fly[lo:lo + FLY_PUSH_ROWS])
+
+        training.set()
+        push(0)
+        t = time.perf_counter()
+        published.append(trainer.step())
+        walls["gen0"] = time.perf_counter() - t
+        clean.step()
+        push(1)
+        check(fly._drift.alarmed and fly._drift.alarm_feature == FLY_SHIFT_FEATURE,
+              f"flywheel: drift_shift on feature {FLY_SHIFT_FEATURE} did not latch the alarm")
+        psi = global_timer.counters.get("drift_psi_milli_max", 0) / 1e3
+        faults.install(f"{drift_plan},kill@{FLY_KILL_AT}")
+        try:
+            trainer.step()
+            check(False, "flywheel: kill@ did not stop generation 1")
+        except faults.InjectedFault:
+            pass
+        check(fly.layout_generation == 1 and not fly._drift.alarmed,
+              "flywheel: the generation boundary after the alarm did not refresh the bins")
+        faults.install(drift_plan)
+        t = time.perf_counter()
+        resumed = trainer.step()
+        walls["gen1_resume"] = time.perf_counter() - t
+        published.append(resumed)
+        uninterrupted = clean.step()
+        check(resumed.model_to_string() == uninterrupted.model_to_string(),
+              "flywheel: generation 1 resumed after kill@ differs from the uninterrupted run")
+        manifest = read_sidecar_manifest(trainer.checkpoint_path(1))
+        check(manifest["stream_generation"] == 1 and manifest["bin_mapper_generation"] == 1,
+              f"flywheel: generation 1's sidecar says {manifest.get('stream_generation')} / "
+              f"{manifest.get('bin_mapper_generation')}")
+        push(2)
+        faults.install(f"{drift_plan},bad_generation@2")
+        rejected_before = global_timer.counters.get("stream_generation_rejected", 0)
+        check(trainer.step() is None and svc.registry.get("live").version == 3,
+              "flywheel: the poisoned generation 2 was published")
+        check(global_timer.counters["stream_generation_rejected"] == rejected_before + 1,
+              "flywheel: the holdout gate did not count the rejection")
+        faults.install(drift_plan)
+        t = time.perf_counter()
+        published.append(trainer.step())
+        walls["gen2_retry"] = time.perf_counter() - t
+        check(published[-1] is not None and svc.registry.get("live").version == 4,
+              "flywheel: generation 2's retry was not published")
+        training.clear()
+        time.sleep(FLY_STEADY_S)  # the last version answers a while, alone
+        done.set()
+        for th in clients:
+            th.join(timeout=120)
+        check(not any(th.is_alive() for th in clients), "flywheel: clients hung")
+        _, statz = _http(base, "/statz")
+        drift_stats = json.loads(statz)["drift"]
+        check(drift_stats.get("enabled") is True, f"flywheel: /statz drift is {drift_stats}")
+    finally:
+        done.set()
+        faults.clear()
+        os.environ.pop("LGBM_TPU_DRIFT", None)
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        server_thread.join(timeout=10)
+        tmp.cleanup()
+    check(not failures, "flywheel: " + "; ".join(failures[:5]))
+    wants = {}
+    for g, b in enumerate(published):
+        for raw in (False, True):
+            wants[(g, raw)] = b.predict(X_req, raw_score=raw)
+    served = [0] * len(published)
+    for k, raw, preds in answers:
+        rows = slice(k * SERVE_ROWS, (k + 1) * SERVE_ROWS)
+        hit = [g for g in range(len(published))
+               if np.array_equal(preds, wants[(g, raw)][rows])]
+        check(bool(hit), f"flywheel: an answer equals no published generation's prediction")
+        served[hit[-1]] += 1
+    check(all(latency.values()), f"flywheel: a latency window saw no request "
+          f"({ {k: len(v) for k, v in latency.items()} })")
+    pct = {k: (1e3 * np.percentile(v, 50), 1e3 * np.percentile(v, 99), len(v))
+           for k, v in latency.items()}
+    paths["flywheel"] = _counts(libs)
+    for name in FACADE_WAVE + ("predict_forest_raw",):
+        check(paths["flywheel"][name] > 0, f"flywheel path: kernel {name} never launched")
+    print(f"{tag} flywheel: 3 generations of {FLY_ROWS} rows ({FLY_ROUNDS} wave rounds each, "
+          f"{FLY_HOLDOUT}-row holdout) under {FLY_CLIENTS} clients of {SERVE_ROWS}-row "
+          f"binary-wire requests: {len(answers)} answered, 0 failed, every answer bit-equal "
+          f"to a published generation's Booster.predict (answers by version "
+          f"{served}); generation 0 {walls['gen0']:.2f} s, generation 1 killed at "
+          f"iteration {FLY_KILL_AT} and resumed in {walls['gen1_resume']:.2f} s byte-equal "
+          f"to the uninterrupted run; drift on feature {FLY_SHIFT_FEATURE} (PSI {psi:.3f}) "
+          f"latched, the next boundary refreshed the bins (layout_generation 1, the "
+          f"sidecar's bin_mapper_generation 1); bad_generation@2 rejected by the holdout "
+          f"gate and never served, its retry published in {walls['gen2_retry']:.2f} s; "
+          f"/statz drift max_psi {drift_stats.get('max_psi')}; request latency (host "
+          f"clock, HTTP round trip) with the service alone p50 {pct['steady'][0]:.3f} ms, "
+          f"p99 {pct['steady'][1]:.3f} ms ({pct['steady'][2]} requests), while the "
+          f"generations pushed and trained p50 {pct['training'][0]:.3f} ms, p99 "
+          f"{pct['training'][1]:.3f} ms ({pct['training'][2]} requests)")
+
+    # ---- 5. the C API's streaming handles through ctypes
+    rows = (CAPI_STREAM_PUSHES + 1) * FLY_PUSH_ROWS
+    Xc, yc = X_fly[:rows], np.ascontiguousarray(y_fly[:rows], dtype=np.float32)
+    param_text = " ".join(f"{k}={v}" for k, v in WAVE_PARAMS.items()) + \
+        f" num_iterations={CAPI_ROUNDS}"
+    lib = capi.load()
+
+    def ok(rc, what):
+        check(rc == 0, f"stream C API {what}: {lib.LGBM_GetLastError().decode()}")
+
+    for h in libs:
+        h.reset_launches()
+    t = time.perf_counter()
+    ds = ctypes.c_void_p()
+    ok(lib.LGBM_DatasetCreateStreaming(Xc.shape[1], b"", ctypes.byref(ds)), "CreateStreaming")
+    for p in range(CAPI_STREAM_PUSHES):
+        block = np.ascontiguousarray(Xc[p * FLY_PUSH_ROWS:(p + 1) * FLY_PUSH_ROWS])
+        ok(lib.LGBM_DatasetPushRows(ds, block.ctypes.data, 0, FLY_PUSH_ROWS, Xc.shape[1],
+                                    p * FLY_PUSH_ROWS), "PushRows")
+    tail = Xc[CAPI_STREAM_PUSHES * FLY_PUSH_ROWS:]
+    ip, ix, vals = _csr_of(tail)
+    ok(lib.LGBM_DatasetPushRowsByCSR(ds, ip.ctypes.data, 3, ix.ctypes.data, vals.ctypes.data, 1,
+                                     len(ip), len(vals), Xc.shape[1],
+                                     CAPI_STREAM_PUSHES * FLY_PUSH_ROWS), "PushRowsByCSR")
+    ok(lib.LGBM_DatasetSetField(ds, b"label", yc.ctypes.data, len(yc), 0), "SetField")
+    bsh = ctypes.c_void_p()
+    ok(lib.LGBM_BoosterCreate(ds, param_text.encode(), ctypes.byref(bsh)), "BoosterCreate")
+    fin = ctypes.c_int()
+    for _ in range(CAPI_ROUNDS):
+        ok(lib.LGBM_BoosterUpdateOneIter(bsh, ctypes.byref(fin)), "UpdateOneIter")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capi_") as d:
+        saved = os.path.join(d, "model.txt")
+        ok(lib.LGBM_BoosterSaveModel(bsh, 0, -1, 0, saved.encode()), "SaveModel")
+        with open(saved) as fh:
+            capi_text = fh.read()
+    capi_s = time.perf_counter() - t
+    ok(lib.LGBM_BoosterFree(bsh), "BoosterFree")
+    ok(lib.LGBM_DatasetFree(ds), "DatasetFree")
+    paths["capi"] = _counts(libs)
+    for name in FACADE_WAVE:
+        check(paths["capi"][name] > 0, f"stream C API path: kernel {name} never launched")
+    direct_store = RowBlockStore(params={})
+    for p in range(CAPI_STREAM_PUSHES):
+        direct_store.push_rows(np.ascontiguousarray(
+            Xc[p * FLY_PUSH_ROWS:(p + 1) * FLY_PUSH_ROWS]))
+    direct_store.push_csr(ip, ix, vals, Xc.shape[1])
+    direct_store.set_label(yc)
+    parsed = dict(tok.split("=", 1) for tok in param_text.split())
+    direct = lt.train(parsed, direct_store.to_basic_dataset(params=parsed),
+                      num_boost_round=CAPI_ROUNDS)
+    check(capi_text == direct.model_to_string(),
+          "stream C API: SaveModel differs from engine.train on a RowBlockStore fed the same "
+          "blocks")
+    print(f"{tag} stream C API: DatasetCreateStreaming, {CAPI_STREAM_PUSHES} PushRows of "
+          f"{FLY_PUSH_ROWS} rows (float32) and 1 PushRowsByCSR, BoosterCreate, {CAPI_ROUNDS} "
+          f"UpdateOneIter on the card and SaveModel in {capi_s:.2f} s: the model file "
+          f"byte-equal to engine.train on a RowBlockStore fed the same blocks")
+    print(f"{tag} phase 20 (stream) {time.perf_counter() - t_phase:.1f} s")
+    return paths, [entries["histogram_carry"], entries["histogram_carry_i32"]]
+
+
+def make_rows_like(X, seed):
+    """Request rows for the flywheel's clients: SERVE_REQUESTS x SERVE_ROWS
+    rows drawn from X."""
+    rng = np.random.RandomState(seed)
+    return np.ascontiguousarray(X[rng.choice(X.shape[0], SERVE_REQUESTS * SERVE_ROWS,
+                                             replace=False)])
+
+
 def check_booster_surface(lt, booster, tag):
     """After phase 8: dump_model parses, its leaf values and thresholds equal
     the model text's; feature_importance equals the CPU Booster's loaded
@@ -4789,8 +5323,8 @@ def main() -> int:
     host_thread.start()
     builds = cuda_build.build_all([predict_cuda.LIB, hist_cuda.LIB, scan_cuda.LIB,
                                    compact_cuda.LIB, compact_cuda.WAVE_LIB,
-                                   partition_cuda.LIB, wave_cuda.LIB, quantize_cuda.LIB],
-                                  force=True)
+                                   partition_cuda.LIB, wave_cuda.LIB, quantize_cuda.LIB,
+                                   cuda_build.STREAM_LIB], force=True)
     host_thread.join()
     check("capi" in host_built, "build: g++ did not build the parser and the C API")
     print(f"build: {len(builds)} sources in parallel in "
@@ -5454,9 +5988,20 @@ def main() -> int:
     facade_launches, _ = drive_facades(lt, libs, X_train, y_train, X_valid, y_valid,
                                        args.seed, tag)
     torch.cuda.empty_cache()
+
+    # ------------------------------- single-card streaming
+    # (phase 18 fails and sheds requests on purpose: phase 20 adds none)
+    shed_before = (global_timer.counters.get("serve_dispatch_failures", 0),
+                   global_timer.counters.get("serve_breaker_shed", 0))
+    stream_paths, carry_entries = drive_stream(lt, libs, X_train, y_train, train_set, serial,
+                                               args.seed, tag)
+    check((global_timer.counters.get("serve_dispatch_failures", 0),
+           global_timer.counters.get("serve_breaker_shed", 0)) == shed_before,
+          "phase 20: a dispatch failed or a request was shed")
+    torch.cuda.empty_cache()
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
              goss_launches, cat_launches, lane_launches, life_launches, rank_launches,
-             obs_launches, facade_launches)
+             obs_launches, facade_launches, *stream_paths.values())
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)
@@ -5641,6 +6186,9 @@ def main() -> int:
          "launches": lanes["linear_leaf_launches"], "max_abs_err": 0.0,
          "ms": t_lin["ms"], "plain_ms": t_lin["plain"], "bound_ms": b_lin[0],
          "bound_by": b_lin[1], "library_ms": None})
+    # phase 20: row 5's kernel carried across the blocks of a streamed plane;
+    # its launches are the streamed runs' (float, and integer)
+    kernels.extend(carry_entries)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

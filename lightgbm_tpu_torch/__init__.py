@@ -32,7 +32,10 @@ parser, ``Dataset.save_binary``), the command line (``python -m
 lightgbm_tpu_torch.cli``, with ``convert_model`` through
 ``models/codegen.py``), SHAP contributions (``predict(pred_contrib=True)``,
 ``shap.py``), the plots (``plot_importance`` and the others, with
-matplotlib) and the C API (``capi``).
+matplotlib) and the C API (``capi``); single-card streaming
+(``streaming``): push-row ingest into a ``RowBlockStore``, the out-of-core
+learner under ``LGBM_TPU_HBM_BUDGET``, drift detection with the bin
+refresh, and the ``ContinuousTrainer`` flywheel.
 """
 from .basic import Booster, Dataset
 from .callback import early_stopping, log_evaluation, record_evaluation, reset_parameter
@@ -46,6 +49,7 @@ __version__ = "0.1.0"
 
 _SKLEARN_NAMES = ("LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker")
 _PLOTTING_NAMES = ("plot_importance", "plot_metric", "plot_split_value_histogram", "plot_tree")
+_STREAMING_NAMES = ("RowBlockStore", "ContinuousTrainer")
 
 
 def __getattr__(name):
@@ -59,6 +63,10 @@ def __getattr__(name):
         from . import plotting
 
         return getattr(plotting, name)
+    if name in _STREAMING_NAMES:
+        from . import streaming
+
+        return getattr(streaming, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

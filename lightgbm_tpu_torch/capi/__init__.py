@@ -15,8 +15,8 @@ Python headers into ``build/lightgbm_tpu_torch/`` at first use
 
 From Python, `load()` opens the library through ctypes with every
 function's argument and result types set from the header. The streaming
-handles (LGBM_DatasetCreateStreaming, LGBM_DatasetPushRows*) are refused
-until the streaming store is ported (ROADMAP Queue 1 item 9).
+handles (LGBM_DatasetCreateStreaming, LGBM_DatasetPushRows*) push rows into
+a `streaming.RowBlockStore`, which LGBM_BoosterCreate finalizes.
 
 Constants mirror c_api.h:35-43 (dtype and predict-type enums).
 """

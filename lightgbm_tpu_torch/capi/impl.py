@@ -19,7 +19,6 @@ from typing import Any, Dict
 import numpy as np
 
 from ..basic import Booster, Dataset
-from ..utils.log import LightGBMError
 
 _lock = threading.RLock()
 _handles: Dict[int, Any] = {}
@@ -171,24 +170,77 @@ def dataset_free(handle):
     _handles.pop(int(handle), None)
 
 
-# ---- Streaming dataset: refused until item 9 ports the streaming store -----
+# ---- Streaming dataset --------------------------------------------------------
+# LGBM_DatasetPushRows / LGBM_DatasetPushRowsByCSR (c_api.cpp): a streaming
+# handle is a RowBlockStore (streaming/ingest.py), which has the Dataset
+# surface that LGBM_DatasetSetField, LGBM_DatasetGetNumData and
+# LGBM_DatasetGetNumFeature call; LGBM_BoosterCreate finalizes the store.
 
-def _streaming(*_args):
-    raise LightGBMError("streaming datasets (LGBM_DatasetCreateStreaming, "
-                        "LGBM_DatasetPushRows, LGBM_DatasetPushRowsByCSR) are not yet "
-                        "ported to the PyTorch package (ROADMAP Queue 1 item 9)")
+@_entry
+def dataset_create_streaming(ncol, parameters, out):
+    """Open a push-rows dataset. It stands in for the reference's
+    CreateByReference / CreateFromSampledColumn: the bin layout is fitted on
+    the pushed sample prefix instead of a donor dataset."""
+    from ..streaming.ingest import RowBlockStore
+
+    store = RowBlockStore(params=_parse_params(_string(parameters)),
+                          n_features=int(ncol) if int(ncol) > 0 else None)
+    _write(out, ctypes.c_void_p, _register(store))
 
 
-dataset_create_streaming = _entry(_streaming)
-dataset_push_rows = _entry(_streaming)
-dataset_push_rows_by_csr = _entry(_streaming)
+def _as_store(handle):
+    from ..streaming.ingest import RowBlockStore
+
+    obj = _get(handle)
+    if not isinstance(obj, RowBlockStore):
+        raise TypeError("handle is not a streaming dataset (LGBM_DatasetCreateStreaming)")
+    return obj
+
+
+def _check_start_row(store, start_row) -> None:
+    # the reference writes blocks at any offset from parallel pushers; the
+    # sequential contract is kept explicit here, as in the JAX package
+    if int(start_row) != store.total_rows:
+        raise ValueError(f"non-sequential push: start_row={int(start_row)} but "
+                         f"{store.total_rows} rows are already pushed")
+
+
+@_entry
+def dataset_push_rows(handle, data, data_type, nrow, ncol, start_row):
+    store = _as_store(handle)
+    _check_start_row(store, start_row)
+    store.push_rows(_mat(data, data_type, nrow, ncol, 1))  # row-major ABI
+
+
+@_entry
+def dataset_push_rows_by_csr(handle, indptr, indptr_type, indices, data, data_type, nindptr,
+                             nelem, num_col, start_row):
+    store = _as_store(handle)
+    _check_start_row(store, start_row)
+    ip_dt = _DTYPES.get(int(indptr_type))
+    if ip_dt not in (np.int32, np.int64):
+        raise ValueError(f"indptr_type must be int32/int64, got {indptr_type}")
+    store.push_csr(_array(indptr, ip_dt, nindptr), _array(indices, np.int32, nelem),
+                   _array(data, _dtype(data_type), nelem), int(num_col))
+
+
+def _as_train_set(obj, params):
+    """A streaming store handed to BoosterCreate finalizes here, the moment
+    the reference reaches inside LGBM_BoosterCreate through
+    Dataset::FinishLoad."""
+    from ..streaming.ingest import RowBlockStore
+
+    if isinstance(obj, RowBlockStore):
+        return obj.to_basic_dataset(params=params)
+    return obj
 
 
 # ---- Booster ----------------------------------------------------------------
 
 @_entry
 def booster_create(train_data, parameters, out):
-    bst = Booster(params=_parse_params(_string(parameters)), train_set=_get(train_data))
+    params = _parse_params(_string(parameters))
+    bst = Booster(params=params, train_set=_as_train_set(_get(train_data), params))
     _write(out, ctypes.c_void_p, _register(bst))
 
 

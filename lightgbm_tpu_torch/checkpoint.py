@@ -148,13 +148,19 @@ class TrainerState:
 _model_only_warned = False
 
 
-def save_checkpoint(booster, path: str) -> None:
+def save_checkpoint(booster, path: str,
+                    extra_manifest: Optional[Dict[str, Any]] = None) -> None:
     """Write a crash-consistent checkpoint of `booster` (a Booster, or a
     GBDT) to `path` and `path`.ckpt. A pending tree of the async pipeline
     is finalized first; the manifest records the pipeline's stop flag.
     DART and RF keep per-iteration state (drop weights, the running
     average) with no resume contract: their checkpoint is the model text
-    alone, and resuming from it is continued training."""
+    alone, and resuming from it is continued training.
+
+    `extra_manifest` merges the caller's keys into the sidecar's manifest
+    (the package's own keys win): the continuous trainer records its stream
+    generation and the bin-mapper generation there, which a resume reads
+    back with `read_sidecar_manifest`."""
     global _model_only_warned
     gbdt = getattr(booster, "_gbdt", booster)
     gbdt._flush_pending()
@@ -194,7 +200,8 @@ def save_checkpoint(booster, path: str) -> None:
                 else:
                     objective_scalars[k] = v
         health = getattr(gbdt, "_health", None)
-        manifest = {
+        manifest = dict(extra_manifest or {})
+        manifest.update({
             "version": CKPT_VERSION,
             "iteration": int(gbdt.iter_),
             "num_class": int(gbdt.num_class),
@@ -209,7 +216,7 @@ def save_checkpoint(booster, path: str) -> None:
             "es": getattr(booster, "_early_stop_state", None),
             "health": health.snapshot() if health is not None else None,
             "world": world_fingerprint(gbdt.device),
-        }
+        })
         buf = io.BytesIO()
         np.savez_compressed(
             buf, manifest=np.frombuffer(json.dumps(manifest).encode("utf-8"),
@@ -365,12 +372,14 @@ def restore_trainer_state(booster, state: TrainerState, callbacks=()) -> int:
 
 # ---------------------------------------------------------------- callback
 
-def checkpoint_callback(path: Union[str, Callable[[int], str]], period: int = 1) -> Callable:
+def checkpoint_callback(path: Union[str, Callable[[int], str]], period: int = 1,
+                        extra_manifest: Optional[Dict[str, Any]] = None) -> Callable:
     """After-iteration callback writing a checkpoint every `period`
     iterations. `path` is a file name, or a function of the 1-based count
-    of finished iterations giving one. It runs at order 40, after early
-    stopping (30), so the checkpoint carries the newest early-stop state
-    and an iteration that stops is never saved."""
+    of finished iterations giving one; `extra_manifest` goes to
+    `save_checkpoint`. It runs at order 40, after early stopping (30), so
+    the checkpoint carries the newest early-stop state and an iteration that
+    stops is never saved."""
     if period <= 0:
         raise ValueError("checkpoint period must be positive")
 
@@ -381,7 +390,7 @@ def checkpoint_callback(path: Union[str, Callable[[int], str]], period: int = 1)
         if not hasattr(env.model, "_gbdt"):
             return  # a CVBooster: its folds have no single state
         target = path(it) if callable(path) else path
-        save_checkpoint(env.model, target)
+        save_checkpoint(env.model, target, extra_manifest=extra_manifest)
 
     _callback.order = 40
     _callback.before_iteration = False

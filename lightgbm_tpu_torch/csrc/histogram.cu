@@ -94,6 +94,18 @@
 // leaf pays for the gather, for 28-32 MB more device memory and a second
 // layout to keep: not taken.
 //
+// The carried mode of (1): one leaf histogram summed over several calls, the
+// blocks of a plane that streams onto the card block by block
+// (streaming/learner.py, the out-of-core learner). Each call reads one
+// block's rows (gh offset to the block's first row, block-local indices)
+// and adds into the caller's image: `carry` says whether the image already
+// holds earlier blocks' sums (kCarryKeep: no memset) and whether more
+// blocks follow (kCarryOpen: no conversion). The fixed-point sums are
+// exact, so converting once after the last block gives the bits of one call
+// over all the leaf's rows; the flag words lie behind the sums and OR
+// across blocks as they are. The exponents must be the whole tree's, never
+// a block's. The integer mode adds into the same int32 output.
+//
 // Design of (2).
 //  * Persistent blocks (two an SM, 512 threads each, a group block's worth
 //    on each of them) each take an equal share of the ranges' rows in range
@@ -113,6 +125,9 @@ constexpr int kMaxChannels = 4;
 constexpr int kMaxRanges = 1024;
 constexpr int kThreads = 512;
 constexpr int kRowsPerThread = 4;
+// the leaf histogram's carried mode (bits of its `carry` argument)
+constexpr int kCarryKeep = 1;  // the image holds earlier calls' sums: no memset
+constexpr int kCarryOpen = 2;  // more calls follow: no conversion to float32
 
 // 32-bit words a bin of a block's shared histogram takes: CH channels of one
 // (integer) or two (fixed point: low, high) words, padded to an odd count,
@@ -521,18 +536,22 @@ cudaError_t launch_rows(dim3 grid, size_t smem, cudaStream_t stream, const uint8
 template <typename GH>
 int rows(const uint8_t* bins, long long n_rows, int n_groups, const GH* gh, int ch,
          const int* idx, long long count, int num_bins, int group_block, int blocks,
-         const int* exps, void* image, float* out, cudaStream_t stream) {
+         const int* exps, void* image, float* out, int carry, cudaStream_t stream) {
   constexpr bool kFixed = std::is_same<GH, float>::value;
   if (ch < 1 || ch > kMaxChannels || num_bins < 1 || num_bins > 256 || group_block < 1
-      || blocks < 1 || count < 1 || (kFixed && exps == nullptr)) {
+      || blocks < 1 || count < 1 || (kFixed && exps == nullptr)
+      || carry < 0 || carry > (kCarryKeep | kCarryOpen)) {
     return int(cudaErrorInvalidValue);
   }
   const size_t smem = sizeof(unsigned) * size_t(group_block) * num_bins * bin_words(ch, kFixed);
   const dim3 grid(blocks, (n_groups + group_block - 1) / group_block);
   const long long cells = (long long)n_groups * num_bins * ch;
   unsigned* flags = kFixed ? flag_words(image, cells) : nullptr;
-  cudaError_t err = cudaMemsetAsync(image, 0, image_bytes(cells, kFixed), stream);
-  if (err != cudaSuccess) return int(err);
+  cudaError_t err = cudaSuccess;
+  if (!(carry & kCarryKeep)) {
+    err = cudaMemsetAsync(image, 0, image_bytes(cells, kFixed), stream);
+    if (err != cudaSuccess) return int(err);
+  }
   switch (ch) {
     case 1: err = launch_rows<GH, 1>(grid, smem, stream, bins, n_rows, n_groups, gh, idx,
                                      count, num_bins, group_block, exps, image, flags); break;
@@ -543,7 +562,7 @@ int rows(const uint8_t* bins, long long n_rows, int n_groups, const GH* gh, int 
     default: err = launch_rows<GH, 4>(grid, smem, stream, bins, n_rows, n_groups, gh, idx,
                                       count, num_bins, group_block, exps, image, flags); break;
   }
-  if (err != cudaSuccess || !kFixed) return int(err);
+  if (err != cudaSuccess || !kFixed || (carry & kCarryOpen)) return int(err);
   return int(fixed_to_float(image, flags, cells, ch, exps, out, stream));
 }
 
@@ -609,23 +628,26 @@ extern "C" {
 // stride ch); idx [>= count] int32 or NULL (the identity); `count` positions
 // read; `blocks` row chunks a group block. Float mode (_f32): exps [ch]
 // int32 the fixed-point exponents, image the scratch of G * num_bins * ch
-// int64 sums and as many uint32 flag words behind them (zeroed here), out
+// int64 sums and as many uint32 flag words behind them, out
 // [G, num_bins, ch] float32. Integer mode (_i32, int8 gh): image is the
-// int32 output itself (zeroed here); exps and out unused.
+// int32 output itself; exps and out unused. `carry` 0 is one call (the
+// image zeroed here, then converted into out); otherwise the bits of
+// kCarryKeep (add into the image as it is) and kCarryOpen (leave it
+// unconverted) carry one histogram across calls.
 int lgbt_histogram_f32(const uint8_t* bins, long long n_rows, int n_groups, const float* gh,
                        int ch, const int* idx, long long count, int num_bins,
                        int group_block, int blocks, const int* exps, void* image, float* out,
-                       void* stream) {
+                       int carry, void* stream) {
   return rows<float>(bins, n_rows, n_groups, gh, ch, idx, count, num_bins, group_block,
-                     blocks, exps, image, out, static_cast<cudaStream_t>(stream));
+                     blocks, exps, image, out, carry, static_cast<cudaStream_t>(stream));
 }
 
 int lgbt_histogram_i32(const uint8_t* bins, long long n_rows, int n_groups, const int8_t* gh,
                        int ch, const int* idx, long long count, int num_bins,
                        int group_block, int blocks, const int* exps, void* image, float* out,
-                       void* stream) {
+                       int carry, void* stream) {
   return rows<int8_t>(bins, n_rows, n_groups, gh, ch, idx, count, num_bins, group_block,
-                      blocks, exps, image, out, static_cast<cudaStream_t>(stream));
+                      blocks, exps, image, out, carry, static_cast<cudaStream_t>(stream));
 }
 
 // The ragged (wave) histogram. gh [N, ch] float32 with row stride gh_stride;

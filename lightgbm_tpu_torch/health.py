@@ -57,6 +57,22 @@ def first_nonfinite_column(X) -> Optional[int]:
     return int(np.argmax(~finite.all(axis=0)))
 
 
+def prediction_loss(preds, y, objective: str = "") -> float:
+    """Scalar holdout loss of the streaming publish gate
+    (streaming/continuous.py): clipped logloss for the binary and
+    cross-entropy objectives, mean squared error otherwise, in float64 on
+    the host. A non-finite prediction scores +inf, so a candidate that emits
+    NaN never passes the gate."""
+    preds = np.asarray(preds, dtype=np.float64).ravel()
+    y = np.asarray(y, dtype=np.float64).ravel()
+    if preds.shape != y.shape or len(y) == 0 or not np.isfinite(preds).all():
+        return float("inf")
+    if objective in ("binary", "cross_entropy", "xentropy"):
+        p = np.clip(preds, 1e-7, 1.0 - 1e-7)
+        return float(-np.mean(y * np.log(p) + (1.0 - y) * np.log(1.0 - p)))
+    return float(np.mean((preds - y) ** 2))
+
+
 def create_monitor(config) -> Optional["HealthMonitor"]:
     """The configuration's monitor, or None when no policy is set."""
     policy = str(getattr(config, "health_check_policy", "") or "").strip()

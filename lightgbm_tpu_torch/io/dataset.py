@@ -336,6 +336,39 @@ class Dataset:
         return bins
 
     @classmethod
+    def from_layout(cls, layout: "Dataset", bins: np.ndarray, num_data: int,
+                    label=None, weight=None, group=None, init_score=None,
+                    position=None,
+                    feature_names: Optional[Sequence[str]] = None) -> "Dataset":
+        """A Dataset from a fitted layout and a plane binned against it
+        (streaming ingest: `streaming/ingest.py:RowBlockStore.finalize`; the
+        JAX package's io/dataset.py:365-397). The layout's mappers and
+        groups are shared, not copied."""
+        self = cls(layout.config)
+        self.num_data = int(num_data)
+        self.num_total_features = layout.num_total_features
+        self.mappers = layout.mappers
+        self.groups = layout.groups
+        self.feature_to_group = layout.feature_to_group
+        self.used_features = layout.used_features
+        self.monotone_constraints = list(layout.monotone_constraints)
+        self.bins = bins
+        self.metadata = Metadata(self.num_data)
+        if label is not None:
+            self.metadata.set_label(label)
+        if weight is not None:
+            self.metadata.set_weights(weight)
+        if group is not None:
+            self.metadata.set_query(group)
+        if init_score is not None:
+            self.metadata.set_init_score(init_score)
+        if position is not None:
+            self.metadata.set_positions(position)
+        self.feature_names = (list(feature_names) if feature_names
+                              else [f"Column_{i}" for i in range(self.num_total_features)])
+        return self
+
+    @classmethod
     def load_binary(cls, path: str, config: Optional[Config] = None) -> "Dataset":
         """Rebuild a constructed Dataset from a save_binary npz cache (the
         JAX package's io/dataset.py:398, DatasetLoader::LoadFromBinFile):

@@ -443,8 +443,19 @@ class GBDT:
             self._add_linear_tree_score(tree, class_id)
             return
         score = self.score[class_id]
-        score.copy_(add_tree_to_score(tree, self.train_set, self.tree_learner.bins_dev,
-                                      score, self._all_rows_padded(), self.num_data))
+        score.copy_(self._tree_score_of_rows(tree, score, self._all_rows_padded()))
+
+    def _tree_score_of_rows(self, tree: Tree, score: torch.Tensor,
+                            row_idx: torch.Tensor) -> torch.Tensor:
+        """`score` with the tree's outputs added to the padded rows `row_idx`
+        by bin-space traversal. The streamed learner keeps no plane on the
+        device (bins_dev is None): its cached blocks are walked instead
+        (`add_tree_to_score_blocked`), with the same bits."""
+        learner = self.tree_learner
+        if learner.bins_dev is None:
+            return learner.add_tree_to_score_blocked(tree, score, row_idx)
+        return add_tree_to_score(tree, self.train_set, learner.bins_dev, score, row_idx,
+                                 self.num_data)
 
     def _multiply_score(self, class_id: int, val: float) -> None:
         """ScoreUpdater::MultiplyScore on the train and valid scores of one
@@ -507,9 +518,7 @@ class GBDT:
             vals = torch.repeat_interleave(lv, torch.as_tensor(counts, device=self.device))
             score.index_add_(0, rows, vals)  # each row once: no order to fix
         if self._cur_bag is not None and self._oob_padded is not None:
-            score.copy_(add_tree_to_score(tree, self.train_set,
-                                          self.tree_learner.bins_dev, score,
-                                          self._oob_padded, self.num_data))
+            score.copy_(self._tree_score_of_rows(tree, score, self._oob_padded))
 
     def _update_valid_scores(self, tree: Tree, class_id: int) -> None:
         if not self.valid_sets:

@@ -20,6 +20,11 @@ replay adds the kernels the capture recorded: the counts stay counts of
 kernels run on the card. A capture kept as a graph for a larger one (a
 tree graph's root and waves, ops/wave_cuda.py:TreeGraph) is counted by
 whoever knows how many times it ran (`count`).
+
+A capture runs in thread-local mode on a stream of the capturing
+thread's own (`capture_stream`), so device work on other threads (a
+prediction service answering while a model trains in the same process)
+neither breaks it nor lands in it.
 """
 from __future__ import annotations
 
@@ -142,6 +147,55 @@ class CudaLibrary:
 
 
 _LIBRARIES: List[CudaLibrary] = []  # every library, for CountedGraph
+# stream captures forbid unsafe CUDA calls from the capturing thread only
+CAPTURE_MODE = "thread_local"
+
+
+def _declare_stream(lib: ctypes.CDLL) -> None:
+    lib.lgbt_stream_create.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+    lib.lgbt_stream_destroy.argtypes = [ctypes.c_void_p]
+    lib.lgbt_stream_create.restype = lib.lgbt_stream_destroy.restype = ctypes.c_int
+
+
+STREAM_LIB = CudaLibrary("stream.cu", (), _declare_stream)
+
+
+class _OwnStream:
+    """A stream made by csrc/stream.cu, as a torch.cuda.ExternalStream,
+    destroyed with this object."""
+
+    def __init__(self, device: int) -> None:
+        import torch
+
+        lib, handle = STREAM_LIB.load(), ctypes.c_void_p()
+        err = lib.lgbt_stream_create(device, ctypes.byref(handle))
+        if err != 0:
+            raise RuntimeError(f"creating a CUDA stream failed with CUDA error {err}")
+        self.handle = handle.value
+        self._destroy = lib.lgbt_stream_destroy  # held: no lookups at exit
+        self.stream = torch.cuda.ExternalStream(self.handle, device=device)
+
+    def __del__(self) -> None:
+        self._destroy(self.handle)
+
+
+_own_streams = threading.local()
+
+
+def capture_stream():
+    """The calling thread's stream for graph captures on the current CUDA
+    device. Not one of torch.cuda.Stream()'s: PyTorch hands those out round
+    robin from a pool, so another thread (a serving batcher) can hold the
+    same stream, and a capture would take in its work (csrc/stream.cu)."""
+    import torch
+
+    device = torch.cuda.current_device()
+    streams = getattr(_own_streams, "by_device", None)
+    if streams is None:
+        streams = _own_streams.by_device = {}
+    if device not in streams:
+        streams[device] = _OwnStream(device)
+    return streams[device].stream
 
 
 def _launch_counts() -> Dict[tuple, int]:
@@ -158,7 +212,12 @@ class CountedGraph:
     must stay allocated as long as the graph: a replay runs on the same
     addresses. Kernels that set up lazily (loading a library, opting into
     shared memory) must have run once before the capture. A capture that
-    fails raises; nothing falls back to launching eagerly."""
+    fails raises; nothing falls back to launching eagerly.
+
+    The capture is thread-local (CAPTURE_MODE) on the thread's own
+    `capture_stream`: a prediction service answers while a model trains in
+    the same process (in the default global mode the first CUDA call of
+    another thread breaks both)."""
 
     def __init__(self, fn: Callable[[], None]) -> None:
         import torch
@@ -167,8 +226,8 @@ class CountedGraph:
         # larger graph to embed; it is instantiated only if replayed
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _launch_counts()
-        with torch.cuda.stream(torch.cuda.Stream()):
-            self.graph.capture_begin()
+        with torch.cuda.stream(capture_stream()):
+            self.graph.capture_begin(capture_error_mode=CAPTURE_MODE)
             try:
                 fn()
             finally:

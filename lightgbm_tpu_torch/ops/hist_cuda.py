@@ -2,7 +2,9 @@
 
 `histogram` replaces ``lightgbm_tpu/ops/hist_pallas.py:pallas_histogram``
 and the row gather in front of it (``ops/histogram.py:152-153`` of the JAX
-package); `histogram_ragged` replaces ``pallas_histogram_slots_ragged`` and
+package); with a `HistogramCarry` it sums one leaf histogram over the
+blocks of a streamed plane (the kernel's carried mode, the out-of-core
+learner's histogram); `histogram_ragged` replaces ``pallas_histogram_slots_ragged`` and
 ``pallas_histogram_slots``. The note at the top of the source gives their
 design and bound. The library is built and loaded by ``ops/cuda_build.py``.
 
@@ -33,7 +35,7 @@ from .histogram import (_acc_dtype, _build_histogram_plain, _build_histogram_row
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    rows = [ptr, i64, i32, ptr, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr]
+    rows = [ptr, i64, i32, ptr, i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr]
     for fn in (lib.lgbt_histogram_f32, lib.lgbt_histogram_i32):
         fn.argtypes = rows
         fn.restype = i32
@@ -44,9 +46,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
 
 
-# the integer modes (quantized-gradient training) count apart
+# the integer modes (quantized-gradient training) and the carried mode (the
+# streamed learner's blocks) count apart
 LIB = CudaLibrary("histogram.cu", ("histogram", "histogram_slots_ragged", "histogram_i32",
-                                   "histogram_slots_ragged_i32"), _declare)
+                                   "histogram_slots_ragged_i32", "histogram_carry",
+                                   "histogram_carry_i32"), _declare)
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 
@@ -59,6 +63,26 @@ RAGGED_PLAN_BYTES = 8 * (MAX_RANGES + 1 + 32)  # the ragged kernel's range scan
 THREADS = 512                  # csrc/histogram.cu kThreads
 BLOCKS_PER_SM = 2              # ... and both kernels' launch bounds
 ROWS_PER_BLOCK = 4096          # positions a leaf histogram's block takes at least
+CARRY_KEEP = 1                 # csrc/histogram.cu kCarryKeep: add into the image as it is
+CARRY_OPEN = 2                 # ... kCarryOpen: more calls follow, do not convert
+
+
+class HistogramCarry:
+    """One leaf histogram summed over several `histogram` calls, the blocks
+    of a streamed plane, in block order. On the card it holds the kernel's
+    image (the int64 fixed-point sums and their flag words, or the int32
+    output) from the first call to the last, which converts it once; on the
+    CPU the plain version's running sum, whose float32 adds continue cell by
+    cell in row order, as one call over the concatenated rows would make
+    them. Either way the result is the bits of one call over all the rows.
+    Every call of one carry passes the same exponents (the whole tree's)."""
+
+    __slots__ = ("out", "image", "calls")
+
+    def __init__(self) -> None:
+        self.out: Optional[torch.Tensor] = None
+        self.image: Optional[torch.Tensor] = None
+        self.calls = 0
 
 
 def _bin_bytes(ch: int, quantized: bool) -> int:
@@ -119,7 +143,8 @@ def _check_exponents(exponents: torch.Tensor, ch: int, dev: torch.device) -> Non
 
 def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tensor],
               num_bins: int, count: Optional[int] = None,
-              exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
+              exponents: Optional[torch.Tensor] = None,
+              carry: Optional[HistogramCarry] = None, last: bool = True) -> torch.Tensor:
     """[G, num_bins, CH] histogram of bins [G, N] over the rows of gh (all
     N rows when row_idx is None, else the padded positions row_idx [P], the
     sentinel N hitting gh's zero row N; with `count`, only the first count
@@ -131,12 +156,87 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
     The kernel trusts them: they must come from a g with N rows or more whose
     largest finite |g| per channel is at least gh's (the gh of every call, or
     a superset of its rows). Larger values overflow the int64 sums with no
-    error."""
+    error.
+
+    With `carry`, the call adds one block of a streamed plane (bins the
+    block's [G, n] columns, gh offset to its first row, row_idx block-local
+    positions, read to `count`) into the carry's histogram, and `last` says
+    whether it is the leaf's last block. The returned tensor is the carry's
+    output, which holds the histogram once the last call is enqueued. Every
+    call must pass the same `exponents` (the tree's): required in the float
+    mode, since a block's own would differ from the other blocks'."""
+    if carry is not None:
+        return _histogram_carried(bins, gh, row_idx, num_bins, count, exponents, carry, last)
     if bins.device.type == "cpu":
         if row_idx is None:
             return _build_histogram_plain(bins, gh, num_bins)
         return _build_histogram_rows_plain(bins, gh, row_idx, num_bins, count)
     require_cuda(bins, "the histogram")
+    n_pos, quantized = _check_rows(bins, gh, row_idx, num_bins, count, exponents)
+    dev = bins.device
+    G = bins.shape[0]
+    CH = gh.shape[1]
+    acc = torch.int32 if quantized else torch.float32
+    if n_pos == 0 or G == 0:
+        return torch.zeros((G, num_bins, CH), dtype=acc, device=dev)
+    if quantized:
+        out = torch.empty((G, num_bins, CH), dtype=torch.int32, device=dev)
+        image = out
+    else:
+        out = torch.empty((G, num_bins, CH), dtype=torch.float32, device=dev)
+        image = _fixed_scratch(G * num_bins * CH, dev)
+        if exponents is None:
+            exponents = fixed_point_exponents(gh, bins.shape[1])
+    err = _launch_rows(bins, gh, row_idx, num_bins, n_pos, exponents, image, out, 0)
+    LIB.count("histogram_i32" if quantized else "histogram", err)
+    return out
+
+
+def _histogram_carried(bins: torch.Tensor, gh: torch.Tensor, row_idx: torch.Tensor,
+                       num_bins: int, count: Optional[int],
+                       exponents: Optional[torch.Tensor], carry: HistogramCarry,
+                       last: bool) -> torch.Tensor:
+    """`histogram`'s carried mode (see there)."""
+    if row_idx is None:
+        raise ValueError("the carried histogram takes block-local row indices")
+    quantized = _acc_dtype(gh) == torch.int32
+    if not quantized and exponents is None:
+        raise ValueError("the carried histogram's float mode needs the tree's exponents: "
+                         "a block's own would differ from the other blocks'")
+    G, CH = bins.shape[0], gh.shape[1]
+    shape = (G, num_bins, CH)
+    if carry.out is not None and (tuple(carry.out.shape) != shape
+                                  or carry.out.device != bins.device):
+        raise ValueError(f"a carry of shape {list(carry.out.shape)} on {carry.out.device} "
+                         f"cannot take a {list(shape)} histogram on {bins.device}")
+    first = carry.calls == 0
+    carry.calls += 1
+    if bins.device.type == "cpu":
+        if first:
+            carry.out = torch.zeros(shape, dtype=_acc_dtype(gh))
+        _build_histogram_rows_plain(bins, gh, row_idx, num_bins, count, out=carry.out)
+        return carry.out
+    require_cuda(bins, "the histogram")
+    n_pos, _ = _check_rows(bins, gh, row_idx, num_bins, count, exponents)
+    if n_pos == 0 or G == 0:
+        raise ValueError("a carried histogram call must read at least one row")
+    dev = bins.device
+    if first:
+        carry.out = torch.empty(shape, dtype=torch.int32 if quantized else torch.float32,
+                                device=dev)
+        carry.image = carry.out if quantized else _fixed_scratch(G * num_bins * CH, dev)
+    mode = (0 if first else CARRY_KEEP) | (0 if last else CARRY_OPEN)
+    err = _launch_rows(bins, gh, row_idx, num_bins, n_pos, exponents, carry.image, carry.out,
+                       mode)
+    LIB.count("histogram_carry_i32" if quantized else "histogram_carry", err)
+    return carry.out
+
+
+def _check_rows(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tensor],
+                num_bins: int, count: Optional[int],
+                exponents: Optional[torch.Tensor]) -> Tuple[int, bool]:
+    """Raise ValueError on what the leaf histogram's kernel does not take;
+    (positions read, integer mode)."""
     dev = bins.device
     acc = _acc_dtype(gh)
     if bins.dtype != torch.uint8 or bins.dim() != 2 or not bins.is_contiguous():
@@ -171,27 +271,29 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
     quantized = acc == torch.int32
     if exponents is not None and not quantized:
         _check_exponents(exponents, CH, dev)
-    if n_pos == 0 or G == 0:
-        return torch.zeros((G, num_bins, CH), dtype=acc, device=dev)
+    return n_pos, quantized
+
+
+def _launch_rows(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tensor],
+                 num_bins: int, n_pos: int, exponents: Optional[torch.Tensor],
+                 image: torch.Tensor, out: torch.Tensor, carry: int) -> int:
+    """One launch of the leaf histogram's kernel over n_pos > 0 positions
+    (the arguments checked by `_check_rows`); the library's error code."""
+    dev = bins.device
+    G, N = bins.shape
+    CH = gh.shape[1]
+    quantized = gh.dtype == torch.int8
     group_block, blocks = rows_launch_shape(n_pos, G, num_bins, CH, quantized,
                                             _sm_count(dev.index))
     lib = LIB.load()
-    cells = G * num_bins * CH
-    if quantized:
-        out = torch.empty((G, num_bins, CH), dtype=torch.int32, device=dev)
-        image, exps, fn = out, None, lib.lgbt_histogram_i32
-    else:
-        out = torch.empty((G, num_bins, CH), dtype=torch.float32, device=dev)
-        image = _fixed_scratch(cells, dev)
-        exps = exponents if exponents is not None else fixed_point_exponents(gh, N)
-        fn = lib.lgbt_histogram_f32
+    fn = lib.lgbt_histogram_i32 if quantized else lib.lgbt_histogram_f32
     with torch.cuda.device(dev):
         err = fn(bins.data_ptr(), N, G, gh.data_ptr(), CH,
                  None if row_idx is None else row_idx.data_ptr(), n_pos, num_bins,
-                 group_block, blocks, None if exps is None else exps.data_ptr(),
-                 image.data_ptr(), out.data_ptr(), stream_of(bins))
-    LIB.count("histogram_i32" if quantized else "histogram", err)
-    return out
+                 group_block, blocks, None if quantized else exponents.data_ptr(),
+                 image.data_ptr(), None if quantized else out.data_ptr(), carry,
+                 stream_of(bins))
+    return err
 
 
 def ragged_launch_shape(n_groups: int, num_bins: int, ch: int, quantized: bool,

@@ -52,15 +52,21 @@ def _acc_dtype(gh: torch.Tensor) -> torch.dtype:
 
 
 def _histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
-                     acc: Optional[torch.dtype] = None) -> torch.Tensor:
+                     acc: Optional[torch.dtype] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """bins [G, P] (already gathered), gh [P, CH] -> [G, num_bins, CH],
     summed in `acc` (by default `_acc_dtype(gh)`). Each group scatter-adds
     its rows' channels into the flattened [B*CH] histogram in row order
-    (CPU index_add_ runs sequentially over the index)."""
+    (CPU index_add_ runs sequentially over the index). With `out` (a
+    contiguous [G, num_bins, CH] of dtype acc) the rows add into it in place
+    and each cell's sum goes on where an earlier call left it."""
     acc = _acc_dtype(gh) if acc is None else acc
     G = bins.shape[0]
     CH = gh.shape[1]
-    out = torch.zeros((G, num_bins * CH), dtype=acc, device=gh.device)
+    if out is None:
+        out = torch.zeros((G, num_bins * CH), dtype=acc, device=gh.device)
+    else:
+        out = out.view(G, num_bins * CH)
     src = gh.to(acc).reshape(-1)
     chan = torch.arange(CH, dtype=torch.int64, device=gh.device)
     for g in range(G):
@@ -77,16 +83,18 @@ def _build_histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
 
 def _build_histogram_rows_plain(bins: torch.Tensor, gh_ext: torch.Tensor,
                                 row_idx: torch.Tensor, num_bins: int,
-                                count: Optional[int] = None) -> torch.Tensor:
+                                count: Optional[int] = None,
+                                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Leaf histogram: the row gather of `_build_histogram_rows_xla`
     (bins clamped to row N-1, gh read at the index so the sentinel N hits
     the zero row), then the plain histogram. With `count`, only the first
     count positions are read: the rest is sentinel padding, whose zero rows
-    change no sum."""
+    change no sum. With `out`, the rows add into it (the carried mode's
+    plain version: `hist_cuda.HistogramCarry`)."""
     N = bins.shape[1]
     idx = row_idx[:count].to(torch.int64)
     bins_leaf = bins[:, torch.clamp(idx, max=N - 1)]
-    return _histogram_plain(bins_leaf, gh_ext[idx], num_bins)
+    return _histogram_plain(bins_leaf, gh_ext[idx], num_bins, out=out)
 
 
 def build_histogram(bins: torch.Tensor, gh: torch.Tensor,
@@ -105,7 +113,8 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor,
 def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
                          row_idx: torch.Tensor, num_bins: int,
                          count: Optional[int] = None,
-                         exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         exponents: Optional[torch.Tensor] = None,
+                         carry=None, last: bool = True) -> torch.Tensor:
     """Leaf histogram over a padded row-index set.
 
     bins:    [G, N] full bin plane
@@ -117,6 +126,9 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
              (`fixed_point_exponents(gh_ext, N)`), when the caller computes
              them once for the leaves of a tree; the kernel trusts them
              (`hist_cuda.histogram`); ignored on the CPU
+    carry, last: a `hist_cuda.HistogramCarry` to sum the leaf over the
+             blocks of a streamed plane, and whether this is its last block
+             (`hist_cuda.histogram`'s carried mode)
     Returns [G, num_bins, CH] float32 (int32 for int8 gh).
     """
     from .hist_cuda import histogram
@@ -124,7 +136,7 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
     if telemetry.enabled():
         perfmodel.note_dispatch("histogram", histogram, bins, gh_ext, row_idx,
                                 num_bins=num_bins, count=count)
-    return histogram(bins, gh_ext, row_idx, num_bins, count, exponents)
+    return histogram(bins, gh_ext, row_idx, num_bins, count, exponents, carry, last)
 
 
 def _ragged_cells(bins: torch.Tensor, slot: torch.Tensor, starts: torch.Tensor,

@@ -703,8 +703,11 @@ class _CategoricalGraph:
         with torch.cuda.stream(side):  # warm-up: the allocator's blocks, cub's plans
             _best_categorical_plain(*args)
         torch.cuda.current_stream().wait_stream(side)
+        from .cuda_build import CAPTURE_MODE, capture_stream
+
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, stream=capture_stream(),
+                              capture_error_mode=CAPTURE_MODE):
             self.out = _best_categorical_plain(*args)
         telemetry.note_compile("categorical_scan", kernel=False)
 

@@ -29,7 +29,8 @@ kernels and buffers. It is the one source of the work each kernel does:
 
 The peak table has the cards the port runs on, each keyed by its full
 name as torch.cuda.get_device_name gives it (an H100 PCIe or NVL card has
-other rates than the SXM part's and is not in it). LGBM_TPU_PEAK_BW_GBPS
+other rates than the SXM part's and is not in it), with the host link's
+rate beside them for the streamed learner's uploads. LGBM_TPU_PEAK_BW_GBPS
 overrides the memory rate of `peak_bandwidth_bytes_per_s` and so of
 `attribution`'s roofline, never `bound_ms`. The ICI formulas of the JAX package wait for the
 distributed learners (ROADMAP Queue 1 item 8).
@@ -49,6 +50,9 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 # sheet rates at its 700 W limit
 PEAK_HBM_BYTES_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 3.35e12}
 PEAK_F32_OPS_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 67e12}
+# host-to-card bytes/s, one direction: the H100 SXM5 data sheet's PCIe Gen5
+# x16, 64 GB/s a direction (the streamed learner's block uploads)
+PEAK_HOST_LINK_BYTES_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 64e9}
 
 
 def peak_bandwidth_bytes_per_s(device_kind: str = "") -> Optional[float]:
@@ -79,6 +83,13 @@ def bound_ms(nbytes: float, ops: float, device_kind: str) -> Optional[Tuple[floa
         return None
     t_bytes, t_ops = nbytes / bw * 1e3, ops / fl * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def h2d_bound_ms(nbytes: float, device_kind: str) -> Optional[float]:
+    """The least time the host link could take to upload `nbytes`, in ms
+    (the table's rate; None for a device it does not know)."""
+    rate = PEAK_HOST_LINK_BYTES_PER_S.get(device_kind)
+    return None if rate is None else nbytes / rate * 1e3
 
 
 def shared_memory_per_block(device=None) -> int:
@@ -142,6 +153,13 @@ def hist_ragged(rows: int, n_groups: int, n_outputs: int,
     over the rows in the ranges, each output histogram written; three adds
     a (row, group)."""
     return rows * (n_groups + 12 + 4) + n_outputs * out_bytes, 3 * n_groups * rows
+
+
+def stream_block_bytes(block_rows: int, n_groups: int, plane_bytes: int = 1) -> int:
+    """Upload bytes of one streamed bin block (streaming/learner.py): the
+    [G, block_rows] slab, G * block_rows * plane_bytes (the last block has
+    fewer rows)."""
+    return int(n_groups) * int(block_rows) * int(plane_bytes)
 
 
 def hist_rows(rows: int, n_groups: int, out_bytes: int,
@@ -415,6 +433,8 @@ def model_bytes_from_counters(counters: Mapping[str, int]) -> Dict[str, int]:
       compact    2 x carry x waves    (the partition reads AND writes it)
       histogram  hist_rows x bytes/row  (the ragged kernel's rows)
       scan       scan_bytes x waves
+      stream_h2d the streamed learner's uploads, counted as they are made
+                 (blocks x stream_block_bytes + the partition's group rows)
 
     Missing counters contribute nothing: a serial-learner run yields an
     empty model and the attribution is the measured fractions alone."""
@@ -430,6 +450,9 @@ def model_bytes_from_counters(counters: Mapping[str, int]) -> Dict[str, int]:
     scan = int(counters.get("device_scan_bytes_per_wave", 0))
     if scan and waves:
         out["scan"] = scan * waves
+    h2d = int(counters.get("stream_h2d_bytes", 0))
+    if h2d:
+        out["stream_h2d"] = h2d
     return out
 
 
@@ -461,15 +484,27 @@ def attribution(totals: Mapping[str, float], counters: Mapping[str, int],
     for stage, wall in sorted(walls.items(), key=lambda kv: -kv[1]):
         entry: Dict[str, Any] = {"wall_s": wall,
                                  "fraction": wall / total_s if total_s else 0.0}
-        if stage == "grow_fused" and model:
-            # the fused device stage owns every component of the model
-            entry["model_components_bytes"] = dict(model)
-            entry["model_bytes"] = sum(model.values())
+        comp = {k: v for k, v in model.items() if k != "stream_h2d"}
+        if stage == "grow_fused" and comp:
+            # the fused device stage owns every on-card component
+            entry["model_components_bytes"] = comp
+            entry["model_bytes"] = sum(comp.values())
             _add_model_seconds(entry, entry["model_bytes"], wall, bw)
         stages[stage] = entry
     other = max(total_s - covered, 0.0)
     if total_s > 0.0 and other > 0.0:
         stages["other"] = {"wall_s": other, "fraction": other / total_s}
+    if "stream_h2d" in model:
+        # the streamed learner's uploads run on a copy stream beside the
+        # histograms, inside stages already counted: fraction 0, out of the
+        # closure; their time is the copy stream's (stream_h2d_us), against
+        # the host link's rate
+        h2d_wall = float(counters.get("stream_h2d_us", 0)) / 1e6
+        entry = {"wall_s": h2d_wall, "fraction": 0.0, "overlapped": True,
+                 "model_bytes": model["stream_h2d"]}
+        _add_model_seconds(entry, model["stream_h2d"], h2d_wall,
+                           PEAK_HOST_LINK_BYTES_PER_S.get(device_kind))
+        stages["stream_h2d"] = entry
     report: Dict[str, Any] = {
         "schema_version": ATTRIBUTION_SCHEMA_VERSION,
         "total_s": total_s,

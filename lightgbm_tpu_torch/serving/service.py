@@ -31,7 +31,7 @@ Not carried: the JAX package's AOT warm-start sidecars (its ``.aot``
 bundles of compiled per-bucket executables): the CUDA kernel compiles no
 shapes, so there is nothing to warm-start. Row-sharded entries
 (``shard_rows``) wait for the distributed learners (ROADMAP Queue 1 item
-8) and the drift hook of `stats` for streaming (item 9).
+8).
 """
 from __future__ import annotations
 
@@ -425,8 +425,13 @@ class PredictionService:
         return {"ready": ready, "models": self.registry.names()}
 
     def stats(self) -> Dict[str, Any]:
+        # imported here: a serving front does not load the streaming package
+        # until its stats are read
+        from ..streaming import drift
+
         return {
             "canary": self.canary_info(),
+            "drift": drift.latest(),
             "batcher": self._batcher_stats(),
             "replicas": {"count": len(self._batchers), "placement": self.placement(),
                          "batchers": [b.stats() for b in self._batchers]},

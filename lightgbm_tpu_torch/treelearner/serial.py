@@ -56,7 +56,6 @@ tracks its leaves' branch features for the GBDT's linear fit
 from __future__ import annotations
 
 import json
-import os
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -127,11 +126,8 @@ class SerialTreeLearner:
         self.dataset = dataset
         self.device = torch.device(device)
         self.num_data = dataset.num_data
-        # device-resident bin plane at its native width (uint8 when every
-        # group has <= 256 bins): the histogram kernel reads it unwidened
         with global_timer.scope("learner_init"):
-            self.bins_dev = torch.from_numpy(np.ascontiguousarray(dataset.bins)).to(
-                self.device)
+            self.bins_dev = self._device_bins(dataset)
         self.group_bin_padded = int(max(dataset.group_bin_counts().max(), 2))
         self.meta: FeatureMeta = make_feature_meta(dataset, self.group_bin_padded,
                                                    self.device)
@@ -170,6 +166,12 @@ class SerialTreeLearner:
             except OSError:
                 Log.warning("Could not open forced splits file %s",
                             config.forcedsplits_filename)
+
+    def _device_bins(self, dataset: Dataset) -> Optional[torch.Tensor]:
+        """The bin plane on the device at its native width (uint8 when every
+        group has <= 256 bins): the histogram kernel reads it unwidened. The
+        streamed learner keeps it on the host and returns None."""
+        return torch.from_numpy(np.ascontiguousarray(dataset.bins)).to(self.device)
 
     # ------------------------------------------------------------ checkpoint
 
@@ -319,6 +321,12 @@ class SerialTreeLearner:
                                     self.group_bin_padded,
                                     count=self.partition.count(leaf),
                                     exponents=self._exps)
+
+    def _partition_split(self, leaf: int, new_leaf: int, gi: int, decision,
+                         cat_mask=None) -> Tuple[int, int]:
+        """Split the leaf's rows on group gi's plane row (the streamed
+        learner uploads that row from the host)."""
+        return self.partition.split(leaf, new_leaf, self.bins_dev[gi], decision, cat_mask)
 
     def _root_totals(self, root_hist: torch.Tensor) -> Tuple[float, float, float]:
         # any group's bins partition all rows, so group 0's bin-sum = totals
@@ -554,8 +562,8 @@ class SerialTreeLearner:
                     float(mapper.num_bin), float(lo), float(hi),
                     1.0 if fg.is_multi else 0.0)
         with global_timer.scope("partition"):
-            left_cnt, right_cnt = self.partition.split(
-                leaf, new_leaf, self.bins_dev[gi], decision, cat_mask)
+            left_cnt, right_cnt = self._partition_split(leaf, new_leaf, gi, decision,
+                                                        cat_mask)
         if left_cnt != split.left_count or right_cnt != split.right_count:
             Log.debug("Partition count mismatch at leaf %d: %d/%d vs %d/%d",
                       leaf, left_cnt, right_cnt, split.left_count, split.right_count)
@@ -648,16 +656,16 @@ def device_growth_applies(device: torch.device, config: Config,
 
 def create_tree_learner(learner_type: str, device: torch.device, config: Config,
                         dataset: Dataset) -> SerialTreeLearner:
-    """Factory (tree_learner.cpp:17-57): the wave learner (DeviceTreeLearner)
-    where `device_growth_applies`, else the serial learner. A configuration
-    the JAX package gives to its streamed or distributed learners is
-    refused: the port trains it with neither yet, and does not silently
-    swap in the serial learner."""
+    """Factory (tree_learner.cpp:17-57): the out-of-core streamed learner
+    when LGBM_TPU_HBM_BUDGET asks for it (before the wave learner: a plane
+    that needs a budget must not be uploaded whole), the wave learner
+    (DeviceTreeLearner) where `device_growth_applies`, else the serial
+    learner. A configuration the JAX package gives to its distributed
+    learners is refused: the port does not silently swap in the serial
+    learner."""
     if learner_type in ("serial",):
-        if os.environ.get("LGBM_TPU_HBM_BUDGET"):
-            Log.fatal("LGBM_TPU_HBM_BUDGET asks for the out-of-core streamed "
-                      "learner, which is not yet ported to the PyTorch package "
-                      "(ROADMAP Queue 1 item 9)")
+        if streamed.streaming_requested():
+            return streamed.StreamedTreeLearner(config, dataset, device)
         if device_growth_applies(device, config, dataset):
             from .device import DeviceTreeLearner
 
@@ -668,3 +676,9 @@ def create_tree_learner(learner_type: str, device: torch.device, config: Config,
                   "ported to the PyTorch package (ROADMAP Queue 1 item 8)",
                   learner_type)
     Log.fatal("Unknown tree learner type: %s", learner_type)
+
+
+# the streamed learner subclasses SerialTreeLearner, so its module comes
+# once the class exists (and takes the class itself, not whatever a caller
+# has since put in its place)
+from ..streaming import learner as streamed  # noqa: E402

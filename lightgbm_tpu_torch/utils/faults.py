@@ -28,13 +28,27 @@ serving batcher, 1-based:
     model_corrupt_upload     garble the NEXT staged model upload before the
                              registry verifies it (one-shot)
 
+Streaming faults (``streaming/``):
+
+    drift_shift@K:F     every pushed row with absolute index >= K gets
+                        feature F shifted (x*3 + 10) out of the fitted bin
+                        support: the drift monitor must alarm and a bin
+                        refresh re-resolve it (fires on every push; emits
+                        once)
+    bad_generation@G    the refit that would publish generation G has its
+                        trained model poisoned in memory (leaf values
+                        sign-flipped and scaled 1e6) after training and
+                        checkpointing: only the holdout gate stands between
+                        it and serving (one-shot)
+    sketch_corrupt@K    plant non-finite values inside feature K's quantile
+                        sketch: the next bin refresh must detect it and keep
+                        the feature's cut points (one-shot)
+
 The distributed tokens (``worker_kill@R:K``, ``worker_hang@R:K``,
 ``coord_loss@K``, ``slow_worker@R:ms``, ``vote_skew@R:K``) wait for the
-distributed learners (ROADMAP Queue 1 item 8) and the drift tokens
-(``drift_shift@K:F``, ``bad_generation@G``, ``sketch_corrupt@K``) for
-streaming (item 9): they parse as in the JAX package and are then refused
-with a LightGBMError naming the item, so a plan that names them never runs
-as if armed.
+distributed learners (ROADMAP Queue 1 item 8): they parse as in the JAX
+package and are then refused with a LightGBMError naming the item, so a
+plan that names them never runs as if armed.
 
 Every injection is one-shot (``kill@K`` fires once even if iteration K is
 re-entered after a rollback) and seeded, so a failing test replays
@@ -57,9 +71,9 @@ class InjectedFault(RuntimeError):
 # token prefix -> the ROADMAP Queue 1 item that ports its subsystem
 _REFUSED = {
     "worker_kill@": 8, "worker_hang@": 8, "coord_loss@": 8, "slow_worker@": 8,
-    "vote_skew@": 8, "drift_shift@": 9, "bad_generation@": 9, "sketch_corrupt@": 9,
+    "vote_skew@": 8,
 }
-_SUBSYSTEM = {8: "the distributed learners", 9: "streaming"}
+_SUBSYSTEM = {8: "the distributed learners"}
 
 
 def _rank_iter(token: str, prefix: str, value=int):
@@ -74,9 +88,9 @@ def _rank_iter(token: str, prefix: str, value=int):
 
 
 def _parse_refused(token: str, prefix: str) -> None:
-    """Parse a distributed or drift token as the JAX package does, then
-    refuse it by its ROADMAP item."""
-    if prefix in ("coord_loss@", "bad_generation@", "sketch_corrupt@"):
+    """Parse a distributed token as the JAX package does, then refuse it by
+    its ROADMAP item."""
+    if prefix == "coord_loss@":
         try:
             int(token[len(prefix):])
         except ValueError:
@@ -103,6 +117,9 @@ class FaultPlan:
         self.fail_predict_at: Optional[int] = None
         self.fail_predict_count = 3
         self.corrupt_upload = False
+        self.drift_shift = None  # (start_row, feature)
+        self.bad_generation: Optional[int] = None
+        self.sketch_corrupt: Optional[int] = None
         self._dispatch_no = 0  # serving device-dispatch counter (1-based)
         self._fired = set()
         for token in (t.strip() for t in self.spec.split(",")):
@@ -139,6 +156,12 @@ class FaultPlan:
                     self.fail_predict_at = int(body)
             elif token == "model_corrupt_upload":
                 self.corrupt_upload = True
+            elif token.startswith("drift_shift@"):
+                self.drift_shift = _rank_iter(token, "drift_shift@")
+            elif token.startswith("bad_generation@"):
+                self.bad_generation = int(token[len("bad_generation@"):])
+            elif token.startswith("sketch_corrupt@"):
+                self.sketch_corrupt = int(token[len("sketch_corrupt@"):])
             else:
                 for prefix in _REFUSED:
                     if token.startswith(prefix):
@@ -276,6 +299,69 @@ def maybe_corrupt_upload(text: str) -> str:
     Log.warning("Fault injection: corrupted staged model upload "
                 "(%d chars garbled)", min(64, len(text) - mid))
     return text[:mid] + "#" * min(64, len(text) - mid) + text[mid + 64:]
+
+
+def maybe_shift_block(block, start_row: int):
+    """Injection point at the top of RowBlockStore.push_rows: shift feature
+    F of every row whose absolute index is K or more (a copy; the caller's
+    array stays as it was). It fires on every push, so the drift persists
+    across checks; the record is one-shot."""
+    p = _get()
+    if p.drift_shift is None:
+        return block
+    at, feat = p.drift_shift
+    end_row = start_row + block.shape[0]
+    if end_row <= at or feat >= block.shape[1]:
+        return block
+    import numpy as np
+
+    block = np.array(block, copy=True)
+    lo = max(0, at - start_row)
+    block[lo:, feat] = block[lo:, feat] * 3.0 + 10.0
+    if p.once("drift_shift"):
+        Log.warning("Fault injection: shifting feature %d out of bin "
+                    "support from row %d onward", feat, at)
+        _emit_fault("drift_shift", feature=feat, start_row=at)
+    return block
+
+
+def maybe_poison_generation(booster, generation: int):
+    """Injection point after a refit trains (and checkpoints) generation G:
+    the booster rebuilt from its model text with every leaf value
+    sign-flipped and scaled 1e6, on the booster's device. In memory only:
+    the checkpoint on disk keeps the good model, so the retry after a
+    rejection publishes it."""
+    p = _get()
+    if p.bad_generation is None or generation != p.bad_generation \
+            or not p.once("bad_generation"):
+        return booster
+    import re
+
+    from .. import basic
+
+    Log.warning("Fault injection: poisoning the trained model for "
+                "generation %d (leaf values sign-flipped and scaled 1e6)", generation)
+    _emit_fault("bad_generation", generation=generation)
+    txt = booster.model_to_string()
+    poisoned = re.sub(
+        r"^leaf_value=(.*)$",
+        lambda m: "leaf_value=" + " ".join(
+            repr(float(v) * -1e6) for v in m.group(1).split()),
+        txt, flags=re.M)
+    return basic.Booster(model_str=poisoned,
+                         params={"device_type": str(booster.device)})
+
+
+def sketch_corrupt_feature() -> Optional[int]:
+    """Injection point in the drift monitor's scoring pass: the feature
+    whose sketch gets non-finite values (one-shot), or None."""
+    p = _get()
+    if p.sketch_corrupt is None or not p.once("sketch_corrupt"):
+        return None
+    Log.warning("Fault injection: corrupting the quantile sketch for "
+                "feature %d", p.sketch_corrupt)
+    _emit_fault("sketch_corrupt", feature=p.sketch_corrupt)
+    return p.sketch_corrupt
 
 
 def _emit_fault(kind: str, **fields) -> None:

@@ -11,7 +11,8 @@ Contracts: the header declares the JAX package's DECLS
 every answer through the C API is bit-equal to the same call on the
 Booster (and CSR to dense rows); a model through SaveModel and
 CreateFromModelfile predicts bit-equal; errors return -1 with the message
-in LGBM_GetLastError; the streaming handles are refused by item 9's number.
+in LGBM_GetLastError; the streaming handles push rows that train
+(tests/test_torch_capi_streaming.py holds them to the Python route).
 Boosters loaded from a model name no device, so the tests that load one
 stand the CPU in for the card (`resolve_device`).
 """
@@ -209,17 +210,18 @@ def test_error_reporting(lib):
     assert b"No such file" in lib.LGBM_GetLastError()
 
 
-def test_streaming_handles_refused_by_item_9(lib):
+def test_streaming_handles_push_rows_that_train(lib):
+    X, y = _data(n=300)
     ds = ctypes.c_void_p()
-    X = np.zeros((4, 3))
-    calls = [
-        lambda: lib.LGBM_DatasetCreateStreaming(3, b"", ctypes.byref(ds)),
-        lambda: lib.LGBM_DatasetPushRows(None, X.ctypes.data, 1, 4, 3, 0),
-        lambda: lib.LGBM_DatasetPushRowsByCSR(None, None, 2, None, None, 1, 1, 0, 3, 0),
-    ]
-    for call in calls:
-        assert call() == -1
-        assert b"ROADMAP Queue 1 item 9" in lib.LGBM_GetLastError()
+    _check(lib, lib.LGBM_DatasetCreateStreaming(X.shape[1], b"", ctypes.byref(ds)))
+    _check(lib, lib.LGBM_DatasetPushRows(ds, X.ctypes.data, 1, 300, X.shape[1], 0))
+    _check(lib, lib.LGBM_DatasetSetField(ds, b"label", y.ctypes.data, len(y), 0))
+    bst = _booster(lib, ds, 2)
+    it = ctypes.c_int()
+    _check(lib, lib.LGBM_BoosterGetCurrentIteration(bst, ctypes.byref(it)))
+    assert it.value == 2
+    _check(lib, lib.LGBM_BoosterFree(bst))
+    _check(lib, lib.LGBM_DatasetFree(ds))
 
 
 def test_a_c_program_starts_python(lib, tmp_path):

@@ -5,8 +5,8 @@ package's.
 Contracts:
 
 * a FaultPlan's fields equal the JAX package's for every training,
-  checkpoint and serving token; each distributed and drift token is refused
-  with a LightGBMError naming its ROADMAP item (8 or 9);
+  checkpoint, serving and drift token; each distributed token is refused
+  with a LightGBMError naming its ROADMAP item (8);
 * ``kill@K`` after periodic checkpoints, then the same command resumed from
   the checkpoint: model text byte-equal to the uninterrupted run;
 * ``nan_gh@K:frac`` under each health policy at the JAX package's
@@ -62,10 +62,12 @@ def _train(params, X, y, rounds, init_model=None, cbs=None):
 TOKENS = ["kill@3", "nan_gh@2", "nan_gh@4:0.25", "ckpt_write_fail:2", "ckpt_corrupt",
           "ckpt_truncate", "slow_predict@3", "slow_predict@2:0.5", "predict_fail@4",
           "predict_fail@1:7", "model_corrupt_upload",
-          "kill@1,nan_gh@2:0.1,ckpt_write_fail:1,predict_fail@2:2,model_corrupt_upload"]
+          "kill@1,nan_gh@2:0.1,ckpt_write_fail:1,predict_fail@2:2,model_corrupt_upload",
+          "drift_shift@100:3", "bad_generation@2", "sketch_corrupt@5"]
 FIELDS = ("kill_at", "nan_at", "nan_frac", "write_fails", "corrupt_sidecar",
           "truncate_model", "slow_predict_at", "slow_predict_s", "fail_predict_at",
-          "fail_predict_count", "corrupt_upload", "seed", "spec")
+          "fail_predict_count", "corrupt_upload", "drift_shift", "bad_generation",
+          "sketch_corrupt", "seed", "spec")
 
 
 @pytest.mark.parametrize("spec", TOKENS)
@@ -78,12 +80,12 @@ def test_plan_fields_equal_jax(jax_ref, spec):
 
 
 REFUSED = [("worker_kill@1:3", 8), ("worker_hang@0:2", 8), ("coord_loss@4", 8),
-           ("slow_worker@1:250", 8), ("vote_skew@0:1", 8), ("drift_shift@100:3", 9),
-           ("bad_generation@2", 9), ("sketch_corrupt@5", 9)]
+           ("slow_worker@1:250", 8), ("vote_skew@0:1", 8)]
 
 
 @pytest.mark.parametrize("spec,item", REFUSED)
 def test_distributed_and_drift_tokens_refused_by_item(jax_ref, spec, item):
+    """The distributed tokens (the drift tokens are armed now: TOKENS)."""
     from lightgbm_tpu.utils import faults as jax_faults
 
     jax_faults.FaultPlan(spec)  # the JAX package arms it

@@ -210,9 +210,14 @@ def test_unported_features_are_refused(extra, what):
                  num_boost_round=2)
 
 
-def test_streamed_learner_is_refused(monkeypatch):
-    monkeypatch.setenv("LGBM_TPU_HBM_BUDGET", "64M")
+def test_hbm_budget_routes_to_the_streamed_learner(monkeypatch):
+    from lightgbm_tpu_torch.streaming import StreamedTreeLearner
+
     X, y = _data(with_nan=False)
-    with pytest.raises(LightGBMError, match="streamed learner"):
-        lt.train(_params("binary", 0.8), lt.Dataset(X, label=y), num_boost_round=1)
+    resident = lt.train(_params("binary", 0.8), lt.Dataset(X, label=y), num_boost_round=2)
+    monkeypatch.setenv("LGBM_TPU_HBM_BUDGET", "64M")
+    bst = lt.train(_params("binary", 0.8), lt.Dataset(X, label=y), num_boost_round=2)
+    assert isinstance(bst._gbdt.tree_learner, StreamedTreeLearner)
+    assert bst._gbdt.tree_learner.bins_dev is None
+    assert bst.model_to_string() == resident.model_to_string()
 
