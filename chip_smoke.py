@@ -65,7 +65,7 @@ Phases (any failure exits non-zero before the result line):
             as the learners call them, beside the parent's sequence of
             PyTorch glue and kernels for the same work (device time and
             host time a call).
-5. exact    training on 32,768 rows with grid-snapped custom gradients, 2
+5. exact    training on 16,384 rows with grid-snapped custom gradients, 2
             rounds: the serial learner (feature_fraction_bynode=0.8) on the
             card and with device_type=cpu, and the wave learner on the card
             against a CPU GBDT whose learner is the wave learner, without and
@@ -146,7 +146,7 @@ Phases (any failure exits non-zero before the result line):
             on the binary logloss gradients computed on the host (the card's
             torch.exp is not the CPU's, so the built-in objective's
             gradients differ in the last bit) and renewal on on snapped
-            ones, at 32,768 rows (2 rounds), and the same at 8,192 rows of
+            ones, at 16,384 rows (2 rounds), and the same at 8,192 rows of
             Covertype's shapes (7 classes, 63 leaves, 2 rounds). Then phase
             8's data through the wave learner (10 rounds) and the serial one
             (3 rounds, feature_fraction_bynode=0.8), each as phases 8 and 9
@@ -157,7 +157,7 @@ Phases (any failure exits non-zero before the result line):
 
 13. goss    GOSS (data_sample_strategy=goss, top_rate 0.2, other_rate 0.1)
             on phase 8's data at learning rate 0.1, so rounds 1-10 are its
-            warm-up and rounds 11-15 sample: exact first (32,768 rows, 63
+            warm-up and rounds 11-15 sample: exact first (16,384 rows, 63
             leaves, 8 rounds at learning rate 0.5 on snapped gradients, which the
             multiplier 8 keeps snapped; card and CPU model texts byte-equal
             through both learners), then 15 rounds through the wave learner
@@ -204,7 +204,7 @@ Phases (any failure exits non-zero before the result line):
             equal to predict(raw_score=True) within 1e-5 on the 1,048,576
             rows, valid AUC rising, every linear score through the
             traversal's leaf mode. Exact first: each run, and run 1
-            quantized, at 32,768 rows, 63 leaves, 2 rounds on host gradients,
+            quantized, at 16,384 rows, 63 leaves, 2 rounds on host gradients,
             card and CPU model texts byte-equal. The split kernel's
             constrained mode bit-equal to its plain version on the root and
             two leaves whose bounds bind, its device time beside the
@@ -214,7 +214,7 @@ Phases (any failure exits non-zero before the result line):
             and linear_fit, and the busy share and device-to-host copies of
             one more profiled round.
 16. life cycle  DART, random forests and the model's life cycle on phase
-            8's data through the wave learner. Exact first (32,768 rows, 63
+            8's data through the wave learner. Exact first (16,384 rows, 63
             leaves, 4 rounds; card and CPU model texts byte-equal): DART on
             snapped gradients (drop_rate 0.5, skip_drop 0.2), RF on labels on
             a 1/64 grid whose mean is 1, and a run resumed from a checkpoint
@@ -238,7 +238,7 @@ Phases (any failure exits non-zero before the result line):
             s/iteration; the phase its launches per kernel and its seconds.
 17. ranking learning to rank at MSLR-WEB30K's shapes from --seed (136
             dense features, labels 0-4 at the release's shares, queries of
-            ~120 documents on average and one of 1,251; 1,048,576 rows cut
+            ~120 documents on average and one of 1,251; 524,288 rows cut
             from 3.77 M, and a 65,536-row validation set of its own queries)
             with LightGBM's ranking settings (255 leaves, learning rate 0.1,
             NDCG at 1, 3, 5, 10). Exact first, on 65,536 rows of whole
@@ -284,7 +284,7 @@ Phases (any failure exits non-zero before the result line):
             serve_breaker_state on /metrics following each step. No
             dispatch fails and no request is shed outside that window
             (checked after phases 7, 10 and 17 and at the end of 18).
-19. façades  phase 8's 1,048,576 rows written as a TSV with a .weight side
+19. façades  524,288 of phase 8's rows written as a TSV with a .weight side
             file, and its valid rows as another: (1) the native parse, timed,
             its first 32,768 rows exactly equal to np.genfromtxt's; (2) cli
             task=train from the text (no device_type: the card; 10 rounds at
@@ -341,6 +341,30 @@ Phases (any failure exits non-zero before the result line):
             BoosterCreate, 3 UpdateOneIter on the card, SaveModel
             byte-equal to engine.train on a RowBlockStore fed the same
             blocks.
+21. distributed  a gang started with the port's launcher code
+            (parallel/elastic.py GangSupervisor and worker_env, the script
+            itself as each rank: --gang-worker): min(cards, 4) ranks over
+            NCCL, or with one card 2 ranks on it over gloo, staged through
+            pinned host memory (printed). Each rank builds phase 8's
+            1,048,576 x 28 rows from --seed and keeps its shard on its card;
+            data-, feature- and voting-parallel (top_k 28) wave learners, 10
+            rounds at phase 8's settings, equal to phase 8's single-card
+            model (split_gain within 4 ULP) on the real logloss gradients;
+            voting at top_k 5 (10 of the 28 features elected a leaf), 5
+            rounds, within 0.001 valid AUC of the exact run's after 5; the
+            host-driven data-parallel learner at phase 9's settings equal to phase 9's
+            model; quantized data-parallel equal to phase 12's; row-sharded
+            predict of the 1M rows and a service loaded with shard_rows
+            bit-equal to Booster.predict; `launch -n 2 -- <cli args>
+            tree_learner=data` writing the in-process gang's model. Prints
+            each learner's s/iteration beside phase 8's (9's), the wire's
+            bytes a wave from perfmodel.py beside those counted at the
+            collectives, the collectives' share of a run (host wall around
+            the calls, each synchronized in a measured run) and the launches
+            a kernel over the ranks. Phase 4 holds the ragged kernel's image
+            mode, the leaf kernel's and the conversion kernel against their
+            plain versions (with +inf, -inf and NaN gradients among the
+            rows) and times them.
 
 Bounds: each kernel's bytes and operations come from
 lightgbm_tpu_torch/perfmodel.py's formula for its row of PERF.md's table,
@@ -359,7 +383,8 @@ phase 7 (the serving and predict paths, prediction early stopping's
 accumulate mode included), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
 of phases 13, 14, 15, 16 and 17 (the training paths), of phases 18 and 19 and
-of phase 20's streamed runs (float and quantized), flywheel and C API: every
+of phase 20's streamed runs (float and quantized), flywheel and C API, and
+on each rank of phase 21's gang around each of its runs: every
 kernel of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
@@ -376,6 +401,7 @@ It prints no result line.
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import inspect
 import itertools
@@ -406,8 +432,9 @@ SERVE_BATCHES = (64, 512, 4096)  # one request, a few coalesced, a full batch
 TRAIN_ROWS, VALID_ROWS, LEAF_ROWS = 1_048_576, 65_536, 100_000
 SMALL_LEAF_ROWS = 4_000  # a typical serial leaf: 1,048,576 rows over 255 leaves
 # the exact card = CPU runs of phases 5, 12, 13, 15 and 16 (32,768 rows and
-# 2 rounds since phase 17 came: their CPU halves are most of the smoke's time)
-TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 32_768, 2
+# 2 rounds since phase 17 came, 16,384 rows since phase 21: their CPU halves
+# are most of the smoke's time)
+TRAIN_ROUNDS, EXACT_ROWS, EXACT_ROUNDS = 10, 16_384, 2
 SERIAL_ROUNDS = 10  # the serial learner's path, after the wave learner's
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "feature_fraction_bynode": 0.8,
@@ -836,6 +863,17 @@ def check_row_partition(dev, kept):
             "host": host_ms(this, reps), "parent_host": host_ms(parent, reps),
             "plain": cuda_ms(lambda: _split_rows_plain(bins_row, idx, cnt, table, n), 5),
         }
+        # the library call: a stable argsort of the rows' side flags (the
+        # left rows first, each side in the leaf's order), the flags made
+        # beforehand
+        side = torch.from_numpy(table).to(dev)[bins_row[idx[:cnt].to(torch.int64)]
+                                               .to(torch.int64)]
+        order = torch.argsort(side.logical_not().to(torch.int8), stable=True)
+        n_left = int(ref[2])
+        check(torch.equal(idx[:cnt][order][:n_left].cpu(), ref[0][:n_left]),
+              f"row partition ({name}): the stable argsort's left rows differ")
+        timings[name]["library"] = cuda_ms(
+            lambda: torch.argsort(side.logical_not().to(torch.int8), stable=True), 20)
         P = idx.shape[0]
         tiles = -(-cnt // partition_cuda.TILE)
         bounds[name] = {  # each input read once, each output written once
@@ -1009,7 +1047,107 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
     timings["plain_slots"] = cuda_ms(lambda: _histogram_slots_ragged_plain(
         sb, sg, ss, *all_rows, num_bins, S), 2)
     bounds["slots"] = bound(perfmodel.hist_ragged(n, G, S, out_bytes))
+    # its library call: index_add_ over the rows whose slot is one of the S
+    timings["library_slots"] = index_add_ms(
+        sb, sg, torch.nonzero(ss < S)[:, 0], ss, S, num_bins,
+        histogram_slots(sb, sg, ss, num_bins, S))
+    check_image_modes(dev, bins, payload, pay_d, cases, exps, num_bins, timings, bounds)
     return max_err, timings, bounds, kept["wave"], kept["root"]
+
+
+def check_image_modes(dev, bins, payload, pay_d, cases, exps, num_bins, timings, bounds):
+    """Phase 21's kernel modes on phase 4's ragged inputs: the ragged
+    kernel's image mode (the unconverted int64 fixed-point sums and flag
+    words the gang's ranks add) and the conversion kernel (image -> float32
+    with the exponents), each bit-equal to its plain version run on the CPU
+    on the 21 ranges, and on a 65,536-row sample holding
+    +inf, -inf and NaN gradients (the flag words); the conversion of the
+    image equal to the float mode's result; two launches bit-equal. Timed
+    as the learners call them: the image of a wave's 21 ranges, and the
+    conversion of a wave's 42 children [2K, G, B, CH]; plain versions on
+    the card; the image's library call is the float mode's (index_add_)."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_image_plain,
+                                                  _image_to_float_plain,
+                                                  fixed_point_exponents)
+
+    G = bins.shape[0]
+    exps_d = exps.to(dev)
+    n = SAMPLE_ROWS
+    bad = payload["real"][:n].clone()
+    bad[7, 0], bad[8, 1], bad[9, 0], bad[9, 1] = float("inf"), float("-inf"), float("nan"), 1.0
+    bad[10, 0] = float("-inf")
+    bad_exps = fixed_point_exponents(bad[:, :3], n)
+    sample = (bins[:, :n].contiguous(), np.zeros(n, np.int32), np.array([0], np.int32),
+              np.array([n], np.int32))
+    for name, (bins_d, sl, st, en), gh_h, e in (
+            ("wave", cases["wave"], payload["real"], exps),
+            ("non-finite sample", sample, bad, bad_exps)):
+        K = len(st)
+        args_h = [torch.from_numpy(a) for a in (sl, st, en)] + [torch.ones(K, dtype=torch.bool)]
+        args_d = [a.to(dev) for a in args_h]
+        gh_d = gh_h.to(dev)
+        e_d = e.to(dev)
+        got = hist_cuda.histogram_ragged(bins_d, gh_d[:, :3], *args_d, num_bins, K,
+                                         exponents=e_d, image=True)
+        again = hist_cuda.histogram_ragged(bins_d, gh_d[:, :3], *args_d, num_bins, K,
+                                           exponents=e_d, image=True)
+        ref = _histogram_slots_ragged_image_plain(bins_d.cpu(), gh_h[:, :3], *args_h,
+                                                  num_bins, K, e)
+        for what, g, a, r in (("sums", got.sums, again.sums, ref.sums),
+                              ("flags", got.flags, again.flags, ref.flags)):
+            check(torch.equal(g.cpu(), r), f"ragged image mode ({name}): {what} differ from "
+                                           "the plain version")
+            check(torch.equal(a, g), f"ragged image mode ({name}): two launches differ")
+        conv = hist_cuda.image_to_float(got.sums, got.flags, e_d)
+        conv_ref = _image_to_float_plain(ref.sums, ref.flags, e)
+        check(torch.equal(conv.cpu().view(torch.int32), conv_ref.view(torch.int32)),
+              f"conversion ({name}): differs from the plain version")
+        floated = hist_cuda.histogram_ragged(bins_d, gh_d[:, :3], *args_d, num_bins, K,
+                                             exponents=e_d)
+        check(torch.equal(conv.view(torch.int32), floated.view(torch.int32)),
+              f"conversion ({name}): differs from the float mode's own conversion")
+        if name == "non-finite sample":
+            check(int((ref.flags != 0).sum()) > 0, "ragged image mode: no flag word set")
+    bins_w, sl, st, en = cases["wave"]
+    K = len(st)
+    args_d = [torch.from_numpy(a).to(dev) for a in (sl, st, en)] + [
+        torch.ones(K, dtype=torch.bool, device=dev)]
+    rows = int((en - st).sum())
+    timings["image_wave"] = cuda_ms(lambda: hist_cuda.histogram_ragged(
+        bins_w, pay_d["real"][:, :3], *args_d, num_bins, K, exponents=exps_d, image=True), 20)
+    timings["plain_image_wave"] = cuda_ms(lambda: _histogram_slots_ragged_image_plain(
+        bins_w, pay_d["real"][:, :3], *args_d, num_bins, K, exps_d), 1)
+    cells_w = G * num_bins * K * 3
+    bounds["image_wave"] = bound(perfmodel.hist_ragged_image(rows, G, cells_w))
+    # a wave's 2K children, as the learners convert them after the subtraction
+    img = hist_cuda.histogram_ragged(bins_w, pay_d["real"][:, :3], *args_d, num_bins, K,
+                                     exponents=exps_d, image=True)
+    sums = torch.cat([img.sums, img.sums], dim=-1).contiguous()
+    flags = torch.cat([img.flags, img.flags], dim=-1).contiguous()
+    timings["convert"] = cuda_ms(lambda: hist_cuda.image_to_float(sums, flags, exps_d), 20)
+    timings["plain_convert"] = cuda_ms(lambda: _image_to_float_plain(sums, flags, exps_d), 5)
+    bounds["convert"] = bound(perfmodel.image_to_float(sums.numel()))
+    timings["convert_cells"] = sums.numel()
+    # the leaf histogram's image mode (the host-driven data-parallel
+    # learner's), on a sample bit-equal to its plain version, timed at the
+    # root (the plain version on the card)
+    from lightgbm_tpu_torch.ops.histogram import _histogram_rows_image_plain
+
+    sb = bins[:, :n].contiguous()
+    g_s = bad[:, :3].contiguous()
+    got = hist_cuda.histogram(sb, g_s.to(dev), None, num_bins, exponents=bad_exps.to(dev),
+                              image=True)
+    ref = _histogram_rows_image_plain(sb.cpu(), g_s, None, num_bins, None, bad_exps)
+    check(torch.equal(got.sums.cpu(), ref.sums) and torch.equal(got.flags.cpu(), ref.flags),
+          "leaf histogram image mode: differs from the plain version")
+    gh_root = pay_d["real"][:, :3].contiguous()
+    timings["image_rows"] = cuda_ms(lambda: hist_cuda.histogram(
+        bins, gh_root, None, num_bins, exponents=exps_d, image=True), 20)
+    timings["plain_image_rows"] = cuda_ms(lambda: _histogram_rows_image_plain(
+        bins, gh_root, None, num_bins, None, exps_d), 1)
+    bounds["image_rows"] = bound(perfmodel.hist_rows(bins.shape[1], G,
+                                                     12 * G * num_bins * 3))
 
 
 def check_compaction(dev, bins, n_rows, seed):
@@ -2507,6 +2645,8 @@ def drive_quantized(lt, libs, train_set, valid, X_train, y_train, float_runs, se
         run = drive_training(lt, libs, params, train_set, valid, rounds, required, tag,
                              f"{label}, quantized")
         runs[label] = run
+        if label == "wave":  # held against phase 21's quantized data-parallel model
+            PHASE_MODELS["quantized"] = run["booster"].model_to_string()
         for name, n in run["launches"].items():
             launches[name] = launches.get(name, 0) + n
         flt = float_runs[label]
@@ -2709,7 +2849,7 @@ def drive_goss(lt, libs, train_set, valid, X_train, y_train, tag):
     launches, report = {}, {}
     for label, params, rounds, required in (
             ("wave", {**WAVE_PARAMS, **GOSS_PARAMS}, GOSS_ROUNDS,
-             ("histogram_slots_ragged", "partition_decide", "partition_scan",
+             ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
               "partition_scatter", "relabel_rows", "find_best_split",
               "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
               "predict_forest_raw")),
@@ -3429,7 +3569,7 @@ RF_PARAMS = {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
 LIFE_ROUNDS, LIFE_CUT, HEALTH_ROUNDS, LIFE_EXACT_ROUNDS = 10, 5, 8, 4
 HEALTH_NAN_AT, HEALTH_EVERY = 5, 2  # NaN in every 20th row's gradient at round 5
 DART_GAP, RF_GAP, ROLLBACK_GAP, REFIT_AUC_MARGIN = 1e-3, 1e-5, 1e-6, 0.01
-LIFE_REQUIRED = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+LIFE_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
                  "predict_forest_raw", "predict_forest_leaf")
@@ -3692,11 +3832,12 @@ def drive_lifecycle(lt, libs, train_set, valid, X_train, y_train, baseline, seed
 # MSLR-WEB30K's shapes (Qin & Liu, "Introducing LETOR 4.0 Datasets",
 # arXiv:1306.2597, and the MSLR-WEB30K release): 136 dense features, labels
 # 0-4 at about the release's shares, queries of ~120 documents on average,
-# the longest 1,251; 1,048,576 rows cut from its 3.77 M. LightGBM's ranking
+# the longest 1,251; 524,288 rows cut from its 3.77 M (1,048,576 until phase
+# 21 came: its binning was a third of the phase). LightGBM's ranking
 # settings (docs/Experiments.rst): 255 leaves, learning rate 0.1, NDCG at
 # 1, 3, 5 and 10.
 MSLR_FEATURES, MSLR_MAX_QUERY = 136, 1251
-MSLR_ROWS, MSLR_VALID_ROWS = 1_048_576, 65_536
+MSLR_ROWS, MSLR_VALID_ROWS = 524_288, 65_536
 MSLR_LABEL_SHARES = (0.514, 0.325, 0.134, 0.019, 0.008)
 RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
                "learning_rate": 0.1, "metric": "ndcg", "eval_at": [1, 3, 5, 10],
@@ -3710,7 +3851,7 @@ RANK_GRAD_ROWS, RANK_EXACT_ROWS, RANK_EXACT_ROUNDS, RANK_RANKER_ROUNDS = 65_536,
 # the card's gradients against the plain objective's on the CPU: the card's
 # exp, log and log2 are not the CPU's, and its sums run in another order
 RANK_GRAD_ATOL, XENDCG_RTOL, XENDCG_ATOL = 1e-5, 1e-5, 1e-7
-RANK_REQUIRED = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+RANK_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
                  "histogram", "row_partition_decide", "row_partition_scatter",
@@ -4047,7 +4188,7 @@ def drive_ranking(lt, libs, higgs_set, higgs_valid, seed, tag):
 # ---------------------------------------------------------------------------
 # phase 18: observe and serve
 OBSERVE_ROUNDS = 3  # wave rounds in the telemetry session and under the sanitizer
-OBSERVE_REQUIRED = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+OBSERVE_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
                     "partition_scatter", "relabel_rows", "find_best_split_batched",
                     "wave_select", "wave_replay", "tree_loop_cond", "predict_forest_raw")
 # the profiled round's trace must name these kernels
@@ -4389,11 +4530,11 @@ def drive_observe(lt, libs, train_set, higgs, multi, seed, tag):
     return launches, report
 
 
-FACADE_ROWS = 1_048_576  # phase 19's text file: phase 8's rows (TRAIN_ROWS)
+FACADE_ROWS = 524_288  # phase 19's text file: half of phase 8's rows (all until phase 21)
 FACADE_ROUNDS, CAPI_ROUNDS = 10, 3
 FACADE_CHECK_ROWS = 32_768  # rows held against the plain parse
 CONVERT_ROWS, SHAP_ROWS = 4_096, 128
-FACADE_WAVE = ("histogram_slots_ragged", "partition_decide", "partition_scan",
+FACADE_WAVE = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
                "partition_scatter", "relabel_rows", "find_best_split", "find_best_split_batched",
                "wave_select", "wave_replay", "tree_loop_cond")
 
@@ -5228,6 +5369,333 @@ def async_schedule_pair(lt, train_set):
     return out
 
 
+# ------------------------------------------------------------- phase 21
+GANG_VOTE_TOP_K = 5  # the narrow voting run: 2 * 5 = 10 of the 28 features elected a leaf
+GANG_VOTE_AUC_MARGIN = 0.001  # its valid AUC against the exact run's (JAX test_voting_learner.py:241)
+GANG_SHARD_ROWS = 65_536  # pred_shard_rows of the row-sharded predict of the 1M rows
+GANG_SERVE_ROWS, GANG_SERVE_SHARD = 32_768, 4_096  # the service's request and shard_rows
+GANG_CLI_ROWS, GANG_CLI_ROUNDS = 65_536, 3  # the CLI's text file and rounds
+GANG_TIMEOUT_S = 400  # the gang is reaped (and the phase fails) past this
+GANG_RUNS = (  # (label, tree_learner, params, rounds)
+    ("data", "data", "WAVE", "TRAIN"),
+    ("feature", "feature", "WAVE", "TRAIN"),
+    ("voting", "voting", "WAVE", "TRAIN"),
+    ("voting_narrow", "voting", "WAVE", "HALF"),
+    ("data_host", "data", "SERIAL", "SERIAL"),
+    ("data_quantized", "data", "QUANT", "TRAIN"),
+)
+GANG_REQUIRED = {
+    "wave": ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide",
+             "partition_scan", "partition_scatter", "relabel_rows", "split_scan_batched",
+             "wave_select", "wave_replay"),
+    "host": ("histogram_image", "histogram_image_to_float", "find_best_split",
+             "row_partition_decide", "row_partition_scatter"),
+    "quantized": ("histogram_slots_ragged_i32", "split_scan_batched", "quantize_reduce",
+                  "quantize", "partition_decide", "wave_select", "wave_replay"),
+}
+PHASE_MODELS = {}  # phases 8, 9 and 12's model texts as trained, for phase 21
+
+
+def _gang_params(which, learner, label):
+    base = {"WAVE": WAVE_PARAMS, "SERIAL": TRAIN_PARAMS,
+            "QUANT": {**WAVE_PARAMS, **QUANT_PARAMS}}[which]
+    params = {**base, "tree_learner": learner}
+    if learner == "voting":
+        params["top_k"] = GANG_VOTE_TOP_K if label == "voting_narrow" else HIGGS["n_features"]
+    return params
+
+
+def _gang_cli_args(tsv, out):
+    return [f"data={tsv}", "task=train", "objective=binary", "tree_learner=data",
+            f"num_iterations={GANG_CLI_ROUNDS}", "num_leaves=63", "max_bin=255",
+            "verbosity=-1", f"output_model={out}"]
+
+
+def trees_of(text):
+    return text.split("end of trees")[0]
+
+
+def same_model(a, b):
+    """(equal, what differs): the trees of two model texts line for line,
+    split_gain within 4 ULP of the larger gain, every other line equal."""
+    la, lb = trees_of(a).splitlines(), trees_of(b).splitlines()
+    if len(la) != len(lb):
+        return False, f"{len(la)} lines against {len(lb)}"
+    for x, y in zip(la, lb):
+        if x == y:
+            continue
+        if x.startswith("split_gain=") and y.startswith("split_gain="):
+            gx = np.array(x.split("=", 1)[1].split(), np.float32)
+            gy = np.array(y.split("=", 1)[1].split(), np.float32)
+            ulp = np.spacing(np.maximum(np.abs(gx), np.abs(gy)))
+            if gx.shape == gy.shape and bool((np.abs(gx - gy) <= 4 * ulp).all()):
+                continue
+        if x.startswith("tree_sizes=") and y.startswith("tree_sizes="):
+            continue  # follows split_gain's digits
+        return False, f"{x[:120]} | {y[:120]}"
+    return True, ""
+
+
+def gang_worker(out_dir, seed):
+    """One rank of phase 21's gang (started by `drive_distributed` through
+    the launcher's GangSupervisor and worker_env): joins the gang, builds
+    phase 8's data from --seed and keeps its shard on its card, trains
+    through each distributed learner, predicts and serves row-sharded, and
+    runs the CLI in the gang; writes its results to out_dir/rank<r>.json."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.ops import (compact_cuda, hist_cuda, partition_cuda, predict_cuda,
+                                        quantize_cuda, scan_cuda, wave_cuda)
+    from lightgbm_tpu_torch.parallel import dist
+    from lightgbm_tpu_torch.serving import PredictionService
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB,
+            partition_cuda.LIB, wave_cuda.LIB, quantize_cuda)
+    t0 = time.perf_counter()
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // int(os.environ["WORLD_SIZE"])))
+    dist.init_distributed(lt.Config({"device_type": "cuda"}))
+    world = dist.current_world()
+    res = {"rank": world.rank, "size": world.size, "backend": world.backend,
+           "device": str(world.device), "runs": {}}
+    X, y = higgs_rows(seed + 5, TRAIN_ROWS)
+    Xv, yv = higgs_rows(seed + 6, VALID_ROWS)
+    train_set = lt.Dataset(X, label=y, params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
+    res["setup_s"] = time.perf_counter() - t0
+    for label, learner, which, rounds_key in GANG_RUNS:
+        params = _gang_params(which, learner, label)
+        rounds = {"TRAIN": TRAIN_ROUNDS, "SERIAL": SERIAL_ROUNDS,
+                  "HALF": TRAIN_ROUNDS // 2}[rounds_key]
+        for lib in libs:
+            lib.reset_launches()
+        global_timer.reset()
+        global_timer.enabled = True
+        stamps, evals = [], {}
+        t = time.perf_counter()
+        bst = lt.train(dict(params), train_set, num_boost_round=rounds,
+                       valid_sets=[train_set.create_valid(Xv, label=yv)], valid_names=["valid"],
+                       callbacks=[lambda env: stamps.append(time.perf_counter()),
+                                  lt.record_evaluation(evals)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        global_timer.enabled = False
+        per_iter = np.diff([t] + stamps)
+        launches = {}
+        for lib in libs:
+            launches.update({k: int(v) for k, v in lib.launches.items() if v})
+        c = dict(global_timer.counters)
+        res["runs"][label] = {
+            "learner": type(bst._gbdt.tree_learner).__name__,
+            "k_global": getattr(bst._gbdt.tree_learner, "k_global", None),
+            "model": bst.model_to_string() if world.rank == 0 else "",
+            "per_iter": per_iter.tolist(), "wall": wall, "auc": evals["valid"]["auc"],
+            "launches": launches, "collective_us": c.get("collective_us", 0),
+            "collective_bytes": c.get("collective_bytes", 0),
+            "collective_calls": c.get("collective_calls", 0),
+            "wave_wire_bytes": c.get("wave_wire_bytes", 0),
+            "wave_wire_waves": c.get("wave_wire_waves", 0),
+            "model_wire": c.get("wave_wire_model_bytes", 0),
+            "waves": c.get("device_waves", 0)}
+        if label == "data":
+            booster = bst
+        del bst
+        torch.cuda.empty_cache()
+    # row-sharded predict of the 1M rows, and a service loaded with shard_rows
+    predict_cuda.reset_launches()
+    # the reference: a shard threshold above the row count, every row on this rank
+    whole = booster.predict(X, pred_shard_rows=len(X) + 1)
+    want = booster.predict(X[:GANG_SERVE_ROWS].astype(np.float32),
+                           pred_shard_rows=GANG_SERVE_ROWS + 1)
+    global_timer.reset()
+    sharded = booster.predict(X, pred_shard_rows=GANG_SHARD_ROWS)
+    res["predict"] = {"equal": whole.dtype == sharded.dtype
+                      and whole.tobytes() == sharded.tobytes(),
+                      "rows": int(global_timer.counters.get("predict_sharded_rows", 0)),
+                      "launches": int(predict_cuda.launches["predict_forest_raw"])}
+    svc = PredictionService(device="cuda", max_batch_rows=16_384, max_queue_rows=65_536,
+                            max_request_rows=65_536)
+    try:
+        svc.load_model("higgs", booster=booster, shard_rows=GANG_SERVE_SHARD)
+        served = np.asarray(svc.predict("higgs", X[:GANG_SERVE_ROWS].astype(np.float32)))
+    finally:
+        svc.close()
+    res["serve"] = {"equal": served.dtype == want.dtype
+                    and served.ravel().tobytes() == want.ravel().tobytes()}
+    # the CLI in this gang: rank 0 writes the model
+    out = os.path.join(out_dir, "cli_gang.txt")
+    rc = cli.run(_gang_cli_args(os.path.join(out_dir, "cli.tsv"), out))
+    res["cli_rc"] = int(rc)
+    with open(os.path.join(out_dir, f"rank{world.rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.shutdown()
+    return 0
+
+
+def drive_distributed(lt, wave, serial, X_train, y_train, seed, tag):
+    """Phase 21: the distributed learners. A gang of min(cards, 4) ranks over
+    NCCL (with one card: 2 ranks on it over gloo, staged through pinned host
+    memory) started with the port's launcher code (GangSupervisor,
+    worker_env); each rank (`gang_worker`) builds phase 8's data and keeps
+    its shard on its card. Checks: data-, feature- and voting-parallel (top_k
+    28) equal to phase 8's single-card model, the host-driven data-parallel
+    learner (feature_fraction_bynode 0.8) to phase 9's, quantized
+    data-parallel to phase 12's; voting at top_k 5 (10 of 28 features
+    elected) within 0.001 valid AUC of the exact run; row-sharded predict
+    and shard_rows serving bit-equal to Booster.predict; `launch -n 2 -- <cli args> tree_learner=data` writes
+    the in-process gang's model. Returns {kernel: launches over the gang}."""
+    import subprocess
+
+    from lightgbm_tpu_torch import launch
+    from lightgbm_tpu_torch.parallel.elastic import GangSupervisor, worker_env
+
+    count = torch.cuda.device_count()
+    n = min(count, 4) if count >= 2 else 2
+    backend = "nccl" if count >= 2 else "gloo"
+    print(f"phase 21: a gang of {n} ranks over {backend} on {count} card(s)"
+          + ("" if count >= 2 else ", both ranks on the one card, staged through pinned "
+             "host memory"), flush=True)
+    t_phase = time.perf_counter()
+    gang_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "chip_smoke_gang")
+    os.makedirs(gang_dir, exist_ok=True)
+    for name in os.listdir(gang_dir):
+        os.unlink(os.path.join(gang_dir, name))
+    tsv = os.path.join(gang_dir, "cli.tsv")
+    np.savetxt(tsv, np.column_stack([y_train[:GANG_CLI_ROWS], X_train[:GANG_CLI_ROWS]]),
+               delimiter="\t", fmt="%.9g")
+    procs = []
+
+    def spawn(world, rank, attempt):
+        env = worker_env(port=port, world=world, rank=rank)
+        log = open(os.path.join(gang_dir, f"rank{rank}.log"), "w")
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gang-worker",
+                              gang_dir, "--seed", str(seed)], env=env, stdout=log,
+                             stderr=subprocess.STDOUT)
+        procs.append(p)
+        return p
+
+    def reap():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+    port = launch.free_port()
+    timer = threading.Timer(GANG_TIMEOUT_S, reap)
+    timer.start()
+    try:
+        rc = GangSupervisor(spawn, n).run()
+    finally:
+        timer.cancel()
+    t_gang = time.perf_counter() - t_phase
+    if rc != 0:
+        for r in range(n):
+            path = os.path.join(gang_dir, f"rank{r}.log")
+            if os.path.exists(path):
+                print(f"phase 21: rank {r}'s log (last 3,000 bytes):\n"
+                      + open(path).read()[-3000:])
+    check(rc == 0, f"phase 21: the gang failed (exit code {rc}) or ran past "
+                   f"{GANG_TIMEOUT_S} s")
+    ranks = [json.load(open(os.path.join(gang_dir, f"rank{r}.json"))) for r in range(n)]
+    r0 = ranks[0]
+    check(all(r["backend"] == backend and r["size"] == n for r in ranks),
+          f"phase 21: the ranks' backends / sizes {[(r['backend'], r['size']) for r in ranks]}")
+    print(f"{tag} phase 21: {n} ranks ({[r['device'] for r in ranks]}), data built in "
+          f"{max(r['setup_s'] for r in ranks):.1f} s a rank")
+    ref_text = {"data": PHASE_MODELS["wave"], "feature": PHASE_MODELS["wave"],
+                "voting": PHASE_MODELS["wave"], "data_host": PHASE_MODELS["serial"],
+                "data_quantized": PHASE_MODELS["quantized"]}
+    want_kind = {"data": "DeviceDataParallelTreeLearner",
+                 "feature": "DeviceFeatureParallelTreeLearner",
+                 "voting": "VotingDataParallelTreeLearner",
+                 "voting_narrow": "VotingDataParallelTreeLearner",
+                 "data_host": "DataParallelTreeLearner",
+                 "data_quantized": "DeviceDataParallelTreeLearner"}
+    launches = {}
+    for label, _, _, _ in GANG_RUNS:
+        run = r0["runs"][label]
+        check(all(r["runs"][label]["learner"] == want_kind[label] for r in ranks),
+              f"phase 21 ({label}): grown by {run['learner']}, not {want_kind[label]}")
+        if label in ref_text:
+            ok, what = same_model(run["model"], ref_text[label])
+            phase = {"data_host": 9, "data_quantized": 12}.get(label, 8)
+            check(ok, f"phase 21 ({label}): the model differs from phase {phase}'s "
+                      f"single-card model: {what}")
+        required = GANG_REQUIRED["quantized" if label == "data_quantized" else
+                                 "host" if label == "data_host" else "wave"]
+        for name in required:
+            check(all(r["runs"][label]["launches"].get(name, 0) > 0 for r in ranks),
+                  f"phase 21 ({label}): kernel {name} never launched on a rank")
+        for r in ranks:
+            for name, v in r["runs"][label]["launches"].items():
+                launches[name] = launches.get(name, 0) + v
+    # the voting run takes half the rounds: against the exact run's AUC then
+    narrow = r0["runs"]["voting_narrow"]
+    check(narrow["k_global"] < HIGGS["n_features"],
+          f"phase 21: voting at top_k {GANG_VOTE_TOP_K} elects {narrow['k_global']} of the "
+          f"{HIGGS['n_features']} features: the election is not narrower than the exact run")
+    top_n = narrow["auc"][-1]
+    exact = r0["runs"]["data"]["auc"][len(narrow["auc"]) - 1]
+    check(abs(top_n - exact) <= GANG_VOTE_AUC_MARGIN,
+          f"phase 21: voting at top_k {GANG_VOTE_TOP_K} valid AUC {top_n:.5f} not within "
+          f"{GANG_VOTE_AUC_MARGIN} of the exact run's {exact:.5f}")
+    n_trees = narrow["model"].count("Tree=")
+    exact_trees = r0["runs"]["data"]["model"].split("Tree=")[1:n_trees + 1]
+    print(f"phase 21 (voting_narrow): {narrow['k_global']} of {HIGGS['n_features']} features "
+          f"elected a leaf; its {n_trees} trees "
+          + ("equal" if narrow["model"].split("Tree=")[1:] == exact_trees else "differ from")
+          + " the exact run's first ones")
+    check(all(r["predict"]["equal"] for r in ranks),
+          "phase 21: the row-sharded predict of the 1M rows differs from Booster.predict")
+    check(sum(r["predict"]["rows"] for r in ranks) == TRAIN_ROWS,
+          f"phase 21: the ranks predicted {[r['predict']['rows'] for r in ranks]} rows")
+    check(all(r["serve"]["equal"] for r in ranks),
+          "phase 21: the shard_rows service's answers differ from Booster.predict")
+    check(all(r["cli_rc"] == 0 for r in ranks), "phase 21: the in-gang CLI failed")
+    # the launcher, 2 ranks, the same CLI arguments
+    t = time.perf_counter()
+    rc = launch.main(["-n", "2", "--", *_gang_cli_args(tsv, os.path.join(gang_dir,
+                                                                 "cli_launch.txt"))])
+    t_launch = time.perf_counter() - t
+    check(rc == 0, f"phase 21: launch -n 2 exited {rc}")
+    gang_cli = open(os.path.join(gang_dir, "cli_gang.txt")).read()
+    launched = open(os.path.join(gang_dir, "cli_launch.txt")).read()
+    ok, what = same_model(launched, gang_cli)
+    check(ok and trees_of(launched) == trees_of(gang_cli),
+          f"phase 21: launch -n 2's model differs from the {n}-rank gang's: {what}")
+    # report
+    base = float(np.mean(wave["per_iter"][1:]))
+    base_serial = float(np.mean(serial["per_iter"][1:]))
+    for label, _, _, _ in GANG_RUNS:
+        runs = [r["runs"][label] for r in ranks]
+        steady = float(np.mean(runs[0]["per_iter"][1:]))
+        ref = base_serial if label == "data_host" else base
+        share = max(ru["collective_us"] / 1e6 / ru["wall"] for ru in runs)
+        waves = runs[0]["wave_wire_waves"]
+        counted = runs[0]["wave_wire_bytes"] / waves if waves else 0.0
+        model = runs[0]["model_wire"] / waves if waves else 0.0
+        check(all(ru["wave_wire_bytes"] == ru["model_wire"] for ru in runs),
+              f"phase 21 ({label}): the bytes counted at the collectives during the waves "
+              f"differ from perfmodel's {[(ru['wave_wire_bytes'], ru['model_wire']) for ru in runs]}")
+        print(f"{tag} phase 21 ({label}, {runs[0]['learner']}, {n} ranks over {backend}, "
+              f"{count} card(s)): s/iteration {steady:.4f} (first {runs[0]['per_iter'][0]:.3f}; "
+              f"phase {9 if label == 'data_host' else 8} single card {ref:.4f}); collectives "
+              f"{share * 100:.1f}% of the run's wall (the busiest rank, host wall around the "
+              f"synchronized calls: {runs[0]['collective_calls']} calls, "
+              f"{runs[0]['collective_bytes'] / 1e6:.2f} MB handed by rank 0); wire a wave "
+              f"perfmodel {model:.0f} B, counted {counted:.0f} B (rank 0, "
+              f"{waves} waves run); valid AUC {runs[0]['auc'][-1]:.5f}")
+        print(f"phase 21 ({label}) launches over the ranks: " + ", ".join(
+            f"{k} {sum(r['runs'][label]['launches'].get(k, 0) for r in ranks)}"
+            for k in sorted(runs[0]["launches"])))
+    print(f"{tag} phase 21: models equal to phases 8 (data, feature, voting top_k 28), 9 "
+          f"(host data, bynode 0.8) and 12 (quantized); voting top_k {GANG_VOTE_TOP_K} valid "
+          f"AUC {top_n:.5f} against {exact:.5f}; row-sharded predict of {TRAIN_ROWS} rows and "
+          f"the shard_rows service bit-equal; launch -n 2 ({t_launch:.1f} s) wrote the "
+          f"gang's model; phase {time.perf_counter() - t_phase:.1f} s (gang {t_gang:.1f} s)")
+    return launches
+
+
 def profile_other(checkout: str, seed: int) -> int:
     """The package in another checkout on the training path's data: its
     leaf histogram's time at the root, a LEAF_ROWS and a SMALL_LEAF_ROWS
@@ -5271,12 +5739,65 @@ def profile_other(checkout: str, seed: int) -> int:
     return 0
 
 
+def wave_rounds_of(checkout: str, seed: int, reps: int = 3) -> int:
+    """Phase 8's training (the wave learner, WAVE_PARAMS, TRAIN_ROUNDS
+    rounds on phase 8's rows with its valid set, the host timer on) with
+    the package in another checkout, `reps` times: each run's s/iteration
+    (its first round left out) and the wave pool's bytes, one JSON line a
+    run. Two checkouts are compared in one call, alternating:
+    ``--wave-rounds-of A``, ``--wave-rounds-of B``, then B, then A."""
+    sys.path.insert(0, os.path.abspath(checkout))
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    check(os.path.dirname(os.path.abspath(lt.__file__)).startswith(os.path.abspath(checkout)),
+          f"imported {lt.__file__}, not the package in {checkout}")
+    card = card_line()
+    X, y = higgs_rows(seed + 5, TRAIN_ROWS)
+    Xv, yv = higgs_rows(seed + 6, VALID_ROWS)
+    train_set = lt.Dataset(X, label=y, params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
+    for rep in range(reps):
+        stamps = []
+        global_timer.reset()
+        global_timer.enabled = True
+        t = time.perf_counter()
+        bst = lt.train(dict(WAVE_PARAMS), train_set, num_boost_round=TRAIN_ROUNDS,
+                       valid_sets=[train_set.create_valid(Xv, label=yv)], valid_names=["valid"],
+                       callbacks=[lambda env: stamps.append(time.perf_counter())])
+        torch.cuda.synchronize()
+        global_timer.enabled = False
+        per_iter = np.diff([t] + stamps)
+        learner = bst._gbdt.tree_learner
+        check(type(learner).__name__ == "DeviceTreeLearner" or DEVICE != "cuda",
+              f"phase 8's training grew its trees with {type(learner).__name__}")
+        buf = getattr(learner, "_buffers", None)
+        pool = [] if buf is None else [buf.pool, getattr(buf, "pool_flags", None)]
+        print(json.dumps({"card": card, "checkout": checkout, "rep": rep,
+                          "learner": type(learner).__name__,
+                          "s_per_iter": float(np.mean(per_iter[1:])),
+                          "first_s": float(per_iter[0]),
+                          "pool_dtype": [str(t.dtype) for t in pool if t is not None],
+                          "pool_bytes": sum(t.nbytes for t in pool if t is not None),
+                          "trees_sha": hashlib.sha256(
+                              trees_of(bst.model_to_string()).encode()).hexdigest()[:16]}),
+              flush=True)
+        del bst
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-of", metavar="DIR",
                     help="time the leaf histogram and profile one round of each learner "
                          "of the package in checkout DIR, and exit")
+    ap.add_argument("--wave-rounds-of", metavar="DIR",
+                    help="time phase 8's training with the package in checkout DIR (s/"
+                         "iteration, the wave pool's bytes), three runs, and exit")
+    ap.add_argument("--gang-worker", metavar="DIR",
+                    help="run as one rank of phase 21's gang, writing to DIR (started by "
+                         "phase 21 itself)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -5286,6 +5807,10 @@ def main() -> int:
         return 1
     if args.profile_of:
         return profile_other(args.profile_of, args.seed)
+    if args.wave_rounds_of:
+        return wave_rounds_of(args.wave_rounds_of, args.seed)
+    if args.gang_worker:
+        return gang_worker(args.gang_worker, args.seed)
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
@@ -5874,12 +6399,15 @@ def main() -> int:
             partition_cuda.LIB, wave_cuda.LIB, quantize_cuda)
     valid = (X_valid, y_valid)
     wave = drive_training(lt, libs, WAVE_PARAMS, train_set, valid, TRAIN_ROUNDS,
-                          ("histogram_slots_ragged", "partition_decide", "partition_scan",
+                          ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
                            "partition_scatter", "relabel_rows", "find_best_split",
                            "find_best_split_batched", "wave_select", "wave_replay",
                            "tree_loop_cond", "predict_forest_raw"), tag, "wave")
     check(isinstance(wave["learner"], DeviceTreeLearner),
           "train (wave): lt.train did not grow its trees with the wave learner")
+    # phase 21 holds its gang's models to this text (later phases roll the
+    # booster back and refit it)
+    PHASE_MODELS["wave"] = wave["booster"].model_to_string()
     if args.seed == 0:
         check(all(abs(a - r) <= 0.002 for a, r in zip(wave["auc"], WAVE_AUC_SEED0)),
               f"train (wave): train / valid AUC {wave['auc']} not within 0.002 of "
@@ -5910,6 +6438,7 @@ def main() -> int:
     serial = drive_training(lt, libs, TRAIN_PARAMS, train_set, valid, SERIAL_ROUNDS,
                             ("histogram", "find_best_split", "row_partition_decide",
                              "row_partition_scatter", "predict_forest_raw"), tag, "serial")
+    PHASE_MODELS["serial"] = serial["booster"].model_to_string()
     if args.seed == 0:
         check(all(abs(a - r) <= 0.002 for a, r in zip(serial["auc"], SERIAL_AUC_SEED0)),
               f"train (serial): train / valid AUC {serial['auc']} not within 0.002 of "
@@ -5931,7 +6460,7 @@ def main() -> int:
     check(global_timer.counters.get("serve_dispatch_failures", 0) == 0
           and global_timer.counters.get("serve_breaker_shed", 0) == 0,
           "multiclass serving: a dispatch failed or a request was shed")
-    for name in ("histogram_slots_ragged", "partition_decide", "partition_scan",
+    for name in ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
                  "histogram", "row_partition_decide", "row_partition_scatter",
@@ -5941,7 +6470,7 @@ def main() -> int:
 
     # ------------------------------- the async pipeline
     async_launches, _ = drive_async(lt, libs, train_set, tag)
-    for name in ("histogram_slots_ragged", "partition_decide", "partition_scan",
+    for name in ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond"):
         check(async_launches[name] > 0, f"async path: kernel {name} never launched")
@@ -5999,9 +6528,13 @@ def main() -> int:
            global_timer.counters.get("serve_breaker_shed", 0)) == shed_before,
           "phase 20: a dispatch failed or a request was shed")
     torch.cuda.empty_cache()
+
+    # ------------------------------- phase 21: the distributed learners
+    gang_launches = collections.defaultdict(
+        int, drive_distributed(lt, wave, serial, X_train, y_train, args.seed, tag))
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
              goss_launches, cat_launches, lane_launches, life_launches, rank_launches,
-             obs_launches, facade_launches, *stream_paths.values())
+             obs_launches, facade_launches, *stream_paths.values(), gang_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)
@@ -6050,6 +6583,9 @@ def main() -> int:
          "max_abs_err": 0.0, "ms": device_or_events(ms_bscan, "kernel"),
          "plain_ms": ms_bscan["plain"], "bound_ms": bound_bscan[0],
          "bound_by": bound_bscan[1], "library_ms": None},
+        # the float mode converting in its own launch: since phase 21 came the
+        # float wave paths take the image mode and the conversion kernel
+        # (their rows below), so no main path launches it
         {"name": "histogram_slots_ragged", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
          "replaces": "lightgbm_tpu/ops/hist_pallas.py:350",
@@ -6064,7 +6600,33 @@ def main() -> int:
          "replaces": "lightgbm_tpu/ops/hist_pallas.py:229",
          "launches": 0, "max_abs_err": 0.0, "ms": ms_rag["slots"],
          "plain_ms": ms_rag["plain_slots"], "bound_ms": bound_rag["slots"][0],
-         "bound_by": bound_rag["slots"][1], "library_ms": None},
+         "bound_by": bound_rag["slots"][1], "library_ms": ms_rag["library_slots"]},
+        # phase 21: row 2's kernel leaving its image unconverted (the sums the
+        # gang's ranks add, and the single-card wave's exact pool), and the
+        # conversion kernel, image -> float32 (every float histogram's last
+        # step; the leaf histogram's image mode is row 5's: the host-driven
+        # data-parallel learner's)
+        {"name": "histogram_slots_ragged_image", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:350",
+         "launches": launches("histogram_slots_ragged_image"), "max_abs_err": 0.0,
+         "ms": ms_rag["image_wave"], "plain_ms": ms_rag["plain_image_wave"],
+         "bound_ms": bound_rag["image_wave"][0], "bound_by": bound_rag["image_wave"][1],
+         "library_ms": None},
+        {"name": "histogram_image_to_float", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:350",
+         "launches": launches("histogram_image_to_float"), "max_abs_err": 0.0,
+         "ms": ms_rag["convert"], "plain_ms": ms_rag["plain_convert"],
+         "bound_ms": bound_rag["convert"][0], "bound_by": bound_rag["convert"][1],
+         "library_ms": None},
+        {"name": "histogram_image", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
+         "launches": launches("histogram_image"), "max_abs_err": 0.0,
+         "ms": ms_rag["image_rows"], "plain_ms": ms_rag["plain_image_rows"],
+         "bound_ms": bound_rag["image_rows"][0], "bound_by": bound_rag["image_rows"][1],
+         "library_ms": None},
         {"name": "compact_rows", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/compact.cu",
          "replaces": "lightgbm_tpu/ops/compact_pallas.py:313",
@@ -6114,7 +6676,8 @@ def main() -> int:
              "ms": ms_rp["root"]["passes"].get(key, ms_rp["root"]["device"]),
              "plain_ms": ms_rp["root"]["plain"],
              "bound_ms": bound_rp["root"][name.split("_")[-1]][0],
-             "bound_by": bound_rp["root"][name.split("_")[-1]][1], "library_ms": None})
+             "bound_by": bound_rp["root"][name.split("_")[-1]][1],
+             "library_ms": ms_rp["root"]["library"]})
     kernels.append(
         {"name": "relabel_rows", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/wave_partition.cu",

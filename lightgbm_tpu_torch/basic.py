@@ -534,10 +534,8 @@ class Booster:
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
                 validate_features: bool = False, **kwargs) -> np.ndarray:
-        if kwargs.get("pred_shard_rows",
-                      self.params.get("pred_shard_rows")) is not None:
-            Log.fatal("row-sharded predict (pred_shard_rows) is not yet "
-                      "ported to the PyTorch package")
+        shard_kw = kwargs.get("pred_shard_rows", self.params.get("pred_shard_rows"))
+        shard_rows = int(shard_kw) if shard_kw is not None else None
         if _is_dataframe(data) and self.pandas_categorical:
             data = _pandas_to_matrix(data, self.pandas_categorical)[0]
         if isinstance(data, np.ndarray) and data.dtype == np.float32 \
@@ -580,7 +578,7 @@ class Booster:
         return self._gbdt.predict(X, raw_score=raw_score,
                                   num_iteration=num_iteration,
                                   start_iteration=start_iteration,
-                                  chunk_rows=chunk_rows)
+                                  chunk_rows=chunk_rows, shard_rows=shard_rows)
 
     # --------------------------------------------------------------- model
 

@@ -9,9 +9,13 @@ configs run unchanged:
     python -m lightgbm_tpu_torch.cli config=train.conf data=binary.train
 
 It runs on the CUDA card unless `device_type=cpu` is given. A distributed
-run (`num_machines` above 1, or a `tree_learner` other than serial) is
-refused: the distributed learners are not yet ported (ROADMAP Queue 1
-item 8). `telemetry_dir=<dir>` records the run's event stream and trace
+run joins its gang first (parallel/dist.py:init_distributed: the
+launcher's environment, or the conf's machine list); every rank runs the
+same command, and rank 0 writes the model:
+
+    python -m lightgbm_tpu_torch.launch -n 4 -- config=train.conf tree_learner=data
+
+`telemetry_dir=<dir>` records the run's event stream and trace
 (telemetry.py).
 """
 from __future__ import annotations
@@ -27,6 +31,8 @@ from .basic import Booster, Dataset
 from .config import Config, key_alias_transform, kv2map, load_config_file
 from .engine import train as train_fn
 from .io.parser import load_query_boundaries, load_weights, parse_file
+from .parallel import dist
+from .parallel.mesh import data_world
 from .utils.log import Log, set_verbosity
 
 
@@ -43,10 +49,8 @@ def run(argv: List[str]) -> int:
     task = params.pop("task", "train")
     config = Config(params)
     set_verbosity(config.verbosity)
-    if config.num_machines > 1 or config.tree_learner != "serial":
-        Log.fatal("num_machines=%d, tree_learner=%s: distributed runs are not yet "
-                  "ported to the PyTorch package (ROADMAP Queue 1 item 8)",
-                  config.num_machines, config.tree_learner)
+    dist.init_distributed(config)
+    data_world(config.num_machines)  # num_machines > 1 needs a joined gang
 
     if task == "train":
         return _task_train(config, params)
@@ -80,17 +84,20 @@ def _task_train(config: Config, params: Dict[str, str]) -> int:
     valid_names = [f"valid_{i + 1}" for i in range(len(valid_paths))]
     callbacks = [callback_mod.log_evaluation(period=max(config.metric_freq, 1))]
     out = config.output_model or "LightGBM_model.txt"
-    if config.snapshot_freq > 0:
+    world = dist.current_world()
+    if config.snapshot_freq > 0 and (world is None or world.rank == 0):
         # gbdt.cpp:258-262's periodic snapshots as full checkpoints: each
         # <out>.snapshot_iter_<k> model file has a .ckpt sidecar, and
-        # input_model=<snapshot> resumes bit-identically
+        # input_model=<snapshot> resumes bit-identically (in a gang rank 0
+        # writes them, as it writes the model)
         callbacks.append(checkpoint_mod.checkpoint_callback(
             lambda it: f"{out}.snapshot_iter_{it}", period=config.snapshot_freq))
     booster = train_fn(params, train_ds, num_boost_round=config.num_iterations,
                        valid_sets=valid_sets or None, valid_names=valid_names or None,
                        init_model=config.input_model or None, callbacks=callbacks)
-    booster.save_model(out)
-    Log.info("Finished training, model saved to %s", out)
+    if world is None or world.rank == 0:
+        booster.save_model(out)
+        Log.info("Finished training, model saved to %s", out)
     return 0
 
 
@@ -192,7 +199,9 @@ def _task_convert(config: Config) -> int:
 
 
 def main() -> None:
-    sys.exit(run(sys.argv[1:]))
+    rc = run(sys.argv[1:])
+    dist.shutdown()  # leave the gang, if one was joined
+    sys.exit(rc)
 
 
 if __name__ == "__main__":

@@ -591,7 +591,7 @@ template <bool kFixed>
 int ragged(const uint8_t* bins, long long n_rows, int n_groups, const float* gh,
            long long gh_stride, int ch, const int* slot, const int* starts, const int* ends,
            const uint8_t* valid, int n_ranges, int num_bins, int group_block, int blocks,
-           const int* exps, void* image, float* out, cudaStream_t stream) {
+           const int* exps, void* image, float* out, bool open, cudaStream_t stream) {
   if (ch < 1 || ch > kMaxChannels || num_bins < 1 || num_bins > 256 || group_block < 1
       || n_ranges < 1 || n_ranges > kMaxRanges || blocks < 1 || (kFixed && exps == nullptr)) {
     return int(cudaErrorInvalidValue);
@@ -616,7 +616,7 @@ int ragged(const uint8_t* bins, long long n_rows, int n_groups, const float* gh,
                                             gh_stride, slot, starts, ends, valid, n_ranges,
                                             num_bins, group_block, exps, image, flags); break;
   }
-  if (err != cudaSuccess || !kFixed) return int(err);
+  if (err != cudaSuccess || !kFixed || open) return int(err);
   return int(fixed_to_float(image, flags, cells, ch, exps, out, stream));
 }
 
@@ -663,7 +663,7 @@ int lgbt_histogram_ragged_f32(const uint8_t* bins, long long n_rows, int n_group
                               int n_ranges, int num_bins, int group_block, int blocks,
                               const int* exps, void* image, float* out, void* stream) {
   return ragged<true>(bins, n_rows, n_groups, gh, gh_stride, ch, slot, starts, ends, valid,
-                      n_ranges, num_bins, group_block, blocks, exps, image, out,
+                      n_ranges, num_bins, group_block, blocks, exps, image, out, false,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -673,8 +673,39 @@ int lgbt_histogram_ragged_i32(const uint8_t* bins, long long n_rows, int n_group
                               int n_ranges, int num_bins, int group_block, int blocks,
                               const int* exps, void* image, float* out, void* stream) {
   return ragged<false>(bins, n_rows, n_groups, gh, gh_stride, ch, slot, starts, ends, valid,
-                       n_ranges, num_bins, group_block, blocks, exps, image, out,
+                       n_ranges, num_bins, group_block, blocks, exps, image, out, false,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The ragged histogram's image mode: the float mode's int64 fixed-point
+// sums [G, num_bins, K * ch] and the uint32 flag words behind them, left in
+// `image` unconverted (zeroed here first), so the images of several
+// processes' rows can be added exactly before one conversion
+// (lgbt_histogram_image_to_f32). Arguments as lgbt_histogram_ragged_f32's.
+int lgbt_histogram_ragged_image(const uint8_t* bins, long long n_rows, int n_groups,
+                                const float* gh, long long gh_stride, int ch, const int* slot,
+                                const int* starts, const int* ends, const uint8_t* valid,
+                                int n_ranges, int num_bins, int group_block, int blocks,
+                                const int* exps, void* image, void* stream) {
+  return ragged<true>(bins, n_rows, n_groups, gh, gh_stride, ch, slot, starts, ends, valid,
+                      n_ranges, num_bins, group_block, blocks, exps, image, nullptr, true,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The conversion of a float-mode image: out[i] = sums[i] * 2^-exps[i % ch]
+// as float32 (int64 -> double -> scaled -> float32, each rounding to nearest
+// even), or +inf, -inf, NaN where flags[i] holds code 1, 2 or 3. sums
+// [count] int64, flags [count] uint32, out [count] float32, count a
+// multiple of ch with channel fastest. The last step of both kernels' float
+// modes, for an image that was carried over calls or summed over processes.
+int lgbt_histogram_image_to_f32(const void* sums, const unsigned* flags, long long count,
+                                int ch, const int* exps, float* out, void* stream) {
+  if (ch < 1 || ch > kMaxChannels || count < 0 || count % ch != 0 || exps == nullptr) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (count == 0) return int(cudaSuccess);
+  return int(fixed_to_float(sums, flags, count, ch, exps, out,
+                            static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -95,8 +95,9 @@ def fingerprint(repo_dir: Optional[str] = None) -> Dict[str, Any]:
 
 
 def world_fingerprint(device=None) -> Dict[str, Any]:
-    """The world a checkpoint was written in: the process count, the mesh
-    shape (one device: the port shards nothing), the device kinds (the
+    """The world a checkpoint was written in: the process count (the
+    gang's size: parallel/dist.py), the mesh shape (one device a rank: the
+    gang's size), the device kinds (the
     card's name for a CUDA `device`, else the device type, cpu) and the
     torch and CUDA versions. Pure observation: it never raises, and what it
     cannot read stays "unknown"."""
@@ -114,6 +115,7 @@ def world_fingerprint(device=None) -> Dict[str, Any]:
         fp["cuda_version"] = str(torch.version.cuda)
         if torch.distributed.is_available() and torch.distributed.is_initialized():
             fp["process_count"] = int(torch.distributed.get_world_size())
+            fp["mesh_shape"] = [fp["process_count"]]
         if device is not None:
             dev = torch.device(device)
             fp["device_kinds"] = ([torch.cuda.get_device_name(dev)] if dev.type == "cuda"

@@ -239,7 +239,8 @@ class GBDT:
         if not self._async_pipeline or type(self) is not GBDT:
             return False
         learner = getattr(self, "tree_learner", None)
-        if not isinstance(learner, DeviceTreeLearner) or self.config.use_quantized_grad:
+        if not isinstance(learner, DeviceTreeLearner) or self.config.use_quantized_grad \
+                or not learner.async_capable:
             return False
         if self.num_tree_per_iteration != 1 or self.config.linear_tree:
             return False
@@ -562,16 +563,29 @@ class GBDT:
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 num_iteration: int = 0, start_iteration: int = 0,
                 chunk_rows: Optional[int] = None,
-                early_stop: Optional[Tuple[int, float]] = None) -> np.ndarray:
+                early_stop: Optional[Tuple[int, float]] = None,
+                shard_rows: Optional[int] = None) -> np.ndarray:
         """Predictions [N] or [N, C]; `early_stop` = (round period, margin)
         runs prediction early stopping (ops/predict.py:
-        predict_raw_early_stop) in place of the whole traversal."""
+        predict_raw_early_stop) in place of the whole traversal. In a gang,
+        a batch of at least `shard_rows` rows (parallel/predict.py) is
+        split over the ranks, each traversing its rows (the JAX package's
+        gbdt.py:595, 633); an explicit chunk size wins over sharding, and a
+        linear ensemble is not sharded."""
+        from ..parallel.predict import predict_raw_sharded, sharded_predict_enabled
+
         packed = self._packed(num_iteration, start_iteration)
         C = self.num_tree_per_iteration
-        chunk = stream_chunk_rows(X.shape[0], chunk_rows)
+        n = X.shape[0]
+        chunk = stream_chunk_rows(n, chunk_rows)
         if early_stop is not None and packed.num_trees > 0:
             out = predict_raw_early_stop(packed, to_device_rows(X, self.device), C,
                                          early_stop[0], early_stop[1])
+        elif packed.num_trees > 0 and chunk_rows is not None and chunk > 0:
+            out = predict_raw_streamed(packed, X, C, chunk)
+        elif packed.num_trees > 0 and not packed.linear \
+                and sharded_predict_enabled(n, shard_rows):
+            out = predict_raw_sharded(packed, X, C)
         elif chunk > 0 and packed.num_trees > 0:
             out = predict_raw_streamed(packed, X, C, chunk)
         else:

@@ -29,8 +29,10 @@ from typing import Optional, Tuple
 import torch
 
 from .cuda_build import CudaLibrary, require_cuda, stream_of
-from .histogram import (_acc_dtype, _build_histogram_plain, _build_histogram_rows_plain,
-                        _histogram_slots_ragged_plain, fixed_point_exponents)
+from .histogram import (HistImage, _acc_dtype, _build_histogram_plain,
+                        _build_histogram_rows_plain, _histogram_rows_image_plain,
+                        _histogram_slots_ragged_image_plain, _histogram_slots_ragged_plain,
+                        _image_to_float_plain, fixed_point_exponents)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -44,13 +46,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.lgbt_histogram_ragged_f32, lib.lgbt_histogram_ragged_i32):
         fn.argtypes = ragged
         fn.restype = i32
+    lib.lgbt_histogram_ragged_image.argtypes = ragged[:-2] + [ptr]
+    lib.lgbt_histogram_ragged_image.restype = i32
+    lib.lgbt_histogram_image_to_f32.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr]
+    lib.lgbt_histogram_image_to_f32.restype = i32
 
 
 # the integer modes (quantized-gradient training) and the carried mode (the
 # streamed learner's blocks) count apart
 LIB = CudaLibrary("histogram.cu", ("histogram", "histogram_slots_ragged", "histogram_i32",
                                    "histogram_slots_ragged_i32", "histogram_carry",
-                                   "histogram_carry_i32"), _declare)
+                                   "histogram_carry_i32", "histogram_image",
+                                   "histogram_slots_ragged_image", "histogram_image_to_float"),
+                  _declare)
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 
@@ -144,7 +152,8 @@ def _check_exponents(exponents: torch.Tensor, ch: int, dev: torch.device) -> Non
 def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tensor],
               num_bins: int, count: Optional[int] = None,
               exponents: Optional[torch.Tensor] = None,
-              carry: Optional[HistogramCarry] = None, last: bool = True) -> torch.Tensor:
+              carry: Optional[HistogramCarry] = None, last: bool = True,
+              image: bool = False):
     """[G, num_bins, CH] histogram of bins [G, N] over the rows of gh (all
     N rows when row_idx is None, else the padded positions row_idx [P], the
     sentinel N hitting gh's zero row N; with `count`, only the first count
@@ -164,9 +173,16 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
     whether it is the leaf's last block. The returned tensor is the carry's
     output, which holds the histogram once the last call is enqueued. Every
     call must pass the same `exponents` (the tree's): required in the float
-    mode, since a block's own would differ from the other blocks'."""
+    mode, since a block's own would differ from the other blocks'.
+
+    With `image` (float gh, `exponents` required), the float mode's image,
+    unconverted: a `HistImage` of the [G, num_bins, CH] int64 fixed-point
+    sums and int32 flag words, which processes add exactly and
+    `image_to_float` converts; on the CPU its plain version."""
     if carry is not None:
         return _histogram_carried(bins, gh, row_idx, num_bins, count, exponents, carry, last)
+    if image:
+        return _histogram_image(bins, gh, row_idx, num_bins, count, exponents)
     if bins.device.type == "cpu":
         if row_idx is None:
             return _build_histogram_plain(bins, gh, num_bins)
@@ -230,6 +246,69 @@ def _histogram_carried(bins: torch.Tensor, gh: torch.Tensor, row_idx: torch.Tens
                        mode)
     LIB.count("histogram_carry_i32" if quantized else "histogram_carry", err)
     return carry.out
+
+
+def _image_views(scratch: torch.Tensor, cells: int, shape) -> HistImage:
+    """The sums and the flag words of a float-mode scratch (`_fixed_scratch`)."""
+    return HistImage(scratch[:cells].view(shape),
+                     scratch[cells:].view(torch.int32)[:cells].view(shape))
+
+
+def _histogram_image(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tensor],
+                     num_bins: int, count: Optional[int],
+                     exponents: Optional[torch.Tensor]) -> HistImage:
+    """`histogram`'s image mode (see there): the leaf histogram's kernel with
+    its conversion left out (the carried mode's kCarryOpen on one call)."""
+    if _acc_dtype(gh) != torch.float32 or exponents is None:
+        raise ValueError("the image mode takes float32 gh and the tree's exponents")
+    G, CH = bins.shape[0], gh.shape[1]
+    shape = (G, num_bins, CH)
+    if bins.device.type == "cpu":
+        return _histogram_rows_image_plain(bins, gh, row_idx, num_bins, count, exponents)
+    require_cuda(bins, "the histogram")
+    n_pos, _ = _check_rows(bins, gh, row_idx, num_bins, count, exponents)
+    cells = G * num_bins * CH
+    scratch = _fixed_scratch(cells, bins.device)
+    if n_pos == 0 or G == 0:
+        scratch.zero_()
+    else:
+        err = _launch_rows(bins, gh, row_idx, num_bins, n_pos, exponents, scratch, scratch,
+                           CARRY_OPEN)
+        LIB.count("histogram_image", err)
+    return _image_views(scratch, cells, shape)
+
+
+def image_to_float(sums: torch.Tensor, flags: torch.Tensor,
+                   exponents: torch.Tensor) -> torch.Tensor:
+    """float32 of a float-mode image, sums int64 and flags int32 of one
+    shape whose last dimension is a multiple of CH (the channel fastest),
+    with the exponents [CH] of the histograms summed into it: the
+    conversion kernel on a CUDA tensor, its plain version on a CPU one."""
+    CH = exponents.shape[0]
+    if sums.shape and sums.shape[-1] % CH:
+        raise ValueError(f"the image's last dimension {sums.shape[-1]} is not a multiple "
+                         f"of its {CH} channels")
+    if sums.dtype != torch.int64 or flags.dtype != torch.int32 \
+            or tuple(flags.shape) != tuple(sums.shape):
+        raise ValueError(f"an image is int64 sums and int32 flags of one shape, got "
+                         f"{sums.dtype} {list(sums.shape)} and {flags.dtype} "
+                         f"{list(flags.shape)}")
+    if sums.device.type == "cpu":
+        return _image_to_float_plain(sums, flags, exponents)
+    require_cuda(sums, "the image conversion")
+    dev = sums.device
+    _check_exponents(exponents, CH, dev)
+    sums, flags = sums.contiguous(), flags.contiguous()
+    out = torch.empty(sums.shape, dtype=torch.float32, device=dev)
+    if sums.numel() == 0:
+        return out
+    lib = LIB.load()
+    with torch.cuda.device(dev):
+        err = lib.lgbt_histogram_image_to_f32(sums.data_ptr(), flags.data_ptr(), sums.numel(),
+                                              CH, exponents.data_ptr(), out.data_ptr(),
+                                              stream_of(sums))
+    LIB.count("histogram_image_to_float", err)
+    return out
 
 
 def _check_rows(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tensor],
@@ -348,10 +427,15 @@ def _check_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
 def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
                      starts: torch.Tensor, ends: torch.Tensor, valid: torch.Tensor,
                      num_bins: int, n_slots: int, quantized: bool = False,
-                     exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     exponents: Optional[torch.Tensor] = None, image: bool = False):
     """[G, num_bins, n_slots*CH] wave histogram (ops/histogram.py:
     histogram_slots_ragged). A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel.
+
+    With `image` (the float mode, `exponents` required), the kernel's image
+    mode: a `HistImage` of the unconverted [G, num_bins, n_slots*CH] int64
+    fixed-point sums and int32 flag words, which processes add exactly and
+    `image_to_float` converts; on a CPU tensor its plain version.
 
     The float mode's fixed-point exponents are `fixed_point_exponents(gh, N)`
     unless the caller passes `exponents`, computed once for several calls.
@@ -359,11 +443,18 @@ def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     largest finite |g| per channel is at least gh's (the gh of every call, or
     a superset of its rows). Larger values overflow the int64 sums with no
     error."""
+    if image and (quantized or exponents is None):
+        raise ValueError("the image mode is the float mode's, with the tree's exponents")
     if bins.device.type == "cpu":
+        if image:
+            return _histogram_slots_ragged_image_plain(bins, gh, slot, starts, ends, valid,
+                                                       num_bins, n_slots, exponents)
         return _histogram_slots_ragged_plain(bins, gh, slot, starts, ends, valid,
                                              num_bins, n_slots, quantized)
     require_cuda(bins, "the ragged histogram")
     _check_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots, exponents)
+    if image:
+        return _ragged_image(bins, gh, slot, starts, ends, valid, num_bins, n_slots, exponents)
     dev = bins.device
     G, N = bins.shape
     CH = gh.shape[1]
@@ -389,3 +480,27 @@ def histogram_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
                  image.data_ptr(), out.data_ptr(), stream_of(bins))
     LIB.count("histogram_slots_ragged_i32" if quantized else "histogram_slots_ragged", err)
     return out
+
+
+def _ragged_image(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                  starts: torch.Tensor, ends: torch.Tensor, valid: torch.Tensor,
+                  num_bins: int, n_slots: int, exponents: torch.Tensor) -> HistImage:
+    """`histogram_ragged`'s image mode on the card (arguments checked)."""
+    dev = bins.device
+    G, N = bins.shape
+    CH = gh.shape[1]
+    cells = G * num_bins * n_slots * CH
+    scratch = _fixed_scratch(cells, dev)
+    shape = (G, num_bins, n_slots * CH)
+    if N == 0 or G == 0:
+        scratch.zero_()
+        return _image_views(scratch, cells, shape)
+    group_block, blocks = ragged_launch_shape(G, num_bins, CH, False, _sm_count(dev.index))
+    lib = LIB.load()
+    with torch.cuda.device(dev):
+        err = lib.lgbt_histogram_ragged_image(
+            bins.data_ptr(), N, G, gh.data_ptr(), gh.stride(0), CH, slot.data_ptr(),
+            starts.data_ptr(), ends.data_ptr(), valid.data_ptr(), n_slots, num_bins,
+            group_block, blocks, exponents.data_ptr(), scratch.data_ptr(), stream_of(bins))
+    LIB.count("histogram_slots_ragged_image", err)
+    return _image_views(scratch, cells, shape)

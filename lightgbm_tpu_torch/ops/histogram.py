@@ -34,7 +34,7 @@ summation bound of the plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -189,9 +189,8 @@ def fixed_point_exponents(gh: torch.Tensor, n_rows: int) -> torch.Tensor:
     n_rows / 2 of rounding — below 2**63 for any n_rows < 2**62. At
     n_rows = 2**20 and m_c <= 1 the resolution is 2**-42."""
     m = gh.abs().nan_to_num_(nan=0.0, posinf=0.0).amax(dim=0)
-    _, x = torch.frexp(m)  # x = 0 for m == 0: any exponent sums zeros exactly
-    q = max(int(n_rows) - 1, 0).bit_length()
-    return (FIXED_POINT_BITS - q - x.to(torch.int64)).to(torch.int32)
+    # x = 0 for m == 0: any exponent sums zeros exactly
+    return fixed_point_exponents_of_max(m, n_rows)
 
 
 def _histogram_slots_ragged_fixed(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
@@ -210,6 +209,26 @@ def _histogram_slots_ragged_fixed(bins: torch.Tensor, gh: torch.Tensor, slot: to
     return out.reshape(G, num_bins + 1, n_slots * CH)[:, :num_bins].contiguous()
 
 
+def _fixed_point_image(cell: torch.Tensor, g: torch.Tensor, n_cells: int,
+                       exponents: torch.Tensor):
+    """The CUDA kernels' float-mode image, written plainly: rows g [R, CH]
+    into cells cell [G, R] < n_cells, each finite value rounded (to nearest
+    even) to a multiple of 2**-e_c as int64 and summed exactly per cell, and
+    each cell's flag word, the OR of its non-finite values' codes (+inf 1,
+    -inf 2, NaN 3). Returns (sums [G, n_cells, CH] int64, flags [G, n_cells,
+    CH] int32)."""
+    finite = torch.isfinite(g)
+    e = exponents.to(device=g.device, dtype=torch.float64)
+    fixed = torch.round(torch.where(finite, g, 0.0).to(torch.float64)
+                        * torch.pow(2.0, e)).to(torch.int64)
+    sums = _histogram_plain(cell, fixed, n_cells, torch.int64)
+    flags = torch.zeros_like(sums, dtype=torch.int32)
+    for code, hit in ((1, g == float("inf")), (2, g == float("-inf")), (3, torch.isnan(g))):
+        seen = _histogram_plain(cell, hit.to(torch.int32), n_cells, torch.int32) > 0
+        flags |= torch.where(seen, code, 0).to(torch.int32)
+    return sums, flags
+
+
 def _fixed_point_sum(cell: torch.Tensor, g: torch.Tensor, n_cells: int,
                      exponents: torch.Tensor) -> torch.Tensor:
     """The CUDA kernels' float-mode sum of rows g [R, CH] into cells cell
@@ -218,14 +237,154 @@ def _fixed_point_sum(cell: torch.Tensor, g: torch.Tensor, n_cells: int,
     cell, then int64 -> float64 -> times 2**-e_c -> float32, each conversion
     rounding to nearest even; the cell's NaN and inf values, summed apart in
     float32 (NaN, +inf, -inf or 0), are added last, so a cell holding one
-    comes out as a float sum would. Returns [G, n_cells, CH] float32."""
-    finite = torch.isfinite(g)
-    e = exponents.to(device=g.device, dtype=torch.float64)
-    fixed = torch.round(torch.where(finite, g, 0.0).to(torch.float64)
-                        * torch.pow(2.0, e)).to(torch.int64)
-    hist = _histogram_plain(cell, fixed, n_cells, torch.int64)
-    out = (hist.to(torch.float64) * torch.pow(2.0, -e)).to(torch.float32)
-    return out + _histogram_plain(cell, torch.where(finite, 0.0, g), n_cells, torch.float32)
+    comes out as a float sum would. Returns [G, n_cells, CH] float32: the
+    conversion of `_fixed_point_image`."""
+    return _image_to_float_plain(*_fixed_point_image(cell, g, n_cells, exponents), exponents)
+
+
+def _histogram_slots_ragged_image_plain(bins: torch.Tensor, gh: torch.Tensor,
+                                        slot: torch.Tensor, starts: torch.Tensor,
+                                        ends: torch.Tensor, valid: torch.Tensor,
+                                        num_bins: int, n_slots: int,
+                                        exponents: torch.Tensor) -> "HistImage":
+    """The ragged kernel's image mode, written plainly: the kept rows of
+    `_histogram_slots_ragged_plain` as `_fixed_point_image` sums them, the
+    [G, num_bins, n_slots*CH] int64 sums and int32 flag words that the
+    float mode converts at its end (`_image_to_float_plain` of this is
+    `_histogram_slots_ragged_fixed`)."""
+    G = bins.shape[0]
+    CH = gh.shape[1]
+    rows, cell = _ragged_cells(bins, slot, starts, ends, valid, num_bins, n_slots)
+    sums, flags = _fixed_point_image(cell, gh[rows], (num_bins + 1) * n_slots, exponents)
+    return HistImage(*(t.reshape(G, num_bins + 1, n_slots * CH)[:, :num_bins].contiguous()
+                       for t in (sums, flags)))
+
+
+def _histogram_rows_image_plain(bins: torch.Tensor, gh: torch.Tensor,
+                                row_idx: Optional[torch.Tensor], num_bins: int,
+                                count: Optional[int], exponents: torch.Tensor) -> "HistImage":
+    """The leaf histogram's image mode, written plainly: the rows of
+    `_build_histogram_rows_fixed` (every row when row_idx is None) summed as
+    `_fixed_point_image` sums them, [G, num_bins, CH] int64 sums and int32
+    flag words."""
+    N = bins.shape[1]
+    idx = (torch.arange(N, device=bins.device) if row_idx is None
+           else row_idx[:count].to(torch.int64))
+    cell = torch.clamp(bins[:, torch.clamp(idx, max=N - 1)].to(torch.int64), max=num_bins)
+    sums, flags = _fixed_point_image(cell, gh[idx], num_bins + 1, exponents)
+    return HistImage(sums[:, :num_bins].contiguous(), flags[:, :num_bins].contiguous())
+
+
+def _image_to_float_plain(sums: torch.Tensor, flags: torch.Tensor,
+                          exponents: torch.Tensor) -> torch.Tensor:
+    """The conversion kernel, written plainly: sums [..., M] int64, M a
+    multiple of CH = len(exponents) with the channel fastest, times 2**-e_c
+    as float32 (int64 -> float64 -> scaled -> float32, each
+    rounding to nearest even), +inf, -inf or NaN where the flag word holds
+    code 1, 2 or 3."""
+    e = exponents.to(device=sums.device, dtype=torch.float64)
+    e = e[torch.arange(sums.shape[-1], device=sums.device) % e.shape[0]]
+    out = (sums.to(torch.float64) * torch.pow(2.0, -e)).to(torch.float32)
+    # by value, no table on the device: the card's leaf sums (quantized
+    # renewal) run this inside a tree that makes no host copy
+    nonfinite = torch.where(flags == 1, float("inf"),
+                            torch.where(flags == 2, float("-inf"), float("nan")))
+    return torch.where(flags == 0, out, nonfinite.to(torch.float32))
+
+
+class HistImage(NamedTuple):
+    """A histogram in the form processes add exactly: `sums` the card's
+    float-mode fixed-point image (int64) with its non-finite `flags` (int32
+    codes), or, where the sum is already exact or the JAX contract holds
+    (the integer modes' int32; the CPU's float32 plain version), the
+    histogram itself with flags None. `image_to_float` turns it into what
+    the split search reads."""
+
+    sums: torch.Tensor
+    flags: Optional[torch.Tensor] = None
+
+    def map(self, fn) -> "HistImage":
+        """fn applied to the sums and the flags alike (a selection, a
+        reshape: the same cells of both)."""
+        return HistImage(fn(self.sums), None if self.flags is None else fn(self.flags))
+
+
+# the code of a - b for the codes of a and b (flat index 4 * a + b): a
+# float difference of +inf, -inf or NaN cells
+_SUB_CODES = (0, 2, 1, 3, 1, 3, 1, 3, 2, 2, 3, 3, 3, 3, 3, 3)
+
+
+_SUB_LUTS: dict = {}
+
+
+def _sub_lut(device: torch.device) -> torch.Tensor:
+    """`_SUB_CODES` on the device, made once (at a first, eager wave: a
+    captured graph may not copy from the host)."""
+    lut = _SUB_LUTS.get(device)
+    if lut is None:
+        lut = _SUB_LUTS[device] = torch.tensor(_SUB_CODES, dtype=torch.int32, device=device)
+    return lut
+
+
+def image_sub(a: HistImage, b: HistImage) -> HistImage:
+    """a - b, exact: the histogram-subtraction trick on images, whose
+    flags follow float arithmetic on the cells they mark."""
+    if a.flags is None:
+        return HistImage(a.sums - b.sums)
+    lut = _sub_lut(a.flags.device)
+    return HistImage(a.sums - b.sums, lut[(4 * a.flags + b.flags).to(torch.int64)])
+
+
+def stack_children(left: HistImage, right: HistImage) -> HistImage:
+    """[2K, ...]: each leaf's left then right child, from [K, ...] each."""
+    def st(a, b):
+        return torch.stack([a, b], dim=1).reshape(2 * a.shape[0], *a.shape[1:])
+
+    return HistImage(st(left.sums, right.sums),
+                     None if left.flags is None else st(left.flags, right.flags))
+
+
+def image_where(cond: torch.Tensor, a: HistImage, b: HistImage) -> HistImage:
+    return HistImage(torch.where(cond, a.sums, b.sums),
+                     None if a.flags is None else torch.where(cond, a.flags, b.flags))
+
+
+def image_to_float(img: HistImage, exponents: Optional[torch.Tensor]) -> torch.Tensor:
+    """What the split search reads: a fixed-point image converted with the
+    tree's exponents (the conversion kernel on the card), anything else as
+    it is."""
+    if img.flags is None:
+        return img.sums
+    from .hist_cuda import image_to_float as convert
+
+    return convert(img.sums, img.flags, exponents)
+
+
+def wave_hist_image(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                    starts: torch.Tensor, ends: torch.Tensor, valid: torch.Tensor,
+                    num_bins: int, n_slots: int, quantized: bool,
+                    exponents: Optional[torch.Tensor], image: bool) -> HistImage:
+    """The wave histogram as a HistImage: with `image` (the card's float
+    mode) the ragged kernel's image (`hist_cuda.histogram_ragged(image=True)`,
+    its plain version on a CPU tensor); else the integer mode's exact int32
+    or the float mode's float32 (on the CPU the plain version: the JAX
+    package's contract, exact on grid-snapped gradients) as they are."""
+    if quantized or not image:
+        return HistImage(histogram_slots_ragged(bins, gh, slot, starts, ends, valid,
+                                                num_bins, n_slots, quantized, exponents))
+    from .hist_cuda import histogram_ragged
+
+    return histogram_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots,
+                            exponents=exponents, image=True)
+
+
+def fixed_point_exponents_of_max(m: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """`fixed_point_exponents` from the per-channel largest finite |gh|, m
+    [CH], and the row count: what several processes compute alike from the
+    MAX of their shards' maxima and the global count."""
+    _, x = torch.frexp(m)
+    q = max(int(n_rows) - 1, 0).bit_length()
+    return (FIXED_POINT_BITS - q - x.to(torch.int64)).to(torch.int32)
 
 
 def leaf_sums_fixed(gh: torch.Tensor, rows: Optional[torch.Tensor], leaf: torch.Tensor,

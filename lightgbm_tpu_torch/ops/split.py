@@ -787,3 +787,43 @@ def find_best_split(hist: torch.Tensor, totals, meta: FeatureMeta,
     cat = best_categorical_record(hist, totals, meta, params, feature_mask, penalty, scale,
                                   constraint)
     return torch.where(cat[..., :1] > rec[..., :1], cat, rec)
+
+
+def pad_feature_meta(meta: FeatureMeta, f_pad: int) -> FeatureMeta:
+    """The feature axis padded to f_pad with inert rows (valid_slot all
+    False, the gather hitting the zero sentinel, one bin: no threshold) so
+    that a world size divides it (the JAX package's split.py:162)."""
+    F = meta.gather_index.shape[0]
+    if f_pad == F:
+        return meta
+    pad = f_pad - F
+    dev = meta.gather_index.device
+
+    def cat(a, fill):
+        return torch.cat([a, torch.full((pad, *a.shape[1:]), fill, dtype=a.dtype, device=dev)])
+
+    return FeatureMeta(
+        gather_index=cat(meta.gather_index, meta.hist_rows),
+        valid_slot=cat(meta.valid_slot, False), default_bin=cat(meta.default_bin, 0),
+        efb_omitted=cat(meta.efb_omitted, False), missing_type=cat(meta.missing_type, 0),
+        nbins=cat(meta.nbins, 1), is_categorical=cat(meta.is_categorical, False),
+        monotone=cat(meta.monotone, 0), missing_pos=cat(meta.missing_pos, 0),
+        has_missing=cat(meta.has_missing, False),
+        real_feature=list(meta.real_feature) + [-1] * pad, max_bins=meta.max_bins,
+        hist_rows=meta.hist_rows, has_categorical=meta.has_categorical)
+
+
+def feature_meta_block(meta: FeatureMeta, lo: int, hi: int) -> FeatureMeta:
+    """The metadata of features [lo, hi) (a rank's block of the feature
+    axis), each tensor a contiguous copy."""
+    def rows(a):
+        return a[lo:hi].contiguous()
+
+    return FeatureMeta(
+        gather_index=rows(meta.gather_index), valid_slot=rows(meta.valid_slot),
+        default_bin=rows(meta.default_bin), efb_omitted=rows(meta.efb_omitted),
+        missing_type=rows(meta.missing_type), nbins=rows(meta.nbins),
+        is_categorical=rows(meta.is_categorical), monotone=rows(meta.monotone),
+        missing_pos=rows(meta.missing_pos), has_missing=rows(meta.has_missing),
+        real_feature=list(meta.real_feature[lo:hi]), max_bins=meta.max_bins,
+        hist_rows=meta.hist_rows, has_categorical=bool(meta.is_categorical[lo:hi].any()))

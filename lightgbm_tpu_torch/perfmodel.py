@@ -532,3 +532,63 @@ def _add_model_seconds(entry: Dict[str, Any], model_bytes: int, wall_s: float,
     if wall_s > 0.0:
         entry["drift_pct"] = (wall_s / model_s - 1.0) * 100.0
         entry["roofline_frac"] = model_s / wall_s
+
+
+# --------------------------------------------------- the distributed wire
+# Bytes one rank hands the collectives in one wave of the sharded wave
+# learners (parallel/wave_learners.py), the counterparts of the JAX
+# package's perfmodel.py:105-135 with the port's collectives: `value_bytes`
+# is 8 for the card's fixed-point image, 4 for int32 (and the CPU's
+# float32), 2 for the packed int16 wire. None of them scales with the row
+# count.
+
+def ici_bytes_per_wave(wave_width: int, f_pad: int, max_bins: int, group_bins: int,
+                       n_shards: int, ch: int = 3, value_bytes: int = 8) -> int:
+    """Data-parallel: the [K] int64 left counts, the reduce-scatter of the
+    [K, F_pad, Bmax, CH] smaller children's image with their group-0 slice
+    [K, Bg, CH] (the leaves' totals) copied into each of the n blocks, and
+    the all-gather of this rank's [2K, F_pad / n, REC] block records."""
+    k, n = int(wave_width), int(n_shards)
+    chunk = (int(f_pad) // n) * k * int(max_bins) * int(ch) + k * int(group_bins) * int(ch)
+    return (n * _wire_values(chunk, value_bytes) + 8 * k
+            + 2 * k * (int(f_pad) // n) * REC_FIELDS * 4)
+
+
+def _wire_values(count: int, value_bytes: int) -> int:
+    """Bytes of `count` values on the wire: the packed int16 wire carries
+    them in pairs, an int32 word each (dist.pack_int16_pairs)."""
+    if value_bytes == 2:
+        return 4 * (-(-int(count) // 2))
+    return int(count) * int(value_bytes)
+
+
+def voting_ici_bytes_per_wave(wave_width: int, k_local: int, k_global: int,
+                              max_bins: int, group_bins: int, ch: int = 3,
+                              value_bytes: int = 8) -> int:
+    """Voting (PV-Tree): the [K] int64 left counts, the all-gather of this rank's
+    [2K, k_local] nominations (int64) and the all-reduce of the [2K,
+    k_global, Bmax, CH] elected slices with the children's group-0 slices.
+    No term scales with the feature count."""
+    k = int(wave_width)
+    return (8 * k + 2 * k * int(k_local) * 8
+            + _wire_values(2 * k * (int(k_global) * int(max_bins) + int(group_bins)) * int(ch),
+                           value_bytes))
+
+
+def feature_ici_bytes_per_wave(wave_width: int) -> int:
+    """Feature-parallel: rows are replicated, so the only traffic is the
+    all-gather of this rank's [2K, REC] best records, independent of the
+    row and the feature count."""
+    return 2 * int(wave_width) * REC_FIELDS * 4
+
+
+def hist_ragged_image(rows: int, n_groups: int, cells: int) -> Tuple[float, float]:
+    """Row 2's image mode: row 2's reads, and the image written once, an
+    int64 sum and an int32 flag word a cell."""
+    return rows * (n_groups + 12 + 4) + 12 * cells, 3 * n_groups * rows
+
+
+def image_to_float(cells: int) -> Tuple[float, float]:
+    """The conversion of an image: an int64 sum and an int32 flag word read
+    and a float32 written a cell; one conversion and one scale a cell."""
+    return 16 * cells, 2 * cells

@@ -29,9 +29,9 @@ per entry (breaker.py).
 
 Not carried: the JAX package's AOT warm-start sidecars (its ``.aot``
 bundles of compiled per-bucket executables): the CUDA kernel compiles no
-shapes, so there is nothing to warm-start. Row-sharded entries
-(``shard_rows``) wait for the distributed learners (ROADMAP Queue 1 item
-8).
+shapes, so there is nothing to warm-start. A row-sharded entry
+(``shard_rows``) splits each batch of at least that many rows over the
+gang's ranks (parallel/predict.py).
 """
 from __future__ import annotations
 
@@ -120,12 +120,15 @@ class PredictionService:
                    **kwargs: Any) -> Dict[str, Any]:
         """Registry load (which launches the traversal on the service's
         device before publishing), pinning to a replica, and a warmup, so
-        the new version's first live request finds its pack on the device."""
-        if shard_rows is not None:
-            raise InvalidRequest("shard_rows (row-sharded predict) needs the distributed "
-                                 "learners, not yet ported to the PyTorch package "
-                                 "(ROADMAP Queue 1 item 8)")
+        the new version's first live request finds its pack on the device.
+        With `shard_rows`, a batch of at least that many rows is split over
+        the gang's ranks (parallel/predict.py: every rank's service must
+        take the same batches), as the booster's pred_shard_rows."""
+        if shard_rows is not None and int(shard_rows) < 1:
+            raise InvalidRequest(f"shard_rows must be a positive row count, got {shard_rows}")
         entry = self.registry.load(name, **kwargs)
+        if shard_rows is not None:
+            entry.booster.params["pred_shard_rows"] = int(shard_rows)
         self.breaker.register_entry(name)
         self._batcher_for(name)  # pin the replica before any traffic
         self.warmup(name)

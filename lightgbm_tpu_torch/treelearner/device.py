@@ -90,9 +90,13 @@ gradients, summed by leaf exactly in fixed point (ops/histogram.py:
 leaf_sums_fixed, an order-free int64 scatter-add where the JAX package
 scatter-adds in float32) and read back with the tree's results.
 
-Not carried, each still to port (ROADMAP): the sharded grower and its
-data, voting and feature modes (``make_sharded_grow_fn``, Queue 1 item 8);
-the bf16 gh payload (item 6). With telemetry on, ``_record_carry_bytes``
+On the card the pool holds each leaf's fixed-point image (the int64 sums
+and flag words of ops/histogram.py:HistImage) rather than float32: the
+larger child's subtraction is exact, and a wave converts its 2K children
+once (the conversion kernel) before their split search; the sharded
+learners (parallel/wave_learners.py, the JAX package's
+``make_sharded_grow_fn`` and its data, voting and feature modes) add these
+images across ranks. Not carried: the bf16 gh payload (ROADMAP item 6). With telemetry on, ``_record_carry_bytes``
 publishes the perfmodel gauges of the learner's buffers each tree, and `finalize` emits
 the ``tree_wave`` and ``wave_ctl`` telemetry events on the host, after the
 tree's results came back. ``snapshot_state`` adds the bin plane's dtype to the serial
@@ -114,7 +118,8 @@ from .. import perfmodel, telemetry, tracing
 from ..models.sample_strategy import DeviceBag
 from ..models.tree import Tree
 from ..ops.compact import partition_wave, relabel_rows
-from ..ops.histogram import fixed_point_exponents, histogram_slots_ragged, leaf_sums_fixed
+from ..ops.histogram import (HistImage, fixed_point_exponents, image_sub, image_to_float,
+                             image_where, leaf_sums_fixed, stack_children, wave_hist_image)
 from ..ops.partition import bucket_size
 from ..ops.split import FeatureMeta, SplitInfo, find_best_split
 from ..ops.wave import (DONE, HIST_ROWS, N_CUR, N_WAVES, REC, SCALARS, STORE,
@@ -175,7 +180,8 @@ class WaveBuffers:
 
     def __init__(self, n_groups: int, n_rows: int, payload: int, num_leaves: int,
                  num_bins: int, channels: int, n_features: int,
-                 device: torch.device, quantized: bool = False, renew: bool = False) -> None:
+                 device: torch.device, quantized: bool = False, renew: bool = False,
+                 image: Optional[bool] = None) -> None:
         dev = torch.device(device)
         L = num_leaves
         # quantized training: an int32 pool, the integer histograms, scaled
@@ -187,8 +193,16 @@ class WaveBuffers:
         self.rows = [torch.zeros((n_rows, payload), dtype=torch.float32, device=dev)
                      for _ in range(2)]
         self.slot = torch.zeros(n_rows, dtype=torch.int32, device=dev)
-        self.pool = torch.zeros((L + 1, n_groups, num_bins, channels),
-                                dtype=torch.int32 if quantized else torch.float32, device=dev)
+        # the pool holds what the ranks add exactly (ops/histogram.py:HistImage):
+        # the card's float mode keeps the fixed-point image and its flag words,
+        # so the larger child's subtraction is exact and it is converted once;
+        # the integer mode its int32, the CPU its float32 plain version
+        self.image = (dev.type == "cuda" if image is None else bool(image)) and not quantized
+        pool_dtype = torch.int32 if quantized else torch.int64 if self.image else torch.float32
+        self.pool = torch.zeros((L + 1, n_groups, num_bins, channels), dtype=pool_dtype,
+                                device=dev)
+        self.pool_flags = (torch.zeros((L + 1, n_groups, num_bins, channels),
+                                       dtype=torch.int32, device=dev) if self.image else None)
         self.leaf_best = torch.full((L + 1, REC), float("-inf"), dtype=torch.float32,
                                     device=dev)
         self.depth = torch.zeros(L + 1, dtype=torch.int32, device=dev)
@@ -277,13 +291,16 @@ def _root(buf: WaveBuffers, bins: torch.Tensor, meta: FeatureMeta, params: torch
         n_in = buf.whole[1:2]
     buf.slot.zero_()
     q = buf.quantized
-    root_hist = histogram_slots_ragged(buf.bins[cur], buf.rows[cur][:, :CH], buf.slot,
-                                       buf.whole[:1], n_in, buf.root_valid, num_bins, 1,
-                                       quantized=q, exponents=None if q else buf.exponents)
+    root_img = wave_hist_image(buf.bins[cur], buf.rows[cur][:, :CH], buf.slot,
+                               buf.whole[:1], n_in, buf.root_valid, num_bins, 1, q,
+                               None if q else buf.exponents, buf.image)
+    root_hist = image_to_float(root_img, buf.exponents)
     root_tot = _totals(buf, root_hist[0].sum(dim=0))
     root_rec = find_best_split(root_hist, root_tot, meta, params, fmask,
                                scale=buf.scale if q else None)
-    buf.pool[0] = root_hist
+    buf.pool[0] = root_img.sums
+    if buf.pool_flags is not None:
+        buf.pool_flags[0] = root_img.flags
     init_tree_state(buf.leaf_best, buf.depth, buf.rec_store, buf.start, buf.count,
                     buf.scalars, root_rec, root_tot, n_in, params, max_depth)
 
@@ -318,15 +335,14 @@ def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: Feature
     # the smaller child of each selected leaf (tie -> left), whose rows the
     # partition made contiguous and labeled with their slot
     q = buf.quantized
-    hist_s = histogram_slots_ragged(buf.bins[1 - cur], rows_out[:, :CH], buf.slot,
-                                    ranges[1], ranges[2], flags[0], num_bins, K,
-                                    quantized=q, exponents=None if q else buf.exponents)
-    hist_s = hist_s.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3)
-    pool_sel = buf.pool[sel_k.to(torch.int64)]
-    hist_l = torch.where(flags[1][:, None, None, None], hist_s, pool_sel - hist_s)
-    hist_r = pool_sel - hist_l  # subtract_histogram, batched
-    hists = torch.stack([hist_l, hist_r], dim=1).reshape(2 * K, G, num_bins, CH)
-    totals2 = _totals(buf, hists[:, 0].sum(dim=1))  # [2K, CH]
+    hist_s = wave_hist_image(buf.bins[1 - cur], rows_out[:, :CH], buf.slot, ranges[1],
+                             ranges[2], flags[0], num_bins, K, q,
+                             None if q else buf.exponents, buf.image)
+    hist_s = hist_s.map(lambda t: t.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3))
+    hist_l, hist_r = children(pool_rows(buf, sel_k), hist_s, flags[1])
+    hists = image_to_float(stack_children(hist_l, hist_r), buf.exponents)
+    # a contiguous [2K, B, CH]: the sharded learners sum the same layout
+    totals2 = _totals(buf, hists[:, 0].contiguous().sum(dim=1))  # [2K, CH]
     recs2 = find_best_split(hists, totals2, meta, params,
                             buf.feature_mask if masked else None,
                             scale=buf.scale if q else None)
@@ -335,9 +351,34 @@ def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: Feature
     # the committed children's histograms into the pool (an uncommitted
     # range writes the dump row L) and each committed range's right rows,
     # [start + n_left, end), relabeled
-    buf.pool.index_copy_(0, commit[0], hist_l)
-    buf.pool.index_copy_(0, commit[1], hist_r)
+    pool_write(buf, commit, hist_l, hist_r)
     relabel_rows(rows_out, LEAF, commit[2:])
+
+
+def pool_rows(buf: WaveBuffers, leaves: torch.Tensor) -> HistImage:
+    """The pool's histograms of the given leaves."""
+    idx = leaves.to(torch.int64)
+    return HistImage(buf.pool[idx], None if buf.pool_flags is None else buf.pool_flags[idx])
+
+
+def children(parent: HistImage, small: HistImage, left_small: torch.Tensor):
+    """(left, right) of each selected leaf [K, ...] from its histogram and
+    its smaller child's, the larger one by subtraction (subtract_histogram,
+    batched): exact on images."""
+    cond = left_small.reshape(-1, *([1] * (small.sums.dim() - 1)))
+    left = image_where(cond, small, image_sub(parent, small))
+    return left, image_sub(parent, left)
+
+
+def pool_write(buf: WaveBuffers, commit: torch.Tensor, left: HistImage,
+               right: HistImage) -> None:
+    """The committed children's histograms into the pool (an uncommitted
+    range writes the dump row L)."""
+    buf.pool.index_copy_(0, commit[0], left.sums)
+    buf.pool.index_copy_(0, commit[1], right.sums)
+    if buf.pool_flags is not None:
+        buf.pool_flags.index_copy_(0, commit[0], left.flags)
+        buf.pool_flags.index_copy_(0, commit[1], right.flags)
 
 
 def _waves_eager(buf: WaveBuffers, cur: int, wave, num_leaves: int) -> int:
@@ -628,6 +669,11 @@ class DeviceTreeLearner(SerialTreeLearner):
     the wave width; the gain-adaptive controller (`_next_wave_k`) moves the
     width used, `wave_k`, one rung per finalized tree, and is switched off
     by setting `_adaptive_wave` to False."""
+
+    # the GBDT's async pipeline reads a tree's split log on the card while
+    # the next grows (`_Grown.rec_store_dev`); a sharded tree is read on the
+    # host as its loop ends
+    async_capable = True
 
     def __init__(self, config, dataset, device: torch.device, wave: int = 21) -> None:
         super().__init__(config, dataset, device)

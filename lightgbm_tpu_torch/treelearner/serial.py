@@ -322,6 +322,11 @@ class SerialTreeLearner:
                                     count=self.partition.count(leaf),
                                     exponents=self._exps)
 
+    def _subtract(self, parent, small):
+        """The larger child's histogram from its parent's and the smaller
+        child's (the voting learner subtracts exact images)."""
+        return subtract_histogram(parent, small)
+
     def _partition_split(self, leaf: int, new_leaf: int, gi: int, decision,
                          cat_mask=None) -> Tuple[int, int]:
         """Split the leaf's rows on group gi's plane row (the streamed
@@ -578,7 +583,7 @@ class SerialTreeLearner:
             else:
                 small, big = new_leaf, leaf
             small_hist = self._leaf_hist(small)
-            big_hist = subtract_histogram(parent_hist, small_hist)
+            big_hist = self._subtract(parent_hist, small_hist)
         depth = state.depth + 1
         child_path = state.features_in_path | {int(real_f)}
         # monotone bound propagation (BasicLeafConstraints::Update,
@@ -660,9 +665,8 @@ def create_tree_learner(learner_type: str, device: torch.device, config: Config,
     when LGBM_TPU_HBM_BUDGET asks for it (before the wave learner: a plane
     that needs a budget must not be uploaded whole), the wave learner
     (DeviceTreeLearner) where `device_growth_applies`, else the serial
-    learner. A configuration the JAX package gives to its distributed
-    learners is refused: the port does not silently swap in the serial
-    learner."""
+    learner; data, feature and voting go to the distributed learners
+    (parallel/learners.py:create_parallel_learner)."""
     if learner_type in ("serial",):
         if streamed.streaming_requested():
             return streamed.StreamedTreeLearner(config, dataset, device)
@@ -672,9 +676,9 @@ def create_tree_learner(learner_type: str, device: torch.device, config: Config,
             return DeviceTreeLearner(config, dataset, device)
         return SerialTreeLearner(config, dataset, device)
     if learner_type in ("feature", "data", "voting"):
-        Log.fatal("tree_learner=%s: the distributed learners are not yet "
-                  "ported to the PyTorch package (ROADMAP Queue 1 item 8)",
-                  learner_type)
+        from ..parallel.learners import create_parallel_learner
+
+        return create_parallel_learner(learner_type, config, dataset, device)
     Log.fatal("Unknown tree learner type: %s", learner_type)
 
 

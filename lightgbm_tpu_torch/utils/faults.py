@@ -46,9 +46,11 @@ Streaming faults (``streaming/``):
 
 The distributed tokens (``worker_kill@R:K``, ``worker_hang@R:K``,
 ``coord_loss@K``, ``slow_worker@R:ms``, ``vote_skew@R:K``) wait for the
-distributed learners (ROADMAP Queue 1 item 8): they parse as in the JAX
-package and are then refused with a LightGBMError naming the item, so a
-plan that names them never runs as if armed.
+gang's failure handling (the collective watchdog, the heartbeat, the
+elastic runtime: what remains of ROADMAP Queue 1 item 8; the distributed
+learners themselves are ported): they parse as in the JAX package and are
+then refused with a LightGBMError naming the item, so a plan that names
+them never runs as if armed.
 
 Every injection is one-shot (``kill@K`` fires once even if iteration K is
 re-entered after a rollback) and seeded, so a failing test replays
@@ -73,7 +75,7 @@ _REFUSED = {
     "worker_kill@": 8, "worker_hang@": 8, "coord_loss@": 8, "slow_worker@": 8,
     "vote_skew@": 8,
 }
-_SUBSYSTEM = {8: "the distributed learners"}
+_SUBSYSTEM = {8: "the gang's failure handling (watchdog, heartbeat, elastic runtime)"}
 
 
 def _rank_iter(token: str, prefix: str, value=int):

@@ -17,7 +17,9 @@ side file) and a 400-row valid file:
   the cache of the text file;
 * `task=serve` loads the model into a PredictionService on the configured
   device and hands it to the HTTP front (patched here);
-* `num_machines=2` and `tree_learner=data` are refused by item 8's number.
+* `num_machines=2` in a process that joined no gang is refused, naming the
+  launcher; `tree_learner=data` alone trains in a world of one rank, the
+  serial learner's model (tests/test_torch_launch.py runs the gangs).
 """
 import json
 
@@ -39,6 +41,17 @@ def _ref_cli():
     from lightgbm_tpu import cli as ref_cli  # inside a test that holds jax_ref
 
     return ref_cli
+
+
+@pytest.fixture(autouse=True)
+def _keep_log_verbosity():
+    """cli.run sets the process's log verbosity (verbosity=-1 in these
+    arguments): put it back, so the next file's tests log as by default."""
+    from lightgbm_tpu_torch.utils import log
+
+    before = log._verbosity
+    yield
+    log.set_verbosity(before)
 
 
 @pytest.fixture
@@ -207,6 +220,16 @@ def test_serve_loads_the_model_and_starts_http(files, monkeypatch):
 
 @pytest.mark.parametrize("arg", ["num_machines=2", "tree_learner=data"])
 def test_distributed_runs_refused_by_item_8(files, arg):
+    """Item 8's learners are ported: num_machines=2 with no gang joined is
+    refused (the message names the launcher); tree_learner=data in a world
+    of one rank trains the serial learner's model."""
     tmp, train, valid = files
-    with pytest.raises(LightGBMError, match="item 8"):
-        cli.run(_train_args(tmp, train, valid, str(tmp / "m.txt")) + [arg])
+    args = _train_args(tmp, train, valid, str(tmp / "m.txt"))
+    if arg == "num_machines=2":
+        with pytest.raises(LightGBMError, match="lightgbm_tpu_torch.launch"):
+            cli.run(args + [arg])
+        return
+    assert cli.run(args + [arg]) == 0
+    assert cli.run(_train_args(tmp, train, valid, str(tmp / "serial.txt"))) == 0
+    got = (tmp / "m.txt").read_text().split("end of trees")[0]
+    assert got == (tmp / "serial.txt").read_text().split("end of trees")[0]

@@ -561,8 +561,8 @@ def _wave_card_vs_cpu(params):
                ("scan", scan_cuda.launches))}
     card = lt.train(dict(params), lt.Dataset(X, label=y), num_boost_round=3)
     assert isinstance(card._gbdt.tree_learner, DeviceTreeLearner)
-    assert hist_cuda.launches["histogram_slots_ragged"] > \
-        counts["hist"]["histogram_slots_ragged"]
+    assert hist_cuda.launches["histogram_slots_ragged_image"] > \
+        counts["hist"]["histogram_slots_ragged_image"]
     for name in ("partition_decide", "partition_scan", "partition_scatter", "relabel_rows"):
         assert compact_cuda.wave_launches[name] > counts["part"][name]
     assert scan_cuda.launches["find_best_split_batched"] > \
@@ -908,8 +908,8 @@ def test_graphed_grower_byte_equal_to_cpu(cuda, case):
                          "relabel_rows"):
                 assert compact_cuda.wave_launches[name] - before["part"][name] == \
                     n + (1 if bagged and name != "relabel_rows" else 0)
-            assert hist_cuda.launches["histogram_slots_ragged"] - \
-                before["hist"]["histogram_slots_ragged"] == n + 1
+            assert hist_cuda.launches["histogram_slots_ragged_image"] - \
+                before["hist"]["histogram_slots_ragged_image"] == n + 1
             assert scan_cuda.launches["find_best_split_batched"] - \
                 before["scan"]["find_best_split_batched"] == n
             assert scan_cuda.launches["find_best_split"] - \

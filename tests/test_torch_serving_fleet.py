@@ -138,10 +138,18 @@ def test_replica_concurrent_models_bit_exact():
 
 
 def test_shard_rows_is_refused_by_item():
+    """Row-sharded serving is ported (parallel/predict.py): a positive
+    shard_rows loads, and in a world of one rank the answers are
+    Booster.predict's; a row count below 1 is refused."""
     svc = _service()
     try:
-        with pytest.raises(InvalidRequest, match=r"ROADMAP Queue 1 item 8\)"):
-            svc.load_model("m", booster=_train(0), shard_rows=1000)
+        bst = _train(0)
+        with pytest.raises(InvalidRequest, match="shard_rows"):
+            svc.load_model("m", booster=bst, shard_rows=0)
+        svc.load_model("m", booster=bst, shard_rows=1000)
+        X = _rows(3, 1000)
+        np.testing.assert_array_equal(np.asarray(svc.predict("m", X)).ravel(),
+                                      bst.predict(X).ravel())
     finally:
         svc.close()
 

@@ -197,13 +197,18 @@ def test_wave_learner_configuration_is_refused_on_the_card(monkeypatch):
     assert not isinstance(host, device.DeviceTreeLearner)
 
 
+# what is still refused, with the environment that asks for it: the
+# distributed learners are ported, but not their gang-sharded streamed
+# learner (a streaming budget with a parallel tree_learner, item 9)
 REFUSED = [
-    ({"tree_learner": "data"}, "distributed learners"),
+    ({"tree_learner": "data"}, {"LGBM_TPU_HBM_BUDGET": "1000000"}, "distributed learners"),
 ]
 
 
-@pytest.mark.parametrize("extra,what", REFUSED, ids=[w for _, w in REFUSED])
-def test_unported_features_are_refused(extra, what):
+@pytest.mark.parametrize("extra,env,what", REFUSED, ids=[w for _, _, w in REFUSED])
+def test_unported_features_are_refused(monkeypatch, extra, env, what):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
     X, y = _data(with_nan=False)
     with pytest.raises(LightGBMError, match="not yet ported"):
         lt.train(_params("binary", 0.8, **extra), lt.Dataset(X, label=y),
