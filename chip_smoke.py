@@ -284,7 +284,7 @@ Phases (any failure exits non-zero before the result line):
             serve_breaker_state on /metrics following each step. No
             dispatch fails and no request is shed outside that window
             (checked after phases 7, 10 and 17 and at the end of 18).
-19. façades  524,288 of phase 8's rows written as a TSV with a .weight side
+19. façades  262,144 of phase 8's rows written as a TSV with a .weight side
             file, and its valid rows as another: (1) the native parse, timed,
             its first 32,768 rows exactly equal to np.genfromtxt's; (2) cli
             task=train from the text (no device_type: the card; 10 rounds at
@@ -310,8 +310,8 @@ Phases (any failure exits non-zero before the result line):
             push_csr), the finalized plane byte-equal to the whole matrix
             binned under the store's layout, timed; (2) the out-of-core
             learner: LGBM_TPU_HBM_BUDGET of 4 blocks (a quarter of the plane),
-            phase 9's settings, 10 rounds: the model text byte-equal to
-            phase 9's resident serial model, then 3 quantized rounds
+            phase 9's settings, 4 rounds: the trees byte-equal to phase 9's
+            resident serial model's first 4, then 3 quantized rounds
             byte-equal to the resident serial learner's; s/iteration beside
             phase 9's, the blocks uploaded (cold, prefetched, cache hits),
             the upload bytes equal to stream_block_bytes x blocks + the
@@ -352,8 +352,9 @@ Phases (any failure exits non-zero before the result line):
             model (split_gain within 4 ULP) on the real logloss gradients;
             voting at top_k 5 (10 of the 28 features elected a leaf), 5
             rounds, within 0.001 valid AUC of the exact run's after 5; the
-            host-driven data-parallel learner at phase 9's settings equal to phase 9's
-            model; quantized data-parallel equal to phase 12's; row-sharded
+            host-driven data-parallel learner at phase 9's settings, 4
+            rounds, equal to phase 9's first 4 trees; quantized
+            data-parallel equal to phase 12's; row-sharded
             predict of the 1M rows and a service loaded with shard_rows
             bit-equal to Booster.predict; `launch -n 2 -- <cli args>
             tree_learner=data` writing the in-process gang's model. Prints
@@ -365,6 +366,33 @@ Phases (any failure exits non-zero before the result line):
             mode, the leaf kernel's and the conversion kernel against their
             plain versions (with +inf, -inf and NaN gradients among the
             rows) and times them.
+22. elastic  the gang's failure handling, on phase 21's 65,536-row CLI
+            text file (5 rounds, a snapshot every iteration): (a) `launch
+            -n 2 --elastic` with worker_kill@1:3: rank 1 exits 43, the gang
+            is reaped and relaunched once from rank 0's snapshot, the model
+            byte-equal to phase 21's undisturbed `launch -n 2` model, a
+            gang_worker_lost flight dump naming rank 1, gang_recovery_ms
+            printed; (b) the same with worker_hang@1:3, the collective
+            watchdog's deadline and `--liveness-timeout`: the gang reaped by
+            exit 117 (or a liveness loss), the relaunched model byte-equal;
+            (c) `allow_shrink` from 2 ranks to 1 (the script itself as each
+            rank: --elastic-worker) on quantized data-parallel at phase 12's
+            settings, rank 1 killed at iteration 2, the one rank resuming
+            from rank 0's snapshot: byte-equal to phase 12's model. Run by
+            phase 21's gang: (d) the data-parallel run (5 rounds) with the
+            elastic heartbeat every iteration and the sanitizer's
+            collective-order check at each, the heartbeats and the checks
+            counted, s/iteration beside phase 21's data run, the trees
+            phase 8's;
+            (e) phase 20's streamed runs (16 blocks of 65,536 rows, a
+            4-block budget a rank) with tree_learner=data through the
+            gang-sharded streamed learner, float (3 rounds) and quantized:
+            the trees phase 20's, the carried kernel launched on every
+            rank, no rank uploading a block it does not own, the bytes
+            counted at the collectives perfmodel's, s/iteration and the
+            uploads a rank. Phase 20's kernels hold two open carries over
+            alternate blocks, added and converted once, bit-equal to one
+            resident call.
 
 Bounds: each kernel's bytes and operations come from
 lightgbm_tpu_torch/perfmodel.py's formula for its row of PERF.md's table,
@@ -383,8 +411,9 @@ phase 7 (the serving and predict paths, prediction early stopping's
 accumulate mode included), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
 of phases 13, 14, 15, 16 and 17 (the training paths), of phases 18 and 19 and
-of phase 20's streamed runs (float and quantized), flywheel and C API, and
-on each rank of phase 21's gang around each of its runs: every
+of phase 20's streamed runs (float and quantized), flywheel and C API, on
+each rank of phase 21's gang around each of its runs (phase 22's (d) and
+(e) among them) and around phase 22 (c)'s resumed run: every
 kernel of each path must
 have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
@@ -4530,7 +4559,9 @@ def drive_observe(lt, libs, train_set, higgs, multi, seed, tag):
     return launches, report
 
 
-FACADE_ROWS = 524_288  # phase 19's text file: half of phase 8's rows (all until phase 21)
+# phase 19's text file: a quarter of phase 8's rows (all until phase 21, half
+# until phase 22)
+FACADE_ROWS = 262_144
 FACADE_ROUNDS, CAPI_ROUNDS = 10, 3
 FACADE_CHECK_ROWS = 32_768  # rows held against the plain parse
 CONVERT_ROWS, SHAP_ROWS = 4_096, 128
@@ -4819,6 +4850,10 @@ STREAM_BLOCK_ROWS = 65_536  # phase 20: 16 blocks of phase 8's 1,048,576 rows
 STREAM_BUDGET_BLOCKS = 4  # a quarter of the plane on the card
 STREAM_CSR_BLOCK = 5  # the block pushed through push_csr
 STREAM_QUANT_ROUNDS = 3
+# the float streamed run's rounds, held to phase 9's first trees (10, the
+# serial run's, until phase 22 came)
+STREAM_ROUNDS = 4
+STREAM_GANG_ROUNDS = 3  # phase 22 (e)'s float rounds, held to phase 20's first trees
 STREAM_SERIAL = ("histogram_carry", "find_best_split", "row_partition_decide",
                  "row_partition_scatter")
 STREAM_QUANT = ("histogram_carry_i32", "find_best_split_int", "quantize_reduce", "quantize",
@@ -4922,6 +4957,31 @@ def check_carried_histogram(dev, bins_h, n_rows, num_bins, seed, tag):
                 "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
                 "max_abs_err": err, "ms": ms if dev_ms is None else dev_ms, "plain_ms": plain,
                 "bound_ms": b, "bound_by": by, "library_ms": library}
+    # the gang-sharded streamed learner's use: each of two ranks carries its
+    # own blocks (b % 2) with the carry left open, the int64 images are
+    # added, and one conversion gives one resident call's bits
+    from lightgbm_tpu_torch.ops.histogram import HistImage, image_to_float
+
+    for name in ("root", "leaf"):
+        idx, count = sets[name]
+        rows = idx[:count]
+        images = []
+        for rank in range(2):
+            carry, img = hist_cuda.HistogramCarry(), None
+            mine = [r for r in block_runs(rows, STREAM_BLOCK_ROWS) if r[0] % 2 == rank]
+            for i, (b, s, t) in enumerate(mine):
+                lo = b * STREAM_BLOCK_ROWS
+                img = hist_cuda.histogram(blocks[b], gh[lo:lo + STREAM_BLOCK_ROWS],
+                                          (rows[s:t] - lo).to(torch.int32), num_bins,
+                                          count=t - s, exponents=exps, carry=carry,
+                                          last=i + 1 == len(mine), image=True)
+            images.append(img)
+        summed = HistImage(images[0].sums + images[1].sums, images[0].flags | images[1].flags)
+        got = image_to_float(summed, exps)
+        one = hist_cuda.histogram(bins, gh, idx, num_bins, count, exps)
+        check(torch.equal(got.view(torch.int32), one.view(torch.int32)),
+              f"carried histogram {name}, two open carries added: differs from one resident "
+              "call")
     idx, count = sets["root"]
     got, n_runs = carried(q, idx, count, None)
     plain_q = _build_histogram_rows_plain(bins_cpu, q.cpu(), idx.cpu(), num_bins, count)
@@ -4946,8 +5006,9 @@ def check_carried_histogram(dev, bins_h, n_rows, num_bins, seed, tag):
         "plain_ms": plain_q_ms, "bound_ms": b_q, "bound_by": by_q, "library_ms": library_q}
     print(f"kernels: histogram_carry over {len(blocks)} blocks of {STREAM_BLOCK_ROWS} rows at "
           f"the root, a {LEAF_ROWS}- and a {SMALL_LEAF_ROWS}-row leaf: bit-equal to one "
-          f"resident call and to the plain fixed-point emulation (max |d| {err}); the "
-          f"integer mode at the root exactly equal")
+          f"resident call and to the plain fixed-point emulation (max |d| {err}); two "
+          f"open carries over alternate blocks, images added and converted once, bit-equal "
+          f"to one resident call (root, leaf); the integer mode at the root exactly equal")
     del bins, blocks, gh, q
     torch.cuda.empty_cache()
     return entries
@@ -5025,12 +5086,13 @@ def drive_stream(lt, libs, X_train, y_train, train_set, serial, seed, tag):
     _stream_env(budget, STREAM_BLOCK_ROWS)
     try:
         bst, launches, steady, first, wall, moved = _stream_run(
-            lt, libs, TRAIN_PARAMS, train_set, SERIAL_ROUNDS, STREAM_SERIAL, "float", tag)
+            lt, libs, TRAIN_PARAMS, train_set, STREAM_ROUNDS, STREAM_SERIAL, "float", tag)
         paths["stream"] = launches
         learner = bst._gbdt.tree_learner
         cache = learner._cache
-        check(bst.model_to_string() == serial["booster"].model_to_string(),
-              "stream: the streamed model text differs from phase 9's resident serial model")
+        check(first_trees(bst.model_to_string(), STREAM_ROUNDS)
+              == first_trees(serial["booster"].model_to_string(), STREAM_ROUNDS),
+              "stream: the streamed model's trees differ from phase 9's resident serial model's")
         check(cache.capacity == STREAM_BUDGET_BLOCKS and cache.peak <= cache.capacity,
               f"stream: the cache held {cache.peak} blocks under a budget of {cache.capacity}")
         h2d_s = learner.h2d_seconds()
@@ -5043,9 +5105,9 @@ def drive_stream(lt, libs, X_train, y_train, train_set, serial, seed, tag):
         s9 = serial["per_iter"]
         print(f"{tag} stream train (serial lane, budget {budget} B = {STREAM_BUDGET_BLOCKS} "
               f"blocks of {block_bytes} B, plane {core.bins.nbytes} B in {cache.n_blocks} "
-              f"blocks): {SERIAL_ROUNDS} rounds in {wall:.2f} s; s/iteration first {first:.3f}, "
+              f"blocks): {STREAM_ROUNDS} rounds in {wall:.2f} s; s/iteration first {first:.3f}, "
               f"mean of the rest {steady:.3f} (phase 9 resident: first {s9[0]:.3f}, rest "
-              f"{float(np.mean(s9[1:])):.3f}); model text byte-equal to phase 9's; the plane "
+              f"{float(np.mean(s9[1:])):.3f}); its trees byte-equal to phase 9's first; the plane "
               f"pinned in {cache.pin_s:.3f} s")
         print(f"{tag} stream uploads: {uploads} blocks ({moved.get('stream_h2d_cold', 0)} cold, "
               f"{moved.get('stream_h2d_prefetched', 0)} prefetched, "
@@ -5055,7 +5117,7 @@ def drive_stream(lt, libs, X_train, y_train, train_set, serial, seed, tag):
               f"({h2d_bytes / max(h2d_s, 1e-9) / 1e9:.2f} GB/s); cache peak {cache.peak} of "
               f"{cache.capacity} blocks; leaf histograms "
               f"{moved.get('stream_leaf_histograms', 0)}, carried-mode launches "
-              f"{launches['histogram_carry']} ({launches['histogram_carry'] / SERIAL_ROUNDS:.1f} "
+              f"{launches['histogram_carry']} ({launches['histogram_carry'] / STREAM_ROUNDS:.1f} "
               f"a tree)")
         _busy(bst, tag, "stream (serial lane)")
         del bst, learner, cache
@@ -5069,6 +5131,7 @@ def drive_stream(lt, libs, X_train, y_train, train_set, serial, seed, tag):
         paths["stream_quantized"] = launches_q
         check(bst_q.model_to_string() == resident_q.model_to_string(),
               "stream (quantized): the model text differs from the resident serial learner's")
+        PHASE_MODELS["stream_quantized"] = bst_q.model_to_string()
         print(f"{tag} stream train (quantized, serial lane): {STREAM_QUANT_ROUNDS} rounds, "
               f"s/iteration first {first_q:.3f}, rest {steady_q:.3f}; model text byte-equal to "
               f"the resident serial learner's; carried integer-mode launches "
@@ -5374,16 +5437,24 @@ GANG_VOTE_TOP_K = 5  # the narrow voting run: 2 * 5 = 10 of the 28 features elec
 GANG_VOTE_AUC_MARGIN = 0.001  # its valid AUC against the exact run's (JAX test_voting_learner.py:241)
 GANG_SHARD_ROWS = 65_536  # pred_shard_rows of the row-sharded predict of the 1M rows
 GANG_SERVE_ROWS, GANG_SERVE_SHARD = 32_768, 4_096  # the service's request and shard_rows
-GANG_CLI_ROWS, GANG_CLI_ROUNDS = 65_536, 3  # the CLI's text file and rounds
+GANG_CLI_ROWS, GANG_CLI_ROUNDS = 65_536, 5  # the CLI's text file and rounds
 GANG_TIMEOUT_S = 400  # the gang is reaped (and the phase fails) past this
+# the host-driven data learner's rounds, held to phase 9's first trees (10,
+# phase 9's, until phase 22 came)
+GANG_HOST_ROUNDS = 4
 GANG_RUNS = (  # (label, tree_learner, params, rounds)
     ("data", "data", "WAVE", "TRAIN"),
     ("feature", "feature", "WAVE", "TRAIN"),
     ("voting", "voting", "WAVE", "TRAIN"),
     ("voting_narrow", "voting", "WAVE", "HALF"),
-    ("data_host", "data", "SERIAL", "SERIAL"),
+    ("data_host", "data", "SERIAL", "HOST"),
     ("data_quantized", "data", "QUANT", "TRAIN"),
+    # phase 22 (d): the data run again with the elastic runtime's heartbeat
+    # every iteration and the sanitizer's collective-order check at each
+    ("data_sanitized", "data", "WAVE", "HALF"),
 )
+# the runs with the elastic heartbeat and the sanitizer, which phase 22 (d) reports
+GANG_PHASE22 = ("data_sanitized",)
 GANG_REQUIRED = {
     "wave": ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide",
              "partition_scan", "partition_scatter", "relabel_rows", "split_scan_batched",
@@ -5413,6 +5484,12 @@ def _gang_cli_args(tsv, out):
 
 def trees_of(text):
     return text.split("end of trees")[0]
+
+
+def first_trees(text, n):
+    """The first n `Tree=` blocks of a model text (a run of fewer rounds is
+    held to the first trees of a longer one)."""
+    return "".join("Tree=" + b for b in trees_of(text).split("Tree=")[1:n + 1])
 
 
 def same_model(a, b):
@@ -5446,8 +5523,9 @@ def gang_worker(out_dir, seed):
     from lightgbm_tpu_torch import cli
     from lightgbm_tpu_torch.ops import (compact_cuda, hist_cuda, partition_cuda, predict_cuda,
                                         quantize_cuda, scan_cuda, wave_cuda)
-    from lightgbm_tpu_torch.parallel import dist
+    from lightgbm_tpu_torch.parallel import dist, elastic
     from lightgbm_tpu_torch.serving import PredictionService
+    from lightgbm_tpu_torch.utils import sanitize
     from lightgbm_tpu_torch.utils.timer import global_timer
 
     libs = (predict_cuda, hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB,
@@ -5465,19 +5543,29 @@ def gang_worker(out_dir, seed):
     res["setup_s"] = time.perf_counter() - t0
     for label, learner, which, rounds_key in GANG_RUNS:
         params = _gang_params(which, learner, label)
-        rounds = {"TRAIN": TRAIN_ROUNDS, "SERIAL": SERIAL_ROUNDS,
+        rounds = {"TRAIN": TRAIN_ROUNDS, "HOST": GANG_HOST_ROUNDS,
                   "HALF": TRAIN_ROUNDS // 2}[rounds_key]
         for lib in libs:
             lib.reset_launches()
         global_timer.reset()
         global_timer.enabled = True
         stamps, evals = [], {}
+        if label in GANG_PHASE22:
+            elastic.install(timeout_s=None, heartbeat_every=1)
+            sanitize.enable("cuda")
+            sanitize.reset()
         t = time.perf_counter()
-        bst = lt.train(dict(params), train_set, num_boost_round=rounds,
-                       valid_sets=[train_set.create_valid(Xv, label=yv)], valid_names=["valid"],
-                       callbacks=[lambda env: stamps.append(time.perf_counter()),
-                                  lt.record_evaluation(evals)])
-        torch.cuda.synchronize()
+        try:
+            bst = lt.train(dict(params), train_set, num_boost_round=rounds,
+                           valid_sets=[train_set.create_valid(Xv, label=yv)],
+                           valid_names=["valid"],
+                           callbacks=[lambda env: stamps.append(time.perf_counter()),
+                                      lt.record_evaluation(evals)])
+            torch.cuda.synchronize()
+        finally:
+            elastic.clear()
+            sanitize.disable()
+            sanitize.clear_override()
         wall = time.perf_counter() - t
         global_timer.enabled = False
         per_iter = np.diff([t] + stamps)
@@ -5496,7 +5584,9 @@ def gang_worker(out_dir, seed):
             "wave_wire_bytes": c.get("wave_wire_bytes", 0),
             "wave_wire_waves": c.get("wave_wire_waves", 0),
             "model_wire": c.get("wave_wire_model_bytes", 0),
-            "waves": c.get("device_waves", 0)}
+            "waves": c.get("device_waves", 0),
+            "heartbeats": c.get("elastic_heartbeats", 0),
+            "order_checks": c.get("collective_order_checks", 0)}
         if label == "data":
             booster = bst
         del bst
@@ -5526,10 +5616,57 @@ def gang_worker(out_dir, seed):
     out = os.path.join(out_dir, "cli_gang.txt")
     rc = cli.run(_gang_cli_args(os.path.join(out_dir, "cli.tsv"), out))
     res["cli_rc"] = int(rc)
+    res["stream"] = gang_stream(lt, libs, train_set)
     with open(os.path.join(out_dir, f"rank{world.rank}.json"), "w") as fh:
         json.dump(res, fh)
     dist.shutdown()
     return 0
+
+
+def gang_stream(lt, libs, train_set):
+    """Phase 22 (e), on a rank of phase 21's gang: phase 20's streamed runs
+    (16 blocks of 65,536 rows, a 4-block budget a rank) with
+    tree_learner=data, float and quantized, through the gang-sharded
+    streamed learner; each run's model (rank 0), launches, the blocks this
+    rank uploaded, its stream counters and s/iteration."""
+    from lightgbm_tpu_torch.streaming import ShardedStreamedTreeLearner
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    core = train_set._handle
+    block_bytes = perfmodel.stream_block_bytes(STREAM_BLOCK_ROWS, core.bins.shape[0],
+                                               core.bins.dtype.itemsize)
+    out = {}
+    _stream_env(STREAM_BUDGET_BLOCKS * block_bytes, STREAM_BLOCK_ROWS)
+    try:
+        for label, params, rounds in (
+                ("float", TRAIN_PARAMS, STREAM_GANG_ROUNDS),
+                ("quantized", {**TRAIN_PARAMS, **QUANT_PARAMS}, STREAM_QUANT_ROUNDS)):
+            for lib in libs:
+                lib.reset_launches()
+            global_timer.reset()
+            global_timer.enabled = True
+            bst, steady, first, wall, _ = _timed_run(lt, {**params, "tree_learner": "data"},
+                                                     train_set, None, rounds)
+            torch.cuda.synchronize()
+            global_timer.enabled = False
+            learner = bst._gbdt.tree_learner
+            c = global_timer.counters
+            out[label] = {
+                "learner": type(learner).__name__,
+                "sharded": isinstance(learner, ShardedStreamedTreeLearner),
+                "model": bst.model_to_string() if learner.world.rank == 0 else "",
+                "launches": {k: int(v) for k, v in _counts(libs).items() if v},
+                "uploaded": sorted(int(b) for b in learner._cache.uploaded),
+                "owned": list(learner._cache.owned), "n_blocks": learner._cache.n_blocks,
+                "groups": len(learner.dataset.groups), "bins": learner.group_bin_padded,
+                "steady": steady, "first": first, "wall": wall,
+                "counters": {k: int(v) for k, v in c.items()
+                             if k.startswith("stream_") or k.startswith("collective")}}
+            del bst, learner
+            torch.cuda.empty_cache()
+    finally:
+        _stream_env(None)
+    return out
 
 
 def drive_distributed(lt, wave, serial, X_train, y_train, seed, tag):
@@ -5604,8 +5741,10 @@ def drive_distributed(lt, wave, serial, X_train, y_train, seed, tag):
           f"{max(r['setup_s'] for r in ranks):.1f} s a rank")
     ref_text = {"data": PHASE_MODELS["wave"], "feature": PHASE_MODELS["wave"],
                 "voting": PHASE_MODELS["wave"], "data_host": PHASE_MODELS["serial"],
-                "data_quantized": PHASE_MODELS["quantized"]}
-    want_kind = {"data": "DeviceDataParallelTreeLearner",
+                "data_quantized": PHASE_MODELS["quantized"],
+                "data_sanitized": PHASE_MODELS["wave"]}
+    want_kind = {"data_sanitized": "DeviceDataParallelTreeLearner",
+                 "data": "DeviceDataParallelTreeLearner",
                  "feature": "DeviceFeatureParallelTreeLearner",
                  "voting": "VotingDataParallelTreeLearner",
                  "voting_narrow": "VotingDataParallelTreeLearner",
@@ -5617,7 +5756,9 @@ def drive_distributed(lt, wave, serial, X_train, y_train, seed, tag):
         check(all(r["runs"][label]["learner"] == want_kind[label] for r in ranks),
               f"phase 21 ({label}): grown by {run['learner']}, not {want_kind[label]}")
         if label in ref_text:
-            ok, what = same_model(run["model"], ref_text[label])
+            n_run = run["model"].count("Tree=")
+            ok, what = same_model(first_trees(run["model"], n_run),
+                                  first_trees(ref_text[label], n_run))
             phase = {"data_host": 9, "data_quantized": 12}.get(label, 8)
             check(ok, f"phase 21 ({label}): the model differs from phase {phase}'s "
                       f"single-card model: {what}")
@@ -5667,6 +5808,8 @@ def drive_distributed(lt, wave, serial, X_train, y_train, seed, tag):
     base = float(np.mean(wave["per_iter"][1:]))
     base_serial = float(np.mean(serial["per_iter"][1:]))
     for label, _, _, _ in GANG_RUNS:
+        if label in GANG_PHASE22:
+            continue  # phase 22 (d) reports them
         runs = [r["runs"][label] for r in ranks]
         steady = float(np.mean(runs[0]["per_iter"][1:]))
         ref = base_serial if label == "data_host" else base
@@ -5693,7 +5836,306 @@ def drive_distributed(lt, wave, serial, X_train, y_train, seed, tag):
           f"AUC {top_n:.5f} against {exact:.5f}; row-sharded predict of {TRAIN_ROWS} rows and "
           f"the shard_rows service bit-equal; launch -n 2 ({t_launch:.1f} s) wrote the "
           f"gang's model; phase {time.perf_counter() - t_phase:.1f} s (gang {t_gang:.1f} s)")
+    return launches, ranks
+
+
+# ------------------------------------------------------------- phase 22
+ELASTIC_COLLECTIVE_TIMEOUT_S = 8  # (b): the watchdog's deadline
+ELASTIC_LIVENESS_S = 30  # (b): the supervisor's liveness deadline, past the watchdog's
+ELASTIC_TIMEOUT_S = 240  # a run of phase 22 is reaped (and the phase fails) past this
+SHRINK_KILL_AT = 2  # (c): rank 1 dies at the start of this iteration
+STREAM_GANG_REQUIRED = {"float": ("histogram_carry", "histogram_image_to_float",
+                                  "find_best_split", "row_partition_decide",
+                                  "row_partition_scatter"),
+                        "quantized": ("histogram_carry_i32", "find_best_split_int",
+                                      "quantize_reduce", "quantize")}
+
+
+def elastic_worker(out_dir, seed):
+    """One rank of phase 22 (c)'s gang (started by `drive_elastic` through
+    GangSupervisor with allow_shrink): phase 8's rows from --seed, quantized
+    data-parallel training at phase 12's settings, rank 0 writing a
+    snapshot every iteration; on a relaunch (a gang attempt past 0) it
+    resumes from rank 0's newest snapshot. LGBM_TPU_FAULT=worker_kill@1:K
+    kills rank 1 of the first attempt. Rank 0 writes the model text and
+    its run's record to out_dir."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.checkpoint import checkpoint_callback
+    from lightgbm_tpu_torch.ops import (compact_cuda, hist_cuda, partition_cuda, quantize_cuda,
+                                        scan_cuda, wave_cuda)
+    from lightgbm_tpu_torch.parallel import dist
+    from lightgbm_tpu_torch.parallel.elastic import latest_snapshot
+
+    libs = (hist_cuda, scan_cuda, compact_cuda.LIB, compact_cuda.WAVE_LIB, partition_cuda.LIB,
+            wave_cuda.LIB, quantize_cuda)
+    t0 = time.perf_counter()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // int(os.environ["WORLD_SIZE"])))
+    dist.init_distributed(lt.Config({"device_type": "cuda"}))
+    world = dist.current_world()
+    attempt = int(os.environ.get("LGBM_TPU_GANG_ATTEMPT", "0"))
+    X, y = higgs_rows(seed + 5, TRAIN_ROWS)
+    train_set = lt.Dataset(X, label=y, params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
+    setup = time.perf_counter() - t0
+    base = os.path.join(out_dir, "shrink.txt")
+    resume = latest_snapshot(base) if attempt > 0 else None
+    cbs = ([checkpoint_callback(lambda it: f"{base}.snapshot_iter_{it}", period=1)]
+           if world.rank == 0 else [])
+    for lib in libs:
+        lib.reset_launches()
+    bst, steady, first, wall, _ = _timed_run(
+        lt, {**WAVE_PARAMS, **QUANT_PARAMS, "tree_learner": "data"}, train_set, None,
+        TRAIN_ROUNDS, callbacks=cbs, init_model=resume)
+    torch.cuda.synchronize()
+    if world.rank == 0:
+        with open(os.path.join(out_dir, f"shrink_attempt{attempt}.json"), "w") as fh:
+            json.dump({"size": world.size, "attempt": attempt, "resumed_from": resume,
+                       "learner": type(bst._gbdt.tree_learner).__name__,
+                       "model": bst.model_to_string(), "setup_s": setup, "steady": steady,
+                       "first": first, "wall": wall,
+                       "launches": {k: int(v) for k, v in _counts(libs).items() if v}}, fh)
+    dist.shutdown()
+    return 0
+
+
+def _launch_elastic(launch, gang_dir, name, tsv, env, extra):
+    """`launch -n 2 --elastic` of phase 21's CLI arguments with snapshots
+    every iteration, `env` set for the launcher and its workers: (exit code,
+    seconds, the model text, the gang_worker_lost flight dumps' extras,
+    the recovery ms)."""
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    out = os.path.join(gang_dir, f"{name}.txt")
+    flight = os.path.join(gang_dir, f"flight_{name}")
+    saved = {k: os.environ.get(k) for k in [*env, "LGBM_TPU_FLIGHT_DIR"]}
+    os.environ.update(env, LGBM_TPU_FLIGHT_DIR=flight)
+    global_timer.counters.pop("gang_recovery_ms", None)
+    t = time.perf_counter()
+    try:
+        rc = launch.main(["-n", "2", "--elastic", "--max-restarts", "1", *extra,
+                          "--gang-dir", os.path.join(gang_dir, f"hb_{name}"), "--",
+                          *_gang_cli_args(tsv, out), "snapshot_freq=1"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t
+    lost = [json.load(open(os.path.join(flight, f)))["extra"] for f in
+            sorted(os.listdir(flight)) if "gang_worker_lost" in f] if os.path.isdir(flight) else []
+    model = open(out).read() if os.path.exists(out) else ""
+    return rc, secs, model, lost, global_timer.counters.get("gang_recovery_ms")
+
+
+def drive_elastic(lt, gang_ranks, seed, tag):
+    """Phase 22: the gang's failure handling. (a) `launch -n 2 --elastic` of
+    phase 21's CLI run with worker_kill@1:3: one restart, the undisturbed
+    model byte for byte, a gang_worker_lost dump naming rank 1; (b) the same
+    with worker_hang@1:3, the collective watchdog's deadline and the
+    supervisor's liveness deadline: the gang reaped (exit 117 or a liveness
+    loss) and the relaunched model byte-equal; (c) `allow_shrink` from 2
+    ranks to 1 on quantized data-parallel at phase 12's settings (rank 1
+    killed at iteration SHRINK_KILL_AT, one rank resuming from rank 0's
+    snapshot), byte-equal to phase 12's single-card model; (d) from phase
+    21's gang: the data run with the heartbeat every iteration and the
+    sanitizer's collective-order check at each, beside the plain data run;
+    (e) from phase 21's gang: phase 20's streamed runs through the
+    gang-sharded streamed learner, byte-equal to phase 20's models, the
+    carried kernel on every rank, no rank uploading a block it does not
+    own, the bytes counted at the collectives equal to perfmodel's. Returns
+    {kernel: launches} over its runs."""
+    t_phase = time.perf_counter()
+    gang_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "chip_smoke_gang")
+    secs_a, secs_b = elastic_relaunch(gang_dir, tag)
+    launches, secs_c = elastic_shrink(gang_dir, seed, tag)
+    elastic_gang_runs(gang_ranks, launches, tag)
+    print(f"{tag} phase 22: {time.perf_counter() - t_phase:.1f} s (a) {secs_a:.1f} s, "
+          f"(b) {secs_b:.1f} s, (c) {secs_c:.1f} s; (d), (e) in phase 21's gang")
     return launches
+
+
+def elastic_relaunch(gang_dir, tag):
+    """Phase 22 (a) and (b), over phase 21's CLI text file and its
+    undisturbed `launch -n 2` model: (seconds of (a), of (b))."""
+    from lightgbm_tpu_torch import launch
+    from lightgbm_tpu_torch.parallel.elastic import EXIT_WORKER_LOST
+
+    tsv = os.path.join(gang_dir, "cli.tsv")
+    undisturbed = open(os.path.join(gang_dir, "cli_launch.txt")).read()
+
+    # ---- (a) a killed worker
+    rc, secs_a, model_a, lost_a, rec_a = _launch_elastic(
+        launch, gang_dir, "killed", tsv, {"LGBM_TPU_FAULT": "worker_kill@1:3"}, [])
+    check(rc == 0, f"phase 22 (a): launch --elastic with worker_kill@1:3 exited {rc}")
+    check(trees_of(model_a) == trees_of(undisturbed),
+          "phase 22 (a): the relaunched gang's model differs from phase 21's launch -n 2 model")
+    check(len(lost_a) == 1 and lost_a[0]["rank"] == 1 and lost_a[0]["exit_code"] == 43,
+          f"phase 22 (a): the gang_worker_lost dumps {lost_a} do not name rank 1's exit 43")
+    print(f"{tag} phase 22 (a) killed worker: launch -n 2 --elastic, worker_kill@1:3 -> rank 1 "
+          f"exit 43, gang reaped and relaunched once from rank 0's snapshot; gang_recovery_ms "
+          f"{rec_a}; model byte-equal to phase 21's undisturbed launch -n 2 model; {secs_a:.1f} s")
+
+    # ---- (b) a hung worker
+    rc, secs_b, model_b, lost_b, rec_b = _launch_elastic(
+        launch, gang_dir, "hung", tsv,
+        {"LGBM_TPU_FAULT": "worker_hang@1:3",
+         "LGBM_TPU_COLLECTIVE_TIMEOUT_S": str(ELASTIC_COLLECTIVE_TIMEOUT_S)},
+        ["--liveness-timeout", str(ELASTIC_LIVENESS_S)])
+    check(rc == 0, f"phase 22 (b): launch --elastic with worker_hang@1:3 exited {rc}")
+    check(trees_of(model_b) == trees_of(undisturbed),
+          "phase 22 (b): the relaunched gang's model differs from phase 21's launch -n 2 model")
+    check(len(lost_b) == 1 and (lost_b[0]["exit_code"] == EXIT_WORKER_LOST
+                                or lost_b[0]["why"] == "liveness"),
+          f"phase 22 (b): the hung gang was not reaped by exit {EXIT_WORKER_LOST} or a "
+          f"liveness loss: {lost_b}")
+    how = (f"rank {lost_b[0]['rank']} exit {lost_b[0]['exit_code']}"
+           if lost_b[0]["why"] == "exit" else f"rank {lost_b[0]['rank']}'s liveness file stale")
+    print(f"{tag} phase 22 (b) hung worker: worker_hang@1:3, collective timeout "
+          f"{ELASTIC_COLLECTIVE_TIMEOUT_S} s, liveness {ELASTIC_LIVENESS_S} s -> reaped by {how}; "
+          f"gang_recovery_ms {rec_b}; model byte-equal; {secs_b:.1f} s")
+    return secs_a, secs_b
+
+
+def elastic_shrink(gang_dir, seed, tag):
+    """Phase 22 (c): ({kernel: launches} of the resumed run, seconds)."""
+    import subprocess
+
+    from lightgbm_tpu_torch import launch
+    from lightgbm_tpu_torch.parallel.elastic import GangSupervisor, worker_env
+
+    launches = collections.defaultdict(int)
+
+    # ---- (c) shrink 2 -> 1, quantized data-parallel
+    shrink_dir = os.path.join(gang_dir, "shrink")
+    os.makedirs(shrink_dir, exist_ok=True)
+    for name in os.listdir(shrink_dir):
+        os.unlink(os.path.join(shrink_dir, name))
+    ports = {}
+    procs = []
+
+    def spawn(world, rank, attempt):
+        port = ports.setdefault(attempt, launch.free_port())
+        env = worker_env(port=port, world=world, rank=rank, attempt=attempt,
+                         gang_dir=os.path.join(shrink_dir, "hb"), elastic=True)
+        env["LGBM_TPU_FAULT"] = f"worker_kill@1:{SHRINK_KILL_AT}"
+        log = open(os.path.join(shrink_dir, f"attempt{attempt}_rank{rank}.log"), "w")
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--elastic-worker",
+                              shrink_dir, "--seed", str(seed)], env=env, stdout=log,
+                             stderr=subprocess.STDOUT)
+        procs.append(p)
+        return p
+
+    def reap():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+    timer = threading.Timer(ELASTIC_TIMEOUT_S, reap)
+    timer.start()
+    t = time.perf_counter()
+    try:
+        sup = GangSupervisor(spawn, 2, elastic=True, max_restarts=1, allow_shrink=True)
+        rc = sup.run()
+    finally:
+        timer.cancel()
+    secs_c = time.perf_counter() - t
+    if rc != 0:
+        for name in sorted(os.listdir(shrink_dir)):
+            if name.endswith(".log"):
+                print(f"phase 22 (c): {name} (last 2,000 bytes):\n"
+                      + open(os.path.join(shrink_dir, name)).read()[-2000:])
+    check(rc == 0 and sup.worlds == [2, 1],
+          f"phase 22 (c): the shrinking gang exited {rc} over worlds {sup.worlds}")
+    shrunk = json.load(open(os.path.join(shrink_dir, "shrink_attempt1.json")))
+    # rank 0 may be reaped while it writes the newest snapshot: the relaunch
+    # resumes from the newest whole one
+    check(shrunk["size"] == 1 and shrunk["resumed_from"] is not None,
+          f"phase 22 (c): the relaunch ran on {shrunk['size']} rank(s) from "
+          f"{shrunk['resumed_from']}")
+    check(trees_of(shrunk["model"]) == trees_of(PHASE_MODELS["quantized"]),
+          "phase 22 (c): the model resumed on 1 rank differs from phase 12's single-card model")
+    for name in ("histogram_slots_ragged_i32", "split_scan_batched", "quantize"):
+        check(shrunk["launches"].get(name, 0) > 0,
+              f"phase 22 (c): kernel {name} never launched in the resumed run")
+    for k, v in shrunk["launches"].items():
+        launches[k] += v
+    print(f"{tag} phase 22 (c) shrink: 2 ranks, rank 1 killed at iteration {SHRINK_KILL_AT}, "
+          f"relaunched on 1 ({shrunk['learner']}) from {os.path.basename(shrunk['resumed_from'])}"
+          f"; model byte-equal to phase 12's single-card model; gang_recovery_ms "
+          f"{sup.last_recovery_ms:.0f}; the resumed rank's data {shrunk['setup_s']:.1f} s, "
+          f"s/iteration {shrunk['steady']:.4f}; {secs_c:.1f} s")
+    return launches, secs_c
+
+
+def elastic_gang_runs(gang_ranks, launches, tag):
+    """Phase 22 (d) and (e), run by phase 21's gang: their checks and
+    report; (e)'s launches are added to `launches`."""
+    n = len(gang_ranks)
+    count = torch.cuda.device_count()
+
+    # ---- (d) the heartbeat and the collective-order check, from phase 21's gang
+    plain = [r["runs"]["data"] for r in gang_ranks]
+    sn = [r["runs"]["data_sanitized"] for r in gang_ranks]
+    rounds = len(sn[0]["per_iter"])
+    check(all(h["heartbeats"] == rounds for h in sn),
+          f"phase 22 (d): heartbeats {[h['heartbeats'] for h in sn]}, not one an iteration")
+    check(all(h["order_checks"] == rounds for h in sn),
+          f"phase 22 (d): collective-order checks {[h['order_checks'] for h in sn]} of "
+          f"{rounds} heartbeats")
+    check(all(q["heartbeats"] == 0 for q in plain),
+          "phase 22 (d): the run without the elastic runtime counted heartbeats")
+    off = float(np.mean(plain[0]["per_iter"][1:rounds]))
+    checked = float(np.mean(sn[0]["per_iter"][1:]))
+    print(f"{tag} phase 22 (d) heartbeat ({n} ranks over {gang_ranks[0]['backend']}, {count} "
+          f"card(s)): data-parallel s/iteration of rounds 2-{rounds}, one run each: phase 21's "
+          f"data run {off:.4f}, with the heartbeat and the collective-order check every "
+          f"iteration {checked:.4f} (the runs' spread is larger than the heartbeat's one "
+          f"4-byte all-reduce: no cost is resolved here); {sn[0]['order_checks']} checks "
+          f"passed a rank; models equal to phase 8's first {rounds} trees")
+    for label in GANG_PHASE22:
+        print(f"phase 22 (d, {label}) launches over the ranks: " + ", ".join(
+            f"{k} {sum(r['runs'][label]['launches'].get(k, 0) for r in gang_ranks)}"
+            for k in sorted(gang_ranks[0]["runs"][label]["launches"])))
+
+    # ---- (e) the gang-sharded streamed learner, from phase 21's gang
+    refs = {"float": PHASE_MODELS["serial"], "quantized": PHASE_MODELS["stream_quantized"]}
+    for label in ("float", "quantized"):
+        runs = [r["stream"][label] for r in gang_ranks]
+        r0 = runs[0]
+        check(all(ru["sharded"] for ru in runs),
+              f"phase 22 (e, {label}): grown by {r0['learner']}, not the sharded streamed one")
+        n_trees = r0["model"].count("Tree=")
+        check(first_trees(r0["model"], n_trees) == first_trees(refs[label], n_trees),
+              f"phase 22 (e, {label}): the sharded streamed model differs from phase 20's "
+              f"single-card streamed model")
+        for rank, ru in enumerate(runs):
+            for name in STREAM_GANG_REQUIRED[label]:
+                check(ru["launches"].get(name, 0) > 0,
+                      f"phase 22 (e, {label}): kernel {name} never launched on rank {rank}")
+            check(all(b % n == rank for b in ru["uploaded"]) and ru["uploaded"],
+                  f"phase 22 (e, {label}): rank {rank} uploaded blocks {ru['uploaded']}, "
+                  f"not only its own")
+            c = ru["counters"]
+            vb = 4 if label == "quantized" else 8
+            want = perfmodel.stream_ici_bytes_per_wave(ru["groups"], ru["bins"], 3, vb)
+            check(c.get("stream_ici_bytes_per_wave") == want
+                  and c.get("stream_ici_bytes") == want * c.get("stream_leaf_histograms", -1),
+                  f"phase 22 (e, {label}): rank {rank} counted {c.get('stream_ici_bytes')} B at "
+                  f"the collectives for {c.get('stream_leaf_histograms')} leaf histograms, "
+                  f"perfmodel {want} B each")
+            for k, v in ru["launches"].items():
+                launches[k] += v
+        print(f"{tag} phase 22 (e, {label}): the sharded streamed learner on {n} ranks, "
+              f"{r0['n_blocks']} blocks, each rank caching its own under phase 20's "
+              f"{STREAM_BUDGET_BLOCKS}-block budget; s/iteration first {r0['first']:.3f}, rest "
+              f"{r0['steady']:.3f}; uploads a rank "
+              + ", ".join(f"{ru['counters'].get('stream_h2d_blocks', 0)} blocks + "
+                          f"{ru['counters'].get('stream_h2d_rows', 0)} group rows"
+                          for ru in runs)
+              + f"; wire {r0['counters'].get('stream_ici_bytes_per_wave')} B a leaf histogram "
+              f"(perfmodel), {r0['counters'].get('stream_leaf_histograms')} histograms; "
+              f"{n_trees} trees byte-equal to phase 20's")
 
 
 def profile_other(checkout: str, seed: int) -> int:
@@ -5798,6 +6240,9 @@ def main() -> int:
     ap.add_argument("--gang-worker", metavar="DIR",
                     help="run as one rank of phase 21's gang, writing to DIR (started by "
                          "phase 21 itself)")
+    ap.add_argument("--elastic-worker", metavar="DIR",
+                    help="run as one rank of phase 22's shrinking gang, writing to DIR "
+                         "(started by phase 22 itself)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -5811,6 +6256,8 @@ def main() -> int:
         return wave_rounds_of(args.wave_rounds_of, args.seed)
     if args.gang_worker:
         return gang_worker(args.gang_worker, args.seed)
+    if args.elastic_worker:
+        return elastic_worker(args.elastic_worker, args.seed)
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
@@ -6530,11 +6977,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------- phase 21: the distributed learners
-    gang_launches = collections.defaultdict(
-        int, drive_distributed(lt, wave, serial, X_train, y_train, args.seed, tag))
+    gang_launches, gang_ranks = drive_distributed(lt, wave, serial, X_train, y_train,
+                                                  args.seed, tag)
+    gang_launches = collections.defaultdict(int, gang_launches)
+
+    # ------------------------------- phase 22: the gang's failure handling
+    elastic_launches = drive_elastic(lt, gang_ranks, args.seed, tag)
     paths = (wave["launches"], serial["launches"], mc_launches, async_launches, q_launches,
              goss_launches, cat_launches, lane_launches, life_launches, rank_launches,
-             obs_launches, facade_launches, *stream_paths.values(), gang_launches)
+             obs_launches, facade_launches, *stream_paths.values(), gang_launches,
+             elastic_launches)
 
     def launches(name):
         return serve_launches.get(name, 0) + sum(p[name] for p in paths)
@@ -6750,7 +7202,10 @@ def main() -> int:
          "ms": t_lin["ms"], "plain_ms": t_lin["plain"], "bound_ms": b_lin[0],
          "bound_by": b_lin[1], "library_ms": None})
     # phase 20: row 5's kernel carried across the blocks of a streamed plane;
-    # its launches are the streamed runs' (float, and integer)
+    # its launches are the streamed runs' (float, and integer), phase 22's
+    # gang-sharded ones (each rank's carry left open) among them
+    for entry in carry_entries:
+        entry["launches"] += elastic_launches.get(entry["name"], 0)
     kernels.extend(carry_entries)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,7 @@ same command, and rank 0 writes the model:
 """
 from __future__ import annotations
 
+import os
 import sys
 from typing import Dict, List
 
@@ -199,7 +200,17 @@ def _task_convert(config: Config) -> int:
 
 
 def main() -> None:
-    rc = run(sys.argv[1:])
+    from .parallel.elastic import EXIT_WORKER_LOST, WorkerLostError
+
+    try:
+        rc = run(sys.argv[1:])
+    except WorkerLostError as exc:
+        # the watchdog declared the gang lost: exit with the lost-worker
+        # code for the supervisor, leaving the broken process group as it is
+        Log.warning("%s; exiting %d", exc, EXIT_WORKER_LOST)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(EXIT_WORKER_LOST)
     dist.shutdown()  # leave the gang, if one was joined
     sys.exit(rc)
 

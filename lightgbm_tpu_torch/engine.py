@@ -89,6 +89,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
         tracing.dump_flight("train_exception")
         raise
     finally:
+        # the beats end legitimately: the collective watchdog must not turn
+        # the silence after training into a worker loss
+        from .parallel import elastic
+
+        elastic.notify_train_end()
         if own_tel is not None:
             telemetry.stop()
 

@@ -24,8 +24,9 @@ through a `HealthMonitor`:
 
 Each check is a ``health_check`` telemetry event and a rollback a
 ``health_rollback`` event, a flight-recorder note and a flight dump. The
-elastic heartbeat that rides the JAX monitor's check waits for the
-distributed learners (ROADMAP Queue 1 item 8).
+elastic heartbeat (parallel/elastic.py) rides the check: its one-element
+all-reduce runs after the check's one scalar read, so it adds no host
+read of its own.
 
 `first_nonfinite_column` is the serving boundary's use of the same check.
 """
@@ -134,6 +135,11 @@ class HealthMonitor:
             self._since_check = 0
             telemetry.emit("health_check", healthy=healthy, policy=self.policy,
                            iteration=int(gbdt.iter_))
+            from .parallel import elastic
+
+            rt = elastic.active()
+            if rt is not None:
+                rt.heartbeat_sync(int(gbdt.iter_))
             if not healthy:
                 grads, hesses = self._handle(gbdt, grads, hesses)
             elif self.policy == "rollback":

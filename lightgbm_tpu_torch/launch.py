@@ -12,7 +12,14 @@ them over gloo (dist.pick_backend). For several hosts run the CLI once a
 host with that environment, or a machine-list conf, instead.
 
 The gang is supervised (parallel/elastic.py:GangSupervisor): the moment
-one worker exits nonzero, every sibling is reaped. With ``--elastic`` the
+one worker exits nonzero, or, with ``--liveness-timeout``, its liveness
+file ``<gang dir>/hb_<rank>`` goes that many seconds stale, every sibling
+is reaped. Each worker is told it runs in a gang (LGBM_TPU_GANG, its
+attempt number, the gang directory: a fresh temporary one unless
+``--gang-dir`` names one), so its collective watchdog hard-exits (117) out
+of a dead collective and an injected ``worker_kill`` exits 43. A worker
+writes its liveness file while its elastic runtime is on (``--elastic``,
+or LGBM_TPU_COLLECTIVE_TIMEOUT_S in its environment). With ``--elastic`` the
 launcher relaunches the gang up to ``--max-restarts`` times, with
 ``input_model=`` the newest valid ``output_model.snapshot_iter_<k>`` (arm
 ``snapshot_freq`` for that; rank 0 writes them), at the same world size,
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import socket
+import tempfile
 import subprocess
 import sys
 from typing import List, Optional
@@ -60,11 +68,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="elastic relaunch budget (default 2)")
     parser.add_argument("--allow-shrink", action="store_true",
                         help="elastic restarts drop to one rank fewer")
+    parser.add_argument("--liveness-timeout", type=float, default=0.0,
+                        help="reap the gang when a worker's liveness file goes stale this "
+                             "many seconds (0 = off)")
+    parser.add_argument("--gang-dir", default=None,
+                        help="directory for the ranks' liveness files (default: a fresh "
+                             "temporary one)")
     parser.add_argument("cli_args", nargs=argparse.REMAINDER,
                         help="arguments for lightgbm_tpu_torch.cli (after --)")
     args = parser.parse_args(argv)
     cli_args = [a for a in args.cli_args if a != "--"]
     out_model = _output_model(cli_args)
+    gang_dir = args.gang_dir or tempfile.mkdtemp(prefix="lgbm_gang_")
     attempts = {}
 
     def attempt_args(attempt: int):
@@ -86,12 +101,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def spawn(world: int, rank: int, attempt: int) -> subprocess.Popen:
         port, aargs = attempt_args(attempt)
-        env = worker_env(port=port, world=world, rank=rank)
+        env = worker_env(port=port, world=world, rank=rank, attempt=attempt,
+                         gang_dir=gang_dir, elastic=args.elastic)
         return subprocess.Popen([sys.executable, "-m", "lightgbm_tpu_torch.cli", *aargs],
                                 env=env)
 
     return GangSupervisor(spawn, args.nproc, elastic=args.elastic,
-                          max_restarts=args.max_restarts, allow_shrink=args.allow_shrink).run()
+                          max_restarts=args.max_restarts, allow_shrink=args.allow_shrink,
+                          liveness_timeout_s=args.liveness_timeout, gang_dir=gang_dir).run()
 
 
 if __name__ == "__main__":

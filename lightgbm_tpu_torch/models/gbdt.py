@@ -54,6 +54,7 @@ from ..ops.predict import (PredictorCache, pack_ensemble, predict_leaf_indices,
                            predict_raw, predict_raw_early_stop, predict_raw_streamed,
                            stream_chunk_rows, to_device_rows)
 from ..ops.score import add_tree_to_score, apply_split_log_to_score
+from ..parallel import elastic
 from ..treelearner.serial import _leaf_output_host, create_tree_learner
 from ..utils import faults
 from ..utils.log import Log
@@ -290,7 +291,15 @@ class GBDT:
                        hessians: Optional[np.ndarray] = None) -> bool:
         """Returns True when training should STOP (no more valid splits) —
         matching LGBM_BoosterUpdateOneIter's is_finished flag."""
+        rt = elastic.active()
+        if rt is not None:
+            # the beat precedes the fault hooks: a rank enters the iteration
+            # alive and blocks inside it, so the last good count the watchdog
+            # reports is the finished iterations (the snapshot a restarted
+            # gang resumes from)
+            rt.on_iteration_start(self.iter_, piggyback=self._health is not None)
         faults.check_kill(self.iter_)
+        faults.check_distributed(self.iter_)
         if self._async_stub_stop:
             return self._stop_for_no_split()
         C = self.num_tree_per_iteration

@@ -178,9 +178,13 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
     With `image` (float gh, `exponents` required), the float mode's image,
     unconverted: a `HistImage` of the [G, num_bins, CH] int64 fixed-point
     sums and int32 flag words, which processes add exactly and
-    `image_to_float` converts; on the CPU its plain version."""
+    `image_to_float` converts; on the CPU its plain version. With `carry`
+    too, every call leaves the carry open (the gang-sharded streamed
+    learner's rank sums its own blocks so) and the last returns the image;
+    the integer mode's image is its int32 output."""
     if carry is not None:
-        return _histogram_carried(bins, gh, row_idx, num_bins, count, exponents, carry, last)
+        return _histogram_carried(bins, gh, row_idx, num_bins, count, exponents, carry, last,
+                                  image)
     if image:
         return _histogram_image(bins, gh, row_idx, num_bins, count, exponents)
     if bins.device.type == "cpu":
@@ -211,7 +215,7 @@ def histogram(bins: torch.Tensor, gh: torch.Tensor, row_idx: Optional[torch.Tens
 def _histogram_carried(bins: torch.Tensor, gh: torch.Tensor, row_idx: torch.Tensor,
                        num_bins: int, count: Optional[int],
                        exponents: Optional[torch.Tensor], carry: HistogramCarry,
-                       last: bool) -> torch.Tensor:
+                       last: bool, image: bool = False):
     """`histogram`'s carried mode (see there)."""
     if row_idx is None:
         raise ValueError("the carried histogram takes block-local row indices")
@@ -231,7 +235,7 @@ def _histogram_carried(bins: torch.Tensor, gh: torch.Tensor, row_idx: torch.Tens
         if first:
             carry.out = torch.zeros(shape, dtype=_acc_dtype(gh))
         _build_histogram_rows_plain(bins, gh, row_idx, num_bins, count, out=carry.out)
-        return carry.out
+        return HistImage(carry.out) if image else carry.out
     require_cuda(bins, "the histogram")
     n_pos, _ = _check_rows(bins, gh, row_idx, num_bins, count, exponents)
     if n_pos == 0 or G == 0:
@@ -241,11 +245,16 @@ def _histogram_carried(bins: torch.Tensor, gh: torch.Tensor, row_idx: torch.Tens
         carry.out = torch.empty(shape, dtype=torch.int32 if quantized else torch.float32,
                                 device=dev)
         carry.image = carry.out if quantized else _fixed_scratch(G * num_bins * CH, dev)
-    mode = (0 if first else CARRY_KEEP) | (0 if last else CARRY_OPEN)
+    mode = (0 if first else CARRY_KEEP) | (0 if last and not image else CARRY_OPEN)
     err = _launch_rows(bins, gh, row_idx, num_bins, n_pos, exponents, carry.image, carry.out,
                        mode)
     LIB.count("histogram_carry_i32" if quantized else "histogram_carry", err)
-    return carry.out
+    if not image:
+        return carry.out
+    if quantized:
+        return HistImage(carry.out)
+    cells = G * num_bins * CH
+    return _image_views(carry.image, cells, shape)
 
 
 def _image_views(scratch: torch.Tensor, cells: int, shape) -> HistImage:

@@ -114,7 +114,7 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
                          row_idx: torch.Tensor, num_bins: int,
                          count: Optional[int] = None,
                          exponents: Optional[torch.Tensor] = None,
-                         carry=None, last: bool = True) -> torch.Tensor:
+                         carry=None, last: bool = True, image: bool = False):
     """Leaf histogram over a padded row-index set.
 
     bins:    [G, N] full bin plane
@@ -129,6 +129,8 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
     carry, last: a `hist_cuda.HistogramCarry` to sum the leaf over the
              blocks of a streamed plane, and whether this is its last block
              (`hist_cuda.histogram`'s carried mode)
+    image:   with `carry`, leave the carry open and return its `HistImage`
+             (the sum a rank adds to the other ranks')
     Returns [G, num_bins, CH] float32 (int32 for int8 gh).
     """
     from .hist_cuda import histogram
@@ -136,7 +138,8 @@ def build_histogram_rows(bins: torch.Tensor, gh_ext: torch.Tensor,
     if telemetry.enabled():
         perfmodel.note_dispatch("histogram", histogram, bins, gh_ext, row_idx,
                                 num_bins=num_bins, count=count)
-    return histogram(bins, gh_ext, row_idx, num_bins, count, exponents, carry, last)
+    return histogram(bins, gh_ext, row_idx, num_bins, count, exponents, carry, last,
+                     image=image)
 
 
 def _ragged_cells(bins: torch.Tensor, slot: torch.Tensor, starts: torch.Tensor,

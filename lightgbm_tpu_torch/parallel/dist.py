@@ -29,7 +29,8 @@ Each call adds its payload's bytes (what this rank hands the collective)
 to the ``collective_bytes`` counter and its host microseconds to
 ``collective_us``; in a measured run (the global timer enabled) a
 collective on a card waits for the card before and after, so those are its
-own.
+own. While the sanitizer is on, each collective over a gang is recorded
+for its collective-order check (utils/sanitize.py:note_collective).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import sanitize
 from ..utils.log import Log
 from ..utils.timer import global_timer
 from .mesh import World
@@ -228,11 +230,21 @@ def _note(nbytes: int, t0: float) -> None:
 _OPS = {"sum": "SUM", "max": "MAX"}
 
 
+def _record(op: str, world: World) -> None:
+    if sanitize.enabled():
+        sanitize.note_collective(op, world.size)
+
+
 def all_reduce(world: World, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """The elementwise SUM or MAX of every rank's `t`, as a new tensor (`t`
     is left as it is). A world of one returns `t`."""
     if world.size == 1:
         return t
+    _record("all_reduce", world)
+    return _all_reduce(world, t, op)
+
+
+def _all_reduce(world: World, t: torch.Tensor, op: str) -> torch.Tensor:
     _sync(t)
     t0 = time.perf_counter()
     with global_timer.scope("collective"):
@@ -255,8 +267,9 @@ def reduce_scatter(world: World, t: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"reduce_scatter splits dim 0 ({t.shape[0]}) over "
                          f"{world.size} ranks")
     blk = t.shape[0] // world.size
+    _record("reduce_scatter", world)
     if world.backend != "nccl":
-        full = all_reduce(world, t)
+        full = _all_reduce(world, t, "sum")
         return full[world.rank * blk:(world.rank + 1) * blk]
     _sync(t)
     t0 = time.perf_counter()
@@ -276,6 +289,11 @@ def all_gather(world: World, t: torch.Tensor) -> torch.Tensor:
     rank order."""
     if world.size == 1:
         return t[None]
+    _record("all_gather", world)
+    return _all_gather(world, t)
+
+
+def _all_gather(world: World, t: torch.Tensor) -> torch.Tensor:
     _sync(t)
     t0 = time.perf_counter()
     with global_timer.scope("collective"):
@@ -307,7 +325,8 @@ def all_gather_rows(world: World, t: torch.Tensor, num_rows: int) -> torch.Tenso
     most = max(b - a for a, b in (world.row_range(num_rows, r) for r in range(world.size)))
     pad = torch.zeros((most, *t.shape[1:]), dtype=t.dtype, device=t.device)
     pad[:hi - lo] = t
-    parts = all_gather(world, pad)
+    _record("all_gather_rows", world)
+    parts = _all_gather(world, pad)
     return torch.cat([parts[r, :b - a] for r, (a, b) in
                       enumerate(world.row_range(num_rows, r) for r in range(world.size))])
 

@@ -28,8 +28,10 @@ constraints, forced splits.
   features' slices and rescans them with the leaf's global totals.
 
 CEGB is refused with a parallel learner, as in the JAX package
-(learners.py:819-821), and so is the streaming budget (LGBM_TPU_HBM_BUDGET),
-whose gang-sharded learner is ROADMAP Queue 1 item 9.
+(learners.py:819-821). Under the streaming budget (LGBM_TPU_HBM_BUDGET)
+tree_learner=data builds the gang-sharded streamed learner
+(streaming/sharded.py) and feature and voting are refused: they need the
+whole plane on the card.
 """
 from __future__ import annotations
 
@@ -325,16 +327,11 @@ class VotingParallelTreeLearner(_RowSharded, SerialTreeLearner):
 
 
 def _refuse(config) -> None:
-    from ..streaming.learner import streaming_requested
     from ..treelearner.cegb import CEGB
 
     if CEGB.enabled(config):
         Log.fatal("cegb_* parameters are not supported with distributed tree learners "
                   "(use tree_learner=serial)")
-    if streaming_requested():
-        Log.fatal("LGBM_TPU_HBM_BUDGET streaming with tree_learner=%s needs the "
-                  "gang-sharded streamed learner, not yet ported to the PyTorch package "
-                  "(ROADMAP Queue 1 item 9)", config.tree_learner)
 
 
 def create_parallel_learner(learner_type: str, config, dataset, device):
@@ -350,6 +347,18 @@ def create_parallel_learner(learner_type: str, config, dataset, device):
                     "dataset (the device holds the rank's rows only)")
     _refuse(config)
     world = data_world(config.num_machines, device)
+    from ..streaming.learner import streaming_requested
+
+    if streaming_requested():
+        # the plane stays on the host: the gang-sharded streamed learner
+        if learner_type != "data":
+            Log.fatal("LGBM_TPU_HBM_BUDGET streaming supports tree_learner=serial or data "
+                      "only (got %s): feature/voting learners need the full plane "
+                      "device-resident", learner_type)
+        from ..streaming.sharded import ShardedStreamedTreeLearner
+
+        with global_timer.scope("learner_init"):
+            return ShardedStreamedTreeLearner(config, dataset, device, world)
     on_device = device_growth_applies(device, config, dataset)
     if config.use_quantized_grad and learner_type == "voting" and not on_device:
         Log.fatal("use_quantized_grad is not supported with the host tree_learner=voting "

@@ -41,7 +41,13 @@ grid-snapped gradients.
   feature, in ascending order), and only the elected slices' images are
   all-reduced, with the group-0 slices, before a replicated rescan of
   them. With top_k >= F every feature is elected and the trees are the
-  data-parallel ones.
+  data-parallel ones. ``LGBM_TPU_VOTING_EXACT_CHECK=1`` also all-reduces
+  every feature's image, as the data learner does, rescans them and counts
+  the committed splits whose exact best feature the vote missed
+  (``voting_miss_total``); the ``vote_skew@R:K`` fault replaces rank R's
+  nominations at wave K (0 the root) with the JAX package's garbage ids,
+  and the finalize hook (utils/faults.py:check_vote_skew_surfaced) turns
+  it into a typed error.
 * DeviceFeatureParallelTreeLearner (tree_learner=feature): rows
   replicated, so every rank's histograms are the whole's; the rank scans
   its block of the features and the [2K, REC] best records are
@@ -50,12 +56,10 @@ grid-snapped gradients.
 The wire's bytes a wave go to the ``device_ici_bytes_per_wave`` gauge (and
 ``voting_``/``feature_ici_bytes_per_wave``) from perfmodel.py, and every
 collective counts its payload (``collective_bytes``).
-
-Not carried: the voting learner's LGBM_TPU_VOTING_EXACT_CHECK miss counter
-and the vote_skew fault (ROADMAP Queue 1 item 8's remainder).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -71,10 +75,11 @@ from ..ops.quantize import int16_reduction_safe
 from ..ops.split import (feature_meta_block, fix_feature_hist, gather_feature_hist,
                          gather_feature_hist_raw, pad_feature_meta, per_feature_best,
                          reduce_best_record)
-from ..ops.wave import (HIST_ROWS, N_CUR, N_WAVES, REC, init_tree_state, replay_wave,
-                        select_wave, split_select)
+from ..ops.wave import (DONE, HIST_ROWS, N_CUR, N_WAVES, REC, guard_gain, init_tree_state,
+                        replay_wave, select_wave, split_select)
 from ..treelearner.device import (DeviceTreeLearner, WaveBuffers, _PendingTree, _totals,
                                   _waves_eager, children, pool_rows, pool_write)
+from ..utils import faults
 from ..utils.log import Log
 from ..utils.timer import global_timer
 from . import dist
@@ -194,6 +199,9 @@ class DeviceDataParallelTreeLearner(DeviceTreeLearner):
                                  self.group_bin_padded, len(self.meta.real_feature),
                                  self.device, self.quantized, self._renew, self._pool_shape())
 
+    def _plane_dtype(self) -> str:
+        return str(self.bins_shard.dtype)  # a row-sharded learner keeps no whole plane
+
     def snapshot_state(self) -> dict:
         st = super().snapshot_state()
         st["n_devices"] = int(self.world.size)
@@ -264,7 +272,9 @@ class DeviceDataParallelTreeLearner(DeviceTreeLearner):
             fmask = torch.from_numpy(self.col_sampler.reset_by_tree()).to(self.device)
         buf = self._buffers
         K = max(1, min(self.wave_k, L))
-        with global_timer.scope("tree_device"):
+        # not the single-card learner's "tree_device": the sanitizer holds
+        # that scope sync-free, and the host drives this loop
+        with global_timer.scope("tree_sharded"):
             self._begin(buf, gh, leaf0, fmask, n_bag)
             self._root(buf, bagged=bag_indices is not None)
             passes = 0
@@ -558,16 +568,20 @@ class VotingDataParallelTreeLearner(DeviceDataParallelTreeLearner):
         super().__init__(config, dataset, device, world, wave)
         self.k_local = max(1, min(int(config.top_k), self.f_pad))
         self.k_global = max(1, min(2 * int(config.top_k), self.f_pad))
+        self._exact_check = os.environ.get("LGBM_TPU_VOTING_EXACT_CHECK", "").lower() in (
+            "1", "true", "on")
+        self._miss = torch.zeros((), dtype=torch.int64, device=self.device)
 
     def _pool_shape(self) -> Optional[Tuple[int, ...]]:
         return None  # the local group layout
 
-    def _vote(self, local: HistImage,
-              local_tot_img: HistImage) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _vote(self, local: HistImage, local_tot_img: HistImage,
+              wave_no) -> Tuple[torch.Tensor, torch.Tensor]:
         """[M, G, B, CH] local images of M leaves and their group-0 rows ->
         (the elected features [M, k_g] ascending, their mask [M, F_pad]):
         each rank's local scan nominates, the nominations are all-gathered
-        and counted."""
+        and counted. `wave_no` (0 the root, a device scalar in the loop) is
+        what an armed vote_skew compares with its wave."""
         buf = self._buffers
         q = self.quantized
         M = local.sums.shape[0]
@@ -581,6 +595,14 @@ class VotingDataParallelTreeLearner(DeviceDataParallelTreeLearner):
         # phase 1: each rank nominates its local top k (ties to the lower feature)
         nom = torch.sort(recs[..., 0], dim=1, descending=True, stable=True).indices
         nom = nom[:, :self.k_local]
+        skew = faults.vote_skew_params()
+        if skew is not None and self.world.rank == skew[0]:
+            # vote_skew@R:K: this rank's nominations are garbage at wave K,
+            # the highest feature ids (the padded, inert tail)
+            garbage = (self.f_pad - 1 - torch.arange(self.k_local, device=self.device)) \
+                % self.f_pad
+            nom = torch.where(torch.as_tensor(wave_no, device=self.device) == skew[1],
+                              garbage.expand_as(nom), nom)
         votes = dist.all_gather(self.world, nom)  # [n, M, k_l]
         counts = torch.zeros((M, self.f_pad), dtype=torch.int64, device=self.device)
         counts.scatter_add_(1, votes.permute(1, 0, 2).reshape(M, -1),
@@ -599,13 +621,16 @@ class VotingDataParallelTreeLearner(DeviceDataParallelTreeLearner):
         full[:self._fmask.shape[0]] = self._fmask
         return full
 
-    def _elected_scan(self, local: HistImage,
-                      g0_local: HistImage) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _elected_scan(self, local: HistImage, g0_local: HistImage, wave_no,
+                      depths: torch.Tensor,
+                      live=True) -> Tuple[torch.Tensor, torch.Tensor]:
         """Vote, reduce the elected slices with the group-0 rows, rescan:
-        (records [M, REC], global totals [M, CH])."""
+        (records [M, REC], global totals [M, CH]). With the exact check,
+        also count the leaves (at `depths`, while the wave is `live`) whose
+        exact best feature the vote missed."""
         buf = self._buffers
         M = local.sums.shape[0]
-        elected, emask = self._vote(local, g0_local)
+        elected, emask = self._vote(local, g0_local, wave_no)
         gi, vs = self.meta_pad.gather_index, self.meta_pad.valid_slot
         Bm = self.meta.max_bins
         fimg = local.map(lambda t: gather_feature_hist_raw(t, gi, vs))  # [M, F_pad, Bm, CH]
@@ -629,12 +654,38 @@ class VotingDataParallelTreeLearner(DeviceDataParallelTreeLearner):
         fh = fix_feature_hist(full, totals, m.efb_omitted, m.default_bin)
         recs = per_feature_best(fh, totals, m, self.params_dev, self._pad_mask())
         recs[..., 0] = torch.where(emask, recs[..., 0], float("-inf"))
-        return reduce_best_record(recs), totals
+        best = reduce_best_record(recs)
+        if self._exact_check:
+            self._count_misses(fimg, totals, best, depths, live)
+        return best, totals
+
+    def _count_misses(self, fimg: HistImage, totals: torch.Tensor, best: torch.Tensor,
+                      depths: torch.Tensor, live) -> None:
+        """The reduction the vote avoided: every feature's image summed over
+        the ranks and rescanned; a leaf whose guarded exact best splits
+        (gain > 0) on another feature than the vote's is a miss."""
+        buf = self._buffers
+        red = self._reduce(fimg.map(lambda t: t.reshape(1, -1)), scatter=False)
+        full = image_to_float(red.map(lambda t: t.reshape(fimg.sums.shape)), buf.exponents)
+        if self.quantized:
+            full = full.to(torch.float32) * buf.scale
+        m = self.meta_pad
+        fh = fix_feature_hist(full, totals, m.efb_omitted, m.default_bin)
+        fbest = reduce_best_record(per_feature_best(fh, totals, m, self.params_dev,
+                                                    self._pad_mask()))
+        p = self.params_dev
+        gain = guard_gain(fbest[:, 0], totals[:, 2], totals[:, 1], depths, p[2], p[3],
+                          int(self.config.max_depth))
+        miss = ((gain > 0) & (fbest[:, 1] != best[:, 1])).sum()
+        self._miss += torch.where(torch.as_tensor(live, device=self.device), miss, 0)
 
     def _root(self, buf: _ShardBuffers, bagged: bool) -> None:
         img, n_in = self._root_hist(buf, bagged)
         g0_local = img.map(lambda t: t[:, 0].contiguous())
-        recs, totals = self._elected_scan(img, g0_local)
+        self._miss.zero_()
+        recs, totals = self._elected_scan(img, g0_local, 0,
+                                          torch.zeros(1, dtype=buf.depth.dtype,
+                                                      device=self.device))
         buf.pool[0] = img.sums[0]
         if buf.pool_flags is not None:
             buf.pool_flags[0] = img.flags[0]
@@ -644,9 +695,20 @@ class VotingDataParallelTreeLearner(DeviceDataParallelTreeLearner):
         table, sel_k, n_left, left_small, nl_g, nr_g, img = self._partition(buf, cur, K)
         hl, hr = children(pool_rows(buf, sel_k), img, left_small)  # local images
         both = stack_children(hl, hr)
-        recs2, totals2 = self._elected_scan(both, both.map(lambda t: t[:, 0].contiguous()))
+        # the JAX grower's wave count: this wave's number, 1 the first
+        wave_no = buf.scalars[N_WAVES] + 1
+        depths = torch.repeat_interleave(buf.depth[sel_k.to(torch.int64)] + 1, 2)
+        recs2, totals2 = self._elected_scan(both, both.map(lambda t: t[:, 0].contiguous()),
+                                            wave_no, depths, buf.scalars[DONE] == 0)
         self._commit(buf, cur, table, n_left, recs2, totals2, sel_k, nl_g, nr_g, hl, hr,
                      None, None)
+
+    def finalize(self, pending: _PendingTree) -> Tree:
+        tree = super().finalize(pending)
+        miss = int(self._miss.item()) if self._exact_check else 0
+        global_timer.add_count("voting_miss_total", miss)
+        faults.check_vote_skew_surfaced(miss, self._exact_check)
+        return tree
 
     def _wire_model(self, K: int) -> int:
         return perfmodel.voting_ici_bytes_per_wave(K, self.k_local, self.k_global,

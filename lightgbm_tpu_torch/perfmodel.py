@@ -32,8 +32,10 @@ name as torch.cuda.get_device_name gives it (an H100 PCIe or NVL card has
 other rates than the SXM part's and is not in it), with the host link's
 rate beside them for the streamed learner's uploads. LGBM_TPU_PEAK_BW_GBPS
 overrides the memory rate of `peak_bandwidth_bytes_per_s` and so of
-`attribution`'s roofline, never `bound_ms`. The ICI formulas of the JAX package wait for the
-distributed learners (ROADMAP Queue 1 item 8).
+`attribution`'s roofline, never `bound_ms`. The wire's bytes a wave of the
+distributed learners (`ici_bytes_per_wave`, `voting_`, `feature_` and
+`stream_ici_bytes_per_wave`) are the JAX package's formulas with the
+port's collectives.
 """
 from __future__ import annotations
 
@@ -409,11 +411,12 @@ def static_costs(libraries=None) -> Dict[str, Dict[str, Dict[str, int]]]:
 # stage -> the timer labels whose totals it owns: leaf scopes of the
 # training loop, never one nested in another listed one, so stage walls are
 # disjoint and the fractions sum to 1. `grow_fused` is the wave learner's
-# tree: its launch (`tree_device`) and the host's wait for its results
-# (`tree_results`), where the card's time shows on the host clock.
+# tree: its launch (`tree_device`; a sharded learner's host-driven loop,
+# `tree_sharded`) and the host's wait for its results (`tree_results`),
+# where the card's time shows on the host clock.
 STAGE_LABELS: Dict[str, Tuple[str, ...]] = {
     "gradients": ("boosting",),
-    "grow_fused": ("tree_device", "tree_results"),
+    "grow_fused": ("tree_device", "tree_sharded", "tree_results"),
     "histogram": ("hist_root", "hist_children", "hist_recompute"),
     "scan": ("find_best_split",),
     "partition": ("partition",),
@@ -580,6 +583,16 @@ def feature_ici_bytes_per_wave(wave_width: int) -> int:
     all-gather of this rank's [2K, REC] best records, independent of the
     row and the feature count."""
     return 2 * int(wave_width) * REC_FIELDS * 4
+
+
+def stream_ici_bytes_per_wave(n_groups: int, group_bins: int, ch: int = 3,
+                              value_bytes: int = 8) -> int:
+    """The gang-sharded streamed learner (streaming/sharded.py): each leaf
+    histogram is one all-reduce of this rank's [G, Bg, CH] image (int64
+    fixed point on the card, int32 quantized, float32 on the CPU), whatever
+    the row count; the flag words cross only when a rank holds a
+    non-finite gh."""
+    return int(n_groups) * int(group_bins) * int(ch) * int(value_bytes)
 
 
 def hist_ragged_image(rows: int, n_groups: int, cells: int) -> Tuple[float, float]:

@@ -240,13 +240,14 @@ class MicroBatcher:
                 else:
                     self._dispatch(batch)
             except Exception as exc:  # worker must outlive any batch
-                for req in batch:
-                    req.error = ServingError(f"prediction failed: {exc}")
-                    req.event.set()
                 Log.warning("serving: batch dispatch error: %s", exc)
                 tracing.note("batcher_exception", error=repr(exc)[:400],
                              requests=len(batch))
+                # the postmortem is recorded before a waiter sees the failure
                 tracing.dump_flight("batcher_exception")
+                for req in batch:
+                    req.error = ServingError(f"prediction failed: {exc}")
+                    req.event.set()
 
     def _predict_chunk(self, entry: ModelEntry, chunk: np.ndarray,
                        raw_score: bool,

@@ -18,9 +18,12 @@ Counterpart of the JAX package's ``streaming/`` (docs/STREAMING.md):
                   scores against the binning-time reference, driving alarms
                   and the bin-mapper refresh (LGBM_TPU_DRIFT,
                   LGBM_TPU_BIN_REFRESH_EVERY).
-
-The JAX package's sharded.py (the gang-sharded store, learner and drift
-monitor) waits for the distributed learners (ROADMAP Queue 1 item 8).
+  * sharded.py    the gang: ShardedRowBlockStore (round-robin placement,
+                  the layout fit from rank-merged sketches), PodDriftMonitor
+                  (drift merged across the ranks) and
+                  ShardedStreamedTreeLearner (tree_learner=data under the
+                  budget: each rank caches the blocks it owns and the
+                  ranks add the carried histograms' images exactly).
 """
 import importlib
 
@@ -35,6 +38,9 @@ _MODULES = {
     "RowBlockStore": "ingest",
     "wrap_dataset": "ingest",
     "StreamedTreeLearner": "learner",
+    "PodDriftMonitor": "sharded",
+    "ShardedRowBlockStore": "sharded",
+    "ShardedStreamedTreeLearner": "sharded",
     "stream_budget_bytes": "learner",
     "streaming_requested": "learner",
 }
@@ -50,8 +56,11 @@ __all__ = [
     "ContinuousTrainer",
     "DriftMonitor",
     "GenerationRejected",
+    "PodDriftMonitor",
     "QuantileSketch",
     "RowBlockStore",
+    "ShardedRowBlockStore",
+    "ShardedStreamedTreeLearner",
     "StreamedTreeLearner",
     "merge_ranked",
     "stream_budget_bytes",

@@ -112,6 +112,11 @@ class ContinuousTrainer:
     def refit(self):
         """One generation: snapshot -> train (checkpointed) -> gate ->
         publish."""
+        follow = getattr(self.store, "follow_gang", None)
+        if follow is not None:
+            # a gang-sharded store whose gang shrank (a refit resumed after a
+            # lost worker) is resharded over the survivors first
+            follow()
         if self._inflight_rows is None:
             # fresh generation boundary: the ONLY place a bin refresh may
             # run. A crash-resumed refit skips this branch (the watermark

@@ -110,10 +110,12 @@ class _BlockCache:
     """LRU device cache over the fixed-width column blocks of the host
     plane. `prefetch(b)` starts the upload; a later `get(b)` takes the
     block into the resident set (waiting for the copy on the card). One
-    thread uses it: the learner's."""
+    thread uses it: the learner's. With `shard` (rank, shards) it holds
+    the blocks b with b % shards == rank only (pinned and uploaded), and
+    asking it for another block raises."""
 
     def __init__(self, plane: np.ndarray, block_rows: int, capacity: int,
-                 device: torch.device) -> None:
+                 device: torch.device, shard: Tuple[int, int] = (0, 1)) -> None:
         self.plane = plane
         self.device = torch.device(device)
         self.block_rows = int(block_rows)
@@ -121,6 +123,11 @@ class _BlockCache:
         self.n_groups = int(plane.shape[0])
         self.n_blocks = max(1, -(-self.num_rows // self.block_rows))
         self.capacity = max(1, int(capacity))
+        self.rank, self.shards = int(shard[0]), max(1, int(shard[1]))
+        # the blocks this cache holds, in order, and each one's host slot
+        self.owned = list(range(self.rank, self.n_blocks, self.shards))
+        self._slot = {b: i for i, b in enumerate(self.owned)}
+        self.uploaded = set()  # the blocks uploaded so far
         self._resident: "OrderedDict[int, torch.Tensor]" = OrderedDict()
         self._inflight = {}  # block -> (tensor, copy-done event or None)
         self.peak = 0
@@ -130,14 +137,14 @@ class _BlockCache:
         self._host = None
         self._copy_stream = None
         if self.device.type == "cuda":
-            # one pinned block-major copy: block b's [G, w] columns are
-            # contiguous at offset b * G * block_rows, so its upload is one
-            # asynchronous copy
+            # one pinned block-major copy of the blocks held: block b's [G, w]
+            # columns are contiguous at its slot's offset, so its upload is
+            # one asynchronous copy
             t0 = perf_counter()
-            self._host = torch.empty(self.n_blocks * self.n_groups * self.block_rows,
+            self._host = torch.empty(len(self.owned) * self.n_groups * self.block_rows,
                                      dtype=torch.from_numpy(plane).dtype,
                                      pin_memory=True)
-            for b in range(self.n_blocks):
+            for b in self.owned:
                 self._host_block(b).copy_(torch.from_numpy(plane[:, slice(*self.block_range(b))]))
             self.pin_s = perf_counter() - t0
             global_timer.add_count("stream_pinned_bytes", int(self._host.numel()
@@ -150,12 +157,16 @@ class _BlockCache:
 
     def _host_block(self, b: int) -> torch.Tensor:
         lo, hi = self.block_range(b)
-        off = b * self.n_groups * self.block_rows
+        off = self._slot[b] * self.n_groups * self.block_rows
         return self._host[off:off + self.n_groups * (hi - lo)].view(self.n_groups, hi - lo)
 
     def _upload(self, b: int):
         """Start block b's upload: (tensor, event the compute stream waits
         for, or None on the CPU)."""
+        if b not in self._slot:
+            raise ValueError(f"block {b} belongs to shard {b % self.shards}, not to this "
+                             f"cache's {self.rank} of {self.shards}")
+        self.uploaded.add(b)
         if self._copy_stream is None:
             t0 = perf_counter()
             arr = torch.from_numpy(np.ascontiguousarray(self.plane[:, slice(*self.block_range(b))]))
@@ -277,11 +288,14 @@ class StreamedTreeLearner(SerialTreeLearner):
             capacity = max(1, self._budget_bytes // block_bytes)
         else:
             capacity = -(-n // block_rows)  # no budget: pin everything
-        self._cache = _BlockCache(plane, block_rows, capacity, self.device)
+        self._cache = self._make_cache(plane, block_rows, capacity)
         global_timer.set_count("stream_blocks_total", self._cache.n_blocks)
         global_timer.set_count("stream_resident_blocks",
-                               min(self._cache.capacity, self._cache.n_blocks))
+                               min(self._cache.capacity, len(self._cache.owned)))
         return None
+
+    def _make_cache(self, plane: np.ndarray, block_rows: int, capacity: int) -> _BlockCache:
+        return _BlockCache(plane, block_rows, capacity, self.device)
 
     # ------------------------------------------------------- histograms
 

@@ -713,15 +713,18 @@ class DeviceTreeLearner(SerialTreeLearner):
         wave does, never a split (ROADMAP Queue 3), so a resumed run that
         starts at the ceiling grows the same trees."""
         st = super().snapshot_state()
-        st["bins_dtype"] = str(self.bins_dev.dtype)
+        st["bins_dtype"] = self._plane_dtype()
         return st
+
+    def _plane_dtype(self) -> str:
+        return str(self.bins_dev.dtype)
 
     def restore_snapshot_state(self, st: dict) -> None:
         want = st.get("bins_dtype")
-        if want is not None and want != str(self.bins_dev.dtype):
+        if want is not None and want != self._plane_dtype():
             Log.fatal("Checkpoint was captured with a %s bin plane but the "
                       "resume run built %s — refusing to resume", want,
-                      self.bins_dev.dtype)
+                      self._plane_dtype())
         super().restore_snapshot_state(st)
 
     def train(self, gh_ext: torch.Tensor, bag_indices: Optional[np.ndarray] = None) -> Tree:

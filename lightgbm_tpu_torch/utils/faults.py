@@ -44,13 +44,28 @@ Streaming faults (``streaming/``):
                         sketch: the next bin refresh must detect it and keep
                         the feature's cut points (one-shot)
 
-The distributed tokens (``worker_kill@R:K``, ``worker_hang@R:K``,
-``coord_loss@K``, ``slow_worker@R:ms``, ``vote_skew@R:K``) wait for the
-gang's failure handling (the collective watchdog, the heartbeat, the
-elastic runtime: what remains of ROADMAP Queue 1 item 8; the distributed
-learners themselves are ported): they parse as in the JAX package and are
-then refused with a LightGBMError naming the item, so a plan that names
-them never runs as if armed.
+Distributed faults (parallel/elastic.py); ranks come from ``RANK`` (the
+launcher's), and the kill/hang pair fires only on gang attempt 0
+(``LGBM_TPU_GANG_ATTEMPT``), so an elastic restart that resumes at the
+fault iteration does not die again:
+
+    worker_kill@R:K     rank R dies at the START of iteration K: os._exit(43)
+                        under gang supervision (no unwind, no atexit, as a
+                        SIGKILL), a raised InjectedFault otherwise
+    worker_hang@R:K     rank R stops taking part at iteration K but stays
+                        alive: an interruptible spin that polls the elastic
+                        watchdog (the WorkerLostError conversion path)
+    coord_loss@K        the coordinator (rank 0) dies at iteration K:
+                        worker_kill@0:K
+    slow_worker@R:ms    rank R sleeps `ms` milliseconds at the start of
+                        every iteration (a straggler; fires on every attempt)
+    vote_skew@R:K       the voting learner's rank R nominates garbage
+                        features at wave K (0 the root). With
+                        LGBM_TPU_VOTING_EXACT_CHECK=1 it surfaces as
+                        VotingDivergenceError with the counted divergence;
+                        under an elastic gang without the check the
+                        detecting rank parks in the watchdog's spin (the
+                        worker_hang path), never a silent hang
 
 Every injection is one-shot (``kill@K`` fires once even if iteration K is
 re-entered after a rollback) and seeded, so a failing test replays
@@ -70,12 +85,31 @@ class InjectedFault(RuntimeError):
     files on disk)."""
 
 
-# token prefix -> the ROADMAP Queue 1 item that ports its subsystem
-_REFUSED = {
-    "worker_kill@": 8, "worker_hang@": 8, "coord_loss@": 8, "slow_worker@": 8,
-    "vote_skew@": 8,
-}
-_SUBSYSTEM = {8: "the gang's failure handling (watchdog, heartbeat, elastic runtime)"}
+class VotingDivergenceError(RuntimeError):
+    """Raised by the voting learner's exact check when an armed vote_skew
+    plan corrupted a PV-Tree ballot. The message carries the counted
+    committed-split disagreements, which may be 0 (one corrupted ballot is
+    often outvoted): a tampered election never trains on silently."""
+
+
+# the exit code of an injected worker_kill under gang supervision, distinct
+# from crash codes so the supervisor's log names the injection
+EXIT_INJECTED_KILL = 43
+
+
+def _int_env(name: str) -> int:
+    try:
+        return int(os.environ.get(name, "0") or 0)
+    except ValueError:
+        return 0
+
+
+def _rank() -> int:
+    return _int_env("RANK")
+
+
+def _gang_attempt() -> int:
+    return _int_env("LGBM_TPU_GANG_ATTEMPT")
 
 
 def _rank_iter(token: str, prefix: str, value=int):
@@ -89,21 +123,6 @@ def _rank_iter(token: str, prefix: str, value=int):
         Log.fatal("Malformed fault token %r: expected %s<rank>:<n>", token, prefix)
 
 
-def _parse_refused(token: str, prefix: str) -> None:
-    """Parse a distributed token as the JAX package does, then refuse it by
-    its ROADMAP item."""
-    if prefix == "coord_loss@":
-        try:
-            int(token[len(prefix):])
-        except ValueError:
-            Log.fatal("Malformed fault token %r", token)
-    else:
-        _rank_iter(token, prefix, value=float if prefix == "slow_worker@" else int)
-    item = _REFUSED[prefix]
-    Log.fatal("Fault token %r needs %s, not yet ported to the PyTorch package "
-              "(ROADMAP Queue 1 item %d)", token, _SUBSYSTEM[item], item)
-
-
 class FaultPlan:
     def __init__(self, spec: str = "", seed: int = 0) -> None:
         self.spec = spec or ""
@@ -114,6 +133,10 @@ class FaultPlan:
         self.write_fails = 0
         self.corrupt_sidecar = False
         self.truncate_model = False
+        self.worker_kill = None  # (rank, iteration)
+        self.worker_hang = None  # (rank, iteration)
+        self.slow_worker = None  # (rank, seconds)
+        self.vote_skew = None  # (rank, wave)
         self.slow_predict_at: Optional[int] = None
         self.slow_predict_s = 0.05
         self.fail_predict_at: Optional[int] = None
@@ -158,6 +181,20 @@ class FaultPlan:
                     self.fail_predict_at = int(body)
             elif token == "model_corrupt_upload":
                 self.corrupt_upload = True
+            elif token.startswith("worker_kill@"):
+                self.worker_kill = _rank_iter(token, "worker_kill@")
+            elif token.startswith("worker_hang@"):
+                self.worker_hang = _rank_iter(token, "worker_hang@")
+            elif token.startswith("coord_loss@"):
+                try:
+                    self.worker_kill = (0, int(token[len("coord_loss@"):]))
+                except ValueError:
+                    Log.fatal("Malformed fault token %r: expected coord_loss@<n>", token)
+            elif token.startswith("slow_worker@"):
+                r, ms = _rank_iter(token, "slow_worker@", value=float)
+                self.slow_worker = (r, ms / 1e3)
+            elif token.startswith("vote_skew@"):
+                self.vote_skew = _rank_iter(token, "vote_skew@")
             elif token.startswith("drift_shift@"):
                 self.drift_shift = _rank_iter(token, "drift_shift@")
             elif token.startswith("bad_generation@"):
@@ -165,9 +202,6 @@ class FaultPlan:
             elif token.startswith("sketch_corrupt@"):
                 self.sketch_corrupt = int(token[len("sketch_corrupt@"):])
             else:
-                for prefix in _REFUSED:
-                    if token.startswith(prefix):
-                        _parse_refused(token, prefix)
                 Log.fatal("Unknown fault token %r in fault spec %r", token, self.spec)
 
     def once(self, key: str) -> bool:
@@ -209,6 +243,87 @@ def check_kill(iteration: int) -> None:
     if p.kill_at is not None and iteration == p.kill_at and p.once("kill"):
         _emit_fault("kill", iteration=iteration)
         raise InjectedFault(f"injected fault: kill at iteration {iteration}")
+
+
+def _watchdog_spin() -> None:
+    """Block on purpose, interruptibly: poll the elastic watchdog, which
+    raises its WorkerLostError here once the deadline passes."""
+    import time
+
+    from ..parallel import elastic
+
+    while True:
+        time.sleep(0.01)
+        rt = elastic.active()
+        if rt is not None:
+            rt.poll_raise()
+
+
+def check_distributed(iteration: int) -> None:
+    """Injection point at the start of GBDT.train_one_iter, after
+    check_kill: the distributed tokens. Kill and hang fire on gang attempt
+    0 only (a relaunched gang resumes at the fault iteration and must not
+    die again); the straggler fires on every attempt."""
+    p = _get()
+    if p.worker_kill is None and p.worker_hang is None and p.slow_worker is None:
+        return
+    rank = _rank()
+    attempt0 = _gang_attempt() == 0
+    if p.slow_worker is not None and rank == p.slow_worker[0]:
+        import time
+
+        _emit_fault("slow_worker", rank=rank, iteration=iteration, seconds=p.slow_worker[1])
+        time.sleep(p.slow_worker[1])
+    if attempt0 and p.worker_kill is not None and (rank, iteration) == p.worker_kill \
+            and p.once("worker_kill"):
+        _emit_fault("worker_kill", rank=rank, iteration=iteration)
+        Log.warning("Fault injection: killing rank %d at iteration %d", rank, iteration)
+        if os.environ.get("LGBM_TPU_GANG"):
+            os._exit(EXIT_INJECTED_KILL)  # a SIGKILL's semantics: no unwind, no flush
+        raise InjectedFault(f"injected fault: worker {rank} killed at iteration {iteration}")
+    if attempt0 and p.worker_hang is not None and (rank, iteration) == p.worker_hang \
+            and p.once("worker_hang"):
+        _emit_fault("worker_hang", rank=rank, iteration=iteration)
+        Log.warning("Fault injection: rank %d hanging at iteration %d (interruptible spin)",
+                    rank, iteration)
+        _watchdog_spin()
+
+
+def vote_skew_params():
+    """(rank, wave) of an armed vote_skew plan, else None: the voting
+    learner replaces rank `rank`'s nominations with garbage at wave `wave`
+    (0 the root)."""
+    return _get().vote_skew
+
+
+def check_vote_skew_surfaced(miss_total: int, exact_check: bool) -> None:
+    """The voting learner's finalize hook: an armed vote_skew plan surfaces
+    as a typed error, never a hang or a silent loss of quality. With the
+    exact check it raises VotingDivergenceError carrying the counted
+    divergence; without it, under an elastic gang, the detecting rank parks
+    in the watchdog's spin until the supervisor declares it lost (the
+    worker_hang path). With neither, the corruption only shifts split
+    quality, which the exact check's counter exists to measure. One-shot."""
+    p = _get()
+    if p.vote_skew is None or not p.once("vote_skew"):
+        return
+    rank, wave = p.vote_skew
+    _emit_fault("vote_skew", rank=rank, wave=wave, miss=int(miss_total),
+                exact_check=exact_check)
+    if exact_check:
+        raise VotingDivergenceError(
+            f"injected fault: vote_skew@{rank}:{wave} corrupted a PV-Tree ballot "
+            f"({int(miss_total)} committed-split disagreement(s) counted by the exact check)")
+    from ..parallel import elastic
+
+    if elastic.active() is None:
+        Log.warning("vote_skew@%d:%d armed without the exact check or an elastic gang: the "
+                    "corruption is measured nowhere (arm LGBM_TPU_VOTING_EXACT_CHECK=1 to "
+                    "count it)", rank, wave)
+        return
+    Log.warning("Fault injection: vote_skew@%d:%d under an elastic gang: parking in the "
+                "watchdog's spin", rank, wave)
+    _watchdog_spin()
 
 
 def maybe_poison_gh(grads, hesses, iteration: int):

@@ -14,7 +14,11 @@ leaf histogram's image mode likewise. A gang of 2 ranks on the card (gloo,
 staged through pinned host memory; NCCL needs a card a rank) grows, on raw
 (unsnapped) gradients, the single-card wave learner's trees through the
 data-, voting- (top_k >= F) and feature-parallel wave learners, bagged too,
-and the serial learner's through the host-driven data-parallel learner.
+and the serial learner's through the host-driven data-parallel learner;
+and, under a budget 4x below the plane, the gang-sharded streamed learner
+trains the single-card streamed learner's model on raw gradients (each
+rank's carried image left open, the images added, converted once), float
+and quantized, each rank uploading only its own blocks.
 """
 import numpy as np
 import pytest
@@ -120,3 +124,30 @@ def test_gang_on_the_card_grows_the_single_card_trees(cuda, card_gang, i):
             assert got["tree"] == ref["tree"]
             if ref["ids"] is not None and got["ids"] is not None:
                 np.testing.assert_array_equal(got["ids"], ref["ids"])
+
+
+STREAM_ENV = {"LGBM_TPU_HBM_BUDGET": str(2 * 256 * 12), "LGBM_TPU_STREAM_BLOCK_ROWS": "256"}
+STREAM_CASES = [({**BASE, "tree_learner": "data"}, False, 2048),
+                ({**BASE, "tree_learner": "data", "use_quantized_grad": True}, False, 2048)]
+
+
+@pytest.mark.parametrize("i", range(len(STREAM_CASES)), ids=["float", "quantized"])
+def test_sharded_streamed_learner_on_the_card_is_the_single_card_model(cuda, tmp_path,
+                                                                       monkeypatch, i):
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.streaming import StreamedTreeLearner
+    from torch_gang import data
+
+    params, _, n_rows = STREAM_CASES[i]
+    out = run_gang("card_stream", 2, tmp_path, [STREAM_CASES[i]], STREAM_ENV, 3, threads=2,
+                   timeout=120)
+    for key, value in STREAM_ENV.items():
+        monkeypatch.setenv(key, value)
+    X, y = data(3, n=n_rows, f=12)
+    single = lt.train({**params, "tree_learner": "serial", "verbosity": -1},
+                      lt.Dataset(X, label=y), num_boost_round=3)
+    assert type(single._gbdt.tree_learner) is StreamedTreeLearner
+    for rank, res in enumerate(out):
+        assert res[0]["learner"] == "ShardedStreamedTreeLearner"
+        assert res[0]["model"] == single.model_to_string()
+        assert all(b % 2 == rank for b in res[0]["uploaded"])

@@ -5,8 +5,9 @@ package's.
 Contracts:
 
 * a FaultPlan's fields equal the JAX package's for every training,
-  checkpoint, serving and drift token; each distributed token is refused
-  with a LightGBMError naming its ROADMAP item (8);
+  checkpoint, serving, drift and distributed token;
+* LGBM_TPU_HBM_BUDGET with tree_learner=feature or voting is refused with
+  the JAX package's "serial or data only" message;
 * ``kill@K`` after periodic checkpoints, then the same command resumed from
   the checkpoint: model text byte-equal to the uninterrupted run;
 * ``nan_gh@K:frac`` under each health policy at the JAX package's
@@ -63,11 +64,14 @@ TOKENS = ["kill@3", "nan_gh@2", "nan_gh@4:0.25", "ckpt_write_fail:2", "ckpt_corr
           "ckpt_truncate", "slow_predict@3", "slow_predict@2:0.5", "predict_fail@4",
           "predict_fail@1:7", "model_corrupt_upload",
           "kill@1,nan_gh@2:0.1,ckpt_write_fail:1,predict_fail@2:2,model_corrupt_upload",
-          "drift_shift@100:3", "bad_generation@2", "sketch_corrupt@5"]
+          "drift_shift@100:3", "bad_generation@2", "sketch_corrupt@5",
+          "worker_kill@1:3", "worker_hang@0:2", "coord_loss@4", "slow_worker@1:250",
+          "vote_skew@0:1"]
 FIELDS = ("kill_at", "nan_at", "nan_frac", "write_fails", "corrupt_sidecar",
           "truncate_model", "slow_predict_at", "slow_predict_s", "fail_predict_at",
           "fail_predict_count", "corrupt_upload", "drift_shift", "bad_generation",
-          "sketch_corrupt", "seed", "spec")
+          "sketch_corrupt", "worker_kill", "worker_hang", "slow_worker", "vote_skew", "seed",
+          "spec")
 
 
 @pytest.mark.parametrize("spec", TOKENS)
@@ -79,18 +83,26 @@ def test_plan_fields_equal_jax(jax_ref, spec):
         assert getattr(ours, field) == getattr(theirs, field), field
 
 
-REFUSED = [("worker_kill@1:3", 8), ("worker_hang@0:2", 8), ("coord_loss@4", 8),
-           ("slow_worker@1:250", 8), ("vote_skew@0:1", 8)]
+@pytest.mark.parametrize("kind", ["feature", "voting"])
+def test_streaming_parallel_learner_refusals_match_jax(jax_ref, monkeypatch, kind):
+    """The streaming budget with a plane-resident parallel learner: both
+    packages refuse it with the same message."""
+    from lightgbm_tpu.utils.log import LightGBMError as JaxError
 
+    from lightgbm_tpu_torch import tracing
 
-@pytest.mark.parametrize("spec,item", REFUSED)
-def test_distributed_and_drift_tokens_refused_by_item(jax_ref, spec, item):
-    """The distributed tokens (the drift tokens are armed now: TOKENS)."""
-    from lightgbm_tpu.utils import faults as jax_faults
-
-    jax_faults.FaultPlan(spec)  # the JAX package arms it
-    with pytest.raises(LightGBMError, match=rf"ROADMAP Queue 1 item {item}\)"):
-        faults.FaultPlan(spec)
+    X, y = _data(n=300)
+    monkeypatch.setenv("LGBM_TPU_HBM_BUDGET", "64k")
+    params = {**BASE, "tree_learner": kind}
+    try:
+        with pytest.raises(LightGBMError, match="serial or data only") as ours:
+            _train(params, X, y, 1)
+    finally:
+        tracing.reset()  # the refusal's train_exception dump rate-limits the next one
+    with pytest.raises(JaxError, match="serial or data only") as theirs:
+        jax_ref.train({**params, "device_type": "cpu"}, jax_ref.Dataset(X, label=y),
+                      num_boost_round=1)
+    assert str(ours.value).split(":")[0] == str(theirs.value).split(":")[0]
 
 
 def test_malformed_and_unknown_tokens_are_fatal():

@@ -18,7 +18,8 @@ Contracts:
   snapshot and writes the same model;
 * GangSupervisor on stub workers, as the JAX package's tests/test_elastic.py:
   150-236 hold its own: reap on first loss, the elastic restart and its
-  budget, shrink, a stale liveness file; `worker_env`'s block;
+  budget, shrink, a stale liveness file; `worker_env`'s block with the
+  gang markers;
   `latest_snapshot` skips a torn sidecar;
 * the int16 pair wire: packed sums over ranks unpack to the sums.
 """
@@ -285,9 +286,12 @@ def test_gang_liveness_deadline_reaps_hung_worker(tmp_path):
 
 
 def test_worker_env_builds_gang_block():
-    env = worker_env({"PATH": "/bin"}, port=12345, world=4, rank=2)
+    env = worker_env({"PATH": "/bin"}, port=12345, world=4, rank=2, attempt=1,
+                     gang_dir="/g", elastic=True)
     assert env == {"PATH": "/bin", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "12345",
-                   "WORLD_SIZE": "4", "RANK": "2", "LOCAL_RANK": "2", "LOCAL_WORLD_SIZE": "4"}
+                   "WORLD_SIZE": "4", "RANK": "2", "LOCAL_RANK": "2", "LOCAL_WORLD_SIZE": "4",
+                   "LGBM_TPU_GANG": "1", "LGBM_TPU_GANG_ATTEMPT": "1",
+                   "LGBM_TPU_GANG_DIR": "/g", "LGBM_TPU_ELASTIC": "1"}
 
 
 def test_latest_snapshot_skips_torn_sidecar(tmp_path):

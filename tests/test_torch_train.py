@@ -197,20 +197,24 @@ def test_wave_learner_configuration_is_refused_on_the_card(monkeypatch):
     assert not isinstance(host, device.DeviceTreeLearner)
 
 
-# what is still refused, with the environment that asks for it: the
-# distributed learners are ported, but not their gang-sharded streamed
-# learner (a streaming budget with a parallel tree_learner, item 9)
+# what is still refused, with the environment that asks for it and the
+# message: every module is ported; a streaming budget with the feature or
+# voting learner, which need the whole plane on the device, is refused as
+# the JAX package refuses it (data under a budget is the gang-sharded
+# streamed learner)
 REFUSED = [
-    ({"tree_learner": "data"}, {"LGBM_TPU_HBM_BUDGET": "1000000"}, "distributed learners"),
+    ({"tree_learner": "feature"}, {"LGBM_TPU_HBM_BUDGET": "1000000"}, "distributed learners",
+     "serial or data only"),
 ]
 
 
-@pytest.mark.parametrize("extra,env,what", REFUSED, ids=[w for _, _, w in REFUSED])
-def test_unported_features_are_refused(monkeypatch, extra, env, what):
+@pytest.mark.parametrize("extra,env,what,message", REFUSED,
+                         ids=[w for _, _, w, _ in REFUSED])
+def test_unported_features_are_refused(monkeypatch, extra, env, what, message):
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     X, y = _data(with_nan=False)
-    with pytest.raises(LightGBMError, match="not yet ported"):
+    with pytest.raises(LightGBMError, match=message):
         lt.train(_params("binary", 0.8, **extra), lt.Dataset(X, label=y),
                  num_boost_round=2)
 

@@ -154,6 +154,233 @@ def grow_many(jobs):
     return [grow_trees(cls_name, params, **kw) for cls_name, params, kw in jobs]
 
 
+def vote_skew(params, spec, n_rows):
+    """One voting tree under the exact check with the fault `spec` armed:
+    the VotingDivergenceError's message (None when nothing was raised) and
+    the voting_miss_total counter."""
+    from lightgbm_tpu_torch.utils import faults
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    os.environ["LGBM_TPU_VOTING_EXACT_CHECK"] = "1"
+    faults.install(spec)
+    raised = None
+    try:
+        grow_trees("VotingDataParallelTreeLearner", params, n_trees=1, n_rows=n_rows)
+    except faults.VotingDivergenceError as exc:
+        raised = str(exc)
+    finally:
+        faults.clear()
+        del os.environ["LGBM_TPU_VOTING_EXACT_CHECK"]
+    return {"raised": raised, "miss": int(global_timer.counters.get("voting_miss_total", 0))}
+
+
+def stream_models(configs, env, rounds, device="cpu"):
+    """lt.train on `device` under the streaming environment `env` (the
+    budget, the block rows) for each (params, snapped fobj?, rows) config:
+    the model text, the learner's class, the blocks this rank uploaded and
+    the timer's counters."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    os.environ.update(env)
+    out = []
+    for params, fobj, n_rows in configs:
+        X, y = data(3, n=n_rows, f=12)
+        p = dict(params, device_type=device, verbosity=-1)
+        if fobj:
+            p["objective"] = snapped_logloss
+        global_timer.reset()
+        bst = lt.train(p, lt.Dataset(X, label=y), num_boost_round=rounds)
+        learner = bst._gbdt.tree_learner
+        out.append({"model": bst.model_to_string(), "learner": type(learner).__name__,
+                    "uploaded": sorted(learner._cache.uploaded),
+                    "groups": len(learner.dataset.groups), "bins": learner.group_bin_padded,
+                    "counters": {k: int(v) for k, v in global_timer.counters.items()}})
+    return out
+
+
+def sharded_fit(n_rows, chunk, bin_sample_rows):
+    """A ShardedRowBlockStore over the gang (the layout fit through the
+    all-gather of the shards' payloads) beside the raw-prefix RowBlockStore
+    on the same pushes: whether the cut points, the EFB groups and the
+    planes agree, and the shard count."""
+    from lightgbm_tpu_torch.streaming import RowBlockStore, ShardedRowBlockStore
+
+    rng = np.random.RandomState(11)
+    X = rng.standard_normal((n_rows, 8))
+    X[X < -1.2] = 0.0
+    X[rng.rand(n_rows, 8) < 0.01] = np.nan
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float64)
+    params = {"objective": "binary", "verbosity": -1, "device_type": "cpu"}
+    stores = [RowBlockStore(params=params, bin_sample_rows=bin_sample_rows),
+              ShardedRowBlockStore(params=params, bin_sample_rows=bin_sample_rows)]
+    for store in stores:
+        for lo in range(0, n_rows, chunk):
+            store.push_rows(X[lo:lo + chunk], label=y[lo:lo + chunk])
+    base, sh = stores
+    cuts = all(np.array_equal(np.asarray(a.bin_upper_bound, float),
+                              np.asarray(b.bin_upper_bound, float), equal_nan=True)
+               for a, b in zip(base._layout.mappers, sh._layout.mappers))
+    return {"cuts": cuts, "groups": sh._group_lists == base._group_lists,
+            "plane": bool(np.array_equal(base.finalize().bins, sh.finalize().bins)),
+            "shards": sh.num_shards}
+
+
+def sharded_stream(configs, env, rounds, fit):
+    """stream_models and sharded_fit in one gang."""
+    return {"models": stream_models(configs, env, rounds), "fit": sharded_fit(*fit)}
+
+
+def card_stream(configs, env, rounds):
+    """stream_models on the card."""
+    return stream_models(configs, env, rounds, device="cuda")
+
+
+def heartbeat_train(params, rounds):
+    """tree_learner=data on the CPU three times: with an elastic runtime
+    (heartbeat_every 1: only the health window may carry it), with it and
+    the sanitizer on, and with the sanitizer alone. The heartbeats and the
+    model of the first; the collective-order checks of the second; the CPU
+    tensors' `item` reads of the second and third."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.parallel import elastic
+    from lightgbm_tpu_torch.utils import sanitize
+    from lightgbm_tpu_torch.utils.timer import global_timer
+
+    X, y = data(0)
+    out = {}
+    for tag, runtime, sanitized in (("plain", True, False), ("checked", True, True),
+                                    ("bare", False, True)):
+        global_timer.reset()
+        if runtime:
+            elastic.install(timeout_s=None, heartbeat_every=1)
+        if sanitized:
+            sanitize.enable("cpu")
+            sanitize.reset()
+        try:
+            bst = lt.train(dict(params, device_type="cpu", verbosity=-1),
+                           lt.Dataset(X, label=y), num_boost_round=rounds)
+            reads = sum(k.get("item", 0) for k in sanitize.sync_counts().values())
+        finally:
+            sanitize.disable()
+            sanitize.clear_override()
+            elastic.clear()
+        c = global_timer.counters
+        out[tag] = {"heartbeats": int(c.get("elastic_heartbeats", 0)),
+                    "order_checks": int(c.get("collective_order_checks", 0)),
+                    "reads": reads, "model": bst.model_to_string()}
+    return out
+
+
+def collective_order():
+    """Every dist collective recorded while the sanitizer is on, then a
+    planted divergence: rank 0 all-reduces where rank 1 reduce-scatters
+    (on gloo one all-reduce either way, so nothing blocks), and the check
+    on each rank: the sequence, the window after the agreeing check closed
+    it, and (the raiser, the op the check named, the message)."""
+    from lightgbm_tpu_torch.parallel import dist
+    from lightgbm_tpu_torch.utils import sanitize
+
+    world = dist.current_world()
+    sanitize.enable("cpu")
+    sanitize.reset()
+    try:
+        t = torch.ones(4)
+        dist.all_reduce(world, t)
+        dist.reduce_scatter(world, t)
+        dist.all_gather(world, t)
+        lo, hi = world.row_range(5)
+        dist.all_gather_rows(world, torch.ones(hi - lo), 5)
+        seq = sanitize.collective_sequence()
+        sanitize.check_collective_order()  # every rank agrees: quiet
+        (dist.all_reduce if world.rank == 0 else dist.reduce_scatter)(world, t)
+        window = sanitize.collective_sequence()
+        try:
+            sanitize.check_collective_order()
+            caught = None
+        except sanitize.CollectiveOrderError as exc:
+            caught = (exc.rank, exc.first_divergent_op, str(exc))
+    finally:
+        sanitize.disable()
+        sanitize.clear_override()
+    return {"seq": seq, "window": window, "caught": caught}
+
+
+def train_legs(params, fobj, legs):
+    """Data-parallel training on the CPU, quantized or on snapped-fobj
+    float gradients, once a (total rounds, checkpoint, resume) leg: rank 0
+    writes the checkpoint every iteration, a resuming leg starts from it.
+    Each leg's model text."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.checkpoint import checkpoint_callback
+    from lightgbm_tpu_torch.parallel import dist
+
+    X, y = data(0)
+    world = dist.current_world()
+    p = dict(params, device_type="cpu", verbosity=-1)
+    if fobj:
+        p["objective"] = snapped_logloss
+    out = []
+    for total, ck, resume in legs:
+        cbs = ([checkpoint_callback(ck, period=1)]
+               if ck is not None and (world is None or world.rank == 0) else None)
+        bst = lt.train(dict(p), lt.Dataset(X, label=y), num_boost_round=total,
+                       init_model=ck if resume else None, callbacks=cbs)
+        out.append(bst.model_to_string())
+    return out
+
+
+def flywheel_shrink(params, env, ckdir, store_dir, survivors, timeout_s):
+    """The gang-sharded flywheel on the CPU: an undisturbed refit; then a
+    refit in which every rank's watchdog turns a planted hang at iteration
+    2 into WorkerLostError (the generation rolls back, the watermark stays
+    pinned); then the gang shrinks to `survivors` ranks in place (a new
+    process group) and the same trainer resumes the refit: its model text
+    beside the undisturbed one's, and what the rollback left."""
+    from lightgbm_tpu_torch.parallel import dist, elastic
+    from lightgbm_tpu_torch.streaming import ContinuousTrainer, ShardedRowBlockStore
+    from lightgbm_tpu_torch.utils import faults
+
+    os.environ.update(env)
+    world = dist.current_world()
+    rank = world.rank
+    X, y = data(42, n=1200, f=10)
+    p = dict(params, device_type="cpu", verbosity=-1)
+
+    def filled():
+        store = ShardedRowBlockStore(params=p)
+        for lo in range(0, 1200, 300):
+            store.push_rows(X[lo:lo + 300], label=y[lo:lo + 300])
+        return store
+
+    straight = ContinuousTrainer(p, filled(), num_boost_round=4,
+                                 checkpoint_dir=os.path.join(ckdir, f"clean{rank}")).step()
+    store = filled()
+    shards = store.num_shards
+    tr = ContinuousTrainer(p, store, num_boost_round=4,
+                           checkpoint_dir=os.path.join(ckdir, f"crashy{rank}"))
+    elastic.install(timeout_s=timeout_s, rank=rank)
+    faults.install(f"worker_hang@{rank}:2")
+    os.environ["RANK"] = str(rank)
+    try:
+        lost = tr.step()
+    finally:
+        faults.clear()
+        elastic.clear()
+        del os.environ["RANK"]
+    out = {"lost": lost is None, "generation": tr.generation, "inflight": tr._inflight_rows,
+           "shards_before": shards, "straight": straight.model_to_string()}
+    dist.shutdown()
+    if rank >= survivors:
+        return out
+    torch.distributed.init_process_group("gloo", init_method=f"file://{store_dir}",
+                                         rank=rank, world_size=survivors)
+    resumed = tr.step()
+    out.update(resumed=resumed.model_to_string(), generation_after=tr.generation,
+               shards_after=store.num_shards)
+    return out
+
+
 # -------------------------------------------------------------- the gang
 
 def join_machine_list(mlist, port):
@@ -180,7 +407,7 @@ def _rank(rank, size, store, job, args, out_dir, threads, join):
             torch.distributed.init_process_group(
                 "gloo", init_method=f"file://{store}", rank=rank, world_size=size)
         result = JOBS[job](*args)
-        if join:
+        if join and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
     except BaseException:  # the parent reports the rank's failure
         result = {"error": traceback.format_exc()}
@@ -190,7 +417,11 @@ def _rank(rank, size, store, job, args, out_dir, threads, join):
 
 JOBS = {"train_models": train_models, "grow_trees": grow_trees, "grow_many": grow_many,
         "predict_sharded": predict_sharded, "cli_train": cli_train,
-        "join_machine_list": join_machine_list}
+        "join_machine_list": join_machine_list, "vote_skew": vote_skew,
+        "sharded_stream": sharded_stream, "card_stream": card_stream,
+        "heartbeat_train": heartbeat_train,
+        "collective_order": collective_order, "train_legs": train_legs,
+        "flywheel_shrink": flywheel_shrink}
 
 
 def run_gang(job, size, tmp_path, *args, threads=1, timeout=240, join=True):
