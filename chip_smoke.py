@@ -34,9 +34,15 @@ Phases (any failure exits non-zero before the result line):
             float32 summation bound otherwise, two launches bit-equal; the
             ragged (wave) histogram
             at the root and on 21 ranges covering about half the rows, each
-            also with every row in bin 0, and histogram_slots on a sample,
-            held as the leaf histogram and, otherwise, bit-equal to the
-            plain emulation of its fixed-point sum. The
+            also with every row in bin 0, held as the leaf histogram and,
+            otherwise, bit-equal to the plain emulation of its fixed-point
+            sum; histogram_slots (its own kernel, each row read once) on a
+            65,536-row sample at 1, 4 and 21 slots and past the
+            shared-memory split, slots out of range on either side,
+            bit-equal to that emulation with NaN, +inf and -inf rows, exact
+            on snapped gradients and in the integer mode, timed beside
+            index_add_; the image conversion bit-equal at a wave's 899,640
+            cells and at an odd, unaligned count. The
             split kernel's per-feature form on those leaves, with and without
             a feature mask, equal to the plain version run on the CPU (the
             gain within 4 ULP), and its leaf batch at a wave's 42 children
@@ -48,7 +54,12 @@ Phases (any failure exits non-zero before the result line):
             recorded from a round of training), on the same with random
             sides and on a real bagged initial partition, every output
             exactly equal to the plain version run on the CPU, and the
-            relabel on a real commit. The wave's selection and replay
+            relabel on a real commit. The wave's children kernel (the
+            larger children by subtraction from the pool, both converted)
+            on four real waves, bit-equal to the composition it replaced,
+            timed beside it; the third wave's device operations between the
+            ragged histogram and the split kernel, the children kernel first
+            and once. The wave's selection and replay
             kernels on the first, a middle and the last live wave of a real
             tree (each wave's carry kept from a round whose trees run the
             loop from the host, the CPU's loop, in place of the tree graph,
@@ -422,10 +433,17 @@ and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --profile-of DIR
 
 times the leaf histogram of the package in checkout DIR (an older commit
-unpacked with git archive) at the root and the two leaves of phase 4, and
-profiles one round of each learner on the same data: busy share, device
-operations a wave or a split, host scopes; for a comparison in one call.
-It prints no result line.
+unpacked with git archive) at the root and the two leaves of phase 4,
+histogram_slots and the conversion at phase 4's shapes, and profiles one
+round of each learner on the same data: busy share, device operations a
+wave or a split, host scopes; for a comparison in one call. It prints no
+result line.
+
+    python3 chip_smoke.py --wave-rounds-of DIR
+
+times phase 8's training with the package in checkout DIR, for a
+comparison of two checkouts in one call (A, B, B, A). It prints one JSON
+line a run and no result line.
 """
 from __future__ import annotations
 
@@ -473,6 +491,7 @@ SCAN_PARAMS = [0.0, 0.0, 20.0, 1e-3, 0.0, 0.0]  # TRAIN_PARAMS' regularizers
 # wave learner grows
 WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "feature_fraction_bynode"}
 WAVE_K, SLOT_SLOTS = 21, 4  # the wave learner's default width; histogram_slots' slots
+SLOT_CHECKS = (1, 4, 21)  # histogram_slots' slot counts held to the plain version
 GROUP_BINS = 256  # every value a uint8 group bin takes
 # train / valid AUC of the 10 wave-learner rounds at --seed 0 when the wave
 # histogram sums in float32; summed in fixed point they stay within 0.002
@@ -671,13 +690,14 @@ def leaf_sets(rng, n_rows, dev):
     return sets
 
 
-def index_add_ms(bins, gh, rows, slots, n_slots, num_bins, want, reps=10):
+def index_add_ms(bins, gh, rows, slots, n_slots, num_bins, want, reps=10, device=False):
     """The one PyTorch call that computes a histogram's sums: index_add_ of
     each (row, group)'s gh into its flat (group, bin[, slot]) cell, in no
     fixed order, over the index and the gh rows expanded beforehand; held to
     the kernel's result `want` within the float32 summation bound, or, for
     integer gh (the quantized mode), summed in int32 and held equal to it.
-    Returns its ms a call (CUDA events)."""
+    Returns its ms a call (CUDA events), and with `device` also the device
+    time of its operations a call (torch.profiler)."""
     G = bins.shape[0]
     rows = rows.to(torch.int64)
     cell = (bins[:, rows].to(torch.int64)
@@ -703,6 +723,8 @@ def index_add_ms(bins, gh, rows, slots, n_slots, num_bins, want, reps=10):
                     + 1e-30).all()),
               "index_add_: outside the float32 summation bound of the kernel's histogram")
     ms = cuda_ms(call, reps)
+    if device:
+        ms = (ms, call_device_ms(call, reps))
     del idx, src, cell
     torch.cuda.empty_cache()
     return ms
@@ -774,8 +796,8 @@ def check_histogram(dev, bins, n_rows, num_bins, seed):
         # the output written once
         bounds[name] = bound(perfmodel.hist_rows(count, G, out_bytes))
         if name == "root":
-            timings["library_root"] = index_add_ms(bins, gh, idx[:count], None, 1,
-                                                   num_bins, kern(gh, exps))
+            timings["library_root"], timings["library_root_device"] = index_add_ms(
+                bins, gh, idx[:count], None, 1, num_bins, kern(gh, exps), device=True)
     root_idx, root_count = sets["root"]
     check(torch.equal(hist_cuda.histogram(bins, gh[:n_rows], None, num_bins).cpu(),
                       hist_cuda.histogram(bins, gh, root_idx, num_bins, root_count,
@@ -982,13 +1004,13 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
     gradients and in the integer mode, within the float32 summation bound
     otherwise and bit-equal there to the plain emulation of the kernel's
     fixed-point sum, two launches bit-equal; then histogram_slots on a
-    sample. Timed as the wave learner calls it, with the fixed-point
+    sample (check_histogram_slots). Timed as the wave learner calls it, with the fixed-point
     exponents computed once beforehand. Returns (max |d|, timings, bounds,
     the wave case's histogram, the root's)."""
     from lightgbm_tpu_torch.ops import hist_cuda
     from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_fixed,
                                                   _histogram_slots_ragged_plain,
-                                                  fixed_point_exponents, histogram_slots)
+                                                  fixed_point_exponents)
 
     rng = np.random.RandomState(seed)
     G = bins.shape[0]
@@ -1061,27 +1083,102 @@ def check_wave_histogram(dev, bins, n_rows, num_bins, seed):
             timings["library_wave"] = index_add_ms(
                 bins_d, pay_d["real"][:, :3], in_ranges, args_d[0], K, num_bins,
                 kern("real", e=exps_d))
-    # histogram_slots: every row, SLOT_SLOTS slots, on a sample
-    n, S = SAMPLE_ROWS, SLOT_SLOTS
-    sb = bins[:, :n].contiguous()
-    sg = pay_d["snapped"][:n, :3].contiguous()
-    ss = torch.from_numpy(rng.randint(0, S + 2, size=n).astype(np.int32)).to(dev)
-    check(torch.equal(histogram_slots(sb, sg, ss, num_bins, S).cpu(),
-                      histogram_slots(sb.cpu(), sg.cpu(), ss.cpu(), num_bins, S)),
-          "histogram_slots: differs from the plain version on snapped gradients")
-    all_rows = [torch.zeros(S, dtype=torch.int32, device=dev),
-                torch.full((S,), n, dtype=torch.int32, device=dev),
-                torch.ones(S, dtype=torch.bool, device=dev)]
-    timings["slots"] = cuda_ms(lambda: histogram_slots(sb, sg, ss, num_bins, S), 20)
-    timings["plain_slots"] = cuda_ms(lambda: _histogram_slots_ragged_plain(
-        sb, sg, ss, *all_rows, num_bins, S), 2)
-    bounds["slots"] = bound(perfmodel.hist_ragged(n, G, S, out_bytes))
-    # its library call: index_add_ over the rows whose slot is one of the S
-    timings["library_slots"] = index_add_ms(
-        sb, sg, torch.nonzero(ss < S)[:, 0], ss, S, num_bins,
-        histogram_slots(sb, sg, ss, num_bins, S))
+    check_histogram_slots(dev, bins, payload, num_bins, rng, timings, bounds)
     check_image_modes(dev, bins, payload, pay_d, cases, exps, num_bins, timings, bounds)
     return max_err, timings, bounds, kept["wave"], kept["root"]
+
+
+def same_or_both_nan(a, b) -> bool:
+    """Bit-equal, NaN matching NaN whatever its sign and payload."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.masked_fill(a.isnan(), 0).view(torch.int32),
+                            b.masked_fill(b.isnan(), 0).view(torch.int32)))
+
+
+def slot_split(G, num_bins, n_sms):
+    """The fewest slots whose slot-expanded histogram splits its slots into
+    blocks (one group's slots past the opt-in shared memory)."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+
+    return next(S for S in range(1, 1025)
+                if hist_cuda.slots_launch_shape(SAMPLE_ROWS, G, num_bins, 3, S, False,
+                                                n_sms)[1] < S)
+
+
+def check_histogram_slots(dev, bins, payload, num_bins, rng, timings, bounds):
+    """Row 6's kernel (hist_slots_kernel: every row read once) against its
+    plain version run on the CPU, on a SAMPLE_ROWS sample at SLOT_CHECKS
+    slots and the first count past the shared-memory split, slots drawn in
+    [-2, S + 2) (out of range on either side): bit-equal to the plain
+    emulation of its fixed-point sum on real gradients with NaN, +inf and
+    -inf rows, exactly equal to the plain version on snapped gradients and
+    in the integer mode, two launches bit-equal. Timed at SLOT_SLOTS slots
+    with slots in [0, S + 2) (the earlier route's sample) and the exponents computed
+    beforehand, beside its plain version on the card, its bound and
+    index_add_ over the rows in range (device times on both sides, and CUDA
+    events a call back to back). Its seconds in timings["slots_s"]."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_plain,
+                                                  _histogram_slots_ragged_fixed,
+                                                  fixed_point_exponents, histogram_slots,
+                                                  whole_ranges)
+
+    t0 = time.perf_counter()
+    n, G = SAMPLE_ROWS, bins.shape[0]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sb = bins[:, :n].contiguous()
+    sb_h = sb.cpu()
+    real = payload["real"][:n, :3].clone()
+    for r, c, v in ((3, 0, "nan"), (4, 0, "inf"), (5, 1, "-inf"), (6, 2, "inf"),
+                    (7, 2, "-inf"), (n // 2, 1, "nan")):
+        real[r, c] = float(v)
+    gh = {"real": real, "snapped": payload["snapped"][:n, :3].contiguous(),
+          "quantized": payload["quantized"][:n, :3].contiguous()}
+    gh_d = {k: v.to(dev) for k, v in gh.items()}
+    exps = fixed_point_exponents(real, n)
+    split = slot_split(G, num_bins, n_sms)
+    for S in SLOT_CHECKS + (split,):
+        slot = rng.randint(-2, S + 2, size=n).astype(np.int32)
+        slot[3:8] = np.arange(5) % S  # the non-finite rows in range
+        slot_h = torch.from_numpy(slot)
+        slot_d = slot_h.to(dev)
+        got = histogram_slots(sb, gh_d["real"], slot_d, num_bins, S)
+        again = histogram_slots(sb, gh_d["real"], slot_d, num_bins, S)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"histogram_slots ({S} slots): two launches differ")
+        fixed = _histogram_slots_ragged_fixed(sb_h, real, slot_h,
+                                              *whole_ranges(n, S, "cpu"), num_bins, S, exps)
+        check(same_or_both_nan(got.cpu(), fixed),
+              f"histogram_slots ({S} slots): differs from the plain fixed-point emulation")
+        check(bool(got.isnan().any()) and bool(got.isposinf().any())
+              and bool(got.isneginf().any()),
+              f"histogram_slots ({S} slots): the non-finite rows made no NaN or inf cell")
+        for mode in ("snapped", "quantized"):
+            q = mode == "quantized"
+            check(torch.equal(histogram_slots(sb, gh_d[mode], slot_d, num_bins, S,
+                                              quantized=q).cpu(),
+                              _histogram_slots_plain(sb_h, gh[mode], slot_h, num_bins, S, q)),
+                  f"histogram_slots ({S} slots, {mode}): differs from the plain version")
+    timings["slots_checked"] = SLOT_CHECKS + (split,)
+    # the timing: the earlier route's sample, slots in [0, S + 2)
+    S = SLOT_SLOTS
+    sg = gh_d["snapped"]
+    ss = torch.from_numpy(rng.randint(0, S + 2, size=n).astype(np.int32)).to(dev)
+    exps_s = fixed_point_exponents(sg, n)
+    call = lambda: histogram_slots(sb, sg, ss, num_bins, S, exponents=exps_s)  # noqa: E731
+    timings["slots"] = cuda_ms(call, 20)
+    timings["slots_kernel_device"] = kernel_device_ms(call, 20, "hist_slots_kernel")
+    timings["slots_device"] = call_device_ms(call, 20)
+    timings["plain_slots"] = cuda_ms(lambda: _histogram_slots_plain(sb, sg, ss, num_bins, S), 2)
+    in_range = torch.nonzero((ss >= 0) & (ss < S))[:, 0]
+    bounds["slots"] = bound(perfmodel.hist_slots(n, in_range.numel(), G,
+                                                 G * num_bins * S * 3 * 4))
+    # its library call: index_add_ over the rows whose slot is one of the S
+    timings["library_slots"], timings["library_slots_device"] = index_add_ms(
+        sb, sg, in_range, ss, S, num_bins, call(), device=True)
+    timings["slots_shape"] = hist_cuda.slots_launch_shape(n, G, num_bins, 3, S, False, n_sms)
+    timings["slots_s"] = time.perf_counter() - t0
 
 
 def check_image_modes(dev, bins, payload, pay_d, cases, exps, num_bins, timings, bounds):
@@ -1091,9 +1188,13 @@ def check_image_modes(dev, bins, payload, pay_d, cases, exps, num_bins, timings,
     with the exponents), each bit-equal to its plain version run on the CPU
     on the 21 ranges, and on a 65,536-row sample holding
     +inf, -inf and NaN gradients (the flag words); the conversion of the
-    image equal to the float mode's result; two launches bit-equal. Timed
-    as the learners call them: the image of a wave's 21 ranges, and the
-    conversion of a wave's 42 children [2K, G, B, CH]; plain versions on
+    image equal to the float mode's result; two launches bit-equal; the
+    conversion also bit-equal at a wave's 42 children [2K, G, B, CH]
+    (899,640 cells at HIGGS width, flag codes strewn among them) and at an
+    odd count from an unaligned start. Timed as the learners call them: the
+    image of a wave's 21 ranges, and the conversion of a wave's 42 children
+    (CUDA events, and the kernel's device time by torch.profiler with its
+    inputs evicted from L2 before each call, and warm); plain versions on
     the card; the image's library call is the float mode's (index_add_)."""
     from lightgbm_tpu_torch.ops import hist_cuda
     from lightgbm_tpu_torch.ops.histogram import (_histogram_slots_ragged_image_plain,
@@ -1154,10 +1255,27 @@ def check_image_modes(dev, bins, payload, pay_d, cases, exps, num_bins, timings,
                                      exponents=exps_d, image=True)
     sums = torch.cat([img.sums, img.sums], dim=-1).contiguous()
     flags = torch.cat([img.flags, img.flags], dim=-1).contiguous()
-    timings["convert"] = cuda_ms(lambda: hist_cuda.image_to_float(sums, flags, exps_d), 20)
+    t0 = time.perf_counter()
+    strewn = flags.view(-1)[::997]  # every code among the cells
+    strewn.copy_(torch.arange(strewn.numel(), device=dev) % 3 + 1)
+    # bit-equal there (the 16-byte path) and at an odd count from an
+    # unaligned start (the scalar path)
+    odd = 3 * 333_333
+    for what, a, b in (("the 2K children", sums, flags),
+                       ("an odd, unaligned count", sums.view(-1)[3:3 + odd],
+                        flags.view(-1)[3:3 + odd])):
+        check(torch.equal(hist_cuda.image_to_float(a, b, exps_d).cpu().view(torch.int32),
+                          _image_to_float_plain(a.cpu(), b.cpu(), exps).view(torch.int32)),
+              f"conversion ({what}, {a.numel()} cells): differs from the plain version")
+    convert = lambda: hist_cuda.image_to_float(sums, flags, exps_d)  # noqa: E731
+    timings["convert"] = cuda_ms(convert, 20)
+    # its inputs (14.4 MB) fit in L2: back to back they are read warm
+    timings["convert_device"] = cold_kernel_ms(convert, 20, "hist_image_to_float_kernel")
+    timings["convert_warm_device"] = kernel_device_ms(convert, 20, "hist_image_to_float_kernel")
     timings["plain_convert"] = cuda_ms(lambda: _image_to_float_plain(sums, flags, exps_d), 5)
     bounds["convert"] = bound(perfmodel.image_to_float(sums.numel()))
     timings["convert_cells"] = sums.numel()
+    timings["convert_s"] = time.perf_counter() - t0
     # the leaf histogram's image mode (the host-driven data-parallel
     # learner's), on a sample bit-equal to its plain version, timed at the
     # root (the plain version on the card)
@@ -1278,18 +1396,21 @@ def record_wave_inputs(lt, train_set, params):
     counts the tree's live waves, a second, equal, one keeps the four
     carries; then each kept wave runs once more, eagerly, from its carry,
     with the wave's steps wrapped to keep copies of their inputs. Also a
-    bagged initial partition, from a round with bagging. Returns {"waves":
-    {name: {"select": args, "replay": (state before, args), "partition":
-    args, "relabel": (rows, leaf column, table)}}, "wave": the third
-    wave's partition args, "bagged": args, "relabel": the third wave's
-    relabel}."""
+    bagged initial partition, from a round with bagging; on the card the
+    third wave run once more under torch.profiler. Returns {"waves": {name:
+    {"select": args, "replay": (state before, args), "partition": args,
+    "relabel": (rows, leaf column, table), "children": args}}, "wave": the
+    third wave's partition args, "bagged": args, "relabel": the third
+    wave's relabel, "wave_trace": the third wave's device operations in
+    order, (name, microseconds)}."""
+    from lightgbm_tpu_torch.ops.histogram import HistImage
     from lightgbm_tpu_torch.ops.wave import DONE
     from lightgbm_tpu_torch.treelearner import device as dmod
 
     kept, seen = {}, {}
     real = {name: getattr(dmod, name) for name in
             ("_grow", "_wave", "_tree_graph", "partition_wave", "select_wave",
-             "replay_wave", "relabel_rows")}
+             "replay_wave", "relabel_rows", "wave_children")}
     count = dmod._Grown._count
     live = {"n": 0, "want": {}, "trees": 0}
 
@@ -1374,20 +1495,45 @@ def record_wave_inputs(lt, train_set, params):
             got["relabel"] = (row_p.clone(), leaf_col, table.clone())
             return real["relabel_rows"](row_p, leaf_col, table)
 
-        scratch.bins[cur].copy_(bins_c)
-        scratch.rows[cur].copy_(rows_c)
-        for k in _STATE:
-            getattr(scratch, k).copy_(state[k])
+        def kids(*args):
+            got["children"] = [a.map(torch.clone) if isinstance(a, HistImage) else a.clone()
+                               for a in args]
+            return real["wave_children"](*args)
+
+        def restore(cur=cur, bins_c=bins_c, rows_c=rows_c, state=state):
+            scratch.bins[cur].copy_(bins_c)
+            scratch.rows[cur].copy_(rows_c)
+            for k in _STATE:
+                getattr(scratch, k).copy_(state[k])
+
+        restore()
         dmod.select_wave, dmod.partition_wave = select, partition
         dmod.replay_wave, dmod.relabel_rows = replay_step, relabel
+        dmod.wave_children = kids
         try:
             dmod._wave(scratch, cur, K, meta, tables, params_d, masked, num_bins, max_depth)
         finally:
-            for k in ("partition_wave", "select_wave", "replay_wave", "relabel_rows"):
+            for k in ("partition_wave", "select_wave", "replay_wave", "relabel_rows",
+                      "wave_children"):
                 setattr(dmod, k, real[k])
         check(not torch.equal(scratch.scalars, state["scalars"]),
               f"the {name} wave changed no scalar")
         waves[name] = got
+        if name == "third" and DEVICE == "cuda":
+            # the same wave once more, unwrapped, under the profiler: its
+            # device operations in order
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            restore()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                dmod._wave(scratch, cur, K, meta, tables, params_d, masked, num_bins,
+                           max_depth)
+                torch.cuda.synchronize()
+            kept["wave_trace"] = [(e.name, e.time_range.elapsed_us()) for e in sorted(
+                (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)]
     del scratch
     kept["waves"] = waves
     kept["wave"] = waves["third"]["partition"]
@@ -1472,6 +1618,84 @@ def check_wave_step(dev, kept):
     return timings, bounds, (L, K, committed)
 
 
+def check_wave_children(dev, kept):
+    """The children kernel against its plain version run on the CPU on the
+    first, third, middle and last live wave of a real tree (each wave's
+    pool, selected leaves, smaller children's image and sides as the wave
+    passed them): both children's images and the float32 [2K, G, B, CH]
+    bit-equal, two launches bit-equal; its integer mode (the quantized
+    pool) on int32 sums at the third wave's shapes, its rows and sides,
+    bit-equal likewise. Timed on the third wave (WAVE_K leaves) beside the
+    composition it replaced, run on the card (the parent's passes: the pool
+    gather, two subtractions with their flag-table gathers, a where, two
+    stacks, the conversion): CUDA events a call, the kernel's device time
+    with its inputs evicted from L2 before each call, and the device time
+    and device operations a call (torch.profiler). Returns (timings,
+    bounds, (K, G, B, CH)); timings["s"] its seconds."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import HistImage, _wave_children_plain
+
+    t0 = time.perf_counter()
+
+    def on_cpu(args):
+        return [a.map(lambda t: t.cpu()) if isinstance(a, HistImage) else a.cpu()
+                for a in args]
+
+    for name, wave in kept["waves"].items():
+        args = wave["children"]
+        got = hist_cuda.wave_children(*args)
+        again = hist_cuda.wave_children(*args)
+        torch.cuda.synchronize()
+        want = _wave_children_plain(*on_cpu(args))
+        for side, g, a, w in zip(("left", "right"), got[:2], again[:2], want[:2]):
+            check(torch.equal(g.sums.cpu(), w.sums) and torch.equal(g.flags.cpu(), w.flags),
+                  f"children ({name} wave): the {side} child's image differs from the plain "
+                  "version")
+            check(torch.equal(g.sums, a.sums) and torch.equal(g.flags, a.flags),
+                  f"children ({name} wave): two launches differ")
+        check(torch.equal(got[2].cpu().view(torch.int32), want[2].view(torch.int32)),
+              f"children ({name} wave): the float32 children differ from the plain version")
+        check(torch.equal(got[2].view(torch.int32), again[2].view(torch.int32)),
+              f"children ({name} wave): two launches differ")
+    args = kept["waves"]["third"]["children"]
+    K = args[1].shape[0]
+    _, G, B, CH = args[0].sums.shape
+    # the integer mode: int32 sums (wrapping differences) in the pool's and
+    # the smaller image's shapes
+    gen = torch.Generator(device=dev).manual_seed(K)
+    q_args = [HistImage(torch.randint(-2 ** 31, 2 ** 31 - 1, tuple(a.sums.shape), generator=gen,
+                                      device=dev, dtype=torch.int32))
+              if isinstance(a, HistImage) else a for a in args[:4]] + [None]
+    got = hist_cuda.wave_children(*q_args)
+    again = hist_cuda.wave_children(*q_args)
+    torch.cuda.synchronize()
+    want = _wave_children_plain(*[None if a is None else a.map(lambda t: t.cpu())
+                                  if isinstance(a, HistImage) else a.cpu() for a in q_args])
+    check(got[2].dtype == torch.int32 and torch.equal(got[2].cpu(), want[2])
+          and torch.equal(got[0].sums.cpu(), want[0].sums)
+          and torch.equal(got[1].sums.cpu(), want[1].sums),
+          "children (integer mode): differs from the plain version")
+    check(torch.equal(got[2], again[2]), "children (integer mode): two launches differ")
+    kernel = lambda: hist_cuda.wave_children(*args)  # noqa: E731
+    plain = lambda: _wave_children_plain(*args)  # noqa: E731
+    q_kernel = lambda: hist_cuda.wave_children(*q_args)  # noqa: E731
+    timings = {"kernel": cuda_ms(kernel, 20), "plain": cuda_ms(plain, 20),
+               "kernel_device": cold_kernel_ms(kernel, 20, "wave_children_kernel"),
+               "kernel_warm_device": kernel_device_ms(kernel, 20, "wave_children_kernel"),
+               "i32": cuda_ms(q_kernel, 20), "plain_i32": cuda_ms(
+                   lambda: _wave_children_plain(*q_args), 20),
+               "i32_device": cold_kernel_ms(q_kernel, 20, "wave_children_kernel")}
+    for key, fn in (("kernel", kernel), ("plain", plain)):
+        busy = device_busy_share(lambda fn=fn: [fn() for _ in range(10)])
+        timings[key + "_busy"] = None if busy is None else busy[0] * 1e3 / 10
+        timings[key + "_ops"] = None if busy is None else busy[3] / 10
+    timings["s"] = time.perf_counter() - t0
+    cells = K * G * B * CH
+    return (timings, {"float": bound(perfmodel.wave_children(cells)),
+                      "i32": bound(perfmodel.wave_children(cells, quantized=True))},
+            (K, G, B, CH))
+
+
 def device_kernel_ms(fn, reps, names):
     """Device milliseconds a call of fn() of each kernel whose name holds one
     of `names`, from torch.profiler over reps calls (None when the profiler
@@ -1501,6 +1725,24 @@ def kernel_device_ms(fn, reps, name):
     return (device_kernel_ms(fn, reps, (name,)) or {}).get(name)
 
 
+def cold_kernel_ms(fn, reps, name):
+    """Device milliseconds a call of the kernel `name` launched by fn() with
+    its inputs in HBM: before each call a write of twice the card's L2
+    evicts them (torch.profiler; None where it records no device time).
+    Back to back, a kernel whose inputs fit in L2 reads them warm."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    evict = torch.empty(2 * getattr(props, "L2_cache_size", 50 << 20) // 4, dtype=torch.int32,
+                        device="cuda")
+
+    def call():
+        evict.fill_(1)
+        return fn()
+
+    ms = kernel_device_ms(call, reps, name)
+    del evict
+    return ms
+
+
 def call_device_ms(fn, reps):
     """Device milliseconds of the device's own events (kernels, copies,
     fills) a call of fn(), from torch.profiler, or None."""
@@ -1508,11 +1750,16 @@ def call_device_ms(fn, reps):
     return None if busy is None else busy[0] * 1e3 / reps
 
 
-def device_or_events(t, key):
-    """The profiler's device time of timings[key + "_device"], else the CUDA
-    events' time of timings[key]."""
-    d = t.get(key + "_device")
-    return t[key] if d is None else d
+def timed_row(t, key, library=None):
+    """A kernels-line row's "ms", "ms_by" and "library_ms" on one yardstick:
+    the profiler's device time timings[key + "_device"] where it recorded
+    one ("ms_by": "device"), else the CUDA events' timings[key] ("events");
+    the library call's time, timings[library + "_device"] or
+    timings[library] alike (null where there is none)."""
+    device = t.get(key + "_device") is not None
+    suffix = "_device" if device else ""
+    return {"ms": t[key + suffix], "ms_by": "device" if device else "events",
+            "library_ms": None if library is None else t.get(library + suffix)}
 
 
 def host_ms(fn, reps):
@@ -2664,7 +2911,7 @@ def drive_quantized(lt, libs, train_set, valid, X_train, y_train, float_runs, se
     runs = {}
     for label, params, rounds, required in (
             ("wave", {**WAVE_PARAMS, **QUANT_PARAMS}, TRAIN_ROUNDS,
-             ("quantize_reduce", "quantize", "histogram_slots_ragged_i32",
+             ("quantize_reduce", "quantize", "histogram_slots_ragged_i32", "wave_children_i32",
               "find_best_split_int", "find_best_split_batched_int", "partition_decide",
               "partition_scan", "partition_scatter", "relabel_rows", "wave_select",
               "wave_replay", "tree_loop_cond", "predict_forest_raw")),
@@ -2878,7 +3125,8 @@ def drive_goss(lt, libs, train_set, valid, X_train, y_train, tag):
     launches, report = {}, {}
     for label, params, rounds, required in (
             ("wave", {**WAVE_PARAMS, **GOSS_PARAMS}, GOSS_ROUNDS,
-             ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+             ("histogram_slots_ragged_image", "histogram_image_to_float", "wave_children",
+              "partition_decide", "partition_scan",
               "partition_scatter", "relabel_rows", "find_best_split",
               "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
               "predict_forest_raw")),
@@ -3598,7 +3846,8 @@ RF_PARAMS = {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
 LIFE_ROUNDS, LIFE_CUT, HEALTH_ROUNDS, LIFE_EXACT_ROUNDS = 10, 5, 8, 4
 HEALTH_NAN_AT, HEALTH_EVERY = 5, 2  # NaN in every 20th row's gradient at round 5
 DART_GAP, RF_GAP, ROLLBACK_GAP, REFIT_AUC_MARGIN = 1e-3, 1e-5, 1e-6, 0.01
-LIFE_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+LIFE_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "wave_children",
+                 "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
                  "predict_forest_raw", "predict_forest_leaf")
@@ -3880,7 +4129,8 @@ RANK_GRAD_ROWS, RANK_EXACT_ROWS, RANK_EXACT_ROUNDS, RANK_RANKER_ROUNDS = 65_536,
 # the card's gradients against the plain objective's on the CPU: the card's
 # exp, log and log2 are not the CPU's, and its sums run in another order
 RANK_GRAD_ATOL, XENDCG_RTOL, XENDCG_ATOL = 1e-5, 1e-5, 1e-7
-RANK_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+RANK_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "wave_children",
+                 "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
                  "histogram", "row_partition_decide", "row_partition_scatter",
@@ -4217,7 +4467,8 @@ def drive_ranking(lt, libs, higgs_set, higgs_valid, seed, tag):
 # ---------------------------------------------------------------------------
 # phase 18: observe and serve
 OBSERVE_ROUNDS = 3  # wave rounds in the telemetry session and under the sanitizer
-OBSERVE_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+OBSERVE_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "wave_children",
+                    "partition_decide", "partition_scan",
                     "partition_scatter", "relabel_rows", "find_best_split_batched",
                     "wave_select", "wave_replay", "tree_loop_cond", "predict_forest_raw")
 # the profiled round's trace must name these kernels
@@ -4565,7 +4816,8 @@ FACADE_ROWS = 262_144
 FACADE_ROUNDS, CAPI_ROUNDS = 10, 3
 FACADE_CHECK_ROWS = 32_768  # rows held against the plain parse
 CONVERT_ROWS, SHAP_ROWS = 4_096, 128
-FACADE_WAVE = ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+FACADE_WAVE = ("histogram_slots_ragged_image", "histogram_image_to_float", "wave_children",
+               "partition_decide", "partition_scan",
                "partition_scatter", "relabel_rows", "find_best_split", "find_best_split_batched",
                "wave_select", "wave_replay", "tree_loop_cond")
 
@@ -6142,11 +6394,15 @@ def profile_other(checkout: str, seed: int) -> int:
     """The package in another checkout on the training path's data: its
     leaf histogram's time at the root, a LEAF_ROWS and a SMALL_LEAF_ROWS
     leaf (the row sets and gradients of check_histogram; the whole padded
-    set read, as its learner reads it where it takes no count), and for each
-    learner the host scopes of a 2-round run and one profiled round."""
+    set read, as its learner reads it where it takes no count);
+    histogram_slots on SAMPLE_ROWS rows x SLOT_SLOTS slots (slots in [0, S +
+    2), grid-snapped gradients, the exponents computed inside each call)
+    and the conversion of a wave's 2 x WAVE_K children; and for each learner
+    the host scopes of a 2-round run and one profiled round."""
     sys.path.insert(0, os.path.abspath(checkout))
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import histogram_slots
     from lightgbm_tpu_torch.utils.timer import global_timer
 
     check(os.path.dirname(os.path.abspath(lt.__file__)).startswith(os.path.abspath(checkout)),
@@ -6167,7 +6423,25 @@ def profile_other(checkout: str, seed: int) -> int:
           f"back to back, CUDA events) " + ", ".join(
               f"{name} ({count} rows of {P}) {fmt_ms(call_device_ms(fn, 20))}; "
               f"{cuda_ms(fn, 20):.4f} ms" for name, (fn, count, P) in calls.items()))
-    del bins, gh, sets
+    n, S = SAMPLE_ROWS, SLOT_SLOTS
+    sb = bins[:, :n].contiguous()
+    sg = (gh[:n, :3] * 16).round() / 16
+    slot = torch.from_numpy(rng.randint(0, S + 2, size=n).astype(np.int32)).to(dev)
+    cells = 2 * WAVE_K * core.num_groups * num_bins * 3
+    sums = torch.from_numpy(rng.randint(-2 ** 40, 2 ** 40, size=cells)).to(dev)
+    flags = torch.from_numpy(rng.choice([0] * 97 + [1, 2, 3], size=cells)
+                             .astype(np.int32)).to(dev)
+    exps = torch.tensor([40, 44, 50], dtype=torch.int32, device=dev)
+    slots = lambda: histogram_slots(sb, sg, slot, num_bins, S)  # noqa: E731
+    convert = lambda: hist_cuda.image_to_float(sums, flags, exps)  # noqa: E731
+    print(f"[{card}] {checkout}: histogram_slots {n} rows x {S} slots, the call's device "
+          f"operations {fmt_ms(call_device_ms(slots, 20))} (torch.profiler), "
+          f"{cuda_ms(slots, 20):.4f} ms a call back to back (events); the conversion of "
+          f"{cells} cells, kernel {fmt_ms(cold_kernel_ms(convert, 20, 'to_float_kernel'))} "
+          f"device with its inputs in HBM, "
+          f"{fmt_ms(kernel_device_ms(convert, 20, 'to_float_kernel'))} back to back, "
+          f"{cuda_ms(convert, 20):.4f} ms a call back to back (events)")
+    del bins, gh, sets, sb, sg, slot, sums, flags
     torch.cuda.empty_cache()
     for params, label in ((WAVE_PARAMS, "wave"), (TRAIN_PARAMS, "serial")):
         global_timer.reset()
@@ -6462,7 +6736,7 @@ def main() -> int:
           f"({by_leaf})")
 
     # ------------------------- kernels of the training path vs plain
-    t0 = time.perf_counter()
+    t0 = t_kernels = time.perf_counter()
     X_train, y_train = higgs_rows(args.seed + 5, TRAIN_ROWS)
     X_valid, y_valid = higgs_rows(args.seed + 6, VALID_ROWS)
     train_set = lt.Dataset(X_train, label=y_train,
@@ -6499,7 +6773,8 @@ def main() -> int:
     print(f"{tag} histogram root through the identity row set: plain "
           f"{ms_hist['plain_root_identity']:.3f} ms")
     print(f"{tag} histogram root, the library call (index_add_ over the flat bin index, "
-          f"in no fixed order): {ms_hist['library_root']:.4f} ms a call")
+          f"in no fixed order): {ms_hist['library_root']:.4f} ms a call back to back, "
+          f"{fmt_ms(ms_hist['library_root_device'])} of device events a call (torch.profiler)")
     err_scan, ms_scan, bound_scan, F_scan, B_scan = check_split_scan(
         dev, core, bins_d, num_bins, gh_d, idx_d)
     print(f"kernels: split scan {F_scan}x{B_scan} on the root and a leaf, with and "
@@ -6518,8 +6793,12 @@ def main() -> int:
           f"and {WAVE_K} ranges over about half the rows, each also with every row in bin "
           f"0: exact on snapped gradients and in the integer mode, max |d| {err_rag:.3g} "
           f"otherwise (within the float32 summation bound; bit-equal to the plain "
-          f"fixed-point emulation), two launches bit-equal; histogram_slots on "
-          f"{SAMPLE_ROWS} rows x {SLOT_SLOTS} slots exact")
+          f"fixed-point emulation), two launches bit-equal; histogram_slots (its own "
+          f"kernel) on {SAMPLE_ROWS} rows at {list(ms_rag['slots_checked'])} slots (the last "
+          f"past the shared-memory split), slots out of range on either side: bit-equal to "
+          f"the plain fixed-point emulation with NaN, +inf and -inf rows, exact on snapped "
+          f"gradients and in the integer mode, two launches bit-equal; the conversion "
+          f"bit-equal at {ms_rag['convert_cells']} cells and at an odd, unaligned count")
     gb_rag, blocks_rag = hist_cuda.ragged_launch_shape(
         core.num_groups, num_bins, 3, False, torch.cuda.get_device_properties(dev)
         .multi_processor_count)
@@ -6539,6 +6818,30 @@ def main() -> int:
               f"({bound_rag[name][1]})")
     print(f"{tag} ragged histogram {WAVE_K} ranges, the library call (index_add_ over the "
           f"flat (bin, slot) index, in no fixed order): {ms_rag['library_wave']:.4f} ms a call")
+    gb_s, sb_s, blocks_s = ms_rag["slots_shape"]
+    faster = {k: "no slower than" if a is not None and b is not None and a <= b
+              else "SLOWER than" for k, a, b in (
+                  ("events", ms_rag["slots"], ms_rag["library_slots"]),
+                  ("device", ms_rag["slots_device"], ms_rag["library_slots_device"]))}
+    print(f"{tag} histogram_slots {SAMPLE_ROWS} rows x {SLOT_SLOTS} slots, its own kernel (each "
+          f"row read once; {blocks_s} x {-(-core.num_groups // gb_s)} x "
+          f"{-(-SLOT_SLOTS // sb_s)} blocks of {gb_s} groups x {sb_s} slots, "
+          f"{hist_cuda.slots_smem_bytes(gb_s, sb_s, num_bins, 3, False)} bytes of shared "
+          f"memory): the kernel {fmt_ms(ms_rag['slots_kernel_device'])}, the call's device "
+          f"operations (memset, kernel, conversion) {fmt_ms(ms_rag['slots_device'])} "
+          f"(torch.profiler), {faster['device']} index_add_'s "
+          f"{fmt_ms(ms_rag['library_slots_device'])} (zeros and index_add_ over the rows in "
+          f"range, in no fixed order); a call back to back {ms_rag['slots']:.4f} ms of CUDA "
+          f"events, {faster['events']} index_add_'s {ms_rag['library_slots']:.4f} ms")
+    cold = ms_rag["convert_device"]
+    verdict = ("not measured against" if cold is None
+               else "within" if cold <= 0.0086 else "ABOVE")
+    print(f"{tag} conversion of a wave's {2 * WAVE_K} children ({ms_rag['convert_cells']} "
+          f"cells): kernel {fmt_ms(cold)} device with its inputs in HBM (L2 evicted before each "
+          f"call), {fmt_ms(ms_rag['convert_warm_device'])} back to back (warm in L2; "
+          f"torch.profiler), {ms_rag['convert']:.4f} ms a call back to back (events), plain "
+          f"{ms_rag['plain_convert']:.3f} ms, bound {bound_rag['convert'][0]:.4f} ms "
+          f"({bound_rag['convert'][1]}): {verdict} the 0.0086 ms target (twice the bound)")
     ms_cmp, bound_cmp = check_compaction(dev, bins_d, TRAIN_ROWS, args.seed + 9)
     print(f"kernels: compaction {core.num_groups}x{TRAIN_ROWS} + [{TRAIN_ROWS}, 5] payload, "
           f"{WAVE_K} ranges: bit-equal to the CPU plain version, two launches bit-equal")
@@ -6578,6 +6881,8 @@ def main() -> int:
     ms_part, bound_part, (n_part, g_part, k_part, moved, relabeled) = check_partition(
         dev, kept, args.seed + 11)
     ms_step, bound_step, (L_step, K_step, committed) = check_wave_step(dev, kept)
+    ms_kids, bound_kids, shape_kids = check_wave_children(dev, kept)
+    trace = kept.get("wave_trace") or []
     del kept
     torch.cuda.empty_cache()
     print(f"kernels: wave partition {g_part}x{n_part} + [{n_part}, 5] payload, a real wave's "
@@ -6614,6 +6919,40 @@ def main() -> int:
           f"{ms_step['replay_plain']:.3f} ms, bound {bound_step['replay'][0]:.6f} ms "
           f"({bound_step['replay'][1]})")
 
+    print(f"kernels: wave children on the first, third, middle and last live wave of a real "
+          f"tree ({shape_kids[0]} leaves x {list(shape_kids[1:])} at the third): both "
+          f"children's images and the float32 children bit-equal to the CPU plain version, "
+          f"two launches bit-equal; the integer mode on int32 sums at the third's shapes "
+          f"likewise")
+    print(f"{tag} wave children ({2 * shape_kids[0]} children, "
+          f"{2 * int(np.prod(shape_kids))} cells): kernel {fmt_ms(ms_kids['kernel_device'])} "
+          f"device with its inputs in HBM, {fmt_ms(ms_kids['kernel_warm_device'])} back to "
+          f"back (torch.profiler), {ms_kids['kernel']:.4f} ms a call back to back (events), "
+          f"{fmt_ms(ms_kids['kernel_busy'])} of device operations a call "
+          f"({ms_kids['kernel_ops']} of them); the composition it replaced on the card: "
+          f"{ms_kids['plain']:.4f} ms a call back to back, {fmt_ms(ms_kids['plain_busy'])} of "
+          f"device operations a call ({ms_kids['plain_ops']} of them); bound "
+          f"{bound_kids['float'][0]:.4f} ms ({bound_kids['float'][1]}). Its integer mode "
+          f"(the quantized pool): {fmt_ms(ms_kids['i32_device'])} device with its inputs in "
+          f"HBM, {ms_kids['i32']:.4f} ms a call back to back, plain {ms_kids['plain_i32']:.4f} "
+          f"ms, bound {bound_kids['i32'][0]:.4f} ms ({bound_kids['i32'][1]})")
+    if trace:
+        names = [n for n, _ in trace]
+        hist_at = max((i for i, n in enumerate(names) if "hist_ragged_kernel" in n), default=-1)
+        check(hist_at >= 0, "a real wave's trace names no hist_ragged_kernel")
+        split_at = next((i for i, n in enumerate(names) if i > hist_at and "split_kernel" in n),
+                        len(names))
+        segment = trace[hist_at + 1:split_at]
+        check(sum("wave_children_kernel" in n for n, _ in segment) == 1
+              and "wave_children_kernel" in segment[0][0],
+              f"a real wave ran {[n for n, _ in segment]} between the ragged histogram and the "
+              "split search, not the children kernel first and once")
+        print(f"wave trace (the third wave run eagerly, torch.profiler): between "
+              f"hist_ragged_kernel and split_kernel {len(segment)} device operations: "
+              + ", ".join(f"{n[:48]} {us / 1e3:.4f} ms" for n, us in segment))
+    else:
+        print("wave trace: not measured (the profiler recorded no device operation)")
+
     kept = record_serial_splits(lt, train_set, TRAIN_PARAMS)
     ms_rp, bound_rp, shapes_rp = check_row_partition(dev, kept)
     del kept
@@ -6635,6 +6974,10 @@ def main() -> int:
               f"buffers): device {fmt_ms(t['device'])} vs {fmt_ms(t['parent_device'])} a "
               f"call, {t['ops']} vs {t['parent_ops']} device operations a call; host "
               f"{t['host']:.4f} vs {t['parent_host']:.4f} ms a call")
+    print(f"{tag} phase 4, the training path's kernels (data included): "
+          f"{time.perf_counter() - t_kernels:.1f} s, of which histogram_slots' checks and "
+          f"timings {ms_rag['slots_s']:.1f} s, the conversion's {ms_rag['convert_s']:.1f} s, "
+          f"the children kernel's {ms_kids['s']:.1f} s")
 
     # ------------------------------- the card trains as the CPU does
     exact = {}
@@ -6846,7 +7189,8 @@ def main() -> int:
             partition_cuda.LIB, wave_cuda.LIB, quantize_cuda)
     valid = (X_valid, y_valid)
     wave = drive_training(lt, libs, WAVE_PARAMS, train_set, valid, TRAIN_ROUNDS,
-                          ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+                          ("histogram_slots_ragged_image", "histogram_image_to_float",
+                           "wave_children", "partition_decide", "partition_scan",
                            "partition_scatter", "relabel_rows", "find_best_split",
                            "find_best_split_batched", "wave_select", "wave_replay",
                            "tree_loop_cond", "predict_forest_raw"), tag, "wave")
@@ -6907,7 +7251,8 @@ def main() -> int:
     check(global_timer.counters.get("serve_dispatch_failures", 0) == 0
           and global_timer.counters.get("serve_breaker_shed", 0) == 0,
           "multiclass serving: a dispatch failed or a request was shed")
-    for name in ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+    for name in ("histogram_slots_ragged_image", "histogram_image_to_float", "wave_children",
+                 "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
                  "histogram", "row_partition_decide", "row_partition_scatter",
@@ -6917,7 +7262,8 @@ def main() -> int:
 
     # ------------------------------- the async pipeline
     async_launches, _ = drive_async(lt, libs, train_set, tag)
-    for name in ("histogram_slots_ragged_image", "histogram_image_to_float", "partition_decide", "partition_scan",
+    for name in ("histogram_slots_ragged_image", "histogram_image_to_float", "wave_children",
+                 "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond"):
         check(async_launches[name] > 0, f"async path: kernel {name} never launched")
@@ -6927,7 +7273,8 @@ def main() -> int:
     q_launches, q_times = drive_quantized(lt, libs, train_set, valid, X_train, y_train,
                                           {"wave": wave, "serial": serial}, args.seed, tag)
     for name in ("quantize_reduce", "quantize", "histogram_slots_ragged_i32",
-                 "histogram_i32", "find_best_split_int", "find_best_split_batched_int"):
+                 "wave_children_i32", "histogram_i32", "find_best_split_int",
+                 "find_best_split_batched_int"):
         check(q_launches[name] > 0, f"quantized path: kernel {name} never launched")
     torch.cuda.empty_cache()
 
@@ -7018,23 +7365,23 @@ def main() -> int:
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
          "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
          "launches": launches("histogram"),
-         "max_abs_err": err_hist, "ms": device_or_events(ms_hist, "root"),
+         "max_abs_err": err_hist, **timed_row(ms_hist, "root", "library_root"),
          "plain_ms": ms_hist["plain_root"], "bound_ms": bound_hist["root"][0],
-         "bound_by": bound_hist["root"][1], "library_ms": ms_hist["library_root"]},
+         "bound_by": bound_hist["root"][1]},
         {"name": "split_scan", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
          "launches": launches("split_scan"),
-         "max_abs_err": err_scan, "ms": device_or_events(ms_scan, "kernel"),
+         "max_abs_err": err_scan, **timed_row(ms_scan, "kernel"),
          "plain_ms": ms_scan["plain"], "bound_ms": bound_scan[0],
-         "bound_by": bound_scan[1], "library_ms": None},
+         "bound_by": bound_scan[1]},
         {"name": "split_scan_batched", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
          "launches": launches("split_scan_batched"),
-         "max_abs_err": 0.0, "ms": device_or_events(ms_bscan, "kernel"),
+         "max_abs_err": 0.0, **timed_row(ms_bscan, "kernel"),
          "plain_ms": ms_bscan["plain"], "bound_ms": bound_bscan[0],
-         "bound_by": bound_bscan[1], "library_ms": None},
+         "bound_by": bound_bscan[1]},
         # the float mode converting in its own launch: since phase 21 came the
         # float wave paths take the image mode and the conversion kernel
         # (their rows below), so no main path launches it
@@ -7045,14 +7392,16 @@ def main() -> int:
          "max_abs_err": err_rag, "ms": ms_rag["wave"],
          "plain_ms": ms_rag["plain_wave"], "bound_ms": bound_rag["wave"][0],
          "bound_by": bound_rag["wave"][1], "library_ms": ms_rag["library_wave"]},
-        # the same kernel over every row; nothing in either package's main
-        # paths calls it, so it launches on none of them
+        # the slot-expanded histogram over every row, a kernel of its own
+        # (hist_slots_kernel); nothing in either package's main paths calls
+        # it, so it launches on none of them
         {"name": "histogram_slots", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
          "replaces": "lightgbm_tpu/ops/hist_pallas.py:229",
-         "launches": 0, "max_abs_err": 0.0, "ms": ms_rag["slots"],
+         "launches": launches("histogram_slots"), "max_abs_err": 0.0,
+         **timed_row(ms_rag, "slots", "library_slots"),
          "plain_ms": ms_rag["plain_slots"], "bound_ms": bound_rag["slots"][0],
-         "bound_by": bound_rag["slots"][1], "library_ms": ms_rag["library_slots"]},
+         "bound_by": bound_rag["slots"][1]},
         # phase 21: row 2's kernel leaving its image unconverted (the sums the
         # gang's ranks add, and the single-card wave's exact pool), and the
         # conversion kernel, image -> float32 (every float histogram's last
@@ -7069,9 +7418,23 @@ def main() -> int:
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
          "replaces": "lightgbm_tpu/ops/hist_pallas.py:350",
          "launches": launches("histogram_image_to_float"), "max_abs_err": 0.0,
-         "ms": ms_rag["convert"], "plain_ms": ms_rag["plain_convert"],
-         "bound_ms": bound_rag["convert"][0], "bound_by": bound_rag["convert"][1],
-         "library_ms": None},
+         **timed_row(ms_rag, "convert"), "plain_ms": ms_rag["plain_convert"],
+         "bound_ms": bound_rag["convert"][0], "bound_by": bound_rag["convert"][1]},
+        # the single-card wave's children step: the JAX grower's subtraction,
+        # where and stack (XLA), the pool gather and the conversion in one
+        # launch; its integer mode on the quantized pool (phase 12's waves)
+        {"name": "wave_children", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/treelearner/device.py:729",
+         "launches": launches("wave_children"), "max_abs_err": 0.0,
+         **timed_row(ms_kids, "kernel"), "plain_ms": ms_kids["plain"],
+         "bound_ms": bound_kids["float"][0], "bound_by": bound_kids["float"][1]},
+        {"name": "wave_children_i32", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/treelearner/device.py:729",
+         "launches": launches("wave_children_i32"), "max_abs_err": 0.0,
+         **timed_row(ms_kids, "i32"), "plain_ms": ms_kids["plain_i32"],
+         "bound_ms": bound_kids["i32"][0], "bound_by": bound_kids["i32"][1]},
         {"name": "histogram_image", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
          "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
@@ -7091,16 +7454,16 @@ def main() -> int:
          "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
          "launches": launches("find_best_split"),
-         "max_abs_err": err_find, "ms": device_or_events(ms_find, "one"),
+         "max_abs_err": err_find, **timed_row(ms_find, "one"),
          "plain_ms": ms_find["plain_one"], "bound_ms": bound_find["one"][0],
-         "bound_by": bound_find["one"][1], "library_ms": None},
+         "bound_by": bound_find["one"][1]},
         {"name": "find_best_split_batched", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
          "launches": launches("find_best_split_batched"),
-         "max_abs_err": err_find, "ms": device_or_events(ms_find, "batch"),
+         "max_abs_err": err_find, **timed_row(ms_find, "batch"),
          "plain_ms": ms_find["plain_batch"], "bound_ms": bound_find["batch"][0],
-         "bound_by": bound_find["batch"][1], "library_ms": None},
+         "bound_by": bound_find["batch"][1]},
     ]
     # the wave partition's three passes (the plain time is the whole
     # partition's, one function) and the commit's relabel
@@ -7178,10 +7541,9 @@ def main() -> int:
         kernels.append(
             {"name": name, "route": "cuda", "source": "lightgbm_tpu_torch/csrc/" + source,
              "replaces": replaces, "launches": launches(name), "max_abs_err": 0.0,
-             "ms": device_or_events({"k": t_modes[key + "_events"],
-                                     "k_device": t_modes[key]}, "k"),
+             **timed_row({"k": t_modes[key + "_events"], "k_device": t_modes[key]}, "k"),
              "plain_ms": t_modes["plain_" + key], "bound_ms": b_modes[key][0],
-             "bound_by": b_modes[key][1], "library_ms": None})
+             "bound_by": b_modes[key][1]})
     # phase 15: the split kernel's constrained mode, and the linear score
     # (the traversal's leaf mode and the linear epilogue) on rows 4 and 1
     (t_con, b_con), (t_lin, b_lin) = lanes["scan"], lanes["linear_score"]
@@ -7190,10 +7552,9 @@ def main() -> int:
          "source": "lightgbm_tpu_torch/csrc/split_find.cu",
          "replaces": "lightgbm_tpu/ops/scan_pallas.py:235",
          "launches": launches("find_best_split_constrained"), "max_abs_err": 0.0,
-         "ms": device_or_events({"k": t_con["constrained"],
-                                 "k_device": t_con["constrained_device"]}, "k"),
-         "plain_ms": t_con["plain"], "bound_ms": b_con[0], "bound_by": b_con[1],
-         "library_ms": None})
+         **timed_row({"k": t_con["constrained"], "k_device": t_con["constrained_device"]},
+                     "k"),
+         "plain_ms": t_con["plain"], "bound_ms": b_con[0], "bound_by": b_con[1]})
     kernels.append(
         {"name": "predict_forest_leaf_linear", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",

@@ -1,4 +1,5 @@
-// Leaf histograms for Hopper (sm_90a). Two kernels on one scheme:
+// Leaf histograms for Hopper (sm_90a). Three kernels on one scheme, and the
+// float modes' conversion:
 //
 // (1) hist_rows_kernel, the port of the TPU kernel
 //     lightgbm_tpu/ops/hist_pallas.py:pallas_histogram (kernel body
@@ -8,8 +9,13 @@
 // (2) hist_ragged_kernel, the port of the TPU kernel
 //     lightgbm_tpu/ops/hist_pallas.py:pallas_histogram_slots_ragged (kernel
 //     _make_slots_ragged_kernel, tile table active_tile_table), the wave
-//     learner's histogram; with every range the whole row set it also computes
-//     pallas_histogram_slots (kernel _make_slots_kernel).
+//     learner's histogram.
+// (3) hist_slots_kernel, the port of the TPU kernel
+//     lightgbm_tpu/ops/hist_pallas.py:pallas_histogram_slots (kernel
+//     _make_slots_kernel): the slot-expanded histogram over every row.
+// (4) hist_image_to_float_kernel and wave_children_kernel: the float modes'
+//     last step (image -> float32), alone or fused into the wave's children
+//     step (below).
 //
 // What (1) computes. For a bin plane bins [G, N] uint8, gradients gh [*, CH]
 // and a leaf's padded row-index set idx [P] (sentinel N = no row), of whose
@@ -114,6 +120,51 @@
 //    the output's integer image, then zeroed — only when its share leaves a
 //    range. A wave's partial chunks cost nothing extra, and while one block
 //    of an SM waits at a flush the other works.
+//
+// What (3) computes. For a per-row slot [N] int32 and gh [N, CH] float32
+// (rows of a leading stride):
+//   out[g, b, s*CH + c] = sum over rows n with slot[n] == s in [0, S) of
+//                         [bins[g, n] == b] * gh[n, c]
+// A row whose slot is outside [0, S) adds nothing and its gh is not read.
+// Its bound is (2)'s bytes over every row: ~1 us at 65,536 rows x 28 groups.
+//
+// Design of (3). Until this kernel it was (2) with S ranges, each the whole
+// row set: every row read S times, and each persistent block zeroing and
+// flushing its groups once a range (PERF.md, section 6, row 6, times both on
+// the card). Here the grid follows the rows, as (1)'s does
+// (ops/hist_cuda.py:slots_launch_shape, ~4,096 rows a block), and each row is
+// read once: a block's shared histogram is slot-expanded,
+// [GB][B][SB][bin_words], a row's slot picking its cell; a thread's four rows
+// merge in registers only when bin and slot both match; one flush a block into
+// the image [G, B, S, CH], which is the output's [G, B, S*CH] layout. When one
+// group's S slots outgrow the opt-in shared memory (255 bins x 3 channels in
+// fixed point: past 32 slots), the slots split into blocks along a third grid
+// dimension; a slot block reads the slot vector of its rows and only its own
+// rows' bins and gh.
+//
+// The conversion (4). The float modes' int64 image becomes float32 (int64 ->
+// double -> x 2^-e_c -> float32, each rounding to nearest even; NaN and +-inf
+// from the flag words). It reads 12 B and writes 4 B a cell: its bound at a
+// wave's 42 children (899,640 cells) is 4.3 us. Its first form took one thread
+// a cell with a 64-bit i % CH, the exponents reloaded and a double ldexp a
+// cell, scalar loads (PERF.md, section 6, row 2j, times both; a call timed
+// back to back is host-bound). Now: the grid's thread count is a multiple of
+// 12, so a thread's cells keep their channels in a grid-stride loop and their
+// scales stay in registers, computed once; cells go four at a time with
+// 16-byte loads and stores where the three arrays are aligned.
+//
+// The wave's children step (4). A wave's children were ~36 device operations
+// over [K, G, B, CH] (the pool gather, two subtractions with flag-table
+// gathers, a where, two stacks, the conversion; PERF.md, section 6, row 2k,
+// times both on the card). One launch now: the selected leaves' pool rows, the
+// smaller children's image read in place in (2)'s [G, B, K, CH] layout, the
+// larger child parent - smaller with the flags through the subtraction table
+// (kSubCodes), both children's images written for the pool and the [2K, G, B,
+// CH] float32 that the split search reads. Exact integer arithmetic: the bits
+// of that composition. Bytes: 24 read and 32 written a (leaf, cell). The
+// quantized pool (int32, no flags, nothing to convert) takes the same kernel
+// in its integer mode, which writes only the [2K, G, B, CH] int32 whose halves
+// are the children.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -211,12 +262,9 @@ __device__ __forceinline__ V to_value(T x, double scale, unsigned& nf, int shift
   }
 }
 
-// Add one run's sums to bin b of group gi in the block's histogram.
+// Add one run's sums to a cell of the block's histogram.
 template <bool kFixed, int CH, typename V>
-__device__ __forceinline__ void emit(unsigned* hist, int gi, int b, int num_bins,
-                                     const V (&acc)[CH]) {
-  if (b >= num_bins) return;
-  unsigned* cell = hist + (gi * num_bins + b) * bin_words(CH, kFixed);
+__device__ __forceinline__ void add_cell(unsigned* cell, const V (&acc)[CH]) {
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
     if (acc[c] == 0) continue;
@@ -232,6 +280,14 @@ __device__ __forceinline__ void emit(unsigned* hist, int gi, int b, int num_bins
       atomicAdd(reinterpret_cast<int*>(cell) + c, static_cast<int>(acc[c]));
     }
   }
+}
+
+// Add one run's sums to bin b of group gi in the block's histogram.
+template <bool kFixed, int CH, typename V>
+__device__ __forceinline__ void emit(unsigned* hist, int gi, int b, int num_bins,
+                                     const V (&acc)[CH]) {
+  if (b >= num_bins) return;
+  add_cell<kFixed, CH>(hist + (gi * num_bins + b) * bin_words(CH, kFixed), acc);
 }
 
 // A thread's four rows into group gi of the block's histogram: `word` holds
@@ -274,20 +330,26 @@ __device__ __forceinline__ void add_rows(unsigned* hist, int gi, uint32_t word,
   }
 }
 
-// Flush the block's histogram of groups g0 .. g0 + cells / (num_bins * CH)
-// into slot k of an image [G, num_bins, n_ranges, CH] (int64 fixed point or
-// int32): its nonzero cells with global atomics, then zero them. Called by
-// every thread between two __syncthreads.
-template <bool kFixed, int CH>
+// Flush the block's histogram [groups][num_bins][ns][CH] of groups g0 ..
+// g0 + cells / (num_bins * ns * CH) into slots s0 .. s0 + ns - 1 of an image
+// [G, num_bins, n_slots, CH] (int64 fixed point or int32): its nonzero cells
+// with global atomics, then zero them. ns is kNs where that is given (the
+// rows and ragged kernels' one slot), else the argument `slots` (the
+// slot-expanded kernel's slot block). Called by every thread between two
+// __syncthreads.
+template <bool kFixed, int CH, int kNs>
 __device__ __forceinline__ void flush(unsigned* hist, int cells, int g0, int num_bins,
-                                      int n_ranges, int k, void* __restrict__ image) {
+                                      int n_slots, int s0, int slots, void* __restrict__ image) {
   constexpr int kWords = bin_words(CH, kFixed);
+  const int ns = kNs > 0 ? kNs : slots;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     const int c = i % CH;
-    const long long gb = static_cast<long long>(g0) * num_bins + i / CH;
-    const long long at = (gb * n_ranges + k) * CH + c;
+    const int q = i / CH;  // the block's (group, bin, slot) cell
+    const int gb_local = q / ns;
+    const long long gb = static_cast<long long>(g0) * num_bins + gb_local;
+    const long long at = (gb * n_slots + s0 + (q - gb_local * ns)) * CH + c;
     if constexpr (kFixed) {
-      unsigned* cell = hist + (i / CH) * kWords + 2 * c;
+      unsigned* cell = hist + q * kWords + 2 * c;
       const long long s = static_cast<long long>(
           (static_cast<unsigned long long>(cell[1]) << 32) | cell[0]);
       if (s != 0) {
@@ -297,7 +359,7 @@ __device__ __forceinline__ void flush(unsigned* hist, int cells, int g0, int num
       cell[0] = 0;
       cell[1] = 0;
     } else {
-      unsigned* cell = hist + (i / CH) * kWords + c;
+      unsigned* cell = hist + q * kWords + c;
       if (*cell != 0) atomicAdd(reinterpret_cast<int*>(image) + at, static_cast<int>(*cell));
       *cell = 0;
     }
@@ -381,7 +443,7 @@ hist_rows_kernel(const uint8_t* __restrict__ bins, long long n_rows, int n_group
     }
   }
   __syncthreads();
-  flush<kFixed, CH>(hist, ng * num_bins * CH, g0, num_bins, 1, 0, image);
+  flush<kFixed, CH, 1>(hist, ng * num_bins * CH, g0, num_bins, 1, 0, 1, image);
 }
 
 // ---------------------------------------------------------------- (2)
@@ -462,25 +524,274 @@ hist_ragged_kernel(const uint8_t* __restrict__ bins, long long n_rows, int n_gro
     }
     __syncthreads();
     // flush range k's share
-    flush<kFixed, CH>(hist, cells, g0, num_bins, n_ranges, k, image);
+    flush<kFixed, CH, 1>(hist, cells, g0, num_bins, n_ranges, k, 1, image);
     __syncthreads();
     a = stop;
   }
 }
 
-// out[i] = image[i] * 2^-e_c as float32, c = i % CH; +inf, -inf or NaN
-// where flags[i] holds code 1, 2 or 3.
-__global__ void hist_fixed_to_float_kernel(const long long* __restrict__ image,
-                                           const unsigned* __restrict__ flags, long long count,
-                                           int ch, const int* __restrict__ exps,
-                                           float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const unsigned code = flags[i];
-  out[i] = code == 0 ? __double2float_rn(__ll2double_rn(image[i]) * ldexp(1.0, -exps[i % ch]))
-         : code == 1 ? __int_as_float(0x7f800000)
-         : code == 2 ? __int_as_float(0xff800000)
-                     : __int_as_float(0x7fc00000);
+// ---------------------------------------------------------------- (3)
+
+// A thread's four rows into one group's slot-expanded histogram [B][ns]
+// (`hist`, the group's first cell): `word` holds their bins (byte i for row
+// i), ls their slots less the block's first, ok which rows fall in the
+// block's slots, v their values. Runs of rows equal in bin and slot are
+// summed in registers first. Each non-finite value (its code in nf, 2 bits a
+// (row, channel)) flags its own cell: flags[at + (b * n_slots + ls) * CH + c].
+template <bool kFixed, int CH, typename V>
+__device__ __forceinline__ void add_slot_rows(unsigned* hist, uint32_t word,
+                                              const int (&ls)[kRowsPerThread], unsigned ok,
+                                              const V (&v)[kRowsPerThread][CH], unsigned nf,
+                                              int num_bins, int ns, int n_slots,
+                                              unsigned* __restrict__ flags, long long at) {
+  constexpr int kWords = bin_words(CH, kFixed);
+  int cur = -1;  // the run's cell, b * ns + ls
+  V acc[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) acc[c] = 0;
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int b = (word >> (8 * i)) & 0xff;
+    if (!(ok >> i & 1) || b >= num_bins) continue;
+    const int key = b * ns + ls[i];
+    if (key != cur) {
+      if (cur >= 0) add_cell<kFixed, CH>(hist + cur * kWords, acc);
+      cur = key;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) acc[c] = 0;
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) acc[c] += v[i][c];
+  }
+  if (cur >= 0) add_cell<kFixed, CH>(hist + cur * kWords, acc);
+  if (kFixed && nf != 0) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int b = (word >> (8 * i)) & 0xff;
+      if (!(ok >> i & 1) || b >= num_bins) continue;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const unsigned code = (nf >> (2 * (i * CH + c))) & 3u;
+        if (code != 0) {
+          atomicOr(flags + at + (static_cast<long long>(b) * n_slots + ls[i]) * CH + c, code);
+        }
+      }
+    }
+  }
+}
+
+// grid (row chunks, group blocks, slot blocks). Image: [G, num_bins,
+// n_slots, CH] int64 (fixed) or int32 (integer mode: the output itself),
+// and in the fixed mode flags, [G, num_bins, n_slots, CH] codes of the
+// non-finite values; both zeroed before the launch.
+template <bool kFixed, int CH>
+__global__ void __launch_bounds__(kThreads, 2)
+hist_slots_kernel(const uint8_t* __restrict__ bins, long long n_rows, int n_groups,
+                  const float* __restrict__ gh, long long gh_stride,
+                  const int* __restrict__ slot, int n_slots, int num_bins, int group_block,
+                  int slot_block, const int* __restrict__ exps, void* __restrict__ image,
+                  unsigned* __restrict__ flags) {
+  using V = typename std::conditional<kFixed, long long, int>::type;
+  constexpr int kWords = bin_words(CH, kFixed);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* hist = reinterpret_cast<unsigned*>(smem);  // [GB][B][SB][kWords]
+  const int g0 = blockIdx.y * group_block;
+  const int ng = min(group_block, n_groups - g0);
+  const int s0 = blockIdx.z * slot_block;
+  const int ns = min(slot_block, n_slots - s0);
+  const int group_words = num_bins * ns * kWords;
+  for (int i = threadIdx.x; i < ng * group_words; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+
+  double scale[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) scale[c] = kFixed ? ldexp(1.0, exps[c]) : 1.0;
+  const long long a = n_rows * blockIdx.x / gridDim.x;
+  const long long z = n_rows * (blockIdx.x + 1) / gridDim.x;
+  const long long step = static_cast<long long>(kRowsPerThread) * blockDim.x;
+  for (long long base = a & ~3LL; base < z; base += step) {
+    const long long r0 = base + kRowsPerThread * threadIdx.x;
+    if (r0 >= z) continue;
+    int ls[kRowsPerThread];  // each row's slot; a row outside [a, z): -1
+    if (r0 >= a && r0 + 3 < z && (reinterpret_cast<uintptr_t>(slot + r0) & 15) == 0) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(slot + r0));
+      ls[0] = q.x, ls[1] = q.y, ls[2] = q.z, ls[3] = q.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        const long long r = r0 + i;
+        ls[i] = r >= a && r < z ? __ldg(slot + r) : -1;
+      }
+    }
+    unsigned ok = 0;  // bit i: row i's slot is one of this block's
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const unsigned u = static_cast<unsigned>(ls[i]) - static_cast<unsigned>(s0);
+      ok |= unsigned(u < static_cast<unsigned>(ns)) << i;
+      ls[i] = static_cast<int>(u);
+    }
+    if (ok == 0) continue;
+    V v[kRowsPerThread][CH];
+    unsigned nf = 0;  // the non-finite codes, 2 bits a (row, channel)
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float x = ok >> i & 1 ? gh[(r0 + i) * gh_stride + c] : 0.0f;
+        v[i][c] = to_value<kFixed, V>(x, scale[c], nf, 2 * (i * CH + c));
+      }
+    }
+    uint32_t next = load4(bins + static_cast<long long>(g0) * n_rows, r0, n_rows);
+    for (int gi = 0; gi < ng; ++gi) {
+      const uint32_t word = next;
+      if (gi + 1 < ng) {
+        next = load4(bins + static_cast<long long>(g0 + gi + 1) * n_rows, r0, n_rows);
+      }
+      add_slot_rows<kFixed, CH>(hist + gi * group_words, word, ls, ok, v, nf, num_bins, ns,
+                                n_slots, flags,
+                                (static_cast<long long>(g0 + gi) * num_bins * n_slots + s0) * CH);
+    }
+  }
+  __syncthreads();
+  flush<kFixed, CH, 0>(hist, ng * num_bins * ns * CH, g0, num_bins, n_slots, s0, ns, image);
+}
+
+// ---------------------------------------------------------------- (4)
+
+constexpr int kConvertThreads = 256;
+// Blocks of a conversion or children launch at most, and the multiple of 3
+// their count is rounded up to: with kConvertThreads a multiple of 4, the
+// grid's threads are a multiple of 12, so the cells a thread takes along its
+// grid-stride loop, four or one at a time, keep their channels (CH <= 4).
+constexpr int kConvertMaxBlocks = 132 * 12;
+
+int convert_blocks(long long items) {
+  long long blocks = (items + kConvertThreads - 1) / kConvertThreads;
+  blocks = (blocks < 1 ? 3 : blocks + 2) / 3 * 3;  // at least one multiple of 3
+  return int(blocks < kConvertMaxBlocks ? blocks : kConvertMaxBlocks);
+}
+
+// One cell of a float-mode image as float32: s * 2^-e_c (int64 -> double ->
+// scaled exactly -> float32, each rounding to nearest even), or +inf, -inf,
+// NaN for flag code 1, 2, 3.
+__device__ __forceinline__ float fixed_value(long long s, unsigned code, double scale) {
+  return code == 0 ? __double2float_rn(__ll2double_rn(s) * scale)
+       : code == 1 ? __int_as_float(0x7f800000)
+       : code == 2 ? __int_as_float(0xff800000)
+                   : __int_as_float(0x7fc00000);
+}
+
+// out[i] = fixed_value(sums[i], flags[i], 2^-exps[i % ch]). With `vec` (the
+// three arrays 16-byte aligned) a thread takes cells four at a time (two
+// 16-byte loads of sums, one of flags, one 16-byte store), the last
+// count % 4 by the first threads; else one at a time.
+__global__ void __launch_bounds__(kConvertThreads)
+hist_image_to_float_kernel(const long long* __restrict__ sums,
+                           const unsigned* __restrict__ flags, long long count, int ch,
+                           const int* __restrict__ exps, float* __restrict__ out, int vec) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long T = static_cast<long long>(gridDim.x) * blockDim.x;  // a multiple of 12
+  if (vec) {
+    double sc[4];  // cell 4 j + m's scale, the same for every j of this thread
+#pragma unroll
+    for (int m = 0; m < 4; ++m) sc[m] = ldexp(1.0, -__ldg(exps + (4 * t + m) % ch));
+    const long long quads = count >> 2;
+    const longlong2* s2 = reinterpret_cast<const longlong2*>(sums);
+    const uint4* f4 = reinterpret_cast<const uint4*>(flags);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long j = t; j < quads; j += T) {
+      const longlong2 a = __ldg(s2 + 2 * j);
+      const longlong2 b = __ldg(s2 + 2 * j + 1);
+      const uint4 f = __ldg(f4 + j);
+      o4[j] = make_float4(fixed_value(a.x, f.x, sc[0]), fixed_value(a.y, f.y, sc[1]),
+                          fixed_value(b.x, f.z, sc[2]), fixed_value(b.y, f.w, sc[3]));
+    }
+    const long long i = (quads << 2) + t;
+    if (i < count) {
+      out[i] = fixed_value(sums[i], flags[i], ldexp(1.0, -__ldg(exps + int(i % ch))));
+    }
+  } else {
+    const double sc = ldexp(1.0, -__ldg(exps + t % ch));
+    for (long long i = t; i < count; i += T) {
+      out[i] = fixed_value(__ldg(sums + i), __ldg(flags + i), sc);
+    }
+  }
+}
+
+// The flag code of a - b for the codes of a and b (index 4 a + b): a float
+// difference of +inf, -inf or NaN cells; ops/histogram.py:_SUB_CODES, two
+// bits a code in kSubWord.
+constexpr unsigned char kSubCodes[16] = {0, 2, 1, 3, 1, 3, 1, 3, 2, 2, 3, 3, 3, 3, 3, 3};
+
+constexpr unsigned pack_sub_codes() {
+  unsigned w = 0;
+  for (int i = 0; i < 16; ++i) w |= unsigned(kSubCodes[i]) << (2 * i);
+  return w;
+}
+
+constexpr unsigned kSubWord = pack_sub_codes();
+
+__device__ __forceinline__ unsigned sub_code(unsigned a, unsigned b) {
+  return (kSubWord >> (2 * (4 * (a & 3u) + (b & 3u)))) & 3u;
+}
+
+// The wave's children step, grid (cell blocks, K leaves). pool [*, G, B, CH]
+// sums S, leaf k's parent at row sel[k]; small the smaller children's image
+// [G, B, K, CH] as (2) writes it; left_small [K] bytes. The left child is
+// the smaller one, or parent - smaller, on its side; the right one parent -
+// left, as ops/histogram.py:children composes them. Fixed point (S = long
+// long): pool_flags and small_flags the uint32 flag words, the children's
+// flags by sub_code; writes left, right [K, G, B, CH] (sums and flags) and
+// out [2K, G, B, CH] float32. Integer mode (S = int, the quantized pool: no
+// flags, nothing to convert): writes only out [2K, G, B, CH] int32, whose
+// halves are the children. Leaf k's left child is out's 2k, its right 2k +
+// 1. A thread's cells keep their channel (convert_blocks).
+template <typename S, int CH>
+__global__ void __launch_bounds__(kConvertThreads)
+wave_children_kernel(const S* __restrict__ pool, const unsigned* __restrict__ pool_flags,
+                     const int* __restrict__ sel, const S* __restrict__ small,
+                     const unsigned* __restrict__ small_flags,
+                     const uint8_t* __restrict__ left_small, long long gb_count,
+                     const int* __restrict__ exps, S* __restrict__ left,
+                     unsigned* __restrict__ left_flags, S* __restrict__ right,
+                     unsigned* __restrict__ right_flags, void* __restrict__ out) {
+  constexpr bool kFixed = std::is_same<S, long long>::value;
+  using U = typename std::make_unsigned<S>::type;  // wrapping differences
+  const int k = blockIdx.y;
+  const int n_leaves = gridDim.y;
+  const long long cells = gb_count * CH;
+  const long long parent = static_cast<long long>(__ldg(sel + k)) * cells;
+  const bool small_left = __ldg(left_small + k) != 0;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long T = static_cast<long long>(gridDim.x) * blockDim.x;  // a multiple of 12
+  const int c = t % CH;
+  const double sc = kFixed ? ldexp(1.0, -__ldg(exps + c)) : 1.0;
+  const long long at = static_cast<long long>(k) * cells;  // leaf k in left, right
+  using O = typename std::conditional<kFixed, float, int>::type;
+  O* out_l = static_cast<O*>(out) + 2 * at;
+  O* out_r = out_l + cells;
+  for (long long i = t; i < cells; i += T) {
+    const long long si = (i / CH * n_leaves + k) * CH + c;
+    const U p = static_cast<U>(__ldg(pool + parent + i));
+    const U s = static_cast<U>(__ldg(small + si));
+    const U l = small_left ? s : p - s;
+    const U r = p - l;
+    if constexpr (kFixed) {
+      const unsigned pf = __ldg(pool_flags + parent + i);
+      const unsigned sf = __ldg(small_flags + si);
+      const unsigned lf = small_left ? sf : sub_code(pf, sf);
+      const unsigned rf = sub_code(pf, lf);
+      left[at + i] = static_cast<S>(l);
+      left_flags[at + i] = lf;
+      right[at + i] = static_cast<S>(r);
+      right_flags[at + i] = rf;
+      out_l[i] = fixed_value(static_cast<S>(l), lf, sc);
+      out_r[i] = fixed_value(static_cast<S>(r), rf, sc);
+    } else {
+      out_l[i] = static_cast<S>(l);
+      out_r[i] = static_cast<S>(r);
+    }
+  }
 }
 
 // The float modes' scratch is one buffer, `cells` int64 sums and behind
@@ -513,9 +824,11 @@ cudaError_t opt_in(Kernel kernel, size_t smem, size_t (&opted)[kMaxDevices]) {
 // The float modes' last step, on `count` cells.
 cudaError_t fixed_to_float(const void* image, const unsigned* flags, long long count, int ch,
                            const int* exps, float* out, cudaStream_t stream) {
-  const int threads = 256;
-  hist_fixed_to_float_kernel<<<int((count + threads - 1) / threads), threads, 0, stream>>>(
-      static_cast<const long long*>(image), flags, count, ch, exps, out);
+  const bool vec = ((reinterpret_cast<uintptr_t>(image) | reinterpret_cast<uintptr_t>(flags)
+                     | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  hist_image_to_float_kernel<<<convert_blocks(vec ? count / 4 : count), kConvertThreads, 0,
+                               stream>>>(static_cast<const long long*>(image), flags, count, ch,
+                                         exps, out, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -620,6 +933,107 @@ int ragged(const uint8_t* bins, long long n_rows, int n_groups, const float* gh,
   return int(fixed_to_float(image, flags, cells, ch, exps, out, stream));
 }
 
+size_t slots_smem_bytes(int group_block, int slot_block, int num_bins, int ch, bool fixed) {
+  return sizeof(unsigned) * size_t(group_block) * num_bins * slot_block * bin_words(ch, fixed);
+}
+
+template <bool kFixed, int CH>
+cudaError_t launch_slots(dim3 grid, size_t smem, cudaStream_t stream, const uint8_t* bins,
+                         long long n_rows, int n_groups, const float* gh, long long gh_stride,
+                         const int* slot, int n_slots, int num_bins, int group_block,
+                         int slot_block, const int* exps, void* image, unsigned* flags) {
+  auto kernel = hist_slots_kernel<kFixed, CH>;
+  static size_t opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(kernel, smem, opted);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(bins, n_rows, n_groups, gh, gh_stride, slot, n_slots,
+                                           num_bins, group_block, slot_block, exps, image,
+                                           flags);
+  return cudaGetLastError();
+}
+
+template <bool kFixed>
+int slots(const uint8_t* bins, long long n_rows, int n_groups, const float* gh,
+          long long gh_stride, int ch, const int* slot, int n_slots, int num_bins,
+          int group_block, int slot_block, int blocks, const int* exps, void* image, float* out,
+          cudaStream_t stream) {
+  if (ch < 1 || ch > kMaxChannels || num_bins < 1 || num_bins > 256 || n_rows < 1
+      || n_groups < 1 || n_slots < 1 || group_block < 1 || slot_block < 1
+      || slot_block > n_slots || blocks < 1 || (kFixed && exps == nullptr)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const int n_gblocks = (n_groups + group_block - 1) / group_block;
+  const int n_sblocks = (n_slots + slot_block - 1) / slot_block;
+  if (n_gblocks > 65535 || n_sblocks > 65535) return int(cudaErrorInvalidValue);
+  const size_t smem = slots_smem_bytes(group_block, slot_block, num_bins, ch, kFixed);
+  const dim3 grid(blocks, n_gblocks, n_sblocks);
+  const long long cells = (long long)n_groups * num_bins * n_slots * ch;
+  unsigned* flags = kFixed ? flag_words(image, cells) : nullptr;
+  cudaError_t err = cudaMemsetAsync(image, 0, image_bytes(cells, kFixed), stream);
+  if (err != cudaSuccess) return int(err);
+  switch (ch) {
+    case 1: err = launch_slots<kFixed, 1>(grid, smem, stream, bins, n_rows, n_groups, gh,
+                                          gh_stride, slot, n_slots, num_bins, group_block,
+                                          slot_block, exps, image, flags); break;
+    case 2: err = launch_slots<kFixed, 2>(grid, smem, stream, bins, n_rows, n_groups, gh,
+                                          gh_stride, slot, n_slots, num_bins, group_block,
+                                          slot_block, exps, image, flags); break;
+    case 3: err = launch_slots<kFixed, 3>(grid, smem, stream, bins, n_rows, n_groups, gh,
+                                          gh_stride, slot, n_slots, num_bins, group_block,
+                                          slot_block, exps, image, flags); break;
+    default: err = launch_slots<kFixed, 4>(grid, smem, stream, bins, n_rows, n_groups, gh,
+                                           gh_stride, slot, n_slots, num_bins, group_block,
+                                           slot_block, exps, image, flags); break;
+  }
+  if (err != cudaSuccess || !kFixed) return int(err);
+  return int(fixed_to_float(image, flags, cells, ch, exps, out, stream));
+}
+
+template <typename S, int CH>
+cudaError_t launch_children(dim3 grid, cudaStream_t stream, const void* pool,
+                            const unsigned* pool_flags, const int* sel, const void* small,
+                            const unsigned* small_flags, const uint8_t* left_small,
+                            long long gb_count, const int* exps, void* left,
+                            unsigned* left_flags, void* right, unsigned* right_flags,
+                            void* out) {
+  wave_children_kernel<S, CH><<<grid, kConvertThreads, 0, stream>>>(
+      static_cast<const S*>(pool), pool_flags, sel, static_cast<const S*>(small), small_flags,
+      left_small, gb_count, exps, static_cast<S*>(left), left_flags, static_cast<S*>(right),
+      right_flags, out);
+  return cudaGetLastError();
+}
+
+template <typename S>
+int children(const void* pool, const unsigned* pool_flags, const int* sel, const void* small,
+             const unsigned* small_flags, const uint8_t* left_small, int n_leaves,
+             long long gb_count, int ch, const int* exps, void* left, unsigned* left_flags,
+             void* right, unsigned* right_flags, void* out, void* stream) {
+  constexpr bool kFixed = std::is_same<S, long long>::value;
+  if (ch < 1 || ch > kMaxChannels || n_leaves < 1 || n_leaves > 65535 || gb_count < 0
+      || (kFixed && exps == nullptr)) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (gb_count == 0) return int(cudaSuccess);
+  const dim3 grid(convert_blocks(gb_count * ch), n_leaves);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (ch) {
+    case 1: err = launch_children<S, 1>(grid, s, pool, pool_flags, sel, small, small_flags,
+                                        left_small, gb_count, exps, left, left_flags, right,
+                                        right_flags, out); break;
+    case 2: err = launch_children<S, 2>(grid, s, pool, pool_flags, sel, small, small_flags,
+                                        left_small, gb_count, exps, left, left_flags, right,
+                                        right_flags, out); break;
+    case 3: err = launch_children<S, 3>(grid, s, pool, pool_flags, sel, small, small_flags,
+                                        left_small, gb_count, exps, left, left_flags, right,
+                                        right_flags, out); break;
+    default: err = launch_children<S, 4>(grid, s, pool, pool_flags, sel, small, small_flags,
+                                         left_small, gb_count, exps, left, left_flags, right,
+                                         right_flags, out); break;
+  }
+  return int(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -706,6 +1120,61 @@ int lgbt_histogram_image_to_f32(const void* sums, const unsigned* flags, long lo
   if (count == 0) return int(cudaSuccess);
   return int(fixed_to_float(sums, flags, count, ch, exps, out,
                             static_cast<cudaStream_t>(stream)));
+}
+
+// The slot-expanded histogram over every row (hist_slots_kernel). gh [N, ch]
+// float32 with row stride gh_stride; slot [N] int32, a row adding to slot
+// slot[n] when it lies in [0, n_slots); a grid of `blocks` row chunks, group
+// blocks of group_block groups and slot blocks of slot_block slots. Float
+// mode (_f32): exps [ch] int32 the fixed-point exponents, image the scratch
+// of G * num_bins * n_slots * ch int64 sums and as many uint32 flag words
+// behind them (zeroed here), out [G, num_bins, n_slots * ch] float32.
+// Integer mode (_i32): image is the int32 output itself (zeroed here); exps
+// and out unused.
+int lgbt_histogram_slots_f32(const uint8_t* bins, long long n_rows, int n_groups,
+                             const float* gh, long long gh_stride, int ch, const int* slot,
+                             int n_slots, int num_bins, int group_block, int slot_block,
+                             int blocks, const int* exps, void* image, float* out,
+                             void* stream) {
+  return slots<true>(bins, n_rows, n_groups, gh, gh_stride, ch, slot, n_slots, num_bins,
+                     group_block, slot_block, blocks, exps, image, out,
+                     static_cast<cudaStream_t>(stream));
+}
+
+int lgbt_histogram_slots_i32(const uint8_t* bins, long long n_rows, int n_groups,
+                             const float* gh, long long gh_stride, int ch, const int* slot,
+                             int n_slots, int num_bins, int group_block, int slot_block,
+                             int blocks, const int* exps, void* image, float* out,
+                             void* stream) {
+  return slots<false>(bins, n_rows, n_groups, gh, gh_stride, ch, slot, n_slots, num_bins,
+                      group_block, slot_block, blocks, exps, image, out,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The wave's children step (wave_children_kernel): pool [*, gb_count, ch]
+// int64 and pool_flags uint32, sel [n_leaves] int32 rows of the pool (the
+// caller's: not checked), small [gb_count, n_leaves, ch] int64 and
+// small_flags uint32, left_small [n_leaves] bytes, exps [ch] int32; writes
+// left, right [n_leaves, gb_count, ch] int64 with their uint32 flag words
+// and out [2 n_leaves, gb_count, ch] float32.
+int lgbt_wave_children(const void* pool, const unsigned* pool_flags, const int* sel,
+                       const void* small, const unsigned* small_flags,
+                       const uint8_t* left_small, int n_leaves, long long gb_count, int ch,
+                       const int* exps, void* left, unsigned* left_flags, void* right,
+                       unsigned* right_flags, float* out, void* stream) {
+  return children<long long>(pool, pool_flags, sel, small, small_flags, left_small, n_leaves,
+                             gb_count, ch, exps, left, left_flags, right, right_flags, out,
+                             stream);
+}
+
+// Its integer mode (the quantized pool): pool [*, gb_count, ch] and small
+// [gb_count, n_leaves, ch] int32, no flags; writes only out [2 n_leaves,
+// gb_count, ch] int32, leaf k's left child at 2k and its right at 2k + 1.
+int lgbt_wave_children_i32(const void* pool, const int* sel, const void* small,
+                           const uint8_t* left_small, int n_leaves, long long gb_count, int ch,
+                           int* out, void* stream) {
+  return children<int>(pool, nullptr, sel, small, nullptr, left_small, n_leaves, gb_count, ch,
+                       nullptr, nullptr, nullptr, nullptr, nullptr, out, stream);
 }
 
 }  // extern "C"

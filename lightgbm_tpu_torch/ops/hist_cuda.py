@@ -4,8 +4,11 @@
 and the row gather in front of it (``ops/histogram.py:152-153`` of the JAX
 package); with a `HistogramCarry` it sums one leaf histogram over the
 blocks of a streamed plane (the kernel's carried mode, the out-of-core
-learner's histogram); `histogram_ragged` replaces ``pallas_histogram_slots_ragged`` and
-``pallas_histogram_slots``. The note at the top of the source gives their
+learner's histogram); `histogram_ragged` replaces
+``pallas_histogram_slots_ragged``, `histogram_slots` ``pallas_histogram_slots``.
+`image_to_float` is the float modes' conversion, and `wave_children` the
+wave learner's children step (the larger children by subtraction and both
+converted, in one launch). The note at the top of the source gives their
 design and bound. The library is built and loaded by ``ops/cuda_build.py``.
 
 Dispatch is by the device of the bin plane alone: a CPU tensor takes the
@@ -31,8 +34,9 @@ import torch
 from .cuda_build import CudaLibrary, require_cuda, stream_of
 from .histogram import (HistImage, _acc_dtype, _build_histogram_plain,
                         _build_histogram_rows_plain, _histogram_rows_image_plain,
-                        _histogram_slots_ragged_image_plain, _histogram_slots_ragged_plain,
-                        _image_to_float_plain, fixed_point_exponents)
+                        _histogram_slots_plain, _histogram_slots_ragged_image_plain,
+                        _histogram_slots_ragged_plain, _image_to_float_plain,
+                        _wave_children_plain, fixed_point_exponents)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -50,6 +54,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lgbt_histogram_ragged_image.restype = i32
     lib.lgbt_histogram_image_to_f32.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr]
     lib.lgbt_histogram_image_to_f32.restype = i32
+    slots = [ptr, i64, i32, ptr, i64, i32, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+    for fn in (lib.lgbt_histogram_slots_f32, lib.lgbt_histogram_slots_i32):
+        fn.argtypes = slots
+        fn.restype = i32
+    lib.lgbt_wave_children.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr, ptr,
+                                       ptr, ptr, ptr, ptr, ptr]
+    lib.lgbt_wave_children.restype = i32
+    lib.lgbt_wave_children_i32.argtypes = [ptr, ptr, ptr, ptr, i32, i64, i32, ptr, ptr]
+    lib.lgbt_wave_children_i32.restype = i32
 
 
 # the integer modes (quantized-gradient training) and the carried mode (the
@@ -57,12 +70,16 @@ def _declare(lib: ctypes.CDLL) -> None:
 LIB = CudaLibrary("histogram.cu", ("histogram", "histogram_slots_ragged", "histogram_i32",
                                    "histogram_slots_ragged_i32", "histogram_carry",
                                    "histogram_carry_i32", "histogram_image",
-                                   "histogram_slots_ragged_image", "histogram_image_to_float"),
+                                   "histogram_slots_ragged_image", "histogram_image_to_float",
+                                   "histogram_slots", "histogram_slots_i32", "wave_children",
+                                   "wave_children_i32"),
                   _declare)
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 
 MAX_RANGES = 1024              # csrc/histogram.cu kMaxRanges
+MAX_SLOTS = 65_535             # slots of a slot-expanded launch (its slot blocks: a grid axis)
+MAX_WAVE_LEAVES = 65_535       # leaves of a children launch: a grid dimension
 MAX_ROWS = (1 << 31) - 1       # rows the kernels' int32 indices and ranges address
 SMEM_PER_SM = 233_472          # shared memory of a Hopper SM
 SMEM_RESERVED = 1024           # ... of which the system takes this much a block
@@ -513,3 +530,181 @@ def _ragged_image(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
             group_block, blocks, exponents.data_ptr(), scratch.data_ptr(), stream_of(bins))
     LIB.count("histogram_slots_ragged_image", err)
     return _image_views(scratch, cells, shape)
+
+
+def slots_launch_shape(n_rows: int, n_groups: int, num_bins: int, ch: int, n_slots: int,
+                       quantized: bool, n_sms: int) -> Tuple[int, int, int]:
+    """(group_block, slot_block, blocks) of the slot-expanded histogram.
+    One group's slot block is as many of the n_slots as fit the opt-in
+    shared memory (split evenly when they do not all fit); then as
+    `rows_launch_shape`: groups as many as fit beside the SM's other block
+    (one when a group's slot block takes more), row chunks of
+    ROWS_PER_BLOCK rows, as many as the card holds at BLOCKS_PER_SM blocks
+    an SM beside the group and slot blocks, and the groups split finer
+    while the chunks are few."""
+    cell = num_bins * _bin_bytes(ch, quantized)  # one group's bins of one slot
+    n_sblocks = -(-n_slots // max(1, min(n_slots, SMEM_OPT_IN // cell)))
+    slot_block = -(-n_slots // n_sblocks)
+    budget = SMEM_PER_SM // BLOCKS_PER_SM - SMEM_RESERVED
+    fit = max(1, min(n_groups, budget // (cell * slot_block)))
+    slots = n_sms * BLOCKS_PER_SM
+    chunks = max(1, -(-n_rows // ROWS_PER_BLOCK))
+    n_gblocks = max(-(-n_groups // fit), min(n_groups, slots // (chunks * n_sblocks)))
+    group_block = -(-n_groups // n_gblocks)
+    n_gblocks = -(-n_groups // group_block)
+    return group_block, slot_block, max(1, min(chunks, slots // (n_gblocks * n_sblocks)))
+
+
+def slots_smem_bytes(group_block: int, slot_block: int, num_bins: int, ch: int,
+                     quantized: bool) -> int:
+    """Dynamic shared memory of a slot-expanded histogram's block."""
+    return group_block * slot_block * num_bins * _bin_bytes(ch, quantized)
+
+
+def _check_slots(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor, num_bins: int,
+                 n_slots: int, exponents: Optional[torch.Tensor]) -> None:
+    """Raise ValueError on what the slot-expanded histogram's kernel does not
+    take."""
+    dev = bins.device
+    if bins.dtype != torch.uint8 or bins.dim() != 2 or not bins.is_contiguous():
+        raise ValueError(f"the slot-expanded histogram takes a contiguous [G, N] uint8 bin "
+                         f"plane, got {bins.dtype} {list(bins.shape)}")
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins must be in [1, 256] for a uint8 plane, got {num_bins}")
+    G, N = bins.shape
+    if N > MAX_ROWS:
+        raise ValueError(f"the slot-expanded histogram addresses rows with int32 indices: "
+                         f"at most {MAX_ROWS} rows, got {N}")
+    if gh.dtype != torch.float32 or gh.dim() != 2 or gh.shape[0] != N \
+            or not 1 <= gh.shape[1] <= 4 or gh.device != dev or gh.stride(1) != 1:
+        raise ValueError(f"gh must be a float32 [N, 1..4] tensor on {dev} with unit column "
+                         f"stride and N = {N}, got {gh.dtype} {list(gh.shape)} strides "
+                         f"{gh.stride()} on {gh.device}")
+    if slot.dtype != torch.int32 or tuple(slot.shape) != (N,) or slot.device != dev \
+            or not slot.is_contiguous():
+        raise ValueError(f"slot must be a contiguous int32 [{N}] tensor on {dev}, got "
+                         f"{slot.dtype} {list(slot.shape)} on {slot.device}")
+    if not 1 <= n_slots <= MAX_SLOTS:
+        raise ValueError(f"n_slots must be in [1, {MAX_SLOTS}], got {n_slots}")
+    if exponents is not None:
+        _check_exponents(exponents, gh.shape[1], dev)
+
+
+def histogram_slots(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor, num_bins: int,
+                    n_slots: int, quantized: bool = False,
+                    exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[G, num_bins, n_slots*CH] slot-expanded histogram over every row
+    (ops/histogram.py:histogram_slots): row n adds its gh to channel block
+    slot[n], a row whose slot is outside [0, n_slots) nowhere. A CPU tensor
+    takes the plain version; a CUDA tensor launches hist_slots_kernel, which
+    reads each row once. Float mode in 64-bit fixed point (the bits of
+    `_histogram_slots_ragged_fixed` over whole-row ranges) with
+    `fixed_point_exponents(gh, N)` unless the caller passes `exponents`,
+    which the kernel trusts as `histogram_ragged` does; the integer mode
+    truncates gh to int32 and sums exactly."""
+    if bins.device.type == "cpu":
+        return _histogram_slots_plain(bins, gh, slot, num_bins, n_slots, quantized)
+    require_cuda(bins, "the slot-expanded histogram")
+    _check_slots(bins, gh, slot, num_bins, n_slots, exponents)
+    dev = bins.device
+    G, N = bins.shape
+    CH = gh.shape[1]
+    acc = torch.int32 if quantized else torch.float32
+    if N == 0 or G == 0:
+        return torch.zeros((G, num_bins, n_slots * CH), dtype=acc, device=dev)
+    out = torch.empty((G, num_bins, n_slots * CH), dtype=acc, device=dev)
+    if quantized:
+        image, exps = out, None
+    else:
+        image = _fixed_scratch(G * num_bins * n_slots * CH, dev)
+        exps = exponents if exponents is not None else fixed_point_exponents(gh, N)
+    group_block, slot_block, blocks = slots_launch_shape(N, G, num_bins, CH, n_slots,
+                                                         quantized, _sm_count(dev.index))
+    lib = LIB.load()
+    fn = lib.lgbt_histogram_slots_i32 if quantized else lib.lgbt_histogram_slots_f32
+    with torch.cuda.device(dev):
+        err = fn(bins.data_ptr(), N, G, gh.data_ptr(), gh.stride(0), CH, slot.data_ptr(),
+                 n_slots, num_bins, group_block, slot_block, blocks,
+                 None if quantized else exps.data_ptr(), image.data_ptr(), out.data_ptr(),
+                 stream_of(bins))
+    LIB.count("histogram_slots_i32" if quantized else "histogram_slots", err)
+    return out
+
+
+def wave_children(pool: HistImage, sel: torch.Tensor, small: HistImage,
+                  left_small: torch.Tensor, exponents: Optional[torch.Tensor]):
+    """The wave's children step (ops/histogram.py:wave_children): (left,
+    right, hists) from the pool [R, G, B, CH], the selected leaves' rows sel
+    [K] int32, the smaller children's image [G, B, K*CH] as the ragged
+    kernel leaves it, and left_small [K] bool. A CPU tensor takes the plain
+    version (the composition it replaces); a CUDA tensor launches
+    wave_children_kernel: on a fixed-point pool (int64 sums, int32 flags)
+    its float mode, on the quantized int32 pool (flags None) its integer
+    mode, whose left and right are the halves of hists. sel is trusted: its
+    rows must be the pool's (the selection kernel's)."""
+    if pool.sums.device.type == "cpu":
+        return _wave_children_plain(pool, sel, small, left_small, exponents)
+    require_cuda(pool.sums, "the wave's children step")
+    K, G, B, CH = _check_children(pool, sel, small, left_small, exponents)
+    dev = pool.sums.device
+    lib = LIB.load()
+    if pool.flags is None:
+        hists = torch.empty((2 * K, G, B, CH), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.lgbt_wave_children_i32(pool.sums.data_ptr(), sel.data_ptr(),
+                                             small.sums.data_ptr(), left_small.data_ptr(), K,
+                                             G * B, CH, hists.data_ptr(), stream_of(sel))
+        LIB.count("wave_children_i32", err)
+        pair = hists.view(K, 2, G, B, CH)
+        return HistImage(pair[:, 0]), HistImage(pair[:, 1]), hists
+    sums = torch.empty((2, K, G, B, CH), dtype=torch.int64, device=dev)
+    flags = torch.empty((2, K, G, B, CH), dtype=torch.int32, device=dev)
+    hists = torch.empty((2 * K, G, B, CH), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lgbt_wave_children(pool.sums.data_ptr(), pool.flags.data_ptr(),
+                                     sel.data_ptr(), small.sums.data_ptr(),
+                                     small.flags.data_ptr(), left_small.data_ptr(), K, G * B,
+                                     CH, exponents.data_ptr(), sums[0].data_ptr(),
+                                     flags[0].data_ptr(), sums[1].data_ptr(),
+                                     flags[1].data_ptr(), hists.data_ptr(), stream_of(sel))
+    LIB.count("wave_children", err)
+    return HistImage(sums[0], flags[0]), HistImage(sums[1], flags[1]), hists
+
+
+def _check_children(pool: HistImage, sel: torch.Tensor, small: HistImage,
+                    left_small: torch.Tensor,
+                    exponents: Optional[torch.Tensor]) -> Tuple[int, ...]:
+    """Raise ValueError on what the children kernel does not take; (K, G,
+    B, CH)."""
+    dev = pool.sums.device
+    fixed = pool.flags is not None
+    if pool.sums.dim() != 4 or pool.sums.dtype != (torch.int64 if fixed else torch.int32):
+        raise ValueError("the children step takes the pool's [R, G, B, CH] int64 sums with "
+                         "their int32 flag words, or the quantized pool's int32 [R, G, B, CH], "
+                         f"got {pool.sums.dtype} {list(pool.sums.shape)}"
+                         f"{'' if fixed else ' without flags'}")
+    _, G, B, CH = pool.sums.shape
+    K = sel.shape[0] if sel.dim() == 1 else -1
+    if not 1 <= K <= MAX_WAVE_LEAVES:
+        raise ValueError(f"sel must be an int32 vector of 1 to {MAX_WAVE_LEAVES} leaves, "
+                         f"got {list(sel.shape)}")
+    sum_dtype = pool.sums.dtype
+    wanted = [("pool sums", pool.sums, sum_dtype, pool.sums.shape),
+              ("sel", sel, torch.int32, (K,)),
+              ("small sums", small.sums, sum_dtype, (G, B, K * CH)),
+              ("left_small", left_small, torch.bool, (K,))]
+    if fixed:
+        wanted += [("pool flags", pool.flags, torch.int32, pool.sums.shape),
+                   ("small flags", small.flags, torch.int32, (G, B, K * CH))]
+    elif small.flags is not None:
+        raise ValueError("the quantized pool takes the smaller children's int32 image without "
+                         "flags")
+    for name, t, dtype, shape in wanted:
+        if t is None or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+                or t.device != dev or not t.is_contiguous():
+            got = "None" if t is None else f"{t.dtype} {list(t.shape)} on {t.device}"
+            raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} tensor on "
+                             f"{dev}, got {got}")
+    if fixed:
+        _check_exponents(exponents, CH, dev)
+    return K, G, B, CH

@@ -25,12 +25,19 @@ The wave learner's histogram is `histogram_slots_ragged` (the JAX package's
 ``hist_pallas.py:pallas_histogram_slots_ragged``): over K leaf-contiguous
 row ranges, row n of range k adds its gh to channel block k of a
 [G, B, K*CH] histogram when slot[n] == k. `histogram_slots`
-(``pallas_histogram_slots``) is the same function over the whole row set.
-The TPU's row-tile table (``active_tile_table``) is not carried: the card's
-kernel splits the ranges' rows among its blocks itself. It sums the float
-mode exactly in 64-bit fixed point (`fixed_point_exponents`), so its bits
-are those of `_histogram_slots_ragged_fixed`, which lies within the float32
+(``pallas_histogram_slots``) is the same function over the whole row set,
+on the card a kernel of its own that reads each row once. The TPU's
+row-tile table (``active_tile_table``) is not carried: the card's kernel
+splits the ranges' rows among its blocks itself. Both sum the float mode
+exactly in 64-bit fixed point (`fixed_point_exponents`), so their bits are
+those of `_histogram_slots_ragged_fixed`, which lies within the float32
 summation bound of the plain version.
+
+On the card the wave learner keeps images (`HistImage`): `wave_children`
+takes a wave's smaller children's image and the pool's parents to both
+children's images and their float32 in one launch (the quantized int32
+pool to both children in int32); its plain version is the composition
+`children`, `stack_children` and the conversion.
 """
 from __future__ import annotations
 
@@ -352,6 +359,56 @@ def image_where(cond: torch.Tensor, a: HistImage, b: HistImage) -> HistImage:
                      None if a.flags is None else torch.where(cond, a.flags, b.flags))
 
 
+def children(parent: HistImage, small: HistImage, left_small: torch.Tensor):
+    """(left, right) of each selected leaf [K, ...] from its histogram and
+    its smaller child's, the larger one by subtraction (subtract_histogram,
+    batched): exact on images."""
+    cond = left_small.reshape(-1, *([1] * (small.sums.dim() - 1)))
+    left = image_where(cond, small, image_sub(parent, small))
+    return left, image_sub(parent, left)
+
+
+def _wave_children_plain(pool: HistImage, sel: torch.Tensor, small: HistImage,
+                         left_small: torch.Tensor, exponents: Optional[torch.Tensor]):
+    """The children kernel, written plainly: the composition it replaces.
+    The pool's rows sel, the smaller children's histogram [G, B, K*CH]
+    viewed as [K, G, B, CH], `children`, then `stack_children`, converted
+    where it is a fixed-point image."""
+    _, G, B, CH = pool.sums.shape
+    K = sel.shape[0]
+    idx = sel.to(torch.int64)
+    small_k = small.map(lambda t: t.reshape(G, B, K, CH).permute(2, 0, 1, 3))
+    left, right = children(pool.map(lambda t: t[idx]), small_k, left_small)
+    both = stack_children(left, right)
+    if both.flags is None:
+        return left, right, both.sums
+    return left, right, _image_to_float_plain(both.sums, both.flags, exponents)
+
+
+def wave_children(pool: HistImage, sel: torch.Tensor, small: HistImage,
+                  left_small: torch.Tensor, exponents: Optional[torch.Tensor]):
+    """The wave's children step: (left, right, hists).
+
+    pool:       HistImage of the pool [R, G, B, CH]: the card's fixed-point
+                image (int64 sums, int32 flags), the quantized int32, or the
+                CPU's float32 (flags None)
+    sel:        [K] int32 the selected leaves' rows of the pool
+    small:      HistImage [G, B, K*CH], the smaller children's histogram as
+                the ragged histogram gives it
+    left_small: [K] bool, the smaller child is the left one
+    exponents:  [CH] int32, the tree's fixed-point exponents (read for an
+                image only)
+    Returns the left and right children [K, G, B, CH] (the larger child
+    parent - smaller, exact on an image and in int32) and hists [2K, G, B,
+    CH] for the split search, leaf k's left child at 2k and its right at 2k
+    + 1: an image's float32, else the children as they are. One launch on
+    the card (`hist_cuda.wave_children`), its plain version on the CPU; the
+    same bits either way."""
+    from .hist_cuda import wave_children as launch
+
+    return launch(pool, sel, small, left_small, exponents)
+
+
 def image_to_float(img: HistImage, exponents: Optional[torch.Tensor]) -> torch.Tensor:
     """What the split search reads: a fixed-point image converted with the
     tree's exponents (the conversion kernel on the card), anything else as
@@ -456,21 +513,35 @@ def histogram_slots_ragged(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Ten
                             quantized, exponents=exponents)
 
 
+def whole_ranges(n_rows: int, n_slots: int, device) -> tuple:
+    """(starts, ends, valid) of n_slots ranges, each every row: what makes
+    the ragged histogram the slot-expanded one."""
+    return (torch.zeros(n_slots, dtype=torch.int32, device=device),
+            torch.full((n_slots,), n_rows, dtype=torch.int32, device=device),
+            torch.ones(n_slots, dtype=torch.bool, device=device))
+
+
+def _histogram_slots_plain(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                           num_bins: int, n_slots: int, quantized: bool = False) -> torch.Tensor:
+    """The slot-expanded histogram, written plainly: the ragged plain
+    version over n_slots ranges of every row."""
+    return _histogram_slots_ragged_plain(bins, gh, slot,
+                                         *whole_ranges(bins.shape[1], n_slots, bins.device),
+                                         num_bins, n_slots, quantized)
+
+
 def histogram_slots(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
-                    num_bins: int, n_slots: int, quantized: bool = False) -> torch.Tensor:
+                    num_bins: int, n_slots: int, quantized: bool = False,
+                    exponents: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Slot-expanded histogram over all N rows (``pallas_histogram_slots``):
     row n adds its gh to channel block slot[n], rows with a slot outside
-    [0, n_slots) nowhere. The ragged kernel with n_slots ranges, each the
-    whole row set: it reads the rows n_slots times."""
-    N = bins.shape[1]
-    dev = bins.device
-    starts = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-    ends = torch.full((n_slots,), N, dtype=torch.int32, device=dev)
-    valid = torch.ones(n_slots, dtype=torch.bool, device=dev)
-    from .hist_cuda import histogram_ragged
+    [0, n_slots) nowhere. gh [N, CH] float32 (small exact ints when
+    quantized). Returns [G, num_bins, n_slots*CH] float32 (int32 when
+    quantized). On the card its own kernel, which reads each row once
+    (`hist_cuda.histogram_slots`); exponents as `histogram_slots_ragged`'s."""
+    from .hist_cuda import histogram_slots as slots
 
-    return histogram_ragged(bins, gh, slot, starts, ends, valid, num_bins, n_slots,
-                            quantized)
+    return slots(bins, gh, slot, num_bins, n_slots, quantized, exponents)
 
 
 def subtract_histogram(parent: torch.Tensor, sibling: torch.Tensor) -> torch.Tensor:

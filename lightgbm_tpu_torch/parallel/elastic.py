@@ -155,7 +155,6 @@ class CollectiveWatchdog:
             f"collective blocked for more than {self.timeout_s:.1f}s on rank {self.rank} "
             f"(last good iteration: {iters}): a gang peer stopped participating",
             rank=self.rank, last_good_iteration=iters)
-        self.error = err
         self._fired_at = time.monotonic()
         self._async_raised = False
         Log.warning("%s", err)
@@ -165,6 +164,8 @@ class CollectiveWatchdog:
             telemetry.emit("worker_lost", **fields)
         global_timer.add_count("elastic_worker_lost", 1)
         tracing.dump_flight("worker_lost", extra=fields, force=True)
+        # published last: a checkpoint that raises it finds the postmortem written
+        self.error = err
 
     def _escalate(self, now: float, last: Tuple[float, int, int]) -> None:
         """After firing, when no cooperative checkpoint consumed the error:

@@ -69,8 +69,8 @@ from .. import perfmodel
 from ..models.sample_strategy import DeviceBag
 from ..models.tree import Tree
 from ..ops.compact import partition_wave, relabel_rows
-from ..ops.histogram import (HistImage, fixed_point_exponents_of_max, image_to_float,
-                             leaf_sums_fixed, stack_children, wave_hist_image)
+from ..ops.histogram import (HistImage, children, fixed_point_exponents_of_max,
+                             image_to_float, leaf_sums_fixed, stack_children, wave_hist_image)
 from ..ops.quantize import int16_reduction_safe
 from ..ops.split import (feature_meta_block, fix_feature_hist, gather_feature_hist,
                          gather_feature_hist_raw, pad_feature_meta, per_feature_best,
@@ -78,7 +78,7 @@ from ..ops.split import (feature_meta_block, fix_feature_hist, gather_feature_hi
 from ..ops.wave import (DONE, HIST_ROWS, N_CUR, N_WAVES, REC, guard_gain, init_tree_state,
                         replay_wave, select_wave, split_select)
 from ..treelearner.device import (DeviceTreeLearner, WaveBuffers, _PendingTree, _totals,
-                                  _waves_eager, children, pool_rows, pool_write)
+                                  _waves_eager, pool_rows, pool_write)
 from ..utils import faults
 from ..utils.log import Log
 from ..utils.timer import global_timer

@@ -150,11 +150,18 @@ def linear_score(rows: int, n_features: int, slots: int, mean_depth: float,
 
 def hist_ragged(rows: int, n_groups: int, n_outputs: int,
                 out_bytes: int) -> Tuple[float, float]:
-    """Row 2 (and row 6, over every row with `n_outputs` slots): a row's
-    bin bytes, the payload's three float columns and its slot read once
-    over the rows in the ranges, each output histogram written; three adds
-    a (row, group)."""
+    """Row 2: a row's bin bytes, the payload's three float columns and its
+    slot read once over the rows in the ranges, each output histogram
+    written; three adds a (row, group)."""
     return rows * (n_groups + 12 + 4) + n_outputs * out_bytes, 3 * n_groups * rows
+
+
+def hist_slots(rows: int, rows_in: int, n_groups: int, out_bytes: int) -> Tuple[float, float]:
+    """Row 6: every row's slot read once, the bin bytes and three float gh
+    columns of the `rows_in` rows whose slot is in range (the others add
+    nothing and are read no further), the output written once; three adds
+    a (row in range, group)."""
+    return rows * 4 + rows_in * (n_groups + 12) + out_bytes, 3 * n_groups * rows_in
 
 
 def stream_block_bytes(block_rows: int, n_groups: int, plane_bytes: int = 1) -> int:
@@ -605,3 +612,15 @@ def image_to_float(cells: int) -> Tuple[float, float]:
     """The conversion of an image: an int64 sum and an int32 flag word read
     and a float32 written a cell; one conversion and one scale a cell."""
     return 16 * cells, 2 * cells
+
+
+def wave_children(cells: int, quantized: bool = False) -> Tuple[float, float]:
+    """The wave's children step over its K leaves' cells (K * G * B * CH):
+    the parent's and the smaller child's int64 sum and int32 flag word read
+    (24 B), both children's written (24 B) with their float32 (8 B); two
+    subtractions, two conversions and two scales a cell. Quantized (the
+    int32 pool, the kernel's integer mode): two int32 read and two written
+    (16 B), two subtractions a cell."""
+    if quantized:
+        return 16 * cells, 2 * cells
+    return 56 * cells, 6 * cells

@@ -20,9 +20,11 @@ K-entry tables (ops/wave.py:select_wave, the selection kernel) -> a stable
 partition_wave, the partition kernel's three passes) -> a ragged histogram
 of only the smaller children (ops/histogram.py, the ragged histogram
 kernel, K*CH channels) -> the larger children by subtraction from the pool
--> 2K split searches in one launch (ops/split.py:find_best_split) -> the
-guard and the exact best-first replay, which commits splits until the
-argmax needs a leaf whose children were not precomputed, and the commit's
+and, on an image, converted (ops/histogram.py:wave_children, on the card one
+launch of the children kernel) -> 2K split searches
+in one launch (ops/split.py:find_best_split) -> the guard and the exact
+best-first replay, which commits splits until the argmax needs a leaf
+whose children were not precomputed, and the commit's
 tables (ops/wave.py:replay_wave, the replay kernel) -> the committed
 children's histograms into the pool and their right rows relabeled
 (ops/compact.py:relabel_rows). Split decisions are those of the
@@ -92,8 +94,9 @@ scatter-adds in float32) and read back with the tree's results.
 
 On the card the pool holds each leaf's fixed-point image (the int64 sums
 and flag words of ops/histogram.py:HistImage) rather than float32: the
-larger child's subtraction is exact, and a wave converts its 2K children
-once (the conversion kernel) before their split search; the sharded
+larger child's subtraction is exact, and a wave takes its 2K children's
+images and their float32 for the split search in one launch
+(ops/histogram.py:wave_children, the children kernel); the sharded
 learners (parallel/wave_learners.py, the JAX package's
 ``make_sharded_grow_fn`` and its data, voting and feature modes) add these
 images across ranks. Not carried: the bf16 gh payload (ROADMAP item 6). With telemetry on, ``_record_carry_bytes``
@@ -118,8 +121,8 @@ from .. import perfmodel, telemetry, tracing
 from ..models.sample_strategy import DeviceBag
 from ..models.tree import Tree
 from ..ops.compact import partition_wave, relabel_rows
-from ..ops.histogram import (HistImage, fixed_point_exponents, image_sub, image_to_float,
-                             image_where, leaf_sums_fixed, stack_children, wave_hist_image)
+from ..ops.histogram import (HistImage, fixed_point_exponents, image_to_float,
+                             leaf_sums_fixed, wave_children, wave_hist_image)
 from ..ops.partition import bucket_size
 from ..ops.split import FeatureMeta, SplitInfo, find_best_split
 from ..ops.wave import (DONE, HIST_ROWS, N_CUR, N_WAVES, REC, SCALARS, STORE,
@@ -320,7 +323,6 @@ def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: Feature
     fixed sequence of launches over static shapes that reads nothing on the
     host, so a CUDA graph replays it."""
     L = buf.leaf_best.shape[0] - 1
-    G = buf.bins[0].shape[0]
     CH = buf.pool.shape[-1]
     LEAF = CH + 1
     rows_out = buf.rows[1 - cur]
@@ -338,9 +340,9 @@ def _wave(buf: WaveBuffers, cur: int, K: int, meta: FeatureMeta, tables: Feature
     hist_s = wave_hist_image(buf.bins[1 - cur], rows_out[:, :CH], buf.slot, ranges[1],
                              ranges[2], flags[0], num_bins, K, q,
                              None if q else buf.exponents, buf.image)
-    hist_s = hist_s.map(lambda t: t.reshape(G, num_bins, K, CH).permute(2, 0, 1, 3))
-    hist_l, hist_r = children(pool_rows(buf, sel_k), hist_s, flags[1])
-    hists = image_to_float(stack_children(hist_l, hist_r), buf.exponents)
+    # one launch on the card, the pool and the smaller children read in place
+    hist_l, hist_r, hists = wave_children(HistImage(buf.pool, buf.pool_flags), sel_k, hist_s,
+                                          flags[1], buf.exponents)
     # a contiguous [2K, B, CH]: the sharded learners sum the same layout
     totals2 = _totals(buf, hists[:, 0].contiguous().sum(dim=1))  # [2K, CH]
     recs2 = find_best_split(hists, totals2, meta, params,
@@ -359,15 +361,6 @@ def pool_rows(buf: WaveBuffers, leaves: torch.Tensor) -> HistImage:
     """The pool's histograms of the given leaves."""
     idx = leaves.to(torch.int64)
     return HistImage(buf.pool[idx], None if buf.pool_flags is None else buf.pool_flags[idx])
-
-
-def children(parent: HistImage, small: HistImage, left_small: torch.Tensor):
-    """(left, right) of each selected leaf [K, ...] from its histogram and
-    its smaller child's, the larger one by subtraction (subtract_histogram,
-    batched): exact on images."""
-    cond = left_small.reshape(-1, *([1] * (small.sums.dim() - 1)))
-    left = image_where(cond, small, image_sub(parent, small))
-    return left, image_sub(parent, left)
 
 
 def pool_write(buf: WaveBuffers, commit: torch.Tensor, left: HistImage,

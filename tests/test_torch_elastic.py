@@ -115,6 +115,34 @@ def test_watchdog_converts_hang_to_worker_lost(tmp_path):
     assert payload["extra"]["last_good_iteration"] == 2
 
 
+def test_watchdog_error_surfaces_after_its_postmortem(monkeypatch):
+    """The watchdog publishes its error only once the flight postmortem is
+    written: a checkpoint that raises it (and a reader of the flight
+    directory after it) never sees a dump still being written."""
+    import threading
+
+    from lightgbm_tpu_torch import tracing
+
+    writing, release = threading.Event(), threading.Event()
+
+    def slow_dump(*args, **kwargs):
+        writing.set()
+        release.wait(10)
+
+    monkeypatch.setattr(tracing, "dump_flight", slow_dump)
+    wd = elastic.CollectiveWatchdog(1.0, rank=0)
+    fire = threading.Thread(target=wd._fire, args=((time.monotonic(), 2, 0),))
+    fire.start()
+    assert writing.wait(10)
+    wd.raise_if_expired()  # nothing to raise while the postmortem is written
+    assert wd.error is None
+    release.set()
+    fire.join(10)
+    with pytest.raises(WorkerLostError) as ei:
+        wd.raise_if_expired()
+    assert ei.value.last_good_iteration == 2
+
+
 def test_watchdog_disarms_at_train_end_and_liveness_file_is_written(tmp_path):
     gang_dir = str(tmp_path / "gang")
     rt = elastic.install(timeout_s=2.0, rank=3, gang_dir=gang_dir)
