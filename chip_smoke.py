@@ -66,9 +66,14 @@ Phases (any failure exits non-zero before the result line):
             the wave run again from it): the selection's table, the
             replay's state after it (records, depths, ranges, the split
             log's bits, the scalars and the done word) and its commit table
-            exactly equal to the plain versions run on the CPU. The serial learner's row partition
-            (decide, scatter) on three real splits recorded from a serial
-            round (the root's, ~100,000 and ~4,000 rows), both children
+            exactly equal to the plain versions run on the CPU, and so on
+            the edge states of tests/test_torch_wave_cases.py (NaN gains,
+            tied signed zeros, K = 1 and K = L, 1,024, 1,025 and 4,100
+            leaves, a done tree, the leaf budget binding mid-wave, max_depth
+            gating a child, a new leaf that is a valid selection). The
+            serial learner's row partition (decide, scatter) on three real
+            splits recorded from a serial round (the root's, ~100,000 and
+            ~4,000 rows), both children
             exactly equal to the plain version run on the CPU. Then their
             timings beside their bounds, plain versions and, for the
             compaction and the partition's scatter, index_copy_; the whole
@@ -434,16 +439,18 @@ and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
 times the leaf histogram of the package in checkout DIR (an older commit
 unpacked with git archive) at the root and the two leaves of phase 4,
-histogram_slots and the conversion at phase 4's shapes, and profiles one
-round of each learner on the same data: busy share, device operations a
-wave or a split, host scopes; for a comparison in one call. It prints no
-result line.
+histogram_slots and the conversion at phase 4's shapes, the wave's
+selection and replay kernels at phase 4's recorded middle wave, and
+profiles one round of each learner on the same data: busy share, device
+operations a wave or a split, host scopes; for a comparison in one call.
+It prints no result line.
 
     python3 chip_smoke.py --wave-rounds-of DIR
 
-times phase 8's training with the package in checkout DIR, for a
-comparison of two checkouts in one call (A, B, B, A). It prints one JSON
-line a run and no result line.
+times phase 8's and phase 10's training with the package in checkout DIR
+(s/iteration and the tree graphs' card time a tree), for a comparison of
+two checkouts in one call (A, B, B, A). It prints one JSON line a run and
+no result line.
 """
 from __future__ import annotations
 
@@ -1547,30 +1554,25 @@ def record_wave_inputs(lt, train_set, params):
 def check_wave_step(dev, kept):
     """The wave's selection and replay kernels against their plain versions
     run on the CPU, on the first, a middle and the last live wave of a real
-    tree: the selection's table, and the replay's state after it (records,
-    depths, ranges, the split log's bits, the scalars with the done word)
-    and commit table exactly equal, two launches equal. Returns (timings,
-    bounds, shapes)."""
+    tree and on the edge states of tests/test_torch_wave_cases.py
+    (WAVE_EDGES: NaN gains, tied signed zeros, K = 1 and K = L, 1,024,
+    1,025 and 4,100 leaves, a done tree, the leaf budget binding mid-wave,
+    max_depth gating a child, a new leaf that is a valid selection): the
+    selection's table, and the replay's state after it (records, depths,
+    ranges, the split log's bits, the scalars with the done word) and
+    commit table exactly equal, two launches equal. Returns (timings,
+    bounds, shapes, the edge states' names); timings["s"] its seconds."""
     from lightgbm_tpu_torch.ops import wave_cuda
-    from lightgbm_tpu_torch.ops.wave import (DONE, REC, SCALARS, STORE, T,
-                                             _replay_wave_plain, _select_wave_plain,
-                                             select_size)
+    from lightgbm_tpu_torch.ops.wave import (DONE, FeatureTables, T, _replay_wave_plain,
+                                             _select_wave_plain, select_size)
 
     def cpu(args):
         return [a.cpu() if isinstance(a, torch.Tensor) else
                 type(a)(*(t.cpu() for t in a)) if isinstance(a, tuple) else a for a in args]
 
-    committed = {}
-    for name in ("first", "middle", "last"):
-        sel_args = kept["waves"][name]["select"]
-        leaf_best, start, count, scalars, tables, K = sel_args
-        L = leaf_best.shape[0] - 1
-        outs = [wave_cuda.select(*sel_args) for _ in range(2)]
-        ref = _select_wave_plain(*cpu(sel_args))
-        for got in outs:
-            check(torch.equal(got.cpu(), ref), f"wave_select ({name} wave): the table "
-                  "differs from the plain version")
-        rp = kept["waves"][name]["replay"]
+    def replay_equal(rp, label):
+        """The replay from rp's state twice on the card and once by the plain
+        version on the CPU; returns the CPU's outputs."""
         results = []
         for device in (dev, dev, "cpu"):
             args = [a.clone().to(device) if isinstance(a, torch.Tensor) else a for a in rp]
@@ -1582,15 +1584,65 @@ def check_wave_step(dev, kept):
                                    "count", "scalars"), got, results[2]):
                 check(g.dtype == r.dtype and torch.equal(g.view(torch.uint8),
                                                          r.view(torch.uint8)),
-                      f"wave_replay ({name} wave): {what} differs from the plain version")
-        committed[name] = int(results[2][6][T] - rp[5][T].cpu())
-    check(int(results[2][6][DONE]) == 1, "the last wave did not set the done word")
+                      f"wave_replay ({label}): {what} differs from the plain version")
+        return results[2]
 
-    # timings at the middle wave: the replay from a fresh copy of its state
-    # each call (the copies are not the kernel's time)
+    t0 = time.perf_counter()
+    committed = {}
+    for name in ("first", "middle", "last"):
+        sel_args = kept["waves"][name]["select"]
+        outs = [wave_cuda.select(*sel_args) for _ in range(2)]
+        ref = _select_wave_plain(*cpu(sel_args))
+        for got in outs:
+            check(torch.equal(got.cpu(), ref), f"wave_select ({name} wave): the table "
+                  "differs from the plain version")
+        rp = kept["waves"][name]["replay"]
+        after = replay_equal(rp, f"{name} wave")
+        committed[name] = int(after[6][T] - rp[5][T].cpu())
+    check(int(after[6][DONE]) == 1, "the last wave did not set the done word")
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_wave_cases import WAVE_EDGES, wave_edge
+
+    for name, *_ in WAVE_EDGES:
+        e = wave_edge(name)
+        st = {k: torch.from_numpy(v.copy()) for k, v in e["state"].items()}
+        tables = FeatureTables(*(torch.from_numpy(np.asarray(a)) for a in e["tables"]))
+        sel_args = [st["leaf_best"], st["start"], st["count"], st["scalars"], tables, e["K"]]
+        ref = _select_wave_plain(*sel_args)
+        card = [a.to(dev) for a in sel_args[:4]] + [
+            FeatureTables(*(t.to(dev) for t in tables)), e["K"]]
+        for _ in range(2):
+            check(torch.equal(wave_cuda.select(*card).cpu(), ref),
+                  f"wave_select (edge state {name}): the table differs from the plain version")
+        rp = [st["leaf_best"], st["depth"], st["rec_store"], st["start"], st["count"],
+              st["scalars"], ref] + [torch.from_numpy(e[k]) for k in
+                                     ("n_left", "recs2", "totals2", "params")] + [
+                  e["max_depth"]]
+        replay_equal(rp, f"edge state {name}")
+    torch.cuda.synchronize()
+
+    timings = wave_step_timings(kept)
+    timings["s"] = time.perf_counter() - t0
+    sel_args = kept["waves"]["middle"]["select"]
+    L, K = sel_args[0].shape[0] - 1, sel_args[5]
+    n = committed["middle"]
+    bounds = {"select": bound(perfmodel.wave_select(L, K, select_size(L, K))),
+              "replay": bound(perfmodel.wave_replay(L, K, n))}
+    return timings, bounds, (L, K, committed), [e[0] for e in WAVE_EDGES]
+
+
+def wave_step_timings(kept, plain=True):
+    """The selection's and the replay's times at the recorded middle wave:
+    the kernel's device time (torch.profiler), a call back to back (CUDA
+    events) and, with `plain`, the plain versions' on the card. The replay
+    runs from a fresh copy of the wave's state each call (the copies are
+    not in the kernel's time)."""
+    from lightgbm_tpu_torch.ops import wave_cuda
+    from lightgbm_tpu_torch.ops.wave import _replay_wave_plain, _select_wave_plain
+
     sel_args = kept["waves"]["middle"]["select"]
     rp = kept["waves"]["middle"]["replay"]
-    L, K = sel_args[0].shape[0] - 1, sel_args[5]
     fresh = [a.clone() if isinstance(a, torch.Tensor) else a for a in rp]
 
     def replay_call():
@@ -1607,15 +1659,13 @@ def check_wave_step(dev, kept):
         "select": kernel_device_ms(lambda: wave_cuda.select(*sel_args), 20,
                                    "wave_select_kernel"),
         "select_events": cuda_ms(lambda: wave_cuda.select(*sel_args), 20),
-        "select_plain": cuda_ms(lambda: _select_wave_plain(*sel_args), 3),
         "replay": kernel_device_ms(replay_call, 20, "wave_replay_kernel"),
         "replay_events": cuda_ms(replay_call, 20),
-        "replay_plain": cuda_ms(replay_plain, 3),
     }
-    n = committed["middle"]
-    bounds = {"select": bound(perfmodel.wave_select(L, K, select_size(L, K))),
-              "replay": bound(perfmodel.wave_replay(L, K, n))}
-    return timings, bounds, (L, K, committed)
+    if plain:
+        timings["select_plain"] = cuda_ms(lambda: _select_wave_plain(*sel_args), 3)
+        timings["replay_plain"] = cuda_ms(replay_plain, 3)
+    return timings
 
 
 def check_wave_children(dev, kept):
@@ -6397,11 +6447,14 @@ def profile_other(checkout: str, seed: int) -> int:
     set read, as its learner reads it where it takes no count);
     histogram_slots on SAMPLE_ROWS rows x SLOT_SLOTS slots (slots in [0, S +
     2), grid-snapped gradients, the exponents computed inside each call)
-    and the conversion of a wave's 2 x WAVE_K children; and for each learner
-    the host scopes of a 2-round run and one profiled round."""
+    and the conversion of a wave's 2 x WAVE_K children; the wave's
+    selection and replay kernels at the middle live wave of a real tree
+    (recorded as phase 4 records it: the same wave in every checkout whose
+    trees are equal); and for each learner the host scopes of a 2-round run
+    and one profiled round."""
     sys.path.insert(0, os.path.abspath(checkout))
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops import hist_cuda, wave_cuda
     from lightgbm_tpu_torch.ops.histogram import histogram_slots
     from lightgbm_tpu_torch.utils.timer import global_timer
 
@@ -6443,6 +6496,22 @@ def profile_other(checkout: str, seed: int) -> int:
           f"{cuda_ms(convert, 20):.4f} ms a call back to back (events)")
     del bins, gh, sets, sb, sg, slot, sums, flags
     torch.cuda.empty_cache()
+    kept = record_wave_inputs(lt, train_set, WAVE_PARAMS)
+    sel_args = kept["waves"]["middle"]["select"]
+    rp = [a.clone() if isinstance(a, torch.Tensor) else a for a in
+          kept["waves"]["middle"]["replay"]]
+    scalars_in = int(rp[5][1])
+    wave_cuda.replay(*rp)
+    t = wave_step_timings(kept, plain=False)
+    print(f"[{card}] {checkout}: the middle live wave of a real tree (L = "
+          f"{sel_args[0].shape[0] - 1}, K = {sel_args[5]}, {int(rp[5][1]) - scalars_in} "
+          f"commits; its records' sha256 "
+          f"{hashlib.sha256(sel_args[0].cpu().numpy().tobytes()).hexdigest()[:16]}): "
+          f"wave_select kernel {fmt_ms(t['select'])} device (torch.profiler), "
+          f"{t['select_events']:.4f} ms a call back to back (events); wave_replay kernel "
+          f"{fmt_ms(t['replay'])} device, {t['replay_events']:.4f} ms a call (events)")
+    del kept, sel_args, rp
+    torch.cuda.empty_cache()
     for params, label in ((WAVE_PARAMS, "wave"), (TRAIN_PARAMS, "serial")):
         global_timer.reset()
         global_timer.enabled = True
@@ -6456,14 +6525,20 @@ def profile_other(checkout: str, seed: int) -> int:
 
 
 def wave_rounds_of(checkout: str, seed: int, reps: int = 3) -> int:
-    """Phase 8's training (the wave learner, WAVE_PARAMS, TRAIN_ROUNDS
-    rounds on phase 8's rows with its valid set, the host timer on) with
-    the package in another checkout, `reps` times: each run's s/iteration
-    (its first round left out) and the wave pool's bytes, one JSON line a
-    run. Two checkouts are compared in one call, alternating:
-    ``--wave-rounds-of A``, ``--wave-rounds-of B``, then B, then A."""
+    """Two lanes of the wave learner with the package in another checkout,
+    `reps` times each, one JSON line a run: phase 8's training (WAVE_PARAMS,
+    TRAIN_ROUNDS rounds on phase 8's rows with its valid set, the host timer
+    on) and phase 10's multiclass (MC_PARAMS, MC_ROUNDS rounds at
+    Covertype's width with its valid set, 7 trees an iteration). Each line
+    has the run's s/iteration (its first round left out), the tree graphs'
+    card time a tree (CUDA events around each TreeGraph.launch, the first
+    round's trees left out: both lanes' rounds are synchronous, one tree
+    graph at a time), the live waves a tree and the wave pool's bytes. Two checkouts
+    are compared in one call, alternating: ``--wave-rounds-of A``,
+    ``--wave-rounds-of B``, then B, then A."""
     sys.path.insert(0, os.path.abspath(checkout))
     import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import wave_cuda
     from lightgbm_tpu_torch.utils.timer import global_timer
 
     check(os.path.dirname(os.path.abspath(lt.__file__)).startswith(os.path.abspath(checkout)),
@@ -6472,33 +6547,62 @@ def wave_rounds_of(checkout: str, seed: int, reps: int = 3) -> int:
     X, y = higgs_rows(seed + 5, TRAIN_ROWS)
     Xv, yv = higgs_rows(seed + 6, VALID_ROWS)
     train_set = lt.Dataset(X, label=y, params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
+    Xc, yc = covertype_rows(seed + 11, COVTYPE_ROWS + MC_VALID_ROWS)
+    mc_set = lt.Dataset(Xc[:COVTYPE_ROWS], label=yc[:COVTYPE_ROWS],
+                        params={"max_bin": MC_PARAMS["max_bin"]}).construct()
+    lanes = (("phase 8", WAVE_PARAMS, train_set, TRAIN_ROUNDS, 1, (Xv, yv)),
+             ("phase 10", MC_PARAMS, mc_set, MC_ROUNDS, 7,
+              (Xc[COVTYPE_ROWS:], yc[COVTYPE_ROWS:])))
+    launch = wave_cuda.TreeGraph.launch
     for rep in range(reps):
-        stamps = []
-        global_timer.reset()
-        global_timer.enabled = True
-        t = time.perf_counter()
-        bst = lt.train(dict(WAVE_PARAMS), train_set, num_boost_round=TRAIN_ROUNDS,
-                       valid_sets=[train_set.create_valid(Xv, label=yv)], valid_names=["valid"],
-                       callbacks=[lambda env: stamps.append(time.perf_counter())])
-        torch.cuda.synchronize()
-        global_timer.enabled = False
-        per_iter = np.diff([t] + stamps)
-        learner = bst._gbdt.tree_learner
-        check(type(learner).__name__ == "DeviceTreeLearner" or DEVICE != "cuda",
-              f"phase 8's training grew its trees with {type(learner).__name__}")
-        buf = getattr(learner, "_buffers", None)
-        pool = [] if buf is None else [buf.pool, getattr(buf, "pool_flags", None)]
-        print(json.dumps({"card": card, "checkout": checkout, "rep": rep,
-                          "learner": type(learner).__name__,
-                          "s_per_iter": float(np.mean(per_iter[1:])),
-                          "first_s": float(per_iter[0]),
-                          "pool_dtype": [str(t.dtype) for t in pool if t is not None],
-                          "pool_bytes": sum(t.nbytes for t in pool if t is not None),
-                          "trees_sha": hashlib.sha256(
-                              trees_of(bst.model_to_string()).encode()).hexdigest()[:16]}),
-              flush=True)
-        del bst
-        torch.cuda.empty_cache()
+        for lane, params, data, rounds, trees, (Xl, yl) in lanes:
+            stamps, events = [], []
+
+            def timed(graph):
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+                launch(graph)
+                pair[1].record()
+                events.append(pair)
+
+            global_timer.reset()
+            global_timer.enabled = True
+            wave_cuda.TreeGraph.launch = timed
+            try:
+                t = time.perf_counter()
+                bst = lt.train(dict(params), data, num_boost_round=rounds,
+                               valid_sets=[data.create_valid(Xl, label=yl)],
+                               valid_names=["valid"],
+                               callbacks=[lambda env: stamps.append(time.perf_counter())])
+                torch.cuda.synchronize()
+            finally:
+                wave_cuda.TreeGraph.launch = launch
+                global_timer.enabled = False
+            per_iter = np.diff([t] + stamps)
+            learner = bst._gbdt.tree_learner
+            check(type(learner).__name__ == "DeviceTreeLearner" or DEVICE != "cuda",
+                  f"{lane}'s training grew its trees with {type(learner).__name__}")
+            graph_ms = [a.elapsed_time(b) for a, b in events]
+            check(len(graph_ms) > trees, f"{lane}: {len(graph_ms)} tree graph launches")
+            buf = getattr(learner, "_buffers", None)
+            pool = [] if buf is None else [buf.pool, getattr(buf, "pool_flags", None)]
+            print(json.dumps({"card": card, "checkout": checkout, "rep": rep, "lane": lane,
+                              "learner": type(learner).__name__,
+                              "s_per_iter": float(np.mean(per_iter[1:])),
+                              "first_s": float(per_iter[0]),
+                              "tree_graph_ms": float(np.mean(graph_ms[trees:])),
+                              "tree_graph_ms_median": float(np.median(graph_ms[trees:])),
+                              "trees_timed": len(graph_ms) - trees,
+                              "waves_a_tree": global_timer.counters.get("device_waves", 0)
+                              / max(1, bst.num_trees()),
+                              "pool_dtype": [str(t.dtype) for t in pool if t is not None],
+                              "pool_bytes": sum(t.nbytes for t in pool if t is not None),
+                              "trees_sha": hashlib.sha256(
+                                  trees_of(bst.model_to_string()).encode()).hexdigest()[:16]}),
+                  flush=True)
+            del bst
+            torch.cuda.empty_cache()
     return 0
 
 
@@ -6509,8 +6613,9 @@ def main() -> int:
                     help="time the leaf histogram and profile one round of each learner "
                          "of the package in checkout DIR, and exit")
     ap.add_argument("--wave-rounds-of", metavar="DIR",
-                    help="time phase 8's training with the package in checkout DIR (s/"
-                         "iteration, the wave pool's bytes), three runs, and exit")
+                    help="time phases 8 and 10's training with the package in checkout DIR "
+                         "(s/iteration, the tree graphs' card time a tree, the wave pool's "
+                         "bytes), three runs each, and exit")
     ap.add_argument("--gang-worker", metavar="DIR",
                     help="run as one rank of phase 21's gang, writing to DIR (started by "
                          "phase 21 itself)")
@@ -6880,7 +6985,7 @@ def main() -> int:
     kept = record_wave_inputs(lt, train_set, WAVE_PARAMS)
     ms_part, bound_part, (n_part, g_part, k_part, moved, relabeled) = check_partition(
         dev, kept, args.seed + 11)
-    ms_step, bound_step, (L_step, K_step, committed) = check_wave_step(dev, kept)
+    ms_step, bound_step, (L_step, K_step, committed), edges = check_wave_step(dev, kept)
     ms_kids, bound_kids, shape_kids = check_wave_children(dev, kept)
     trace = kept.get("wave_trace") or []
     del kept
@@ -6908,14 +7013,15 @@ def main() -> int:
     print(f"kernels: wave selection and replay on the first, a middle and the last live "
           f"wave of a real tree (L = {L_step}, K = {K_step}; "
           + ", ".join(f"{k} {v} committed" for k, v in committed.items())
-          + "): the table, the state after the replay (records, depths, ranges, split-log "
-          "bits, scalars, done word) and the commit table equal to the CPU plain version, "
-          "two launches equal")
+          + f") and on {len(edges)} edge states ({', '.join(edges)}): the table, the state "
+          "after the replay (records, depths, ranges, split-log bits, scalars, done word) and "
+          "the commit table equal to the CPU plain version, two launches equal")
     print(f"{tag} wave_select: kernel {fmt_ms(ms_step['select'])} device (torch.profiler), "
           f"{ms_step['select_events']:.4f} ms a call back to back, plain "
           f"{ms_step['select_plain']:.3f} ms, bound {bound_step['select'][0]:.6f} ms "
           f"({bound_step['select'][1]}); wave_replay (middle wave, {committed['middle']} "
-          f"commits): kernel {fmt_ms(ms_step['replay'])} device, plain "
+          f"commits): kernel {fmt_ms(ms_step['replay'])} device, "
+          f"{ms_step['replay_events']:.4f} ms a call back to back, plain "
           f"{ms_step['replay_plain']:.3f} ms, bound {bound_step['replay'][0]:.6f} ms "
           f"({bound_step['replay'][1]})")
 
@@ -6977,7 +7083,8 @@ def main() -> int:
     print(f"{tag} phase 4, the training path's kernels (data included): "
           f"{time.perf_counter() - t_kernels:.1f} s, of which histogram_slots' checks and "
           f"timings {ms_rag['slots_s']:.1f} s, the conversion's {ms_rag['convert_s']:.1f} s, "
-          f"the children kernel's {ms_kids['s']:.1f} s")
+          f"the children kernel's {ms_kids['s']:.1f} s, the selection's and the replay's "
+          f"(real waves, edge states, timings) {ms_step['s']:.1f} s")
 
     # ------------------------------- the card trains as the CPU does
     exact = {}

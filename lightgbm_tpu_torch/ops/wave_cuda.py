@@ -42,6 +42,7 @@ LIB = CudaLibrary("wave_step.cu", ("wave_select", "wave_replay", "tree_loop_cond
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 MAX_K = 1024  # csrc/wave_step.cu kMaxK
+MAX_LEAVES = (1 << 20) - 1  # csrc/wave_step.cu kLeafBits: the replay packs leaf ids in 20 bits
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -60,6 +61,8 @@ def _check_state(leaf_best: torch.Tensor, start: torch.Tensor, count: torch.Tens
         raise ValueError(f"leaf_best must be [L+1, {REC}] with L >= 1, got "
                          f"{list(leaf_best.shape)}")
     L = leaf_best.shape[0] - 1
+    if L > MAX_LEAVES:
+        raise ValueError(f"the wave kernels take at most {MAX_LEAVES} leaves, got {L}")
     _check("leaf_best", leaf_best, torch.float32, (L + 1, REC), dev)
     _check("start", start, torch.int32, (L + 1,), dev)
     _check("count", count, torch.int32, (L + 1,), dev)

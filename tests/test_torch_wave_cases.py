@@ -187,6 +187,72 @@ def wave_children(rng, st, sel, sel_ok, gains=None, g_sum=None, n_features=6):
     return recs2, totals2, nl.astype(np.int32)
 
 
+# The selection's and the replay's edge states: (name, L, K, leaves, seed).
+WAVE_EDGES = [
+    ("nan_gains", 31, 8, 12, 41),  # NaN gains: they rank first and stop the replay
+    ("nan_child", 31, 6, 10, 42),  # a committed child's NaN gain stops it mid-wave
+    ("signed_zero_tie", 31, 12, 14, 43),  # -0.0 and +0.0 gains tie, the lower leaf first
+    ("k1", 15, 1, 6, 44),
+    ("k_equals_l", 15, 15, 9, 45),
+    ("l1024", 1024, 64, 700, 46),  # the selection's sort, at its widest
+    ("l1025", 1025, 21, 600, 47),  # the selection's radix select, at its narrowest
+    ("l4100", 4100, 21, 3000, 48),  # above 4,096 leaves
+    ("l4100_k1024", 4100, 1024, 2500, 49),
+    ("done", 31, 8, 12, 50),  # the tree is done: nothing selected or committed
+    ("budget_mid_wave", 16, 8, 12, 51),  # t reaches L - 1 with selections left
+    ("max_depth_gate", 31, 8, 10, 52),  # max_depth gates some children, not others
+    ("new_leaf_selected", 31, 6, 8, 53),  # a valid selection among the leaves the wave creates
+]
+
+
+def wave_edge(name):
+    """One of WAVE_EDGES: the state (numpy, wave_state's), the feature
+    tables, K, the children of the plain selection's ranges (recs2, totals2,
+    n_left), params [6] float32 and max_depth. The children are built on the
+    plain version's selection, so the kernels' and the oracle's replays see
+    the same ranges."""
+    from lightgbm_tpu_torch.ops.wave import DONE, FeatureTables, select_wave, split_select
+
+    _, L, K, n_cur, seed = next(e for e in WAVE_EDGES if e[0] == name)
+    rng = np.random.RandomState(seed)
+    gains = np.round(rng.normal(2.0, 2.0, n_cur) * 4) / 4
+    child_gains, max_depth = None, -1
+    params = np.array([0.0, 0.5, 5.0, 1e-3, 0.0, 0.4], np.float32)
+    if name == "nan_gains":
+        gains[[2, 5, 9]] = np.nan
+    elif name == "signed_zero_tie":
+        gains[[0, 3, 4, 7, 8, 11]] = [-0.0, 0.0, -0.0, 0.0, -0.0, 0.0]
+        gains[[1, 5]] = -1.0
+    st = wave_state(rng, L, n_cur, gains=gains)
+    if name == "done":
+        st["scalars"][DONE] = 1
+    elif name == "max_depth_gate":
+        st["depth"][:n_cur] = rng.choice([1, 2], n_cur)
+        max_depth = 3
+    elif name == "new_leaf_selected":
+        # leaves n_cur .. n_cur + 3 hold records and rows: selected and
+        # valid, and also the ids the wave's commits give their new leaves
+        st["leaf_best"][n_cur:n_cur + 4] = st["leaf_best"][:4]
+        st["leaf_best"][n_cur:n_cur + 4, 0] = [3.0, 9.0, 5.0, 0.5]
+        st["count"][n_cur:n_cur + 4] = 10
+    tables = wave_tables_random(rng, 6)
+    table = select_wave(*(torch.from_numpy(st[k].copy()) for k in
+                          ("leaf_best", "start", "count", "scalars")),
+                        FeatureTables(*(torch.from_numpy(a) for a in tables)), K)
+    parts = split_select(table, L, K)
+    sel, ok = parts[5].numpy(), parts[4].numpy() != 0
+    if name == "nan_child":
+        child_gains = np.round(rng.normal(1.0, 2.0, 2 * K) * 4) / 4
+        child_gains[1] = np.nan  # the right child of the best range
+    elif name == "signed_zero_tie":
+        child_gains = np.resize([-0.0, 0.0, 1.5, -0.0], 2 * K)
+    elif name == "budget_mid_wave":
+        child_gains = np.full(2 * K, 0.5)
+    recs2, totals2, nl = wave_children(rng, st, sel, ok, gains=child_gains)
+    return dict(state=st, tables=tables, K=K, recs2=recs2, totals2=totals2, n_left=nl,
+                params=params, max_depth=max_depth)
+
+
 def test_wave_case_is_leaf_contiguous():
     """Every case holds the partition's precondition: a selected valid
     range is exactly the positions of the rows its leaf2k entry names."""

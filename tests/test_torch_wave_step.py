@@ -115,10 +115,12 @@ def _replay(leaf_best, depth, rec_store, sel, sel_ok, recs2, totals2, n_cur, t,
     return committed, newids, n_cur, t
 
 
-def _oracle_select(leaf_best, start, count, tables, L, K):
-    """The wave loop's selection, as the host ran it."""
+def _oracle_select(leaf_best, start, count, tables, L, K, sel=None):
+    """The wave loop's selection, as the host ran it. `sel`, where given,
+    stands for its argsort, which ranks a NaN gain last."""
     gains = leaf_best[:L, 0]
-    sel = np.argsort(-gains, kind="stable")[:K]  # ties: lower leaf first
+    if sel is None:
+        sel = np.argsort(-gains, kind="stable")[:K]  # ties: lower leaf first
     sel_ok = gains[sel] > 0
     recs_sel = leaf_best[sel]
     feat = np.where(sel_ok, recs_sel[:, 1], 0.0).astype(np.int64)
@@ -190,10 +192,10 @@ def _run_port(st, tables, K, recs2, totals2, nl, params, max_depth):
     return sel_table.numpy(), {k: v.numpy() for k, v in s.items()}, commit.numpy()
 
 
-def _check_wave(st, tables, K, recs2, totals2, nl, params, max_depth=-1):
+def _check_wave(st, tables, K, recs2, totals2, nl, params, max_depth=-1, sel=None):
     L = st["leaf_best"].shape[0] - 1
     ref_table, sel, sel_ok = _oracle_select(st["leaf_best"], st["start"], st["count"],
-                                            tables, L, K)
+                                            tables, L, K, sel)
     table, got, commit = _run_port(st, tables, K, recs2, totals2, nl, params, max_depth)
     np.testing.assert_array_equal(table, ref_table)
     ref, ref_commit = _oracle_wave(st, sel, sel_ok, recs2, totals2, nl, params, max_depth)
