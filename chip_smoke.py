@@ -23,8 +23,13 @@ Phases (any failure exits non-zero before the result line):
             plans), leaf indices exactly equal, raw scores bit-equal, two
             launches bit-equal, then its timings at the main path's shapes;
             its accumulate mode (a block of 10 trees added onto running
-            sums, prediction early stopping's step) bit-equal to the plain
-            version on a 262,144-row chunk and the serving batch sizes.
+            sums) bit-equal to the plain version on a 262,144-row chunk and
+            the serving batch sizes; prediction early stopping's block
+            kernel (one launch a block: the active list and its count read
+            on the card, the next written there) on that chunk's rows, every
+            row and a permuted list of half of them, and at the serving
+            sizes: scores bit-equal to the plain version, the next list
+            equal as a set, two launches bit-equal.
             On the HIGGS-width training data (1,048,576 rows x 28 features
             x 255 bins, made from --seed): the leaf histogram at the root,
             on a ~100,000-row and a ~4,000-row leaf (and the 100,000 rows
@@ -71,12 +76,15 @@ Phases (any failure exits non-zero before the result line):
             tied signed zeros, K = 1 and K = L, 1,024, 1,025 and 4,100
             leaves, a done tree, the leaf budget binding mid-wave, max_depth
             gating a child, a new leaf that is a valid selection). The
-            serial learner's row partition (decide, scatter) on three real
-            splits recorded from a serial round (the root's, ~100,000 and
-            ~4,000 rows), both children
-            exactly equal to the plain version run on the CPU. Then their
+            serial learner's row partition (one single-pass launch a split)
+            on three real splits recorded from a serial round (the root's,
+            ~100,000 and ~4,000 rows), both children
+            exactly equal to the plain version run on the CPU, a split_rows
+            call one device operation (the kernel: no memset, no init
+            launch; torch.profiler). Then their
             timings beside their bounds, plain versions and, for the
-            compaction and the partition's scatter, index_copy_; the whole
+            compaction, the wave partition's scatter and the row partition,
+            index_copy_ and a stable argsort; the whole
             wave partition, the whole find_best_split and RowPartition.split
             as the learners call them, beside the parent's sequence of
             PyTorch glue and kernels for the same work (device time and
@@ -94,7 +102,14 @@ Phases (any failure exits non-zero before the result line):
             pred_early_stop_freq 10, margin 4): the share of rows stopped,
             the trees walked a row and the rows/s beside the full predict's,
             the first rows bit-equal to the CPU Booster's early stop, an
-            infinite margin bit-equal to the full prediction.
+            infinite margin bit-equal to the full prediction; then the same
+            predict as the function runs it on rows already on the card: one
+            early-stopping kernel launch a block, at most one host sync a
+            predict (torch.cuda's sync debug mode; utils/sanitize.py's reads
+            by scope beside it), its wall beside the full predict's, the
+            kernels' device time a predict and their bound summed over the
+            blocks (each block's active rows and node visits from the same
+            blocks driven by hand).
 7. serving  the serving path, part 2: PredictionService + HTTP front with the
             bench's settings, 256 requests of 64 rows from 8 threads, JSON
             and binary wire, every answer bit-equal to Booster.predict.
@@ -424,7 +439,8 @@ off, has a byte-equal model text and a bit-equal final train score.
 
 The launch counters are set to 0 just before phase 6 and read just after
 phase 7 (the serving and predict paths, prediction early stopping's
-accumulate mode included), and again just before and after each of phases
+block kernel included; the traversal's accumulate mode, no longer on the
+path, is checked in phase 4 only), and again just before and after each of phases
 8, 9, 10 and 11, of phase 12's two full-width runs and of the full-width runs
 of phases 13, 14, 15, 16 and 17 (the training paths), of phases 18 and 19 and
 of phase 20's streamed runs (float and quantized), flywheel and C API, on
@@ -435,15 +451,20 @@ have launched there; across phase 12 the discretizer and the integer modes
 of the ragged and leaf histograms and of the split kernel. The last three lines are the kernels' JSON record, the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile-of DIR
+    python3 chip_smoke.py --profile-of DIR [--profile-parts P,...]
 
-times the leaf histogram of the package in checkout DIR (an older commit
-unpacked with git archive) at the root and the two leaves of phase 4,
-histogram_slots and the conversion at phase 4's shapes, the wave's
-selection and replay kernels at phase 4's recorded middle wave, and
-profiles one round of each learner on the same data: busy share, device
-operations a wave or a split, host scopes; for a comparison in one call.
-It prints no result line.
+times, with the package in checkout DIR (an older commit unpacked with git
+archive), the parts named (all by default): "early_stop", phase 6's
+early-stopped predict (through Booster.predict beside the full predict,
+and on the card's rows: wall, device time and operations, kernels, host
+syncs) and one of its blocks; "partition", the serial row partition's
+split_rows at phase 4's root and two leaves (device operations, device
+time, kernels); "histogram", the leaf histogram at those row sets;
+"slots", histogram_slots and the conversion at phase 4's shapes;
+"wave_step", the wave's selection and replay kernels at phase 4's recorded
+middle wave; "rounds", one profiled round of each learner on the same data
+(busy share, device operations a wave or a split, host scopes). For a
+comparison in one call. It prints no result line.
 
     python3 chip_smoke.py --wave-rounds-of DIR
 
@@ -871,14 +892,18 @@ def _parent_split(bins_row, idx, cnt, decision, n_data, min_bucket=256):
 
 
 def check_row_partition(dev, kept):
-    """The serial learner's partition kernels (decide, scatter) against
-    their plain version run on the CPU on three real splits: both children's
-    buffers and the left count exactly equal, two launches equal, and
-    RowPartition.split's children equal to the parent's op sequence's. Timed
-    as the learner calls it (RowPartition.split: the table, the launches,
-    the one sync, the children) beside the parent's sequence: device ms a
-    call (torch.profiler, the device's own events) and host ms a call.
-    Returns (timings, bounds, {name: (count, P, left count)})."""
+    """The serial learner's single-pass partition kernel against its plain
+    version run on the CPU on three real splits: both children's buffers and
+    the left count exactly equal, two launches equal, and RowPartition.split's
+    children equal to the parent's op sequence's. A split_rows call is one
+    device operation, the kernel: no memset and no launch for the tiles'
+    states (torch.profiler over 10 calls, their buffer made by the calls
+    before). Timed
+    as the learner calls it (RowPartition.split: the table, the launch, the
+    one sync, the children) beside the parent's sequence: device ms a call
+    (torch.profiler, the device's own events) and host ms a call. Returns
+    (timings, bounds, {name: (count, P, left count, device operations of a
+    split_rows call)})."""
     from lightgbm_tpu_torch.ops import partition_cuda
     from lightgbm_tpu_torch.ops.partition import (RowPartition, _split_rows_plain,
                                                   go_left_table)
@@ -886,14 +911,28 @@ def check_row_partition(dev, kept):
     timings, bounds, shapes = {}, {}, {}
     for name, (bins_row, idx, cnt, decision, n) in kept.items():
         table = go_left_table(decision)
+        before = partition_cuda.launches["row_partition"]
         got = partition_cuda.split_rows(bins_row, idx, cnt, table, n)
         again = partition_cuda.split_rows(bins_row, idx, cnt, table, n)
         torch.cuda.synchronize()
+        check(partition_cuda.launches["row_partition"] == before + 2,
+              f"row partition ({name}): not one launch a call")
         ref = _split_rows_plain(bins_row.cpu(), idx.cpu(), cnt, table, n)
         for what, g, a, r in zip(("left", "right", "n_left"), got, again, ref):
             check(g.dtype == r.dtype and g.shape == r.shape and torch.equal(g.cpu(), r),
                   f"row partition ({name}): {what} differs from the plain version")
             check(torch.equal(a, g), f"row partition ({name}): two launches differ in {what}")
+
+        def split(b=bins_row, i=idx, c=cnt, t=table, n=n):
+            return partition_cuda.split_rows(b, i, c, t, n)
+
+        # a trace of 10 calls: the kernel and nothing else, once a call (the
+        # profiler may miss an event of the window, never add one)
+        ten = device_ops(lambda: [split() for _ in range(10)])
+        ops_one = sum(ten.values()) / 10 if ten else None
+        check(sum(ten.values()) <= 10 and all("row_partition_kernel" in k for k in ten),
+              f"row partition ({name}): 10 split_rows calls ran the device operations "
+              f"{ten}, not the kernel alone once a call")
         part = RowPartition(1, dev)
 
         def this(p=part, b=bins_row, i=idx, c=cnt, d=decision, n=n):
@@ -912,8 +951,8 @@ def check_row_partition(dev, kept):
         busy = {k: device_busy_share(lambda f=f: [f() for _ in range(reps)])
                 for k, f in (("this", this), ("parent", parent))}
         timings[name] = {
-            "passes": device_kernel_ms(this, 10, ("row_decide_kernel",
-                                                  "row_scatter_kernel")) or {},
+            "kernel": kernel_device_ms(split, 20, "row_partition_kernel"),
+            "events": cuda_ms(split, 20),
             "device": call_device_ms(this, reps),
             "parent_device": call_device_ms(parent, reps),
             "ops": None if busy["this"] is None else busy["this"][3] / reps,
@@ -933,15 +972,177 @@ def check_row_partition(dev, kept):
         timings[name]["library"] = cuda_ms(
             lambda: torch.argsort(side.logical_not().to(torch.int8), stable=True), 20)
         P = idx.shape[0]
-        tiles = -(-cnt // partition_cuda.TILE)
-        bounds[name] = {  # each input read once, each output written once
-            # the index and a bin byte in, a bit and the tile's count out
-            "decide": bound(perfmodel.row_partition_decide(cnt, tiles)),
-            # the index, the bits and the counts in, both children out
-            "scatter": bound(perfmodel.row_partition_scatter(cnt, tiles, P)),
-        }
-        shapes[name] = (cnt, P, int(ref[2]))
+        # each input read once, each output written once: the index and a
+        # bin byte a row in, both children and n_left out
+        bounds[name] = bound(perfmodel.row_partition(cnt, P))
+        shapes[name] = (cnt, P, int(ref[2]), ops_one)
     return timings, bounds, shapes
+
+
+def check_early_stop_block(dev, es_slice, xs, init, rotation, table_bytes, visits, tag):
+    """Prediction early stopping's block kernel (row 1b) against its plain
+    version run on the card, on the streamed chunk's rows: the first block
+    (no list: every row) and a block over a permuted list of half the rows,
+    and at the serving batch sizes; scores bit-equal, the next list equal as
+    a set, its count equal, two launches bit-equal, one launch a call. Timed
+    at the chunk's first block (the kernel's device time, torch.profiler;
+    a call back to back with its count's reset, CUDA events; X rotated over
+    four chunks, read from HBM), beside the plain version and its bound.
+    Returns a dict of the numbers."""
+    from lightgbm_tpu_torch.ops import predict_cuda
+    from lightgbm_tpu_torch.ops.predict import _early_stop_block_plain
+
+    chunk, F = xs[0].shape
+    margin = torch.tensor(ES_MARGIN, dtype=torch.float32).item()
+    # a list of every row, permuted, of which the first half is read
+    perm = torch.from_numpy(np.random.RandomState(21).permutation(chunk)
+                            .astype(np.int32)).to(dev)
+
+    def run(block, x, scores, rows_in, count):
+        counts = torch.tensor([count, 0], dtype=torch.int32, device=dev)
+        out = torch.full((x.shape[0],), -1, dtype=torch.int32, device=dev)
+        block(es_slice, x, scores, 1, margin, rows_in, counts[0:1], out, counts[1:2])
+        n = int(counts[1])
+        return scores, torch.sort(out[:n].long()).values, n
+
+    err, kept = 0.0, {}
+    for rows, rows_in, count in ((chunk, None, chunk), (chunk, perm, chunk // 2),
+                                 *((r, None, r) for r in SERVE_BATCHES)):
+        x, s0 = xs[3][:rows].contiguous(), init[:rows].contiguous()
+        before = predict_cuda.launches["predict_early_stop"]
+        got = run(predict_cuda.early_stop_block, x, s0.clone(), rows_in, count)
+        again = run(predict_cuda.early_stop_block, x, s0.clone(), rows_in, count)
+        check(predict_cuda.launches["predict_early_stop"] == before + 2,
+              "predict_early_stop: not one launch a call")
+        want = run(_early_stop_block_plain, x, s0.clone(), rows_in, count)
+        what = f"predict_early_stop at {rows}x{F} ({count} listed)"
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+              f"{what}: scores differ from the plain version's")
+        check(got[2] == want[2] and torch.equal(got[1], want[1]),
+              f"{what}: the next list differs from the plain version's")
+        check(torch.equal(again[0].view(torch.int32), got[0].view(torch.int32)),
+              f"{what}: two launches differ")
+        err = max(err, float((got[0].double() - want[0].double()).abs().max()))
+        kept[(rows, count)] = got[2]
+    scores = init.clone()
+    counts = torch.tensor([chunk, 0], dtype=torch.int32, device=dev)
+    out = torch.empty(chunk, dtype=torch.int32, device=dev)
+
+    def block():
+        counts[1:2].zero_()
+        predict_cuda.early_stop_block(es_slice, next(rotation), scores, 1, margin, None,
+                                      counts[0:1], out, counts[1:2])
+
+    t = {"kernel": kernel_device_ms(block, 20, "early_stop_kernel"),
+         "events": cuda_ms(block, 20),
+         "plain": cuda_ms(lambda: run(_early_stop_block_plain, xs[0], init.clone(), None,
+                                      chunk), 2),
+         "err": err}
+    t["bound"] = bound(perfmodel.early_stop_block(chunk, F, 1, es_slice.num_trees,
+                                                  table_bytes, visits,
+                                                  kept[(chunk, chunk)]))
+    print(f"{tag} predict_early_stop {chunk}x{F}, a block of {es_slice.num_trees} trees over "
+          f"every row (no list), {kept[(chunk, chunk)]} rows kept at margin {ES_MARGIN:g}: "
+          f"kernel {fmt_ms(t['kernel'])} (torch.profiler), {t['events']:.4f} ms a call with "
+          f"its count's reset (events), plain {t['plain']:.2f} ms, bound "
+          f"{t['bound'][0]:.4f} ms ({t['bound'][1]}); scores bit-equal to the plain version, "
+          f"next lists equal as sets there, over a permuted list of {chunk // 2} rows and at "
+          + ", ".join(str(r) for r in SERVE_BATCHES) + " rows, two launches bit-equal")
+    return t
+
+
+def host_syncs(fn):
+    """(synchronizing CUDA calls fn() makes, as torch.cuda's sync debug mode
+    "warn" reports them: nonzero, a read of a device value, ...; host reads
+    of device tensors by scope, as utils/sanitize.py counts them)."""
+    import warnings
+
+    from lightgbm_tpu_torch.utils import sanitize
+
+    torch.cuda.synchronize()
+    sanitize.enable("cuda")
+    sanitize.reset()
+    mode = torch.cuda.get_sync_debug_mode()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        reads = sanitize.sync_counts()
+    finally:
+        sanitize.clear_override()
+    syncs = sum(1 for w in caught if "called a synchronizing CUDA operation" in str(w.message))
+    return syncs, {label: sum(kinds.values()) for label, kinds in reads.items()}
+
+
+def early_stop_path(packed, X, trees, dev, tag):
+    """Phase 6's early-stopped predict as the function runs it on rows
+    already on the card (predict_raw_early_stop, HIGGS profile, margin
+    ES_MARGIN every ES_FREQ iterations): its host syncs and reads (at most
+    one: the counts' tally), its wall (host clock, synchronized) beside the
+    full predict's, the early-stopping kernels' device time summed over a
+    predict (torch.profiler), and the bound summed over its blocks, each
+    block's active rows and node visits taken from the same blocks driven
+    by hand through the wrapper (their scores bit-equal to the function's)."""
+    from lightgbm_tpu_torch.ops import predict_cuda
+    from lightgbm_tpu_torch.ops.predict import predict_raw, predict_raw_early_stop
+
+    n, F = X.shape
+    T, block = packed.num_trees, ES_FREQ
+
+    def es():
+        return predict_raw_early_stop(packed, X, 1, ES_FREQ, ES_MARGIN)
+
+    out = {"wall": host_ms(es, 3), "full_wall": host_ms(lambda: predict_raw(packed, X, 1), 3)}
+    out["syncs"], out["reads"] = host_syncs(es)
+    out["kernel"] = (device_kernel_ms(es, 2, ("early_stop_kernel",)) or {}).get(
+        "early_stop_kernel")
+    want = es()
+    # the blocks by hand: each list's rows and node visits before the next
+    # block overwrites it
+    scores = torch.zeros((n, 1), dtype=torch.float32, device=dev)
+    lists = torch.empty((2, n), dtype=torch.int32, device=dev)
+    counts = torch.zeros(-(-T // block) + 1, dtype=torch.int32, device=dev)
+    counts[:1].fill_(n)
+    margin = torch.tensor(ES_MARGIN, dtype=torch.float32).item()
+    table = packed.records[:block].numel() * 4
+    cost, active = [0.0, 0.0], []
+    for b, start in enumerate(range(0, T, block)):
+        sl = packed.tree_slice(start, min(start + block, T))
+        rows_in = None if b == 0 else lists[(b - 1) % 2]
+        cnt = int(counts[b])
+        rows = (torch.arange(cnt, device=dev) if rows_in is None
+                else rows_in[:cnt].to(torch.int64))
+        depth = leaf_depths(trees[start:start + sl.num_trees], dev)
+        visits = 0.0
+        for lo in range(0, cnt, 1 << 18):
+            leaf = predict_cuda.forest_leaf_indices(sl, X[rows[lo:lo + (1 << 18)]])
+            visits += float(depth.reshape(-1)[
+                torch.arange(sl.num_trees, device=dev)[None, :] * depth.shape[1]
+                + leaf.long()].sum())
+        predict_cuda.early_stop_block(sl, X, scores, 1, margin, rows_in, counts[b:b + 1],
+                                      lists[b % 2], counts[b + 1:b + 2])
+        kept = int(counts[b + 1])
+        c = perfmodel.early_stop_block(cnt, F, 1, sl.num_trees, table, visits, kept)
+        cost = [cost[0] + c[0], cost[1] + c[1]]
+        active.append(cnt)
+    check(torch.equal(scores.view(torch.int32), want.view(torch.int32)),
+          "early stop: the blocks driven by hand differ from predict_raw_early_stop")
+    out["bound"] = bound(tuple(cost))
+    out["active"] = active
+    print(f"{tag} early stop as the function runs it ({n} rows on the card, {len(active)} "
+          f"blocks of {block} trees, one early-stopping kernel launch each): "
+          f"{out['syncs']} host syncs a predict (sync debug mode), host reads by scope "
+          f"{out['reads']}; wall {out['wall']:.2f} ms against the full predict's "
+          f"{out['full_wall']:.2f} ms (host clock, synchronized); the kernels "
+          f"{fmt_ms(out['kernel'])} of device time a predict (torch.profiler), bound "
+          f"{out['bound'][0]:.4f} ms ({out['bound'][1]}, summed over the blocks); active "
+          f"rows a block: {active[0]} first, {active[len(active) // 2]} in the middle, "
+          f"{active[-1]} last, {sum(active) / len(active):.0f} on average")
+    return out
 
 
 def check_split_scan(dev, ds, bins, num_bins, gh, idx):
@@ -2067,6 +2268,24 @@ def check_find_split(dev, ds, bins, num_bins, gh, idx, wave_hist, root_hist, see
     return max_err, (same, total), timings, bounds, (F, B)
 
 
+def device_ops(fn):
+    """{name: count} of the device's own events (kernels, copies, fills)
+    under torch.profiler while fn() runs; empty when it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type != DeviceType.CPU:
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
 def device_busy_share(fn):
     """(kernel seconds, wall seconds, top kernels, device operations) of
     fn() under torch.profiler, or None when the profiler records no device
@@ -2967,7 +3186,7 @@ def drive_quantized(lt, libs, train_set, valid, X_train, y_train, float_runs, se
               "wave_replay", "tree_loop_cond", "predict_forest_raw")),
             ("serial", {**TRAIN_PARAMS, **QUANT_PARAMS}, QUANT_SERIAL_ROUNDS,
              ("quantize_reduce", "quantize", "histogram_i32", "find_best_split_int",
-              "row_partition_decide", "row_partition_scatter", "predict_forest_raw"))):
+              "row_partition", "predict_forest_raw"))):
         run = drive_training(lt, libs, params, train_set, valid, rounds, required, tag,
                              f"{label}, quantized")
         runs[label] = run
@@ -3181,8 +3400,7 @@ def drive_goss(lt, libs, train_set, valid, X_train, y_train, tag):
               "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
               "predict_forest_raw")),
             ("serial", {**TRAIN_PARAMS, **GOSS_PARAMS}, GOSS_SERIAL_ROUNDS,
-             ("histogram", "find_best_split", "row_partition_decide",
-              "row_partition_scatter", "predict_forest_raw"))):
+             ("histogram", "find_best_split", "row_partition", "predict_forest_raw"))):
         with GossClock() as clock:
             run = drive_training(lt, libs, params, train_set, valid, rounds, required, tag,
                                  f"{label}, goss")
@@ -3395,8 +3613,8 @@ def drive_categorical(lt, libs, seed, tag):
 
     # ---- full width through the serial learner
     run = drive_training(lt, libs, CAT_PARAMS, train_set, (valid_df, y_valid), CAT_ROUNDS,
-                         ("histogram", "find_best_split", "row_partition_decide",
-                          "row_partition_scatter", "predict_forest_raw"), tag, "categorical")
+                         ("histogram", "find_best_split", "row_partition", "predict_forest_raw"),
+                         tag, "categorical")
     bst = run["booster"]
     kinds = split_kinds(bst, CAT_PARAMS["max_cat_to_onehot"])
     onehot, subset = (sum(k[i] for k in kinds) for i in (0, 1))
@@ -3810,7 +4028,7 @@ def drive_constraints(lt, libs, train_set, valid, X_train, y_train, baseline, ta
     t_exact = time.perf_counter() - t_phase
 
     # ---- full width
-    serial_kernels = ("histogram", "row_partition_decide", "row_partition_scatter",
+    serial_kernels = ("histogram", "row_partition",
                       "predict_forest_raw")
     launches, report = {}, {}
     mono_set = with_monotone(train_set, monotone_list(train_set.num_feature()))
@@ -3857,7 +4075,7 @@ def drive_constraints(lt, libs, train_set, valid, X_train, y_train, baseline, ta
     torch.cuda.empty_cache()
 
     bst, got, rep = drive_lane(lt, libs, "linear", lane_params("linear", forced, n), train_set,
-                               valid, serial_kernels[:3] + ("find_best_split",
+                               valid, serial_kernels[:2] + ("find_best_split",
                                                             "predict_forest_leaf"), tag)
     report["linear"] = rep
     check(got["predict_forest_raw"] == 0,
@@ -4183,7 +4401,7 @@ RANK_REQUIRED = ("histogram_slots_ragged_image", "histogram_image_to_float", "wa
                  "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
-                 "histogram", "row_partition_decide", "row_partition_scatter",
+                 "histogram", "row_partition",
                  "predict_forest_raw")
 # prediction early stopping in phase 6: the HIGGS-profile model, binary
 # margin 2 |score|, checked every ES_FREQ iterations
@@ -5156,10 +5374,9 @@ STREAM_QUANT_ROUNDS = 3
 # serial run's, until phase 22 came)
 STREAM_ROUNDS = 4
 STREAM_GANG_ROUNDS = 3  # phase 22 (e)'s float rounds, held to phase 20's first trees
-STREAM_SERIAL = ("histogram_carry", "find_best_split", "row_partition_decide",
-                 "row_partition_scatter")
+STREAM_SERIAL = ("histogram_carry", "find_best_split", "row_partition")
 STREAM_QUANT = ("histogram_carry_i32", "find_best_split_int", "quantize_reduce", "quantize",
-                "row_partition_decide", "row_partition_scatter")
+                "row_partition")
 FLY_ROWS, FLY_PUSH_ROWS = 262_144, 65_536  # a generation's fresh rows, a push
 FLY_ROUNDS, FLY_HOLDOUT, FLY_CLIENTS = 10, 16_384, 4
 FLY_SHIFT_FEATURE = 8  # a normal column, shifted out of its bins during generation 1's rows
@@ -5762,7 +5979,7 @@ GANG_REQUIRED = {
              "partition_scan", "partition_scatter", "relabel_rows", "split_scan_batched",
              "wave_select", "wave_replay"),
     "host": ("histogram_image", "histogram_image_to_float", "find_best_split",
-             "row_partition_decide", "row_partition_scatter"),
+             "row_partition"),
     "quantized": ("histogram_slots_ragged_i32", "split_scan_batched", "quantize_reduce",
                   "quantize", "partition_decide", "wave_select", "wave_replay"),
 }
@@ -6147,8 +6364,7 @@ ELASTIC_LIVENESS_S = 30  # (b): the supervisor's liveness deadline, past the wat
 ELASTIC_TIMEOUT_S = 240  # a run of phase 22 is reaped (and the phase fails) past this
 SHRINK_KILL_AT = 2  # (c): rank 1 dies at the start of this iteration
 STREAM_GANG_REQUIRED = {"float": ("histogram_carry", "histogram_image_to_float",
-                                  "find_best_split", "row_partition_decide",
-                                  "row_partition_scatter"),
+                                  "find_best_split", "row_partition"),
                         "quantized": ("histogram_carry_i32", "find_best_split_int",
                                       "quantize_reduce", "quantize")}
 
@@ -6440,18 +6656,112 @@ def elastic_gang_runs(gang_ranks, launches, tag):
               f"{n_trees} trees byte-equal to phase 20's")
 
 
-def profile_other(checkout: str, seed: int) -> int:
-    """The package in another checkout on the training path's data: its
-    leaf histogram's time at the root, a LEAF_ROWS and a SMALL_LEAF_ROWS
-    leaf (the row sets and gradients of check_histogram; the whole padded
-    set read, as its learner reads it where it takes no count);
-    histogram_slots on SAMPLE_ROWS rows x SLOT_SLOTS slots (slots in [0, S +
-    2), grid-snapped gradients, the exponents computed inside each call)
-    and the conversion of a wave's 2 x WAVE_K children; the wave's
-    selection and replay kernels at the middle live wave of a real tree
-    (recorded as phase 4 records it: the same wave in every checkout whose
-    trees are equal); and for each learner the host scopes of a 2-round run
-    and one profiled round."""
+PROFILE_PARTS = ("partition", "early_stop", "histogram", "slots", "wave_step", "rounds")
+
+
+def profile_partition(lt, bins, sets, card, checkout):
+    """The serial learner's row partition of the package in `checkout` at
+    the root, a LEAF_ROWS and a SMALL_LEAF_ROWS leaf (leaf_sets' row sets,
+    the split group 0's bin row, the go-left table of a threshold at bin
+    64): a split_rows call's device operations and their device time
+    (torch.profiler), its kernels' device time, and a call back to back
+    (CUDA events)."""
+    from lightgbm_tpu_torch.ops import partition_cuda
+
+    N = bins.shape[1]
+    row = bins[0].contiguous()
+    table = np.arange(256) <= 64
+    parts = []
+    for name in ("root", "leaf", "small"):
+        idx, count = sets[name]
+
+        def split(i=idx, c=count):
+            return partition_cuda.split_rows(row, i, c, table, N)
+
+        split()
+        busy = device_busy_share(lambda: [split() for _ in range(20)])
+        kernels = device_kernel_ms(split, 20, ("row_partition_kernel", "row_decide_kernel",
+                                               "row_scatter_kernel")) or {}
+        parts.append(f"{name} ({count} rows of {idx.shape[0]}): "
+                     f"{'not measured' if busy is None else busy[3] / 20} device operations, "
+                     f"{fmt_ms(None if busy is None else busy[0] * 1e3 / 20)} of device time "
+                     f"a call ("
+                     + ", ".join(f"{k} {v:.4f} ms" for k, v in kernels.items())
+                     + f"), {cuda_ms(split, 20):.4f} ms a call back to back (events)")
+    print(f"[{card}] {checkout}: row partition (torch.profiler; events) " + "; ".join(parts))
+
+
+def profile_early_stop(lt, seed, card, checkout):
+    """Phase 6's early-stopped predict with the package in `checkout`: the
+    HIGGS-profile model from the seed, MAIN_ROWS rows (phase 6's), margin
+    ES_MARGIN every ES_FREQ iterations. Through Booster.predict from the
+    host (best of 3, beside the full predict's best of 3), and through
+    predict_raw_early_stop on rows already on the card: wall (host clock,
+    synchronized), device time and device operations (torch.profiler), the
+    kernels' device time, host syncs (sync debug mode); and one block (the
+    first ES_FREQ trees over a 262,144-row chunk, every row active) as the
+    function runs it."""
+    from lightgbm_tpu_torch.models.synthetic import make_rows, random_model
+    from lightgbm_tpu_torch.ops.predict import (predict_raw, predict_raw_early_stop,
+                                                to_device_rows)
+
+    higgs = random_model(np.random.RandomState(seed), **HIGGS)
+    booster = lt.Booster(model_str=higgs.to_string())
+    packed = booster._gbdt._packed()
+    X_main = make_rows(np.random.RandomState(seed + 3), MAIN_ROWS, HIGGS["n_features"])
+    es_kw = {"raw_score": True, "pred_early_stop": True, "pred_early_stop_freq": ES_FREQ,
+             "pred_early_stop_margin": ES_MARGIN}
+    walls = {}
+    for label, kw in (("full", {"raw_score": True}), ("early", es_kw)):
+        booster.predict(X_main, **kw)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            booster.predict(X_main, **kw)
+            times.append(time.perf_counter() - t)
+        walls[label] = min(times) * 1e3
+    X = to_device_rows(X_main, torch.device(DEVICE))
+    names = ("early_stop_kernel", "predict_forest_kernel", "nonzero", "index")
+
+    def es():
+        return predict_raw_early_stop(packed, X, 1, ES_FREQ, ES_MARGIN)
+
+    def one_block():
+        return predict_raw_early_stop(packed.tree_slice(0, ES_FREQ), X[:1 << 18], 1, ES_FREQ,
+                                      ES_MARGIN)
+
+    line = []
+    for label, fn, reps in (("predict", es, 3), ("one block", one_block, 20)):
+        fn()
+        busy = device_busy_share(lambda f=fn, r=reps: [f() for _ in range(r)])
+        kernels = device_kernel_ms(fn, reps, names) or {}
+        syncs, _ = host_syncs(fn)
+        line.append(f"{label}: wall {host_ms(fn, reps):.3f} ms, device "
+                    f"{fmt_ms(None if busy is None else busy[0] * 1e3 / reps)} in "
+                    f"{'not measured' if busy is None else busy[3] / reps} device operations"
+                    f" ({', '.join(f'{k} {v:.4f} ms' for k, v in kernels.items())}), "
+                    f"{syncs} host syncs")
+    full = host_ms(lambda: predict_raw(packed, X, 1), 3)
+    print(f"[{card}] {checkout}: early stop, {MAIN_ROWS} rows: Booster.predict "
+          f"{walls['early']:.1f} ms against the full predict's {walls['full']:.1f} ms (best of "
+          f"3); on the card's rows, full predict_raw {full:.3f} ms; " + "; ".join(line))
+
+
+def profile_other(checkout: str, seed: int, parts=PROFILE_PARTS) -> int:
+    """The package in another checkout on the training path's data, the
+    `parts` of PROFILE_PARTS: "partition", the serial row partition's
+    split_rows at phase 4's row sets (profile_partition); "early_stop",
+    phase 6's early-stopped predict and one of its blocks
+    (profile_early_stop); "histogram", its leaf histogram's time at the
+    root, a LEAF_ROWS and a SMALL_LEAF_ROWS leaf (the row sets and gradients
+    of check_histogram; the whole padded set read, as its learner reads it
+    where it takes no count); "slots", histogram_slots on SAMPLE_ROWS rows x
+    SLOT_SLOTS slots (slots in [0, S + 2), grid-snapped gradients, the
+    exponents computed inside each call) and the conversion of a wave's 2 x
+    WAVE_K children; "wave_step", the wave's selection and replay kernels at
+    the middle live wave of a real tree (recorded as phase 4 records it: the
+    same wave in every checkout whose trees are equal); "rounds", for each
+    learner the host scopes of a 2-round run and one profiled round."""
     sys.path.insert(0, os.path.abspath(checkout))
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import hist_cuda, wave_cuda
@@ -6460,8 +6770,15 @@ def profile_other(checkout: str, seed: int) -> int:
 
     check(os.path.dirname(os.path.abspath(lt.__file__)).startswith(os.path.abspath(checkout)),
           f"imported {lt.__file__}, not the package in {checkout}")
+    unknown = set(parts) - set(PROFILE_PARTS)
+    check(not unknown, f"--profile-parts: no part {sorted(unknown)}")
     card = card_line()
     dev = torch.device(DEVICE)
+    if "early_stop" in parts:
+        profile_early_stop(lt, seed, card, checkout)
+        torch.cuda.empty_cache()
+    if not set(parts) - {"early_stop"}:
+        return 0
     X, y = higgs_rows(seed + 5, TRAIN_ROWS)
     train_set = lt.Dataset(X, label=y, params={"max_bin": TRAIN_PARAMS["max_bin"]}).construct()
     core = train_set._handle
@@ -6470,57 +6787,63 @@ def profile_other(checkout: str, seed: int) -> int:
     rng = np.random.RandomState(seed + 7)  # as check_histogram's
     gh, _, _ = leaf_gradients(rng, TRAIN_ROWS, dev)
     sets = leaf_sets(rng, TRAIN_ROWS, dev)
-    calls = {name: (lambda i=idx: hist_cuda.histogram(bins, gh, i, num_bins), count,
-                    idx.shape[0]) for name, (idx, count) in sets.items()}
-    print(f"[{card}] {checkout}: histogram (device events a call, torch.profiler; a call "
-          f"back to back, CUDA events) " + ", ".join(
-              f"{name} ({count} rows of {P}) {fmt_ms(call_device_ms(fn, 20))}; "
-              f"{cuda_ms(fn, 20):.4f} ms" for name, (fn, count, P) in calls.items()))
-    n, S = SAMPLE_ROWS, SLOT_SLOTS
-    sb = bins[:, :n].contiguous()
-    sg = (gh[:n, :3] * 16).round() / 16
-    slot = torch.from_numpy(rng.randint(0, S + 2, size=n).astype(np.int32)).to(dev)
-    cells = 2 * WAVE_K * core.num_groups * num_bins * 3
-    sums = torch.from_numpy(rng.randint(-2 ** 40, 2 ** 40, size=cells)).to(dev)
-    flags = torch.from_numpy(rng.choice([0] * 97 + [1, 2, 3], size=cells)
-                             .astype(np.int32)).to(dev)
-    exps = torch.tensor([40, 44, 50], dtype=torch.int32, device=dev)
-    slots = lambda: histogram_slots(sb, sg, slot, num_bins, S)  # noqa: E731
-    convert = lambda: hist_cuda.image_to_float(sums, flags, exps)  # noqa: E731
-    print(f"[{card}] {checkout}: histogram_slots {n} rows x {S} slots, the call's device "
-          f"operations {fmt_ms(call_device_ms(slots, 20))} (torch.profiler), "
-          f"{cuda_ms(slots, 20):.4f} ms a call back to back (events); the conversion of "
-          f"{cells} cells, kernel {fmt_ms(cold_kernel_ms(convert, 20, 'to_float_kernel'))} "
-          f"device with its inputs in HBM, "
-          f"{fmt_ms(kernel_device_ms(convert, 20, 'to_float_kernel'))} back to back, "
-          f"{cuda_ms(convert, 20):.4f} ms a call back to back (events)")
-    del bins, gh, sets, sb, sg, slot, sums, flags
+    if "partition" in parts:
+        profile_partition(lt, bins, sets, card, checkout)
+    if "histogram" in parts:
+        calls = {name: (lambda i=idx: hist_cuda.histogram(bins, gh, i, num_bins), count,
+                        idx.shape[0]) for name, (idx, count) in sets.items()}
+        print(f"[{card}] {checkout}: histogram (device events a call, torch.profiler; a call "
+              f"back to back, CUDA events) " + ", ".join(
+                  f"{name} ({count} rows of {P}) {fmt_ms(call_device_ms(fn, 20))}; "
+                  f"{cuda_ms(fn, 20):.4f} ms" for name, (fn, count, P) in calls.items()))
+    if "slots" in parts:
+        n, S = SAMPLE_ROWS, SLOT_SLOTS
+        sb = bins[:, :n].contiguous()
+        sg = (gh[:n, :3] * 16).round() / 16
+        slot = torch.from_numpy(rng.randint(0, S + 2, size=n).astype(np.int32)).to(dev)
+        cells = 2 * WAVE_K * core.num_groups * num_bins * 3
+        sums = torch.from_numpy(rng.randint(-2 ** 40, 2 ** 40, size=cells)).to(dev)
+        flags = torch.from_numpy(rng.choice([0] * 97 + [1, 2, 3], size=cells)
+                                 .astype(np.int32)).to(dev)
+        exps = torch.tensor([40, 44, 50], dtype=torch.int32, device=dev)
+        slots = lambda: histogram_slots(sb, sg, slot, num_bins, S)  # noqa: E731
+        convert = lambda: hist_cuda.image_to_float(sums, flags, exps)  # noqa: E731
+        print(f"[{card}] {checkout}: histogram_slots {n} rows x {S} slots, the call's device "
+              f"operations {fmt_ms(call_device_ms(slots, 20))} (torch.profiler), "
+              f"{cuda_ms(slots, 20):.4f} ms a call back to back (events); the conversion of "
+              f"{cells} cells, kernel {fmt_ms(cold_kernel_ms(convert, 20, 'to_float_kernel'))} "
+              f"device with its inputs in HBM, "
+              f"{fmt_ms(kernel_device_ms(convert, 20, 'to_float_kernel'))} back to back, "
+              f"{cuda_ms(convert, 20):.4f} ms a call back to back (events)")
+    del bins, gh, sets
     torch.cuda.empty_cache()
-    kept = record_wave_inputs(lt, train_set, WAVE_PARAMS)
-    sel_args = kept["waves"]["middle"]["select"]
-    rp = [a.clone() if isinstance(a, torch.Tensor) else a for a in
-          kept["waves"]["middle"]["replay"]]
-    scalars_in = int(rp[5][1])
-    wave_cuda.replay(*rp)
-    t = wave_step_timings(kept, plain=False)
-    print(f"[{card}] {checkout}: the middle live wave of a real tree (L = "
-          f"{sel_args[0].shape[0] - 1}, K = {sel_args[5]}, {int(rp[5][1]) - scalars_in} "
-          f"commits; its records' sha256 "
-          f"{hashlib.sha256(sel_args[0].cpu().numpy().tobytes()).hexdigest()[:16]}): "
-          f"wave_select kernel {fmt_ms(t['select'])} device (torch.profiler), "
-          f"{t['select_events']:.4f} ms a call back to back (events); wave_replay kernel "
-          f"{fmt_ms(t['replay'])} device, {t['replay_events']:.4f} ms a call (events)")
-    del kept, sel_args, rp
-    torch.cuda.empty_cache()
-    for params, label in ((WAVE_PARAMS, "wave"), (TRAIN_PARAMS, "serial")):
-        global_timer.reset()
-        global_timer.enabled = True
-        lt.train(dict(params), train_set, num_boost_round=2)
-        global_timer.enabled = False
-        scopes = sorted(global_timer.totals.items(), key=lambda kv: -kv[1])
-        print(f"[{card}] {checkout}: {label} train, 2 rounds, scopes (host s): " + ", ".join(
-            f"{k} {v:.3f} ({global_timer.counts[k]})" for k, v in scopes))
-        profile_round(lt, params, train_set, f"[{card}] {checkout}:", label)
+    if "wave_step" in parts:
+        kept = record_wave_inputs(lt, train_set, WAVE_PARAMS)
+        sel_args = kept["waves"]["middle"]["select"]
+        rp = [a.clone() if isinstance(a, torch.Tensor) else a for a in
+              kept["waves"]["middle"]["replay"]]
+        scalars_in = int(rp[5][1])
+        wave_cuda.replay(*rp)
+        t = wave_step_timings(kept, plain=False)
+        print(f"[{card}] {checkout}: the middle live wave of a real tree (L = "
+              f"{sel_args[0].shape[0] - 1}, K = {sel_args[5]}, {int(rp[5][1]) - scalars_in} "
+              f"commits; its records' sha256 "
+              f"{hashlib.sha256(sel_args[0].cpu().numpy().tobytes()).hexdigest()[:16]}): "
+              f"wave_select kernel {fmt_ms(t['select'])} device (torch.profiler), "
+              f"{t['select_events']:.4f} ms a call back to back (events); wave_replay kernel "
+              f"{fmt_ms(t['replay'])} device, {t['replay_events']:.4f} ms a call (events)")
+        del kept, sel_args, rp
+        torch.cuda.empty_cache()
+    if "rounds" in parts:
+        for params, label in ((WAVE_PARAMS, "wave"), (TRAIN_PARAMS, "serial")):
+            global_timer.reset()
+            global_timer.enabled = True
+            lt.train(dict(params), train_set, num_boost_round=2)
+            global_timer.enabled = False
+            scopes = sorted(global_timer.totals.items(), key=lambda kv: -kv[1])
+            print(f"[{card}] {checkout}: {label} train, 2 rounds, scopes (host s): " + ", ".join(
+                f"{k} {v:.3f} ({global_timer.counts[k]})" for k, v in scopes))
+            profile_round(lt, params, train_set, f"[{card}] {checkout}:", label)
     return 0
 
 
@@ -6612,6 +6935,9 @@ def main() -> int:
     ap.add_argument("--profile-of", metavar="DIR",
                     help="time the leaf histogram and profile one round of each learner "
                          "of the package in checkout DIR, and exit")
+    ap.add_argument("--profile-parts", default=",".join(PROFILE_PARTS),
+                    help="with --profile-of: the comma-separated parts to run, of "
+                         + ", ".join(PROFILE_PARTS) + " (all by default)")
     ap.add_argument("--wave-rounds-of", metavar="DIR",
                     help="time phases 8 and 10's training with the package in checkout DIR "
                          "(s/iteration, the tree graphs' card time a tree, the wave pool's "
@@ -6630,7 +6956,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if args.profile_of:
-        return profile_other(args.profile_of, args.seed)
+        return profile_other(args.profile_of, args.seed,
+                             tuple(p for p in args.profile_parts.split(",") if p))
     if args.wave_rounds_of:
         return wave_rounds_of(args.wave_rounds_of, args.seed)
     if args.gang_worker:
@@ -6643,8 +6970,8 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import (compact_cuda, cuda_build, hist_cuda, partition_cuda,
                                         predict_cuda, quantize_cuda, scan_cuda, wave_cuda)
     from lightgbm_tpu_torch.treelearner.device import DeviceTreeLearner
-    from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused,
-                                                _traverse_leaves, pack_ensemble)
+    from lightgbm_tpu_torch.ops.predict import (_predict_raw_fused, _traverse_leaves,
+                                                pack_ensemble, to_device_rows)
     from lightgbm_tpu_torch.serving import PredictionService, serve, wire
 
     global CARD_KIND
@@ -6823,6 +7150,8 @@ def main() -> int:
           f"sums: kernel {ms_acc:.4f} ms, plain {plain_acc:.2f} ms, bound {bound_acc:.4f} ms "
           f"({by_acc}); bit-equal to the plain version there and at "
           + ", ".join(str(r) for r in SERVE_BATCHES) + " rows")
+    es_block = check_early_stop_block(dev, es_slice, xs, acc_init, rotation, es_table_bytes,
+                                      visits_acc, tag)
     del acc_buf, acc_init
 
     bound_raw, by_raw = bound(cost_raw)
@@ -7063,18 +7392,19 @@ def main() -> int:
     ms_rp, bound_rp, shapes_rp = check_row_partition(dev, kept)
     del kept
     torch.cuda.empty_cache()
-    print("kernels: row partition (decide, scatter) on three real splits of a serial round ("
+    print("kernels: row partition (one single-pass launch a split) on three real splits of "
+          "a serial round ("
           + ", ".join(f"{name}: {c} rows of {P} positions, {nl} left"
-                      for name, (c, P, nl) in shapes_rp.items())
+                      for name, (c, P, nl, _) in shapes_rp.items())
           + "): both children and the left count equal to the CPU plain version, two "
-          "launches equal, RowPartition.split's children equal to the parent's sequence's")
+          "launches equal, RowPartition.split's children equal to the parent's sequence's; "
+          "device operations of a split_rows call: "
+          + ", ".join(f"{name} {ops}" for name, (_, _, _, ops) in shapes_rp.items()))
     for name, t in ms_rp.items():
-        passes = t["passes"]
-        print(f"{tag} row partition {name} ({shapes_rp[name][0]} rows): decide "
-              f"{fmt_ms(passes.get('row_decide_kernel'))}, scatter "
-              f"{fmt_ms(passes.get('row_scatter_kernel'))} (torch.profiler), plain "
-              f"{t['plain']:.3f} ms, bound decide {bound_rp[name]['decide'][0]:.5f}, scatter "
-              f"{bound_rp[name]['scatter'][0]:.5f} ms (bytes)")
+        print(f"{tag} row partition {name} ({shapes_rp[name][0]} rows): kernel "
+              f"{fmt_ms(t['kernel'])} (torch.profiler), {t['events']:.4f} ms a call back to "
+              f"back (events), plain {t['plain']:.3f} ms, stable argsort {t['library']:.4f} "
+              f"ms, bound {bound_rp[name][0]:.5f} ms ({bound_rp[name][1]})")
         print(f"{tag} row partition {name} as the learner calls it (RowPartition.split), "
               f"against the parent's sequence (decision ops, stable argsort, sync, children's "
               f"buffers): device {fmt_ms(t['device'])} vs {fmt_ms(t['parent_device'])} a "
@@ -7191,6 +7521,9 @@ def main() -> int:
           f"{walked / MAIN_ROWS:.1f} of {packed.num_trees} trees walked a row on average; "
           f"the first {ES_CPU_ROWS} rows bit-equal to the CPU Booster's early stop, an "
           f"infinite margin bit-equal to the full prediction")
+    es_path = early_stop_path(packed, to_device_rows(X_main, dev), higgs.trees, dev, tag)
+    check(es_path["syncs"] <= 1, f"early stop: {es_path['syncs']} host syncs in one predict, "
+                                 "not at most one")
     del host
 
     # ------------------------------------------- main path: serving
@@ -7280,7 +7613,10 @@ def main() -> int:
               f"(n={q['count']})")
     serve_launches = dict(predict_cuda.launches)
     for name, n in serve_launches.items():
-        check(n > 0, f"serving path: kernel {name} never launched")
+        # the accumulate mode left the path: early stopping launches its
+        # own kernel (predict_early_stop) since the single-kernel block
+        check(n > 0 or name == "predict_forest_raw_acc",
+              f"serving path: kernel {name} never launched")
     check(global_timer.counters.get("serve_dispatch_failures", 0) == 0
           and global_timer.counters.get("serve_breaker_shed", 0) == 0
           and stats["batcher"]["device_failures"] == 0
@@ -7334,8 +7670,8 @@ def main() -> int:
 
     # ------------------------------- training, serial learner
     serial = drive_training(lt, libs, TRAIN_PARAMS, train_set, valid, SERIAL_ROUNDS,
-                            ("histogram", "find_best_split", "row_partition_decide",
-                             "row_partition_scatter", "predict_forest_raw"), tag, "serial")
+                            ("histogram", "find_best_split", "row_partition",
+                             "predict_forest_raw"), tag, "serial")
     PHASE_MODELS["serial"] = serial["booster"].model_to_string()
     if args.seed == 0:
         check(all(abs(a - r) <= 0.002 for a, r in zip(serial["auc"], SERIAL_AUC_SEED0)),
@@ -7362,7 +7698,7 @@ def main() -> int:
                  "partition_decide", "partition_scan",
                  "partition_scatter", "relabel_rows", "find_best_split",
                  "find_best_split_batched", "wave_select", "wave_replay", "tree_loop_cond",
-                 "histogram", "row_partition_decide", "row_partition_scatter",
+                 "histogram", "row_partition",
                  "predict_forest_raw"):
         check(mc_launches[name] > 0, f"multiclass path: kernel {name} never launched")
     torch.cuda.empty_cache()
@@ -7461,6 +7797,18 @@ def main() -> int:
          "launches": launches("predict_forest_raw_acc"),
          "max_abs_err": err_acc, "ms": ms_acc, "plain_ms": plain_acc, "bound_ms": bound_acc,
          "bound_by": by_acc, "library_ms": None},
+        # prediction early stopping's block: one launch a block over the
+        # active list (the JAX package's _early_stop_block, XLA over the
+        # traversal of ops/predict_pallas.py:80), timed at the chunk's first
+        # block
+        {"name": "predict_early_stop", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",
+         "replaces": "lightgbm_tpu/ops/predict_pallas.py:80",
+         "launches": launches("predict_early_stop"), "max_abs_err": es_block["err"],
+         "ms": es_block["kernel"] if es_block["kernel"] is not None else es_block["events"],
+         "ms_by": "device" if es_block["kernel"] is not None else "events",
+         "plain_ms": es_block["plain"], "bound_ms": es_block["bound"][0],
+         "bound_by": es_block["bound"][1], "library_ms": None},
         {"name": "predict_forest_leaf", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/predict_forest.cu",
          "replaces": "lightgbm_tpu/ops/predict_pallas.py:41",
@@ -7586,20 +7934,18 @@ def main() -> int:
              "plain_ms": ms_part["plain"], "bound_ms": bound_part[key][0],
              "bound_by": bound_part[key][1], "library_ms": library})
     # the serial learner's row partition: glue on the leaf histogram's path
-    # (row 5 of PERF.md's table), timed at the root split; the plain time is
-    # the whole partition's, one function
-    for name, key in (("row_partition_decide", "row_decide_kernel"),
-                      ("row_partition_scatter", "row_scatter_kernel")):
-        kernels.append(
-            {"name": name, "route": "cuda",
-             "source": "lightgbm_tpu_torch/csrc/row_partition.cu",
-             "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
-             "launches": launches(name), "max_abs_err": 0.0,
-             "ms": ms_rp["root"]["passes"].get(key, ms_rp["root"]["device"]),
-             "plain_ms": ms_rp["root"]["plain"],
-             "bound_ms": bound_rp["root"][name.split("_")[-1]][0],
-             "bound_by": bound_rp["root"][name.split("_")[-1]][1],
-             "library_ms": ms_rp["root"]["library"]})
+    # (row 5a of PERF.md's table), one single-pass launch, timed at the root
+    # split
+    root = ms_rp["root"]
+    kernels.append(
+        {"name": "row_partition", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/row_partition.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:132",
+         "launches": launches("row_partition"), "max_abs_err": 0.0,
+         "ms": root["kernel"] if root["kernel"] is not None else root["events"],
+         "ms_by": "device" if root["kernel"] is not None else "events",
+         "plain_ms": root["plain"], "bound_ms": bound_rp["root"][0],
+         "bound_by": bound_rp["root"][1], "library_ms": root["library"]})
     kernels.append(
         {"name": "relabel_rows", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/wave_partition.cu",

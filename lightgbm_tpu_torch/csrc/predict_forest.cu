@@ -17,6 +17,8 @@
 //         onto the running sums of its active rows this way, and a row's
 //         sum is then the whole traversal's chain of adds;
 //   leaf: out[N, T] int32 leaf indices (pred_leaf).
+// A third entry point, lgbt_predict_early_stop (its own note below), runs
+// one block of prediction early stopping over a list of active rows.
 //
 // What bounds it. Bytes: X once (4F bytes a row), the output, the model once
 // (~3 MB for 500 trees x 255 leaves): ~20 us for a 262,144 x 28 chunk at
@@ -379,5 +381,279 @@ extern "C" int lgbt_predict_forest(const float* X, long long n, int F, const int
       err = cudaGetLastError();
     }
   }
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// Prediction early stopping's block (PERF.md row 1b): the port of the JAX
+// package's ops/predict.py:_early_stop_block with _compact_active (XLA over
+// the traversal). Not a Pallas kernel: one launch does a whole block of the
+// early-stopping loop (ops/predict.py:predict_raw_early_stop), so the loop
+// launches its blocks back to back with no host read between them.
+//
+// What it computes. For a block of the forest (a tree_slice of round_period
+// x C trees) and the list of active rows rows_in[0, *count_in) (no list:
+// rows 0 .. *count_in - 1, the first block; a count past n is taken as n),
+// each listed row r walks the
+// block's trees, reading its features from X by index, and continues each
+// class's chain of float32 adds from scores[r, c] in place, class-major and
+// in ascending tree order: the accumulate mode's chain, so the bits are the
+// whole traversal's. Then the plain version's margin test
+// (ops/predict.py:_early_stop_block_plain): one class, 2 |s| > margin;
+// several, the gap between the top two in torch.topk's order (NaN above
+// everything: a NaN or an inf - inf gap stops nothing); margin is the
+// float32 of the threshold. A row that does not stop is appended to
+// rows_out, and *count_out (zero before the launch) counts them. The order
+// of rows_out is not fixed (a warp appends its rows with one atomic add);
+// each row's chain is its own, so no result depends on it. A linear-tree
+// block scores a leaf as ops/predict.py:_linear_leaf_scores does, each
+// product and add rounded on its own (__fmul_rn, __fadd_rn).
+//
+// What bounds it. Bytes: the active rows' features (4F a row), their sums
+// read and written (8C), the list read and the next list written (4 + 4 a
+// kept row), the block's trees: at 1,048,576 active rows x 28 features, 10
+// trees of 255 leaves, ~130 MB, ~39 us at 3.35 TB/s (perfmodel.py
+// early_stop_block). The walk is row 1's: dependent node loads.
+//
+// Design. A persistent grid (no more blocks than the card holds at once,
+// none past the rows) reads the count from device memory, so no launch
+// waits for the host to know it; a block with no rows returns at once.
+//  * The block's trees (~50 KB for 10 trees of 255 leaves) are staged into
+//    shared memory once a block, whole, as row 1's tiles are; a block too
+//    large for the budget is read from global memory (template flag).
+//  * A warp takes 32 listed rows at a time (grid-stride over warps) and
+//    loads their F features cooperatively into its own feature-major
+//    shared tile [F][32]: 16-byte vectors where 4F is a multiple of 16 and
+//    X is 16-byte aligned, else words. A lane then walks its row with
+//    conflict-free feature reads (stride 32), as row 1's tile does; X too
+//    wide for the budget is read from global memory (template flag).
+//  * The sums continue in registers; the top two classes are kept on the
+//    fly, so the margin test needs no second pass.
+//  * The surviving rows of a warp are one ballot, one atomic add and one
+//    write each.
+// The walk and the node records are row 1's (walk, Forest).
+
+namespace {
+
+struct Linear {
+  const float* lin_const;  // [T, L] each leaf's constant
+  const int* lin_feat;     // [T, L, K] (-1: an unused slot)
+  const float* lin_coeff;  // [T, L, K]
+  int L, K;
+};
+
+// a above b in torch.topk's order: NaN above every number
+__device__ __forceinline__ bool above(float a, float b) {
+  return isnan(a) ? !isnan(b) : a > b;
+}
+
+template <bool kStageTrees, bool kStageX, bool kLinear>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+early_stop_kernel(const float* __restrict__ X, int n, int F, bool vec4, Forest f, Linear lin,
+                  float* __restrict__ scores, const int* __restrict__ rows_in,
+                  const int* __restrict__ count_in, int* __restrict__ rows_out,
+                  int* __restrict__ count_out, float margin) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int count = min(*count_in, n);
+  if (static_cast<long long>(blockIdx.x) * blockDim.x >= count) return;
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tree_words = kStageTrees ? f.T * f.R : 0;
+  int4* trees = reinterpret_cast<int4*>(smem);
+  float* xt = reinterpret_cast<float*>(smem) + tree_words + warp * F * 32;  // [F][32]
+  int* ids = reinterpret_cast<int*>(smem) + tree_words + warps * F * 32 + warp * 32;
+  if (kStageTrees) {
+    for (int u = threadIdx.x; u < tree_words / 4; u += blockDim.x) trees[u] = __ldg(f.records + u);
+    __syncthreads();
+  }
+  const int per_class = f.T / f.C;
+  const unsigned full = 0xffffffffu;
+  for (long long base = (static_cast<long long>(blockIdx.x) * warps + warp) * 32; base < count;
+       base += static_cast<long long>(gridDim.x) * warps * 32) {
+    const int pos = static_cast<int>(base) + lane;
+    const bool live = pos < count;
+    const int row = live ? (rows_in != nullptr ? rows_in[pos] : pos) : -1;
+    const float* x;
+    int xs;
+    if (kStageX) {
+      ids[lane] = row;
+      __syncwarp();
+      if (vec4) {
+        const int F4 = F >> 2;
+        for (int i = lane; i < 32 * F4; i += 32) {
+          const int r = i / F4, part = i - r * F4;
+          const int src = ids[r];
+          if (src >= 0) {
+            const float4 v =
+                __ldg(reinterpret_cast<const float4*>(X + static_cast<long long>(src) * F) + part);
+            float* d = xt + part * 4 * 32 + r;
+            d[0] = v.x;
+            d[32] = v.y;
+            d[64] = v.z;
+            d[96] = v.w;
+          }
+        }
+      } else {
+        for (int i = lane; i < 32 * F; i += 32) {
+          const int r = i / F, feat = i - r * F;
+          const int src = ids[r];
+          if (src >= 0) xt[feat * 32 + r] = __ldg(X + static_cast<long long>(src) * F + feat);
+        }
+      }
+      __syncwarp();
+      x = xt + lane;
+      xs = 32;
+    } else {
+      x = X + static_cast<long long>(live ? row : 0) * F;
+      xs = 1;
+    }
+    bool keep = false;
+    if (live) {
+      float t1 = 0.0f, t2 = 0.0f;
+      for (int c = 0; c < f.C; ++c) {
+        float* s = scores + static_cast<long long>(row) * f.C + c;
+        float acc = *s;
+        for (int q = 0; q < per_class; ++q) {
+          const int t = q * f.C + c;
+          const int* blob =
+              kStageTrees ? reinterpret_cast<const int*>(trees) + t * f.R
+                          : reinterpret_cast<const int*>(f.records) + static_cast<long long>(t) * f.R;
+          const int leaf = walk<!kStageTrees, !kStageX>(reinterpret_cast<const int4*>(blob),
+                                                        f.cat_table, x, xs, f.max_depth);
+          float v = __int_as_float(load<!kStageTrees>(blob + 4 * f.I + leaf));
+          if (kLinear) {
+            const long long li = static_cast<long long>(t) * lin.L + leaf;
+            float total = 0.0f;
+            bool bad = false;
+            for (int k = 0; k < lin.K; ++k) {
+              const int feat = __ldg(lin.lin_feat + li * lin.K + k);
+              float term = 0.0f;
+              if (feat >= 0) {
+                const float fv = load<!kStageX>(x + static_cast<long long>(min(feat, F - 1)) * xs);
+                bad |= !isfinite(fv);
+                term = __fmul_rn(__ldg(lin.lin_coeff + li * lin.K + k), fv);
+              }
+              total = __fadd_rn(total, term);
+            }
+            const float lv = __fadd_rn(__ldg(lin.lin_const + li), total);
+            if (!bad) v = lv;
+          }
+          acc = __fadd_rn(acc, v);
+        }
+        *s = acc;
+        if (c == 0) {  // the top two so far (torch.topk's values, in its order)
+          t1 = acc;
+        } else if (above(acc, t1)) {
+          t2 = t1;
+          t1 = acc;
+        } else if (c == 1 || above(acc, t2)) {
+          t2 = acc;
+        }
+      }
+      const float m = f.C == 1 ? __fmul_rn(2.0f, fabsf(t1)) : __fsub_rn(t1, t2);
+      keep = !(m > margin);
+    }
+    const unsigned mask = __ballot_sync(full, keep);
+    if (mask != 0) {
+      int at = 0;
+      if (lane == 0) at = atomicAdd(count_out, __popc(mask));
+      at = __shfl_sync(full, at, 0);
+      if (keep) rows_out[at + __popc(mask & ((1u << lane) - 1u))] = row;
+    }
+    __syncwarp();  // ids and xt are rewritten by the warp's next rows
+  }
+}
+
+template <bool kStageTrees, bool kStageX, bool kLinear>
+cudaError_t launch_early_stop(int threads, size_t smem, long long n, cudaStream_t stream,
+                              const float* X, int F, bool vec4, const Forest& f,
+                              const Linear& lin, float* scores, const int* rows_in,
+                              const int* count_in, int* rows_out, int* count_out,
+                              float margin) {
+  auto kernel = early_stop_kernel<kStageTrees, kStageX, kLinear>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess) {
+    return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long wanted = (n + threads - 1) / threads;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const unsigned grid = static_cast<unsigned>(wanted < resident ? wanted : resident);
+  kernel<<<grid, threads, smem, stream>>>(X, static_cast<int>(n), F, vec4, f, lin, scores,
+                                          rows_in, count_in, rows_out, count_out, margin);
+  return cudaGetLastError();
+}
+
+template <bool kStageTrees, bool kStageX>
+cudaError_t early_stop_linear(bool linear, int threads, size_t smem, long long n,
+                              cudaStream_t stream, const float* X, int F, bool vec4,
+                              const Forest& f, const Linear& lin, float* scores,
+                              const int* rows_in, const int* count_in, int* rows_out,
+                              int* count_out, float margin) {
+  if (linear)
+    return launch_early_stop<kStageTrees, kStageX, true>(threads, smem, n, stream, X, F, vec4,
+                                                         f, lin, scores, rows_in, count_in,
+                                                         rows_out, count_out, margin);
+  return launch_early_stop<kStageTrees, kStageX, false>(threads, smem, n, stream, X, F, vec4, f,
+                                                        lin, scores, rows_in, count_in,
+                                                        rows_out, count_out, margin);
+}
+
+}  // namespace
+
+// One block of prediction early stopping. X [n, F] float32; records [T, R]
+// int32, the block's trees (R a multiple of 4, the first 4 * I words node
+// records), cat_table int32; scores [n, C] float32, updated in place for
+// the listed rows; rows_in [n] int32 or null (rows 0, 1, ...);
+// count_in, count_out one int32 each on the card, *count_out zero before
+// the launch; rows_out [n] int32. A linear block passes lin_const [T, L],
+// lin_feat [T, L, K], lin_coeff [T, L, K] (else null, L = K = 0). margin:
+// the float32 threshold. threads a block (at most 512), the block's trees
+// staged in shared memory when stage_trees, each warp's rows of X when
+// stage_x (then vec4: 16-byte loads of X). Returns cudaGetLastError()
+// after the launch.
+extern "C" int lgbt_predict_early_stop(const float* X, long long n, int F, const int* records,
+                                       int R, int I, const int* cat_table, int T, int max_depth,
+                                       int C, const float* lin_const, const int* lin_feat,
+                                       const float* lin_coeff, int L, int K, float* scores,
+                                       const int* rows_in, const int* count_in, int* rows_out,
+                                       int* count_out, float margin, int threads,
+                                       int stage_trees, int stage_x, int vec4,
+                                       void* stream_ptr) {
+  const bool linear = lin_const != nullptr;
+  if (n < 1 || n >= (1ll << 31) || F < 1 || T < 1 || C < 1 || T % C != 0 || R < 4 ||
+      R % 4 != 0 || I < 1 || 4 * I >= R || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || count_in == nullptr || count_out == nullptr || rows_out == nullptr ||
+      (linear && (L < 1 || K < 0 || (K > 0 && (lin_feat == nullptr || lin_coeff == nullptr)))) ||
+      (vec4 && (F % 4 != 0 || reinterpret_cast<uintptr_t>(X) % 16 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const Forest f{reinterpret_cast<const int4*>(records), cat_table, T, R, I, C, max_depth};
+  const Linear lin{lin_const, lin_feat, lin_coeff, L, K};
+  const size_t smem = (stage_trees ? size_t(T) * R * 4 : 0) +
+                      (stage_x ? size_t(threads) * (F + 1) * 4 : 0);
+  const bool v4 = vec4 != 0;
+  cudaError_t err;
+  if (stage_trees && stage_x)
+    err = early_stop_linear<true, true>(linear, threads, smem, n, stream, X, F, v4, f, lin,
+                                        scores, rows_in, count_in, rows_out, count_out, margin);
+  else if (stage_trees)
+    err = early_stop_linear<true, false>(linear, threads, smem, n, stream, X, F, v4, f, lin,
+                                         scores, rows_in, count_in, rows_out, count_out, margin);
+  else if (stage_x)
+    err = early_stop_linear<false, true>(linear, threads, smem, n, stream, X, F, v4, f, lin,
+                                         scores, rows_in, count_in, rows_out, count_out, margin);
+  else
+    err = early_stop_linear<false, false>(linear, threads, smem, n, stream, X, F, v4, f, lin,
+                                          scores, rows_in, count_in, rows_out, count_out,
+                                          margin);
   return static_cast<int>(err);
 }

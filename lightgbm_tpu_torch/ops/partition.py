@@ -19,8 +19,8 @@ micro-batcher also use for their row counts.
 
 The JAX package partitions in XLA (a stable argsort on a 3-way key). A CPU
 tensor takes the plain version below (`_split_rows_plain`); a CUDA tensor
-launches the hand-written kernels (``ops/partition_cuda.py``,
-``csrc/row_partition.cu``: decide and scatter) or raises. Both give the
+launches the hand-written kernel (``ops/partition_cuda.py``,
+``csrc/row_partition.cu``: one single-pass launch a split) or raises. Both give the
 same integers as the JAX ``RowPartition.split``.
 """
 from __future__ import annotations

@@ -3,18 +3,27 @@
 `split_rows` splits one leaf's padded row-index set into its children's:
 the glue around the leaf histogram that the JAX package runs in XLA
 (``lightgbm_tpu/ops/partition.py:partition_rows`` and
-``RowPartition.split``), as two launches, decide and scatter. The note at
-the top of the source gives the design and bound. The library is built and
-loaded by ``ops/cuda_build.py``.
+``RowPartition.split``), as one single-pass launch (a stable partition with
+a decoupled look-back between its tiles). The note at the top of the source
+gives the design and bound. The library is built and loaded by
+``ops/cuda_build.py``.
+
+The tiles' status words live in a buffer kept per device and stream
+(`TileStates`): zeroed once when it is allocated (or grown, or when the
+epoch wraps), then tagged by each call's epoch, passed by value, so a call
+launches its kernel and nothing else. A call holds the buffer's lock from
+taking its epoch and tickets to its launch, so two threads that share a
+stream enqueue their calls in the order of their epochs.
 
 Dispatch is by the device of the bin row alone: a CPU tensor takes the plain
 version (``ops/partition.py:_split_rows_plain``); a CUDA tensor launches the
-kernels, or raises. There is no fallback from one to the other.
+kernel, or raises. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -22,22 +31,92 @@ import torch
 from .cuda_build import CudaLibrary, require_cuda, stream_of
 from .partition import _split_rows_plain
 
-TILE = 1024  # csrc/row_partition.cu kTile
+# csrc/row_partition.cu: a tile of SMALL_TILE positions up to SMALL_POSITIONS
+# positions, of LARGE_TILE above
+SMALL_TILE, LARGE_TILE, SMALL_POSITIONS = 1024, 4096, 1 << 18
+EPOCH_LIMIT = 1 << 31  # an epoch is below 2**31 (the status word's top 31 bits)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lgbt_row_partition_decide.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr]
-    lib.lgbt_row_partition_scatter.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
-                                               ptr]
-    for fn in (lib.lgbt_row_partition_decide, lib.lgbt_row_partition_scatter):
-        fn.restype = i32
+    ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    lib.lgbt_row_partition.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, u64, u64, ptr, ptr,
+                                       ptr, ptr]
+    lib.lgbt_row_partition.restype = i32
 
 
-LIB = CudaLibrary("row_partition.cu", ("row_partition_decide", "row_partition_scatter"),
-                  _declare)
+LIB = CudaLibrary("row_partition.cu", ("row_partition",), _declare)
 launches = LIB.launches
 reset_launches = LIB.reset_launches
+
+
+def tile(positions: int) -> int:
+    """The positions of a tile (a block) in a call over `positions`."""
+    return SMALL_TILE if positions <= SMALL_POSITIONS else LARGE_TILE
+
+
+def tiles(positions: int) -> int:
+    """Blocks of a call over `positions` positions: one a tile of them."""
+    return -(-positions // tile(positions))
+
+
+def state_words(n_tiles: int) -> int:
+    """int64 words of a state buffer for calls of up to n_tiles tiles: the
+    ticket word, then a status word a tile, rounded up to a power of two."""
+    words = 2
+    while words < n_tiles + 1:
+        words <<= 1
+    return words
+
+
+class TileStates:
+    """One device stream's state buffer and counters: `buf` (int64, word 0
+    the ticket counter, word 1 + t tile t's status), `epoch` (the last
+    call's; 0 after a zeroing) and `tickets` (taken so far from word 0).
+
+    `take(n_tiles)` returns (buffer, ticket0, epoch) for the next call:
+    a new epoch, and the tickets the call starts from. A call of one tile
+    takes no ticket and reads no status word. The buffer is zeroed (on the
+    stream) when it is allocated, grown, or when the epoch reaches
+    EPOCH_LIMIT."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.buf = None
+        self.epoch = 0
+        self.tickets = 0
+        self.lock = threading.Lock()
+
+    def take(self, n_tiles: int) -> Tuple[torch.Tensor, int, int]:
+        need = state_words(n_tiles)
+        if self.buf is None or self.buf.shape[0] < need:
+            self.buf = torch.zeros(need, dtype=torch.int64, device=self.device)
+            self.epoch = self.tickets = 0
+        if self.epoch + 1 >= EPOCH_LIMIT:
+            self.buf.zero_()
+            self.epoch = self.tickets = 0
+        self.epoch += 1
+        ticket0 = self.tickets
+        if n_tiles > 1:
+            self.tickets += n_tiles
+        return self.buf, ticket0, self.epoch
+
+    def drop(self) -> None:
+        """Forget the buffer after a refused launch (its tickets unknown)."""
+        self.buf = None
+
+
+_STATES: Dict[Tuple[int, int], TileStates] = {}
+_STATES_LOCK = threading.Lock()
+
+
+def tile_states(device: torch.device, stream: int) -> TileStates:
+    """The state buffer of (device, stream), made at first use."""
+    key = (device.index, stream)
+    with _STATES_LOCK:
+        states = _STATES.get(key)
+        if states is None:
+            states = _STATES[key] = TileStates(device)
+        return states
 
 
 def split_rows(bins_row: torch.Tensor, row_idx: torch.Tensor, count: int,
@@ -47,7 +126,7 @@ def split_rows(bins_row: torch.Tensor, row_idx: torch.Tensor, count: int,
     of a leaf's padded row set row_idx [P] (its first `count` positions are
     rows) split by the 256-entry go-left table over the group bins of
     bins_row [N] (ops/partition.py:split_rows). A CPU tensor takes the plain
-    version; a CUDA tensor launches the decide and scatter passes."""
+    version; a CUDA tensor launches the single-pass kernel, once a call."""
     if bins_row.device.type == "cpu":
         return _split_rows_plain(bins_row, row_idx, count, table, n_data)
     require_cuda(bins_row, "the row partition")
@@ -65,26 +144,25 @@ def split_rows(bins_row: torch.Tensor, row_idx: torch.Tensor, count: int,
     P = row_idx.shape[0]
     if not 0 <= count <= P or P < 1:
         raise ValueError(f"count must be in [0, {P}] positions of row_idx, got {count}")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the row partition cannot be captured in a CUDA graph: each "
+                           "call passes its own epoch and tickets by value")
     words = np.packbits(np.asarray(table, dtype=bool).reshape(256),
                         bitorder="little").view(np.uint32)
-    n_words, n_tiles = -(-count // 32), -(-count // TILE)
-    # one allocation: the two children, n_left, the ballot words, the tiles'
-    # counts (the children's views keep it alive: RowPartition trims them)
-    buf = torch.empty(2 * P + 1 + n_words + n_tiles, dtype=torch.int32, device=dev)
+    # one allocation: the two children and n_left (the children's views keep
+    # it alive: RowPartition trims them)
+    buf = torch.empty(2 * P + 1, dtype=torch.int32, device=dev)
     left, right, n_left = buf[:P], buf[P:2 * P], buf[2 * P]
-    bits, tile_cnt = buf[2 * P + 1:2 * P + 1 + n_words], buf[2 * P + 1 + n_words:]
     lib = LIB.load()
     stream = stream_of(bins_row)
-    with torch.cuda.device(dev):
-        if count > 0:
-            err = lib.lgbt_row_partition_decide(bins_row.data_ptr(), n_data,
-                                                row_idx.data_ptr(), count,
-                                                words.ctypes.data, bits.data_ptr(),
-                                                tile_cnt.data_ptr(), stream)
-            LIB.count("row_partition_decide", err)
-        err = lib.lgbt_row_partition_scatter(row_idx.data_ptr(), count, P, n_data,
-                                             bits.data_ptr(), tile_cnt.data_ptr(),
-                                             left.data_ptr(), right.data_ptr(),
-                                             n_left.data_ptr(), stream)
-        LIB.count("row_partition_scatter", err)
+    states = tile_states(dev, stream)
+    with torch.cuda.device(dev), states.lock:
+        state, ticket0, epoch = states.take(tiles(P))
+        err = lib.lgbt_row_partition(bins_row.data_ptr(), n_data, row_idx.data_ptr(), count, P,
+                                     words.ctypes.data, state.data_ptr(), ticket0, epoch,
+                                     left.data_ptr(), right.data_ptr(), n_left.data_ptr(),
+                                     stream)
+        if err != 0:
+            states.drop()
+    LIB.count("row_partition", err)
     return left, right, n_left

@@ -25,8 +25,9 @@ Serving-path machinery on top of the traversal:
   * `predict_raw_streamed` — row chunks for large N, so only one chunk of
     the input is on the device at a time.
   * `predict_raw_early_stop` — prediction early stopping: blocks of trees
-    (`PackedEnsemble.tree_slice`, views of the pack), each traversed by the
-    still-active rows only, the kernel adding onto their running sums.
+    (`PackedEnsemble.tree_slice`, views of the pack), each one launch of
+    the early-stopping kernel over the still-active rows, whose list and
+    count stay on the card between blocks.
 
 Not ported yet: row-sharded predict.
 """
@@ -533,6 +534,36 @@ def predict_raw(packed: PackedEnsemble, X: torch.Tensor,
         return forest_raw(packed, X, num_tree_per_iteration, out=out, accumulate=accumulate)
 
 
+def _early_stop_block_plain(packed: PackedEnsemble, X: torch.Tensor, scores: torch.Tensor,
+                            num_tree_per_iteration: int, margin: float,
+                            rows_in: Optional[torch.Tensor], count_in: torch.Tensor,
+                            rows_out: torch.Tensor, count_out: torch.Tensor) -> None:
+    """The plain version of one early-stopping block (ops/predict_cuda.py:
+    early_stop_block; the JAX package's _early_stop_block): the active rows
+    rows_in[:count_in] (rows 0 .. count_in - 1 when rows_in is None) add the
+    block's trees onto their sums in scores (each class's chain of float32
+    adds continued, `_predict_raw_fused` with `init`), and the rows whose
+    margin (2 |score| for one class, the gap between the top two classes
+    otherwise, torch.topk's) does not exceed `margin`, a float32 value, are
+    written to rows_out in list order, their number to count_out."""
+    cnt = int(count_in.reshape(-1)[0])
+    if cnt == 0:
+        count_out.fill_(0)
+        return
+    idx = (torch.arange(cnt, device=X.device) if rows_in is None
+           else rows_in[:cnt].to(torch.int64))
+    sums = _predict_raw_fused(packed, X[idx], num_tree_per_iteration, scores[idx])
+    scores[idx] = sums
+    if num_tree_per_iteration == 1:
+        margin_val = 2.0 * torch.abs(sums[:, 0])
+    else:
+        top2 = torch.topk(sums, 2, dim=1).values
+        margin_val = top2[:, 0] - top2[:, 1]
+    kept = idx[~(margin_val > margin)]
+    rows_out[:kept.shape[0]] = kept.to(torch.int32)
+    count_out.fill_(kept.shape[0])
+
+
 def predict_raw_early_stop(packed: PackedEnsemble, X: torch.Tensor,
                            num_tree_per_iteration: int, round_period: int,
                            margin_threshold: float) -> torch.Tensor:
@@ -542,43 +573,41 @@ def predict_raw_early_stop(packed: PackedEnsemble, X: torch.Tensor,
     `margin_threshold` (2 |score| for one class, the gap between the top
     two classes otherwise) takes no further trees.
 
-    The scores and the active mask stay on X's device. A block gathers the
-    still-active rows in ascending order (the mask's nonzero positions) and
-    their running sums, adds the block's trees onto those sums (the
-    traversal kernel's accumulate mode on a `tree_slice` of the pack), and
-    writes them back. The one host sync a block is the active count, which
-    sizes the nonzero positions. A
-    row's sum is the same chain of float32 adds as the whole traversal's,
-    so with an infinite margin the result is the plain predict's bit for
-    bit; the JAX package adds each block's XLA sum onto the running score
-    instead."""
+    The scores, the list of active rows and its count stay on X's device.
+    Each block is one launch of the early-stopping kernel
+    (ops/predict_cuda.py:early_stop_block) on a `tree_slice` of the pack:
+    it reads the list and its count on the card, adds the block's trees
+    onto the listed rows' sums and writes the next list and count there,
+    so the blocks are launched back to back with no host read between
+    them; the one host read is the lists' counts, once, at the end, for the
+    `predict_early_stop_row_trees` tally. A row's sum is the same chain of
+    float32 adds as the whole traversal's, so with an infinite margin the
+    result is the plain predict's bit for bit; the JAX package adds each
+    block's XLA sum onto the running score instead."""
+    from .predict_cuda import early_stop_block
+
     C = num_tree_per_iteration
     T = packed.num_trees
     validate_tree_count(packed, C)
     n = X.shape[0]
     dev = X.device
     scores = torch.zeros((n, C), dtype=torch.float32, device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    margin = torch.tensor(margin_threshold, dtype=torch.float32, device=dev)
+    if T == 0 or n == 0:
+        return scores
+    margin = torch.tensor(margin_threshold, dtype=torch.float32).item()  # its float32
     block = max(round_period, 1) * C
+    starts = range(0, T, block)
+    lists = torch.empty((2, n), dtype=torch.int32, device=dev)
+    counts = torch.zeros(len(starts) + 1, dtype=torch.int32, device=dev)
+    counts[:1].fill_(n)  # a fill launch: an item assignment would copy, and wait
     with global_timer.scope("predict_early_stop"):
-        for start in range(0, T, block):
-            idx = torch.nonzero(active).reshape(-1)
-            cnt = idx.shape[0]
-            if cnt == 0:
-                break
-            sums = scores[idx]
-            predict_raw(packed.tree_slice(start, min(start + block, T)), X[idx], C,
-                        out=sums, accumulate=True)
-            scores[idx] = sums
-            if C == 1:
-                margin_val = 2.0 * torch.abs(sums[:, 0])
-            else:
-                top2 = torch.topk(sums, 2, dim=1).values
-                margin_val = top2[:, 0] - top2[:, 1]
-            active[idx] = ~(margin_val > margin)
-            global_timer.add_count("predict_early_stop_row_trees",
-                                   cnt * (min(start + block, T) - start))
+        for b, start in enumerate(starts):
+            early_stop_block(packed.tree_slice(start, min(start + block, T)), X, scores, C,
+                             margin, None if b == 0 else lists[(b - 1) % 2], counts[b:b + 1],
+                             lists[b % 2], counts[b + 1:b + 2])
+        active = counts[:-1].tolist()  # the one host read
+        global_timer.add_count("predict_early_stop_row_trees", sum(
+            a * (min(start + block, T) - start) for a, start in zip(active, starts)))
     return scores
 
 

@@ -11,9 +11,13 @@ kernel, or raises. There is no fallback from one to the other.
 
 `forest_plan` picks a launch from N and T: every block walking all trees
 for large batches, or the trees split across blocks (and a second, summing
-kernel for raw scores) for serving batches. Each wrapper counts its
-launches in `launches`, so a run can show that its predictions went
-through the kernel.
+kernel for raw scores) for serving batches. `early_stop_block` is
+prediction early stopping's block, one launch of its own kernel
+(`lgbt_predict_early_stop`) that reads its list of active rows and their
+count from the card and writes the next list and count there, so the loop
+(``ops/predict.py:predict_raw_early_stop``) reads nothing between blocks.
+Each wrapper counts its launches in `launches`, so a run can show that its
+predictions went through the kernel.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from typing import Optional
 import torch
 
 from .cuda_build import CudaLibrary, require_cuda, stream_of
-from .predict import PackedEnsemble, _predict_raw_fused, _traverse_leaves
+from .predict import (PackedEnsemble, _early_stop_block_plain, _predict_raw_fused,
+                      _traverse_leaves)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -32,10 +37,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lgbt_predict_forest.argtypes = ([ptr, i64, i32, ptr, i32, i32, ptr]
                                         + [i32] * 10 + [ptr, ptr, ptr])
     lib.lgbt_predict_forest.restype = i32
+    lib.lgbt_predict_early_stop.argtypes = ([ptr, i64, i32, ptr, i32, i32, ptr, i32, i32, i32]
+                                            + [ptr] * 3 + [i32] * 2 + [ptr] * 5
+                                            + [ctypes.c_float] + [i32] * 4 + [ptr])
+    lib.lgbt_predict_early_stop.restype = i32
 
 
 LIB = CudaLibrary("predict_forest.cu", ("predict_forest_raw", "predict_forest_leaf",
-                                        "predict_forest_raw_acc"), _declare)
+                                        "predict_forest_raw_acc", "predict_early_stop"),
+                  _declare)
 SOURCE = LIB.source
 launches = LIB.launches
 reset_launches = LIB.reset_launches
@@ -48,6 +58,7 @@ SPLIT_MAX_PAIRS = 1 << 24      # ... while its [T, N] float32 scratch stays <= 6
 TREE_BUDGET = 48 * 1024        # shared bytes for the two tree-tile buffers
 X_BUDGET = 64 * 1024           # shared bytes for the row tile of X
 MAX_TILE_TREES = 16
+ES_TREE_BUDGET = 96 * 1024     # shared bytes for an early-stopping block's trees
 MODES = {"raw": 0, "raw_split": 1, "leaf": 2}
 
 
@@ -176,3 +187,85 @@ def forest_leaf_indices(packed: PackedEnsemble, X: torch.Tensor) -> torch.Tensor
     err = _launch(packed, X, 1, "leaf", out)
     LIB.count("predict_forest_leaf", err)
     return out
+
+
+@dataclass(frozen=True)
+class EarlyStopPlan:
+    """One early-stopping block's launch (lgbt_predict_early_stop)."""
+
+    threads: int           # a block's threads: 32 listed rows a warp at a time
+    stage_trees: bool      # the block's trees in shared memory (else global)
+    stage_x: bool          # each warp's 32 rows of X in shared memory
+    vec4: bool             # ... loaded as 16-byte vectors
+
+
+def early_stop_plan(n_trees: int, n_features: int, record_words: int,
+                    x_aligned: bool) -> EarlyStopPlan:
+    """The launch of an early-stopping block of n_trees trees over rows of
+    n_features features: the most threads whose rows of X fit X_BUDGET
+    (staged), the trees staged whole while they fit ES_TREE_BUDGET."""
+    threads = next((t for t in (MAX_THREADS, 256, 128) if t * n_features * 4 <= X_BUDGET), 0)
+    stage_x = threads > 0
+    stage_trees = n_trees * record_words * 4 <= ES_TREE_BUDGET
+    vec4 = stage_x and n_features % 4 == 0 and x_aligned
+    return EarlyStopPlan(threads or 256, stage_trees, stage_x, vec4)
+
+
+def early_stop_block(packed: PackedEnsemble, X: torch.Tensor, scores: torch.Tensor,
+                     num_tree_per_iteration: int, margin: float,
+                     rows_in: Optional[torch.Tensor], count_in: torch.Tensor,
+                     rows_out: torch.Tensor, count_out: torch.Tensor) -> None:
+    """One block of prediction early stopping over the block's trees
+    `packed` (a tree_slice): the rows rows_in[:count_in] (rows_in None: rows
+    0 .. count_in - 1) add the block onto their running sums in scores
+    [N, C], and those whose margin does not exceed `margin` (a float32
+    value) go to rows_out, count_out their number (ops/predict.py:
+    _early_stop_block_plain). count_in and count_out are one-element int32
+    tensors beside X; count_out must hold 0. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (counted as
+    predict_early_stop), which reads the count and writes the next on the
+    card: nothing is read to the host."""
+    C = num_tree_per_iteration
+    if X.device.type == "cpu":
+        _early_stop_block_plain(packed, X, scores, C, margin, rows_in, count_in, rows_out,
+                                count_out)
+        return
+    require_cuda(X, "prediction early stopping")
+    _check(packed, X)
+    n, F = X.shape
+    T, I = packed.split_feature.shape
+    if C < 1 or T % C:
+        raise ValueError(f"{T} packed trees do not group into {C} classes")
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"prediction early stopping takes 1 to 2**31 - 1 rows, got {n}")
+    if scores.shape != (n, C) or scores.dtype != torch.float32 or scores.device != X.device \
+            or not scores.is_contiguous():
+        raise ValueError(f"scores must be a contiguous float32 [{n}, {C}] tensor on {X.device}")
+    for name, t, size in (("rows_in", rows_in, n), ("rows_out", rows_out, n),
+                          ("count_in", count_in, 1), ("count_out", count_out, 1)):
+        if t is None and name == "rows_in":
+            continue
+        if t.dtype != torch.int32 or t.device != X.device or not t.is_contiguous() \
+                or t.dim() != 1 or t.shape[0] < size:
+            raise ValueError(f"{name} must be a contiguous int32 vector of at least {size} "
+                             f"on {X.device}, got {t.dtype} {list(t.shape)} on {t.device}")
+    R = packed.records.shape[1]
+    plan = early_stop_plan(T, F, R, X.data_ptr() % 16 == 0)
+    lin = (packed.lin_const, packed.lin_feat, packed.lin_coeff) if packed.linear else None
+    if lin is not None:
+        for name, t, want in zip(("lin_const", "lin_feat", "lin_coeff"), lin,
+                                 (torch.float32, torch.int32, torch.float32)):
+            if t.device != X.device or t.dtype != want or not t.is_contiguous():
+                raise ValueError(f"packed table {name} must be a contiguous {want} tensor "
+                                 f"on {X.device}")
+    L, K = (lin[1].shape[1], lin[1].shape[2]) if lin is not None else (0, 0)
+    lin_ptrs = (None,) * 3 if lin is None else tuple(t.data_ptr() for t in lin)
+    lib = LIB.load()
+    with torch.cuda.device(X.device):
+        err = lib.lgbt_predict_early_stop(
+            X.data_ptr(), n, F, packed.records.data_ptr(), R, I, packed.cat_table.data_ptr(),
+            T, packed.max_depth, C, *lin_ptrs, L, K, scores.data_ptr(),
+            None if rows_in is None else rows_in.data_ptr(), count_in.data_ptr(), rows_out.data_ptr(), count_out.data_ptr(), float(margin),
+            plan.threads, int(plan.stage_trees), int(plan.stage_x), int(plan.vec4),
+            stream_of(X))
+    LIB.count("predict_early_stop", err)

@@ -133,6 +133,20 @@ def traversal_accumulate(rows: int, n_features: int, n_trees: int, table_bytes: 
             node_visits + rows * n_trees)
 
 
+def early_stop_block(active_rows: int, n_features: int, n_classes: int, n_trees: int,
+                     table_bytes: int, node_visits: float,
+                     kept_rows: Optional[int] = None) -> Tuple[float, float]:
+    """Row 1b, prediction early stopping's block: the active rows'
+    features, their sums read and written, the list read and the next list
+    written (kept_rows of them; all, when not given), the two counts, the
+    block's trees; a compare a node visited, an add a (row, tree), and a
+    row's margin test (an operation a class)."""
+    kept = active_rows if kept_rows is None else kept_rows
+    return (active_rows * n_features * 4 + 2 * active_rows * n_classes * 4
+            + active_rows * 4 + kept * 4 + 2 * 4 + table_bytes,
+            node_visits + active_rows * n_trees + active_rows * n_classes)
+
+
 def traversal_leaf(rows: int, n_features: int, n_trees: int, table_bytes: int,
                    node_visits: float) -> Tuple[float, float]:
     """Row 1, leaf mode: a leaf index a (row, tree) written; a compare a
@@ -244,16 +258,10 @@ def find_best_split(n_features: int, max_bins: int, leaves: int = 1,
     return leaves * per_leaf + tables, leaves * F * B * 2 * per_lane
 
 
-def row_partition_decide(rows: int, tiles: int) -> Tuple[float, float]:
-    """Row 5a, decide: the index and a bin byte in, a bit and the tile's
-    count out."""
-    return rows * (4 + 1) + rows / 8 + tiles * 4, 0.0
-
-
-def row_partition_scatter(rows: int, tiles: int, positions: int) -> Tuple[float, float]:
-    """Row 5a, scatter: the index, the bits and the counts in, both
-    children out."""
-    return rows * 4 + rows / 8 + tiles * 4 + 2 * 4 * positions + 4, 0.0
+def row_partition(rows: int, positions: int) -> Tuple[float, float]:
+    """Row 5a, the single pass: the index and a bin byte a row in, both
+    children out over every position, n_left."""
+    return rows * (4 + 1) + 2 * 4 * positions + 4, 0.0
 
 
 def wave_select(leaves: int, width: int, table_words: int) -> Tuple[float, float]:

@@ -272,8 +272,7 @@ def test_train_on_card_byte_equal_to_cpu(cuda):
     assert hist_cuda.launches["histogram"] > hist_before
     assert scan_cuda.launches["find_best_split"] > scan_before
     splits = sum(tr.num_leaves - 1 for tr in card._gbdt.models)
-    for kernel in ("row_partition_decide", "row_partition_scatter"):
-        assert partition_cuda.launches[kernel] == part_before[kernel] + splits
+    assert partition_cuda.launches["row_partition"] == part_before["row_partition"] + splits
     host = lt.train({**params, "device_type": "cpu"}, lt.Dataset(X, label=y),
                     num_boost_round=3)
     assert card.model_to_string() == host.model_to_string()
@@ -733,18 +732,30 @@ def test_find_best_split_kernel_matches_plain_on_cpu(cuda, leaves, mask, data):
 
 # (N, P, count, table): the root of a few tiles with a random table, a leaf
 # read to its count through half a bucket of padding, a row set of one
-# partial tile, every row left, every row right, no rows
+# partial tile, every row left, every row right, no rows; one row, a warp,
+# 1,023, 1,024 and 1,025 rows (tiles of 1,024 positions), 4,095, 4,096 and
+# 4,097, padding past several tiles, the main path's root (1,048,576 rows in
+# 256 tiles of 4,096: one look-back window) and a count one short of it,
+# 2,000,000 rows (489 tiles: two windows), and both sides of the tile
+# size's switch at 2**18 positions
 ROW_SPLITS = [(300001, 524288, 300001, "random"), (300001, 262144, 140001, "random"),
               (5000, 1024, 700, "random"), (5000, 4096, 3000, "left"),
-              (5000, 4096, 3000, "right"), (5000, 256, 0, "random")]
+              (5000, 4096, 3000, "right"), (5000, 256, 0, "random"),
+              (5000, 256, 1, "random"), (5000, 256, 31, "random"), (5000, 256, 32, "random"),
+              (5000, 1024, 1023, "random"), (5000, 1024, 1024, "random"),
+              (5000, 2048, 1025, "random"), (5000, 8192, 1025, "left"),
+              (1048576, 1048576, 1048576, "random"), (1048576, 1048576, 1048575, "right"),
+              (5000, 4096, 0, "random"), (300001, 8192, 4095, "random"),
+              (300001, 8192, 4096, "random"), (300001, 8192, 4097, "random"),
+              (300001, 65536, 4097, "left"), (2100000, 1 << 21, 2000000, "random"),
+              (300001, 1 << 18, 262144, "random"), (300001, 524288, 262145, "right")]
 
 
 @pytest.mark.parametrize("case", ROW_SPLITS, ids=[f"{c[2]}of{c[1]}-{c[3]}" for c in ROW_SPLITS])
 def test_row_partition_kernels_match_plain(cuda, case):
-    """The decide and scatter kernels against `_split_rows_plain` run on the
-    CPU: both children's buffers and the left count exactly equal, two
-    launches equal, one launch of each pass a call (none of decide for no
-    rows)."""
+    """The single-pass kernel against `_split_rows_plain` run on the CPU:
+    both children's buffers and the left count exactly equal, two launches
+    equal, one launch a call."""
     N, P, count, kind = case
     rng = np.random.RandomState(N + P + count)
     bins_row = rng.randint(0, 256, size=N).astype(np.uint8)
@@ -758,9 +769,7 @@ def test_row_partition_kernels_match_plain(cuda, case):
     got = partition_cuda.split_rows(b_d, i_d, count, table, N)
     again = partition_cuda.split_rows(b_d, i_d, count, table, N)
     torch.cuda.synchronize()
-    assert partition_cuda.launches["row_partition_decide"] == (
-        before["row_partition_decide"] + (2 if count else 0))
-    assert partition_cuda.launches["row_partition_scatter"] == before["row_partition_scatter"] + 2
+    assert partition_cuda.launches["row_partition"] == before["row_partition"] + 2
     for g, a, r in zip(got, again, ref):
         assert g.dtype == r.dtype == torch.int32 and g.shape == r.shape
         assert torch.equal(g.cpu(), r) and torch.equal(a.cpu(), r)
@@ -790,6 +799,43 @@ def test_row_partition_on_card_matches_cpu(cuda, bagged):
         assert got == host.split(leaf, leaf_new, torch.from_numpy(plane[g]), decision)
         for child in (leaf, leaf_new):
             assert torch.equal(card.indices(child).cpu(), host.indices(child))
+
+
+def test_row_partition_on_two_streams_at_once(cuda):
+    """Two threads partition on two streams at once, each on its own state
+    buffer: every split equals the plain version."""
+    import threading
+
+    rng = np.random.RandomState(23)
+    N, P = 300000, 262144
+    bins_row = rng.randint(0, 256, size=N).astype(np.uint8)
+    b_d = torch.from_numpy(bins_row).to(cuda)
+    cases = []
+    for k in range(2):
+        count = 200000 + 1000 * k
+        idx = np.full(P, N, np.int32)
+        idx[:count] = np.sort(rng.choice(N, count, replace=False))
+        table = rng.rand(256) < 0.5
+        cases.append((torch.from_numpy(idx).to(cuda), count, table,
+                      _split_rows_plain(torch.from_numpy(bins_row), torch.from_numpy(idx),
+                                        count, table, N)))
+    failures = []
+
+    def work(k):
+        i_d, count, table, ref = cases[k]
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for _ in range(20):
+                got = partition_cuda.split_rows(b_d, i_d, count, table, N)
+                torch.cuda.current_stream().synchronize()
+                if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
+                    failures.append(k)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert failures == []
 
 
 def test_row_partition_wrapper_rejects_bad_input(cuda):

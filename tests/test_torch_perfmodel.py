@@ -71,8 +71,6 @@ def _old_formulas(s):
         "find_int_one": (q_per_leaf + find_tables, F * B * 2 * 31),
         "find_int_batch": (2 * K * q_per_leaf + find_tables, 2 * K * F * B * 2 * 31),
         "find_constrained": (per_leaf + c_tables, F * B * 2 * 48),
-        "row_decide": (rows * (4 + 1) + rows / 8 + tiles * 4, 0),
-        "row_scatter": (rows * 4 + rows / 8 + tiles * 4 + 2 * 4 * P + 4, 0),
         "select": (L * 4 + K * (3 * 4 + 2 * 4 + 6 * 4 + 1) + 8 + out * 4, 0),
         "replay": (L * 4 + K * 4 + 4 * K * 4 + K * 4 + 2 * K * 3 * 4 + 5 * 4 + SCALARS * 8
                    + n * (2 * (REC - 1) * 4 + 2 * 4 + REC * 4)
@@ -109,8 +107,6 @@ def _new_formulas(s):
         "find_int_one": pm.find_best_split(F, B, quantized=True),
         "find_int_batch": pm.find_best_split(F, B, 2 * K, quantized=True),
         "find_constrained": pm.find_best_split(F, B, constrained=True),
-        "row_decide": pm.row_partition_decide(rows, tiles),
-        "row_scatter": pm.row_partition_scatter(rows, tiles, P),
         "select": pm.wave_select(L, K, out),
         "replay": pm.wave_replay(L, K, n),
         "loop": pm.tree_loop_cond(),
@@ -127,6 +123,31 @@ def test_formulas_and_bounds_equal_the_smokes_former_ones(seed):
     for key in old:
         assert tuple(new[key]) == tuple(old[key]), key
         assert pm.bound_ms(*new[key], H100) == _old_bound(*old[key]), key
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_row_partition_and_early_stop_block_formulas(seed):
+    """The single-pass row partition (row 5a): the index and a bin byte a
+    row in, both children over every position and n_left out; the early-
+    stopping block (row 1b): the active rows' features, sums read and
+    written, the list read and the next written, the two counts, the trees;
+    both bound by bytes at the main path's shapes."""
+    s = _shapes(seed)
+    rows, P, F, T, tables, visits = (s[k] for k in ("rows", "P", "F", "T", "tables", "visits"))
+    assert pm.row_partition(rows, P) == (5 * rows + 8 * P + 4, 0.0)
+    C, kept = 1 + seed, rows // 3
+    assert pm.early_stop_block(rows, F, C, T, tables, visits, kept) == (
+        rows * F * 4 + 2 * rows * C * 4 + rows * 4 + kept * 4 + 8 + tables,
+        visits + rows * T + rows * C)
+    assert pm.early_stop_block(rows, F, C, T, tables, visits) == pm.early_stop_block(
+        rows, F, C, T, tables, visits, rows)
+    # the root split of 1,048,576 rows, and a block of 10 trees over 1,048,576
+    # active rows x 28 features (about 10 node visits a row and tree)
+    root, by = pm.bound_ms(*pm.row_partition(1 << 20, 1 << 20), H100)
+    assert by == "bytes" and abs(root - (13 * (1 << 20) + 4) / _HBM * 1e3) < 1e-12
+    block, by = pm.bound_ms(*pm.early_stop_block(1 << 20, 28, 1, 10, 10 * 5088,
+                                                 1e8, 1 << 19), H100)
+    assert by == "bytes" and 0.03 < block < 0.05
 
 
 def test_peak_table_has_the_card_and_no_tpu(monkeypatch):
