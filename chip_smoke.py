@@ -134,9 +134,14 @@ Phases (any failure exits non-zero before the result line):
 9. serial   the same with feature_fraction_bynode=0.8, through the serial
             learner (at --seed 0 its AUC within 0.002 of SERIAL_AUC_SEED0),
             with the device operations a split of the profiled round. Then
-            the tree graph's loop-condition kernel: the main path's last
-            tree grown again by its tree graph and by the host's loop on the
-            card from the same inputs, split log, scalars and passes equal.
+            the tree loop's condition (set by the second wave's replay
+            kernel each pass; one condition kernel a tree, after the root):
+            the main path's last tree grown again by its tree graph and by
+            the host's loop on the card from the same inputs, and the same
+            with its gradients zeroed (a stump, no pass), split log, scalars
+            and passes equal; from a profiler trace, one condition launch
+            and 2 x passes replays a tree, the device operations a tree,
+            and the replay's time in each wave (condition off and on).
 10. multiclass  Covertype's shapes from --seed (581,012 x 54: ten integer
             columns in Covertype's ranges, 4 + 40 one-hot columns that EFB
             bundles, 7 classes at Covertype's shares), multiclass, 255
@@ -166,7 +171,9 @@ Phases (any failure exits non-zero before the result line):
             rows; their hessian is constant on the card) and on its
             gradients at its final scores, stochastic and nearest rounding,
             4 and 16 bins and a hessian of ones: int8 rows, sentinel and
-            scales bit-equal; the
+            scales bit-equal; the integer instructions a row of its row
+            loops counted in this build's SASS (cuobjdump -sass), its bound
+            from them and the share of it the quantize pass reaches; the
             split kernel's int32 input on a quantized tree's root and first
             wave's 42 children (run eagerly on the card): records bit-equal
             to the plain version run on the CPU; the leaf and ragged
@@ -469,9 +476,10 @@ comparison in one call. It prints no result line.
     python3 chip_smoke.py --wave-rounds-of DIR
 
 times phase 8's and phase 10's training with the package in checkout DIR
-(s/iteration and the tree graphs' card time a tree), for a comparison of
-two checkouts in one call (A, B, B, A). It prints one JSON line a run and
-no result line.
+(s/iteration, the tree graphs' card time a tree, and a tree graph's device
+operations and condition launches from a profiler trace), for a comparison
+of two checkouts in one call (A, B, B, A). It prints one JSON line a run
+and no result line.
 """
 from __future__ import annotations
 
@@ -579,12 +587,13 @@ def fmt_ms(ms) -> str:
 
 def bound(cost):
     """The least time the card could take for a kernel's (bytes,
-    operations), a perfmodel.py formula's: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is larger (ms, and
-    which)."""
+    operations[, integer operations, instructions issued]), a perfmodel.py
+    formula's: bytes over the memory rate, float32 operations over the peak
+    rate, integer operations over the integer ALU pipe's or instructions
+    over the issue rate, whichever is largest (ms, and which)."""
     from lightgbm_tpu_torch import perfmodel
 
-    b = perfmodel.bound_ms(*cost, CARD_KIND)
+    b = perfmodel.bound_ms(*cost[:2], CARD_KIND, *cost[2:])
     check(b is not None, f"perfmodel.py has no peak rates for {CARD_KIND!r}")
     return b
 
@@ -2494,6 +2503,11 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
               f"train ({label}): {trees} tree graph launches for "
               f"{len(trained._gbdt.models)} trees, {runs} wave runs for "
               f"{counters['device_waves']} live and {noops} no-op waves")
+        # the loop's condition: one kernel a tree (after the root); a pass's
+        # is set by its second wave's replay
+        check(launches.get("tree_loop_cond") == trees,
+              f"train ({label}): {launches.get('tree_loop_cond')} condition launches for "
+              f"{trees} tree graphs")
         # host time enqueueing a tree, its graphs' captures (first use) apart
         tree_s = scopes["tree_device"][0] - scopes.get("tree_capture", (0.0, 0))[0]
         print(f"{tag} train ({label}): per tree one graph launch, {runs / trees:.1f} waves "
@@ -2523,16 +2537,93 @@ def drive_training(lt, libs, params, train_set, valid, rounds, required, tag, la
             "booster": trained}
 
 
+def tree_graph_trace(tree_graph, reps):
+    """One tree graph's device work a launch, from torch.profiler's ordered
+    trace over `reps` launches of the same staged tree: device operations
+    (kernels, copies, fills) and condition-kernel launches a tree, and the
+    replay kernel's device ms in the body's first wave (its condition off)
+    and second (on: it counts the pass and sets the WHILE node's condition),
+    the replays alternating wave0, wave1 within a tree. None when the
+    profiler records no device time. The trace kept is a second one: a
+    process's first trace has shown a graph's kernels only in part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tree_graph.launch()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                tree_graph.launch()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return None
+    # a condition launch starts a run of waves (a tree's, or in a graph
+    # whose condition is a kernel a pass, a pass's): wave0, wave1, ...
+    firsts, seconds, conds, k = [], [], [], 0
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3
+        if "tree_loop_cond" in e.name:
+            conds.append(ms)
+            k = 0
+        elif "wave_replay_kernel" in e.name:
+            (firsts if k % 2 == 0 else seconds).append(ms)
+            k += 1
+    return {"ops": len(events) / reps, "cond": len(conds) / reps,
+            "replays": (len(firsts) + len(seconds)) / reps,
+            "replay_wave0": float(np.mean(firsts)) if firsts else None,
+            "replay_wave1": float(np.mean(seconds)) if seconds else None,
+            "cond_ms": float(np.mean(conds)) if conds else None}
+
+
+def eager_replay_ms(learner, reps=3):
+    """The replay kernel's mean device ms a wave in the host's loop
+    (`_waves_eager`: every wave launched eagerly, its condition off) on the
+    last tree's staged inputs, over `reps` trees, from torch.profiler; None
+    where it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.treelearner import device as dmod
+
+    buf, cfg = learner._buffers, learner.config
+    K, masked, bagged = list(buf.trees)[-1]
+
+    def wave(cur):
+        dmod._wave(buf, cur, K, learner.meta, learner.tables, learner.params_dev, masked,
+                   learner.group_bin_padded, cfg.max_depth)
+
+    def grow():
+        dmod._root(buf, learner.bins_dev, learner.meta, learner.params_dev, masked, bagged,
+                   learner.group_bin_padded, cfg.max_depth)
+        dmod._waves_eager(buf, 1 if bagged else 0, wave, cfg.num_leaves)
+
+    grow()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            grow()
+        torch.cuda.synchronize()
+    ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "wave_replay_kernel" in e.name]
+    return float(np.mean(ms)) if ms else None
+
+
 def check_tree_loop(learner):
-    """The tree graph's loop-condition kernel (tree_loop_cond_kernel) at the
+    """The tree loop's condition (the second wave's replay sets the WHILE
+    node's condition; one condition kernel a tree, after the root) at the
     main path's shapes: the last tree of the wave learner grown again from
-    its staged inputs by its tree graph (the WHILE node run by the kernel)
-    and by the host's loop (`_waves_eager`, the condition read on the
-    host), on the card: the split log's bits, the scalars and the passes
-    equal. Returns (timings, bound, passes): the kernel's device time a
-    launch (torch.profiler over whole tree launches, divided by the launches
-    a tree makes) and the plain condition's host time (one read of the done
-    word)."""
+    its staged inputs by its tree graph and by the host's loop
+    (`_waves_eager`, the done word read on the host each pass), on the
+    card: the split log's bits, the scalars and the passes equal; then the
+    same with the staged gradients zeroed, a stump done at its root (no
+    pass). The trace shows one condition launch a tree and the device
+    operations a tree; the parent's design launched the condition kernel
+    once more a pass. Returns (timings, bound, passes, trace): the
+    condition kernel's device time a launch, the plain condition's host
+    time (one read of the done word) and the replay's in each wave."""
     from lightgbm_tpu_torch.ops.wave import DONE
     from lightgbm_tpu_torch.treelearner import device as dmod
 
@@ -2548,21 +2639,44 @@ def check_tree_loop(learner):
     def wave(cur):
         dmod._wave(buf, cur, K, *args, masked, learner.group_bin_padded, cfg.max_depth)
 
-    tree_graph.launch()
-    torch.cuda.synchronize()
-    graphed = buf.results.clone()
-    root()
-    passes = dmod._waves_eager(buf, 1 if bagged else 0, wave, cfg.num_leaves)
-    torch.cuda.synchronize()
-    check(torch.equal(graphed, buf.results),
-          "tree_loop_cond: the tree graph's split log, scalars or passes differ from the "
-          "host loop's on the same inputs")
-    check(passes >= 1, "tree_loop_cond: the re-grown tree ran no pass")
-    per_tree = (device_kernel_ms(tree_graph.launch, 5, ("tree_loop_cond",)) or {}).get(
-        "tree_loop_cond")
-    timings = {"kernel": None if per_tree is None else per_tree / (1 + passes),
-               "plain": host_ms(lambda: int(buf.scalars[DONE]), 50)}
-    return timings, bound(perfmodel.tree_loop_cond()), passes
+    def both(what):
+        tree_graph.launch()
+        torch.cuda.synchronize()
+        graphed = buf.results.clone()
+        root()
+        passes = dmod._waves_eager(buf, 1 if bagged else 0, wave, cfg.num_leaves)
+        torch.cuda.synchronize()
+        check(torch.equal(graphed, buf.results),
+              f"tree loop ({what}): the tree graph's split log, scalars or passes differ "
+              "from the host loop's on the same inputs")
+        return passes
+
+    passes = both("the main path's last tree")
+    check(passes >= 1, "tree loop: the re-grown tree ran no pass")
+    # the profiler may drop an event in some 20: counts at most the truth
+    trace = tree_graph_trace(tree_graph, 5)
+    check(trace is None or 0.8 <= trace["cond"] <= 1,
+          f"tree loop: the trace shows {trace and trace['cond']} condition launches a tree, "
+          "not 1")
+    check(trace is None or 0.9 * 2 * passes <= trace["replays"] <= 2 * passes,
+          f"tree loop: {trace and trace['replays']} replays a tree for {passes} passes")
+    gh = buf.gh.clone()
+    buf.gh[:, 0].zero_()  # no gradient: every gain 0, the root done
+    try:
+        stump = both("a stump")
+        check(stump == 0 and int(buf.scalars[DONE]) == 1,
+              f"tree loop: the stump ran {stump} passes")
+        stump_trace = tree_graph_trace(tree_graph, 3)
+        check(stump_trace is None or (0.6 <= stump_trace["cond"] <= 1
+                                      and stump_trace["replays"] == 0),
+              "tree loop: the stump's tree graph ran a wave or not one condition")
+    finally:
+        buf.gh.copy_(gh)
+    timings = {"kernel": None if trace is None else trace["cond_ms"],
+               "plain": host_ms(lambda: int(buf.scalars[DONE]), 50),
+               "replay_wave0": None if trace is None else trace["replay_wave0"],
+               "replay_wave1": None if trace is None else trace["replay_wave1"]}
+    return timings, bound(perfmodel.tree_loop_cond()), passes, trace
 
 
 def drive_multiclass(lt, libs, seed, tag):
@@ -2944,9 +3058,42 @@ def check_quantize(sets):
                "plain": cuda_ms(lambda: _quantize_gh_plain(grad, hess, key, 4, True), 5)}
     timings.update(device_kernel_ms(kern, 20, ("quantize_reduce_kernel", "quantize_kernel"))
                    or {})
+    # the instructions a row in this build's SASS: perfmodel's counts, which
+    # the bounds read, must be this build's
+    sass = library_sass(quantize_cuda.LIB)
+    mix = None if sass is None else {
+        "quantize": perfmodel.row_loop_mix(sass, "quantize_kernel", holding="STG"),
+        "quantize_reduce": perfmodel.row_loop_mix(sass, "quantize_reduce_kernel")}
+    if mix is not None:
+        for got, want, what in (
+                (mix["quantize"]["all"], perfmodel.QUANTIZE_SASS_A_ROW["stochastic"],
+                 "quantize loop, stochastic"),
+                (mix["quantize"]["skip"], perfmodel.QUANTIZE_SASS_A_ROW["nearest"],
+                 "quantize loop, nearest"),
+                (mix["quantize_reduce"]["all"], perfmodel.QUANTIZE_REDUCE_SASS_A_ROW,
+                 "reduce loop")):
+            check(perfmodel.sass_counts(got) == want,
+                  f"quantize: this build's SASS counts {perfmodel.sass_counts(got)} a row in "
+                  f"the {what}, perfmodel.py's {want}")
     bounds = {"quantize_reduce": bound(perfmodel.quantize_reduce(n)),
               "quantize": bound(perfmodel.quantize(n))}
+    timings["sass"] = mix
     return timings, bounds
+
+
+def library_sass(lib):
+    """`cuobjdump -sass` of a built library (the toolkit's, beside nvcc),
+    or None where the toolkit has no cuobjdump."""
+    import subprocess
+
+    from lightgbm_tpu_torch.ops.cuda_build import nvcc
+
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib.path)], capture_output=True, text=True,
+                         timeout=120)
+    return out.stdout if out.returncode == 0 else None
 
 
 def quantized_search_inputs(lt, dev, train_set, gh_q, scale):
@@ -3125,8 +3272,37 @@ def drive_quantized(lt, libs, train_set, valid, X_train, y_train, float_runs, se
           f"stochastic): reduce {fmt_ms(t_quant.get('quantize_reduce_kernel'))} + quantize "
           f"{fmt_ms(t_quant.get('quantize_kernel'))} of device time (torch.profiler), "
           f"{t_quant['kernel']:.4f} ms a call (CUDA events), plain {t_quant['plain']:.3f} ms; "
-          f"bounds {b_quant['quantize_reduce'][0]:.5f} + {b_quant['quantize'][0]:.5f} ms "
-          f"(bytes)")
+          f"bounds {b_quant['quantize_reduce'][0]:.5f} ({b_quant['quantize_reduce'][1]}) + "
+          f"{b_quant['quantize'][0]:.5f} ms ({b_quant['quantize'][1]})")
+    mix = t_quant["sass"]
+    cost = perfmodel.quantize(TRAIN_ROWS)
+    rates = (perfmodel.PEAK_HBM_BYTES_PER_S, perfmodel.PEAK_F32_OPS_PER_S,
+             perfmodel.PEAK_I32_OPS_PER_S, perfmodel.PEAK_ISSUE_PER_S)
+    terms = {name: work / rate[CARD_KIND] * 1e3 for name, work, rate in zip(
+        ("bytes", "operations", "integer operations", "instruction issue"), cost, rates)}
+    share = (b_quant["quantize"][0] / t_quant["quantize_kernel"]
+             if t_quant.get("quantize_kernel") else None)
+
+    def counts(c):
+        return (f"{c['alu_only']:g} integer ALU-only + {c['alu'] - c['alu_only']:g} integer "
+                f"the IMAD pipe could run + {c['imad']:g} IMAD, {c['float_ops']:g} float32 "
+                f"operations, {c['issued']:g} instructions issued")
+
+    print(f"{tag} kernels: quantize row Q's SASS a row (perfmodel.py, "
+          + ("not held against this build: no cuobjdump" if mix is None else
+             "equal to this build's cuobjdump -sass") + "): the quantize loop in the "
+          f"stochastic mode (two threefry2x32 draws) "
+          f"{counts(perfmodel.QUANTIZE_SASS_A_ROW['stochastic'])}; in the nearest "
+          f"{counts(perfmodel.QUANTIZE_SASS_A_ROW['nearest'])}; the reduce loop "
+          f"{counts(perfmodel.QUANTIZE_REDUCE_SASS_A_ROW)}")
+    print(f"{tag} kernels: quantize pass's bound at {TRAIN_ROWS} rows, each term (integer ALU "
+          f"{perfmodel.PEAK_I32_OPS_PER_S[CARD_KIND]:.4g} a second, the larger of the ALU-only "
+          f"count and half of every integer one; issue "
+          f"{perfmodel.PEAK_ISSUE_PER_S[CARD_KIND]:.4g} a second): "
+          + ", ".join(f"{name} {ms:.6f} ms" for name, ms in terms.items())
+          + f"; the bound {b_quant['quantize'][0]:.6f} ms ({b_quant['quantize'][1]}), the "
+          f"kernel at " + ("not measured" if share is None else f"{100 * share:.1f}%")
+          + " of it")
     _, key = split_key(prng_key(1))
     gh_ext = torch.cat([torch.stack([grad, hess, torch.ones_like(grad)], 1),
                         torch.zeros((1, 3), device=dev)])
@@ -6856,7 +7032,12 @@ def wave_rounds_of(checkout: str, seed: int, reps: int = 3) -> int:
     has the run's s/iteration (its first round left out), the tree graphs'
     card time a tree (CUDA events around each TreeGraph.launch, the first
     round's trees left out: both lanes' rounds are synchronous, one tree
-    graph at a time), the live waves a tree and the wave pool's bytes. Two checkouts
+    graph at a time), the live waves a tree, the wave pool's bytes and, of
+    the last tree's graph launched again on its staged inputs
+    (`tree_graph_trace`), its passes, device operations and condition
+    launches a tree and the replay kernel's ms in each wave, and the
+    replay's ms in the host's loop on the same inputs (`eager_replay_ms`:
+    the eager launch, its condition off). Two checkouts
     are compared in one call, alternating: ``--wave-rounds-of A``,
     ``--wave-rounds-of B``, then B, then A."""
     sys.path.insert(0, os.path.abspath(checkout))
@@ -6910,6 +7091,13 @@ def wave_rounds_of(checkout: str, seed: int, reps: int = 3) -> int:
             check(len(graph_ms) > trees, f"{lane}: {len(graph_ms)} tree graph launches")
             buf = getattr(learner, "_buffers", None)
             pool = [] if buf is None else [buf.pool, getattr(buf, "pool_flags", None)]
+            # the last tree's graph launched again on its staged inputs: its
+            # device operations and condition launches a tree
+            graphs = list(getattr(buf, "trees", {}).values())
+            trace = tree_graph_trace(graphs[-1], 3) if graphs else None
+            trace = trace or {}
+            passes = int(buf.passes[0]) if graphs else None
+            eager = eager_replay_ms(learner) if graphs else None
             print(json.dumps({"card": card, "checkout": checkout, "rep": rep, "lane": lane,
                               "learner": type(learner).__name__,
                               "s_per_iter": float(np.mean(per_iter[1:])),
@@ -6919,6 +7107,11 @@ def wave_rounds_of(checkout: str, seed: int, reps: int = 3) -> int:
                               "trees_timed": len(graph_ms) - trees,
                               "waves_a_tree": global_timer.counters.get("device_waves", 0)
                               / max(1, bst.num_trees()),
+                              "traced_passes": passes, "traced_ops": trace.get("ops"),
+                              "traced_cond_launches": trace.get("cond"),
+                              "replay_ms_wave0": trace.get("replay_wave0"),
+                              "replay_ms_wave1": trace.get("replay_wave1"),
+                              "replay_ms_eager": eager,
                               "pool_dtype": [str(t.dtype) for t in pool if t is not None],
                               "pool_bytes": sum(t.nbytes for t in pool if t is not None),
                               "trees_sha": hashlib.sha256(
@@ -7680,13 +7873,17 @@ def main() -> int:
     print(f"training path launches per learner: wave {wave['launches']}; serial "
           f"{serial['launches']}")
     # the tree graph's loop condition, against the host's loop on the card
-    ms_loop, bound_loop, loop_passes = check_tree_loop(wave["learner"])
-    print(f"{tag} kernels: tree_loop_cond: the last tree grown again by its tree graph "
-          f"({loop_passes} passes) and by the host's loop on the same inputs: split log, "
-          f"scalars and passes equal; the kernel {fmt_ms(ms_loop['kernel'])} of device time "
-          f"a launch (torch.profiler), the plain condition (one read of the done word on "
-          f"the host) {ms_loop['plain']:.4f} ms, bound {bound_loop[0]:.7f} ms "
-          f"({bound_loop[1]})")
+    ms_loop, bound_loop, loop_passes, loop_trace = check_tree_loop(wave["learner"])
+    ops = "not measured" if loop_trace is None else f"{loop_trace['ops']:.1f}"
+    print(f"{tag} kernels: tree loop: the last tree grown again by its tree graph "
+          f"({loop_passes} passes) and by the host's loop on the same inputs, and a stump "
+          f"(no pass): split log, scalars and passes equal; the condition kernel once a "
+          f"tree (trace), {fmt_ms(ms_loop['kernel'])} of device time, the plain condition "
+          f"(one read of the done word on the host) {ms_loop['plain']:.4f} ms, bound "
+          f"{bound_loop[0]:.7f} ms ({bound_loop[1]}); device operations a tree {ops}, the "
+          f"parent's design {loop_passes} more (a condition launch a pass); wave_replay in "
+          f"the tree graph: wave0 (condition off) {fmt_ms(ms_loop['replay_wave0'])}, wave1 "
+          f"(condition on) {fmt_ms(ms_loop['replay_wave1'])}")
     torch.cuda.empty_cache()
 
     # ------------------------------- multiclass, both learners
@@ -7982,7 +8179,10 @@ def main() -> int:
              "launches": launches(name), "max_abs_err": 0.0,
              "ms": t_quant.get(name + "_kernel", t_quant["kernel"]),
              "plain_ms": t_quant["plain"], "bound_ms": b_quant[name][0],
-             "bound_by": b_quant[name][1], "library_ms": None})
+             # the line's two kinds: integer operations and instruction issue
+             # are operations (phase 12 prints which term)
+             "bound_by": "bytes" if b_quant[name][1] == "bytes" else "operations",
+             "library_ms": None})
     for name, key, source, replaces in (
             ("histogram_i32", "rows", "histogram.cu", "lightgbm_tpu/ops/hist_pallas.py:132"),
             ("histogram_slots_ragged_i32", "ragged", "histogram.cu",

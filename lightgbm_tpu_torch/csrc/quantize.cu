@@ -36,9 +36,14 @@
 // sentinel row.
 //
 // What bounds it. Bytes: 8 bytes of (g, h) read by each pass and 3 written, 19
-// bytes a row, ~20 MB at 1,048,576 rows. The two threefry streams are ~60
-// 32-bit integer operations a round group, some 300 a row: far below the
-// card's integer rate at that byte count.
+// bytes a row, ~20 MB at 1,048,576 rows. The quantize pass is bound by its
+// instructions, not its bytes: in the stochastic mode its row loop issues
+// 181 instructions a row (this build's SASS, perfmodel.row_loop_mix), most
+// of them the two threefry draws and their uniforms. At 128 issued a clock
+// an SM that is ~0.0057 ms at 1,048,576 rows; the 89 a row that only the
+// integer ALU pipe runs (the draws' rotates and xors, 64 a clock) take
+// ~0.0056 ms, the bytes ~0.0034 ms (perfmodel.quantize). The reduce pass is
+// bound by its bytes.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>

@@ -85,17 +85,31 @@
 // a valid selection, which a real tree never has) takes its last write, as
 // the plain version's in-order writes give it.
 //
-// tree_loop_cond_kernel (one thread) and lgbt_tree_graph: a whole tree as
-// one CUDA graph, built with the runtime's graph API. The root's work (a
-// captured child graph), then this kernel, which sets the condition of a
-// WHILE node from the done word, then the WHILE node, whose body is two waves
+// lgbt_tree_graph: a whole tree as one CUDA graph, built with the runtime's
+// graph API. The root's work (a captured child graph), then
+// tree_loop_cond_kernel (one thread), which sets the condition of a WHILE
+// node from the done word, then the WHILE node, whose body is two waves
 // (captured child graphs of both buffer parities, so a pass ends on the
-// parity it began with) and this kernel again, which also counts the body's
-// passes. A pass past max_passes clears the condition and leaves the count
-// above the bound, which the host reads as a loop that never finished.
+// parity it began with). The body's condition is set by the second wave's
+// own replay kernel: lgbt_tree_graph switches that launch to
+// wave_replay_kernel<true> in the body's clone of the wave (the captures,
+// and every wave launched outside a tree graph, run <false>, which has no
+// device-side runtime call), and the replay, after it writes the
+// done word, counts the pass and sets the condition (done == 0 and passes
+// at most max_passes). So a pass launches the waves' kernels and nothing
+// else: the one-thread condition kernel a pass, a launch floor of its own
+// (~0.002 ms), is gone. A pass past max_passes clears the condition and
+// leaves the count above the bound, which the host reads as a loop that
+// never finished. The condition after the root stays a kernel: the root's
+// last writer of the done word is a PyTorch operation.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <tuple>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -115,6 +129,15 @@ constexpr int kMissingZero = 1, kMissingNan = 2;  // common.py MISSING_ZERO, MIS
 constexpr int kNCur = 0, kT = 1, kHistRows = 2, kNWaves = 3, kDone = 4;  // the scalars
 constexpr float kEps = 1e-15f;         // the replay's floor under the parent's hessian
 constexpr unsigned kFull = 0xffffffffu;
+
+// The tree loop's condition in the replay kernel's epilogue, read only by
+// wave_replay_kernel<true> (a tree graph's second wave), which counts the
+// pass in *passes and sets the WHILE node's condition.
+struct TreeLoop {
+  cudaGraphConditionalHandle handle;
+  long long* passes;
+  long long max_passes;
+};
 
 // a gain's bits, monotone in the gain: every NaN above +inf, -0 as +0
 __device__ __forceinline__ unsigned gain_key(float g) {
@@ -409,6 +432,11 @@ wave_select_large_kernel(const float* __restrict__ leaf_best, int n_leaves,
   put_lut(out, rs, K);
 }
 
+// kLoop: the tree loop's condition in the epilogue (`TreeLoop`). Only
+// lgbt_tree_graph's clone of wave1 launches <true>; every capture and eager
+// launch runs <false>, which never touches `loop` and carries no device-side
+// runtime call.
+template <bool kLoop>
 __global__ void __launch_bounds__(kReplayThreads)
 wave_replay_kernel(float* __restrict__ leaf_best, int* __restrict__ depth,
                    float* __restrict__ rec_store, int* __restrict__ start,
@@ -416,7 +444,7 @@ wave_replay_kernel(float* __restrict__ leaf_best, int* __restrict__ depth,
                    const int* __restrict__ table, const int* __restrict__ n_left,
                    const float* __restrict__ recs2, const float* __restrict__ totals2, int ch,
                    const float* __restrict__ params, int max_depth, int n_leaves, int K,
-                   long long* __restrict__ commit) {
+                   long long* __restrict__ commit, TreeLoop loop) {
   // the chain's entries: [0, K) the valid selected ranges' leaves, [K, 2K)
   // the leaves n_cur + c that are not, 2K the largest key of the others
   __shared__ unsigned ehi[2 * kMaxK + 1], elo[2 * kMaxK + 1];
@@ -428,6 +456,7 @@ wave_replay_kernel(float* __restrict__ leaf_best, int* __restrict__ depth,
   __shared__ short spos[kMaxK];               // each commit's range
   __shared__ short sright[kMaxK];             // each commit's right child's entry, -1 for none
   __shared__ unsigned long long s_other, s_rows;
+  __shared__ long long s_passes;  // the tree loop's pass count, read up front
   __shared__ int s_commits;
   __shared__ unsigned s_top;
   const int L = n_leaves, tid = threadIdx.x, T = blockDim.x;
@@ -443,6 +472,7 @@ wave_replay_kernel(float* __restrict__ leaf_best, int* __restrict__ depth,
   if (tid == 0) {
     s_other = 0ull;
     s_rows = 0ull;
+    if constexpr (kLoop) s_passes = *loop.passes;
   }
   // each thread's first (range, field) items: both children's field and
   // the selected leaf's, read before the epilogue writes any record
@@ -684,23 +714,24 @@ wave_replay_kernel(float* __restrict__ leaf_best, int* __restrict__ depth,
     scalars[kT] = t;
     scalars[kHistRows] += (long long)s_rows;
     scalars[kNWaves] += done_in ? 0 : 1;
-    scalars[kDone] = (done_in || !(t < L - 1 && positive_key(s_top))) ? 1 : 0;
+    const bool done = done_in || !(t < L - 1 && positive_key(s_top));
+    scalars[kDone] = done ? 1 : 0;
+    if constexpr (kLoop) {  // a tree graph's second wave: the pass counted, the loop's condition
+      const long long n = s_passes + 1;
+      *loop.passes = n;
+      cudaGraphSetConditional(loop.handle, (!done && n <= loop.max_passes) ? 1u : 0u);
+    }
   }
 }
 
 __global__ void tree_loop_cond_kernel(cudaGraphConditionalHandle handle,
-                                      const long long* __restrict__ scalars,
-                                      long long* __restrict__ passes, long long max_passes,
-                                      int in_body) {
-  long long n = *passes;
-  if (in_body) *passes = ++n;
-  cudaGraphSetConditional(handle, (scalars[kDone] == 0 && n <= max_passes) ? 1u : 0u);
+                                      const long long* __restrict__ scalars) {
+  cudaGraphSetConditional(handle, scalars[kDone] == 0 ? 1u : 0u);
 }
 
 cudaError_t add_cond_node(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep,
-                          cudaGraphConditionalHandle handle, const long long* scalars,
-                          long long* passes, long long max_passes, int in_body) {
-  void* args[] = {&handle, &scalars, &passes, &max_passes, &in_body};
+                          cudaGraphConditionalHandle handle, const long long* scalars) {
+  void* args[] = {&handle, &scalars};
   cudaKernelNodeParams p = {};
   p.func = reinterpret_cast<void*>(tree_loop_cond_kernel);
   p.gridDim = dim3(1);
@@ -709,23 +740,90 @@ cudaError_t add_cond_node(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGr
   return cudaGraphAddKernelNode(node, graph, dep, dep ? 1 : 0, &p);
 }
 
+// A kernel node's argument values, copied out of the node (which owns the
+// values its kernelParams point to) so that one can be changed and all set
+// back: A... the kernel's parameter types.
+template <typename... A>
+struct ArgCopy {
+  std::tuple<A...> value;
+  void* ptr[sizeof...(A)];
+  explicit ArgCopy(void* const* src) { load(src, std::index_sequence_for<A...>{}); }
+  template <size_t... I>
+  void load(void* const* src, std::index_sequence<I...>) {
+    ((std::memcpy(&std::get<I>(value), src[I], sizeof(A)), ptr[I] = &std::get<I>(value)), ...);
+  }
+};
+template <typename F>
+struct ArgsOf;
+template <typename... A>
+struct ArgsOf<void (*)(A...)> {
+  using type = ArgCopy<A...>;
+};
+using ReplayArgs = ArgsOf<decltype(&wave_replay_kernel<false>)>::type;
+constexpr size_t kLoopArg = std::tuple_size<decltype(ReplayArgs::value)>::value - 1;
+
+// Switch the tree loop's condition on in the replay kernel of `wave` (a
+// child graph node's own graph, not the capture it was cloned from): the
+// one kernel node there that launches wave_replay_kernel<false> launches
+// wave_replay_kernel<true> instead, with `loop` as its last argument. Nodes
+// the runtime cannot name (kernels of another module's runtime) are not it.
+// Returns an error left pending by an earlier call on this thread, else
+// cudaErrorSymbolNotFound when the wave has no replay node and
+// cudaErrorInvalidValue when it has two.
+cudaError_t patch_replay(cudaGraph_t wave, TreeLoop loop) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  size_t n = 0;
+  if ((err = cudaGraphGetNodes(wave, nullptr, &n)) != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0 && (err = cudaGraphGetNodes(wave, nodes.data(), &n)) != cudaSuccess) return err;
+  cudaGraphNode_t found = nullptr;
+  cudaKernelNodeParams p = {};
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    if ((err = cudaGraphNodeGetType(node, &type)) != cudaSuccess) return err;
+    if (type != cudaGraphNodeTypeKernel) continue;
+    cudaKernelNodeParams q = {};
+    if (cudaGraphKernelNodeGetParams(node, &q) != cudaSuccess) {
+      cudaGetLastError();  // this walk's own error: a later launch's check must not see it
+      continue;
+    }
+    if (q.func != reinterpret_cast<void*>(wave_replay_kernel<false>)) continue;
+    if (found != nullptr) return cudaErrorInvalidValue;
+    found = node;
+    p = q;
+  }
+  if (found == nullptr) return cudaErrorSymbolNotFound;
+  if (p.kernelParams == nullptr) return cudaErrorInvalidValue;
+  ReplayArgs args(p.kernelParams);
+  std::get<kLoopArg>(args.value) = loop;
+  p.func = reinterpret_cast<void*>(wave_replay_kernel<true>);
+  p.kernelParams = args.ptr;
+  p.extra = nullptr;
+  return cudaGraphKernelNodeSetParams(found, &p);
+}
+
 }  // namespace
 
 extern "C" {
 
 // One tree as one executable graph: root (cudaGraph_t), then while the done
-// word scalars[4] is 0 and the passes are at most max_passes, wave0 then
-// wave1 (cudaGraph_t each; cloned, so the caller keeps and frees them).
-// passes [1] int64 counts the body's passes; the root must zero it. Returns
-// the cudaGraphExec_t through exec_out and a cudaError_t.
+// word scalars[4] is 0 and the passes are at most max_passes (>= 1), wave0
+// then wave1 (cudaGraph_t each, wave1 holding one wave_replay_kernel node;
+// cloned, so the caller keeps and frees them). passes [1] int64 counts the
+// body's passes, in wave1's replay; the root must zero it. Returns the
+// cudaGraphExec_t through exec_out and a cudaError_t: any failure to build
+// the graph or to find and patch wave1's replay node.
 int lgbt_tree_graph(void* root, void* wave0, void* wave1, const long long* scalars,
                     long long* passes, long long max_passes, void** exec_out) {
+  if (max_passes < 1) return int(cudaErrorInvalidValue);
   cudaGraph_t graph = nullptr;
   cudaGraphExec_t exec = nullptr;
-  cudaGraphNode_t n_root, n_cond, n_while, n_w0, n_w1, n_again;
+  cudaGraphNode_t n_root, n_cond, n_while, n_w0, n_w1;
   cudaGraphConditionalHandle handle;
   cudaGraphNodeParams wp = {};
-  cudaGraph_t body = nullptr;
+  cudaGraph_t body = nullptr, w1 = nullptr;
   cudaError_t err = cudaGraphCreate(&graph, 0);
   if (err != cudaSuccess) return int(err);
 #define TRY(call)                       \
@@ -735,7 +833,7 @@ int lgbt_tree_graph(void* root, void* wave0, void* wave1, const long long* scala
   } while (0)
   TRY(cudaGraphAddChildGraphNode(&n_root, graph, nullptr, 0, static_cast<cudaGraph_t>(root)));
   TRY(cudaGraphConditionalHandleCreate(&handle, graph, 0, cudaGraphCondAssignDefault));
-  TRY(add_cond_node(&n_cond, graph, &n_root, handle, scalars, passes, max_passes, 0));
+  TRY(add_cond_node(&n_cond, graph, &n_root, handle, scalars));
   wp.type = cudaGraphNodeTypeConditional;
   wp.conditional.handle = handle;
   wp.conditional.type = cudaGraphCondTypeWhile;
@@ -748,7 +846,8 @@ int lgbt_tree_graph(void* root, void* wave0, void* wave1, const long long* scala
   body = wp.conditional.phGraph_out[0];
   TRY(cudaGraphAddChildGraphNode(&n_w0, body, nullptr, 0, static_cast<cudaGraph_t>(wave0)));
   TRY(cudaGraphAddChildGraphNode(&n_w1, body, &n_w0, 1, static_cast<cudaGraph_t>(wave1)));
-  TRY(add_cond_node(&n_again, body, &n_w1, handle, scalars, passes, max_passes, 1));
+  TRY(cudaGraphChildGraphNodeGetGraph(n_w1, &w1));
+  TRY(patch_replay(w1, TreeLoop{handle, passes, max_passes}));
   TRY(cudaGraphInstantiate(&exec, graph, 0));
   *exec_out = exec;
 #undef TRY
@@ -805,9 +904,9 @@ int lgbt_wave_replay(float* leaf_best, int* depth, float* rec_store, int* start,
       || ch < 3) {
     return int(cudaErrorInvalidValue);
   }
-  wave_replay_kernel<<<1, kReplayThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  wave_replay_kernel<false><<<1, kReplayThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       leaf_best, depth, rec_store, start, count, scalars, table, n_left, recs2, totals2, ch,
-      params, max_depth, n_leaves, k, commit);
+      params, max_depth, n_leaves, k, commit, TreeLoop{});
   return int(cudaGetLastError());
 }
 

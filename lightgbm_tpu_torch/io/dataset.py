@@ -431,6 +431,10 @@ class Dataset:
     def group_bin_counts(self) -> np.ndarray:
         return np.array([g.num_total_bin for g in self.groups], dtype=np.int32)
 
+    def feature_num_bin(self, feature: int) -> int:
+        """The bins of used feature `feature`'s mapper."""
+        return self.mappers[feature].num_bin
+
     def feature_infos(self) -> List[str]:
         return [m.bin_info_string() for m in self.mappers]
 
@@ -453,3 +457,20 @@ class Dataset:
         out.feature_names = self.feature_names
         out.monotone_constraints = self.monotone_constraints
         return out
+
+    def construct_histogram_np(self, group: int, grad: np.ndarray, hess: np.ndarray,
+                               row_indices: Optional[np.ndarray] = None) -> np.ndarray:
+        """Numpy histogram [num_total_bin, 3] float64 (grad, hess, count) of
+        one group over every row or the rows `row_indices`: a host oracle
+        for the histogram kernels."""
+        fg = self.groups[group]
+        bins = self.bins[group]
+        if row_indices is not None:
+            bins = bins[row_indices]
+            grad = grad[row_indices]
+            hess = hess[row_indices]
+        hist = np.zeros((fg.num_total_bin, 3), dtype=np.float64)
+        np.add.at(hist[:, 0], bins, grad)
+        np.add.at(hist[:, 1], bins, hess)
+        np.add.at(hist[:, 2], bins, 1.0)
+        return hist

@@ -50,6 +50,11 @@ class Metric:
     def name(self) -> List[str]:
         return [self.names[0]]
 
+    @property
+    def factor_to_bigger_better(self) -> float:
+        """1.0 when a larger value is better, else -1.0 (metric.h:52)."""
+        return 1.0 if self.greater_is_better else -1.0
+
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
     from . import regression, binary, multiclass, rank, xentropy  # noqa: F401

@@ -257,6 +257,21 @@ class Tree:
             node = self.decide(float(row[self.split_feature[node]]), node)
         return ~node
 
+    def predict(self, row: np.ndarray) -> float:
+        """One row's output on the host: its leaf's value or, in a linear
+        tree, leaf_const plus the coefficients times the leaf's features,
+        the leaf's value where one of them is NaN or infinite."""
+        leaf = self.predict_leaf_index(row)
+        if self.is_linear:
+            out = float(self.leaf_const[leaf])
+            for feat, coef in zip(self.leaf_features[leaf], self.leaf_coeff[leaf]):
+                v = float(row[feat])
+                if math.isnan(v) or math.isinf(v):
+                    return float(self.leaf_value[leaf])
+                out += coef * v
+            return out
+        return float(self.leaf_value[leaf])
+
     # ---------------------------------------------------------- serialization
 
     def to_string(self) -> str:

@@ -143,13 +143,16 @@ class TreeGraph:
     ``torch.cuda.CUDAGraph(keep_graph=True)``; the executable graph holds
     clones of them, so they may be dropped once it is built, but the memory
     their captures allocated (their pools) must stay while it lives: the
-    caller keeps the three CUDAGraphs. The condition kernel adds one to
-    passes [1] int64 after each pass (root must zero it); it is the loop's
-    only reader of the card, and the host reads no word while the tree
-    runs. A pass past max_passes ends the loop with passes above the bound.
+    caller keeps the three CUDAGraphs. wave1 holds one replay launch: in
+    the graph's clone of it the replay kernel also adds one to passes [1]
+    int64 and sets the loop's condition after it writes the done word (root
+    must zero passes); a wave launched anywhere else never does. A failure
+    to find or patch that launch raises. The host reads no word while the
+    tree runs. A pass past max_passes ends the loop with passes above the
+    bound.
 
-    The condition kernel launches once before the loop and once a pass: the
-    caller counts them (`count_condition`) once it knows the passes."""
+    The condition kernel launches once a tree, after the root, whatever the
+    passes: the caller counts it (`count_condition`)."""
 
     def __init__(self, root, wave0, wave1, scalars: torch.Tensor, passes: torch.Tensor,
                  max_passes: int) -> None:
@@ -163,7 +166,8 @@ class TreeGraph:
                                       wave1.raw_cuda_graph(), scalars.data_ptr(),
                                       passes.data_ptr(), int(max_passes), ctypes.byref(handle))
         if err != 0:
-            raise RuntimeError(f"building the tree graph failed with CUDA error {err}")
+            raise RuntimeError(f"building the tree graph (its loop's condition patched into "
+                               f"wave1's replay) failed with CUDA error {err}")
         telemetry.note_compile("tree_graph", kernel=False)
         self._lib, self._exec = lib, handle
         self.device = scalars.device
@@ -178,9 +182,10 @@ class TreeGraph:
             raise RuntimeError(f"the tree graph's launch failed with CUDA error {err}")
 
     @staticmethod
-    def count_condition(passes: int) -> None:
-        """Count the condition kernel's launches of a tree that ran `passes`."""
-        LIB.add("tree_loop_cond", 1 + int(passes))
+    def count_condition() -> None:
+        """Count the condition kernel's one launch of a tree (a pass's
+        condition is set by wave1's replay, counted as its wave's)."""
+        LIB.add("tree_loop_cond", 1)
 
     def __del__(self) -> None:
         if getattr(self, "_exec", None) is not None:

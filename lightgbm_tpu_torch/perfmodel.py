@@ -6,10 +6,14 @@ kernels and buffers. It is the one source of the work each kernel does:
   * **Formulas as code.** One function for each kernel of PERF.md §6's
     table returns ``(bytes, operations)``: the bytes the kernel must move
     (each input read once, each output written once) and the operations it
-    does on them. `bound_ms` turns a pair into the least time the card
-    could take, the larger of bytes over the memory rate and operations
-    over the float32 peak, from the peak table alone. `chip_smoke.py` reads its bound column from
-    here, so a roofline reads the same work whatever implements it.
+    does on them; the discretizer's also its integer operations and the
+    instructions it issues, counted in its SASS (`row_loop_mix`). `bound_ms`
+    turns them into the least time the card could take, the largest of
+    bytes over the memory rate, operations over the float32 peak, integer
+    operations over the integer ALU pipe's rate and instructions over the
+    issue rate, from the peak table alone. `chip_smoke.py` reads
+    its bound column from here, so a roofline reads the same work whatever
+    implements it.
   * **The learners' gauges.** `carry_bytes_per_wave`, `hist_bytes_per_row`
     and `scan_bytes_per_wave` describe the wave learner's buffers (the
     carry a wave's partition reads and writes, the ragged histogram's read
@@ -52,6 +56,15 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 # sheet rates at its 700 W limit
 PEAK_HBM_BYTES_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 3.35e12}
 PEAK_F32_OPS_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 67e12}
+# peak 32-bit integer instructions/s of one integer pipe: 132 SMs x 64
+# results a clock an SM (the CUDA C++ Programming Guide's table of
+# arithmetic instruction throughput, compute capability 9.0: 32-bit integer
+# add, bitwise and / or / xor, shift, compare and multiply-add, 64 each) x
+# the card's max SM clock, 1,980 MHz (nvidia-smi --query-gpu=clocks.max.sm)
+PEAK_I32_OPS_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 132 * 64 * 1.98e9}
+# peak instructions issued/s: 132 SMs x 4 schedulers x one warp instruction
+# (32 threads) a clock x the same clock
+PEAK_ISSUE_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 132 * 128 * 1.98e9}
 # host-to-card bytes/s, one direction: the H100 SXM5 data sheet's PCIe Gen5
 # x16, 64 GB/s a direction (the streamed learner's block uploads)
 PEAK_HOST_LINK_BYTES_PER_S: Dict[str, float] = {"NVIDIA H100 80GB HBM3": 64e9}
@@ -74,17 +87,25 @@ def peak_f32_ops_per_s(device_kind: str = "") -> Optional[float]:
     return PEAK_F32_OPS_PER_S.get(device_kind)
 
 
-def bound_ms(nbytes: float, ops: float, device_kind: str) -> Optional[Tuple[float, str]]:
-    """The least time the card could take for (bytes, operations): the
-    larger of bytes over the memory rate and operations over the float32
-    peak, in ms, and which of the two it is ("bytes" or "operations").
-    The rates come from the table alone, never the environment's override.
-    None for a device the table does not know."""
-    bw, fl = PEAK_HBM_BYTES_PER_S.get(device_kind), PEAK_F32_OPS_PER_S.get(device_kind)
-    if bw is None or fl is None:
+def bound_ms(nbytes: float, ops: float, device_kind: str, int_ops: float = 0.0,
+             issued: float = 0.0) -> Optional[Tuple[float, str]]:
+    """The least time the card could take for (bytes, float32 operations,
+    integer operations, instructions issued): the largest of bytes over the
+    memory rate, operations over the float32 peak, integer operations over
+    the integer ALU pipe's rate and instructions over the issue rate, in
+    ms, and which it is ("bytes", "operations", "integer operations" or
+    "instruction issue"; on a tie the first). Integer operations are the
+    least the ALU pipe must run (`sass_ops`). A formula's cost of more than
+    two terms passes them after the device: ``bound_ms(*cost[:2], kind,
+    *cost[2:])``. The rates come from the table alone, never the
+    environment's override. None for a device the table does not know."""
+    rates = (PEAK_HBM_BYTES_PER_S.get(device_kind), PEAK_F32_OPS_PER_S.get(device_kind),
+             PEAK_I32_OPS_PER_S.get(device_kind), PEAK_ISSUE_PER_S.get(device_kind))
+    if None in rates:
         return None
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / fl * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    names = ("bytes", "operations", "integer operations", "instruction issue")
+    return max(((work / rate * 1e3, name) for work, rate, name
+                in zip((nbytes, ops, int_ops, issued), rates, names)), key=lambda t: t[0])
 
 
 def h2d_bound_ms(nbytes: float, device_kind: str) -> Optional[float]:
@@ -289,20 +310,191 @@ def wave_replay(leaves: int, width: int, commits: int) -> Tuple[float, float]:
 
 
 def tree_loop_cond() -> Tuple[float, float]:
-    """Row 2c: the done word and the pass count read, the count written."""
-    return 3 * 8, 0.0
+    """Row 2c, the one condition launch a tree (after the root): the done
+    word read."""
+    return 8, 0.0
 
 
-def quantize_reduce(rows: int) -> Tuple[float, float]:
+# Instructions a row of the discretizer's row loops, by `row_loop_mix`
+# from the SASS of csrc/quantize.cu as ops/cuda_build.py builds it (nvcc
+# 12.8 for sm_90a, --fmad=false; `cuobjdump -sass`), in `sass_counts`'
+# keys; chip_smoke.py's phase 12 holds them against the build it runs. The
+# quantize loop's stochastic mode (the main path's) issues all 181 of its
+# instructions, two threefry2x32 draws among them (40 rotates and 42 xors
+# of the 89 that only the integer ALU runs); the nearest mode jumps over
+# the draws; the reduce loop is unrolled over 4 rows.
+QUANTIZE_SASS_A_ROW = {
+    "stochastic": {"alu_only": 89.0, "alu": 109.0, "imad": 56.0, "float_ops": 11.0,
+                   "issued": 181.0},
+    "nearest": {"alu_only": 5.0, "alu": 7.0, "imad": 20.0, "float_ops": 9.0,
+                "issued": 41.0}}
+QUANTIZE_REDUCE_SASS_A_ROW = {"alu_only": 0.5, "alu": 3.5, "imad": 2.75, "float_ops": 9.0,
+                              "issued": 17.5}
+
+
+def sass_ops(rows: float, counts: Mapping[str, float]) -> Tuple[float, float, float]:
+    """(float32 operations, integer operations, instructions issued) of
+    `rows` rows at `counts` a row (`sass_counts`' keys). The integer
+    operations are the least share the integer ALU pipe must run: the
+    larger of the opcodes only it runs and half of all the integer ones,
+    which it and the IMAD pipe, each 64 a clock an SM, could split."""
+    return (counts["float_ops"] * rows,
+            max(counts["alu_only"], (counts["alu"] + counts["imad"]) / 2) * rows,
+            counts["issued"] * rows)
+
+
+def quantize_reduce(rows: int) -> Tuple[float, float, float, float]:
     """Row Q, the reduce pass: g and h read once, the per-block maxima
-    written; three operations a row."""
-    return 8 * rows + 4 * 3 * 256, 3 * rows
+    written; its SASS's operations a row (`sass_ops`)."""
+    return (8 * rows + 4 * 3 * 256, *sass_ops(rows, QUANTIZE_REDUCE_SASS_A_ROW))
 
 
-def quantize(rows: int) -> Tuple[float, float]:
-    """Row Q, the quantize pass: g and h read, the int8 (g, h, 1) rows and
-    the scale written; six operations a row."""
-    return 8 * rows + 3 * (rows + 1) + 12 + 4 * 3 * 256, 6 * rows
+def quantize(rows: int) -> Tuple[float, float, float, float]:
+    """Row Q, the quantize pass in the main path's stochastic mode: g and h
+    read, the int8 (g, h, 1) rows and the scale written; its SASS's
+    operations a row (`sass_ops`): 181 instructions issued, two threefry
+    draws among them, the bound's term."""
+    return (8 * rows + 3 * (rows + 1) + 12 + 4 * 3 * 256,
+            *sass_ops(rows, QUANTIZE_SASS_A_ROW["stochastic"]))
+
+
+# ---------------------------------------------------------------------------
+# Instructions a row, from a built library's SASS
+# ---------------------------------------------------------------------------
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+_MEMORY_OPS = ("LDG", "STG", "LDS", "STS", "LDC", "LDL", "STL", "LD", "ST", "ATOM", "ATOMS",
+               "ATOMG", "RED", "SHFL", "LDSM", "STSM")
+_CONTROL_OPS = ("BRA", "EXIT", "BSSY", "BSYNC", "BAR", "WARPSYNC", "NOP", "CALL", "RET",
+                "YIELD", "BREAK", "S2R", "CS2R", "BPT", "MEMBAR", "ERRBAR", "DEPBAR")
+_FLOAT_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET", "F2I", "I2F",
+              "I2FP", "F2F", "F2FP", "MUFU", "FRND", "FSWZADD")
+
+
+# integer opcodes that the IMAD pipe can run too: an add (IMAD.IADD, IMAD.X),
+# a move (IMAD.MOV), a shift-add (IMAD by a power of two); every other
+# integer opcode (LOP3, SHF, ISETP, PRMT, LEA.HI, ...) runs on the integer
+# ALU alone
+_IMAD_CAPABLE = ("IADD3", "IADD3.X", "MOV", "LEA")
+
+
+def _opcode(text: str) -> str:
+    """A SASS instruction's opcode with its modifiers, its predicate left
+    out."""
+    words = text.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def _op(text: str) -> str:
+    """A SASS instruction's opcode, its predicate and modifiers left out."""
+    return _opcode(text).split(".")[0]
+
+
+def sass_kernel(sass: str, kernel: str) -> List[Tuple[int, str]]:
+    """(address, instruction) of each line of the first function in
+    `cuobjdump -sass`'s text whose mangled name holds `kernel` (a name
+    ending there: quantize_kernel is not quantize_reduce_kernel)."""
+    out: List[Tuple[int, str]] = []
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            name = line.split("Function :", 1)[1].strip()
+            inside = re.search(rf"\d{kernel}E", name) is not None
+            continue
+        m = _SASS_LINE.search(line) if inside else None
+        if m:
+            out.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def sass_class(instr: str) -> str:
+    """One SASS instruction's class: "uniform" (U*, issued once a warp),
+    "memory", "control", "float", "imad" (IMAD and its forms: integer
+    multiply-adds, moves and adds that the compiler puts on the FMA pipe),
+    "integer" (on the integer ALU pipe, which IMAD could run instead: adds,
+    moves, shift-adds) or "alu_only" (the integer ALU pipe's alone: logic,
+    shifts, compares, permutes)."""
+    base = _op(instr)
+    if base.startswith("U"):
+        return "uniform"
+    if base == "IMAD":
+        return "imad"
+    if base in _MEMORY_OPS:
+        return "memory"
+    if base in _CONTROL_OPS:
+        return "control"
+    if base in _FLOAT_OPS or base.startswith("H"):
+        return "float"
+    return "integer" if _opcode(instr) in _IMAD_CAPABLE else "alu_only"
+
+
+def _mix(instrs: List[Tuple[int, str]]) -> Dict[str, float]:
+    """Each `sass_class`'s count, and "alu" (all on the integer ALU pipe),
+    "float_ops" (float32 operations) and "issued" (every instruction)."""
+    out = {"alu_only": 0.0, "integer": 0.0, "imad": 0.0, "float": 0.0, "float_ops": 0.0,
+           "memory": 0.0, "control": 0.0, "uniform": 0.0}
+    for _, ins in instrs:
+        kind = sass_class(ins)
+        out[kind] += 1
+        if kind == "float":  # the float32 peak counts a fused multiply-add as two
+            out["float_ops"] += 2 if _op(ins) == "FFMA" else 1
+    out["alu"] = out["alu_only"] + out["integer"]
+    out["issued"] = float(len(instrs))
+    return out
+
+
+def sass_counts(mix: Mapping[str, float]) -> Dict[str, float]:
+    """The counts a row that the bound reads (`sass_ops`), of one of
+    `row_loop_mix`'s parts."""
+    return {k: mix[k] for k in ("alu_only", "alu", "imad", "float_ops", "issued")}
+
+
+def row_loop_mix(sass: str, kernel: str, holding: str = "LDG",
+                 loads_a_row: int = 2) -> Dict[str, Any]:
+    """Instructions a row of `kernel`'s row loop, by class (`sass_class`),
+    from `cuobjdump -sass`'s text. The row loop is the span of a backward
+    branch that holds the most `holding` instructions (the quantize pass's
+    byte stores, the reduce pass's loads); it reads `loads_a_row` global
+    loads a row, so an unrolled loop counts as several rows. "all" counts
+    every instruction of the span; "skip" leaves out the block that the
+    span's longest predicated forward branch jumps over (the quantize
+    loop's threefry draws, which the nearest mode skips). Only innermost
+    loops count: a rare path that jumps back over the whole body (a warp
+    divergence fallback) holds the row loop and is not it."""
+    ins = sass_kernel(sass, kernel)
+    if not ins:
+        raise ValueError(f"no function {kernel!r} in the SASS")
+
+    def target(text: str) -> Optional[int]:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)\s*$", text)
+        return int(m.group(1), 16) if m else None
+
+    loops = [(t, a) for a, text in ins for t in [target(text)] if t is not None and t <= a]
+    best = None
+    for t, a in loops:
+        if any((t, a) != (t2, a2) and t <= t2 and a2 <= a for t2, a2 in loops):
+            continue  # not innermost: it holds another loop
+        span = [(x, y) for x, y in ins if t <= x <= a]
+        held = sum(_op(y) == holding for _, y in span)
+        if held and (best is None or held > best[0]):
+            best = (held, a, span)
+    if best is None:
+        raise ValueError(f"{kernel}: no loop holds {holding}")
+    _, hi, span = best
+    rows = sum(_op(y) == "LDG" for _, y in span) / loads_a_row
+    if rows <= 0:
+        raise ValueError(f"{kernel}: the loop that holds {holding} loads nothing")
+    skip = (0, 0)
+    for a, text in span:
+        t = target(text)
+        if t is not None and a < t <= hi and text.startswith("@") and t - a > skip[1] - skip[0]:
+            skip = (a, t)
+    kept = [(x, y) for x, y in span if not skip[0] < x < skip[1]]
+    return {"all": {k: v / rows for k, v in _mix(span).items()},
+            "skip": {k: v / rows for k, v in _mix(kept).items()},
+            "rows_an_iteration": rows}
 
 
 # ---------------------------------------------------------------------------

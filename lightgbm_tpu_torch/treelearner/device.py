@@ -45,9 +45,11 @@ Where the card differs from the TPU, with the same results:
   conditional WHILE node runs a body of two waves, each a fixed sequence
   of launches over static shapes captured once for each (K, buffer parity,
   feature mask present), while the carry's `done` word is 0
-  (ops/wave_cuda.py:TreeGraph, csrc/wave_step.cu). Two waves a pass keep
-  the buffer parity fixed: a wave launched after the tree is done selects
-  nothing and changes no output (at most one such wave a tree). The host
+  (ops/wave_cuda.py:TreeGraph, csrc/wave_step.cu; the second wave's
+  replay kernel sets the condition of the next pass, so a pass launches
+  nothing but its waves). Two waves a pass keep the buffer parity fixed:
+  a wave launched after the tree is done selects nothing and changes no
+  output (at most one such wave a tree). The host
   reads no word while the tree grows: `train_async` returns once the tree
   is enqueued, and the tree's split log, leaf count, rows histogrammed,
   wave count and passes reach the host in one copy into a pinned slot of
@@ -482,7 +484,7 @@ class _Grown:
         self.buffers.roots[(masked, bagged)].count(1)
         for cur in (0, 1):
             self.buffers.graphs[(K, cur, masked)].count(passes)
-        TreeGraph.count_condition(passes)
+        TreeGraph.count_condition()
 
     @property
     def waves_launched(self) -> int:

@@ -5,7 +5,17 @@ Contracts:
 * every kernel's (bytes, operations) equals, exactly, the formula the smoke
   (chip_smoke.py) computed inline before the formulas moved here, on
   random shapes; and the bound equals the smoke's former bound (the H100's
-  3.35e12 bytes/s and 67e12 float32 operations/s);
+  3.35e12 bytes/s and 67e12 float32 operations/s); the tree loop's one
+  condition launch reads the done word, and the discretizer's passes add
+  the float32 operations, integer operations and instructions issued that
+  their SASS counts a row, the quantize pass bound by its instruction issue
+  in the main path's stochastic mode;
+* `bound_ms` names the largest of its four terms, the integer one the
+  larger of the ALU-only opcodes and half of every integer one;
+* `row_loop_mix` finds an innermost row loop in SASS text, counts its
+  instructions a row by class (an unrolled loop's rows apart, ALU-only
+  opcodes apart from those IMAD could run) and leaves out the block a
+  predicated forward branch skips;
 * the peak table has the card and no TPU entry;
 * `attribution`'s stage fractions sum to 1 within 1e-9 with an explicit
   "other", and the byte model reads the wave learner's gauges;
@@ -76,9 +86,6 @@ def _old_formulas(s):
                    + n * (2 * (REC - 1) * 4 + 2 * 4 + REC * 4)
                    + n * (2 * REC * 4 + 2 * 4 + STORE * 4 + 3 * 4) + 5 * K * 8
                    + SCALARS * 8, 0),
-        "loop": (3 * 8, 0),
-        "quantize_reduce": (8 * rows + 4 * 3 * 256, 3 * rows),
-        "quantize": (8 * rows + 3 * (rows + 1) + 12 + 4 * 3 * 256, 6 * rows),
     }
 
 
@@ -109,9 +116,6 @@ def _new_formulas(s):
         "find_constrained": pm.find_best_split(F, B, constrained=True),
         "select": pm.wave_select(L, K, out),
         "replay": pm.wave_replay(L, K, n),
-        "loop": pm.tree_loop_cond(),
-        "quantize_reduce": pm.quantize_reduce(rows),
-        "quantize": pm.quantize(rows),
     }
 
 
@@ -123,6 +127,106 @@ def test_formulas_and_bounds_equal_the_smokes_former_ones(seed):
     for key in old:
         assert tuple(new[key]) == tuple(old[key]), key
         assert pm.bound_ms(*new[key], H100) == _old_bound(*old[key]), key
+
+
+def _bound(cost):
+    return pm.bound_ms(*cost[:2], H100, *cost[2:])
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_tree_loop_and_quantize_formulas(seed):
+    """Row 2c: the one condition launch a tree reads the done word. Row Q:
+    the bytes as before, and the float32 operations, integer operations and
+    instructions issued a row of the SASS's row loops; the integer term is
+    the larger of the ALU-only opcodes and half of every integer one (the
+    ALU and IMAD pipes, 132 x 64 x 1.98e9 a second each), the issue term
+    every instruction at 132 x 128 x 1.98e9 a second."""
+    rows = _shapes(seed)["rows"]
+    assert pm.tree_loop_cond() == (8, 0.0)
+    q_bytes = 8 * rows + 3 * (rows + 1) + 12 + 4 * 3 * 256
+    # stochastic: 89 ALU-only of 109 on the ALU and 56 IMAD, 181 issued
+    assert pm.quantize(rows) == (q_bytes, 11 * rows, 89 * rows, 181 * rows)
+    # the reduce loop: 0.5 ALU-only of 3.5, 2.75 IMAD -> half of 6.25
+    assert pm.quantize_reduce(rows) == (8 * rows + 4 * 3 * 256, 9 * rows, 3.125 * rows,
+                                        17.5 * rows)
+    # the nearest mode's counts: half of 7 + 20 integer ones
+    assert pm.sass_ops(rows, pm.QUANTIZE_SASS_A_ROW["nearest"]) == (
+        9 * rows, 13.5 * rows, 41 * rows)
+    i32, issue = 132 * 64 * 1.98e9, 132 * 128 * 1.98e9
+    assert pm.PEAK_I32_OPS_PER_S == {H100: i32}
+    assert pm.PEAK_ISSUE_PER_S == {H100: issue}
+    ms, by = _bound(pm.quantize(rows))
+    assert by == "instruction issue" and ms == 181 * rows / issue * 1e3
+    assert _bound(pm.quantize_reduce(rows))[1] == "bytes"
+    assert _bound(pm.tree_loop_cond()) == (8 / _HBM * 1e3, "bytes")
+    # 1,048,576 rows: ~0.0057 ms of instruction issue, the ALU-only
+    # opcodes' 0.0056 under it, the bytes' 0.0034 further
+    ms, _ = _bound(pm.quantize(1 << 20))
+    assert 0.00566 < ms < 0.00568
+    assert 0.00557 < 89 * (1 << 20) / i32 * 1e3 < 0.00559
+
+
+def test_bound_ms_names_the_largest_term():
+    i32, issue = 132 * 64 * 1.98e9, 132 * 128 * 1.98e9
+    assert pm.bound_ms(1e9, 0, H100) == pm.bound_ms(1e9, 0, H100, 0.0, 0.0)
+    assert pm.bound_ms(1e6, 1e6, H100, 1e9) == (1e9 / i32 * 1e3, "integer operations")
+    assert pm.bound_ms(1e6, 1e6, H100, 1e9, 1.5e9) == (1e9 / i32 * 1e3, "integer operations")
+    assert pm.bound_ms(1e6, 1e6, H100, 1e9, 3e9) == (3e9 / issue * 1e3, "instruction issue")
+    assert pm.bound_ms(1e9, 0, H100, 1e6, 1e6) == (1e9 / _HBM * 1e3, "bytes")
+    assert pm.bound_ms(0, 1e12, H100, 1e6, 1e6) == (1e12 / _F32 * 1e3, "operations")
+    assert pm.bound_ms(0, 0, H100) == (0.0, "bytes")  # a tie names the first
+    assert pm.bound_ms(1e9, 0, "a CPU", 1e9, 1e9) is None
+
+
+_SASS = """
+        Function : _ZN12_GLOBAL__N_115other_kernelEPKf
+        /*0000*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0010*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_114toy_kernelEPKf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   ULDC.64 UR4, c[0x0][0x208] ;
+        /*0020*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0030*/                   LDG.E R5, desc[UR4][R2.64+0x4] ;
+        /*0040*/                   IMAD.IADD R6, R4, 0x1, R5 ;
+        /*0050*/                   LDG.E R8, desc[UR4][R2.64+0x8] ;
+        /*0060*/                   LDG.E R9, desc[UR4][R2.64+0xc] ;
+        /*0070*/              @!P2 BRA 0xb0 ;
+        /*0080*/                   SHF.L.W.U32.HI R6, R6, 0xd, R6 ;
+        /*0090*/                   LOP3.LUT R6, R6, R8, RZ, 0x3c, !PT ;
+        /*00a0*/                   IADD3 R6, R6, 0x1, R9 ;
+        /*00b0*/                   FFMA R7, R6, R4, R5 ;
+        /*00c0*/                   STG.E.U8 desc[UR4][R2.64], R7 ;
+        /*00d0*/                   ISETP.GE.AND P0, PT, R6, R10, PT ;
+        /*00e0*/               @!P0 BRA 0x20 ;
+        /*00f0*/                   BRA 0x0 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+def test_row_loop_mix_counts_the_innermost_row_loop():
+    assert [i for _, i in pm.sass_kernel(_SASS, "other_kernel")][-1] == "EXIT"
+    mix = pm.row_loop_mix(_SASS, "toy_kernel", holding="STG")
+    assert mix["rows_an_iteration"] == 2  # four loads, two a row
+    assert mix["all"] == {"alu_only": 1.5, "integer": 0.5, "alu": 2.0, "imad": 0.5,
+                          "float": 0.5, "float_ops": 1.0, "memory": 2.5, "control": 1.0,
+                          "uniform": 0.0, "issued": 6.5}
+    assert pm.sass_counts(mix["all"]) == {"alu_only": 1.5, "alu": 2.0, "imad": 0.5,
+                                          "float_ops": 1.0, "issued": 6.5}
+    # the predicated branch skips the SHF, LOP3 and IADD3
+    assert mix["skip"]["alu"] == 0.5 and mix["skip"]["alu_only"] == 0.5
+    assert mix["skip"]["imad"] == 0.5 and mix["skip"]["issued"] == 5.0
+    assert [pm.sass_class(i) for i in ("@P0 IMAD.MOV.U32 R1, RZ, RZ, R2", "ULDC UR4, c[0x0]",
+                                       "F2I.TRUNC.NTZ R1, R2", "S2R R0, SR_TID.X",
+                                       "LEA.HI R1, R2, 0x3f800000, RZ, 0x17",
+                                       "LEA R18, P0, R14, UR8, 0x2", "@!P1 IADD3 R1, R2, 0x1, RZ",
+                                       "IADD3.X R1, R1, R8, RZ, PT, PT", "MOV R1, R2",
+                                       "LOP3.LUT R6, R6, R8, RZ, 0x3c, !PT",
+                                       "SHF.L.W.U32.HI R6, R6, 0xd, R6",
+                                       "ISETP.GE.AND P0, PT, R6, R10, PT")] == [
+        "imad", "uniform", "float", "control", "alu_only", "integer", "integer", "integer",
+        "integer", "alu_only", "alu_only", "alu_only"]
+    with pytest.raises(ValueError):
+        pm.row_loop_mix(_SASS, "missing_kernel")
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -159,8 +263,9 @@ def test_peak_table_has_the_card_and_no_tpu(monkeypatch):
                  "NVIDIA H100 NVL", "h100"):
         assert pm.peak_bandwidth_bytes_per_s(kind) is None
         assert pm.bound_ms(1e9, 0, kind) is None
-    markers = list(pm.PEAK_HBM_BYTES_PER_S) + list(pm.PEAK_F32_OPS_PER_S)
-    assert markers == [H100, H100]
+    markers = (list(pm.PEAK_HBM_BYTES_PER_S) + list(pm.PEAK_F32_OPS_PER_S)
+               + list(pm.PEAK_I32_OPS_PER_S))
+    assert markers == [H100, H100, H100]
     bound = pm.bound_ms(1e9, 1e9, H100)
     monkeypatch.setenv("LGBM_TPU_PEAK_BW_GBPS", "2000")
     assert pm.peak_bandwidth_bytes_per_s("anything") == 2e12
